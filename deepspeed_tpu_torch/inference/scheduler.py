@@ -1,0 +1,198 @@
+"""Continuous-batching scheduler (Dynamic SplitFuse).
+
+The port's copy of ``deepspeed_tpu/inference/scheduler.py``. Long prompts
+are cut into chunks so every forward step carries near-constant work; the
+scheduler emits pure steps — a prefill plan ([rows, T] prompt chunks) or a
+decode plan ([max_seqs, 1]) — and the engine alternates them with decode
+windows. With ``pack`` (token-budget packing), a plan carries exactly the
+rows that have work and each row's chunk grows along the page-aligned chunk
+chain (:meth:`program_shape_menu` lists every shape it can emit).
+
+Plans are packed in Python here; the JAX package's native atom builder
+(``csrc/atoms.cpp``) is ported with a later slice, as are its telemetry
+hooks. Importing this module loads no telemetry code.
+"""
+from __future__ import annotations
+
+import numpy as np
+
+from .ragged import SequenceDescriptor, StateManager, StepPlan
+
+
+class SplitFuseScheduler:
+    def __init__(self, state: StateManager, chunk: int, pack: bool = False):
+        self.state = state
+        self.chunk = chunk
+        #: token-budget prefill packing: when fewer than max_seqs rows have
+        #: work, the plan carries exactly those rows and each row's chunk
+        #: grows along the chunk chain to keep rows x T near-constant
+        self.pack = pack
+
+    def _desc(self, kind: str, T: int, entries,
+              use_last_slots=(), n_rows: int | None = None) -> StepPlan:
+        S = n_rows if n_rows is not None else self.state.max_seqs
+        bs = self.state.block_size
+        max_blocks = self.state.max_blocks_per_seq
+        packed = S != self.state.max_seqs
+        plan = StepPlan(
+            kind=kind,
+            token_ids=np.zeros((S, T), np.int32),
+            positions=np.zeros((S, T), np.int32),
+            slot_map=np.zeros((S, T), np.int32),     # trash block slot 0
+            active=np.zeros((S, T), np.uint8),
+            block_tables=np.zeros((S, max_blocks), np.int32),
+            seq_lens=np.zeros(S, np.int32),
+            sample_idx=np.zeros(S, np.int32),
+            do_sample=np.zeros(S, np.uint8),
+            use_last=np.zeros(S, np.uint8),
+            row_slots=np.zeros(S, np.int32),
+            uids=[-1] * S,
+        )
+        # row r of a packed plan serves entries[r]; full plans keep
+        # row == slot
+        row_of = {seq.slot: (r if packed else seq.slot)
+                  for r, (seq, *_) in enumerate(entries)}
+        for s in use_last_slots:
+            plan.use_last[row_of[s]] = 1
+        for seq, toks, start_pos, sample in entries:
+            s = row_of[seq.slot]
+            n = len(toks)
+            pos = np.arange(start_pos, start_pos + n)
+            blocks = np.asarray(seq.blocks, np.int32)
+            plan.token_ids[s, :n] = toks
+            plan.positions[s, :n] = pos
+            # rolling-buffer slot formula (the mod is a no-op for linear
+            # tables)
+            plan.slot_map[s, :n] = blocks[(pos // bs) % max_blocks] * bs \
+                + pos % bs
+            plan.active[s, :n] = 1
+            plan.block_tables[s, :len(blocks)] = blocks
+            plan.seq_lens[s] = start_pos + n
+            plan.sample_idx[s] = n - 1
+            plan.do_sample[s] = sample
+            plan.uids[s] = seq.uid
+            plan.row_slots[s] = seq.slot
+        # empty rows get DISTINCT unused slots: the last-token scatter by
+        # row_slots must never carry duplicate indices
+        if packed or len(entries) < S:
+            used = {seq.slot for seq, *_ in entries}
+            free = (s for s in range(self.state.max_seqs) if s not in used)
+            for r in range(S):
+                if plan.uids[r] < 0:
+                    plan.row_slots[r] = next(free)
+        return plan
+
+    def pending_kinds(self) -> tuple[bool, bool]:
+        """(has_prefill, has_decode) over the scheduled view."""
+        has_prefill = has_decode = False
+        for seq in self.state.seqs.values():
+            if seq.sched_done or seq.slot < 0:
+                continue
+            if seq.pending_sched > 1:
+                has_prefill = True
+            else:
+                has_decode = True
+            if has_prefill and has_decode:
+                break
+        return has_prefill, has_decode
+
+    def program_shape_menu(self) -> list[tuple[int, int]]:
+        """Every (T, n_rows) prefill-plan shape :meth:`next_step` can emit
+        under the current packing config (mirrors the packing math)."""
+        S_max = self.state.max_seqs
+        shapes = {(self.chunk, S_max)}
+        if not self.pack:
+            return sorted(shapes)
+        for k in range(1, S_max):
+            for T in self._chunk_chain(k):
+                shapes.add((T, k))
+        return sorted(shapes)
+
+    def _chunk_chain(self, n_rows: int) -> list[int]:
+        """The T values a packed ``n_rows``-row prefill plan may carry: the
+        budget chunk halved toward the configured chunk, stopping before any
+        value that is not page-aligned (a chunk must start on a page)."""
+        bs = self.state.block_size
+        out = [self.chunk]
+        if self.chunk % bs == 0:
+            T = self.chunk * (self.state.max_seqs // n_rows)
+            while T >= self.chunk and T % bs == 0:
+                out.append(T)
+                T //= 2
+        return out
+
+    def next_step(self, prefer: str | None = None) -> StepPlan | None:
+        """Build the next step plan from the scheduled view, or None if
+        nothing can run. Mixed prefill/decode load alternates pure steps;
+        ``prefer="decode"`` emits the decode plan when both kinds exist. A
+        decode row whose last token is still on the device carries a
+        placeholder with ``use_last`` set."""
+        st = self.state
+        prefill: list[SequenceDescriptor] = []
+        decode: list[SequenceDescriptor] = []
+        for seq in st.seqs.values():
+            if seq.sched_done:
+                continue
+            (prefill if seq.pending_sched > 1 else decode).append(seq)
+
+        # blocks were reserved for prompt + max_new_tokens at admit, so
+        # neither branch can exhaust the pool here
+        if prefill and not (decode and prefer == "decode"):
+            k = min(len(prefill), st.max_seqs)
+            n_rows = st.max_seqs
+            T = self.chunk
+            if self.pack and k < st.max_seqs:
+                n_rows = k
+                chain = self._chunk_chain(n_rows)
+                if len(chain) > 1:
+                    # don't pad a row wider than the largest pending prompt
+                    maxpend = max(s.pending_sched for s in prefill)
+                    T = next((t for t in sorted(chain) if t >= maxpend),
+                             max(chain))
+            entries = []
+            for seq in prefill[:n_rows]:
+                n = min(T, seq.pending_sched)
+                toks = seq.tokens[seq.kv_next:seq.kv_next + n]
+                # sample only when this chunk consumes the last pending token
+                entries.append((seq, toks, seq.kv_next,
+                                n == seq.pending_sched))
+            return self._desc("prefill", T, entries, (), n_rows=n_rows)
+
+        if decode:
+            decode = decode[:st.max_seqs]
+            entries = [(seq, [0] if seq.n_inflight else seq.tokens[-1:],
+                        seq.kv_next, True) for seq in decode]
+            use_last = [seq.slot for seq in decode if seq.n_inflight]
+            return self._desc("decode", 1, entries, use_last)
+        return None
+
+    def mark_dispatched(self, plan: StepPlan) -> None:
+        """Advance the scheduled view for every row of a dispatched plan
+        (``commit`` is the readback-time half)."""
+        for s, uid in enumerate(plan.uids):
+            if uid < 0:
+                continue
+            seq = self.state.seqs[uid]
+            seq.n_sched = seq.kv_next + int(plan.active[s].sum())
+            if plan.do_sample[s]:
+                seq.n_inflight += 1
+        plan.dispatched = True
+
+    def commit(self, plan: StepPlan,
+               sampled: dict[int, int]) -> dict[int, list[int]]:
+        """Advance sequence state after a step ran. ``sampled``: uid → token
+        for every row that had do_sample. Returns uid → tokens accepted by
+        each sequence's stop criteria."""
+        accepted: dict[int, list[int]] = {}
+        for s, uid in enumerate(plan.uids):
+            if uid < 0:
+                continue
+            seq = self.state.seqs.get(uid)
+            if seq is None:         # flushed while the commit was pending
+                continue
+            if plan.dispatched and plan.do_sample[s]:
+                seq.n_inflight -= 1
+            accepted[uid] = seq.commit_generated(
+                [sampled[uid]] if plan.do_sample[s] and uid in sampled
+                else [], int(plan.active[s].sum()))
+        return accepted

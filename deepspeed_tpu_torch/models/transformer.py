@@ -1,0 +1,421 @@
+"""Decoder-only transformer family (GPT-2 / LLaMA / Falcon / Phi / BLOOM).
+
+Counterpart of ``deepspeed_tpu/models/transformer.py``. The configuration
+dataclasses keep the JAX package's fields and defaults; the modules are
+``nn.Module``s whose parameter names and layouts are the flax tree's
+(``embed``, ``pos_embed``, ``layer_{i}/attn/{wq,wk,wv,wo,bq,bk,bv,bo}``,
+``layer_{i}/ln_attn/scale``, ``layer_{i}/ffn/{w_gate,w_up,w_down,b_up,
+b_down}``, ``ln_final``, ``unembed``, ``unembed_b``), so a flax tree loads
+one for one (``inference.weights.params_from_jax``). ``wq`` keeps
+``[E, H, D]`` and ``wo`` ``[H, D, E]``: the projections compute the JAX
+forward's einsums (:func:`proj_heads`, :func:`proj_out`).
+
+The norm, FFN and rotary math live in plain functions over parameter
+dicts (:func:`norm`, :func:`dense_ffn`, :func:`apply_rope`) shared by the
+modules here and the serving engine's ragged forward
+(``inference/engine_v2.py``), the way the JAX engine applies the flax
+``Norm``/``DenseFFN`` modules to its own tree.
+
+This slice serves; parameters are created without gradients. MoE layers and
+the bert-family encoder layout (post-norm, bidirectional, segment
+embeddings) are ported with later slices and raise here.
+"""
+from __future__ import annotations
+
+import dataclasses
+import math
+from dataclasses import dataclass
+from typing import Any
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from ..ops.attention import dot_product_attention
+
+
+@dataclass(frozen=True)
+class MoEConfig:
+    """Mixtral/GShard-style MoE (the JAX package's ``MoEConfig``)."""
+    num_experts: int = 8
+    top_k: int = 2
+    capacity_factor: float = 1.25
+    eval_capacity_factor: float = 2.0
+    min_capacity: int = 4
+    aux_loss_weight: float = 0.01
+    router_z_loss_weight: float = 0.001
+    moe_layer_freq: int = 1
+    moe_layer_pattern: tuple[bool, ...] | None = None
+    dense_ffn_intermediate: int | None = None
+    dropless: bool = False
+    dropless_block_m: int = 128
+    shared_expert_intermediate: int | None = None
+    normalize_gates: bool = True
+
+
+@dataclass(frozen=True)
+class ModelConfig:
+    vocab_size: int = 50257
+    hidden_size: int = 768
+    num_layers: int = 12
+    num_heads: int = 12
+    num_kv_heads: int | None = None          # GQA; None → num_heads
+    intermediate_size: int | None = None     # None → 4*hidden (gpt) / 8/3*hidden (glu)
+    max_seq_len: int = 1024
+    position_embedding: str = "learned"      # learned | rope | alibi
+    rope_theta: float = 10000.0
+    rotary_pct: float = 1.0                  # partial rotary (gpt-neox/phi)
+    norm: str = "layernorm"                  # layernorm | rmsnorm
+    norm_eps: float = 1e-5
+    activation: str = "gelu"                 # gelu (tanh approx) |
+                                             # gelu_exact (erf) | relu |
+                                             # silu_glu (SwiGLU)
+    qkv_bias: bool = False
+    attn_out_bias: bool = False
+    parallel_block: bool = False             # falcon/gpt-j/phi: attn ∥ ffn
+    parallel_block_norms: int = 1            # 2 = separate ln for ffn branch
+    causal: bool = True
+    sliding_window: int | None = None
+    pre_norm: bool = True
+    embed_norm: bool = False                 # bloom: ln right after embed
+    unembed_bias: bool = False               # phi: lm_head bias
+    dropout: float = 0.0
+    type_vocab_size: int = 0
+    tie_embeddings: bool = True
+    moe: MoEConfig | None = None
+    dtype: Any = torch.bfloat16              # compute (and storage) dtype
+    remat: bool = False
+    remat_policy: str = "nothing_saveable"
+    attn_impl: str = "auto"
+
+    @property
+    def kv_heads(self) -> int:
+        return self.num_kv_heads or self.num_heads
+
+    @property
+    def head_dim(self) -> int:
+        return self.hidden_size // self.num_heads
+
+    @property
+    def ffn_size(self) -> int:
+        if self.intermediate_size:
+            return self.intermediate_size
+        if self.activation == "silu_glu":
+            return int(8 * self.hidden_size / 3 // 128 + 1) * 128
+        return 4 * self.hidden_size
+
+
+def dense_ffn_config(cfg: ModelConfig) -> ModelConfig:
+    """Config for the dense FFN of a mixed MoE stack."""
+    if cfg.moe is not None and cfg.moe.dense_ffn_intermediate:
+        return dataclasses.replace(
+            cfg, intermediate_size=cfg.moe.dense_ffn_intermediate)
+    return cfg
+
+
+def check_served_family(cfg: ModelConfig) -> None:
+    """Raise NotImplementedError for model features a later slice ports."""
+    if cfg.moe is not None:
+        raise NotImplementedError(
+            "MoE models are ported with the MoE slice (moe/ and the grouped "
+            "GEMM kernels K3/K5)")
+    if not (cfg.causal and cfg.pre_norm) or cfg.type_vocab_size \
+            or cfg.dropout:
+        raise NotImplementedError(
+            "bert-family encoders (bidirectional, post-norm, segment "
+            "embeddings, dropout) are ported with a later slice")
+    if cfg.remat:
+        raise NotImplementedError("remat is ported with the training slice")
+
+
+# ---------------------------------------------------------------------------
+# plain functions over parameter dicts (shared with the serving engine)
+# ---------------------------------------------------------------------------
+
+def norm(x: torch.Tensor, p, cfg: ModelConfig) -> torch.Tensor:
+    """LayerNorm / RMSNorm with the JAX package's numerics: statistics and
+    the LayerNorm centering in fp32, one downcast, the affine in the input
+    dtype. ``p`` holds ``scale`` (and ``bias`` for layernorm)."""
+    dtype = x.dtype
+    x32 = x.float()
+    if cfg.norm == "rmsnorm":
+        var = x32.square().mean(dim=-1, keepdim=True)
+        inv = torch.rsqrt(var + cfg.norm_eps)
+        return x * inv.to(dtype) * p["scale"].to(dtype)
+    mean = x32.mean(dim=-1, keepdim=True)
+    var = (x32 - mean).square().mean(dim=-1, keepdim=True)
+    inv = torch.rsqrt(var + cfg.norm_eps)
+    normed = ((x32 - mean) * inv).to(dtype)
+    return normed * p["scale"].to(dtype) + p["bias"].to(dtype)
+
+
+def alibi_slopes(num_heads: int, device=None) -> torch.Tensor:
+    """ALiBi per-head slopes: geometric sequence from 2^(-8/n)."""
+    def pow2_slopes(n):
+        start = 2.0 ** (-(2.0 ** -(math.log2(n) - 3)))
+        return [start * (start ** i) for i in range(n)]
+
+    if math.log2(num_heads).is_integer():
+        vals = pow2_slopes(num_heads)
+    else:
+        closest = 2 ** math.floor(math.log2(num_heads))
+        vals = pow2_slopes(closest) + pow2_slopes(2 * closest)[0::2][
+            :num_heads - closest]
+    return torch.tensor(vals, dtype=torch.float32, device=device)
+
+
+def rope(q: torch.Tensor, k: torch.Tensor, positions: torch.Tensor,
+         theta: float) -> tuple[torch.Tensor, torch.Tensor]:
+    """Rotary position embedding on [B, S, H, D] q/k, interleaved pairs
+    (x[..., ::2], x[..., 1::2]) as the JAX package rotates them, in fp32."""
+    d = q.shape[-1]
+    freqs = 1.0 / (theta ** (torch.arange(0, d, 2, dtype=torch.float32,
+                                          device=q.device) / d))
+    angles = positions[..., None].float() * freqs          # [B, S, D/2]
+    cos, sin = torch.cos(angles)[:, :, None, :], torch.sin(angles)[:, :, None, :]
+
+    def rot(x):
+        x1, x2 = x[..., ::2], x[..., 1::2]
+        return torch.stack([x1 * cos - x2 * sin, x2 * cos + x1 * sin],
+                           dim=-1).reshape(x.shape)
+
+    return rot(q.float()).to(q.dtype), rot(k.float()).to(k.dtype)
+
+
+def apply_rope(q, k, positions, theta: float, rotary_pct: float = 1.0):
+    """Full or partial (gpt-neox / phi ``rotary_pct``) rotary embedding."""
+    if rotary_pct >= 1.0:
+        return rope(q, k, positions, theta)
+    d_rot = (int(q.shape[-1] * rotary_pct) // 2) * 2
+    qr, kr = rope(q[..., :d_rot], k[..., :d_rot], positions, theta)
+    return (torch.cat([qr, q[..., d_rot:]], dim=-1),
+            torch.cat([kr, k[..., d_rot:]], dim=-1))
+
+
+def proj_heads(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """``[..., E] @ [E, H, D] -> [..., H, D]`` (the einsum
+    ``...e,ehd->...hd``) as one matrix product over views."""
+    E, H, D = w.shape
+    return (x.reshape(-1, E) @ w.reshape(E, H * D)).reshape(
+        *x.shape[:-1], H, D)
+
+
+def proj_out(o: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """``[..., H, D] @ [H, D, E] -> [..., E]`` (the einsum
+    ``...hd,hde->...e``) as one matrix product over views; ``torch.einsum``
+    copies the permuted weight on every call for this contraction."""
+    H, D, E = w.shape
+    return (o.reshape(-1, H * D) @ w.reshape(H * D, E)).reshape(
+        *o.shape[:-2], E)
+
+
+#: two-matrix FFN activations: ``gelu`` is the tanh approximation
+#: (jax.nn.gelu's default), ``gelu_exact`` the erf form (torch's default)
+_ACTS = {
+    "gelu": lambda x: F.gelu(x, approximate="tanh"),
+    "gelu_exact": F.gelu,
+    "relu": F.relu,
+}
+
+
+def dense_ffn(x: torch.Tensor, p, cfg: ModelConfig) -> torch.Tensor:
+    """SwiGLU or two-matrix FFN over ``p`` (``w_gate``/``w_up``/``w_down``,
+    plus ``b_up``/``b_down`` for the two-matrix form)."""
+    dt = x.dtype
+    if cfg.activation == "silu_glu":
+        h = F.silu(x @ p["w_gate"].to(dt)) * (x @ p["w_up"].to(dt))
+        return h @ p["w_down"].to(dt)
+    h = _ACTS[cfg.activation](x @ p["w_up"].to(dt) + p["b_up"].to(dt))
+    return h @ p["w_down"].to(dt) + p["b_down"].to(dt)
+
+
+# ---------------------------------------------------------------------------
+# modules
+# ---------------------------------------------------------------------------
+
+def _fan_in(shape) -> int:
+    """Fan-in as flax's variance_scaling computes it (in_axis=-2, the
+    leading axes folded into the receptive field)."""
+    return shape[-2] * math.prod(shape[:-2])
+
+
+class _ParamFactory:
+    """Creates a module's parameters on ``device`` in ``dtype`` from one
+    seeded ``torch.Generator`` on that device (never through the host)."""
+
+    def __init__(self, device: torch.device, dtype, seed: int):
+        self.device, self.dtype = device, dtype
+        self.gen = torch.Generator(device=device)
+        self.gen.manual_seed(seed)
+
+    def _p(self, t: torch.Tensor) -> nn.Parameter:
+        return nn.Parameter(t.to(self.dtype), requires_grad=False)
+
+    def normal(self, shape, std: float) -> nn.Parameter:
+        t = torch.randn(shape, generator=self.gen, device=self.device,
+                        dtype=torch.float32)
+        return self._p(t.mul_(std))
+
+    def dense(self, shape) -> nn.Parameter:
+        """Variance-scaling (fan_in, scale 1) normal init."""
+        return self.normal(shape, 1.0 / math.sqrt(_fan_in(shape)))
+
+    def ones(self, shape) -> nn.Parameter:
+        return self._p(torch.ones(shape, device=self.device))
+
+    def zeros(self, shape) -> nn.Parameter:
+        return self._p(torch.zeros(shape, device=self.device))
+
+
+class Norm(nn.Module):
+    def __init__(self, cfg: ModelConfig, pf: _ParamFactory):
+        super().__init__()
+        self.config = cfg
+        self.scale = pf.ones((cfg.hidden_size,))
+        if cfg.norm != "rmsnorm":
+            self.bias = pf.zeros((cfg.hidden_size,))
+
+    def forward(self, x):
+        return norm(x, dict(self.named_parameters()), self.config)
+
+
+class Attention(nn.Module):
+    """Causal self-attention with GQA, RoPE or ALiBi (dense, no cache)."""
+
+    def __init__(self, cfg: ModelConfig, pf: _ParamFactory):
+        super().__init__()
+        self.config = cfg
+        E, H, KV, D = cfg.hidden_size, cfg.num_heads, cfg.kv_heads, cfg.head_dim
+        self.wq = pf.dense((E, H, D))
+        self.wk = pf.dense((E, KV, D))
+        self.wv = pf.dense((E, KV, D))
+        self.wo = pf.dense((H, D, E))
+        if cfg.qkv_bias:
+            self.bq = pf.zeros((H, D))
+            self.bk = pf.zeros((KV, D))
+            self.bv = pf.zeros((KV, D))
+        if cfg.attn_out_bias:
+            self.bo = pf.zeros((E,))
+
+    def forward(self, x, positions):
+        cfg = self.config
+        dt = x.dtype
+        q = proj_heads(x, self.wq.to(dt))
+        k = proj_heads(x, self.wk.to(dt))
+        v = proj_heads(x, self.wv.to(dt))
+        if cfg.qkv_bias:
+            q = q + self.bq.to(dt)
+            k = k + self.bk.to(dt)
+            v = v + self.bv.to(dt)
+        if cfg.position_embedding == "rope":
+            q, k = apply_rope(q, k, positions, cfg.rope_theta, cfg.rotary_pct)
+        bias = None
+        if cfg.position_embedding == "alibi":
+            slopes = alibi_slopes(cfg.num_heads, device=x.device)
+            k_pos = torch.arange(k.shape[1], device=x.device,
+                                 dtype=torch.float32)
+            rel = k_pos[None, None, None, :] - positions.float()[:, None, :, None]
+            bias = slopes[None, :, None, None] * rel
+        out = dot_product_attention(q, k, v, causal=cfg.causal, bias=bias,
+                                    window=cfg.sliding_window)
+        out = proj_out(out, self.wo.to(dt))
+        if cfg.attn_out_bias:
+            out = out + self.bo.to(dt)
+        return out
+
+
+class DenseFFN(nn.Module):
+    def __init__(self, cfg: ModelConfig, pf: _ParamFactory):
+        super().__init__()
+        self.config = cfg
+        E, Fs = cfg.hidden_size, cfg.ffn_size
+        if cfg.activation == "silu_glu":
+            self.w_gate = pf.dense((E, Fs))
+            self.w_up = pf.dense((E, Fs))
+            self.w_down = pf.dense((Fs, E))
+        else:
+            self.w_up = pf.dense((E, Fs))
+            self.w_down = pf.dense((Fs, E))
+            self.b_up = pf.zeros((Fs,))
+            self.b_down = pf.zeros((E,))
+
+    def forward(self, x):
+        return dense_ffn(x, dict(self.named_parameters()), self.config)
+
+
+class Block(nn.Module):
+    """Pre-norm block; ``parallel_block`` runs attention and FFN off one
+    (or, with ``parallel_block_norms=2``, two) norms of the same input."""
+
+    def __init__(self, cfg: ModelConfig, pf: _ParamFactory):
+        super().__init__()
+        self.config = cfg
+        self.ln_attn = Norm(cfg, pf)
+        self.attn = Attention(cfg, pf)
+        if not (cfg.parallel_block and cfg.parallel_block_norms == 1):
+            self.ln_ffn = Norm(cfg, pf)
+        self.ffn = DenseFFN(dense_ffn_config(cfg), pf)
+
+    def forward(self, x, positions):
+        cfg = self.config
+        h = self.ln_attn(x)
+        attn_out = self.attn(h, positions)
+        if cfg.parallel_block:
+            h_ffn = h if cfg.parallel_block_norms == 1 else self.ln_ffn(x)
+            return x + attn_out + self.ffn(h_ffn)
+        x = x + attn_out
+        return x + self.ffn(self.ln_ffn(x))
+
+
+class TransformerLM(nn.Module):
+    """The flagship causal LM. Parameters are created on ``device`` (the
+    CUDA device by default; ``device="cpu"`` for the host) in
+    ``config.dtype`` from a ``torch.Generator`` seeded with ``seed``.
+
+    :meth:`forward` is the dense, non-paged forward — the oracle the
+    serving engine's streams are held against."""
+
+    def __init__(self, config: ModelConfig, *, device=None, seed: int = 0):
+        super().__init__()
+        from ..accelerator import get_device
+
+        check_served_family(config)
+        self.config = cfg = config
+        pf = _ParamFactory(get_device(device), cfg.dtype, seed)
+        E, V = cfg.hidden_size, cfg.vocab_size
+        self.embed = pf.normal((V, E), 0.02)
+        if cfg.position_embedding == "learned":
+            self.pos_embed = pf.normal((cfg.max_seq_len, E), 0.02)
+        if cfg.embed_norm:
+            self.ln_embed = Norm(cfg, pf)
+        for i in range(cfg.num_layers):
+            self.add_module(f"layer_{i}", Block(cfg, pf))
+        self.ln_final = Norm(cfg, pf)
+        if not cfg.tie_embeddings:
+            self.unembed = pf.normal((E, V), 0.02)
+        if cfg.unembed_bias:
+            self.unembed_b = pf.zeros((V,))
+
+    def forward(self, input_ids: torch.Tensor,
+                positions: torch.Tensor | None = None) -> torch.Tensor:
+        """input_ids [B, S] → logits [B, S, V] in ``config.dtype``."""
+        cfg = self.config
+        dt = cfg.dtype
+        B, S = input_ids.shape
+        if positions is None:
+            positions = torch.arange(S, device=input_ids.device).expand(B, S)
+        x = self.embed.to(dt)[input_ids]
+        if cfg.position_embedding == "learned":
+            x = x + self.pos_embed.to(dt)[positions]
+        if cfg.embed_norm:
+            x = self.ln_embed(x)
+        for i in range(cfg.num_layers):
+            x = getattr(self, f"layer_{i}")(x, positions)
+        x = self.ln_final(x)
+        if cfg.tie_embeddings:
+            logits = torch.einsum("bse,ve->bsv", x, self.embed.to(dt))
+        else:
+            logits = x @ self.unembed.to(dt)
+        if cfg.unembed_bias:
+            logits = logits + self.unembed_b.to(dt)
+        return logits

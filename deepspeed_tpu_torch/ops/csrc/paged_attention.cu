@@ -1,0 +1,465 @@
+// Ragged paged attention over a read-only KV pool plus a staged tail (K1).
+//
+// Replaces the TPU kernel `_ragged_attn_kernel` of
+// deepspeed_tpu/ops/pallas/paged_attention.py (entry `paged_ragged_attention`),
+// in its default form: no sliding window, no rolling ring, one pool page per
+// step, no tree-verify mask, a bf16 or fp32 pool.
+//
+// What it computes, for each slot s, KV head h and query row r = t*G + g
+// (query head h*G + g of chunk token t, at position qpos = q_starts[s] + t):
+// one online softmax over two key sources,
+//   1. the pool, key positions c < stage_starts[s]: page block_tables[s, c/bs]
+//      of layer `layer_index`, half 0 (K) / 1 (V), offset c % bs;
+//   2. the stage, key positions stage_starts[s] + i for stage row i, valid
+//      while < seq_lens[s];
+// masked by c <= qpos. Running max m, sum l and accumulator acc are fp32;
+// scores are the fp32 dot times `scale`; p is rounded to V's dtype before the
+// PV product while l sums the unrounded p (the TPU kernel's numerics). The
+// output is acc / l, or zeros for a row that saw no key (an empty slot).
+//
+// What bounds it on an H100: the bytes of K/V it reads. A decode step reads
+// every live page of every slot once per KV head and does ~2 operations per
+// byte, far below the card's ~295 bf16 operations per byte. Prefill chunks
+// reuse each page across up to 16 query rows per block, which moves them
+// towards the operation bound of this scalar (CUDA-core) form.
+//
+// What the design does about it:
+// - One thread block per (slot, KV head, tile of 16 query rows) walks all of
+//   its keys in a loop inside the block; blocks are independent, so no
+//   softmax state crosses blocks (the TPU grid carried it across steps).
+// - All G query heads of a KV head sit in the block's row tile, so each K/V
+//   tile is read from device memory once per KV head, not once per query
+//   head (the TPU kernel's GQA layout).
+// - Keys are walked in tiles of 64 key positions gathered through the block
+//   table, whatever the page size, with 16-byte loads; the q tile, the K/V
+//   tile and the score tile sit in shared memory (K rows padded so a warp
+//   reading 32 rows at one column hits 32 banks).
+// - Keys past a tile's last query position and past seq_lens are never
+//   loaded, so a chunk reads only the causal triangle it needs.
+// A split-K (flash-decoding) grid, cp.async/TMA double buffering and wgmma
+// are later work; this form is the simple, correct one.
+//
+// Built with `nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared
+// -Xcompiler -fPIC` into a plain C library (deepspeed_tpu_torch/ops/kernels.py)
+// and called through ctypes.
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <math.h>
+#include <stdint.h>
+
+namespace {
+
+constexpr int kThreads = 128;   // 4 warps
+constexpr int kRows = 16;       // query rows per block
+constexpr int kKeys = 64;       // key positions per tile
+
+__device__ __forceinline__ float to_f(float x) { return x; }
+__device__ __forceinline__ float to_f(__nv_bfloat16 x) {
+    return __bfloat162float(x);
+}
+template <typename T> __device__ __forceinline__ T from_f(float x);
+template <> __device__ __forceinline__ float from_f<float>(float x) {
+    return x;
+}
+template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(
+        float x) {
+    return __float2bfloat16(x);
+}
+
+// K rows in shared memory carry 4 bytes of padding: an odd row stride in
+// 4-byte words spreads 32 rows read at one column over the 32 banks
+template <typename T> struct Pad { static constexpr int value = 4 / sizeof(T); };
+
+template <typename T, int D>
+struct Smem {
+    static constexpr int kStride = D + Pad<T>::value;   // K row stride (elems)
+    static constexpr size_t q_bytes = size_t(kRows) * D * sizeof(float);
+    static constexpr size_t sc_bytes = size_t(kRows) * kKeys * sizeof(float);
+    static constexpr size_t stat_bytes = 3 * kRows * sizeof(float);
+    static constexpr size_t v_bytes = size_t(kKeys) * D * sizeof(T);
+    static constexpr size_t k_bytes = size_t(kKeys) * kStride * sizeof(T);
+    static constexpr size_t total =
+        q_bytes + sc_bytes + stat_bytes + v_bytes + k_bytes;
+};
+
+// two neighbouring elements of a shared-memory row as floats, one 4-byte
+// read for bf16
+__device__ __forceinline__ float2 load_pair(const float* p) {
+    return make_float2(p[0], p[1]);
+}
+__device__ __forceinline__ float2 load_pair(const __nv_bfloat16* p) {
+    return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p));
+}
+
+// scores of one tile: thread owns key j = tid % kKeys and rows
+// sr + i*SSTEP (sr = tid / kKeys) for i < NR; masked entries are -inf
+template <typename T, int D, int NR>
+__device__ __forceinline__ void tile_scores(const float* q_s, const T* k_s,
+                                            float* sc, int nrows, int len,
+                                            int c_begin, int qstart, int row0,
+                                            int G, float scale) {
+    constexpr int SSTEP = kThreads / kKeys;
+    constexpr int KS = D + Pad<T>::value;
+    const int tid = threadIdx.x;
+    const int j = tid % kKeys, sr = tid / kKeys;
+    float dot[NR];
+#pragma unroll
+    for (int i = 0; i < NR; ++i) dot[i] = 0.f;
+    const T* krow = k_s + j * KS;
+#pragma unroll 4
+    for (int d = 0; d < D; d += 2) {
+        const float2 kk = load_pair(krow + d);
+#pragma unroll
+        for (int i = 0; i < NR; ++i) {
+            const float2 qq = *reinterpret_cast<const float2*>(
+                q_s + (sr + i * SSTEP) * D + d);
+            dot[i] = fmaf(qq.x, kk.x, dot[i]);
+            dot[i] = fmaf(qq.y, kk.y, dot[i]);
+        }
+    }
+    const int c = c_begin + j;
+#pragma unroll
+    for (int i = 0; i < kRows / SSTEP; ++i) {
+        const int ri = sr + i * SSTEP;
+        const bool ok = i < NR && ri < nrows && j < len &&
+                        c <= qstart + (row0 + ri) / G;
+        sc[ri * kKeys + j] = ok ? dot[i < NR ? i : 0] * scale : -INFINITY;
+    }
+}
+
+// acc[i] = acc[i] * alpha + p @ V for the thread's first NR row slots
+// (rows rg + i*RSTEP); columns c0 + cc*COLS
+template <typename T, int D, int NR, int RPT>
+__device__ __forceinline__ void tile_pv(
+        float (&acc)[RPT][D < kThreads ? 1 : D / kThreads], const T* v_s,
+        const float* sc, const float* a_s, int len) {
+    constexpr int COLS = D < kThreads ? D : kThreads;
+    constexpr int RSTEP = kThreads / COLS;
+    constexpr int CPT = D / COLS;
+    const int tid = threadIdx.x;
+    const int c0 = tid % COLS, rg = tid / COLS;
+#pragma unroll
+    for (int i = 0; i < NR; ++i) {
+        const float alpha = a_s[rg + i * RSTEP];
+#pragma unroll
+        for (int cc = 0; cc < CPT; ++cc) acc[i][cc] *= alpha;
+    }
+    for (int j = 0; j < len; ++j) {
+        float v[CPT];
+#pragma unroll
+        for (int cc = 0; cc < CPT; ++cc)
+            v[cc] = to_f(v_s[j * D + c0 + cc * COLS]);
+#pragma unroll
+        for (int i = 0; i < NR; ++i) {
+            const float p = sc[(rg + i * RSTEP) * kKeys + j];
+#pragma unroll
+            for (int cc = 0; cc < CPT; ++cc)
+                acc[i][cc] = fmaf(p, v[cc], acc[i][cc]);
+        }
+    }
+}
+
+template <typename T, int D>
+__global__ void __launch_bounds__(kThreads)
+ragged_paged_attn_kernel(const T* __restrict__ q, const T* __restrict__ pool,
+                         const T* __restrict__ k_stage,
+                         const T* __restrict__ v_stage,
+                         const int* __restrict__ block_tables,
+                         const int* __restrict__ seq_lens,
+                         const int* __restrict__ q_starts,
+                         const int* __restrict__ stage_starts,
+                         T* __restrict__ out, int T_, int H, int KV, int nb,
+                         int bs, int Ts, int max_pages, int layer, float scale) {
+    using S = Smem<T, D>;
+    constexpr int VEC = 16 / sizeof(T);          // elements per 16-byte load
+    constexpr int VPR = D / VEC;                 // 16-byte vectors per row
+    constexpr int COLS = D < kThreads ? D : kThreads;
+    constexpr int RSTEP = kThreads / COLS;       // row groups in the PV loop
+    constexpr int CPT = D / COLS;                // columns per thread
+    constexpr int RPT = kRows / RSTEP;           // rows per thread (PV)
+    constexpr int SSTEP = kThreads / kKeys;      // row groups in the score loop
+    constexpr int SRPT = kRows / SSTEP;          // rows per thread (scores)
+
+    extern __shared__ __align__(16) unsigned char smem[];
+    float* q_s = reinterpret_cast<float*>(smem);
+    float* sc = reinterpret_cast<float*>(smem + S::q_bytes);
+    float* m_s = reinterpret_cast<float*>(smem + S::q_bytes + S::sc_bytes);
+    float* l_s = m_s + kRows;
+    float* a_s = l_s + kRows;
+    T* v_s = reinterpret_cast<T*>(smem + S::q_bytes + S::sc_bytes +
+                                  S::stat_bytes);
+    T* k_s = reinterpret_cast<T*>(smem + S::q_bytes + S::sc_bytes +
+                                  S::stat_bytes + S::v_bytes);
+
+    const int tid = threadIdx.x;
+    const int h = blockIdx.y;
+    const int s = blockIdx.z;
+    const int G = H / KV;
+    const int TG = T_ * G;
+    const int row0 = blockIdx.x * kRows;
+    const int nrows = min(kRows, TG - row0);
+
+    const int seq_len = seq_lens[s];
+    const int qstart = q_starts[s];
+    const int sstart = stage_starts[s];
+    // the last query position of this tile bounds every key it can see
+    const int qmax = qstart + (row0 + nrows - 1) / G;
+
+    // ---- q tile -> shared (fp32), rows t*G + g of head h*G + g ----------
+    for (int idx = tid; idx < kRows * VPR; idx += kThreads) {
+        const int i = idx / VPR, dv = (idx % VPR) * VEC;
+        float* dst = q_s + i * D + dv;
+        if (i < nrows) {
+            const int r = row0 + i, t = r / G, g = r % G;
+            const T* src = q + ((size_t(s) * T_ + t) * H + size_t(h) * G + g) *
+                                   D + dv;
+            uint4 raw = *reinterpret_cast<const uint4*>(src);
+            const T* e = reinterpret_cast<const T*>(&raw);
+#pragma unroll
+            for (int k = 0; k < VEC; ++k) dst[k] = to_f(e[k]);
+        } else {
+#pragma unroll
+            for (int k = 0; k < VEC; ++k) dst[k] = 0.f;
+        }
+    }
+    if (tid < kRows) {
+        m_s[tid] = -INFINITY;
+        l_s[tid] = 0.f;
+        a_s[tid] = 1.f;
+    }
+
+    // PV accumulators: thread owns columns c0 + j*COLS, rows rg + i*RSTEP
+    const int c0 = tid % COLS, rg = tid / COLS;
+    float acc[RPT][CPT];
+#pragma unroll
+    for (int i = 0; i < RPT; ++i)
+#pragma unroll
+        for (int j = 0; j < CPT; ++j) acc[i][j] = 0.f;
+
+    // two key sources, walked in order: pool [0, pool_end), stage
+    // [sstart, stage_end); both clipped to the tile's last query position
+    // (and to the block table's width: positions past it have no page)
+    const int pool_end =
+        seq_len > 0 ? min(min(sstart, qmax + 1), max_pages * bs) : 0;
+    const int stage_end =
+        seq_len > 0 ? min(min(seq_len, sstart + Ts), qmax + 1) : 0;
+    const size_t page_elems = size_t(bs) * D;
+    const size_t half_elems = size_t(KV) * nb * page_elems;
+    const T* k_pool = pool + (size_t(layer) * 2 * KV + h) * nb * page_elems;
+    const T* v_pool = k_pool + half_elems;
+    const T* k_st = k_stage + (size_t(s) * KV + h) * Ts * D;
+    const T* v_st = v_stage + (size_t(s) * KV + h) * Ts * D;
+    const int* table = block_tables + size_t(s) * max_pages;
+
+    const int n_pool_tiles = (pool_end + kKeys - 1) / kKeys;
+    const int n_stage_tiles =
+        stage_end > sstart ? (stage_end - sstart + kKeys - 1) / kKeys : 0;
+    __syncthreads();
+
+    for (int tile = 0; tile < n_pool_tiles + n_stage_tiles; ++tile) {
+        const bool in_pool = tile < n_pool_tiles;
+        const int c_begin =
+            in_pool ? tile * kKeys : sstart + (tile - n_pool_tiles) * kKeys;
+        const int c_end = in_pool ? pool_end : stage_end;
+        const int len = min(kKeys, c_end - c_begin);
+
+        // ---- K/V tile -> shared; keys past `len` are zero-filled ---------
+        for (int idx = tid; idx < kKeys * VPR; idx += kThreads) {
+            const int j = idx / VPR, dv = (idx % VPR) * VEC;
+            uint4 kr = make_uint4(0, 0, 0, 0), vr = make_uint4(0, 0, 0, 0);
+            if (j < len) {
+                const int c = c_begin + j;
+                size_t off;
+                const T *kb, *vb;
+                if (in_pool) {
+                    off = size_t(table[c / bs]) * page_elems +
+                          size_t(c % bs) * D + dv;
+                    kb = k_pool;
+                    vb = v_pool;
+                } else {
+                    off = size_t(c - sstart) * D + dv;
+                    kb = k_st;
+                    vb = v_st;
+                }
+                kr = *reinterpret_cast<const uint4*>(kb + off);
+                vr = *reinterpret_cast<const uint4*>(vb + off);
+            }
+            *reinterpret_cast<uint4*>(v_s + j * D + dv) = vr;
+            uint32_t* kd = reinterpret_cast<uint32_t*>(
+                k_s + j * S::kStride + dv);
+            kd[0] = kr.x;
+            kd[1] = kr.y;
+            kd[2] = kr.z;
+            kd[3] = kr.w;
+        }
+        __syncthreads();
+
+        // ---- scores: thread owns key j, rows sr + i*SSTEP ----------------
+        // (instantiated for the rows this tile really has: a decode tile of
+        // one row must not pay for sixteen)
+        {
+            const int nr = (nrows + SSTEP - 1) / SSTEP;
+            if (nr <= 1)
+                tile_scores<T, D, 1>(q_s, k_s, sc, nrows, len, c_begin, qstart,
+                                     row0, G, scale);
+            else if (nr <= 2)
+                tile_scores<T, D, 2>(q_s, k_s, sc, nrows, len, c_begin, qstart,
+                                     row0, G, scale);
+            else if (nr <= 4)
+                tile_scores<T, D, 4>(q_s, k_s, sc, nrows, len, c_begin, qstart,
+                                     row0, G, scale);
+            else
+                tile_scores<T, D, SRPT>(q_s, k_s, sc, nrows, len, c_begin,
+                                        qstart, row0, G, scale);
+        }
+        __syncthreads();
+
+        // ---- online softmax: one warp per row ------------------------------
+        {
+            const int warp = tid / 32, lane = tid % 32;
+            for (int ri = warp; ri < nrows; ri += kThreads / 32) {
+                float* row = sc + ri * kKeys;
+                float x0 = row[lane], x1 = row[lane + 32];
+                float mx = fmaxf(x0, x1);
+#pragma unroll
+                for (int o = 16; o > 0; o >>= 1)
+                    mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, o));
+                const float m_old = m_s[ri];
+                const float m_new = fmaxf(m_old, mx);
+                float p0 = 0.f, p1 = 0.f, alpha = 1.f;
+                if (m_new != -INFINITY) {
+                    alpha = expf(m_old - m_new);     // exp(-inf) = 0
+                    p0 = expf(x0 - m_new);
+                    p1 = expf(x1 - m_new);
+                }
+                float sum = p0 + p1;
+#pragma unroll
+                for (int o = 16; o > 0; o >>= 1)
+                    sum += __shfl_xor_sync(0xffffffffu, sum, o);
+                // the PV product takes p rounded to V's dtype; l sums the
+                // unrounded p
+                row[lane] = to_f(from_f<T>(p0));
+                row[lane + 32] = to_f(from_f<T>(p1));
+                if (lane == 0) {
+                    l_s[ri] = alpha * l_s[ri] + sum;
+                    m_s[ri] = m_new;
+                    a_s[ri] = alpha;
+                }
+            }
+        }
+        __syncthreads();
+
+        // ---- acc = acc * alpha + p @ V -------------------------------------
+        {
+            const int nr = (nrows + RSTEP - 1) / RSTEP;
+            if (nr <= 1)
+                tile_pv<T, D, 1, RPT>(acc, v_s, sc, a_s, len);
+            else if (nr <= 2)
+                tile_pv<T, D, 2, RPT>(acc, v_s, sc, a_s, len);
+            else if (nr <= 4)
+                tile_pv<T, D, 4, RPT>(acc, v_s, sc, a_s, len);
+            else if (nr <= 8)
+                tile_pv<T, D, (RPT < 8 ? RPT : 8), RPT>(acc, v_s, sc, a_s, len);
+            else
+                tile_pv<T, D, RPT, RPT>(acc, v_s, sc, a_s, len);
+        }
+        __syncthreads();
+    }
+
+    // ---- out = acc / l (zeros where no key was seen) -----------------------
+#pragma unroll
+    for (int i = 0; i < RPT; ++i) {
+        const int ri = rg + i * RSTEP;
+        if (ri >= nrows) continue;
+        const float l = l_s[ri];
+        const int r = row0 + ri, t = r / G, g = r % G;
+        T* dst = out + ((size_t(s) * T_ + t) * H + size_t(h) * G + g) * D;
+#pragma unroll
+        for (int cc = 0; cc < CPT; ++cc) {
+            const int c = c0 + cc * COLS;
+            dst[c] = from_f<T>(l == 0.f ? 0.f : acc[i][cc] / l);
+        }
+    }
+}
+
+template <typename T, int D>
+cudaError_t launch(const void* q, const void* pool, const void* k_stage,
+                   const void* v_stage, const int* block_tables,
+                   const int* seq_lens, const int* q_starts,
+                   const int* stage_starts, void* out, int S_, int T_, int H,
+                   int KV, int nb, int bs, int Ts, int max_pages, int layer,
+                   float scale, cudaStream_t stream) {
+    auto kernel = ragged_paged_attn_kernel<T, D>;
+    constexpr size_t smem = Smem<T, D>::total;
+    static bool configured = false;
+    if (!configured) {
+        cudaError_t err = cudaFuncSetAttribute(
+            kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
+        if (err != cudaSuccess) return err;
+        configured = true;
+    }
+    const int TG = T_ * (H / KV);
+    dim3 grid((TG + kRows - 1) / kRows, KV, S_);
+    kernel<<<grid, kThreads, smem, stream>>>(
+        static_cast<const T*>(q), static_cast<const T*>(pool),
+        static_cast<const T*>(k_stage), static_cast<const T*>(v_stage),
+        block_tables, seq_lens, q_starts, stage_starts, static_cast<T*>(out),
+        T_, H, KV, nb, bs, Ts, max_pages, layer, scale);
+    return cudaGetLastError();
+}
+
+template <typename T>
+cudaError_t dispatch_d(int D, const void* q, const void* pool,
+                       const void* k_stage, const void* v_stage,
+                       const int* block_tables, const int* seq_lens,
+                       const int* q_starts, const int* stage_starts, void* out,
+                       int S_, int T_, int H, int KV, int nb, int bs, int Ts,
+                       int max_pages, int layer, float scale,
+                       cudaStream_t stream) {
+#define DS_K1_CASE(DV)                                                      \
+    case DV:                                                                \
+        return launch<T, DV>(q, pool, k_stage, v_stage, block_tables,       \
+                             seq_lens, q_starts, stage_starts, out, S_, T_, \
+                             H, KV, nb, bs, Ts, max_pages, layer, scale,    \
+                             stream);
+    switch (D) {
+        DS_K1_CASE(64)
+        DS_K1_CASE(128)
+        DS_K1_CASE(256)
+        default:
+            return cudaErrorInvalidValue;
+    }
+#undef DS_K1_CASE
+}
+
+}  // namespace
+
+// dtype: 0 = float32, 1 = bfloat16. Returns the cudaError_t of the launch
+// (0 = success); the launch is asynchronous on `stream`.
+extern "C" int ds_ragged_paged_attention(
+        const void* q, const void* pool, const void* k_stage,
+        const void* v_stage, const void* block_tables, const void* seq_lens,
+        const void* q_starts, const void* stage_starts, void* out, int S_,
+        int T_, int H, int KV, int D, int nb, int bs, int Ts, int max_pages,
+        int layer, float scale, int dtype, void* stream) {
+    if (S_ == 0 || T_ == 0) return 0;
+    if (KV <= 0 || H % KV != 0) return int(cudaErrorInvalidValue);
+    auto st = static_cast<cudaStream_t>(stream);
+    auto bt = static_cast<const int*>(block_tables);
+    auto sl = static_cast<const int*>(seq_lens);
+    auto qs = static_cast<const int*>(q_starts);
+    auto ss = static_cast<const int*>(stage_starts);
+    cudaError_t err;
+    if (dtype == 0)
+        err = dispatch_d<float>(D, q, pool, k_stage, v_stage, bt, sl, qs, ss,
+                                out, S_, T_, H, KV, nb, bs, Ts, max_pages,
+                                layer, scale, st);
+    else if (dtype == 1)
+        err = dispatch_d<__nv_bfloat16>(D, q, pool, k_stage, v_stage, bt, sl,
+                                        qs, ss, out, S_, T_, H, KV, nb, bs, Ts,
+                                        max_pages, layer, scale, st);
+    else
+        err = cudaErrorInvalidValue;
+    return int(err);
+}

@@ -1,0 +1,110 @@
+"""Build and load the port's CUDA kernels.
+
+Every kernel source in ``ops/csrc/`` is compiled on first use by ``nvcc``
+for Hopper (``sm_90a``) into a shared library with a plain C interface,
+which :func:`load` opens with ``ctypes``. PyTorch's headers are kept out of
+the sources, so a build takes seconds rather than minutes. Libraries land in
+``ops/build/`` (listed in ``.gitignore``) under a name that carries a hash of
+the source and the flags, so an edited source is rebuilt and a stale library
+is never loaded.
+
+Nothing here falls back: a missing ``nvcc``, a failed compile or a failed
+load raises.
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import time
+from pathlib import Path
+
+CSRC = Path(__file__).resolve().parent / "csrc"
+BUILD = Path(__file__).resolve().parent / "build"
+
+#: kernel library name -> its source in ``csrc/``
+SOURCES = {"paged_attention": "paged_attention.cu"}
+
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+_loaded: dict[str, ctypes.CDLL] = {}
+
+
+def nvcc() -> str:
+    """Path of the CUDA compiler (``PATH``, else ``CUDA_HOME``, else
+    ``/usr/local/cuda``). Raises RuntimeError when there is none."""
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    home = os.environ.get("CUDA_HOME") or "/usr/local/cuda"
+    cand = Path(home) / "bin" / "nvcc"
+    if cand.is_file():
+        return str(cand)
+    raise RuntimeError("nvcc not found: the CUDA kernels are compiled on the "
+                       "machine with the card (set CUDA_HOME or PATH)")
+
+
+def _lib_path(name: str) -> Path:
+    src = (CSRC / SOURCES[name]).read_bytes()
+    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
+    return BUILD / f"lib{name}_{digest[:16]}.so"
+
+
+def build_all(names=None) -> dict[str, dict]:
+    """Compile the named kernel libraries (all by default) that are not
+    built yet, one ``nvcc`` process per source, all started together.
+    Returns ``{name: {"path", "seconds", "ptxas"}}``; ``ptxas`` is the
+    compiler's register/shared-memory report (empty for a library that was
+    already built). Raises RuntimeError naming every source that failed."""
+    names = list(SOURCES) if names is None else list(names)
+    BUILD.mkdir(parents=True, exist_ok=True)
+    procs = {}
+    out: dict[str, dict] = {}
+    for name in names:
+        path = _lib_path(name)
+        if path.is_file():
+            out[name] = {"path": str(path), "seconds": 0.0, "ptxas": ""}
+            continue
+        tmp = path.with_suffix(f".{os.getpid()}.tmp")
+        cmd = [nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / SOURCES[name])]
+        procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                        stderr=subprocess.STDOUT, text=True),
+                       time.perf_counter(), tmp, path)
+    failed = []
+    for name, (proc, t0, tmp, path) in procs.items():
+        log, _ = proc.communicate()
+        secs = time.perf_counter() - t0
+        if proc.returncode != 0:
+            failed.append(f"{SOURCES[name]} (exit {proc.returncode}):\n{log}")
+            continue
+        os.replace(tmp, path)          # atomic: no reader sees half a file
+        out[name] = {"path": str(path), "seconds": secs, "ptxas": log}
+    if failed:
+        raise RuntimeError("kernel build failed: " + "\n".join(failed))
+    return out
+
+
+def load(name: str) -> ctypes.CDLL:
+    """The loaded kernel library ``name``, built first if needed, with the
+    argument types of its C entry points declared."""
+    lib = _loaded.get(name)
+    if lib is None:
+        path = build_all([name])[name]["path"]
+        lib = ctypes.CDLL(path)
+        _declare(name, lib)
+        _loaded[name] = lib
+    return lib
+
+
+def _declare(name: str, lib: ctypes.CDLL) -> None:
+    p, i = ctypes.c_void_p, ctypes.c_int
+    if name == "paged_attention":
+        fn = lib.ds_ragged_paged_attention
+        # q, pool, k_stage, v_stage, block_tables, seq_lens, q_starts,
+        # stage_starts, out; S, T, H, KV, D, nb, bs, Ts, max_pages, layer;
+        # scale; dtype; stream
+        fn.argtypes = [p] * 9 + [i] * 10 + [ctypes.c_float, i, p]
+        fn.restype = i
