@@ -21,9 +21,14 @@ What differs from the JAX engine: PyTorch runs eagerly, so there are no
 compiled programs to cache, stack layers for or warm (``weight_prefetch`` and
 ``decode_early_exit`` keep their meaning as far as eager execution has one),
 and commits are synchronous — the ``max_inflight=0`` behaviour, with the
-same streams. Features of later slices (quantized weights, speculative
-decoding, an fp8 KV pool, tensor parallelism, KV tiering, telemetry, request
-tracing, sliding windows, MoE) raise NotImplementedError at construction.
+same streams. Features of later slices (speculative decoding, tensor
+parallelism, KV tiering, telemetry, request tracing, sliding windows, MoE)
+raise NotImplementedError at construction.
+
+Quantized serving: ``quant_bits`` (8, 4 or "fp8") turns every matmul weight
+into codes + scales (``ops/quant_matmul.py``) whose products run the
+in-tile-dequant kernel K2; ``kv_cache_dtype="fp8"`` stores the pool as e4m3,
+read by K1's e4m3 form and written through the JAX package's e4m3 cast.
 """
 from __future__ import annotations
 
@@ -41,12 +46,14 @@ from ..models.transformer import (TransformerLM, alibi_slopes, apply_rope,
                                   proj_heads, proj_out)
 from ..ops.paged_attention import (paged_ragged_attention,
                                    paged_ragged_attention_reference)
+from ..ops.quant_matmul import QuantLinear, quant_matmul, quantize_weight, \
+    to_e4m3
 from ..utils.logging import logger
 from .attn_registry import select_attention
 from .ragged import StateManager, StepPlan
 from .sampling import sample_logits
 from .scheduler import SplitFuseScheduler
-from .weights import cast_tree, module_param_tree
+from .weights import cast_tree, module_param_tree, tree_nbytes
 
 
 @dataclass
@@ -91,6 +98,9 @@ class RaggedInferenceConfig:
     kv_cache_dtype: str | None = None
     tp_overlap: bool | None = None
     tp_overlap_min_rows: int = 64
+    #: the JAX engine's switch for its small-M XLA route; K2 takes its
+    #: decode form for M <= 16 rows by itself, so it has no effect here
+    #: (``quant_matmul(small_m_xla=...)`` forces a form)
     quant_small_m_xla: bool | None = None
     spec_decode: str | None = None
     spec_depth: int = 4
@@ -112,11 +122,11 @@ class RaggedInferenceConfig:
 def _refuse_later_slices(cfg: RaggedInferenceConfig, m) -> None:
     """NotImplementedError for every configuration a later slice ports."""
     later = [
-        (cfg.quant_bits, "quant_bits", "quantized serving (kernels K2/K3)"),
         (cfg.spec_decode, "spec_decode",
          "speculative decoding (K1's tree-verify form)"),
-        (cfg.kv_cache_dtype == "fp8", "kv_cache_dtype='fp8'",
-         "the fp8 KV pool (K1's e4m3 form)"),
+        (cfg.quant_bits and cfg.tensor_parallel != 1,
+         "quant_bits with tensor_parallel>1",
+         "tensor parallelism (per-shard quantization)"),
         (cfg.tensor_parallel != 1 or cfg.tp_overlap, "tensor_parallel>1",
          "tensor parallelism"),
         (cfg.kv_tier, "kv_tier", "KV tiering"),
@@ -135,6 +145,9 @@ def _refuse_later_slices(cfg: RaggedInferenceConfig, m) -> None:
     if cfg.kv_cache_dtype not in (None, "fp8"):
         raise ValueError(f"kv_cache_dtype must be None or 'fp8', got "
                          f"{cfg.kv_cache_dtype!r}")
+    if cfg.quant_bits not in (None, 4, 8, "fp8"):
+        raise ValueError(f"quant_bits must be 4, 8 or 'fp8', got "
+                         f"{cfg.quant_bits!r}")
 
 
 class InferenceEngineV2:
@@ -143,7 +156,10 @@ class InferenceEngineV2:
         """``model`` supplies the configuration and, when ``params`` is
         None, the weights (served without a copy when its dtype and device
         match). ``params`` is a parameter tree with the flax tree's names
-        (e.g. ``weights.params_from_jax``)."""
+        (e.g. ``weights.params_from_jax``). Under ``quant_bits`` the
+        engine's tree drops the dense weights it quantizes; the model keeps
+        its own, so a caller that wants their memory back drops the model
+        once the engine is up."""
         if isinstance(config, dict):
             config = RaggedInferenceConfig(**config)
         self.config = cfg = config or RaggedInferenceConfig()
@@ -174,12 +190,17 @@ class InferenceEngineV2:
                    if f"layer_{i}" not in self.params]
         if missing:
             raise ValueError(f"parameter tree lacks layers {missing}")
+        if cfg.quant_bits:
+            self._quantize_weights(cfg.quant_bits)
 
-        # the paged KV pool, [L, 2, KV, num_blocks, block_size, D]; block 0
-        # is the trash block padded tokens write to
+        # the paged KV pool, [L, 2, KV, num_blocks, block_size, D], in the
+        # compute dtype or e4m3; block 0 is the trash block padded tokens
+        # write to
+        kv_dtype = (torch.float8_e4m3fn if cfg.kv_cache_dtype == "fp8"
+                    else cfg.dtype)
         self.kv_pool = torch.zeros(
             (m.num_layers, 2, m.kv_heads, cfg.num_blocks, cfg.block_size,
-             m.head_dim), dtype=cfg.dtype, device=dev)
+             m.head_dim), dtype=kv_dtype, device=dev)
 
         # one attention selection per mode; every decode dispatch counts
         # against it (attn_registry.py)
@@ -189,9 +210,13 @@ class InferenceEngineV2:
             block_size=cfg.block_size, use_kernel=cfg.use_pallas_decode,
             alibi=m.position_embedding == "alibi",
             sm90=dev.type == "cuda" and is_sm90(dev))
-        if self._attn_decode_sel.path == "cuda":
+        if dev.type == "cuda":
             from ..ops import kernels
-            kernels.load("paged_attention")    # builds now; raises on failure
+            # build now; raises on failure
+            if self._attn_decode_sel.path == "cuda":
+                kernels.load("paged_attention")
+            if cfg.quant_bits:
+                kernels.load("quant_matmul")
         self._alibi_slopes = (alibi_slopes(m.num_heads, device=dev)
                               if m.position_embedding == "alibi" else None)
 
@@ -217,6 +242,40 @@ class InferenceEngineV2:
             f"MB max_seqs={cfg.max_seqs} chunk={cfg.chunk} attention={sel}"
             + (f" ({self._attn_decode_sel.reason})"
                if self._attn_decode_sel.reason else ""))
+
+    def _quantize_weights(self, bits) -> None:
+        """Weight-only quantization for serving (the JAX engine's
+        ``_quantize_weights`` on one device): every layer's ``wq``, ``wk``,
+        ``wv``, ``wo``, ``w_gate``, ``w_up`` and ``w_down`` become
+        ``QuantLinear`` codes + scales from the compute-dtype weights, and
+        so does the untied ``unembed``; a tied model keeps its embedding
+        exact for the gather and projects logits through ``logits_q``, a
+        quantized copy of ``embed.T``. The tree drops each dense weight as
+        it is replaced."""
+        m, P = self.mcfg, self.params
+        E = m.hidden_size
+
+        def q2d(w, K):
+            return quantize_weight(w.float().reshape(K, -1), bits=bits)
+
+        before = tree_nbytes(P)
+        for i in range(m.num_layers):
+            layer = P[f"layer_{i}"]
+            a = layer["attn"]
+            for k in ("wq", "wk", "wv"):
+                a[k] = q2d(a[k], E)                       # [E, (H|KV)*D]
+            a["wo"] = q2d(a["wo"], m.num_heads * m.head_dim)
+            f = layer["ffn"]
+            for k in ("w_gate", "w_up"):
+                if k in f:
+                    f[k] = q2d(f[k], E)
+            f["w_down"] = q2d(f["w_down"], f["w_down"].shape[0])
+        if not m.tie_embeddings:
+            P["unembed"] = q2d(P["unembed"], E)
+        else:
+            P["logits_q"] = q2d(P["embed"].t(), E)
+        logger.info(f"engine_v2 quant_bits={bits} weights: "
+                    f"{before / 1e6:.0f}MB -> {tree_nbytes(P) / 1e6:.0f}MB")
 
     # ------------------------------------------------------------------
     # ragged forward
@@ -266,9 +325,9 @@ class InferenceEngineV2:
             p = P[f"layer_{li}"]
             a = p["attn"]
             h = norm(x, p["ln_attn"], m)
-            q = proj_heads(h, a["wq"])                 # [S, T, H, D]
-            k = proj_heads(h, a["wk"])
-            v = proj_heads(h, a["wv"])
+            q = proj_heads(h, a["wq"], m.num_heads)    # [S, T, H, D]
+            k = proj_heads(h, a["wk"], KV)
+            v = proj_heads(h, a["wv"], KV)
             if m.qkv_bias:
                 q, k, v = q + a["bq"], k + a["bk"], v + a["bv"]
             if m.position_embedding == "rope":
@@ -296,8 +355,12 @@ class InferenceEngineV2:
         # norm is row-wise: taking each row's sampled token first is exact
         last = x[torch.arange(S, device=x.device), sample_idx]     # [S, E]
         last = norm(last, P["ln_final"], m)
-        if m.tie_embeddings:
+        if "logits_q" in P:             # tied, quantized: an exact gather
+            logits = quant_matmul(last, P["logits_q"])
+        elif m.tie_embeddings:
             logits = last @ P["embed"].t()
+        elif isinstance(P["unembed"], QuantLinear):
+            logits = quant_matmul(last, P["unembed"])
         else:
             logits = last @ P["unembed"]
         if m.unembed_bias:
@@ -324,7 +387,7 @@ class InferenceEngineV2:
                 *args, block_size=self.config.block_size, layer_index=li)
         return paged_ragged_attention_reference(
             *args, block_size=self.config.block_size, layer_index=li,
-            alibi_slopes=self._alibi_slopes)
+            alibi_slopes=self._alibi_slopes, upcast_pool=True)
 
     def _merge_stage(self, flat_slots, ks, vs):
         """THE pool write: staged K/V rows ``[L, N, KV, D]`` land at flat
@@ -332,11 +395,18 @@ class InferenceEngineV2:
         tokens at the trash block. The JAX engine splits this into
         ``_merge_rows`` / ``_merge_pages`` / ``_merge_stage`` to steer XLA's
         layouts; in PyTorch all three are this one in-place index write on
-        the pool."""
+        the pool. An e4m3 pool takes the rows through :func:`to_e4m3`, the
+        JAX engine's ``astype`` (NaN past the range, where torch's own cast
+        saturates), written as bytes."""
         bs = self.config.block_size
         blk, off = flat_slots // bs, flat_slots % bs
-        self.kv_pool.select(1, 0)[:, :, blk, off] = ks.permute(0, 2, 1, 3)
-        self.kv_pool.select(1, 1)[:, :, blk, off] = vs.permute(0, 2, 1, 3)
+        pool = self.kv_pool
+        if pool.dtype == torch.float8_e4m3fn:
+            pool = pool.view(torch.uint8)
+            ks = to_e4m3(ks).view(torch.uint8)
+            vs = to_e4m3(vs).view(torch.uint8)
+        pool.select(1, 0)[:, :, blk, off] = ks.permute(0, 2, 1, 3)
+        pool.select(1, 1)[:, :, blk, off] = vs.permute(0, 2, 1, 3)
 
     def _sample(self, logits):
         cfg = self.config

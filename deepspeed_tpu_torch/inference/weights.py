@@ -10,6 +10,9 @@ nested dict of tensors with the flax tree's structure and names
 - :func:`module_param_tree` views a port ``TransformerLM``'s own
   parameters as that dict (no copy when dtype and device already match).
 
+A leaf may be a ``QuantLinear`` (codes + scales, ``ops/quant_matmul.py``):
+it moves to the device as it is, never cast.
+
 Layers stay per-layer (``layer_{i}``). The JAX engine stacks them to
 ``lax.scan`` over depth, which bounds its compile time; eager PyTorch loops
 over layers at no such cost, and stacking would copy every weight.
@@ -21,7 +24,11 @@ from typing import Any
 import numpy as np
 import torch
 
+from ..ops.quant_matmul import QuantLinear
+
 Tree = dict[str, Any]
+
+_QUANT_FIELDS = ("data", "scale", "bits", "group_size", "shape", "dtype")
 
 
 def _cast(t: torch.Tensor, dtype, device) -> torch.Tensor:
@@ -30,13 +37,29 @@ def _cast(t: torch.Tensor, dtype, device) -> torch.Tensor:
     return t.to(device=device)
 
 
+def _tensor_from_array(a) -> torch.Tensor:
+    """A numpy or array-like (ml_dtypes' float8_e4m3fn included) as a torch
+    tensor with the same bits."""
+    a = np.array(a)
+    if a.dtype.name == "float8_e4m3fn":
+        return torch.from_numpy(a.view(np.uint8)).view(torch.float8_e4m3fn)
+    return torch.from_numpy(a)
+
+
+def _is_jax_quant_linear(node) -> bool:
+    return type(node).__name__ == "QuantLinear" and all(
+        hasattr(node, f) for f in _QUANT_FIELDS)
+
+
 def params_from_jax(tree, cfg=None, *, dtype=torch.float32,
                     device=None) -> Tree:
     """The JAX package's unboxed parameter tree (nested dicts of numpy or
     array-likes; ``flax.core.meta.unbox`` first) → the same nested dict of
     torch tensors on ``device`` (the CUDA device by default), floating
-    leaves cast to ``dtype``. ``cfg`` (a port ``ModelConfig``), when
-    given, checks that the tree holds every layer of the config."""
+    leaves cast to ``dtype``. A JAX ``QuantLinear`` leaf becomes the port's
+    ``QuantLinear`` with its codes and scales bit for bit. ``cfg`` (a port
+    ``ModelConfig``), when given, checks that the tree holds every layer of
+    the config."""
     from ..accelerator import get_device
 
     dev = get_device(device)
@@ -44,7 +67,13 @@ def params_from_jax(tree, cfg=None, *, dtype=torch.float32,
     def conv(node):
         if isinstance(node, dict):
             return {k: conv(v) for k, v in node.items()}
-        return _cast(torch.from_numpy(np.array(node)), dtype, dev)
+        if _is_jax_quant_linear(node):
+            return QuantLinear(
+                _tensor_from_array(node.data).to(dev),
+                _tensor_from_array(node.scale).to(dev), node.bits,
+                int(node.group_size), tuple(int(d) for d in node.shape),
+                getattr(torch, np.dtype(node.dtype).name))
+        return _cast(_tensor_from_array(node), dtype, dev)
 
     out = conv(dict(tree))
     if cfg is not None:
@@ -56,10 +85,16 @@ def params_from_jax(tree, cfg=None, *, dtype=torch.float32,
 
 def cast_tree(tree: Tree, *, dtype, device) -> Tree:
     """A parameter tree with floating leaves cast to ``dtype`` on ``device``
-    (leaves already there are kept, not copied)."""
-    return {k: cast_tree(v, dtype=dtype, device=device)
-            if isinstance(v, dict) else _cast(v, dtype, device)
-            for k, v in tree.items()}
+    (leaves already there are kept, not copied); ``QuantLinear`` leaves only
+    move to ``device``."""
+    def conv(v):
+        if isinstance(v, dict):
+            return cast_tree(v, dtype=dtype, device=device)
+        if isinstance(v, QuantLinear):
+            return v.to(device)
+        return _cast(v, dtype, device)
+
+    return {k: conv(v) for k, v in tree.items()}
 
 
 def module_param_tree(module: torch.nn.Module, *, dtype=None,
@@ -77,6 +112,20 @@ def module_param_tree(module: torch.nn.Module, *, dtype=None,
         t = p.detach()
         node[leaf] = _cast(t, dtype or t.dtype, device or t.device)
     return out
+
+
+def tree_nbytes(tree: Tree) -> int:
+    """Bytes of every tensor in a parameter tree (codes + scales for a
+    ``QuantLinear``)."""
+    total = 0
+    for v in tree.values():
+        if isinstance(v, dict):
+            total += tree_nbytes(v)
+        elif isinstance(v, QuantLinear):
+            total += v.nbytes
+        else:
+            total += v.numel() * v.element_size()
+    return total
 
 
 def flatten_tree(tree: Tree, prefix: str = "") -> dict[str, torch.Tensor]:

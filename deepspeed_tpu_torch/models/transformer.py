@@ -32,6 +32,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..ops.attention import dot_product_attention
+from ..ops.quant_matmul import QuantLinear, quant_matmul
 
 
 @dataclass(frozen=True)
@@ -192,18 +193,33 @@ def apply_rope(q, k, positions, theta: float, rotary_pct: float = 1.0):
             torch.cat([kr, k[..., d_rot:]], dim=-1))
 
 
-def proj_heads(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+def _qmm(x: torch.Tensor, w: QuantLinear) -> torch.Tensor:
+    """``[..., K] @ dequant(w) -> [..., N]`` through the quantized-weight
+    kernel (K2), in x's dtype."""
+    y = quant_matmul(x.reshape(-1, x.shape[-1]).contiguous(), w)
+    return y.reshape(*x.shape[:-1], y.shape[-1]).to(x.dtype)
+
+
+def proj_heads(x: torch.Tensor, w, num_heads: int | None = None
+               ) -> torch.Tensor:
     """``[..., E] @ [E, H, D] -> [..., H, D]`` (the einsum
-    ``...e,ehd->...hd``) as one matrix product over views."""
+    ``...e,ehd->...hd``) as one matrix product over views. A
+    ``QuantLinear`` ``w`` holds ``[E, H*D]`` and takes ``num_heads``."""
+    if isinstance(w, QuantLinear):
+        y = _qmm(x, w)
+        return y.reshape(*x.shape[:-1], num_heads, -1)
     E, H, D = w.shape
     return (x.reshape(-1, E) @ w.reshape(E, H * D)).reshape(
         *x.shape[:-1], H, D)
 
 
-def proj_out(o: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+def proj_out(o: torch.Tensor, w) -> torch.Tensor:
     """``[..., H, D] @ [H, D, E] -> [..., E]`` (the einsum
     ``...hd,hde->...e``) as one matrix product over views; ``torch.einsum``
-    copies the permuted weight on every call for this contraction."""
+    copies the permuted weight on every call for this contraction. A
+    ``QuantLinear`` ``w`` holds ``[H*D, E]``."""
+    if isinstance(w, QuantLinear):
+        return _qmm(o.reshape(*o.shape[:-2], -1), w)
     H, D, E = w.shape
     return (o.reshape(-1, H * D) @ w.reshape(H * D, E)).reshape(
         *o.shape[:-2], E)
@@ -220,13 +236,19 @@ _ACTS = {
 
 def dense_ffn(x: torch.Tensor, p, cfg: ModelConfig) -> torch.Tensor:
     """SwiGLU or two-matrix FFN over ``p`` (``w_gate``/``w_up``/``w_down``,
-    plus ``b_up``/``b_down`` for the two-matrix form)."""
+    plus ``b_up``/``b_down`` for the two-matrix form). ``QuantLinear``
+    weights run the quantized-weight kernel, as the JAX engine's quantized
+    FFN branch does."""
     dt = x.dtype
+
+    def mm(h, w):
+        return _qmm(h, w) if isinstance(w, QuantLinear) else h @ w.to(dt)
+
     if cfg.activation == "silu_glu":
-        h = F.silu(x @ p["w_gate"].to(dt)) * (x @ p["w_up"].to(dt))
-        return h @ p["w_down"].to(dt)
-    h = _ACTS[cfg.activation](x @ p["w_up"].to(dt) + p["b_up"].to(dt))
-    return h @ p["w_down"].to(dt) + p["b_down"].to(dt)
+        h = F.silu(mm(x, p["w_gate"])) * mm(x, p["w_up"])
+        return mm(h, p["w_down"])
+    h = _ACTS[cfg.activation](mm(x, p["w_up"]) + p["b_up"].to(dt))
+    return mm(h, p["w_down"]) + p["b_down"].to(dt)
 
 
 # ---------------------------------------------------------------------------

@@ -2,8 +2,9 @@
 //
 // Replaces the TPU kernel `_ragged_attn_kernel` of
 // deepspeed_tpu/ops/pallas/paged_attention.py (entry `paged_ragged_attention`),
-// in its default form: no sliding window, no rolling ring, one pool page per
-// step, no tree-verify mask, a bf16 or fp32 pool.
+// in its default form (no sliding window, no rolling ring, one pool page per
+// step, no tree-verify mask) over a pool of q's dtype (bf16 or fp32) or of
+// e4m3 codes.
 //
 // What it computes, for each slot s, KV head h and query row r = t*G + g
 // (query head h*G + g of chunk token t, at position qpos = q_starts[s] + t):
@@ -16,6 +17,16 @@
 // scores are the fp32 dot times `scale`; p is rounded to V's dtype before the
 // PV product while l sums the unrounded p (the TPU kernel's numerics). The
 // output is acc / l, or zeros for a row that saw no key (an empty slot).
+//
+// The e4m3-pool form (`kv_cache_dtype="fp8"`) keeps the TPU kernel's algebra
+// for it (`p_scale` and the q cast of `_ragged_attn_kernel`): pool keys score
+// against q rounded to e4m3; p is multiplied by 448 (e4m3's largest value,
+// so long-context weights stay out of its subnormal range) for every key,
+// pool and stage alike, l sums that scaled p, and p is rounded to e4m3 for
+// the pool keys' PV product and to q's dtype for the stage keys'. Pool pages
+// are read as one byte per element and widened to q's dtype in shared
+// memory, which is exact. Casts to e4m3 follow `__NV_NOSAT` (NaN past the
+// range, as JAX's cast), though q and p never exceed 448.
 //
 // What bounds it on an H100: the bytes of K/V it reads. A decode step reads
 // every live page of every slot once per KV head and does ~2 operations per
@@ -44,9 +55,13 @@
 // and called through ctypes.
 
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
+#include <cuda_fp8.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 namespace {
 
@@ -67,14 +82,45 @@ template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(
     return __float2bfloat16(x);
 }
 
+__device__ __forceinline__ float e4m3_to_f(__nv_fp8_storage_t b) {
+    const __half_raw h = __nv_cvt_fp8_to_halfraw(b, __NV_E4M3);
+    return __half2float(__half(h));
+}
+// x rounded to e4m3 (nearest even; NaN past the range) and read back
+__device__ __forceinline__ float e4m3_round(float x) {
+    return e4m3_to_f(__nv_cvt_float_to_fp8(x, __NV_NOSAT, __NV_E4M3));
+}
+// 16 / sizeof(T) e4m3 codes at p, widened to T and packed into 16 bytes
+template <typename T>
+__device__ __forceinline__ uint4 widen_e4m3(const uint8_t* p) {
+    constexpr int N = 16 / sizeof(T);
+    uint32_t w[2] = {0u, 0u};
+    if constexpr (N == 8) {
+        const uint2 v = *reinterpret_cast<const uint2*>(p);
+        w[0] = v.x;
+        w[1] = v.y;
+    } else {
+        w[0] = *reinterpret_cast<const uint32_t*>(p);
+    }
+    uint4 r;
+    T* e = reinterpret_cast<T*>(&r);
+#pragma unroll
+    for (int i = 0; i < N; ++i)
+        e[i] = from_f<T>(e4m3_to_f(
+            static_cast<__nv_fp8_storage_t>(w[i / 4] >> (8 * (i % 4)))));
+    return r;
+}
+
 // K rows in shared memory carry 4 bytes of padding: an odd row stride in
 // 4-byte words spreads 32 rows read at one column over the 32 banks
 template <typename T> struct Pad { static constexpr int value = 4 / sizeof(T); };
 
-template <typename T, int D>
+template <typename T, bool FP8, int D>
 struct Smem {
     static constexpr int kStride = D + Pad<T>::value;   // K row stride (elems)
-    static constexpr size_t q_bytes = size_t(kRows) * D * sizeof(float);
+    // q, and for an e4m3 pool a second copy rounded to e4m3 (fp32 both)
+    static constexpr size_t q_bytes =
+        size_t(FP8 ? 2 : 1) * kRows * D * sizeof(float);
     static constexpr size_t sc_bytes = size_t(kRows) * kKeys * sizeof(float);
     static constexpr size_t stat_bytes = 3 * kRows * sizeof(float);
     static constexpr size_t v_bytes = size_t(kKeys) * D * sizeof(T);
@@ -160,9 +206,12 @@ __device__ __forceinline__ void tile_pv(
     }
 }
 
-template <typename T, int D>
+// P: the pool's element type, T itself or the e4m3 byte
+template <typename T, bool FP8, int D>
 __global__ void __launch_bounds__(kThreads)
-ragged_paged_attn_kernel(const T* __restrict__ q, const T* __restrict__ pool,
+ragged_paged_attn_kernel(const T* __restrict__ q,
+                         const std::conditional_t<FP8, uint8_t, T>* __restrict__
+                             pool,
                          const T* __restrict__ k_stage,
                          const T* __restrict__ v_stage,
                          const int* __restrict__ block_tables,
@@ -171,7 +220,8 @@ ragged_paged_attn_kernel(const T* __restrict__ q, const T* __restrict__ pool,
                          const int* __restrict__ stage_starts,
                          T* __restrict__ out, int T_, int H, int KV, int nb,
                          int bs, int Ts, int max_pages, int layer, float scale) {
-    using S = Smem<T, D>;
+    using S = Smem<T, FP8, D>;
+    using P = std::conditional_t<FP8, uint8_t, T>;
     constexpr int VEC = 16 / sizeof(T);          // elements per 16-byte load
     constexpr int VPR = D / VEC;                 // 16-byte vectors per row
     constexpr int COLS = D < kThreads ? D : kThreads;
@@ -183,6 +233,7 @@ ragged_paged_attn_kernel(const T* __restrict__ q, const T* __restrict__ pool,
 
     extern __shared__ __align__(16) unsigned char smem[];
     float* q_s = reinterpret_cast<float*>(smem);
+    float* q8_s = q_s + kRows * D;      // e4m3-rounded q (FP8 only)
     float* sc = reinterpret_cast<float*>(smem + S::q_bytes);
     float* m_s = reinterpret_cast<float*>(smem + S::q_bytes + S::sc_bytes);
     float* l_s = m_s + kRows;
@@ -218,9 +269,18 @@ ragged_paged_attn_kernel(const T* __restrict__ q, const T* __restrict__ pool,
             const T* e = reinterpret_cast<const T*>(&raw);
 #pragma unroll
             for (int k = 0; k < VEC; ++k) dst[k] = to_f(e[k]);
+            if constexpr (FP8) {
+#pragma unroll
+                for (int k = 0; k < VEC; ++k)
+                    dst[kRows * D + k] = e4m3_round(dst[k]);
+            }
         } else {
 #pragma unroll
             for (int k = 0; k < VEC; ++k) dst[k] = 0.f;
+            if constexpr (FP8) {
+#pragma unroll
+                for (int k = 0; k < VEC; ++k) dst[kRows * D + k] = 0.f;
+            }
         }
     }
     if (tid < kRows) {
@@ -246,8 +306,8 @@ ragged_paged_attn_kernel(const T* __restrict__ q, const T* __restrict__ pool,
         seq_len > 0 ? min(min(seq_len, sstart + Ts), qmax + 1) : 0;
     const size_t page_elems = size_t(bs) * D;
     const size_t half_elems = size_t(KV) * nb * page_elems;
-    const T* k_pool = pool + (size_t(layer) * 2 * KV + h) * nb * page_elems;
-    const T* v_pool = k_pool + half_elems;
+    const P* k_pool = pool + (size_t(layer) * 2 * KV + h) * nb * page_elems;
+    const P* v_pool = k_pool + half_elems;
     const T* k_st = k_stage + (size_t(s) * KV + h) * Ts * D;
     const T* v_st = v_stage + (size_t(s) * KV + h) * Ts * D;
     const int* table = block_tables + size_t(s) * max_pages;
@@ -270,20 +330,21 @@ ragged_paged_attn_kernel(const T* __restrict__ q, const T* __restrict__ pool,
             uint4 kr = make_uint4(0, 0, 0, 0), vr = make_uint4(0, 0, 0, 0);
             if (j < len) {
                 const int c = c_begin + j;
-                size_t off;
-                const T *kb, *vb;
                 if (in_pool) {
-                    off = size_t(table[c / bs]) * page_elems +
-                          size_t(c % bs) * D + dv;
-                    kb = k_pool;
-                    vb = v_pool;
+                    const size_t off = size_t(table[c / bs]) * page_elems +
+                                       size_t(c % bs) * D + dv;
+                    if constexpr (FP8) {
+                        kr = widen_e4m3<T>(k_pool + off);
+                        vr = widen_e4m3<T>(v_pool + off);
+                    } else {
+                        kr = *reinterpret_cast<const uint4*>(k_pool + off);
+                        vr = *reinterpret_cast<const uint4*>(v_pool + off);
+                    }
                 } else {
-                    off = size_t(c - sstart) * D + dv;
-                    kb = k_st;
-                    vb = v_st;
+                    const size_t off = size_t(c - sstart) * D + dv;
+                    kr = *reinterpret_cast<const uint4*>(k_st + off);
+                    vr = *reinterpret_cast<const uint4*>(v_st + off);
                 }
-                kr = *reinterpret_cast<const uint4*>(kb + off);
-                vr = *reinterpret_cast<const uint4*>(vb + off);
             }
             *reinterpret_cast<uint4*>(v_s + j * D + dv) = vr;
             uint32_t* kd = reinterpret_cast<uint32_t*>(
@@ -297,20 +358,22 @@ ragged_paged_attn_kernel(const T* __restrict__ q, const T* __restrict__ pool,
 
         // ---- scores: thread owns key j, rows sr + i*SSTEP ----------------
         // (instantiated for the rows this tile really has: a decode tile of
-        // one row must not pay for sixteen)
+        // one row must not pay for sixteen); e4m3 pool keys score against
+        // the e4m3-rounded q
         {
+            const float* qt = (FP8 && in_pool) ? q8_s : q_s;
             const int nr = (nrows + SSTEP - 1) / SSTEP;
             if (nr <= 1)
-                tile_scores<T, D, 1>(q_s, k_s, sc, nrows, len, c_begin, qstart,
+                tile_scores<T, D, 1>(qt, k_s, sc, nrows, len, c_begin, qstart,
                                      row0, G, scale);
             else if (nr <= 2)
-                tile_scores<T, D, 2>(q_s, k_s, sc, nrows, len, c_begin, qstart,
+                tile_scores<T, D, 2>(qt, k_s, sc, nrows, len, c_begin, qstart,
                                      row0, G, scale);
             else if (nr <= 4)
-                tile_scores<T, D, 4>(q_s, k_s, sc, nrows, len, c_begin, qstart,
+                tile_scores<T, D, 4>(qt, k_s, sc, nrows, len, c_begin, qstart,
                                      row0, G, scale);
             else
-                tile_scores<T, D, SRPT>(q_s, k_s, sc, nrows, len, c_begin,
+                tile_scores<T, D, SRPT>(qt, k_s, sc, nrows, len, c_begin,
                                         qstart, row0, G, scale);
         }
         __syncthreads();
@@ -327,20 +390,28 @@ ragged_paged_attn_kernel(const T* __restrict__ q, const T* __restrict__ pool,
                     mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, o));
                 const float m_old = m_s[ri];
                 const float m_new = fmaxf(m_old, mx);
+                // an e4m3 pool scales p by 448 for every key (constant
+                // across tiles, so alpha's rescaling is unchanged)
+                constexpr float p_scale = FP8 ? 448.f : 1.f;
                 float p0 = 0.f, p1 = 0.f, alpha = 1.f;
                 if (m_new != -INFINITY) {
                     alpha = expf(m_old - m_new);     // exp(-inf) = 0
-                    p0 = expf(x0 - m_new);
-                    p1 = expf(x1 - m_new);
+                    p0 = expf(x0 - m_new) * p_scale;
+                    p1 = expf(x1 - m_new) * p_scale;
                 }
                 float sum = p0 + p1;
 #pragma unroll
                 for (int o = 16; o > 0; o >>= 1)
                     sum += __shfl_xor_sync(0xffffffffu, sum, o);
-                // the PV product takes p rounded to V's dtype; l sums the
-                // unrounded p
-                row[lane] = to_f(from_f<T>(p0));
-                row[lane + 32] = to_f(from_f<T>(p1));
+                // the PV product takes p rounded to V's dtype (e4m3 for
+                // pool keys of an e4m3 pool); l sums the unrounded p
+                if (FP8 && in_pool) {
+                    row[lane] = e4m3_round(p0);
+                    row[lane + 32] = e4m3_round(p1);
+                } else {
+                    row[lane] = to_f(from_f<T>(p0));
+                    row[lane + 32] = to_f(from_f<T>(p1));
+                }
                 if (lane == 0) {
                     l_s[ri] = alpha * l_s[ri] + sum;
                     m_s[ri] = m_new;
@@ -383,15 +454,16 @@ ragged_paged_attn_kernel(const T* __restrict__ q, const T* __restrict__ pool,
     }
 }
 
-template <typename T, int D>
+template <typename T, bool FP8, int D>
 cudaError_t launch(const void* q, const void* pool, const void* k_stage,
                    const void* v_stage, const int* block_tables,
                    const int* seq_lens, const int* q_starts,
                    const int* stage_starts, void* out, int S_, int T_, int H,
                    int KV, int nb, int bs, int Ts, int max_pages, int layer,
                    float scale, cudaStream_t stream) {
-    auto kernel = ragged_paged_attn_kernel<T, D>;
-    constexpr size_t smem = Smem<T, D>::total;
+    using P = std::conditional_t<FP8, uint8_t, T>;
+    auto kernel = ragged_paged_attn_kernel<T, FP8, D>;
+    constexpr size_t smem = Smem<T, FP8, D>::total;
     static bool configured = false;
     if (!configured) {
         cudaError_t err = cudaFuncSetAttribute(
@@ -402,14 +474,14 @@ cudaError_t launch(const void* q, const void* pool, const void* k_stage,
     const int TG = T_ * (H / KV);
     dim3 grid((TG + kRows - 1) / kRows, KV, S_);
     kernel<<<grid, kThreads, smem, stream>>>(
-        static_cast<const T*>(q), static_cast<const T*>(pool),
+        static_cast<const T*>(q), static_cast<const P*>(pool),
         static_cast<const T*>(k_stage), static_cast<const T*>(v_stage),
         block_tables, seq_lens, q_starts, stage_starts, static_cast<T*>(out),
         T_, H, KV, nb, bs, Ts, max_pages, layer, scale);
     return cudaGetLastError();
 }
 
-template <typename T>
+template <typename T, bool FP8>
 cudaError_t dispatch_d(int D, const void* q, const void* pool,
                        const void* k_stage, const void* v_stage,
                        const int* block_tables, const int* seq_lens,
@@ -419,7 +491,7 @@ cudaError_t dispatch_d(int D, const void* q, const void* pool,
                        cudaStream_t stream) {
 #define DS_K1_CASE(DV)                                                      \
     case DV:                                                                \
-        return launch<T, DV>(q, pool, k_stage, v_stage, block_tables,       \
+        return launch<T, FP8, DV>(q, pool, k_stage, v_stage, block_tables,       \
                              seq_lens, q_starts, stage_starts, out, S_, T_, \
                              H, KV, nb, bs, Ts, max_pages, layer, scale,    \
                              stream);
@@ -435,14 +507,16 @@ cudaError_t dispatch_d(int D, const void* q, const void* pool,
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16. Returns the cudaError_t of the launch
-// (0 = success); the launch is asynchronous on `stream`.
+// dtype: 0 = float32, 1 = bfloat16 (of q, the stage and out); pool_e4m3: 0
+// = the pool has q's dtype, 1 = the pool holds e4m3 codes. Returns the
+// cudaError_t of the launch (0 = success); the launch is asynchronous on
+// `stream`.
 extern "C" int ds_ragged_paged_attention(
         const void* q, const void* pool, const void* k_stage,
         const void* v_stage, const void* block_tables, const void* seq_lens,
         const void* q_starts, const void* stage_starts, void* out, int S_,
         int T_, int H, int KV, int D, int nb, int bs, int Ts, int max_pages,
-        int layer, float scale, int dtype, void* stream) {
+        int layer, float scale, int dtype, int pool_e4m3, void* stream) {
     if (S_ == 0 || T_ == 0) return 0;
     if (KV <= 0 || H % KV != 0) return int(cudaErrorInvalidValue);
     auto st = static_cast<cudaStream_t>(stream);
@@ -450,16 +524,21 @@ extern "C" int ds_ragged_paged_attention(
     auto sl = static_cast<const int*>(seq_lens);
     auto qs = static_cast<const int*>(q_starts);
     auto ss = static_cast<const int*>(stage_starts);
+#define DS_K1_DTYPE(TYPE, FP8)                                                \
+    dispatch_d<TYPE, FP8>(D, q, pool, k_stage, v_stage, bt, sl, qs, ss, out, \
+                          S_, T_, H, KV, nb, bs, Ts, max_pages, layer, scale, \
+                          st)
     cudaError_t err;
-    if (dtype == 0)
-        err = dispatch_d<float>(D, q, pool, k_stage, v_stage, bt, sl, qs, ss,
-                                out, S_, T_, H, KV, nb, bs, Ts, max_pages,
-                                layer, scale, st);
+    if (dtype == 0 && !pool_e4m3)
+        err = DS_K1_DTYPE(float, false);
+    else if (dtype == 0)
+        err = DS_K1_DTYPE(float, true);
+    else if (dtype == 1 && !pool_e4m3)
+        err = DS_K1_DTYPE(__nv_bfloat16, false);
     else if (dtype == 1)
-        err = dispatch_d<__nv_bfloat16>(D, q, pool, k_stage, v_stage, bt, sl,
-                                        qs, ss, out, S_, T_, H, KV, nb, bs, Ts,
-                                        max_pages, layer, scale, st);
+        err = DS_K1_DTYPE(__nv_bfloat16, true);
     else
         err = cudaErrorInvalidValue;
+#undef DS_K1_DTYPE
     return int(err);
 }

@@ -25,7 +25,8 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD = Path(__file__).resolve().parent / "build"
 
 #: kernel library name -> its source in ``csrc/``
-SOURCES = {"paged_attention": "paged_attention.cu"}
+SOURCES = {"paged_attention": "paged_attention.cu",
+           "quant_matmul": "quant_matmul.cu"}
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -100,11 +101,17 @@ def load(name: str) -> ctypes.CDLL:
 
 
 def _declare(name: str, lib: ctypes.CDLL) -> None:
-    p, i = ctypes.c_void_p, ctypes.c_int
+    p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
     if name == "paged_attention":
         fn = lib.ds_ragged_paged_attention
         # q, pool, k_stage, v_stage, block_tables, seq_lens, q_starts,
         # stage_starts, out; S, T, H, KV, D, nb, bs, Ts, max_pages, layer;
-        # scale; dtype; stream
-        fn.argtypes = [p] * 9 + [i] * 10 + [ctypes.c_float, i, p]
+        # scale; dtype, pool_e4m3; stream
+        fn.argtypes = [p] * 9 + [i] * 10 + [ctypes.c_float, i, i, p]
+        fn.restype = i
+    elif name == "quant_matmul":
+        fn = lib.ds_quant_matmul
+        # x, codes, scale, out, workspace; M, K, Np, G, fmt, dtype, layer;
+        # codes / scale layer strides; decode, MR, KB, splits; stream
+        fn.argtypes = [p] * 5 + [i] * 7 + [ll, ll] + [i] * 4 + [p]
         fn.restype = i

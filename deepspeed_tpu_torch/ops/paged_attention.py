@@ -11,8 +11,12 @@ layouts: q ``[S, T, H, D]``, pool ``[L, 2, KV, nb, bs, D]``, stage
 - On CPU tensors it runs :func:`paged_ragged_attention_reference`, the plain
   PyTorch version: the gather formulation of the JAX engine
   (``engine_v2._ragged_forward``), which also defines the options the kernel
-  does not take yet (sliding window, rolling ring, tree-verify mask, an e4m3
-  pool).
+  does not take yet (sliding window, rolling ring, tree-verify mask).
+
+An e4m3 pool (``kv_cache_dtype="fp8"``) is served by the kernel and the
+plain version alike with the Pallas kernel's algebra for it: q rounded to
+e4m3 against pool keys, p scaled by 448 and rounded to e4m3 against pool
+values (see :func:`paged_ragged_attention_reference`).
 
 ``counts`` holds the launches of each route, so a run can show that its
 main path went through the kernel.
@@ -23,17 +27,22 @@ from dataclasses import dataclass
 
 import torch
 
+from .quant_matmul import E4M3_MAX, to_e4m3
+
 
 @dataclass
 class LaunchCounts:
     """Calls of :func:`paged_ragged_attention` by route: ``kernel`` counts
-    launches of the CUDA kernel, ``plain`` the CPU route through the plain
-    version."""
+    launches of the CUDA kernel over a pool of q's dtype, ``kernel_e4m3``
+    its launches over an e4m3 pool, ``plain`` the CPU route through the
+    plain version."""
     kernel: int = 0
+    kernel_e4m3: int = 0
     plain: int = 0
 
     def reset(self) -> None:
         self.kernel = 0
+        self.kernel_e4m3 = 0
         self.plain = 0
 
 
@@ -41,6 +50,8 @@ counts = LaunchCounts()
 
 #: head dims the kernel is instantiated for
 KERNEL_HEAD_DIMS = (64, 128, 256)
+#: key positions per step of the CUDA kernel's walk (``kKeys`` in the source)
+KERNEL_KEY_TILE = 64
 _KERNEL_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 
@@ -64,17 +75,33 @@ def paged_ragged_attention_reference(q, pool, k_stage, v_stage, block_tables,
                                      window: int | None = None,
                                      ring_tokens: int | None = None,
                                      tree_positions=None, tree_mask=None,
-                                     alibi_slopes=None):
+                                     alibi_slopes=None,
+                                     upcast_pool: bool = False,
+                                     p_round_blocks: tuple[int, int] | None
+                                     = None):
     """The plain version: gather each slot's pool pages, append the stage,
     one masked fp32 softmax. Rows that see no key (empty slots) are zeros,
     as in the kernel. p is rounded to V's dtype before the PV product and
     the denominator sums the unrounded p, the kernel's numerics.
 
+    An e4m3 pool takes the Pallas kernel's algebra for it
+    (``_ragged_attn_kernel``'s q cast and ``p_scale``): pool keys score
+    against q rounded to e4m3; p is scaled by 448 for every key and l sums
+    that scaled p; p is rounded to e4m3 for the pool values and to the
+    stage's dtype for the stage values. With 3 mantissa bits, where p is
+    rounded matters: a kernel rounds it against the running max of its key
+    walk, so this version does too. ``p_round_blocks`` = (pool columns,
+    stage rows) per step of that walk: by default the Pallas kernel's (one
+    page; one stage page), ``(64, 64)`` for the CUDA kernel's key tiles
+    (:data:`KERNEL_KEY_TILE`). ``upcast_pool`` instead reads an e4m3 pool
+    as q's dtype with no scale, the JAX engine's gather formulation (its
+    ALiBi and ``use_pallas_decode=False`` path).
+
     Pool keys sit at positions ``j`` for table column ``j // bs`` (or, with
     ``ring_tokens``, at positions recovered from the rolling table) and are
     valid below ``stage_starts``; stage row ``i`` sits at
     ``stage_starts + i`` and is valid below ``seq_lens`` — or, in tree mode,
-    where ``tree_mask`` allows it. An e4m3 pool is read as q's dtype.
+    where ``tree_mask`` allows it.
 
     ``alibi_slopes`` ``[H]`` adds ALiBi's bias ``slope * (key_pos -
     query_pos)`` to the scaled scores, as the JAX engine's gather path does
@@ -101,11 +128,19 @@ def paged_ragged_attention_reference(q, pool, k_stage, v_stage, block_tables,
 
     blocks = tables.repeat_interleave(bs, dim=1)                  # [S, ctx]
     offs = torch.arange(ctx, device=dev) % bs
-    k_pool = pool[li, 0][:, blocks, offs[None, :]]               # [KV,S,ctx,D]
-    v_pool = pool[li, 1][:, blocks, offs[None, :]]
+    # an e4m3 pool is gathered as bytes (index kernels need not take fp8)
+    pool_b = pool.view(torch.uint8) if pool.dtype == torch.float8_e4m3fn \
+        else pool
+    k_pool = pool_b[li, 0][:, blocks, offs[None, :]].view(pool.dtype)
+    v_pool = pool_b[li, 1][:, blocks, offs[None, :]].view(pool.dtype)
     v_dtype = v_stage.dtype
-    K = torch.cat([k_pool.permute(1, 0, 2, 3).to(q.dtype), k_stage], dim=2)
-    V = torch.cat([v_pool.permute(1, 0, 2, 3).to(v_dtype), v_stage], dim=2)
+    e4m3 = pool.dtype == torch.float8_e4m3fn and not upcast_pool
+    # an e4m3 pool's values are exact in fp32
+    k_dt, v_dt = (torch.float32,) * 2 if e4m3 else (q.dtype, v_dtype)
+    K = torch.cat([k_pool.permute(1, 0, 2, 3).to(k_dt), k_stage.to(k_dt)],
+                  dim=2)
+    V = torch.cat([v_pool.permute(1, 0, 2, 3).to(v_dt), v_stage.to(v_dt)],
+                  dim=2)
 
     jidx = torch.arange(ctx, device=dev)[None, :]
     if ring_tokens:
@@ -141,7 +176,15 @@ def paged_ragged_attention_reference(q, pool, k_stage, v_stage, block_tables,
     mask = torch.cat([mask, st_mask], dim=2)                       # [S, T, C]
 
     qg = q.reshape(S, T, KV, G, D).float()
-    scores = torch.einsum("stkgd,skcd->sktgc", qg, K.float()) * scale
+    if e4m3:
+        # pool keys score against q rounded to e4m3, stage keys against q
+        q8 = to_e4m3(q).float().reshape(S, T, KV, G, D)
+        scores = torch.cat([
+            torch.einsum("stkgd,skcd->sktgc", q8, K[:, :, :ctx].float()),
+            torch.einsum("stkgd,skcd->sktgc", qg, K[:, :, ctx:].float())],
+            dim=-1) * scale
+    else:
+        scores = torch.einsum("stkgd,skcd->sktgc", qg, K.float()) * scale
     if alibi_slopes is not None:                       # head h = k * G + g
         slopes = alibi_slopes.to(device=dev, dtype=torch.float32)
         rel = (cpos[:, None, None, None, :]
@@ -151,12 +194,47 @@ def paged_ragged_attention_reference(q, pool, k_stage, v_stage, block_tables,
     scores = scores.masked_fill(~mask, float("-inf"))
     m = scores.amax(dim=-1, keepdim=True)
     m = torch.where(torch.isfinite(m), m, torch.zeros_like(m))
-    p = torch.exp(scores - m)                                      # 0 if masked
+    if e4m3:
+        # p against the running max of the kernel's key walk, scaled into
+        # e4m3's range for every key (l carries the scale); w brings each
+        # block's terms to the final max, as the kernel's alpha does
+        pb, sb = p_round_blocks or (bs, Ts if Ts <= bs else bs)
+        m_run = _running_max(scores, ctx, pb, sb)
+        seen = torch.isfinite(m_run)
+        m_run = torch.where(seen, m_run, m)
+        p = torch.exp(scores - m_run) * E4M3_MAX                   # 0 if masked
+        w = torch.where(seen, torch.exp(m_run - m), torch.zeros_like(m_run))
+        p_r = torch.cat([to_e4m3(p[..., :ctx]).float(),
+                         p[..., ctx:].to(v_dtype).float()], dim=-1) * w
+        p = p * w
+    else:
+        p = torch.exp(scores - m)                                  # 0 if masked
+        p_r = p.to(v_dtype).float()
     l = p.sum(dim=-1, keepdim=True)
-    pv = torch.einsum("sktgc,skcd->sktgd", p.to(v_dtype).float(), V.float())
+    pv = torch.einsum("sktgc,skcd->sktgd", p_r, V.float())
     o = torch.where(l > 0, pv / torch.where(l > 0, l, torch.ones_like(l)),
                     torch.zeros_like(pv))
     return o.permute(0, 2, 1, 3, 4).reshape(S, T, H, D).to(q.dtype)
+
+
+def _running_max(scores, ctx: int, pb: int, sb: int) -> torch.Tensor:
+    """For each key column, the softmax max a kernel holds when it reaches
+    that column's block: the running max over blocks of ``pb`` pool columns,
+    then blocks of ``sb`` stage columns (-inf before the first valid key)."""
+    def block_max(x, size):
+        pad = (-x.shape[-1]) % size
+        if pad:
+            x = torch.nn.functional.pad(x, (0, pad), value=float("-inf"))
+        return x.reshape(*x.shape[:-1], -1, size).amax(dim=-1)
+
+    bm = torch.cat([block_max(scores[..., :ctx], pb),
+                    block_max(scores[..., ctx:], sb)], dim=-1)
+    run = torch.cummax(bm, dim=-1).values
+    nbp = -(-ctx // pb)
+    return torch.cat([
+        run[..., :nbp].repeat_interleave(pb, dim=-1)[..., :ctx],
+        run[..., nbp:].repeat_interleave(sb, dim=-1)[
+            ..., :scores.shape[-1] - ctx]], dim=-1)
 
 
 def paged_ragged_attention(q, pool, k_stage, v_stage, block_tables, seq_lens,
@@ -171,9 +249,10 @@ def paged_ragged_attention(q, pool, k_stage, v_stage, block_tables, seq_lens,
     ``stage_starts + i`` below ``seq_lens``). Returns ``[S, T, H, D]``.
 
     CPU tensors take the plain version (all options). CUDA tensors launch
-    the kernel, which takes the default form only: ``window``,
-    ``ring_tokens``, ``page_group > 1``, tree inputs and an e4m3 pool raise
-    NotImplementedError there until a later slice ports them."""
+    the kernel, which takes the default form over a pool of q's dtype or of
+    e4m3 codes: ``window``, ``ring_tokens``, ``page_group > 1`` and tree
+    inputs raise NotImplementedError there until a later slice ports
+    them."""
     if q.device.type == "cpu":
         counts.plain += 1
         return paged_ragged_attention_reference(
@@ -187,8 +266,7 @@ def paged_ragged_attention(q, pool, k_stage, v_stage, block_tables, seq_lens,
         ("window", window), ("ring_tokens", ring_tokens),
         ("page_group > 1", page_group and page_group > 1),
         ("tree_positions/tree_mask", tree_positions is not None
-         or tree_mask is not None),
-        ("an e4m3 pool", pool.dtype == torch.float8_e4m3fn)) if on]
+         or tree_mask is not None)) if on]
     if later:
         raise NotImplementedError(
             f"the CUDA paged-attention kernel takes the default form only; "
@@ -222,9 +300,10 @@ def _launch_kernel(q, pool, k_stage, v_stage, block_tables, seq_lens,
     if dt not in _KERNEL_DTYPES:
         raise ValueError(f"kernel dtype must be float32 or bfloat16, got {dt}")
     dev = q.device
+    e4m3 = pool.dtype == torch.float8_e4m3fn
     for name, t in (("q", q), ("pool", pool), ("k_stage", k_stage),
                     ("v_stage", v_stage)):
-        if t.dtype != dt or t.device != dev:
+        if (t.dtype != dt and not (t is pool and e4m3)) or t.device != dev:
             raise ValueError(f"{name} is {t.dtype} on {t.device}; the kernel "
                              f"needs {dt} on {dev}")
         if not t.is_contiguous() or t.data_ptr() % 16:
@@ -249,9 +328,13 @@ def _launch_kernel(q, pool, k_stage, v_stage, block_tables, seq_lens,
         v_stage.data_ptr(), tables.data_ptr(), lens.data_ptr(),
         qst.data_ptr(), sst.data_ptr(), out.data_ptr(),
         S, T, H, KV, D, nb, bs, Ts, tables.shape[1], li, scale,
-        _KERNEL_DTYPES[dt], torch.cuda.current_stream(dev).cuda_stream)
+        _KERNEL_DTYPES[dt], int(e4m3),
+        torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
         raise RuntimeError(f"paged-attention kernel launch failed: CUDA error "
                            f"{err}")
-    counts.kernel += 1
+    if e4m3:
+        counts.kernel_e4m3 += 1
+    else:
+        counts.kernel += 1
     return out

@@ -10,6 +10,9 @@ paged-attention kernel serves, so the port's path runs the kernel's plain
 version; one configuration pins the gather formulation instead. Prompts
 span several prefill chunks and pages, and a second batch shares prefixes
 with the first, so the prefix cache serves hits."""
+import dataclasses
+from types import SimpleNamespace
+
 import flax
 import jax
 import jax.numpy as jnp
@@ -22,6 +25,7 @@ from deepspeed_tpu.models import build_model as jax_build_model
 from deepspeed_tpu.parallel.topology import MeshTopology
 from deepspeed_tpu_torch.inference import InferenceEngineV2, params_from_jax
 from deepspeed_tpu_torch.models import build_model
+from deepspeed_tpu_torch.models.transformer import MoEConfig
 from deepspeed_tpu_torch.ops import paged_attention as pa
 
 MODELS = ["tiny-llama", "tiny-gpt2"]
@@ -128,9 +132,8 @@ def test_put_step_query_flush_and_eos(served):
 
 def test_later_slices_and_the_default_device_raise(served):
     _, tm, tree, _ = served
-    for over, match in [({"quant_bits": 8}, "quant"),
-                        ({"spec_decode": "ngram"}, "spec"),
-                        ({"kv_cache_dtype": "fp8"}, "fp8"),
+    for over, match in [({"spec_decode": "ngram"}, "spec"),
+                        ({"quant_bits": 8, "tensor_parallel": 2}, "quant"),
                         ({"tensor_parallel": 2}, "tensor"),
                         ({"kv_tier": True}, "tier"),
                         ({"telemetry": True}, "telemetry"),
@@ -138,6 +141,18 @@ def test_later_slices_and_the_default_device_raise(served):
         with pytest.raises(NotImplementedError, match=match):
             InferenceEngineV2(tm, params=tree,
                               config=dict(BASE, device="cpu", **over))
+    # MoE models, with or without quantized weights, wait for the MoE
+    # slice (its grouped GEMMs K3/K5); the port's model refuses to build
+    # one, so a stand-in carries the config
+    moe = SimpleNamespace(config=dataclasses.replace(tm.config,
+                                                     moe=MoEConfig()))
+    for over in ({}, {"quant_bits": 8}):
+        with pytest.raises(NotImplementedError, match="MoE.*K3"):
+            InferenceEngineV2(moe, params=tree,
+                              config=dict(BASE, device="cpu", **over))
+    with pytest.raises(ValueError, match="quant_bits"):
+        InferenceEngineV2(tm, params=tree,
+                          config=dict(BASE, device="cpu", quant_bits=3))
     if not torch.cuda.is_available():
         # the default device is the card; without one the engine refuses
         with pytest.raises(RuntimeError, match="CUDA"):

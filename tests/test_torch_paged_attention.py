@@ -228,3 +228,82 @@ def test_usable_gate():
     assert not pa.paged_attention_usable(4, 2, 16, 8)     # tiny head dim
     assert not pa.paged_attention_usable(6, 4, 128, 64)   # ragged GQA
     assert not pa.paged_attention_usable(32, 32, 128, 12)  # unaligned page
+
+
+def _e4m3_case(seed, T):
+    """A ~217-token context on an e4m3 pool (27 pages of 8, plus the stage),
+    K/V unit-normal and q at 3x: a peaked softmax, so a wrong score or a
+    wrong p rounding moves the output."""
+    rng = np.random.default_rng(seed)
+    pool, q, ks, vs, tables = _inputs(rng, T=T, max_pages=28, nb=64)
+    pool, ks, vs, q = pool / .3, ks / .3, vs / .3, q / .3 * 3
+    pool8 = jnp.asarray(pool).astype(jnp.float8_e4m3fn)
+    sst = [27 * 8, 25 * 8 + 3]
+    ints = [np.asarray(x, np.int32) for x in ([s + T for s in sst], sst,
+                                              sst)]
+    ref = np.asarray(jax_paged_ragged_attention(
+        jnp.asarray(q), pool8, jnp.asarray(ks), jnp.asarray(vs),
+        jnp.asarray(tables), *map(jnp.asarray, ints), block_size=8,
+        layer_index=jnp.int32(1), interpret=True))
+    t_pool = torch.from_numpy(np.asarray(pool8).view(np.uint8).copy()).view(
+        torch.float8_e4m3fn)
+    args = (torch.from_numpy(q), t_pool, torch.from_numpy(ks),
+            torch.from_numpy(vs), torch.from_numpy(tables),
+            *map(torch.from_numpy, ints))
+    return ref, args
+
+
+#: the e4m3 plain version against the Pallas kernel, max |error| over
+#: max |Pallas|: both round q and p to e4m3 at the same points, so they
+#: differ by fp32 summation order (measured at most 1.2e-6 over 12 seeds)
+E4M3_TOL = 2e-5
+
+
+def _e4m3_err(got, ref):
+    return np.abs(got - ref).max() / np.abs(ref).max()
+
+
+@pytest.mark.parametrize("seed", [11, 12])
+@pytest.mark.parametrize("T", [1, 4])
+def test_e4m3_pool_plain_matches_pallas_long_context(seed, T):
+    """The plain version's e4m3-pool form (q rounded to e4m3 for pool keys,
+    p scaled by 448 and rounded to e4m3 for pool values against the running
+    max of the Pallas page walk) against the Pallas kernel in interpret
+    mode, as tests/test_paged_attention_groups.py runs it. Negative
+    controls fail the same tolerance by orders of magnitude: the old
+    reading (the pool upcast to q's dtype, no scale; measured >= 2.6e-2)
+    and p rounded against one max per source instead of the page walk's."""
+    ref, args = _e4m3_case(seed, T)
+    got = pa.paged_ragged_attention(*args, block_size=8, layer_index=1)
+    assert _e4m3_err(got.numpy(), ref) <= E4M3_TOL
+    old = pa.paged_ragged_attention_reference(*args, block_size=8,
+                                              layer_index=1, upcast_pool=True)
+    assert _e4m3_err(old.numpy(), ref) > 100 * E4M3_TOL
+    flat = pa.paged_ragged_attention_reference(
+        *args, block_size=8, layer_index=1, p_round_blocks=(4096, 4096))
+    assert _e4m3_err(flat.numpy(), ref) > 10 * E4M3_TOL
+
+
+def test_e4m3_upcast_reading_is_the_gather_formulation():
+    """``upcast_pool`` (the engine's gather route) reads an e4m3 pool as
+    q's dtype with no scale: exactly the plain version over the pool's
+    values in fp32."""
+    _, args = _e4m3_case(13, 2)
+    got = pa.paged_ragged_attention_reference(*args, block_size=8,
+                                              layer_index=1, upcast_pool=True)
+    want = pa.paged_ragged_attention_reference(
+        args[0], args[1].float(), *args[2:], block_size=8, layer_index=1)
+    assert torch.equal(got, want)
+
+
+def test_running_max_follows_the_key_walk():
+    """p's rounding max per column: pool columns in blocks of ``pb``, then
+    stage rows in blocks of ``sb``, each the max of every block so far."""
+    s = torch.tensor([[1., 5., 2., 0., 9., 3., -1., 4.]])
+    got = pa._running_max(s, ctx=5, pb=2, sb=2)
+    assert got.tolist() == [[5, 5, 5, 5, 9, 9, 9, 9]]
+    got = pa._running_max(s, ctx=6, pb=4, sb=1)
+    assert got.tolist() == [[5, 5, 5, 5, 9, 9, 9, 9]]
+    got = pa._running_max(torch.tensor([[float("-inf"), 2., 1., 7.]]),
+                          ctx=2, pb=1, sb=1)
+    assert got.tolist() == [[float("-inf"), 2, 2, 7]]
