@@ -31,6 +31,19 @@ Phases (every one raises on failure; nothing is caught and passed over):
      judged by max |error| over max |plain| (``K2_TOL``). No single
      PyTorch call computes K2's function; the yardstick is ``torch.matmul``
      with a dense bf16 weight of the same shape, the product K2 replaces.
+     K1 and K2 also run at qwen2-moe-a2.7b's geometry (H = KV = 16) and
+     shapes (its 2048 x 151936 unembedding).
+   - K5, the grouped expert product, in bf16 and fp32, and K3, its
+     quantized form, for int8, int4 and e4m3 codes (plus stacked codes at
+     a non-zero layer), on qwen2-moe's expert w_gate [60,2048,1408] and
+     w_down [60,1408,2048] and Mixtral's w_gate [8,4096,14336], at decode
+     routing (8 tokens x top-k) and prefill routing (2048 x 4, 512 x 2),
+     plus a skewed (all tokens on one expert's set) and an idle-expert
+     routing; judged by ``K2_TOL``. Bound: the x rows that hold routed
+     tokens, each active expert's weights once and the routed output
+     rows, or 2 x routed rows x K x N operations. Yardstick: one
+     ``torch._grouped_mm`` call in bf16 over the same expert-aligned
+     buffer (for K3 the bf16 product it replaces).
 3. parity — llama2-7b at full width with 4 layers in fp32: the engine's
    greedy streams against a greedy loop over the dense
    ``TransformerLM.forward``. TF32 is off for matmuls and cuDNN. Streams
@@ -41,8 +54,12 @@ Phases (every one raises on failure; nothing is caught and passed over):
    being ``dequantize_weight`` of the engine's codes; and an e4m3-pool
    engine whose logits must stay within 0.5 (max) and 0.05 (mean) of the
    fp32-pool engine's while their streams agree (the JAX package's bound
-   for its fp8 pool). Each run asserts its K1 / K2 launches and 0 plain
-   launches.
+   for its fp8 pool). Then Mixtral-8x7B (the capacity route, ``dropless``,
+   ``quant_bits`` 8, 4 and "fp8") and qwen2-moe-a2.7b (``dropless``,
+   ``quant_bits=8``) at full width with 4 layers, each against the model
+   with no token dropped (eval capacity factor = number of experts), over
+   the dequantized codes for the quantized routes. Each run asserts its
+   K1 / K2 / K3 / K5 launches and 0 plain launches.
 4. serve  — llama2-7b at full width and depth in bf16 from seeded random
    weights: 8 requests of 256-1024 prompt tokens (a shared 128-token system
    prefix) and 64 new tokens each, through put/step/query/flush. Prints
@@ -52,7 +69,11 @@ Phases (every one raises on failure; nothing is caught and passed over):
    weights and pool; ``quant_bits=8`` with ``kv_cache_dtype="fp8"`` (K1's
    e4m3 form); ``quant_bits=4``. The quantized runs launch K2 225 times per
    forward (7 products x 32 layers + the unembedding) and hold at most 0.55x
-   (int8) and 0.30x (int4) of the bf16 run's parameter bytes.
+   (int8) and 0.30x (int4) of the bf16 run's parameter bytes. Then
+   qwen2-moe-a2.7b at full width and depth, the same three runs: bf16 with
+   ``moe.dropless`` (K5 72 launches per forward: 3 expert products x 24
+   layers), and the quantized runs (K3 72, K2 97 per forward), within
+   0.56x and 0.34x of the bf16 parameter bytes.
 
 The last lines are the kernels' JSON record, the card's name and power
 limit, and ``{"ok": true, "device": {...}}``. Without a CUDA device the
@@ -61,6 +82,7 @@ script exits non-zero and prints no result.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import gc
 import json
 import os
@@ -94,9 +116,12 @@ K1_E4M3_TOL = {torch.float32: (1e-2, 1e-5), torch.bfloat16: (1e-2, 1e-4)}
 #: over K in another order; bf16 outputs may round one ulp (<= 2^-7 of the
 #: largest) apart
 K2_TOL = {torch.float32: 1e-5, torch.bfloat16: 1e-2}
-#: llama2-7b's weight shapes (K, N) on K2's path
+#: weight shapes (K, N) on K2's path: llama2-7b's, and qwen2-moe-a2.7b's
+#: attention projection and unembedding (N = 1187 x 128)
 K2_SHAPES = {"wq": (4096, 4096), "w_gate": (4096, 11008),
-             "w_down": (11008, 4096), "unembed": (4096, 32000)}
+             "w_down": (11008, 4096), "unembed": (4096, 32000),
+             "qwen2-moe/wq": (2048, 2048),
+             "qwen2-moe/unembed": (2048, 151936)}
 #: K2's stacked case: (layers, K, N, the layer selected)
 K2_STACKED = (4, 4096, 4096, 2)
 
@@ -114,15 +139,28 @@ def log(msg: str) -> None:
     print(msg, flush=True)
 
 
-def cuda_time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
+def cuda_time_ms(fn, iters: int = 20, warmup: int = 3,
+                 graph: bool = True) -> float:
     """Mean device time of ``fn()`` in ms: ``warmup`` calls, then ``iters``
     calls captured in one CUDA graph and replayed between two CUDA events.
     A replay issues the launches without the host's per-call cost, so a
     kernel shorter than its wrapper's host time (a decode-shaped K2 call)
-    is timed by the device, not by how fast the host can issue it."""
+    is timed by the device, not by how fast the host can issue it.
+    ``graph=False`` times ``iters`` calls between two events without a
+    graph, for a function that reads values back to the host (the grouped
+    products' plain versions)."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
+    if not graph:
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(iters):
+            fn()
+        end.record()
+        torch.cuda.synchronize()
+        return start.elapsed_time(end) / iters
     graph = torch.cuda.CUDAGraph()
     with torch.cuda.graph(graph):
         for _ in range(iters):
@@ -300,7 +338,8 @@ def phase_k1(dev) -> tuple[dict, dict, list]:
     decode_ctx = [256, 397, 512, 611, 700, 833, 1022, -1]
     chunk_ctx = [0, 192, 320, 768]
     geoms = {"llama2-7b": dict(H=32, KV=32, D=128),
-             "gqa-32q/8kv": dict(H=32, KV=8, D=128)}
+             "gqa-32q/8kv": dict(H=32, KV=8, D=128),
+             "qwen2-moe": dict(H=16, KV=16, D=128)}
     shapes = {"decode": dict(T=1, Ts=8, ctx=decode_ctx),
               "window": dict(T=1, Ts=8, window=True,
                              ctx=[c + 3 if c >= 0 else c
@@ -554,6 +593,274 @@ def k2_host_overhead(dev) -> dict:
     return rec
 
 
+#: MoE weight shapes on K5's and K3's path: (label, experts n, K, N, top-k,
+#: prefill tokens) — qwen2-moe-a2.7b's expert w_gate and w_down, and
+#: Mixtral-8x7B's expert w_gate
+GROUPED_SHAPES = (("qwen2-moe/w_gate", 60, 2048, 1408, 4, 2048),
+                  ("qwen2-moe/w_down", 60, 1408, 2048, 4, 2048),
+                  ("mixtral/w_gate", 8, 4096, 14336, 2, 512))
+#: tokens of a decode step (8 slots, one token each)
+DECODE_TOKENS = 8
+#: sort alignment of the grouped products on the serving path: K5 under
+#: ``moe.dropless`` (``dropless_block_m``), K3 under ``quant_bits``
+K5_BLOCK_M, K3_BLOCK_M = 128, 32
+
+
+def routing(kind: str, T: int, n: int, k: int, dev, seed: int):
+    """[T, k] expert choices, k distinct experts per token: ``spread``
+    draws them uniformly; ``skewed`` sends every token to the same k
+    experts (expert 3 owns all T tokens); ``idle`` draws them from the
+    first quarter of the experts, so the rest own no row."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    if kind == "skewed":
+        row = (3 + torch.arange(k, device=dev)) % n
+        return row.expand(T, k).to(torch.int32).contiguous()
+    m = n if kind == "spread" else max(n // 4, k)
+    scores = torch.rand(T, m, generator=g, device=dev)
+    return scores.argsort(dim=1)[:, :k].to(torch.int32)
+
+
+def grouped_case(T, k, n, K, block_m, dtype, dev, seed, kind="spread"):
+    """(buf, sort, per-expert counts): T unit-normal token rows routed by
+    ``routing(kind)`` into the expert-sorted buffer (zero padding rows)."""
+    from deepspeed_tpu_torch.ops.grouped_matmul import sort_tokens_by_expert
+
+    idx = routing(kind, T, n, k, dev, seed)
+    srt = sort_tokens_by_expert(idx, n, block_m)
+    g = torch.Generator(device=dev).manual_seed(seed + 1)
+    x = torch.randn(T, K, generator=g, device=dev).to(dtype)
+    buf = x.new_zeros((srt.Tp, K)).index_copy_(
+        0, srt.dst.long(), x.repeat_interleave(k, dim=0))
+    e = idx.reshape(-1).long()
+    counts = torch.zeros(n, dtype=torch.long, device=dev).scatter_add_(
+        0, e, torch.ones_like(e))
+    return buf, srt, counts
+
+
+def grouped_bound(counts, K, N, dtype, weight_bytes_per_expert):
+    """(bound ms, what bounds it, bytes, operations): the x rows that hold
+    routed tokens, the weights of each expert that owns a routed row once,
+    and the routed output rows; 2 * routed rows * K * N operations at the
+    peak for x's dtype."""
+    routed = int(counts.sum())
+    active = int((counts > 0).sum())
+    el = torch.empty((), dtype=dtype).element_size()
+    nbytes = (routed * K * el + active * weight_bytes_per_expert
+              + routed * N * el)
+    ops = 2.0 * routed * K * N
+    bound, by = bound_of(nbytes, ops / PEAK_OPS[dtype])
+    return bound, by, float(nbytes), ops
+
+
+def library_grouped_mm(buf, w_bf16, counts, block_m):
+    """One ``torch._grouped_mm`` call over the same expert-aligned buffer
+    in bf16 (group ends from the aligned counts), or None where this torch
+    has no such call."""
+    if not hasattr(torch, "_grouped_mm"):
+        return None
+    aligned = (counts + block_m - 1) // block_m * block_m
+    offs = aligned.cumsum(0).to(torch.int32)
+    xb = buf.to(torch.bfloat16)
+    return lambda: torch._grouped_mm(xb, w_bf16, offs=offs)
+
+
+def check_grouped(tag, got, ref, tp, N, dtype) -> tuple[float, float]:
+    """(max |error|, max |error| / max |plain|), raising past ``K2_TOL``."""
+    if got.shape != (tp, N) or not torch.isfinite(got).all():
+        raise AssertionError(f"{tag}: shape {tuple(got.shape)} or "
+                             f"non-finite output")
+    err = (got.float() - ref.float()).abs().max().item()
+    judged = err / ref.float().abs().max().item()
+    if judged > K2_TOL[dtype]:
+        raise AssertionError(f"{tag} {dtype}: kernel against plain error "
+                             f"{judged:.3e} > {K2_TOL[dtype]:.0e} (max abs "
+                             f"{err:.3e})")
+    return err, judged
+
+
+def phase_k5(dev) -> tuple[dict, list]:
+    """K5's forward against its plain version at the MoE shapes, decode and
+    prefill routings (and a skewed and an idle-expert routing), bf16 and
+    fp32. Returns (summary, cases)."""
+    from deepspeed_tpu_torch.ops.grouped_matmul import (
+        counts, grouped_matmul, grouped_matmul_reference)
+
+    results = []
+    seed = 300
+    for label, n, K, N, k, T_pre in GROUPED_SHAPES:
+        seed += 10
+        g = torch.Generator(device=dev).manual_seed(seed)
+        w32 = torch.randn(n, K, N, generator=g, device=dev) / K ** 0.5
+        w_bf16 = w32.to(torch.bfloat16)
+        plan = [("decode", DECODE_TOKENS, "spread", torch.bfloat16),
+                ("decode", DECODE_TOKENS, "spread", torch.float32),
+                ("prefill", T_pre, "spread", torch.bfloat16),
+                ("prefill", T_pre, "spread", torch.float32)]
+        if label == "qwen2-moe/w_gate":
+            plan += [("prefill", T_pre, "skewed", torch.bfloat16),
+                     ("prefill", T_pre, "idle", torch.bfloat16)]
+        for i, (phase, T, kind, dtype) in enumerate(plan):
+            buf, srt, cnt = grouped_case(T, k, n, K, K5_BLOCK_M, dtype, dev,
+                                         seed + i, kind)
+            w = w_bf16 if dtype == torch.bfloat16 else w32
+            args = (buf, w, srt.tile_expert, K5_BLOCK_M, srt.tile_rows)
+            tag = f"K5 {label}/{phase}-{kind}/T={T}x{k}"
+            got = grouped_matmul(*args)
+            torch.cuda.synchronize()
+            ref = grouped_matmul_reference(*args)
+            err, judged = check_grouped(tag, got, ref, srt.Tp, N, dtype)
+            ms = cuda_time_ms(lambda: grouped_matmul(*args))
+            plain_ms = cuda_time_ms(lambda: grouped_matmul_reference(*args),
+                                    iters=3, warmup=1, graph=False)
+            lib = (library_grouped_mm(buf, w_bf16, cnt, K5_BLOCK_M)
+                   if dtype == torch.bfloat16 else None)
+            lib_ms = cuda_time_ms(lib) if lib is not None else None
+            el = w.element_size()
+            bound, by, nbytes, ops = grouped_bound(cnt, K, N, dtype,
+                                                   K * N * el)
+            rec = dict(case=f"{label}/{phase}-{kind}/T={T}x{k}",
+                       dtype=str(dtype).replace("torch.", ""), Tp=srt.Tp,
+                       routed_rows=T * k,
+                       active_experts=int((cnt > 0).sum()),
+                       max_abs_err=err, judged_err=judged,
+                       tol=K2_TOL[dtype], ms=ms, plain_ms=plain_ms,
+                       library_ms=lib_ms, bound_ms=bound, bound_by=by,
+                       bytes=nbytes, ops=ops)
+            results.append(rec)
+            lib_txt = f"{lib_ms:.4f}" if lib_ms is not None else "none"
+            log(f"[kernel] {tag:<44} {rec['dtype']:<8} err {judged:.2e} "
+                f"(tol {K2_TOL[dtype]:.0e}; max abs {err:.2e})  kernel "
+                f"{ms:.4f} ms  plain {plain_ms:.3f} ms  _grouped_mm "
+                f"{lib_txt} ms  bound {bound:.4f} ms ({by})")
+            del buf, srt, got, ref, args
+        del w32, w_bf16
+        free_cuda()
+    counts.reset()
+    return grouped_summary(results, "qwen2-moe/w_gate/decode-spread/T=8x4",
+                           "bfloat16"), results
+
+
+def grouped_summary(results, main_case, main_dtype) -> dict:
+    """The record line's fields: the worst errors, and the times of the
+    serving path's most frequent call (a decode step's w_gate product)."""
+    bf = [r for r in results if r["dtype"] == "bfloat16"]
+    fp = [r for r in results if r["dtype"] == "float32"]
+    main = next(r for r in results if r["case"] == main_case
+                and r["dtype"] == main_dtype)
+    return dict(max_abs_err=max(r["max_abs_err"] for r in bf),
+                max_err_over_max_ref=max(r["judged_err"] for r in bf),
+                max_err_over_max_ref_fp32=max(r["judged_err"] for r in fp),
+                **{k: main[k] for k in ("ms", "plain_ms", "library_ms",
+                                        "bound_ms", "bound_by")})
+
+
+def phase_k3(dev) -> tuple[dict, list]:
+    """K3 against its plain version: int8, int4 and e4m3 codes at the MoE
+    shapes, decode and prefill routings in bf16, skewed and idle-expert
+    routings and fp32 x for int8, and stacked [L, n, ...] codes at a
+    non-zero layer. Returns (summary, cases)."""
+    from deepspeed_tpu_torch.ops.quant_matmul import (
+        QuantGrouped, grouped_counts, quant_grouped_matmul,
+        quant_grouped_matmul_reference, quantize_grouped)
+
+    results = []
+
+    def run(tag, buf, srt, cnt, qw, w_bf16, layer_index=None):
+        n, K, N = qw.shape
+        dtype = buf.dtype
+        kw = dict(layer_index=layer_index, block_m=K3_BLOCK_M,
+                  tile_rows=srt.tile_rows)
+        got = quant_grouped_matmul(buf, qw, srt.tile_expert, **kw)
+        torch.cuda.synchronize()
+        ref = quant_grouped_matmul_reference(buf, qw, srt.tile_expert, **kw)
+        err, judged = check_grouped(f"K3 {tag}", got, ref, srt.Tp, N, dtype)
+        ms = cuda_time_ms(lambda: quant_grouped_matmul(
+            buf, qw, srt.tile_expert, **kw))
+        plain_ms = cuda_time_ms(lambda: quant_grouped_matmul_reference(
+            buf, qw, srt.tile_expert, **kw), iters=3, warmup=1, graph=False)
+        lib = library_grouped_mm(buf, w_bf16, cnt, K3_BLOCK_M)
+        lib_ms = cuda_time_ms(lib) if lib is not None else None
+        # one expert's codes and scales
+        data, scale = qw.data, qw.scale
+        if layer_index is not None:
+            data, scale = data[layer_index], scale[layer_index]
+        wbytes = data[0].numel() * data.element_size() + scale[0].numel() * 4
+        bound, by, nbytes, ops = grouped_bound(cnt, K, N, dtype, wbytes)
+        rec = dict(case=tag, bits=str(qw.bits),
+                   dtype=str(dtype).replace("torch.", ""), Tp=srt.Tp,
+                   active_experts=int((cnt > 0).sum()), max_abs_err=err,
+                   judged_err=judged, tol=K2_TOL[dtype], ms=ms,
+                   plain_ms=plain_ms, library_ms=lib_ms, bound_ms=bound,
+                   bound_by=by, bytes=nbytes, ops=ops)
+        results.append(rec)
+        lib_txt = f"{lib_ms:.4f}" if lib_ms is not None else "none"
+        log(f"[kernel] K3 {tag:<46} {rec['dtype']:<8} err {judged:.2e} "
+            f"(tol {K2_TOL[dtype]:.0e}; max abs {err:.2e})  kernel "
+            f"{ms:.4f} ms  plain {plain_ms:.3f} ms  bf16 _grouped_mm "
+            f"{lib_txt} ms  bound {bound:.4f} ms ({by})")
+        del got, ref
+        return rec
+
+    seed = 500
+    for label, n, K, N, k, T_pre in GROUPED_SHAPES:
+        seed += 10
+        g = torch.Generator(device=dev).manual_seed(seed)
+        w32 = torch.randn(n, K, N, generator=g, device=dev) / K ** 0.5
+        w32 *= torch.empty(n, K, 1, device=dev).uniform_(
+            -2, 2, generator=g).exp_()
+        w_bf16 = w32.to(torch.bfloat16)
+        for bits in (8, 4, "fp8"):
+            qw = quantize_grouped(w32, bits=bits)
+            plan = [("decode", DECODE_TOKENS, "spread", torch.bfloat16),
+                    ("prefill", T_pre, "spread", torch.bfloat16)]
+            if label == "qwen2-moe/w_gate" and bits == 8:
+                plan += [("decode", DECODE_TOKENS, "spread", torch.float32),
+                         ("prefill", T_pre, "skewed", torch.bfloat16),
+                         ("prefill", T_pre, "idle", torch.bfloat16)]
+            for i, (phase, T, kind, dtype) in enumerate(plan):
+                buf, srt, cnt = grouped_case(T, k, n, K, K3_BLOCK_M, dtype,
+                                             dev, seed + i, kind)
+                run(f"{bits}/{label}/{phase}-{kind}/T={T}x{k}", buf, srt,
+                    cnt, qw, w_bf16)
+                del buf, srt
+            del qw
+            free_cuda()
+        del w32, w_bf16
+        free_cuda()
+    # stacked [L, n, K, N] codes: one layer selected inside the kernel
+    label, n, K, N, k, _ = GROUPED_SHAPES[0]
+    L, li = 4, 2
+    g = torch.Generator(device=dev).manual_seed(seed + 99)
+    for bits in (8, 4):
+        layers = [quantize_grouped(torch.randn(n, K, N, generator=g,
+                                               device=dev), bits=bits)
+                  for _ in range(L)]
+        st = QuantGrouped(torch.stack([q.data for q in layers]),
+                          torch.stack([q.scale for q in layers]), bits,
+                          layers[0].group_size, layers[0].shape,
+                          layers[0].dtype)
+        buf, srt, cnt = grouped_case(DECODE_TOKENS, k, n, K, K3_BLOCK_M,
+                                     torch.bfloat16, dev, seed + 7)
+        w_bf16 = torch.randn(n, K, N, generator=g, device=dev,
+                             dtype=torch.bfloat16)
+        run(f"{bits}/{label}/stacked-L{L}-layer{li}/decode", buf, srt, cnt,
+            st, w_bf16, layer_index=li)
+        kw = dict(block_m=K3_BLOCK_M, tile_rows=srt.tile_rows)
+        if not torch.equal(
+                quant_grouped_matmul(buf, st, srt.tile_expert,
+                                     layer_index=li, **kw),
+                quant_grouped_matmul(buf, layers[li], srt.tile_expert,
+                                     **kw)):
+            raise AssertionError(f"K3 {bits}: stacked layer {li} differs "
+                                 f"from the unstacked codes")
+        del layers, st, buf, srt, w_bf16
+        free_cuda()
+    grouped_counts.reset()
+    return grouped_summary(results,
+                           "8/qwen2-moe/w_gate/decode-spread/T=8x4",
+                           "bfloat16"), results
+
+
 # ---------------------------------------------------------------------------
 # phases 3 and 4: the engine
 # ---------------------------------------------------------------------------
@@ -593,20 +900,26 @@ def tap_engine_class():
 
 def all_counts() -> dict:
     """Every kernel wrapper's launch counts."""
+    from deepspeed_tpu_torch.ops import grouped_matmul as gm
     from deepspeed_tpu_torch.ops import paged_attention as pa
     from deepspeed_tpu_torch.ops import quant_matmul as qm
 
     return {"k1": pa.counts.kernel, "k1_e4m3": pa.counts.kernel_e4m3,
             "k1_plain": pa.counts.plain, "k2": qm.counts.kernel,
-            "k2_plain": qm.counts.plain}
+            "k2_plain": qm.counts.plain, "k3": qm.grouped_counts.kernel,
+            "k3_plain": qm.grouped_counts.plain, "k5": gm.counts.kernel,
+            "k5_plain": gm.counts.plain}
 
 
 def reset_counts() -> None:
+    from deepspeed_tpu_torch.ops import grouped_matmul as gm
     from deepspeed_tpu_torch.ops import paged_attention as pa
     from deepspeed_tpu_torch.ops import quant_matmul as qm
 
     pa.counts.reset()
     qm.counts.reset()
+    qm.grouped_counts.reset()
+    gm.counts.reset()
 
 
 def forwards_of(eng) -> int:
@@ -614,13 +927,27 @@ def forwards_of(eng) -> int:
     return st["prefill_steps"] + st["decode_steps"] + st["window_iters_max"]
 
 
-def check_launches(tag, got: dict, *, L, forwards, e4m3_pool, quant):
-    """K1 (its default or e4m3 form) launched once per layer per forward;
-    K2 once per weight product (7 per layer + the unembedding) when the
-    weights are quantized; neither plain version at all."""
-    want = {"k1": 0 if e4m3_pool else L * forwards,
-            "k1_e4m3": L * forwards if e4m3_pool else 0, "k1_plain": 0,
-            "k2": (7 * L + 1) * forwards if quant else 0, "k2_plain": 0}
+def check_launches(tag, got: dict, cfg, *, forwards, e4m3_pool, quant):
+    """Per forward: K1 (its default or e4m3 form) once per layer; when the
+    weights are quantized, K2 once per dense weight product (q, k, v, o of
+    every layer, a dense FFN's products, the unembedding) and K3 once per
+    expert product of every MoE layer; K5 once per expert product under
+    ``moe.dropless`` without quantization; no plain version at all."""
+    from deepspeed_tpu_torch.models.transformer import is_moe_layer
+
+    L = cfg.num_layers
+    moe_layers = sum(is_moe_layer(cfg, i) for i in range(L))
+    ffn = 3 if cfg.activation == "silu_glu" else 2
+    dense = 4 * L + ffn * (L - moe_layers) + 1
+    experts = ffn * moe_layers
+    dropless = cfg.moe is not None and cfg.moe.dropless
+    f = forwards
+    want = {"k1": 0 if e4m3_pool else L * f,
+            "k1_e4m3": L * f if e4m3_pool else 0, "k1_plain": 0,
+            "k2": dense * f if quant else 0, "k2_plain": 0,
+            "k3": experts * f if quant else 0, "k3_plain": 0,
+            "k5": experts * f if dropless and not quant else 0,
+            "k5_plain": 0}
     if forwards <= 0 or got != want:
         raise AssertionError(f"[{tag}] launches {got} != {want} "
                              f"({L} layers x {forwards} forwards)")
@@ -662,10 +989,11 @@ def oracle_check(tag, eng, oracle, prompts, streams, new, dev):
 
 
 def load_dequantized(model, params) -> None:
-    """Overwrite ``model``'s matmul weights with ``dequantize_weight`` of
-    the engine's codes: the dense oracle of a quantized engine."""
-    from deepspeed_tpu_torch.ops.quant_matmul import (QuantLinear,
-                                                      dequantize_weight)
+    """Overwrite ``model``'s matmul weights with ``dequantize_weight`` /
+    ``dequantize_grouped`` of the engine's codes: the dense oracle of a
+    quantized engine."""
+    from deepspeed_tpu_torch.ops.quant_matmul import (
+        QuantGrouped, QuantLinear, dequantize_grouped, dequantize_weight)
 
     with torch.no_grad():
         for name, p in model.named_parameters():
@@ -674,33 +1002,70 @@ def load_dequantized(model, params) -> None:
                 node = node[part]
             if isinstance(node, QuantLinear):
                 p.copy_(dequantize_weight(node).reshape(p.shape))
+            elif isinstance(node, QuantGrouped):
+                p.copy_(dequantize_grouped(node))
+
+
+def no_drop_oracle(model) -> None:
+    """Route ``model``'s MoE layers through the capacity route with an eval
+    capacity factor of ``num_experts`` (capacity = tokens x k, so nothing
+    drops) and not the dropless route: the oracle of an engine, which
+    routes every token, independent of the grouped kernels."""
+    from deepspeed_tpu_torch.moe import MoE
+
+    for mod in model.modules():
+        if isinstance(mod, MoE):
+            mod.dropless, mod.drop_tokens = False, True
+            mod.eval_capacity_factor = float(mod.num_experts)
+
+
+#: the parity phase's models (full width, 4 layers) and the engine routes
+#: each is held in: (label, engine options, MoE options)
+PARITY = {
+    "llama2-7b": (("dense", {}, {}), ("int8", {"quant_bits": 8}, {}),
+                  ("int4", {"quant_bits": 4}, {}),
+                  ("fp8-weights", {"quant_bits": "fp8"}, {}),
+                  ("fp8-pool", {"kv_cache_dtype": "fp8"}, {})),
+    "mixtral-8x7b": (("capacity", {}, {}),
+                     ("dropless", {}, {"dropless": True}),
+                     ("int8", {"quant_bits": 8}, {}),
+                     ("int4", {"quant_bits": 4}, {}),
+                     ("fp8-weights", {"quant_bits": "fp8"}, {})),
+    "qwen2-moe-a2.7b": (("dropless", {}, {"dropless": True}),
+                        ("int8", {"quant_bits": 8}, {})),
+}
 
 
 def phase_parity(dev) -> dict:
-    from deepspeed_tpu_torch.models import build_model
-
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    log("[parity] llama2-7b full width, 4 layers, fp32; TF32 off for "
-        "matmuls and cuDNN")
+    return {name: parity_model(dev, name, routes)
+            for name, routes in PARITY.items()}
+
+
+def parity_model(dev, name: str, routes) -> dict:
+    from deepspeed_tpu_torch.models import build_model, get_model_config
+
+    log(f"[parity] {name} full width, 4 layers, fp32; TF32 off for "
+        f"matmuls and cuDNN")
     cfg = dict(block_size=64, num_blocks=64, max_seqs=4, chunk=128,
                max_seq_len=1024, decode_window=8, dtype=torch.float32,
                device=dev)
+    vocab = get_model_config(name).vocab_size
     g = torch.Generator().manual_seed(0)
     lens = [300, 77, 150, 129, 200]            # chunks span pages
-    prompts = [torch.randint(0, 32000, (n,), generator=g).tolist()
+    prompts = [torch.randint(0, vocab, (n,), generator=g).tolist()
                for n in lens]
     new = 16
     out = {"prompts": lens, "new_tokens": new}
     dense_taps, dense_streams = None, None
-    for label, over in (("dense", {}), ("int8", {"quant_bits": 8}),
-                        ("int4", {"quant_bits": 4}),
-                        ("fp8-weights", {"quant_bits": "fp8"}),
-                        ("fp8-pool", {"kv_cache_dtype": "fp8"})):
-        tag = f"parity {label}"
-        model = build_model("llama2-7b", num_layers=4, dtype=torch.float32,
-                            device=dev, seed=0)
-        L = model.config.num_layers
+    for label, over, moe_over in routes:
+        tag = f"parity {name} {label}"
+        mcfg = get_model_config(name)
+        extra = ({"moe": dataclasses.replace(mcfg.moe, **moe_over)}
+                 if moe_over else {})
+        model = build_model(name, num_layers=4, dtype=torch.float32,
+                            device=dev, seed=0, **extra)
         eng = tap_engine_class()(model, config=dict(cfg, **over))
         if eng._attn_decode_sel.path != "cuda":
             raise AssertionError(f"[{tag}] attention path "
@@ -711,7 +1076,8 @@ def phase_parity(dev) -> dict:
         launches = all_counts()
         eng.state.audit()
         forwards = forwards_of(eng)
-        check_launches(tag, launches, L=L, forwards=forwards,
+        L = model.config.num_layers
+        check_launches(tag, launches, model.config, forwards=forwards,
                        e4m3_pool="kv_cache_dtype" in over,
                        quant="quant_bits" in over)
         rec = {"launches": launches, "forwards": forwards}
@@ -741,6 +1107,7 @@ def phase_parity(dev) -> dict:
         else:
             if "quant_bits" in over:
                 load_dequantized(model, eng.params)
+            no_drop_oracle(model)
             worst, near = oracle_check(tag, eng, model, prompts, streams,
                                        new, dev)
             rec.update(max_rel_logits_err=worst, near_ties=near)
@@ -750,6 +1117,7 @@ def phase_parity(dev) -> dict:
                 f"({L} layers x {forwards} forwards)")
         if label == "dense":
             dense_taps, dense_streams = eng.taps, streams
+
         out[label] = rec
         del eng, model
         free_cuda()
@@ -788,6 +1156,10 @@ def device_breakdown(run) -> dict:
         low = name.lower()
         if "ragged_paged_attn" in low:
             return "k1_ms"
+        if "qgmm_" in low:
+            return "k3_ms"
+        if "::gmm_" in low or low.startswith("gmm_"):
+            return "k5_ms"
         if "qmm_" in low:
             return "k2_ms"
         if any(t in low for t in ("gemm", "xmma", "cutlass", "matmul",
@@ -796,7 +1168,7 @@ def device_breakdown(run) -> dict:
         return "other_ms"
 
     out = {"wall_ms": wall_ms, "busy_ms": busy, "k1_ms": 0.0, "k2_ms": 0.0,
-           "gemm_ms": 0.0, "other_ms": 0.0,
+           "k3_ms": 0.0, "k5_ms": 0.0, "gemm_ms": 0.0, "other_ms": 0.0,
            "idle_share": max(0.0, 1 - busy / wall_ms)}
     for name, ms in by_name.items():
         out[kind(name)] += ms
@@ -804,18 +1176,27 @@ def device_breakdown(run) -> dict:
     return out
 
 
-def serve_run(dev, label: str, **over) -> dict:
-    """llama2-7b at full width and depth in bf16 (seeded random weights)
-    serving the 8 requests of phase 4 under the engine options ``over``."""
+def serve_run(dev, name: str, label: str, layers: int | None = None,
+              **over) -> dict:
+    """Model ``name`` at full width (and ``layers`` deep, all of them by
+    default) in bf16 from seeded random weights, serving the 8 requests of
+    phase 4 under the engine options ``over``. An MoE model takes its
+    dropless route (K5) unless ``quant_bits`` sends its experts through
+    K3."""
     from deepspeed_tpu_torch.inference import InferenceEngineV2
     from deepspeed_tpu_torch.inference.weights import tree_nbytes
-    from deepspeed_tpu_torch.models import build_model
+    from deepspeed_tpu_torch.models import build_model, get_model_config
 
-    tag = f"serve {label}"
+    tag = f"serve {name} {label}"
     t0 = time.perf_counter()
-    model = build_model("llama2-7b", dtype=torch.bfloat16, device=dev,
-                        seed=1)
-    L = model.config.num_layers
+    mcfg = get_model_config(name)
+    extra = {} if layers is None else {"num_layers": layers}
+    if mcfg.moe is not None:
+        extra["moe"] = dataclasses.replace(mcfg.moe, dropless=True)
+    model = build_model(name, dtype=torch.bfloat16, device=dev, seed=1,
+                        **extra)
+    cfg = model.config
+    L, vocab = cfg.num_layers, cfg.vocab_size
     eng = InferenceEngineV2(model, config=dict(
         block_size=64, num_blocks=256, max_seqs=8, chunk=256,
         max_seq_len=2048, decode_window=8, dtype=torch.bfloat16,
@@ -828,7 +1209,7 @@ def serve_run(dev, label: str, **over) -> dict:
     pool_bytes = eng.kv_pool.numel() * eng.kv_pool.element_size()
     param_bytes = tree_nbytes(eng.params)
     resident = torch.cuda.memory_allocated(dev) - pool_bytes
-    log(f"[{tag}] llama2-7b ({L} layers, bf16 compute, seeded random "
+    log(f"[{tag}] {name} ({L} layers, bf16 compute, seeded random "
         f"weights, {over or 'no quantization'}) and a "
         f"{pool_bytes / 1e9:.1f} GB {eng.kv_pool.dtype} pool up in "
         f"{time.perf_counter() - t0:.1f}s; parameters "
@@ -839,14 +1220,14 @@ def serve_run(dev, label: str, **over) -> dict:
                              f"card for {param_bytes / 1e9:.2f} GB of "
                              f"parameters")
     g = torch.Generator().manual_seed(1)
-    system = torch.randint(0, 32000, (128,), generator=g).tolist()
+    system = torch.randint(0, vocab, (128,), generator=g).tolist()
     # a first request publishes the shared system prefix (and warms the
     # allocator and cuBLAS); the measured batch then hits it
-    eng.generate([system + torch.randint(0, 32000, (64,),
+    eng.generate([system + torch.randint(0, vocab, (64,),
                                          generator=g).tolist()],
                  max_new_tokens=8)
     lens = [256, 384, 512, 640, 768, 896, 1024, 300]
-    prompts = [system + torch.randint(0, 32000, (n - 128,),
+    prompts = [system + torch.randint(0, vocab, (n - 128,),
                                       generator=g).tolist() for n in lens]
     new = 64
     for k in list(eng.stats):
@@ -878,11 +1259,11 @@ def serve_run(dev, label: str, **over) -> dict:
     for u in out:
         if eng.flush(u) != out[u] or len(out[u]) != new:
             raise AssertionError(f"[{tag}] uid {u}: stream of {len(out[u])}")
-        if not all(0 <= t < 32000 for t in out[u]):
+        if not all(0 <= t < vocab for t in out[u]):
             raise AssertionError(f"[{tag}] uid {u}: token out of range")
     eng.state.audit()
     forwards = forwards_of(eng)
-    check_launches(tag, launches, L=L, forwards=forwards,
+    check_launches(tag, launches, cfg, forwards=forwards,
                    e4m3_pool=over.get("kv_cache_dtype") == "fp8",
                    quant=bool(over.get("quant_bits")))
     if st["prefix_hit_tokens"] < 128 * len(prompts):
@@ -891,7 +1272,7 @@ def serve_run(dev, label: str, **over) -> dict:
     # where the device time goes: one profiled decode window (8 requests
     # of 16 new tokens past a shared-prefix prompt), separate from the
     # timed run above
-    short = [system + torch.randint(0, 32000, (64,), generator=g).tolist()
+    short = [system + torch.randint(0, vocab, (64,), generator=g).tolist()
              for _ in range(8)]
     for uid, p in enumerate(short):
         eng.put(100 + uid, p, max_new_tokens=16)
@@ -909,7 +1290,8 @@ def serve_run(dev, label: str, **over) -> dict:
             f"iterations x 8 slots): wall "
             f"{prof['wall_ms']:.2f} ms, device busy {prof['busy_ms']:.2f} "
             f"ms (idle share {prof['idle_share']:.2f}): K1 "
-            f"{prof['k1_ms']:.2f} ms, K2 {prof['k2_ms']:.2f} ms, matrix "
+            f"{prof['k1_ms']:.2f} ms, K2 {prof['k2_ms']:.2f} ms, K3 "
+            f"{prof['k3_ms']:.2f} ms, K5 {prof['k5_ms']:.2f} ms, matrix "
             f"products {prof['gemm_ms']:.2f} ms, other kernels "
             f"{prof['other_ms']:.2f} ms")
         for name, ms in prof["top"]:
@@ -943,21 +1325,35 @@ def serve_run(dev, label: str, **over) -> dict:
     return res
 
 
+#: the serve phase's models: (preset, depth — None serves every layer —,
+#: the most parameter bytes the int8 and the int4 run may hold against the
+#: bf16 run's). qwen2-moe keeps its shared expert and embedding in bf16,
+#: so its quantized runs hold more than llama2-7b's (by arithmetic 0.545x
+#: and 0.323x)
+SERVE = (("llama2-7b", None, 0.55, 0.30),
+         ("qwen2-moe-a2.7b", None, 0.56, 0.34))
+
+
 def phase_serve(dev) -> dict:
-    runs = {"bf16": serve_run(dev, "bf16"),
-            "int8+fp8-pool": serve_run(dev, "int8+fp8-pool", quant_bits=8,
-                                       kv_cache_dtype="fp8"),
-            "int4": serve_run(dev, "int4", quant_bits=4)}
-    base = runs["bf16"]["param_bytes"]
-    for label, limit in (("int8+fp8-pool", 0.55), ("int4", 0.30)):
-        ratio = runs[label]["param_bytes"] / base
-        runs[label]["param_bytes_over_bf16"] = ratio
-        log(f"[serve] {label}: parameter bytes {ratio:.3f}x the bf16 run's "
-            f"(limit {limit})")
-        if ratio > limit:
-            raise AssertionError(f"[serve] {label} keeps {ratio:.3f}x the "
-                                 f"bf16 parameter bytes (> {limit})")
-    return runs
+    out = {}
+    for name, layers, lim8, lim4 in SERVE:
+        runs = {"bf16": serve_run(dev, name, "bf16", layers),
+                "int8+fp8-pool": serve_run(dev, name, "int8+fp8-pool",
+                                           layers, quant_bits=8,
+                                           kv_cache_dtype="fp8"),
+                "int4": serve_run(dev, name, "int4", layers, quant_bits=4)}
+        base = runs["bf16"]["param_bytes"]
+        for label, limit in (("int8+fp8-pool", lim8), ("int4", lim4)):
+            ratio = runs[label]["param_bytes"] / base
+            runs[label]["param_bytes_over_bf16"] = ratio
+            log(f"[serve] {name} {label}: parameter bytes {ratio:.3f}x the "
+                f"bf16 run's (limit {limit})")
+            if ratio > limit:
+                raise AssertionError(f"[serve] {name} {label} keeps "
+                                     f"{ratio:.3f}x the bf16 parameter "
+                                     f"bytes (> {limit})")
+        out[name] = runs
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -1001,6 +1397,14 @@ def main() -> int:
           "source": "deepspeed_tpu_torch/ops/csrc/quant_matmul.cu",
           "replaces": "deepspeed_tpu/ops/pallas/quant_matmul.py:136",
           "launches": None, "library_ms": None}
+    k3 = {"name": "quant_grouped_matmul", "route": "cuda",
+          "source": "deepspeed_tpu_torch/ops/csrc/quant_matmul.cu",
+          "replaces": "deepspeed_tpu/ops/pallas/quant_matmul.py:455",
+          "launches": None}
+    k5 = {"name": "grouped_matmul", "route": "cuda",
+          "source": "deepspeed_tpu_torch/ops/csrc/grouped_matmul.cu",
+          "replaces": "deepspeed_tpu/ops/pallas/grouped_matmul.py:51",
+          "launches": None}
     built = phase_build()          # every later phase runs the kernels
     record["phases"]["build"] = {n: r["seconds"] for n, r in built.items()}
     if "kernel" in phases:
@@ -1009,22 +1413,29 @@ def main() -> int:
         k1_e4m3.update(e4m3)
         k2_summary, k2_cases = phase_k2(dev)
         k2.update(k2_summary)
-        record["phases"]["kernel"] = {"k1": cases, "k2": k2_cases}
+        k5_summary, k5_cases = phase_k5(dev)
+        k5.update(k5_summary)
+        k3_summary, k3_cases = phase_k3(dev)
+        k3.update(k3_summary)
+        record["phases"]["kernel"] = {"k1": cases, "k2": k2_cases,
+                                      "k3": k3_cases, "k5": k5_cases}
     if "parity" in phases:
         record["phases"]["parity"] = phase_parity(dev)
     if "serve" in phases:
         serve = phase_serve(dev)
         record["phases"]["serve"] = serve
-        k1["launches"] = serve["bf16"]["launches"]["k1"]
-        k1_e4m3["launches"] = serve["int8+fp8-pool"]["launches"]["k1_e4m3"]
-        k2["launches"] = (serve["int8+fp8-pool"]["launches"]["k2"]
-                          + serve["int4"]["launches"]["k2"])
+        # each kernel's launches summed over the serve runs (each run's
+        # counts start at 0)
+        runs = [run for model in serve.values() for run in model.values()]
+        for rec, key in ((k1, "k1"), (k1_e4m3, "k1_e4m3"), (k2, "k2"),
+                         (k3, "k3"), (k5, "k5")):
+            rec["launches"] = sum(run["launches"][key] for run in runs)
     record["seconds"] = time.perf_counter() - t_start
     os.makedirs(args.out, exist_ok=True)
     with open(os.path.join(args.out, "chip_smoke.json"), "w") as f:
         json.dump(record, f, indent=1, default=str)
     log(f"[done] {record['seconds']:.1f}s")
-    log(json.dumps({"kernels": [k1, k1_e4m3, k2]}))
+    log(json.dumps({"kernels": [k1, k1_e4m3, k2, k3, k5]}))
     log(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -22,13 +22,21 @@ compiled programs to cache, stack layers for or warm (``weight_prefetch`` and
 ``decode_early_exit`` keep their meaning as far as eager execution has one),
 and commits are synchronous — the ``max_inflight=0`` behaviour, with the
 same streams. Features of later slices (speculative decoding, tensor
-parallelism, KV tiering, telemetry, request tracing, sliding windows, MoE)
+parallelism, KV tiering, telemetry, request tracing, sliding windows)
 raise NotImplementedError at construction.
 
 Quantized serving: ``quant_bits`` (8, 4 or "fp8") turns every matmul weight
 into codes + scales (``ops/quant_matmul.py``) whose products run the
 in-tile-dequant kernel K2; ``kv_cache_dtype="fp8"`` stores the pool as e4m3,
 read by K1's e4m3 form and written through the JAX package's e4m3 cast.
+
+MoE models (the JAX engine's ``ffn`` MoE branch): every token is routed —
+the capacity route with ``drop_tokens=False`` by default, the dropless
+route (grouped products, K5) when ``moe.dropless`` is set, and under
+``quant_bits`` the routed experts become ``QuantGrouped`` codes served by
+the quantized grouped product K3 over a dropless sort in tiles of
+``_MOE_GEMM_BLOCK_M`` rows. The router and qwen2-moe's shared expert stay
+in the compute dtype.
 """
 from __future__ import annotations
 
@@ -41,13 +49,19 @@ import numpy as np
 import torch
 
 from ..accelerator import get_device, is_sm90
-from ..models.transformer import (TransformerLM, alibi_slopes, apply_rope,
-                                  check_served_family, dense_ffn, norm,
-                                  proj_heads, proj_out)
+from ..models.transformer import (TransformerLM, add_shared_expert,
+                                  alibi_slopes, apply_rope,
+                                  check_served_family, dense_ffn,
+                                  moe_layer_kwargs, norm, proj_heads,
+                                  proj_out)
+from ..moe.layer import (dropless_dispatch_combine, expert_ffn, moe_forward,
+                         router_logits)
+from ..moe.sharded_moe import topk_dropless_gating
 from ..ops.paged_attention import (paged_ragged_attention,
                                    paged_ragged_attention_reference)
-from ..ops.quant_matmul import QuantLinear, quant_matmul, quantize_weight, \
-    to_e4m3
+from ..ops.quant_matmul import (QuantGrouped, QuantLinear,
+                                quant_grouped_matmul, quant_matmul,
+                                quantize_grouped, quantize_weight, to_e4m3)
 from ..utils.logging import logger
 from .attn_registry import select_attention
 from .ragged import StateManager, StepPlan
@@ -132,8 +146,6 @@ def _refuse_later_slices(cfg: RaggedInferenceConfig, m) -> None:
         (cfg.kv_tier, "kv_tier", "KV tiering"),
         (cfg.telemetry, "telemetry=True", "serving telemetry"),
         (cfg.reqtrace, "reqtrace=True", "request tracing"),
-        (m.moe is not None, "MoE models",
-         "MoE (moe/ and the grouped GEMM kernels K3/K5)"),
         (m.sliding_window, "sliding-window models",
          "K1's window and rolling-ring options"),
     ]
@@ -151,6 +163,11 @@ def _refuse_later_slices(cfg: RaggedInferenceConfig, m) -> None:
 
 
 class InferenceEngineV2:
+    #: token-tile size shared by the quantized-MoE sort alignment and the
+    #: grouped quantized product K3 (the JAX engine's value: a serving step
+    #: carries few tokens, so small tiles waste less padding)
+    _MOE_GEMM_BLOCK_M = 32
+
     def __init__(self, model: TransformerLM, params: dict | None = None,
                  config: RaggedInferenceConfig | dict | None = None):
         """``model`` supplies the configuration and, when ``params`` is
@@ -217,6 +234,8 @@ class InferenceEngineV2:
                 kernels.load("paged_attention")
             if cfg.quant_bits:
                 kernels.load("quant_matmul")
+            elif m.moe is not None and m.moe.dropless:
+                kernels.load("grouped_matmul")
         self._alibi_slopes = (alibi_slopes(m.num_heads, device=dev)
                               if m.position_embedding == "alibi" else None)
 
@@ -250,8 +269,9 @@ class InferenceEngineV2:
         ``QuantLinear`` codes + scales from the compute-dtype weights, and
         so does the untied ``unembed``; a tied model keeps its embedding
         exact for the gather and projects logits through ``logits_q``, a
-        quantized copy of ``embed.T``. The tree drops each dense weight as
-        it is replaced."""
+        quantized copy of ``embed.T``. An MoE layer's routed experts become
+        ``QuantGrouped`` slabs; its router and shared expert stay exact.
+        The tree drops each dense weight as it is replaced."""
         m, P = self.mcfg, self.params
         E = m.hidden_size
 
@@ -265,11 +285,17 @@ class InferenceEngineV2:
             for k in ("wq", "wk", "wv"):
                 a[k] = q2d(a[k], E)                       # [E, (H|KV)*D]
             a["wo"] = q2d(a["wo"], m.num_heads * m.head_dim)
-            f = layer["ffn"]
-            for k in ("w_gate", "w_up"):
-                if k in f:
-                    f[k] = q2d(f[k], E)
-            f["w_down"] = q2d(f["w_down"], f["w_down"].shape[0])
+            if "ffn" in layer:
+                f = layer["ffn"]
+                for k in ("w_gate", "w_up"):
+                    if k in f:
+                        f[k] = q2d(f[k], E)
+                f["w_down"] = q2d(f["w_down"], f["w_down"].shape[0])
+            if "moe" in layer:
+                ex = layer["moe"]["moe_layer"]["experts"]
+                for k in ("w_gate", "w_up", "w_down"):
+                    if k in ex:
+                        ex[k] = quantize_grouped(ex[k].float(), bits=bits)
         if not m.tie_embeddings:
             P["unembed"] = q2d(P["unembed"], E)
         else:
@@ -348,10 +374,10 @@ class InferenceEngineV2:
             if m.parallel_block:
                 h_ffn = h if m.parallel_block_norms == 1 else \
                     norm(x, p["ln_ffn"], m)
-                x = x + o + dense_ffn(h_ffn, p["ffn"], m)
+                x = x + o + self._ffn(h_ffn, p)
             else:
                 x = x + o
-                x = x + dense_ffn(norm(x, p["ln_ffn"], m), p["ffn"], m)
+                x = x + self._ffn(norm(x, p["ln_ffn"], m), p)
         # norm is row-wise: taking each row's sampled token first is exact
         last = x[torch.arange(S, device=x.device), sample_idx]     # [S, E]
         last = norm(last, P["ln_final"], m)
@@ -373,6 +399,49 @@ class InferenceEngineV2:
                 L, S * T, KV, D)
             self._merge_stage(slot_map.reshape(-1), ks, vs)
         return logits
+
+    def _ffn(self, h, p):
+        """The FFN of a layer over ``h`` [S, T, E]: the dense FFN, or the
+        MoE layer. Generation drops no routed token: the capacity route
+        runs with ``drop_tokens=False`` (where the dense model's forward
+        drops past ``eval_capacity_factor``), the dropless route when
+        ``moe.dropless`` is set, the quantized route for ``QuantGrouped``
+        experts; then qwen2-moe's shared expert."""
+        m = self.mcfg
+        if "moe" not in p:
+            return dense_ffn(h, p["ffn"], m)
+        ml = p["moe"]["moe_layer"]
+        if isinstance(ml["experts"]["w_up"], QuantGrouped):
+            out = self._quant_moe(ml, h)
+        else:
+            out = moe_forward(h, ml, **moe_layer_kwargs(m, drop_tokens=False))
+        return add_shared_expert(out, h, p["moe"], m)
+
+    def _quant_moe(self, ml, h):
+        """Routed experts over ``QuantGrouped`` slabs: dropless routing and
+        the quantized grouped product (K3) in tiles of
+        ``_MOE_GEMM_BLOCK_M`` rows — the same routes every token takes
+        through the no-drop capacity route, with the same gates."""
+        m = self.mcfg
+        mo = m.moe
+        S, T, E = h.shape
+        flat = h.reshape(S * T, E)
+        gate = topk_dropless_gating(
+            router_logits(flat, ml["gate"]["wg"])[None], mo.top_k,
+            normalize_gates=mo.normalize_gates)
+        bm = self._MOE_GEMM_BLOCK_M
+
+        def gemm(buf, srt):
+            def mm(z, w):
+                return quant_grouped_matmul(z, w, srt.tile_expert,
+                                            block_m=bm,
+                                            tile_rows=srt.tile_rows)
+
+            return expert_ffn(buf, ml["experts"], m.activation, mm)
+
+        out = dropless_dispatch_combine(flat, gate.gates[0], gate.experts[0],
+                                        mo.num_experts, mo.top_k, bm, gemm)
+        return out.reshape(S, T, E)
 
     def _attention(self, q, k_st, v_st, li, block_tables, seq_lens,
                    q_starts, stage_starts):

@@ -10,8 +10,9 @@ nested dict of tensors with the flax tree's structure and names
 - :func:`module_param_tree` views a port ``TransformerLM``'s own
   parameters as that dict (no copy when dtype and device already match).
 
-A leaf may be a ``QuantLinear`` (codes + scales, ``ops/quant_matmul.py``):
-it moves to the device as it is, never cast.
+A leaf may be a ``QuantLinear`` or, for an MoE layer's routed experts, a
+``QuantGrouped`` (codes + scales, ``ops/quant_matmul.py``): it moves to the
+device as it is, never cast.
 
 Layers stay per-layer (``layer_{i}``). The JAX engine stacks them to
 ``lax.scan`` over depth, which bounds its compile time; eager PyTorch loops
@@ -24,9 +25,11 @@ from typing import Any
 import numpy as np
 import torch
 
-from ..ops.quant_matmul import QuantLinear
+from ..ops.quant_matmul import QuantGrouped, QuantLinear
 
 Tree = dict[str, Any]
+#: the port's class for each quantized-weight class of the JAX package
+_QUANT_TYPES = {"QuantLinear": QuantLinear, "QuantGrouped": QuantGrouped}
 
 _QUANT_FIELDS = ("data", "scale", "bits", "group_size", "shape", "dtype")
 
@@ -46,9 +49,13 @@ def _tensor_from_array(a) -> torch.Tensor:
     return torch.from_numpy(a)
 
 
-def _is_jax_quant_linear(node) -> bool:
-    return type(node).__name__ == "QuantLinear" and all(
-        hasattr(node, f) for f in _QUANT_FIELDS)
+def _jax_quant_type(node):
+    """The port's class for a JAX ``QuantLinear`` / ``QuantGrouped`` leaf,
+    else None."""
+    cls = _QUANT_TYPES.get(type(node).__name__)
+    if cls is not None and all(hasattr(node, f) for f in _QUANT_FIELDS):
+        return cls
+    return None
 
 
 def params_from_jax(tree, cfg=None, *, dtype=torch.float32,
@@ -56,8 +63,9 @@ def params_from_jax(tree, cfg=None, *, dtype=torch.float32,
     """The JAX package's unboxed parameter tree (nested dicts of numpy or
     array-likes; ``flax.core.meta.unbox`` first) → the same nested dict of
     torch tensors on ``device`` (the CUDA device by default), floating
-    leaves cast to ``dtype``. A JAX ``QuantLinear`` leaf becomes the port's
-    ``QuantLinear`` with its codes and scales bit for bit. ``cfg`` (a port
+    leaves cast to ``dtype``. A JAX ``QuantLinear`` or ``QuantGrouped``
+    leaf becomes the port's class of the same name with its codes and
+    scales bit for bit. ``cfg`` (a port
     ``ModelConfig``), when given, checks that the tree holds every layer of
     the config."""
     from ..accelerator import get_device
@@ -67,8 +75,9 @@ def params_from_jax(tree, cfg=None, *, dtype=torch.float32,
     def conv(node):
         if isinstance(node, dict):
             return {k: conv(v) for k, v in node.items()}
-        if _is_jax_quant_linear(node):
-            return QuantLinear(
+        cls = _jax_quant_type(node)
+        if cls is not None:
+            return cls(
                 _tensor_from_array(node.data).to(dev),
                 _tensor_from_array(node.scale).to(dev), node.bits,
                 int(node.group_size), tuple(int(d) for d in node.shape),
@@ -85,12 +94,12 @@ def params_from_jax(tree, cfg=None, *, dtype=torch.float32,
 
 def cast_tree(tree: Tree, *, dtype, device) -> Tree:
     """A parameter tree with floating leaves cast to ``dtype`` on ``device``
-    (leaves already there are kept, not copied); ``QuantLinear`` leaves only
-    move to ``device``."""
+    (leaves already there are kept, not copied); quantized leaves only move to
+    ``device``."""
     def conv(v):
         if isinstance(v, dict):
             return cast_tree(v, dtype=dtype, device=device)
-        if isinstance(v, QuantLinear):
+        if isinstance(v, (QuantLinear, QuantGrouped)):
             return v.to(device)
         return _cast(v, dtype, device)
 
@@ -116,12 +125,12 @@ def module_param_tree(module: torch.nn.Module, *, dtype=None,
 
 def tree_nbytes(tree: Tree) -> int:
     """Bytes of every tensor in a parameter tree (codes + scales for a
-    ``QuantLinear``)."""
+    quantized leaf)."""
     total = 0
     for v in tree.values():
         if isinstance(v, dict):
             total += tree_nbytes(v)
-        elif isinstance(v, QuantLinear):
+        elif isinstance(v, (QuantLinear, QuantGrouped)):
             total += v.nbytes
         else:
             total += v.numel() * v.element_size()

@@ -1,7 +1,8 @@
 """Model zoo: the JAX package's presets (``deepspeed_tpu/models/__init__.py``)
-as configs of the port's ``TransformerLM``. The serving slice runs the
-dense pre-norm causal family; the MoE and bert-family presets are listed
-for parity and raise at model construction until their slices land."""
+as configs of the port's ``TransformerLM``. The port serves the pre-norm
+causal family, dense and MoE (``mixtral-8x7b``, ``qwen2-moe-a2.7b``,
+``tiny-mixtral``, ``tiny-qwen2-moe``); the bert-family presets are listed
+for parity and raise at model construction until their slice lands."""
 from __future__ import annotations
 
 import dataclasses

@@ -5,8 +5,10 @@ dataclasses keep the JAX package's fields and defaults; the modules are
 ``nn.Module``s whose parameter names and layouts are the flax tree's
 (``embed``, ``pos_embed``, ``layer_{i}/attn/{wq,wk,wv,wo,bq,bk,bv,bo}``,
 ``layer_{i}/ln_attn/scale``, ``layer_{i}/ffn/{w_gate,w_up,w_down,b_up,
-b_down}``, ``ln_final``, ``unembed``, ``unembed_b``), so a flax tree loads
-one for one (``inference.weights.params_from_jax``). ``wq`` keeps
+b_down}``, ``layer_{i}/moe/{moe_layer/gate/wg, moe_layer/experts/...,
+shared_expert/..., shared_gate}``, ``ln_final``, ``unembed``,
+``unembed_b``), so a flax tree loads one for one
+(``inference.weights.params_from_jax``). ``wq`` keeps
 ``[E, H, D]`` and ``wo`` ``[H, D, E]``: the projections compute the JAX
 forward's einsums (:func:`proj_heads`, :func:`proj_out`).
 
@@ -16,9 +18,17 @@ modules here and the serving engine's ragged forward
 (``inference/engine_v2.py``), the way the JAX engine applies the flax
 ``Norm``/``DenseFFN`` modules to its own tree.
 
-This slice serves; parameters are created without gradients. MoE layers and
-the bert-family encoder layout (post-norm, bidirectional, segment
-embeddings) are ported with later slices and raise here.
+MoE layers (``moe_layer_freq`` / ``moe_layer_pattern``) carry
+:class:`MoEFFN`: the routed experts of ``moe/layer.py`` plus qwen2-moe's
+sigmoid-gated shared expert. :meth:`TransformerLM.forward` routes them as
+the JAX model does, through the capacity route with ``drop_tokens=True`` at
+``eval_capacity_factor`` (the serving engine routes every token instead).
+The port keeps every parameter in ``config.dtype``, the router's ``wg``
+too, where the flax model keeps fp32 parameters and casts the others.
+
+This slice serves; parameters are created without gradients. The
+bert-family encoder layout (post-norm, bidirectional, segment embeddings)
+is ported with a later slice and raises here.
 """
 from __future__ import annotations
 
@@ -31,6 +41,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..moe.layer import MoE
 from ..ops.attention import dot_product_attention
 from ..ops.quant_matmul import QuantLinear, quant_matmul
 
@@ -114,12 +125,45 @@ def dense_ffn_config(cfg: ModelConfig) -> ModelConfig:
     return cfg
 
 
+def is_moe_layer(cfg: ModelConfig, i: int) -> bool:
+    """Whether layer ``i`` carries the MoE FFN: the explicit per-layer
+    pattern when set, else every ``moe_layer_freq``-th layer."""
+    if cfg.moe is None:
+        return False
+    pat = cfg.moe.moe_layer_pattern
+    if pat is not None:
+        if len(pat) != cfg.num_layers:
+            raise ValueError(f"moe_layer_pattern has {len(pat)} entries for "
+                             f"{cfg.num_layers} layers")
+        return bool(pat[i])
+    return i % (cfg.moe.moe_layer_freq or 1) == 0
+
+
+def moe_layer_kwargs(cfg: ModelConfig, **overrides) -> dict:
+    """The one ``ModelConfig.moe`` → MoE-layer keyword mapping, shared by
+    the model's :class:`MoEFFN` and the serving engine."""
+    moe = cfg.moe
+    kw = dict(
+        hidden_size=cfg.hidden_size,
+        num_experts=moe.num_experts,
+        ffn_size=cfg.ffn_size,
+        k=moe.top_k,
+        capacity_factor=moe.capacity_factor,
+        eval_capacity_factor=moe.eval_capacity_factor,
+        min_capacity=moe.min_capacity,
+        activation=cfg.activation,
+        aux_loss_weight=moe.aux_loss_weight,
+        z_loss_weight=moe.router_z_loss_weight,
+        dropless=moe.dropless,
+        dropless_block_m=moe.dropless_block_m,
+        normalize_gates=moe.normalize_gates,
+    )
+    kw.update(overrides)
+    return kw
+
+
 def check_served_family(cfg: ModelConfig) -> None:
     """Raise NotImplementedError for model features a later slice ports."""
-    if cfg.moe is not None:
-        raise NotImplementedError(
-            "MoE models are ported with the MoE slice (moe/ and the grouped "
-            "GEMM kernels K3/K5)")
     if not (cfg.causal and cfg.pre_norm) or cfg.type_vocab_size \
             or cfg.dropout:
         raise NotImplementedError(
@@ -251,6 +295,19 @@ def dense_ffn(x: torch.Tensor, p, cfg: ModelConfig) -> torch.Tensor:
     return mm(h, p["w_down"]) + p["b_down"].to(dt)
 
 
+def add_shared_expert(out: torch.Tensor, x: torch.Tensor, p,
+                      cfg: ModelConfig) -> torch.Tensor:
+    """``out`` plus qwen2-moe's shared expert over ``p`` (an MoE layer's
+    ``shared_expert`` FFN and ``shared_gate`` [E, 1]) when the config has
+    one: ``out + sigmoid(x @ shared_gate) * shared_expert(x)``, the gate in
+    fp32 and cast to out's dtype."""
+    if not cfg.moe.shared_expert_intermediate:
+        return out
+    shared = dense_ffn(x, p["shared_expert"], cfg)
+    g = torch.sigmoid(x.float() @ p["shared_gate"].float())
+    return out + g.to(out.dtype) * shared
+
+
 # ---------------------------------------------------------------------------
 # modules
 # ---------------------------------------------------------------------------
@@ -365,18 +422,51 @@ class DenseFFN(nn.Module):
         return dense_ffn(x, dict(self.named_parameters()), self.config)
 
 
-class Block(nn.Module):
-    """Pre-norm block; ``parallel_block`` runs attention and FFN off one
-    (or, with ``parallel_block_norms=2``, two) norms of the same input."""
+class MoEFFN(nn.Module):
+    """Routed expert FFN (``moe_layer``, an ``moe.layer.MoE``) plus, when
+    the config has one, the sigmoid-gated shared expert
+    (``shared_expert``, ``shared_gate``)."""
 
     def __init__(self, cfg: ModelConfig, pf: _ParamFactory):
+        super().__init__()
+        self.config = cfg
+        self.moe_layer = MoE(**moe_layer_kwargs(cfg), pf=pf)
+        se = cfg.moe.shared_expert_intermediate
+        if se:
+            self.shared_expert = DenseFFN(
+                dataclasses.replace(cfg, intermediate_size=se), pf)
+            self.shared_gate = pf.dense((cfg.hidden_size, 1))
+
+    def forward(self, x):
+        out = self.moe_layer(x)
+        if not self.config.moe.shared_expert_intermediate:
+            return out
+        p = {"shared_expert": dict(self.shared_expert.named_parameters()),
+             "shared_gate": self.shared_gate}
+        return add_shared_expert(out, x, p, self.config)
+
+
+class Block(nn.Module):
+    """Pre-norm block; ``parallel_block`` runs attention and FFN off one
+    (or, with ``parallel_block_norms=2``, two) norms of the same input.
+    ``use_moe`` swaps the dense FFN (``ffn``) for :class:`MoEFFN`
+    (``moe``)."""
+
+    def __init__(self, cfg: ModelConfig, pf: _ParamFactory,
+                 use_moe: bool = False):
         super().__init__()
         self.config = cfg
         self.ln_attn = Norm(cfg, pf)
         self.attn = Attention(cfg, pf)
         if not (cfg.parallel_block and cfg.parallel_block_norms == 1):
             self.ln_ffn = Norm(cfg, pf)
-        self.ffn = DenseFFN(dense_ffn_config(cfg), pf)
+        if use_moe:
+            self.moe = MoEFFN(cfg, pf)
+        else:
+            self.ffn = DenseFFN(dense_ffn_config(cfg), pf)
+
+    def _ffn(self, h):
+        return self.moe(h) if hasattr(self, "moe") else self.ffn(h)
 
     def forward(self, x, positions):
         cfg = self.config
@@ -384,9 +474,9 @@ class Block(nn.Module):
         attn_out = self.attn(h, positions)
         if cfg.parallel_block:
             h_ffn = h if cfg.parallel_block_norms == 1 else self.ln_ffn(x)
-            return x + attn_out + self.ffn(h_ffn)
+            return x + attn_out + self._ffn(h_ffn)
         x = x + attn_out
-        return x + self.ffn(self.ln_ffn(x))
+        return x + self._ffn(self.ln_ffn(x))
 
 
 class TransformerLM(nn.Module):
@@ -411,7 +501,8 @@ class TransformerLM(nn.Module):
         if cfg.embed_norm:
             self.ln_embed = Norm(cfg, pf)
         for i in range(cfg.num_layers):
-            self.add_module(f"layer_{i}", Block(cfg, pf))
+            self.add_module(f"layer_{i}",
+                            Block(cfg, pf, use_moe=is_moe_layer(cfg, i)))
         self.ln_final = Norm(cfg, pf)
         if not cfg.tie_embeddings:
             self.unembed = pf.normal((E, V), 0.02)

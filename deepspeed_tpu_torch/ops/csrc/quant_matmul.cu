@@ -576,3 +576,392 @@ extern "C" int ds_quant_matmul(const void* x, const void* codes,
         err = cudaErrorInvalidValue;
     return int(err);
 }
+
+// ---------------------------------------------------------------------------
+// grouped form (K3)
+// ---------------------------------------------------------------------------
+//
+// Replaces the TPU kernels `_qgmm8_kernel`, `_qgmm4_kernel` and their
+// stacked-layer forms `_qgmm8_kernel_l`, `_qgmm4_kernel_l` of
+// deepspeed_tpu/ops/pallas/quant_matmul.py (entry `quant_grouped_matmul`,
+// the quantized MoE route's expert products).
+//
+// What it computes: out[Tp, Np] = x[Tp, K] @ W[e] row by row, where x holds
+// the routed tokens sorted by expert (each expert's segment padded to a
+// multiple of block_m rows), e = tile_expert[row / block_m], and W[e] is
+// expert e's slab of codes dequantized as above (float(code) * scale in
+// fp32, rounded to x's dtype), with fp32 accumulation. Codes are [n, K, Np]
+// (int8, e4m3) or [n, K/2, Np] (int4 pairs, decoded in place: no even/odd
+// split of x), scales [n, K/G, Np]; a layer index times the layer strides
+// selects one [n, ...] block of stacked codes. tile_rows[t] counts the
+// routed rows at the start of tile t: the rows past it are padding (zero in
+// x) and are written as zeros without being read.
+//
+// What bounds it on an H100: at decode (a few routed rows per expert) the
+// codes and scales of the experts that own a routed row, each read once per
+// 32-row sub-tile that holds routed rows. At prefill the operations,
+// 2 * routed rows * K * N, over the bf16 tensor cores' rate.
+//
+// What the design does about it: the tile form above with 32-row tiles,
+// one expert each. A block reads its tile's expert and routed-row count,
+// writes zeros and stops when its rows hold no routed token (most tiles of
+// a decode step: 61 tiles for 32 routed rows at 60 experts), and otherwise
+// walks K in steps of 64 with 16-byte loads of x, codes and scales for the
+// next step in flight while the tensor cores (WMMA, fp32 accumulators,
+// four warps of 16x32) multiply the current one; fp32 x takes the CUDA
+// cores, each thread a 4x4 sub-tile.
+
+namespace {
+
+constexpr int kGRows = 32;
+constexpr int kGCols = 64;
+constexpr int kGThreads = 128;            // 4 warps
+constexpr int kGK = 64;                   // K rows per bf16 step
+constexpr int kGALd = kGK + 8;
+constexpr int kGBLd = kGCols + 8;
+constexpr int kGCLd = kGCols + 4;
+constexpr int kGFK = 32;                  // K rows per fp32 step
+
+// the block's expert and how many of its 32 rows hold routed tokens (0 when
+// none do, or when the tile's expert is out of range)
+__device__ __forceinline__ int2 grouped_rows(const int* __restrict__ te,
+                                             const int* __restrict__ tr,
+                                             int row0, int block_m, int n) {
+    const int t = row0 / block_m;
+    const int e = te[t];
+    int v = tr[t] - (row0 - t * block_m);
+    v = v < 0 ? 0 : (v > kGRows ? kGRows : v);
+    if (e < 0 || e >= n) v = 0;
+    return make_int2(e, v);
+}
+
+template <typename T>
+__device__ __forceinline__ void grouped_zero(T* __restrict__ out, int row0,
+                                             int v, int n0, int Np, int tid) {
+    for (int i = tid; i < kGRows * kGCols; i += kGThreads) {
+        const int r = i / kGCols;
+        if (r >= v)
+            out[size_t(row0 + r) * Np + n0 + i % kGCols] = from_f<T>(0.f);
+    }
+}
+
+// one bf16 step's raw inputs of one thread: 2 x 8 bf16 of x; two rows of 16
+// codes (int8, e4m3) or one packed int4 row of 16 bytes (c[0]); their scales
+struct GRegs {
+    uint4 x[2];
+    uint4 c[2];
+    float4 s[8];
+};
+
+template <int FMT>
+__device__ __forceinline__ void gload(GRegs& r,
+                                      const __nv_bfloat16* __restrict__ x,
+                                      const uint8_t* __restrict__ codes,
+                                      const float* __restrict__ scale, int K,
+                                      int Np, int G, int row0, int v, int n0,
+                                      int k0, int tid) {
+    const uint4 z = make_uint4(0, 0, 0, 0);
+    const float4 z4 = make_float4(0.f, 0.f, 0.f, 0.f);
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {                 // x: 32 rows x 64 k
+        const int q = tid + i * kGThreads;
+        const int m = q / 8, k = k0 + (q % 8) * 8;
+        r.x[i] = (m < v && k < K)
+            ? *reinterpret_cast<const uint4*>(x + size_t(row0 + m) * K + k)
+            : z;
+    }
+    if (FMT == kInt4) {                           // 32 packed rows x 64
+        const int k = k0 + 2 * (tid / 4), n = n0 + (tid % 4) * 16;
+        r.c[0] = r.c[1] = z;
+#pragma unroll
+        for (int j = 0; j < 8; ++j) r.s[j] = z4;
+        if (k < K) {
+            r.c[0] = *reinterpret_cast<const uint4*>(
+                codes + size_t(k / 2) * Np + n);
+            const float* sp = scale + size_t(k / G) * Np + n;
+#pragma unroll
+            for (int j = 0; j < 4; ++j)
+                r.s[j] = *reinterpret_cast<const float4*>(sp + 4 * j);
+        }
+    } else {                                      // 64 rows x 64
+#pragma unroll
+        for (int i = 0; i < 2; ++i) {
+            const int q = tid + i * kGThreads;
+            const int k = k0 + q / 4, n = n0 + (q % 4) * 16;
+            r.c[i] = z;
+#pragma unroll
+            for (int j = 0; j < 4; ++j) r.s[4 * i + j] = z4;
+            if (k < K) {
+                r.c[i] = *reinterpret_cast<const uint4*>(
+                    codes + size_t(k) * Np + n);
+                const float* sp = scale + size_t(k / G) * Np + n;
+#pragma unroll
+                for (int j = 0; j < 4; ++j)
+                    r.s[4 * i + j] = *reinterpret_cast<const float4*>(
+                        sp + 4 * j);
+            }
+        }
+    }
+}
+
+// 16 codes of `words` times their 16 scales, rounded to bf16, into the
+// shared-memory row `dst` (int4: `hi` picks the high nibbles)
+template <int FMT>
+__device__ __forceinline__ void gdequant16(const uint4 c, const float* sc,
+                                           __nv_bfloat16* dst, bool hi) {
+    const uint32_t words[4] = {c.x, c.y, c.z, c.w};
+    uint4 w[2];
+    __nv_bfloat16* e = reinterpret_cast<__nv_bfloat16*>(w);
+#pragma unroll
+    for (int j = 0; j < 16; ++j) {
+        const uint32_t b = (words[j / 4] >> (8 * (j % 4))) & 0xffu;
+        float f;
+        if (FMT == kInt4)
+            f = float(int(hi ? (b >> 4) : (b & 15u)) - 8);
+        else
+            f = code_f<FMT>(b);
+        e[j] = __float2bfloat16(f * sc[j]);
+    }
+    *reinterpret_cast<uint4*>(dst) = w[0];
+    *reinterpret_cast<uint4*>(dst + 8) = w[1];
+}
+
+template <int FMT>
+__device__ __forceinline__ void gstore(const GRegs& r, __nv_bfloat16* as,
+                                       __nv_bfloat16* bs, int tid) {
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+        const int q = tid + i * kGThreads;
+        *reinterpret_cast<uint4*>(as + (q / 8) * kGALd + (q % 8) * 8) =
+            r.x[i];
+    }
+    const float* sc = reinterpret_cast<const float*>(r.s);
+    if (FMT == kInt4) {
+        const int pr = tid / 4, col = (tid % 4) * 16;
+        gdequant16<FMT>(r.c[0], sc, bs + (2 * pr) * kGBLd + col, false);
+        gdequant16<FMT>(r.c[0], sc, bs + (2 * pr + 1) * kGBLd + col, true);
+    } else {
+#pragma unroll
+        for (int i = 0; i < 2; ++i) {
+            const int q = tid + i * kGThreads;
+            gdequant16<FMT>(r.c[i], sc + 16 * i,
+                            bs + (q / 4) * kGBLd + (q % 4) * 16, false);
+        }
+    }
+}
+
+// grid (Np / 64, Tp / 32); codes / scale point at the layer's [n, ...] slabs
+template <int FMT>
+__global__ void __launch_bounds__(kGThreads)
+qgmm_bf16_kernel(const __nv_bfloat16* __restrict__ x,
+                 const uint8_t* __restrict__ codes,
+                 const float* __restrict__ scale,
+                 const int* __restrict__ te, const int* __restrict__ tr,
+                 __nv_bfloat16* __restrict__ out, int K, int Np, int G, int n,
+                 int block_m) {
+    using namespace nvcuda;
+    __shared__ __align__(32) __nv_bfloat16 as[kGRows * kGALd];
+    __shared__ __align__(32) __nv_bfloat16 bs[kGK * kGBLd];
+    __shared__ __align__(32) float cs[kGRows * kGCLd];
+    const int tid = threadIdx.x, warp = tid / 32;
+    const int wm = warp / 2, wn = warp % 2;
+    const int row0 = blockIdx.y * kGRows, n0 = blockIdx.x * kGCols;
+    const int2 ev = grouped_rows(te, tr, row0, block_m, n);
+    if (ev.y == 0) {
+        grouped_zero(out, row0, 0, n0, Np, tid);
+        return;
+    }
+    const size_t code_rows = FMT == kInt4 ? K / 2 : K;
+    const uint8_t* ce = codes + size_t(ev.x) * code_rows * Np;
+    const float* se = scale + size_t(ev.x) * (K / G) * Np;
+
+    wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[2];
+#pragma unroll
+    for (int j = 0; j < 2; ++j) wmma::fill_fragment(acc[j], 0.f);
+
+    GRegs r;
+    gload<FMT>(r, x, ce, se, K, Np, G, row0, ev.y, n0, 0, tid);
+    for (int k0 = 0; k0 < K; k0 += kGK) {
+        gstore<FMT>(r, as, bs, tid);
+        __syncthreads();
+        if (k0 + kGK < K)                 // in flight during the products
+            gload<FMT>(r, x, ce, se, K, Np, G, row0, ev.y, n0, k0 + kGK,
+                       tid);
+#pragma unroll
+        for (int kk = 0; kk < kGK; kk += 16) {
+            wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16,
+                           wmma::row_major> a;
+            wmma::load_matrix_sync(a, as + (wm * 16) * kGALd + kk, kGALd);
+#pragma unroll
+            for (int j = 0; j < 2; ++j) {
+                wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16,
+                               wmma::row_major> b;
+                wmma::load_matrix_sync(b, bs + kk * kGBLd + wn * 32 + j * 16,
+                                       kGBLd);
+                wmma::mma_sync(acc[j], a, b, acc[j]);
+            }
+        }
+        __syncthreads();
+    }
+#pragma unroll
+    for (int j = 0; j < 2; ++j)
+        wmma::store_matrix_sync(cs + (wm * 16) * kGCLd + wn * 32 + j * 16,
+                                acc[j], kGCLd, wmma::mem_row_major);
+    __syncthreads();
+    for (int i = tid; i < kGRows * kGCols; i += kGThreads) {
+        const int m = i / kGCols, c = i % kGCols;
+        out[size_t(row0 + m) * Np + n0 + c] = __float2bfloat16(
+            m < ev.y ? cs[m * kGCLd + c] : 0.f);
+    }
+}
+
+// fp32: the x tile and the dequantized weight tile in shared memory, thread
+// (tx, ty) = (tid % 16, tid / 16) accumulating rows ty*4.. and columns
+// tx*4.. on the CUDA cores
+template <int FMT>
+__global__ void __launch_bounds__(kGThreads)
+qgmm_f32_kernel(const float* __restrict__ x,
+                const uint8_t* __restrict__ codes,
+                const float* __restrict__ scale, const int* __restrict__ te,
+                const int* __restrict__ tr, float* __restrict__ out, int K,
+                int Np, int G, int n, int block_m) {
+    __shared__ __align__(16) float xs[kGFK][kGRows + kPad];  // K-major
+    __shared__ __align__(16) float ws[kGFK][kGCols + kPad];
+    const int tid = threadIdx.x, tx = tid % 16, ty = tid / 16;
+    const int row0 = blockIdx.y * kGRows, n0 = blockIdx.x * kGCols;
+    const int2 ev = grouped_rows(te, tr, row0, block_m, n);
+    if (ev.y == 0) {
+        grouped_zero(out, row0, 0, n0, Np, tid);
+        return;
+    }
+    const size_t code_rows = FMT == kInt4 ? K / 2 : K;
+    const uint8_t* ce = codes + size_t(ev.x) * code_rows * Np;
+    const float* se = scale + size_t(ev.x) * (K / G) * Np;
+
+    float acc[4][4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
+
+    for (int k0 = 0; k0 < K; k0 += kGFK) {
+        // x tile: element e -> row e / 32, column e % 32
+#pragma unroll
+        for (int i = 0; i < kGRows * kGFK / kGThreads; ++i) {
+            const int e = tid + i * kGThreads;
+            const int m = e / kGFK, c = e % kGFK, k = k0 + c;
+            xs[c][m] = (m < ev.y && k < K) ? x[size_t(row0 + m) * K + k]
+                                           : 0.f;
+        }
+        if (FMT == kInt4) {
+#pragma unroll
+            for (int i = 0; i < (kGFK / 2) * kGCols / kGThreads; ++i) {
+                const int e = tid + i * kGThreads;
+                const int pr = e / kGCols, c = e % kGCols;
+                const int k = k0 + 2 * pr, nn = n0 + c;
+                float lo = 0.f, hi = 0.f;
+                if (k < K) {
+                    const uint32_t b = ce[size_t(k / 2) * Np + nn];
+                    const float s = se[size_t(k / G) * Np + nn];
+                    lo = float(int(b & 15u) - 8) * s;
+                    hi = float(int(b >> 4) - 8) * s;
+                }
+                ws[2 * pr][c] = lo;
+                ws[2 * pr + 1][c] = hi;
+            }
+        } else {
+#pragma unroll
+            for (int i = 0; i < kGFK * kGCols / kGThreads; ++i) {
+                const int e = tid + i * kGThreads;
+                const int rr = e / kGCols, c = e % kGCols;
+                const int k = k0 + rr, nn = n0 + c;
+                ws[rr][c] = k < K ? code_f<FMT>(ce[size_t(k) * Np + nn]) *
+                                        se[size_t(k / G) * Np + nn]
+                                  : 0.f;
+            }
+        }
+        __syncthreads();
+#pragma unroll 8
+        for (int kk = 0; kk < kGFK; ++kk) {
+            const float4 a = *reinterpret_cast<const float4*>(&xs[kk][ty * 4]);
+            const float4 b = *reinterpret_cast<const float4*>(&ws[kk][tx * 4]);
+            const float av[4] = {a.x, a.y, a.z, a.w};
+            const float bv[4] = {b.x, b.y, b.z, b.w};
+#pragma unroll
+            for (int i = 0; i < 4; ++i)
+#pragma unroll
+                for (int j = 0; j < 4; ++j)
+                    acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
+        }
+        __syncthreads();
+    }
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+        const int m = ty * 4 + i;
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+            out[size_t(row0 + m) * Np + n0 + tx * 4 + j] =
+                m < ev.y ? acc[i][j] : 0.f;
+    }
+}
+
+template <int FMT>
+cudaError_t grouped_dispatch(int dtype, const void* x, const uint8_t* codes,
+                             const float* sc, const int* te, const int* tr,
+                             void* out, int Tp, int K, int Np, int G, int n,
+                             int block_m, cudaStream_t st) {
+    dim3 grid(Np / kGCols, Tp / kGRows);
+    if (dtype == 0)
+        qgmm_f32_kernel<FMT><<<grid, kGThreads, 0, st>>>(
+            static_cast<const float*>(x), codes, sc, te, tr,
+            static_cast<float*>(out), K, Np, G, n, block_m);
+    else if (dtype == 1)
+        qgmm_bf16_kernel<FMT><<<grid, kGThreads, 0, st>>>(
+            static_cast<const __nv_bfloat16*>(x), codes, sc, te, tr,
+            static_cast<__nv_bfloat16*>(out), K, Np, G, n, block_m);
+    else
+        return cudaErrorInvalidValue;
+    return cudaGetLastError();
+}
+
+}  // namespace
+
+// The grouped form: x [Tp, K] (dtype 0 = float32, 1 = bfloat16, as out
+// [Tp, Np]); codes [n, K, Np] or [n, K/2, Np] (fmt as above) and scales
+// [n, K/G, Np], offset by `layer` times the layer strides (in elements);
+// tile_expert and tile_rows int32 [Tp / block_m]. Tp and block_m are
+// multiples of 32, K of 8. Returns the cudaError_t of the launch (0 =
+// success); it is asynchronous on `stream`.
+extern "C" int ds_quant_grouped_matmul(
+        const void* x, const void* codes, const void* scale,
+        const void* tile_expert, const void* tile_rows, void* out, int Tp,
+        int K, int Np, int G, int n, int block_m, int fmt, int dtype,
+        int layer, long long codes_layer_stride, long long scale_layer_stride,
+        void* stream) {
+    if (Tp == 0) return 0;
+    if (Tp < 0 || K <= 0 || K % 8 || Np <= 0 || Np % 128 || G <= 0 ||
+        K % G || (fmt == kInt4 && G % 2) || n <= 0 || block_m <= 0 ||
+        block_m % kGRows || Tp % block_m || layer < 0)
+        return int(cudaErrorInvalidValue);
+    auto st = static_cast<cudaStream_t>(stream);
+    const uint8_t* c = static_cast<const uint8_t*>(codes) +
+                       size_t(layer) * size_t(codes_layer_stride);
+    const float* s = static_cast<const float*>(scale) +
+                     size_t(layer) * size_t(scale_layer_stride);
+    const int* te = static_cast<const int*>(tile_expert);
+    const int* tr = static_cast<const int*>(tile_rows);
+    cudaError_t err;
+    switch (fmt) {
+        case kInt8: err = grouped_dispatch<kInt8>(dtype, x, c, s, te, tr, out,
+                                                  Tp, K, Np, G, n, block_m,
+                                                  st); break;
+        case kInt4: err = grouped_dispatch<kInt4>(dtype, x, c, s, te, tr, out,
+                                                  Tp, K, Np, G, n, block_m,
+                                                  st); break;
+        case kE4M3: err = grouped_dispatch<kE4M3>(dtype, x, c, s, te, tr, out,
+                                                  Tp, K, Np, G, n, block_m,
+                                                  st); break;
+        default: err = cudaErrorInvalidValue;
+    }
+    return int(err);
+}

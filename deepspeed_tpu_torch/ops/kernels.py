@@ -26,7 +26,8 @@ BUILD = Path(__file__).resolve().parent / "build"
 
 #: kernel library name -> its source in ``csrc/``
 SOURCES = {"paged_attention": "paged_attention.cu",
-           "quant_matmul": "quant_matmul.cu"}
+           "quant_matmul": "quant_matmul.cu",
+           "grouped_matmul": "grouped_matmul.cu"}
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -114,4 +115,15 @@ def _declare(name: str, lib: ctypes.CDLL) -> None:
         # x, codes, scale, out, workspace; M, K, Np, G, fmt, dtype, layer;
         # codes / scale layer strides; decode, MR, KB, splits; stream
         fn.argtypes = [p] * 5 + [i] * 7 + [ll, ll] + [i] * 4 + [p]
+        fn.restype = i
+        fn = lib.ds_quant_grouped_matmul
+        # x, codes, scale, tile_expert, tile_rows, out; Tp, K, Np, G, n,
+        # block_m, fmt, dtype, layer; codes / scale layer strides; stream
+        fn.argtypes = [p] * 6 + [i] * 9 + [ll, ll, p]
+        fn.restype = i
+    elif name == "grouped_matmul":
+        fn = lib.ds_grouped_matmul
+        # x, w, tile_expert, tile_rows, out; Tp, K, N, n, block_m, dtype;
+        # stream
+        fn.argtypes = [p] * 5 + [i] * 6 + [p]
         fn.restype = i

@@ -80,9 +80,10 @@ class QuantLinear(NamedTuple):
 
 @dataclass
 class LaunchCounts:
-    """Calls of :func:`quant_matmul` by route: ``kernel`` counts launches
-    of the CUDA kernel, ``plain`` the CPU route through the plain
-    version."""
+    """Calls of a kernel wrapper (:func:`quant_matmul`,
+    :func:`quant_grouped_matmul`, ``grouped_matmul.grouped_matmul``) by
+    route: ``kernel`` counts launches of the CUDA kernel, ``plain`` the CPU
+    route through the plain version."""
     kernel: int = 0
     plain: int = 0
 
@@ -329,4 +330,176 @@ def _launch_kernel(x, qw: QuantLinear, layer_index, small_m_xla):
                            f"{err}")
     counts.kernel += 1
     N = qw.shape[1]
+    return out if N == Np else out[:, :N]
+
+
+# ---------------------------------------------------------------------------
+# grouped (per-expert) form: K3
+# ---------------------------------------------------------------------------
+
+class QuantGrouped(NamedTuple):
+    """Weight-only-quantized stacked expert weights ``[n, K, N]`` (the JAX
+    package's ``QuantGrouped``): ``data`` int8 / e4m3 ``[n, K, Np]`` or
+    uint8 ``[n, K/2, Np]`` (int4 pairs), ``scale`` fp32 ``[n, K/G, Np]``;
+    both may carry a leading layer dim ``[L, n, ...]``. ``shape`` is the
+    logical ``(n, K, N)``."""
+    data: torch.Tensor
+    scale: torch.Tensor
+    bits: int | str
+    group_size: int
+    shape: tuple[int, int, int]
+    dtype: Any
+
+    @property
+    def nbytes(self) -> int:
+        return (self.data.numel() * self.data.element_size()
+                + self.scale.numel() * self.scale.element_size())
+
+    def to(self, device) -> "QuantGrouped":
+        return self._replace(data=self.data.to(device),
+                             scale=self.scale.to(device))
+
+
+#: launches of :func:`quant_grouped_matmul` by route (K3)
+grouped_counts = LaunchCounts()
+
+
+def quantize_grouped(w: torch.Tensor, bits: int | str = 8,
+                     group_size: int | None = None) -> QuantGrouped:
+    """Symmetric per-(expert, K-group, column) quantization of stacked
+    expert weights ``[n, K, N]`` — :func:`quantize_weight`'s grid applied
+    per expert; codes and scales bit-identical to the JAX package's
+    ``quantize_grouped``."""
+    if bits not in (4, 8, "fp8"):
+        raise ValueError(f"bits must be 4, 8 or 'fp8', got {bits!r}")
+    n, K, N = w.shape
+    n_pad = (-N) % LANE
+    if n_pad:
+        w = torch.nn.functional.pad(w, (0, n_pad))
+    G = _resolve_group(K, bits, group_size)
+    q, scale = _quantize_slabs(w, bits, G)
+    return QuantGrouped(q, scale, bits, G, (n, K, N), w.dtype)
+
+
+def dequantize_grouped(qw: QuantGrouped) -> torch.Tensor:
+    """The plain inverse: the logical ``[n, K, N]`` weights in
+    ``qw.dtype``."""
+    n, K, N = qw.shape
+    w = _dequantize_slabs(qw.data, qw.scale, qw.bits, K, qw.group_size)
+    return w[:, :, :N].to(qw.dtype)
+
+
+def _grouped_layer(qw: QuantGrouped, layer_index):
+    """(codes, scales) of the selected layer: ``[n, ...]``."""
+    stacked = qw.data.dim() == 4
+    if (layer_index is not None) != stacked:
+        raise ValueError(f"codes {tuple(qw.data.shape)} and layer_index "
+                         f"{layer_index} disagree")
+    if layer_index is None:
+        return qw.data, qw.scale
+    li = int(layer_index)
+    if not 0 <= li < qw.data.shape[0]:
+        raise ValueError(f"layer_index {li} outside [0, "
+                         f"{qw.data.shape[0]})")
+    return qw.data[li], qw.scale[li]
+
+
+def _check_grouped(x, qw: QuantGrouped, tile_expert, block_m, tile_rows):
+    if x.dim() != 2:
+        raise ValueError(f"x must be [Tp, K], got {tuple(x.shape)}")
+    if x.shape[1] != qw.shape[1]:
+        raise ValueError(f"contract mismatch: x {tuple(x.shape)} w "
+                         f"{qw.shape}")
+    from .grouped_matmul import check_tiles
+
+    check_tiles(x.shape[0], block_m, tile_expert, tile_rows)
+
+
+def quant_grouped_matmul_reference(x: torch.Tensor, qw: QuantGrouped,
+                                   tile_expert: torch.Tensor, *,
+                                   layer_index=None, block_m: int = 128,
+                                   tile_rows: torch.Tensor | None = None
+                                   ) -> torch.Tensor:
+    """The plain version: each tile times its expert's codes dequantized in
+    fp32 and rounded to x's dtype, the product in fp32; rows past
+    ``tile_rows`` are zero. ``[Tp, N]`` in x's dtype."""
+    from .grouped_matmul import tiled_reference
+
+    _check_grouped(x, qw, tile_expert, block_m, tile_rows)
+    data, scale = _grouped_layer(qw, layer_index)
+    K, N = qw.shape[1], qw.shape[2]
+
+    def weight_of(e):
+        w = _dequantize_slabs(data[e][None], scale[e][None], qw.bits, K,
+                              qw.group_size)[0]
+        return w[:, :N].to(x.dtype).float()
+
+    return tiled_reference(x, tile_expert, block_m, tile_rows, weight_of)
+
+
+def quant_grouped_matmul(x: torch.Tensor, qw: QuantGrouped,
+                         tile_expert: torch.Tensor, *, layer_index=None,
+                         block_m: int = 128,
+                         tile_rows: torch.Tensor | None = None
+                         ) -> torch.Tensor:
+    """``x`` [Tp, K] expert-sorted and aligned (``Tp % block_m == 0``, each
+    tile owned by expert ``tile_expert[t]``, see
+    ``ops.grouped_matmul.sort_tokens_by_expert``) times ``dequant(qw[e])``
+    → [Tp, N] in x's dtype. ``layer_index`` selects a layer of stacked
+    ``[L, n, ...]`` codes inside the kernel; ``tile_rows`` (optional) limits
+    each tile to its routed rows."""
+    _check_grouped(x, qw, tile_expert, block_m, tile_rows)
+    if x.device.type == "cpu":
+        grouped_counts.plain += 1
+        return quant_grouped_matmul_reference(
+            x, qw, tile_expert, layer_index=layer_index, block_m=block_m,
+            tile_rows=tile_rows)
+    if x.device.type != "cuda":
+        raise ValueError(f"unsupported device {x.device}")
+    return _launch_grouped_kernel(x, qw, tile_expert, layer_index, block_m,
+                                  tile_rows)
+
+
+def _launch_grouped_kernel(x, qw: QuantGrouped, tile_expert, layer_index,
+                           block_m, tile_rows):
+    from . import kernels
+    from .grouped_matmul import check_kernel_operands
+
+    Tp, K = x.shape
+    n = qw.shape[0]
+    if qw.bits not in _FMT:
+        raise ValueError(f"bits must be 4, 8 or 'fp8', got {qw.bits!r}")
+    if K % 8:
+        raise ValueError(f"K={K} must be a multiple of 8 (16-byte rows)")
+    data, scale = qw.data, qw.scale
+    _grouped_layer(qw, layer_index)              # validates the index
+    Np = data.shape[-1]
+    G = qw.group_size
+    rows = K // 2 if qw.bits == 4 else K
+    if (tuple(data.shape[-3:]) != (n, rows, Np) or Np % LANE or K % G
+            or tuple(scale.shape[-3:]) != (n, K // G, Np)):
+        raise ValueError(f"codes {tuple(data.shape)} / scales "
+                         f"{tuple(scale.shape)} do not fit n={n}, K={K}, "
+                         f"G={G}")
+    if data.dtype != _CODE_DTYPES[qw.bits] or scale.dtype != torch.float32:
+        raise ValueError(f"codes {data.dtype} / scales {scale.dtype} do not "
+                         f"fit bits={qw.bits!r}")
+    te, tr = check_kernel_operands(x, block_m, tile_expert, tile_rows,
+                                   [("codes", data), ("scale", scale)])
+    li, cstride, sstride = 0, 0, 0
+    if layer_index is not None:
+        li = int(layer_index)
+        cstride, sstride = data[0].numel(), scale[0].numel()
+    out = torch.empty((Tp, Np), dtype=x.dtype, device=x.device)
+    lib = kernels.load("quant_matmul")
+    err = lib.ds_quant_grouped_matmul(
+        x.data_ptr(), data.data_ptr(), scale.data_ptr(), te.data_ptr(),
+        tr.data_ptr(), out.data_ptr(), Tp, K, Np, G, n, block_m,
+        _FMT[qw.bits], _DTYPES[x.dtype], li, cstride, sstride,
+        torch.cuda.current_stream(x.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"quant-grouped-matmul kernel launch failed: CUDA "
+                           f"error {err}")
+    grouped_counts.kernel += 1
+    N = qw.shape[2]
     return out if N == Np else out[:, :N]

@@ -27,6 +27,7 @@ from deepspeed_tpu_torch.inference import InferenceEngineV2, params_from_jax
 from deepspeed_tpu_torch.models import build_model
 from deepspeed_tpu_torch.models.transformer import MoEConfig
 from deepspeed_tpu_torch.ops import paged_attention as pa
+from deepspeed_tpu_torch.ops import quant_matmul as qm
 
 MODELS = ["tiny-llama", "tiny-gpt2"]
 OVERRIDES = {"hidden_size": 256}           # 4 heads of 64
@@ -141,15 +142,21 @@ def test_later_slices_and_the_default_device_raise(served):
         with pytest.raises(NotImplementedError, match=match):
             InferenceEngineV2(tm, params=tree,
                               config=dict(BASE, device="cpu", **over))
-    # MoE models, with or without quantized weights, wait for the MoE
-    # slice (its grouped GEMMs K3/K5); the port's model refuses to build
-    # one, so a stand-in carries the config
-    moe = SimpleNamespace(config=dataclasses.replace(tm.config,
-                                                     moe=MoEConfig()))
+    # sliding-window models wait for K1's window and ring options; a
+    # stand-in carries the config
+    windowed = SimpleNamespace(config=dataclasses.replace(
+        tm.config, sliding_window=16))
+    with pytest.raises(NotImplementedError, match="sliding-window"):
+        InferenceEngineV2(windowed, params=tree,
+                          config=dict(BASE, device="cpu"))
+    # MoE models serve (the MoE slice), with and without quantized weights
+    moe = build_model("tiny-mixtral", device="cpu", dtype=torch.float32,
+                      moe=MoEConfig(num_experts=4, top_k=2))
     for over in ({}, {"quant_bits": 8}):
-        with pytest.raises(NotImplementedError, match="MoE.*K3"):
-            InferenceEngineV2(moe, params=tree,
-                              config=dict(BASE, device="cpu", **over))
+        eng = InferenceEngineV2(moe, config=dict(BASE, device="cpu",
+                                                 dtype=torch.float32, **over))
+        experts = eng.params["layer_0"]["moe"]["moe_layer"]["experts"]
+        assert isinstance(experts["w_up"], qm.QuantGrouped) == bool(over)
     with pytest.raises(ValueError, match="quant_bits"):
         InferenceEngineV2(tm, params=tree,
                           config=dict(BASE, device="cpu", quant_bits=3))

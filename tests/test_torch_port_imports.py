@@ -26,7 +26,11 @@ for n in names:
     importlib.import_module(n)
 bad = sorted(m for m in sys.modules if m.split('.')[0] in {FORBIDDEN!r})
 assert not bare and not bad, (bare, bad)
-assert 'deepspeed_tpu_torch.inference.engine_v2' in names, names
+for m in ('deepspeed_tpu_torch.inference.engine_v2',
+          'deepspeed_tpu_torch.moe', 'deepspeed_tpu_torch.moe.layer',
+          'deepspeed_tpu_torch.moe.sharded_moe',
+          'deepspeed_tpu_torch.ops.grouped_matmul'):
+    assert m in names, (m, names)
 print(len(names))
 """
     out = subprocess.run([sys.executable, "-c", code], check=True,
@@ -82,6 +86,11 @@ def test_kernel_sources_ship_with_the_package():
     cfg = tomllib.loads((ROOT / "pyproject.toml").read_text())
     data = cfg["tool"]["setuptools"]["package-data"]
     assert "ops/csrc/*.cu" in data["deepspeed_tpu_torch"]
-    assert (PORT / "ops" / "csrc" / "paged_attention.cu").is_file()
+    from deepspeed_tpu_torch.ops.kernels import SOURCES
+
+    assert {"paged_attention", "quant_matmul", "grouped_matmul"} <= \
+        set(SOURCES)
+    for src in SOURCES.values():
+        assert (PORT / "ops" / "csrc" / src).is_file(), src
     ignored = (ROOT / ".gitignore").read_text().split()
     assert "deepspeed_tpu_torch/ops/build/" in ignored
