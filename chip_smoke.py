@@ -18,6 +18,15 @@ Phases (every one raises on failure; nothing is caught and passed over):
      spread so the softmax is peaked and a wrong score shows in the output.
      Yardstick: one ``scaled_dot_product_attention`` call over the same K/V
      gathered dense.
+   - K1's sliding-window, rolling-ring and tree-verify forms, in fp32, bf16
+     and over an e4m3 pool with the same tolerances, judged on live slots:
+     a decode-window step (8 slots, one empty) and a 256-token prefill
+     chunk at mistral-7b geometry (H 32, KV 8, D 128) over ~6000-token
+     contexts with the 4096-key window, on a linear table and on a wrapped
+     69-page ring; tree verify of an 8-node branchy tree at llama2-7b (G 1)
+     and mistral (G 4) geometry. Each is counted as its form. The bound
+     counts only the keys some query row sees (inside the window or ring);
+     the SDPA yardstick gets an explicit boolean mask of who sees what.
    - K1's e4m3-pool form at the same llama2-7b shapes over an e4m3 pool,
      against the plain version rounding p against the kernel's 64-key
      walk; judged by max |error| over max |plain| and mean |error| over
@@ -58,8 +67,18 @@ Phases (every one raises on failure; nothing is caught and passed over):
    ``quant_bits`` 8, 4 and "fp8") and qwen2-moe-a2.7b (``dropless``,
    ``quant_bits=8``) at full width with 4 layers, each against the model
    with no token dropped (eval capacity factor = number of experts), over
-   the dequantized codes for the quantized routes. Each run asserts its
-   K1 / K2 / K3 / K5 launches and 0 plain launches.
+   the dequantized codes for the quantized routes. Then mistral-7b (4
+   layers) served from its 69-page rolling ring: prompts of 4600 and 4700
+   tokens (past the 4416-token ring) and 300, 32 new tokens, against the
+   dense forward (which masks the window) under the same rule, and an
+   e4m3-pool ring within the fp8 bound. Then llama2-7b (4 layers) with
+   ``spec_decode``: "ngram" over motif prompts, "draft" with a same-weights
+   draft (acceptance must exceed 0.9) and a differently seeded one, each
+   stream identical to the spec-off engine's (a parting is allowed only at
+   a near-tie of the dense model, as above); spec on a windowed model must
+   raise ValueError. Each run asserts its K1 / K2 / K3 / K5 launches — K1's
+   window and ring forms on every ring-served call, its tree form once per
+   layer of every verify — and 0 plain launches.
 4. serve  — llama2-7b at full width and depth in bf16 from seeded random
    weights: 8 requests of 256-1024 prompt tokens (a shared 128-token system
    prefix) and 64 new tokens each, through put/step/query/flush. Prints
@@ -73,7 +92,22 @@ Phases (every one raises on failure; nothing is caught and passed over):
    qwen2-moe-a2.7b at full width and depth, the same three runs: bf16 with
    ``moe.dropless`` (K5 72 launches per forward: 3 expert products x 24
    layers), and the quantized runs (K3 72, K2 97 per forward), within
-   0.56x and 0.34x of the bf16 parameter bytes.
+   0.56x and 0.34x of the bf16 parameter bytes. Then mistral-7b at full
+   width and depth from its rolling ring (block 64, max_seq_len 8192,
+   chunk 256, prefix cache off): 8 requests of 64 new tokens, 4 with
+   4608-6144-token prompts and 4 with 256-1024, in bf16 and with
+   ``kv_cache_dtype="fp8"``; each asserts that the ring wrapped and that
+   no sequence owned more than its 69 pages. Then llama2-7b at full depth
+   on motif prompts: spec-off, ``spec_decode="ngram"`` and "draft" with the
+   model itself as the draft (at least one verify), printing verify
+   rounds, acceptance, tokens per verify and K1's tree launches beside the
+   spec-off run's tok/s and TTFT. Prompt lookup proposes only where a
+   stream repeats its history; the random 32-layer model's greedy streams
+   need not, so the "ngram" run's rounds are reported, not required (the
+   4-layer parity model's are). Acceptance is held to 0.9 in the fp32
+   parity phase only: in bf16 the draft's one-token decode and the
+   target's 8-node verify round near-ties of the random model's flat
+   logits differently.
 
 The last lines are the kernels' JSON record, the card's name and power
 limit, and ``{"ok": true, "device": {...}}``. Without a CUDA device the
@@ -124,15 +158,6 @@ K2_SHAPES = {"wq": (4096, 4096), "w_gate": (4096, 11008),
              "qwen2-moe/unembed": (2048, 151936)}
 #: K2's stacked case: (layers, K, N, the layer selected)
 K2_STACKED = (4, 4096, 4096, 2)
-
-
-def k1_error(got, ref, dtype) -> tuple[float, float]:
-    """(max |got - ref|, the error the tolerance judges: the same for fp32,
-    over max |ref| for bf16)."""
-    err = (got.float() - ref.float()).abs().max().item()
-    if dtype == torch.float32:
-        return err, err
-    return err, err / ref.float().abs().max().item()
 
 
 def log(msg: str) -> None:
@@ -207,12 +232,15 @@ def phase_build() -> dict:
 # ---------------------------------------------------------------------------
 
 def k1_case(name, *, H, KV, D, bs, T, Ts, ctx, dtype, dev, seed,
-            window=False, nb=256, L=2, e4m3=False):
+            window=False, nb=256, L=2, e4m3=False, sliding=None,
+            ring_pages=None):
     """Inputs for one K1 case: ``ctx`` lists each slot's pool context
     (positions below stage_starts), -1 for an empty slot. Each live slot's
     stage holds its fresh rows: a ragged prefill chunk, the one decode
     token, or (``window``) 1-8 rows of a decode window whose query is the
-    last of them. ``e4m3`` casts the pool to e4m3 codes."""
+    last of them. ``e4m3`` casts the pool to e4m3 codes. ``sliding`` adds a
+    sliding window of that many keys; ``ring_pages`` makes each table a
+    rolling ring of that many pages (``ring_tokens`` = pages x bs)."""
     from deepspeed_tpu_torch.ops.quant_matmul import to_e4m3
 
     g = torch.Generator(device=dev).manual_seed(seed)
@@ -228,7 +256,7 @@ def k1_case(name, *, H, KV, D, bs, T, Ts, ctx, dtype, dev, seed,
     # so the softmax is peaked and a wrong score moves the output
     q = rnd(S, T, H, D, sd=Q_SD)
     ks, vs = rnd(S, KV, Ts, D), rnd(S, KV, Ts, D)
-    max_pages = max(-(-(c + Ts) // bs) for c in ctx) + 2
+    max_pages = ring_pages or max(-(-(c + Ts) // bs) for c in ctx) + 2
     tables = torch.zeros(S, max_pages, dtype=torch.int32)   # trash-padded
     lens, qst, sst = [], [], []
     perm = torch.randperm(nb - 1, generator=torch.Generator().manual_seed(
@@ -238,7 +266,7 @@ def k1_case(name, *, H, KV, D, bs, T, Ts, ctx, dtype, dev, seed,
         if c < 0:                                  # empty slot
             lens.append(0), qst.append(0), sst.append(0)
             continue
-        n_pages = -(-(c + Ts) // bs)
+        n_pages = ring_pages or -(-(c + Ts) // bs)
         tables[s, :n_pages] = perm[used:used + n_pages].to(torch.int32)
         used += n_pages
         if window:
@@ -252,35 +280,86 @@ def k1_case(name, *, H, KV, D, bs, T, Ts, ctx, dtype, dev, seed,
     return dict(name=name, q=q, pool=pool, k_stage=ks, v_stage=vs,
                 block_tables=tables.to(dev), seq_lens=i32(lens),
                 q_starts=i32(qst), stage_starts=i32(sst), block_size=bs,
-                layer_index=L - 1)
+                layer_index=L - 1, window=sliding,
+                ring_tokens=ring_pages * bs if ring_pages else None)
+
+
+#: the verify trees of the K1 tree cases: a root with two children, each
+#: with two, then a chain — 8 nodes, depth 3 (the engine's spec_max_nodes)
+TREE_PARENTS = (-1, 0, 0, 1, 1, 2, 3, 6)
+
+
+def k1_tree_case(name, *, ctx, dtype, dev, seed, e4m3, **geom):
+    """Tree verify over ``ctx`` committed tokens per slot (-1: empty): the
+    8 nodes of ``TREE_PARENTS`` at positions root + depth, the ancestors
+    mask, seq_lens = root + 1 + max depth (the engine's)."""
+    T = len(TREE_PARENTS)
+    case = k1_case(name, bs=64, T=T, Ts=T, ctx=ctx, dtype=dtype, dev=dev,
+                   seed=seed, e4m3=e4m3, **geom)
+    depth = [0] * T
+    for i, p in enumerate(TREE_PARENTS):
+        if p >= 0:
+            depth[i] = depth[p] + 1
+    S = len(ctx)
+    pos = torch.zeros(S, T, dtype=torch.int32)
+    mask = torch.zeros(S, T, T, dtype=torch.uint8)
+    lens = torch.zeros(S, dtype=torch.int32)
+    for s, c in enumerate(ctx):
+        mask[s] = torch.eye(T, dtype=torch.uint8)
+        if c < 0:
+            continue
+        pos[s] = torch.tensor([c + d for d in depth])
+        for i in range(T):
+            j = i
+            while j >= 0:
+                mask[s, i, j] = 1
+                j = TREE_PARENTS[j]
+        lens[s] = c + 1 + max(depth)
+    case.update(seq_lens=lens.to(dev), q_starts=pos[:, 0].contiguous().to(
+        dev), tree_positions=pos.to(dev), tree_mask=mask.to(dev))
+    return case
+
+
+def k1_options(case) -> dict:
+    """The K1 options a case carries (window, ring, tree inputs)."""
+    return {k: case[k] for k in ("window", "ring_tokens", "tree_positions",
+                                 "tree_mask") if case.get(k) is not None}
+
+
+def k1_visibility(case):
+    """(key positions [S, C], visibility [S, T, C]) of the case's pool
+    columns then stage rows: the plain version's own rule."""
+    from deepspeed_tpu_torch.ops.paged_attention import key_visibility
+
+    q = case["q"]
+    cpos, _, mask = key_visibility(
+        case["block_tables"], case["seq_lens"], case["q_starts"],
+        case["stage_starts"], T=q.shape[1], Ts=case["k_stage"].shape[2],
+        block_size=case["block_size"], **k1_options(case))
+    # a slot with seq_lens 0 is empty: the kernel reads nothing for it
+    return cpos, mask & (case["seq_lens"] > 0)[:, None, None]
 
 
 def k1_work(case) -> tuple[float, float, float]:
     """(bytes, operations, seconds the operations need at the card's peak)
-    on this case's data: q, the valid K/V rows (pool and stage) once per KV
-    head and the output; two multiply-adds per visible (query, key) pair and
+    on this case's data: q and the output once, and each K/V row that some
+    query row of its slot sees (pool and stage; inside the window or ring)
+    once per KV head; two multiply-adds per visible (query, key) pair and
     head dim element, the pool's at the e4m3 rate for an e4m3 pool."""
     q, pool = case["q"], case["pool"]
     S, T, H, D = q.shape
     KV = pool.shape[2]
     G = H // KV
+    ctx = case["block_tables"].shape[1] * case["block_size"]
     el, pel = q.element_size(), pool.element_size()
-    lens = case["seq_lens"].tolist()
-    qst = case["q_starts"].tolist()
-    sst = case["stage_starts"].tolist()
-    nbytes = 2 * q.numel() * el
-    pairs_pool = pairs_stage = 0
-    for s in range(S):
-        if lens[s] <= 0:
-            continue
-        keys = min(lens[s], qst[s] + T)
-        pool_keys = min(sst[s], keys)
-        nbytes += 2 * KV * D * (pool_keys * pel + (keys - pool_keys) * el)
-        for t in range(T):
-            vis = min(lens[s], qst[s] + t + 1)
-            vis_pool = min(sst[s], vis)
-            pairs_pool += vis_pool * G * KV
-            pairs_stage += (vis - vis_pool) * G * KV
+    _, mask = k1_visibility(case)
+    seen = mask.any(dim=1)                                   # [S, C]
+    pool_keys = int(seen[:, :ctx].sum())
+    stage_keys = int(seen[:, ctx:].sum())
+    nbytes = 2 * q.numel() * el + 2 * KV * D * (pool_keys * pel
+                                                + stage_keys * el)
+    pairs_pool = int(mask[:, :, :ctx].sum()) * G * KV
+    pairs_stage = int(mask[:, :, ctx:].sum()) * G * KV
     ops = 4.0 * D * (pairs_pool + pairs_stage)
     secs = 4.0 * D * (pairs_pool / PEAK_OPS[pool.dtype]
                       + pairs_stage / PEAK_OPS[q.dtype])
@@ -289,8 +368,9 @@ def k1_work(case) -> tuple[float, float, float]:
 
 def k1_library_call(case):
     """One scaled_dot_product_attention call over the case's K/V gathered
-    dense (masked; an e4m3 pool upcast to q's dtype), timed as a yardstick
-    beside the kernel."""
+    dense (every pool column in table order, then the stage; an e4m3 pool
+    upcast to q's dtype) with an explicit boolean mask of who sees what,
+    timed as a yardstick beside the kernel."""
     import torch.nn.functional as F
 
     q, pool = case["q"], case["pool"].to(case["q"].dtype)
@@ -306,15 +386,7 @@ def k1_library_call(case):
                    case["k_stage"]], dim=2).repeat_interleave(G, dim=1)
     v = torch.cat([pool[li, 1][:, blocks, offs[None]].permute(1, 0, 2, 3),
                    case["v_stage"]], dim=2).repeat_interleave(G, dim=1)
-    sst = case["stage_starts"].long()[:, None]
-    Ts = case["k_stage"].shape[2]
-    cpos = torch.cat([torch.arange(ctx, device=q.device)[None].expand(S, -1),
-                      sst + torch.arange(Ts, device=q.device)[None]], dim=1)
-    valid = torch.cat([torch.arange(ctx, device=q.device)[None] < sst,
-                       cpos[:, ctx:] < case["seq_lens"].long()[:, None]], 1)
-    qpos = case["q_starts"].long()[:, None] + torch.arange(
-        T, device=q.device)[None]
-    mask = (valid[:, None, :] & (cpos[:, None, :] <= qpos[:, :, None]))
+    _, mask = k1_visibility(case)
     mask = mask[:, None]                                  # [S, 1, T, C]
     qh = q.permute(0, 2, 1, 3)
     return lambda: F.scaled_dot_product_attention(qh, k, v, attn_mask=mask)
@@ -326,12 +398,103 @@ def bound_of(nbytes: float, ops_seconds: float) -> tuple[float, str]:
     return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
 
 
-def phase_k1(dev) -> tuple[dict, dict, list]:
-    """K1 in its default form and its e4m3-pool form against the plain
-    version. Returns (default-form summary, e4m3-form summary, cases)."""
+def k1_run_case(case, form: str, plain_graph: bool = True) -> dict:
+    """Hold one K1 case against the plain version and time it: the kernel
+    must be counted once, for its pool and ``form`` ("default", or the
+    option it takes: "window", "ring", "tree"), with no plain launch; empty
+    slots must be zeros; live slots are judged by the tolerances above (fp32
+    by max |error|, bf16 over max |plain|, an e4m3 pool also by mean |error|
+    over mean |plain|, p rounded against the kernel's 64-key walk). Then
+    the kernel, the plain version (without a CUDA graph where its
+    temporaries are large) and the SDPA yardstick are timed. Returns the
+    record; raises past the tolerance."""
     from deepspeed_tpu_torch.ops.paged_attention import (
         KERNEL_KEY_TILE, counts, paged_ragged_attention,
         paged_ragged_attention_reference)
+
+    label, dtype = case["name"], case["q"].dtype
+    e4m3 = case["pool"].dtype == torch.float8_e4m3fn
+    args = [case[k] for k in ("q", "pool", "k_stage", "v_stage",
+                              "block_tables", "seq_lens", "q_starts",
+                              "stage_starts")]
+    kw = dict(block_size=case["block_size"], layer_index=case["layer_index"],
+              **k1_options(case))
+    ref_kw = dict(kw, p_round_blocks=(KERNEL_KEY_TILE, KERNEL_KEY_TILE))
+    before = dict(vars(counts))
+    got = paged_ragged_attention(*args, **kw)
+    torch.cuda.synchronize()
+    bumped = {k for k, v in vars(counts).items() if v != before[k]}
+    want = {"kernel_e4m3" if e4m3 else "kernel"} | (
+        {f"kernel_{form}"} if form != "default" else set())
+    if form == "ring":
+        want.add("kernel_window")            # a ring runs with its window
+    if bumped != want:
+        raise AssertionError(f"K1 {label}: counted {sorted(bumped)}, not "
+                             f"{sorted(want)}")
+    ref = paged_ragged_attention_reference(*args, **ref_kw)
+    live = case["seq_lens"] > 0
+    if (~live).any() and got[~live].abs().max().item() != 0.0:
+        raise AssertionError(f"{label}: empty slot not 0")
+    if not torch.isfinite(got).all():
+        raise AssertionError(f"{label}: non-finite output")
+    diff = (got[live].float() - ref[live].float()).abs()
+    err = diff.max().item()
+    max_ref = ref[live].float().abs().max().item()
+    judged_mean, tol_mean = None, None
+    if e4m3:
+        judged = err / max_ref
+        judged_mean = (diff.mean() / ref[live].float().abs().mean()).item()
+        tol, tol_mean = K1_E4M3_TOL[dtype]
+        ok = judged <= tol and judged_mean <= tol_mean
+    else:
+        judged = err if dtype == torch.float32 else err / max_ref
+        tol = K1_TOL[dtype]
+        ok = judged <= tol
+    if not ok:
+        raise AssertionError(
+            f"K1 {label} {dtype}: kernel against plain error {judged:.3e} "
+            f"(tol {tol:.0e}), mean {judged_mean} (tol {tol_mean}); max abs "
+            f"{err:.3e}")
+    ms = cuda_time_ms(lambda: paged_ragged_attention(*args, **kw))
+    plain_ms = cuda_time_ms(
+        lambda: paged_ragged_attention_reference(*args, **ref_kw),
+        iters=3 if plain_graph else 2, warmup=1, graph=plain_graph)
+    lib_ms = cuda_time_ms(k1_library_call(case), iters=5, warmup=1)
+    nbytes, ops, ops_s = k1_work(case)
+    bound, by = bound_of(nbytes, ops_s)
+    pool = "e4m3" if e4m3 else ("fp32" if dtype == torch.float32 else "bf16")
+    rec = dict(case=label, form=form, pool=pool,
+               dtype=str(dtype).replace("torch.", ""), max_abs_err=err,
+               judged_err=judged, judged_mean_err=judged_mean,
+               max_abs_ref=max_ref, tol=tol, tol_mean=tol_mean, ms=ms,
+               plain_ms=plain_ms, library_ms=lib_ms, bound_ms=bound,
+               bound_by=by, bytes=nbytes, ops=ops)
+    mean_txt = (f", mean {judged_mean:.2e} (tol {tol_mean:.0e})"
+                if e4m3 else "")
+    log(f"[kernel] K1 {label:<42} {rec['dtype']:<8} err {judged:.2e} (tol "
+        f"{tol:.0e}{mean_txt}; max abs {err:.2e} of max |plain| "
+        f"{max_ref:.2f})  kernel {ms:.4f} ms  plain {plain_ms:.3f} ms  sdpa "
+        f"{lib_ms:.3f} ms  bound {bound:.4f} ms ({by})")
+    return rec
+
+
+def k1_summary(results, main_case: str) -> dict:
+    """The record line's fields for a group of K1 cases: the worst errors
+    in bf16 and fp32, and the times of ``main_case`` in bf16."""
+    bf = [r for r in results if r["dtype"] == "bfloat16"]
+    main = next(r for r in bf if r["case"] == main_case)
+    return dict(max_abs_err=max(r["max_abs_err"] for r in bf),
+                max_err_over_max_ref=max(r["judged_err"] for r in bf),
+                max_abs_err_fp32=max(r["max_abs_err"] for r in results
+                                     if r["dtype"] == "float32"),
+                **{k: main[k] for k in ("ms", "plain_ms", "library_ms",
+                                        "bound_ms", "bound_by")})
+
+
+def phase_k1(dev) -> tuple[dict, dict, list]:
+    """K1 in its default form and its e4m3-pool form against the plain
+    version. Returns (default-form summary, e4m3-form summary, cases)."""
+    from deepspeed_tpu_torch.ops.paged_attention import counts
 
     # the serving path's shapes (phase 4): 8 slots of ~256-1100 context,
     # one empty; prefill chunks of 256 over several 64-token pages
@@ -355,77 +518,79 @@ def phase_k1(dev) -> tuple[dict, dict, list]:
         label = f"{gname}/{sname}" + ("/e4m3-pool" if e4m3 else "")
         case = k1_case(label, bs=64, dtype=dtype, dev=dev, seed=seed,
                        e4m3=e4m3, **geoms[gname], **shapes[sname])
-        args = [case[k] for k in ("q", "pool", "k_stage", "v_stage",
-                                  "block_tables", "seq_lens", "q_starts",
-                                  "stage_starts")]
-        kw = dict(block_size=64, layer_index=case["layer_index"])
-        ref_kw = dict(kw, p_round_blocks=(KERNEL_KEY_TILE, KERNEL_KEY_TILE))
-        got = paged_ragged_attention(*args, **kw)
-        torch.cuda.synchronize()
-        ref = paged_ragged_attention_reference(*args, **ref_kw)
-        empty = case["seq_lens"] == 0
-        if empty.any() and got[empty].abs().max().item() != 0.0:
-            raise AssertionError(f"{label}: empty slot not 0")
-        if not torch.isfinite(got).all():
-            raise AssertionError(f"{label}: non-finite output")
-        diff = (got.float() - ref.float()).abs()
-        err = diff.max().item()
-        if e4m3:
-            judged = err / ref.float().abs().max().item()
-            judged_mean = (diff.mean() / ref.float().abs().mean()).item()
-            tol, tol_mean = K1_E4M3_TOL[dtype]
-            ok = judged <= tol and judged_mean <= tol_mean
+        results.append(k1_run_case(case, "default"))
+        del case
+    counts.reset()
+    # each pool at the serving path's most frequent shape: a bf16
+    # decode-window step of llama2-7b geometry
+    main = "llama2-7b/window"
+    return (k1_summary([r for r in results if r["pool"] != "e4m3"], main),
+            k1_summary([r for r in results if r["pool"] == "e4m3"],
+                       main + "/e4m3-pool"), results)
+
+
+#: mistral-7b's attention geometry and its window; the serve phase's ring
+#: (block 64, chunk 256, decode window 8): ceil((4096 + 256) / 64) + 1
+MISTRAL = dict(H=32, KV=8, D=128)
+MISTRAL_WINDOW, MISTRAL_RING_PAGES = 4096, 69
+
+
+def phase_k1_forms(dev) -> tuple[dict, list]:
+    """K1's sliding-window, rolling-ring and tree-verify forms against the
+    plain version, in fp32, bf16 and over an e4m3 pool (the tolerances of
+    phase_k1, judged on live slots). Returns ({form: summary}, cases)."""
+    from deepspeed_tpu_torch.ops.paged_attention import counts
+
+    # ~6000-token contexts: past the 4096-key window and past the 4416-token
+    # ring (wrapped), as the mistral serve's long prompts reach them
+    decode_ctx = [5800, 5905, 6000, 6100, 5999, 6050, 5877, -1]
+    chunk_ctx = [5632, 5760, 5888, 6016]
+    tree_ctx = [256, 397, 512, 611, 700, 833, 1022, -1]
+    shapes = {"decode": dict(T=1, Ts=8, window=True, ctx=decode_ctx),
+              "prefill256": dict(T=256, Ts=256, ctx=chunk_ctx)}
+    plan = []
+    for pool in ("fp32", "bf16", "e4m3"):
+        for sname in shapes:
+            plan.append(("window", "mistral-7b", sname, pool))
+            plan.append(("ring", "mistral-7b", sname, pool))
+        for gname in ("llama2-7b", "mistral-7b"):
+            plan.append(("tree", gname, "verify-T8", pool))
+    geoms = {"llama2-7b": dict(H=32, KV=32, D=128), "mistral-7b": MISTRAL}
+    results = []
+    for seed, (form, gname, sname, pool) in enumerate(plan, start=900):
+        dtype = torch.float32 if pool == "fp32" else torch.bfloat16
+        e4m3 = pool == "e4m3"
+        label = f"{gname}/{form}-{sname}" + ("/e4m3-pool" if e4m3 else "")
+        if form == "tree":
+            case = k1_tree_case(label, ctx=tree_ctx, dtype=dtype, dev=dev,
+                                seed=seed, e4m3=e4m3, **geoms[gname])
         else:
-            _, judged = k1_error(got, ref, dtype)
-            judged_mean, tol, tol_mean = None, K1_TOL[dtype], None
-            ok = judged <= tol
-        if not ok:
-            raise AssertionError(
-                f"K1 {label} {dtype}: kernel against plain error {judged:.3e}"
-                f" (tol {tol:.0e}), mean {judged_mean} (tol {tol_mean}); max "
-                f"abs {err:.3e}")
-        ms = cuda_time_ms(lambda: paged_ragged_attention(*args, **kw))
-        plain_ms = cuda_time_ms(
-            lambda: paged_ragged_attention_reference(*args, **ref_kw),
-            iters=3, warmup=1)
-        lib_ms = cuda_time_ms(k1_library_call(case), iters=5, warmup=1)
-        nbytes, ops, ops_s = k1_work(case)
-        bound, by = bound_of(nbytes, ops_s)
-        rec = dict(case=label, form="e4m3" if e4m3 else "default",
-                   dtype=str(dtype).replace("torch.", ""),
-                   max_abs_err=err, judged_err=judged,
-                   judged_mean_err=judged_mean,
-                   max_abs_ref=ref.float().abs().max().item(), tol=tol,
-                   tol_mean=tol_mean, ms=ms, plain_ms=plain_ms,
-                   library_ms=lib_ms, bound_ms=bound, bound_by=by,
-                   bytes=nbytes, ops=ops)
-        results.append(rec)
-        mean_txt = (f", mean {judged_mean:.2e} (tol {tol_mean:.0e})"
-                    if e4m3 else "")
-        log(f"[kernel] K1 {label:<37} {rec['dtype']:<8} err {judged:.2e} "
-            f"(tol {tol:.0e}{mean_txt}; max abs {err:.2e} of max |plain| "
-            f"{rec['max_abs_ref']:.2f})  kernel {ms:.4f} ms  plain "
-            f"{plain_ms:.3f} ms  sdpa {lib_ms:.3f} ms  bound {bound:.4f} ms "
-            f"({by})")
-        del case, args, got, ref, diff
+            ring = MISTRAL_RING_PAGES if form == "ring" else None
+            sh = shapes[sname]
+            nb = len(sh["ctx"]) * (ring or -(-(max(sh["ctx"]) + sh["Ts"])
+                                              // 64) + 2) + 1
+            case = k1_case(label, bs=64, dtype=dtype, dev=dev, seed=seed,
+                           e4m3=e4m3, nb=nb, sliding=MISTRAL_WINDOW,
+                           ring_pages=ring, **geoms[gname], **sh)
+        # the plain version's temporaries over ~6500 keys are large: timed
+        # without a graph
+        results.append(k1_run_case(case, form, plain_graph=False))
+        del case
+        free_cuda()
     counts.reset()
 
-    def summary(form):
+    def summary(form, main_case):
         rs = [r for r in results if r["form"] == form]
-        # the record line reports each form at the serving path's most
-        # frequent shape: a bf16 decode-window step of llama2-7b geometry
-        main = next(r for r in rs if r["case"].startswith("llama2-7b/window")
-                    and r["dtype"] == "bfloat16")
-        return dict(max_abs_err=max(r["max_abs_err"] for r in rs
-                                    if r["dtype"] == "bfloat16"),
-                    max_err_over_max_ref=max(r["judged_err"] for r in rs
-                                             if r["dtype"] == "bfloat16"),
-                    max_abs_err_fp32=max(r["max_abs_err"] for r in rs
-                                         if r["dtype"] == "float32"),
-                    **{k: main[k] for k in ("ms", "plain_ms", "library_ms",
-                                            "bound_ms", "bound_by")})
+        return dict(k1_summary([r for r in rs if r["pool"] != "e4m3"],
+                               main_case),
+                    max_err_over_max_ref_e4m3=max(
+                        r["judged_err"] for r in rs if r["pool"] == "e4m3"))
 
-    return summary("default"), summary("e4m3"), results
+    # each form at the serving path's most frequent shape: a bf16 decode
+    # step of mistral-7b, a bf16 verify of llama2-7b
+    return {"window": summary("window", "mistral-7b/window-decode"),
+            "ring": summary("ring", "mistral-7b/ring-decode"),
+            "tree": summary("tree", "llama2-7b/tree-verify-T8")}, results
 
 
 def k2_weight(K, N, dev, seed) -> torch.Tensor:
@@ -905,6 +1070,9 @@ def all_counts() -> dict:
     from deepspeed_tpu_torch.ops import quant_matmul as qm
 
     return {"k1": pa.counts.kernel, "k1_e4m3": pa.counts.kernel_e4m3,
+            "k1_window": pa.counts.kernel_window,
+            "k1_ring": pa.counts.kernel_ring,
+            "k1_tree": pa.counts.kernel_tree,
             "k1_plain": pa.counts.plain, "k2": qm.counts.kernel,
             "k2_plain": qm.counts.plain, "k3": qm.grouped_counts.kernel,
             "k3_plain": qm.grouped_counts.plain, "k5": gm.counts.kernel,
@@ -927,10 +1095,15 @@ def forwards_of(eng) -> int:
     return st["prefill_steps"] + st["decode_steps"] + st["window_iters_max"]
 
 
-def check_launches(tag, got: dict, cfg, *, forwards, e4m3_pool, quant):
-    """Per forward: K1 (its default or e4m3 form) once per layer; when the
-    weights are quantized, K2 once per dense weight product (q, k, v, o of
-    every layer, a dense FFN's products, the unembedding) and K3 once per
+def check_launches(tag, got: dict, cfg, *, forwards, e4m3_pool, quant,
+                   ring=False, verifies=0, draft_k1=0):
+    """Per forward: K1 (over a pool of q's dtype or of e4m3 codes) once per
+    layer, with the window and the ring on every one of a ring-served
+    model's, and its tree form once per layer of each of the ``verifies``
+    speculative verify forwards (which count among ``forwards``);
+    ``draft_k1`` more launches of K1 by a draft engine (bf16 pool); when
+    the weights are quantized, K2 once per dense weight product (q, k, v, o
+    of every layer, a dense FFN's products, the unembedding) and K3 once per
     expert product of every MoE layer; K5 once per expert product under
     ``moe.dropless`` without quantization; no plain version at all."""
     from deepspeed_tpu_torch.models.transformer import is_moe_layer
@@ -942,8 +1115,11 @@ def check_launches(tag, got: dict, cfg, *, forwards, e4m3_pool, quant):
     experts = ffn * moe_layers
     dropless = cfg.moe is not None and cfg.moe.dropless
     f = forwards
-    want = {"k1": 0 if e4m3_pool else L * f,
-            "k1_e4m3": L * f if e4m3_pool else 0, "k1_plain": 0,
+    want = {"k1": (0 if e4m3_pool else L * f) + draft_k1,
+            "k1_e4m3": L * f if e4m3_pool else 0,
+            "k1_window": L * f if ring else 0,
+            "k1_ring": L * f if ring else 0, "k1_tree": L * verifies,
+            "k1_plain": 0,
             "k2": dense * f if quant else 0, "k2_plain": 0,
             "k3": experts * f if quant else 0, "k3_plain": 0,
             "k5": experts * f if dropless and not quant else 0,
@@ -1039,8 +1215,220 @@ PARITY = {
 def phase_parity(dev) -> dict:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    return {name: parity_model(dev, name, routes)
-            for name, routes in PARITY.items()}
+    out = {name: parity_model(dev, name, routes)
+           for name, routes in PARITY.items()}
+    out["mistral-7b ring"] = parity_ring(dev)
+    out["llama2-7b spec"] = parity_spec(dev)
+    return out
+
+
+def parity_ring(dev) -> dict:
+    """mistral-7b at full width x 4 layers in fp32 served from its rolling
+    ring (69 pages of 64): two prompts past the 4416-token ring and a short
+    one, 32 new tokens each, against a greedy loop over the dense forward
+    (which masks the 4096-key window) under oracle_check's rule; then an
+    e4m3-pool ring against the fp32 one within the JAX package's fp8 bound
+    (max 0.5, mean 0.05 on the logits while the streams agree)."""
+    from deepspeed_tpu_torch.models import build_model
+
+    log("[parity] mistral-7b full width, 4 layers, fp32, rolling ring")
+    model = build_model("mistral-7b", num_layers=4, dtype=torch.float32,
+                        device=dev, seed=0)
+    vocab = model.config.vocab_size
+    g = torch.Generator().manual_seed(2)
+    lens = [4600, 4700, 300]
+    prompts = [torch.randint(0, vocab, (n,), generator=g).tolist()
+               for n in lens]
+    new = 32
+    cfg = dict(block_size=64, num_blocks=256, max_seqs=4, chunk=256,
+               max_seq_len=8192, decode_window=8, dtype=torch.float32,
+               device=dev)
+    out = {"prompts": lens, "new_tokens": new}
+    taps = streams = None
+    for label, over in (("fp32-pool", {}),
+                        ("e4m3-pool", {"kv_cache_dtype": "fp8"})):
+        tag = f"parity mistral-7b ring {label}"
+        eng = tap_engine_class()(model, config=dict(cfg, **over))
+        ring = eng._ring_tokens
+        if ring != MISTRAL_RING_PAGES * 64 or \
+                eng._attn_decode_sel.path != "cuda" or eng._prefix_cache:
+            raise AssertionError(f"[{tag}] ring {ring}, path "
+                                 f"{eng._attn_decode_sel.path}, prefix "
+                                 f"cache {eng._prefix_cache}")
+        reset_counts()
+        got = eng.generate(prompts, max_new_tokens=new)
+        launches = all_counts()
+        eng.state.audit()
+        forwards = forwards_of(eng)
+        check_launches(tag, launches, model.config, forwards=forwards,
+                       e4m3_pool=bool(over), quant=False, ring=True)
+        rec = {"launches": launches, "forwards": forwards,
+               "ring_tokens": ring}
+        if label == "fp32-pool":
+            worst, near = oracle_check(tag, eng, model, prompts, got, new,
+                                       dev)
+            rec.update(max_rel_logits_err=worst, near_ties=near)
+            log(f"[{tag}] {len(prompts)} greedy streams x {new} tokens past "
+                f"the {ring}-token ring identical to the dense windowed "
+                f"oracle ({len(near)} near-ties); max logits error "
+                f"{worst:.2e} relative; launches {launches}")
+            taps, streams = eng.taps, got
+        else:
+            rec.update(fp8_bound(tag, eng.taps, taps, got, streams, new))
+        out[label] = rec
+        del eng
+        free_cuda()
+    del model
+    free_cuda()
+    return out
+
+
+def fp8_bound(tag, taps8, taps, streams8, streams, new) -> dict:
+    """The e4m3-pool engine's logits against the fp32-pool engine's, while
+    the two streams agree: max 0.5 and mean 0.05 (the JAX package's bound
+    for its fp8 pool, tests/test_inference_v2.py)."""
+    diffs = []
+    for uid in range(len(streams)):
+        for k in range(new):
+            diffs.append((taps8[uid][k] - taps[uid][k]).abs())
+            if streams8[uid][k] != streams[uid][k]:
+                break
+    d = torch.stack(diffs)
+    rec = dict(max_abs_logits_diff=d.max().item(),
+               mean_abs_logits_diff=d.mean().item(),
+               steps_compared=len(diffs), streams_equal=streams8 == streams)
+    if rec["max_abs_logits_diff"] > 0.5 or rec["mean_abs_logits_diff"] > 0.05:
+        raise AssertionError(f"[{tag}] logits off the fp32 pool's: {rec}")
+    log(f"[{tag}] e4m3 pool vs fp32 pool over {len(diffs)} sampled steps: "
+        f"max |logits diff| {rec['max_abs_logits_diff']:.3e} (tol 0.5), mean "
+        f"{rec['mean_abs_logits_diff']:.3e} (tol 0.05); streams equal: "
+        f"{rec['streams_equal']}")
+    return rec
+
+
+def motif_prompts(vocab, g, lens=(300, 300, 300, 100)):
+    """Prompts of a repeated random 12-token motif (prompt lookup proposes
+    its continuation wherever the model's stream repeats its history), the
+    last one random."""
+    out = []
+    for i, n in enumerate(lens):
+        if i == len(lens) - 1:
+            out.append(torch.randint(0, vocab, (n,), generator=g).tolist())
+            continue
+        motif = torch.randint(0, vocab, (12,), generator=g).tolist()
+        out.append((motif * (n // len(motif) + 1))[:n])
+    return out
+
+
+def spec_stream_check(tag, got, want, oracle, prompts, dev) -> list:
+    """Each spec stream against the spec-off stream; where they part, the
+    dense oracle's top-2 gap there must be a near-tie (< 1e-4), as in
+    oracle_check. Returns the near-ties."""
+    near = []
+    with torch.no_grad():
+        for uid, (a, b) in enumerate(zip(got, want)):
+            if a == b:
+                continue
+            k = next(i for i, (x, y) in enumerate(zip(a, b)) if x != y)
+            ids = torch.tensor([prompts[uid] + b[:k]], device=dev)
+            top2 = torch.topk(oracle(ids)[0, -1].float(), 2).values
+            gap = (top2[0] - top2[1]).item()
+            if gap >= 1e-4:
+                raise AssertionError(f"[{tag}] uid {uid} step {k}: spec "
+                                     f"token {a[k]} != spec-off {b[k]} "
+                                     f"(top-2 gap {gap:.3e})")
+            near.append((uid, k, gap))
+            log(f"[{tag}] NEAR-TIE uid {uid} step {k}: top-2 gap {gap:.2e}")
+    return near
+
+
+def spec_stats(eng) -> dict:
+    st = eng.stats
+    return {k: st[k] for k in ("spec_rounds", "spec_verifies",
+                               "spec_proposed", "spec_accepted",
+                               "spec_steps_saved", "spec_accept_rate")} | {
+        "tokens_per_verify": (st["spec_accepted"] + st["spec_verifies"])
+        / max(st["spec_verifies"], 1)}
+
+
+def draft_forwards(eng) -> int:
+    return 0 if eng._draft_engine is None else forwards_of(eng._draft_engine)
+
+
+def parity_spec(dev) -> dict:
+    """llama2-7b at full width x 4 layers in fp32: speculative decoding
+    ("ngram" over motif prompts; "draft" with a same-weights draft and a
+    differently seeded one) against the spec-off engine in the same run.
+    Every verify goes through K1's tree form; the strong draft's acceptance
+    must exceed 0.9; spec with a windowed model raises ValueError."""
+    from types import SimpleNamespace
+
+    from deepspeed_tpu_torch.inference import InferenceEngineV2
+    from deepspeed_tpu_torch.inference.weights import module_param_tree
+    from deepspeed_tpu_torch.models import build_model
+
+    log("[parity] llama2-7b full width, 4 layers, fp32, spec_decode")
+    model = build_model("llama2-7b", num_layers=4, dtype=torch.float32,
+                        device=dev, seed=0)
+    L, vocab = model.config.num_layers, model.config.vocab_size
+    prompts = motif_prompts(vocab, torch.Generator().manual_seed(3))
+    new = 24
+    cfg = dict(block_size=64, num_blocks=64, max_seqs=4, chunk=128,
+               max_seq_len=1024, decode_window=8, dtype=torch.float32,
+               device=dev)
+    base = InferenceEngineV2(model, config=cfg).generate(prompts, new)
+    out = {"prompts": [len(p) for p in prompts], "new_tokens": new}
+    weak = build_model("llama2-7b", num_layers=4, dtype=torch.float32,
+                       device=dev, seed=7)
+    for label, over, draft in (("ngram", {"spec_decode": "ngram"}, None),
+                               ("draft-strong", {"spec_decode": "draft"},
+                                model),
+                               ("draft-weak", {"spec_decode": "draft"},
+                                weak)):
+        tag = f"parity llama2-7b spec {label}"
+        eng = InferenceEngineV2(model, config=dict(cfg, **over),
+                                draft_model=draft)
+        if eng._attn_tree_sel.path != "cuda":
+            raise AssertionError(f"[{tag}] tree path "
+                                 f"{eng._attn_tree_sel.path}")
+        reset_counts()
+        got = eng.generate(prompts, new)
+        launches = all_counts()
+        eng.state.audit()
+        st = spec_stats(eng)
+        check_launches(tag, launches, model.config,
+                       forwards=forwards_of(eng), e4m3_pool=False,
+                       quant=False, verifies=st["spec_rounds"],
+                       draft_k1=L * draft_forwards(eng))
+        near = spec_stream_check(tag, got, base, model, prompts, dev)
+        if st["spec_rounds"] == 0 or \
+                eng.stats["attn_cuda_tree"] != st["spec_rounds"]:
+            raise AssertionError(f"[{tag}] verifies {st} / "
+                                 f"{eng.stats['attn_cuda_tree']}")
+        if label == "draft-strong" and st["spec_accept_rate"] <= 0.9:
+            raise AssertionError(f"[{tag}] acceptance {st}")
+        out[label] = dict(st, launches=launches, near_ties=near)
+        log(f"[{tag}] {len(prompts)} streams x {new} tokens identical to "
+            f"spec-off ({len(near)} near-ties): {st['spec_rounds']} verify "
+            f"rounds, acceptance {st['spec_accept_rate']:.3f}, "
+            f"{st['tokens_per_verify']:.2f} tokens per verify; launches "
+            f"{launches}")
+        del eng
+        free_cuda()
+    # spec on a windowed model (its rolling ring) is refused
+    windowed = SimpleNamespace(config=dataclasses.replace(
+        model.config, sliding_window=MISTRAL_WINDOW))
+    try:
+        InferenceEngineV2(windowed, params=module_param_tree(model),
+                          config=dict(cfg, max_seq_len=8192,
+                                      spec_decode="ngram"))
+    except ValueError as e:
+        log(f"[parity] spec + sliding window refused: {e}")
+    else:
+        raise AssertionError("spec_decode on a windowed model did not raise")
+    del model, weak
+    free_cuda()
+    return out
 
 
 def parity_model(dev, name: str, routes) -> dict:
@@ -1082,28 +1470,8 @@ def parity_model(dev, name: str, routes) -> dict:
                        quant="quant_bits" in over)
         rec = {"launches": launches, "forwards": forwards}
         if label == "fp8-pool":
-            # against the fp32-pool engine, while the two streams agree
-            diffs = []
-            for uid in range(len(prompts)):
-                for k in range(new):
-                    diffs.append((eng.taps[uid][k]
-                                  - dense_taps[uid][k]).abs())
-                    if streams[uid][k] != dense_streams[uid][k]:
-                        break
-            d = torch.stack(diffs)
-            rec.update(max_abs_logits_diff=d.max().item(),
-                       mean_abs_logits_diff=d.mean().item(),
-                       steps_compared=len(diffs),
-                       streams_equal=streams == dense_streams)
-            if rec["max_abs_logits_diff"] > 0.5 or \
-                    rec["mean_abs_logits_diff"] > 0.05:
-                raise AssertionError(f"[{tag}] logits off the fp32 pool's: "
-                                     f"{rec}")
-            log(f"[{tag}] e4m3 pool vs fp32 pool over {len(diffs)} sampled "
-                f"steps: max |logits diff| {rec['max_abs_logits_diff']:.3e} "
-                f"(tol 0.5), mean {rec['mean_abs_logits_diff']:.3e} (tol "
-                f"0.05); streams equal: {rec['streams_equal']}; launches "
-                f"{launches}")
+            rec.update(fp8_bound(tag, eng.taps, dense_taps, streams,
+                                 dense_streams, new))
         else:
             if "quant_bits" in over:
                 load_dequantized(model, eng.params)
@@ -1176,13 +1544,31 @@ def device_breakdown(run) -> dict:
     return out
 
 
+#: the serve phase's traffic: (prompt lengths, shared system prefix, new
+#: tokens per request, the engine's max_seq_len and num_blocks)
+TRAFFIC = {
+    # 8 requests of 256-1024 tokens behind a 128-token system prefix
+    "shared-prefix": ((256, 384, 512, 640, 768, 896, 1024, 300), 128, 64,
+                      2048, 256),
+    # mistral past its window: 4 prompts of 4608-6144 tokens wrap the
+    # 69-page ring, 4 of 256-1024 do not (8 x 69 pages fit 600 blocks)
+    "long-window": ((4608, 5120, 5632, 6144, 256, 512, 768, 1024), 0, 64,
+                    8192, 600),
+    # prompts of a repeated motif (prompt lookup proposes where the model's
+    # stream repeats its history)
+    "motif": ((512, 384, 640, 256, 768, 320, 448, 576), 0, 64, 2048, 256),
+}
+
+
 def serve_run(dev, name: str, label: str, layers: int | None = None,
+              traffic: str = "shared-prefix", draft: bool = False,
               **over) -> dict:
     """Model ``name`` at full width (and ``layers`` deep, all of them by
-    default) in bf16 from seeded random weights, serving the 8 requests of
-    phase 4 under the engine options ``over``. An MoE model takes its
-    dropless route (K5) unless ``quant_bits`` sends its experts through
-    K3."""
+    default) in bf16 from seeded random weights, serving 8 requests of
+    ``TRAFFIC[traffic]`` under the engine options ``over``. An MoE model
+    takes its dropless route (K5) unless ``quant_bits`` sends its experts
+    through K3. ``draft`` serves ``spec_decode="draft"`` with the model
+    itself as its draft (a second engine over the same weights)."""
     from deepspeed_tpu_torch.inference import InferenceEngineV2
     from deepspeed_tpu_torch.inference.weights import tree_nbytes
     from deepspeed_tpu_torch.models import build_model, get_model_config
@@ -1197,21 +1583,26 @@ def serve_run(dev, name: str, label: str, layers: int | None = None,
                         **extra)
     cfg = model.config
     L, vocab = cfg.num_layers, cfg.vocab_size
+    lens, sys_len, new, max_seq_len, num_blocks = TRAFFIC[traffic]
     eng = InferenceEngineV2(model, config=dict(
-        block_size=64, num_blocks=256, max_seqs=8, chunk=256,
-        max_seq_len=2048, decode_window=8, dtype=torch.bfloat16,
-        device=dev, **over))
+        block_size=64, num_blocks=num_blocks, max_seqs=8, chunk=256,
+        max_seq_len=max_seq_len, decode_window=8, dtype=torch.bfloat16,
+        device=dev, **over), draft_model=model if draft else None)
     # the engine holds what it serves; the model's own weights that the
     # engine quantized go with it
     del model
     free_cuda()
     torch.cuda.synchronize()
-    pool_bytes = eng.kv_pool.numel() * eng.kv_pool.element_size()
+    # a draft engine serves the same weights from a pool of its own
+    engines = [eng] + ([eng._draft_engine] if eng._draft_engine else [])
+    pool_bytes = sum(e.kv_pool.numel() * e.kv_pool.element_size()
+                     for e in engines)
     param_bytes = tree_nbytes(eng.params)
     resident = torch.cuda.memory_allocated(dev) - pool_bytes
     log(f"[{tag}] {name} ({L} layers, bf16 compute, seeded random "
-        f"weights, {over or 'no quantization'}) and a "
-        f"{pool_bytes / 1e9:.1f} GB {eng.kv_pool.dtype} pool up in "
+        f"weights, {over or 'no quantization'}) and "
+        f"{pool_bytes / 1e9:.1f} GB {eng.kv_pool.dtype} "
+        f"pool{'s' if len(engines) > 1 else ''} up in "
         f"{time.perf_counter() - t0:.1f}s; parameters "
         f"{param_bytes / 1e9:.2f} GB ({resident / 1e9:.2f} GB on the card "
         f"besides the pool); attention path {eng._attn_decode_sel.path}")
@@ -1220,18 +1611,21 @@ def serve_run(dev, name: str, label: str, layers: int | None = None,
                              f"card for {param_bytes / 1e9:.2f} GB of "
                              f"parameters")
     g = torch.Generator().manual_seed(1)
-    system = torch.randint(0, vocab, (128,), generator=g).tolist()
+    system = torch.randint(0, vocab, (sys_len,), generator=g).tolist()
     # a first request publishes the shared system prefix (and warms the
     # allocator and cuBLAS); the measured batch then hits it
     eng.generate([system + torch.randint(0, vocab, (64,),
                                          generator=g).tolist()],
                  max_new_tokens=8)
-    lens = [256, 384, 512, 640, 768, 896, 1024, 300]
-    prompts = [system + torch.randint(0, vocab, (n - 128,),
-                                      generator=g).tolist() for n in lens]
-    new = 64
-    for k in list(eng.stats):
-        eng.stats[k] = 0 if not isinstance(eng.stats[k], float) else 0.0
+    if traffic == "motif":
+        prompts = motif_prompts(vocab, g, lens)
+    else:
+        prompts = [system + torch.randint(0, vocab, (n - sys_len,),
+                                          generator=g).tolist()
+                   for n in lens]
+    for e in engines:
+        for k in list(e.stats):
+            e.stats[k] = 0 if not isinstance(e.stats[k], float) else 0.0
     torch.cuda.reset_peak_memory_stats(dev)
     reset_counts()
     torch.cuda.synchronize()
@@ -1240,13 +1634,20 @@ def serve_run(dev, name: str, label: str, layers: int | None = None,
         eng.put(uid, p, max_new_tokens=new)
     first: dict[int, float] = {}
     out: dict[int, list[int]] = {u: [] for u in range(len(prompts))}
-    window_s = 0.0
+    window_s = verify_s = 0.0
+    top_pos = most_blocks = 0        # the ring's reach, for a ring run
     while any(not eng.query(u).get("done", True) for u in out):
-        w0, ts = eng.stats["windows"], time.perf_counter()
+        w0, v0 = eng.stats["windows"], eng.stats["spec_rounds"]
+        ts = time.perf_counter()
         emitted = eng.step()
         dt = time.perf_counter() - ts
         if eng.stats["windows"] > w0:
             window_s += dt
+        if eng.stats["spec_rounds"] > v0:
+            verify_s += dt
+        for seq in eng.state.seqs.values():
+            top_pos = max(top_pos, len(seq.tokens))
+            most_blocks = max(most_blocks, len(seq.blocks))
         now = time.perf_counter() - t0
         for u, toks in emitted.items():
             if toks and u not in first:
@@ -1263,21 +1664,46 @@ def serve_run(dev, name: str, label: str, layers: int | None = None,
             raise AssertionError(f"[{tag}] uid {u}: token out of range")
     eng.state.audit()
     forwards = forwards_of(eng)
+    ring = eng._ring_tokens
     check_launches(tag, launches, cfg, forwards=forwards,
                    e4m3_pool=over.get("kv_cache_dtype") == "fp8",
-                   quant=bool(over.get("quant_bits")))
-    if st["prefix_hit_tokens"] < 128 * len(prompts):
+                   quant=bool(over.get("quant_bits")), ring=bool(ring),
+                   verifies=st["spec_rounds"],
+                   draft_k1=L * draft_forwards(eng))
+    if st["prefix_hit_tokens"] < sys_len * len(prompts):
         raise AssertionError(f"[{tag}] prefix cache served "
                              f"{st['prefix_hit_tokens']} tokens")
-    # where the device time goes: one profiled decode window (8 requests
-    # of 16 new tokens past a shared-prefix prompt), separate from the
-    # timed run above
+    if ring:
+        nwin = eng.state.max_blocks_per_seq
+        if top_pos <= ring or most_blocks > nwin or \
+                eng._prefix_cache is not None:
+            raise AssertionError(f"[{tag}] ring of {ring} tokens: reached "
+                                 f"position {top_pos}, {most_blocks} blocks "
+                                 f"> {nwin}, or a prefix cache")
+        log(f"[{tag}] ring of {nwin} pages ({ring} tokens): positions up to "
+            f"{top_pos} served, at most {most_blocks} pages per sequence")
+    spec = spec_stats(eng) if eng._spec is not None else None
+    if spec is not None:
+        # a draft always proposes; prompt lookup only where the stream
+        # repeats its history, which random weights at full depth need not
+        if st["attn_cuda_tree"] != spec["spec_rounds"] or \
+                (draft and spec["spec_rounds"] == 0):
+            raise AssertionError(f"[{tag}] verifies {spec}")
+        log(f"[{tag}] {spec['spec_rounds']} verify rounds, acceptance "
+            f"{spec['spec_accept_rate']:.3f}, {spec['tokens_per_verify']:.2f}"
+            f" tokens per verify, K1 tree launches {launches['k1_tree']}, "
+            f"draft forwards {draft_forwards(eng)}")
+    # where the device time goes: one profiled decode step (8 requests of
+    # 16 new tokens past a shared-prefix prompt: a window, or a verify
+    # round under spec_decode), separate from the timed run above
     short = [system + torch.randint(0, vocab, (64,), generator=g).tolist()
              for _ in range(8)]
+    if traffic == "motif":
+        short = [p[:64] for p in prompts]
     for uid, p in enumerate(short):
         eng.put(100 + uid, p, max_new_tokens=16)
     while any(eng.state.seqs[100 + u].pending_sched > 1 for u in range(8)):
-        eng.step()                  # prefill; the next dispatch is a window
+        eng.step()                  # prefill; the next dispatch decodes
     iters0 = eng.stats["window_iters_max"]
     prof = device_breakdown(eng.step)
     prof["window_iters"] = eng.stats["window_iters_max"] - iters0
@@ -1309,14 +1735,20 @@ def serve_run(dev, name: str, label: str, layers: int | None = None,
            "peak_mem_gb": torch.cuda.max_memory_allocated(dev) / 1e9,
            "param_bytes": param_bytes, "resident_param_bytes": resident,
            "pool_bytes": pool_bytes, "launches": launches,
-           "forwards": forwards, "stats": st, "profiled_window": prof}
+           "forwards": forwards, "stats": st, "profiled_window": prof,
+           "ring_tokens": ring, "top_position": top_pos,
+           "most_blocks": most_blocks, "spec": spec,
+           "ms_per_verify_round": (1e3 * verify_s / st["spec_rounds"]
+                                   if st["spec_rounds"] else None)}
     log(f"[{tag}] {len(prompts)} requests ({sum(lens)} prompt tokens, "
         f"{st['prefix_hit_tokens']} from the prefix cache) x {new} new "
         f"tokens in {wall:.2f}s: {res['output_tok_s']:.1f} output tok/s, "
         f"p50 TTFT {res['ttft_p50_s']:.3f}s, decode "
         f"{res['decode_ms_per_token']:.2f} ms/token-step over "
-        f"{window_iters} window iterations, peak memory "
-        f"{res['peak_mem_gb']:.1f} GB")
+        f"{window_iters} window iterations"
+        + (f", {res['ms_per_verify_round']:.2f} ms per verify round"
+           if res["ms_per_verify_round"] else "")
+        + f", peak memory {res['peak_mem_gb']:.1f} GB")
     log(f"[{tag}] launches {launches} for {L} layers x {forwards} forwards "
         f"({st['prefill_steps']} prefill steps, {st['decode_steps']} decode "
         f"steps, {st['window_iters_max']} window iterations)")
@@ -1353,6 +1785,30 @@ def phase_serve(dev) -> dict:
                                      f"{ratio:.3f}x the bf16 parameter "
                                      f"bytes (> {limit})")
         out[name] = runs
+    # mistral-7b past its window, from the rolling ring (bf16 and e4m3
+    # pools); llama2-7b's speculative decoding beside spec-off on the same
+    # motif traffic
+    out["mistral-7b ring"] = {
+        "bf16": serve_run(dev, "mistral-7b", "bf16 ring",
+                          traffic="long-window"),
+        "fp8-pool": serve_run(dev, "mistral-7b", "fp8-pool ring",
+                              traffic="long-window", kv_cache_dtype="fp8")}
+    spec = {"spec-off": serve_run(dev, "llama2-7b", "motif spec-off",
+                                  traffic="motif"),
+            "ngram": serve_run(dev, "llama2-7b", "motif ngram",
+                               traffic="motif", spec_decode="ngram"),
+            "draft": serve_run(dev, "llama2-7b", "motif draft",
+                               traffic="motif", draft=True,
+                               spec_decode="draft")}
+    for label in ("ngram", "draft"):
+        r, off = spec[label], spec["spec-off"]
+        log(f"[serve] llama2-7b {label} vs spec-off: "
+            f"{r['output_tok_s']:.1f} vs {off['output_tok_s']:.1f} output "
+            f"tok/s, p50 TTFT {r['ttft_p50_s']:.3f} vs "
+            f"{off['ttft_p50_s']:.3f} s, {r['spec']['tokens_per_verify']:.2f}"
+            f" tokens per verify at acceptance "
+            f"{r['spec']['spec_accept_rate']:.3f}")
+    out["llama2-7b spec"] = spec
     return out
 
 
@@ -1393,6 +1849,18 @@ def main() -> int:
                "source": "deepspeed_tpu_torch/ops/csrc/paged_attention.cu",
                "replaces": "deepspeed_tpu/ops/pallas/paged_attention.py:517",
                "launches": None}
+    # K1's forms, each counted apart (a ring launch is a window launch too)
+    k1_forms = {form: {"name": f"paged_ragged_attention ({what})",
+                       "route": "cuda",
+                       "source": "deepspeed_tpu_torch/ops/csrc/"
+                                 "paged_attention.cu",
+                       "replaces": f"deepspeed_tpu/ops/pallas/"
+                                   f"paged_attention.py:{line}",
+                       "launches": None}
+                for form, what, line in (
+                    ("window", "sliding window", 242),
+                    ("ring", "rolling ring", 264),
+                    ("tree", "tree verify", 233))}
     k2 = {"name": "quant_matmul", "route": "cuda",
           "source": "deepspeed_tpu_torch/ops/csrc/quant_matmul.cu",
           "replaces": "deepspeed_tpu/ops/pallas/quant_matmul.py:136",
@@ -1411,6 +1879,10 @@ def main() -> int:
         default, e4m3, cases = phase_k1(dev)
         k1.update(default)
         k1_e4m3.update(e4m3)
+        forms, form_cases = phase_k1_forms(dev)
+        for form, summary in forms.items():
+            k1_forms[form].update(summary)
+        cases += form_cases
         k2_summary, k2_cases = phase_k2(dev)
         k2.update(k2_summary)
         k5_summary, k5_cases = phase_k5(dev)
@@ -1427,7 +1899,10 @@ def main() -> int:
         # each kernel's launches summed over the serve runs (each run's
         # counts start at 0)
         runs = [run for model in serve.values() for run in model.values()]
-        for rec, key in ((k1, "k1"), (k1_e4m3, "k1_e4m3"), (k2, "k2"),
+        for rec, key in ((k1, "k1"), (k1_e4m3, "k1_e4m3"),
+                         (k1_forms["window"], "k1_window"),
+                         (k1_forms["ring"], "k1_ring"),
+                         (k1_forms["tree"], "k1_tree"), (k2, "k2"),
                          (k3, "k3"), (k5, "k5")):
             rec["launches"] = sum(run["launches"][key] for run in runs)
     record["seconds"] = time.perf_counter() - t_start
@@ -1435,7 +1910,8 @@ def main() -> int:
     with open(os.path.join(args.out, "chip_smoke.json"), "w") as f:
         json.dump(record, f, indent=1, default=str)
     log(f"[done] {record['seconds']:.1f}s")
-    log(json.dumps({"kernels": [k1, k1_e4m3, k2, k3, k5]}))
+    log(json.dumps({"kernels": [k1, k1_e4m3, *k1_forms.values(), k2, k3,
+                                k5]}))
     log(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

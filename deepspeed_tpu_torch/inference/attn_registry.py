@@ -16,9 +16,14 @@ Counterpart of ``deepspeed_tpu/inference/attn_registry.py``, with its
 On a CUDA device nothing falls back: a geometry outside the gate or a card
 that is not sm_90 raises, unless ALiBi or the pin already chose "gather".
 
-The engine makes one selection per dispatch mode at construction and counts
-every decode dispatch against it (``stats["attn_<path>_decode"]``). Tree
-verify (speculative decoding) is ported with a later slice.
+The engine makes one selection per dispatch mode at construction — "decode"
+(prefill chunks, decode steps and windows) and "tree" (the speculative
+verify forward) — and counts every dispatch against it
+(``stats["attn_<path>_<mode>"]``). The JAX registry's tree gates are the
+Pallas kernel's VMEM budgets (``QUERY_TILE_ROWS``, ``TREE_MASK_VMEM_BYTES``);
+the CUDA kernel tiles query rows by 16 and reads the mask from device
+memory, so it takes any tree the engine stages, and its tree gates are its
+decode gates.
 """
 from __future__ import annotations
 
@@ -32,7 +37,7 @@ class AttnSelection:
     """Which attention formulation serves a dispatch mode, and why not the
     kernel when it doesn't."""
     path: str      # "cuda" | "plain" | "gather"
-    mode: str      # "decode"
+    mode: str      # "decode" | "tree"
     reason: str    # why the kernel does not serve; "" when it does
 
     @property
@@ -44,18 +49,23 @@ class AttnSelection:
 
 def select_attention(*, mode: str, device_type: str, num_heads: int,
                      kv_heads: int, head_dim: int, block_size: int,
-                     use_kernel: bool | None, alibi: bool,
-                     sm90: bool) -> AttnSelection:
-    """Pick the formulation for ``mode`` (only "decode" in this slice: it
-    covers prefill chunks, decode steps and decode windows).
+                     use_kernel: bool | None, alibi: bool, sm90: bool,
+                     verify_pin: bool | None = None) -> AttnSelection:
+    """Pick the formulation for ``mode``: "decode" (prefill chunks, decode
+    steps and decode windows) or "tree" (the speculative verify forward).
 
     ``use_kernel`` is the engine's ``use_pallas_decode`` pin (None = auto,
-    False = gather, True = the kernel or refuse). Raises ValueError when the
-    pin demands a kernel that cannot serve, and NotImplementedError when a
-    CUDA engine would need the kernel but it cannot serve there."""
-    if mode != "decode":
-        raise ValueError(f"unknown attention mode {mode!r} (tree verify is "
-                         f"ported with speculative decoding)")
+    False = gather, True = the kernel or refuse); in tree mode
+    ``verify_pin`` (``spec_verify_pallas``) adds its own, as in the JAX
+    engine: False pins the gather route, True requires the kernel. Raises
+    ValueError when a pin demands a kernel that cannot serve, and
+    NotImplementedError when a CUDA engine would need the kernel but it
+    cannot serve there."""
+    if mode not in ("decode", "tree"):
+        raise ValueError(f"unknown attention mode {mode!r}")
+    if mode == "tree" and verify_pin is False:
+        return AttnSelection("gather", mode,
+                             "spec_verify_pallas=False (config pin)")
     if use_kernel is False:
         reason = "use_pallas_decode=False (config pin)"
     elif alibi:
@@ -69,12 +79,15 @@ def select_attention(*, mode: str, device_type: str, num_heads: int,
     else:
         return AttnSelection("cuda" if device_type == "cuda" else "plain",
                              mode, "")
-    if use_kernel:
-        raise ValueError(f"use_pallas_decode=True but the paged-attention "
-                         f"kernel cannot serve this engine: {reason}")
+    pins = [name for name, on in (("use_pallas_decode", use_kernel),
+                                  ("spec_verify_pallas",
+                                   mode == "tree" and verify_pin)) if on]
+    if pins:
+        raise ValueError(f"{pins[-1]}=True but the paged-attention kernel "
+                         f"cannot serve this engine's {mode} mode: {reason}")
     if device_type == "cuda" and use_kernel is None and not alibi:
         raise NotImplementedError(
-            f"the paged-attention kernel cannot serve this CUDA engine: "
-            f"{reason}; pin use_pallas_decode=False to run the plain version "
-            f"on the card")
+            f"the paged-attention kernel cannot serve this CUDA engine "
+            f"({mode} mode): {reason}; pin use_pallas_decode=False to run "
+            f"the plain version on the card")
     return AttnSelection("gather", mode, reason)

@@ -21,9 +21,21 @@ What differs from the JAX engine: PyTorch runs eagerly, so there are no
 compiled programs to cache, stack layers for or warm (``weight_prefetch`` and
 ``decode_early_exit`` keep their meaning as far as eager execution has one),
 and commits are synchronous — the ``max_inflight=0`` behaviour, with the
-same streams. Features of later slices (speculative decoding, tensor
-parallelism, KV tiering, telemetry, request tracing, sliding windows)
-raise NotImplementedError at construction.
+same streams. Features of later slices (tensor parallelism, KV tiering,
+telemetry, request tracing) raise NotImplementedError at construction.
+
+Sliding-window models (mistral) serve from a rolling KV ring: the block
+table shrinks to ``nwin`` pages, enough for the window plus one step, and
+position p lives in page slot ``(p // block_size) % nwin``; K1 recovers each
+pool column's position from the ring. Packing and the prefix cache are off
+in ring mode (a ring reuses its pages in place).
+
+Speculative decoding (``spec_decode`` "ngram" or "draft",
+``inference/speculative.py``): a round proposes a candidate tree per
+decode-ready sequence, runs ONE verify forward through K1's tree form
+(per-node positions, ancestors-only mask over the staged node K/V), walks
+exact acceptance on the host, merges only the accepted path's K/V into the
+pool and commits, all inside one step. It cannot combine with a ring.
 
 Quantized serving: ``quant_bits`` (8, 4 or "fp8") turns every matmul weight
 into codes + scales (``ops/quant_matmul.py``) whose products run the
@@ -65,8 +77,8 @@ from ..ops.quant_matmul import (QuantGrouped, QuantLinear,
 from ..utils.logging import logger
 from .attn_registry import select_attention
 from .ragged import StateManager, StepPlan
-from .sampling import sample_logits
-from .scheduler import SplitFuseScheduler
+from .sampling import sample_logits, sample_tree_logits
+from .scheduler import SpecAcceptTracker, SplitFuseScheduler
 from .weights import cast_tree, module_param_tree, tree_nbytes
 
 
@@ -133,11 +145,9 @@ class RaggedInferenceConfig:
     device: Any = None
 
 
-def _refuse_later_slices(cfg: RaggedInferenceConfig, m) -> None:
+def _refuse_later_slices(cfg: RaggedInferenceConfig) -> None:
     """NotImplementedError for every configuration a later slice ports."""
     later = [
-        (cfg.spec_decode, "spec_decode",
-         "speculative decoding (K1's tree-verify form)"),
         (cfg.quant_bits and cfg.tensor_parallel != 1,
          "quant_bits with tensor_parallel>1",
          "tensor parallelism (per-shard quantization)"),
@@ -146,8 +156,6 @@ def _refuse_later_slices(cfg: RaggedInferenceConfig, m) -> None:
         (cfg.kv_tier, "kv_tier", "KV tiering"),
         (cfg.telemetry, "telemetry=True", "serving telemetry"),
         (cfg.reqtrace, "reqtrace=True", "request tracing"),
-        (m.sliding_window, "sliding-window models",
-         "K1's window and rolling-ring options"),
     ]
     for on, what, slice_ in later:
         if on:
@@ -169,31 +177,54 @@ class InferenceEngineV2:
     _MOE_GEMM_BLOCK_M = 32
 
     def __init__(self, model: TransformerLM, params: dict | None = None,
-                 config: RaggedInferenceConfig | dict | None = None):
+                 config: RaggedInferenceConfig | dict | None = None,
+                 draft_model: TransformerLM | None = None,
+                 draft_params: dict | None = None):
         """``model`` supplies the configuration and, when ``params`` is
         None, the weights (served without a copy when its dtype and device
         match). ``params`` is a parameter tree with the flax tree's names
         (e.g. ``weights.params_from_jax``). Under ``quant_bits`` the
         engine's tree drops the dense weights it quantizes; the model keeps
         its own, so a caller that wants their memory back drops the model
-        once the engine is up."""
+        once the engine is up. ``draft_model`` / ``draft_params`` are the
+        draft of ``spec_decode="draft"``, served by a second engine."""
         if isinstance(config, dict):
             config = RaggedInferenceConfig(**config)
         self.config = cfg = config or RaggedInferenceConfig()
         self.mcfg = m = model.config
         check_served_family(m)
-        _refuse_later_slices(cfg, m)
+        _refuse_later_slices(cfg)
         self.device = dev = get_device(cfg.device)
 
         max_blocks_per_seq = -(-cfg.max_seq_len // cfg.block_size)
+        # a sliding-window model only needs the last window (plus the step
+        # being written) resident: the block table shrinks to a ring of
+        # nwin pages (the JAX engine's rolling cache)
+        self._ring_tokens = 0
+        W = m.sliding_window
+        if W and W < cfg.max_seq_len:
+            step_max = max(cfg.chunk, max(cfg.decode_window, 1))
+            nwin = -(-(W + step_max) // cfg.block_size) + 1
+            if nwin < max_blocks_per_seq:
+                max_blocks_per_seq = nwin
+                self._ring_tokens = nwin * cfg.block_size
         self.state = StateManager(cfg.num_blocks, cfg.block_size,
                                   cfg.max_seqs, max_blocks_per_seq)
-        self.scheduler = SplitFuseScheduler(self.state, cfg.chunk,
-                                            pack=cfg.prefill_pack)
-        # shared-prefix KV cache: auto = on for pack-mode serving
+        # packing is off in ring mode: the ring is sized for chunk-at-most
+        # steps, and a grown chunk would overrun it
+        self.scheduler = SplitFuseScheduler(
+            self.state, cfg.chunk,
+            pack=cfg.prefill_pack and not self._ring_tokens)
+        # shared-prefix KV cache: auto = on for pack-mode linear serving
         use_pc = cfg.prefix_cache
         if use_pc is None:
-            use_pc = self.scheduler.pack
+            use_pc = self.scheduler.pack and not self._ring_tokens
+        if use_pc and self._ring_tokens:
+            raise ValueError(
+                "prefix_cache=True cannot combine with a sliding-window "
+                "rolling KV ring: ring tables reuse page slots in place, so a "
+                "published page's content would change under a reader "
+                "(serve linear or set prefix_cache=False)")
         self._prefix_cache = None
         if use_pc:
             from .prefix_cache import PrefixCache
@@ -219,18 +250,22 @@ class InferenceEngineV2:
             (m.num_layers, 2, m.kv_heads, cfg.num_blocks, cfg.block_size,
              m.head_dim), dtype=kv_dtype, device=dev)
 
-        # one attention selection per mode; every decode dispatch counts
-        # against it (attn_registry.py)
-        self._attn_decode_sel = select_attention(
-            mode="decode", device_type=dev.type, num_heads=m.num_heads,
-            kv_heads=m.kv_heads, head_dim=m.head_dim,
-            block_size=cfg.block_size, use_kernel=cfg.use_pallas_decode,
-            alibi=m.position_embedding == "alibi",
-            sm90=dev.type == "cuda" and is_sm90(dev))
+        # one attention selection per mode; every decode and verify
+        # dispatch counts against its mode's (attn_registry.py)
+        sel_kw = dict(device_type=dev.type, num_heads=m.num_heads,
+                      kv_heads=m.kv_heads, head_dim=m.head_dim,
+                      block_size=cfg.block_size,
+                      use_kernel=cfg.use_pallas_decode,
+                      alibi=m.position_embedding == "alibi",
+                      sm90=dev.type == "cuda" and is_sm90(dev))
+        self._attn_decode_sel = select_attention(mode="decode", **sel_kw)
+        self._attn_tree_sel = select_attention(
+            mode="tree", verify_pin=cfg.spec_verify_pallas, **sel_kw)
         if dev.type == "cuda":
             from ..ops import kernels
             # build now; raises on failure
-            if self._attn_decode_sel.path == "cuda":
+            if "cuda" in (self._attn_decode_sel.path,
+                          self._attn_tree_sel.path):
                 kernels.load("paged_attention")
             if cfg.quant_bits:
                 kernels.load("quant_matmul")
@@ -253,14 +288,91 @@ class InferenceEngineV2:
                       "window_iters_max": 0, "prefill_budget_tokens": 0,
                       "prefill_tokens": 0, "decode_tokens": 0,
                       "prefix_hit_tokens": 0, "prefix_lookup_tokens": 0,
-                      "prefix_hit_rate": 0.0, f"attn_{sel}_decode": 0}
+                      "prefix_hit_rate": 0.0,
+                      # speculative decoding: rounds = verify dispatches,
+                      # verifies = per-sequence verify commits,
+                      # proposed/accepted = candidate (non-root) tree
+                      # tokens, steps_saved = committed tokens beyond the
+                      # one a plain decode step would have produced
+                      "spec_rounds": 0, "spec_verifies": 0,
+                      "spec_proposed": 0, "spec_accepted": 0,
+                      "spec_steps_saved": 0, "spec_accept_rate": 0.0,
+                      f"attn_{sel}_decode": 0,
+                      f"attn_{self._attn_tree_sel.path}_tree": 0}
+
+        self._spec = None
+        self._spec_tracker = None
+        self._draft_engine = None
+        # tokens committed by spec rounds inside _dispatch_next, folded
+        # into step()'s emitted dict before it returns
+        self._spec_emit: dict[int, list[int]] = {}
+        if cfg.spec_decode:
+            self._init_speculative(draft_model, draft_params)
         logger.info(
             f"engine_v2 up on {dev}: blocks={cfg.num_blocks}x"
             f"{cfg.block_size} pool="
             f"{self.kv_pool.numel() * self.kv_pool.element_size() / 1e6:.0f}"
             f"MB max_seqs={cfg.max_seqs} chunk={cfg.chunk} attention={sel}"
             + (f" ({self._attn_decode_sel.reason})"
-               if self._attn_decode_sel.reason else ""))
+               if self._attn_decode_sel.reason else "")
+            + (f" ring={self._ring_tokens} tokens" if self._ring_tokens
+               else "")
+            + (f" spec={cfg.spec_decode}" if cfg.spec_decode else ""))
+
+    def _init_speculative(self, draft_model, draft_params) -> None:
+        """The configured proposer and the per-request accept-rate tracker.
+        ``spec_decode="draft"`` builds a SECOND engine for the draft model
+        — its own pool, allocator and scheduler, plain decode steps (a
+        decode window would run past the ``depth`` tokens a round asks
+        for)."""
+        cfg = self.config
+        from .speculative import DraftModelProposer, NGramProposer
+
+        if cfg.spec_decode not in ("ngram", "draft"):
+            raise ValueError(f"spec_decode must be None, 'ngram' or "
+                             f"'draft', got {cfg.spec_decode!r}")
+        if self._ring_tokens:
+            raise ValueError(
+                "spec_decode cannot combine with a sliding-window rolling "
+                "KV ring: provisional verify slots past the committed tail "
+                "would alias live ring pages (serve linear or disable "
+                "spec_decode)")
+        if cfg.spec_depth < 1:
+            raise ValueError(f"spec_depth must be >= 1, got {cfg.spec_depth}")
+        if cfg.spec_max_nodes < 2:
+            raise ValueError(f"spec_max_nodes must be >= 2 (root + one "
+                             f"candidate), got {cfg.spec_max_nodes}")
+        # a chain of depth d is d+1 nodes: depth never exceeds the budget
+        base_depth = min(cfg.spec_depth, cfg.spec_max_nodes - 1)
+        self._spec_tracker = SpecAcceptTracker(base_depth)
+        if cfg.spec_decode == "ngram":
+            self._spec = NGramProposer(
+                base_depth, ngram_max=cfg.spec_ngram_max,
+                ngram_min=cfg.spec_ngram_min, branches=cfg.spec_branches,
+                max_nodes=cfg.spec_max_nodes)
+            return
+        if draft_model is None:
+            raise ValueError("spec_decode='draft' needs a draft_model= "
+                             "(and usually draft_params=) at engine "
+                             "construction")
+        self._draft_engine = InferenceEngineV2(
+            draft_model, params=draft_params, config={
+                "block_size": cfg.block_size,
+                "num_blocks": cfg.num_blocks,
+                "max_seqs": cfg.max_seqs,
+                "chunk": cfg.chunk,
+                # a mirror may run past its depth while a slower mirror
+                # catches up (up to 2*depth+4 draft steps a round); the
+                # next rewind discards the surplus
+                "max_seq_len": cfg.max_seq_len + 2 * base_depth + 4,
+                "dtype": cfg.dtype,
+                "greedy": True,          # proposals are the draft argmax
+                "decode_window": 1,
+                "prefix_cache": False,
+                "use_pallas_decode": cfg.use_pallas_decode,
+                "device": self.device,
+            })
+        self._spec = DraftModelProposer(self._draft_engine)
 
     def _quantize_weights(self, bits) -> None:
         """Weight-only quantization for serving (the JAX engine's
@@ -306,36 +418,48 @@ class InferenceEngineV2:
     # ------------------------------------------------------------------
     # ragged forward
     # ------------------------------------------------------------------
+    def _stage_rows(self, T: int) -> int:
+        """The JAX engine's stage width for T fresh tokens: at least 8 rows,
+        page-divisible past one page."""
+        bs = self.config.block_size
+        Ts = max(8, T)
+        return -(-Ts // bs) * bs if Ts > bs else Ts
+
     def _ragged_forward(self, token_ids, positions, slot_map, block_tables,
-                        seq_lens, sample_idx, kv_stage=None, stage_fill=None,
-                        stage_starts=None):
+                        seq_lens, sample_idx, kv_stage=None, stage_fill=0,
+                        stage_starts=None, tree_mask=None):
         """One ragged forward over a read-only pool; returns the logits of
-        each row's ``sample_idx`` token, ``[S, V]``.
+        each row's ``sample_idx`` token, ``[S, V]`` (every row's, ``[S, T,
+        V]``, when ``sample_idx`` is None).
 
         Default mode (``kv_stage`` None): the stage is this step's tokens,
         and the pool merge happens HERE, once, after every layer.
-        Window mode (``kv_stage`` = (k_buf, v_buf) ``[L, S, KV, Ws, D]``):
-        writes stage row ``stage_fill`` of every layer, attends over the
-        rows below ``seq_lens``, and leaves the merge to the caller.
+        Caller-staged mode (``kv_stage`` = (k_buf, v_buf) ``[L, S, KV, Ws,
+        D]``): writes this step's tokens at stage rows ``stage_fill..``,
+        attends over the rows below ``seq_lens``, and leaves the merge to
+        the caller — a decode window's iterations, or the verify forward.
+        Tree mode (``tree_mask`` ``[S, T, T]``): the speculative verify
+        forward; row t is a candidate-tree node at ``positions[:, t]``
+        (root + depth) that sees the staged nodes its mask allows, through
+        the registry's tree selection.
 
         ``block_tables``/``seq_lens``/``stage_starts`` are int32 device
         tensors; ``token_ids``/``positions``/``slot_map`` int64."""
         m, cfg, P = self.mcfg, self.config, self.params
         S, T = token_ids.shape
-        bs = cfg.block_size
         KV, D, L = m.kv_heads, m.head_dim, m.num_layers
-        window_mode = kv_stage is not None
+        staged = kv_stage is not None
         q_starts = positions[:, 0].to(torch.int32)
         if stage_starts is None:
             stage_starts = q_starts
-        if window_mode:
+        tree = None
+        if tree_mask is not None:
+            tree = (positions.to(torch.int32), tree_mask)
+        if staged:
             k_all, v_all = kv_stage
         else:
-            # the JAX engine's stage width: at least 8 rows, page-divisible
-            # past one page (the kernel reads only rows below seq_lens)
-            Ts = max(8, T)
-            if Ts > bs and Ts % bs:
-                Ts = -(-Ts // bs) * bs
+            # the kernel reads only rows below seq_lens
+            Ts = self._stage_rows(T)
             k_all = torch.empty((L, S, KV, Ts, D), dtype=cfg.dtype,
                                 device=self.device)
             v_all = torch.empty_like(k_all)
@@ -360,14 +484,10 @@ class InferenceEngineV2:
                 q, k = apply_rope(q, k, positions, m.rope_theta,
                                   m.rotary_pct)
             k_st, v_st = k_all[li], v_all[li]           # [S, KV, Ts|Ws, D]
-            if window_mode:
-                k_st[:, :, stage_fill] = k[:, 0]
-                v_st[:, :, stage_fill] = v[:, 0]
-            else:
-                k_st[:, :, :T] = k.transpose(1, 2)
-                v_st[:, :, :T] = v.transpose(1, 2)
+            k_st[:, :, stage_fill:stage_fill + T] = k.transpose(1, 2)
+            v_st[:, :, stage_fill:stage_fill + T] = v.transpose(1, 2)
             o = self._attention(q, k_st, v_st, li, block_tables, seq_lens,
-                                q_starts, stage_starts)
+                                q_starts, stage_starts, tree)
             o = proj_out(o, a["wo"])
             if m.attn_out_bias:
                 o = o + a["bo"]
@@ -379,7 +499,10 @@ class InferenceEngineV2:
                 x = x + o
                 x = x + self._ffn(norm(x, p["ln_ffn"], m), p)
         # norm is row-wise: taking each row's sampled token first is exact
-        last = x[torch.arange(S, device=x.device), sample_idx]     # [S, E]
+        if sample_idx is None:
+            last = x.reshape(S * T, -1)                            # [S*T, E]
+        else:
+            last = x[torch.arange(S, device=x.device), sample_idx]  # [S, E]
         last = norm(last, P["ln_final"], m)
         if "logits_q" in P:             # tied, quantized: an exact gather
             logits = quant_matmul(last, P["logits_q"])
@@ -391,7 +514,9 @@ class InferenceEngineV2:
             logits = last @ P["unembed"]
         if m.unembed_bias:
             logits = logits + P["unembed_b"]
-        if not window_mode:
+        if sample_idx is None:
+            logits = logits.reshape(S, T, -1)
+        if not staged:
             # ---- the ONE pool write of this dispatch ---------------------
             ks = k_all[:, :, :, :T].permute(0, 1, 3, 2, 4).reshape(
                 L, S * T, KV, D)
@@ -444,19 +569,26 @@ class InferenceEngineV2:
         return out.reshape(S, T, E)
 
     def _attention(self, q, k_st, v_st, li, block_tables, seq_lens,
-                   q_starts, stage_starts):
-        """Paged attention of layer ``li`` through the registry's selection:
-        the kernel (its plain version on the CPU), or — for ALiBi, a config
-        pin, or a CPU geometry the kernel does not take — the plain version
-        called directly, outside the kernel's route and its launch count."""
+                   q_starts, stage_starts, tree=None):
+        """Paged attention of layer ``li`` through the registry's selection
+        for the mode (``tree`` = (node positions, ancestors mask) selects
+        the verify form): the kernel (its plain version on the CPU), or —
+        for ALiBi, a config pin, or a CPU geometry the kernel does not take
+        — the plain version called directly, outside the kernel's route and
+        its launch count. A sliding-window model passes its window, and its
+        rolling ring when it serves from one, on every path."""
         args = (q, self.kv_pool, k_st, v_st, block_tables, seq_lens,
                 q_starts, stage_starts)
-        if self._attn_decode_sel.is_kernel:
-            return paged_ragged_attention(
-                *args, block_size=self.config.block_size, layer_index=li)
+        kw = dict(block_size=self.config.block_size, layer_index=li,
+                  window=self.mcfg.sliding_window or None,
+                  ring_tokens=self._ring_tokens or None)
+        if tree is not None:
+            kw.update(tree_positions=tree[0], tree_mask=tree[1])
+        sel = self._attn_decode_sel if tree is None else self._attn_tree_sel
+        if sel.is_kernel:
+            return paged_ragged_attention(*args, **kw)
         return paged_ragged_attention_reference(
-            *args, block_size=self.config.block_size, layer_index=li,
-            alibi_slopes=self._alibi_slopes, upcast_pool=True)
+            *args, **kw, alibi_slopes=self._alibi_slopes, upcast_pool=True)
 
     def _merge_stage(self, flat_slots, ks, vs):
         """THE pool write: staged K/V rows ``[L, N, KV, D]`` land at flat
@@ -514,9 +646,7 @@ class InferenceEngineV2:
         cfg, m = self.config, self.mcfg
         bs, dev = cfg.block_size, self.device
         L, KV, D = m.num_layers, m.kv_heads, m.head_dim
-        Ws = max(8, W)                       # stage rows
-        if Ws > bs and Ws % bs:
-            Ws = -(-Ws // bs) * bs           # page-divisible past one page
+        Ws = self._stage_rows(W)
         up = lambda a: torch.from_numpy(a).to(dev)
         tok, pos = up(tok0).long(), up(pos0).long()
         lens, rem, eos = up(lens0), up(rem), up(eos).long()
@@ -612,12 +742,164 @@ class InferenceEngineV2:
         self.stats["windows"] += 1
         return True
 
+    def _spec_program(self, tok, pos, tables, lens, mask):
+        """The speculative VERIFY forward: one batched tree-masked step over
+        the read-only pool (``[S, T]`` candidate-tree nodes per row) that
+        samples the target at EVERY node. Returns the staged node K/V
+        ``(k_all, v_all)`` ``[L, S, KV, Ts, D]`` and the samples ``[S, T]``
+        on the device; the pool is not written here
+        (:meth:`_try_dispatch_spec` merges only the accepted path)."""
+        cfg, m, dev = self.config, self.mcfg, self.device
+        S, T = tok.shape
+        up = lambda a: torch.from_numpy(a).to(dev)
+        k_all = torch.zeros((m.num_layers, S, m.kv_heads, self._stage_rows(T),
+                             m.head_dim), dtype=cfg.dtype, device=dev)
+        v_all = torch.zeros_like(k_all)
+        logits = self._ragged_forward(
+            up(tok).long(), up(pos).long(), None, up(tables), up(lens), None,
+            kv_stage=(k_all, v_all), tree_mask=up(mask))
+        toks = sample_tree_logits(logits.float(), self._gen,
+                                  temperature=cfg.temperature,
+                                  top_k=cfg.top_k, top_p=cfg.top_p,
+                                  greedy=cfg.greedy)
+        return k_all, v_all, toks
+
+    def _try_dispatch_spec(self, prefill_pending: bool = False) -> bool:
+        """One speculative round over every decode-ready sequence: propose
+        candidate trees (n-gram lookup or draft-model mirrors), run ONE
+        batched tree-masked verify forward, walk exact acceptance on the
+        host, merge only the accepted path's KV and commit — several tokens
+        per target forward when candidates hit, a plain decode's worth when
+        they don't. Returns False (nothing dispatched) when no sequence is
+        decode-ready or no proposer produced a candidate; the window/plain
+        decode path then serves as before.
+
+        The round runs verify → accept → merge → commit inside this call,
+        from committed state (commits are synchronous in this engine, so
+        nothing is in flight), and no provisional marker outlives it."""
+        cfg = self.config
+        live = [s for s in self.state.seqs.values()
+                if not s.done and s.slot >= 0 and s.pending_tokens == 1
+                and s.n_generated < s.max_new_tokens]
+        if not live:
+            return False
+
+        t0 = time.perf_counter()
+        T = cfg.spec_max_nodes
+        requests: dict[int, tuple[list[int], int]] = {}
+        for s in live:
+            d = self._spec_tracker.depth(
+                s.uid, prefill_pending=prefill_pending,
+                mixed_cap=cfg.spec_depth_mixed_cap)
+            # the commit may emit depth+1 tokens (accepted chain + bonus):
+            # cap one short of the remaining budget
+            d = min(d, s.max_new_tokens - s.n_generated - 1)
+            requests[s.uid] = (list(s.tokens), max(d, 0))
+        trees = self._spec.propose(requests)
+        if all(t.n_candidates == 0 for t in trees.values()):
+            self.stats["plan_s"] += time.perf_counter() - t0
+            return False     # nothing to verify: plain decode is cheaper
+
+        from .speculative import accept_walk
+
+        S = self.state.max_seqs
+        mb = self.state.max_blocks_per_seq
+        bs = cfg.block_size
+        L, KV, D = self.mcfg.num_layers, self.mcfg.kv_heads, self.mcfg.head_dim
+        tok = np.zeros((S, T), np.int32)
+        pos = np.zeros((S, T), np.int32)
+        tables = np.zeros((S, mb), np.int32)
+        lens = np.zeros(S, np.int32)
+        mask = np.zeros((S, T, T), np.uint8)
+        # every row starts as self-bits only: empty slots and padding nodes
+        # must never see an all-masked softmax row
+        mask[:, np.arange(T), np.arange(T)] = 1
+        meta: dict[int, tuple[int, Any]] = {}    # uid -> (slot, tree)
+        try:
+            for s in live:
+                tree = trees[s.uid]
+                depths = tree.depths()
+                self.state.provision(s.uid, max(depths))
+                sl = s.slot
+                n = tree.n_nodes
+                tok[sl, :n] = tree.tokens
+                root = len(s.tokens) - 1
+                pos[sl, :n] = [root + d for d in depths]
+                tables[sl, :len(s.blocks)] = s.blocks
+                lens[sl] = root + 1 + max(depths)
+                mask[sl] = tree.ancestor_mask(T)
+                mask[sl, np.arange(n, T), np.arange(n, T)] = 1
+                meta[s.uid] = (sl, tree)
+            self.stats["plan_s"] += time.perf_counter() - t0
+
+            t0 = time.perf_counter()
+            # every verify dispatch counts against the tree selection
+            self._emit_attn_kernel("tree")
+            k_all, v_all, toks = self._spec_program(tok, pos, tables, lens,
+                                                    mask)
+            toks_h = toks.cpu().numpy()
+
+            # exact acceptance on the host, then ONE merge of exactly the
+            # accepted path's staged rows (everything else → trash block)
+            flat = np.zeros(S * T, np.int64)
+            accepts: dict[int, list[int]] = {}
+            for uid, (sl, tree) in meta.items():
+                seq = self.state.seqs[uid]
+                accepted, visited = accept_walk(tree,
+                                                toks_h[sl, :tree.n_nodes])
+                root = len(seq.tokens) - 1
+                for i, node in enumerate(visited):
+                    p = root + i
+                    flat[sl * T + node] = \
+                        seq.blocks[(p // bs) % mb] * bs + p % bs
+                accepts[uid] = accepted
+            ks = k_all[:, :, :, :T].permute(0, 1, 3, 2, 4).reshape(
+                L, S * T, KV, D)
+            vs = v_all[:, :, :, :T].permute(0, 1, 3, 2, 4).reshape(
+                L, S * T, KV, D)
+            self._merge_stage(torch.from_numpy(flat).to(self.device), ks, vs)
+        except Exception:
+            # a failed round leaves no provisional marker behind
+            for uid in meta:
+                self.state.rollback_provisional(uid)
+            raise
+
+        st = self.stats
+        for uid, accepted in accepts.items():
+            tree = meta[uid][1]
+            out = self.state.commit_speculative(uid, accepted)
+            n_acc = len(accepted) - 1        # matched candidates
+            st["spec_verifies"] += 1
+            st["spec_proposed"] += tree.n_candidates
+            st["spec_accepted"] += n_acc
+            st["spec_steps_saved"] += max(len(out) - 1, 0)
+            st["decode_tokens"] += len(out)
+            if out:
+                self._results[uid].extend(out)
+                self._spec_emit.setdefault(uid, []).extend(out)
+            if cfg.spec_adapt and tree.n_candidates:
+                self._spec_tracker.observe(uid, tree.n_candidates, n_acc)
+        st["spec_rounds"] += 1
+        st["spec_accept_rate"] = round(
+            st["spec_accepted"] / max(st["spec_proposed"], 1), 4)
+        st["dispatches"] += 1
+        st["decode_steps"] += 1
+        st["dispatch_s"] += time.perf_counter() - t0
+        return True
+
     def _dispatch_next(self) -> bool:
         """Dispatch the next scheduled step. Mixed prefill/decode load
         alternates pure prefill steps with decode windows (or [S, 1] decode
-        plans when windowing is off). Returns True if something ran."""
+        plans when windowing is off). With ``spec_decode``, the decode side
+        first offers the step to a speculative round; when no proposer finds
+        candidates the window/plain path runs as before. Returns True if
+        something ran."""
         has_prefill, has_decode = self.scheduler.pending_kinds()
         want_decode = has_decode and (not has_prefill or self._serve_toggle)
+        if self._spec is not None and want_decode and \
+                self._try_dispatch_spec(prefill_pending=has_prefill):
+            self._serve_toggle = False
+            return True
         if want_decode and self._try_dispatch_window(
                 prefill_pending=has_prefill):
             self._serve_toggle = False
@@ -686,10 +968,10 @@ class InferenceEngineV2:
                 emitted.setdefault(uid, []).extend(new)
 
     def _emit_attn_kernel(self, mode: str) -> None:
-        """Count one decode dispatch against the attention formulation the
-        registry selected: a nonzero gather count is the visible sign that
-        the kernel did not serve."""
-        sel = self._attn_decode_sel
+        """Count one decode or verify dispatch against the attention
+        formulation the registry selected for ``mode``: a nonzero gather
+        count is the visible sign that the kernel did not serve."""
+        sel = self._attn_tree_sel if mode == "tree" else self._attn_decode_sel
         self.stats[f"attn_{sel.path}_{mode}"] += 1
 
     # ------------------------------------------------------------------
@@ -715,6 +997,13 @@ class InferenceEngineV2:
         seq = self.state.admit(uid, toks, max_new_tokens,
                                eos_id=eos_token_id)
         self._results[uid] = []
+        if self._spec is not None:
+            # draft mirrors reserve once, at admit, for the full budget plus
+            # the deepest proposal overhang (rewind never reallocates); a
+            # refused mirror admit means root-only trees: plain decode
+            self._spec.admit(uid, toks,
+                             max_new_tokens + self._spec_tracker.base_depth
+                             + 1)
         if self._prefix_cache is not None:
             st = self.stats
             st["prefix_hit_tokens"] += seq.prefix_hit_tokens
@@ -737,6 +1026,13 @@ class InferenceEngineV2:
         (its full pages are published into the prefix cache)."""
         if self._inflight:
             self._drain()
+        if self._spec is not None:
+            # rounds complete inside a step, but a failed one may be caught
+            # by a driver that then flushes: no marker survives the release
+            self.state.rollback_provisional(uid)
+            self._spec.release(uid)
+            self._spec_tracker.forget(uid)
+            self._spec_emit.pop(uid, None)
         if uid in self.state.seqs:
             self.state.release(uid)
         return self._results.pop(uid, [])
@@ -746,7 +1042,12 @@ class InferenceEngineV2:
         accepted tokens}; an empty dict with nothing dispatched means the
         engine is idle."""
         self._dispatch_next()
-        return self._drain()
+        emitted = self._drain()
+        # tokens a spec round committed inside the dispatch
+        for uid, new in self._spec_emit.items():
+            emitted.setdefault(uid, []).extend(new)
+        self._spec_emit = {}
+        return emitted
 
     def generate(self, prompts: list[list[int]], max_new_tokens: int = 32,
                  eos_token_id: int | None = None) -> list[list[int]]:

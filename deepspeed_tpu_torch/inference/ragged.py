@@ -9,8 +9,8 @@ arrays the forward consumes.
 
 Carried: the allocator, ``SequenceDescriptor`` with its committed and
 scheduled views, the refcounted admit/release API over the shared-prefix
-cache, the rollback-aware provisional API of speculative decoding, the
-prefix snapshot/adopt pair of radix pulls and the full-pool ``audit()``.
+cache, the rollback-aware provisional API of speculative decoding with
+the draft mirror's ``rewind``, the prefix snapshot/adopt pair of radix pulls and the full-pool ``audit()``.
 The KV-page migration API (disaggregated serving) and the weight hot-swap
 skew guard arrive with their slices.
 """
@@ -317,6 +317,46 @@ class StateManager:
         seq = self.seqs.get(uid)
         if seq is not None:
             seq.n_provisional = 0
+
+    def rewind(self, uid: int, tokens: list[int]) -> None:
+        """Reset a sequence's history to ``tokens`` (the draft-model
+        proposer's mirror sync: the target's accept/reject decision is
+        ground truth). Computed KV of the common prefix stays valid; KV past
+        the cut is overwritten as the draft re-decodes. Blocks never change
+        hands: the admit-time reservation must cover the new history."""
+        seq = self.seqs[uid]
+        if not tokens:
+            raise ValueError("cannot rewind to an empty history")
+        if seq.n_shared_blocks:
+            shared = seq.n_shared_blocks * self.block_size
+            if (len(tokens) <= shared
+                    or tokens[:shared] != seq.tokens[:shared]):
+                raise RuntimeError(
+                    f"uid {uid}: rewind would rewrite shared prefix pages")
+        if self._blocks_for(len(tokens)) > len(seq.blocks):
+            raise RuntimeError(
+                f"uid {uid}: rewind target of {len(tokens)} tokens "
+                f"exceeds the {len(seq.blocks)}-block reservation")
+        keep = 0
+        for a, b in zip(seq.tokens, tokens):
+            if a != b:
+                break
+            keep += 1
+        seq.tokens = list(tokens)
+        # the last token is always re-run (its forward gives the next
+        # logits), and the kept KV is floored to a page boundary, as in the
+        # JAX package (whose page-merge program needs page-aligned resume
+        # chunks; the partial page is recomputed to the same KV)
+        keep = min(seq.n_computed, keep, len(tokens) - 1)
+        seq.n_computed = keep - keep % self.block_size
+        seq.n_sched = seq.n_computed
+        seq.n_inflight = 0
+        seq.n_provisional = 0
+        # the budget restarts from the rewound history, capped so it never
+        # outruns the admit-time block reservation
+        cap = len(seq.blocks) * self.block_size
+        seq.n_generated = max(0, seq.max_new_tokens - (cap - len(tokens)))
+        seq.done = False
 
     # --- radix pulls: prefix snapshot (export) and adopt (import) --------
 

@@ -4,8 +4,7 @@ Counterpart of ``deepspeed_tpu/inference/sampling.py``. Greedy is
 ``argmax``, whose first-index tie-break is ``jnp.argmax``'s, so greedy
 streams are comparable across the two packages. Stochastic sampling draws
 from an explicit ``torch.Generator``; its numbers differ from JAX's
-threefry stream, so only distributions compare. ``sample_tree_logits``
-(speculative verify) is ported with speculative decoding.
+threefry stream, so only distributions compare.
 """
 from __future__ import annotations
 
@@ -41,3 +40,21 @@ def sample_logits(logits: torch.Tensor, generator: torch.Generator | None,
         logits = torch.where(logits < cutoff, neg_inf, logits)
     probs = torch.softmax(logits, dim=-1)
     return torch.multinomial(probs, 1, generator=generator)[:, 0]
+
+
+def sample_tree_logits(logits: torch.Tensor,
+                       generator: torch.Generator | None, *,
+                       temperature: float = 1.0, top_k: int = 0,
+                       top_p: float = 1.0, greedy: bool = False
+                       ) -> torch.Tensor:
+    """Verify-step sampling: ``[S, T, V]`` per-tree-node logits → ``[S, T]``
+    target samples, every node drawn independently with the same filters as
+    :func:`sample_logits`. The acceptance walk keeps a node's sample only
+    when its parent's sample matched, so each kept token is conditioned as
+    the serial chain would be; greedy is per-node argmax, identical to
+    plain greedy decode."""
+    S, T, V = logits.shape
+    flat = sample_logits(logits.reshape(S * T, V), generator,
+                         temperature=temperature, top_k=top_k, top_p=top_p,
+                         greedy=greedy)
+    return flat.reshape(S, T)

@@ -11,6 +11,9 @@ chain (:meth:`program_shape_menu` lists every shape it can emit).
 Plans are packed in Python here; the JAX package's native atom builder
 (``csrc/atoms.cpp``) is ported with a later slice, as are its telemetry
 hooks. Importing this module loads no telemetry code.
+
+:class:`SpecAcceptTracker` is the scheduler-side half of speculative
+decoding: per-request draft depth adapted to the acceptance rate.
 """
 from __future__ import annotations
 
@@ -196,3 +199,64 @@ class SplitFuseScheduler:
                 [sampled[uid]] if plan.do_sample[s] and uid in sampled
                 else [], int(plan.active[s].sum()))
         return accepted
+
+
+class SpecAcceptTracker:
+    """Per-request accept-rate tracking that adapts speculative draft depth
+    (``deepspeed_tpu/inference/scheduler.py``'s tracker).
+
+    Each uid keeps an EMA of its draft-token acceptance rate. Depth shrinks
+    one step when the EMA falls below ``shrink_below`` (at the floor of 1 a
+    verify step is an ordinary decode) and grows back toward
+    ``base_depth`` above ``grow_above``. While prefill chunks are pending
+    the returned depth is also capped at ``mixed_cap``, so a waiting first
+    chunk never sits behind a max-depth verify round."""
+
+    def __init__(self, base_depth: int, min_depth: int = 1,
+                 alpha: float = 0.5, shrink_below: float = 0.35,
+                 grow_above: float = 0.75):
+        self.base_depth = max(1, base_depth)
+        self.min_depth = max(1, min_depth)
+        self.alpha = alpha
+        self.shrink_below = shrink_below
+        self.grow_above = grow_above
+        self._rate: dict[int, float] = {}
+        self._depth: dict[int, int] = {}
+
+    def rate(self, uid: int) -> float:
+        return self._rate.get(uid, 1.0)
+
+    def depth(self, uid: int, prefill_pending: bool = False,
+              mixed_cap: int = 0) -> int:
+        d = self._depth.get(uid, self.base_depth)
+        if prefill_pending and mixed_cap:
+            d = min(d, mixed_cap)
+        return max(self.min_depth, d)
+
+    def observe(self, uid: int, proposed: int,
+                accepted: int) -> tuple[int, int] | None:
+        """Record one verify round (``proposed`` candidates, ``accepted``
+        of them matched). Returns ``(old, new)`` when the uid's depth
+        adapted, else None. Rounds that proposed nothing carry no signal
+        and are skipped."""
+        if proposed <= 0:
+            return None
+        r = accepted / proposed
+        ema = self._rate.get(uid)
+        ema = r if ema is None else self.alpha * r + (1 - self.alpha) * ema
+        self._rate[uid] = ema
+        old = self._depth.get(uid, self.base_depth)
+        new = old
+        if ema < self.shrink_below:
+            new = max(self.min_depth, old - 1)
+        elif ema > self.grow_above:
+            new = min(self.base_depth, old + 1)
+        if new != old:
+            self._depth[uid] = new
+            return (old, new)
+        self._depth.setdefault(uid, old)
+        return None
+
+    def forget(self, uid: int) -> None:
+        self._rate.pop(uid, None)
+        self._depth.pop(uid, None)

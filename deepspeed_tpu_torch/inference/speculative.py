@@ -1,0 +1,288 @@
+"""Speculative decoding over the paged pool: proposers + candidate trees.
+
+The port's copy of ``deepspeed_tpu/inference/speculative.py``. Speculative
+sampling (Leviathan et al., ICML'23) commits several tokens per target
+forward; tree-structured verification (SpecInfer / Medusa-style) raises the
+expected accepted tokens per verify for the same cost.
+
+Division of labour:
+
+- THIS module is pure host logic: candidate-tree construction
+  (:func:`build_tree`), the two proposer backends (:class:`NGramProposer`
+  — self-speculative prompt lookup, no extra weights; and
+  :class:`DraftModelProposer` — a small draft model running in-process
+  against ITS OWN paged KV pool), and the exact acceptance walk
+  (:func:`accept_walk`).
+- ``engine_v2`` runs the single batched verify forward against the paged
+  pool (K1's tree form: the ancestors-only mask over the staged fresh KV)
+  and merges ONLY the accepted path's KV into the pool — rejected
+  candidates never reach it, so published prefix-cache pages stay clean.
+- ``ragged.StateManager`` owns the rollback: ``provision`` marks the
+  candidate extent, ``commit_speculative`` folds the accepted tokens and
+  clears the rest, ``rewind`` resyncs the draft mirror.
+
+Exactness: the verify forward samples from the TARGET distribution at
+every tree node; the walk follows the child matching each sample and
+emits the sample itself — so every emitted token is a target sample under
+the correct conditioning, for ANY proposer. Greedy mode is therefore
+identical to plain greedy decode.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+
+import numpy as np
+
+
+@dataclass
+class SpecTree:
+    """A flattened candidate tree for one sequence's verify step.
+
+    Node 0 is the ROOT: the committed last token, whose forward the
+    baseline decode step would run anyway (its logits verify the root's
+    children and provide the bonus sample when everything is rejected —
+    a root-only tree IS a plain decode step). ``parents[i]`` indexes the
+    parent node (-1 for the root); children always follow parents, so a
+    prefix scan resolves depths."""
+    tokens: list[int]
+    parents: list[int]
+
+    @property
+    def n_nodes(self) -> int:
+        return len(self.tokens)
+
+    @property
+    def n_candidates(self) -> int:
+        """Proposed (non-root) nodes — the ``spec_proposed`` unit."""
+        return len(self.tokens) - 1
+
+    def depths(self) -> list[int]:
+        out = [0] * len(self.tokens)
+        for i, p in enumerate(self.parents):
+            if p >= 0:
+                out[i] = out[p] + 1
+        return out
+
+    def children(self) -> list[list[int]]:
+        out: list[list[int]] = [[] for _ in self.tokens]
+        for i, p in enumerate(self.parents):
+            if p >= 0:
+                out[p].append(i)
+        return out
+
+    def ancestor_mask(self, width: int) -> np.ndarray:
+        """[width, width] uint8: row i sees column j iff j is i or an
+        ancestor of i — the tree-attention visibility for the verify
+        step's staged (fresh) KV. Siblings share a POSITION but never an
+        entry here, which is exactly what position-causal masking cannot
+        express. Rows/cols past ``n_nodes`` are zero (padding)."""
+        n = len(self.tokens)
+        if width < n:
+            raise ValueError(f"mask width {width} < {n} nodes")
+        m = np.zeros((width, width), np.uint8)
+        for i in range(n):
+            j = i
+            while j >= 0:
+                m[i, j] = 1
+                j = self.parents[j]
+        return m
+
+
+def build_tree(root_token: int, chains: list[list[int]],
+               max_nodes: int = 0) -> SpecTree:
+    """Merge candidate chains into a tree below ``root_token``, deduping
+    shared prefixes (two chains proposing the same next token share one
+    node — one verify slot, one KV row). ``max_nodes`` bounds the total
+    (root included); surplus nodes are dropped chain-order."""
+    tokens, parents = [int(root_token)], [-1]
+    child_of: dict[tuple[int, int], int] = {}
+    for chain in chains:
+        cur = 0
+        for t in chain:
+            key = (cur, int(t))
+            nxt = child_of.get(key)
+            if nxt is None:
+                if max_nodes and len(tokens) >= max_nodes:
+                    break
+                nxt = len(tokens)
+                tokens.append(int(t))
+                parents.append(cur)
+                child_of[key] = nxt
+            cur = nxt
+    return SpecTree(tokens=tokens, parents=parents)
+
+
+def accept_walk(tree: SpecTree, samples) -> tuple[list[int], list[int]]:
+    """Exact acceptance: walk from the root, at each visited node take
+    the TARGET sample drawn at that node; if a child carries that exact
+    token the sample is an accepted candidate and the walk descends,
+    otherwise the sample is the correction/bonus token and the walk
+    stops. Returns ``(accepted_tokens, visited_node_indices)`` —
+    ``len(accepted) == len(visited) >= 1`` and ``visited`` are exactly
+    the nodes whose KV must merge into the pool: accepting m tokens
+    advances ``n_computed`` by m, and the m positions needing fresh KV
+    (old last token through the second-newest accepted token) are held by
+    the root plus the m-1 matched candidates — the final sample itself is
+    never a tree node; its forward runs next step, as in baseline
+    decode."""
+    children = tree.children()
+    cur, accepted, visited = 0, [], [0]
+    while True:
+        x = int(samples[cur])
+        accepted.append(x)
+        nxt = next((j for j in children[cur] if tree.tokens[j] == x), None)
+        if nxt is None:
+            break
+        cur = nxt
+        visited.append(nxt)
+    return accepted, visited
+
+
+class NGramProposer:
+    """Self-speculative prompt-lookup proposer (PLD / LLMA-style): no
+    extra weights, no extra forward — candidates come from the sequence's
+    OWN history. The last ``g``-gram (g from ``ngram_max`` down to
+    ``ngram_min``) is searched backward through the history; the tokens
+    following each match form a candidate chain. Strong on repetitive or
+    copy-heavy text (code, retrieval, multi-turn templates), free
+    elsewhere — a miss just means a root-only tree, i.e. a plain decode
+    step."""
+
+    def __init__(self, depth: int, ngram_max: int = 3, ngram_min: int = 1,
+                 branches: int = 1, max_nodes: int = 0):
+        if ngram_min < 1 or ngram_max < ngram_min:
+            raise ValueError("need ngram_max >= ngram_min >= 1")
+        self.depth = depth
+        self.ngram_max = ngram_max
+        self.ngram_min = ngram_min
+        self.branches = max(1, branches)
+        self.max_nodes = max_nodes
+
+    def _chains(self, tokens: list[int], depth: int,
+                branches: int | None = None) -> list[list[int]]:
+        limit = self.branches if branches is None else max(1, branches)
+        out: list[list[int]] = []
+        seen_first: set[int] = set()
+        n = len(tokens)
+        for g in range(self.ngram_max, self.ngram_min - 1, -1):
+            if n <= g:
+                continue
+            tail = tokens[-g:]
+            for i in range(n - g - 1, -1, -1):
+                if tokens[i:i + g] != tail:
+                    continue
+                cont = tokens[i + g:i + g + depth]
+                # distinct first tokens only: two chains agreeing on the
+                # first candidate would mostly duplicate verify slots
+                if not cont or cont[0] in seen_first:
+                    continue
+                seen_first.add(cont[0])
+                out.append(cont)
+                if len(out) >= limit:
+                    return out
+        return out
+
+    def propose(self, requests: dict[int, tuple[list[int], int]]
+                ) -> dict[int, SpecTree]:
+        """``{uid: (token_history, depth)}`` → ``{uid: SpecTree}``."""
+        out = {}
+        for uid, (tokens, depth) in requests.items():
+            chains = self._chains(list(tokens), min(depth, self.depth)) \
+                if depth > 0 else []
+            out[uid] = build_tree(tokens[-1], chains, self.max_nodes)
+        return out
+
+    def probe(self, requests: dict[int, tuple[list[int], int]]) -> bool:
+        """Cheap advisory miss-check (same contract as :meth:`propose`,
+        no trees built): True iff ANY sequence would propose at least one
+        candidate. Existence only: the backward scan stops at the FIRST
+        matching continuation (depth-1, single branch)."""
+        return any(depth > 0 and self._chains(list(tokens), 1, branches=1)
+                   for tokens, depth in requests.values())
+
+    # lifecycle no-ops (the draft proposer needs them; callers don't care)
+    def admit(self, uid: int, tokens: list[int], budget: int) -> None:
+        pass
+
+    def release(self, uid: int) -> None:
+        pass
+
+
+class DraftModelProposer:
+    """Draft-model proposer: a small model served by its OWN engine —
+    its own paged KV pool, allocator, and scheduler — inside the same
+    process. Each target sequence keeps a mirror in the draft engine;
+    every proposal round the mirror is REWOUND to the target's committed
+    history (``StateManager.rewind`` — the accepted/rejected decision is
+    ground truth, and the draft's KV for the surviving prefix stays
+    valid), then the draft greedy-decodes ``depth`` tokens; all live
+    mirrors batch through the same draft decode steps.
+
+    The draft engine is built by ``engine_v2`` (same block size, plain
+    decode steps, no prefix cache) and handed in here — this class never
+    constructs engines, so the module stays import-cycle-free."""
+
+    def __init__(self, engine):
+        self.engine = engine
+        self._mirrors: set[int] = set()
+
+    def admit(self, uid: int, tokens: list[int], budget: int) -> None:
+        """Mirror a target admit. ``budget`` must cover the target's FULL
+        generation budget plus the draft overhang (engine_v2 sizes it):
+        rewind never reallocates, so the reservation is made once, here.
+        A refused admit (draft pool exhausted) just means this uid
+        proposes empty trees — plain decode, never an error."""
+        eng = self.engine
+        if not eng.state.can_admit(len(tokens), budget):
+            return
+        eng.put(uid, list(tokens), budget, eos_token_id=None)
+        self._mirrors.add(uid)
+
+    def release(self, uid: int) -> None:
+        if uid in self._mirrors:
+            self._mirrors.discard(uid)
+            self.engine.flush(uid)
+
+    def probe(self, requests: dict[int, tuple[list[int], int]]) -> bool:
+        """A live mirror always drafts: True iff any requested uid has a
+        mirror and a non-zero depth."""
+        return any(uid in self._mirrors and depth > 0
+                   for uid, (_, depth) in requests.items())
+
+    def propose(self, requests: dict[int, tuple[list[int], int]]
+                ) -> dict[int, SpecTree]:
+        eng = self.engine
+        base: dict[int, int] = {}
+        want: dict[int, int] = {}
+        max_depth = 0
+        for uid, (tokens, depth) in requests.items():
+            if uid not in self._mirrors or depth <= 0:
+                continue
+            eng.state.rewind(uid, list(tokens))
+            base[uid] = len(tokens)
+            want[uid] = depth
+            max_depth = max(max_depth, depth)
+
+        def short(uid: int) -> bool:
+            seq = eng.state.seqs.get(uid)
+            return (seq is not None and not seq.done
+                    and len(seq.tokens) - base[uid] < want[uid])
+
+        # a rewound mirror may owe a short prefill chunk (the bonus token
+        # the target accepted last round) before it decodes — bound the
+        # loop by depth plus that slack, never by "until done"
+        steps = 0
+        while any(short(uid) for uid in base) and steps < 2 * max_depth + 4:
+            eng.step()
+            steps += 1
+
+        out = {}
+        for uid, (tokens, depth) in requests.items():
+            chain: list[int] = []
+            if uid in base:
+                mirror = eng.state.seqs.get(uid)
+                if mirror is not None:
+                    chain = mirror.tokens[base[uid]:base[uid] + want[uid]]
+            out[uid] = build_tree(tokens[-1], [chain] if chain else [])
+        return out

@@ -1,19 +1,29 @@
 // Ragged paged attention over a read-only KV pool plus a staged tail (K1).
 //
 // Replaces the TPU kernel `_ragged_attn_kernel` of
-// deepspeed_tpu/ops/pallas/paged_attention.py (entry `paged_ragged_attention`),
-// in its default form (no sliding window, no rolling ring, one pool page per
-// step, no tree-verify mask) over a pool of q's dtype (bf16 or fp32) or of
-// e4m3 codes.
+// deepspeed_tpu/ops/pallas/paged_attention.py (entry `paged_ragged_attention`)
+// with all its options: the sliding window, the rolling ring table and the
+// tree-verify mask, over a pool of q's dtype (bf16 or fp32) or of e4m3 codes
+// (`page_group` is a TPU grid-step knob: no arithmetic of this walk
+// depends on it).
 //
 // What it computes, for each slot s, KV head h and query row r = t*G + g
-// (query head h*G + g of chunk token t, at position qpos = q_starts[s] + t):
-// one online softmax over two key sources,
-//   1. the pool, key positions c < stage_starts[s]: page block_tables[s, c/bs]
-//      of layer `layer_index`, half 0 (K) / 1 (V), offset c % bs;
-//   2. the stage, key positions stage_starts[s] + i for stage row i, valid
-//      while < seq_lens[s];
-// masked by c <= qpos. Running max m, sum l and accumulator acc are fp32;
+// (query head h*G + g of chunk token t, at position qpos = q_starts[s] + t,
+// or tree_pos[s, t] in tree mode): one online softmax over two key sources,
+//   1. the pool, table column j: page block_tables[s, j/bs] of layer
+//      `layer_index`, half 0 (K) / 1 (V), offset j % bs. Column j holds key
+//      position j, valid below stage_starts[s]; under a rolling ring
+//      (`ring_tokens`) it holds the newest block b_j = b_latest -
+//      (b_latest - j/bs) mod nwin, b_latest = max(stage_starts-1, 0)/bs, at
+//      raw position b_j*bs + j%bs, minus ring_tokens where that is at or past
+//      stage_starts, invalid where < 0;
+//   2. the stage, stage row i at key position stage_starts[s] + i, valid
+//      while < seq_lens[s]; in tree mode stage row i is tree node i, visible
+//      to node t where tree_mask[s, t, i] != 0 (rows past T never).
+// Keys are masked by position c <= qpos and, with a `window`, c > qpos -
+// window (tree-mode stage columns take the tree mask alone, as the TPU
+// kernel does: siblings share a position). Running max m, sum l and
+// accumulator acc are fp32;
 // scores are the fp32 dot times `scale`; p is rounded to V's dtype before the
 // PV product while l sums the unrounded p (the TPU kernel's numerics). The
 // output is acc / l, or zeros for a row that saw no key (an empty slot).
@@ -46,7 +56,18 @@
 //   tile and the score tile sit in shared memory (K rows padded so a warp
 //   reading 32 rows at one column hits 32 banks).
 // - Keys past a tile's last query position and past seq_lens are never
-//   loaded, so a chunk reads only the causal triangle it needs.
+//   loaded, so a chunk reads only the causal triangle it needs; with a
+//   window, pool and stage tiles wholly before the block's lowest visible
+//   position are skipped (the walk starts at a multiple of 64 columns, so
+//   the e4m3 form's rounding max per tile stays the plain version's), and a
+//   ring tile whose keys no row sees is skipped whole. Every key's position
+//   is computed once per tile into shared memory; keys no row of the block
+//   sees are not loaded.
+// - The ring is walked in table order (column 0 up), never in position
+//   order: the e4m3 form rounds p against the running max of the walk.
+// - Tree mode walks every stage row below T whenever seq_lens[s] > 0 (a
+//   branchy tree has more nodes than its depth, so seq_lens undercounts
+//   them); the mask is read from device memory, a byte per (node, node).
 // A split-K (flash-decoding) grid, cp.async/TMA double buffering and wgmma
 // are later work; this form is the simple, correct one.
 //
@@ -58,6 +79,7 @@
 #include <cuda_fp16.h>
 #include <cuda_fp8.h>
 #include <cuda_runtime.h>
+#include <limits.h>
 #include <math.h>
 #include <stdint.h>
 
@@ -68,6 +90,7 @@ namespace {
 constexpr int kThreads = 128;   // 4 warps
 constexpr int kRows = 16;       // query rows per block
 constexpr int kKeys = 64;       // key positions per tile
+constexpr int kInvalid = INT_MIN;   // a key no row of the block sees
 
 __device__ __forceinline__ float to_f(float x) { return x; }
 __device__ __forceinline__ float to_f(__nv_bfloat16 x) {
@@ -123,10 +146,13 @@ struct Smem {
         size_t(FP8 ? 2 : 1) * kRows * D * sizeof(float);
     static constexpr size_t sc_bytes = size_t(kRows) * kKeys * sizeof(float);
     static constexpr size_t stat_bytes = 3 * kRows * sizeof(float);
+    // each query row's position and each key of the tile's (16-byte sum)
+    static constexpr size_t pos_bytes = size_t(kRows + kKeys) * sizeof(int);
     static constexpr size_t v_bytes = size_t(kKeys) * D * sizeof(T);
     static constexpr size_t k_bytes = size_t(kKeys) * kStride * sizeof(T);
-    static constexpr size_t total =
-        q_bytes + sc_bytes + stat_bytes + v_bytes + k_bytes;
+    static constexpr size_t head =
+        q_bytes + sc_bytes + stat_bytes + pos_bytes;   // v_s starts here
+    static constexpr size_t total = head + v_bytes + k_bytes;
 };
 
 // two neighbouring elements of a shared-memory row as floats, one 4-byte
@@ -139,12 +165,19 @@ __device__ __forceinline__ float2 load_pair(const __nv_bfloat16* p) {
 }
 
 // scores of one tile: thread owns key j = tid % kKeys and rows
-// sr + i*SSTEP (sr = tid / kKeys) for i < NR; masked entries are -inf
+// sr + i*SSTEP (sr = tid / kKeys) for i < NR; masked entries are -inf.
+// Row ri sees key j where kpos_s[j] <= qpos_s[ri] (and > qpos_s[ri] -
+// window with a window), or — for a tree-mode stage tile, `tmask` the
+// slot's [T, T] mask and `col0` the tile's first stage row — where
+// tmask[t, col0 + j] is set for the row's node t.
 template <typename T, int D, int NR>
 __device__ __forceinline__ void tile_scores(const float* q_s, const T* k_s,
-                                            float* sc, int nrows, int len,
-                                            int c_begin, int qstart, int row0,
-                                            int G, float scale) {
+                                            float* sc, int nrows,
+                                            const int* qpos_s,
+                                            const int* kpos_s, int window,
+                                            const uint8_t* tmask, int T_,
+                                            int col0, int row0, int G,
+                                            float scale) {
     constexpr int SSTEP = kThreads / kKeys;
     constexpr int KS = D + Pad<T>::value;
     const int tid = threadIdx.x;
@@ -164,12 +197,18 @@ __device__ __forceinline__ void tile_scores(const float* q_s, const T* k_s,
             dot[i] = fmaf(qq.y, kk.y, dot[i]);
         }
     }
-    const int c = c_begin + j;
+    const int kp = kpos_s[j];
 #pragma unroll
     for (int i = 0; i < kRows / SSTEP; ++i) {
         const int ri = sr + i * SSTEP;
-        const bool ok = i < NR && ri < nrows && j < len &&
-                        c <= qstart + (row0 + ri) / G;
+        bool ok = i < NR && ri < nrows && kp != kInvalid;
+        if (ok && tmask != nullptr) {
+            const int col = col0 + j;
+            ok = col < T_ && tmask[((row0 + ri) / G) * T_ + col] != 0;
+        } else if (ok) {
+            const int qp = qpos_s[ri];
+            ok = kp <= qp && (window <= 0 || kp > qp - window);
+        }
         sc[ri * kKeys + j] = ok ? dot[i < NR ? i : 0] * scale : -INFINITY;
     }
 }
@@ -218,8 +257,11 @@ ragged_paged_attn_kernel(const T* __restrict__ q,
                          const int* __restrict__ seq_lens,
                          const int* __restrict__ q_starts,
                          const int* __restrict__ stage_starts,
+                         const int* __restrict__ tree_pos,
+                         const uint8_t* __restrict__ tree_mask,
                          T* __restrict__ out, int T_, int H, int KV, int nb,
-                         int bs, int Ts, int max_pages, int layer, float scale) {
+                         int bs, int Ts, int max_pages, int layer, float scale,
+                         int window, int ring_tokens) {
     using S = Smem<T, FP8, D>;
     using P = std::conditional_t<FP8, uint8_t, T>;
     constexpr int VEC = 16 / sizeof(T);          // elements per 16-byte load
@@ -238,10 +280,10 @@ ragged_paged_attn_kernel(const T* __restrict__ q,
     float* m_s = reinterpret_cast<float*>(smem + S::q_bytes + S::sc_bytes);
     float* l_s = m_s + kRows;
     float* a_s = l_s + kRows;
-    T* v_s = reinterpret_cast<T*>(smem + S::q_bytes + S::sc_bytes +
-                                  S::stat_bytes);
-    T* k_s = reinterpret_cast<T*>(smem + S::q_bytes + S::sc_bytes +
-                                  S::stat_bytes + S::v_bytes);
+    int* qpos_s = reinterpret_cast<int*>(a_s + kRows);
+    int* kpos_s = qpos_s + kRows;
+    T* v_s = reinterpret_cast<T*>(smem + S::head);
+    T* k_s = reinterpret_cast<T*>(smem + S::head + S::v_bytes);
 
     const int tid = threadIdx.x;
     const int h = blockIdx.y;
@@ -250,12 +292,11 @@ ragged_paged_attn_kernel(const T* __restrict__ q,
     const int TG = T_ * G;
     const int row0 = blockIdx.x * kRows;
     const int nrows = min(kRows, TG - row0);
+    const bool tree = tree_pos != nullptr;
 
     const int seq_len = seq_lens[s];
     const int qstart = q_starts[s];
     const int sstart = stage_starts[s];
-    // the last query position of this tile bounds every key it can see
-    const int qmax = qstart + (row0 + nrows - 1) / G;
 
     // ---- q tile -> shared (fp32), rows t*G + g of head h*G + g ----------
     for (int idx = tid; idx < kRows * VPR; idx += kThreads) {
@@ -287,6 +328,12 @@ ragged_paged_attn_kernel(const T* __restrict__ q,
         m_s[tid] = -INFINITY;
         l_s[tid] = 0.f;
         a_s[tid] = 1.f;
+        int qp = 0;
+        if (tid < nrows) {
+            const int t = (row0 + tid) / G;
+            qp = tree ? tree_pos[size_t(s) * T_ + t] : qstart + t;
+        }
+        qpos_s[tid] = qp;
     }
 
     // PV accumulators: thread owns columns c0 + j*COLS, rows rg + i*RSTEP
@@ -297,13 +344,42 @@ ragged_paged_attn_kernel(const T* __restrict__ q,
 #pragma unroll
         for (int j = 0; j < CPT; ++j) acc[i][j] = 0.f;
 
-    // two key sources, walked in order: pool [0, pool_end), stage
-    // [sstart, stage_end); both clipped to the tile's last query position
-    // (and to the block table's width: positions past it have no page)
-    const int pool_end =
-        seq_len > 0 ? min(min(sstart, qmax + 1), max_pages * bs) : 0;
-    const int stage_end =
-        seq_len > 0 ? min(min(seq_len, sstart + Ts), qmax + 1) : 0;
+    __syncthreads();
+    // the block's lowest and highest query positions bound every key it
+    // can see: keys in [qmin - window + 1, qmax] (no lower bound without a
+    // window)
+    int qmin = INT_MAX, qmax = INT_MIN;
+    for (int i = 0; i < nrows; ++i) {
+        qmin = min(qmin, qpos_s[i]);
+        qmax = max(qmax, qpos_s[i]);
+    }
+    const int kmin = window > 0 ? qmin - window + 1 : INT_MIN;
+
+    // two key sources, walked in order: pool table columns [pool_lo,
+    // pool_hi), stage rows [st_lo, st_hi). A linear table is clipped to
+    // the block's last query position (and the table's width: positions
+    // past it have no page) and, with a window, starts at the 64-column
+    // tile holding its first visible position; a ring is walked whole, in
+    // table order. A tree stage is every node row; otherwise the stage is
+    // clipped like the pool.
+    const bool ring = ring_tokens > 0;
+    int pool_lo = 0, pool_hi = 0, st_lo = 0, st_hi = 0;
+    if (seq_len > 0) {
+        if (ring) {
+            pool_hi = sstart > 0 ? max_pages * bs : 0;
+        } else {
+            pool_hi = min(min(sstart, qmax + 1), max_pages * bs);
+            if (window > 0) pool_lo = max(0, kmin) / kKeys * kKeys;
+        }
+        if (tree) {
+            st_hi = min(T_, Ts);
+        } else {
+            st_hi = min(min(seq_len, sstart + Ts), qmax + 1) - sstart;
+            if (window > 0) st_lo = max(0, kmin - sstart) / kKeys * kKeys;
+        }
+    }
+    const int nwin = ring ? ring_tokens / bs : 1;
+    const int b_latest = max(sstart - 1, 0) / bs;
     const size_t page_elems = size_t(bs) * D;
     const size_t half_elems = size_t(KV) * nb * page_elems;
     const P* k_pool = pool + (size_t(layer) * 2 * KV + h) * nb * page_elems;
@@ -311,24 +387,55 @@ ragged_paged_attn_kernel(const T* __restrict__ q,
     const T* k_st = k_stage + (size_t(s) * KV + h) * Ts * D;
     const T* v_st = v_stage + (size_t(s) * KV + h) * Ts * D;
     const int* table = block_tables + size_t(s) * max_pages;
+    const uint8_t* tmask =
+        tree ? tree_mask + size_t(s) * T_ * T_ : nullptr;
 
-    const int n_pool_tiles = (pool_end + kKeys - 1) / kKeys;
+    const int n_pool_tiles =
+        pool_hi > pool_lo ? (pool_hi - pool_lo + kKeys - 1) / kKeys : 0;
     const int n_stage_tiles =
-        stage_end > sstart ? (stage_end - sstart + kKeys - 1) / kKeys : 0;
-    __syncthreads();
+        st_hi > st_lo ? (st_hi - st_lo + kKeys - 1) / kKeys : 0;
 
     for (int tile = 0; tile < n_pool_tiles + n_stage_tiles; ++tile) {
         const bool in_pool = tile < n_pool_tiles;
-        const int c_begin =
-            in_pool ? tile * kKeys : sstart + (tile - n_pool_tiles) * kKeys;
-        const int c_end = in_pool ? pool_end : stage_end;
-        const int len = min(kKeys, c_end - c_begin);
+        // the tile's first table column (pool) or stage row (stage)
+        const int c_begin = in_pool ? pool_lo + tile * kKeys
+                                    : st_lo + (tile - n_pool_tiles) * kKeys;
+        const int len = min(kKeys, (in_pool ? pool_hi : st_hi) - c_begin);
 
-        // ---- K/V tile -> shared; keys past `len` are zero-filled ---------
+        // ---- each key's position; kInvalid where no row of the block sees
+        // it (those keys are never loaded) -----------------------------------
+        int seen = 0;
+        if (tid < kKeys) {
+            const int c = c_begin + tid;
+            int kp = kInvalid;
+            if (tid < len) {
+                if (!in_pool) {
+                    kp = sstart + c;
+                } else if (!ring) {
+                    kp = c;                        // c < sstart by pool_hi
+                } else {
+                    int back = (b_latest - c / bs) % nwin;
+                    if (back < 0) back += nwin;    // floor mod
+                    const int b_j = b_latest - back;
+                    const int raw = b_j * bs + c % bs;
+                    const int p = raw < sstart ? raw : raw - ring_tokens;
+                    if (b_j >= 0 && p >= 0) kp = p;
+                }
+                // a tree stage row's visibility is its mask column's
+                if (kp != kInvalid && !(tree && !in_pool) &&
+                    (kp > qmax || kp < kmin))
+                    kp = kInvalid;
+            }
+            kpos_s[tid] = kp;
+            seen = kp != kInvalid;
+        }
+        if (!__syncthreads_or(seen)) continue;   // uniform: the whole block
+
+        // ---- K/V tile -> shared; keys no row sees are zero-filled ---------
         for (int idx = tid; idx < kKeys * VPR; idx += kThreads) {
             const int j = idx / VPR, dv = (idx % VPR) * VEC;
             uint4 kr = make_uint4(0, 0, 0, 0), vr = make_uint4(0, 0, 0, 0);
-            if (j < len) {
+            if (kpos_s[j] != kInvalid) {
                 const int c = c_begin + j;
                 if (in_pool) {
                     const size_t off = size_t(table[c / bs]) * page_elems +
@@ -341,7 +448,7 @@ ragged_paged_attn_kernel(const T* __restrict__ q,
                         vr = *reinterpret_cast<const uint4*>(v_pool + off);
                     }
                 } else {
-                    const size_t off = size_t(c - sstart) * D + dv;
+                    const size_t off = size_t(c) * D + dv;
                     kr = *reinterpret_cast<const uint4*>(k_st + off);
                     vr = *reinterpret_cast<const uint4*>(v_st + off);
                 }
@@ -362,19 +469,20 @@ ragged_paged_attn_kernel(const T* __restrict__ q,
         // the e4m3-rounded q
         {
             const float* qt = (FP8 && in_pool) ? q8_s : q_s;
+            const uint8_t* tm = in_pool ? nullptr : tmask;
             const int nr = (nrows + SSTEP - 1) / SSTEP;
+#define DS_K1_SCORES(NR)                                                   \
+    tile_scores<T, D, NR>(qt, k_s, sc, nrows, qpos_s, kpos_s, window, tm, \
+                          T_, c_begin, row0, G, scale)
             if (nr <= 1)
-                tile_scores<T, D, 1>(qt, k_s, sc, nrows, len, c_begin, qstart,
-                                     row0, G, scale);
+                DS_K1_SCORES(1);
             else if (nr <= 2)
-                tile_scores<T, D, 2>(qt, k_s, sc, nrows, len, c_begin, qstart,
-                                     row0, G, scale);
+                DS_K1_SCORES(2);
             else if (nr <= 4)
-                tile_scores<T, D, 4>(qt, k_s, sc, nrows, len, c_begin, qstart,
-                                     row0, G, scale);
+                DS_K1_SCORES(4);
             else
-                tile_scores<T, D, SRPT>(qt, k_s, sc, nrows, len, c_begin,
-                                        qstart, row0, G, scale);
+                DS_K1_SCORES(SRPT);
+#undef DS_K1_SCORES
         }
         __syncthreads();
 
@@ -454,13 +562,19 @@ ragged_paged_attn_kernel(const T* __restrict__ q,
     }
 }
 
+// the launch's arguments past the pool's element type and head dim
+struct Args {
+    const void *q, *pool, *k_stage, *v_stage;
+    const int *block_tables, *seq_lens, *q_starts, *stage_starts, *tree_pos;
+    const uint8_t* tree_mask;
+    void* out;
+    int n_seqs, n_rows, H, KV, nb, bs, Ts, max_pages, layer;
+    float scale;
+    int window, ring_tokens;
+};
+
 template <typename T, bool FP8, int D>
-cudaError_t launch(const void* q, const void* pool, const void* k_stage,
-                   const void* v_stage, const int* block_tables,
-                   const int* seq_lens, const int* q_starts,
-                   const int* stage_starts, void* out, int S_, int T_, int H,
-                   int KV, int nb, int bs, int Ts, int max_pages, int layer,
-                   float scale, cudaStream_t stream) {
+cudaError_t launch(const Args& a, cudaStream_t stream) {
     using P = std::conditional_t<FP8, uint8_t, T>;
     auto kernel = ragged_paged_attn_kernel<T, FP8, D>;
     constexpr size_t smem = Smem<T, FP8, D>::total;
@@ -471,74 +585,68 @@ cudaError_t launch(const void* q, const void* pool, const void* k_stage,
         if (err != cudaSuccess) return err;
         configured = true;
     }
-    const int TG = T_ * (H / KV);
-    dim3 grid((TG + kRows - 1) / kRows, KV, S_);
+    const int TG = a.n_rows * (a.H / a.KV);
+    dim3 grid((TG + kRows - 1) / kRows, a.KV, a.n_seqs);
     kernel<<<grid, kThreads, smem, stream>>>(
-        static_cast<const T*>(q), static_cast<const P*>(pool),
-        static_cast<const T*>(k_stage), static_cast<const T*>(v_stage),
-        block_tables, seq_lens, q_starts, stage_starts, static_cast<T*>(out),
-        T_, H, KV, nb, bs, Ts, max_pages, layer, scale);
+        static_cast<const T*>(a.q), static_cast<const P*>(a.pool),
+        static_cast<const T*>(a.k_stage), static_cast<const T*>(a.v_stage),
+        a.block_tables, a.seq_lens, a.q_starts, a.stage_starts, a.tree_pos,
+        a.tree_mask, static_cast<T*>(a.out), a.n_rows, a.H, a.KV, a.nb, a.bs,
+        a.Ts, a.max_pages, a.layer, a.scale, a.window, a.ring_tokens);
     return cudaGetLastError();
 }
 
 template <typename T, bool FP8>
-cudaError_t dispatch_d(int D, const void* q, const void* pool,
-                       const void* k_stage, const void* v_stage,
-                       const int* block_tables, const int* seq_lens,
-                       const int* q_starts, const int* stage_starts, void* out,
-                       int S_, int T_, int H, int KV, int nb, int bs, int Ts,
-                       int max_pages, int layer, float scale,
-                       cudaStream_t stream) {
-#define DS_K1_CASE(DV)                                                      \
-    case DV:                                                                \
-        return launch<T, FP8, DV>(q, pool, k_stage, v_stage, block_tables,       \
-                             seq_lens, q_starts, stage_starts, out, S_, T_, \
-                             H, KV, nb, bs, Ts, max_pages, layer, scale,    \
-                             stream);
+cudaError_t dispatch_d(int D, const Args& a, cudaStream_t stream) {
     switch (D) {
-        DS_K1_CASE(64)
-        DS_K1_CASE(128)
-        DS_K1_CASE(256)
+        case 64:
+            return launch<T, FP8, 64>(a, stream);
+        case 128:
+            return launch<T, FP8, 128>(a, stream);
+        case 256:
+            return launch<T, FP8, 256>(a, stream);
         default:
             return cudaErrorInvalidValue;
     }
-#undef DS_K1_CASE
 }
 
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16 (of q, the stage and out); pool_e4m3: 0
-// = the pool has q's dtype, 1 = the pool holds e4m3 codes. Returns the
-// cudaError_t of the launch (0 = success); the launch is asynchronous on
-// `stream`.
+// = the pool has q's dtype, 1 = the pool holds e4m3 codes. window: 0 = no
+// sliding window; ring_tokens: 0 = a linear block table, else the ring's
+// tokens (a multiple of bs; needs a window). tree_pos [S, T] int32 and
+// tree_mask [S, T, T] uint8 are null outside tree mode (T <= Ts there).
+// Returns the cudaError_t of the launch (0 = success); the launch is
+// asynchronous on `stream`.
 extern "C" int ds_ragged_paged_attention(
         const void* q, const void* pool, const void* k_stage,
         const void* v_stage, const void* block_tables, const void* seq_lens,
-        const void* q_starts, const void* stage_starts, void* out, int S_,
-        int T_, int H, int KV, int D, int nb, int bs, int Ts, int max_pages,
-        int layer, float scale, int dtype, int pool_e4m3, void* stream) {
+        const void* q_starts, const void* stage_starts, const void* tree_pos,
+        const void* tree_mask, void* out, int S_, int T_, int H, int KV,
+        int D, int nb, int bs, int Ts, int max_pages, int layer, float scale,
+        int window, int ring_tokens, int dtype, int pool_e4m3, void* stream) {
     if (S_ == 0 || T_ == 0) return 0;
-    if (KV <= 0 || H % KV != 0) return int(cudaErrorInvalidValue);
+    if (KV <= 0 || H % KV != 0 || bs <= 0) return int(cudaErrorInvalidValue);
+    if (ring_tokens && (window <= 0 || ring_tokens % bs != 0))
+        return int(cudaErrorInvalidValue);
+    if ((tree_pos == nullptr) != (tree_mask == nullptr) ||
+        (tree_pos != nullptr && T_ > Ts))
+        return int(cudaErrorInvalidValue);
+    const Args a{q, pool, k_stage, v_stage,
+                 static_cast<const int*>(block_tables),
+                 static_cast<const int*>(seq_lens),
+                 static_cast<const int*>(q_starts),
+                 static_cast<const int*>(stage_starts),
+                 static_cast<const int*>(tree_pos),
+                 static_cast<const uint8_t*>(tree_mask), out, S_, T_, H, KV,
+                 nb, bs, Ts, max_pages, layer, scale, window, ring_tokens};
     auto st = static_cast<cudaStream_t>(stream);
-    auto bt = static_cast<const int*>(block_tables);
-    auto sl = static_cast<const int*>(seq_lens);
-    auto qs = static_cast<const int*>(q_starts);
-    auto ss = static_cast<const int*>(stage_starts);
-#define DS_K1_DTYPE(TYPE, FP8)                                                \
-    dispatch_d<TYPE, FP8>(D, q, pool, k_stage, v_stage, bt, sl, qs, ss, out, \
-                          S_, T_, H, KV, nb, bs, Ts, max_pages, layer, scale, \
-                          st)
-    cudaError_t err;
     if (dtype == 0 && !pool_e4m3)
-        err = DS_K1_DTYPE(float, false);
-    else if (dtype == 0)
-        err = DS_K1_DTYPE(float, true);
-    else if (dtype == 1 && !pool_e4m3)
-        err = DS_K1_DTYPE(__nv_bfloat16, false);
-    else if (dtype == 1)
-        err = DS_K1_DTYPE(__nv_bfloat16, true);
-    else
-        err = cudaErrorInvalidValue;
-#undef DS_K1_DTYPE
-    return int(err);
+        return int(dispatch_d<float, false>(D, a, st));
+    if (dtype == 0) return int(dispatch_d<float, true>(D, a, st));
+    if (dtype == 1 && !pool_e4m3)
+        return int(dispatch_d<__nv_bfloat16, false>(D, a, st));
+    if (dtype == 1) return int(dispatch_d<__nv_bfloat16, true>(D, a, st));
+    return int(cudaErrorInvalidValue);
 }

@@ -106,9 +106,10 @@ def _declare(name: str, lib: ctypes.CDLL) -> None:
     if name == "paged_attention":
         fn = lib.ds_ragged_paged_attention
         # q, pool, k_stage, v_stage, block_tables, seq_lens, q_starts,
-        # stage_starts, out; S, T, H, KV, D, nb, bs, Ts, max_pages, layer;
-        # scale; dtype, pool_e4m3; stream
-        fn.argtypes = [p] * 9 + [i] * 10 + [ctypes.c_float, i, i, p]
+        # stage_starts, tree_pos, tree_mask, out; S, T, H, KV, D, nb, bs,
+        # Ts, max_pages, layer; scale; window, ring_tokens, dtype,
+        # pool_e4m3; stream
+        fn.argtypes = [p] * 11 + [i] * 10 + [ctypes.c_float] + [i] * 4 + [p]
         fn.restype = i
     elif name == "quant_matmul":
         fn = lib.ds_quant_matmul

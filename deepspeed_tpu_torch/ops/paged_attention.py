@@ -6,24 +6,24 @@ layouts: q ``[S, T, H, D]``, pool ``[L, 2, KV, nb, bs, D]``, stage
 ``[S, KV, Ts, D]``, output ``[S, T, H, D]``.
 
 - On CUDA tensors, :func:`paged_ragged_attention` launches the hand-written
-  Hopper kernel (``csrc/paged_attention.cu``) or raises; it never switches to
-  the plain version.
+  Hopper kernel (``csrc/paged_attention.cu``) with every option — sliding
+  window, rolling ring table, tree-verify mask — or raises; it never
+  switches to the plain version.
 - On CPU tensors it runs :func:`paged_ragged_attention_reference`, the plain
   PyTorch version: the gather formulation of the JAX engine
-  (``engine_v2._ragged_forward``), which also defines the options the kernel
-  does not take yet (sliding window, rolling ring, tree-verify mask).
+  (``engine_v2._ragged_forward``).
 
 An e4m3 pool (``kv_cache_dtype="fp8"``) is served by the kernel and the
 plain version alike with the Pallas kernel's algebra for it: q rounded to
 e4m3 against pool keys, p scaled by 448 and rounded to e4m3 against pool
 values (see :func:`paged_ragged_attention_reference`).
 
-``counts`` holds the launches of each route, so a run can show that its
-main path went through the kernel.
+``counts`` holds the launches of each route and form, so a run can show
+that its main path went through the kernel, in the form it needed.
 """
 from __future__ import annotations
 
-from dataclasses import dataclass
+from dataclasses import dataclass, fields
 
 import torch
 
@@ -32,18 +32,24 @@ from .quant_matmul import E4M3_MAX, to_e4m3
 
 @dataclass
 class LaunchCounts:
-    """Calls of :func:`paged_ragged_attention` by route: ``kernel`` counts
-    launches of the CUDA kernel over a pool of q's dtype, ``kernel_e4m3``
-    its launches over an e4m3 pool, ``plain`` the CPU route through the
-    plain version."""
+    """Calls of :func:`paged_ragged_attention` by route and form.
+
+    ``kernel`` counts launches of the CUDA kernel over a pool of q's dtype
+    and ``kernel_e4m3`` its launches over an e4m3 pool — every launch is in
+    one of the two. ``kernel_window``, ``kernel_ring`` and ``kernel_tree``
+    count the launches (of either pool) that took the sliding window, the
+    rolling ring table (always with a window) and the tree-verify mask.
+    ``plain`` counts the CPU route through the plain version."""
     kernel: int = 0
     kernel_e4m3: int = 0
+    kernel_window: int = 0
+    kernel_ring: int = 0
+    kernel_tree: int = 0
     plain: int = 0
 
     def reset(self) -> None:
-        self.kernel = 0
-        self.kernel_e4m3 = 0
-        self.plain = 0
+        for f in fields(self):
+            setattr(self, f.name, 0)
 
 
 counts = LaunchCounts()
@@ -66,6 +72,65 @@ def paged_attention_usable(num_heads: int, kv_heads: int, head_dim: int,
 
 def _i32(x, device) -> torch.Tensor:
     return torch.as_tensor(x, device=device).to(torch.int32).contiguous()
+
+
+def key_visibility(block_tables, seq_lens, q_starts, stage_starts, *,
+                   T: int, Ts: int, block_size: int,
+                   window: int | None = None, ring_tokens: int | None = None,
+                   tree_positions=None, tree_mask=None):
+    """Where each key sits and which query sees it, over the C = max_pages *
+    block_size pool columns (table order) followed by the Ts stage rows.
+    Returns ``(cpos [S, C], qpos [S, T], mask [S, T, C])`` on the tables'
+    device: key positions, query positions and visibility.
+
+    Pool column j holds position j, valid below ``stage_starts``; with
+    ``ring_tokens`` the table is a ring of ``ring_tokens // block_size``
+    pages and column j holds the newest block b with b % nwin == j //
+    block_size, its offsets at or past ``stage_starts`` being the previous
+    wrap. Stage row i sits at ``stage_starts + i``, valid below
+    ``seq_lens`` — in tree mode it is node i at ``tree_positions[:, i]``,
+    and ``tree_mask`` alone decides who sees it. Keys are visible at
+    position <= the query's (and > the query's - ``window``)."""
+    dev = block_tables.device
+    bs = block_size
+    S = block_tables.shape[0]
+    ctx = block_tables.shape[1] * bs
+    sstart = stage_starts.to(device=dev, dtype=torch.long)[:, None]   # [S,1]
+    lens = seq_lens.to(device=dev, dtype=torch.long)[:, None]
+    jidx = torch.arange(ctx, device=dev)[None, :]
+    if ring_tokens:
+        # rolling table: slot j holds the newest block b with b % nwin == j
+        nwin = ring_tokens // bs
+        b_latest = torch.clamp(sstart - 1, min=0) // bs
+        b_j = b_latest - torch.remainder(b_latest - jidx // bs, nwin)
+        raw = b_j * bs + jidx % bs
+        cpos_pool = torch.where(raw < sstart, raw, raw - ring_tokens)
+        valid_pool = cpos_pool >= 0
+    else:
+        cpos_pool = jidx.expand(S, ctx)
+        valid_pool = cpos_pool < sstart
+    if tree_positions is not None:
+        qpos = tree_positions.to(device=dev, dtype=torch.long)     # [S, T]
+        # stage rows are the nodes: their positions are the nodes' own
+        cpos_st = torch.nn.functional.pad(qpos, (0, Ts - T))
+    else:
+        qpos = (q_starts.to(device=dev, dtype=torch.long)[:, None]
+                + torch.arange(T, device=dev)[None, :])
+        cpos_st = sstart + torch.arange(Ts, device=dev)[None, :]   # [S, Ts]
+    cpos = torch.cat([cpos_pool, cpos_st], dim=1)                  # [S, C]
+    mask = valid_pool[:, None, :] & (cpos_pool[:, None, :] <= qpos[:, :, None])
+    if window:
+        mask &= cpos_pool[:, None, :] > qpos[:, :, None] - window
+    if tree_positions is not None:
+        tm = tree_mask.to(device=dev).bool()                       # [S, T, T]
+        st_mask = torch.zeros(S, T, Ts, dtype=torch.bool, device=dev)
+        st_mask[:, :, :T] = tm
+    else:
+        st_mask = ((cpos_st < lens)[:, None, :]
+                   & (cpos_st[:, None, :] <= qpos[:, :, None]))
+        if window:
+            st_mask &= cpos_st[:, None, :] > qpos[:, :, None] - window
+    return cpos, qpos, torch.cat([mask, st_mask], dim=2)
 
 
 def paged_ragged_attention_reference(q, pool, k_stage, v_stage, block_tables,
@@ -97,11 +162,9 @@ def paged_ragged_attention_reference(q, pool, k_stage, v_stage, block_tables,
     as q's dtype with no scale, the JAX engine's gather formulation (its
     ALiBi and ``use_pallas_decode=False`` path).
 
-    Pool keys sit at positions ``j`` for table column ``j // bs`` (or, with
-    ``ring_tokens``, at positions recovered from the rolling table) and are
-    valid below ``stage_starts``; stage row ``i`` sits at
-    ``stage_starts + i`` and is valid below ``seq_lens`` — or, in tree mode,
-    where ``tree_mask`` allows it.
+    Which query sees which key — the positions of the pool's columns in a
+    linear or rolling table, the stage's rows or tree nodes, the window —
+    is :func:`key_visibility`'s.
 
     ``alibi_slopes`` ``[H]`` adds ALiBi's bias ``slope * (key_pos -
     query_pos)`` to the scaled scores, as the JAX engine's gather path does
@@ -123,8 +186,6 @@ def paged_ragged_attention_reference(q, pool, k_stage, v_stage, block_tables,
     li = int(layer_index)
     tables = block_tables.to(device=dev, dtype=torch.long)
     ctx = tables.shape[1] * bs
-    sstart = stage_starts.to(device=dev, dtype=torch.long)[:, None]   # [S,1]
-    lens = seq_lens.to(device=dev, dtype=torch.long)[:, None]
 
     blocks = tables.repeat_interleave(bs, dim=1)                  # [S, ctx]
     offs = torch.arange(ctx, device=dev) % bs
@@ -142,38 +203,10 @@ def paged_ragged_attention_reference(q, pool, k_stage, v_stage, block_tables,
     V = torch.cat([v_pool.permute(1, 0, 2, 3).to(v_dt), v_stage.to(v_dt)],
                   dim=2)
 
-    jidx = torch.arange(ctx, device=dev)[None, :]
-    if ring_tokens:
-        # rolling table: slot j holds the newest block b with b % nwin == j
-        nwin = ring_tokens // bs
-        b_latest = torch.clamp(sstart - 1, min=0) // bs
-        b_j = b_latest - torch.remainder(b_latest - jidx // bs, nwin)
-        raw = b_j * bs + jidx % bs
-        cpos_pool = torch.where(raw < sstart, raw, raw - ring_tokens)
-        valid_pool = cpos_pool >= 0
-    else:
-        cpos_pool = jidx.expand(S, ctx)
-        valid_pool = cpos_pool < sstart
-    cpos_st = sstart + torch.arange(Ts, device=dev)[None, :]       # [S, Ts]
-    cpos = torch.cat([cpos_pool, cpos_st], dim=1)                  # [S, C]
-    if tree_positions is not None:
-        qpos = tree_positions.to(device=dev, dtype=torch.long)     # [S, T]
-    else:
-        qpos = (q_starts.to(device=dev, dtype=torch.long)[:, None]
-                + torch.arange(T, device=dev)[None, :])
-    mask = valid_pool[:, None, :] & (cpos_pool[:, None, :] <= qpos[:, :, None])
-    if window:
-        mask &= cpos_pool[:, None, :] > qpos[:, :, None] - window
-    if tree_positions is not None:
-        tm = tree_mask.to(device=dev).bool()                       # [S, T, T]
-        st_mask = torch.zeros(S, T, Ts, dtype=torch.bool, device=dev)
-        st_mask[:, :, :T] = tm
-    else:
-        st_mask = ((cpos_st < lens)[:, None, :]
-                   & (cpos_st[:, None, :] <= qpos[:, :, None]))
-        if window:
-            st_mask &= cpos_st[:, None, :] > qpos[:, :, None] - window
-    mask = torch.cat([mask, st_mask], dim=2)                       # [S, T, C]
+    cpos, qpos, mask = key_visibility(
+        tables, seq_lens, q_starts, stage_starts, T=T, Ts=Ts, block_size=bs,
+        window=window, ring_tokens=ring_tokens,
+        tree_positions=tree_positions, tree_mask=tree_mask)
 
     qg = q.reshape(S, T, KV, G, D).float()
     if e4m3:
@@ -244,15 +277,20 @@ def paged_ragged_attention(q, pool, k_stage, v_stage, block_tables, seq_lens,
                            ring_tokens: int | None = None,
                            page_group: int | None = None,
                            tree_positions=None, tree_mask=None):
-    """Ragged attention of q rows at positions ``q_starts[s] + t`` over the
-    pool (positions below ``stage_starts``) and the stage (positions
-    ``stage_starts + i`` below ``seq_lens``). Returns ``[S, T, H, D]``.
+    """Ragged attention of q rows at positions ``q_starts[s] + t`` (tree
+    mode: ``tree_positions[s, t]``) over the pool (positions below
+    ``stage_starts``) and the stage (positions ``stage_starts + i`` below
+    ``seq_lens``; tree mode: nodes under ``tree_mask``). Returns
+    ``[S, T, H, D]``.
 
-    CPU tensors take the plain version (all options). CUDA tensors launch
-    the kernel, which takes the default form over a pool of q's dtype or of
-    e4m3 codes: ``window``, ``ring_tokens``, ``page_group > 1`` and tree
-    inputs raise NotImplementedError there until a later slice ports
-    them."""
+    CPU tensors take the plain version, CUDA tensors the kernel, with every
+    option on a pool of q's dtype or of e4m3 codes. ``page_group`` (pool
+    pages per TPU grid step) changes no arithmetic of either walk and is
+    accepted for the JAX signature's sake; it only moves where the e4m3
+    form rounds p in the Pallas kernel (``p_round_blocks`` of the plain
+    version reproduces that)."""
+    if page_group is not None and page_group < 1:
+        raise ValueError(f"page_group must be >= 1, got {page_group}")
     if q.device.type == "cpu":
         counts.plain += 1
         return paged_ragged_attention_reference(
@@ -262,22 +300,16 @@ def paged_ragged_attention(q, pool, k_stage, v_stage, block_tables, seq_lens,
             tree_positions=tree_positions, tree_mask=tree_mask)
     if q.device.type != "cuda":
         raise ValueError(f"unsupported device {q.device}")
-    later = [name for name, on in (
-        ("window", window), ("ring_tokens", ring_tokens),
-        ("page_group > 1", page_group and page_group > 1),
-        ("tree_positions/tree_mask", tree_positions is not None
-         or tree_mask is not None)) if on]
-    if later:
-        raise NotImplementedError(
-            f"the CUDA paged-attention kernel takes the default form only; "
-            f"{', '.join(later)} arrive(s) with a later slice of the port")
     return _launch_kernel(q, pool, k_stage, v_stage, block_tables, seq_lens,
                           q_starts, stage_starts, block_size=block_size,
-                          layer_index=layer_index, scale=scale)
+                          layer_index=layer_index, scale=scale,
+                          window=window, ring_tokens=ring_tokens,
+                          tree_positions=tree_positions, tree_mask=tree_mask)
 
 
 def _launch_kernel(q, pool, k_stage, v_stage, block_tables, seq_lens,
-                   q_starts, stage_starts, *, block_size, layer_index, scale):
+                   q_starts, stage_starts, *, block_size, layer_index, scale,
+                   window, ring_tokens, tree_positions, tree_mask):
     from . import kernels
 
     S, T, H, D = q.shape
@@ -320,15 +352,35 @@ def _launch_kernel(q, pool, k_stage, v_stage, block_tables, seq_lens,
                     ("stage_starts", sst)):
         if tuple(t.shape) != (S,):
             raise ValueError(f"{name} {tuple(t.shape)} != ({S},)")
+    window, ring_tokens = int(window or 0), int(ring_tokens or 0)
+    if window < 0 or ring_tokens < 0:
+        raise ValueError(f"window {window} / ring_tokens {ring_tokens} < 0")
+    if ring_tokens and (not window or ring_tokens % bs):
+        raise ValueError(f"ring_tokens {ring_tokens} needs a sliding window "
+                         f"and whole pages of {bs}")
+    tree = tree_positions is not None
+    if tree != (tree_mask is not None):
+        raise ValueError("tree_positions and tree_mask come together")
+    tpos = tmask = None
+    if tree:
+        tpos = _i32(tree_positions, dev)
+        tmask = torch.as_tensor(tree_mask, device=dev).to(
+            torch.uint8).contiguous()
+        if tuple(tpos.shape) != (S, T) or tuple(tmask.shape) != (S, T, T):
+            raise ValueError(f"tree_positions {tuple(tpos.shape)} / tree_mask "
+                             f"{tuple(tmask.shape)} != {(S, T)} / {(S, T, T)}")
+        if Ts < T:
+            raise ValueError(f"stage rows {Ts} must cover the {T} tree nodes")
     scale = 1.0 / (D ** 0.5) if scale is None else float(scale)
     out = torch.empty_like(q)
     lib = kernels.load("paged_attention")
     err = lib.ds_ragged_paged_attention(
         q.data_ptr(), pool.data_ptr(), k_stage.data_ptr(),
         v_stage.data_ptr(), tables.data_ptr(), lens.data_ptr(),
-        qst.data_ptr(), sst.data_ptr(), out.data_ptr(),
-        S, T, H, KV, D, nb, bs, Ts, tables.shape[1], li, scale,
-        _KERNEL_DTYPES[dt], int(e4m3),
+        qst.data_ptr(), sst.data_ptr(),
+        tpos.data_ptr() if tree else None, tmask.data_ptr() if tree else None,
+        out.data_ptr(), S, T, H, KV, D, nb, bs, Ts, tables.shape[1], li,
+        scale, window, ring_tokens, _KERNEL_DTYPES[dt], int(e4m3),
         torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
         raise RuntimeError(f"paged-attention kernel launch failed: CUDA error "
@@ -337,4 +389,7 @@ def _launch_kernel(q, pool, k_stage, v_stage, block_tables, seq_lens,
         counts.kernel_e4m3 += 1
     else:
         counts.kernel += 1
+    counts.kernel_window += bool(window)
+    counts.kernel_ring += bool(ring_tokens)
+    counts.kernel_tree += tree
     return out

@@ -1,5 +1,6 @@
-"""The port on the card: the paged-attention CUDA kernel (default and
-e4m3-pool forms), the quantized-weight kernel and the grouped MoE kernels
+"""The port on the card: the paged-attention CUDA kernel (default,
+e4m3-pool, sliding-window, rolling-ring and tree-verify forms), the
+quantized-weight kernel and the grouped MoE kernels
 (K5's forward, K3) against their plain versions, and the CUDA engine
 against the CPU engine. These need an sm_90
 GPU and nvcc, so they skip elsewhere; on a machine with the card run
@@ -71,11 +72,87 @@ def test_kernel_matches_plain_version(dev, dtype, tol, D, G, T, Ts):
     assert err <= tol
 
 
-def test_kernel_refuses_options_of_later_slices(dev):
-    args = _case(dev, torch.float32, H=4, KV=2, D=64, T=1, Ts=8, ctx=[20])
-    with pytest.raises(NotImplementedError, match="window"):
-        pa.paged_ragged_attention(*args, block_size=16, layer_index=0,
-                                  window=8)
+def _form_case(dev, dtype, form, *, G, D, bs=16, nb=96, seed=0):
+    """K1 inputs and options for one form: "window" (a 64-key window over
+    up to 300 pool tokens, decode and a 40-row chunk), "ring" (a 6-page
+    ring after several wraps, a 24-key window), "tree" (two slots of a
+    branchy 6-node tree, one empty slot)."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    rnd = lambda *sh: torch.randn(sh, generator=g, device=dev).to(dtype)
+    i32 = lambda v: torch.tensor(v, dtype=torch.int32, device=dev)
+    KV = 2
+    H = KV * G
+    if form == "window":
+        T, Ts = 40, 48
+        args = _case(dev, dtype, H=H, KV=KV, D=D, T=T, Ts=Ts,
+                     ctx=[0, 37, 300, -1], bs=bs, nb=nb, seed=seed)
+        return args, dict(window=64)
+    if form == "ring":
+        T, Ts, nwin = 8, 8, 6
+        S = 3
+        tables = torch.stack([torch.randperm(nb - 1, generator=torch.Generator(
+        ).manual_seed(seed + s))[:nwin] + 1 for s in range(S)])
+        sst = [200, 333, 91]
+        lens = [c + n for c, n in zip(sst, (8, 5, 1))]
+        return [rnd(S, T, H, D) * 3, rnd(2, 2, KV, nb, bs, D),
+                rnd(S, KV, Ts, D), rnd(S, KV, Ts, D),
+                tables.to(dev, torch.int32), i32(lens), i32(sst),
+                i32(sst)], dict(window=24, ring_tokens=nwin * bs)
+    T, Ts = 6, 8
+    args = _case(dev, dtype, H=H, KV=KV, D=D, T=T, Ts=Ts, ctx=[40, 113, -1],
+                 bs=bs, nb=nb, seed=seed)
+    parents, depth = [-1, 0, 0, 1, 2, 3], [0, 1, 1, 2, 2, 3]
+    pos = torch.zeros(3, T, dtype=torch.int32)
+    mask = torch.zeros(3, T, T, dtype=torch.uint8)
+    lens = torch.zeros(3, dtype=torch.int32)
+    for s, root in enumerate((40, 113)):
+        pos[s] = torch.tensor([root + d for d in depth])
+        for i in range(T):
+            j = i
+            while j != -1:
+                mask[s, i, j] = 1
+                j = parents[j]
+        lens[s] = root + 1 + max(depth)
+    mask[2] = torch.eye(T, dtype=torch.uint8)
+    args[5], args[6] = lens.to(dev), pos[:, 0].contiguous().to(dev)
+    return args, dict(tree_positions=pos.to(dev), tree_mask=mask.to(dev))
+
+
+@pytest.mark.parametrize("pool", ["bf16", "fp32", "e4m3"])
+@pytest.mark.parametrize("form", ["window", "ring", "tree"])
+@pytest.mark.parametrize("G", [1, 4])
+def test_window_ring_and_tree_forms_match_plain_version(dev, pool, form, G):
+    """K1's sliding-window, rolling-ring and tree-verify forms against the
+    plain version, over a pool of q's dtype (fp32: 1e-4 absolute; bf16: 1e-2
+    of max |plain|) or of e4m3 codes (max 1e-2 and mean 1e-4 of |plain|,
+    p rounded against the kernel's 64-key walk); each form is counted."""
+    dtype = torch.float32 if pool == "fp32" else torch.bfloat16
+    args, kw = _form_case(dev, dtype, form, G=G, D=128)
+    if pool == "e4m3":
+        args[1] = qm.to_e4m3(args[1])
+    before = dict(vars(pa.counts))
+    got = pa.paged_ragged_attention(*args, block_size=16, layer_index=1,
+                                    page_group=2, **kw)
+    torch.cuda.synchronize()
+    after = vars(pa.counts)
+    total = "kernel_e4m3" if pool == "e4m3" else "kernel"
+    assert after[total] == before[total] + 1
+    assert after[f"kernel_{form}"] == before[f"kernel_{form}"] + 1
+    assert after["plain"] == before["plain"]
+    ref = pa.paged_ragged_attention_reference(
+        *args, block_size=16, layer_index=1,
+        p_round_blocks=(pa.KERNEL_KEY_TILE, pa.KERNEL_KEY_TILE), **kw)
+    live = args[5] > 0
+    assert (got[~live] == 0).all()
+    d = (got[live].float() - ref[live].float()).abs()
+    scale = ref[live].float().abs()
+    if pool == "fp32":
+        assert d.max().item() <= 1e-4
+    elif pool == "bf16":
+        assert d.max().item() / scale.max().item() <= 1e-2
+    else:
+        assert d.max().item() / scale.max().item() <= 1e-2
+        assert (d.mean() / scale.mean()).item() <= 1e-4
 
 
 def test_cuda_engine_matches_cpu_engine(dev):

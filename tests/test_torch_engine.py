@@ -133,8 +133,7 @@ def test_put_step_query_flush_and_eos(served):
 
 def test_later_slices_and_the_default_device_raise(served):
     _, tm, tree, _ = served
-    for over, match in [({"spec_decode": "ngram"}, "spec"),
-                        ({"quant_bits": 8, "tensor_parallel": 2}, "quant"),
+    for over, match in [({"quant_bits": 8, "tensor_parallel": 2}, "quant"),
                         ({"tensor_parallel": 2}, "tensor"),
                         ({"kv_tier": True}, "tier"),
                         ({"telemetry": True}, "telemetry"),
@@ -142,13 +141,23 @@ def test_later_slices_and_the_default_device_raise(served):
         with pytest.raises(NotImplementedError, match=match):
             InferenceEngineV2(tm, params=tree,
                               config=dict(BASE, device="cpu", **over))
-    # sliding-window models wait for K1's window and ring options; a
-    # stand-in carries the config
+    # speculative decoding serves (the window/spec slice), with either
+    # proposer
+    for over in ({"spec_decode": "ngram"}, {"spec_decode": "draft"}):
+        eng = InferenceEngineV2(tm, params=tree, draft_model=tm,
+                                config=dict(BASE, device="cpu", **over))
+        assert eng._spec is not None
+        assert eng._attn_tree_sel.path == "plain"
+    # sliding-window models serve from a rolling ring; a stand-in carries
+    # the config, and spec on a ring raises
     windowed = SimpleNamespace(config=dataclasses.replace(
         tm.config, sliding_window=16))
-    with pytest.raises(NotImplementedError, match="sliding-window"):
-        InferenceEngineV2(windowed, params=tree,
-                          config=dict(BASE, device="cpu"))
+    eng = InferenceEngineV2(windowed, params=tree,
+                            config=dict(BASE, device="cpu"))
+    assert eng._ring_tokens == 5 * BASE["block_size"]
+    with pytest.raises(ValueError, match="spec_decode"):
+        InferenceEngineV2(windowed, params=tree, config=dict(
+            BASE, device="cpu", spec_decode="ngram"))
     # MoE models serve (the MoE slice), with and without quantized weights
     moe = build_model("tiny-mixtral", device="cpu", dtype=torch.float32,
                       moe=MoEConfig(num_experts=4, top_k=2))

@@ -60,6 +60,9 @@ CONFIGS = {
     # rolling ring: the table is a 4-slot ring, positions wrapped past it
     "ring": dict(window=24, ring_tokens=32, stage_starts=[45, 37],
                  seq_lens=[46, 38], q_starts=[45, 37]),
+    # the same ring after three and five wraps, one slot mid-page
+    "ring_wrapped": dict(window=24, ring_tokens=32, stage_starts=[109, 163],
+                         seq_lens=[110, 164], q_starts=[109, 163]),
 }
 
 
@@ -196,6 +199,30 @@ def test_registry_never_falls_back_on_cuda(device_type, geo, pin, alibi,
         assert (sel.reason == "") == sel.is_kernel
 
 
+@pytest.mark.parametrize("device_type,pin,verify,alibi,want", [
+    ("cuda", None, None, False, "cuda"),          # the decode selection
+    ("cpu", None, None, False, "plain"),
+    ("cuda", None, False, False, "gather"),       # spec_verify_pallas pin
+    ("cuda", False, None, False, "gather"),       # use_pallas_decode pin
+    ("cuda", False, True, False, ValueError),     # gather-pinned engine
+    ("cuda", None, None, True, "gather"),         # ALiBi
+    ("cuda", None, True, True, ValueError),       # pin demands the kernel
+])
+def test_registry_tree_mode_takes_the_verify_pin(device_type, pin, verify,
+                                                 alibi, want):
+    from deepspeed_tpu_torch.inference.attn_registry import select_attention
+
+    kw = dict(mode="tree", device_type=device_type, use_kernel=pin,
+              verify_pin=verify, alibi=alibi, sm90=True, **LLAMA)
+    if isinstance(want, type):
+        with pytest.raises(want, match="spec_verify_pallas"):
+            select_attention(**kw)
+    else:
+        sel = select_attention(**kw)
+        assert (sel.path, sel.mode) == (want, "tree")
+        assert ("spec_verify_pallas" in sel.reason) == (verify is False)
+
+
 def test_plain_version_alibi_bias_matches_a_dense_softmax():
     """``alibi_slopes`` adds slope * (key_pos - query_pos) to the scaled
     scores: a decode step over pool + stage equals a dense masked softmax
@@ -230,10 +257,10 @@ def test_usable_gate():
     assert not pa.paged_attention_usable(32, 32, 128, 12)  # unaligned page
 
 
-def _e4m3_case(seed, T):
+def _e4m3_case(seed, T, **kw):
     """A ~217-token context on an e4m3 pool (27 pages of 8, plus the stage),
     K/V unit-normal and q at 3x: a peaked softmax, so a wrong score or a
-    wrong p rounding moves the output."""
+    wrong p rounding moves the output. ``kw`` goes to the Pallas kernel."""
     rng = np.random.default_rng(seed)
     pool, q, ks, vs, tables = _inputs(rng, T=T, max_pages=28, nb=64)
     pool, ks, vs, q = pool / .3, ks / .3, vs / .3, q / .3 * 3
@@ -244,7 +271,7 @@ def _e4m3_case(seed, T):
     ref = np.asarray(jax_paged_ragged_attention(
         jnp.asarray(q), pool8, jnp.asarray(ks), jnp.asarray(vs),
         jnp.asarray(tables), *map(jnp.asarray, ints), block_size=8,
-        layer_index=jnp.int32(1), interpret=True))
+        layer_index=jnp.int32(1), interpret=True, **kw))
     t_pool = torch.from_numpy(np.asarray(pool8).view(np.uint8).copy()).view(
         torch.float8_e4m3fn)
     args = (torch.from_numpy(q), t_pool, torch.from_numpy(ks),
@@ -307,3 +334,121 @@ def test_running_max_follows_the_key_walk():
     got = pa._running_max(torch.tensor([[float("-inf"), 2., 1., 7.]]),
                           ctx=2, pb=1, sb=1)
     assert got.tolist() == [[float("-inf"), 2, 2, 7]]
+
+
+@pytest.mark.parametrize("page_group", [2, 4])
+@pytest.mark.parametrize("cfg", ["plain", "window", "ring_wrapped"])
+def test_plain_matches_pallas_page_groups(cfg, page_group):
+    """``page_group`` pool pages per Pallas grid step change no arithmetic
+    of the fp32 form: the plain version (which walks no grid) matches the
+    grouped kernel to summation order."""
+    c = CONFIGS[cfg]
+    pool, q, ks, vs, tables = _inputs(np.random.default_rng(17), G=2)
+    ref, got = _both(pool, q, ks, vs, tables, c["seq_lens"], c["q_starts"],
+                     c["stage_starts"], block_size=8, window=c["window"],
+                     ring_tokens=c["ring_tokens"], page_group=page_group)
+    np.testing.assert_allclose(got, ref, rtol=2e-5, atol=2e-5)
+
+
+@pytest.mark.parametrize("page_group", [2, 4])
+def test_e4m3_plain_matches_grouped_pallas_with_its_rounding_blocks(
+        page_group):
+    """Over an e4m3 pool the grouped Pallas kernel rounds p against the
+    running max of ``page_group`` pages at a time: the plain version with
+    ``p_round_blocks = (page_group * block_size, stage rows)`` matches it,
+    and the one-page default does not."""
+    T = 4
+    ref, args = _e4m3_case(21, T, page_group=page_group)
+    got = pa.paged_ragged_attention_reference(
+        *args, block_size=8, layer_index=1, p_round_blocks=(page_group * 8, 8))
+    assert _e4m3_err(got.numpy(), ref) <= E4M3_TOL
+    one_page = pa.paged_ragged_attention(*args, block_size=8, layer_index=1,
+                                         page_group=page_group)
+    assert _e4m3_err(one_page.numpy(), ref) > 10 * E4M3_TOL
+
+
+def test_plain_matches_pallas_ring_chunk_after_wraps():
+    """A prefill chunk (T=8, a ragged second row) over a 5-page ring after
+    two and four wraps, with the window binding inside the ring."""
+    pool, q, ks, vs, tables = _inputs(np.random.default_rng(19), T=8, Ts=8,
+                                      G=2, max_pages=5, nb=24)
+    sst = [100, 161]
+    ref, got = _both(pool, q, ks, vs, tables, [108, 166], sst, sst,
+                     block_size=8, window=24, ring_tokens=40)
+    np.testing.assert_allclose(got, ref, rtol=2e-5, atol=2e-5)
+
+
+def _tree_case(rng, T=6, G=2, **kw):
+    """A branchy tree (root with two children, chains below) per slot, its
+    positions root + depth, the ancestors mask, and the Pallas inputs."""
+    pool, q, ks, vs, tables = _inputs(rng, T=T, Ts=8, G=G, **kw)
+    parents, depth = [-1, 0, 0, 1, 2, 3], [0, 1, 1, 2, 2, 3]
+    S = q.shape[0]
+    pos = np.zeros((S, T), np.int32)
+    mask = np.zeros((S, T, T), np.uint8)
+    lens, sst = np.zeros(S, np.int32), np.zeros(S, np.int32)
+    for s in range(S):
+        root = 18 - s * 7
+        pos[s] = [root + d for d in depth]
+        for i in range(T):
+            j = i
+            while j != -1:
+                mask[s, i, j] = 1
+                j = parents[j]
+        lens[s], sst[s] = root + 1 + max(depth), root
+    return pool, q, ks, vs, tables, lens, sst, pos, mask
+
+
+@pytest.mark.parametrize("window", [None, 9])
+def test_e4m3_tree_verify_plain_matches_pallas(window):
+    """Tree verify over an e4m3 pool: q rounded to e4m3 for pool keys, p
+    scaled by 448 for every key (the stage's nodes too), against the
+    Pallas kernel in interpret mode, with and without a window."""
+    pool, q, ks, vs, tables, lens, sst, pos, mask = _tree_case(
+        np.random.default_rng(23))
+    pool, ks, vs, q = pool / .3, ks / .3, vs / .3, q / .3 * 3
+    pool8 = jnp.asarray(pool).astype(jnp.float8_e4m3fn)
+    kw = dict(block_size=8, window=window)
+    ref = np.asarray(jax_paged_ragged_attention(
+        jnp.asarray(q), pool8, jnp.asarray(ks), jnp.asarray(vs),
+        jnp.asarray(tables), jnp.asarray(lens), jnp.asarray(pos[:, 0].copy()),
+        jnp.asarray(sst), layer_index=jnp.int32(1),
+        tree_positions=jnp.asarray(pos), tree_mask=jnp.asarray(mask),
+        interpret=True, **kw))
+    t_pool = torch.from_numpy(np.asarray(pool8).view(np.uint8).copy()).view(
+        torch.float8_e4m3fn)
+    got = pa.paged_ragged_attention(
+        torch.from_numpy(q), t_pool, *map(torch.from_numpy, (
+            ks, vs, tables, lens, pos[:, 0].copy(), sst)), layer_index=1,
+        tree_positions=torch.from_numpy(pos),
+        tree_mask=torch.from_numpy(mask), **kw)
+    assert _e4m3_err(got.numpy(), ref) <= E4M3_TOL
+    # negative control: the pool read upcast with no scale
+    old = pa.paged_ragged_attention_reference(
+        torch.from_numpy(q), t_pool, *map(torch.from_numpy, (
+            ks, vs, tables, lens, pos[:, 0].copy(), sst)), layer_index=1,
+        tree_positions=torch.from_numpy(pos),
+        tree_mask=torch.from_numpy(mask), upcast_pool=True, **kw)
+    assert _e4m3_err(old.numpy(), ref) > 100 * E4M3_TOL
+
+
+def test_key_visibility_of_a_ring_follows_table_order():
+    """Pool column j of a 3-page ring (bs 4) holds the newest block b with
+    b % 3 == j // 4; offsets at or past stage_starts are the previous wrap,
+    and never-written ones are invalid."""
+    tables = torch.zeros(1, 3, dtype=torch.int32)
+    one = lambda v: torch.tensor([v], dtype=torch.int32)
+    cpos, qpos, mask = pa.key_visibility(
+        tables, one(30), one(29), one(29), T=1, Ts=1, block_size=4,
+        window=10, ring_tokens=12)
+    # positions 24..28 in blocks 6 (column 0) and 7 (column 4); block 5's
+    # offsets 20..23 at columns 8..11; the stage row at 29
+    assert cpos[0].tolist() == [24, 25, 26, 27, 28, 17, 18, 19, 20, 21, 22,
+                                23, 29]
+    vis = [c for c, m in zip(cpos[0].tolist(), mask[0, 0].tolist()) if m]
+    assert sorted(vis) == list(range(20, 30))      # (29 - 10, 29]
+    cpos, _, mask = pa.key_visibility(
+        tables, one(6), one(5), one(5), T=1, Ts=1, block_size=4, window=10,
+        ring_tokens=12)
+    assert cpos[0, :5].tolist() == [0, 1, 2, 3, 4]
+    assert not mask[0, 0, 8:12].any()           # column 2: never written

@@ -27,6 +27,7 @@ for n in names:
 bad = sorted(m for m in sys.modules if m.split('.')[0] in {FORBIDDEN!r})
 assert not bare and not bad, (bare, bad)
 for m in ('deepspeed_tpu_torch.inference.engine_v2',
+          'deepspeed_tpu_torch.inference.speculative',
           'deepspeed_tpu_torch.moe', 'deepspeed_tpu_torch.moe.layer',
           'deepspeed_tpu_torch.moe.sharded_moe',
           'deepspeed_tpu_torch.ops.grouped_matmul'):
