@@ -1,14 +1,15 @@
 """Smoke run of the PyTorch/CUDA port on one NVIDIA H100.
 
-    python3 chip_smoke.py [--phases build,kernel,parity,serve] [--out DIR]
+    python3 chip_smoke.py [--phases build,kernel,parity,serve,train-parity,train]
+                          [--out DIR]
 
 Phases (every one raises on failure; nothing is caught and passed over):
 
 1. build  — compile every CUDA kernel of the port from ``ops/csrc`` with
    nvcc for sm_90a, all sources at once, and print the build times.
 2. kernel — hold each kernel against its plain PyTorch version on the card
-   at the serving path's shapes, and time the kernel, the plain version, a
-   PyTorch yardstick and the kernel's bound:
+   at the serving and training paths' shapes, and time the kernel, the
+   plain version, a PyTorch yardstick and the kernel's bound:
    - K1, the paged-attention kernel (llama2-7b geometry and a GQA geometry;
      decode, a 256-token prefill chunk over several pool pages, a
      window-shaped stage; an empty slot and trash-padded block tables), in
@@ -53,6 +54,19 @@ Phases (every one raises on failure; nothing is caught and passed over):
      rows, or 2 x routed rows x K x N operations. Yardstick: one
      ``torch._grouped_mm`` call in bf16 over the same expert-aligned
      buffer (for K3 the bf16 product it replaces).
+   - K4, flash attention, forward (out and lse) and backward (dq, dk, dv
+     from the plain forward's out and lse), in fp32 and bf16, at llama2-7b
+     geometry (H = KV = 32, D = 128) at S = 1024 (where the Pallas
+     backward is one block), 2048 (the train phase's shape) and 4096,
+     mistral-7b's GQA (KV 8) at 2048, gpt2-1.3b's D = 64 at 1024, and a
+     non-causal call; B = 1-4. Tolerances ``K4_TOL``: fp32 output by max
+     |error| 1e-4, fp32 grads by max |error| over max |plain| 1e-3, bf16
+     everything by max |error| over max |plain| 2e-2. Bound: the
+     causally visible pairs' operations (4 x pairs x D forward, 10 x
+     pairs x D backward) over 989 TFLOP/s (bf16) or 67 (fp32), against
+     the bytes over 3.35 TB/s. Yardstick: one
+     ``scaled_dot_product_attention(is_causal=...)`` call over K/V
+     repeated per q head, forward and forward + backward.
 3. parity — llama2-7b at full width with 4 layers in fp32: the engine's
    greedy streams against a greedy loop over the dense
    ``TransformerLM.forward``. TF32 is off for matmuls and cuDNN. Streams
@@ -109,6 +123,24 @@ Phases (every one raises on failure; nothing is caught and passed over):
    target's 8-node verify round near-ties of the random model's flat
    logits differently.
 
+5. train-parity — llama2-7b's width at 4 layers in fp32 (TF32 off), S =
+   1024, 1 x 2 sequences, 3 AdamW steps from one seeded init and batch,
+   trained through ``deepspeed_tpu_torch.initialize`` once with
+   ``attn_impl="pallas"`` (K4) and once with ``"xla"`` (the plain route):
+   losses within 1e-5 relative, parameters within 1e-4 of max |param|.
+6. train — llama2-7b's width (E 4096, H 32, D 128, F 11008, vocab 32000)
+   at 8 layers (~1.9 B parameters; the full depth with Adam needs ~112 GB
+   and waits for offload) from seeded random fp32 weights: bf16 with an
+   fp32 master, AdamW, micro-batch 2 x gas 2 of 2048 tokens, remat
+   "full", 5 steps on a repeated batch. Every loss finite and the last
+   below the first; K4's forward launched layers x micro-batches x 2 per
+   step (remat runs each layer's forward again), its backward layers x
+   micro-batches, no plain version and no other kernel. Prints tokens/s,
+   ms per step, peak memory and K4's share of a profiled step.
+
+The serving parity phase's dense oracles pass ``attn_impl="xla"``, so they
+stay independent of the kernels under test.
+
 The last lines are the kernels' JSON record, the card's name and power
 limit, and ``{"ok": true, "device": {...}}``. Without a CUDA device the
 script exits non-zero and prints no result.
@@ -119,6 +151,7 @@ import argparse
 import dataclasses
 import gc
 import json
+import math
 import os
 import statistics
 import sys
@@ -131,7 +164,7 @@ HBM_BYTES_PER_S = 3.35e12
 PEAK_OPS = {torch.bfloat16: 989e12, torch.float32: 67e12,
             torch.float8_e4m3fn: 1979e12}
 
-ALL_PHASES = ("build", "kernel", "parity", "serve")
+ALL_PHASES = ("build", "kernel", "parity", "serve", "train-parity", "train")
 
 #: spread of the K1 cases' q against unit-normal K/V (see k1_case)
 Q_SD = 3.0
@@ -1065,6 +1098,7 @@ def tap_engine_class():
 
 def all_counts() -> dict:
     """Every kernel wrapper's launch counts."""
+    from deepspeed_tpu_torch.ops import flash_attention as fa
     from deepspeed_tpu_torch.ops import grouped_matmul as gm
     from deepspeed_tpu_torch.ops import paged_attention as pa
     from deepspeed_tpu_torch.ops import quant_matmul as qm
@@ -1076,10 +1110,13 @@ def all_counts() -> dict:
             "k1_plain": pa.counts.plain, "k2": qm.counts.kernel,
             "k2_plain": qm.counts.plain, "k3": qm.grouped_counts.kernel,
             "k3_plain": qm.grouped_counts.plain, "k5": gm.counts.kernel,
-            "k5_plain": gm.counts.plain}
+            "k5_plain": gm.counts.plain, "k4_fwd": fa.counts.fwd,
+            "k4_bwd": fa.counts.bwd, "k4_plain": fa.counts.plain,
+            "k4_plain_bwd": fa.counts.plain_bwd}
 
 
 def reset_counts() -> None:
+    from deepspeed_tpu_torch.ops import flash_attention as fa
     from deepspeed_tpu_torch.ops import grouped_matmul as gm
     from deepspeed_tpu_torch.ops import paged_attention as pa
     from deepspeed_tpu_torch.ops import quant_matmul as qm
@@ -1088,6 +1125,7 @@ def reset_counts() -> None:
     qm.counts.reset()
     qm.grouped_counts.reset()
     gm.counts.reset()
+    fa.counts.reset()
 
 
 def forwards_of(eng) -> int:
@@ -1105,7 +1143,8 @@ def check_launches(tag, got: dict, cfg, *, forwards, e4m3_pool, quant,
     the weights are quantized, K2 once per dense weight product (q, k, v, o
     of every layer, a dense FFN's products, the unembedding) and K3 once per
     expert product of every MoE layer; K5 once per expert product under
-    ``moe.dropless`` without quantization; no plain version at all."""
+    ``moe.dropless`` without quantization; never K4 (serving has no
+    full-sequence attention); no plain version at all."""
     from deepspeed_tpu_torch.models.transformer import is_moe_layer
 
     L = cfg.num_layers
@@ -1123,7 +1162,8 @@ def check_launches(tag, got: dict, cfg, *, forwards, e4m3_pool, quant,
             "k2": dense * f if quant else 0, "k2_plain": 0,
             "k3": experts * f if quant else 0, "k3_plain": 0,
             "k5": experts * f if dropless and not quant else 0,
-            "k5_plain": 0}
+            "k5_plain": 0, "k4_fwd": 0, "k4_bwd": 0, "k4_plain": 0,
+            "k4_plain_bwd": 0}
     if forwards <= 0 or got != want:
         raise AssertionError(f"[{tag}] launches {got} != {want} "
                              f"({L} layers x {forwards} forwards)")
@@ -1233,7 +1273,7 @@ def parity_ring(dev) -> dict:
 
     log("[parity] mistral-7b full width, 4 layers, fp32, rolling ring")
     model = build_model("mistral-7b", num_layers=4, dtype=torch.float32,
-                        device=dev, seed=0)
+                        device=dev, seed=0, attn_impl="xla")
     vocab = model.config.vocab_size
     g = torch.Generator().manual_seed(2)
     lens = [4600, 4700, 300]
@@ -1369,7 +1409,7 @@ def parity_spec(dev) -> dict:
 
     log("[parity] llama2-7b full width, 4 layers, fp32, spec_decode")
     model = build_model("llama2-7b", num_layers=4, dtype=torch.float32,
-                        device=dev, seed=0)
+                        device=dev, seed=0, attn_impl="xla")
     L, vocab = model.config.num_layers, model.config.vocab_size
     prompts = motif_prompts(vocab, torch.Generator().manual_seed(3))
     new = 24
@@ -1379,7 +1419,7 @@ def parity_spec(dev) -> dict:
     base = InferenceEngineV2(model, config=cfg).generate(prompts, new)
     out = {"prompts": [len(p) for p in prompts], "new_tokens": new}
     weak = build_model("llama2-7b", num_layers=4, dtype=torch.float32,
-                       device=dev, seed=7)
+                       device=dev, seed=7, attn_impl="xla")
     for label, over, draft in (("ngram", {"spec_decode": "ngram"}, None),
                                ("draft-strong", {"spec_decode": "draft"},
                                 model),
@@ -1453,7 +1493,7 @@ def parity_model(dev, name: str, routes) -> dict:
         extra = ({"moe": dataclasses.replace(mcfg.moe, **moe_over)}
                  if moe_over else {})
         model = build_model(name, num_layers=4, dtype=torch.float32,
-                            device=dev, seed=0, **extra)
+                            device=dev, seed=0, attn_impl="xla", **extra)
         eng = tap_engine_class()(model, config=dict(cfg, **over))
         if eng._attn_decode_sel.path != "cuda":
             raise AssertionError(f"[{tag}] attention path "
@@ -1494,7 +1534,7 @@ def parity_model(dev, name: str, routes) -> dict:
 
 def device_breakdown(run) -> dict:
     """Profile ``run()`` with torch.profiler and split the device's kernel
-    time into K1, K2, matrix products and the rest, beside the host wall
+    time into K1, K2, K3, K4, K5, matrix products and the rest, beside the host wall
     time (single stream, so busy time is the kernel time sum). Returns the
     numbers, or {"device": "not measured"} when the profiler saw no kernel
     time."""
@@ -1522,6 +1562,8 @@ def device_breakdown(run) -> dict:
 
     def kind(name):
         low = name.lower()
+        if "flash_" in low and "_kernel" in low:
+            return "k4_ms"
         if "ragged_paged_attn" in low:
             return "k1_ms"
         if "qgmm_" in low:
@@ -1536,7 +1578,8 @@ def device_breakdown(run) -> dict:
         return "other_ms"
 
     out = {"wall_ms": wall_ms, "busy_ms": busy, "k1_ms": 0.0, "k2_ms": 0.0,
-           "k3_ms": 0.0, "k5_ms": 0.0, "gemm_ms": 0.0, "other_ms": 0.0,
+           "k3_ms": 0.0, "k4_ms": 0.0, "k5_ms": 0.0, "gemm_ms": 0.0,
+           "other_ms": 0.0,
            "idle_share": max(0.0, 1 - busy / wall_ms)}
     for name, ms in by_name.items():
         out[kind(name)] += ms
@@ -1813,6 +1856,337 @@ def phase_serve(dev) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# K4: flash attention, forward and backward (kernel phase)
+# ---------------------------------------------------------------------------
+
+#: K4 against its plain version: fp32 output by max |error| (1e-4), fp32
+#: gradients by max |error| over max |plain| (1e-3: dq/dk/dv sum over S keys
+#: in another order); bf16 output and gradients by max |error| over max
+#: |plain| (2e-2: both round to bf16, the kernel's p never does)
+K4_TOL = {torch.float32: (1e-4, 1e-3), torch.bfloat16: (2e-2, 2e-2)}
+#: (label, B, H, KV, S, D, causal): llama2-7b geometry where the Pallas
+#: backward is one block (S = 1024, ``_dqkv_kernel``) and split (2048 — the
+#: train phase's shape — and 4096), mistral-7b's GQA, gpt2-1.3b's head dim
+#: 64, and one non-causal call
+K4_CASES = (("llama2-7b S=1024", 2, 32, 32, 1024, 128, True),
+            ("llama2-7b S=2048", 2, 32, 32, 2048, 128, True),
+            ("llama2-7b S=4096", 1, 32, 32, 4096, 128, True),
+            ("mistral-7b GQA S=2048", 2, 32, 8, 2048, 128, True),
+            ("gpt2-1.3b S=1024", 4, 32, 32, 1024, 64, True),
+            ("llama2-7b S=1024 non-causal", 1, 32, 32, 1024, 128, False))
+K4_MAIN = "llama2-7b S=2048"
+
+
+def k4_work(B, H, KV, S, D, causal, dtype) -> dict:
+    """Bytes and operations of one forward and one backward: each input read
+    once and each output written once; 2 x 2 products over the (causally)
+    visible query-key pairs forward, 2 x 5 backward (the scores again,
+    dP, dV, dQ, dK)."""
+    pairs = B * H * (S * (S + 1) // 2 if causal else S * S)
+    e = torch.tensor([], dtype=dtype).element_size()
+    q_el, kv_el, rows = B * H * S * D, B * KV * S * D, B * H * S
+    fwd_bytes = e * (2 * q_el + 2 * kv_el) + 4 * rows
+    bwd_bytes = e * (4 * q_el + 4 * kv_el) + 4 * rows
+    ops_fwd, ops_bwd = 4.0 * pairs * D, 10.0 * pairs * D
+    peak = PEAK_OPS[dtype]
+    fwd = bound_of(fwd_bytes, ops_fwd / peak)
+    bwd = bound_of(bwd_bytes, ops_bwd / peak)
+    return dict(fwd_bytes=fwd_bytes, bwd_bytes=bwd_bytes, fwd_ops=ops_fwd,
+                bwd_ops=ops_bwd, fwd_bound_ms=fwd[0], fwd_bound_by=fwd[1],
+                bwd_bound_ms=bwd[0], bwd_bound_by=bwd[1])
+
+
+def k4_run_case(label, B, H, KV, S, D, causal, dtype, dev, seed) -> dict:
+    """One K4 case: the forward and backward kernels each counted once and
+    no plain launch; out, lse and dq/dk/dv against the plain versions by
+    ``K4_TOL``; then the kernel, the plain versions and the SDPA yardstick
+    timed. Raises past the tolerance."""
+    import torch.nn.functional as F
+
+    from deepspeed_tpu_torch.ops import flash_attention as fa
+
+    g = torch.Generator(device=dev).manual_seed(seed)
+    rnd = lambda *s: torch.randn(s, generator=g, device=dev).to(dtype)
+    q, k, v, do = rnd(B, H, S, D), rnd(B, KV, S, D), rnd(B, KV, S, D), \
+        rnd(B, H, S, D)
+    scale = 1.0 / (D ** 0.5)
+    before = dict(vars(fa.counts))
+    out, lse = fa.flash_fwd(q, k, v, causal, scale)
+    dq, dk, dv = fa.flash_bwd(q, k, v, out, lse, do, causal, scale)
+    torch.cuda.synchronize()
+    bumped = {n: c - before[n] for n, c in vars(fa.counts).items()}
+    if bumped != {"fwd": 1, "bwd": 1, "plain": 0, "plain_bwd": 0}:
+        raise AssertionError(f"K4 {label}: counted {bumped}")
+    ref_out, ref_lse = fa.flash_fwd_plain(q, k, v, causal, scale)
+    refs = fa.flash_bwd_plain(q, k, v, ref_out, ref_lse, do, causal, scale)
+    out_tol, grad_tol = K4_TOL[dtype]
+    errs = {}
+    for name, got, ref in (("out", out, ref_out), ("dq", dq, refs[0]),
+                           ("dk", dk, refs[1]), ("dv", dv, refs[2])):
+        if not torch.isfinite(got.float()).all():
+            raise AssertionError(f"K4 {label} {dtype}: non-finite {name}")
+        err = (got.float() - ref.float()).abs().max().item()
+        mref = ref.float().abs().max().item()
+        judged = err if (name == "out" and dtype == torch.float32) \
+            else err / mref
+        tol = out_tol if name == "out" else grad_tol
+        errs[name] = dict(max_abs_err=err, max_abs_ref=mref, judged=judged,
+                          tol=tol)
+        if judged > tol:
+            raise AssertionError(f"K4 {label} {dtype}: {name} error "
+                                 f"{judged:.3e} > {tol:.0e} (max abs {err:.3e}"
+                                 f" of max |plain| {mref:.3e})")
+    lse_err = (lse - ref_lse).abs().max().item()
+    if lse_err > 1e-3:
+        raise AssertionError(f"K4 {label} {dtype}: lse error {lse_err:.3e}")
+    del ref_out, ref_lse, refs
+    ms = cuda_time_ms(lambda: fa.flash_fwd(q, k, v, causal, scale), iters=10)
+    bwd_ms = cuda_time_ms(
+        lambda: fa.flash_bwd(q, k, v, out, lse, do, causal, scale), iters=10)
+    plain_ms = cuda_time_ms(lambda: fa.flash_fwd_plain(q, k, v, causal, scale),
+                            iters=2, warmup=1, graph=False)
+    plain_bwd_ms = cuda_time_ms(
+        lambda: fa.flash_bwd_plain(q, k, v, out, lse, do, causal, scale),
+        iters=2, warmup=1, graph=False)
+    # yardstick: one SDPA call over K/V repeated per q head, forward and
+    # forward + backward
+    kr = k.repeat_interleave(H // KV, dim=1).requires_grad_()
+    vr = v.repeat_interleave(H // KV, dim=1).requires_grad_()
+    qr = q.detach().clone().requires_grad_()
+    sdpa = lambda: F.scaled_dot_product_attention(q, kr.detach(), vr.detach(),
+                                                  is_causal=causal)
+    lib_ms = cuda_time_ms(sdpa, iters=10)
+
+    def sdpa_fwd_bwd():
+        F.scaled_dot_product_attention(qr, kr, vr, is_causal=causal) \
+            .backward(do)
+
+    lib_fwd_bwd_ms = cuda_time_ms(sdpa_fwd_bwd, iters=5, warmup=2,
+                                  graph=False)
+    work = k4_work(B, H, KV, S, D, causal, dtype)
+    rec = dict(case=label, dtype=str(dtype).replace("torch.", ""), B=B, H=H,
+               KV=KV, S=S, D=D, causal=causal, errors=errs, lse_err=lse_err,
+               ms=ms, bwd_ms=bwd_ms, plain_ms=plain_ms,
+               plain_bwd_ms=plain_bwd_ms, library_ms=lib_ms,
+               library_fwd_bwd_ms=lib_fwd_bwd_ms, **work)
+    log(f"[kernel] K4 {label:<28} {rec['dtype']:<8} err out "
+        f"{errs['out']['judged']:.2e} dq {errs['dq']['judged']:.2e} dk "
+        f"{errs['dk']['judged']:.2e} dv {errs['dv']['judged']:.2e}  fwd "
+        f"{ms:.3f} ms (bound {work['fwd_bound_ms']:.3f} "
+        f"{work['fwd_bound_by']}, plain {plain_ms:.2f}, sdpa {lib_ms:.3f})  "
+        f"bwd {bwd_ms:.3f} ms (bound {work['bwd_bound_ms']:.3f}, plain "
+        f"{plain_bwd_ms:.2f}, sdpa fwd+bwd {lib_fwd_bwd_ms:.3f})")
+    return rec
+
+
+def phase_k4(dev) -> tuple[dict, dict, list]:
+    """K4 at every case of ``K4_CASES`` in fp32 and bf16. Returns the
+    forward and backward records' fields (errors over every bf16 case and
+    the worst fp32 one; times, bound and yardstick of ``K4_MAIN`` in bf16)
+    and the cases."""
+    cases = []
+    for i, (label, B, H, KV, S, D, causal) in enumerate(K4_CASES):
+        for dtype in (torch.bfloat16, torch.float32):
+            cases.append(k4_run_case(label, B, H, KV, S, D, causal, dtype,
+                                     dev, seed=100 + i))
+            free_cuda()
+    bf = [c for c in cases if c["dtype"] == "bfloat16"]
+    f32 = [c for c in cases if c["dtype"] == "float32"]
+    main = next(c for c in bf if c["case"] == K4_MAIN)
+
+    def errs(names):
+        return dict(
+            max_abs_err=max(c["errors"][n]["max_abs_err"] for c in bf
+                            for n in names),
+            max_err_over_max_ref=max(c["errors"][n]["judged"] for c in bf
+                                     for n in names),
+            max_abs_err_fp32=max(c["errors"][n]["max_abs_err"] for c in f32
+                                 for n in names))
+
+    fwd = dict(errs(("out",)), ms=main["ms"], plain_ms=main["plain_ms"],
+               bound_ms=main["fwd_bound_ms"], bound_by=main["fwd_bound_by"],
+               library_ms=main["library_ms"])
+    bwd = dict(errs(("dq", "dk", "dv")), ms=main["bwd_ms"],
+               plain_ms=main["plain_bwd_ms"], bound_ms=main["bwd_bound_ms"],
+               bound_by=main["bwd_bound_by"],
+               library_ms=main["library_fwd_bwd_ms"],
+               fwd_bwd_ms=main["ms"] + main["bwd_ms"])
+    return fwd, bwd, cases
+
+
+# ---------------------------------------------------------------------------
+# train: one-process dense training through the port's engine
+# ---------------------------------------------------------------------------
+
+#: the train phase: llama2-7b's width (E 4096, H 32, D 128, F 11008, vocab
+#: 32000) at 8 layers (~1.9 B parameters: the full depth with Adam needs
+#: ~112 GB of fp32 master, moments and grads, and waits for offload), bf16
+#: with an fp32 master, AdamW, micro-batch 2 x gas 2 of 2048 tokens, remat
+#: "full", 5 steps on one repeated batch
+TRAIN = dict(name="llama2-7b", layers=8, micro=2, gas=2, seq=2048, steps=5)
+#: the train parity phase: the same width at 4 layers in fp32 (TF32 off),
+#: 1 x 2 sequences of 1024 tokens, 3 steps, K4 against the plain route
+TRAIN_PARITY = dict(name="llama2-7b", layers=4, micro=1, gas=2, seq=1024,
+                    steps=3)
+
+
+def train_config(spec: dict, **over) -> dict:
+    cfg = {"train_micro_batch_size_per_gpu": spec["micro"],
+           "gradient_accumulation_steps": spec["gas"],
+           "optimizer": {"type": "AdamW",
+                         "params": {"lr": 1e-4, "weight_decay": 0.01}},
+           "steps_per_print": 10 ** 9}
+    cfg.update(over)
+    return cfg
+
+
+def train_batch_of(spec: dict, vocab: int, seed: int) -> dict:
+    g = torch.Generator().manual_seed(seed)
+    B = spec["micro"] * spec["gas"]
+    return {"input_ids": torch.randint(0, vocab, (B, spec["seq"]),
+                                       generator=g)}
+
+
+def phase_train(dev) -> dict:
+    """``initialize`` the train model on the card and take ``TRAIN["steps"]``
+    steps; every loss finite and the last below the first; K4's forward
+    launched layers x micro-batches x 2 (remat runs each layer's forward
+    again) per step, its backward layers x micro-batches, its plain
+    versions and every other kernel never. Prints tokens/s and ms per step
+    (steps after the first), peak memory, and K4's share of a profiled
+    step."""
+    import deepspeed_tpu_torch as dst
+    from deepspeed_tpu_torch.models import build_model
+
+    spec = TRAIN
+    tag = f"train {spec['name']} x{spec['layers']}"
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    free_cuda()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model = build_model(spec["name"], num_layers=spec["layers"],
+                        dtype=torch.bfloat16, param_dtype=torch.float32,
+                        device=dev, seed=0)
+    engine, *_ = dst.initialize(model=model, config=train_config(
+        spec, activation_checkpointing={"policy": "full"}))
+    if engine.device != dev or not engine.bf16_enabled:
+        raise AssertionError(f"[{tag}] engine on {engine.device}, bf16 "
+                             f"{engine.bf16_enabled}")
+    batch = train_batch_of(spec, model.config.vocab_size, seed=3)
+    tokens = batch["input_ids"].numel()
+    setup_s = time.perf_counter() - t0
+    L, gas, steps = spec["layers"], spec["gas"], spec["steps"]
+    reset_counts()
+    losses, step_s = [], []
+    for _ in range(steps):
+        torch.cuda.synchronize()
+        ts = time.perf_counter()
+        losses.append(float(engine.train_batch(batch)))
+        step_s.append(time.perf_counter() - ts)
+    launches = all_counts()
+    want = {k: 0 for k in launches}
+    want.update(k4_fwd=L * gas * 2 * steps, k4_bwd=L * gas * steps)
+    if launches != want:
+        raise AssertionError(f"[{tag}] launches {launches} != {want}")
+    if not all(math.isfinite(x) for x in losses) or \
+            not losses[-1] < losses[0]:
+        raise AssertionError(f"[{tag}] losses {losses}: not finite and "
+                             f"falling on a repeated batch")
+    peak = torch.cuda.max_memory_allocated()
+    ms_step = statistics.mean(step_s[1:]) * 1e3
+    prof = device_breakdown(lambda: engine.train_batch(batch))
+    k4_share = (prof["k4_ms"] / prof["wall_ms"]
+                if prof.get("device") != "not measured" else "not measured")
+    rec = dict(params=engine.num_parameters(), tokens_per_step=tokens,
+               losses=losses, step_s=step_s, ms_per_step=ms_step,
+               tokens_per_s=tokens / (ms_step / 1e3), peak_mem_bytes=peak,
+               setup_s=setup_s, launches=launches, profile=prof,
+               k4_share_of_step=k4_share)
+    log(f"[{tag}] {rec['params'] / 1e9:.2f} B parameters, {tokens} tokens a "
+        f"step (micro {spec['micro']} x gas {gas} x {spec['seq']}): losses "
+        f"{', '.join(f'{x:.4f}' for x in losses)}; {ms_step:.1f} ms/step, "
+        f"{rec['tokens_per_s']:.0f} tokens/s, peak memory {peak / 1e9:.1f} "
+        f"GB; K4 {prof.get('k4_ms', 0.0):.1f} of {prof['wall_ms']:.1f} ms in "
+        f"a profiled step (share {k4_share}); launches {launches}")
+    engine.close()
+    del engine, model
+    free_cuda()
+    return rec
+
+
+def phase_train_parity(dev) -> dict:
+    """The same width at 4 layers in fp32 with TF32 off, from one seeded
+    init and one batch, trained ``TRAIN_PARITY["steps"]`` steps twice: with
+    ``attn_impl="pallas"`` (K4, every attention counted) and ``"xla"`` (the
+    plain route, K4 never launched). Losses within 1e-5 relative; every
+    parameter after the last step within 1e-4 of the largest |parameter|,
+    and the two runs' parameter changes within 1e-2 of the largest change
+    that training made (three steps move an element by about 3e-4, so the
+    first limit alone would pass a wrong update direction). AdamW with eps
+    1e-5, so an element whose gradient sits within summation noise of zero
+    (the two routes sum in other orders) cannot take a full-size step of
+    opposite sign in the two runs."""
+    import deepspeed_tpu_torch as dst
+    from deepspeed_tpu_torch.models import build_model
+
+    spec = TRAIN_PARITY
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    L, gas, steps = spec["layers"], spec["gas"], spec["steps"]
+    flat = lambda t: [x for v in t.values() for x in
+                      (flat(v) if isinstance(v, dict) else [v])]
+    runs, masters = {}, {}
+    for impl in ("pallas", "xla"):
+        tag = f"train parity {spec['name']} x{L} fp32 {impl}"
+        model = build_model(spec["name"], num_layers=L, dtype=torch.float32,
+                            device=dev, seed=0, attn_impl=impl)
+        engine, *_ = dst.initialize(model=model, config=train_config(
+            spec, bf16={"enabled": False},
+            optimizer={"type": "AdamW",
+                       "params": {"lr": 1e-4, "eps": 1e-5,
+                                  "weight_decay": 0.01}}))
+        batch = train_batch_of(spec, model.config.vocab_size, seed=4)
+        if impl == "xla":
+            p0 = [x.clone() for x in flat(engine.master)]
+        reset_counts()
+        losses = [float(engine.train_batch(batch)) for _ in range(steps)]
+        launches = all_counts()
+        want = {k: 0 for k in launches}
+        if impl == "pallas":
+            want.update(k4_fwd=L * gas * steps, k4_bwd=L * gas * steps)
+        if launches != want:
+            raise AssertionError(f"[{tag}] launches {launches} != {want}")
+        runs[impl] = dict(losses=losses, launches=launches)
+        masters[impl] = engine.master
+        log(f"[{tag}] losses {', '.join(f'{x:.6f}' for x in losses)}; "
+            f"launches {launches}")
+        engine.close()
+        del engine, model
+    rel = max(abs(a - b) / abs(b) for a, b in
+              zip(runs["pallas"]["losses"], runs["xla"]["losses"]))
+    pk, px = flat(masters["pallas"]), flat(masters["xla"])
+    diff = max((a - b).abs().max().item() for a, b in zip(pk, px))
+    scale = max(b.abs().max().item() for b in px)
+    moved = max((b - a).abs().max().item() for a, b in zip(p0, px))
+    out = dict(runs=runs, max_rel_loss_diff=rel, max_param_diff=diff,
+               max_abs_param=scale, max_param_change=moved,
+               param_diff_over_change=diff / moved)
+    log(f"[train parity] K4 against the plain route: losses within "
+        f"{rel:.2e} relative (limit 1e-5), parameters within {diff:.2e} of "
+        f"max |param| {scale:.3f} (limit 1e-4 of it); the largest change "
+        f"training made is {moved:.3e}, the runs' changes differ by "
+        f"{diff / moved:.2e} of it (limit 1e-2)")
+    del masters, pk, px, p0
+    free_cuda()
+    if rel > 1e-5 or diff > 1e-4 * scale or diff > 1e-2 * moved:
+        raise AssertionError(f"[train parity] losses {rel:.2e} relative, "
+                             f"params {diff:.2e} apart, "
+                             f"{diff / moved:.2e} of the largest change")
+    return out
+
+
+# ---------------------------------------------------------------------------
 # main
 # ---------------------------------------------------------------------------
 
@@ -1873,6 +2247,20 @@ def main() -> int:
           "source": "deepspeed_tpu_torch/ops/csrc/grouped_matmul.cu",
           "replaces": "deepspeed_tpu/ops/pallas/grouped_matmul.py:51",
           "launches": None}
+    # K4's forward, and its backward (dq kernel + dk/dv kernel, counted once
+    # a call). The backward's numbers come from the train shape, S = 2048,
+    # where the Pallas package runs the split `_dq_kernel` / `_dkv_kernel`
+    # (:275, :312); the same CUDA entry stands in for the merged
+    # `_dqkv_kernel` (:356) at S <= 1024
+    k4_fwd = {"name": "flash_attention (forward)", "route": "cuda",
+              "source": "deepspeed_tpu_torch/ops/csrc/flash_attention.cu",
+              "replaces": "deepspeed_tpu/ops/pallas/flash_attention.py:183",
+              "launches": None}
+    k4_bwd = {"name": "flash_attention (backward)", "route": "cuda",
+              "source": "deepspeed_tpu_torch/ops/csrc/flash_attention.cu",
+              "replaces": "deepspeed_tpu/ops/pallas/flash_attention.py:275 "
+                          "and :312",
+              "launches": None}
     built = phase_build()          # every later phase runs the kernels
     record["phases"]["build"] = {n: r["seconds"] for n, r in built.items()}
     if "kernel" in phases:
@@ -1889,8 +2277,12 @@ def main() -> int:
         k5.update(k5_summary)
         k3_summary, k3_cases = phase_k3(dev)
         k3.update(k3_summary)
+        k4f_summary, k4b_summary, k4_cases = phase_k4(dev)
+        k4_fwd.update(k4f_summary)
+        k4_bwd.update(k4b_summary)
         record["phases"]["kernel"] = {"k1": cases, "k2": k2_cases,
-                                      "k3": k3_cases, "k5": k5_cases}
+                                      "k3": k3_cases, "k4": k4_cases,
+                                      "k5": k5_cases}
     if "parity" in phases:
         record["phases"]["parity"] = phase_parity(dev)
     if "serve" in phases:
@@ -1905,13 +2297,20 @@ def main() -> int:
                          (k1_forms["tree"], "k1_tree"), (k2, "k2"),
                          (k3, "k3"), (k5, "k5")):
             rec["launches"] = sum(run["launches"][key] for run in runs)
+    if "train-parity" in phases:
+        record["phases"]["train-parity"] = phase_train_parity(dev)
+    if "train" in phases:
+        train = phase_train(dev)
+        record["phases"]["train"] = train
+        k4_fwd["launches"] = train["launches"]["k4_fwd"]
+        k4_bwd["launches"] = train["launches"]["k4_bwd"]
     record["seconds"] = time.perf_counter() - t_start
     os.makedirs(args.out, exist_ok=True)
     with open(os.path.join(args.out, "chip_smoke.json"), "w") as f:
         json.dump(record, f, indent=1, default=str)
     log(f"[done] {record['seconds']:.1f}s")
     log(json.dumps({"kernels": [k1, k1_e4m3, *k1_forms.values(), k2, k3,
-                                k5]}))
+                                k4_fwd, k4_bwd, k5]}))
     log(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

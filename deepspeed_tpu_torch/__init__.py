@@ -11,7 +11,25 @@ the caller asks for the CPU (``device="cpu"``), and raise when the default
 is taken on a machine without one.
 
 Ported so far: FastGen serving (``inference.InferenceEngineV2``) over the
-dense transformer family, with the ragged paged-attention kernel written in
-CUDA for Hopper (``ops/csrc/paged_attention.cu``).
+dense and MoE transformer families, with its kernels written in CUDA for
+Hopper (``ops/csrc/``), and one-process dense training:
+``deepspeed_tpu_torch.initialize(model=..., config=...)`` returns the
+training engine (``runtime/engine.py``), whose attention runs the flash
+kernel K4 (``ops/csrc/flash_attention.cu``). ``initialize``, ``Config`` /
+``DeepSpeedConfig`` and ``DeepSpeedEngine`` are imported on first use.
 """
 from .version import __version__  # noqa: F401
+
+_LAZY = {"initialize": ("runtime.engine", "initialize"),
+         "DeepSpeedEngine": ("runtime.engine", "DeepSpeedEngine"),
+         "Config": ("config", "Config"),
+         "DeepSpeedConfig": ("config", "DeepSpeedConfig")}
+
+
+def __getattr__(name: str):
+    if name in _LAZY:
+        import importlib
+
+        module, attr = _LAZY[name]
+        return getattr(importlib.import_module(f".{module}", __name__), attr)
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

@@ -1,0 +1,636 @@
+"""Typed configuration system.
+
+Counterpart of ``deepspeed_tpu/config.py``, copied section for section with
+the same fields and defaults (bf16 on by default), so one DeepSpeed-style
+JSON file or dict means the same in both packages: per-feature sections,
+``"auto"`` values, batch-term reconciliation (micro x GAS x DP =
+train_batch_size) and unknown-key errors, over plain dataclasses.
+``Config.compute_dtype`` is a torch dtype here.
+
+The keys the JAX package accepts and ignores (GPU-specific knobs of the
+reference) are accepted and ignored here too, with the same log line. A
+section the one-process training engine does not port yet is parsed like
+any other; the engine raises NotImplementedError when it is enabled.
+"""
+from __future__ import annotations
+
+import dataclasses
+import json
+from dataclasses import dataclass, field
+from typing import Any
+
+from .parallel.topology import MeshConfig
+from .utils.logging import logger
+
+AUTO = "auto"
+
+
+def _take(d: dict, cls, section: str):
+    """Build dataclass ``cls`` from dict ``d``, erroring on unknown keys."""
+    d = dict(d or {})
+    known = {f.name for f in dataclasses.fields(cls)}
+    ignored = getattr(cls, "_IGNORED_KEYS", ())
+    for k in list(d):
+        if k in ignored:
+            logger.info(f"config: ignoring key '{section}.{k}' (accepted for "
+                        f"config compatibility, no effect)")
+            d.pop(k)
+    unknown = set(d) - known
+    if unknown:
+        raise ValueError(f"unknown keys in '{section}' config: {sorted(unknown)}")
+    return cls(**d)
+
+
+# --------------------------------------------------------------------------
+# Sections
+# --------------------------------------------------------------------------
+
+@dataclass
+class OptimizerConfig:
+    """Reference: ``optimizer`` section (runtime/config.py get_optimizer_params)."""
+    type: str = "AdamW"
+    params: dict[str, Any] = field(default_factory=dict)
+
+    _IGNORED_KEYS = ("legacy_fusion",)
+
+
+@dataclass
+class SchedulerConfig:
+    """Reference: ``scheduler`` section → runtime/lr_schedules.py."""
+    type: str = "WarmupLR"
+    params: dict[str, Any] = field(default_factory=dict)
+
+
+@dataclass
+class BF16Config:
+    enabled: bool = True  # bf16 on by default, as in the JAX package
+
+    _IGNORED_KEYS = ("immediate_grad_update",)
+
+
+@dataclass
+class FP16Config:
+    """Reference: ``fp16`` section → fp16/loss_scaler.py:91 dynamic scaling."""
+    enabled: bool = False
+    loss_scale: float = 0.0  # 0 → dynamic
+    initial_scale_power: int = 16
+    loss_scale_window: int = 1000
+    hysteresis: int = 2
+    min_loss_scale: float = 1.0
+
+    _IGNORED_KEYS = ("fp16_master_weights_and_grads", "auto_cast", "consecutive_hysteresis")
+
+
+@dataclass
+class OffloadConfig:
+    """Reference: ``offload_optimizer``/``offload_param`` (zero/config.py).
+
+    ``device``: ``none`` | ``cpu`` (host RAM) | ``nvme`` (disk via the host
+    async-IO runtime)."""
+    device: str = "none"
+    nvme_path: str | None = None
+    buffer_count: int = 4
+    pin_memory: bool = False  # accepted; host staging is always pinned by PJRT
+    #: ZeRO-Offload++ Twin-Flow (reference blogs/deepspeed-offloadpp):
+    #: fraction of optimizer state offloaded to the host; the rest updates
+    #: on device, overlapping with the host walk. 1.0 = classic full
+    #: offload. Honored by ``offload_optimizer`` only — ``offload_param``
+    #: rejects partial ratios (validated in ZeroConfig).
+    ratio: float = 1.0
+
+    _IGNORED_KEYS = ("buffer_size", "max_in_cpu", "fast_init")
+
+    def __post_init__(self):
+        if not (0.0 <= self.ratio <= 1.0):
+            raise ValueError(f"offload ratio must be in [0, 1], "
+                             f"got {self.ratio}")
+
+
+@dataclass
+class ZeroConfig:
+    """Reference: ``zero_optimization`` (runtime/zero/config.py).
+
+    Stage semantics (the JAX package's runtime/zero/planner.py; the port's
+    one-process engine takes stage 0 only):
+      0 — DDP: replicated params/opt state, grads pmean over DP axes.
+      1 — optimizer state sharded over ``fsdp``.
+      2 — + gradients reduce-scattered to the shard owner.
+      3 — + parameters sharded over ``fsdp``; XLA inserts the gathers.
+    """
+    stage: int = 0
+    offload_optimizer: OffloadConfig = field(default_factory=OffloadConfig)
+    offload_param: OffloadConfig = field(default_factory=OffloadConfig)
+    # ZeRO++ analogues:
+    zero_quantized_weights: bool = False    # qwZ: int8 param all-gather
+    zero_quantized_gradients: bool = False  # qgZ: int8 grad reduce
+    zero_hpz_partition_size: int = 1        # hpZ: secondary shard within ICI domain
+    mics_shard_size: int = -1               # MiCS: shard over submesh, replicate across
+    # Accepted-but-advisory on TPU (XLA owns scheduling/bucketing):
+    overlap_comm: bool = True
+    contiguous_gradients: bool = True
+    reduce_bucket_size: int = 500_000_000
+    allgather_bucket_size: int = 500_000_000
+    stage3_max_live_parameters: int = 1_000_000_000
+    stage3_max_reuse_distance: int = 1_000_000_000
+    stage3_prefetch_bucket_size: int = 50_000_000
+    stage3_param_persistence_threshold: int = 100_000
+    sub_group_size: int = 1_000_000_000
+    round_robin_gradients: bool = False
+    zero_allow_untested_optimizer: bool = True
+
+    _IGNORED_KEYS = ("allgather_partitions", "reduce_scatter", "cpu_offload",
+                     "elastic_checkpoint", "ignore_unused_parameters",
+                     "legacy_stage1", "stage3_gather_16bit_weights_on_model_save",
+                     "zero_quantized_nontrainable_weights", "memory_efficient_linear")
+
+    def __post_init__(self):
+        if isinstance(self.offload_optimizer, dict):
+            self.offload_optimizer = _take(self.offload_optimizer, OffloadConfig,
+                                           "zero_optimization.offload_optimizer")
+        if isinstance(self.offload_param, dict):
+            self.offload_param = _take(self.offload_param, OffloadConfig,
+                                       "zero_optimization.offload_param")
+        if self.offload_param.ratio != 1.0:
+            raise ValueError(
+                "offload_param.ratio is not supported (Twin-Flow partial "
+                "offload applies to offload_optimizer only)")
+        if not 0 <= self.stage <= 3:
+            raise ValueError(f"zero stage must be 0-3, got {self.stage}")
+
+
+@dataclass
+class ActivationCheckpointingConfig:
+    """Reference: runtime/activation_checkpointing/checkpointing.py. In the
+    port this maps to ``torch.utils.checkpoint`` with a rematerialization
+    policy (ops/remat.py)."""
+    partition_activations: bool = False  # maps to activation sharding over 'seq'
+    cpu_checkpointing: bool = False      # maps to the 'offload' remat policy
+    number_checkpoints: int | None = None
+    # policy name of the ops/remat.py registry
+    policy: str = "none"  # none|full|dots_saveable|nothing_saveable|dots_with_no_batch_dims_saveable|offload
+
+    _IGNORED_KEYS = ("contiguous_memory_optimization",
+                     "synchronize_checkpoint_boundary", "profile")
+
+    def __post_init__(self):
+        if self.cpu_checkpointing and self.policy == "none":
+            self.policy = "offload"
+        elif self.cpu_checkpointing and self.policy not in ("offload", "cpu",
+                                                            "offload_dots"):
+            from .utils.logging import logger
+
+            logger.warning(
+                f"activation_checkpointing.cpu_checkpointing=true conflicts "
+                f"with explicit policy='{self.policy}'; the explicit policy "
+                f"wins and activations are NOT offloaded to host")
+
+
+@dataclass
+class FlopsProfilerConfig:
+    """Reference: profiling/flops_profiler (profiler.py:28)."""
+    enabled: bool = False
+    profile_step: int = 1
+    module_depth: int = -1
+    top_modules: int = 1
+    detailed: bool = True
+    output_file: str | None = None
+
+
+@dataclass
+class CommsLoggerConfig:
+    """Reference: comms_logger section (utils/comms_logging.py:67)."""
+    enabled: bool = False
+    verbose: bool = False
+    debug: bool = False
+    prof_all: bool = True
+    prof_ops: list[str] = field(default_factory=list)
+
+
+@dataclass
+class MonitorBackendConfig:
+    enabled: bool = False
+    output_path: str = ""
+    job_name: str = "DeepSpeedTPUJob"
+    # prometheus extras: scrape endpoint port (None = render-only, no HTTP
+    # server; 0 = ephemeral port, logged at startup)
+    port: int | None = None
+    # wandb extras
+    team: str | None = None
+    group: str | None = None
+    project: str | None = None
+    # comet extras (reference monitor/config.py CometConfig)
+    workspace: str | None = None
+    api_key: str | None = None
+    experiment_name: str | None = None
+    experiment_key: str | None = None
+    online: bool | None = None
+    mode: str | None = None
+
+
+@dataclass
+class TelemetryConfig:
+    """Unified observability (telemetry/): span tracer, metrics registry
+    with serving-SLO + training-health instruments, MFU/goodput, optional
+    Prometheus HTTP endpoint, flight recorder.
+
+    No single reference analogue — the reference scatters this across
+    monitor/, comms_logger and the flops profiler; here one process-wide
+    substrate feeds all of them. Everything degrades to no-ops when
+    disabled (DS_TPU_TELEMETRY=1 enables without a config edit)."""
+    enabled: bool = False
+    #: span ring-buffer capacity (most recent N spans retained)
+    span_buffer: int = 4096
+    #: mirror spans into jax.profiler Trace/StepTraceAnnotation so host
+    #: spans overlay the xplane device trace (profiling/trace.py)
+    mirror_jax: bool = True
+    #: serve /metrics + /healthz on this port (None = off; 0 = ephemeral)
+    http_port: int | None = None
+    #: flight recorder: discrete events retained for postmortem dumps
+    flight_recorder: int = 256
+    #: where watchdog/divergence dumps land (None → DS_TPU_FLIGHT_RECORDER
+    #: env var, else log-only)
+    flight_recorder_path: str | None = None
+    #: MFU denominator override (per-chip dense bf16 peak); None = probe
+    #: the device kind (telemetry/mfu.py table; unknown/CPU → no MFU gauge)
+    peak_tflops: float | None = None
+    #: per-request lifecycle tracing (telemetry/reqtrace.py): trace IDs,
+    #: sampled timelines, per-tenant attribution, SLO-breach auto-capture
+    #: (serving-side; the training engine only forwards the knobs).
+    #: EVERY reqtrace knob here is tri-state: None = leave the
+    #: process-wide tracer alone — configure() only applies non-None
+    #: values, so a training config initializing telemetry later in the
+    #: process cannot stomp a serving engine's (or DS_TPU_REQTRACE's)
+    #: live tracing state. False pins tracing off explicitly.
+    reqtrace: bool | None = None
+    #: fraction of requests whose full timeline is retained (deterministic
+    #: in the trace ID); counters/exemplars need a sampled timeline
+    reqtrace_sample: float | None = None
+    #: memory bounds: completed timelines kept (ring, newest), and events
+    #: retained per timeline (head — admit/prefill context survives)
+    reqtrace_timeline_ring: int | None = None
+    reqtrace_max_events: int | None = None
+    #: SLO-breach thresholds: a TTFT/TBT observation past these dumps the
+    #: offending request's timeline + engine state to the flight recorder
+    slo_ttft_s: float | None = None
+    slo_tbt_s: float | None = None
+    #: min seconds between breach DUMPS (the counter always increments;
+    #: tracer default 60)
+    breach_interval_s: float | None = None
+    #: when set, a breach also captures a bounded jax.profiler trace here
+    breach_profile_dir: str | None = None
+    breach_profile_s: float | None = None
+    #: aggregate scrape (/metrics?aggregate=1): peer snapshot files older
+    #: than this are skipped (counted + logged) instead of merged
+    #: (server default 300)
+    peer_staleness_s: float | None = None
+
+    def __post_init__(self):
+        if self.span_buffer < 1:
+            raise ValueError("telemetry.span_buffer must be >= 1")
+        if self.flight_recorder < 1:
+            raise ValueError("telemetry.flight_recorder must be >= 1")
+        if self.reqtrace_sample is not None \
+                and not 0.0 <= self.reqtrace_sample <= 1.0:
+            raise ValueError("telemetry.reqtrace_sample must be in [0, 1]")
+
+
+@dataclass
+class TensorParallelConfig:
+    """TPU extension mirroring the mpu/AutoTP role (module_inject/auto_tp.py:189):
+    degree comes from mesh.tensor; this section holds behavior knobs."""
+    gather_output: bool = False
+    #: ring collective-matmul overlap (parallel/tensor.py): the row-parallel
+    #: out-projections (attention wo, FFN w_down) run as ring-overlapped
+    #: matmul⊗reduce-scatter + all-gather instead of blocking on the
+    #: GSPMD all-reduce — the partial GEMMs hide under the ring transfers
+    #: and only (n-1)/n of the payload stays exposed. Takes effect when
+    #: mesh.tensor > 1 and mesh.pipe == 1; layers whose token/contraction
+    #: dims don't divide the axis fall back to the plain matmul per site.
+    overlap: bool = False
+
+
+@dataclass
+class PipelineConfig:
+    """Reference: runtime/pipe (PipelineModule module.py:86). Stage count
+    comes from mesh.pipe."""
+    num_micro_batches: int | None = None  # default: gradient_accumulation_steps
+    schedule: str = "1f1b"  # 1f1b | gpipe (interleaved later)
+    partition_method: str = "uniform"
+
+    _IGNORED_KEYS = ("activation_checkpoint_interval", "pipe_partitioned", "grad_partitioned")
+
+
+@dataclass
+class DataTypesConfig:
+    grad_accum_dtype: str | None = None  # fp32|bf16|None→param dtype
+
+
+@dataclass
+class CheckpointConfig:
+    """Reference: engine save/load + checkpoint_engine. Orbax-backed; every
+    checkpoint is 'universal' (reshard-on-load)."""
+    use_node_local_storage: bool = False
+    load_universal: bool = True   # kept for config-compat; always true on TPU
+    async_save: bool = False
+    #: keep only the newest N tags after each save; the tag the engine
+    #: resumed from and the 'latest' target are never GC'd
+    keep_n: int | None = None
+    #: manifest integrity level written at save / checked at load:
+    #: "crc32" (full content checksums) | "size" (existence + byte size,
+    #: no read-back — for multi-GB checkpoints) | "none" (no manifest)
+    integrity: str = "crc32"
+    #: bound on wait_for_checkpoint (an async save thread that wedges must
+    #: surface as a structured CheckpointWaitTimeout, not an infinite
+    #: hang); None/0 → wait forever
+    wait_timeout_s: float | None = None
+
+    _IGNORED_KEYS = ("tag_validation", "parallel_write", "writer")
+
+    def __post_init__(self):
+        if self.integrity not in ("crc32", "size", "none"):
+            raise ValueError(f"checkpoint.integrity must be crc32|size|none, "
+                             f"got '{self.integrity}'")
+
+
+@dataclass
+class ResilienceConfig:
+    """Fault tolerance (runtime/resilience.py): divergence sentinel,
+    preemption-aware saves, hang watchdog, fault injection.
+
+    No reference analogue — the reference's fp16 scaler skips overflowed
+    steps but bf16 runs have no non-finite defense, and preemption /
+    integrity handling lives outside the repo (CheckFreq/Bamboo territory).
+    """
+    #: fuse a non-finite(grads|loss) flag into every train step and skip
+    #: the optimizer update on a bad step — bf16/fp32 included, not just
+    #: the fp16 scaler. Numerically inert on healthy steps.
+    sentinel: bool = True
+    #: >0 enables loss-spike detection: a finite loss above
+    #: ``loss_spike_factor * EMA(loss)`` counts as a bad step
+    loss_spike_factor: float = 0.0
+    loss_ema_beta: float = 0.9
+    #: consecutive bad steps tolerated (device-side skips) before the
+    #: sentinel escalates to a rewind
+    max_consecutive_bad: int = 3
+    #: rewind budget: after this many rewinds the sentinel aborts with
+    #: DivergenceError instead of looping forever
+    max_rewinds: int = 2
+    #: host sentinel sync cadence — observing the flag forces a device
+    #: sync, so raise this to amortize on real slices (1 = every step)
+    check_interval: int = 1
+    #: where rewinds load from; default: the directory of the engine's
+    #: most recent save_checkpoint call
+    rewind_dir: str | None = None
+    #: signals that request a preemption-safe save + exit(PREEMPTED_EXIT_CODE)
+    #: at the next step boundary (empty list disables). SIGINT is opt-in —
+    #: hijacking Ctrl-C surprises interactive runs.
+    preemption_signals: list[str] = field(default_factory=lambda: ["SIGTERM"])
+    #: save a priority synchronous checkpoint before the preemption exit
+    #: (requires a prior save_checkpoint call or rewind_dir to know where)
+    preemption_save: bool = True
+    #: hang watchdog: >0 arms a stall timer around blocking device work
+    #: (train step, restore, checkpoint wait); on stall it dumps all-thread
+    #: stacks + device diagnostics
+    watchdog_timeout_s: float = 0.0
+    #: after the stall dump, self-terminate with WATCHDOG_EXIT_CODE so a
+    #: supervisor can relaunch (default: dump and keep waiting)
+    watchdog_exit: bool = False
+    #: deterministic fault-injection points (tests/chaos drills); merged
+    #: with the DS_TPU_FAULT_INJECT env var — see runtime/resilience.py
+    fault_injection: dict[str, Any] = field(default_factory=dict)
+
+    def __post_init__(self):
+        if self.max_consecutive_bad < 1:
+            raise ValueError("resilience.max_consecutive_bad must be >= 1")
+        if self.check_interval < 1:
+            raise ValueError("resilience.check_interval must be >= 1")
+        if self.max_rewinds < 0:
+            raise ValueError("resilience.max_rewinds must be >= 0")
+
+
+# --------------------------------------------------------------------------
+# Top-level config
+# --------------------------------------------------------------------------
+
+@dataclass
+class HybridEngineConfig:
+    """Reference: hybrid_engine section (runtime/hybrid_engine.py:32) — the
+    RLHF train+generate engine flip."""
+    enabled: bool = False
+    max_out_tokens: int = 512
+    inference_tp_size: int = 1
+    release_inference_cache: bool = False
+
+    # GPU-memory knobs with no TPU meaning; accepted + logged, not fields
+    _IGNORED_KEYS = ("pin_parameters", "tp_gather_partition_size")
+
+
+@dataclass
+class DataEfficiencyConfig:
+    """Reference: runtime/data_pipeline config surface (data_efficiency
+    section with data_sampling.curriculum_learning + data_routing.random_ltd;
+    legacy top-level curriculum_learning maps in via Config.from_dict)."""
+    enabled: bool = False
+    seed: int = 1234
+    data_sampling: dict = field(default_factory=dict)
+    data_routing: dict = field(default_factory=dict)
+
+    def curriculum_config(self) -> dict | None:
+        cl = self.data_sampling.get("curriculum_learning", {})
+        if self.data_sampling.get("enabled", True) and cl.get("enabled", False):
+            return cl
+        return None
+
+    def random_ltd_config(self) -> dict | None:
+        rl = self.data_routing.get("random_ltd", {})
+        if self.data_routing.get("enabled", True) and rl.get("enabled", False):
+            return rl
+        return None
+
+
+_TOP_LEVEL_IGNORED = (
+    # GPU-only / not-applicable sections accepted for config compat:
+    "amp", "apex", "cuda_graphs", "communication_data_type", "disable_allgather",
+    "sparse_gradients", "prescale_gradients", "gradient_predivide_factor",
+    "dump_state", "elasticity", "nebula", "compression_training",
+    "aio", "autotuning",
+    "zero_force_ds_cpu_optimizer", "checkpoint_parallel_write_pipeline",
+    "memory_breakdown", "use_data_before_expert_parallel_",
+)
+
+
+@dataclass
+class Config:
+    """The one config object (reference ``DeepSpeedConfig`` runtime/config.py:706)."""
+
+    # batch terms (reconciled below; reference config.py batch assertions)
+    train_batch_size: int | None = None
+    train_micro_batch_size_per_gpu: int | None = None
+    gradient_accumulation_steps: int | None = None
+
+    steps_per_print: int = 10
+    gradient_clipping: float = 0.0
+    seed: int = 42
+    wall_clock_breakdown: bool = False
+
+    optimizer: OptimizerConfig = field(default_factory=OptimizerConfig)
+    scheduler: SchedulerConfig | None = None
+    bf16: BF16Config = field(default_factory=BF16Config)
+    fp16: FP16Config = field(default_factory=FP16Config)
+    zero_optimization: ZeroConfig = field(default_factory=ZeroConfig)
+    mesh: MeshConfig = field(default_factory=MeshConfig)
+    tensor_parallel: TensorParallelConfig = field(default_factory=TensorParallelConfig)
+    pipeline: PipelineConfig = field(default_factory=PipelineConfig)
+    activation_checkpointing: ActivationCheckpointingConfig = field(
+        default_factory=ActivationCheckpointingConfig)
+    flops_profiler: FlopsProfilerConfig = field(default_factory=FlopsProfilerConfig)
+    comms_logger: CommsLoggerConfig = field(default_factory=CommsLoggerConfig)
+    tensorboard: MonitorBackendConfig = field(default_factory=MonitorBackendConfig)
+    csv_monitor: MonitorBackendConfig = field(default_factory=MonitorBackendConfig)
+    wandb: MonitorBackendConfig = field(default_factory=MonitorBackendConfig)
+    comet: MonitorBackendConfig = field(default_factory=MonitorBackendConfig)
+    prometheus: MonitorBackendConfig = field(
+        default_factory=MonitorBackendConfig)
+    telemetry: TelemetryConfig = field(default_factory=TelemetryConfig)
+    data_types: DataTypesConfig = field(default_factory=DataTypesConfig)
+    checkpoint: CheckpointConfig = field(default_factory=CheckpointConfig)
+    resilience: ResilienceConfig = field(default_factory=ResilienceConfig)
+    data_efficiency: DataEfficiencyConfig = field(
+        default_factory=DataEfficiencyConfig)
+    hybrid_engine: HybridEngineConfig = field(
+        default_factory=HybridEngineConfig)
+
+    # ------------------------------------------------------------------
+    @classmethod
+    def from_dict(cls, d: dict[str, Any]) -> "Config":
+        d = dict(d or {})
+        for k in list(d):
+            if k in _TOP_LEVEL_IGNORED:
+                logger.info(f"config: ignoring section '{k}' (accepted for "
+                            f"config compatibility, no effect)")
+                d.pop(k)
+        # legacy v1 top-level curriculum section (reference config.py
+        # curriculum_params) folds into data_efficiency.data_sampling
+        legacy_cl = d.pop("curriculum_learning", None)
+        if legacy_cl and legacy_cl.get("enabled", False):
+            de = d.setdefault("data_efficiency", {})
+            de.setdefault("enabled", True)
+            ds_sec = de.setdefault("data_sampling", {})
+            ds_sec.setdefault("curriculum_learning", legacy_cl)
+        sections = {
+            "optimizer": OptimizerConfig,
+            "scheduler": SchedulerConfig,
+            "bf16": BF16Config,
+            "fp16": FP16Config,
+            "zero_optimization": ZeroConfig,
+            "tensor_parallel": TensorParallelConfig,
+            "pipeline": PipelineConfig,
+            "activation_checkpointing": ActivationCheckpointingConfig,
+            "flops_profiler": FlopsProfilerConfig,
+            "comms_logger": CommsLoggerConfig,
+            "tensorboard": MonitorBackendConfig,
+            "csv_monitor": MonitorBackendConfig,
+            "wandb": MonitorBackendConfig,
+            "comet": MonitorBackendConfig,
+            "prometheus": MonitorBackendConfig,
+            "telemetry": TelemetryConfig,
+            "data_types": DataTypesConfig,
+            "checkpoint": CheckpointConfig,
+            "resilience": ResilienceConfig,
+            "data_efficiency": DataEfficiencyConfig,
+            "hybrid_engine": HybridEngineConfig,
+        }
+        kwargs: dict[str, Any] = {}
+        for key, sub_cls in sections.items():
+            if key in d:
+                kwargs[key] = _take(d.pop(key), sub_cls, key)
+        if "mesh" in d:
+            kwargs["mesh"] = MeshConfig.from_dict(d.pop("mesh"))
+        # 'bfloat16' alias used by some configs
+        if "bfloat16" in d:
+            kwargs["bf16"] = _take(d.pop("bfloat16"), BF16Config, "bfloat16")
+        known = {f.name for f in dataclasses.fields(cls)}
+        unknown = set(d) - known
+        if unknown:
+            raise ValueError(f"unknown top-level config keys: {sorted(unknown)}")
+        kwargs.update(d)
+        return cls(**kwargs)
+
+    @classmethod
+    def from_json(cls, path: str) -> "Config":
+        with open(path) as f:
+            return cls.from_dict(json.load(f))
+
+    @classmethod
+    def load(cls, config: "str | dict | Config | None") -> "Config":
+        if config is None:
+            return cls()
+        if isinstance(config, Config):
+            return config
+        if isinstance(config, str):
+            return cls.from_json(config)
+        return cls.from_dict(config)
+
+    # ------------------------------------------------------------------
+    def resolve_batch_terms(self, dp_world_size: int) -> None:
+        """Reconcile train/micro/GAS (reference runtime/config.py
+        ``_configure_train_batch_size``): any two determine the third;
+        all three must satisfy train = micro × GAS × dp_world. ``"auto"``
+        values (the HF-integration convention) mean "derive me"."""
+        def norm(v):
+            return None if v == AUTO else v
+
+        train, micro, gas = (norm(self.train_batch_size),
+                             norm(self.train_micro_batch_size_per_gpu),
+                             norm(self.gradient_accumulation_steps))
+        if train is not None and micro is not None and gas is not None:
+            pass
+        elif train is not None and micro is not None:
+            if train % (micro * dp_world_size) != 0:
+                raise ValueError(
+                    f"train_batch_size {train} not divisible by micro_batch "
+                    f"{micro} * dp_world {dp_world_size}")
+            gas = train // (micro * dp_world_size)
+        elif train is not None and gas is not None:
+            if train % (gas * dp_world_size) != 0:
+                raise ValueError(
+                    f"train_batch_size {train} not divisible by GAS {gas} * "
+                    f"dp_world {dp_world_size}")
+            micro = train // (gas * dp_world_size)
+        elif micro is not None:
+            gas = gas or 1
+            train = micro * gas * dp_world_size
+        elif train is not None:
+            gas = 1
+            if train % dp_world_size != 0:
+                raise ValueError(
+                    f"train_batch_size {train} not divisible by dp_world {dp_world_size}")
+            micro = train // dp_world_size
+        else:
+            micro = 1
+            gas = gas or 1
+            train = micro * gas * dp_world_size
+        if train != micro * gas * dp_world_size:
+            raise ValueError(
+                f"inconsistent batch terms: train_batch_size={train} != "
+                f"micro({micro}) * gas({gas}) * dp_world({dp_world_size})")
+        self.train_batch_size = train
+        self.train_micro_batch_size_per_gpu = micro
+        self.gradient_accumulation_steps = gas
+
+    @property
+    def compute_dtype(self):
+        import torch
+
+        if self.fp16.enabled:
+            return torch.float16
+        if self.bf16.enabled:
+            return torch.bfloat16
+        return torch.float32
+
+    def to_dict(self) -> dict[str, Any]:
+        return dataclasses.asdict(self)
+
+
+# Backwards-friendly aliases matching the reference naming
+DeepSpeedConfig = Config

@@ -9,6 +9,11 @@ nested dict of tensors with the flax tree's structure and names
   every parity test takes, so both packages serve identical weights.
 - :func:`module_param_tree` views a port ``TransformerLM``'s own
   parameters as that dict (no copy when dtype and device already match).
+- :func:`load_jax_params` loads a JAX tree into a training model's own
+  parameters in their dtype (the fp32 master before the engine casts), and
+  :func:`to_jax_tree` is the way back: a module's (or an engine's master)
+  parameters as a nested dict of numpy arrays in the JAX layout, so two
+  engines' parameters compare leaf by leaf.
 
 A leaf may be a ``QuantLinear`` or, for an MoE layer's routed experts, a
 ``QuantGrouped`` (codes + scales, ``ops/quant_matmul.py``): it moves to the
@@ -148,3 +153,31 @@ def flatten_tree(tree: Tree, prefix: str = "") -> dict[str, torch.Tensor]:
         else:
             out[key] = v
     return out
+
+
+def load_jax_params(module: torch.nn.Module, tree) -> None:
+    """Copy a JAX-layout parameter tree (numpy arrays or tensors) into
+    ``module``'s parameters, each cast to its parameter's dtype and device;
+    every parameter must be in the tree and nothing else."""
+    dev = next(module.parameters()).device
+    flat = flatten_tree(params_from_jax(tree, dtype=torch.float32,
+                                        device=dev))
+    module.load_state_dict(flat, strict=True)
+
+
+def to_jax_tree(params) -> dict:
+    """A module's parameters (or a nested dict of tensors, e.g. an engine's
+    ``master``) as a nested dict of numpy arrays in the JAX layout; bf16 and
+    fp16 leaves become fp32 (numpy has no bf16)."""
+    tree = module_param_tree(params) if isinstance(params, torch.nn.Module) \
+        else params
+
+    def conv(v):
+        if isinstance(v, dict):
+            return {k: conv(x) for k, x in v.items()}
+        t = v.detach().cpu()
+        if t.dtype in (torch.bfloat16, torch.float16):
+            t = t.float()
+        return t.numpy()
+
+    return conv(tree)

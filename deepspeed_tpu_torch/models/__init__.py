@@ -229,9 +229,10 @@ def get_model_config(name: str, **overrides) -> ModelConfig:
     return dataclasses.replace(cfg, **overrides) if overrides else cfg
 
 
-def build_model(name: str, *, device=None, seed: int = 0,
+def build_model(name: str, *, device=None, seed: int = 0, param_dtype=None,
                 **overrides) -> TransformerLM:
     """Preset ``name`` (with config ``overrides``) as a randomly initialised
-    ``TransformerLM`` on ``device`` (the CUDA device by default)."""
+    ``TransformerLM`` on ``device`` (the CUDA device by default), its
+    parameters in ``param_dtype`` (default: the config's dtype)."""
     return TransformerLM(get_model_config(name, **overrides), device=device,
-                         seed=seed)
+                         seed=seed, param_dtype=param_dtype)

@@ -23,12 +23,21 @@ MoE layers (``moe_layer_freq`` / ``moe_layer_pattern``) carry
 sigmoid-gated shared expert. :meth:`TransformerLM.forward` routes them as
 the JAX model does, through the capacity route with ``drop_tokens=True`` at
 ``eval_capacity_factor`` (the serving engine routes every token instead).
-The port keeps every parameter in ``config.dtype``, the router's ``wg``
-too, where the flax model keeps fp32 parameters and casts the others.
+For serving the port keeps every parameter in ``config.dtype``, the
+router's ``wg`` too, where the flax model keeps fp32 parameters and casts
+the others.
 
-This slice serves; parameters are created without gradients. The
-bert-family encoder layout (post-norm, bidirectional, segment embeddings)
-is ported with a later slice and raises here.
+Parameters are created without gradients, in ``config.dtype`` or in
+``param_dtype`` when given; the forward computes in ``config.dtype``. The
+training engine (``runtime/engine.py``) builds the model with fp32
+parameters (its master copy, as flax initialises fp32 parameters), casts
+them to the compute dtype and turns their gradients on. ``remat`` runs each
+block under the ``ops/remat.py`` policy ``remat_policy`` while gradients
+are being recorded, and attention passes ``attn_impl`` to the dispatcher
+(``ops/attention.py``: "auto" and "pallas" reach the flash kernel K4 where
+its gate holds), as the JAX model does; a sliding window or ALiBi takes the
+plain route. The bert-family encoder layout (post-norm, bidirectional,
+segment embeddings) is ported with a later slice and raises here.
 """
 from __future__ import annotations
 
@@ -44,6 +53,7 @@ from torch import nn
 from ..moe.layer import MoE
 from ..ops.attention import dot_product_attention
 from ..ops.quant_matmul import QuantLinear, quant_matmul
+from ..ops.remat import checkpoint_fn, make_policy
 
 
 @dataclass(frozen=True)
@@ -95,10 +105,10 @@ class ModelConfig:
     type_vocab_size: int = 0
     tie_embeddings: bool = True
     moe: MoEConfig | None = None
-    dtype: Any = torch.bfloat16              # compute (and storage) dtype
+    dtype: Any = torch.bfloat16              # compute dtype
     remat: bool = False
     remat_policy: str = "nothing_saveable"
-    attn_impl: str = "auto"
+    attn_impl: str = "auto"                  # auto | pallas | xla
 
     @property
     def kv_heads(self) -> int:
@@ -170,7 +180,7 @@ def check_served_family(cfg: ModelConfig) -> None:
             "bert-family encoders (bidirectional, post-norm, segment "
             "embeddings, dropout) are ported with a later slice")
     if cfg.remat:
-        raise NotImplementedError("remat is ported with the training slice")
+        make_policy(cfg.remat_policy)   # an unknown or offload policy raises
 
 
 # ---------------------------------------------------------------------------
@@ -395,8 +405,10 @@ class Attention(nn.Module):
                                  dtype=torch.float32)
             rel = k_pos[None, None, None, :] - positions.float()[:, None, :, None]
             bias = slopes[None, :, None, None] * rel
-        out = dot_product_attention(q, k, v, causal=cfg.causal, bias=bias,
-                                    window=cfg.sliding_window)
+        out = dot_product_attention(
+            q, k, v, causal=cfg.causal, bias=bias, window=cfg.sliding_window,
+            impl="xla" if (bias is not None or cfg.sliding_window)
+            else cfg.attn_impl)
         out = proj_out(out, self.wo.to(dt))
         if cfg.attn_out_bias:
             out = out + self.bo.to(dt)
@@ -482,18 +494,20 @@ class Block(nn.Module):
 class TransformerLM(nn.Module):
     """The flagship causal LM. Parameters are created on ``device`` (the
     CUDA device by default; ``device="cpu"`` for the host) in
-    ``config.dtype`` from a ``torch.Generator`` seeded with ``seed``.
+    ``param_dtype`` (default ``config.dtype``) from a ``torch.Generator``
+    seeded with ``seed``.
 
-    :meth:`forward` is the dense, non-paged forward — the oracle the
-    serving engine's streams are held against."""
+    :meth:`forward` is the dense, non-paged forward — the training forward,
+    and the oracle the serving engine's streams are held against."""
 
-    def __init__(self, config: ModelConfig, *, device=None, seed: int = 0):
+    def __init__(self, config: ModelConfig, *, device=None, seed: int = 0,
+                 param_dtype=None):
         super().__init__()
         from ..accelerator import get_device
 
         check_served_family(config)
         self.config = cfg = config
-        pf = _ParamFactory(get_device(device), cfg.dtype, seed)
+        pf = _ParamFactory(get_device(device), param_dtype or cfg.dtype, seed)
         E, V = cfg.hidden_size, cfg.vocab_size
         self.embed = pf.normal((V, E), 0.02)
         if cfg.position_embedding == "learned":
@@ -522,8 +536,12 @@ class TransformerLM(nn.Module):
             x = x + self.pos_embed.to(dt)[positions]
         if cfg.embed_norm:
             x = self.ln_embed(x)
+        remat = cfg.remat and torch.is_grad_enabled()
+        # remat=True always checkpoints; 'none' would contradict it
+        policy = cfg.remat_policy if cfg.remat_policy != "none" else "full"
         for i in range(cfg.num_layers):
-            x = getattr(self, f"layer_{i}")(x, positions)
+            block = getattr(self, f"layer_{i}")
+            x = (checkpoint_fn(block, policy) if remat else block)(x, positions)
         x = self.ln_final(x)
         if cfg.tie_embeddings:
             logits = torch.einsum("bse,ve->bsv", x, self.embed.to(dt))

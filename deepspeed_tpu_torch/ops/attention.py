@@ -1,11 +1,15 @@
-"""Dense attention in plain PyTorch ops.
+"""Attention op dispatcher.
 
-Counterpart of ``_xla_attention`` (``deepspeed_tpu/ops/attention.py:16``):
-fp32 softmax, GQA by repeating K/V heads, causal / decode-position /
-sliding-window / padding masks and an additive bias (ALiBi). It is the
-numerics oracle of the dense model forward. The JAX dispatcher's flash
-route (the Pallas flash kernel, K4) is ported with the training slice; until
-then every call runs this plain version.
+Counterpart of ``deepspeed_tpu/ops/attention.py``: one entry point,
+:func:`dot_product_attention`, that routes a call to
+- the flash-attention kernel K4 (``ops/flash_attention.py``) when its gate
+  holds and ``impl`` is "auto" or "pallas" ("pallas" names K4 in both
+  packages, so a config means the same in each), or
+- :func:`plain_attention`, the counterpart of ``_xla_attention``: fp32
+  softmax, GQA by repeating K/V heads, causal / decode-position /
+  sliding-window / padding masks and an additive bias (ALiBi). It is the
+  reference's own XLA route (``impl="xla"``, a window, a bias, or a call
+  the gate refuses) and the numerics oracle of the dense model forward.
 """
 from __future__ import annotations
 
@@ -14,16 +18,40 @@ import torch
 
 def dot_product_attention(q, k, v, *, causal: bool = True, positions=None,
                           kv_len=None, mask=None, bias=None,
-                          window: int | None = None):
+                          impl: str = "auto", window: int | None = None):
     """q: [B, Sq, H, D]; k/v: [B, Skv, KV, D] (KV divides H for GQA).
 
     ``positions`` [B, Sq] places each query at an absolute position (the
     cached/decode form); ``kv_len`` bounds the valid keys; ``window`` is
     the mistral sliding window (query p attends keys in (p - window, p]);
     ``mask`` [B, Skv] (1 = attend) or broadcastable; ``bias`` is added to
-    the fp32 logits, broadcastable to [B, H, Sq, Skv]."""
+    the fp32 logits, broadcastable to [B, H, Sq, Skv]. ``impl``: "auto" |
+    "pallas" (K4, or ValueError where its gate refuses) | "xla" (plain)."""
     if window and positions is None and not causal:
         raise ValueError("sliding_window requires causal attention")
+    if impl not in ("auto", "pallas", "xla"):
+        raise ValueError(f"unknown attention impl '{impl}'")
+    if impl in ("auto", "pallas") and bias is None and not window:
+        from .flash_attention import flash_attention, flash_attention_usable
+
+        if flash_attention_usable(q, k, v, causal=causal, positions=positions,
+                                  mask=mask):
+            return flash_attention(q, k, v, causal=causal)
+        if impl == "pallas":
+            raise ValueError("pallas flash attention not usable for these "
+                             "inputs")
+    elif impl == "pallas":
+        raise ValueError("pallas flash attention has no additive-bias or "
+                         "sliding-window path yet (these run XLA attention)")
+    return plain_attention(q, k, v, causal=causal, positions=positions,
+                           kv_len=kv_len, mask=mask, bias=bias, window=window)
+
+
+def plain_attention(q, k, v, *, causal: bool = True, positions=None,
+                    kv_len=None, mask=None, bias=None,
+                    window: int | None = None):
+    """The dense plain-torch route (``_xla_attention``), same arguments as
+    :func:`dot_product_attention` less ``impl``."""
     B, Sq, H, D = q.shape
     Skv, KV = k.shape[1], k.shape[2]
     scale = 1.0 / (D ** 0.5)

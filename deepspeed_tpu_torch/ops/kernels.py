@@ -27,7 +27,8 @@ BUILD = Path(__file__).resolve().parent / "build"
 #: kernel library name -> its source in ``csrc/``
 SOURCES = {"paged_attention": "paged_attention.cu",
            "quant_matmul": "quant_matmul.cu",
-           "grouped_matmul": "grouped_matmul.cu"}
+           "grouped_matmul": "grouped_matmul.cu",
+           "flash_attention": "flash_attention.cu"}
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -127,4 +128,14 @@ def _declare(name: str, lib: ctypes.CDLL) -> None:
         # x, w, tile_expert, tile_rows, out; Tp, K, N, n, block_m, dtype;
         # stream
         fn.argtypes = [p] * 5 + [i] * 6 + [p]
+        fn.restype = i
+    elif name == "flash_attention":
+        fn = lib.ds_flash_attention_fwd
+        # q, k, v, out, lse; B, H, KV, S, D; scale; causal, dtype; stream
+        fn.argtypes = [p] * 5 + [i] * 5 + [ctypes.c_float] + [i] * 2 + [p]
+        fn.restype = i
+        fn = lib.ds_flash_attention_bwd
+        # q, k, v, dout, lse, delta, dq, dk, dv; B, H, KV, S, D; scale;
+        # causal, dtype; stream
+        fn.argtypes = [p] * 9 + [i] * 5 + [ctypes.c_float] + [i] * 2 + [p]
         fn.restype = i

@@ -1,8 +1,9 @@
 """The port on the card: the paged-attention CUDA kernel (default,
 e4m3-pool, sliding-window, rolling-ring and tree-verify forms), the
-quantized-weight kernel and the grouped MoE kernels
-(K5's forward, K3) against their plain versions, and the CUDA engine
-against the CPU engine. These need an sm_90
+quantized-weight kernel, the grouped MoE kernels
+(K5's forward, K3) and the flash-attention kernel (K4, forward and
+backward) against their plain versions, the CUDA serving engine against the
+CPU engine, and a training step on the card through K4. These need an sm_90
 GPU and nvcc, so they skip elsewhere; on a machine with the card run
 
     python -m pytest tests/test_torch_cuda.py -m cuda
@@ -435,3 +436,106 @@ def test_cuda_moe_engine_matches_cpu_engine(dev, over):
     assert gpu.generate(prompts, 8) == cpu.generate(prompts, 8)
     assert (qm.grouped_counts.kernel > k3) == ("quant_bits" in over)
     assert (gm.counts.kernel > k5) == ("dropless" in over)
+
+
+# ---------------------------------------------------------------------------
+# K4: flash attention, forward and backward
+# ---------------------------------------------------------------------------
+
+#: K4 against its plain version: fp32 output by max |error|, fp32 grads by
+#: max |error| over max |plain| (sums over S keys in another order), bf16
+#: everything by max |error| over max |plain| (outputs round to bf16)
+K4_TOL = {torch.float32: (1e-4, 1e-3), torch.bfloat16: (2e-2, 2e-2)}
+
+
+def _flash_inputs(dev, dtype, B, H, KV, S, D, seed=0):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    rnd = lambda *s: torch.randn(s, generator=g, device=dev).to(dtype)
+    return rnd(B, H, S, D), rnd(B, KV, S, D), rnd(B, KV, S, D), \
+        rnd(B, H, S, D)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("D", [64, 128, 256])
+@pytest.mark.parametrize("G", [1, 4])
+@pytest.mark.parametrize("S,causal", [(128, True), (200, True), (384, True),
+                                      (200, False)])
+def test_flash_kernel_matches_plain_version(dev, dtype, D, G, S, causal):
+    from deepspeed_tpu_torch.ops import flash_attention as fa
+
+    q, k, v, do = _flash_inputs(dev, dtype, 2, 2 * G, 2, S, D)
+    scale = D ** -0.5
+    fa.counts.reset()
+    out, lse = fa.flash_fwd(q, k, v, causal, scale)
+    dq, dk, dv = fa.flash_bwd(q, k, v, out, lse, do, causal, scale)
+    torch.cuda.synchronize()
+    assert (fa.counts.fwd, fa.counts.bwd, fa.counts.plain) == (1, 1, 0)
+    ref_out, ref_lse = fa.flash_fwd_plain(q, k, v, causal, scale)
+    refs = fa.flash_bwd_plain(q, k, v, ref_out, ref_lse, do, causal, scale)
+    out_tol, grad_tol = K4_TOL[dtype]
+    err = (out.float() - ref_out.float()).abs().max().item()
+    if dtype == torch.bfloat16:
+        err /= ref_out.float().abs().max().item()
+    assert err <= out_tol, ("out", err)
+    assert (lse - ref_lse).abs().max().item() <= 1e-3 * max(
+        1.0, ref_lse.abs().max().item())
+    for name, got, ref in zip(("dq", "dk", "dv"), (dq, dk, dv), refs):
+        assert got.dtype == ref.dtype and got.shape == ref.shape
+        assert torch.isfinite(got).all(), name
+        rel = (got.float() - ref.float()).abs().max().item() / \
+            ref.float().abs().max().item()
+        assert rel <= grad_tol, (name, rel)
+
+
+def test_flash_autograd_launches_the_kernels(dev):
+    from deepspeed_tpu_torch.ops import flash_attention as fa
+    from deepspeed_tpu_torch.ops.attention import dot_product_attention
+
+    q, k, v, _ = _flash_inputs(dev, torch.bfloat16, 1, 4, 2, 256, 64)
+    q, k, v = (t.transpose(1, 2).contiguous().requires_grad_() for t in
+               (q, k, v))
+    fa.counts.reset()
+    out = dot_product_attention(q, k, v, causal=True)
+    out.float().square().sum().backward()
+    torch.cuda.synchronize()
+    assert (fa.counts.fwd, fa.counts.bwd, fa.counts.plain,
+            fa.counts.plain_bwd) == (1, 1, 0, 0)
+    assert k.grad.shape == k.shape and torch.isfinite(q.grad.float()).all()
+    with pytest.raises(ValueError, match="head dim"):
+        fa.flash_fwd(*(torch.zeros(1, 2, 128, 80, device=dev)
+                       for _ in range(3)), True, 0.1)
+
+
+def test_cuda_train_step_runs_attention_through_k4(dev):
+    """One fp32 engine step on the card against the CPU engine from the same
+    weights; every attention of the card's step goes through K4."""
+    import numpy as np
+
+    import deepspeed_tpu_torch as dst
+    from deepspeed_tpu_torch.inference.weights import to_jax_tree
+    from deepspeed_tpu_torch.models import build_model
+    from deepspeed_tpu_torch.ops import flash_attention as fa
+
+    cfg = {"train_micro_batch_size_per_gpu": 2,
+           "gradient_accumulation_steps": 2, "bf16": {"enabled": False},
+           "optimizer": {"type": "AdamW", "params": {"lr": 1e-3, "eps": 1e-5}},
+           "activation_checkpointing": {"policy": "full"}}
+    over = dict(hidden_size=256, dtype=torch.float32)
+    cpu = build_model("tiny-llama", device="cpu", **over)
+    init = to_jax_tree(cpu)
+    batch = {"input_ids": np.random.default_rng(0).integers(
+        0, 256, (4, 128)).astype(np.int32)}
+    losses = {}
+    for where in ("cpu", "cuda"):
+        model = build_model("tiny-llama", device=where, **over)
+        engine, *_ = dst.initialize(model=model, config=dict(cfg),
+                                    params=init, device=where)
+        fa.counts.reset()
+        losses[where] = [float(engine.train_batch(batch)) for _ in range(2)]
+        if where == "cuda":
+            layers = model.config.num_layers
+            # remat "full": each layer's forward runs again in its backward
+            assert fa.counts.fwd == 2 * layers * 2 * 2
+            assert fa.counts.bwd == 2 * layers * 2
+            assert fa.counts.plain == fa.counts.plain_bwd == 0
+    np.testing.assert_allclose(losses["cuda"], losses["cpu"], rtol=1e-4)

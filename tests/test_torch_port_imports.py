@@ -30,14 +30,24 @@ for m in ('deepspeed_tpu_torch.inference.engine_v2',
           'deepspeed_tpu_torch.inference.speculative',
           'deepspeed_tpu_torch.moe', 'deepspeed_tpu_torch.moe.layer',
           'deepspeed_tpu_torch.moe.sharded_moe',
-          'deepspeed_tpu_torch.ops.grouped_matmul'):
+          'deepspeed_tpu_torch.ops.grouped_matmul',
+          'deepspeed_tpu_torch.config', 'deepspeed_tpu_torch.parallel.topology',
+          'deepspeed_tpu_torch.utils.timer',
+          'deepspeed_tpu_torch.runtime.lr_schedules',
+          'deepspeed_tpu_torch.ops.optimizers',
+          'deepspeed_tpu_torch.runtime.fp16', 'deepspeed_tpu_torch.models.loss',
+          'deepspeed_tpu_torch.ops.remat',
+          'deepspeed_tpu_torch.runtime.activation_checkpointing',
+          'deepspeed_tpu_torch.ops.flash_attention',
+          'deepspeed_tpu_torch.runtime.data_pipeline.data_sampler',
+          'deepspeed_tpu_torch.runtime.data', 'deepspeed_tpu_torch.runtime.engine'):
     assert m in names, (m, names)
 print(len(names))
 """
     out = subprocess.run([sys.executable, "-c", code], check=True,
                          capture_output=True, text=True, timeout=300,
                          cwd=ROOT)
-    assert int(out.stdout.split()[-1]) >= 15
+    assert int(out.stdout.split()[-1]) >= 30
 
 
 def _imports(path: pathlib.Path):
@@ -89,8 +99,8 @@ def test_kernel_sources_ship_with_the_package():
     assert "ops/csrc/*.cu" in data["deepspeed_tpu_torch"]
     from deepspeed_tpu_torch.ops.kernels import SOURCES
 
-    assert {"paged_attention", "quant_matmul", "grouped_matmul"} <= \
-        set(SOURCES)
+    assert {"paged_attention", "quant_matmul", "grouped_matmul",
+            "flash_attention"} <= set(SOURCES)
     for src in SOURCES.values():
         assert (PORT / "ops" / "csrc" / src).is_file(), src
     ignored = (ROOT / ".gitignore").read_text().split()
