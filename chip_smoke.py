@@ -1,7 +1,7 @@
 """Smoke run of the PyTorch/CUDA port on one NVIDIA H100.
 
-    python3 chip_smoke.py [--phases build,kernel,parity,serve,train-parity,train]
-                          [--out DIR]
+    python3 chip_smoke.py [--phases build,kernel,parity,serve,train-parity,
+                           train,moe-train-parity,moe-train] [--out DIR]
 
 Phases (every one raises on failure; nothing is caught and passed over):
 
@@ -54,6 +54,17 @@ Phases (every one raises on failure; nothing is caught and passed over):
      rows, or 2 x routed rows x K x N operations. Yardstick: one
      ``torch._grouped_mm`` call in bf16 over the same expert-aligned
      buffer (for K3 the bf16 product it replaces).
+   - K5's backward, dx and dw, in bf16 and fp32, on qwen2-moe's expert
+     w_gate and w_down at one micro-batch of the moe-train phase (2 x 2048
+     tokens x top-4: 16384 routed rows, Tp 24064) and Mixtral's w_gate at
+     512 x 2, under uniform, skewed (every token on 4 experts) and
+     idle-expert routings; judged by ``K2_TOL``. Bound: dx reads the
+     routed dy rows and each active expert's weights and writes the routed
+     dx rows; dw reads the routed x and dy rows and writes every expert's
+     [K, N]; 2 x routed rows x K x N operations. Yardsticks:
+     ``torch._grouped_mm`` in bf16 (dx a 2d x 3d call with w transposed,
+     dw the 2d x 2d call ragged over rows), and its forward + backward
+     through autograd beside K5's forward + dx + dw.
    - K4, flash attention, forward (out and lse) and backward (dq, dk, dv
      from the plain forward's out and lse), in fp32 and bf16, at llama2-7b
      geometry (H = KV = 32, D = 128) at S = 1024 (where the Pallas
@@ -137,6 +148,21 @@ Phases (every one raises on failure; nothing is caught and passed over):
    step (remat runs each layer's forward again), its backward layers x
    micro-batches, no plain version and no other kernel. Prints tokens/s,
    ms per step, peak memory and K4's share of a profiled step.
+7. moe-train-parity — qwen2-moe-a2.7b's width at 2 layers in fp32 (TF32
+   off), ``moe.dropless``, 1 x 2 x 1024 tokens, 3 AdamW steps from one
+   seeded init and batch, trained once through K5's kernels (forward, dx,
+   dw) and once through its plain versions on the card: losses within
+   1e-6 relative, parameters within 1e-4 of max |param|, the runs'
+   parameter changes within 1e-2 of the largest change.
+8. moe-train — qwen2-moe-a2.7b's width (E 2048, 60 experts top-4 of 1408,
+   shared expert 5632, vocab 151936) at 4 layers (~2.9 B parameters; its
+   24 layers with Adam need ~230 GB), ``moe.dropless``, bf16 with an fp32
+   master, AdamW, micro 2 x gas 2 x 2048 tokens, remat "full", 5 steps on
+   a repeated batch: losses finite and falling; K5's forward launched 240
+   times (3 products x 4 layers x 2 micro-batches x 2 under remat x 5
+   steps), dx and dw 120 each, K4 80 / 40, nothing else. Prints ms per
+   step, tokens/s, peak memory and a profiled step's split into K4, K5
+   forward / dx / dw, cuBLAS, other and idle share.
 
 The serving parity phase's dense oracles pass ``attn_impl="xla"``, so they
 stay independent of the kernels under test.
@@ -148,6 +174,7 @@ script exits non-zero and prints no result.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import gc
 import json
@@ -164,7 +191,8 @@ HBM_BYTES_PER_S = 3.35e12
 PEAK_OPS = {torch.bfloat16: 989e12, torch.float32: 67e12,
             torch.float8_e4m3fn: 1979e12}
 
-ALL_PHASES = ("build", "kernel", "parity", "serve", "train-parity", "train")
+ALL_PHASES = ("build", "kernel", "parity", "serve", "train-parity", "train",
+              "moe-train-parity", "moe-train")
 
 #: spread of the K1 cases' q against unit-normal K/V (see k1_case)
 Q_SD = 3.0
@@ -952,6 +980,187 @@ def grouped_summary(results, main_case, main_dtype) -> dict:
                                         "bound_ms", "bound_by")})
 
 
+#: K5's backward on the MoE train path: (label, experts n, K, N, top-k,
+#: tokens) — qwen2-moe's expert w_gate and w_down at one micro-batch of
+#: the moe-train phase (2 x 2048 tokens x top-4: 16384 routed rows, Tp
+#: 24064 at block_m 128), and Mixtral's w_gate at 512 x 2
+GROUPED_BWD_SHAPES = (("qwen2-moe/w_gate", 60, 2048, 1408, 4, 4096),
+                      ("qwen2-moe/w_down", 60, 1408, 2048, 4, 4096),
+                      ("mixtral/w_gate", 8, 4096, 14336, 2, 512))
+
+
+def grouped_bwd_bound(counts, n, K, N, dtype, which):
+    """(bound ms, what bounds it, bytes, operations) of dx or dw: the routed
+    rows of the two row operands read once (dy and x for dw; dy for dx) and
+    dx's routed rows written (dx), or every expert's [K, N] written (dw,
+    zeros included); the weights of each expert that owns a routed row read
+    once (dx); 2 * routed rows * K * N operations either way."""
+    routed = int(counts.sum())
+    active = int((counts > 0).sum())
+    el = torch.empty((), dtype=dtype).element_size()
+    if which == "dx":
+        nbytes = routed * N * el + active * K * N * el + routed * K * el
+    else:
+        nbytes = routed * K * el + routed * N * el + n * K * N * el
+    ops = 2.0 * routed * K * N
+    bound, by = bound_of(nbytes, ops / PEAK_OPS[dtype])
+    return bound, by, float(nbytes), ops
+
+
+def library_grouped_bwd(buf, dy, w_bf16, counts, block_m):
+    """``torch._grouped_mm`` yardsticks in bf16 over the same expert-aligned
+    buffer (group ends from the aligned counts): dx as a 2d x 3d call with
+    w transposed (a view), dw as the 2d x 2d call ragged over rows, and the
+    forward + backward through autograd. None where this torch has no such
+    call."""
+    if not hasattr(torch, "_grouped_mm"):
+        return None
+    aligned = (counts + block_m - 1) // block_m * block_m
+    offs = aligned.cumsum(0).to(torch.int32)
+    xb, dyb = buf.to(torch.bfloat16), dy.to(torch.bfloat16)
+    wt = w_bf16.transpose(1, 2)
+    xg = xb.detach().clone().requires_grad_()
+    wg = w_bf16.detach().clone().requires_grad_()
+
+    def fwd_bwd():
+        torch._grouped_mm(xg, wg, offs=offs).backward(dyb)
+        xg.grad = wg.grad = None
+
+    return dict(dx=lambda: torch._grouped_mm(dyb, wt, offs=offs),
+                dw=lambda: torch._grouped_mm(xb.t(), dyb, offs=offs),
+                fwd_bwd=fwd_bwd)
+
+
+def phase_k5_bwd(dev) -> tuple[dict, dict, list]:
+    """K5's dx and dw kernels against their plain versions at the train
+    path's shapes (``GROUPED_BWD_SHAPES``), under uniform, skewed (every
+    token on 4 experts) and idle-expert routings, bf16 and fp32, judged by
+    ``K2_TOL``; times of each kernel, its plain version, its bound and the
+    ``torch._grouped_mm`` yardstick, and K5's forward + dx + dw beside
+    ``_grouped_mm``'s forward + backward through autograd. Returns the dx
+    and dw records' fields and the cases."""
+    from deepspeed_tpu_torch.ops import grouped_matmul as gm
+
+    results = []
+    seed = 700
+    for label, n, K, N, k, T in GROUPED_BWD_SHAPES:
+        seed += 10
+        g = torch.Generator(device=dev).manual_seed(seed)
+        w32 = torch.randn(n, K, N, generator=g, device=dev) / K ** 0.5
+        w_bf16 = w32.to(torch.bfloat16)
+        for i, (kind, dtype) in enumerate(
+                (kd, dt) for kd in ("spread", "skewed", "idle")
+                for dt in (torch.bfloat16, torch.float32)):
+            buf, srt, cnt = grouped_case(T, k, n, K, K5_BLOCK_M, dtype, dev,
+                                         seed + i, kind)
+            w = w_bf16 if dtype == torch.bfloat16 else w32
+            gd = torch.Generator(device=dev).manual_seed(seed + 50 + i)
+            dy = torch.randn(srt.Tp, N, generator=gd, device=dev).to(dtype)
+            dx_args = (dy, w, srt.tile_expert, K5_BLOCK_M, srt.tile_rows)
+            dw_args = (buf, dy, srt.tile_expert, n, K5_BLOCK_M,
+                       srt.tile_rows)
+            tag = f"K5 bwd {label}/train-{kind}/T={T}x{k}"
+            before = (gm.counts.kernel_dx, gm.counts.kernel_dw)
+            dx = gm.grouped_matmul_dx(*dx_args)
+            dw = gm.grouped_matmul_dw(*dw_args)
+            torch.cuda.synchronize()
+            if (gm.counts.kernel_dx, gm.counts.kernel_dw) != (
+                    before[0] + 1, before[1] + 1):
+                raise AssertionError(f"{tag}: the kernels were not counted")
+            errs = {}
+            for name, got, ref, shape in (
+                    ("dx", dx, gm.grouped_matmul_dx_reference(*dx_args),
+                     (srt.Tp, K)),
+                    ("dw", dw, gm.grouped_matmul_dw_reference(*dw_args),
+                     (n, K, N))):
+                if tuple(got.shape) != shape or not torch.isfinite(got).all():
+                    raise AssertionError(f"{tag} {name}: shape "
+                                         f"{tuple(got.shape)} or non-finite")
+                err = (got.float() - ref.float()).abs().max().item()
+                judged = err / ref.float().abs().max().item()
+                if judged > K2_TOL[dtype]:
+                    raise AssertionError(
+                        f"{tag} {name} {dtype}: kernel against plain error "
+                        f"{judged:.3e} > {K2_TOL[dtype]:.0e} (max abs "
+                        f"{err:.3e})")
+                errs[name] = (err, judged)
+                del ref
+            rec = dict(case=f"{label}/train-{kind}/T={T}x{k}",
+                       dtype=str(dtype).replace("torch.", ""), Tp=srt.Tp,
+                       routed_rows=T * k,
+                       active_experts=int((cnt > 0).sum()),
+                       tol=K2_TOL[dtype])
+            lib = (library_grouped_bwd(buf, dy, w_bf16, cnt, K5_BLOCK_M)
+                   if dtype == torch.bfloat16 else None)
+            for name, fn, plain, args in (
+                    ("dx", gm.grouped_matmul_dx,
+                     gm.grouped_matmul_dx_reference, dx_args),
+                    ("dw", gm.grouped_matmul_dw,
+                     gm.grouped_matmul_dw_reference, dw_args)):
+                bound, by, nbytes, ops = grouped_bwd_bound(cnt, n, K, N,
+                                                           dtype, name)
+                rec[name] = dict(
+                    max_abs_err=errs[name][0], judged_err=errs[name][1],
+                    ms=cuda_time_ms(lambda: fn(*args)),
+                    plain_ms=cuda_time_ms(lambda: plain(*args), iters=2,
+                                          warmup=1, graph=False),
+                    library_ms=(cuda_time_ms(lib[name]) if lib is not None
+                                else None),
+                    bound_ms=bound, bound_by=by, bytes=nbytes, ops=ops)
+            if lib is not None and kind == "spread":
+                # K5's forward + dx + dw through autograd, and _grouped_mm's
+                xg = buf.detach().clone().requires_grad_()
+                wg = w.detach().clone().requires_grad_()
+
+                def k5_fwd_bwd():
+                    gm.grouped_matmul(xg, wg, srt.tile_expert, K5_BLOCK_M,
+                                      srt.tile_rows).backward(dy)
+                    xg.grad = wg.grad = None
+
+                rec["fwd_bwd_ms"] = cuda_time_ms(k5_fwd_bwd, iters=5,
+                                                 warmup=2, graph=False)
+                rec["library_fwd_bwd_ms"] = cuda_time_ms(
+                    lib["fwd_bwd"], iters=5, warmup=2, graph=False)
+                del xg, wg
+            results.append(rec)
+            lib_txt = {nm: (f"{rec[nm]['library_ms']:.4f}"
+                            if rec[nm]["library_ms"] is not None else "none")
+                       for nm in ("dx", "dw")}
+            log(f"[kernel] {tag:<44} {rec['dtype']:<8} "
+                + "  ".join(
+                    f"{nm} err {rec[nm]['judged_err']:.2e} kernel "
+                    f"{rec[nm]['ms']:.4f} ms plain {rec[nm]['plain_ms']:.3f}"
+                    f" _grouped_mm {lib_txt[nm]} bound "
+                    f"{rec[nm]['bound_ms']:.4f} ({rec[nm]['bound_by']})"
+                    for nm in ("dx", "dw"))
+                + (f"  fwd+bwd K5 {rec['fwd_bwd_ms']:.3f} ms, _grouped_mm "
+                   f"{rec['library_fwd_bwd_ms']:.3f} ms"
+                   if "fwd_bwd_ms" in rec else ""))
+            del buf, srt, dy, dx, dw, dx_args, dw_args, lib
+        del w32, w_bf16
+        free_cuda()
+    gm.counts.reset()
+    label, _, _, _, k, T = GROUPED_BWD_SHAPES[0]
+    main = next(r for r in results if r["dtype"] == "bfloat16"
+                and r["case"] == f"{label}/train-spread/T={T}x{k}")
+
+    def summary(name):
+        bf = [r[name] for r in results if r["dtype"] == "bfloat16"]
+        fp = [r[name] for r in results if r["dtype"] == "float32"]
+        out = dict(max_abs_err=max(r["max_abs_err"] for r in bf),
+                   max_err_over_max_ref=max(r["judged_err"] for r in bf),
+                   max_err_over_max_ref_fp32=max(r["judged_err"] for r in fp),
+                   **{k: main[name][k] for k in ("ms", "plain_ms",
+                                                 "library_ms", "bound_ms",
+                                                 "bound_by")})
+        return out
+
+    dx_rec, dw_rec = summary("dx"), summary("dw")
+    dw_rec.update(fwd_dx_dw_ms=main["fwd_bwd_ms"],
+                  library_fwd_bwd_ms=main["library_fwd_bwd_ms"])
+    return dx_rec, dw_rec, results
+
+
 def phase_k3(dev) -> tuple[dict, list]:
     """K3 against its plain version: int8, int4 and e4m3 codes at the MoE
     shapes, decode and prefill routings in bf16, skewed and idle-expert
@@ -1110,7 +1319,10 @@ def all_counts() -> dict:
             "k1_plain": pa.counts.plain, "k2": qm.counts.kernel,
             "k2_plain": qm.counts.plain, "k3": qm.grouped_counts.kernel,
             "k3_plain": qm.grouped_counts.plain, "k5": gm.counts.kernel,
-            "k5_plain": gm.counts.plain, "k4_fwd": fa.counts.fwd,
+            "k5_plain": gm.counts.plain, "k5_dx": gm.counts.kernel_dx,
+            "k5_dw": gm.counts.kernel_dw,
+            "k5_plain_dx": gm.counts.plain_dx,
+            "k5_plain_dw": gm.counts.plain_dw, "k4_fwd": fa.counts.fwd,
             "k4_bwd": fa.counts.bwd, "k4_plain": fa.counts.plain,
             "k4_plain_bwd": fa.counts.plain_bwd}
 
@@ -1162,7 +1374,8 @@ def check_launches(tag, got: dict, cfg, *, forwards, e4m3_pool, quant,
             "k2": dense * f if quant else 0, "k2_plain": 0,
             "k3": experts * f if quant else 0, "k3_plain": 0,
             "k5": experts * f if dropless and not quant else 0,
-            "k5_plain": 0, "k4_fwd": 0, "k4_bwd": 0, "k4_plain": 0,
+            "k5_plain": 0, "k5_dx": 0, "k5_dw": 0, "k5_plain_dx": 0,
+            "k5_plain_dw": 0, "k4_fwd": 0, "k4_bwd": 0, "k4_plain": 0,
             "k4_plain_bwd": 0}
     if forwards <= 0 or got != want:
         raise AssertionError(f"[{tag}] launches {got} != {want} "
@@ -1534,10 +1747,10 @@ def parity_model(dev, name: str, routes) -> dict:
 
 def device_breakdown(run) -> dict:
     """Profile ``run()`` with torch.profiler and split the device's kernel
-    time into K1, K2, K3, K4, K5, matrix products and the rest, beside the host wall
-    time (single stream, so busy time is the kernel time sum). Returns the
-    numbers, or {"device": "not measured"} when the profiler saw no kernel
-    time."""
+    time into K1, K2, K3, K4, K5 (forward, dx, dw), matrix products and the
+    rest, beside the host wall time (single stream, so busy time is the
+    kernel time sum). Returns the numbers, or {"device": "not measured"}
+    when the profiler saw no kernel time."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -1568,8 +1781,11 @@ def device_breakdown(run) -> dict:
             return "k1_ms"
         if "qgmm_" in low:
             return "k3_ms"
+        if "gmm_dw_" in low:
+            return "k5_dw_ms"
         if "::gmm_" in low or low.startswith("gmm_"):
-            return "k5_ms"
+            # the forward and dx share a template: <false> / <true>
+            return "k5_dx_ms" if "kernel<true>" in low else "k5_ms"
         if "qmm_" in low:
             return "k2_ms"
         if any(t in low for t in ("gemm", "xmma", "cutlass", "matmul",
@@ -1578,8 +1794,8 @@ def device_breakdown(run) -> dict:
         return "other_ms"
 
     out = {"wall_ms": wall_ms, "busy_ms": busy, "k1_ms": 0.0, "k2_ms": 0.0,
-           "k3_ms": 0.0, "k4_ms": 0.0, "k5_ms": 0.0, "gemm_ms": 0.0,
-           "other_ms": 0.0,
+           "k3_ms": 0.0, "k4_ms": 0.0, "k5_ms": 0.0, "k5_dx_ms": 0.0,
+           "k5_dw_ms": 0.0, "gemm_ms": 0.0, "other_ms": 0.0,
            "idle_share": max(0.0, 1 - busy / wall_ms)}
     for name, ms in by_name.items():
         out[kind(name)] += ms
@@ -2187,6 +2403,205 @@ def phase_train_parity(dev) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# moe-train: MoE training through the port's engine, K5 forward and backward
+# ---------------------------------------------------------------------------
+
+#: the moe-train phase: qwen2-moe-a2.7b's width (E 2048, H 16, 60 experts
+#: top-4 of F 1408, a sigmoid-gated shared expert of 5632, vocab 151936, qkv
+#: bias) at 4 layers (~2.9 B parameters: its 24 layers with Adam need ~230
+#: GB), ``moe.dropless``, bf16 with an fp32 master, AdamW, micro-batch 2 x
+#: gas 2 of 2048 tokens, remat "full", 5 steps on one repeated batch
+MOE_TRAIN = dict(name="qwen2-moe-a2.7b", layers=4, micro=2, gas=2, seq=2048,
+                 steps=5)
+#: the moe-train parity phase: the same width at 2 layers in fp32 (TF32
+#: off), 1 x 2 sequences of 1024 tokens, 3 steps, K5 against its plain route
+MOE_TRAIN_PARITY = dict(name="qwen2-moe-a2.7b", layers=2, micro=1, gas=2,
+                        seq=1024, steps=3)
+
+
+def dropless_model(spec: dict, dev, **over):
+    """``spec``'s preset at its depth with ``moe.dropless`` on, seeded."""
+    from deepspeed_tpu_torch.models import build_model, get_model_config
+
+    moe = dataclasses.replace(get_model_config(spec["name"]).moe,
+                              dropless=True)
+    return build_model(spec["name"], num_layers=spec["layers"], moe=moe,
+                       device=dev, seed=0, **over)
+
+
+@contextlib.contextmanager
+def k5_plain_route():
+    """K5's plain versions on the card, for the parity phase's reference
+    run only: the wrappers' kernel launches (forward, dx, dw) swapped for
+    the plain versions, counted as plain."""
+    from deepspeed_tpu_torch.ops import grouped_matmul as gm
+
+    def fwd(x, w, te, bm, tr):
+        gm.counts.plain += 1
+        return gm.grouped_matmul_reference(x, w, te, bm, tr)
+
+    def dx(dy, w, te, bm, tr):
+        gm.counts.plain_dx += 1
+        return gm.grouped_matmul_dx_reference(dy, w, te, bm, tr)
+
+    def dw(x, dy, te, n, bm, tr, dtype):
+        gm.counts.plain_dw += 1
+        return gm.grouped_matmul_dw_reference(x, dy, te, n, bm, tr, dtype)
+
+    saved = gm._launch_kernel, gm._launch_dx, gm._launch_dw
+    gm._launch_kernel, gm._launch_dx, gm._launch_dw = fwd, dx, dw
+    try:
+        yield
+    finally:
+        gm._launch_kernel, gm._launch_dx, gm._launch_dw = saved
+
+
+def phase_moe_train_parity(dev) -> dict:
+    """qwen2-moe's width at ``MOE_TRAIN_PARITY["layers"]`` layers in fp32
+    (TF32 off) on the dropless route, from one seeded init and one batch,
+    trained ``steps`` steps twice: through K5's kernels (forward, dx and dw
+    each counted 3 x layers x micro-batches a step) and through K5's plain
+    versions on the card (``k5_plain_route``; no K5 kernel launched). K4
+    runs every attention in both. Losses within 1e-6 relative; every
+    parameter within 1e-4 of the largest |parameter|, and the two runs'
+    parameter changes within 1e-2 of the largest change training made.
+    AdamW with eps 1e-5 (see ``phase_train_parity``)."""
+    import deepspeed_tpu_torch as dst
+
+    spec = MOE_TRAIN_PARITY
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    L, gas, steps = spec["layers"], spec["gas"], spec["steps"]
+    flat = lambda t: [x for v in t.values() for x in
+                      (flat(v) if isinstance(v, dict) else [v])]
+    runs, masters = {}, {}
+    for route in ("kernel", "plain"):
+        tag = f"moe train parity {spec['name']} x{L} fp32 {route}"
+        model = dropless_model(spec, dev, dtype=torch.float32)
+        engine, *_ = dst.initialize(model=model, config=train_config(
+            spec, bf16={"enabled": False},
+            optimizer={"type": "AdamW",
+                       "params": {"lr": 1e-4, "eps": 1e-5,
+                                  "weight_decay": 0.01}}))
+        batch = train_batch_of(spec, model.config.vocab_size, seed=5)
+        if route == "plain":
+            p0 = [x.clone() for x in flat(engine.master)]
+        reset_counts()
+        with (k5_plain_route() if route == "plain"
+              else contextlib.nullcontext()):
+            losses = [float(engine.train_batch(batch)) for _ in range(steps)]
+        launches = all_counts()
+        per = 3 * L * gas * steps
+        want = {k: 0 for k in launches}
+        want.update(k4_fwd=L * gas * steps, k4_bwd=L * gas * steps)
+        if route == "kernel":
+            want.update(k5=per, k5_dx=per, k5_dw=per)
+        else:
+            want.update(k5_plain=per, k5_plain_dx=per, k5_plain_dw=per)
+        if launches != want:
+            raise AssertionError(f"[{tag}] launches {launches} != {want}")
+        runs[route] = dict(losses=losses, launches=launches)
+        masters[route] = engine.master
+        log(f"[{tag}] losses {', '.join(f'{x:.6f}' for x in losses)}; "
+            f"launches {launches}")
+        engine.close()
+        del engine, model
+        free_cuda()
+    rel = max(abs(a - b) / abs(b) for a, b in
+              zip(runs["kernel"]["losses"], runs["plain"]["losses"]))
+    pk, pp = flat(masters["kernel"]), flat(masters["plain"])
+    diff = max((a - b).abs().max().item() for a, b in zip(pk, pp))
+    scale = max(b.abs().max().item() for b in pp)
+    moved = max((b - a).abs().max().item() for a, b in zip(p0, pp))
+    out = dict(runs=runs, max_rel_loss_diff=rel, max_param_diff=diff,
+               max_abs_param=scale, max_param_change=moved,
+               param_diff_over_change=diff / moved)
+    log(f"[moe train parity] K5 against its plain route: losses within "
+        f"{rel:.2e} relative (limit 1e-6), parameters within {diff:.2e} of "
+        f"max |param| {scale:.3f} (limit 1e-4 of it); the largest change "
+        f"training made is {moved:.3e}, the runs' changes differ by "
+        f"{diff / moved:.2e} of it (limit 1e-2)")
+    del masters, pk, pp, p0
+    free_cuda()
+    if rel > 1e-6 or diff > 1e-4 * scale or diff > 1e-2 * moved:
+        raise AssertionError(f"[moe train parity] losses {rel:.2e} relative, "
+                             f"params {diff:.2e} apart, "
+                             f"{diff / moved:.2e} of the largest change")
+    return out
+
+
+def phase_moe_train(dev) -> dict:
+    """``initialize`` the ``MOE_TRAIN`` model on the card and take its steps;
+    every loss finite and the last below the first. Launches per run: K5's
+    forward 3 products x layers x micro-batches x 2 (remat runs each
+    layer's forward again) x steps, its dx and dw 3 x layers x
+    micro-batches x steps; K4's forward layers x micro-batches x 2 x steps,
+    its backward layers x micro-batches x steps; no plain version and no
+    other kernel. Prints ms per step, tokens/s, peak memory, the loss curve
+    and one profiled step's split (K4, K5 forward / dx / dw, cuBLAS, other,
+    idle share)."""
+    import deepspeed_tpu_torch as dst
+
+    spec = MOE_TRAIN
+    tag = f"moe train {spec['name']} x{spec['layers']}"
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    free_cuda()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model = dropless_model(spec, dev, dtype=torch.bfloat16,
+                           param_dtype=torch.float32)
+    engine, *_ = dst.initialize(model=model, config=train_config(
+        spec, activation_checkpointing={"policy": "full"}))
+    if engine.device != dev or not engine.bf16_enabled:
+        raise AssertionError(f"[{tag}] engine on {engine.device}, bf16 "
+                             f"{engine.bf16_enabled}")
+    batch = train_batch_of(spec, model.config.vocab_size, seed=6)
+    tokens = batch["input_ids"].numel()
+    setup_s = time.perf_counter() - t0
+    L, gas, steps = spec["layers"], spec["gas"], spec["steps"]
+    reset_counts()
+    losses, step_s = [], []
+    for _ in range(steps):
+        torch.cuda.synchronize()
+        ts = time.perf_counter()
+        losses.append(float(engine.train_batch(batch)))
+        step_s.append(time.perf_counter() - ts)
+    launches = all_counts()
+    passes = L * gas * steps
+    want = {k: 0 for k in launches}
+    want.update(k5=3 * passes * 2, k5_dx=3 * passes, k5_dw=3 * passes,
+                k4_fwd=passes * 2, k4_bwd=passes)
+    if launches != want:
+        raise AssertionError(f"[{tag}] launches {launches} != {want}")
+    if not all(math.isfinite(x) for x in losses) or \
+            not losses[-1] < losses[0]:
+        raise AssertionError(f"[{tag}] losses {losses}: not finite and "
+                             f"falling on a repeated batch")
+    peak = torch.cuda.max_memory_allocated()
+    ms_step = statistics.mean(step_s[1:]) * 1e3
+    prof = device_breakdown(lambda: engine.train_batch(batch))
+    rec = dict(params=engine.num_parameters(), tokens_per_step=tokens,
+               losses=losses, step_s=step_s, ms_per_step=ms_step,
+               tokens_per_s=tokens / (ms_step / 1e3), peak_mem_bytes=peak,
+               setup_s=setup_s, launches=launches, profile=prof)
+    split = ("not measured" if prof.get("device") == "not measured" else
+             ", ".join(f"{k[:-3]} {prof[k]:.1f}" for k in (
+                 "k4_ms", "k5_ms", "k5_dx_ms", "k5_dw_ms", "gemm_ms",
+                 "other_ms")) + f" of {prof['wall_ms']:.1f} ms wall, idle "
+             f"{prof['idle_share']:.3f}")
+    log(f"[{tag}] {rec['params'] / 1e9:.2f} B parameters, {tokens} tokens a "
+        f"step (micro {spec['micro']} x gas {gas} x {spec['seq']}): losses "
+        f"{', '.join(f'{x:.4f}' for x in losses)}; {ms_step:.1f} ms/step, "
+        f"{rec['tokens_per_s']:.0f} tokens/s, peak memory {peak / 1e9:.1f} "
+        f"GB; profiled step (ms): {split}; launches {launches}")
+    engine.close()
+    del engine, model
+    free_cuda()
+    return rec
+
+
+# ---------------------------------------------------------------------------
 # main
 # ---------------------------------------------------------------------------
 
@@ -2247,6 +2662,17 @@ def main() -> int:
           "source": "deepspeed_tpu_torch/ops/csrc/grouped_matmul.cu",
           "replaces": "deepspeed_tpu/ops/pallas/grouped_matmul.py:51",
           "launches": None}
+    # K5's backward: dx is `_gmm_kernel` with transpose_rhs=True (called
+    # from `_gmm_bwd` :188), dw `_dw_kernel` :130 (call :173)
+    k5_dx = {"name": "grouped_matmul (backward dx)", "route": "cuda",
+             "source": "deepspeed_tpu_torch/ops/csrc/grouped_matmul.cu",
+             "replaces": "deepspeed_tpu/ops/pallas/grouped_matmul.py:51 "
+                         "(transpose_rhs=True, :188)",
+             "launches": None}
+    k5_dw = {"name": "grouped_matmul (backward dw)", "route": "cuda",
+             "source": "deepspeed_tpu_torch/ops/csrc/grouped_matmul.cu",
+             "replaces": "deepspeed_tpu/ops/pallas/grouped_matmul.py:130",
+             "launches": None}
     # K4's forward, and its backward (dq kernel + dk/dv kernel, counted once
     # a call). The backward's numbers come from the train shape, S = 2048,
     # where the Pallas package runs the split `_dq_kernel` / `_dkv_kernel`
@@ -2275,6 +2701,10 @@ def main() -> int:
         k2.update(k2_summary)
         k5_summary, k5_cases = phase_k5(dev)
         k5.update(k5_summary)
+        k5_dx_summary, k5_dw_summary, k5_bwd_cases = phase_k5_bwd(dev)
+        k5_dx.update(k5_dx_summary)
+        k5_dw.update(k5_dw_summary)
+        k5_cases += k5_bwd_cases
         k3_summary, k3_cases = phase_k3(dev)
         k3.update(k3_summary)
         k4f_summary, k4b_summary, k4_cases = phase_k4(dev)
@@ -2304,13 +2734,26 @@ def main() -> int:
         record["phases"]["train"] = train
         k4_fwd["launches"] = train["launches"]["k4_fwd"]
         k4_bwd["launches"] = train["launches"]["k4_bwd"]
+    if "moe-train-parity" in phases:
+        record["phases"]["moe-train-parity"] = phase_moe_train_parity(dev)
+    if "moe-train" in phases:
+        moe_train = phase_moe_train(dev)
+        record["phases"]["moe-train"] = moe_train
+        got = moe_train["launches"]
+        # K5's forward runs on the serving and the MoE training paths; K4
+        # on both training paths
+        k5["launches"] = (k5["launches"] or 0) + got["k5"]
+        k5_dx["launches"] = got["k5_dx"]
+        k5_dw["launches"] = got["k5_dw"]
+        k4_fwd["launches"] = (k4_fwd["launches"] or 0) + got["k4_fwd"]
+        k4_bwd["launches"] = (k4_bwd["launches"] or 0) + got["k4_bwd"]
     record["seconds"] = time.perf_counter() - t_start
     os.makedirs(args.out, exist_ok=True)
     with open(os.path.join(args.out, "chip_smoke.json"), "w") as f:
         json.dump(record, f, indent=1, default=str)
     log(f"[done] {record['seconds']:.1f}s")
     log(json.dumps({"kernels": [k1, k1_e4m3, *k1_forms.values(), k2, k3,
-                                k4_fwd, k4_bwd, k5]}))
+                                k4_fwd, k4_bwd, k5, k5_dx, k5_dw]}))
     log(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -539,7 +539,8 @@ class InferenceEngineV2:
         if isinstance(ml["experts"]["w_up"], QuantGrouped):
             out = self._quant_moe(ml, h)
         else:
-            out = moe_forward(h, ml, **moe_layer_kwargs(m, drop_tokens=False))
+            out, _ = moe_forward(h, ml,
+                                 **moe_layer_kwargs(m, drop_tokens=False))
         return add_shared_expert(out, h, p["moe"], m)
 
     def _quant_moe(self, ml, h):

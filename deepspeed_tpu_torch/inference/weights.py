@@ -10,7 +10,10 @@ nested dict of tensors with the flax tree's structure and names
 - :func:`module_param_tree` views a port ``TransformerLM``'s own
   parameters as that dict (no copy when dtype and device already match).
 - :func:`load_jax_params` loads a JAX tree into a training model's own
-  parameters in their dtype (the fp32 master before the engine casts), and
+  parameters in their dtype (the fp32 master before the engine casts), an
+  MoE training tree included (``moe/moe_layer/gate/wg``,
+  ``moe/moe_layer/experts/{w_gate,w_up,w_down}``, ``moe/shared_expert``,
+  ``moe/shared_gate``: the same names, one for one), and
   :func:`to_jax_tree` is the way back: a module's (or an engine's master)
   parameters as a nested dict of numpy arrays in the JAX layout, so two
   engines' parameters compare leaf by leaf.

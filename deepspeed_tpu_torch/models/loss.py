@@ -3,7 +3,8 @@
 Counterpart of ``deepspeed_tpu/models/loss.py``: the LM cross-entropy
 (:func:`cross_entropy_lm`, fp32 log-sum-exp, ``IGNORE_INDEX`` labels masked
 out, optional z-loss) and the engine's default loss :func:`lm_loss_fn`
-(next-token shift when the batch has no labels).
+(next-token shift when the batch has no labels; plus the losses the MoE
+layers return, as the JAX loss adds what they sow).
 
 ``DS_TPU_CE_CHUNK=<rows>``, read at each call, streams the cross-entropy
 over ``[rows, V]`` pieces, each checkpointed so its fp32 logits are rebuilt
@@ -81,15 +82,14 @@ def shift_labels(input_ids: torch.Tensor) -> torch.Tensor:
 
 def lm_loss_fn(model, batch: dict) -> torch.Tensor:
     """Default engine loss: causal LM on {'input_ids', 'labels'} batches
-    (labels by next-token shift when absent). The JAX loss adds the aux
-    losses its MoE layers sow; the port's model has dense layers only on
-    the training path (MoE training is training part B, and raises), so
-    there is none to add."""
-    cfg = getattr(model, "config", None)
-    if cfg is not None and getattr(cfg, "moe", None) is not None:
-        raise NotImplementedError(
-            "MoE training (gating aux/z losses, K5's backward) is ported with "
-            "training part B (ROADMAP queue 1, item 2)")
+    (labels by next-token shift when absent). For a ``TransformerLM`` the
+    sum of its MoE layers' losses (weighted aux + z) is added, in layer
+    order, as the JAX loss adds the leaves of its ``losses`` collection;
+    ``batch["_gating_seed"]``, which the engine sets for a training step,
+    seeds their RSample jitter. Any other module maps input_ids to
+    logits."""
+    from .transformer import TransformerLM
+
     if os.environ.get("DS_TPU_FUSED_HEAD_CHUNK"):
         raise NotImplementedError(
             "the fused vocab-chunked head loss (DS_TPU_FUSED_HEAD_CHUNK) is "
@@ -98,4 +98,11 @@ def lm_loss_fn(model, batch: dict) -> torch.Tensor:
     labels = batch.get("labels")
     if labels is None:
         labels = shift_labels(input_ids)
-    return cross_entropy_lm(model(input_ids), labels)
+    if not isinstance(model, TransformerLM):
+        return cross_entropy_lm(model(input_ids), labels)
+    logits, layer_losses = model(input_ids, return_losses=True,
+                                 noise_seed=batch.get("_gating_seed"))
+    loss = cross_entropy_lm(logits, labels)
+    for aux in layer_losses:
+        loss = loss + aux
+    return loss

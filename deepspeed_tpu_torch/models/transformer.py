@@ -21,11 +21,17 @@ modules here and the serving engine's ragged forward
 MoE layers (``moe_layer_freq`` / ``moe_layer_pattern``) carry
 :class:`MoEFFN`: the routed experts of ``moe/layer.py`` plus qwen2-moe's
 sigmoid-gated shared expert. :meth:`TransformerLM.forward` routes them as
-the JAX model does, through the capacity route with ``drop_tokens=True`` at
-``eval_capacity_factor`` (the serving engine routes every token instead).
-For serving the port keeps every parameter in ``config.dtype``, the
-router's ``wg`` too, where the flax model keeps fp32 parameters and casts
-the others.
+the JAX model does: the capacity route with ``drop_tokens=True`` (the
+serving engine routes every token instead) or, under ``moe.dropless``, the
+grouped products (K5). The model is built in eval mode, flax's default
+``deterministic=True``: routing at ``eval_capacity_factor``; ``train()``
+switches to ``capacity_factor``. Each MoE layer's loss (aux + z, weighted)
+is a value its block returns; ``forward(..., return_losses=True)`` hands
+them back beside the logits, as flax's ``mutable=["losses"]`` does, and
+they survive ``torch.utils.checkpoint`` as outputs of the block. For
+serving the port keeps every parameter in ``config.dtype``, the router's
+``wg`` too, where the flax model keeps fp32 parameters and casts the
+others.
 
 Parameters are created without gradients, in ``config.dtype`` or in
 ``param_dtype`` when given; the forward computes in ``config.dtype``. The
@@ -449,13 +455,14 @@ class MoEFFN(nn.Module):
                 dataclasses.replace(cfg, intermediate_size=se), pf)
             self.shared_gate = pf.dense((cfg.hidden_size, 1))
 
-    def forward(self, x):
-        out = self.moe_layer(x)
+    def forward(self, x, noise_seed: int | None = None):
+        """(output, the routed layer's loss)."""
+        out, loss = self.moe_layer(x, noise_seed)
         if not self.config.moe.shared_expert_intermediate:
-            return out
+            return out, loss
         p = {"shared_expert": dict(self.shared_expert.named_parameters()),
              "shared_gate": self.shared_gate}
-        return add_shared_expert(out, x, p, self.config)
+        return add_shared_expert(out, x, p, self.config), loss
 
 
 class Block(nn.Module):
@@ -477,18 +484,24 @@ class Block(nn.Module):
         else:
             self.ffn = DenseFFN(dense_ffn_config(cfg), pf)
 
-    def _ffn(self, h):
-        return self.moe(h) if hasattr(self, "moe") else self.ffn(h)
+    def _ffn(self, h, noise_seed):
+        """(FFN output, the MoE layer's loss or None for a dense FFN)."""
+        if hasattr(self, "moe"):
+            return self.moe(h, noise_seed)
+        return self.ffn(h), None
 
-    def forward(self, x, positions):
+    def forward(self, x, positions, noise_seed: int | None = None):
+        """(the block's output, its MoE layer's loss or None)."""
         cfg = self.config
         h = self.ln_attn(x)
         attn_out = self.attn(h, positions)
         if cfg.parallel_block:
             h_ffn = h if cfg.parallel_block_norms == 1 else self.ln_ffn(x)
-            return x + attn_out + self._ffn(h_ffn)
+            out, loss = self._ffn(h_ffn, noise_seed)
+            return x + attn_out + out, loss
         x = x + attn_out
-        return x + self._ffn(self.ln_ffn(x))
+        out, loss = self._ffn(self.ln_ffn(x), noise_seed)
+        return x + out, loss
 
 
 class TransformerLM(nn.Module):
@@ -522,10 +535,16 @@ class TransformerLM(nn.Module):
             self.unembed = pf.normal((E, V), 0.02)
         if cfg.unembed_bias:
             self.unembed_b = pf.zeros((V,))
+        self.eval()
 
     def forward(self, input_ids: torch.Tensor,
-                positions: torch.Tensor | None = None) -> torch.Tensor:
-        """input_ids [B, S] → logits [B, S, V] in ``config.dtype``."""
+                positions: torch.Tensor | None = None, *,
+                return_losses: bool = False, noise_seed: int | None = None):
+        """input_ids [B, S] → logits [B, S, V] in ``config.dtype``; with
+        ``return_losses`` → (logits, the MoE layers' fp32 losses in layer
+        order). ``noise_seed`` seeds the RSample jitter of MoE layers that
+        draw it in training mode (one seed per layer, drawn here, outside
+        any checkpointed block)."""
         cfg = self.config
         dt = cfg.dtype
         B, S = input_ids.shape
@@ -539,9 +558,19 @@ class TransformerLM(nn.Module):
         remat = cfg.remat and torch.is_grad_enabled()
         # remat=True always checkpoints; 'none' would contradict it
         policy = cfg.remat_policy if cfg.remat_policy != "none" else "full"
+        seeds = [None] * cfg.num_layers
+        if noise_seed is not None and self.training:
+            gen = torch.Generator()
+            gen.manual_seed(noise_seed)
+            seeds = torch.randint(0, 2 ** 62, (cfg.num_layers,),
+                                  generator=gen).tolist()
+        losses = []
         for i in range(cfg.num_layers):
             block = getattr(self, f"layer_{i}")
-            x = (checkpoint_fn(block, policy) if remat else block)(x, positions)
+            x, loss = (checkpoint_fn(block, policy) if remat else block)(
+                x, positions, seeds[i])
+            if loss is not None:
+                losses.append(loss)
         x = self.ln_final(x)
         if cfg.tie_embeddings:
             logits = torch.einsum("bse,ve->bsv", x, self.embed.to(dt))
@@ -549,4 +578,4 @@ class TransformerLM(nn.Module):
             logits = x @ self.unembed.to(dt)
         if cfg.unembed_bias:
             logits = logits + self.unembed_b.to(dt)
-        return logits
+        return (logits, losses) if return_losses else logits

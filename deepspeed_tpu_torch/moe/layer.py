@@ -16,8 +16,14 @@ names (``gate/wg`` ``[E, n]``; ``experts/{w_gate, w_up}`` ``[n, E, F]``,
 The math lives in plain functions over parameter dicts (:func:`moe_forward`,
 :func:`dropless_dispatch_combine`), shared by the modules here and the
 serving engine (``inference/engine_v2.py``), whose quantized-expert route
-swaps the grouped product for K3. This slice serves: the forward returns no
-auxiliary losses (they are training state).
+swaps the grouped product for K3. :func:`moe_forward` returns the layer's
+output and its loss, ``aux_loss * aux_loss_weight + z_loss *
+z_loss_weight`` (what the flax layer sows into ``losses``); in training
+mode it routes at ``capacity_factor`` and takes RSample noise, in eval
+mode at ``eval_capacity_factor`` with none (flax's ``deterministic``).
+Gradients reach x, the experts and, through the gates and the losses,
+``gate/wg``; the dropless route's grouped products differentiate through
+K5's dx and dw kernels on the card.
 
 Router precision follows the JAX package: logits are computed in fp32 from
 x and ``wg`` (both upcast), and the gates are cast to x's dtype before the
@@ -97,36 +103,58 @@ def dropless_dispatch_combine(x2d: torch.Tensor, gates: torch.Tensor,
 
 
 def moe_forward(x: torch.Tensor, p, *, num_experts: int, k: int = 2,
+                capacity_factor: float = 1.0,
                 eval_capacity_factor: float = 1.0, min_capacity: int = 4,
                 drop_tokens: bool = True, activation: str = "silu_glu",
+                aux_loss_weight: float = 0.01, z_loss_weight: float = 0.001,
                 dropless: bool = False, dropless_block_m: int = 128,
                 normalize_gates: bool = True, hidden_size: int | None = None,
-                ffn_size: int | None = None, capacity_factor: float = 1.0,
-                aux_loss_weight: float = 0.01,
-                z_loss_weight: float = 0.001) -> torch.Tensor:
-    """The MoE layer's inference forward over ``p`` (``gate/wg``,
-    ``experts/...``): x [B, S, E] (B groups of S tokens) → [B, S, E] in x's
-    dtype. Takes the keyword arguments of ``models.transformer.
-    moe_layer_kwargs``; the sizes come from the weights, and the training
-    options (``capacity_factor``, the loss weights) have no effect here."""
+                ffn_size: int | None = None, training: bool = False,
+                noise: torch.Tensor | None = None
+                ) -> tuple[torch.Tensor, torch.Tensor]:
+    """The MoE layer over ``p`` (``gate/wg``, ``experts/...``): x [B, S, E]
+    (B groups of S tokens) → (y [B, S, E] in x's dtype, the layer's fp32
+    loss ``aux_loss * aux_loss_weight + z_loss * z_loss_weight``). Takes the
+    keyword arguments of ``models.transformer.moe_layer_kwargs``; the sizes
+    come from the weights. ``training`` routes the capacity route at
+    ``capacity_factor`` (else ``eval_capacity_factor``); ``noise`` (a
+    standard-normal [B, S, n], the RSample jitter) is added to the router
+    logits at 1e-2."""
     B, S, E = x.shape
     dt = x.dtype
     logits = router_logits(x, p["gate"]["wg"])                 # [B, S, n]
     if dropless:
-        gate = topk_dropless_gating(logits, k,
+        gate = topk_dropless_gating(logits, k, noise=noise,
                                     normalize_gates=normalize_gates)
         y = dropless_dispatch_combine(
             x.reshape(B * S, E), gate.gates, gate.experts, num_experts, k,
             dropless_block_m,
             lambda buf, srt: experts_grouped(buf, p["experts"], srt,
                                              dropless_block_m, activation))
-        return y.reshape(B, S, E)
-    gate = topkgating(logits, k, eval_capacity_factor, min_capacity,
-                      drop_tokens=drop_tokens,
-                      normalize_gates=normalize_gates)
-    expert_in = torch.einsum("gsnc,gse->ngce", gate.dispatch.to(dt), x)
-    expert_out = experts_capacity(expert_in, p["experts"], activation)
-    return torch.einsum("gsnc,ngce->gse", gate.combine.to(dt), expert_out)
+        y = y.reshape(B, S, E)
+    else:
+        gate = topkgating(logits, k,
+                          capacity_factor if training
+                          else eval_capacity_factor,
+                          min_capacity, noise=noise, drop_tokens=drop_tokens,
+                          normalize_gates=normalize_gates)
+        expert_in = torch.einsum("gsnc,gse->ngce", gate.dispatch.to(dt), x)
+        expert_out = experts_capacity(expert_in, p["experts"], activation)
+        y = torch.einsum("gsnc,ngce->gse", gate.combine.to(dt), expert_out)
+    return y, gate.aux_loss * aux_loss_weight + gate.z_loss * z_loss_weight
+
+
+def gating_noise(shape, device, seed: int | None) -> torch.Tensor:
+    """RSample's standard-normal jitter of the router logits, drawn from a
+    ``torch.Generator`` seeded with ``seed``. Without a seed one is drawn
+    from the default CPU generator, whose state ``torch.utils.checkpoint``
+    restores before it recomputes: either way a rematerialized forward
+    draws the same noise."""
+    if seed is None:
+        seed = int(torch.randint(0, 2 ** 62, ()))
+    gen = torch.Generator(device=device)
+    gen.manual_seed(seed)
+    return torch.randn(shape, generator=gen, device=device)
 
 
 class TopKGate(nn.Module):
@@ -168,7 +196,12 @@ class MoE(nn.Module):
     """The MoE layer (the JAX package's ``MoE``): its options are the
     module's attributes, its parameters ``gate.wg`` and ``experts.*``.
     Parameters are made by ``pf`` (a ``models.transformer._ParamFactory``)
-    or, without one, on ``device`` in ``dtype`` from ``seed``."""
+    or, without one, on ``device`` in ``dtype`` from ``seed``.
+
+    PyTorch's ``self.training`` is flax's ``not deterministic``: the layer
+    is built in eval mode (flax's default), ``train()`` switches it to the
+    training routing and, with ``noisy_gate_policy="RSample"``, the jitter
+    (:func:`gating_noise`)."""
 
     def __init__(self, hidden_size: int, num_experts: int = 8,
                  ffn_size: int | None = None, k: int = 2,
@@ -177,9 +210,13 @@ class MoE(nn.Module):
                  drop_tokens: bool = True, activation: str = "silu_glu",
                  aux_loss_weight: float = 0.01, z_loss_weight: float = 0.001,
                  dropless: bool = False, dropless_block_m: int = 128,
-                 normalize_gates: bool = True, *, pf=None, device=None,
-                 dtype=torch.float32, seed: int = 0):
+                 normalize_gates: bool = True,
+                 noisy_gate_policy: str | None = None, *, pf=None,
+                 device=None, dtype=torch.float32, seed: int = 0):
         super().__init__()
+        if noisy_gate_policy not in (None, "RSample"):
+            raise ValueError(f"noisy_gate_policy must be None or 'RSample', "
+                             f"got {noisy_gate_policy!r}")
         if pf is None:
             from ..accelerator import get_device
             from ..models.transformer import _ParamFactory
@@ -195,22 +232,36 @@ class MoE(nn.Module):
                                                     z_loss_weight)
         self.dropless, self.dropless_block_m = dropless, dropless_block_m
         self.normalize_gates = normalize_gates
+        self.noisy_gate_policy = noisy_gate_policy
         self.gate = TopKGate(hidden_size, num_experts, pf)
         self.experts = Experts(hidden_size, self.ffn_size, num_experts,
                                activation, pf)
+        self.eval()
 
     def options(self) -> dict:
-        """The keyword arguments of :func:`moe_forward`."""
+        """The keyword arguments of :func:`moe_forward` but ``training``
+        and ``noise``."""
         return dict(num_experts=self.num_experts, k=self.k,
+                    capacity_factor=self.capacity_factor,
                     eval_capacity_factor=self.eval_capacity_factor,
                     min_capacity=self.min_capacity,
                     drop_tokens=self.drop_tokens, activation=self.activation,
+                    aux_loss_weight=self.aux_loss_weight,
+                    z_loss_weight=self.z_loss_weight,
                     dropless=self.dropless,
                     dropless_block_m=self.dropless_block_m,
                     normalize_gates=self.normalize_gates)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        """x [B, S, E] → [B, S, E] (inference: eval capacity factor)."""
+    def forward(self, x: torch.Tensor, noise_seed: int | None = None
+                ) -> tuple[torch.Tensor, torch.Tensor]:
+        """x [B, S, E] → (y [B, S, E], the layer's loss), routed for
+        training or eval by ``self.training``; ``noise_seed`` seeds the
+        RSample jitter (training mode only; see :func:`gating_noise`)."""
         p = {"gate": {"wg": self.gate.wg},
              "experts": dict(self.experts.named_parameters())}
-        return moe_forward(x, p, **self.options())
+        noise = None
+        if self.training and self.noisy_gate_policy == "RSample":
+            noise = gating_noise((*x.shape[:2], self.num_experts), x.device,
+                                 noise_seed)
+        return moe_forward(x, p, training=self.training, noise=noise,
+                           **self.options())

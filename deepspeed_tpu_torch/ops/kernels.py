@@ -124,11 +124,13 @@ def _declare(name: str, lib: ctypes.CDLL) -> None:
         fn.argtypes = [p] * 6 + [i] * 9 + [ll, ll, p]
         fn.restype = i
     elif name == "grouped_matmul":
-        fn = lib.ds_grouped_matmul
-        # x, w, tile_expert, tile_rows, out; Tp, K, N, n, block_m, dtype;
-        # stream
-        fn.argtypes = [p] * 5 + [i] * 6 + [p]
-        fn.restype = i
+        # the forward and dx: x (dy), w, tile_expert, tile_rows, out (dx);
+        # dw: x, dy, tile_expert, tile_rows, dw; then Tp, K, N, n,
+        # block_m, dtype; stream
+        for fn in (lib.ds_grouped_matmul, lib.ds_grouped_matmul_dx,
+                   lib.ds_grouped_matmul_dw):
+            fn.argtypes = [p] * 5 + [i] * 6 + [p]
+            fn.restype = i
     elif name == "flash_attention":
         fn = lib.ds_flash_attention_fwd
         # q, k, v, out, lse; B, H, KV, S, D; scale; causal, dtype; stream

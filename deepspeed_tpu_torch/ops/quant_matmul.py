@@ -25,6 +25,7 @@ alone is not: torch saturates out-of-range values to ±448.
 """
 from __future__ import annotations
 
+import dataclasses
 import functools
 import math
 from dataclasses import dataclass
@@ -88,8 +89,8 @@ class LaunchCounts:
     plain: int = 0
 
     def reset(self) -> None:
-        self.kernel = 0
-        self.plain = 0
+        for f in dataclasses.fields(self):
+            setattr(self, f.name, 0)
 
 
 counts = LaunchCounts()

@@ -20,7 +20,15 @@ eagerly, in the same order and precision:
   ``is_gradient_accumulation_boundary``; ``eval_batch``; ``zero_grad``;
   ``skipped_steps``, ``get_lr``, ``get_loss_scale``, ``num_parameters``;
 - the ``activation_checkpointing`` section turns the model's ``remat`` on
-  with the section's policy, as the JAX engine does.
+  with the section's policy, as the JAX engine does;
+- MoE models train on both routes (capacity einsums, or the dropless
+  grouped products, K5 forward and backward on the card) with their
+  layers' aux and z losses in the loss. ``train_batch``, ``forward`` and
+  ``backward`` put the model in train mode (the JAX engine's
+  ``_train_rng``: ``deterministic=False``), ``eval_batch`` in eval mode; a
+  training step's micro-batches carry one ``_gating_seed`` for stochastic
+  layers (RSample jitter), drawn from a generator seeded with the engine's
+  seed and the step.
 
 It runs on the CUDA device unless ``device="cpu"`` is given. Every feature
 that a later part of the port brings raises NotImplementedError when it is
@@ -28,10 +36,11 @@ configured (:func:`check_ported`): ZeRO stages 1-3, optimizer and parameter
 offload, ZeRO++ (quantized weights / gradients, hpZ, MiCS), the 1-bit
 optimizers, curriculum learning and the other data-efficiency routes, the
 hybrid engine, the comms logger, monitor backends, telemetry, the flops
-profiler, checkpoints, and the resilience features that need checkpoints or
-watch the step from outside (rewind directory, loss-spike detection, the
-hang watchdog, fault injection, preemption signals other than the default
-SIGTERM, on which the process simply ends since there is nothing to save).
+profiler, checkpoints (with their resharding), and the resilience features
+that need checkpoints or watch the step from outside (rewind directory,
+loss-spike detection, the hang watchdog, fault injection, preemption
+signals other than the default SIGTERM, on which the process simply ends
+since there is nothing to save).
 Model compression runs outside the config (a compression manager the JAX
 engine reads when set) and is not ported either.
 """
@@ -62,8 +71,8 @@ from ..utils.timer import (
 from . import fp16 as fp16_mod
 from .lr_schedules import Schedule, build_scheduler, constant_lr
 
-PART_B = "training part B (ZeRO over torch.distributed, checkpoints, MoE; " \
-         "ROADMAP queue 1, item 2)"
+PART_B = "training part B (ZeRO over torch.distributed, checkpoints with " \
+         "resharding, the resilience rewind; ROADMAP queue 1, item 2)"
 
 
 class DivergenceError(RuntimeError):
@@ -179,6 +188,7 @@ class DeepSpeedEngine:
             steps_per_output=config.steps_per_print)
 
         self._init_state(params)
+        self._gating = torch.Generator()
         self._accum_grads: list[torch.Tensor] | None = None
         self._accum_count = 0
         self._last_loss: torch.Tensor | None = None
@@ -242,6 +252,17 @@ class DeepSpeedEngine:
         micro = B // gas
         return [{k: v[g * micro:(g + 1) * micro] for k, v in batch.items()}
                 for g in range(gas)]
+
+    def _train_loss(self, batch: dict) -> torch.Tensor:
+        """The loss of a device micro-batch in train mode, with the step's
+        ``_gating_seed``: one seed a step, shared by its micro-batches (the
+        JAX engine folds one key per step), from a generator seeded with
+        the engine's seed and the step."""
+        self.module.train()
+        self._gating.manual_seed(self.config.seed * 1_000_003
+                                 + self.global_step)
+        seed = int(torch.randint(0, 2 ** 62, (), generator=self._gating))
+        return self._loss_fn({**batch, "_gating_seed": seed})
 
     def _backward(self, loss: torch.Tensor) -> None:
         """Add the gradients of ``loss`` (of the scaled loss under fp16,
@@ -338,7 +359,7 @@ class DeepSpeedEngine:
         self._accum_grads, self._accum_count = None, 0
         loss_sum = torch.zeros((), dtype=torch.float32, device=self.device)
         for mb in self._split_for_gas(self._device_batch(batch)):
-            loss = self._loss_fn(mb)
+            loss = self._train_loss(mb)
             self._backward(loss)
             loss_sum = loss_sum + loss.detach().float()
         grads, self._accum_grads, self._accum_count = \
@@ -360,6 +381,9 @@ class DeepSpeedEngine:
 
     @torch.no_grad()
     def eval_batch(self, batch: dict) -> torch.Tensor:
+        """The loss of ``batch`` in eval mode (MoE layers route at
+        ``eval_capacity_factor``, with no jitter), without gradients."""
+        self.module.eval()
         return self._loss_fn(self._device_batch(batch)).detach().float()
 
     # --- imperative triplet (reference forward/backward/step) ----------
@@ -368,7 +392,7 @@ class DeepSpeedEngine:
         next :meth:`backward` (which may also be given a function of this
         loss)."""
         self.timers(FORWARD_GLOBAL_TIMER).start()
-        loss = self._loss_fn(self._device_batch(batch))
+        loss = self._train_loss(self._device_batch(batch))
         self.timers(FORWARD_GLOBAL_TIMER).stop()
         self._pending = loss
         return loss
@@ -382,7 +406,7 @@ class DeepSpeedEngine:
         if isinstance(batch, torch.Tensor):
             loss, batch = batch, None
         if batch is not None:
-            loss = self._loss_fn(self._device_batch(batch))
+            loss = self._train_loss(self._device_batch(batch))
         elif loss is None:
             loss = self._pending
             if loss is None:

@@ -1,9 +1,10 @@
 """The port on the card: the paged-attention CUDA kernel (default,
 e4m3-pool, sliding-window, rolling-ring and tree-verify forms), the
 quantized-weight kernel, the grouped MoE kernels
-(K5's forward, K3) and the flash-attention kernel (K4, forward and
-backward) against their plain versions, the CUDA serving engine against the
-CPU engine, and a training step on the card through K4. These need an sm_90
+(K5's forward, dx and dw; K3) and the flash-attention kernel (K4, forward
+and backward) against their plain versions, the CUDA serving engine against
+the CPU engine, and training steps on the card through K4 and through K5's
+forward and backward. These need an sm_90
 GPU and nvcc, so they skip elsewhere; on a machine with the card run
 
     python -m pytest tests/test_torch_cuda.py -m cuda
@@ -337,6 +338,48 @@ def test_grouped_matmul_kernel_matches_plain_version(dev, dtype, tol, T, k,
     assert _judged(full, ref) <= tol
 
 
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5),
+                                       (torch.bfloat16, 1e-2)])
+@pytest.mark.parametrize("T,k,n,K,N,bm,kind", [
+    (300, 4, 12, 512, 320, 128, "spread"),
+    (300, 2, 6, 200, 136, 32, "skewed"),      # K and N off the tile
+    (40, 2, 16, 128, 64, 64, "spread"),       # experts with no tile
+    (64, 1, 3, 96, 72, 96, "skewed")])        # block_m not a power of 2
+def test_grouped_matmul_backward_kernels_match_plain_versions(
+        dev, dtype, tol, T, k, n, K, N, bm, kind):
+    """K5's dx and dw kernels against their plain versions, each counted
+    once: max |error| over max |plain|; dx's padding rows and the dw of an
+    expert with no tile are exactly zero; autograd through
+    ``grouped_matmul`` launches both and gives the same gradients."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    buf, srt = _routed(dev, dtype, T=T, k=k, n=n, K=K, bm=bm, seed=T + K,
+                       kind=kind)
+    g = torch.Generator(device=dev).manual_seed(n)
+    w = (torch.randn(n, K, N, generator=g, device=dev) / K ** 0.5).to(dtype)
+    dy = torch.randn(srt.Tp, N, generator=g, device=dev).to(dtype)
+    args = (srt.tile_expert, bm, srt.tile_rows)
+    before = (gm.counts.kernel_dx, gm.counts.kernel_dw)
+    dx = gm.grouped_matmul_dx(dy, w, *args)
+    dw = gm.grouped_matmul_dw(buf, dy, srt.tile_expert, n, bm, srt.tile_rows)
+    torch.cuda.synchronize()
+    assert (gm.counts.kernel_dx, gm.counts.kernel_dw) == (before[0] + 1,
+                                                          before[1] + 1)
+    ref_dx = gm.grouped_matmul_dx_reference(dy, w, *args)
+    ref_dw = gm.grouped_matmul_dw_reference(buf, dy, srt.tile_expert, n, bm,
+                                            srt.tile_rows)
+    assert dx.shape == (srt.Tp, K) and dw.shape == (n, K, N)
+    assert dx.dtype == dw.dtype == dtype
+    assert _judged(dx, ref_dx) <= tol and _judged(dw, ref_dw) <= tol
+    assert (dx[~gm.row_mask(srt.Tp, bm, srt.tile_rows)] == 0).all()
+    owned = set(srt.tile_expert[srt.tile_rows > 0].tolist())
+    for e in set(range(n)) - owned:
+        assert (dw[e] == 0).all()
+    x = buf.clone().requires_grad_()
+    wt = w.clone().requires_grad_()
+    gm.grouped_matmul(x, wt, *args).backward(dy)
+    assert torch.equal(x.grad, dx) and torch.equal(wt.grad, dw)
+
+
 def test_grouped_kernels_refuse_what_they_do_not_take(dev):
     buf, srt = _routed(dev, torch.bfloat16, T=8, k=2, n=4, K=64, bm=16,
                        seed=1)
@@ -399,13 +442,18 @@ def test_grouped_products_never_run_plain_on_the_card(dev, monkeypatch):
     """On CUDA tensors both wrappers launch their kernels; the plain
     versions are never called."""
     monkeypatch.setattr(gm, "grouped_matmul_reference", None)
+    monkeypatch.setattr(gm, "grouped_matmul_dx_reference", None)
+    monkeypatch.setattr(gm, "grouped_matmul_dw_reference", None)
     monkeypatch.setattr(gm, "tiled_reference", None)
     monkeypatch.setattr(qm, "quant_grouped_matmul_reference", None)
     buf, srt = _routed(dev, torch.bfloat16, T=8, k=2, n=4, K=128, bm=32,
                        seed=3)
     w = torch.randn(4, 128, 64, device=dev, dtype=torch.bfloat16)
-    assert gm.grouped_matmul(buf, w, srt.tile_expert, 32).shape == \
-        (srt.Tp, 64)
+    x = buf.requires_grad_()
+    out = gm.grouped_matmul(x, w.requires_grad_(), srt.tile_expert, 32)
+    assert out.shape == (srt.Tp, 64)
+    out.sum().backward()
+    assert x.grad.shape == buf.shape and w.grad.shape == w.shape
     qw = qm.quantize_grouped(w.float(), bits=8)
     assert qm.quant_grouped_matmul(buf, qw, srt.tile_expert,
                                    block_m=32).shape == (srt.Tp, 64)
@@ -538,4 +586,45 @@ def test_cuda_train_step_runs_attention_through_k4(dev):
             assert fa.counts.fwd == 2 * layers * 2 * 2
             assert fa.counts.bwd == 2 * layers * 2
             assert fa.counts.plain == fa.counts.plain_bwd == 0
+    np.testing.assert_allclose(losses["cuda"], losses["cpu"], rtol=1e-4)
+
+
+def test_cuda_moe_train_step_runs_experts_through_k5(dev):
+    """Two fp32 engine steps of tiny-mixtral on the dropless route on the
+    card against the CPU engine from the same weights: every expert product
+    goes through K5's forward kernel and its backward through the dx and dw
+    kernels (3 products x 2 layers x 2 micro-batches x 2 steps each, the
+    forward twice under remat "full"); no plain version runs."""
+    import dataclasses
+
+    import numpy as np
+
+    import deepspeed_tpu_torch as dst
+    from deepspeed_tpu_torch.inference.weights import to_jax_tree
+    from deepspeed_tpu_torch.models import build_model, get_model_config
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = {"train_micro_batch_size_per_gpu": 2,
+           "gradient_accumulation_steps": 2, "bf16": {"enabled": False},
+           "optimizer": {"type": "AdamW", "params": {"lr": 1e-3, "eps": 1e-5}},
+           "activation_checkpointing": {"policy": "full"}}
+    moe = dataclasses.replace(get_model_config("tiny-mixtral").moe,
+                              dropless=True, dropless_block_m=32)
+    over = dict(moe=moe, dtype=torch.float32)
+    init = to_jax_tree(build_model("tiny-mixtral", device="cpu", **over))
+    batch = {"input_ids": np.random.default_rng(0).integers(
+        0, 256, (4, 64)).astype(np.int32)}
+    losses = {}
+    for where in ("cpu", "cuda"):
+        model = build_model("tiny-mixtral", device=where, **over)
+        engine, *_ = dst.initialize(model=model, config=dict(cfg),
+                                    params=init, device=where)
+        gm.counts.reset()
+        losses[where] = [float(engine.train_batch(batch)) for _ in range(2)]
+        if where == "cuda":
+            passes = 3 * 2 * 2 * 2
+            assert (gm.counts.kernel, gm.counts.kernel_dx,
+                    gm.counts.kernel_dw) == (2 * passes, passes, passes)
+            assert gm.counts.plain == gm.counts.plain_dx == \
+                gm.counts.plain_dw == 0
     np.testing.assert_allclose(losses["cuda"], losses["cpu"], rtol=1e-4)

@@ -85,10 +85,26 @@ def test_tile_rows_skip_only_padding(case):
 
 
 def test_the_backward_waits_for_the_training_slice():
-    x = torch.zeros(16, 8, requires_grad=True)
-    w = torch.zeros(2, 8, 4)
-    with pytest.raises(NotImplementedError, match="training slice"):
-        tg.grouped_matmul(x, w, torch.zeros(2, dtype=torch.int32), 8)
+    """The training slice brought the backward: on the CPU route gradients
+    flow through ``grouped_matmul`` to x and w (the plain dx and dw, each
+    counted once), and equal autograd through the plain forward written
+    out row by row (fp32, 1e-5 of the largest gradient)."""
+    buf, w, te, srt = _inputs(37, 2, 4, 64, 96, 8, seed=2)
+    x = torch.from_numpy(buf).requires_grad_()
+    wt = torch.from_numpy(w).requires_grad_()
+    before = (tg.counts.plain_dx, tg.counts.plain_dw)
+    out = tg.grouped_matmul(x, wt, torch.from_numpy(te), 8, srt.tile_rows)
+    dy = torch.randn(out.shape, generator=torch.Generator().manual_seed(0))
+    out.backward(dy)
+    assert (tg.counts.plain_dx, tg.counts.plain_dw) == (before[0] + 1,
+                                                        before[1] + 1)
+    x2 = x.detach().clone().requires_grad_()
+    w2 = wt.detach().clone().requires_grad_()
+    rows = torch.from_numpy(te).long().repeat_interleave(8)
+    keep = tg.row_mask(x2.shape[0], 8, srt.tile_rows)[:, None]
+    (torch.einsum("tk,tkn->tn", x2, w2[rows]) * keep).backward(dy)
+    for got, want in ((x.grad, x2.grad), (wt.grad, w2.grad)):
+        assert (got - want).abs().max() <= 1e-5 * want.abs().max()
 
 
 def test_shapes_are_checked():

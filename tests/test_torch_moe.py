@@ -188,7 +188,7 @@ def test_moe_layer_matches_flax_apply(name):
                         mutable=["losses"])
     ref = np.asarray(ref)
     with torch.no_grad():
-        got = tmod(torch.from_numpy(x)).numpy()
+        got = tmod(torch.from_numpy(x))[0].numpy()
     assert np.abs(got - ref).max() <= 1e-5 * np.abs(ref).max()
     if name == "capacity-drop":
         # some tokens were dropped (zero FFN output) and the port agrees

@@ -291,7 +291,7 @@ def test_deferred_features_raise(over, match):
                        config=config(**over), device="cpu")
 
 
-def test_checkpoints_and_moe_raise():
+def test_checkpoints_raise_and_moe_trains():
     e, *_ = dst.initialize(model=build_model("tiny-gpt2", device="cpu"),
                            config=config(), device="cpu")
     with pytest.raises(NotImplementedError, match="checkpoints"):
@@ -300,8 +300,7 @@ def test_checkpoints_and_moe_raise():
         e.load_checkpoint("/nonexistent")
     moe, *_ = dst.initialize(model=build_model("tiny-mixtral", device="cpu"),
                              config=config(), device="cpu")
-    with pytest.raises(NotImplementedError, match="MoE training"):
-        moe.train_batch(batch())
+    assert np.isfinite(float(moe.train_batch(batch())))
 
 
 def test_engine_defaults_to_the_card():
