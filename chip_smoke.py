@@ -1,7 +1,8 @@
 """Smoke run of the PyTorch/CUDA port on one NVIDIA H100.
 
     python3 chip_smoke.py [--phases build,kernel,parity,serve,train-parity,
-                           train,moe-train-parity,moe-train] [--out DIR]
+                           train,moe-train-parity,moe-train,sparse]
+                          [--out DIR]
 
 Phases (every one raises on failure; nothing is caught and passed over):
 
@@ -78,6 +79,27 @@ Phases (every one raises on failure; nothing is caught and passed over):
      the bytes over 3.35 TB/s. Yardstick: one
      ``scaled_dot_product_attention(is_causal=...)`` call over K/V
      repeated per q head, forward and forward + backward.
+   - K6, block-sparse flash attention, forward (out and lse), dq and dk/dv
+     (each timed alone and together), in bf16 and fp32, q at 3x the keys'
+     spread: at bert-large-uncased width (H 16, D 64, B 2, S 4096, block
+     128) under the Fixed, per-head BigBird, BSLongformer and Variable
+     configs; at llama2-7b width (H 32, D 128, B 1, S 8192) under Fixed
+     unidirectional with causal masking; a dense causal layout at K4's
+     train shape (B 2, S 2048), also timed through K4; a random layout
+     with an empty query row and a row that sees only a block above the
+     diagonal (their outputs and dq must be 0); blocks of 256 (S 4096)
+     and 192 (S 3072). Tolerances ``K4_TOL``. Bound: K4's, over the
+     visible token pairs of the layout. Yardstick: one
+     ``scaled_dot_product_attention`` call with the boolean token mask
+     ``[1, H, S, S]``, forward and forward + backward (bf16).
+   - K7, the per-layer-slice paged attention over separate K/V pools, in
+     fp32 and bf16 by ``K1_TOL`` with an empty slot and trash-padded
+     tables: llama2-7b geometry (block 64) decode of 8 slots at 256-4000
+     context and a 4 x 256 prefill chunk over 0-768 context; mistral-7b
+     geometry with its 4096 window on a linear table and on a wrapped
+     69-page ring, decode and a 4 x 256 chunk. Bound: q, the output and
+     the K/V rows some query row sees. Yardstick: SDPA over the gathered
+     K/V with the boolean mask of who sees what.
 3. parity — llama2-7b at full width with 4 layers in fp32: the engine's
    greedy streams against a greedy loop over the dense
    ``TransformerLM.forward``. TF32 is off for matmuls and cuDNN. Streams
@@ -164,6 +186,20 @@ Phases (every one raises on failure; nothing is caught and passed over):
    step, tokens/s, peak memory and a profiled step's split into K4, K5
    forward / dx / dw, cuBLAS, other and idle share.
 
+9. sparse — ``SparseSelfAttention`` end to end: the Fixed, per-head
+   BigBird, BSLongformer, Variable and Fixed-unidirectional (causal)
+   configs at block 128, each at bert-large width (B 2, S 4096) and
+   llama2-7b width (B 1, S 8192), bf16, forward and ``.backward()`` of a
+   sum-of-squares loss, one warm-up and 5 timed iterations: K6's forward
+   and backward launched 6 times each, nothing plain and no other kernel.
+   Prints ms per forward + backward, tokens/s, peak memory and
+   ``sparsity()``. Then fp32 parity at S 2048 (BigBird at bert width,
+   Fixed unidirectional at llama width): output and q/k/v gradients
+   through K6 against the plain route on the card, by the fp32
+   ``K4_TOL``. K6's launches in the record line are this phase's; K7 has
+   no caller on any path, so its launches are the kernel phase's checked
+   calls.
+
 The serving parity phase's dense oracles pass ``attn_impl="xla"``, so they
 stay independent of the kernels under test.
 
@@ -192,7 +228,7 @@ PEAK_OPS = {torch.bfloat16: 989e12, torch.float32: 67e12,
             torch.float8_e4m3fn: 1979e12}
 
 ALL_PHASES = ("build", "kernel", "parity", "serve", "train-parity", "train",
-              "moe-train-parity", "moe-train")
+              "moe-train-parity", "moe-train", "sparse")
 
 #: spread of the K1 cases' q against unit-normal K/V (see k1_case)
 Q_SD = 3.0
@@ -1307,6 +1343,7 @@ def tap_engine_class():
 
 def all_counts() -> dict:
     """Every kernel wrapper's launch counts."""
+    from deepspeed_tpu_torch.ops import block_sparse_attention as bsa
     from deepspeed_tpu_torch.ops import flash_attention as fa
     from deepspeed_tpu_torch.ops import grouped_matmul as gm
     from deepspeed_tpu_torch.ops import paged_attention as pa
@@ -1324,15 +1361,22 @@ def all_counts() -> dict:
             "k5_plain_dx": gm.counts.plain_dx,
             "k5_plain_dw": gm.counts.plain_dw, "k4_fwd": fa.counts.fwd,
             "k4_bwd": fa.counts.bwd, "k4_plain": fa.counts.plain,
-            "k4_plain_bwd": fa.counts.plain_bwd}
+            "k4_plain_bwd": fa.counts.plain_bwd, "k6_fwd": bsa.counts.fwd,
+            "k6_bwd": bsa.counts.bwd, "k6_plain": bsa.counts.plain,
+            "k6_plain_bwd": bsa.counts.plain_bwd,
+            "k7": pa.prefill_counts.kernel,
+            "k7_plain": pa.prefill_counts.plain}
 
 
 def reset_counts() -> None:
+    from deepspeed_tpu_torch.ops import block_sparse_attention as bsa
     from deepspeed_tpu_torch.ops import flash_attention as fa
     from deepspeed_tpu_torch.ops import grouped_matmul as gm
     from deepspeed_tpu_torch.ops import paged_attention as pa
     from deepspeed_tpu_torch.ops import quant_matmul as qm
 
+    bsa.counts.reset()
+    pa.prefill_counts.reset()
     pa.counts.reset()
     qm.counts.reset()
     qm.grouped_counts.reset()
@@ -1356,7 +1400,7 @@ def check_launches(tag, got: dict, cfg, *, forwards, e4m3_pool, quant,
     of every layer, a dense FFN's products, the unembedding) and K3 once per
     expert product of every MoE layer; K5 once per expert product under
     ``moe.dropless`` without quantization; never K4 (serving has no
-    full-sequence attention); no plain version at all."""
+    full-sequence attention), K6 or K7; no plain version at all."""
     from deepspeed_tpu_torch.models.transformer import is_moe_layer
 
     L = cfg.num_layers
@@ -1376,7 +1420,8 @@ def check_launches(tag, got: dict, cfg, *, forwards, e4m3_pool, quant,
             "k5": experts * f if dropless and not quant else 0,
             "k5_plain": 0, "k5_dx": 0, "k5_dw": 0, "k5_plain_dx": 0,
             "k5_plain_dw": 0, "k4_fwd": 0, "k4_bwd": 0, "k4_plain": 0,
-            "k4_plain_bwd": 0}
+            "k4_plain_bwd": 0, "k6_fwd": 0, "k6_bwd": 0, "k6_plain": 0,
+            "k6_plain_bwd": 0, "k7": 0, "k7_plain": 0}
     if forwards <= 0 or got != want:
         raise AssertionError(f"[{tag}] launches {got} != {want} "
                              f"({L} layers x {forwards} forwards)")
@@ -2231,6 +2276,576 @@ def phase_k4(dev) -> tuple[dict, dict, list]:
 
 
 # ---------------------------------------------------------------------------
+# K6: block-sparse flash attention; K7: per-layer-slice paged attention
+# ---------------------------------------------------------------------------
+
+#: attention widths of the sparse cases: bert-large-uncased's (16 heads of
+#: 64) and llama2-7b's (32 heads of 128), with the batch and length each
+#: runs at
+SPARSE_WIDTHS = {"bert-large": dict(H=16, D=64, B=2, S=4096),
+                 "llama2-7b": dict(H=32, D=128, B=1, S=8192)}
+#: the sparsity configurations DeepSpeed's sparse attention users pick, each
+#: at block 128 with the config's defaults: (label, config, options); the
+#: unidirectional one is causal
+SPARSE_CONFIGS = (("fixed", "fixed", {}),
+                  ("bigbird-per-head", "bigbird",
+                   {"different_layout_per_head": True}),
+                  ("bslongformer", "bslongformer", {}),
+                  ("variable", "variable", {}),
+                  ("fixed-causal", "fixed", {"attention": "unidirectional"}))
+#: the sparse phase's fp32 parity runs: (width, config label) at S 2048
+SPARSE_PARITY = (("bert-large", "bigbird-per-head"),
+                 ("llama2-7b", "fixed-causal"))
+SPARSE_BLOCK = 128
+#: K6's record line reads this case (bf16)
+K6_MAIN = "llama2-7b/fixed-causal S=8192"
+
+
+def sparse_config(label: str, H: int, block: int = SPARSE_BLOCK):
+    from deepspeed_tpu_torch.ops.sparse_attention import SPARSITY_CONFIGS
+
+    name, kw = next((c, k) for lab, c, k in SPARSE_CONFIGS if lab == label)
+    return SPARSITY_CONFIGS[name](num_heads=H, block=block, **kw)
+
+
+def k6_holes_layout(H: int, n: int, seed: int):
+    """A random layout (density ~0.3, not lower-triangular) with an empty
+    query row (0) and a row (1) that sees only the last block, above the
+    diagonal: under causal both must give zeros and no gradient."""
+    import numpy as np
+
+    layout = np.random.default_rng(seed).random((H, n, n)) < 0.3
+    layout[:, 0] = False
+    layout[:, 1] = False
+    layout[:, 1, n - 1] = True
+    return layout
+
+
+def k6_cases() -> list[dict]:
+    """K6's kernel-phase cases: each config of ``SPARSE_CONFIGS`` at
+    bert-large width (the bidirectional four) and the causal one at
+    llama2-7b width; a dense causal layout at K4's train shape; the holes
+    layout; blocks of 256 and of 192."""
+    import numpy as np
+
+    cases = []
+    bert, llama = SPARSE_WIDTHS["bert-large"], SPARSE_WIDTHS["llama2-7b"]
+    for label, _, _ in SPARSE_CONFIGS[:4]:
+        cases.append(dict(label=f"bert-large/{label} S={bert['S']}", **bert,
+                          block=128, causal=False,
+                          layout=sparse_config(label, bert["H"]).make_layout(
+                              bert["S"])))
+    cases.append(dict(label=K6_MAIN, **llama, block=128, causal=True,
+                      layout=sparse_config("fixed-causal", llama["H"])
+                      .make_layout(llama["S"])))
+    n = 2048 // 128
+    cases.append(dict(label="llama2-7b/dense-causal S=2048 (K4's shape)",
+                      H=32, D=128, B=2, S=2048, block=128, causal=True,
+                      layout=np.ones((32, n, n), bool)))
+    cases.append(dict(label="llama2-7b/empty-and-above-diagonal S=2048",
+                      H=32, D=128, B=1, S=2048, block=128, causal=True,
+                      layout=k6_holes_layout(32, n, seed=11)))
+    cases.append(dict(label="bert-large/bigbird-per-head block=256 S=4096",
+                      **bert, block=256, causal=False,
+                      layout=sparse_config("bigbird-per-head", bert["H"], 256)
+                      .make_layout(bert["S"])))
+    cases.append(dict(label="bert-large/fixed block=192 S=3072", H=16, D=64,
+                      B=2, S=3072, block=192, causal=False,
+                      layout=sparse_config("fixed", 16, 192).make_layout(
+                          3072)))
+    return cases
+
+
+def k6_work(layout, block, B, H, S, D, causal, dtype) -> dict:
+    """K4's convention over the visible token pairs of this layout: 4 x
+    pairs x D operations forward, 10 x backward; each input read once and
+    each output written once."""
+    import numpy as np
+
+    lay = np.asarray(layout, bool)
+    n = lay.shape[1]
+    if causal:
+        qi, kb = np.arange(n)[:, None], np.arange(n)[None]
+        per = np.where(kb < qi, block * block,
+                       np.where(kb == qi, block * (block + 1) // 2, 0))
+        pairs = B * int((lay * per[None]).sum())
+    else:
+        pairs = B * int(lay.sum()) * block * block
+    e = torch.tensor([], dtype=dtype).element_size()
+    el, rows = B * H * S * D, B * H * S
+    fwd = bound_of(e * 4 * el + 4 * rows, 4.0 * pairs * D / PEAK_OPS[dtype])
+    bwd = bound_of(e * 8 * el + 4 * rows, 10.0 * pairs * D / PEAK_OPS[dtype])
+    return dict(pairs=pairs, fwd_ops=4.0 * pairs * D,
+                bwd_ops=10.0 * pairs * D, fwd_bound_ms=fwd[0],
+                fwd_bound_by=fwd[1], bwd_bound_ms=bwd[0], bwd_bound_by=bwd[1])
+
+
+def k6_run_case(case, dtype, dev, seed) -> dict:
+    """One K6 case: the forward and the backward (dq + dk/dv kernels) each
+    counted once, no plain launch; out, lse and dq/dk/dv against the plain
+    versions by ``K4_TOL``; rows that see no key (under causal: none
+    below the diagonal) zeros in out and dq. Then the kernels (forward, dq,
+    dk/dv apart and together), the plain versions and, in bf16, the SDPA
+    yardstick with the boolean token mask timed. Raises past the
+    tolerance."""
+    import numpy as np
+    import torch.nn.functional as F
+
+    from deepspeed_tpu_torch.ops import block_sparse_attention as bsa
+    from deepspeed_tpu_torch.ops import flash_attention as fa
+    from deepspeed_tpu_torch.ops.sparse_attention import layout_to_mask
+
+    label, layout, block, causal = (case["label"], case["layout"],
+                                    case["block"], case["causal"])
+    B, H, S, D = case["B"], case["H"], case["S"], case["D"]
+    tables = bsa.device_tables(layout, dev)
+    g = torch.Generator(device=dev).manual_seed(seed)
+    rnd = lambda sd=1.0: (torch.randn(B, H, S, D, generator=g, device=dev)
+                          * sd).to(dtype)
+    # q at Q_SD x the keys' spread: a peaked softmax, so a wrong score shows
+    q, k, v, do = rnd(Q_SD), rnd(), rnd(), rnd()
+    scale = D ** -0.5
+    before = dict(vars(bsa.counts))
+    out, lse = bsa.block_sparse_fwd(q, k, v, tables, block, causal, scale)
+    dq, dk, dv = bsa.block_sparse_bwd(q, k, v, out, lse, do, tables, block,
+                                      causal, scale)
+    torch.cuda.synchronize()
+    bumped = {n: c - before[n] for n, c in vars(bsa.counts).items()}
+    if bumped != {"fwd": 1, "bwd": 1, "plain": 0, "plain_bwd": 0}:
+        raise AssertionError(f"K6 {label}: counted {bumped}")
+    ref_out, ref_lse = bsa.block_sparse_fwd_plain(q, k, v, tables, block,
+                                                  causal, scale)
+    refs = bsa.block_sparse_bwd_plain(q, k, v, ref_out, ref_lse, do, tables,
+                                      block, causal, scale)
+    out_tol, grad_tol = K4_TOL[dtype]
+    errs = {}
+    for name, got, ref in (("out", out, ref_out), ("dq", dq, refs[0]),
+                           ("dk", dk, refs[1]), ("dv", dv, refs[2])):
+        if not torch.isfinite(got.float()).all():
+            raise AssertionError(f"K6 {label} {dtype}: non-finite {name}")
+        err = (got.float() - ref.float()).abs().max().item()
+        mref = ref.float().abs().max().item()
+        judged = err if (name == "out" and dtype == torch.float32) \
+            else err / mref
+        tol = out_tol if name == "out" else grad_tol
+        errs[name] = dict(max_abs_err=err, max_abs_ref=mref, judged=judged,
+                          tol=tol)
+        if judged > tol:
+            raise AssertionError(f"K6 {label} {dtype}: {name} error "
+                                 f"{judged:.3e} > {tol:.0e} (max abs {err:.3e}"
+                                 f" of max |plain| {mref:.3e})")
+    lse_err = (lse - ref_lse).abs().max().item()
+    if lse_err > 1e-3:
+        raise AssertionError(f"K6 {label} {dtype}: lse error {lse_err:.3e}")
+    # rows that see no key: no visible block (or, under causal, none at or
+    # below the diagonal)
+    lay = np.asarray(layout, bool)
+    if causal:
+        lay = lay & np.tril(np.ones(lay.shape[1:], bool))[None]
+    dead = torch.as_tensor(~lay.any(-1), device=dev).repeat_interleave(
+        block, dim=1)                                          # [H, S]
+    n_dead = int(dead.sum())
+    if n_dead and (out.abs().amax(dim=(0, 3))[dead].max().item() != 0.0
+                   or dq.abs().amax(dim=(0, 3))[dead].max().item() != 0.0):
+        raise AssertionError(f"K6 {label}: rows that see no key are not 0")
+    del ref_out, ref_lse, refs
+    dout_c, lse_c, delta = bsa.bwd_operands(q, k, v, out, lse, do)
+    args = (tables, block, causal, scale)
+    ms = cuda_time_ms(lambda: bsa.block_sparse_fwd(q, k, v, *args), iters=5)
+    dq_ms = cuda_time_ms(lambda: bsa.launch_dq(q, k, v, dout_c, lse_c, delta,
+                                               *args), iters=5)
+    dkv_ms = cuda_time_ms(lambda: bsa.launch_dkv(q, k, v, dout_c, lse_c,
+                                                 delta, *args), iters=5)
+    bwd_ms = cuda_time_ms(lambda: bsa.block_sparse_bwd(q, k, v, out, lse, do,
+                                                       *args), iters=5)
+    plain_ms = cuda_time_ms(lambda: bsa.block_sparse_fwd_plain(q, k, v,
+                                                               *args),
+                            iters=2, warmup=1, graph=False)
+    plain_bwd_ms = cuda_time_ms(
+        lambda: bsa.block_sparse_bwd_plain(q, k, v, out, lse, do, *args),
+        iters=2, warmup=1, graph=False)
+    lib_ms = lib_fwd_bwd_ms = k4_ms = k4_bwd_ms = None
+    if dtype == torch.bfloat16:
+        # yardstick: one SDPA call with the boolean token mask [1, H, S, S]
+        mask = layout_to_mask(layout, block, dev)
+        if causal:
+            mask &= torch.ones(S, S, dtype=torch.bool, device=dev).tril()
+        mask = mask[None]
+        lib_ms = cuda_time_ms(lambda: F.scaled_dot_product_attention(
+            q, k, v, attn_mask=mask), iters=5)
+        qr, kr, vr = (t.detach().clone().requires_grad_() for t in (q, k, v))
+
+        def sdpa_fwd_bwd():
+            F.scaled_dot_product_attention(qr, kr, vr, attn_mask=mask) \
+                .backward(do)
+
+        lib_fwd_bwd_ms = cuda_time_ms(sdpa_fwd_bwd, iters=3, warmup=1,
+                                      graph=False)
+        del mask, qr, kr, vr
+        if np.asarray(layout, bool).all():
+            # a dense layout is K4's work: K4 on the same inputs
+            k4_ms = cuda_time_ms(lambda: fa.flash_fwd(q, k, v, causal, scale),
+                                 iters=5)
+            k4_bwd_ms = cuda_time_ms(lambda: fa.flash_bwd(
+                q, k, v, out, lse, do, causal, scale), iters=5)
+    work = k6_work(layout, block, B, H, S, D, causal, dtype)
+    rec = dict(case=label, dtype=str(dtype).replace("torch.", ""), B=B, H=H,
+               S=S, D=D, block=block, causal=causal,
+               density=float(np.asarray(layout, bool).mean()),
+               max_blocks_per_row=int(np.asarray(layout, bool).sum(-1).max()),
+               dead_rows=n_dead, errors=errs, lse_err=lse_err, ms=ms,
+               dq_ms=dq_ms, dkv_ms=dkv_ms, bwd_ms=bwd_ms, plain_ms=plain_ms,
+               plain_bwd_ms=plain_bwd_ms, library_ms=lib_ms,
+               library_fwd_bwd_ms=lib_fwd_bwd_ms, k4_ms=k4_ms,
+               k4_bwd_ms=k4_bwd_ms, **work)
+    sdpa = (f", sdpa {lib_ms:.3f} / fwd+bwd {lib_fwd_bwd_ms:.3f}"
+            if lib_ms is not None else "")
+    k4 = (f", K4 {k4_ms:.3f} / bwd {k4_bwd_ms:.3f}" if k4_ms is not None
+          else "")
+    log(f"[kernel] K6 {label:<44} {rec['dtype']:<8} density "
+        f"{rec['density']:.3f} err out {errs['out']['judged']:.2e} dq "
+        f"{errs['dq']['judged']:.2e} dk {errs['dk']['judged']:.2e} dv "
+        f"{errs['dv']['judged']:.2e}  fwd {ms:.3f} ms (bound "
+        f"{work['fwd_bound_ms']:.4f} {work['fwd_bound_by']}, plain "
+        f"{plain_ms:.2f})  bwd {bwd_ms:.3f} ms (dq {dq_ms:.3f} + dkv "
+        f"{dkv_ms:.3f}; bound {work['bwd_bound_ms']:.4f}, plain "
+        f"{plain_bwd_ms:.2f}){sdpa}{k4}")
+    return rec
+
+
+def phase_k6(dev) -> tuple[dict, dict, list]:
+    """K6 at every case of :func:`k6_cases` in bf16 and fp32. Returns the
+    forward and backward records' fields (errors over every case; times,
+    bound and yardstick of ``K6_MAIN`` in bf16) and the cases."""
+    results = []
+    for i, case in enumerate(k6_cases()):
+        for dtype in (torch.bfloat16, torch.float32):
+            results.append(k6_run_case(case, dtype, dev, seed=300 + i))
+            free_cuda()
+    bf = [r for r in results if r["dtype"] == "bfloat16"]
+    f32 = [r for r in results if r["dtype"] == "float32"]
+    main = next(r for r in bf if r["case"] == K6_MAIN)
+
+    def errs(names):
+        return dict(
+            max_abs_err=max(r["errors"][n]["max_abs_err"] for r in bf
+                            for n in names),
+            max_err_over_max_ref=max(r["errors"][n]["judged"] for r in bf
+                                     for n in names),
+            max_abs_err_fp32=max(r["errors"][n]["max_abs_err"] for r in f32
+                                 for n in names))
+
+    fwd = dict(errs(("out",)), ms=main["ms"], plain_ms=main["plain_ms"],
+               bound_ms=main["fwd_bound_ms"], bound_by=main["fwd_bound_by"],
+               library_ms=main["library_ms"])
+    bwd = dict(errs(("dq", "dk", "dv")), ms=main["bwd_ms"],
+               dq_ms=main["dq_ms"], dkv_ms=main["dkv_ms"],
+               plain_ms=main["plain_bwd_ms"], bound_ms=main["bwd_bound_ms"],
+               bound_by=main["bwd_bound_by"],
+               library_ms=main["library_fwd_bwd_ms"],
+               fwd_bwd_ms=main["ms"] + main["bwd_ms"])
+    return fwd, bwd, results
+
+
+@contextlib.contextmanager
+def k6_plain_route():
+    """K6's wrappers swapped for its plain versions (on any device, counted
+    as plain), for the sparse phase's parity reference."""
+    from deepspeed_tpu_torch.ops import block_sparse_attention as bsa
+
+    saved = bsa.block_sparse_fwd, bsa.block_sparse_bwd
+
+    def fwd(*a):
+        bsa.counts.plain += 1
+        return bsa.block_sparse_fwd_plain(*a)
+
+    def bwd(*a):
+        bsa.counts.plain_bwd += 1
+        return bsa.block_sparse_bwd_plain(*a)
+
+    bsa.block_sparse_fwd, bsa.block_sparse_bwd = fwd, bwd
+    try:
+        yield
+    finally:
+        bsa.block_sparse_fwd, bsa.block_sparse_bwd = saved
+
+
+def sparse_inputs(B, S, H, D, dtype, dev, seed):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    return [(torch.randn(B, S, H, D, generator=g, device=dev) * sd).to(dtype)
+            .requires_grad_() for sd in (Q_SD, 1.0, 1.0)]
+
+
+def phase_sparse(dev) -> dict:
+    """``SparseSelfAttention`` end to end on the card: each config of
+    ``SPARSE_CONFIGS`` at each width of ``SPARSE_WIDTHS``, bf16, forward and
+    ``.backward()`` of a sum-of-squares loss, one warm-up then 5 timed
+    iterations; K6 must be launched once forward and once backward per
+    call (6 + 6), no plain version and no other kernel. Prints ms per
+    forward + backward, tokens/s, peak memory and ``sparsity()``. Then the
+    fp32 parity runs of ``SPARSE_PARITY`` at S 2048: the module's output
+    and q/k/v grads through K6 against the plain route on the card, by the
+    fp32 ``K4_TOL``."""
+    from deepspeed_tpu_torch.ops.sparse_attention import SparseSelfAttention
+
+    iters = 5
+    runs = {}
+    for wname, w in SPARSE_WIDTHS.items():
+        B, S, H, D = w["B"], w["S"], w["H"], w["D"]
+        for label, _, _ in SPARSE_CONFIGS:
+            tag = f"sparse {wname}/{label} S={S}"
+            module = SparseSelfAttention(sparse_config(label, H))
+            q, k, v = sparse_inputs(B, S, H, D, torch.bfloat16, dev,
+                                    seed=len(runs))
+            free_cuda()
+            torch.cuda.reset_peak_memory_stats()
+            reset_counts()
+
+            def step():
+                for t in (q, k, v):
+                    t.grad = None
+                module(q, k, v).float().square().sum().backward()
+
+            step()                                    # warm-up
+            times = []
+            for _ in range(iters):
+                start = torch.cuda.Event(enable_timing=True)
+                end = torch.cuda.Event(enable_timing=True)
+                start.record()
+                step()
+                end.record()
+                torch.cuda.synchronize()
+                times.append(start.elapsed_time(end))
+            launches = all_counts()
+            want = {n: 0 for n in launches}
+            want.update(k6_fwd=iters + 1, k6_bwd=iters + 1)
+            if launches != want:
+                raise AssertionError(f"[{tag}] launches {launches} != {want}")
+            if not all(torch.isfinite(t.grad.float()).all()
+                       for t in (q, k, v)):
+                raise AssertionError(f"[{tag}] non-finite gradients")
+            ms = statistics.mean(times)
+            rec = dict(B=B, S=S, H=H, D=D, ms=ms, times_ms=times,
+                       tokens_per_s=B * S / (ms / 1e3),
+                       peak_mem_bytes=torch.cuda.max_memory_allocated(),
+                       sparsity=module.sparsity(S), launches=launches)
+            runs[f"{wname}/{label}"] = rec
+            log(f"[{tag}] sparsity {rec['sparsity']:.3f}: {ms:.2f} ms per "
+                f"forward + backward (B {B}), {rec['tokens_per_s']:.0f} "
+                f"tokens/s, peak memory {rec['peak_mem_bytes'] / 1e9:.2f} "
+                f"GB; K6 forward {launches['k6_fwd']}, backward "
+                f"{launches['k6_bwd']}, plain {launches['k6_plain']} / "
+                f"{launches['k6_plain_bwd']}")
+            del q, k, v, module
+    parity = {}
+    out_tol, grad_tol = K4_TOL[torch.float32]
+    for wname, label in SPARSE_PARITY:
+        w = SPARSE_WIDTHS[wname]
+        H, D, S = w["H"], w["D"], 2048
+        tag = f"sparse-parity {wname}/{label} S={S} fp32"
+        module = SparseSelfAttention(sparse_config(label, H))
+        got = {}
+        for route in ("kernel", "plain"):
+            q, k, v = sparse_inputs(1, S, H, D, torch.float32, dev, seed=77)
+            reset_counts()
+            ctx = k6_plain_route() if route == "plain" else \
+                contextlib.nullcontext()
+            with ctx:
+                out = module(q, k, v)
+                out.square().sum().backward()
+            torch.cuda.synchronize()
+            c = all_counts()
+            want = (1, 1, 0, 0) if route == "kernel" else (0, 0, 1, 1)
+            if (c["k6_fwd"], c["k6_bwd"], c["k6_plain"],
+                    c["k6_plain_bwd"]) != want:
+                raise AssertionError(f"[{tag}] {route} route counted {c}")
+            got[route] = [out.detach(), q.grad, k.grad, v.grad]
+        errs = {}
+        for name, a, b in zip(("out", "dq", "dk", "dv"), got["kernel"],
+                              got["plain"]):
+            err = (a - b).abs().max().item()
+            judged = err if name == "out" else err / b.abs().max().item()
+            tol = out_tol if name == "out" else grad_tol
+            errs[name] = judged
+            if not judged <= tol:
+                raise AssertionError(f"[{tag}] {name} {judged:.3e} > "
+                                     f"{tol:.0e}")
+        parity[f"{wname}/{label}"] = errs
+        log(f"[{tag}] K6 against the plain route on the card: out "
+            f"{errs['out']:.2e} (max abs; tol {out_tol:.0e}), dq "
+            f"{errs['dq']:.2e} dk {errs['dk']:.2e} dv {errs['dv']:.2e} (of "
+            f"max |plain|; tol {grad_tol:.0e})")
+        del got, module
+        free_cuda()
+    return {"runs": runs, "parity": parity,
+            "k6_fwd": sum(r["launches"]["k6_fwd"] for r in runs.values()),
+            "k6_bwd": sum(r["launches"]["k6_bwd"] for r in runs.values())}
+
+
+#: K7's record line reads this case (bf16)
+K7_MAIN = "llama2-7b/prefill256"
+
+
+def k7_case(name, *, H, KV, D, bs, T, ctx, dtype, dev, seed, window=None,
+            ring_pages=None):
+    """Inputs for one K7 case: ``ctx`` lists each slot's context before its
+    chunk (-1: an empty slot); the chunk's T tokens are already in the
+    pools, so seq_lens = ctx + T and chunk_starts = ctx. Tables are padded
+    with the trash page 0; ``ring_pages`` makes each a rolling ring of that
+    many pages (``ring_tokens`` = pages x bs)."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    S = len(ctx)
+    max_pages = ring_pages or max(-(-(c + T) // bs) for c in ctx) + 2
+    nb = S * max_pages + 1
+    rnd = lambda *shape, sd=1.0: (torch.randn(shape, generator=g, device=dev)
+                                  * sd).to(dtype)
+    q = rnd(S, T, H, D, sd=Q_SD)
+    kp, vp = rnd(KV, nb * bs, D), rnd(KV, nb * bs, D)
+    tables = torch.zeros(S, max_pages, dtype=torch.int32)
+    perm = torch.randperm(nb - 1, generator=torch.Generator().manual_seed(
+        seed)) + 1
+    lens, starts, used = [], [], 0
+    for s, c in enumerate(ctx):
+        if c < 0:
+            lens.append(0), starts.append(0)
+            continue
+        n = ring_pages or -(-(c + T) // bs)
+        tables[s, :n] = perm[used:used + n].to(torch.int32)
+        used += n
+        lens.append(c + T), starts.append(c)
+    i32 = lambda x: torch.tensor(x, dtype=torch.int32, device=dev)
+    return dict(name=name, q=q, k_pool=kp, v_pool=vp,
+                block_tables=tables.to(dev), seq_lens=i32(lens),
+                chunk_starts=i32(starts), block_size=bs, window=window,
+                ring_tokens=ring_pages * bs if ring_pages else None)
+
+
+def k7_run_case(case) -> dict:
+    """Hold one K7 case against its plain version (counted once as a
+    kernel launch of its form, no plain launch; empty slots zeros; live
+    slots by ``K1_TOL``), then time the kernel, the plain version and SDPA
+    over the gathered K/V with the boolean mask of who sees what. The bound
+    counts q, the output and each K/V row some query row of its slot
+    sees."""
+    import torch.nn.functional as F
+
+    from deepspeed_tpu_torch.ops import paged_attention as pa
+
+    label, q = case["name"], case["q"]
+    dtype, (S, T, H, D) = q.dtype, q.shape
+    KV, bs = case["k_pool"].shape[0], case["block_size"]
+    G = H // KV
+    args = [case[k] for k in ("q", "k_pool", "v_pool", "block_tables",
+                              "seq_lens", "chunk_starts")]
+    kw = dict(block_size=bs, window=case["window"],
+              ring_tokens=case["ring_tokens"])
+    decode = T == 1
+    before = dict(vars(pa.prefill_counts))
+    if decode:        # through the decode entry: starts = seq_lens - 1
+        got = pa.paged_decode_attention(q[:, 0], *args[1:5], **kw)[:, None]
+    else:
+        got = pa.paged_prefill_attention(*args, **kw)
+    torch.cuda.synchronize()
+    bumped = {n: c - before[n] for n, c in vars(pa.prefill_counts).items()}
+    want = {"kernel": 1, "kernel_window": int(bool(kw["window"])),
+            "kernel_ring": int(bool(kw["ring_tokens"])), "plain": 0}
+    if bumped != want:
+        raise AssertionError(f"K7 {label}: counted {bumped}, not {want}")
+    ref = pa.paged_prefill_attention_reference(*args, **kw)
+    live = case["seq_lens"] > 0
+    if (~live).any() and got[~live].abs().max().item() != 0.0:
+        raise AssertionError(f"K7 {label}: empty slot not 0")
+    if not torch.isfinite(got).all():
+        raise AssertionError(f"K7 {label}: non-finite output")
+    err = (got[live].float() - ref[live].float()).abs().max().item()
+    max_ref = ref[live].float().abs().max().item()
+    judged = err if dtype == torch.float32 else err / max_ref
+    tol = K1_TOL[dtype]
+    if judged > tol:
+        raise AssertionError(f"K7 {label} {dtype}: kernel against plain "
+                             f"error {judged:.3e} (tol {tol:.0e}); max abs "
+                             f"{err:.3e}")
+    del ref
+    ms = cuda_time_ms(lambda: pa.paged_prefill_attention(*args, **kw))
+    plain_ms = cuda_time_ms(
+        lambda: pa.paged_prefill_attention_reference(*args, **kw), iters=2,
+        warmup=1, graph=False)
+    # SDPA over every table column gathered dense, under the mask of which
+    # (run) column each row sees
+    _, run, mask = pa.prefill_key_visibility(
+        case["block_tables"], case["seq_lens"], case["chunk_starts"], T=T,
+        block_size=bs, window=kw["window"], ring_tokens=kw["ring_tokens"])
+    mask = mask & run[:, None]
+    col = torch.arange(mask.shape[-1], device=q.device)
+    rows = case["block_tables"].long()[:, col // bs] * bs + col % bs
+    kd = case["k_pool"][:, rows].permute(1, 0, 2, 3).repeat_interleave(
+        G, dim=1)
+    vd = case["v_pool"][:, rows].permute(1, 0, 2, 3).repeat_interleave(
+        G, dim=1)
+    qh, m4 = q.permute(0, 2, 1, 3), mask[:, None]
+    lib_ms = cuda_time_ms(lambda: F.scaled_dot_product_attention(
+        qh, kd, vd, attn_mask=m4), iters=5, warmup=1)
+    seen = int((mask & live[:, None, None]).any(dim=1).sum())
+    el = q.element_size()
+    nbytes = 2 * q.numel() * el + 2 * KV * D * seen * el
+    ops_s = 4.0 * D * int(mask.sum()) * G * KV / PEAK_OPS[dtype]
+    bound, by = bound_of(nbytes, ops_s)
+    rec = dict(case=label, dtype=str(dtype).replace("torch.", ""),
+               max_abs_err=err, judged_err=judged, max_abs_ref=max_ref,
+               tol=tol, ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+               bound_ms=bound, bound_by=by, bytes=nbytes, keys_seen=seen)
+    log(f"[kernel] K7 {label:<34} {rec['dtype']:<8} err {judged:.2e} (tol "
+        f"{tol:.0e}; max abs {err:.2e} of max |plain| {max_ref:.2f})  "
+        f"kernel {ms:.4f} ms  plain {plain_ms:.3f} ms  sdpa {lib_ms:.3f} ms"
+        f"  bound {bound:.4f} ms ({by})")
+    return rec
+
+
+def phase_k7(dev) -> tuple[dict, list]:
+    """K7 against its plain version at llama2-7b geometry (decode of 8 slots
+    at 256-4000 context, a 4 x 256 prefill chunk over 0-768) and mistral-7b
+    geometry with its 4096 window, on a linear table and on a wrapped
+    69-page ring (decode, a 4 x 256 chunk), in fp32 and bf16. Returns (the
+    record's fields, cases); ``launches`` counts the checked calls."""
+    llama = dict(H=32, KV=32, D=128)
+    shapes = [
+        ("llama2-7b/decode", llama, dict(
+            T=1, ctx=[255, 700, 1023, 1500, 2047, 3000, 3999, -1])),
+        ("llama2-7b/prefill256", llama, dict(T=256, ctx=[0, 256, 512, 768])),
+        ("mistral-7b/window-decode", MISTRAL, dict(
+            T=1, ctx=[5800, 5905, 6000, 6100, 5999, 6050, 5877, -1],
+            window=MISTRAL_WINDOW)),
+        ("mistral-7b/window-prefill256", MISTRAL, dict(
+            T=256, ctx=[5632, 5760, 5888, 6016], window=MISTRAL_WINDOW)),
+        ("mistral-7b/ring-decode", MISTRAL, dict(
+            T=1, ctx=[5800, 5905, 6000, 6100, 5999, 6050, 5877, -1],
+            window=MISTRAL_WINDOW, ring_pages=MISTRAL_RING_PAGES)),
+        ("mistral-7b/ring-prefill256", MISTRAL, dict(
+            T=256, ctx=[5632, 5760, 5888, 6016], window=MISTRAL_WINDOW,
+            ring_pages=MISTRAL_RING_PAGES)),
+    ]
+    results = []
+    for seed, (dtype, (label, geom, shape)) in enumerate(
+            ((dt, s) for dt in (torch.float32, torch.bfloat16)
+             for s in shapes), start=500):
+        case = k7_case(label, bs=64, dtype=dtype, dev=dev, seed=seed,
+                       **geom, **shape)
+        results.append(k7_run_case(case))
+        del case
+        free_cuda()
+    bf = [r for r in results if r["dtype"] == "bfloat16"]
+    main = next(r for r in bf if r["case"] == K7_MAIN)
+    summary = dict(max_abs_err=max(r["max_abs_err"] for r in bf),
+                   max_err_over_max_ref=max(r["judged_err"] for r in bf),
+                   max_abs_err_fp32=max(r["max_abs_err"] for r in results
+                                        if r["dtype"] == "float32"),
+                   launches=len(results),
+                   **{k: main[k] for k in ("ms", "plain_ms", "library_ms",
+                                           "bound_ms", "bound_by")})
+    return summary, results
+
+
+# ---------------------------------------------------------------------------
 # train: one-process dense training through the port's engine
 # ---------------------------------------------------------------------------
 
@@ -2687,6 +3302,27 @@ def main() -> int:
               "replaces": "deepspeed_tpu/ops/pallas/flash_attention.py:275 "
                           "and :312",
               "launches": None}
+    # K6's forward, and its backward (dq kernel + dk/dv kernel, counted once
+    # a call); their launches come from the sparse phase. K7 has no caller
+    # on any path of either package: its launches are the kernel phase's
+    k6_fwd = {"name": "block_sparse_flash_attention (forward)",
+              "route": "cuda",
+              "source": "deepspeed_tpu_torch/ops/csrc/"
+                        "block_sparse_attention.cu",
+              "replaces": "deepspeed_tpu/ops/pallas/"
+                          "block_sparse_attention.py:95",
+              "launches": None}
+    k6_bwd = {"name": "block_sparse_flash_attention (backward)",
+              "route": "cuda",
+              "source": "deepspeed_tpu_torch/ops/csrc/"
+                        "block_sparse_attention.cu",
+              "replaces": "deepspeed_tpu/ops/pallas/"
+                          "block_sparse_attention.py:180 and :215",
+              "launches": None}
+    k7 = {"name": "paged_prefill_attention", "route": "cuda",
+          "source": "deepspeed_tpu_torch/ops/csrc/paged_attention.cu",
+          "replaces": "deepspeed_tpu/ops/pallas/paged_attention.py:56",
+          "launches": None}
     built = phase_build()          # every later phase runs the kernels
     record["phases"]["build"] = {n: r["seconds"] for n, r in built.items()}
     if "kernel" in phases:
@@ -2710,9 +3346,15 @@ def main() -> int:
         k4f_summary, k4b_summary, k4_cases = phase_k4(dev)
         k4_fwd.update(k4f_summary)
         k4_bwd.update(k4b_summary)
+        k6f_summary, k6b_summary, k6_cases = phase_k6(dev)
+        k6_fwd.update(k6f_summary)
+        k6_bwd.update(k6b_summary)
+        k7_summary, k7_cases = phase_k7(dev)
+        k7.update(k7_summary)
         record["phases"]["kernel"] = {"k1": cases, "k2": k2_cases,
                                       "k3": k3_cases, "k4": k4_cases,
-                                      "k5": k5_cases}
+                                      "k5": k5_cases, "k6": k6_cases,
+                                      "k7": k7_cases}
     if "parity" in phases:
         record["phases"]["parity"] = phase_parity(dev)
     if "serve" in phases:
@@ -2747,13 +3389,19 @@ def main() -> int:
         k5_dw["launches"] = got["k5_dw"]
         k4_fwd["launches"] = (k4_fwd["launches"] or 0) + got["k4_fwd"]
         k4_bwd["launches"] = (k4_bwd["launches"] or 0) + got["k4_bwd"]
+    if "sparse" in phases:
+        sparse = phase_sparse(dev)
+        record["phases"]["sparse"] = sparse
+        k6_fwd["launches"] = sparse["k6_fwd"]
+        k6_bwd["launches"] = sparse["k6_bwd"]
     record["seconds"] = time.perf_counter() - t_start
     os.makedirs(args.out, exist_ok=True)
     with open(os.path.join(args.out, "chip_smoke.json"), "w") as f:
         json.dump(record, f, indent=1, default=str)
     log(f"[done] {record['seconds']:.1f}s")
     log(json.dumps({"kernels": [k1, k1_e4m3, *k1_forms.values(), k2, k3,
-                                k4_fwd, k4_bwd, k5, k5_dx, k5_dw]}))
+                                k4_fwd, k4_bwd, k5, k5_dx, k5_dw, k6_fwd,
+                                k6_bwd, k7]}))
     log(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -71,6 +71,18 @@
 // A split-K (flash-decoding) grid, cp.async/TMA double buffering and wgmma
 // are later work; this form is the simple, correct one.
 //
+// The same source holds K7 (`paged_attn_kernel`, entry `ds_paged_attention`),
+// which replaces `_paged_attn_kernel` of the same Pallas file (entries
+// `paged_prefill_attention` and `paged_decode_attention`): query rows at
+// starts[s] + t against separate K and V pools [KV, P, D] into which the
+// chunk's K/V are already scattered; no stage, e4m3 or tree form. It walks
+// the pages the Pallas grid runs (linear: below seq_lens and, with a window,
+// not wholly before the chunk's first window; ring: every slot holding a
+// block >= 0) on K1's tiles, and keeps the Pallas kernel's online softmax
+// as it is: no guard, masked scores at float's lowest finite value, so a row
+// that sees no key on a walked page averages that page's values until its
+// first visible key wipes them (alpha = 0), and keeps them if none comes.
+//
 // Built with `nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared
 // -Xcompiler -fPIC` into a plain C library (deepspeed_tpu_torch/ops/kernels.py)
 // and called through ctypes.
@@ -79,6 +91,7 @@
 #include <cuda_fp16.h>
 #include <cuda_fp8.h>
 #include <cuda_runtime.h>
+#include <float.h>
 #include <limits.h>
 #include <math.h>
 #include <stdint.h>
@@ -164,6 +177,31 @@ __device__ __forceinline__ float2 load_pair(const __nv_bfloat16* p) {
     return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p));
 }
 
+// q . k of one tile: thread owns key j = tid % kKeys and rows
+// sr + i*SSTEP (sr = tid / kKeys) for i < NR
+template <typename T, int D, int NR>
+__device__ __forceinline__ void tile_dots(const float* q_s, const T* k_s,
+                                          float (&dot)[NR]) {
+    constexpr int SSTEP = kThreads / kKeys;
+    constexpr int KS = D + Pad<T>::value;
+    const int tid = threadIdx.x;
+    const int j = tid % kKeys, sr = tid / kKeys;
+#pragma unroll
+    for (int i = 0; i < NR; ++i) dot[i] = 0.f;
+    const T* krow = k_s + j * KS;
+#pragma unroll 4
+    for (int d = 0; d < D; d += 2) {
+        const float2 kk = load_pair(krow + d);
+#pragma unroll
+        for (int i = 0; i < NR; ++i) {
+            const float2 qq = *reinterpret_cast<const float2*>(
+                q_s + (sr + i * SSTEP) * D + d);
+            dot[i] = fmaf(qq.x, kk.x, dot[i]);
+            dot[i] = fmaf(qq.y, kk.y, dot[i]);
+        }
+    }
+}
+
 // scores of one tile: thread owns key j = tid % kKeys and rows
 // sr + i*SSTEP (sr = tid / kKeys) for i < NR; masked entries are -inf.
 // Row ri sees key j where kpos_s[j] <= qpos_s[ri] (and > qpos_s[ri] -
@@ -179,24 +217,10 @@ __device__ __forceinline__ void tile_scores(const float* q_s, const T* k_s,
                                             int col0, int row0, int G,
                                             float scale) {
     constexpr int SSTEP = kThreads / kKeys;
-    constexpr int KS = D + Pad<T>::value;
     const int tid = threadIdx.x;
     const int j = tid % kKeys, sr = tid / kKeys;
     float dot[NR];
-#pragma unroll
-    for (int i = 0; i < NR; ++i) dot[i] = 0.f;
-    const T* krow = k_s + j * KS;
-#pragma unroll 4
-    for (int d = 0; d < D; d += 2) {
-        const float2 kk = load_pair(krow + d);
-#pragma unroll
-        for (int i = 0; i < NR; ++i) {
-            const float2 qq = *reinterpret_cast<const float2*>(
-                q_s + (sr + i * SSTEP) * D + d);
-            dot[i] = fmaf(qq.x, kk.x, dot[i]);
-            dot[i] = fmaf(qq.y, kk.y, dot[i]);
-        }
-    }
+    tile_dots<T, D, NR>(q_s, k_s, dot);
     const int kp = kpos_s[j];
 #pragma unroll
     for (int i = 0; i < kRows / SSTEP; ++i) {
@@ -610,6 +634,299 @@ cudaError_t dispatch_d(int D, const Args& a, cudaStream_t stream) {
     }
 }
 
+// ---------------------------------------------------------------------------
+// K7: the per-layer-slice form over separate K and V pools
+// ---------------------------------------------------------------------------
+
+constexpr int kNotRun = INT_MIN + 1;    // a key on a page the walk skips
+constexpr float kNegInf = -FLT_MAX;     // the Pallas NEG_INF (finite)
+
+// K7's scores of one tile (thread layout of tile_dots): a key on a skipped
+// page is -inf (p = 0 whatever the running max); a key masked for a row is
+// kNegInf, as the Pallas kernel masks, so a row that has seen no key yet
+// takes p = exp(kNegInf - kNegInf) = 1 for it, which the first key it sees
+// wipes (alpha = exp(kNegInf - m) = 0)
+template <typename T, int D, int NR>
+__device__ __forceinline__ void k7_tile_scores(const float* q_s, const T* k_s,
+                                               float* sc, int nrows,
+                                               const int* qpos_s,
+                                               const int* kpos_s, int window,
+                                               float scale) {
+    constexpr int SSTEP = kThreads / kKeys;
+    const int tid = threadIdx.x;
+    const int j = tid % kKeys, sr = tid / kKeys;
+    float dot[NR];
+    tile_dots<T, D, NR>(q_s, k_s, dot);
+    const int kp = kpos_s[j];
+#pragma unroll
+    for (int i = 0; i < kRows / SSTEP; ++i) {
+        const int ri = sr + i * SSTEP;
+        float x = -INFINITY;
+        if (i < NR && ri < nrows && kp != kNotRun) {
+            const int qp = qpos_s[ri];
+            const bool ok = kp != kInvalid && kp <= qp &&
+                            (window <= 0 || kp > qp - window);
+            x = ok ? dot[i < NR ? i : 0] * scale : kNegInf;
+        }
+        sc[ri * kKeys + j] = x;
+    }
+}
+
+// one block per (slot, KV head, tile of kRows query rows r = t*G + g): the
+// pages the Pallas grid runs (`run`: below seq_len and, with a window, not
+// wholly before the chunk's first window; in a ring every slot of a block
+// b_j >= 0), walked in table order in tiles of kKeys columns
+template <typename T, int D>
+__global__ void __launch_bounds__(kThreads)
+paged_attn_kernel(const T* __restrict__ q, const T* __restrict__ k_pool,
+                  const T* __restrict__ v_pool,
+                  const int* __restrict__ block_tables,
+                  const int* __restrict__ seq_lens,
+                  const int* __restrict__ starts, T* __restrict__ out, int T_,
+                  int H, int KV, int P, int bs, int max_pages, float scale,
+                  int window, int ring_tokens) {
+    using S = Smem<T, false, D>;
+    constexpr int VEC = 16 / sizeof(T);
+    constexpr int VPR = D / VEC;
+    constexpr int COLS = D < kThreads ? D : kThreads;
+    constexpr int RSTEP = kThreads / COLS;
+    constexpr int CPT = D / COLS;
+    constexpr int RPT = kRows / RSTEP;
+    constexpr int SSTEP = kThreads / kKeys;
+    constexpr int SRPT = kRows / SSTEP;
+
+    extern __shared__ __align__(16) unsigned char smem[];
+    float* q_s = reinterpret_cast<float*>(smem);
+    float* sc = reinterpret_cast<float*>(smem + S::q_bytes);
+    float* m_s = reinterpret_cast<float*>(smem + S::q_bytes + S::sc_bytes);
+    float* l_s = m_s + kRows;
+    float* a_s = l_s + kRows;
+    int* qpos_s = reinterpret_cast<int*>(a_s + kRows);
+    int* kpos_s = qpos_s + kRows;
+    T* v_s = reinterpret_cast<T*>(smem + S::head);
+    T* k_s = reinterpret_cast<T*>(smem + S::head + S::v_bytes);
+
+    const int tid = threadIdx.x;
+    const int h = blockIdx.y, s = blockIdx.z;
+    const int G = H / KV, TG = T_ * G;
+    const int row0 = blockIdx.x * kRows;
+    const int nrows = min(kRows, TG - row0);
+    const int seq_len = seq_lens[s];
+    const int start = starts[s];
+
+    // ---- q tile -> shared (fp32), rows t*G + g of head h*G + g ----------
+    for (int idx = tid; idx < kRows * VPR; idx += kThreads) {
+        const int i = idx / VPR, dv = (idx % VPR) * VEC;
+        float* dst = q_s + i * D + dv;
+        if (i < nrows) {
+            const int r = row0 + i, t = r / G, g = r % G;
+            const T* src = q + ((size_t(s) * T_ + t) * H + size_t(h) * G + g) *
+                                   D + dv;
+            uint4 raw = *reinterpret_cast<const uint4*>(src);
+            const T* e = reinterpret_cast<const T*>(&raw);
+#pragma unroll
+            for (int k = 0; k < VEC; ++k) dst[k] = to_f(e[k]);
+        } else {
+#pragma unroll
+            for (int k = 0; k < VEC; ++k) dst[k] = 0.f;
+        }
+    }
+    if (tid < kRows) {
+        m_s[tid] = kNegInf;
+        l_s[tid] = 0.f;
+        a_s[tid] = 1.f;
+        qpos_s[tid] = tid < nrows ? start + (row0 + tid) / G : 0;
+    }
+    const int c0 = tid % COLS, rg = tid / COLS;
+    float acc[RPT][CPT];
+#pragma unroll
+    for (int i = 0; i < RPT; ++i)
+#pragma unroll
+        for (int j = 0; j < CPT; ++j) acc[i][j] = 0.f;
+    __syncthreads();
+    int qmin = INT_MAX, qmax = INT_MIN;
+    for (int i = 0; i < nrows; ++i) {
+        qmin = min(qmin, qpos_s[i]);
+        qmax = max(qmax, qpos_s[i]);
+    }
+
+    // the walked columns [c_lo, c_hi): a linear table's run pages are one
+    // range; a ring's run pages are found per column (b_j >= 0)
+    const bool ring = ring_tokens > 0;
+    int c_lo = 0, c_hi = 0;
+    if (ring) {
+        c_hi = seq_len > 0 ? max_pages * bs : 0;
+    } else {
+        const int j_hi = min(max_pages, (max(seq_len, 0) + bs - 1) / bs);
+        const int first = start - window + 1;   // earliest key of the chunk
+        const int j_lo = window > 0 && first > 0 ? first / bs : 0;
+        if (j_hi > j_lo) {
+            c_lo = j_lo * bs;
+            c_hi = j_hi * bs;
+        }
+    }
+    const int nwin = ring ? ring_tokens / bs : 1;
+    const int b_latest = max(seq_len - 1, 0) / bs;
+    const T* k_base = k_pool + size_t(h) * P * D;
+    const T* v_base = v_pool + size_t(h) * P * D;
+    const int* table = block_tables + size_t(s) * max_pages;
+    const int n_tiles = c_hi > c_lo ? (c_hi - c_lo + kKeys - 1) / kKeys : 0;
+
+    for (int tile = 0; tile < n_tiles; ++tile) {
+        const int c_begin = c_lo + tile * kKeys;
+        const int len = min(kKeys, c_hi - c_begin);
+        // ---- each key's position: kNotRun off the walked pages, kInvalid
+        // where every row masks it ------------------------------------------
+        int busy = 0;
+        if (tid < kKeys) {
+            const int c = c_begin + tid;
+            int kp = kNotRun;
+            if (tid < len) {
+                if (!ring) {
+                    kp = c < seq_len ? c : kInvalid;
+                } else {
+                    int back = (b_latest - c / bs) % nwin;
+                    if (back < 0) back += nwin;    // floor mod (jnp %)
+                    const int b_j = b_latest - back;
+                    if (b_j >= 0) {
+                        const int raw = b_j * bs + c % bs;
+                        const int p = raw < seq_len ? raw : raw - ring_tokens;
+                        kp = p >= 0 ? p : kInvalid;
+                    }
+                }
+            }
+            kpos_s[tid] = kp;
+            busy = kp != kNotRun && kp != kInvalid && kp <= qmax &&
+                   (window <= 0 || kp > qmin - window);
+        }
+        // a row that has seen no key yet takes even a masked tile (see
+        // k7_tile_scores); otherwise a tile no row sees changes nothing
+        if (tid < nrows && m_s[tid] == kNegInf) busy = 1;
+        if (!__syncthreads_or(busy)) continue;   // uniform: the whole block
+
+        // ---- K/V tile -> shared; keys off the walked pages are zeros -------
+        for (int idx = tid; idx < kKeys * VPR; idx += kThreads) {
+            const int j = idx / VPR, dv = (idx % VPR) * VEC;
+            uint4 kr = make_uint4(0, 0, 0, 0), vr = make_uint4(0, 0, 0, 0);
+            if (kpos_s[j] != kNotRun) {
+                const int c = c_begin + j;
+                const size_t o = (size_t(table[c / bs]) * bs + c % bs) * D + dv;
+                kr = *reinterpret_cast<const uint4*>(k_base + o);
+                vr = *reinterpret_cast<const uint4*>(v_base + o);
+            }
+            *reinterpret_cast<uint4*>(v_s + j * D + dv) = vr;
+            uint32_t* kd = reinterpret_cast<uint32_t*>(k_s + j * S::kStride + dv);
+            kd[0] = kr.x;
+            kd[1] = kr.y;
+            kd[2] = kr.z;
+            kd[3] = kr.w;
+        }
+        __syncthreads();
+
+        {
+            const int nr = (nrows + SSTEP - 1) / SSTEP;
+#define DS_K7_SCORES(NR)                                                  \
+    k7_tile_scores<T, D, NR>(q_s, k_s, sc, nrows, qpos_s, kpos_s, window, \
+                             scale)
+            if (nr <= 1)
+                DS_K7_SCORES(1);
+            else if (nr <= 2)
+                DS_K7_SCORES(2);
+            else if (nr <= 4)
+                DS_K7_SCORES(4);
+            else
+                DS_K7_SCORES(SRPT);
+#undef DS_K7_SCORES
+        }
+        __syncthreads();
+
+        // ---- online softmax, one warp per row, no guard (the Pallas
+        // kernel's: m starts at kNegInf, never -inf) ------------------------
+        {
+            const int warp = tid / 32, lane = tid % 32;
+            for (int ri = warp; ri < nrows; ri += kThreads / 32) {
+                float* row = sc + ri * kKeys;
+                const float x0 = row[lane], x1 = row[lane + 32];
+                float mx = fmaxf(x0, x1);
+#pragma unroll
+                for (int o = 16; o > 0; o >>= 1)
+                    mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, o));
+                const float m_old = m_s[ri];
+                const float m_new = fmaxf(m_old, mx);
+                const float alpha = expf(m_old - m_new);
+                const float p0 = expf(x0 - m_new), p1 = expf(x1 - m_new);
+                float sum = p0 + p1;
+#pragma unroll
+                for (int o = 16; o > 0; o >>= 1)
+                    sum += __shfl_xor_sync(0xffffffffu, sum, o);
+                // PV takes p in V's dtype; l sums the unrounded p
+                row[lane] = to_f(from_f<T>(p0));
+                row[lane + 32] = to_f(from_f<T>(p1));
+                if (lane == 0) {
+                    l_s[ri] = alpha * l_s[ri] + sum;
+                    m_s[ri] = m_new;
+                    a_s[ri] = alpha;
+                }
+            }
+        }
+        __syncthreads();
+
+        {
+            const int nr = (nrows + RSTEP - 1) / RSTEP;
+            if (nr <= 1)
+                tile_pv<T, D, 1, RPT>(acc, v_s, sc, a_s, len);
+            else if (nr <= 2)
+                tile_pv<T, D, 2, RPT>(acc, v_s, sc, a_s, len);
+            else if (nr <= 4)
+                tile_pv<T, D, 4, RPT>(acc, v_s, sc, a_s, len);
+            else if (nr <= 8)
+                tile_pv<T, D, (RPT < 8 ? RPT : 8), RPT>(acc, v_s, sc, a_s, len);
+            else
+                tile_pv<T, D, RPT, RPT>(acc, v_s, sc, a_s, len);
+        }
+        __syncthreads();
+    }
+
+    // ---- out = acc / l (zeros where no page was walked) --------------------
+#pragma unroll
+    for (int i = 0; i < RPT; ++i) {
+        const int ri = rg + i * RSTEP;
+        if (ri >= nrows) continue;
+        const float l = l_s[ri];
+        const int r = row0 + ri, t = r / G, g = r % G;
+        T* dst = out + ((size_t(s) * T_ + t) * H + size_t(h) * G + g) * D;
+#pragma unroll
+        for (int cc = 0; cc < CPT; ++cc) {
+            const int c = c0 + cc * COLS;
+            dst[c] = from_f<T>(l == 0.f ? 0.f : acc[i][cc] / l);
+        }
+    }
+}
+
+template <typename T, int D>
+cudaError_t launch_k7(const void* q, const void* k_pool, const void* v_pool,
+                      const int* tables, const int* lens, const int* starts,
+                      void* out, int S_, int T_, int H, int KV, int P, int bs,
+                      int max_pages, float scale, int window, int ring_tokens,
+                      cudaStream_t stream) {
+    auto kernel = paged_attn_kernel<T, D>;
+    constexpr size_t smem = Smem<T, false, D>::total;
+    static bool configured = false;
+    if (!configured) {
+        cudaError_t err = cudaFuncSetAttribute(
+            kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
+        if (err != cudaSuccess) return err;
+        configured = true;
+    }
+    dim3 grid((T_ * (H / KV) + kRows - 1) / kRows, KV, S_);
+    kernel<<<grid, kThreads, smem, stream>>>(
+        static_cast<const T*>(q), static_cast<const T*>(k_pool),
+        static_cast<const T*>(v_pool), tables, lens, starts,
+        static_cast<T*>(out), T_, H, KV, P, bs, max_pages, scale, window,
+        ring_tokens);
+    return cudaGetLastError();
+}
+
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16 (of q, the stage and out); pool_e4m3: 0
@@ -648,5 +965,43 @@ extern "C" int ds_ragged_paged_attention(
     if (dtype == 1 && !pool_e4m3)
         return int(dispatch_d<__nv_bfloat16, false>(D, a, st));
     if (dtype == 1) return int(dispatch_d<__nv_bfloat16, true>(D, a, st));
+    return int(cudaErrorInvalidValue);
+}
+
+// K7: q [S, T, H, D] (dtype 0 = float32, 1 = bfloat16), k_pool / v_pool
+// [KV, P, D] of q's dtype with pages of bs rows, block_tables [S, max_pages],
+// seq_lens and starts [S] int32 (query row t of slot s sits at starts[s] + t;
+// keys below seq_lens[s] are valid); writes out [S, T, H, D]. window: 0 = no
+// sliding window; ring_tokens: 0 = a linear table, else the ring's tokens (a
+// multiple of bs; needs a window). Returns the cudaError_t of the launch.
+extern "C" int ds_paged_attention(
+        const void* q, const void* k_pool, const void* v_pool,
+        const void* block_tables, const void* seq_lens, const void* starts,
+        void* out, int S_, int T_, int H, int KV, int D, int P, int bs,
+        int max_pages, float scale, int window, int ring_tokens, int dtype,
+        void* stream) {
+    if (S_ == 0 || T_ == 0) return 0;
+    if (KV <= 0 || H % KV != 0 || bs <= 0 || P % bs != 0 || max_pages <= 0)
+        return int(cudaErrorInvalidValue);
+    if (ring_tokens && (window <= 0 || ring_tokens % bs != 0))
+        return int(cudaErrorInvalidValue);
+    auto st = static_cast<cudaStream_t>(stream);
+    const int* tb = static_cast<const int*>(block_tables);
+    const int* ln = static_cast<const int*>(seq_lens);
+    const int* sr = static_cast<const int*>(starts);
+#define DS_K7(T, DD)                                                          \
+    return int(launch_k7<T, DD>(q, k_pool, v_pool, tb, ln, sr, out, S_, T_, H, \
+                                KV, P, bs, max_pages, scale, window,         \
+                                ring_tokens, st))
+    if (dtype == 0) {
+        if (D == 64) DS_K7(float, 64);
+        if (D == 128) DS_K7(float, 128);
+        if (D == 256) DS_K7(float, 256);
+    } else if (dtype == 1) {
+        if (D == 64) DS_K7(__nv_bfloat16, 64);
+        if (D == 128) DS_K7(__nv_bfloat16, 128);
+        if (D == 256) DS_K7(__nv_bfloat16, 256);
+    }
+#undef DS_K7
     return int(cudaErrorInvalidValue);
 }

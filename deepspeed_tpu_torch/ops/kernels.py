@@ -28,7 +28,8 @@ BUILD = Path(__file__).resolve().parent / "build"
 SOURCES = {"paged_attention": "paged_attention.cu",
            "quant_matmul": "quant_matmul.cu",
            "grouped_matmul": "grouped_matmul.cu",
-           "flash_attention": "flash_attention.cu"}
+           "flash_attention": "flash_attention.cu",
+           "block_sparse_attention": "block_sparse_attention.cu"}
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -112,6 +113,11 @@ def _declare(name: str, lib: ctypes.CDLL) -> None:
         # pool_e4m3; stream
         fn.argtypes = [p] * 11 + [i] * 10 + [ctypes.c_float] + [i] * 4 + [p]
         fn.restype = i
+        fn = lib.ds_paged_attention
+        # q, k_pool, v_pool, block_tables, seq_lens, starts, out; S, T, H,
+        # KV, D, P, bs, max_pages; scale; window, ring_tokens, dtype; stream
+        fn.argtypes = [p] * 7 + [i] * 8 + [ctypes.c_float] + [i] * 3 + [p]
+        fn.restype = i
     elif name == "quant_matmul":
         fn = lib.ds_quant_matmul
         # x, codes, scale, out, workspace; M, K, Np, G, fmt, dtype, layer;
@@ -141,3 +147,16 @@ def _declare(name: str, lib: ctypes.CDLL) -> None:
         # causal, dtype; stream
         fn.argtypes = [p] * 9 + [i] * 5 + [ctypes.c_float] + [i] * 2 + [p]
         fn.restype = i
+    elif name == "block_sparse_attention":
+        fn = lib.ds_block_sparse_attention_fwd
+        # q, k, v, out, lse, tbl_q, cnt_q, order_q; B, H, S, D, block, mk;
+        # scale; causal, dtype; stream
+        fn.argtypes = [p] * 8 + [i] * 6 + [ctypes.c_float] + [i] * 2 + [p]
+        fn.restype = i
+        # q, k, v, dout, lse, delta, tbl, cnt, order, dq (dq) or dk, dv
+        # (dkv); B, H, S, D, block, m; scale; causal, dtype; stream
+        for fn, n_ptr in ((lib.ds_block_sparse_attention_dq, 10),
+                          (lib.ds_block_sparse_attention_dkv, 11)):
+            fn.argtypes = [p] * n_ptr + [i] * 6 + [ctypes.c_float] + \
+                [i] * 2 + [p]
+            fn.restype = i

@@ -20,6 +20,14 @@ values (see :func:`paged_ragged_attention_reference`).
 
 ``counts`` holds the launches of each route and form, so a run can show
 that its main path went through the kernel, in the form it needed.
+
+The per-layer-slice entry points :func:`paged_prefill_attention` and
+:func:`paged_decode_attention` (K7, counterparts of the JAX functions of the
+same names) attend over separate K and V pools ``[KV, P, D]`` into which
+the chunk's K/V are already scattered: no stage, e4m3 or tree form. On CUDA
+tensors they launch ``ds_paged_attention`` (same source, its own kernel), on
+CPU tensors :func:`paged_prefill_attention_reference`. Their launches are
+counted apart, in ``prefill_counts``.
 """
 from __future__ import annotations
 
@@ -393,3 +401,213 @@ def _launch_kernel(q, pool, k_stage, v_stage, block_tables, seq_lens,
     counts.kernel_ring += bool(ring_tokens)
     counts.kernel_tree += tree
     return out
+
+
+# ---------------------------------------------------------------------------
+# K7: paged attention over separate K / V pools (per-layer-slice entries)
+# ---------------------------------------------------------------------------
+
+#: the Pallas kernel's mask value (float32's finfo.min, a finite value)
+NEG_INF = float(torch.finfo(torch.float32).min)
+
+
+@dataclass
+class PrefillLaunchCounts:
+    """Calls of :func:`paged_prefill_attention` (and of
+    :func:`paged_decode_attention` through it) by route: ``kernel`` counts
+    launches of the CUDA kernel, ``kernel_window`` and ``kernel_ring`` the
+    ones that took the sliding window and the rolling ring (always with a
+    window), ``plain`` the CPU route."""
+    kernel: int = 0
+    kernel_window: int = 0
+    kernel_ring: int = 0
+    plain: int = 0
+
+    def reset(self) -> None:
+        for f in fields(self):
+            setattr(self, f.name, 0)
+
+
+prefill_counts = PrefillLaunchCounts()
+
+
+def _check_prefill(q, k_pool, block_size: int, window, ring_tokens) -> None:
+    """The JAX entry's ValueErrors, in its order."""
+    S, T, H, D = q.shape
+    KV, P, _ = k_pool.shape
+    if P % block_size:
+        raise ValueError(f"pool tokens {P} not divisible by block_size "
+                         f"{block_size}")
+    if H % KV:
+        raise ValueError(f"GQA needs H ({H}) divisible by KV ({KV})")
+    if ring_tokens and not window:
+        raise ValueError("a rolling KV buffer only retains the last "
+                         "ring_tokens positions — it requires a sliding "
+                         "window that masks everything older")
+    if ring_tokens and ring_tokens % block_size:
+        raise ValueError(f"ring_tokens {ring_tokens} must be a multiple of "
+                         f"block_size {block_size}")
+
+
+def prefill_key_visibility(block_tables, seq_lens, chunk_starts, *, T: int,
+                           block_size: int, window: int | None = None,
+                           ring_tokens: int | None = None):
+    """Which table column the Pallas K7 grid walks and which query row sees
+    it, over the C = max_pages * block_size columns of each slot's table.
+    Returns ``(ctx [S, C], run [S, C], mask [S, T, C])`` on the tables'
+    device: each column's key position, whether its page runs, and whether
+    row t (at ``chunk_starts + t``) sees it.
+
+    A page runs when it starts below ``seq_lens`` and, with a window, ends
+    after the chunk's earliest visible position (``chunk_starts - window +
+    1``); in a ring (``ring_tokens``) every slot j holding a block b_j =
+    b_latest - (b_latest - j) mod nwin >= 0 runs (b_latest = (seq_lens - 1)
+    // block_size), its offsets at or past ``seq_lens`` moved back by
+    ``ring_tokens``. A row sees key positions <= its own, valid (below
+    ``seq_lens``; >= 0 in a ring) and inside the window."""
+    bs, dev = block_size, block_tables.device
+    S, C = block_tables.shape[0], block_tables.shape[1] * bs
+    col = torch.arange(C, device=dev)
+    page, off = col // bs, col % bs
+    lens = seq_lens.to(device=dev, dtype=torch.long)[:, None]      # [S, 1]
+    starts = chunk_starts.to(device=dev, dtype=torch.long)[:, None]
+    if ring_tokens:
+        nwin = ring_tokens // bs
+        b_latest = torch.clamp(lens - 1, min=0) // bs
+        b_j = b_latest - torch.remainder(b_latest - page[None], nwin)
+        run = (lens > 0) & (b_j >= 0)
+        ctx = b_j * bs + off[None]
+        ctx = torch.where(ctx < lens, ctx, ctx - ring_tokens)
+        valid = ctx >= 0
+    else:
+        ctx = col[None].expand(S, C)
+        run = page[None] * bs < lens
+        if window:
+            run = run & (page[None] * bs + bs > starts - window + 1)
+        valid = ctx < lens
+    qpos = starts + torch.arange(T, device=dev)[None]              # [S, T]
+    mask = valid[:, None] & (ctx[:, None] <= qpos[:, :, None])     # [S,T,C]
+    if window:
+        mask &= ctx[:, None] > qpos[:, :, None] - window
+    return ctx, run, mask
+
+
+def paged_prefill_attention_reference(q, k_pool, v_pool, block_tables,
+                                      seq_lens, chunk_starts, *,
+                                      block_size: int,
+                                      scale: float | None = None,
+                                      window: int | None = None,
+                                      ring_tokens: int | None = None):
+    """The plain K7: gather every column of each slot's table, one fp32
+    softmax over the columns of the pages the Pallas grid runs (which, and
+    who sees what: :func:`prefill_key_visibility`). Masked scores take the
+    Pallas kernel's finite NEG_INF, so a row that sees no key on any run
+    page averages those pages' values (p = exp(0) = 1), as the kernel does;
+    a slot with no run page gives zeros. p is rounded to V's dtype for the
+    PV product, the denominator sums the unrounded p."""
+    _check_prefill(q, k_pool, block_size, window, ring_tokens)
+    S, T, H, D = q.shape
+    KV = k_pool.shape[0]
+    G, bs, dev = H // KV, block_size, q.device
+    scale = 1.0 / (D ** 0.5) if scale is None else scale
+    tables = block_tables.to(device=dev, dtype=torch.long)
+    col = torch.arange(tables.shape[1] * bs, device=dev)
+    rows = tables[:, col // bs] * bs + col % bs                    # [S, C]
+    K = k_pool[:, rows].permute(1, 0, 2, 3).float()               # [S,KV,C,D]
+    V = v_pool[:, rows].permute(1, 0, 2, 3)
+    _, run, mask = prefill_key_visibility(
+        tables, seq_lens, chunk_starts, T=T, block_size=bs, window=window,
+        ring_tokens=ring_tokens)
+    qg = q.reshape(S, T, KV, G, D).float()
+    scores = torch.einsum("stkgd,skcd->sktgc", qg, K) * scale
+    scores = scores.masked_fill(~mask[:, None, :, None], NEG_INF)
+    scores = scores.masked_fill(~run[:, None, None, None], float("-inf"))
+    m = scores.amax(dim=-1, keepdim=True)
+    m = torch.where(torch.isfinite(m), m, torch.zeros_like(m))   # no run page
+    p = torch.exp(scores - m)
+    l = p.sum(dim=-1, keepdim=True)
+    pv = torch.einsum("sktgc,skcd->sktgd", p.to(v_pool.dtype).float(),
+                      V.float())
+    o = torch.where(l > 0, pv / torch.where(l > 0, l, torch.ones_like(l)),
+                    torch.zeros_like(pv))
+    return o.permute(0, 2, 1, 3, 4).reshape(S, T, H, D).to(q.dtype)
+
+
+def paged_prefill_attention(q, k_pool, v_pool, block_tables, seq_lens,
+                            chunk_starts, *, block_size: int,
+                            scale: float | None = None,
+                            window: int | None = None,
+                            ring_tokens: int | None = None):
+    """Chunked-prefill attention against a paged KV pool.
+
+    q:             [S, T, H, D] — each slot's T-token chunk, whose K/V were
+                   already scattered into the pools; positions
+                   chunk_starts[s] .. chunk_starts[s] + T - 1
+    k_pool/v_pool: [KV, P, D], pages of ``block_size`` rows
+    block_tables:  [S, max_pages] int32 (pad with the trash block)
+    seq_lens:      [S] int32 — valid keys incl. this chunk's tokens
+    chunk_starts:  [S] int32
+    Returns [S, T, H, D]: the kernel on CUDA tensors, the plain version on
+    CPU tensors."""
+    _check_prefill(q, k_pool, block_size, window, ring_tokens)
+    if q.device.type == "cpu":
+        prefill_counts.plain += 1
+        return paged_prefill_attention_reference(
+            q, k_pool, v_pool, block_tables, seq_lens, chunk_starts,
+            block_size=block_size, scale=scale, window=window,
+            ring_tokens=ring_tokens)
+    if q.device.type != "cuda":
+        raise ValueError(f"unsupported device {q.device}")
+    from . import kernels
+
+    S, T, H, D = q.shape
+    KV, P, _ = k_pool.shape
+    if D not in KERNEL_HEAD_DIMS:
+        raise ValueError(f"head_dim {D} not in {KERNEL_HEAD_DIMS}")
+    dt, dev = q.dtype, q.device
+    if dt not in _KERNEL_DTYPES:
+        raise ValueError(f"kernel dtype must be float32 or bfloat16, got {dt}")
+    for name, t in (("q", q), ("k_pool", k_pool), ("v_pool", v_pool)):
+        if t.dtype != dt or t.device != dev:
+            raise ValueError(f"{name} is {t.dtype} on {t.device}; the kernel "
+                             f"needs {dt} on {dev}")
+        if not t.is_contiguous() or t.data_ptr() % 16:
+            raise ValueError(f"{name} must be contiguous and 16-byte aligned")
+    if tuple(v_pool.shape) != (KV, P, D):
+        raise ValueError(f"v_pool {tuple(v_pool.shape)} != {(KV, P, D)}")
+    tables = _i32(block_tables, dev)
+    if tables.dim() != 2 or tables.shape[0] != S or tables.shape[1] < 1:
+        raise ValueError(f"block_tables {tuple(tables.shape)} needs {S} rows")
+    lens, starts = _i32(seq_lens, dev), _i32(chunk_starts, dev)
+    for name, t in (("seq_lens", lens), ("chunk_starts", starts)):
+        if tuple(t.shape) != (S,):
+            raise ValueError(f"{name} {tuple(t.shape)} != ({S},)")
+    window, ring_tokens = int(window or 0), int(ring_tokens or 0)
+    scale = 1.0 / (D ** 0.5) if scale is None else float(scale)
+    out = torch.empty_like(q)
+    err = kernels.load("paged_attention").ds_paged_attention(
+        q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(), tables.data_ptr(),
+        lens.data_ptr(), starts.data_ptr(), out.data_ptr(), S, T, H, KV, D,
+        P, block_size, tables.shape[1], scale, window, ring_tokens,
+        _KERNEL_DTYPES[dt], torch.cuda.current_stream(dev).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"paged-attention (K7) launch failed: CUDA error "
+                           f"{err}")
+    prefill_counts.kernel += 1
+    prefill_counts.kernel_window += bool(window)
+    prefill_counts.kernel_ring += bool(ring_tokens)
+    return out
+
+
+def paged_decode_attention(q, k_pool, v_pool, block_tables, seq_lens, *,
+                           block_size: int, scale: float | None = None,
+                           window: int | None = None,
+                           ring_tokens: int | None = None):
+    """One token per slot: :func:`paged_prefill_attention` with T = 1 at
+    position seq_len - 1. q [S, H, D]; seq_lens counts the new token (0 =
+    an empty slot). Returns [S, H, D]."""
+    starts = torch.clamp(torch.as_tensor(seq_lens).to(torch.int32) - 1, min=0)
+    return paged_prefill_attention(
+        q[:, None], k_pool, v_pool, block_tables, seq_lens, starts,
+        block_size=block_size, scale=scale, window=window,
+        ring_tokens=ring_tokens)[:, 0]

@@ -1,8 +1,10 @@
 """The port on the card: the paged-attention CUDA kernel (default,
 e4m3-pool, sliding-window, rolling-ring and tree-verify forms), the
 quantized-weight kernel, the grouped MoE kernels
-(K5's forward, dx and dw; K3) and the flash-attention kernel (K4, forward
-and backward) against their plain versions, the CUDA serving engine against
+(K5's forward, dx and dw; K3), the flash-attention kernel (K4, forward
+and backward), the block-sparse flash kernels (K6: forward, dq, dk/dv) and
+the per-layer-slice paged attention (K7: linear, window and ring tables)
+against their plain versions, the CUDA serving engine against
 the CPU engine, and training steps on the card through K4 and through K5's
 forward and backward. These need an sm_90
 GPU and nvcc, so they skip elsewhere; on a machine with the card run
@@ -628,3 +630,158 @@ def test_cuda_moe_train_step_runs_experts_through_k5(dev):
             assert gm.counts.plain == gm.counts.plain_dx == \
                 gm.counts.plain_dw == 0
     np.testing.assert_allclose(losses["cuda"], losses["cpu"], rtol=1e-4)
+
+
+def _k6_case(dev, dtype, B, H, S, D, block, seed=0):
+    """Inputs and tables of one K6 case: a random layout with an empty query
+    row (0) and a row (1) that sees only the last block (above the diagonal:
+    wholly masked under causal)."""
+    import numpy as np
+
+    from deepspeed_tpu_torch.ops import block_sparse_attention as bsa
+
+    n = S // block
+    layout = np.random.default_rng(seed).random((H, n, n)) < 0.4
+    layout[:, 0] = False
+    layout[:, 1] = False
+    layout[:, 1, n - 1] = True
+    g = torch.Generator(device=dev).manual_seed(seed)
+    rnd = lambda sd=1.0: (torch.randn(B, H, S, D, generator=g, device=dev)
+                          * sd).to(dtype)
+    return (rnd(2.0), rnd(), rnd(), rnd()), bsa.device_tables(layout, dev)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("D", [64, 128, 256])
+@pytest.mark.parametrize("S,block,causal", [(512, 128, False),
+                                            (512, 128, True),
+                                            (408, 136, True),
+                                            (576, 192, False),
+                                            (768, 256, True)])
+def test_block_sparse_kernels_match_plain_versions(dev, dtype, D, S, block,
+                                                   causal):
+    """K6's forward (out, lse), dq and dk/dv kernels, each against its plain
+    version by ``K4_TOL``; the empty row and the row visible only above the
+    diagonal (causal) give zeros and no gradient."""
+    from deepspeed_tpu_torch.ops import block_sparse_attention as bsa
+
+    (q, k, v, do), tables = _k6_case(dev, dtype, 2, 2, S, D, block)
+    scale = D ** -0.5
+    bsa.counts.reset()
+    out, lse = bsa.block_sparse_fwd(q, k, v, tables, block, causal, scale)
+    torch.cuda.synchronize()
+    assert (bsa.counts.fwd, bsa.counts.plain) == (1, 0)
+    ref_out, ref_lse = bsa.block_sparse_fwd_plain(q, k, v, tables, block,
+                                                  causal, scale)
+    out_tol, grad_tol = K4_TOL[dtype]
+    err = (out.float() - ref_out.float()).abs().max().item()
+    if dtype == torch.bfloat16:
+        err /= ref_out.float().abs().max().item()
+    assert err <= out_tol, ("out", err)
+    assert (lse - ref_lse).abs().max().item() <= 1e-3
+    assert not out[:, :, :block].any()
+    dout, lse_c, delta = bsa.bwd_operands(q, k, v, out, ref_lse, do)
+    dq = bsa.launch_dq(q, k, v, dout, lse_c, delta, tables, block, causal,
+                       scale)
+    dk, dv = bsa.launch_dkv(q, k, v, dout, lse_c, delta, tables, block,
+                            causal, scale)
+    refs = bsa.block_sparse_bwd_plain(q, k, v, out, ref_lse, do, tables,
+                                      block, causal, scale)
+    for name, got, ref in zip(("dq", "dk", "dv"), (dq, dk, dv), refs):
+        assert got.dtype == ref.dtype and torch.isfinite(got.float()).all()
+        rel = (got.float() - ref.float()).abs().max().item() / \
+            ref.float().abs().max().item()
+        assert rel <= grad_tol, (name, rel)
+    assert not dq[:, :, :block].any()
+    if causal:
+        assert not out[:, :, block:2 * block].any()
+        assert not dq[:, :, block:2 * block].any()
+
+
+def test_sparse_self_attention_launches_the_kernels(dev):
+    """Autograd through ``SparseSelfAttention`` on the card: one forward and
+    one backward launch of K6, never a plain version; the masked route (a
+    block under 128) launches nothing of K6."""
+    import numpy as np
+
+    from deepspeed_tpu_torch.ops import block_sparse_attention as bsa
+    from deepspeed_tpu_torch.ops.sparse_attention import (
+        BigBirdSparsityConfig, FixedSparsityConfig, SparseSelfAttention)
+
+    g = torch.Generator(device=dev).manual_seed(0)
+    mk = lambda: torch.randn(1, 1024, 4, 64, generator=g, device=dev,
+                             dtype=torch.bfloat16).requires_grad_()
+    for cfg in (BigBirdSparsityConfig(num_heads=4, block=128,
+                                      different_layout_per_head=True),
+                FixedSparsityConfig(num_heads=4, block=128,
+                                    attention="unidirectional")):
+        q, k, v = mk(), mk(), mk()
+        bsa.counts.reset()
+        SparseSelfAttention(cfg)(q, k, v).float().square().sum().backward()
+        torch.cuda.synchronize()
+        assert vars(bsa.counts) == {"fwd": 1, "bwd": 1, "plain": 0,
+                                    "plain_bwd": 0}
+        assert all(torch.isfinite(t.grad.float()).all() for t in (q, k, v))
+    bsa.counts.reset()
+    SparseSelfAttention(BigBirdSparsityConfig(num_heads=4, block=64))(
+        mk(), mk(), mk())
+    assert vars(bsa.counts) == {"fwd": 0, "bwd": 0, "plain": 0,
+                                "plain_bwd": 0}
+    tables = bsa.device_tables(np.ones((2, 2, 2), bool), dev)
+    with pytest.raises(ValueError, match="head dim"):
+        bsa.block_sparse_fwd(*(torch.zeros(1, 2, 256, 80, device=dev)
+                               for _ in range(3)), tables, 128, False, 0.1)
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),
+                                       (torch.bfloat16, 1e-2)])
+@pytest.mark.parametrize("D", [64, 128, 256])
+@pytest.mark.parametrize("G", [1, 4])
+@pytest.mark.parametrize("form", ["linear", "window", "ring", "decode"])
+def test_paged_prefill_kernel_matches_plain_version(dev, dtype, tol, D, G,
+                                                    form):
+    """K7 against its plain version: prefill chunks over a linear table
+    (one empty slot), with a window (slot 1's rows past seq_len see no key
+    on the page the kernel runs, and average it, as the Pallas kernel
+    does), from a wrapped ring, and decode; fp32 by max |error|, bf16 over
+    max |plain|."""
+    KV, bs, nb = 2, 16, 64
+    S, T = 3, (1 if form == "decode" else 24)
+    g = torch.Generator(device=dev).manual_seed(G + D)
+    q = (torch.randn(S, T, KV * G, D, generator=g, device=dev) * 3).to(dtype)
+    kp = torch.randn(KV, nb * bs, D, generator=g, device=dev).to(dtype)
+    vp = torch.randn(KV, nb * bs, D, generator=g, device=dev).to(dtype)
+    kw = dict(block_size=bs)
+    if form == "ring":
+        kw.update(window=40, ring_tokens=64)
+        lens, starts, mp = [150, 20, 300], [126, 8, 276], 4
+    elif form == "window":
+        kw.update(window=8)
+        lens, starts, mp = [90, 30, 300], [66, 32, 276], 24
+    else:
+        lens, starts, mp = [90, 0, 300], [66, 0, 276], 24
+        if form == "decode":
+            starts = [max(n - 1, 0) for n in lens]
+    tables = torch.randint(1, nb, (S, mp), generator=g, device=dev,
+                           dtype=torch.int32)
+    lens = torch.tensor(lens, dtype=torch.int32, device=dev)
+    starts = torch.tensor(starts, dtype=torch.int32, device=dev)
+    pa.prefill_counts.reset()
+    if form == "decode":
+        got = pa.paged_decode_attention(q[:, 0], kp, vp, tables, lens, **kw)
+        got = got[:, None]
+    else:
+        got = pa.paged_prefill_attention(q, kp, vp, tables, lens, starts,
+                                         **kw)
+    torch.cuda.synchronize()
+    assert vars(pa.prefill_counts) == {
+        "kernel": 1, "kernel_window": int("window" in kw),
+        "kernel_ring": int("ring_tokens" in kw), "plain": 0}
+    ref = pa.paged_prefill_attention_reference(q, kp, vp, tables, lens,
+                                               starts, **kw)
+    err = (got.float() - ref.float()).abs().max().item()
+    if dtype == torch.bfloat16:
+        err /= ref.float().abs().max().item()
+    assert torch.isfinite(got.float()).all() and err <= tol, err
+    if form == "linear":
+        assert not got[1].any()

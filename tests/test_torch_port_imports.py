@@ -39,6 +39,9 @@ for m in ('deepspeed_tpu_torch.inference.engine_v2',
           'deepspeed_tpu_torch.ops.remat',
           'deepspeed_tpu_torch.runtime.activation_checkpointing',
           'deepspeed_tpu_torch.ops.flash_attention',
+          'deepspeed_tpu_torch.ops.sparse_attention',
+          'deepspeed_tpu_torch.ops.block_sparse_attention',
+          'deepspeed_tpu_torch.ops.paged_attention',
           'deepspeed_tpu_torch.runtime.data_pipeline.data_sampler',
           'deepspeed_tpu_torch.runtime.data', 'deepspeed_tpu_torch.runtime.engine'):
     assert m in names, (m, names)
@@ -100,7 +103,7 @@ def test_kernel_sources_ship_with_the_package():
     from deepspeed_tpu_torch.ops.kernels import SOURCES
 
     assert {"paged_attention", "quant_matmul", "grouped_matmul",
-            "flash_attention"} <= set(SOURCES)
+            "flash_attention", "block_sparse_attention"} <= set(SOURCES)
     for src in SOURCES.values():
         assert (PORT / "ops" / "csrc" / src).is_file(), src
     ignored = (ROOT / ".gitignore").read_text().split()
