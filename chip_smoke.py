@@ -78,7 +78,12 @@ Phases (every one raises on failure; nothing is caught and passed over):
      pairs x D backward) over 989 TFLOP/s (bf16) or 67 (fp32), against
      the bytes over 3.35 TB/s. Yardstick: one
      ``scaled_dot_product_attention(is_causal=...)`` call over K/V
-     repeated per q head, forward and forward + backward.
+     repeated per q head, forward and forward + backward. Each case
+     prints the kernel's ms, TFLOP/s (the counted operations over its
+     time) and share of the bound beside SDPA, and the host µs the bf16
+     wrapper spent encoding its TMA tensor maps; the phase first prints
+     the bf16 tensor-core kernels' registers, stack, spills (from the
+     build's ``-Xptxas -v``) and dynamic shared memory.
    - K6, block-sparse flash attention, forward (out and lse), dq and dk/dv
      (each timed alone and together), in bf16 and fp32, q at 3x the keys'
      spread: at bert-large-uncased width (H 16, D 64, B 2, S 4096, block
@@ -308,6 +313,36 @@ def free_cuda() -> None:
 # ---------------------------------------------------------------------------
 # phase 1: build
 # ---------------------------------------------------------------------------
+
+def ptxas_entries(text: str) -> dict:
+    """``{mangled entry: {"regs", "stack", "spill_stores", "spill_loads",
+    "wgmma_serialized"}}`` from ``nvcc -Xptxas -v`` output (the last is
+    True where ptxas says it serialized the entry's wgmma instructions)."""
+    import re
+
+    out, cur = {}, None
+    for line in text.splitlines():
+        m = re.search(r"wgmma\.mma_async instructions are serialized.*"
+                      r"function '(\S+?)'", line)
+        if m:
+            out.setdefault(m.group(1), {})["wgmma_serialized"] = True
+            continue
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            cur = out.setdefault(m.group(1), {})
+            continue
+        if cur is None:
+            continue
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                      r"(\d+) bytes spill loads", line)
+        if m:
+            cur.update(stack=int(m.group(1)), spill_stores=int(m.group(2)),
+                       spill_loads=int(m.group(3)))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            cur["regs"] = int(m.group(1))
+    return out
+
 
 def phase_build() -> dict:
     from deepspeed_tpu_torch.ops import kernels
@@ -2201,6 +2236,15 @@ def k4_run_case(label, B, H, KV, S, D, causal, dtype, dev, seed) -> dict:
     if lse_err > 1e-3:
         raise AssertionError(f"K4 {label} {dtype}: lse error {lse_err:.3e}")
     del ref_out, ref_lse, refs
+    map_us = {}
+    if dtype == torch.bfloat16:
+        from deepspeed_tpu_torch.ops import kernels
+
+        lib = kernels.load("flash_attention")
+        fa.flash_fwd(q, k, v, causal, scale)
+        map_us["fwd"] = lib.ds_flash_attention_map_us()
+        fa.flash_bwd(q, k, v, out, lse, do, causal, scale)
+        map_us["bwd"] = lib.ds_flash_attention_map_us()
     ms = cuda_time_ms(lambda: fa.flash_fwd(q, k, v, causal, scale), iters=10)
     bwd_ms = cuda_time_ms(
         lambda: fa.flash_bwd(q, k, v, out, lse, do, causal, scale), iters=10)
@@ -2225,34 +2269,75 @@ def k4_run_case(label, B, H, KV, S, D, causal, dtype, dev, seed) -> dict:
     lib_fwd_bwd_ms = cuda_time_ms(sdpa_fwd_bwd, iters=5, warmup=2,
                                   graph=False)
     work = k4_work(B, H, KV, S, D, causal, dtype)
+    rates = dict(fwd_tflops=work["fwd_ops"] / (ms * 1e9),
+                 bwd_tflops=work["bwd_ops"] / (bwd_ms * 1e9),
+                 fwd_bound_share=work["fwd_bound_ms"] / ms,
+                 bwd_bound_share=work["bwd_bound_ms"] / bwd_ms)
     rec = dict(case=label, dtype=str(dtype).replace("torch.", ""), B=B, H=H,
                KV=KV, S=S, D=D, causal=causal, errors=errs, lse_err=lse_err,
                ms=ms, bwd_ms=bwd_ms, plain_ms=plain_ms,
                plain_bwd_ms=plain_bwd_ms, library_ms=lib_ms,
-               library_fwd_bwd_ms=lib_fwd_bwd_ms, **work)
+               library_fwd_bwd_ms=lib_fwd_bwd_ms, map_us=map_us, **rates,
+               **work)
+    maps = (f"; maps {map_us['fwd']:.1f} / {map_us['bwd']:.1f} us"
+            if map_us else "")
     log(f"[kernel] K4 {label:<28} {rec['dtype']:<8} err out "
         f"{errs['out']['judged']:.2e} dq {errs['dq']['judged']:.2e} dk "
         f"{errs['dk']['judged']:.2e} dv {errs['dv']['judged']:.2e}  fwd "
-        f"{ms:.3f} ms (bound {work['fwd_bound_ms']:.3f} "
-        f"{work['fwd_bound_by']}, plain {plain_ms:.2f}, sdpa {lib_ms:.3f})  "
-        f"bwd {bwd_ms:.3f} ms (bound {work['bwd_bound_ms']:.3f}, plain "
-        f"{plain_bwd_ms:.2f}, sdpa fwd+bwd {lib_fwd_bwd_ms:.3f})")
+        f"{ms:.3f} ms {rates['fwd_tflops']:.0f} TFLOP/s, "
+        f"{rates['fwd_bound_share']:.1%} of bound {work['fwd_bound_ms']:.3f} "
+        f"{work['fwd_bound_by']} (plain {plain_ms:.2f}, sdpa {lib_ms:.3f})  "
+        f"bwd {bwd_ms:.3f} ms {rates['bwd_tflops']:.0f} TFLOP/s, "
+        f"{rates['bwd_bound_share']:.1%} of bound {work['bwd_bound_ms']:.3f} "
+        f"(plain {plain_bwd_ms:.2f}, sdpa fwd+bwd {lib_fwd_bwd_ms:.3f})"
+        f"{maps}")
     return rec
 
 
-def phase_k4(dev) -> tuple[dict, dict, list]:
-    """K4 at every case of ``K4_CASES`` in fp32 and bf16. Returns the
-    forward and backward records' fields (errors over every bf16 case and
-    the worst fp32 one; times, bound and yardstick of ``K4_MAIN`` in bf16)
-    and the cases."""
-    cases = []
+def k4_resources(built: dict) -> list:
+    """The bf16 tensor-core kernels' registers, stack and spills from the
+    build's ``-Xptxas -v`` output (empty when the library was already
+    built) and their dynamic shared memory. The register count is the
+    launch's; the consumer warpgroups raise theirs to 240 (setmaxnreg)."""
+    from deepspeed_tpu_torch.ops import kernels
+
+    lib = kernels.load("flash_attention")
+    entries = ptxas_entries(built.get("flash_attention", {}).get("ptxas", ""))
+    rows = []
+    for which, kern in enumerate(("flash_fwd_tc_kernel", "flash_dq_tc_kernel",
+                                  "flash_dkv_tc_kernel")):
+        for D in (64, 128, 256):
+            found = [v for name, v in entries.items()
+                     if kern in name and f"ILi{D}E" in name]
+            row = dict(kernel=f"{kern}<{D}>",
+                       smem_bytes=lib.ds_flash_attention_tc_smem(which, D),
+                       **(found[0] if found else {}))
+            rows.append(row)
+            row.setdefault("wgmma_serialized", False)
+            log(f"[kernel] K4 {row['kernel']:<26} registers "
+                f"{row.get('regs', 'not reported')}, stack "
+                f"{row.get('stack', '-')} B, spills "
+                f"{row.get('spill_stores', '-')} / "
+                f"{row.get('spill_loads', '-')} B, shared memory "
+                f"{row['smem_bytes']} B, wgmma serialized "
+                f"{row['wgmma_serialized']}")
+    return rows
+
+
+def phase_k4(dev, built: dict) -> tuple[dict, dict, list]:
+    """K4's tensor-core kernels' resources (``k4_resources``), then K4 at
+    every case of ``K4_CASES`` in fp32 and bf16. Returns the forward and
+    backward records' fields (errors over every bf16 case and the worst
+    fp32 one; times, bound and yardstick of ``K4_MAIN`` in bf16) and the
+    cases, the resources first."""
+    cases = [{"resources": k4_resources(built)}]
     for i, (label, B, H, KV, S, D, causal) in enumerate(K4_CASES):
         for dtype in (torch.bfloat16, torch.float32):
             cases.append(k4_run_case(label, B, H, KV, S, D, causal, dtype,
                                      dev, seed=100 + i))
             free_cuda()
-    bf = [c for c in cases if c["dtype"] == "bfloat16"]
-    f32 = [c for c in cases if c["dtype"] == "float32"]
+    bf = [c for c in cases if c.get("dtype") == "bfloat16"]
+    f32 = [c for c in cases if c.get("dtype") == "float32"]
     main = next(c for c in bf if c["case"] == K4_MAIN)
 
     def errs(names):
@@ -2266,12 +2351,13 @@ def phase_k4(dev) -> tuple[dict, dict, list]:
 
     fwd = dict(errs(("out",)), ms=main["ms"], plain_ms=main["plain_ms"],
                bound_ms=main["fwd_bound_ms"], bound_by=main["fwd_bound_by"],
-               library_ms=main["library_ms"])
+               library_ms=main["library_ms"], tflops=main["fwd_tflops"])
     bwd = dict(errs(("dq", "dk", "dv")), ms=main["bwd_ms"],
                plain_ms=main["plain_bwd_ms"], bound_ms=main["bwd_bound_ms"],
                bound_by=main["bwd_bound_by"],
                library_ms=main["library_fwd_bwd_ms"],
-               fwd_bwd_ms=main["ms"] + main["bwd_ms"])
+               fwd_bwd_ms=main["ms"] + main["bwd_ms"],
+               tflops=main["bwd_tflops"])
     return fwd, bwd, cases
 
 
@@ -3343,7 +3429,7 @@ def main() -> int:
         k5_cases += k5_bwd_cases
         k3_summary, k3_cases = phase_k3(dev)
         k3.update(k3_summary)
-        k4f_summary, k4b_summary, k4_cases = phase_k4(dev)
+        k4f_summary, k4b_summary, k4_cases = phase_k4(dev, built)
         k4_fwd.update(k4f_summary)
         k4_bwd.update(k4b_summary)
         k6f_summary, k6b_summary, k6_cases = phase_k6(dev)

@@ -11,7 +11,8 @@ k/v ``[B, Skv, KV, D]`` (KV divides H) in the public layout of
   ``ds_flash_attention_fwd`` and the backward ``ds_flash_attention_bwd``
   (``csrc/flash_attention.cu``: a dq kernel and a dk/dv kernel that sums
   each GQA group in place), or raise; they never switch to the plain
-  version.
+  version. bf16 runs on the tensor cores (wgmma on tiles TMA loads; S at
+  least 128), fp32 on the CUDA cores in full fp32.
 - On CPU tensors they run :func:`flash_fwd_plain` and
   :func:`flash_bwd_plain`, the plain versions: dense fp32 scores, the lse
   of the forward, and a backward from ``delta = rowsum(dO * O)`` and the
@@ -36,7 +37,8 @@ import torch
 #: refuses (``flash_attention.py:45-62``); the CUDA kernel's own tiles do not
 #: depend on it
 DEFAULT_BLOCK_Q = 1024
-#: below this the JAX dispatcher takes its XLA route, and so does the port
+#: below this the JAX dispatcher takes its XLA route, and so does the port;
+#: it is also the bf16 kernels' shortest sequence (the rows of one tile)
 MIN_SEQ = 128
 _FAST_BLOCKS = (1024, 512, 256)
 VMEM_BUDGET_BYTES = 24 * 1024 * 1024
@@ -177,8 +179,10 @@ def flash_fwd_plain(q, k, v, causal: bool = True, scale: float | None = None):
 
 def attention_delta(out, dout) -> torch.Tensor:
     """``delta = rowsum(dO * O)`` in fp32, [B, H, S] (the JAX package makes
-    it in XLA before its backward kernels, as the port does before its)."""
-    return (dout.float() * out.float()).sum(dim=-1)
+    it in XLA before its backward kernels, as the port does before its).
+    ``out`` is upcast inside the product, which saves one fp32 copy; the
+    products of bf16 values are exact in fp32 either way."""
+    return (dout.float() * out).sum(dim=-1)
 
 
 def flash_bwd_plain(q, k, v, out, lse, dout, causal: bool = True,
@@ -237,6 +241,14 @@ def _kernel_operands(dtype, *tensors) -> None:
             raise ValueError("operands must be contiguous")
 
 
+def _kernel_shape(q) -> None:
+    D, S = q.shape[3], q.shape[2]
+    if D not in HEAD_DIMS:
+        raise ValueError(f"head dim {D} not in {HEAD_DIMS}")
+    if q.dtype == torch.bfloat16 and S < MIN_SEQ:
+        raise ValueError(f"the bf16 kernel takes S >= {MIN_SEQ}, got {S}")
+
+
 def _stream(dev) -> int:
     return torch.cuda.current_stream(dev).cuda_stream
 
@@ -251,8 +263,7 @@ def flash_fwd(q, k, v, causal: bool, scale: float):
     if q.device.type != "cuda":
         raise ValueError(f"unsupported device {q.device}")
     B, H, S, D = q.shape
-    if D not in HEAD_DIMS:
-        raise ValueError(f"head dim {D} not in {HEAD_DIMS}")
+    _kernel_shape(q)
     _kernel_operands(q.dtype, q, k, v)
     if k.dtype != q.dtype or v.dtype != q.dtype:
         raise ValueError("q, k and v must share one dtype on the card")
@@ -281,8 +292,7 @@ def flash_bwd(q, k, v, out, lse, dout, causal: bool, scale: float):
     if q.device.type != "cuda":
         raise ValueError(f"unsupported device {q.device}")
     B, H, S, D = q.shape
-    if D not in HEAD_DIMS:
-        raise ValueError(f"head dim {D} not in {HEAD_DIMS}")
+    _kernel_shape(q)
     dout = dout.to(q.dtype).contiguous()
     _kernel_operands(q.dtype, q, k, v, out, dout)
     lse = lse.float().contiguous()

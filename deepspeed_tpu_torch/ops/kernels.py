@@ -5,8 +5,8 @@ for Hopper (``sm_90a``) into a shared library with a plain C interface,
 which :func:`load` opens with ``ctypes``. PyTorch's headers are kept out of
 the sources, so a build takes seconds rather than minutes. Libraries land in
 ``ops/build/`` (listed in ``.gitignore``) under a name that carries a hash of
-the source and the flags, so an edited source is rebuilt and a stale library
-is never loaded.
+the source, every header in ``csrc/`` and the flags, so an edited source or
+header is rebuilt and a stale library is never loaded.
 
 Nothing here falls back: a missing ``nvcc``, a failed compile or a failed
 load raises.
@@ -52,17 +52,20 @@ def nvcc() -> str:
 
 
 def _lib_path(name: str) -> Path:
-    src = (CSRC / SOURCES[name]).read_bytes()
-    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
-    return BUILD / f"lib{name}_{digest[:16]}.so"
+    h = hashlib.sha256((CSRC / SOURCES[name]).read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.name.encode() + header.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD / f"lib{name}_{h.hexdigest()[:16]}.so"
 
 
 def build_all(names=None) -> dict[str, dict]:
     """Compile the named kernel libraries (all by default) that are not
     built yet, one ``nvcc`` process per source, all started together.
     Returns ``{name: {"path", "seconds", "ptxas"}}``; ``ptxas`` is the
-    compiler's register/shared-memory report (empty for a library that was
-    already built). Raises RuntimeError naming every source that failed."""
+    compiler's register/shared-memory report, kept beside the library so a
+    library that was already built reports it too. Raises RuntimeError
+    naming every source that failed."""
     names = list(SOURCES) if names is None else list(names)
     BUILD.mkdir(parents=True, exist_ok=True)
     procs = {}
@@ -70,7 +73,9 @@ def build_all(names=None) -> dict[str, dict]:
     for name in names:
         path = _lib_path(name)
         if path.is_file():
-            out[name] = {"path": str(path), "seconds": 0.0, "ptxas": ""}
+            log = path.with_suffix(".ptxas")
+            out[name] = {"path": str(path), "seconds": 0.0,
+                         "ptxas": log.read_text() if log.is_file() else ""}
             continue
         tmp = path.with_suffix(f".{os.getpid()}.tmp")
         cmd = [nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / SOURCES[name])]
@@ -84,6 +89,7 @@ def build_all(names=None) -> dict[str, dict]:
         if proc.returncode != 0:
             failed.append(f"{SOURCES[name]} (exit {proc.returncode}):\n{log}")
             continue
+        path.with_suffix(".ptxas").write_text(log)
         os.replace(tmp, path)          # atomic: no reader sees half a file
         out[name] = {"path": str(path), "seconds": secs, "ptxas": log}
     if failed:
@@ -146,6 +152,13 @@ def _declare(name: str, lib: ctypes.CDLL) -> None:
         # q, k, v, dout, lse, delta, dq, dk, dv; B, H, KV, S, D; scale;
         # causal, dtype; stream
         fn.argtypes = [p] * 9 + [i] * 5 + [ctypes.c_float] + [i] * 2 + [p]
+        fn.restype = i
+        fn = lib.ds_flash_attention_map_us
+        fn.argtypes = []
+        fn.restype = ctypes.c_double
+        fn = lib.ds_flash_attention_tc_smem
+        # which (0 forward, 1 dq, 2 dk/dv), D
+        fn.argtypes = [i, i]
         fn.restype = i
     elif name == "block_sparse_attention":
         fn = lib.ds_block_sparse_attention_fwd

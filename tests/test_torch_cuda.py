@@ -1,10 +1,11 @@
 """The port on the card: the paged-attention CUDA kernel (default,
 e4m3-pool, sliding-window, rolling-ring and tree-verify forms), the
-quantized-weight kernel, the grouped MoE kernels
-(K5's forward, dx and dw; K3), the flash-attention kernel (K4, forward
-and backward), the block-sparse flash kernels (K6: forward, dq, dk/dv) and
-the per-layer-slice paged attention (K7: linear, window and ring tables)
-against their plain versions, the CUDA serving engine against
+quantized-weight kernel, the grouped MoE kernels (K5's forward, dx and
+dw; K3), the flash-attention kernel (K4, forward and backward; its bf16
+kernels also at the tensor-core tiles' edges, and their backward bit for
+bit from call to call), the block-sparse flash kernels (K6: forward, dq,
+dk/dv) and the per-layer-slice paged attention (K7: linear, window and
+ring tables) against their plain versions, the CUDA serving engine against
 the CPU engine, and training steps on the card through K4 and through K5's
 forward and backward. These need an sm_90
 GPU and nvcc, so they skip elsewhere; on a machine with the card run
@@ -505,15 +506,26 @@ def _flash_inputs(dev, dtype, B, H, KV, S, D, seed=0):
         rnd(B, H, S, D)
 
 
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+#: (dtype, B, S, causal): short and ragged sequences in both dtypes, then
+#: bf16 at the tensor-core tiles' edges: the train shape (2048), a length
+#: ragged against the 128-row tile (1000), 4096, and 8192 at B 1
+K4_CARD_CASES = (
+    [(dtype, 2, S, causal) for dtype in (torch.float32, torch.bfloat16)
+     for S, causal in ((128, True), (200, True), (384, True), (200, False))]
+    + [(torch.bfloat16, B, S, causal)
+       for B, S in ((2, 2048), (2, 1000), (2, 4096), (1, 8192))
+       for causal in (True, False)])
+
+
+@pytest.mark.parametrize("dtype,B,S,causal", K4_CARD_CASES, ids=[
+    f"{str(dt)[6:]}-B{B}-S{S}-{'causal' if c else 'full'}"
+    for dt, B, S, c in K4_CARD_CASES])
 @pytest.mark.parametrize("D", [64, 128, 256])
 @pytest.mark.parametrize("G", [1, 4])
-@pytest.mark.parametrize("S,causal", [(128, True), (200, True), (384, True),
-                                      (200, False)])
-def test_flash_kernel_matches_plain_version(dev, dtype, D, G, S, causal):
+def test_flash_kernel_matches_plain_version(dev, dtype, B, S, causal, D, G):
     from deepspeed_tpu_torch.ops import flash_attention as fa
 
-    q, k, v, do = _flash_inputs(dev, dtype, 2, 2 * G, 2, S, D)
+    q, k, v, do = _flash_inputs(dev, dtype, B, 2 * G, 2, S, D)
     scale = D ** -0.5
     fa.counts.reset()
     out, lse = fa.flash_fwd(q, k, v, causal, scale)
@@ -537,6 +549,20 @@ def test_flash_kernel_matches_plain_version(dev, dtype, D, G, S, causal):
         assert rel <= grad_tol, (name, rel)
 
 
+def test_flash_bf16_backward_is_deterministic(dev):
+    """The bf16 backward kernels sum in a fixed order (no atomics): two
+    calls on the same inputs give the same bits."""
+    from deepspeed_tpu_torch.ops import flash_attention as fa
+
+    q, k, v, do = _flash_inputs(dev, torch.bfloat16, 2, 8, 2, 2048, 128)
+    out, lse = fa.flash_fwd(q, k, v, True, 128 ** -0.5)
+    first = fa.flash_bwd(q, k, v, out, lse, do, True, 128 ** -0.5)
+    second = fa.flash_bwd(q, k, v, out, lse, do, True, 128 ** -0.5)
+    torch.cuda.synchronize()
+    for name, a, b in zip(("dq", "dk", "dv"), first, second):
+        assert torch.equal(a, b), name
+
+
 def test_flash_autograd_launches_the_kernels(dev):
     from deepspeed_tpu_torch.ops import flash_attention as fa
     from deepspeed_tpu_torch.ops.attention import dot_product_attention
@@ -553,6 +579,10 @@ def test_flash_autograd_launches_the_kernels(dev):
     assert k.grad.shape == k.shape and torch.isfinite(q.grad.float()).all()
     with pytest.raises(ValueError, match="head dim"):
         fa.flash_fwd(*(torch.zeros(1, 2, 128, 80, device=dev)
+                       for _ in range(3)), True, 0.1)
+    with pytest.raises(ValueError, match="S >= 128"):
+        fa.flash_fwd(*(torch.zeros(1, 2, 64, 64, device=dev,
+                                   dtype=torch.bfloat16)
                        for _ in range(3)), True, 0.1)
 
 

@@ -100,6 +100,7 @@ def test_kernel_sources_ship_with_the_package():
     cfg = tomllib.loads((ROOT / "pyproject.toml").read_text())
     data = cfg["tool"]["setuptools"]["package-data"]
     assert "ops/csrc/*.cu" in data["deepspeed_tpu_torch"]
+    assert "ops/csrc/*.cuh" in data["deepspeed_tpu_torch"]   # hopper.cuh
     from deepspeed_tpu_torch.ops.kernels import SOURCES
 
     assert {"paged_attention", "quant_matmul", "grouped_matmul",
@@ -108,3 +109,24 @@ def test_kernel_sources_ship_with_the_package():
         assert (PORT / "ops" / "csrc" / src).is_file(), src
     ignored = (ROOT / ".gitignore").read_text().split()
     assert "deepspeed_tpu_torch/ops/build/" in ignored
+
+
+def test_library_name_covers_the_source_every_header_and_the_flags(
+        tmp_path, monkeypatch):
+    """An edited source, header or flag gives another library name, so a
+    stale build is never loaded."""
+    from deepspeed_tpu_torch.ops import kernels
+
+    (tmp_path / "flash_attention.cu").write_text('#include "hopper.cuh"\n')
+    (tmp_path / "hopper.cuh").write_text("// v1\n")
+    monkeypatch.setattr(kernels, "CSRC", tmp_path)
+    first = kernels._lib_path("flash_attention")
+    assert first == kernels._lib_path("flash_attention")
+    (tmp_path / "hopper.cuh").write_text("// v2\n")
+    second = kernels._lib_path("flash_attention")
+    (tmp_path / "flash_attention.cu").write_text('#include "hopper.cuh"\n//\n')
+    third = kernels._lib_path("flash_attention")
+    monkeypatch.setattr(kernels, "NVCC_FLAGS", kernels.NVCC_FLAGS + ("-G",))
+    fourth = kernels._lib_path("flash_attention")
+    assert len({first, second, third, fourth}) == 4
+    assert all(p.parent == kernels.BUILD for p in (first, fourth))
