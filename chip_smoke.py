@@ -11,13 +11,21 @@ Phases (every one raises on failure; nothing is caught and passed over):
 2. kernel — hold each kernel against its plain PyTorch version on the card
    at the serving and training paths' shapes, and time the kernel, the
    plain version, a PyTorch yardstick and the kernel's bound:
-   - K1, the paged-attention kernel (llama2-7b geometry and a GQA geometry;
+   - K1, the paged-attention kernels (llama2-7b geometry and a GQA geometry;
      decode, a 256-token prefill chunk over several pool pages, a
      window-shaped stage; an empty slot and trash-padded block tables), in
      fp32 (max absolute error 1e-4) and bf16 (max absolute error over max
      |plain| 1e-2: p is rounded to bf16 before the PV product, in a
      different order than the plain version's). q is drawn at 3x the keys'
      spread so the softmax is peaked and a wrong score shows in the output.
+     Each case names the kernel that served it (``kernel_plan``: the bf16
+     chunk kernel on wgmma for more than 16 rows per (slot, KV head), the
+     bf16 split kernel with its split count otherwise, the fp32 FMA
+     kernel), is launched twice with identical bits required, and prints
+     its TFLOP/s, GB/s and share of the bound. The phase first prints the
+     bf16 kernels' registers, stack, spills, shared memory and any wgmma
+     serialization (from the build's ``-Xptxas -v``), and the wrapper's
+     host µs per call by kernel beside the fp32 kernel's one-launch path.
      Yardstick: one ``scaled_dot_product_attention`` call over the same K/V
      gathered dense.
    - K1's sliding-window, rolling-ring and tree-verify forms, in fp32, bf16
@@ -30,8 +38,9 @@ Phases (every one raises on failure; nothing is caught and passed over):
      counts only the keys some query row sees (inside the window or ring);
      the SDPA yardstick gets an explicit boolean mask of who sees what.
    - K1's e4m3-pool form at the same llama2-7b shapes over an e4m3 pool,
-     against the plain version rounding p against the kernel's 64-key
-     walk; judged by max |error| over max |plain| and mean |error| over
+     against the plain version rounding p against the kernel's walk (64-key
+     tiles; the split kernel's splits); judged by max |error| over max
+     |plain| and mean |error| over
      mean |plain| (``K1_E4M3_TOL``: a p that lands within fp32 noise of an
      e4m3 rounding boundary may round the other way, one e4m3 step).
      Yardstick: the same SDPA call over the pages upcast.
@@ -102,7 +111,9 @@ Phases (every one raises on failure; nothing is caught and passed over):
      tables: llama2-7b geometry (block 64) decode of 8 slots at 256-4000
      context and a 4 x 256 prefill chunk over 0-768 context; mistral-7b
      geometry with its 4096 window on a linear table and on a wrapped
-     69-page ring, decode and a 4 x 256 chunk. Bound: q, the output and
+     69-page ring, decode and a 4 x 256 chunk; in bf16 through the same
+     chunk and split kernels as K1 (each case names its kernel and is
+     launched twice, identical bits required). Bound: q, the output and
      the K/V rows some query row sees. Yardstick: SDPA over the gathered
      K/V with the boolean mask of who sees what.
 3. parity — llama2-7b at full width with 4 layers in fp32: the engine's
@@ -136,7 +147,8 @@ Phases (every one raises on failure; nothing is caught and passed over):
    prefix) and 64 new tokens each, through put/step/query/flush. Prints
    output tok/s, p50 TTFT, decode ms/token, peak memory, the parameter
    bytes on the card and the kernels' launches: K1 equals layers x forward
-   dispatches, the plain versions' counts are 0. Run three times: bf16
+   dispatches, every one through the chunk or the split kernel, the plain
+   versions' counts are 0. Run three times: bf16
    weights and pool; ``quant_bits=8`` with ``kv_cache_dtype="fp8"`` (K1's
    e4m3 form); ``quant_bits=4``. The quantized runs launch K2 225 times per
    forward (7 products x 32 layers + the unembedding) and hold at most 0.55x
@@ -149,7 +161,9 @@ Phases (every one raises on failure; nothing is caught and passed over):
    chunk 256, prefix cache off): 8 requests of 64 new tokens, 4 with
    4608-6144-token prompts and 4 with 256-1024, in bf16 and with
    ``kv_cache_dtype="fp8"``; each asserts that the ring wrapped and that
-   no sequence owned more than its 69 pages. Then llama2-7b at full depth
+   no sequence owned more than its 69 pages, and profiles one prefill step
+   of 4 long prompts (256-row chunks past 4096 keys of context): wall,
+   device busy, K1 and the matrix products. Then llama2-7b at full depth
    on motif prompts: spec-off, ``spec_decode="ngram"`` and "draft" with the
    model itself as the draft (at least one verify), printing verify
    rounds, acceptance, tokens per verify and K1's tree launches beside the
@@ -531,17 +545,20 @@ def bound_of(nbytes: float, ops_seconds: float) -> tuple[float, str]:
 
 
 def k1_run_case(case, form: str, plain_graph: bool = True) -> dict:
-    """Hold one K1 case against the plain version and time it: the kernel
-    must be counted once, for its pool and ``form`` ("default", or the
-    option it takes: "window", "ring", "tree"), with no plain launch; empty
-    slots must be zeros; live slots are judged by the tolerances above (fp32
-    by max |error|, bf16 over max |plain|, an e4m3 pool also by mean |error|
-    over mean |plain|, p rounded against the kernel's 64-key walk). Then
-    the kernel, the plain version (without a CUDA graph where its
-    temporaries are large) and the SDPA yardstick are timed. Returns the
-    record; raises past the tolerance."""
+    """Hold one K1 case against the plain version and time it. The call is
+    launched twice and must give the same bits both times; each launch must
+    be counted for its pool, ``form`` ("default", or the option it takes:
+    "window", "ring", "tree") and, in bf16, the kernel that served it
+    (``kernel_plan``: the chunk or the split kernel), with no plain launch;
+    empty slots must be zeros; live slots are judged by the tolerances
+    above (fp32 by max |error|, bf16 over max |plain|, an e4m3 pool also by
+    mean |error| over mean |plain|, p rounded against the kernel's walk:
+    64-key tiles and, for the split kernel, its splits). Then the kernel,
+    the plain version (without a CUDA graph where its temporaries are
+    large) and the SDPA yardstick are timed. Returns the record; raises
+    past the tolerance."""
     from deepspeed_tpu_torch.ops.paged_attention import (
-        KERNEL_KEY_TILE, counts, paged_ragged_attention,
+        KERNEL_KEY_TILE, counts, kernel_plan, paged_ragged_attention,
         paged_ragged_attention_reference)
 
     label, dtype = case["name"], case["q"].dtype
@@ -551,18 +568,30 @@ def k1_run_case(case, form: str, plain_graph: bool = True) -> dict:
                               "stage_starts")]
     kw = dict(block_size=case["block_size"], layer_index=case["layer_index"],
               **k1_options(case))
-    ref_kw = dict(kw, p_round_blocks=(KERNEL_KEY_TILE, KERNEL_KEY_TILE))
+    width = case["block_tables"].shape[1] * case["block_size"]
+    route, split_cols = kernel_plan(case["q"], case["pool"].shape[2],
+                                    case["block_tables"].shape[1],
+                                    case["block_size"])
+    splits = -(-width // split_cols) + 1 if split_cols else 0
+    ref_kw = dict(kw, p_round_blocks=(KERNEL_KEY_TILE, KERNEL_KEY_TILE),
+                  p_round_splits=split_cols or None)
     before = dict(vars(counts))
     got = paged_ragged_attention(*args, **kw)
+    again = paged_ragged_attention(*args, **kw)
     torch.cuda.synchronize()
-    bumped = {k for k, v in vars(counts).items() if v != before[k]}
-    want = {"kernel_e4m3" if e4m3 else "kernel"} | (
-        {f"kernel_{form}"} if form != "default" else set())
+    bumped = {k: v - before[k] for k, v in vars(counts).items()
+              if v != before[k]}
+    want = {"kernel_e4m3" if e4m3 else "kernel": 2}
+    if form != "default":
+        want[f"kernel_{form}"] = 2
     if form == "ring":
-        want.add("kernel_window")            # a ring runs with its window
+        want["kernel_window"] = 2            # a ring runs with its window
+    if route != "fma":
+        want[f"kernel_{route}"] = 2
     if bumped != want:
-        raise AssertionError(f"K1 {label}: counted {sorted(bumped)}, not "
-                             f"{sorted(want)}")
+        raise AssertionError(f"K1 {label}: counted {bumped}, not {want}")
+    if not torch.equal(got, again):
+        raise AssertionError(f"K1 {label}: a second launch gave other bits")
     ref = paged_ragged_attention_reference(*args, **ref_kw)
     live = case["seq_lens"] > 0
     if (~live).any() and got[~live].abs().max().item() != 0.0:
@@ -596,18 +625,114 @@ def k1_run_case(case, form: str, plain_graph: bool = True) -> dict:
     bound, by = bound_of(nbytes, ops_s)
     pool = "e4m3" if e4m3 else ("fp32" if dtype == torch.float32 else "bf16")
     rec = dict(case=label, form=form, pool=pool,
-               dtype=str(dtype).replace("torch.", ""), max_abs_err=err,
+               dtype=str(dtype).replace("torch.", ""), kernel=route,
+               splits=splits, max_abs_err=err,
                judged_err=judged, judged_mean_err=judged_mean,
                max_abs_ref=max_ref, tol=tol, tol_mean=tol_mean, ms=ms,
                plain_ms=plain_ms, library_ms=lib_ms, bound_ms=bound,
-               bound_by=by, bytes=nbytes, ops=ops)
+               bound_by=by, bytes=nbytes, ops=ops,
+               tflops=ops / ms * 1e-9, gb_s=nbytes / ms * 1e-6,
+               bound_share=bound / ms)
     mean_txt = (f", mean {judged_mean:.2e} (tol {tol_mean:.0e})"
                 if e4m3 else "")
-    log(f"[kernel] K1 {label:<42} {rec['dtype']:<8} err {judged:.2e} (tol "
+    log(f"[kernel] K1 {label:<42} {rec['dtype']:<8} "
+        f"[{route_text(route, splits)}] err {judged:.2e} (tol "
         f"{tol:.0e}{mean_txt}; max abs {err:.2e} of max |plain| "
-        f"{max_ref:.2f})  kernel {ms:.4f} ms  plain {plain_ms:.3f} ms  sdpa "
-        f"{lib_ms:.3f} ms  bound {bound:.4f} ms ({by})")
+        f"{max_ref:.2f})  kernel {ms:.4f} ms ({rec['tflops']:.1f} TFLOP/s, "
+        f"{rec['gb_s']:.0f} GB/s, {rec['bound_share']:.1%} of bound)  plain "
+        f"{plain_ms:.3f} ms  sdpa {lib_ms:.3f} ms  bound {bound:.4f} ms "
+        f"({by})")
     return rec
+
+
+def route_text(route: str, splits: int) -> str:
+    """Which K1/K7 kernel served a case: the chunk kernel, the split kernel
+    with its split count, or the fp32 FMA kernel."""
+    return {"chunk": "chunk", "fma": "fp32 FMA"}.get(
+        route, f"split x{splits}")
+
+
+#: the bf16 K1 / K7 kernels, by kernel and C entry: (label, name in the
+#: mangled entry, which for ``ds_paged_attention_smem``: 0 chunk, 1 split)
+K1_TC_KERNELS = (("K1 chunk", "ragged_paged_attn_chunk_kernel", 0),
+                 ("K1 split", "ragged_paged_attn_split_kernel", 1),
+                 ("K1 merge", "ragged_paged_attn_merge_kernel", None),
+                 ("K7 chunk", "paged_attn_kernel_chunk", 0),
+                 ("K7 split", "paged_attn_kernel_split", 1),
+                 ("K7 merge", "paged_attn_kernel_merge", None))
+
+
+def k1_resources(built: dict) -> list:
+    """The bf16 K1 / K7 kernels' registers, stack, spills and any wgmma
+    serialization (ptxas's C7520 note) from the build's ``-Xptxas -v``
+    output, and their dynamic shared memory. The register count is the
+    launch's; the chunk kernel's consumer warpgroups raise theirs with
+    setmaxnreg."""
+    import re
+
+    from deepspeed_tpu_torch.ops import kernels
+
+    lib = kernels.load("paged_attention")
+    entries = ptxas_entries(built.get("paged_attention", {}).get("ptxas", ""))
+    rows = []
+    for label, kern, which in K1_TC_KERNELS:
+        for name, v in sorted(entries.items()):
+            if kern not in name:
+                continue
+            d = re.search(r"ILi(\d+)E", name)
+            fp8 = "ELb1E" in name
+            D = int(d.group(1)) if d else None
+            smem = (lib.ds_paged_attention_smem(which, D, int(fp8))
+                    if which is not None and D else 0)
+            row = dict(kernel=f"{label}<D {D}{', e4m3 pool' if fp8 else ''}>"
+                       if D else label, smem_bytes=smem, **v)
+            row.setdefault("wgmma_serialized", False)
+            rows.append(row)
+            log(f"[kernel] {row['kernel']:<28} registers "
+                f"{row.get('regs', 'not reported')}, stack "
+                f"{row.get('stack', '-')} B, spills "
+                f"{row.get('spill_stores', '-')} / "
+                f"{row.get('spill_loads', '-')} B, shared memory "
+                f"{row['smem_bytes']} B, wgmma serialized "
+                f"{row['wgmma_serialized']}")
+    if not rows:
+        log("[kernel] K1 / K7 ptxas report: not reported (library built "
+            "before this run)")
+    return rows
+
+
+def k1_host_cost(dev) -> dict:
+    """The host's cost per K1 call (µs, ``host_us_per_call``) by kernel:
+    the split kernel (a llama2-7b decode-window step: the split plan, the
+    scratch and two launches), the chunk kernel (a llama2-7b 4 x 256
+    prefill chunk: three cached tensor maps) and, beside them, the fp32
+    FMA kernel on the decode case — the wrapper path every bf16 call took
+    before (one launch, no scratch, no maps)."""
+    from deepspeed_tpu_torch.ops.paged_attention import paged_ragged_attention
+
+    llama = dict(H=32, KV=32, D=128, bs=64)
+    decode = dict(T=1, Ts=8, window=True,
+                  ctx=[259, 400, 515, 614, 703, 836, 1025, -1])
+    out = {}
+    for label, dtype, shape in (
+            ("split", torch.bfloat16, decode),
+            ("chunk", torch.bfloat16, dict(T=256, Ts=256,
+                                           ctx=[0, 192, 320, 768])),
+            ("fp32 FMA", torch.float32, decode)):
+        case = k1_case(f"host/{label}", dtype=dtype, dev=dev, seed=77,
+                       **llama, **shape)
+        args = [case[k] for k in ("q", "pool", "k_stage", "v_stage",
+                                  "block_tables", "seq_lens", "q_starts",
+                                  "stage_starts")]
+        kw = dict(block_size=case["block_size"],
+                  layer_index=case["layer_index"], **k1_options(case))
+        out[label] = host_us_per_call(
+            lambda: paged_ragged_attention(*args, **kw), n=200)
+        del case, args
+    log(f"[kernel] K1 host cost per call: split kernel {out['split']:.1f} "
+        f"us, chunk kernel {out['chunk']:.1f} us, fp32 FMA kernel (the "
+        f"one-launch path) {out['fp32 FMA']:.1f} us")
+    return {"case": "K1 host cost per call (us)", **out}
 
 
 def k1_summary(results, main_case: str) -> dict:
@@ -1388,6 +1513,8 @@ def all_counts() -> dict:
             "k1_window": pa.counts.kernel_window,
             "k1_ring": pa.counts.kernel_ring,
             "k1_tree": pa.counts.kernel_tree,
+            "k1_chunk": pa.counts.kernel_chunk,
+            "k1_split": pa.counts.kernel_split,
             "k1_plain": pa.counts.plain, "k2": qm.counts.kernel,
             "k2_plain": qm.counts.plain, "k3": qm.grouped_counts.kernel,
             "k3_plain": qm.grouped_counts.plain, "k5": gm.counts.kernel,
@@ -1400,6 +1527,8 @@ def all_counts() -> dict:
             "k6_bwd": bsa.counts.bwd, "k6_plain": bsa.counts.plain,
             "k6_plain_bwd": bsa.counts.plain_bwd,
             "k7": pa.prefill_counts.kernel,
+            "k7_chunk": pa.prefill_counts.kernel_chunk,
+            "k7_split": pa.prefill_counts.kernel_split,
             "k7_plain": pa.prefill_counts.plain}
 
 
@@ -1425,7 +1554,7 @@ def forwards_of(eng) -> int:
 
 
 def check_launches(tag, got: dict, cfg, *, forwards, e4m3_pool, quant,
-                   ring=False, verifies=0, draft_k1=0):
+                   ring=False, verifies=0, draft_k1=0, bf16=False):
     """Per forward: K1 (over a pool of q's dtype or of e4m3 codes) once per
     layer, with the window and the ring on every one of a ring-served
     model's, and its tree form once per layer of each of the ``verifies``
@@ -1435,7 +1564,9 @@ def check_launches(tag, got: dict, cfg, *, forwards, e4m3_pool, quant,
     of every layer, a dense FFN's products, the unembedding) and K3 once per
     expert product of every MoE layer; K5 once per expert product under
     ``moe.dropless`` without quantization; never K4 (serving has no
-    full-sequence attention), K6 or K7; no plain version at all."""
+    full-sequence attention), K6 or K7; no plain version at all. With
+    ``bf16`` every K1 launch is one of the chunk or the split kernel's;
+    in fp32 none is."""
     from deepspeed_tpu_torch.models.transformer import is_moe_layer
 
     L = cfg.num_layers
@@ -1456,9 +1587,14 @@ def check_launches(tag, got: dict, cfg, *, forwards, e4m3_pool, quant,
             "k5_plain": 0, "k5_dx": 0, "k5_dw": 0, "k5_plain_dx": 0,
             "k5_plain_dw": 0, "k4_fwd": 0, "k4_bwd": 0, "k4_plain": 0,
             "k4_plain_bwd": 0, "k6_fwd": 0, "k6_bwd": 0, "k6_plain": 0,
-            "k6_plain_bwd": 0, "k7": 0, "k7_plain": 0}
-    if forwards <= 0 or got != want:
-        raise AssertionError(f"[{tag}] launches {got} != {want} "
+            "k6_plain_bwd": 0, "k7": 0, "k7_chunk": 0, "k7_split": 0,
+            "k7_plain": 0}
+    rest = dict(got)
+    routed = rest.pop("k1_chunk") + rest.pop("k1_split")
+    want_routed = want["k1"] + want["k1_e4m3"] if bf16 else 0
+    if forwards <= 0 or rest != want or routed != want_routed:
+        raise AssertionError(f"[{tag}] launches {got} != {want}, K1 chunk + "
+                             f"split {routed} != {want_routed} "
                              f"({L} layers x {forwards} forwards)")
 
 
@@ -2008,7 +2144,7 @@ def serve_run(dev, name: str, label: str, layers: int | None = None,
                    e4m3_pool=over.get("kv_cache_dtype") == "fp8",
                    quant=bool(over.get("quant_bits")), ring=bool(ring),
                    verifies=st["spec_rounds"],
-                   draft_k1=L * draft_forwards(eng))
+                   draft_k1=L * draft_forwards(eng), bf16=True)
     if st["prefix_hit_tokens"] < sys_len * len(prompts):
         raise AssertionError(f"[{tag}] prefix cache served "
                              f"{st['prefix_hit_tokens']} tokens")
@@ -2064,6 +2200,24 @@ def serve_run(dev, name: str, label: str, layers: int | None = None,
     else:
         log(f"[{tag}] profiled decode window: device time not measured "
             f"(wall {prof['wall_ms']:.2f} ms)")
+    prefill_prof = None
+    if traffic == "long-window":
+        # where a long-context prefill step's time goes: K1's chunk kernel
+        # against the matrix products
+        prefill_prof = profile_prefill_step(eng, vocab, g)
+        pp = prefill_prof
+        if "busy_ms" in pp:
+            log(f"[{tag}] one profiled prefill step (4 prompts x 256 rows "
+                f"at {pp['context']} keys): wall {pp['wall_ms']:.2f} ms, "
+                f"device busy {pp['busy_ms']:.2f} ms (idle share "
+                f"{pp['idle_share']:.2f}): K1 {pp['k1_ms']:.2f} ms, matrix "
+                f"products {pp['gemm_ms']:.2f} ms, other kernels "
+                f"{pp['other_ms']:.2f} ms")
+            for name, ms in pp["top"]:
+                log(f"[{tag}]   {ms:8.3f} ms  {name[:100]}")
+        else:
+            log(f"[{tag}] profiled prefill step: device time not measured "
+                f"(wall {pp['wall_ms']:.2f} ms)")
     res = {"options": over, "requests": len(prompts),
            "prompt_tokens": sum(lens), "new_tokens": new, "wall_s": wall,
            "output_tok_s": len(prompts) * new / wall,
@@ -2075,6 +2229,7 @@ def serve_run(dev, name: str, label: str, layers: int | None = None,
            "param_bytes": param_bytes, "resident_param_bytes": resident,
            "pool_bytes": pool_bytes, "launches": launches,
            "forwards": forwards, "stats": st, "profiled_window": prof,
+           "profiled_prefill": prefill_prof,
            "ring_tokens": ring, "top_position": top_pos,
            "most_blocks": most_blocks, "spec": spec,
            "ms_per_verify_round": (1e3 * verify_s / st["spec_rounds"]
@@ -2090,10 +2245,41 @@ def serve_run(dev, name: str, label: str, layers: int | None = None,
         + f", peak memory {res['peak_mem_gb']:.1f} GB")
     log(f"[{tag}] launches {launches} for {L} layers x {forwards} forwards "
         f"({st['prefill_steps']} prefill steps, {st['decode_steps']} decode "
-        f"steps, {st['window_iters_max']} window iterations)")
+        f"steps, {st['window_iters_max']} window iterations); K1 by kernel: "
+        f"chunk {launches['k1_chunk']}, split {launches['k1_split']}")
     del eng
     free_cuda()
     return res
+
+
+def profile_prefill_step(eng, vocab: int, g, lens=(4608, 5120, 5632, 6144),
+                         chunk: int = 256, past: int = 4096) -> dict:
+    """One prefill step of long prompts, profiled: the prompts are put (one
+    new token each), the engine steps until every one has more than
+    ``past`` keys scheduled and a full chunk still ahead, and the next step
+    — one prefill step of len(lens) x ``chunk`` rows at that context — runs
+    under ``device_breakdown``. Then the prompts finish and are flushed."""
+    uids = [200 + i for i in range(len(lens))]
+    for u, n in zip(uids, lens):
+        eng.put(u, torch.randint(0, vocab, (n,), generator=g).tolist(),
+                max_new_tokens=1)
+    seqs = lambda: [eng.state.seqs[u] for u in uids]
+    while min(sq.kv_next for sq in seqs()) <= past:
+        eng.step()
+    if min(sq.pending_sched for sq in seqs()) < chunk:
+        raise AssertionError(f"prefill ran past the profiled chunk: "
+                             f"{[sq.kv_next for sq in seqs()]}")
+    context = [sq.kv_next for sq in seqs()]
+    steps0 = eng.stats["prefill_steps"]
+    prof = device_breakdown(eng.step)
+    if eng.stats["prefill_steps"] != steps0 + 1:
+        raise AssertionError("the profiled step was not one prefill step")
+    prof["context"] = context
+    while any(not eng.query(u).get("done", True) for u in uids):
+        eng.step()
+    for u in uids:
+        eng.flush(u)
+    return prof
 
 
 #: the serve phase's models: (preset, depth — None serves every layer —,
@@ -2826,17 +3012,28 @@ def k7_run_case(case) -> dict:
     kw = dict(block_size=bs, window=case["window"],
               ring_tokens=case["ring_tokens"])
     decode = T == 1
+    max_pages = case["block_tables"].shape[1]
+    route, split_cols = pa.kernel_plan(q, KV, max_pages, bs)
+    splits = -(-max_pages * bs // split_cols) if split_cols else 0
+
+    def call():
+        if decode:    # through the decode entry: starts = seq_lens - 1
+            return pa.paged_decode_attention(q[:, 0], *args[1:5],
+                                             **kw)[:, None]
+        return pa.paged_prefill_attention(*args, **kw)
+
     before = dict(vars(pa.prefill_counts))
-    if decode:        # through the decode entry: starts = seq_lens - 1
-        got = pa.paged_decode_attention(q[:, 0], *args[1:5], **kw)[:, None]
-    else:
-        got = pa.paged_prefill_attention(*args, **kw)
+    got, again = call(), call()
     torch.cuda.synchronize()
     bumped = {n: c - before[n] for n, c in vars(pa.prefill_counts).items()}
-    want = {"kernel": 1, "kernel_window": int(bool(kw["window"])),
-            "kernel_ring": int(bool(kw["ring_tokens"])), "plain": 0}
+    want = {"kernel": 2, "kernel_window": 2 * bool(kw["window"]),
+            "kernel_ring": 2 * bool(kw["ring_tokens"]),
+            "kernel_chunk": 2 * (route == "chunk"),
+            "kernel_split": 2 * (route == "split"), "plain": 0}
     if bumped != want:
         raise AssertionError(f"K7 {label}: counted {bumped}, not {want}")
+    if not torch.equal(got, again):
+        raise AssertionError(f"K7 {label}: a second launch gave other bits")
     ref = pa.paged_prefill_attention_reference(*args, **kw)
     live = case["seq_lens"] > 0
     if (~live).any() and got[~live].abs().max().item() != 0.0:
@@ -2876,14 +3073,21 @@ def k7_run_case(case) -> dict:
     nbytes = 2 * q.numel() * el + 2 * KV * D * seen * el
     ops_s = 4.0 * D * int(mask.sum()) * G * KV / PEAK_OPS[dtype]
     bound, by = bound_of(nbytes, ops_s)
+    ops = 4.0 * D * int(mask.sum()) * G * KV
     rec = dict(case=label, dtype=str(dtype).replace("torch.", ""),
+               kernel=route, splits=splits,
                max_abs_err=err, judged_err=judged, max_abs_ref=max_ref,
                tol=tol, ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
-               bound_ms=bound, bound_by=by, bytes=nbytes, keys_seen=seen)
-    log(f"[kernel] K7 {label:<34} {rec['dtype']:<8} err {judged:.2e} (tol "
+               bound_ms=bound, bound_by=by, bytes=nbytes, keys_seen=seen,
+               tflops=ops / ms * 1e-9, gb_s=nbytes / ms * 1e-6,
+               bound_share=bound / ms)
+    log(f"[kernel] K7 {label:<34} {rec['dtype']:<8} "
+        f"[{route_text(route, splits)}] err {judged:.2e} (tol "
         f"{tol:.0e}; max abs {err:.2e} of max |plain| {max_ref:.2f})  "
-        f"kernel {ms:.4f} ms  plain {plain_ms:.3f} ms  sdpa {lib_ms:.3f} ms"
-        f"  bound {bound:.4f} ms ({by})")
+        f"kernel {ms:.4f} ms ({rec['tflops']:.1f} TFLOP/s, "
+        f"{rec['gb_s']:.0f} GB/s, {rec['bound_share']:.1%} of bound)  plain "
+        f"{plain_ms:.3f} ms  sdpa {lib_ms:.3f} ms  bound {bound:.4f} ms "
+        f"({by})")
     return rec
 
 
@@ -2925,7 +3129,7 @@ def phase_k7(dev) -> tuple[dict, list]:
                    max_err_over_max_ref=max(r["judged_err"] for r in bf),
                    max_abs_err_fp32=max(r["max_abs_err"] for r in results
                                         if r["dtype"] == "float32"),
-                   launches=len(results),
+                   launches=2 * len(results),
                    **{k: main[k] for k in ("ms", "plain_ms", "library_ms",
                                            "bound_ms", "bound_by")})
     return summary, results
@@ -3412,7 +3616,10 @@ def main() -> int:
     built = phase_build()          # every later phase runs the kernels
     record["phases"]["build"] = {n: r["seconds"] for n, r in built.items()}
     if "kernel" in phases:
+        k1_res = k1_resources(built)
+        k1_host = k1_host_cost(dev)
         default, e4m3, cases = phase_k1(dev)
+        cases = [{"resources": k1_res}, k1_host] + cases
         k1.update(default)
         k1_e4m3.update(e4m3)
         forms, form_cases = phase_k1_forms(dev)

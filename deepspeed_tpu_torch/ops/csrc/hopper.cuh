@@ -70,6 +70,18 @@ __device__ __forceinline__ void bar_wait(uint64_t* bar, uint32_t phase) {
     } while (!done);
 }
 
+// a barrier among the `n` threads (whole warps) that name barrier `id`
+// (1-15; 0 is __syncthreads)
+__device__ __forceinline__ void named_bar_sync(int id, int n) {
+    asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(n) : "memory");
+}
+
+// order this thread's shared-memory writes before later reads and writes of
+// the async proxy (wgmma operands, TMA destinations)
+__device__ __forceinline__ void fence_proxy_async() {
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
 // ---------------------------------------------------------------------------
 // TMA
 // ---------------------------------------------------------------------------

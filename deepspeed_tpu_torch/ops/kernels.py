@@ -116,13 +116,19 @@ def _declare(name: str, lib: ctypes.CDLL) -> None:
         # q, pool, k_stage, v_stage, block_tables, seq_lens, q_starts,
         # stage_starts, tree_pos, tree_mask, out; S, T, H, KV, D, nb, bs,
         # Ts, max_pages, layer; scale; window, ring_tokens, dtype,
-        # pool_e4m3; stream
-        fn.argtypes = [p] * 11 + [i] * 10 + [ctypes.c_float] + [i] * 4 + [p]
+        # pool_e4m3, L, split_cols, n_splits; scratch; stream
+        fn.argtypes = [p] * 11 + [i] * 10 + [ctypes.c_float] + [i] * 7 + \
+            [p, p]
         fn.restype = i
         fn = lib.ds_paged_attention
         # q, k_pool, v_pool, block_tables, seq_lens, starts, out; S, T, H,
-        # KV, D, P, bs, max_pages; scale; window, ring_tokens, dtype; stream
-        fn.argtypes = [p] * 7 + [i] * 8 + [ctypes.c_float] + [i] * 3 + [p]
+        # KV, D, P, bs, max_pages; scale; window, ring_tokens, dtype,
+        # split_cols, n_splits; scratch; stream
+        fn.argtypes = [p] * 7 + [i] * 8 + [ctypes.c_float] + [i] * 5 + [p, p]
+        fn.restype = i
+        fn = lib.ds_paged_attention_smem
+        # which (0 chunk, 1 split), D, fp8
+        fn.argtypes = [i, i, i]
         fn.restype = i
     elif name == "quant_matmul":
         fn = lib.ds_quant_matmul

@@ -5,10 +5,16 @@ Counterpart of ``paged_ragged_attention`` in
 layouts: q ``[S, T, H, D]``, pool ``[L, 2, KV, nb, bs, D]``, stage
 ``[S, KV, Ts, D]``, output ``[S, T, H, D]``.
 
-- On CUDA tensors, :func:`paged_ragged_attention` launches the hand-written
+- On CUDA tensors, :func:`paged_ragged_attention` launches a hand-written
   Hopper kernel (``csrc/paged_attention.cu``) with every option — sliding
   window, rolling ring table, tree-verify mask — or raises; it never
-  switches to the plain version.
+  switches to the plain version. Which kernel is :func:`kernel_route`'s
+  choice, by shape alone: fp32 takes the CUDA-core kernel (the parity
+  route); bf16 takes the split kernel (flash-decoding over
+  :func:`split_columns`-wide splits of the table, then a merge) when a
+  (slot, KV head) has at most :data:`SPLIT_MAX_ROWS` query rows (T x G:
+  decode steps and windows, small trees), else the chunk kernel (wgmma
+  tensor cores fed by TMA: prefill chunks, wide trees).
 - On CPU tensors it runs :func:`paged_ragged_attention_reference`, the plain
   PyTorch version: the gather formulation of the JAX engine
   (``engine_v2._ragged_forward``).
@@ -25,12 +31,15 @@ The per-layer-slice entry points :func:`paged_prefill_attention` and
 :func:`paged_decode_attention` (K7, counterparts of the JAX functions of the
 same names) attend over separate K and V pools ``[KV, P, D]`` into which
 the chunk's K/V are already scattered: no stage, e4m3 or tree form. On CUDA
-tensors they launch ``ds_paged_attention`` (same source, its own kernel), on
-CPU tensors :func:`paged_prefill_attention_reference`. Their launches are
-counted apart, in ``prefill_counts``.
+tensors they launch ``ds_paged_attention`` (same source: an fp32 kernel of
+its own; in bf16 the chunk and split kernels under K7's page rule and
+unguarded softmax, routed as K1's), on CPU tensors
+:func:`paged_prefill_attention_reference`. Their launches are counted apart,
+in ``prefill_counts``.
 """
 from __future__ import annotations
 
+import functools
 from dataclasses import dataclass, fields
 
 import torch
@@ -47,12 +56,17 @@ class LaunchCounts:
     one of the two. ``kernel_window``, ``kernel_ring`` and ``kernel_tree``
     count the launches (of either pool) that took the sliding window, the
     rolling ring table (always with a window) and the tree-verify mask.
-    ``plain`` counts the CPU route through the plain version."""
+    ``kernel_chunk`` and ``kernel_split`` count the bf16 launches (of either
+    pool) by kernel: the chunk kernel, the split kernel (with its merge);
+    an fp32 launch is in neither. ``plain`` counts the CPU route through
+    the plain version."""
     kernel: int = 0
     kernel_e4m3: int = 0
     kernel_window: int = 0
     kernel_ring: int = 0
     kernel_tree: int = 0
+    kernel_chunk: int = 0
+    kernel_split: int = 0
     plain: int = 0
 
     def reset(self) -> None:
@@ -64,9 +78,62 @@ counts = LaunchCounts()
 
 #: head dims the kernel is instantiated for
 KERNEL_HEAD_DIMS = (64, 128, 256)
-#: key positions per step of the CUDA kernel's walk (``kKeys`` in the source)
+#: key positions per step of the CUDA kernels' walk (``kKeys`` in the source)
 KERNEL_KEY_TILE = 64
 _KERNEL_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+#: query rows per (slot, KV head) — T x G — up to which a bf16 call takes
+#: the split kernel (``kSplitRows``: mma.sync's M); above it the chunk kernel
+SPLIT_MAX_ROWS = 16
+#: the split kernel's grid holds at least this many blocks per SM
+SPLIT_FILL = 2
+
+
+def kernel_route(dtype, rows: int) -> str:
+    """The CUDA kernel a call takes, by shape alone: "fma" for fp32 (the
+    CUDA-core kernel, the parity route); for bf16 "split" when the ``rows``
+    per (slot, KV head) (T x G) are at most :data:`SPLIT_MAX_ROWS`, else
+    "chunk"."""
+    if dtype == torch.float32:
+        return "fma"
+    return "split" if rows <= SPLIT_MAX_ROWS else "chunk"
+
+
+def split_columns(n_seqs: int, kv_heads: int, max_pages: int,
+                  block_size: int, sms: int) -> int:
+    """Table columns per split of the split kernel: the table's width
+    (``max_pages x block_size``) in whole 64-column tiles, cut into splits
+    of ``tiles // want`` tiles, ``want`` the splits that give ``sms`` SMs
+    :data:`SPLIT_FILL` blocks each (a block per split, KV head and slot),
+    so there are at least ``want`` splits (fewer than twice as many), at
+    most one per tile. It reads shapes only — no value comes back from the
+    card — so the call stays capturable in a CUDA graph."""
+    tiles = max(1, -(-max_pages * block_size // KERNEL_KEY_TILE))
+    want = min(max(1, -(-SPLIT_FILL * sms // max(1, n_seqs * kv_heads))),
+               tiles)
+    return tiles // want * KERNEL_KEY_TILE
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def kernel_plan(q, kv_heads: int, max_pages: int, block_size: int,
+                sms: int | None = None) -> tuple[str, int]:
+    """``(route, split_cols)`` of a call on q ``[S, T, H, D]``:
+    :func:`kernel_route`'s choice and, for the split kernel,
+    :func:`split_columns` over ``sms`` SMs (by default q's device's), else
+    0. The split kernel's e4m3 form rounds p against each split's running
+    max: ``p_round_splits=split_cols`` makes the plain version do the
+    same."""
+    S, T, H, _ = q.shape
+    route = kernel_route(q.dtype, T * (H // kv_heads))
+    if route != "split":
+        return route, 0
+    if sms is None:
+        sms = _sm_count(q.device.index if q.device.index is not None
+                        else torch.cuda.current_device())
+    return route, split_columns(S, kv_heads, max_pages, block_size, sms)
 
 
 def paged_attention_usable(num_heads: int, kv_heads: int, head_dim: int,
@@ -151,7 +218,8 @@ def paged_ragged_attention_reference(q, pool, k_stage, v_stage, block_tables,
                                      alibi_slopes=None,
                                      upcast_pool: bool = False,
                                      p_round_blocks: tuple[int, int] | None
-                                     = None):
+                                     = None,
+                                     p_round_splits: int | None = None):
     """The plain version: gather each slot's pool pages, append the stage,
     one masked fp32 softmax. Rows that see no key (empty slots) are zeros,
     as in the kernel. p is rounded to V's dtype before the PV product and
@@ -166,7 +234,11 @@ def paged_ragged_attention_reference(q, pool, k_stage, v_stage, block_tables,
     walk, so this version does too. ``p_round_blocks`` = (pool columns,
     stage rows) per step of that walk: by default the Pallas kernel's (one
     page; one stage page), ``(64, 64)`` for the CUDA kernel's key tiles
-    (:data:`KERNEL_KEY_TILE`). ``upcast_pool`` instead reads an e4m3 pool
+    (:data:`KERNEL_KEY_TILE`). ``p_round_splits`` (pool columns per split,
+    a multiple of the pool block) restarts that running max at every split
+    boundary and at the stage, as the split kernel's splits do
+    (:func:`kernel_plan`); only the e4m3 form rounds against the walk, so
+    it changes nothing else. ``upcast_pool`` instead reads an e4m3 pool
     as q's dtype with no scale, the JAX engine's gather formulation (its
     ALiBi and ``use_pallas_decode=False`` path).
 
@@ -240,7 +312,7 @@ def paged_ragged_attention_reference(q, pool, k_stage, v_stage, block_tables,
         # e4m3's range for every key (l carries the scale); w brings each
         # block's terms to the final max, as the kernel's alpha does
         pb, sb = p_round_blocks or (bs, Ts if Ts <= bs else bs)
-        m_run = _running_max(scores, ctx, pb, sb)
+        m_run = _running_max(scores, ctx, pb, sb, p_round_splits)
         seen = torch.isfinite(m_run)
         m_run = torch.where(seen, m_run, m)
         p = torch.exp(scores - m_run) * E4M3_MAX                   # 0 if masked
@@ -258,23 +330,42 @@ def paged_ragged_attention_reference(q, pool, k_stage, v_stage, block_tables,
     return o.permute(0, 2, 1, 3, 4).reshape(S, T, H, D).to(q.dtype)
 
 
-def _running_max(scores, ctx: int, pb: int, sb: int) -> torch.Tensor:
+def _running_max(scores, ctx: int, pb: int, sb: int,
+                 split: int | None = None) -> torch.Tensor:
     """For each key column, the softmax max a kernel holds when it reaches
     that column's block: the running max over blocks of ``pb`` pool columns,
-    then blocks of ``sb`` stage columns (-inf before the first valid key)."""
+    then blocks of ``sb`` stage columns (-inf before the first valid key).
+    With ``split`` (pool columns per split, a multiple of ``pb``) the walk
+    restarts at every ``split`` pool columns and at the stage: each split
+    keeps its own running max."""
     def block_max(x, size):
         pad = (-x.shape[-1]) % size
         if pad:
             x = torch.nn.functional.pad(x, (0, pad), value=float("-inf"))
         return x.reshape(*x.shape[:-1], -1, size).amax(dim=-1)
 
-    bm = torch.cat([block_max(scores[..., :ctx], pb),
-                    block_max(scores[..., ctx:], sb)], dim=-1)
-    run = torch.cummax(bm, dim=-1).values
-    nbp = -(-ctx // pb)
+    def cummax(x):
+        return torch.cummax(x, dim=-1).values if x.shape[-1] else x
+
+    bm_pool = block_max(scores[..., :ctx], pb)
+    bm_stage = block_max(scores[..., ctx:], sb)
+    nbp = bm_pool.shape[-1]
+    if split is None:
+        run = cummax(torch.cat([bm_pool, bm_stage], dim=-1))
+        run_pool, run_stage = run[..., :nbp], run[..., nbp:]
+    else:
+        if split % pb:
+            raise ValueError(f"split {split} is not a multiple of the pool "
+                             f"block {pb}")
+        per = split // pb
+        pad = (-nbp) % per
+        x = torch.nn.functional.pad(bm_pool, (0, pad), value=float("-inf"))
+        run_pool = cummax(x.reshape(*x.shape[:-1], -1, per)).reshape(
+            x.shape)[..., :nbp]
+        run_stage = cummax(bm_stage)
     return torch.cat([
-        run[..., :nbp].repeat_interleave(pb, dim=-1)[..., :ctx],
-        run[..., nbp:].repeat_interleave(sb, dim=-1)[
+        run_pool.repeat_interleave(pb, dim=-1)[..., :ctx],
+        run_stage.repeat_interleave(sb, dim=-1)[
             ..., :scores.shape[-1] - ctx]], dim=-1)
 
 
@@ -291,8 +382,9 @@ def paged_ragged_attention(q, pool, k_stage, v_stage, block_tables, seq_lens,
     ``seq_lens``; tree mode: nodes under ``tree_mask``). Returns
     ``[S, T, H, D]``.
 
-    CPU tensors take the plain version, CUDA tensors the kernel, with every
-    option on a pool of q's dtype or of e4m3 codes. ``page_group`` (pool
+    CPU tensors take the plain version, CUDA tensors a kernel
+    (:func:`kernel_plan` says which), with every option on a pool of q's
+    dtype or of e4m3 codes. ``page_group`` (pool
     pages per TPU grid step) changes no arithmetic of either walk and is
     accepted for the JAX signature's sake; it only moves where the e4m3
     form rounds p in the Pallas kernel (``p_round_blocks`` of the plain
@@ -380,6 +472,10 @@ def _launch_kernel(q, pool, k_stage, v_stage, block_tables, seq_lens,
         if Ts < T:
             raise ValueError(f"stage rows {Ts} must cover the {T} tree nodes")
     scale = 1.0 / (D ** 0.5) if scale is None else float(scale)
+    max_pages = tables.shape[1]
+    route, split_cols = kernel_plan(q, KV, max_pages, bs)
+    n_splits, scratch = _split_scratch(q, KV, max_pages, bs, split_cols,
+                                       stage=True)
     out = torch.empty_like(q)
     lib = kernels.load("paged_attention")
     err = lib.ds_ragged_paged_attention(
@@ -387,8 +483,10 @@ def _launch_kernel(q, pool, k_stage, v_stage, block_tables, seq_lens,
         v_stage.data_ptr(), tables.data_ptr(), lens.data_ptr(),
         qst.data_ptr(), sst.data_ptr(),
         tpos.data_ptr() if tree else None, tmask.data_ptr() if tree else None,
-        out.data_ptr(), S, T, H, KV, D, nb, bs, Ts, tables.shape[1], li,
-        scale, window, ring_tokens, _KERNEL_DTYPES[dt], int(e4m3),
+        out.data_ptr(), S, T, H, KV, D, nb, bs, Ts, max_pages, li,
+        scale, window, ring_tokens, _KERNEL_DTYPES[dt], int(e4m3), L,
+        split_cols, n_splits,
+        scratch.data_ptr() if scratch is not None else None,
         torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
         raise RuntimeError(f"paged-attention kernel launch failed: CUDA error "
@@ -400,7 +498,24 @@ def _launch_kernel(q, pool, k_stage, v_stage, block_tables, seq_lens,
     counts.kernel_window += bool(window)
     counts.kernel_ring += bool(ring_tokens)
     counts.kernel_tree += tree
+    counts.kernel_chunk += route == "chunk"
+    counts.kernel_split += route == "split"
     return out
+
+
+def _split_scratch(q, kv_heads: int, max_pages: int, block_size: int,
+                   split_cols: int, *, stage: bool):
+    """``(n_splits, scratch)`` of a split-kernel call (``split_cols`` > 0):
+    the table's splits (and K1's stage, one more) and the fp32 scratch of
+    their (acc, m, l) per row, ``[S, KV, n_splits, T x G]`` x (D + 2);
+    ``(0, None)`` otherwise."""
+    if not split_cols:
+        return 0, None
+    S, T, H, D = q.shape
+    n = -(-max_pages * block_size // split_cols) + int(stage)
+    rows = S * kv_heads * n * T * (H // kv_heads)
+    return n, torch.empty(rows * (D + 2), dtype=torch.float32,
+                          device=q.device)
 
 
 # ---------------------------------------------------------------------------
@@ -415,12 +530,15 @@ NEG_INF = float(torch.finfo(torch.float32).min)
 class PrefillLaunchCounts:
     """Calls of :func:`paged_prefill_attention` (and of
     :func:`paged_decode_attention` through it) by route: ``kernel`` counts
-    launches of the CUDA kernel, ``kernel_window`` and ``kernel_ring`` the
+    launches of the CUDA kernels, ``kernel_window`` and ``kernel_ring`` the
     ones that took the sliding window and the rolling ring (always with a
-    window), ``plain`` the CPU route."""
+    window), ``kernel_chunk`` and ``kernel_split`` the bf16 ones by kernel
+    (:func:`kernel_route`), ``plain`` the CPU route."""
     kernel: int = 0
     kernel_window: int = 0
     kernel_ring: int = 0
+    kernel_chunk: int = 0
+    kernel_split: int = 0
     plain: int = 0
 
     def reset(self) -> None:
@@ -504,7 +622,9 @@ def paged_prefill_attention_reference(q, k_pool, v_pool, block_tables,
     Pallas kernel's finite NEG_INF, so a row that sees no key on any run
     page averages those pages' values (p = exp(0) = 1), as the kernel does;
     a slot with no run page gives zeros. p is rounded to V's dtype for the
-    PV product, the denominator sums the unrounded p."""
+    PV product, the denominator sums the unrounded p. K7 has no e4m3 form,
+    so where the kernels' walk (tiles, splits) rounds p changes nothing
+    this version models: it takes no ``p_round_splits``."""
     _check_prefill(q, k_pool, block_size, window, ring_tokens)
     S, T, H, D = q.shape
     KV = k_pool.shape[0]
@@ -584,18 +704,26 @@ def paged_prefill_attention(q, k_pool, v_pool, block_tables, seq_lens,
             raise ValueError(f"{name} {tuple(t.shape)} != ({S},)")
     window, ring_tokens = int(window or 0), int(ring_tokens or 0)
     scale = 1.0 / (D ** 0.5) if scale is None else float(scale)
+    max_pages = tables.shape[1]
+    route, split_cols = kernel_plan(q, KV, max_pages, block_size)
+    n_splits, scratch = _split_scratch(q, KV, max_pages, block_size,
+                                       split_cols, stage=False)
     out = torch.empty_like(q)
     err = kernels.load("paged_attention").ds_paged_attention(
         q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(), tables.data_ptr(),
         lens.data_ptr(), starts.data_ptr(), out.data_ptr(), S, T, H, KV, D,
-        P, block_size, tables.shape[1], scale, window, ring_tokens,
-        _KERNEL_DTYPES[dt], torch.cuda.current_stream(dev).cuda_stream)
+        P, block_size, max_pages, scale, window, ring_tokens,
+        _KERNEL_DTYPES[dt], split_cols, n_splits,
+        scratch.data_ptr() if scratch is not None else None,
+        torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
         raise RuntimeError(f"paged-attention (K7) launch failed: CUDA error "
                            f"{err}")
     prefill_counts.kernel += 1
     prefill_counts.kernel_window += bool(window)
     prefill_counts.kernel_ring += bool(ring_tokens)
+    prefill_counts.kernel_chunk += route == "chunk"
+    prefill_counts.kernel_split += route == "split"
     return out
 
 

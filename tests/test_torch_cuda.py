@@ -130,7 +130,8 @@ def test_window_ring_and_tree_forms_match_plain_version(dev, pool, form, G):
     """K1's sliding-window, rolling-ring and tree-verify forms against the
     plain version, over a pool of q's dtype (fp32: 1e-4 absolute; bf16: 1e-2
     of max |plain|) or of e4m3 codes (max 1e-2 and mean 1e-4 of |plain|,
-    p rounded against the kernel's 64-key walk); each form is counted."""
+    p rounded against the kernel's walk: 64-key tiles and, for the split
+    kernel, its splits); each form is counted."""
     dtype = torch.float32 if pool == "fp32" else torch.bfloat16
     args, kw = _form_case(dev, dtype, form, G=G, D=128)
     if pool == "e4m3":
@@ -144,9 +145,11 @@ def test_window_ring_and_tree_forms_match_plain_version(dev, pool, form, G):
     assert after[total] == before[total] + 1
     assert after[f"kernel_{form}"] == before[f"kernel_{form}"] + 1
     assert after["plain"] == before["plain"]
+    _, split_cols = pa.kernel_plan(args[0], 2, args[4].shape[1], 16)
     ref = pa.paged_ragged_attention_reference(
         *args, block_size=16, layer_index=1,
-        p_round_blocks=(pa.KERNEL_KEY_TILE, pa.KERNEL_KEY_TILE), **kw)
+        p_round_blocks=(pa.KERNEL_KEY_TILE, pa.KERNEL_KEY_TILE),
+        p_round_splits=split_cols or None, **kw)
     live = args[5] > 0
     assert (got[~live] == 0).all()
     d = (got[live].float() - ref[live].float()).abs()
@@ -185,7 +188,8 @@ def test_cuda_engine_matches_cpu_engine(dev):
 def test_e4m3_pool_kernel_matches_plain_version(dev, dtype, tol, tol_mean,
                                                 D, T, Ts):
     """K1's e4m3-pool form against the plain version rounding p against the
-    kernel's 64-key walk; judged as chip_smoke.py judges it (max over max
+    kernel's walk (64-key tiles; the split kernel's splits); judged as
+    chip_smoke.py judges it (max over max
     |plain|, mean over mean |plain|: a p within fp32 noise of an e4m3
     rounding boundary may round one step apart)."""
     args = _case(dev, dtype, H=8, KV=2, D=D, T=T, Ts=Ts,
@@ -196,9 +200,11 @@ def test_e4m3_pool_kernel_matches_plain_version(dev, dtype, tol, tol_mean,
     torch.cuda.synchronize()
     assert (pa.counts.kernel, pa.counts.kernel_e4m3) == \
         (before[0], before[1] + 1)
+    _, split_cols = pa.kernel_plan(args[0], 2, args[4].shape[1], 16)
     ref = pa.paged_ragged_attention_reference(
         *args, block_size=16, layer_index=1,
-        p_round_blocks=(pa.KERNEL_KEY_TILE, pa.KERNEL_KEY_TILE))
+        p_round_blocks=(pa.KERNEL_KEY_TILE, pa.KERNEL_KEY_TILE),
+        p_round_splits=split_cols or None)
     assert (got[3] == 0).all()
     d = (got.float() - ref.float()).abs()
     assert d.max().item() / ref.float().abs().max().item() <= tol
@@ -806,7 +812,10 @@ def test_paged_prefill_kernel_matches_plain_version(dev, dtype, tol, D, G,
     torch.cuda.synchronize()
     assert vars(pa.prefill_counts) == {
         "kernel": 1, "kernel_window": int("window" in kw),
-        "kernel_ring": int("ring_tokens" in kw), "plain": 0}
+        "kernel_ring": int("ring_tokens" in kw),
+        "kernel_chunk": int(dtype == torch.bfloat16 and T * G > 16),
+        "kernel_split": int(dtype == torch.bfloat16 and T * G <= 16),
+        "plain": 0}
     ref = pa.paged_prefill_attention_reference(q, kp, vp, tables, lens,
                                                starts, **kw)
     err = (got.float() - ref.float()).abs().max().item()
@@ -815,3 +824,164 @@ def test_paged_prefill_kernel_matches_plain_version(dev, dtype, tol, D, G,
     assert torch.isfinite(got.float()).all() and err <= tol, err
     if form == "linear":
         assert not got[1].any()
+
+
+def _bf16_case(dev, route, form, *, bs, D, pool, seed=0):
+    """K1 inputs for one of the bf16 kernels (``route`` "split": at most
+    16 rows per (slot, KV head); "chunk": more) in one form: "linear",
+    "window" (100 keys), "ring" (the engine's ring for a 100-key window:
+    ceil((window + stage) / bs) + 1 pages; two slots wrapped, one not) or
+    "tree" (a branchy tree). KV 2, G 4; one empty slot; tables padded with
+    the trash page 0; ``pool`` "bf16" or "e4m3"."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    rnd = lambda *sh: torch.randn(sh, generator=g, device=dev).to(
+        torch.bfloat16)
+    i32 = lambda v: torch.tensor(v, dtype=torch.int32, device=dev)
+    KV, G = 2, 4
+    tree = form == "tree"
+    if tree:
+        T = 4 if route == "split" else 6
+        Ts = 8
+    else:
+        T = 1 if route == "split" else 40
+        Ts = 8 if route == "split" else 48
+    kw = {}
+    window = 100 if form in ("window", "ring") else None
+    if window:
+        kw["window"] = window
+    nwin = -(-(100 + Ts) // bs) + 1
+    ctx = {"ring": [3 * nwin * bs + 17, nwin * bs + 5, -1, bs // 2]}.get(
+        form, [0, 150, 700, -1] if not tree else [40, 300, -1, 113])
+    S = len(ctx)
+    max_pages = nwin if form == "ring" else max(
+        -(-(max(c, 0) + Ts) // bs) for c in ctx) + 2
+    nb = S * max_pages + 1
+    perm = torch.randperm(nb - 1, generator=torch.Generator().manual_seed(
+        seed)) + 1
+    tables = torch.zeros(S, max_pages, dtype=torch.int32)
+    lens, sst, used = [], [], 0
+    for s, c in enumerate(ctx):
+        if c < 0:
+            lens.append(0), sst.append(0)
+            continue
+        n = nwin if form == "ring" else -(-(c + Ts) // bs)
+        tables[s, :n] = perm[used:used + n].to(torch.int32)
+        used += n
+        sst.append(c)
+        lens.append(c + (T - s % 2 if not tree else 3))
+    q = rnd(S, T, KV * G, D) * 3
+    kv = rnd(2, 2, KV, nb, bs, D)
+    if pool == "e4m3":
+        kv = qm.to_e4m3(kv)
+    args = [q, kv, rnd(S, KV, Ts, D), rnd(S, KV, Ts, D), tables.to(dev),
+            i32(lens), i32(sst), i32(sst)]
+    if form == "ring":
+        kw["ring_tokens"] = nwin * bs
+    if tree:
+        parents = [-1, 0, 0, 1, 2, 3][:T]
+        pos = torch.zeros(S, T, dtype=torch.int32)
+        mask = torch.zeros(S, T, T, dtype=torch.uint8)
+        for s, c in enumerate(ctx):
+            mask[s] = torch.eye(T, dtype=torch.uint8)
+            if c < 0:
+                continue
+            depth = [0] * T
+            for i, p in enumerate(parents):
+                depth[i] = depth[p] + 1 if p >= 0 else 0
+                j = i
+                while j != -1:
+                    mask[s, i, j] = 1
+                    j = parents[j]
+            pos[s] = torch.tensor([c + d for d in depth])
+        args[6] = pos[:, 0].contiguous().to(dev)
+        kw.update(tree_positions=pos.to(dev), tree_mask=mask.to(dev))
+    return args, kw
+
+
+@pytest.mark.parametrize("route", ["split", "chunk"])
+@pytest.mark.parametrize("form", ["linear", "window", "ring", "tree"])
+@pytest.mark.parametrize("bs", [8, 64, 128])
+@pytest.mark.parametrize("D", [64, 128, 256])
+@pytest.mark.parametrize("pool", ["bf16", "e4m3"])
+def test_bf16_split_and_chunk_kernels_match_plain_version(dev, route, form,
+                                                          bs, D, pool):
+    """K1's bf16 kernels in every form, page size and head dim, over a bf16
+    or an e4m3 pool, against the plain version (p rounded against the
+    kernel's walk: its 64-key tiles and, for the split kernel, its splits);
+    the route is counted, the empty slot is zeros, the split kernel runs
+    more than one split, and a second launch gives the same bits."""
+    args, kw = _bf16_case(dev, route, form, bs=bs, D=D, pool=pool)
+    S, T, H, _ = args[0].shape
+    got_route, split_cols = pa.kernel_plan(args[0], 2, args[4].shape[1], bs)
+    assert got_route == route
+    if route == "split":
+        assert -(-args[4].shape[1] * bs // split_cols) > 1
+    before = dict(vars(pa.counts))
+    got = pa.paged_ragged_attention(*args, block_size=bs, layer_index=1,
+                                    **kw)
+    again = pa.paged_ragged_attention(*args, block_size=bs, layer_index=1,
+                                      **kw)
+    torch.cuda.synchronize()
+    after = vars(pa.counts)
+    assert after[f"kernel_{route}"] == before[f"kernel_{route}"] + 2
+    assert torch.equal(got, again)
+    ref = pa.paged_ragged_attention_reference(
+        *args, block_size=bs, layer_index=1,
+        p_round_blocks=(pa.KERNEL_KEY_TILE, pa.KERNEL_KEY_TILE),
+        p_round_splits=split_cols or None, **kw)
+    live = args[5] > 0
+    assert (got[~live] == 0).all()
+    assert torch.isfinite(got.float()).all()
+    d = (got[live].float() - ref[live].float()).abs()
+    scale = ref[live].float().abs()
+    assert d.max().item() / scale.max().item() <= 1e-2
+    if pool == "e4m3":
+        assert (d.mean() / scale.mean()).item() <= 1e-4
+
+
+@pytest.mark.parametrize("T", [1, 4, 40])
+@pytest.mark.parametrize("bs", [8, 128])
+@pytest.mark.parametrize("form", ["linear", "window", "ring"])
+def test_k7_bf16_kernels_match_plain_version(dev, T, bs, form):
+    """K7's split (T x G <= 16) and chunk kernels at other page sizes, one
+    empty slot and rows past seq_len (which average their run pages, the
+    Pallas kernel's unguarded softmax), against the plain version; a second
+    launch gives the same bits."""
+    KV, G, D, S = 2, 4, 128, 4
+    nb = 64
+    g = torch.Generator(device=dev).manual_seed(T + bs)
+    q = (torch.randn(S, T, KV * G, D, generator=g, device=dev) * 3).to(
+        torch.bfloat16)
+    kp = torch.randn(KV, nb * bs, D, generator=g, device=dev).to(
+        torch.bfloat16)
+    vp = torch.randn(KV, nb * bs, D, generator=g, device=dev).to(
+        torch.bfloat16)
+    kw = dict(block_size=bs)
+    mp = 24 if bs == 8 else 6
+    if form == "ring":
+        # the engine's ring for the window and the chunk, wrapped twice
+        mp = -(-(40 + T) // bs) + 1
+        kw.update(window=40, ring_tokens=mp * bs)
+        lens = [2 * mp * bs + 30, 20, 0, mp * bs + 1]
+    else:
+        if form == "window":
+            kw.update(window=70)
+        lens = [min(mp * bs, 150), T // 2, 0, mp * bs - 3]
+    starts = [max(n - T, 0) for n in lens]
+    tables = torch.randint(1, nb, (S, mp), generator=g, device=dev,
+                           dtype=torch.int32)
+    lens = torch.tensor(lens, dtype=torch.int32, device=dev)
+    starts = torch.tensor(starts, dtype=torch.int32, device=dev)
+    route = pa.kernel_route(torch.bfloat16, T * G)
+    pa.prefill_counts.reset()
+    got = pa.paged_prefill_attention(q, kp, vp, tables, lens, starts, **kw)
+    again = pa.paged_prefill_attention(q, kp, vp, tables, lens, starts, **kw)
+    torch.cuda.synchronize()
+    assert pa.prefill_counts.kernel == 2
+    assert getattr(pa.prefill_counts, f"kernel_{route}") == 2
+    assert torch.equal(got, again)
+    ref = pa.paged_prefill_attention_reference(q, kp, vp, tables, lens,
+                                               starts, **kw)
+    assert not got[2].any()
+    err = (got.float() - ref.float()).abs().max().item()
+    assert err / ref.float().abs().max().item() <= 1e-2, err

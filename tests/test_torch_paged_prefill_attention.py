@@ -111,7 +111,8 @@ def test_decode_matches(window, ring):
     assert not got[2].any()
     # the CPU route is the plain version, counted apart from K1's
     assert vars(pa.prefill_counts) == {"kernel": 0, "kernel_window": 0,
-                                       "kernel_ring": 0, "plain": 1}
+                                       "kernel_ring": 0, "kernel_chunk": 0,
+                                       "kernel_split": 0, "plain": 1}
 
 
 def test_bf16_plain_rounds_p_to_v_dtype():
