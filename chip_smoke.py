@@ -59,7 +59,15 @@ Phases (every one raises on failure; nothing is caught and passed over):
      w_down [60,1408,2048] and Mixtral's w_gate [8,4096,14336], at decode
      routing (8 tokens x top-k) and prefill routing (2048 x 4, 512 x 2),
      plus a skewed (all tokens on one expert's set) and an idle-expert
-     routing; judged by ``K2_TOL``. Bound: the x rows that hold routed
+     routing, and K5's forward at one micro-batch of the moe-train phase
+     (4096 tokens x top-4) on qwen2-moe's two shapes; judged by
+     ``K2_TOL``, a second launch giving the same bits. Each K5 case names
+     its route (``gmm_route``: bf16 at block_m 128 takes the wgmma kernels,
+     fp32 the FMA kernels); a wgmma case also times its forward with 64-
+     and 128-row blocks beside the size ``gmm_block_rows`` picks; the
+     phase first prints the wgmma kernels' registers, stack, spills,
+     shared memory and any wgmma serialization (from the build's
+     ``-Xptxas -v``). Bound: the x rows that hold routed
      tokens, each active expert's weights once and the routed output
      rows, or 2 x routed rows x K x N operations. Yardstick: one
      ``torch._grouped_mm`` call in bf16 over the same expert-aligned
@@ -68,7 +76,8 @@ Phases (every one raises on failure; nothing is caught and passed over):
      w_gate and w_down at one micro-batch of the moe-train phase (2 x 2048
      tokens x top-4: 16384 routed rows, Tp 24064) and Mixtral's w_gate at
      512 x 2, under uniform, skewed (every token on 4 experts) and
-     idle-expert routings; judged by ``K2_TOL``. Bound: dx reads the
+     idle-expert routings, each counted on its route; judged by
+     ``K2_TOL``, a second launch giving the same bits. Bound: dx reads the
      routed dy rows and each active expert's weights and writes the routed
      dx rows; dw reads the routed x and dy rows and writes every expert's
      [K, N]; 2 x routed rows x K x N operations. Yardsticks:
@@ -155,8 +164,9 @@ Phases (every one raises on failure; nothing is caught and passed over):
    (int8) and 0.30x (int4) of the bf16 run's parameter bytes. Then
    qwen2-moe-a2.7b at full width and depth, the same three runs: bf16 with
    ``moe.dropless`` (K5 72 launches per forward: 3 expert products x 24
-   layers), and the quantized runs (K3 72, K2 97 per forward), within
-   0.56x and 0.34x of the bf16 parameter bytes. Then mistral-7b at full
+   layers, every one on the wgmma route), and the quantized runs (K3 72,
+   K2 97 per forward), within 0.56x and 0.34x of the bf16 parameter
+   bytes. Then mistral-7b at full
    width and depth from its rolling ring (block 64, max_seq_len 8192,
    chunk 256, prefix cache off): 8 requests of 64 new tokens, 4 with
    4608-6144-token prompts and 4 with 256-1024, in bf16 and with
@@ -201,7 +211,8 @@ Phases (every one raises on failure; nothing is caught and passed over):
    master, AdamW, micro 2 x gas 2 x 2048 tokens, remat "full", 5 steps on
    a repeated batch: losses finite and falling; K5's forward launched 240
    times (3 products x 4 layers x 2 micro-batches x 2 under remat x 5
-   steps), dx and dw 120 each, K4 80 / 40, nothing else. Prints ms per
+   steps), dx and dw 120 each, every one on the wgmma route, K4 80 / 40,
+   nothing else. Prints ms per
    step, tokens/s, peak memory and a profiled step's split into K4, K5
    forward / dx / dw, cuBLAS, other and idle share.
 
@@ -1021,6 +1032,9 @@ def k2_host_overhead(dev) -> dict:
 GROUPED_SHAPES = (("qwen2-moe/w_gate", 60, 2048, 1408, 4, 2048),
                   ("qwen2-moe/w_down", 60, 1408, 2048, 4, 2048),
                   ("mixtral/w_gate", 8, 4096, 14336, 2, 512))
+#: tokens of one micro-batch of the moe-train phase (2 x 2048): K5's
+#: forward at the train routing runs at qwen2-moe's shapes (16384 rows)
+TRAIN_TOKENS = 4096
 #: tokens of a decode step (8 slots, one token each)
 DECODE_TOKENS = 8
 #: sort alignment of the grouped products on the serving path: K5 under
@@ -1103,9 +1117,12 @@ def check_grouped(tag, got, ref, tp, N, dtype) -> tuple[float, float]:
 def phase_k5(dev) -> tuple[dict, list]:
     """K5's forward against its plain version at the MoE shapes, decode and
     prefill routings (and a skewed and an idle-expert routing), bf16 and
-    fp32. Returns (summary, cases)."""
+    fp32, and at a train micro-batch's routing (qwen2-moe, bf16). Each
+    case names the route ``gmm_route`` gave it. Returns (summary,
+    cases)."""
     from deepspeed_tpu_torch.ops.grouped_matmul import (
-        counts, grouped_matmul, grouped_matmul_reference)
+        counts, gmm_block_rows, gmm_route, grouped_matmul,
+        grouped_matmul_reference)
 
     results = []
     seed = 300
@@ -1121,14 +1138,23 @@ def phase_k5(dev) -> tuple[dict, list]:
         if label == "qwen2-moe/w_gate":
             plan += [("prefill", T_pre, "skewed", torch.bfloat16),
                      ("prefill", T_pre, "idle", torch.bfloat16)]
+        if label.startswith("qwen2-moe"):
+            plan.append(("train", TRAIN_TOKENS, "spread", torch.bfloat16))
         for i, (phase, T, kind, dtype) in enumerate(plan):
             buf, srt, cnt = grouped_case(T, k, n, K, K5_BLOCK_M, dtype, dev,
                                          seed + i, kind)
             w = w_bf16 if dtype == torch.bfloat16 else w32
             args = (buf, w, srt.tile_expert, K5_BLOCK_M, srt.tile_rows)
             tag = f"K5 {label}/{phase}-{kind}/T={T}x{k}"
+            route = gmm_route(dtype, K5_BLOCK_M)
+            before = counts.kernel_tc
             got = grouped_matmul(*args)
             torch.cuda.synchronize()
+            if counts.kernel_tc - before != (route == "wgmma"):
+                raise AssertionError(f"{tag}: route {route} not counted")
+            if not torch.equal(grouped_matmul(*args), got):
+                raise AssertionError(f"{tag}: a second launch gave other "
+                                     f"bits")
             ref = grouped_matmul_reference(*args)
             err, judged = check_grouped(tag, got, ref, srt.Tp, N, dtype)
             ms = cuda_time_ms(lambda: grouped_matmul(*args))
@@ -1141,25 +1167,92 @@ def phase_k5(dev) -> tuple[dict, list]:
             bound, by, nbytes, ops = grouped_bound(cnt, K, N, dtype,
                                                    K * N * el)
             rec = dict(case=f"{label}/{phase}-{kind}/T={T}x{k}",
-                       dtype=str(dtype).replace("torch.", ""), Tp=srt.Tp,
-                       routed_rows=T * k,
+                       dtype=str(dtype).replace("torch.", ""), route=route,
+                       Tp=srt.Tp, routed_rows=T * k,
                        active_experts=int((cnt > 0).sum()),
                        max_abs_err=err, judged_err=judged,
                        tol=K2_TOL[dtype], ms=ms, plain_ms=plain_ms,
                        library_ms=lib_ms, bound_ms=bound, bound_by=by,
                        bytes=nbytes, ops=ops)
+            rows_txt = ""
+            if route == "wgmma":
+                rec["block_rows"] = gmm_block_rows(srt.Tp, n, K5_BLOCK_M)
+                rec["ms_by_block_rows"] = k5_block_rows_ms(buf, w, srt)
+                rows_txt = (f"  (rows a block {rec['block_rows']}; 64 / 128: "
+                            + " / ".join(f"{v:.4f}" for v in
+                                         rec["ms_by_block_rows"].values())
+                            + " ms)")
             results.append(rec)
             lib_txt = f"{lib_ms:.4f}" if lib_ms is not None else "none"
-            log(f"[kernel] {tag:<44} {rec['dtype']:<8} err {judged:.2e} "
+            log(f"[kernel] {tag:<44} {rec['dtype']:<8} {route:<5} err "
+                f"{judged:.2e} "
                 f"(tol {K2_TOL[dtype]:.0e}; max abs {err:.2e})  kernel "
                 f"{ms:.4f} ms  plain {plain_ms:.3f} ms  _grouped_mm "
-                f"{lib_txt} ms  bound {bound:.4f} ms ({by})")
+                f"{lib_txt} ms  bound {bound:.4f} ms ({by}){rows_txt}")
             del buf, srt, got, ref, args
         del w32, w_bf16
         free_cuda()
     counts.reset()
-    return grouped_summary(results, "qwen2-moe/w_gate/decode-spread/T=8x4",
-                           "bfloat16"), results
+    summary = grouped_summary(results, "qwen2-moe/w_gate/decode-spread/T=8x4",
+                              "bfloat16")
+    summary["kernel_route"] = gmm_route(torch.bfloat16, K5_BLOCK_M)
+    return summary, results
+
+
+def k5_block_rows_ms(buf, w, srt) -> dict:
+    """The wgmma forward's time with 64- and 128-row blocks on one call's
+    inputs (``gmm_block_rows`` picks one from the shapes alone), through
+    the C entry, so both sizes run on the same data in the same run."""
+    from deepspeed_tpu_torch.ops import kernels
+
+    lib = kernels.load("grouped_matmul")
+    n, K, N = w.shape
+    out = torch.empty(srt.Tp, N, dtype=buf.dtype, device=buf.device)
+    te, tr = srt.tile_expert, srt.tile_rows
+
+    def launch(rows):
+        err = lib.ds_grouped_matmul_tc(
+            buf.data_ptr(), w.data_ptr(), te.data_ptr(), tr.data_ptr(),
+            out.data_ptr(), srt.Tp, K, N, n, K5_BLOCK_M, rows, 1,
+            torch.cuda.current_stream().cuda_stream)
+        if err:
+            raise RuntimeError(f"ds_grouped_matmul_tc: error {err}")
+
+    return {rows: cuda_time_ms(lambda: launch(rows)) for rows in (64, 128)}
+
+
+def k5_resources(built: dict) -> list:
+    """K5's wgmma kernels' registers, stack, spills and wgmma serialization
+    from the build's ``-Xptxas -v`` output (empty when the library was
+    already built) and their dynamic shared memory. The register count is
+    the launch's: the forward / dx blocks (a producer warp beside the
+    consumer warpgroups) keep it; dw's consumer warpgroups raise theirs to
+    240 (setmaxnreg)."""
+    from deepspeed_tpu_torch.ops import kernels
+
+    lib = kernels.load("grouped_matmul")
+    entries = ptxas_entries(built.get("grouped_matmul", {}).get("ptxas", ""))
+    rows = []
+    for label, kern, mangled, which in (
+            ("gmm_tc_kernel<false, 2>", "gmm_tc_kernel", "ILb0ELi2E", 0),
+            ("gmm_tc_kernel<false, 1>", "gmm_tc_kernel", "ILb0ELi1E", 1),
+            ("gmm_tc_kernel<true, 2>", "gmm_tc_kernel", "ILb1ELi2E", 0),
+            ("gmm_tc_kernel<true, 1>", "gmm_tc_kernel", "ILb1ELi1E", 1),
+            ("gmm_dw_tc_kernel", "gmm_dw_tc_kernel", "", 2)):
+        found = [v for name, v in entries.items()
+                 if kern + (mangled if mangled else "") in name]
+        row = dict(kernel=label, smem_bytes=lib.ds_grouped_matmul_tc_smem(
+            which), **(found[0] if found else {}))
+        row.setdefault("wgmma_serialized", False)
+        rows.append(row)
+        log(f"[kernel] K5 {label:<24} registers "
+            f"{row.get('regs', 'not reported')}, stack "
+            f"{row.get('stack', '-')} B, spills "
+            f"{row.get('spill_stores', '-')} / "
+            f"{row.get('spill_loads', '-')} B, shared memory "
+            f"{row['smem_bytes']} B, wgmma serialized "
+            f"{row['wgmma_serialized']}")
+    return rows
 
 
 def grouped_summary(results, main_case, main_dtype) -> dict:
@@ -1256,13 +1349,22 @@ def phase_k5_bwd(dev) -> tuple[dict, dict, list]:
             dw_args = (buf, dy, srt.tile_expert, n, K5_BLOCK_M,
                        srt.tile_rows)
             tag = f"K5 bwd {label}/train-{kind}/T={T}x{k}"
-            before = (gm.counts.kernel_dx, gm.counts.kernel_dw)
+            route = gm.gmm_route(dtype, K5_BLOCK_M)
+            tc = int(route == "wgmma")
+            c = gm.counts
+            before = (c.kernel_dx, c.kernel_dw, c.kernel_dx_tc, c.kernel_dw_tc)
             dx = gm.grouped_matmul_dx(*dx_args)
             dw = gm.grouped_matmul_dw(*dw_args)
             torch.cuda.synchronize()
-            if (gm.counts.kernel_dx, gm.counts.kernel_dw) != (
-                    before[0] + 1, before[1] + 1):
-                raise AssertionError(f"{tag}: the kernels were not counted")
+            if (c.kernel_dx, c.kernel_dw, c.kernel_dx_tc, c.kernel_dw_tc) != (
+                    before[0] + 1, before[1] + 1, before[2] + tc,
+                    before[3] + tc):
+                raise AssertionError(f"{tag}: the kernels were not counted "
+                                     f"on route {route}")
+            if not (torch.equal(gm.grouped_matmul_dx(*dx_args), dx) and
+                    torch.equal(gm.grouped_matmul_dw(*dw_args), dw)):
+                raise AssertionError(f"{tag}: a second launch gave other "
+                                     f"bits")
             errs = {}
             for name, got, ref, shape in (
                     ("dx", dx, gm.grouped_matmul_dx_reference(*dx_args),
@@ -1282,7 +1384,8 @@ def phase_k5_bwd(dev) -> tuple[dict, dict, list]:
                 errs[name] = (err, judged)
                 del ref
             rec = dict(case=f"{label}/train-{kind}/T={T}x{k}",
-                       dtype=str(dtype).replace("torch.", ""), Tp=srt.Tp,
+                       dtype=str(dtype).replace("torch.", ""), route=route,
+                       Tp=srt.Tp,
                        routed_rows=T * k,
                        active_experts=int((cnt > 0).sum()),
                        tol=K2_TOL[dtype])
@@ -1322,7 +1425,7 @@ def phase_k5_bwd(dev) -> tuple[dict, dict, list]:
             lib_txt = {nm: (f"{rec[nm]['library_ms']:.4f}"
                             if rec[nm]["library_ms"] is not None else "none")
                        for nm in ("dx", "dw")}
-            log(f"[kernel] {tag:<44} {rec['dtype']:<8} "
+            log(f"[kernel] {tag:<44} {rec['dtype']:<8} {route:<5} "
                 + "  ".join(
                     f"{nm} err {rec[nm]['judged_err']:.2e} kernel "
                     f"{rec[nm]['ms']:.4f} ms plain {rec[nm]['plain_ms']:.3f}"
@@ -1346,6 +1449,7 @@ def phase_k5_bwd(dev) -> tuple[dict, dict, list]:
         out = dict(max_abs_err=max(r["max_abs_err"] for r in bf),
                    max_err_over_max_ref=max(r["judged_err"] for r in bf),
                    max_err_over_max_ref_fp32=max(r["judged_err"] for r in fp),
+                   kernel_route=main["route"],
                    **{k: main[name][k] for k in ("ms", "plain_ms",
                                                  "library_ms", "bound_ms",
                                                  "bound_by")})
@@ -1519,7 +1623,9 @@ def all_counts() -> dict:
             "k2_plain": qm.counts.plain, "k3": qm.grouped_counts.kernel,
             "k3_plain": qm.grouped_counts.plain, "k5": gm.counts.kernel,
             "k5_plain": gm.counts.plain, "k5_dx": gm.counts.kernel_dx,
-            "k5_dw": gm.counts.kernel_dw,
+            "k5_dw": gm.counts.kernel_dw, "k5_tc": gm.counts.kernel_tc,
+            "k5_dx_tc": gm.counts.kernel_dx_tc,
+            "k5_dw_tc": gm.counts.kernel_dw_tc,
             "k5_plain_dx": gm.counts.plain_dx,
             "k5_plain_dw": gm.counts.plain_dw, "k4_fwd": fa.counts.fwd,
             "k4_bwd": fa.counts.bwd, "k4_plain": fa.counts.plain,
@@ -1565,8 +1671,9 @@ def check_launches(tag, got: dict, cfg, *, forwards, e4m3_pool, quant,
     expert product of every MoE layer; K5 once per expert product under
     ``moe.dropless`` without quantization; never K4 (serving has no
     full-sequence attention), K6 or K7; no plain version at all. With
-    ``bf16`` every K1 launch is one of the chunk or the split kernel's;
-    in fp32 none is."""
+    ``bf16`` every K1 launch is one of the chunk or the split kernel's and
+    every K5 launch took the wgmma route (the engine sorts at
+    ``dropless_block_m`` 128); in fp32 none does."""
     from deepspeed_tpu_torch.models.transformer import is_moe_layer
 
     L = cfg.num_layers
@@ -1585,10 +1692,11 @@ def check_launches(tag, got: dict, cfg, *, forwards, e4m3_pool, quant,
             "k3": experts * f if quant else 0, "k3_plain": 0,
             "k5": experts * f if dropless and not quant else 0,
             "k5_plain": 0, "k5_dx": 0, "k5_dw": 0, "k5_plain_dx": 0,
-            "k5_plain_dw": 0, "k4_fwd": 0, "k4_bwd": 0, "k4_plain": 0,
-            "k4_plain_bwd": 0, "k6_fwd": 0, "k6_bwd": 0, "k6_plain": 0,
+            "k5_plain_dw": 0, "k5_dx_tc": 0, "k5_dw_tc": 0, "k4_fwd": 0,
+            "k4_bwd": 0, "k4_plain": 0, "k4_plain_bwd": 0, "k6_fwd": 0, "k6_bwd": 0, "k6_plain": 0,
             "k6_plain_bwd": 0, "k7": 0, "k7_chunk": 0, "k7_split": 0,
             "k7_plain": 0}
+    want["k5_tc"] = want["k5"] if bf16 else 0
     rest = dict(got)
     routed = rest.pop("k1_chunk") + rest.pop("k1_split")
     want_routed = want["k1"] + want["k1_e4m3"] if bf16 else 0
@@ -2000,8 +2108,9 @@ def device_breakdown(run) -> dict:
         if "gmm_dw_" in low:
             return "k5_dw_ms"
         if "::gmm_" in low or low.startswith("gmm_"):
-            # the forward and dx share a template: <false> / <true>
-            return "k5_dx_ms" if "kernel<true>" in low else "k5_ms"
+            # the forward and dx share a template on each route:
+            # gmm_bf16_kernel<true> / gmm_tc_kernel<true, 2> are dx
+            return "k5_dx_ms" if "kernel<true" in low else "k5_ms"
         if "qmm_" in low:
             return "k2_ms"
         if any(t in low for t in ("gemm", "xmma", "cutlass", "matmul",
@@ -3475,8 +3584,10 @@ def phase_moe_train(dev) -> dict:
     launches = all_counts()
     passes = L * gas * steps
     want = {k: 0 for k in launches}
+    # every K5 launch of the bf16 run takes the wgmma route
     want.update(k5=3 * passes * 2, k5_dx=3 * passes, k5_dw=3 * passes,
-                k4_fwd=passes * 2, k4_bwd=passes)
+                k5_tc=3 * passes * 2, k5_dx_tc=3 * passes,
+                k5_dw_tc=3 * passes, k4_fwd=passes * 2, k4_bwd=passes)
     if launches != want:
         raise AssertionError(f"[{tag}] launches {launches} != {want}")
     if not all(math.isfinite(x) for x in losses) or \
@@ -3628,7 +3739,9 @@ def main() -> int:
         cases += form_cases
         k2_summary, k2_cases = phase_k2(dev)
         k2.update(k2_summary)
+        k5_res = k5_resources(built)
         k5_summary, k5_cases = phase_k5(dev)
+        k5_cases = [{"resources": k5_res}] + k5_cases
         k5.update(k5_summary)
         k5_dx_summary, k5_dw_summary, k5_bwd_cases = phase_k5_bwd(dev)
         k5_dx.update(k5_dx_summary)

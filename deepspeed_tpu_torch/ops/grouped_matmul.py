@@ -11,6 +11,12 @@ for every tile, in x's dtype with fp32 accumulation.
   kernel (``csrc/grouped_matmul.cu``) or raises; on CPU tensors it runs
   :func:`grouped_matmul_reference`, the plain version. ``counts`` holds the
   launches of each route.
+- :func:`gmm_route` picks the card's kernel from dtype and ``block_m``
+  alone: bf16 with ``block_m`` a multiple of 64 (the engine's and the train
+  path's 128) takes the wgmma kernels fed by TMA, bf16 with ``block_m`` 32
+  or 96 the WMMA kernels (a 64-row warpgroup would straddle two experts),
+  fp32 the CUDA-core FMA kernels (the parity route). Nothing falls back
+  from one route to another.
 - :func:`sort_tokens_by_expert` also returns ``tile_rows``, the number of
   routed rows of each tile (a device tensor, computed without reading
   anything back to the host). The kernel skips the rest: rows past the
@@ -42,20 +48,55 @@ from .quant_matmul import LaunchCounts
 class GroupedCounts(LaunchCounts):
     """K5's calls by route: ``kernel`` / ``plain`` the forward, ``kernel_dx``
     / ``plain_dx`` and ``kernel_dw`` / ``plain_dw`` the backward's two
-    products."""
+    products; ``kernel_tc``, ``kernel_dx_tc`` and ``kernel_dw_tc`` count the
+    kernel launches (already in ``kernel*``) that took the wgmma route."""
     kernel_dx: int = 0
     kernel_dw: int = 0
     plain_dx: int = 0
     plain_dw: int = 0
+    kernel_tc: int = 0
+    kernel_dx_tc: int = 0
+    kernel_dw_tc: int = 0
 
 
 #: calls of :func:`grouped_matmul`, :func:`grouped_matmul_dx` and
 #: :func:`grouped_matmul_dw` by route
 counts = GroupedCounts()
 
-#: rows of the CUDA kernels' output tiles (K5 and K3): block_m must be a
-#: multiple of it on the card
+#: rows of the CUDA kernels' output tiles (K5's WMMA and FMA routes, and
+#: K3): block_m must be a multiple of it on the card
 KERNEL_ROWS = 32
+
+#: rows of a wgmma warpgroup: bf16 with block_m a multiple of it takes the
+#: wgmma route
+WGMMA_ROWS = 64
+
+
+def gmm_route(dtype: torch.dtype, block_m: int) -> str:
+    """The card's K5 kernels for a call in ``dtype`` at ``block_m``, from
+    these alone: ``"wgmma"`` (bf16, ``block_m`` a multiple of 64: the wgmma
+    kernels fed by TMA), ``"wmma"`` (bf16 otherwise: the WMMA kernels) or
+    ``"fma"`` (fp32: the CUDA-core kernels, the parity route). The same
+    route serves the forward, dx and dw."""
+    if dtype == torch.float32:
+        return "fma"
+    if dtype != torch.bfloat16:
+        raise ValueError(f"kernel dtype must be float32 or bfloat16, got "
+                         f"{dtype}")
+    return "wgmma" if block_m % WGMMA_ROWS == 0 else "wmma"
+
+
+def gmm_block_rows(Tp: int, num_experts: int, block_m: int) -> int:
+    """Rows a block of the wgmma route's forward / dx kernel owns: 128 (two
+    consumer warpgroups) when ``block_m`` is a multiple of 128 and the
+    experts average more than 64 routed rows, else 64. ``Tp -
+    num_experts * block_m`` bounds the routed rows of a
+    :func:`sort_tokens_by_expert` buffer, so this reads shapes only. At
+    decode a second warpgroup would idle, and the 64-row block lets three
+    blocks share an SM, so every active block runs in one wave."""
+    if block_m % 128 == 0 and Tp - num_experts * block_m > 64 * num_experts:
+        return 128
+    return WGMMA_ROWS
 
 
 class ExpertSort(NamedTuple):
@@ -336,10 +377,14 @@ def check_kernel_operands(x, block_m, tile_expert, tile_rows, weights):
 
 
 def _launch(entry: str, a, b, tile_expert, block_m, tile_rows, out, K, N,
-            n) -> None:
+            n) -> bool:
     """One launch of ``entry`` (``ds_grouped_matmul``, ``..._dx`` or
     ``..._dw``; they share one C signature) over ``a`` and ``b``, both in
-    one dtype, raising on a refused launch."""
+    one dtype, on the route :func:`gmm_route` picks (the wgmma route's
+    entries are ``entry + "_tc"``, the forward's and dx's with
+    :func:`gmm_block_rows` after ``block_m``), raising on a refused launch
+    or a tensor map that cannot be made. Returns True on the wgmma
+    route."""
     from . import kernels
 
     if a.dtype != b.dtype:
@@ -350,38 +395,50 @@ def _launch(entry: str, a, b, tile_expert, block_m, tile_rows, out, K, N,
                          f"rows)")
     te, rows = check_kernel_operands(a, block_m, tile_expert, tile_rows,
                                      [("second operand", b), ("out", out)])
+    tc = gmm_route(a.dtype, block_m) == "wgmma"
+    geometry = (a.shape[0], K, N, n, block_m)
+    if tc:
+        if not entry.endswith("_dw"):
+            geometry += (gmm_block_rows(a.shape[0], n, block_m),)
+        entry += "_tc"
     lib = kernels.load("grouped_matmul")
     err = getattr(lib, entry)(
         a.data_ptr(), b.data_ptr(), te.data_ptr(), rows.data_ptr(),
-        out.data_ptr(), a.shape[0], K, N, n, block_m, _DTYPES[a.dtype],
+        out.data_ptr(), *geometry, _DTYPES[a.dtype],
         torch.cuda.current_stream(a.device).cuda_stream)
     if err != 0:
+        what = (f"tensor map CUresult {err - 1000}" if err >= 1000
+                else f"CUDA error {err}")
         raise RuntimeError(f"grouped-matmul kernel {entry} launch failed: "
-                           f"CUDA error {err}")
+                           f"{what}")
+    return tc
 
 
 def _launch_kernel(x, w, tile_expert, block_m, tile_rows):
     n, K, N = w.shape
     out = torch.empty((x.shape[0], N), dtype=x.dtype, device=x.device)
-    _launch("ds_grouped_matmul", x, w, tile_expert, block_m, tile_rows, out,
-            K, N, n)
+    tc = _launch("ds_grouped_matmul", x, w, tile_expert, block_m, tile_rows,
+                 out, K, N, n)
     counts.kernel += 1
+    counts.kernel_tc += tc
     return out
 
 
 def _launch_dx(dy, w, tile_expert, block_m, tile_rows):
     n, K, N = w.shape
     dx = torch.empty((dy.shape[0], K), dtype=dy.dtype, device=dy.device)
-    _launch("ds_grouped_matmul_dx", dy, w, tile_expert, block_m, tile_rows,
-            dx, K, N, n)
+    tc = _launch("ds_grouped_matmul_dx", dy, w, tile_expert, block_m,
+                 tile_rows, dx, K, N, n)
     counts.kernel_dx += 1
+    counts.kernel_dx_tc += tc
     return dx
 
 
 def _launch_dw(x, dy, tile_expert, num_experts, block_m, tile_rows, dtype):
     K, N = x.shape[1], dy.shape[1]
     dw = torch.empty((num_experts, K, N), dtype=x.dtype, device=x.device)
-    _launch("ds_grouped_matmul_dw", x, dy, tile_expert, block_m, tile_rows,
-            dw, K, N, num_experts)
+    tc = _launch("ds_grouped_matmul_dw", x, dy, tile_expert, block_m,
+                 tile_rows, dw, K, N, num_experts)
     counts.kernel_dw += 1
+    counts.kernel_dw_tc += tc
     return dw.to(dtype or x.dtype)

@@ -144,11 +144,19 @@ def _declare(name: str, lib: ctypes.CDLL) -> None:
     elif name == "grouped_matmul":
         # the forward and dx: x (dy), w, tile_expert, tile_rows, out (dx);
         # dw: x, dy, tile_expert, tile_rows, dw; then Tp, K, N, n,
-        # block_m, dtype; stream
+        # block_m, dtype; stream (the `_tc` entries: the wgmma route; its
+        # forward and dx take block_rows after block_m)
         for fn in (lib.ds_grouped_matmul, lib.ds_grouped_matmul_dx,
-                   lib.ds_grouped_matmul_dw):
+                   lib.ds_grouped_matmul_dw, lib.ds_grouped_matmul_dw_tc):
             fn.argtypes = [p] * 5 + [i] * 6 + [p]
             fn.restype = i
+        for fn in (lib.ds_grouped_matmul_tc, lib.ds_grouped_matmul_dx_tc):
+            fn.argtypes = [p] * 5 + [i] * 7 + [p]
+            fn.restype = i
+        fn = lib.ds_grouped_matmul_tc_smem
+        # which (0 forward / dx 128-row block, 1 64-row block, 2 dw)
+        fn.argtypes = [i]
+        fn.restype = i
     elif name == "flash_attention":
         fn = lib.ds_flash_attention_fwd
         # q, k, v, out, lse; B, H, KV, S, D; scale; causal, dtype; stream

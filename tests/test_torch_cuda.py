@@ -1,14 +1,15 @@
 """The port on the card: the paged-attention CUDA kernel (default,
 e4m3-pool, sliding-window, rolling-ring and tree-verify forms), the
-quantized-weight kernel, the grouped MoE kernels (K5's forward, dx and
-dw; K3), the flash-attention kernel (K4, forward and backward; its bf16
-kernels also at the tensor-core tiles' edges, and their backward bit for
-bit from call to call), the block-sparse flash kernels (K6: forward, dq,
-dk/dv) and the per-layer-slice paged attention (K7: linear, window and
-ring tables) against their plain versions, the CUDA serving engine against
-the CPU engine, and training steps on the card through K4 and through K5's
-forward and backward. These need an sm_90
-GPU and nvcc, so they skip elsewhere; on a machine with the card run
+quantized-weight kernel, the grouped MoE kernels (K5's forward, dx and dw
+on each route: wgmma, WMMA, FMA; K3), the flash-attention kernel (K4,
+forward and backward; its bf16 kernels also at the tensor-core tiles'
+edges, and their backward bit for bit from call to call), the block-sparse
+flash kernels (K6: forward, dq, dk/dv) and the per-layer-slice paged
+attention (K7: linear, window and ring tables) against their plain
+versions, the CUDA serving engine against the CPU engine, and training
+steps on the card through K4 and through K5's forward and backward. These
+need an sm_90 GPU and nvcc, so they skip elsewhere; on a machine with the
+card run
 
     python -m pytest tests/test_torch_cuda.py -m cuda
 """
@@ -387,6 +388,123 @@ def test_grouped_matmul_backward_kernels_match_plain_versions(
     wt = w.clone().requires_grad_()
     gm.grouped_matmul(x, wt, *args).backward(dy)
     assert torch.equal(x.grad, dx) and torch.equal(wt.grad, dw)
+
+
+@pytest.mark.parametrize("bm", [128, 64])
+@pytest.mark.parametrize("T,k,n,K,N,kind", [
+    (8, 4, 60, 256, 192, "spread"),          # decode: mostly empty tiles
+    (300, 2, 6, 200, 136, "spread"),         # K and N off the tile
+    (300, 4, 12, 512, 320, "spread"),        # partial last tiles
+    (1000, 2, 6, 256, 128, "skewed"),        # one expert owns many tiles
+    (40, 2, 16, 128, 64, "spread"),          # experts with no tile
+    (200, 2, 16, 192, 256, "last")])         # clipped tiles name a busy one
+def test_grouped_wgmma_route_matches_plain_versions(dev, bm, T, k, n, K, N,
+                                                    kind):
+    """K5's wgmma route (bf16, block_m a multiple of 64): the forward, dx
+    and dw kernels against their plain versions, each launch counted on
+    the route; padding rows of x and dy filled with NaN change nothing (the
+    plain versions see zeros there): every result finite, within 1e-2 of
+    max |plain| (one bf16 rounding of an fp32 sum), dx's and the forward's
+    padding rows exactly zero, an idle expert's dw zero; a second launch
+    gives the same bits."""
+    dtype = torch.bfloat16
+    assert gm.gmm_route(dtype, bm) == "wgmma"
+    if kind == "last":
+        g = torch.Generator(device=dev).manual_seed(T)
+        idx = (n - 1 - torch.arange(k, device=dev)).expand(T, k)
+        srt = gm.sort_tokens_by_expert(idx.to(torch.int32), n, bm)
+        x = torch.randn(T, K, generator=g, device=dev).to(dtype)
+        buf = x.new_zeros((srt.Tp, K)).index_copy_(
+            0, srt.dst.long(), x.repeat_interleave(k, dim=0))
+    else:
+        buf, srt = _routed(dev, dtype, T=T, k=k, n=n, K=K, bm=bm,
+                           seed=T + K, kind=kind)
+    g = torch.Generator(device=dev).manual_seed(n + K)
+    w = (torch.randn(n, K, N, generator=g, device=dev) / K ** 0.5).to(dtype)
+    pad = ~gm.row_mask(srt.Tp, bm, srt.tile_rows)
+    dy = torch.randn(srt.Tp, N, generator=g, device=dev).to(dtype)
+    dy[pad] = 0
+    args = (srt.tile_expert, bm, srt.tile_rows)
+    ref = gm.grouped_matmul_reference(buf, w, *args)
+    ref_dx = gm.grouped_matmul_dx_reference(dy, w, *args)
+    ref_dw = gm.grouped_matmul_dw_reference(buf, dy, srt.tile_expert, n, bm,
+                                            srt.tile_rows)
+    nan_x, nan_dy = buf.clone(), dy.clone()
+    nan_x[pad] = float("nan")
+    nan_dy[pad] = float("nan")
+
+    def run():
+        return (gm.grouped_matmul(nan_x, w, *args),
+                gm.grouped_matmul_dx(nan_dy, w, *args),
+                gm.grouped_matmul_dw(nan_x, nan_dy, srt.tile_expert, n, bm,
+                                     srt.tile_rows))
+
+    c = gm.counts
+    before = (c.kernel_tc, c.kernel_dx_tc, c.kernel_dw_tc)
+    got = run()
+    torch.cuda.synchronize()
+    assert (c.kernel_tc, c.kernel_dx_tc, c.kernel_dw_tc) == tuple(
+        b + 1 for b in before)
+    for out, want in zip(got, (ref, ref_dx, ref_dw)):
+        assert out.shape == want.shape and out.dtype == dtype
+        assert torch.isfinite(out).all()
+        assert _judged(out, want) <= 1e-2
+    assert (got[0][pad] == 0).all() and (got[1][pad] == 0).all()
+    owned = set(srt.tile_expert[srt.tile_rows > 0].tolist())
+    for e in set(range(n)) - owned:
+        assert (got[2][e] == 0).all()
+    again = run()
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
+def test_grouped_wgmma_route_runs_from_a_fresh_thread(dev):
+    """The wgmma route encodes its TMA tensor maps through libcuda, which
+    needs a context current in the calling thread. A thread whose
+    first CUDA work is such a launch (autograd's device thread, when a
+    backward starts with dx) gets the main thread's bits, and autograd
+    through ``grouped_matmul`` launches on the wgmma route."""
+    import threading
+
+    bm, n = 128, 12
+    buf, srt = _routed(dev, torch.bfloat16, T=300, k=4, n=n, K=256, bm=bm,
+                       seed=7)
+    g = torch.Generator(device=dev).manual_seed(3)
+    w = (torch.randn(n, 256, 192, generator=g, device=dev) / 16).to(
+        torch.bfloat16)
+    dy = torch.randn(srt.Tp, 192, generator=g, device=dev).to(torch.bfloat16)
+    args = (srt.tile_expert, bm, srt.tile_rows)
+
+    def run():
+        return (gm.grouped_matmul(buf, w, *args),
+                gm.grouped_matmul_dx(dy, w, *args),
+                gm.grouped_matmul_dw(buf, dy, srt.tile_expert, n, bm,
+                                     srt.tile_rows))
+
+    got = {}
+
+    def work():
+        try:
+            got["out"] = run()
+            torch.cuda.synchronize()
+        except Exception as err:          # raised again in the test thread
+            got["err"] = err
+
+    t = threading.Thread(target=work)
+    t.start()
+    t.join(timeout=120)
+    assert not t.is_alive()
+    if "err" in got:
+        raise got["err"]
+    main = run()
+    assert all(torch.equal(a, b) for a, b in zip(got["out"], main))
+    before = (gm.counts.kernel_dx_tc, gm.counts.kernel_dw_tc)
+    x = buf.clone().requires_grad_()
+    wt = w.clone().requires_grad_()
+    gm.grouped_matmul(x, wt, *args).backward(dy)
+    assert (gm.counts.kernel_dx_tc, gm.counts.kernel_dw_tc) == (
+        before[0] + 1, before[1] + 1)
+    assert torch.equal(x.grad, main[1]) and torch.equal(wt.grad, main[2])
 
 
 def test_grouped_kernels_refuse_what_they_do_not_take(dev):
