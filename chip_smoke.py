@@ -101,7 +101,8 @@ Phases (every one raises on failure; nothing is caught and passed over):
      time) and share of the bound beside SDPA, and the host µs the bf16
      wrapper spent encoding its TMA tensor maps; the phase first prints
      the bf16 tensor-core kernels' registers, stack, spills (from the
-     build's ``-Xptxas -v``) and dynamic shared memory.
+     build's ``-Xptxas -v``) and dynamic shared memory, and last the
+     train shape's bf16 times against PERF.md's (``K4_PERF_MD_MS``).
    - K6, block-sparse flash attention, forward (out and lse), dq and dk/dv
      (each timed alone and together), in bf16 and fp32, q at 3x the keys'
      spread: at bert-large-uncased width (H 16, D 64, B 2, S 4096, block
@@ -111,10 +112,19 @@ Phases (every one raises on failure; nothing is caught and passed over):
      train shape (B 2, S 2048), also timed through K4; a random layout
      with an empty query row and a row that sees only a block above the
      diagonal (their outputs and dq must be 0); blocks of 256 (S 4096)
-     and 192 (S 3072). Tolerances ``K4_TOL``. Bound: K4's, over the
-     visible token pairs of the layout. Yardstick: one
-     ``scaled_dot_product_attention`` call with the boolean token mask
-     ``[1, H, S, S]``, forward and forward + backward (bf16).
+     and 192 (S 3072). Each case names its route (``kernel_route``: bf16
+     at blocks that are a multiple of 128 takes K4's wgmma kernels over
+     the layout's table, and must; fp32 and block 192 the FMA kernels), is
+     launched twice with identical bits required, and prints its TFLOP/s
+     and share of the bound beside SDPA and, on the dense layout, K4; the
+     phase first prints the wgmma kernels' registers, stack, spills,
+     shared memory and any wgmma serialization (from the build's
+     ``-Xptxas -v``), and last the main case's forward + backward against
+     masked SDPA's and the dense layout against K4. Tolerances
+     ``K4_TOL``. Bound: K4's, over the visible token pairs of the layout.
+     Yardstick: one ``scaled_dot_product_attention`` call with the
+     boolean token mask ``[1, H, S, S]``, forward and forward + backward
+     (bf16).
    - K7, the per-layer-slice paged attention over separate K/V pools, in
      fp32 and bf16 by ``K1_TOL`` with an empty slot and trash-padded
      tables: llama2-7b geometry (block 64) decode of 8 slots at 256-4000
@@ -221,9 +231,11 @@ Phases (every one raises on failure; nothing is caught and passed over):
    configs at block 128, each at bert-large width (B 2, S 4096) and
    llama2-7b width (B 1, S 8192), bf16, forward and ``.backward()`` of a
    sum-of-squares loss, one warm-up and 5 timed iterations: K6's forward
-   and backward launched 6 times each, nothing plain and no other kernel.
-   Prints ms per forward + backward, tokens/s, peak memory and
-   ``sparsity()``. Then fp32 parity at S 2048 (BigBird at bert width,
+   and backward launched 6 times each, all on the wgmma route, nothing
+   plain and no other kernel. Prints ms per forward + backward, tokens/s,
+   peak memory, ``sparsity()``, K6's share of a profiled step and the
+   time of the module's layout copies (the transposes between [B, S, H,
+   D] and [B, H, S, D]). Then fp32 parity at S 2048 (BigBird at bert width,
    Fixed unidirectional at llama width): output and q/k/v gradients
    through K6 against the plain route on the card, by the fp32
    ``K4_TOL``. K6's launches in the record line are this phase's; K7 has
@@ -1630,7 +1642,8 @@ def all_counts() -> dict:
             "k5_plain_dw": gm.counts.plain_dw, "k4_fwd": fa.counts.fwd,
             "k4_bwd": fa.counts.bwd, "k4_plain": fa.counts.plain,
             "k4_plain_bwd": fa.counts.plain_bwd, "k6_fwd": bsa.counts.fwd,
-            "k6_bwd": bsa.counts.bwd, "k6_plain": bsa.counts.plain,
+            "k6_bwd": bsa.counts.bwd, "k6_fwd_tc": bsa.counts.fwd_tc,
+            "k6_bwd_tc": bsa.counts.bwd_tc, "k6_plain": bsa.counts.plain,
             "k6_plain_bwd": bsa.counts.plain_bwd,
             "k7": pa.prefill_counts.kernel,
             "k7_chunk": pa.prefill_counts.kernel_chunk,
@@ -1693,7 +1706,8 @@ def check_launches(tag, got: dict, cfg, *, forwards, e4m3_pool, quant,
             "k5": experts * f if dropless and not quant else 0,
             "k5_plain": 0, "k5_dx": 0, "k5_dw": 0, "k5_plain_dx": 0,
             "k5_plain_dw": 0, "k5_dx_tc": 0, "k5_dw_tc": 0, "k4_fwd": 0,
-            "k4_bwd": 0, "k4_plain": 0, "k4_plain_bwd": 0, "k6_fwd": 0, "k6_bwd": 0, "k6_plain": 0,
+            "k4_bwd": 0, "k4_plain": 0, "k4_plain_bwd": 0, "k6_fwd": 0,
+            "k6_bwd": 0, "k6_fwd_tc": 0, "k6_bwd_tc": 0, "k6_plain": 0,
             "k6_plain_bwd": 0, "k7": 0, "k7_chunk": 0, "k7_split": 0,
             "k7_plain": 0}
     want["k5_tc"] = want["k5"] if bf16 else 0
@@ -2071,10 +2085,11 @@ def parity_model(dev, name: str, routes) -> dict:
 
 def device_breakdown(run) -> dict:
     """Profile ``run()`` with torch.profiler and split the device's kernel
-    time into K1, K2, K3, K4, K5 (forward, dx, dw), matrix products and the
-    rest, beside the host wall time (single stream, so busy time is the
-    kernel time sum). Returns the numbers, or {"device": "not measured"}
-    when the profiler saw no kernel time."""
+    time into K1, K2, K3, K4, K5 (forward, dx, dw), K6, matrix products and
+    the rest, beside the host wall time (single stream, so busy time is the
+    kernel time sum). K6's wgmma route runs K4's kernel bodies: its
+    instantiations carry ``TableWalk`` in their names. Returns the numbers,
+    or {"device": "not measured"} when the profiler saw no kernel time."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -2099,6 +2114,8 @@ def device_breakdown(run) -> dict:
 
     def kind(name):
         low = name.lower()
+        if "tablewalk" in low or "bsa_" in low:
+            return "k6_ms"
         if "flash_" in low and "_kernel" in low:
             return "k4_ms"
         if "ragged_paged_attn" in low:
@@ -2120,7 +2137,7 @@ def device_breakdown(run) -> dict:
 
     out = {"wall_ms": wall_ms, "busy_ms": busy, "k1_ms": 0.0, "k2_ms": 0.0,
            "k3_ms": 0.0, "k4_ms": 0.0, "k5_ms": 0.0, "k5_dx_ms": 0.0,
-           "k5_dw_ms": 0.0, "gemm_ms": 0.0, "other_ms": 0.0,
+           "k5_dw_ms": 0.0, "k6_ms": 0.0, "gemm_ms": 0.0, "other_ms": 0.0,
            "idle_share": max(0.0, 1 - busy / wall_ms)}
     for name, ms in by_name.items():
         out[kind(name)] += ms
@@ -2466,6 +2483,10 @@ K4_CASES = (("llama2-7b S=1024", 2, 32, 32, 1024, 128, True),
             ("gpt2-1.3b S=1024", 4, 32, 32, 1024, 64, True),
             ("llama2-7b S=1024 non-causal", 1, 32, 32, 1024, 128, False))
 K4_MAIN = "llama2-7b S=2048"
+#: K4's bf16 forward and backward ms at ``K4_MAIN`` as PERF.md has them
+#: (this script's kernel phase on an H100 80GB HBM3 at 700 W); the kernel
+#: phase prints the run's times against them
+K4_PERF_MD_MS = (0.190, 0.699)
 
 
 def k4_work(B, H, KV, S, D, causal, dtype) -> dict:
@@ -2634,6 +2655,11 @@ def phase_k4(dev, built: dict) -> tuple[dict, dict, list]:
     bf = [c for c in cases if c.get("dtype") == "bfloat16"]
     f32 = [c for c in cases if c.get("dtype") == "float32"]
     main = next(c for c in bf if c["case"] == K4_MAIN)
+    log(f"[kernel] K4 {K4_MAIN} bf16 against PERF.md (forward "
+        f"{K4_PERF_MD_MS[0]} / backward {K4_PERF_MD_MS[1]} ms): forward "
+        f"{main['ms']:.3f} ms ({main['ms'] / K4_PERF_MD_MS[0]:.3f}x), "
+        f"backward {main['bwd_ms']:.3f} ms "
+        f"({main['bwd_ms'] / K4_PERF_MD_MS[1]:.3f}x)")
 
     def errs(names):
         return dict(
@@ -2761,14 +2787,47 @@ def k6_work(layout, block, B, H, S, D, causal, dtype) -> dict:
                 fwd_bound_by=fwd[1], bwd_bound_ms=bwd[0], bwd_bound_by=bwd[1])
 
 
+def k6_resources(built: dict) -> list:
+    """K6's wgmma-route kernels (K4's tensor-core bodies instantiated over
+    ``TableWalk`` in the block_sparse_attention library): registers, stack,
+    spills and any wgmma serialization (ptxas's C7520 note) from the
+    build's ``-Xptxas -v`` output (empty when the library was already
+    built), and dynamic shared memory (K4's: the same body)."""
+    from deepspeed_tpu_torch.ops import kernels
+
+    lib = kernels.load("flash_attention")
+    entries = ptxas_entries(
+        built.get("block_sparse_attention", {}).get("ptxas", ""))
+    rows = []
+    for which, kern in enumerate(("flash_fwd_tc_kernel", "flash_dq_tc_kernel",
+                                  "flash_dkv_tc_kernel")):
+        for D in (64, 128, 256):
+            found = [v for name, v in entries.items()
+                     if kern in name and f"ILi{D}E" in name]
+            row = dict(kernel=f"{kern}<{D}, TableWalk>",
+                       smem_bytes=lib.ds_flash_attention_tc_smem(which, D),
+                       **(found[0] if found else {}))
+            row.setdefault("wgmma_serialized", False)
+            rows.append(row)
+            log(f"[kernel] K6 {row['kernel']:<37} registers "
+                f"{row.get('regs', 'not reported')}, stack "
+                f"{row.get('stack', '-')} B, spills "
+                f"{row.get('spill_stores', '-')} / "
+                f"{row.get('spill_loads', '-')} B, shared memory "
+                f"{row['smem_bytes']} B, wgmma serialized "
+                f"{row['wgmma_serialized']}")
+    return rows
+
+
 def k6_run_case(case, dtype, dev, seed) -> dict:
     """One K6 case: the forward and the backward (dq + dk/dv kernels) each
-    counted once, no plain launch; out, lse and dq/dk/dv against the plain
-    versions by ``K4_TOL``; rows that see no key (under causal: none
-    below the diagonal) zeros in out and dq. Then the kernels (forward, dq,
-    dk/dv apart and together), the plain versions and, in bf16, the SDPA
-    yardstick with the boolean token mask timed. Raises past the
-    tolerance."""
+    counted once on the route ``kernel_route`` names, no plain launch; out,
+    lse and dq/dk/dv against the plain versions by ``K4_TOL``; rows that
+    see no key (under causal: none below the diagonal) zeros in out and
+    dq; a second launch of each giving the same bits. Then the kernels
+    (forward, dq, dk/dv apart and together), the plain versions and, in
+    bf16, the SDPA yardstick with the boolean token mask timed, and on a
+    dense layout K4 on the same inputs. Raises past the tolerance."""
     import numpy as np
     import torch.nn.functional as F
 
@@ -2786,14 +2845,28 @@ def k6_run_case(case, dtype, dev, seed) -> dict:
     # q at Q_SD x the keys' spread: a peaked softmax, so a wrong score shows
     q, k, v, do = rnd(Q_SD), rnd(), rnd(), rnd()
     scale = D ** -0.5
+    route = bsa.kernel_route(dtype, block)
+    tc = int(route == "wgmma")
     before = dict(vars(bsa.counts))
     out, lse = bsa.block_sparse_fwd(q, k, v, tables, block, causal, scale)
     dq, dk, dv = bsa.block_sparse_bwd(q, k, v, out, lse, do, tables, block,
                                       causal, scale)
     torch.cuda.synchronize()
     bumped = {n: c - before[n] for n, c in vars(bsa.counts).items()}
-    if bumped != {"fwd": 1, "bwd": 1, "plain": 0, "plain_bwd": 0}:
-        raise AssertionError(f"K6 {label}: counted {bumped}")
+    if bumped != {"fwd": 1, "bwd": 1, "fwd_tc": tc, "bwd_tc": tc,
+                  "plain": 0, "plain_bwd": 0}:
+        raise AssertionError(f"K6 {label}: counted {bumped} on the {route} "
+                             f"route")
+    again = bsa.block_sparse_fwd(q, k, v, tables, block, causal, scale)
+    again += bsa.block_sparse_bwd(q, k, v, out, lse, do, tables, block,
+                                  causal, scale)
+    torch.cuda.synchronize()
+    for name, a, b in zip(("out", "lse", "dq", "dk", "dv"), again,
+                          (out, lse, dq, dk, dv)):
+        if not torch.equal(a, b):
+            raise AssertionError(f"K6 {label} {dtype}: a second launch "
+                                 f"changed {name}")
+    del again
     ref_out, ref_lse = bsa.block_sparse_fwd_plain(q, k, v, tables, block,
                                                   causal, scale)
     refs = bsa.block_sparse_bwd_plain(q, k, v, ref_out, ref_lse, do, tables,
@@ -2870,8 +2943,12 @@ def k6_run_case(case, dtype, dev, seed) -> dict:
             k4_bwd_ms = cuda_time_ms(lambda: fa.flash_bwd(
                 q, k, v, out, lse, do, causal, scale), iters=5)
     work = k6_work(layout, block, B, H, S, D, causal, dtype)
+    rates = dict(fwd_tflops=work["fwd_ops"] / (ms * 1e9),
+                 bwd_tflops=work["bwd_ops"] / (bwd_ms * 1e9),
+                 fwd_bound_share=work["fwd_bound_ms"] / ms,
+                 bwd_bound_share=work["bwd_bound_ms"] / bwd_ms)
     rec = dict(case=label, dtype=str(dtype).replace("torch.", ""), B=B, H=H,
-               S=S, D=D, block=block, causal=causal,
+               S=S, D=D, block=block, causal=causal, route=route, **rates,
                density=float(np.asarray(layout, bool).mean()),
                max_blocks_per_row=int(np.asarray(layout, bool).sum(-1).max()),
                dead_rows=n_dead, errors=errs, lse_err=lse_err, ms=ms,
@@ -2879,25 +2956,32 @@ def k6_run_case(case, dtype, dev, seed) -> dict:
                plain_bwd_ms=plain_bwd_ms, library_ms=lib_ms,
                library_fwd_bwd_ms=lib_fwd_bwd_ms, k4_ms=k4_ms,
                k4_bwd_ms=k4_bwd_ms, **work)
-    sdpa = (f", sdpa {lib_ms:.3f} / fwd+bwd {lib_fwd_bwd_ms:.3f}"
+    sdpa = (f", sdpa {lib_ms:.3f} / fwd+bwd {lib_fwd_bwd_ms:.3f} (K6 fwd+bwd "
+            f"{(ms + bwd_ms) / lib_fwd_bwd_ms:.2f}x of it)"
             if lib_ms is not None else "")
-    k4 = (f", K4 {k4_ms:.3f} / bwd {k4_bwd_ms:.3f}" if k4_ms is not None
-          else "")
-    log(f"[kernel] K6 {label:<44} {rec['dtype']:<8} density "
+    k4 = (f", K4 {k4_ms:.3f} / bwd {k4_bwd_ms:.3f} (K6 {ms / k4_ms:.2f}x / "
+          f"{bwd_ms / k4_bwd_ms:.2f}x of K4)" if k4_ms is not None else "")
+    log(f"[kernel] K6 {label:<44} {rec['dtype']:<8} {route:<5} density "
         f"{rec['density']:.3f} err out {errs['out']['judged']:.2e} dq "
         f"{errs['dq']['judged']:.2e} dk {errs['dk']['judged']:.2e} dv "
-        f"{errs['dv']['judged']:.2e}  fwd {ms:.3f} ms (bound "
-        f"{work['fwd_bound_ms']:.4f} {work['fwd_bound_by']}, plain "
+        f"{errs['dv']['judged']:.2e}  fwd {ms:.3f} ms "
+        f"{rates['fwd_tflops']:.0f} TFLOP/s, {rates['fwd_bound_share']:.1%} "
+        f"of bound {work['fwd_bound_ms']:.4f} {work['fwd_bound_by']} (plain "
         f"{plain_ms:.2f})  bwd {bwd_ms:.3f} ms (dq {dq_ms:.3f} + dkv "
-        f"{dkv_ms:.3f}; bound {work['bwd_bound_ms']:.4f}, plain "
-        f"{plain_bwd_ms:.2f}){sdpa}{k4}")
+        f"{dkv_ms:.3f}) {rates['bwd_tflops']:.0f} TFLOP/s, "
+        f"{rates['bwd_bound_share']:.1%} of bound "
+        f"{work['bwd_bound_ms']:.4f} (plain {plain_bwd_ms:.2f}){sdpa}{k4}")
     return rec
 
 
-def phase_k6(dev) -> tuple[dict, dict, list]:
-    """K6 at every case of :func:`k6_cases` in bf16 and fp32. Returns the
+def phase_k6(dev, built: dict) -> tuple[dict, dict, list]:
+    """K6's wgmma kernels' resources (``k6_resources``), then K6 at every
+    case of :func:`k6_cases` in bf16 and fp32: every bf16 case at a block
+    that is a multiple of 128 must take the wgmma route. Returns the
     forward and backward records' fields (errors over every case; times,
-    bound and yardstick of ``K6_MAIN`` in bf16) and the cases."""
+    bound and yardstick of ``K6_MAIN`` in bf16) and the cases, the
+    resources first."""
+    resources = k6_resources(built)
     results = []
     for i, case in enumerate(k6_cases()):
         for dtype in (torch.bfloat16, torch.float32):
@@ -2905,7 +2989,17 @@ def phase_k6(dev) -> tuple[dict, dict, list]:
             free_cuda()
     bf = [r for r in results if r["dtype"] == "bfloat16"]
     f32 = [r for r in results if r["dtype"] == "float32"]
+    off = [r["case"] for r in bf if r["block"] % 128 == 0
+           and r["route"] != "wgmma"]
+    if off:
+        raise AssertionError(f"K6 bf16 cases off the wgmma route: {off}")
     main = next(r for r in bf if r["case"] == K6_MAIN)
+    dense = next(r for r in bf if r["k4_ms"] is not None)
+    log(f"[kernel] K6 {K6_MAIN} bf16 forward + backward "
+        f"{main['ms'] + main['bwd_ms']:.3f} ms against masked SDPA's "
+        f"{main['library_fwd_bwd_ms']:.3f}; dense causal layout {dense['ms']:.3f}"
+        f" / {dense['bwd_ms']:.3f} ms against K4's {dense['k4_ms']:.3f} / "
+        f"{dense['k4_bwd_ms']:.3f}")
 
     def errs(names):
         return dict(
@@ -2918,14 +3012,16 @@ def phase_k6(dev) -> tuple[dict, dict, list]:
 
     fwd = dict(errs(("out",)), ms=main["ms"], plain_ms=main["plain_ms"],
                bound_ms=main["fwd_bound_ms"], bound_by=main["fwd_bound_by"],
-               library_ms=main["library_ms"])
+               library_ms=main["library_ms"], tflops=main["fwd_tflops"],
+               kernel_route=main["route"])
     bwd = dict(errs(("dq", "dk", "dv")), ms=main["bwd_ms"],
                dq_ms=main["dq_ms"], dkv_ms=main["dkv_ms"],
                plain_ms=main["plain_bwd_ms"], bound_ms=main["bwd_bound_ms"],
                bound_by=main["bwd_bound_by"],
                library_ms=main["library_fwd_bwd_ms"],
-               fwd_bwd_ms=main["ms"] + main["bwd_ms"])
-    return fwd, bwd, results
+               fwd_bwd_ms=main["ms"] + main["bwd_ms"],
+               tflops=main["bwd_tflops"], kernel_route=main["route"])
+    return fwd, bwd, [{"resources": resources}] + results
 
 
 @contextlib.contextmanager
@@ -2962,11 +3058,14 @@ def phase_sparse(dev) -> dict:
     ``SPARSE_CONFIGS`` at each width of ``SPARSE_WIDTHS``, bf16, forward and
     ``.backward()`` of a sum-of-squares loss, one warm-up then 5 timed
     iterations; K6 must be launched once forward and once backward per
-    call (6 + 6), no plain version and no other kernel. Prints ms per
-    forward + backward, tokens/s, peak memory and ``sparsity()``. Then the
+    call (6 + 6), every launch on the wgmma route, no plain version and no
+    other kernel. Prints ms per forward + backward, tokens/s, peak memory
+    and ``sparsity()``, then one profiled step's split (K6's share of the
+    device's busy time and of the step) and the module's six layout
+    copies between [B, S, H, D] and [B, H, S, D] timed alone. Then the
     fp32 parity runs of ``SPARSE_PARITY`` at S 2048: the module's output
-    and q/k/v grads through K6 against the plain route on the card, by the
-    fp32 ``K4_TOL``."""
+    and q/k/v grads through K6 (FMA route) against the plain route on the
+    card, by the fp32 ``K4_TOL``."""
     from deepspeed_tpu_torch.ops.sparse_attention import SparseSelfAttention
 
     iters = 5
@@ -2999,24 +3098,47 @@ def phase_sparse(dev) -> dict:
                 times.append(start.elapsed_time(end))
             launches = all_counts()
             want = {n: 0 for n in launches}
-            want.update(k6_fwd=iters + 1, k6_bwd=iters + 1)
+            # block 128 in bf16: every launch on the wgmma route
+            want.update(k6_fwd=iters + 1, k6_bwd=iters + 1,
+                        k6_fwd_tc=iters + 1, k6_bwd_tc=iters + 1)
             if launches != want:
                 raise AssertionError(f"[{tag}] launches {launches} != {want}")
             if not all(torch.isfinite(t.grad.float()).all()
                        for t in (q, k, v)):
                 raise AssertionError(f"[{tag}] non-finite gradients")
             ms = statistics.mean(times)
+            peak = torch.cuda.max_memory_allocated()
+            prof = device_breakdown(step)
+            if prof.get("device") == "not measured":
+                k6_share = "not measured"
+            else:
+                k6_share = dict(of_busy=prof["k6_ms"] / prof["busy_ms"],
+                                of_step=prof["k6_ms"] / ms)
+            flat = [t.detach() for t in (q, k, v)]
+            flat += [t.transpose(1, 2).contiguous() for t in flat]
+            copies_ms = cuda_time_ms(lambda: [t.transpose(1, 2).contiguous()
+                                              for t in flat], iters=5)
+            del flat
             rec = dict(B=B, S=S, H=H, D=D, ms=ms, times_ms=times,
-                       tokens_per_s=B * S / (ms / 1e3),
-                       peak_mem_bytes=torch.cuda.max_memory_allocated(),
-                       sparsity=module.sparsity(S), launches=launches)
+                       tokens_per_s=B * S / (ms / 1e3), peak_mem_bytes=peak,
+                       sparsity=module.sparsity(S), launches=launches,
+                       profile=prof, k6_share=k6_share,
+                       layout_copies_ms=copies_ms,
+                       layout_copies_share=copies_ms / ms)
             runs[f"{wname}/{label}"] = rec
+            share = ("not measured" if isinstance(k6_share, str) else
+                     f"{k6_share['of_busy']:.1%} of the profiled step's busy "
+                     f"time ({prof['k6_ms']:.3f} of {prof['busy_ms']:.3f} "
+                     f"ms), {k6_share['of_step']:.1%} of the step")
             log(f"[{tag}] sparsity {rec['sparsity']:.3f}: {ms:.2f} ms per "
                 f"forward + backward (B {B}), {rec['tokens_per_s']:.0f} "
                 f"tokens/s, peak memory {rec['peak_mem_bytes'] / 1e9:.2f} "
                 f"GB; K6 forward {launches['k6_fwd']}, backward "
-                f"{launches['k6_bwd']}, plain {launches['k6_plain']} / "
-                f"{launches['k6_plain_bwd']}")
+                f"{launches['k6_bwd']} (wgmma {launches['k6_fwd_tc']} / "
+                f"{launches['k6_bwd_tc']}), plain {launches['k6_plain']} / "
+                f"{launches['k6_plain_bwd']}; K6 {share}; layout copies "
+                f"{copies_ms:.3f} ms ({rec['layout_copies_share']:.1%} of "
+                f"the step)")
             del q, k, v, module
     parity = {}
     out_tol, grad_tol = K4_TOL[torch.float32]
@@ -3038,7 +3160,8 @@ def phase_sparse(dev) -> dict:
             c = all_counts()
             want = (1, 1, 0, 0) if route == "kernel" else (0, 0, 1, 1)
             if (c["k6_fwd"], c["k6_bwd"], c["k6_plain"],
-                    c["k6_plain_bwd"]) != want:
+                    c["k6_plain_bwd"]) != want or c["k6_fwd_tc"] or \
+                    c["k6_bwd_tc"]:
                 raise AssertionError(f"[{tag}] {route} route counted {c}")
             got[route] = [out.detach(), q.grad, k.grad, v.grad]
         errs = {}
@@ -3704,16 +3827,19 @@ def main() -> int:
                           "and :312",
               "launches": None}
     # K6's forward, and its backward (dq kernel + dk/dv kernel, counted once
-    # a call); their launches come from the sparse phase. K7 has no caller
-    # on any path of either package: its launches are the kernel phase's
-    k6_fwd = {"name": "block_sparse_flash_attention (forward)",
+    # a call); their launches come from the sparse phase, all on the wgmma
+    # route (K4's tensor-core bodies in flash_tc.cuh over the layout's
+    # table). K7 has no caller on any path of either package: its launches
+    # are the kernel phase's
+    k6_fwd = {"name": "block_sparse_flash_attention (forward, wgmma route)",
               "route": "cuda",
               "source": "deepspeed_tpu_torch/ops/csrc/"
                         "block_sparse_attention.cu",
               "replaces": "deepspeed_tpu/ops/pallas/"
                           "block_sparse_attention.py:95",
               "launches": None}
-    k6_bwd = {"name": "block_sparse_flash_attention (backward)",
+    k6_bwd = {"name": "block_sparse_flash_attention (backward, wgmma "
+                      "route)",
               "route": "cuda",
               "source": "deepspeed_tpu_torch/ops/csrc/"
                         "block_sparse_attention.cu",
@@ -3752,7 +3878,7 @@ def main() -> int:
         k4f_summary, k4b_summary, k4_cases = phase_k4(dev, built)
         k4_fwd.update(k4f_summary)
         k4_bwd.update(k4b_summary)
-        k6f_summary, k6b_summary, k6_cases = phase_k6(dev)
+        k6f_summary, k6b_summary, k6_cases = phase_k6(dev, built)
         k6_fwd.update(k6f_summary)
         k6_bwd.update(k6b_summary)
         k7_summary, k7_cases = phase_k7(dev)

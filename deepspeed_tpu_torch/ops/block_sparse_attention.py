@@ -13,7 +13,12 @@ cost nothing, and the attention is the flash online-softmax recurrence.
 - On CUDA tensors the forward launches ``ds_block_sparse_attention_fwd``
   and the backward ``ds_block_sparse_attention_dq`` and ``_dkv``
   (``csrc/block_sparse_attention.cu``; dk/dv walk the transposed table, so
-  no atomics), or raise; they never switch to the plain version.
+  no atomics), or raise; they never switch to the plain version. The route
+  is chosen by :func:`kernel_route` from the dtype and the block alone:
+  bf16 at blocks that are a multiple of 128 takes the ``_tc`` entries, K4's
+  wgmma + TMA kernels walking the layout's table (:func:`tile_walk` says,
+  in Python, which tiles each of their blocks visits); fp32, and bf16 at
+  other blocks, the CUDA-core FMA kernels.
 - On CPU tensors they run :func:`block_sparse_fwd_plain` and
   :func:`block_sparse_bwd_plain`: the same tables walked one query (or key)
   block at a time in fp32, never an ``[H, S, S]`` mask.
@@ -24,8 +29,9 @@ diagonal is wholly masked. Rows that see no key give zeros and an lse of
 :data:`NEG_INF`.
 
 ``counts`` holds the calls of each route: ``fwd`` and ``bwd`` count the
-CUDA forward and backward (the backward's two kernels count once),
-``plain`` and ``plain_bwd`` the CPU route's calls.
+CUDA forward and backward (the backward's two kernels count once), of which
+``fwd_tc`` and ``bwd_tc`` took the wgmma route; ``plain`` and ``plain_bwd``
+the CPU route's calls.
 """
 from __future__ import annotations
 
@@ -45,6 +51,9 @@ NEG_INF = float(torch.finfo(torch.float32).min)
 MIN_BLOCK = 128
 #: head dims the kernel is instantiated for (the JAX gate's set)
 HEAD_DIMS = (64, 128, 256)
+#: q rows of a wgmma-route forward or dq block: a layout block must hold
+#: whole tiles of it for that route
+TC_ROWS = 128
 #: layouts whose device tables are kept (per device)
 _TABLE_CACHE_SIZE = 32
 
@@ -54,6 +63,8 @@ class LaunchCounts:
     """Calls of K6 by route (see the module docstring)."""
     fwd: int = 0
     bwd: int = 0
+    fwd_tc: int = 0
+    bwd_tc: int = 0
     plain: int = 0
     plain_bwd: int = 0
 
@@ -151,6 +162,69 @@ def device_tables(layout: np.ndarray, device) -> Tables:
     while len(_tables) > _TABLE_CACHE_SIZE:
         _tables.popitem(last=False)
     return out
+
+
+def kernel_route(dtype: torch.dtype, block: int) -> str:
+    """The kernels that serve a CUDA call, from the dtype and the block
+    alone: "wgmma" for bf16 at blocks that are a multiple of
+    :data:`TC_ROWS` (K4's tensor-core kernels walking the table), "fma" for
+    fp32 and for bf16 at other blocks (136, 192, ...: a 128-row tile would
+    straddle two layout blocks)."""
+    if dtype == torch.bfloat16 and block % TC_ROWS == 0:
+        return "wgmma"
+    return "fma"
+
+
+def tc_tile_rows(D: int) -> dict[str, tuple[int, int]]:
+    """(rows a block owns, rows of each tile it walks) of the wgmma-route
+    kernels at head dim ``D``: the forward and dq own 128 q rows and walk
+    key tiles, dk/dv own keys and walk 64-row q tiles (``FwdTc``, ``DqTc``,
+    ``DkvTc`` in ``csrc/flash_tc.cuh``)."""
+    return {"fwd": (TC_ROWS, 64 if D == 256 else 128),
+            "dq": (TC_ROWS, 32 if D == 256 else 64),
+            "dkv": (64 if D == 256 else 128, 64)}
+
+
+def tile_walk(tables: Tables, block: int, causal: bool, D: int,
+              which: str) -> list[tuple[int, int, list[int]]]:
+    """The tiles each block of a wgmma-route kernel (``which``: "fwd", "dq"
+    or "dkv") visits, in its order: the arithmetic of ``TableWalk`` in
+    ``csrc/block_sparse_attention.cu``, in Python. One entry per block of
+    the grid's x dimension (the batch row is y): (head, first own row, the
+    first rows of the other side's tiles). A block takes table row
+    ``order[x // (block / own)]`` and expands each block of its entry into
+    tiles, ascending; under causal the forward and dq count only the tiles
+    that start at or before their last row (a prefix), dk/dv skip the tiles
+    that end before their first key (a head)."""
+    own, other = tc_tile_rows(D)[which]
+    rows_side = which != "dkv"
+    tbl, cnt, order = (t.cpu().numpy() for t in (
+        (tables.tbl_q, tables.cnt_q, tables.order_q) if rows_side
+        else (tables.tbl_k, tables.cnt_k, tables.order_k)))
+    H, n = cnt.shape
+    per, tpb = block // own, block // other
+    walk = []
+    for x in range(H * n * per):
+        row = int(order[x // per])
+        h, i = divmod(row, n)
+        own0 = i * block + (x % per) * own
+        starts = [int(b) * block for b in tbl[h, i, :cnt[h, i]]]
+        first, count = 0, len(starts) * tpb
+        if causal and rows_side:
+            last, count = own0 + own - 1, 0
+            for kb in starts:
+                if kb > last:
+                    break
+                count += min(tpb, (last - kb) // other + 1)
+        elif causal:
+            for qb in starts:
+                if qb >= own0:
+                    break
+                first += min(tpb, (own0 - qb) // other)
+            count -= first
+        walk.append((h, own0, [starts[t // tpb] + (t % tpb) * other
+                               for t in range(first, first + count)]))
+    return walk
 
 
 # ---------------------------------------------------------------------------
@@ -295,30 +369,41 @@ def _kernel_checks(q, k, v, tables: Tables, block: int) -> None:
                          f"{q.device}")
 
 
+def _entry(name: str, dtype: torch.dtype, block: int):
+    """(the C entry ``name`` of the route :func:`kernel_route` picks, the
+    arguments it takes between ``causal`` and the stream: the FMA entries
+    take the dtype)."""
+    from . import kernels
+
+    lib = kernels.load("block_sparse_attention")
+    if kernel_route(dtype, block) == "wgmma":
+        return getattr(lib, name + "_tc"), ()
+    return getattr(lib, name), (_KERNEL_DTYPES[dtype],)
+
+
 def block_sparse_fwd(q, k, v, tables: Tables, block: int, causal: bool,
                      scale: float):
-    """(out, lse) of the forward: the kernel on CUDA tensors, the plain
-    version on CPU tensors."""
+    """(out, lse) of the forward: the kernel of :func:`kernel_route`'s route
+    on CUDA tensors, the plain version on CPU tensors."""
     _check(q, k, v, tables, block)
     if q.device.type == "cpu":
         counts.plain += 1
         return block_sparse_fwd_plain(q, k, v, tables, block, causal, scale)
     _kernel_checks(q, k, v, tables, block)
-    from . import kernels
-
     B, H, S, D = q.shape
     out = torch.empty_like(q)
     lse = torch.empty((B, H, S), dtype=torch.float32, device=q.device)
-    err = kernels.load("block_sparse_attention").ds_block_sparse_attention_fwd(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-        lse.data_ptr(), tables.tbl_q.data_ptr(), tables.cnt_q.data_ptr(),
-        tables.order_q.data_ptr(), B, H, S, D, block,
-        tables.tbl_q.shape[2], float(scale), int(causal),
-        _KERNEL_DTYPES[q.dtype], _stream(q.device))
+    fn, tail = _entry("ds_block_sparse_attention_fwd", q.dtype, block)
+    err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+             lse.data_ptr(), tables.tbl_q.data_ptr(), tables.cnt_q.data_ptr(),
+             tables.order_q.data_ptr(), B, H, S, D, block,
+             tables.tbl_q.shape[2], float(scale), int(causal), *tail,
+             _stream(q.device))
     if err != 0:
         raise RuntimeError(f"block-sparse attention forward launch failed: "
                            f"CUDA error {err}")
     counts.fwd += 1
+    counts.fwd_tc += kernel_route(q.dtype, block) == "wgmma"
     return out, lse
 
 
@@ -333,18 +418,16 @@ def bwd_operands(q, k, v, out, lse, dout):
 
 def launch_dq(q, k, v, dout, lse, delta, tables: Tables, block: int,
               causal: bool, scale: float) -> torch.Tensor:
-    """dq by the dq kernel alone (CUDA tensors; not counted: the backward
-    counts its two kernels once)."""
-    from . import kernels
-
+    """dq by the dq kernel of :func:`kernel_route`'s route alone (CUDA
+    tensors; not counted: the backward counts its two kernels once)."""
     B, H, S, D = q.shape
     dq = torch.empty_like(q)
-    err = kernels.load("block_sparse_attention").ds_block_sparse_attention_dq(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(),
-        lse.data_ptr(), delta.data_ptr(), tables.tbl_q.data_ptr(),
-        tables.cnt_q.data_ptr(), tables.order_q.data_ptr(), dq.data_ptr(),
-        B, H, S, D, block, tables.tbl_q.shape[2], float(scale), int(causal),
-        _KERNEL_DTYPES[q.dtype], _stream(q.device))
+    fn, tail = _entry("ds_block_sparse_attention_dq", q.dtype, block)
+    err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(),
+             lse.data_ptr(), delta.data_ptr(), tables.tbl_q.data_ptr(),
+             tables.cnt_q.data_ptr(), tables.order_q.data_ptr(),
+             dq.data_ptr(), B, H, S, D, block, tables.tbl_q.shape[2],
+             float(scale), int(causal), *tail, _stream(q.device))
     if err != 0:
         raise RuntimeError(f"block-sparse attention dq launch failed: CUDA "
                            f"error {err}")
@@ -353,19 +436,18 @@ def launch_dq(q, k, v, dout, lse, delta, tables: Tables, block: int,
 
 def launch_dkv(q, k, v, dout, lse, delta, tables: Tables, block: int,
                causal: bool, scale: float):
-    """(dk, dv) by the dk/dv kernel alone (CUDA tensors; not counted)."""
-    from . import kernels
-
+    """(dk, dv) by the dk/dv kernel of :func:`kernel_route`'s route alone
+    (CUDA tensors; not counted)."""
     B, H, S, D = q.shape
     dk = torch.empty_like(k)
     dv = torch.empty_like(v)
-    lib = kernels.load("block_sparse_attention")
-    err = lib.ds_block_sparse_attention_dkv(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(),
-        lse.data_ptr(), delta.data_ptr(), tables.tbl_k.data_ptr(),
-        tables.cnt_k.data_ptr(), tables.order_k.data_ptr(), dk.data_ptr(),
-        dv.data_ptr(), B, H, S, D, block, tables.tbl_k.shape[2],
-        float(scale), int(causal), _KERNEL_DTYPES[q.dtype], _stream(q.device))
+    fn, tail = _entry("ds_block_sparse_attention_dkv", q.dtype, block)
+    err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(),
+             lse.data_ptr(), delta.data_ptr(), tables.tbl_k.data_ptr(),
+             tables.cnt_k.data_ptr(), tables.order_k.data_ptr(),
+             dk.data_ptr(), dv.data_ptr(), B, H, S, D, block,
+             tables.tbl_k.shape[2], float(scale), int(causal), *tail,
+             _stream(q.device))
     if err != 0:
         raise RuntimeError(f"block-sparse attention dk/dv launch failed: "
                            f"CUDA error {err}")
@@ -374,8 +456,9 @@ def launch_dkv(q, k, v, dout, lse, delta, tables: Tables, block: int,
 
 def block_sparse_bwd(q, k, v, out, lse, dout, tables: Tables, block: int,
                      causal: bool, scale: float):
-    """(dq, dk, dv) of the backward: the dq and dk/dv kernels on CUDA
-    tensors (counted once), the plain version on CPU tensors."""
+    """(dq, dk, dv) of the backward: the dq and dk/dv kernels of
+    :func:`kernel_route`'s route on CUDA tensors (counted once), the plain
+    version on CPU tensors."""
     _check(q, k, v, tables, block)
     if q.device.type == "cpu":
         counts.plain_bwd += 1
@@ -387,6 +470,7 @@ def block_sparse_bwd(q, k, v, out, lse, dout, tables: Tables, block: int,
     dk, dv = launch_dkv(q, k, v, dout, lse, delta, tables, block, causal,
                         scale)
     counts.bwd += 1
+    counts.bwd_tc += kernel_route(q.dtype, block) == "wgmma"
     return dq, dk, dv
 
 

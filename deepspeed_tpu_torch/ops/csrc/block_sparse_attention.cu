@@ -31,22 +31,42 @@
 // per row of q, k, v: at block 128 that is hundreds of operations per byte,
 // above the card's ridge.
 //
-// What the design does about it: this first kernel is plain and right (the
-// tiles of flash_attention.cu, K4). A CUDA block owns one query tile (key
-// tile for dk/dv) of one (head, batch row) and walks its table entry in a
-// loop: CUDA blocks cannot carry the softmax state across grid steps as the
-// Pallas grid did, and since dk/dv walk the transposed table no block
-// writes another's rows (no atomics). A layout block is cut into tiles of
-// the kernel's own height, the last one masked where the block is not a
-// multiple of it; within a visible block, key tiles past the query tile's
-// last row (and, for dk/dv, query tiles before the key tile's first row) are
-// skipped under `causal`, being wholly masked. Tiles are staged in shared
-// memory as fp32 with rows padded by one word; every thread keeps a
-// register tile of its sums and multiplies on the CUDA cores in fp32.
-// Rows of a layout differ widely in how many blocks they see (a global row
-// of BigBird sees every block), so blocks take the table rows busiest
-// first, by the order the caller passes (`order_q`, `order_k`). Tensor cores
-// and a split of the busiest rows are later work. All offsets are 64-bit.
+// What the design does about it, by route (`ops/block_sparse_attention.py`
+// `kernel_route`):
+// - bf16 at blocks that are a multiple of 128 (the "wgmma" route): K4's
+//   tensor-core kernels (flash_tc.cuh: two consumer warpgroups on wgmma, a
+//   TMA producer warp, a two-stage mbarrier ring, P and dS kept in
+//   registers) instantiated with `TableWalk`, which walks the layout's
+//   table instead of every key tile. A forward or dq block owns one 128-row
+//   q tile of a table row and expands each key block of its entry into the
+//   kernel's key tiles (forward 128 keys, 64 at D 256; dq 64, 32 at D 256);
+//   a dk/dv block owns 128 keys (64 at D 256) of a transposed-table row and
+//   expands each q block of its entry into 64-row q tiles. The tables are
+//   ascending, so under causal the tiles wholly above the diagonal (which
+//   are never loaded nor multiplied) are the tail of a q tile's expansion
+//   and the head of a key tile's: a count, and for dk/dv a skip, computed
+//   once a block, says which. The diagonal tiles get K4's token mask. On
+//   an all-ones causal layout at block 128 the walk is K4's, tile for tile,
+//   so the results are K4's bits. Each entry binds the device's context
+//   before it encodes its tensor maps ([B * H, S, D], as K4's).
+// - fp32, and bf16 at other blocks (136, 192, ..., which a 128-row tile
+//   would straddle): the CUDA-core kernels below. A block owns one query
+//   tile (key tile for dk/dv) of one (head, batch row) and walks its table
+//   entry in a loop; a layout block is cut into tiles of the kernel's own
+//   height, the last one masked where the block is not a multiple of it;
+//   within a visible block, key tiles past the query tile's last row (and,
+//   for dk/dv, query tiles before the key tile's first row) are skipped
+//   under `causal`, being wholly masked. Tiles are staged in shared memory
+//   as fp32 with rows padded by one word; every thread keeps a register
+//   tile of its sums and multiplies on the CUDA cores in fp32.
+// On both routes CUDA blocks cannot carry the softmax state across grid
+// steps as the Pallas grid did, so a block walks its table entry in a loop;
+// since dk/dv walk the transposed table no block writes another's rows (no
+// atomics: the same bits every run). Rows of a layout differ widely in how
+// many blocks they see (a global row of BigBird sees every block), so
+// blocks take the table rows busiest first, by the order the caller passes
+// (`order_q`, `order_k`). A split of the busiest rows is later work. All
+// offsets are 64-bit.
 //
 // Built with `nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared
 // -Xcompiler -fPIC` into a plain C library (deepspeed_tpu_torch/ops/kernels.py)
@@ -57,6 +77,9 @@
 #include <float.h>
 #include <math.h>
 #include <stdint.h>
+
+#include "flash_tc.cuh"
+#include "hopper.cuh"
 
 namespace {
 
@@ -642,6 +665,188 @@ int dispatch(Which w, const Args& a, int D, int dtype, void* stream) {
     return int(run<__nv_bfloat16, 256>(w, a, st));
 }
 
+// ===========================================================================
+// bf16 at blocks that are a multiple of 128: K4's tensor-core kernels
+// (flash_tc.cuh) over a walk of the layout's table
+// ===========================================================================
+
+using flash_tc::kTcThreads;
+
+// K6's walk (see the file's head): blocks take the table rows in `order`;
+// a row h * n + i is query block i of head h (key block i for dk/dv)
+struct TableWalk {
+    const int* tbl;
+    const int* cnt;
+    const int* order;
+    int H, S, block, m, causal;
+    __device__ static float empty_lse() { return kNegInf; }
+    __device__ static float lse_in(float l) { return l == kNegInf ? 0.f : l; }
+
+    // forward / dq: q rows [q0, q0 + BQ) of a table row, and the key tiles
+    // of BK keys its entry's blocks hold, ascending; under causal only those
+    // that start at or before the tile's last row
+    template <int BQ, int BK>
+    struct Rows {
+        int q0, qslab, kslab, n, block, tpb;
+        const int* keys;
+        __device__ explicit Rows(const TableWalk& w)
+            : block(w.block), tpb(w.block / BK) {
+            const int nq = w.S / w.block, qt = w.block / BQ;
+            const int row = w.order[blockIdx.x / qt];
+            const int h = row / nq, qi = row % nq;
+            q0 = qi * w.block + (blockIdx.x % qt) * BQ;
+            qslab = kslab = blockIdx.y * w.H + h;
+            keys = w.tbl + size_t(row) * w.m;
+            const int c = w.cnt[row], last_q = q0 + BQ - 1;
+            n = 0;
+            for (int e = 0; e < c; ++e) {
+                const int kb = keys[e] * block;
+                if (!w.causal) {
+                    n += tpb;
+                } else {
+                    if (kb > last_q) break;
+                    n += min(tpb, (last_q - kb) / BK + 1);
+                }
+            }
+        }
+        __device__ int key(int j) const {
+            return keys[j / tpb] * block + (j % tpb) * BK;
+        }
+    };
+
+    // dk/dv: keys [k0, k0 + KEYS) of a transposed-table row, and the q tiles
+    // of BQ rows its entry's blocks hold, ascending; under causal the first
+    // `skip` (those that end before k0) are left out
+    template <int KEYS, int BQ>
+    struct Cols {
+        int k0, kslab, n, skip, block, tpb;
+        const int* queries;
+        __device__ explicit Cols(const TableWalk& w)
+            : block(w.block), tpb(w.block / BQ) {
+            const int nk = w.S / w.block, kt = w.block / KEYS;
+            const int row = w.order[blockIdx.x / kt];
+            const int h = row / nk, ki = row % nk;
+            k0 = ki * w.block + (blockIdx.x % kt) * KEYS;
+            kslab = blockIdx.y * w.H + h;
+            queries = w.tbl + size_t(row) * w.m;
+            const int c = w.cnt[row];
+            skip = 0;
+            for (int e = 0; w.causal && e < c; ++e) {
+                const int qb = queries[e] * block;
+                if (qb >= k0) break;
+                skip += min(tpb, (k0 - qb) / BQ);
+            }
+            n = c * tpb - skip;
+        }
+        __device__ int query(int j) const {
+            const int i = skip + j;
+            return queries[i / tpb] * block + (i % tpb) * BQ;
+        }
+        __device__ int qslab(int) const { return kslab; }
+    };
+};
+
+TableWalk walk_of(const Args& a) {
+    return TableWalk{a.tbl, a.cnt, a.order, a.H, a.S, a.block, a.m, a.causal};
+}
+
+// one block per `rows`-row tile of each table row of each head, batch rows
+// in y
+dim3 tc_grid(const Args& a, int rows) {
+    return dim3(unsigned(a.H) * (a.S / rows), a.B);
+}
+
+template <int D>
+int fwd_tc(const Args& a, cudaStream_t st) {
+    using C = flash_tc::FwdTc<D>;
+    const int slabs = a.B * a.H;
+    CUtensorMap mq, mk, mv;
+    int r = hopper::tile_map(&mq, a.q, slabs, a.S, D, C::BQ);
+    if (!r) r = hopper::tile_map(&mk, a.k, slabs, a.S, D, C::BK);
+    if (!r) r = hopper::tile_map(&mv, a.v, slabs, a.S, D, C::BK);
+    if (r) return r;
+    auto kern = flash_tc::flash_fwd_tc_kernel<D, TableWalk>;
+    static bool smem_set = false;
+    const cudaError_t e = allow_smem(kern, C::smem(), smem_set);
+    if (e != cudaSuccess) return int(e);
+    kern<<<tc_grid(a, C::BQ), kTcThreads, C::smem(), st>>>(
+        mq, mk, mv, static_cast<__nv_bfloat16*>(a.out),
+        static_cast<float*>(a.out_lse), walk_of(a), a.scale * flash_tc::kLog2e);
+    return int(cudaGetLastError());
+}
+
+template <int D>
+int dq_tc(const Args& a, cudaStream_t st) {
+    using C = flash_tc::DqTc<D>;
+    const int slabs = a.B * a.H;
+    CUtensorMap mq, mdo, mk, mv;
+    int r = hopper::tile_map(&mq, a.q, slabs, a.S, D, C::BQ);
+    if (!r) r = hopper::tile_map(&mdo, a.dout, slabs, a.S, D, C::BQ);
+    if (!r) r = hopper::tile_map(&mk, a.k, slabs, a.S, D, C::BK);
+    if (!r) r = hopper::tile_map(&mv, a.v, slabs, a.S, D, C::BK);
+    if (r) return r;
+    auto kern = flash_tc::flash_dq_tc_kernel<D, TableWalk>;
+    static bool smem_set = false;
+    const cudaError_t e = allow_smem(kern, C::smem(), smem_set);
+    if (e != cudaSuccess) return int(e);
+    kern<<<tc_grid(a, C::BQ), kTcThreads, C::smem(), st>>>(
+        mq, mk, mv, mdo, static_cast<const float*>(a.lse),
+        static_cast<const float*>(a.delta), static_cast<__nv_bfloat16*>(a.out),
+        walk_of(a), a.scale, a.scale * flash_tc::kLog2e);
+    return int(cudaGetLastError());
+}
+
+template <int D>
+int dkv_tc(const Args& a, cudaStream_t st) {
+    using C = flash_tc::DkvTc<D>;
+    const int slabs = a.B * a.H;
+    CUtensorMap mq, mdo, mk, mv;
+    int r = hopper::tile_map(&mq, a.q, slabs, a.S, D, C::BQ);
+    if (!r) r = hopper::tile_map(&mdo, a.dout, slabs, a.S, D, C::BQ);
+    if (!r) r = hopper::tile_map(&mk, a.k, slabs, a.S, D, C::KEYS);
+    if (!r) r = hopper::tile_map(&mv, a.v, slabs, a.S, D, C::KEYS);
+    if (r) return r;
+    auto kern = flash_tc::flash_dkv_tc_kernel<D, TableWalk>;
+    static bool smem_set = false;
+    const cudaError_t e = allow_smem(kern, C::smem(), smem_set);
+    if (e != cudaSuccess) return int(e);
+    kern<<<tc_grid(a, C::KEYS), kTcThreads, C::smem(), st>>>(
+        mq, mk, mv, mdo, static_cast<const float*>(a.lse),
+        static_cast<const float*>(a.delta), static_cast<__nv_bfloat16*>(a.dk),
+        static_cast<__nv_bfloat16*>(a.dv), walk_of(a), a.scale,
+        a.scale * flash_tc::kLog2e);
+    return int(cudaGetLastError());
+}
+
+template <int D>
+int run_tc(Which w, const Args& a, cudaStream_t st) {
+    switch (w) {
+        case Which::kFwd:
+            return fwd_tc<D>(a, st);
+        case Which::kDq:
+            return dq_tc<D>(a, st);
+        default:
+            return dkv_tc<D>(a, st);
+    }
+}
+
+// the wgmma route: bf16, blocks a multiple of 128. Returns 0, a CUDA error
+// code, or 1000 + the CUresult of a tensor map that cannot be made.
+int dispatch_tc(Which w, const Args& a, int D, void* stream) {
+    if (a.B <= 0 || a.B > 65535 || a.H <= 0 || a.S <= 0 || a.block < 128 ||
+        a.block % 128 || a.S % a.block || a.m <= 0 ||
+        (long long)a.H * (a.S / 64) > INT32_MAX ||
+        (long long)a.B * a.H > INT32_MAX ||
+        (D != 64 && D != 128 && D != 256))
+        return int(cudaErrorInvalidValue);
+    const cudaError_t bound = hopper::bind_context();
+    if (bound != cudaSuccess) return int(bound);
+    auto st = static_cast<cudaStream_t>(stream);
+    if (D == 64) return run_tc<64>(w, a, st);
+    if (D == 128) return run_tc<128>(w, a, st);
+    return run_tc<256>(w, a, st);
+}
+
 }  // namespace
 
 // q, k, v [B, H, S, D] (dtype 0: fp32, 1: bf16), contiguous; tbl_q
@@ -689,4 +894,45 @@ extern "C" int ds_block_sparse_attention_dkv(
            static_cast<const int*>(order_k), nullptr, nullptr, dk, dv,
            B, H, S, block, mq, scale, causal};
     return dispatch(Which::kDkv, a, D, dtype, stream);
+}
+
+// The wgmma route (bf16; block a multiple of 128): the same arguments as the
+// entries above without the dtype. Each returns 0, a CUDA error code, or
+// 1000 + the CUresult of a tensor map that cannot be made.
+extern "C" int ds_block_sparse_attention_fwd_tc(
+        const void* q, const void* k, const void* v, void* out, void* lse,
+        const void* tbl_q, const void* cnt_q, const void* order_q, int B,
+        int H, int S, int D, int block, int mk, float scale, int causal,
+        void* stream) {
+    Args a{q, k, v, nullptr, nullptr, nullptr,
+           static_cast<const int*>(tbl_q), static_cast<const int*>(cnt_q),
+           static_cast<const int*>(order_q), out, lse, nullptr, nullptr,
+           B, H, S, block, mk, scale, causal};
+    return dispatch_tc(Which::kFwd, a, D, stream);
+}
+
+extern "C" int ds_block_sparse_attention_dq_tc(
+        const void* q, const void* k, const void* v, const void* dout,
+        const void* lse, const void* delta, const void* tbl_q,
+        const void* cnt_q, const void* order_q, void* dq, int B, int H,
+        int S, int D, int block, int mk, float scale, int causal,
+        void* stream) {
+    Args a{q, k, v, dout, lse, delta,
+           static_cast<const int*>(tbl_q), static_cast<const int*>(cnt_q),
+           static_cast<const int*>(order_q), dq, nullptr, nullptr, nullptr,
+           B, H, S, block, mk, scale, causal};
+    return dispatch_tc(Which::kDq, a, D, stream);
+}
+
+extern "C" int ds_block_sparse_attention_dkv_tc(
+        const void* q, const void* k, const void* v, const void* dout,
+        const void* lse, const void* delta, const void* tbl_k,
+        const void* cnt_k, const void* order_k, void* dk, void* dv, int B,
+        int H, int S, int D, int block, int mq, float scale, int causal,
+        void* stream) {
+    Args a{q, k, v, dout, lse, delta,
+           static_cast<const int*>(tbl_k), static_cast<const int*>(cnt_k),
+           static_cast<const int*>(order_k), nullptr, nullptr, dk, dv,
+           B, H, S, block, mq, scale, causal};
+    return dispatch_tc(Which::kDkv, a, D, stream);
 }

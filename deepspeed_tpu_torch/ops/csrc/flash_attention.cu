@@ -29,44 +29,21 @@
 // bf16 product runs on the tensor cores.
 //
 // bf16: warpgroup matrix products (wgmma) on tiles that TMA loads into
-// shared memory (hopper.cuh). A block is two consumer warpgroups (64 rows
-// each, wgmma's M) and a producer warpgroup: one of its warps keeps TMA
-// loads in flight through a two-stage ring guarded by full / empty
-// mbarriers, and it hands its registers to the consumers (setmaxnreg: 240
-// a consumer thread, so the dk and dv accumulators and the score fragments
-// fit without spilling). The warpgroup index comes from a warp shuffle so
-// the compiler sees it uniform; wgmma under a condition it cannot prove
-// uniform is serialized. The tensor maps are encoded on the host at each
-// call and passed by value (`__grid_constant__`), so a CUDA graph captures
-// them. Tiles are stored with 128-byte swizzle, the layout the wgmma
-// descriptors read:
-// K-major for operands whose contraction runs along a row (Q, K, V, dO in
-// the score products), MN-major through the descriptor's transpose bit for
-// those whose contraction runs down the rows (V in p . v, K in ds . k, Q in
-// ds^T . q, dO in p^T . dO), so nothing is copied transposed. The
-// probabilities and ds stay in registers: the fp32 accumulator fragment of
-// a 64 x N product is, pair by pair, the bf16 A fragment of the next
-// product (`acc_to_a`), rounded to bf16 as the Pallas kernels round p and ds
-// to the operands' dtype before their second products. The softmax runs on
-// the fragment: row max and sum over the four lanes that share a row, exp2
-// with scale * log2(e) folded in, the mask applied only on tiles that cross
-// the diagonal or the end of the sequence. Tensors are described to TMA as
-// [B * heads, S, D], so rows past S arrive as zeros and never come from the
-// next head.
+// shared memory, warp-specialised (two consumer warpgroups and a producer
+// warp): the kernels of flash_tc.cuh, which K6 shares, instantiated with
+// K4's dense walk (`DenseWalk` below). Tensors are described to TMA as
+// [B * heads, S, D].
 // - forward: 128 q rows of one (batch, head) a block, key tiles of 128 (64
 //   at D 256) from the first to the diagonal; tiles wholly above it are
 //   never loaded; the longest rows of a causal call are launched first.
-// - dq: 128 q rows a block, key tiles of 64 (32 at D 256, so the dq
-//   accumulator of 128 registers fits): s = q k^T, dp = dO v^T (both from
-//   shared memory), ds in registers, dq += ds . k.
-// - dk/dv: 128 keys of one (batch, kv head) a block (64 at D 256, where
-//   each warpgroup owns half of dk's and dv's columns and both compute the
-//   scores), walking 64-row q tiles of every q head of the group from the
-//   diagonal down, with each tile's lse and delta staged beside it by the
-//   producer warp: s^T = k q^T, dp^T = v dO^T, then dv += p^T . dO and
-//   dk += ds^T . q. dk and dv are written once, summed over the group.
+// - dq: 128 q rows a block, key tiles of 64 (32 at D 256).
+// - dk/dv: 128 keys of one (batch, kv head) a block (64 at D 256), walking
+//   64-row q tiles of every q head of the group from the diagonal down; dk
+//   and dv are written once, summed over the group.
 // The two backward kernels recompute the scores (no atomics, so the result
 // is the same from run to run); one pass with atomics on dq is later work.
+// Each host entry binds the device's context before it encodes the maps
+// (hopper.cuh `bind_context`).
 //
 // fp32 keeps full fp32 products on the CUDA cores (FMA): a block of 128
 // threads owns one tile of rows and walks the other operand's tiles in a
@@ -86,6 +63,7 @@
 
 #include <chrono>
 
+#include "flash_tc.cuh"
 #include "hopper.cuh"
 
 namespace {
@@ -539,595 +517,59 @@ cudaError_t allow_smem(Kernel kern, size_t bytes, bool& done) {
 }
 
 // ===========================================================================
-// bf16: tensor-core (wgmma) kernels fed by TMA
+// bf16: the tensor-core kernels of flash_tc.cuh over K4's dense walk
 // ===========================================================================
 
-using bf16 = __nv_bfloat16;
-using namespace hopper;
+using namespace flash_tc;
 
-// two consumer warpgroups and a producer warpgroup, of which one warp works;
-// the producer keeps 24 registers a thread so the consumers get 240
-constexpr int kTcThreads = 384;
-constexpr int kProducer = 256;        // the producer warp's first thread
-constexpr int kProducerRegs = 24;
-constexpr int kConsumerRegs = 240;
-constexpr int kStages = 2;            // the ring of streamed tiles
-constexpr int kConsumerWarps = 8;     // arrivals that free a stage
-constexpr float kLog2e = 1.4426950408889634f;
-constexpr float kLn2 = 0.6931471805599453f;
+// K4's walk: every key tile of a (batch row, head) from the first to the
+// diagonal (all of them without causal); q head h reads kv head h / (H / KV)
+struct DenseWalk {
+    int H, KV, S, causal;
+    __device__ static float empty_lse() { return -INFINITY; }
+    __device__ static float lse_in(float l) { return l; }
 
-__device__ __forceinline__ float ex2(float x) {
-    float y;
-    asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
-    return y;
-}
+    // forward / dq: one block per (q tile, q head, batch row), the longest
+    // rows of a causal call launched first; tiles wholly above the diagonal
+    // are never loaded
+    template <int BQ, int BK>
+    struct Rows {
+        int q0, qslab, kslab, n;
+        __device__ explicit Rows(const DenseWalk& w) {
+            const int nq = (w.S + BQ - 1) / BQ;
+            q0 = (nq - 1 - int(blockIdx.x)) * BQ;
+            const int h = blockIdx.y, b = blockIdx.z;
+            qslab = b * w.H + h;
+            kslab = b * w.KV + h / (w.H / w.KV);
+            const int last_q = min(q0 + BQ, w.S) - 1;
+            n = w.causal ? last_q / BK + 1 : (w.S + BK - 1) / BK;
+        }
+        __device__ int key(int j) const { return j * BK; }
+    };
 
-__device__ __forceinline__ uint8_t* align1024(uint8_t* p) {
-    return reinterpret_cast<uint8_t*>(
-        (reinterpret_cast<uintptr_t>(p) + 1023) & ~uintptr_t(1023));
-}
-
-__device__ __forceinline__ void store_bf16x2(bf16* p, float lo, float hi) {
-    *reinterpret_cast<uint32_t*>(p) = pack_bf16(lo, hi);
-}
-
-// the element of a 64 x N accumulator fragment held in register 4 n + 2 i + e
-// sits at row 16 warp + lane / 4 + 8 i and column 8 n + 2 (lane % 4) + e of
-// the warpgroup's tile
-
-// ---------------------------------------------------------------------------
-// forward
-// ---------------------------------------------------------------------------
-
-template <int D>
-struct FwdTc {
-    static constexpr int BQ = 128;
-    static constexpr int BK = D == 256 ? 64 : 128;
-    static constexpr int Q_BYTES = BQ * D * 2;
-    static constexpr int KV_BYTES = BK * D * 2;
-    static constexpr size_t smem() {
-        return 1024 + Q_BYTES + 2 * kStages * KV_BYTES + 8 * (1 + 3 * kStages);
-    }
+    // dk/dv: one block per (key tile, kv head, batch row), the
+    // causal-heaviest tiles first; it walks the q heads of its GQA group
+    // and, for each, the q tiles from the diagonal on, so dk/dv come out
+    // summed over the group
+    template <int KEYS, int BQ>
+    struct Cols {
+        int k0, kslab, n, first, per_head, qslab0;
+        __device__ explicit Cols(const DenseWalk& w) {
+            k0 = blockIdx.x * KEYS;
+            const int hk = blockIdx.y, b = blockIdx.z;
+            const int G = w.H / w.KV;
+            kslab = b * w.KV + hk;
+            qslab0 = b * w.H + hk * G;
+            first = w.causal ? k0 / BQ : 0;
+            per_head = (w.S + BQ - 1) / BQ - first;
+            n = G * per_head;
+        }
+        __device__ int query(int j) const {
+            return (first + j % per_head) * BQ;
+        }
+        __device__ int qslab(int j) const { return qslab0 + j / per_head; }
+    };
 };
-
-template <int D>
-__global__ void __launch_bounds__(kTcThreads, 1)
-flash_fwd_tc_kernel(const __grid_constant__ CUtensorMap tq,
-                    const __grid_constant__ CUtensorMap tk,
-                    const __grid_constant__ CUtensorMap tv,
-                    bf16* __restrict__ out, float* __restrict__ lse, int H,
-                    int KV, int S, float scale_log2, int causal) {
-    using C = FwdTc<D>;
-    constexpr int BQ = C::BQ, BK = C::BK;
-    extern __shared__ uint8_t smem_raw[];
-    uint8_t* Qs = align1024(smem_raw);
-    uint8_t* Ks = Qs + C::Q_BYTES;
-    uint8_t* Vs = Ks + kStages * C::KV_BYTES;
-    uint64_t* q_full = reinterpret_cast<uint64_t*>(Vs + kStages * C::KV_BYTES);
-    uint64_t* k_full = q_full + 1;
-    uint64_t* v_full = k_full + kStages;
-    uint64_t* empty = v_full + kStages;
-
-    const int tid = threadIdx.x;
-    const int nq = (S + BQ - 1) / BQ;
-    const int q0 = (nq - 1 - int(blockIdx.x)) * BQ;   // longest rows first
-    const int h = blockIdx.y, b = blockIdx.z;
-    const int hk = h / (H / KV);
-    const int last_q = min(q0 + BQ, S) - 1;
-    const int nk = causal ? last_q / BK + 1 : (S + BK - 1) / BK;
-
-    if (tid == 0) {
-        bar_init(q_full, 1);
-        for (int s = 0; s < kStages; ++s) {
-            bar_init(&k_full[s], 1);
-            bar_init(&v_full[s], 1);
-            bar_init(&empty[s], kConsumerWarps);
-        }
-        bar_init_fence();
-    }
-    __syncthreads();
-
-    // the warpgroup index, warp-uniform as the compiler sees it: wgmma
-    // under a condition it cannot prove uniform would be serialized
-    const int wg = __shfl_sync(0xffffffff, tid / 128, 0);
-    if (wg == kProducer / 128) {
-        reg_dealloc<kProducerRegs>();
-        if (tid == kProducer) {
-            bar_arrive_tx(q_full, C::Q_BYTES);
-            tma_tile<D>(Qs, &tq, q_full, BQ, q0, b * H + h);
-            for (int j = 0; j < nk; ++j) {
-                const int s = j % kStages;
-                bar_wait(&empty[s], ((j / kStages) & 1) ^ 1);
-                bar_arrive_tx(&k_full[s], C::KV_BYTES);
-                tma_tile<D>(Ks + s * C::KV_BYTES, &tk, &k_full[s], BK, j * BK,
-                            b * KV + hk);
-                bar_arrive_tx(&v_full[s], C::KV_BYTES);
-                tma_tile<D>(Vs + s * C::KV_BYTES, &tv, &v_full[s], BK, j * BK,
-                            b * KV + hk);
-            }
-        }
-        return;
-    }
-    reg_alloc<kConsumerRegs>();
-
-    const int warp = (tid % 128) / 32, lane = tid % 32;
-    const int row_base = q0 + wg * 64;
-    const int r0 = row_base + warp * 16 + lane / 4, r1 = r0 + 8;
-    const int c_lane = 2 * (lane % 4);
-    // this warpgroup's key tiles; under causal masking the first warpgroup
-    // may see none of the block's last tile
-    const int nk_wg = causal ? (min(row_base + 64, S) - 1) / BK + 1 : nk;
-
-    float o[D / 2];
-#pragma unroll
-    for (int i = 0; i < D / 2; ++i) o[i] = 0.f;
-    float m0 = -INFINITY, m1 = -INFINITY, l0 = 0.f, l1 = 0.f;
-    const uint32_t qs = smem_u32(Qs);
-
-    bar_wait(q_full, 0);
-    for (int j = 0; j < nk; ++j) {
-        const int s = j % kStages;
-        const uint32_t ph = (j / kStages) & 1;
-        bar_wait(&k_full[s], ph);
-        if (j < nk_wg) {
-            const uint32_t ks = smem_u32(Ks + s * C::KV_BYTES);
-            const uint32_t vs = smem_u32(Vs + s * C::KV_BYTES);
-            float sc[BK / 2];
-            wgmma_fence();
-#pragma unroll
-            for (int k = 0; k < D / 16; ++k)
-                wgmma_ss<BK>(sc, desc_k(qs, BQ, wg * 64, k),
-                             desc_k(ks, BK, 0, k), k > 0);
-            wgmma_commit();
-            wgmma_wait<0>();
-            reg_fence(sc);
-
-            const int k0 = j * BK;
-            const bool edge = k0 + BK > S || (causal && k0 + BK - 1 > row_base);
-            float mx0 = -INFINITY, mx1 = -INFINITY;
-#pragma unroll
-            for (int n = 0; n < BK / 8; ++n)
-#pragma unroll
-                for (int e = 0; e < 2; ++e) {
-                    float x0 = sc[4 * n + e] * scale_log2;
-                    float x1 = sc[4 * n + 2 + e] * scale_log2;
-                    if (edge) {
-                        const int c = k0 + 8 * n + c_lane + e;
-                        if (c >= S || (causal && c > r0)) x0 = -INFINITY;
-                        if (c >= S || (causal && c > r1)) x1 = -INFINITY;
-                    }
-                    sc[4 * n + e] = x0;
-                    sc[4 * n + 2 + e] = x1;
-                    mx0 = fmaxf(mx0, x0);
-                    mx1 = fmaxf(mx1, x1);
-                }
-            mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffff, mx0, 1));
-            mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffff, mx0, 2));
-            mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffff, mx1, 1));
-            mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffff, mx1, 2));
-            const float mn0 = fmaxf(m0, mx0), mn1 = fmaxf(m1, mx1);
-            // a row that has seen no key yet keeps m = -inf and p = 0
-            const float mu0 = mn0 == -INFINITY ? 0.f : mn0;
-            const float mu1 = mn1 == -INFINITY ? 0.f : mn1;
-            const float a0 = ex2(m0 - mu0), a1 = ex2(m1 - mu1);
-            m0 = mn0;
-            m1 = mn1;
-            float sum0 = 0.f, sum1 = 0.f;
-#pragma unroll
-            for (int n = 0; n < BK / 8; ++n)
-#pragma unroll
-                for (int e = 0; e < 2; ++e) {
-                    const float p0 = ex2(sc[4 * n + e] - mu0);
-                    const float p1 = ex2(sc[4 * n + 2 + e] - mu1);
-                    sc[4 * n + e] = p0;
-                    sc[4 * n + 2 + e] = p1;
-                    sum0 += p0;
-                    sum1 += p1;
-                }
-            l0 = l0 * a0 + sum0;          // this thread's share of the row sum
-            l1 = l1 * a1 + sum1;
-            uint32_t pa[BK / 16][4];
-#pragma unroll
-            for (int k = 0; k < BK / 16; ++k) acc_to_a(sc, k, pa[k]);
-#pragma unroll
-            for (int n = 0; n < D / 8; ++n) {
-                o[4 * n] *= a0;
-                o[4 * n + 1] *= a0;
-                o[4 * n + 2] *= a1;
-                o[4 * n + 3] *= a1;
-            }
-            bar_wait(&v_full[s], ph);
-            wgmma_fence();
-#pragma unroll
-            for (int k = 0; k < BK / 16; ++k)
-                wgmma_rs<D>(o, pa[k], desc_mn(vs, BK, 0, k), 1);
-            wgmma_commit();
-            wgmma_wait<0>();
-            reg_fence(o);
-        }
-        if (lane == 0) bar_arrive(&empty[s]);
-    }
-
-    l0 += __shfl_xor_sync(0xffffffff, l0, 1);
-    l0 += __shfl_xor_sync(0xffffffff, l0, 2);
-    l1 += __shfl_xor_sync(0xffffffff, l1, 1);
-    l1 += __shfl_xor_sync(0xffffffff, l1, 2);
-    const float i0 = 1.f / (l0 == 0.f ? 1.f : l0);
-    const float i1 = 1.f / (l1 == 0.f ? 1.f : l1);
-    const size_t row0 = (size_t(b) * H + h) * size_t(S);
-    bf16* o0 = out + (row0 + r0) * D + c_lane;
-    bf16* o1 = out + (row0 + r1) * D + c_lane;
-#pragma unroll
-    for (int n = 0; n < D / 8; ++n) {
-        if (r0 < S) store_bf16x2(o0 + 8 * n, o[4 * n] * i0, o[4 * n + 1] * i0);
-        if (r1 < S)
-            store_bf16x2(o1 + 8 * n, o[4 * n + 2] * i1, o[4 * n + 3] * i1);
-    }
-    if (lane % 4 == 0) {
-        if (r0 < S)
-            lse[row0 + r0] = l0 == 0.f ? -INFINITY : (m0 + log2f(l0)) * kLn2;
-        if (r1 < S)
-            lse[row0 + r1] = l1 == 0.f ? -INFINITY : (m1 + log2f(l1)) * kLn2;
-    }
-}
-
-// ---------------------------------------------------------------------------
-// backward, dq: 128 q rows of one (batch, q head) a block, keys innermost
-// ---------------------------------------------------------------------------
-
-template <int D>
-struct DqTc {
-    static constexpr int BQ = 128;
-    static constexpr int BK = D == 256 ? 32 : 64;
-    static constexpr int Q_BYTES = BQ * D * 2;
-    static constexpr int KV_BYTES = BK * D * 2;
-    static constexpr size_t smem() {
-        return 1024 + 2 * Q_BYTES + 2 * kStages * KV_BYTES + 8 * (1 + 3 * kStages);
-    }
-};
-
-template <int D>
-__global__ void __launch_bounds__(kTcThreads, 1)
-flash_dq_tc_kernel(const __grid_constant__ CUtensorMap tq,
-                   const __grid_constant__ CUtensorMap tk,
-                   const __grid_constant__ CUtensorMap tv,
-                   const __grid_constant__ CUtensorMap tdo,
-                   const float* __restrict__ lse,
-                   const float* __restrict__ delta, bf16* __restrict__ dq,
-                   int H, int KV, int S, float scale, float scale_log2,
-                   int causal) {
-    using C = DqTc<D>;
-    constexpr int BQ = C::BQ, BK = C::BK;
-    extern __shared__ uint8_t smem_raw[];
-    uint8_t* Qs = align1024(smem_raw);
-    uint8_t* Os = Qs + C::Q_BYTES;              // dout
-    uint8_t* Ks = Os + C::Q_BYTES;
-    uint8_t* Vs = Ks + kStages * C::KV_BYTES;
-    uint64_t* qo_full = reinterpret_cast<uint64_t*>(Vs + kStages * C::KV_BYTES);
-    uint64_t* k_full = qo_full + 1;
-    uint64_t* v_full = k_full + kStages;
-    uint64_t* empty = v_full + kStages;
-
-    const int tid = threadIdx.x;
-    const int nq = (S + BQ - 1) / BQ;
-    const int q0 = (nq - 1 - int(blockIdx.x)) * BQ;
-    const int h = blockIdx.y, b = blockIdx.z;
-    const int hk = h / (H / KV);
-    const int last_q = min(q0 + BQ, S) - 1;
-    const int nk = causal ? last_q / BK + 1 : (S + BK - 1) / BK;
-
-    if (tid == 0) {
-        bar_init(qo_full, 1);
-        for (int s = 0; s < kStages; ++s) {
-            bar_init(&k_full[s], 1);
-            bar_init(&v_full[s], 1);
-            bar_init(&empty[s], kConsumerWarps);
-        }
-        bar_init_fence();
-    }
-    __syncthreads();
-
-    // the warpgroup index, warp-uniform as the compiler sees it: wgmma
-    // under a condition it cannot prove uniform would be serialized
-    const int wg = __shfl_sync(0xffffffff, tid / 128, 0);
-    if (wg == kProducer / 128) {
-        reg_dealloc<kProducerRegs>();
-        if (tid == kProducer) {
-            bar_arrive_tx(qo_full, 2 * C::Q_BYTES);
-            tma_tile<D>(Qs, &tq, qo_full, BQ, q0, b * H + h);
-            tma_tile<D>(Os, &tdo, qo_full, BQ, q0, b * H + h);
-            for (int j = 0; j < nk; ++j) {
-                const int s = j % kStages;
-                bar_wait(&empty[s], ((j / kStages) & 1) ^ 1);
-                bar_arrive_tx(&k_full[s], C::KV_BYTES);
-                tma_tile<D>(Ks + s * C::KV_BYTES, &tk, &k_full[s], BK, j * BK,
-                            b * KV + hk);
-                bar_arrive_tx(&v_full[s], C::KV_BYTES);
-                tma_tile<D>(Vs + s * C::KV_BYTES, &tv, &v_full[s], BK, j * BK,
-                            b * KV + hk);
-            }
-        }
-        return;
-    }
-    reg_alloc<kConsumerRegs>();
-
-    const int warp = (tid % 128) / 32, lane = tid % 32;
-    const int row_base = q0 + wg * 64;
-    const int r0 = row_base + warp * 16 + lane / 4, r1 = r0 + 8;
-    const int c_lane = 2 * (lane % 4);
-    const int nk_wg = causal ? (min(row_base + 64, S) - 1) / BK + 1 : nk;
-    const size_t row0 = (size_t(b) * H + h) * size_t(S);
-    const float lse0 = r0 < S ? lse[row0 + r0] * kLog2e : 0.f;
-    const float lse1 = r1 < S ? lse[row0 + r1] * kLog2e : 0.f;
-    const float dl0 = r0 < S ? delta[row0 + r0] : 0.f;
-    const float dl1 = r1 < S ? delta[row0 + r1] : 0.f;
-
-    float acc[D / 2];
-#pragma unroll
-    for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
-    const uint32_t qs = smem_u32(Qs), os = smem_u32(Os);
-
-    bar_wait(qo_full, 0);
-    for (int j = 0; j < nk; ++j) {
-        const int s = j % kStages;
-        const uint32_t ph = (j / kStages) & 1;
-        bar_wait(&k_full[s], ph);
-        if (j < nk_wg) {
-            const uint32_t ks = smem_u32(Ks + s * C::KV_BYTES);
-            const uint32_t vs = smem_u32(Vs + s * C::KV_BYTES);
-            float sc[BK / 2], dp[BK / 2];
-            wgmma_fence();
-#pragma unroll
-            for (int k = 0; k < D / 16; ++k)
-                wgmma_ss<BK>(sc, desc_k(qs, BQ, wg * 64, k),
-                             desc_k(ks, BK, 0, k), k > 0);
-            bar_wait(&v_full[s], ph);
-#pragma unroll
-            for (int k = 0; k < D / 16; ++k)
-                wgmma_ss<BK>(dp, desc_k(os, BQ, wg * 64, k),
-                             desc_k(vs, BK, 0, k), k > 0);
-            wgmma_commit();
-            wgmma_wait<0>();
-            reg_fence(sc);
-            reg_fence(dp);
-
-            const int k0 = j * BK;
-            const bool edge = k0 + BK > S || (causal && k0 + BK - 1 > row_base);
-#pragma unroll
-            for (int n = 0; n < BK / 8; ++n)
-#pragma unroll
-                for (int e = 0; e < 2; ++e) {
-                    float x0 = sc[4 * n + e] * scale_log2 - lse0;
-                    float x1 = sc[4 * n + 2 + e] * scale_log2 - lse1;
-                    if (edge) {
-                        const int c = k0 + 8 * n + c_lane + e;
-                        if (c >= S || (causal && c > r0)) x0 = -INFINITY;
-                        if (c >= S || (causal && c > r1)) x1 = -INFINITY;
-                    }
-                    sc[4 * n + e] = ex2(x0) * (dp[4 * n + e] - dl0) * scale;
-                    sc[4 * n + 2 + e] =
-                        ex2(x1) * (dp[4 * n + 2 + e] - dl1) * scale;
-                }
-            uint32_t da[BK / 16][4];
-#pragma unroll
-            for (int k = 0; k < BK / 16; ++k) acc_to_a(sc, k, da[k]);
-            wgmma_fence();
-#pragma unroll
-            for (int k = 0; k < BK / 16; ++k)
-                wgmma_rs<D>(acc, da[k], desc_mn(ks, BK, 0, k), 1);
-            wgmma_commit();
-            wgmma_wait<0>();
-            reg_fence(acc);
-        }
-        if (lane == 0) bar_arrive(&empty[s]);
-    }
-
-    bf16* d0 = dq + (row0 + r0) * D + c_lane;
-    bf16* d1 = dq + (row0 + r1) * D + c_lane;
-#pragma unroll
-    for (int n = 0; n < D / 8; ++n) {
-        if (r0 < S) store_bf16x2(d0 + 8 * n, acc[4 * n], acc[4 * n + 1]);
-        if (r1 < S) store_bf16x2(d1 + 8 * n, acc[4 * n + 2], acc[4 * n + 3]);
-    }
-}
-
-// ---------------------------------------------------------------------------
-// backward, dk/dv: 128 keys (64 at D 256) of one (batch, kv head) a block;
-// it walks the q heads of its GQA group and, for each, the 64-row q tiles
-// from the diagonal on, so dk/dv come out summed over the group
-// ---------------------------------------------------------------------------
-
-template <int D>
-struct DkvTc {
-    static constexpr int KEYS = D == 256 ? 64 : 128;
-    static constexpr int BQ = 64;
-    static constexpr int DC = D == 256 ? 128 : D;   // dk/dv columns a warpgroup
-    static constexpr int KV_BYTES = KEYS * D * 2;
-    static constexpr int Q_BYTES = BQ * D * 2;
-    static constexpr size_t smem() {
-        return 1024 + 2 * KV_BYTES + 2 * kStages * Q_BYTES +
-               2 * kStages * BQ * 4 + 8 * (1 + 2 * kStages);
-    }
-};
-
-template <int D>
-__global__ void __launch_bounds__(kTcThreads, 1)
-flash_dkv_tc_kernel(const __grid_constant__ CUtensorMap tq,
-                    const __grid_constant__ CUtensorMap tk,
-                    const __grid_constant__ CUtensorMap tv,
-                    const __grid_constant__ CUtensorMap tdo,
-                    const float* __restrict__ lse,
-                    const float* __restrict__ delta, bf16* __restrict__ dk,
-                    bf16* __restrict__ dv, int H, int KV, int S, float scale,
-                    float scale_log2, int causal) {
-    using C = DkvTc<D>;
-    constexpr int KEYS = C::KEYS, BQ = C::BQ, DC = C::DC;
-    extern __shared__ uint8_t smem_raw[];
-    uint8_t* Ks = align1024(smem_raw);
-    uint8_t* Vs = Ks + C::KV_BYTES;
-    uint8_t* Qs = Vs + C::KV_BYTES;                 // [kStages] q tiles
-    uint8_t* Os = Qs + kStages * C::Q_BYTES;        // [kStages] dout tiles
-    float* lse_s = reinterpret_cast<float*>(Os + kStages * C::Q_BYTES);
-    float* dl_s = lse_s + kStages * BQ;
-    uint64_t* kv_full = reinterpret_cast<uint64_t*>(dl_s + kStages * BQ);
-    uint64_t* full = kv_full + 1;
-    uint64_t* empty = full + kStages;
-
-    const int tid = threadIdx.x;
-    const int k0 = blockIdx.x * KEYS;   // the causal-heaviest tiles come first
-    const int hk = blockIdx.y, b = blockIdx.z;
-    const int G = H / KV;
-    const int nq = (S + BQ - 1) / BQ;
-    const int first = causal ? k0 / BQ : 0;
-    const int per_head = nq - first;
-    const int n_it = G * per_head;
-
-    if (tid == 0) {
-        bar_init(kv_full, 1);
-        for (int s = 0; s < kStages; ++s) {
-            bar_init(&full[s], 32);      // every producer lane stages lse / delta
-            bar_init(&empty[s], kConsumerWarps);
-        }
-        bar_init_fence();
-    }
-    __syncthreads();
-
-    // the warpgroup index, warp-uniform as the compiler sees it: wgmma
-    // under a condition it cannot prove uniform would be serialized
-    const int wg = __shfl_sync(0xffffffff, tid / 128, 0);
-    if (wg == kProducer / 128) {
-        reg_dealloc<kProducerRegs>();
-        const int lane = tid - kProducer;
-        if (lane >= 32) return;
-        if (lane == 0) {
-            bar_arrive_tx(kv_full, 2 * C::KV_BYTES);
-            tma_tile<D>(Ks, &tk, kv_full, KEYS, k0, b * KV + hk);
-            tma_tile<D>(Vs, &tv, kv_full, KEYS, k0, b * KV + hk);
-        }
-        for (int it = 0; it < n_it; ++it) {
-            const int s = it % kStages;
-            const int h = hk * G + it / per_head;
-            const int q0 = (first + it % per_head) * BQ;
-            const size_t row0 = (size_t(b) * H + h) * size_t(S);
-            bar_wait(&empty[s], ((it / kStages) & 1) ^ 1);
-            for (int r = lane; r < BQ; r += 32) {
-                const int g = q0 + r;
-                lse_s[s * BQ + r] = g < S ? lse[row0 + g] * kLog2e : 0.f;
-                dl_s[s * BQ + r] = g < S ? delta[row0 + g] : 0.f;
-            }
-            if (lane == 0) {
-                bar_arrive_tx(&full[s], 2 * C::Q_BYTES);
-                tma_tile<D>(Qs + s * C::Q_BYTES, &tq, &full[s], BQ, q0,
-                            b * H + h);
-                tma_tile<D>(Os + s * C::Q_BYTES, &tdo, &full[s], BQ, q0,
-                            b * H + h);
-            } else {
-                bar_arrive(&full[s]);
-            }
-        }
-        return;
-    }
-    reg_alloc<kConsumerRegs>();
-
-    const int warp = (tid % 128) / 32, lane = tid % 32;
-    // D 256: both warpgroups hold the block's 64 keys, each half of the
-    // columns of dk / dv; otherwise each holds 64 keys and every column
-    const int krow = D == 256 ? 0 : wg * 64;
-    const int cb = D == 256 ? wg * 2 : 0;          // first column block
-    const int kw0 = k0 + krow;
-    const int kr0 = kw0 + warp * 16 + lane / 4, kr1 = kr0 + 8;
-    const int c_lane = 2 * (lane % 4);
-
-    float dka[DC / 2], dva[DC / 2];
-#pragma unroll
-    for (int i = 0; i < DC / 2; ++i) dka[i] = dva[i] = 0.f;
-    const uint32_t ks = smem_u32(Ks), vs = smem_u32(Vs);
-
-    bar_wait(kv_full, 0);
-    for (int it = 0; it < n_it; ++it) {
-        const int s = it % kStages;
-        const int q0 = (first + it % per_head) * BQ;
-        bar_wait(&full[s], (it / kStages) & 1);
-        if (!causal || q0 + BQ - 1 >= kw0) {       // some pair is visible
-            const uint32_t qs = smem_u32(Qs + s * C::Q_BYTES);
-            const uint32_t os = smem_u32(Os + s * C::Q_BYTES);
-            const float* ls = lse_s + s * BQ;
-            const float* dls = dl_s + s * BQ;
-            float sc[BQ / 2], dp[BQ / 2];
-            wgmma_fence();
-#pragma unroll
-            for (int k = 0; k < D / 16; ++k)
-                wgmma_ss<BQ>(sc, desc_k(ks, KEYS, krow, k),
-                             desc_k(qs, BQ, 0, k), k > 0);
-#pragma unroll
-            for (int k = 0; k < D / 16; ++k)
-                wgmma_ss<BQ>(dp, desc_k(vs, KEYS, krow, k),
-                             desc_k(os, BQ, 0, k), k > 0);
-            wgmma_commit();
-            wgmma_wait<0>();
-            reg_fence(sc);
-            reg_fence(dp);
-
-            const bool edge = q0 + BQ > S || kw0 + 64 > S ||
-                              (causal && q0 < kw0 + 63);
-#pragma unroll
-            for (int n = 0; n < BQ / 8; ++n)
-#pragma unroll
-                for (int e = 0; e < 2; ++e) {
-                    const int qc = 8 * n + c_lane + e;
-                    const float l2 = ls[qc], dl = dls[qc];
-                    float x0 = sc[4 * n + e] * scale_log2 - l2;
-                    float x1 = sc[4 * n + 2 + e] * scale_log2 - l2;
-                    if (edge) {
-                        const int qq = q0 + qc;
-                        if (qq >= S || kr0 >= S || (causal && kr0 > qq))
-                            x0 = -INFINITY;
-                        if (qq >= S || kr1 >= S || (causal && kr1 > qq))
-                            x1 = -INFINITY;
-                    }
-                    const float p0 = ex2(x0), p1 = ex2(x1);
-                    sc[4 * n + e] = p0;
-                    sc[4 * n + 2 + e] = p1;
-                    dp[4 * n + e] = p0 * (dp[4 * n + e] - dl) * scale;
-                    dp[4 * n + 2 + e] = p1 * (dp[4 * n + 2 + e] - dl) * scale;
-                }
-            uint32_t pa[BQ / 16][4], da[BQ / 16][4];
-#pragma unroll
-            for (int k = 0; k < BQ / 16; ++k) {
-                acc_to_a(sc, k, pa[k]);
-                acc_to_a(dp, k, da[k]);
-            }
-            wgmma_fence();
-#pragma unroll
-            for (int k = 0; k < BQ / 16; ++k)
-                wgmma_rs<DC>(dva, pa[k], desc_mn(os, BQ, cb, k), 1);
-#pragma unroll
-            for (int k = 0; k < BQ / 16; ++k)
-                wgmma_rs<DC>(dka, da[k], desc_mn(qs, BQ, cb, k), 1);
-            wgmma_commit();
-            wgmma_wait<0>();
-            reg_fence(dva);
-            reg_fence(dka);
-        }
-        if (lane == 0) bar_arrive(&empty[s]);
-    }
-
-    const size_t kvrow = (size_t(b) * KV + hk) * size_t(S);
-    const int c0 = cb * 64 + c_lane;
-#pragma unroll
-    for (int n = 0; n < DC / 8; ++n) {
-        if (kr0 < S) {
-            const size_t o = (kvrow + kr0) * D + c0 + 8 * n;
-            store_bf16x2(dk + o, dka[4 * n], dka[4 * n + 1]);
-            store_bf16x2(dv + o, dva[4 * n], dva[4 * n + 1]);
-        }
-        if (kr1 < S) {
-            const size_t o = (kvrow + kr1) * D + c0 + 8 * n;
-            store_bf16x2(dk + o, dka[4 * n + 2], dka[4 * n + 3]);
-            store_bf16x2(dv + o, dva[4 * n + 2], dva[4 * n + 3]);
-        }
-    }
-}
 
 // ===========================================================================
 // host
@@ -1196,6 +638,8 @@ int fwd_bf16(const void* q, const void* k, const void* v, void* out,
              void* lse, int B, int H, int KV, int S, float scale, int causal,
              cudaStream_t st) {
     using C = FwdTc<D>;
+    const cudaError_t bound = bind_context();
+    if (bound != cudaSuccess) return int(bound);
     const auto t0 = Clock::now();
     CUtensorMap mq, mk, mv;
     int r = tile_map(&mq, q, B * H, S, D, C::BQ);
@@ -1203,14 +647,14 @@ int fwd_bf16(const void* q, const void* k, const void* v, void* out,
     if (!r) r = tile_map(&mv, v, B * KV, S, D, C::BK);
     g_map_us = us_since(t0);
     if (r) return r;
-    auto kern = flash_fwd_tc_kernel<D>;
+    auto kern = flash_fwd_tc_kernel<D, DenseWalk>;
     static bool smem_set = false;
     cudaError_t e = allow_smem(kern, C::smem(), smem_set);
     if (e != cudaSuccess) return int(e);
     dim3 grid((S + C::BQ - 1) / C::BQ, H, B);
     kern<<<grid, kTcThreads, C::smem(), st>>>(
-        mq, mk, mv, static_cast<bf16*>(out), static_cast<float*>(lse), H, KV,
-        S, scale * kLog2e, causal);
+        mq, mk, mv, static_cast<bf16*>(out), static_cast<float*>(lse),
+        DenseWalk{H, KV, S, causal}, scale * kLog2e);
     return int(cudaGetLastError());
 }
 
@@ -1221,6 +665,8 @@ int bwd_bf16(const void* q, const void* k, const void* v, const void* dout,
              cudaStream_t st) {
     using CQ = DqTc<D>;
     using CK = DkvTc<D>;
+    const cudaError_t bound = bind_context();
+    if (bound != cudaSuccess) return int(bound);
     const auto t0 = Clock::now();
     CUtensorMap mq, mk, mv, mdo, nq, nk, nv, ndo;   // m: dq kernel, n: dk/dv
     int r = tile_map(&mq, q, B * H, S, D, CQ::BQ);
@@ -1233,8 +679,8 @@ int bwd_bf16(const void* q, const void* k, const void* v, const void* dout,
     if (!r) r = tile_map(&nv, v, B * KV, S, D, CK::KEYS);
     g_map_us = us_since(t0);
     if (r) return r;
-    auto kq = flash_dq_tc_kernel<D>;
-    auto kkv = flash_dkv_tc_kernel<D>;
+    auto kq = flash_dq_tc_kernel<D, DenseWalk>;
+    auto kkv = flash_dkv_tc_kernel<D, DenseWalk>;
     static bool dq_set = false, dkv_set = false;
     cudaError_t e = allow_smem(kq, CQ::smem(), dq_set);
     if (e == cudaSuccess) e = allow_smem(kkv, CK::smem(), dkv_set);
@@ -1242,17 +688,18 @@ int bwd_bf16(const void* q, const void* k, const void* v, const void* dout,
     const float* lp = static_cast<const float*>(lse);
     const float* dp = static_cast<const float*>(delta);
     const float sl2 = scale * kLog2e;
+    const DenseWalk walk{H, KV, S, causal};
     dim3 gq((S + CQ::BQ - 1) / CQ::BQ, H, B);
     kq<<<gq, kTcThreads, CQ::smem(), st>>>(mq, mk, mv, mdo, lp, dp,
-                                           static_cast<bf16*>(dq), H, KV, S,
-                                           scale, sl2, causal);
+                                           static_cast<bf16*>(dq), walk,
+                                           scale, sl2);
     e = cudaGetLastError();
     if (e != cudaSuccess) return int(e);
     dim3 gkv((S + CK::KEYS - 1) / CK::KEYS, KV, B);
     kkv<<<gkv, kTcThreads, CK::smem(), st>>>(nq, nk, nv, ndo, lp, dp,
                                              static_cast<bf16*>(dk),
-                                             static_cast<bf16*>(dv), H, KV, S,
-                                             scale, sl2, causal);
+                                             static_cast<bf16*>(dv), walk,
+                                             scale, sl2);
     return int(cudaGetLastError());
 }
 

@@ -1013,18 +1013,6 @@ cudaError_t prepare(Kernel kern, size_t smem, int threads, int regs,
     return cudaSuccess;
 }
 
-// binds the runtime's current device's primary context to the calling
-// thread. The tensor-map encoder is a libcuda entry point and fails
-// (CUDA_ERROR_INVALID_CONTEXT) in a thread that has made no runtime call
-// yet: autograd's device thread runs a backward whose first CUDA work may be
-// this library's launch. cudaSetDevice makes the context current at once
-// and is allowed while a stream is being captured.
-cudaError_t bind_context() {
-    int dev = 0;
-    const cudaError_t e = cudaGetDevice(&dev);
-    return e == cudaSuccess ? cudaSetDevice(dev) : e;
-}
-
 int num_sms() {
     static const int sms = [] {
         int dev = 0, v = 0;

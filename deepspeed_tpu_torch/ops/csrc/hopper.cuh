@@ -1,8 +1,9 @@
-// Hopper building blocks for the port's tensor-core kernels (K1's, K4's and
-// K5's bf16 kernels use them): shared-memory barriers (mbarrier), TMA tile
-// loads and stores and the host's tensor maps for them, warpgroup matrix
-// products (wgmma) with their shared-memory descriptors, and register
-// hand-over (setmaxnreg).
+// Hopper building blocks for the port's tensor-core kernels (K1's, K4's,
+// K5's and K6's bf16 kernels use them): shared-memory barriers (mbarrier),
+// TMA tile loads and stores and the host's tensor maps for them (with the
+// context binding every host entry does first), warpgroup matrix products
+// (wgmma) with their shared-memory descriptors, and register hand-over
+// (setmaxnreg).
 //
 // Layout convention. Every bf16 tile in shared memory is stored the way a
 // TMA load with 128-byte swizzle writes it: a tile of R rows and C columns
@@ -480,6 +481,19 @@ inline EncodeTiledFn encode_fn() {
                    : nullptr;
     }();
     return fn;
+}
+
+// binds the runtime's current device's primary context to the calling
+// thread. The tensor-map encoder is a libcuda entry point and fails
+// (CUDA_ERROR_INVALID_CONTEXT) in a thread that has made no runtime call
+// yet: autograd's device thread runs a backward whose first CUDA work may be
+// a launch that encodes maps. cudaSetDevice makes the context current at
+// once and is allowed while a stream is being captured. Every host entry
+// that encodes a tensor map calls it first.
+inline cudaError_t bind_context() {
+    int dev = 0;
+    const cudaError_t e = cudaGetDevice(&dev);
+    return e == cudaSuccess ? cudaSetDevice(dev) : e;
 }
 
 // the map of a contiguous bf16 tensor [slabs, S, C] read in boxes of

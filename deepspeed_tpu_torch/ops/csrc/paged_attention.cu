@@ -1323,6 +1323,8 @@ cudaError_t set_smem(K kernel, size_t bytes) {
 
 template <int D, bool FP8>
 int launch_k1_chunk(const Params& p, int S_, int L, cudaStream_t stream) {
+    const cudaError_t bound = bind_context();
+    if (bound != cudaSuccess) return int(bound);
     CUtensorMap mk{}, msk{}, msv{};
     int r = 0;
     if (!FP8)
@@ -1347,6 +1349,8 @@ int launch_k1_chunk(const Params& p, int S_, int L, cudaStream_t stream) {
 
 template <int D>
 int launch_k7_chunk(const Params& p, int S_, cudaStream_t stream) {
+    const cudaError_t bound = bind_context();
+    if (bound != cudaSuccess) return int(bound);
     CUtensorMap mk{}, mv{};
     int r = cached_map(&mk, p.k_pool, p.KV * p.nb, p.bs, D, p.box_rows);
     if (!r) r = cached_map(&mv, p.v_pool, p.KV * p.nb, p.bs, D, p.box_rows);

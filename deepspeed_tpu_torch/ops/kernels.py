@@ -187,3 +187,9 @@ def _declare(name: str, lib: ctypes.CDLL) -> None:
             fn.argtypes = [p] * n_ptr + [i] * 6 + [ctypes.c_float] + \
                 [i] * 2 + [p]
             fn.restype = i
+        # the wgmma route (`_tc`): the same without the dtype
+        for fn, n_ptr in ((lib.ds_block_sparse_attention_fwd_tc, 8),
+                          (lib.ds_block_sparse_attention_dq_tc, 10),
+                          (lib.ds_block_sparse_attention_dkv_tc, 11)):
+            fn.argtypes = [p] * n_ptr + [i] * 6 + [ctypes.c_float, i, p]
+            fn.restype = i

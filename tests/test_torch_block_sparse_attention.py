@@ -6,7 +6,10 @@ gate entry for entry, the forward on a random layout with an empty query
 row (causal and not), a row visible only above the diagonal, BigBird at
 S 1024 / block 128 and a block of 192; q/k/v gradients through the autograd
 function against ``jax.grad`` of the Pallas route. Inputs are made from a
-seed with numpy and handed to both."""
+seed with numpy and handed to both. Then the card's routing, which runs
+nowhere here: the route for every (dtype, block, head dim) the gate admits,
+and the wgmma kernels' tile walk (``tile_walk``, the CUDA ``TableWalk`` in
+Python) against the dense token mask of ``layout_to_mask``."""
 import itertools
 
 import jax
@@ -166,8 +169,8 @@ def test_cpu_route_counts_only_the_plain_versions():
     ts = [torch.tensor(a).requires_grad_() for a in (q, k, v)]
     bsa.counts.reset()
     bsa.block_sparse_flash_attention(*ts, layout, block).sum().backward()
-    assert vars(bsa.counts) == {"fwd": 0, "bwd": 0, "plain": 1,
-                                "plain_bwd": 1}
+    assert vars(bsa.counts) == {"fwd": 0, "bwd": 0, "fwd_tc": 0,
+                                "bwd_tc": 0, "plain": 1, "plain_bwd": 1}
 
 
 def test_device_tables_are_cached_and_ordered_busiest_first():
@@ -193,3 +196,86 @@ def test_mismatched_layout_or_blocks_raise():
                                          96)
     with pytest.raises(ValueError, match=r"\[H, n, n\]"):
         bsa.device_tables(np.ones((2, 4, 2), bool), "cpu")
+
+
+def test_kernel_route_for_every_shape_the_gate_admits():
+    """bf16 at blocks that are a multiple of 128 takes the wgmma kernels,
+    fp32 and every other bf16 block the FMA kernels, at every head dim."""
+    layout = np.ones((2, 4, 4), bool)
+    n = 0
+    for block in range(8, 1032, 8):
+        for D in (32, 64, 80, 128, 256):
+            if not bsa.block_sparse_usable(layout, block, 4 * block, D, 2, 2):
+                continue
+            n += 1
+            assert bsa.kernel_route(torch.float32, block) == "fma"
+            want = "wgmma" if block % 128 == 0 else "fma"
+            assert bsa.kernel_route(torch.bfloat16, block) == want, (block, D)
+    assert n == 3 * len(range(128, 1032, 8))
+
+
+def _walk_layout(kind: str, H: int, n: int, block: int):
+    from deepspeed_tpu_torch.ops import sparse_attention as sa
+
+    S = n * block
+    if kind == "fixed":
+        return sa.FixedSparsityConfig(num_heads=H, block=block).make_layout(S)
+    if kind == "fixed-causal":
+        return sa.FixedSparsityConfig(num_heads=H, block=block,
+                                      attention="unidirectional"
+                                      ).make_layout(S)
+    if kind == "bigbird":
+        return sa.BigBirdSparsityConfig(
+            num_heads=H, block=block, different_layout_per_head=True,
+            seed=3).make_layout(S)
+    layout = _random_layout(H, n, seed=9)
+    layout[1, 3] = True                    # a full row beside sparse ones
+    return layout
+
+
+@pytest.mark.parametrize("D", [64, 256])
+@pytest.mark.parametrize("block", [128, 256])
+@pytest.mark.parametrize("kind,causal", [("fixed", False),
+                                         ("fixed-causal", True),
+                                         ("bigbird", False),
+                                         ("bigbird", True),
+                                         ("holes", False),
+                                         ("holes", True)])
+def test_tile_walk_covers_the_token_mask(kind, causal, block, D):
+    """Each block of the wgmma forward, dq and dk/dv kernels owns its own
+    rows once, takes the table rows busiest first, and its tiles cover every
+    visible token pair of ``layout_to_mask`` (causal: at or below the
+    diagonal) exactly once, never a pair outside the layout's blocks, and
+    under causal no tile wholly above the diagonal."""
+    from deepspeed_tpu_torch.ops.sparse_attention import layout_to_mask
+
+    H, n = 2, 8
+    S = n * block
+    layout = _walk_layout(kind, H, n, block)
+    tables = bsa.device_tables(layout, "cpu")
+    blocks = layout_to_mask(layout, block).numpy()            # [H, S, S]
+    mask = blocks & np.tril(np.ones((S, S), bool)) if causal else blocks
+    for which in ("fwd", "dq", "dkv"):
+        own, other = bsa.tc_tile_rows(D)[which]
+        walk = bsa.tile_walk(tables, block, causal, D, which)
+        assert sorted((h, r) for h, r, _ in walk) == [
+            (h, r) for h in range(H) for r in range(0, S, own)], which
+        # busiest first: the visible blocks of each block's table row
+        seen_blocks = blocks[:, ::block, ::block]
+        busy = [int((seen_blocks[h, r // block] if which != "dkv"
+                     else seen_blocks[h, :, r // block]).sum())
+                for h, r, _ in walk]
+        assert busy == sorted(busy, reverse=True), which
+        seen = np.zeros((H, S, S), np.int8)
+        for h, r, starts in walk:
+            assert starts == sorted(starts)
+            for t in starts:
+                rows, cols = ((slice(r, r + own), slice(t, t + other))
+                              if which != "dkv" else
+                              (slice(t, t + other), slice(r, r + own)))
+                seen[h, rows, cols] += 1
+                if causal:
+                    assert mask[h, rows, cols].any(), (which, h, r, t)
+        assert seen.max() <= 1, which
+        assert (seen[mask] == 1).all(), which
+        assert not seen[~blocks].any(), which

@@ -4,7 +4,8 @@ quantized-weight kernel, the grouped MoE kernels (K5's forward, dx and dw
 on each route: wgmma, WMMA, FMA; K3), the flash-attention kernel (K4,
 forward and backward; its bf16 kernels also at the tensor-core tiles'
 edges, and their backward bit for bit from call to call), the block-sparse
-flash kernels (K6: forward, dq, dk/dv) and the per-layer-slice paged
+flash kernels (K6: forward, dq, dk/dv, on the wgmma route K4's bits on a
+dense layout), TMA launches from a fresh thread, and the per-layer-slice paged
 attention (K7: linear, window and ring tables) against their plain
 versions, the CUDA serving engine against the CPU engine, and training
 steps on the card through K4 and through K5's forward and backward. These
@@ -809,22 +810,30 @@ def _k6_case(dev, dtype, B, H, S, D, block, seed=0):
 @pytest.mark.parametrize("D", [64, 128, 256])
 @pytest.mark.parametrize("S,block,causal", [(512, 128, False),
                                             (512, 128, True),
+                                            (1024, 128, True),
                                             (408, 136, True),
                                             (576, 192, False),
-                                            (768, 256, True)])
+                                            (768, 256, True),
+                                            (768, 256, False)])
 def test_block_sparse_kernels_match_plain_versions(dev, dtype, D, S, block,
                                                    causal):
     """K6's forward (out, lse), dq and dk/dv kernels, each against its plain
-    version by ``K4_TOL``; the empty row and the row visible only above the
-    diagonal (causal) give zeros and no gradient."""
+    version by ``K4_TOL``, on the route ``kernel_route`` names (bf16 at
+    blocks 128 and 256: the wgmma kernels; fp32 and blocks 136 / 192: the
+    FMA kernels), counted as such; the empty row and the row visible only
+    above the diagonal (causal) give zeros and no gradient; a second launch
+    gives the same bits."""
     from deepspeed_tpu_torch.ops import block_sparse_attention as bsa
 
     (q, k, v, do), tables = _k6_case(dev, dtype, 2, 2, S, D, block)
     scale = D ** -0.5
+    tc = int(dtype == torch.bfloat16 and block % 128 == 0)
+    assert bsa.kernel_route(dtype, block) == ("wgmma" if tc else "fma")
     bsa.counts.reset()
     out, lse = bsa.block_sparse_fwd(q, k, v, tables, block, causal, scale)
     torch.cuda.synchronize()
-    assert (bsa.counts.fwd, bsa.counts.plain) == (1, 0)
+    assert (bsa.counts.fwd, bsa.counts.fwd_tc, bsa.counts.plain) == (1, tc,
+                                                                     0)
     ref_out, ref_lse = bsa.block_sparse_fwd_plain(q, k, v, tables, block,
                                                   causal, scale)
     out_tol, grad_tol = K4_TOL[dtype]
@@ -850,6 +859,91 @@ def test_block_sparse_kernels_match_plain_versions(dev, dtype, D, S, block,
     if causal:
         assert not out[:, :, block:2 * block].any()
         assert not dq[:, :, block:2 * block].any()
+    again = bsa.block_sparse_fwd(q, k, v, tables, block, causal, scale)
+    again += bsa.block_sparse_bwd(q, k, v, out, ref_lse, do, tables, block,
+                                  causal, scale)
+    torch.cuda.synchronize()
+    assert (bsa.counts.fwd, bsa.counts.fwd_tc, bsa.counts.bwd,
+            bsa.counts.bwd_tc) == (2, 2 * tc, 1, tc)
+    for name, a, b in zip(("out", "lse", "dq", "dk", "dv"), again,
+                          (out, lse, dq, dk, dv)):
+        assert torch.equal(a, b), name
+
+
+@pytest.mark.parametrize("D", [64, 128, 256])
+@pytest.mark.parametrize("causal", [True, False])
+def test_block_sparse_wgmma_route_is_k4_on_a_dense_layout(dev, D, causal):
+    """On an all-ones layout at block 128 K6's wgmma kernels walk K4's
+    tiles in K4's order through the same body: out, lse, dq, dk and dv equal
+    K4's on the same inputs bit for bit."""
+    import numpy as np
+
+    from deepspeed_tpu_torch.ops import block_sparse_attention as bsa
+    from deepspeed_tpu_torch.ops import flash_attention as fa
+
+    B, H, S = 2, 4, 1024
+    q, k, v, do = _flash_inputs(dev, torch.bfloat16, B, H, H, S, D, seed=5)
+    scale = D ** -0.5
+    tables = bsa.device_tables(np.ones((H, S // 128, S // 128), bool), dev)
+    bsa.counts.reset()
+    got = bsa.block_sparse_fwd(q, k, v, tables, 128, causal, scale)
+    got += bsa.block_sparse_bwd(q, k, v, *got, do, tables, 128, causal,
+                                scale)
+    want = fa.flash_fwd(q, k, v, causal, scale)
+    want += fa.flash_bwd(q, k, v, *want, do, causal, scale)
+    torch.cuda.synchronize()
+    assert (bsa.counts.fwd_tc, bsa.counts.bwd_tc) == (1, 1)
+    for name, a, b in zip(("out", "lse", "dq", "dk", "dv"), got, want):
+        assert torch.equal(a, b), name
+
+
+def test_tma_launches_run_from_a_fresh_thread(dev):
+    """Every host entry that encodes a TMA tensor map binds the device's
+    context first: K4's bf16 backward, K6's bf16 backward and a K1 chunk
+    call, each a new thread's first CUDA work, give the main thread's
+    bits."""
+    import threading
+
+    import numpy as np
+
+    from deepspeed_tpu_torch.ops import block_sparse_attention as bsa
+    from deepspeed_tpu_torch.ops import flash_attention as fa
+
+    q, k, v, do = _flash_inputs(dev, torch.bfloat16, 1, 4, 4, 512, 128,
+                                seed=9)
+    scale = 128 ** -0.5
+    tables = bsa.device_tables(np.tril(np.ones((4, 4, 4), bool)), dev)
+    out, lse = fa.flash_fwd(q, k, v, True, scale)
+    s_out, s_lse = bsa.block_sparse_fwd(q, k, v, tables, 128, True, scale)
+    args, kw = _bf16_case(dev, "chunk", "linear", bs=64, D=128, pool="bf16",
+                          seed=4)
+    torch.cuda.synchronize()
+    calls = {
+        "k4": lambda: fa.flash_bwd(q, k, v, out, lse, do, True, scale),
+        "k6": lambda: bsa.block_sparse_bwd(q, k, v, s_out, s_lse, do,
+                                           tables, 128, True, scale),
+        "k1": lambda: (pa.paged_ragged_attention(*args, block_size=64,
+                                                 layer_index=1, **kw),)}
+    for name, run in calls.items():
+        got = {}
+
+        def work():
+            try:
+                got["out"] = run()
+                torch.cuda.synchronize()
+            except Exception as err:      # raised again in the test thread
+                got["err"] = err
+
+        t = threading.Thread(target=work)
+        t.start()
+        t.join(timeout=120)
+        assert not t.is_alive(), name
+        if "err" in got:
+            raise got["err"]
+        main = run()
+        torch.cuda.synchronize()
+        assert all(torch.equal(a, b) for a, b in zip(got["out"], main)), \
+            name
 
 
 def test_sparse_self_attention_launches_the_kernels(dev):
@@ -873,14 +967,14 @@ def test_sparse_self_attention_launches_the_kernels(dev):
         bsa.counts.reset()
         SparseSelfAttention(cfg)(q, k, v).float().square().sum().backward()
         torch.cuda.synchronize()
-        assert vars(bsa.counts) == {"fwd": 1, "bwd": 1, "plain": 0,
-                                    "plain_bwd": 0}
+        assert vars(bsa.counts) == {"fwd": 1, "bwd": 1, "fwd_tc": 1,
+                                    "bwd_tc": 1, "plain": 0, "plain_bwd": 0}
         assert all(torch.isfinite(t.grad.float()).all() for t in (q, k, v))
     bsa.counts.reset()
     SparseSelfAttention(BigBirdSparsityConfig(num_heads=4, block=64))(
         mk(), mk(), mk())
-    assert vars(bsa.counts) == {"fwd": 0, "bwd": 0, "plain": 0,
-                                "plain_bwd": 0}
+    assert vars(bsa.counts) == {"fwd": 0, "bwd": 0, "fwd_tc": 0,
+                                "bwd_tc": 0, "plain": 0, "plain_bwd": 0}
     tables = bsa.device_tables(np.ones((2, 2, 2), bool), dev)
     with pytest.raises(ValueError, match="head dim"):
         bsa.block_sparse_fwd(*(torch.zeros(1, 2, 256, 80, device=dev)
