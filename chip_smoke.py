@@ -48,11 +48,18 @@ Phases (every one raises on failure; nothing is caught and passed over):
      decode M=8 and prefill M=256, on llama2-7b's wq, w_gate, w_down and
      unembed shapes plus a stacked [L, K, N] case at a non-zero layer;
      unit-normal x, weights whose scales differ by K-group and by column;
-     judged by max |error| over max |plain| (``K2_TOL``). No single
-     PyTorch call computes K2's function; the yardstick is ``torch.matmul``
-     with a dense bf16 weight of the same shape, the product K2 replaces.
-     K1 and K2 also run at qwen2-moe-a2.7b's geometry (H = KV = 16) and
-     shapes (its 2048 x 151936 unembedding).
+     judged by max |error| over max |plain| (``K2_TOL``), launched twice
+     with identical bits required. Each case prints its route
+     (``kernel_route``: bf16 takes the wgmma kernels, and must, with the
+     token columns and K split of ``tc_split``; fp32 the FMA kernels); the
+     phase first prints the wgmma kernels' registers, stack, spills,
+     shared memory, ring stages and any wgmma serialization (from the
+     build's ``-Xptxas -v``), then checks one-hot rows of x against the
+     dequantized weight bit for bit, and last the wrapper's host µs per
+     call. No single PyTorch call computes K2's function; the yardstick is
+     ``torch.matmul`` with a dense bf16 weight of the same shape, the
+     product K2 replaces. K1 and K2 also run at qwen2-moe-a2.7b's geometry
+     (H = KV = 16) and shapes (its 2048 x 151936 unembedding).
    - K5, the grouped expert product, in bf16 and fp32, and K3, its
      quantized form, for int8, int4 and e4m3 codes (plus stacked codes at
      a non-zero layer), on qwen2-moe's expert w_gate [60,2048,1408] and
@@ -61,7 +68,9 @@ Phases (every one raises on failure; nothing is caught and passed over):
      plus a skewed (all tokens on one expert's set) and an idle-expert
      routing, and K5's forward at one micro-batch of the moe-train phase
      (4096 tokens x top-4) on qwen2-moe's two shapes; judged by
-     ``K2_TOL``, a second launch giving the same bits. Each K5 case names
+     ``K2_TOL``, a second launch giving the same bits. Each K3 case names
+     its route (bf16: the wgmma kernels with runs of ``grouped_run_tiles``
+     32-row tiles). Each K5 case names
      its route (``gmm_route``: bf16 at block_m 128 takes the wgmma kernels,
      fp32 the FMA kernels); a wgmma case also times its forward with 64-
      and 128-row blocks beside the size ``gmm_block_rows`` picks; the
@@ -897,11 +906,112 @@ def k2_bound(M, K, N, qw, dtype) -> tuple[float, str, float]:
     return bound, by, nbytes
 
 
+def k2_route(M, K, qw, dtype, dev) -> str:
+    """The kernels a K2 call takes: on the wgmma route its token columns
+    and K split (``tc_split``)."""
+    from deepspeed_tpu_torch.ops import quant_matmul as qm
+
+    route = qm.kernel_route(dtype, qw.bits)
+    if route != "wgmma":
+        return route
+    bn, splits = qm.tc_split(M, K, qw.data.shape[-1], qm._sm_count(
+        dev.index if dev.index is not None else 0))
+    return f"wgmma BN {bn}" + (f" x{splits} splits" if splits > 1 else "")
+
+
+def launch_twice(tag, fn, counts, wgmma: bool):
+    """``fn()`` launched twice: the route's count moves by one a launch
+    (``kernel_tc`` exactly when the call is on the wgmma route), and the
+    second launch gives the first one's bits. Returns the first output."""
+    before = (counts.kernel, counts.kernel_tc)
+    got = fn()
+    torch.cuda.synchronize()
+    if (counts.kernel, counts.kernel_tc) != (before[0] + 1,
+                                             before[1] + wgmma):
+        raise AssertionError(f"{tag}: launch counts {before} -> "
+                             f"{(counts.kernel, counts.kernel_tc)}")
+    again = fn()
+    torch.cuda.synchronize()
+    if not torch.equal(got, again):
+        raise AssertionError(f"{tag}: a second launch gave other bits")
+    return got
+
+
+def k2_one_hot(dev, seed: int) -> list:
+    """Rows of x that are one-hot pick weight rows: on the wgmma route each
+    output row must equal the dequantized weight's row in bf16 bit for bit
+    (the widening of the codes, exactly), for every code format, at a
+    decode and a prefill shape."""
+    from deepspeed_tpu_torch.ops.quant_matmul import (dequantize_weight,
+                                                      quant_matmul,
+                                                      quantize_weight)
+
+    out = []
+    K, N = K2_SHAPES["w_gate"]
+    for bits in (8, 4, "fp8"):
+        qw = quantize_weight(k2_weight(K, N, dev, seed).to(torch.bfloat16),
+                             bits=bits)
+        w = dequantize_weight(qw)
+        for M in (16, 256):
+            g = torch.Generator(device=dev).manual_seed(seed + M)
+            ks = torch.randperm(K, generator=g, device=dev)[:M]
+            x = torch.zeros(M, K, device=dev, dtype=torch.bfloat16)
+            x[torch.arange(M, device=dev), ks] = 1
+            got = quant_matmul(x, qw)
+            torch.cuda.synchronize()
+            if not torch.equal(got, w[ks]):
+                raise AssertionError(f"K2 one-hot {bits} M={M}: rows differ "
+                                     f"from the dequantized weight")
+            out.append({"case": f"one-hot {bits}/w_gate/M={M}",
+                        "bit_exact": True})
+            log(f"[kernel] K2 one-hot rows {bits}/w_gate/M={M}: bit for bit "
+                f"the dequantized weight's rows")
+        del qw, w
+    return out
+
+
+def k2_resources(built: dict) -> list:
+    """The wgmma route's kernels (K2 ``qmm_tc_kernel``, K3
+    ``qgmm_tc_kernel``, each per code format and token columns BN):
+    registers, stack, spills and wgmma serialization from the build's
+    ``-Xptxas -v`` output, dynamic shared memory and ring stages (at group
+    512). From BN 128 the consumer warpgroups raise their registers to 240
+    (setmaxnreg); the count here is the launch's."""
+    import ctypes
+
+    from deepspeed_tpu_torch.ops import kernels
+
+    lib = kernels.load("quant_matmul")
+    entries = ptxas_entries(built.get("quant_matmul", {}).get("ptxas", ""))
+    rows = []
+    for kern, bns in (("qmm_tc_kernel", (8, 16, 32, 64, 128, 256)),
+                      ("qgmm_tc_kernel", (32, 64, 128, 256))):
+        for fmt, fname in ((0, "int8"), (1, "int4"), (2, "e4m3")):
+            for bn in bns:
+                mangled = f"{kern}ILi{fmt}ELi{bn}E"
+                found = [v for name, v in entries.items() if mangled in name]
+                stages = ctypes.c_int(0)
+                smem = lib.ds_quant_matmul_tc_smem(fmt, bn, 512,
+                                                   ctypes.byref(stages))
+                row = dict(kernel=f"{kern}<{fname}, {bn}>", smem_bytes=smem,
+                           stages=stages.value, **(found[0] if found else {}))
+                row.setdefault("wgmma_serialized", False)
+                rows.append(row)
+                log(f"[kernel] K2/K3 {row['kernel']:<28} registers "
+                    f"{row.get('regs', 'not reported')}, stack "
+                    f"{row.get('stack', '-')} B, spills "
+                    f"{row.get('spill_stores', '-')} / "
+                    f"{row.get('spill_loads', '-')} B, shared memory "
+                    f"{smem} B ({stages.value} stages), wgmma serialized "
+                    f"{row['wgmma_serialized']}")
+    return rows
+
+
 def phase_k2(dev) -> tuple[dict, list]:
     """K2 against its plain version. Returns (summary, cases)."""
     from deepspeed_tpu_torch.ops.quant_matmul import (
-        QuantLinear, counts, quant_matmul, quant_matmul_reference,
-        quantize_weight)
+        QuantLinear, counts, kernel_route, quant_matmul,
+        quant_matmul_reference, quantize_weight)
 
     results = []
 
@@ -909,8 +1019,10 @@ def phase_k2(dev) -> tuple[dict, list]:
         M, K = x.shape
         N = qw.shape[1]
         dtype = x.dtype
-        got = quant_matmul(x, qw, layer_index=layer_index)
-        torch.cuda.synchronize()
+        route = k2_route(M, K, qw, dtype, dev)
+        got = launch_twice(f"K2 {label} {dtype}", lambda: quant_matmul(
+            x, qw, layer_index=layer_index), counts,
+            kernel_route(dtype, qw.bits) == "wgmma")
         ref = quant_matmul_reference(x, qw, layer_index=layer_index)
         if got.shape != (M, N) or not torch.isfinite(got).all():
             raise AssertionError(f"K2 {label}: shape {tuple(got.shape)} or "
@@ -931,14 +1043,16 @@ def phase_k2(dev) -> tuple[dict, list]:
         dense_ms = cuda_time_ms(lambda: torch.matmul(xb, dense))
         bound, by, nbytes = k2_bound(M, K, N, qw, dtype)
         rec = dict(case=label, bits=str(qw.bits), M=M, K=K, N=N,
-                   dtype=str(dtype).replace("torch.", ""), max_abs_err=err,
+                   dtype=str(dtype).replace("torch.", ""), route=route,
+                   max_abs_err=err,
                    judged_err=judged, tol=K2_TOL[dtype],
                    max_abs_ref=ref.float().abs().max().item(), ms=ms,
                    plain_ms=plain_ms, dense_bf16_matmul_ms=dense_ms,
                    bound_ms=bound, bound_by=by, bytes=nbytes)
         results.append(rec)
-        log(f"[kernel] K2 {label:<30} {rec['dtype']:<8} err {judged:.2e} "
-            f"(tol {K2_TOL[dtype]:.0e}; max abs {err:.2e})  kernel "
+        log(f"[kernel] K2 {label:<30} {rec['dtype']:<8} {route:<20} err "
+            f"{judged:.2e} (tol {K2_TOL[dtype]:.0e}; max abs {err:.2e})  "
+            f"kernel "
             f"{ms:.4f} ms  plain {plain_ms:.3f} ms  dense bf16 matmul "
             f"{dense_ms:.4f} ms  bound {bound:.4f} ms ({by})")
         del got, ref, dense
@@ -978,6 +1092,7 @@ def phase_k2(dev) -> tuple[dict, list]:
                                      f"differs from the unstacked weight")
         del layers, st
         free_cuda()
+    one_hot = k2_one_hot(dev, seed + 1)
     host = k2_host_overhead(dev)
     counts.reset()
     bf = [r for r in results if r["dtype"] == "bfloat16"]
@@ -991,7 +1106,7 @@ def phase_k2(dev) -> tuple[dict, list]:
                    **{k: main[k] for k in ("ms", "plain_ms",
                                            "dense_bf16_matmul_ms",
                                            "bound_ms", "bound_by")})
-    return summary, results + [host]
+    return summary, results + one_hot + [host]
 
 
 def host_us_per_call(fn, n: int = 300) -> float:
@@ -1011,8 +1126,10 @@ def host_us_per_call(fn, n: int = 300) -> float:
 
 def k2_host_overhead(dev) -> dict:
     """The host's cost per product at a decode shape too small to keep the
-    card busy: K2's wrapper and launch against ``torch.matmul`` with a dense
-    bf16 weight, beside the stream lookup and ctypes call it includes."""
+    card busy: K2's wrapper and launch (bf16: the wgmma route, its tensor
+    maps found in the library's cache) against ``torch.matmul`` with a
+    dense bf16 weight, beside the stream lookup and ctypes call it
+    includes."""
     from deepspeed_tpu_torch.ops import kernels
     from deepspeed_tpu_torch.ops.quant_matmul import (quant_matmul,
                                                       quantize_weight)
@@ -1028,8 +1145,8 @@ def k2_host_overhead(dev) -> dict:
            "current_stream_us": host_us_per_call(
                lambda: torch.cuda.current_stream(dev).cuda_stream),
            "ctypes_noop_launch_us": host_us_per_call(
-               lambda: lib.ds_quant_matmul(0, 0, 0, 0, 0, 0, 1, 128, 1, 0, 0,
-                                           0, 0, 0, 0, 0, 0, 0, 0))}
+               lambda: lib.ds_quant_matmul_tc(0, 0, 0, 0, 0, 0, 0, 256, 128,
+                                              256, 0, 0, 0, 0, 8, 1, 0))}
     log(f"[kernel] host cost per call: K2 wrapper "
         f"{rec['k2_wrapper_us']:.1f} us, torch.matmul "
         f"{rec['torch_matmul_us']:.1f} us (of which stream lookup "
@@ -1479,8 +1596,9 @@ def phase_k3(dev) -> tuple[dict, list]:
     routings and fp32 x for int8, and stacked [L, n, ...] codes at a
     non-zero layer. Returns (summary, cases)."""
     from deepspeed_tpu_torch.ops.quant_matmul import (
-        QuantGrouped, grouped_counts, quant_grouped_matmul,
-        quant_grouped_matmul_reference, quantize_grouped)
+        QuantGrouped, grouped_counts, grouped_run_tiles, kernel_route,
+        quant_grouped_matmul, quant_grouped_matmul_reference,
+        quantize_grouped)
 
     results = []
 
@@ -1489,8 +1607,12 @@ def phase_k3(dev) -> tuple[dict, list]:
         dtype = buf.dtype
         kw = dict(layer_index=layer_index, block_m=K3_BLOCK_M,
                   tile_rows=srt.tile_rows)
-        got = quant_grouped_matmul(buf, qw, srt.tile_expert, **kw)
-        torch.cuda.synchronize()
+        route = kernel_route(dtype, qw.bits)
+        if route == "wgmma":
+            route += f" runs of {grouped_run_tiles(srt.Tp, n, K3_BLOCK_M)}"
+        got = launch_twice(f"K3 {tag} {dtype}", lambda: quant_grouped_matmul(
+            buf, qw, srt.tile_expert, **kw), grouped_counts,
+            kernel_route(dtype, qw.bits) == "wgmma")
         ref = quant_grouped_matmul_reference(buf, qw, srt.tile_expert, **kw)
         err, judged = check_grouped(f"K3 {tag}", got, ref, srt.Tp, N, dtype)
         ms = cuda_time_ms(lambda: quant_grouped_matmul(
@@ -1506,15 +1628,17 @@ def phase_k3(dev) -> tuple[dict, list]:
         wbytes = data[0].numel() * data.element_size() + scale[0].numel() * 4
         bound, by, nbytes, ops = grouped_bound(cnt, K, N, dtype, wbytes)
         rec = dict(case=tag, bits=str(qw.bits),
-                   dtype=str(dtype).replace("torch.", ""), Tp=srt.Tp,
+                   dtype=str(dtype).replace("torch.", ""), route=route,
+                   Tp=srt.Tp,
                    active_experts=int((cnt > 0).sum()), max_abs_err=err,
                    judged_err=judged, tol=K2_TOL[dtype], ms=ms,
                    plain_ms=plain_ms, library_ms=lib_ms, bound_ms=bound,
                    bound_by=by, bytes=nbytes, ops=ops)
         results.append(rec)
         lib_txt = f"{lib_ms:.4f}" if lib_ms is not None else "none"
-        log(f"[kernel] K3 {tag:<46} {rec['dtype']:<8} err {judged:.2e} "
-            f"(tol {K2_TOL[dtype]:.0e}; max abs {err:.2e})  kernel "
+        log(f"[kernel] K3 {tag:<46} {rec['dtype']:<8} {route:<14} err "
+            f"{judged:.2e} (tol {K2_TOL[dtype]:.0e}; max abs {err:.2e})  "
+            f"kernel "
             f"{ms:.4f} ms  plain {plain_ms:.3f} ms  bf16 _grouped_mm "
             f"{lib_txt} ms  bound {bound:.4f} ms ({by})")
         del got, ref
@@ -1632,7 +1756,9 @@ def all_counts() -> dict:
             "k1_chunk": pa.counts.kernel_chunk,
             "k1_split": pa.counts.kernel_split,
             "k1_plain": pa.counts.plain, "k2": qm.counts.kernel,
-            "k2_plain": qm.counts.plain, "k3": qm.grouped_counts.kernel,
+            "k2_tc": qm.counts.kernel_tc, "k2_plain": qm.counts.plain,
+            "k3": qm.grouped_counts.kernel,
+            "k3_tc": qm.grouped_counts.kernel_tc,
             "k3_plain": qm.grouped_counts.plain, "k5": gm.counts.kernel,
             "k5_plain": gm.counts.plain, "k5_dx": gm.counts.kernel_dx,
             "k5_dw": gm.counts.kernel_dw, "k5_tc": gm.counts.kernel_tc,
@@ -1685,8 +1811,8 @@ def check_launches(tag, got: dict, cfg, *, forwards, e4m3_pool, quant,
     ``moe.dropless`` without quantization; never K4 (serving has no
     full-sequence attention), K6 or K7; no plain version at all. With
     ``bf16`` every K1 launch is one of the chunk or the split kernel's and
-    every K5 launch took the wgmma route (the engine sorts at
-    ``dropless_block_m`` 128); in fp32 none does."""
+    every K2, K3 and K5 launch took the wgmma route (K5: the engine sorts
+    at ``dropless_block_m`` 128); in fp32 none does."""
     from deepspeed_tpu_torch.models.transformer import is_moe_layer
 
     L = cfg.num_layers
@@ -1710,7 +1836,8 @@ def check_launches(tag, got: dict, cfg, *, forwards, e4m3_pool, quant,
             "k6_bwd": 0, "k6_fwd_tc": 0, "k6_bwd_tc": 0, "k6_plain": 0,
             "k6_plain_bwd": 0, "k7": 0, "k7_chunk": 0, "k7_split": 0,
             "k7_plain": 0}
-    want["k5_tc"] = want["k5"] if bf16 else 0
+    for key in ("k2", "k3", "k5"):
+        want[key + "_tc"] = want[key] if bf16 else 0
     rest = dict(got)
     routed = rest.pop("k1_chunk") + rest.pop("k1_split")
     want_routed = want["k1"] + want["k1_e4m3"] if bf16 else 0
@@ -3863,7 +3990,9 @@ def main() -> int:
         for form, summary in forms.items():
             k1_forms[form].update(summary)
         cases += form_cases
+        k2_res = k2_resources(built)
         k2_summary, k2_cases = phase_k2(dev)
+        k2_cases = [{"resources": k2_res}] + k2_cases
         k2.update(k2_summary)
         k5_res = k5_resources(built)
         k5_summary, k5_cases = phase_k5(dev)
@@ -3901,6 +4030,9 @@ def main() -> int:
                          (k1_forms["tree"], "k1_tree"), (k2, "k2"),
                          (k3, "k3"), (k5, "k5")):
             rec["launches"] = sum(run["launches"][key] for run in runs)
+        # K2's and K3's launches on the wgmma route (every bf16 one)
+        for rec, key in ((k2, "k2_tc"), (k3, "k3_tc")):
+            rec["launches_wgmma"] = sum(run["launches"][key] for run in runs)
     if "train-parity" in phases:
         record["phases"]["train-parity"] = phase_train_parity(dev)
     if "train" in phases:

@@ -132,15 +132,33 @@ def _declare(name: str, lib: ctypes.CDLL) -> None:
         fn.restype = i
     elif name == "quant_matmul":
         fn = lib.ds_quant_matmul
-        # x, codes, scale, out, workspace; M, K, Np, G, fmt, dtype, layer;
+        # fp32: x, codes, scale, out, workspace; M, K, Np, G, fmt, layer;
         # codes / scale layer strides; decode, MR, KB, splits; stream
-        fn.argtypes = [p] * 5 + [i] * 7 + [ll, ll] + [i] * 4 + [p]
+        fn.argtypes = [p] * 5 + [i] * 6 + [ll, ll] + [i] * 4 + [p]
         fn.restype = i
         fn = lib.ds_quant_grouped_matmul
-        # x, codes, scale, tile_expert, tile_rows, out; Tp, K, Np, G, n,
-        # block_m, fmt, dtype, layer; codes / scale layer strides; stream
-        fn.argtypes = [p] * 6 + [i] * 9 + [ll, ll, p]
+        # fp32: x, codes, scale, tile_expert, tile_rows, out; Tp, K, Np, G,
+        # n, block_m, fmt, layer; codes / scale layer strides; stream
+        fn.argtypes = [p] * 6 + [i] * 8 + [ll, ll, p]
         fn.restype = i
+        fn = lib.ds_quant_matmul_tc
+        # x, codes, scale, out, workspace, counters; M, K, Np, G, fmt,
+        # layer; codes / scale layer strides; bn, splits; stream
+        fn.argtypes = [p] * 6 + [i] * 6 + [ll, ll, i, i, p]
+        fn.restype = i
+        fn = lib.ds_quant_grouped_matmul_tc
+        # x, codes, scale, tile_expert, tile_rows, out; Tp, K, Np, G, n,
+        # block_m, fmt, layer; codes / scale layer strides; run_tiles;
+        # stream
+        fn.argtypes = [p] * 6 + [i] * 8 + [ll, ll, i, p]
+        fn.restype = i
+        fn = lib.ds_quant_matmul_tc_smem
+        # fmt, bn, G, the ring's stages (out)
+        fn.argtypes = [i, i, i, ctypes.POINTER(i)]
+        fn.restype = i
+        fn = lib.ds_quant_error_name
+        fn.argtypes = [i]
+        fn.restype = ctypes.c_char_p
     elif name == "grouped_matmul":
         # the forward and dx: x (dy), w, tile_expert, tile_rows, out (dx);
         # dw: x, dy, tile_expert, tile_rows, dw; then Tp, K, N, n,

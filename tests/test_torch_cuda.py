@@ -1,7 +1,9 @@
 """The port on the card: the paged-attention CUDA kernel (default,
 e4m3-pool, sliding-window, rolling-ring and tree-verify forms), the
-quantized-weight kernel, the grouped MoE kernels (K5's forward, dx and dw
-on each route: wgmma, WMMA, FMA; K3), the flash-attention kernel (K4,
+quantized-weight kernels (K2 and K3: bf16 on the wgmma route, its
+widening bit for bit on one-hot rows, NaN padding rows never reaching a
+result), the grouped MoE kernels (K5's forward, dx and dw on each route:
+wgmma, WMMA, FMA), the flash-attention kernel (K4,
 forward and backward; its bf16 kernels also at the tensor-core tiles'
 edges, and their backward bit for bit from call to call), the block-sparse
 flash kernels (K6: forward, dq, dk/dv, on the wgmma route K4's bits on a
@@ -266,6 +268,139 @@ def test_quant_matmul_kernel_stacked_layer(dev, bits, M):
         ref = qm.quant_matmul_reference(x, st, layer_index=li)
         err = (got.float() - ref.float()).abs().max().item()
         assert err / ref.float().abs().max().item() <= 1e-2
+
+
+@pytest.mark.parametrize("bits", [8, 4, "fp8"])
+@pytest.mark.parametrize("M", [1, 8, 16, 17, 256])
+@pytest.mark.parametrize("K,N", [(1000, 200), (768, 640), (4096, 384)])
+def test_quant_matmul_wgmma_route_matches_plain_version(dev, bits, M, K, N):
+    """bf16 K2 on the wgmma route: every code format, token columns from 8
+    to 256 (M 17 in a 32-column block), K off the 64-k stage (1000, group
+    8: a stage touches nine scale rows) and N padded to 256, the K split
+    at decode (4096 x 384: three column blocks); max |error| over max
+    |plain| within K2_TOL, the same bits on a second launch."""
+    qw = qm.quantize_weight(_qweight(dev, K, N, seed=M), bits=bits)
+    x = torch.randn(M, K, device=dev,
+                    generator=torch.Generator(device=dev).manual_seed(2)
+                    ).to(torch.bfloat16)
+    before = (qm.counts.kernel, qm.counts.kernel_tc)
+    got = qm.quant_matmul(x, qw)
+    torch.cuda.synchronize()
+    assert (qm.counts.kernel, qm.counts.kernel_tc) == (before[0] + 1,
+                                                       before[1] + 1)
+    ref = qm.quant_matmul_reference(x, qw)
+    assert got.shape == ref.shape == (M, N) and got.dtype == torch.bfloat16
+    assert _judged(got, ref) <= 1e-2
+    again = qm.quant_matmul(x, qw)
+    torch.cuda.synchronize()
+    assert torch.equal(got, again)
+
+
+@pytest.mark.parametrize("bits", [8, 4, "fp8"])
+@pytest.mark.parametrize("M,K,N", [(8, 4096, 384), (16, 1000, 200),
+                                   (256, 768, 640)])
+def test_quant_matmul_one_hot_rows_are_the_dequantized_weight(dev, bits, M,
+                                                              K, N):
+    """One-hot rows of x pick rows of the weight: each output row is the
+    dequantized weight's row bit for bit (the kernel widens every code to
+    bf16(float(code) * scale) exactly, and the K split adds exact zeros)."""
+    qw = qm.quantize_weight(_qweight(dev, K, N, seed=5).to(torch.bfloat16),
+                            bits=bits)
+    ks = torch.randperm(K, generator=torch.Generator(device=dev)
+                        .manual_seed(M), device=dev)[:M]
+    x = torch.zeros(M, K, device=dev, dtype=torch.bfloat16)
+    x[torch.arange(M, device=dev), ks] = 1
+    got = qm.quant_matmul(x, qw)
+    assert torch.equal(got, qm.dequantize_weight(qw)[ks])
+
+
+def _tile_rows_partial(srt, seed):
+    """tile_rows cut short at random inside each tile that holds routed
+    rows (the cut rows become padding)."""
+    g = torch.Generator().manual_seed(seed)
+    tr = srt.tile_rows.cpu()
+    cut = (torch.rand(tr.shape, generator=g) * (tr + 1).float()).long()
+    return torch.minimum(tr, cut.clamp(min=1)).to(torch.int32).to(
+        srt.tile_rows.device)
+
+
+@pytest.mark.parametrize("bits", [8, 4, "fp8"])
+@pytest.mark.parametrize("T,k,n,K,N,bm,kind", [
+    (8, 4, 60, 512, 192, 32, "spread"),       # decode: runs of one tile
+    (300, 4, 12, 1024, 200, 32, "spread"),    # prefill: runs of 8 tiles
+    (600, 2, 6, 256, 256, 32, "skewed"),      # an expert past 8 tiles
+    (400, 4, 16, 384, 128, 32, "idle"),
+    (200, 2, 6, 1000, 136, 64, "spread"),     # K off the stage, block_m 64
+    (200, 2, 6, 256, 128, 32, "partial")])    # tile_rows cut inside tiles
+def test_quant_grouped_wgmma_route_matches_plain_version(dev, bits, T, k, n,
+                                                         K, N, bm, kind):
+    """bf16 K3 on the wgmma route under skewed, idle-expert and partial-tile
+    routings, with NaN in every padding row of x: within K2_TOL of the
+    plain version on the zero-padded buffer, zeros (never NaN) in padding
+    rows, the same bits on a second launch."""
+    idle = kind == "idle"       # routed to a quarter of the experts
+    buf, srt = _routed(dev, torch.bfloat16, T=T, k=k, n=n // 4 if idle
+                       else n, K=K, bm=bm, seed=T + n,
+                       kind="skewed" if kind == "skewed" else "spread")
+    tile_rows = (_tile_rows_partial(srt, T) if kind == "partial"
+                 else srt.tile_rows)
+    w = torch.stack([_qweight(dev, K, N, seed=e) for e in range(n)])
+    qw = qm.quantize_grouped(w, bits=bits)
+    kw = dict(block_m=bm, tile_rows=tile_rows)
+    pad = ~gm.row_mask(srt.Tp, bm, tile_rows)
+    clean = buf.clone()
+    clean[pad] = 0
+    nan_buf = buf.clone()
+    nan_buf[pad] = float("nan")
+    before = (qm.grouped_counts.kernel, qm.grouped_counts.kernel_tc)
+    got = qm.quant_grouped_matmul(nan_buf, qw, srt.tile_expert, **kw)
+    torch.cuda.synchronize()
+    assert (qm.grouped_counts.kernel, qm.grouped_counts.kernel_tc) == (
+        before[0] + 1, before[1] + 1)
+    ref = qm.quant_grouped_matmul_reference(clean, qw, srt.tile_expert, **kw)
+    assert got.shape == ref.shape == (srt.Tp, N)
+    assert torch.isfinite(got).all() and (got[pad] == 0).all()
+    assert _judged(got, ref) <= 1e-2
+    again = qm.quant_grouped_matmul(nan_buf, qw, srt.tile_expert, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(got, again)
+
+
+def test_quant_wgmma_route_runs_from_a_fresh_thread(dev):
+    """K2 and K3 on the wgmma route encode their weights' TMA maps on the
+    first call: made from a fresh thread (no current context yet), they
+    give the main thread's bits."""
+    import threading
+
+    qw = qm.quantize_weight(_qweight(dev, 1024, 384, seed=11), bits=4)
+    x = torch.randn(8, 1024, device=dev).to(torch.bfloat16)
+    buf, srt = _routed(dev, torch.bfloat16, T=40, k=2, n=6, K=512, bm=32,
+                       seed=12)
+    qg = qm.quantize_grouped(torch.stack(
+        [_qweight(dev, 512, 256, seed=20 + e) for e in range(6)]), bits=8)
+
+    def run():
+        return (qm.quant_matmul(x, qw), qm.quant_grouped_matmul(
+            buf, qg, srt.tile_expert, block_m=32, tile_rows=srt.tile_rows))
+
+    got = {}
+
+    def work():
+        try:
+            got["out"] = run()
+            torch.cuda.synchronize()
+        except Exception as err:          # raised again in the test thread
+            got["err"] = err
+
+    t = threading.Thread(target=work)
+    t.start()
+    t.join(timeout=120)
+    assert not t.is_alive()
+    if "err" in got:
+        raise got["err"]
+    main = run()
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(got["out"], main))
 
 
 def test_quant_matmul_never_dequantizes_on_the_card(dev, monkeypatch):
