@@ -150,8 +150,13 @@ Phases (every one raises on failure; nothing is caught and passed over):
    must be identical and every sampled step's logits agree within 1e-3
    relative; the one allowed exception is a step where the oracle's top-2
    logit gap is below 1e-4 (a near-tie in random weights), printed as such.
-   Then the same with ``quant_bits`` 8, 4 and "fp8", the oracle's weights
-   being ``dequantize_weight`` of the engine's codes; and an e4m3-pool
+   Every engine runs its async pipeline (``max_inflight`` 8) and replays a
+   captured CUDA graph for every decode window and decode step (the
+   programs also return their logits, which ride to the host with the
+   tokens); llama2-7b serves a second time at ``max_inflight=0``, and its
+   streams must equal the first's. Then the same with ``quant_bits`` 8, 4
+   and "fp8", the oracle's weights being ``dequantize_weight`` of the
+   engine's codes; and an e4m3-pool
    engine whose logits must stay within 0.5 (max) and 0.05 (mean) of the
    fp32-pool engine's while their streams agree (the JAX package's bound
    for its fp8 pool). Then Mixtral-8x7B (the capacity route, ``dropless``,
@@ -163,20 +168,42 @@ Phases (every one raises on failure; nothing is caught and passed over):
    tokens (past the 4416-token ring) and 300, 32 new tokens, against the
    dense forward (which masks the window) under the same rule, and an
    e4m3-pool ring within the fp8 bound. Then llama2-7b (4 layers) with
-   ``spec_decode``: "ngram" over motif prompts, "draft" with a same-weights
+   ``spec_decode``: "ngram" over motif prompts (at ``max_inflight=0``:
+   prompt lookup reads the committed history, and its rounds are
+   required here), "draft" with a same-weights
    draft (acceptance must exceed 0.9) and a differently seeded one, each
    stream identical to the spec-off engine's (a parting is allowed only at
    a near-tie of the dense model, as above); spec on a windowed model must
    raise ValueError. Each run asserts its K1 / K2 / K3 / K5 launches — K1's
    window and ring forms on every ring-served call, its tree form once per
-   layer of every verify — and 0 plain launches.
+   layer of every verify — counted per graph replay, 0 plain launches, and
+   that every decode window and decode step replayed a graph.
 4. serve  — llama2-7b at full width and depth in bf16 from seeded random
    weights: 8 requests of 256-1024 prompt tokens (a shared 128-token system
-   prefix) and 64 new tokens each, through put/step/query/flush. Prints
-   output tok/s, p50 TTFT, decode ms/token, peak memory, the parameter
-   bytes on the card and the kernels' launches: K1 equals layers x forward
-   dispatches, every one through the chunk or the split kernel, the plain
-   versions' counts are 0. Run three times: bf16
+   prefix) and 64 new tokens each, through put/step/query/flush, with the
+   async pipeline (``max_inflight`` 8) and every decode program captured
+   before the timed serve (``warm_decode_windows``, ``warm_decode_step``;
+   the serve must capture none). Prints output tok/s, p50 TTFT, decode
+   ms/token-step (the decode tail's span on the stream, timed by CUDA
+   events from where the work dispatched before it ends, over the
+   token-steps dispatched in it; and the window steps' host time over
+   their iterations, the measure of earlier runs), peak memory, the
+   parameter bytes on the card, the captured graphs (count, capture
+   seconds, pool bytes), their replays by key (every decode window and
+   decode step must replay one), forced and opportunistic drains, host us
+   a window dispatch, and the kernels' launches: K1 equals layers x
+   forward dispatches (counted per replay), every one through the chunk or
+   the split kernel, the plain versions' counts are 0. One more decode
+   window is timed by CUDA events. The bf16 and int8 llama2-7b runs hold
+   one window's graph replay against the same window run eagerly from the
+   same state, bit for bit (tokens, pool pages, last tokens, launches).
+   Every timed serve runs before any profiler: its CUPTI tracing stays
+   subscribed in the process and slows every later launch from the host.
+   Then each configuration is built again alike, and a profiled decode
+   window (the pipeline drained first) splits its device time by kernel
+   and says whether the profiler named the replayed kernels; the next
+   window's host time is printed beside the timed pass's.
+   Run three times: bf16
    weights and pool; ``quant_bits=8`` with ``kv_cache_dtype="fp8"`` (K1's
    e4m3 form); ``quant_bits=4``. The quantized runs launch K2 225 times per
    forward (7 products x 32 layers + the unembedding) and hold at most 0.55x
@@ -196,10 +223,10 @@ Phases (every one raises on failure; nothing is caught and passed over):
    on motif prompts: spec-off, ``spec_decode="ngram"`` and "draft" with the
    model itself as the draft (at least one verify), printing verify
    rounds, acceptance, tokens per verify and K1's tree launches beside the
-   spec-off run's tok/s and TTFT. Prompt lookup proposes only where a
-   stream repeats its history; the random 32-layer model's greedy streams
-   need not, so the "ngram" run's rounds are reported, not required (the
-   4-layer parity model's are). Acceptance is held to 0.9 in the fp32
+   spec-off run's tok/s and TTFT. Prompt lookup probes the committed
+   history, which lags the pipeline by up to ``max_inflight`` dispatches,
+   so the "ngram" run serves at ``max_inflight=0``; each spec run must make
+   at least one verify round. Acceptance is held to 0.9 in the fp32
    parity phase only: in bf16 the draft's one-token decode and the
    target's 8-node verify round near-ties of the random model's flat
    logits differently.
@@ -1709,36 +1736,63 @@ def phase_k3(dev) -> tuple[dict, list]:
 # ---------------------------------------------------------------------------
 
 def tap_engine_class():
-    """InferenceEngineV2 that keeps the logits of every sampled token, per
-    request, in stream order (for the parity phase only)."""
+    """InferenceEngineV2 that keeps the logits of every committed token, per
+    request, in stream order (for the parity phase only): its programs,
+    captured graphs included, also return their rows' fp32 logits, which
+    ride to the host beside the tokens and are kept at the commit."""
     from deepspeed_tpu_torch.inference import InferenceEngineV2
 
     class TapEngine(InferenceEngineV2):
+        _keep_logits = True
+
         def __init__(self, *a, **kw):
             super().__init__(*a, **kw)
             self.taps: dict[int, list[torch.Tensor]] = {}
-            self._rows = None
 
-        def _program(self, plan):
-            self._rows = lambda: [(r, u) for r, u in enumerate(plan.uids)
-                                  if u >= 0 and plan.do_sample[r]]
-            return super()._program(plan)
-
-        def _window_program(self, W, tok0, pos0, lens0, tables, rem, eos):
-            slot_uid = {sq.slot: u for u, sq in self.state.seqs.items()}
-            it = iter(range(W))
-            self._rows = lambda: (lambda i: [(sl, u) for sl, u in
-                                             slot_uid.items()
-                                             if rem[sl] > i])(next(it))
-            return super()._window_program(W, tok0, pos0, lens0, tables,
-                                           rem, eos)
-
-        def _sample(self, logits):
-            for r, u in self._rows():
-                self.taps.setdefault(u, []).append(logits[r].float().cpu())
-            return super()._sample(logits)
+        def _commit_entry(self, entry, toks_h, emitted):
+            logits = entry["out"][1]
+            if entry["kind"] == "window":
+                for uid, (sl, _) in entry["sched"].items():
+                    if uid in self.state.seqs:
+                        n = int((toks_h[:, sl] >= 0).sum())
+                        self.taps.setdefault(uid, []).extend(
+                            logits[i, sl].clone() for i in range(n))
+            else:
+                plan = entry["plan"]
+                for r, uid in enumerate(plan.uids):
+                    if uid >= 0 and plan.do_sample[r]:
+                        self.taps.setdefault(uid, []).append(
+                            logits[r].clone())
+            super()._commit_entry(entry, toks_h, emitted)
 
     return TapEngine
+
+
+def graph_replays(eng) -> dict:
+    """Replays of an engine's captured programs by key."""
+    return dict(eng._programs.stats()["replays"])
+
+
+def check_replays(tag, eng, before: dict, st0: dict) -> dict:
+    """Every decode window dispatched since ``before`` / ``st0`` (replays
+    and stats snapshots) replayed its ``("win", W)`` graph, and every
+    decode step plan the ``(1, max_seqs)`` graph: a capture or replay that
+    failed would have raised, and no eager decode path exists on the card
+    but ``decode_early_exit``. Returns the replays by key since."""
+    now = graph_replays(eng)
+    got = {k: n - before.get(k, 0) for k, n in now.items()
+           if n != before.get(k, 0)}
+    st = eng.stats
+    windows = st["windows"] - st0.get("windows", 0)
+    # a verify round counts as a decode step and runs eagerly
+    steps = (st["decode_steps"] - st0.get("decode_steps", 0)
+             - st["spec_rounds"] + st0.get("spec_rounds", 0))
+    step_key = str((1, eng.state.max_seqs))
+    won = sum(n for k, n in got.items() if "win" in k)
+    if won != windows or got.get(step_key, 0) < steps:
+        raise AssertionError(f"[{tag}] graph replays {got} for {windows} "
+                             f"windows and {steps} decode steps")
+    return got
 
 
 def all_counts() -> dict:
@@ -1916,7 +1970,8 @@ def no_drop_oracle(model) -> None:
 #: the parity phase's models (full width, 4 layers) and the engine routes
 #: each is held in: (label, engine options, MoE options)
 PARITY = {
-    "llama2-7b": (("dense", {}, {}), ("int8", {"quant_bits": 8}, {}),
+    "llama2-7b": (("dense", {}, {}), ("dense-sync", {"max_inflight": 0}, {}),
+                  ("int8", {"quant_bits": 8}, {}),
                   ("int4", {"quant_bits": 4}, {}),
                   ("fp8-weights", {"quant_bits": "fp8"}, {}),
                   ("fp8-pool", {"kv_cache_dtype": "fp8"}, {})),
@@ -1974,6 +2029,7 @@ def parity_ring(dev) -> dict:
                                  f"{eng._attn_decode_sel.path}, prefix "
                                  f"cache {eng._prefix_cache}")
         reset_counts()
+        replays0 = graph_replays(eng)
         got = eng.generate(prompts, max_new_tokens=new)
         launches = all_counts()
         eng.state.audit()
@@ -1981,7 +2037,8 @@ def parity_ring(dev) -> dict:
         check_launches(tag, launches, model.config, forwards=forwards,
                        e4m3_pool=bool(over), quant=False, ring=True)
         rec = {"launches": launches, "forwards": forwards,
-               "ring_tokens": ring}
+               "ring_tokens": ring,
+               "replays": check_replays(tag, eng, replays0, {})}
         if label == "fp32-pool":
             worst, near = oracle_check(tag, eng, model, prompts, got, new,
                                        dev)
@@ -2098,7 +2155,13 @@ def parity_spec(dev) -> dict:
     out = {"prompts": [len(p) for p in prompts], "new_tokens": new}
     weak = build_model("llama2-7b", num_layers=4, dtype=torch.float32,
                        device=dev, seed=7, attn_impl="xla")
-    for label, over, draft in (("ngram", {"spec_decode": "ngram"}, None),
+    # prompt lookup probes the committed history, which lags the pipeline
+    # by up to max_inflight dispatches (24 new tokens are 3 windows): the
+    # "ngram" engine commits synchronously so that its rounds, which this
+    # phase requires, see the stream; a draft always proposes, and its
+    # engines drain the pipeline before each round
+    for label, over, draft in (("ngram", {"spec_decode": "ngram",
+                                          "max_inflight": 0}, None),
                                ("draft-strong", {"spec_decode": "draft"},
                                 model),
                                ("draft-weak", {"spec_decode": "draft"},
@@ -2110,9 +2173,15 @@ def parity_spec(dev) -> dict:
             raise AssertionError(f"[{tag}] tree path "
                                  f"{eng._attn_tree_sel.path}")
         reset_counts()
+        replays0 = graph_replays(eng)
+        deng = eng._draft_engine
+        draft0 = graph_replays(deng) if deng else {}
         got = eng.generate(prompts, new)
         launches = all_counts()
         eng.state.audit()
+        check_replays(tag, eng, replays0, {})
+        if deng:
+            check_replays(tag + " draft", deng, draft0, {})
         st = spec_stats(eng)
         check_launches(tag, launches, model.config,
                        forwards=forwards_of(eng), e4m3_pool=False,
@@ -2178,6 +2247,7 @@ def parity_model(dev, name: str, routes) -> dict:
                                  f"{eng._attn_decode_sel.path}, not the "
                                  f"kernel")
         reset_counts()
+        replays0 = graph_replays(eng)
         streams = eng.generate(prompts, max_new_tokens=new)
         launches = all_counts()
         eng.state.audit()
@@ -2186,7 +2256,17 @@ def parity_model(dev, name: str, routes) -> dict:
         check_launches(tag, launches, model.config, forwards=forwards,
                        e4m3_pool="kv_cache_dtype" in over,
                        quant="quant_bits" in over)
-        rec = {"launches": launches, "forwards": forwards}
+        replays = check_replays(tag, eng, replays0, {})
+        rec = {"launches": launches, "forwards": forwards,
+               "max_inflight": eng.config.max_inflight, "replays": replays,
+               "forced_drains": eng.stats["forced_drains"]}
+        if label == "dense-sync":
+            # the synchronous pipeline: the same streams as max_inflight 8
+            if streams != dense_streams:
+                raise AssertionError(f"[{tag}] streams at max_inflight 0 "
+                                     f"differ from max_inflight 8's")
+            log(f"[{tag}] streams at max_inflight 0 identical to "
+                f"max_inflight 8's; replays {replays}")
         if label == "fp8-pool":
             rec.update(fp8_bound(tag, eng.taps, dense_taps, streams,
                                  dense_streams, new))
@@ -2200,7 +2280,8 @@ def parity_model(dev, name: str, routes) -> dict:
             log(f"[{tag}] {len(prompts)} greedy streams x {new} tokens "
                 f"identical to the dense oracle ({len(near)} near-ties); max "
                 f"logits error {worst:.2e} relative; launches {launches} "
-                f"({L} layers x {forwards} forwards)")
+                f"({L} layers x {forwards} forwards); max_inflight "
+                f"{eng.config.max_inflight}, graph replays {replays}")
         if label == "dense":
             dense_taps, dense_streams = eng.taps, streams
 
@@ -2288,20 +2369,78 @@ TRAFFIC = {
 }
 
 
-def serve_run(dev, name: str, label: str, layers: int | None = None,
-              traffic: str = "shared-prefix", draft: bool = False,
-              **over) -> dict:
+def graph_vs_eager(tag, eng, dev) -> dict:
+    """One decode window's graph replay against the same window run eagerly
+    from the same state (the pipeline drained; the pool pages of the
+    window's sequences, ``_last_tok`` restored in between): identical tokens,
+    pool bits and last tokens, and the same kernel launches. The state is
+    restored afterwards."""
+    from deepspeed_tpu_torch.inference.programs import pack
+
+    eng._drain(drain_all=True)
+    W, arrays, live, _ = eng._window_plan()
+    idx = torch.tensor(sorted({b for sq in live for b in sq.blocks}),
+                       device=dev)
+    pool = eng.kv_pool
+    bits = pool.view(torch.uint8 if pool.element_size() == 1
+                     else torch.int16)
+    rows0, last0 = bits.index_select(3, idx), eng._last_tok.clone()
+    flat = torch.from_numpy(pack(arrays)).to(dev)
+
+    def launched(before):
+        return {k: v - before[k] for k, v in all_counts().items()
+                if v != before[k]}
+
+    c0 = all_counts()
+    eager = eng._window_body(W, flat.clone())[0].clone()
+    torch.cuda.synchronize()
+    eager_counts = launched(c0)
+    rows_e, last_e = bits.index_select(3, idx), eng._last_tok.clone()
+    bits.index_copy_(3, idx, rows0)
+    eng._last_tok.copy_(last0)
+    prog = eng._programs.get(("win", W), lambda x: eng._window_body(W, x),
+                             flat.numel())
+    prog.replays -= 1                  # a check, not a serving replay
+    prog.inputs.copy_(flat)
+    c0 = all_counts()
+    replayed = prog.replay()[0].clone()
+    torch.cuda.synchronize()
+    graph_counts = launched(c0)
+    same = {"tokens": torch.equal(eager, replayed),
+            "pool": torch.equal(bits.index_select(3, idx), rows_e),
+            "last_tok": torch.equal(eng._last_tok, last_e),
+            "launches": eager_counts == graph_counts}
+    bits.index_copy_(3, idx, rows0)
+    eng._last_tok.copy_(last0)
+    rec = {"W": W, "slots": len(live), "pool_blocks": int(idx.numel()),
+           "identical": same, "launches": graph_counts}
+    if not all(same.values()) or not bool((eager >= 0).any()):
+        raise AssertionError(f"[{tag}] graph replay vs eager window: {rec}, "
+                             f"eager counts {eager_counts}")
+    log(f"[{tag}] window graph replay (W {W}, {len(live)} slots) identical "
+        f"to the eager window bit for bit: tokens, {idx.numel()} pool "
+        f"blocks, last tokens; launches {graph_counts} both ways")
+    return rec
+
+
+def serve_setup(dev, tag: str, name: str, layers: int | None, traffic: str,
+                draft: bool, over: dict, quiet: bool = False):
     """Model ``name`` at full width (and ``layers`` deep, all of them by
-    default) in bf16 from seeded random weights, serving 8 requests of
-    ``TRAFFIC[traffic]`` under the engine options ``over``. An MoE model
-    takes its dropless route (K5) unless ``quant_bits`` sends its experts
-    through K3. ``draft`` serves ``spec_decode="draft"`` with the model
-    itself as its draft (a second engine over the same weights)."""
+    default) in bf16 from seeded random weights, and its engine under the
+    options ``over``. An MoE model takes its dropless route (K5) unless
+    ``quant_bits`` sends its experts through K3. ``draft`` serves
+    ``spec_decode="draft"`` with the model itself as its draft (a second
+    engine over the same weights). A first request publishes the shared
+    system prefix (and warms the allocator and cuBLAS); then the prompts of
+    ``TRAFFIC[traffic]`` are drawn, and every decode program of every
+    engine — each window size and the decode step — is captured. The same
+    arguments give the same weights, prompts and state."""
+    from types import SimpleNamespace
+
     from deepspeed_tpu_torch.inference import InferenceEngineV2
     from deepspeed_tpu_torch.inference.weights import tree_nbytes
     from deepspeed_tpu_torch.models import build_model, get_model_config
 
-    tag = f"serve {name} {label}"
     t0 = time.perf_counter()
     mcfg = get_model_config(name)
     extra = {} if layers is None else {"num_layers": layers}
@@ -2310,7 +2449,6 @@ def serve_run(dev, name: str, label: str, layers: int | None = None,
     model = build_model(name, dtype=torch.bfloat16, device=dev, seed=1,
                         **extra)
     cfg = model.config
-    L, vocab = cfg.num_layers, cfg.vocab_size
     lens, sys_len, new, max_seq_len, num_blocks = TRAFFIC[traffic]
     eng = InferenceEngineV2(model, config=dict(
         block_size=64, num_blocks=num_blocks, max_seqs=8, chunk=256,
@@ -2327,21 +2465,22 @@ def serve_run(dev, name: str, label: str, layers: int | None = None,
                      for e in engines)
     param_bytes = tree_nbytes(eng.params)
     resident = torch.cuda.memory_allocated(dev) - pool_bytes
-    log(f"[{tag}] {name} ({L} layers, bf16 compute, seeded random "
-        f"weights, {over or 'no quantization'}) and "
-        f"{pool_bytes / 1e9:.1f} GB {eng.kv_pool.dtype} "
-        f"pool{'s' if len(engines) > 1 else ''} up in "
-        f"{time.perf_counter() - t0:.1f}s; parameters "
-        f"{param_bytes / 1e9:.2f} GB ({resident / 1e9:.2f} GB on the card "
-        f"besides the pool); attention path {eng._attn_decode_sel.path}")
+    if not quiet:
+        log(f"[{tag}] {name} ({cfg.num_layers} layers, bf16 compute, seeded "
+            f"random weights, {over or 'no quantization'}) and "
+            f"{pool_bytes / 1e9:.1f} GB {eng.kv_pool.dtype} "
+            f"pool{'s' if len(engines) > 1 else ''} up in "
+            f"{time.perf_counter() - t0:.1f}s; parameters "
+            f"{param_bytes / 1e9:.2f} GB ({resident / 1e9:.2f} GB on the "
+            f"card besides the pool); attention path "
+            f"{eng._attn_decode_sel.path}")
     if resident > 1.02 * param_bytes + (256 << 20):
         raise AssertionError(f"[{tag}] {resident / 1e9:.2f} GB stays on the "
                              f"card for {param_bytes / 1e9:.2f} GB of "
                              f"parameters")
+    vocab = cfg.vocab_size
     g = torch.Generator().manual_seed(1)
     system = torch.randint(0, vocab, (sys_len,), generator=g).tolist()
-    # a first request publishes the shared system prefix (and warms the
-    # allocator and cuBLAS); the measured batch then hits it
     eng.generate([system + torch.randint(0, vocab, (64,),
                                          generator=g).tolist()],
                  max_new_tokens=8)
@@ -2351,6 +2490,89 @@ def serve_run(dev, name: str, label: str, layers: int | None = None,
         prompts = [system + torch.randint(0, vocab, (n - sys_len,),
                                           generator=g).tolist()
                    for n in lens]
+    # every decode program captured ahead of the timed serve: each window
+    # size, and the step a budget's last single iteration dispatches
+    for e in engines:
+        e.warm_decode_windows()
+        e.warm_decode_step()
+    return SimpleNamespace(eng=eng, engines=engines, cfg=cfg, g=g,
+                           system=system, prompts=prompts, lens=lens,
+                           sys_len=sys_len, new=new, vocab=vocab,
+                           pool_bytes=pool_bytes, param_bytes=param_bytes,
+                           resident=resident)
+
+
+def token_steps(eng) -> int:
+    """Decode token-steps dispatched: window iterations and decode steps
+    (a verify round counts as one), at dispatch."""
+    return eng.stats["window_iters_dispatched"] + eng.stats["decode_steps"]
+
+
+def short_requests(s, traffic: str) -> None:
+    """8 requests of 16 new tokens past a shared-prefix prompt (motif
+    traffic: the first 64 tokens of each prompt), stepped until each has
+    only its decode left; the next dispatch decodes."""
+    eng, vocab = s.eng, s.vocab
+    short = [s.system + torch.randint(0, vocab, (64,), generator=s.g).tolist()
+             for _ in range(8)]
+    if traffic == "motif":
+        short = [p[:64] for p in s.prompts]
+    for uid, p in enumerate(short):
+        eng.put(100 + uid, p, max_new_tokens=16)
+    while any(eng.state.seqs[100 + u].pending_sched > 1 for u in range(8)):
+        eng.step()
+
+
+def finish_short(eng) -> None:
+    while any(not eng.query(100 + u).get("done", True) for u in range(8)):
+        eng.step()
+    for uid in range(8):
+        eng.flush(100 + uid)
+
+
+def event_window(eng) -> dict:
+    """One decode step (a window, or a verify round under spec_decode) with
+    the pipeline drained first, timed by CUDA events on the stream and by
+    the host's clock around ``step()``; no profiler."""
+    eng._drain(drain_all=True)
+    torch.cuda.synchronize()
+    ev0, ev1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    steps0 = token_steps(eng)
+    h0 = time.perf_counter()
+    ev0.record()
+    eng.step()
+    ev1.record()
+    host_ms = 1e3 * (time.perf_counter() - h0)
+    torch.cuda.synchronize()
+    eng._drain(drain_all=True)
+    return {"iters": token_steps(eng) - steps0,
+            "device_ms": ev0.elapsed_time(ev1), "host_step_ms": host_ms}
+
+
+def serve_run(dev, name: str, label: str, layers: int | None = None,
+              traffic: str = "shared-prefix", draft: bool = False,
+              bitcheck: bool = False, **over) -> dict:
+    """The timed serve of :func:`serve_setup`'s engine: 8 requests of
+    ``TRAFFIC[traffic]`` through put/step/query/flush, with the default
+    ``max_inflight`` (8) unless ``over`` says otherwise, every decode
+    program captured beforehand (the serve must capture none). Then 8 short
+    requests: ``bitcheck`` holds a window's graph replay against its eager
+    run (:func:`graph_vs_eager`), and one decode window is timed by events
+    (:func:`event_window`). No profiler runs here: its CUPTI tracing stays
+    subscribed once it has run and slows every later launch from the host
+    (:func:`serve_profile` profiles, after every timed serve)."""
+    tag = f"serve {name} {label}"
+    s = serve_setup(dev, tag, name, layers, traffic, draft, over)
+    eng, engines, cfg, vocab = s.eng, s.engines, s.cfg, s.vocab
+    L, prompts, new = cfg.num_layers, s.prompts, s.new
+    graphs = {f"engine {i}": e._programs.stats()
+              for i, e in enumerate(engines)}
+    for key, g_st in graphs.items():
+        log(f"[{tag}] {key}: {g_st['graphs']} captured programs "
+            f"({sorted(g_st['replays'])}) in {g_st['capture_s']:.2f} s, "
+            f"graph pool {g_st['pool_bytes'] / 1e6:.1f} MB")
+    captured0 = [set(e._programs.programs) for e in engines]
+    replays0 = [graph_replays(e) for e in engines]
     for e in engines:
         for k in list(e.stats):
             e.stats[k] = 0 if not isinstance(e.stats[k], float) else 0.0
@@ -2364,7 +2586,16 @@ def serve_run(dev, name: str, label: str, layers: int | None = None,
     out: dict[int, list[int]] = {u: [] for u in range(len(prompts))}
     window_s = verify_s = 0.0
     top_pos = most_blocks = 0        # the ring's reach, for a ring run
+    # the decode tail (no prefill left to dispatch): an event on the stream
+    # where the work dispatched before it ends, and the token-steps
+    # dispatched since
+    tail_ev, end_ev = (torch.cuda.Event(enable_timing=True)
+                       for _ in range(2))
+    tail = None
     while any(not eng.query(u).get("done", True) for u in out):
+        if tail is None and not eng.scheduler.pending_kinds()[0]:
+            tail_ev.record()
+            tail = token_steps(eng)
         w0, v0 = eng.stats["windows"], eng.stats["spec_rounds"]
         ts = time.perf_counter()
         emitted = eng.step()
@@ -2381,10 +2612,23 @@ def serve_run(dev, name: str, label: str, layers: int | None = None,
             if toks and u not in first:
                 first[u] = now
             out[u].extend(toks)
+    end_ev.record()
     wall = time.perf_counter() - t0
+    torch.cuda.synchronize()
     launches = all_counts()
     st = dict(eng.stats)
     window_iters = st["window_iters_max"]
+    tail_steps = token_steps(eng) - tail if tail is not None else 0
+    tail_ms = (tail_ev.elapsed_time(end_ev) / tail_steps if tail_steps
+               else None)
+    replays = [check_replays(tag + f" engine {i}", e, r0, {})
+               for i, (e, r0) in enumerate(zip(engines, replays0))]
+    for i, (e, keys) in enumerate(zip(engines, captured0)):
+        if set(e._programs.programs) != keys:
+            raise AssertionError(
+                f"[{tag}] engine {i} captured "
+                f"{sorted(set(e._programs.programs) - keys)} during the "
+                f"timed serve")
     for u in out:
         if eng.flush(u) != out[u] or len(out[u]) != new:
             raise AssertionError(f"[{tag}] uid {u}: stream of {len(out[u])}")
@@ -2398,7 +2642,7 @@ def serve_run(dev, name: str, label: str, layers: int | None = None,
                    quant=bool(over.get("quant_bits")), ring=bool(ring),
                    verifies=st["spec_rounds"],
                    draft_k1=L * draft_forwards(eng), bf16=True)
-    if st["prefix_hit_tokens"] < sys_len * len(prompts):
+    if st["prefix_hit_tokens"] < s.sys_len * len(prompts):
         raise AssertionError(f"[{tag}] prefix cache served "
                              f"{st['prefix_hit_tokens']} tokens")
     if ring:
@@ -2412,39 +2656,134 @@ def serve_run(dev, name: str, label: str, layers: int | None = None,
             f"{top_pos} served, at most {most_blocks} pages per sequence")
     spec = spec_stats(eng) if eng._spec is not None else None
     if spec is not None:
-        # a draft always proposes; prompt lookup only where the stream
-        # repeats its history, which random weights at full depth need not
+        # every verify through K1's tree form, and at least one round: a
+        # draft always proposes; prompt lookup probes the committed
+        # history, which the "ngram" run (max_inflight 0) keeps current
         if st["attn_cuda_tree"] != spec["spec_rounds"] or \
-                (draft and spec["spec_rounds"] == 0):
+                spec["spec_rounds"] == 0:
             raise AssertionError(f"[{tag}] verifies {spec}")
         log(f"[{tag}] {spec['spec_rounds']} verify rounds, acceptance "
             f"{spec['spec_accept_rate']:.3f}, {spec['tokens_per_verify']:.2f}"
             f" tokens per verify, K1 tree launches {launches['k1_tree']}, "
             f"draft forwards {draft_forwards(eng)}")
-    # where the device time goes: one profiled decode step (8 requests of
-    # 16 new tokens past a shared-prefix prompt: a window, or a verify
-    # round under spec_decode), separate from the timed run above
-    short = [system + torch.randint(0, vocab, (64,), generator=g).tolist()
-             for _ in range(8)]
-    if traffic == "motif":
-        short = [p[:64] for p in prompts]
-    for uid, p in enumerate(short):
-        eng.put(100 + uid, p, max_new_tokens=16)
-    while any(eng.state.seqs[100 + u].pending_sched > 1 for u in range(8)):
-        eng.step()                  # prefill; the next dispatch decodes
-    iters0 = eng.stats["window_iters_max"]
+    short_requests(s, traffic)
+    bits = graph_vs_eager(tag, eng, dev) if bitcheck else None
+    ew = event_window(eng)
+    finish_short(eng)
+    res = {"options": over, "max_inflight": eng.config.max_inflight,
+           "requests": len(prompts),
+           "prompt_tokens": sum(s.lens), "new_tokens": new, "wall_s": wall,
+           "output_tok_s": len(prompts) * new / wall,
+           "ttft_p50_s": statistics.median(first.values()),
+           "ttft_max_s": max(first.values()),
+           # the decode tail's span on the stream (from the end of the work
+           # dispatched before it) over the token-steps dispatched in it
+           "decode_ms_per_token": (tail_ms if tail_ms is not None else
+                                   1e3 * window_s / max(window_iters, 1)),
+           "tail_token_steps": tail_steps,
+           # PR 13's measure: the window steps' host wall over their
+           # iterations (the same thing while commits were synchronous)
+           "window_step_ms_per_iter": 1e3 * window_s / max(window_iters, 1),
+           "window_iters": window_iters,
+           "window_dispatch_us": 1e6 * st["window_dispatch_s"]
+           / max(st["windows"], 1),
+           "forced_drains": st["forced_drains"],
+           "opportunistic_drains": st["opportunistic_drains"],
+           "drain_block_s": st["drain_block_s"],
+           "graphs": graphs, "replays": replays, "graph_vs_eager": bits,
+           "event_window": ew,
+           "peak_mem_gb": torch.cuda.max_memory_allocated(dev) / 1e9,
+           "param_bytes": s.param_bytes, "resident_param_bytes": s.resident,
+           "pool_bytes": s.pool_bytes, "launches": launches,
+           "forwards": forwards, "stats": st,
+           "ring_tokens": ring, "top_position": top_pos,
+           "most_blocks": most_blocks, "spec": spec,
+           "ms_per_verify_round": (1e3 * verify_s / st["spec_rounds"]
+                                   if st["spec_rounds"] else None)}
+    log(f"[{tag}] {len(prompts)} requests ({sum(s.lens)} prompt tokens, "
+        f"{st['prefix_hit_tokens']} from the prefix cache) x {new} new "
+        f"tokens in {wall:.2f}s: {res['output_tok_s']:.1f} output tok/s, "
+        f"p50 TTFT {res['ttft_p50_s']:.3f}s, decode "
+        f"{res['decode_ms_per_token']:.2f} ms/token-step (the tail's span on "
+        f"the stream over its {tail_steps} token-steps)"
+        + (f", {res['ms_per_verify_round']:.2f} ms per verify round"
+           if res["ms_per_verify_round"] else "")
+        + f", peak memory {res['peak_mem_gb']:.1f} GB")
+    log(f"[{tag}] pipeline: max_inflight {eng.config.max_inflight}, "
+        f"{st['forced_drains']} forced / {st['opportunistic_drains']} "
+        f"opportunistic drains ({st['drain_block_s']:.3f} s blocked), "
+        f"{res['window_dispatch_us']:.0f} host us a window dispatch, "
+        f"window steps {res['window_step_ms_per_iter']:.2f} ms an iteration; "
+        f"replays {replays}; an event-timed window of "
+        f"{ew['iters']} iterations: {ew['device_ms']:.2f} ms on the stream, "
+        f"{ew['host_step_ms']:.2f} ms of host step()")
+    log(f"[{tag}] launches {launches} for {L} layers x {forwards} forwards "
+        f"({st['prefill_steps']} prefill steps, {st['decode_steps']} decode "
+        f"steps, {st['window_iters_max']} window iterations); K1 by kernel: "
+        f"chunk {launches['k1_chunk']}, split {launches['k1_split']}")
+    del eng, engines, s
+    free_cuda()
+    return res
+
+
+def serve_profile(dev, name: str, label: str, layers: int | None = None,
+                  traffic: str = "shared-prefix", draft: bool = False,
+                  bitcheck: bool = False, **over) -> dict:
+    """Where the device time of :func:`serve_run`'s configuration goes, on
+    an engine rebuilt alike (same weights, prompts and captures): one
+    profiled decode step of the 8 short requests (a window, or a verify
+    round under spec_decode), the pipeline drained first; whether the
+    profiler named the kernels the graph replayed; then the next window
+    timed by events as :func:`serve_run` times it, now with the profiler's
+    tracing subscribed. For the long-window traffic also one profiled
+    prefill step (:func:`profile_prefill_step`)."""
+    tag = f"serve {name} {label}"
+    s = serve_setup(dev, tag, name, layers, traffic, draft, over, quiet=True)
+    eng = s.eng
+    short_requests(s, traffic)
+    eng._drain(drain_all=True)      # the window alone on the device
+    torch.cuda.synchronize()
+    steps0 = token_steps(eng)
+    c0 = all_counts()
     prof = device_breakdown(eng.step)
-    prof["window_iters"] = eng.stats["window_iters_max"] - iters0
-    while any(not eng.query(100 + u).get("done", True) for u in range(8)):
-        eng.step()
-    for uid in range(8):
-        eng.flush(100 + uid)
+    prof["window_iters"] = token_steps(eng) - steps0
+    eng._drain(drain_all=True)
+    c1 = all_counts()
+    k1_n = c1["k1"] + c1["k1_e4m3"] - c0["k1"] - c0["k1_e4m3"]
+    # kernels launched from a graph replay, attributed by name?
+    prof["replay_kernels_named"] = bool(k1_n == 0 or prof.get("k1_ms"))
+    if not prof["replay_kernels_named"]:
+        log(f"[{tag}] the profiler did not attribute the replayed window's "
+            f"kernels by name ({k1_n} K1 launches, no K1 time)")
+    prof["event_window_after_profile"] = event_window(eng)
+    finish_short(eng)
+    if traffic == "long-window":
+        # where a long-context prefill step's time goes: K1's chunk kernel
+        # against the matrix products
+        prof["prefill"] = profile_prefill_step(eng, s.vocab, s.g)
+    del eng, s
+    free_cuda()
+    return prof
+
+
+def log_profile(tag: str, res: dict) -> None:
+    """:func:`serve_profile`'s record beside :func:`serve_run`'s event-timed
+    window: the idle share of the stream without the profiler (the
+    profiled window's busy time per iteration against the event-timed
+    window's span)."""
+    prof, ew = res["profiled_window"], res["event_window"]
+    after = prof["event_window_after_profile"]
+    if ew["iters"] and prof.get("busy_ms") and prof["window_iters"]:
+        ew["idle_share_est"] = max(0.0, 1 - prof["busy_ms"]
+                                   / prof["window_iters"] * ew["iters"]
+                                   / ew["device_ms"])
     if "busy_ms" in prof:
         log(f"[{tag}] one profiled decode window ({prof['window_iters']} "
             f"iterations x 8 slots): wall "
             f"{prof['wall_ms']:.2f} ms, device busy {prof['busy_ms']:.2f} "
-            f"ms (idle share {prof['idle_share']:.2f}): K1 "
-            f"{prof['k1_ms']:.2f} ms, K2 {prof['k2_ms']:.2f} ms, K3 "
+            f"ms (idle share {prof['idle_share']:.2f}; of the event-timed "
+            f"window's span {ew.get('idle_share_est', float('nan')):.2f}): "
+            f"K1 {prof['k1_ms']:.2f} ms, K2 {prof['k2_ms']:.2f} ms, K3 "
             f"{prof['k3_ms']:.2f} ms, K5 {prof['k5_ms']:.2f} ms, matrix "
             f"products {prof['gemm_ms']:.2f} ms, other kernels "
             f"{prof['other_ms']:.2f} ms")
@@ -2453,56 +2792,27 @@ def serve_run(dev, name: str, label: str, layers: int | None = None,
     else:
         log(f"[{tag}] profiled decode window: device time not measured "
             f"(wall {prof['wall_ms']:.2f} ms)")
-    prefill_prof = None
-    if traffic == "long-window":
-        # where a long-context prefill step's time goes: K1's chunk kernel
-        # against the matrix products
-        prefill_prof = profile_prefill_step(eng, vocab, g)
-        pp = prefill_prof
-        if "busy_ms" in pp:
-            log(f"[{tag}] one profiled prefill step (4 prompts x 256 rows "
-                f"at {pp['context']} keys): wall {pp['wall_ms']:.2f} ms, "
-                f"device busy {pp['busy_ms']:.2f} ms (idle share "
-                f"{pp['idle_share']:.2f}): K1 {pp['k1_ms']:.2f} ms, matrix "
-                f"products {pp['gemm_ms']:.2f} ms, other kernels "
-                f"{pp['other_ms']:.2f} ms")
-            for name, ms in pp["top"]:
-                log(f"[{tag}]   {ms:8.3f} ms  {name[:100]}")
-        else:
-            log(f"[{tag}] profiled prefill step: device time not measured "
-                f"(wall {pp['wall_ms']:.2f} ms)")
-    res = {"options": over, "requests": len(prompts),
-           "prompt_tokens": sum(lens), "new_tokens": new, "wall_s": wall,
-           "output_tok_s": len(prompts) * new / wall,
-           "ttft_p50_s": statistics.median(first.values()),
-           "ttft_max_s": max(first.values()),
-           "decode_ms_per_token": 1e3 * window_s / max(window_iters, 1),
-           "window_iters": window_iters,
-           "peak_mem_gb": torch.cuda.max_memory_allocated(dev) / 1e9,
-           "param_bytes": param_bytes, "resident_param_bytes": resident,
-           "pool_bytes": pool_bytes, "launches": launches,
-           "forwards": forwards, "stats": st, "profiled_window": prof,
-           "profiled_prefill": prefill_prof,
-           "ring_tokens": ring, "top_position": top_pos,
-           "most_blocks": most_blocks, "spec": spec,
-           "ms_per_verify_round": (1e3 * verify_s / st["spec_rounds"]
-                                   if st["spec_rounds"] else None)}
-    log(f"[{tag}] {len(prompts)} requests ({sum(lens)} prompt tokens, "
-        f"{st['prefix_hit_tokens']} from the prefix cache) x {new} new "
-        f"tokens in {wall:.2f}s: {res['output_tok_s']:.1f} output tok/s, "
-        f"p50 TTFT {res['ttft_p50_s']:.3f}s, decode "
-        f"{res['decode_ms_per_token']:.2f} ms/token-step over "
-        f"{window_iters} window iterations"
-        + (f", {res['ms_per_verify_round']:.2f} ms per verify round"
-           if res["ms_per_verify_round"] else "")
-        + f", peak memory {res['peak_mem_gb']:.1f} GB")
-    log(f"[{tag}] launches {launches} for {L} layers x {forwards} forwards "
-        f"({st['prefill_steps']} prefill steps, {st['decode_steps']} decode "
-        f"steps, {st['window_iters_max']} window iterations); K1 by kernel: "
-        f"chunk {launches['k1_chunk']}, split {launches['k1_split']}")
-    del eng
-    free_cuda()
-    return res
+    log(f"[{tag}] host step() of an event-timed window: "
+        f"{ew['host_step_ms']:.2f} ms before any profiler ran, "
+        f"{after['host_step_ms']:.2f} ms after one profiled window "
+        f"(windows of {ew['iters']} and {after['iters']} iterations: "
+        f"{ew['device_ms']:.2f} and {after['device_ms']:.2f} ms on the "
+        f"stream)")
+    pp = prof.get("prefill")
+    if pp is None:
+        return
+    if "busy_ms" in pp:
+        log(f"[{tag}] one profiled prefill step (4 prompts x 256 rows "
+            f"at {pp['context']} keys): wall {pp['wall_ms']:.2f} ms, "
+            f"device busy {pp['busy_ms']:.2f} ms (idle share "
+            f"{pp['idle_share']:.2f}): K1 {pp['k1_ms']:.2f} ms, matrix "
+            f"products {pp['gemm_ms']:.2f} ms, other kernels "
+            f"{pp['other_ms']:.2f} ms")
+        for name, ms in pp["top"]:
+            log(f"[{tag}]   {ms:8.3f} ms  {name[:100]}")
+    else:
+        log(f"[{tag}] profiled prefill step: device time not measured "
+            f"(wall {pp['wall_ms']:.2f} ms)")
 
 
 def profile_prefill_step(eng, vocab: int, g, lens=(4608, 5120, 5632, 6144),
@@ -2544,49 +2854,76 @@ SERVE = (("llama2-7b", None, 0.55, 0.30),
          ("qwen2-moe-a2.7b", None, 0.56, 0.34))
 
 
+def serve_runs() -> list[tuple[str, str, str, dict]]:
+    """Every serve run: (record key, label, model, serve_run's keyword
+    arguments)."""
+    runs = []
+    for name, layers, _, _ in SERVE:
+        check = name == "llama2-7b"
+        runs += [(name, "bf16", name, dict(layers=layers, bitcheck=check)),
+                 (name, "int8+fp8-pool", name,
+                  dict(layers=layers, bitcheck=check, quant_bits=8,
+                       kv_cache_dtype="fp8")),
+                 (name, "int4", name, dict(layers=layers, quant_bits=4))]
+    # mistral-7b past its window, from the rolling ring (bf16 and e4m3
+    # pools); llama2-7b's speculative decoding beside spec-off on the same
+    # motif traffic. Prompt lookup probes the committed history, which
+    # lags the pipeline by up to max_inflight dispatches: the "ngram" run
+    # commits synchronously, so that it proposes
+    runs += [("mistral-7b ring", "bf16", "mistral-7b",
+              dict(traffic="long-window")),
+             ("mistral-7b ring", "fp8-pool", "mistral-7b",
+              dict(traffic="long-window", kv_cache_dtype="fp8")),
+             ("llama2-7b spec", "spec-off", "llama2-7b",
+              dict(traffic="motif")),
+             ("llama2-7b spec", "ngram", "llama2-7b",
+              dict(traffic="motif", spec_decode="ngram", max_inflight=0)),
+             ("llama2-7b spec", "draft", "llama2-7b",
+              dict(traffic="motif", draft=True, spec_decode="draft"))]
+    return runs
+
+
+def serve_label(key: str, label: str) -> str:
+    return (f"{label} ring" if key == "mistral-7b ring" else
+            f"motif {label}" if key == "llama2-7b spec" else label)
+
+
 def phase_serve(dev) -> dict:
-    out = {}
-    for name, layers, lim8, lim4 in SERVE:
-        runs = {"bf16": serve_run(dev, name, "bf16", layers),
-                "int8+fp8-pool": serve_run(dev, name, "int8+fp8-pool",
-                                           layers, quant_bits=8,
-                                           kv_cache_dtype="fp8"),
-                "int4": serve_run(dev, name, "int4", layers, quant_bits=4)}
-        base = runs["bf16"]["param_bytes"]
+    """Every timed serve first, then every profile: once a profiler has
+    run, its tracing stays subscribed in the process and slows every
+    launch from the host, so no timed serve follows one."""
+    out: dict = {}
+    runs = serve_runs()
+    for key, label, name, kw in runs:
+        out.setdefault(key, {})[label] = serve_run(
+            dev, name, serve_label(key, label), **kw)
+    for key, label, name, kw in runs:
+        res = out[key][label]
+        res["profiled_window"] = serve_profile(
+            dev, name, serve_label(key, label), **kw)
+        log_profile(f"serve {name} {serve_label(key, label)}", res)
+    for name, _, lim8, lim4 in SERVE:
+        runs_ = out[name]
+        base = runs_["bf16"]["param_bytes"]
         for label, limit in (("int8+fp8-pool", lim8), ("int4", lim4)):
-            ratio = runs[label]["param_bytes"] / base
-            runs[label]["param_bytes_over_bf16"] = ratio
+            ratio = runs_[label]["param_bytes"] / base
+            runs_[label]["param_bytes_over_bf16"] = ratio
             log(f"[serve] {name} {label}: parameter bytes {ratio:.3f}x the "
                 f"bf16 run's (limit {limit})")
             if ratio > limit:
                 raise AssertionError(f"[serve] {name} {label} keeps "
                                      f"{ratio:.3f}x the bf16 parameter "
                                      f"bytes (> {limit})")
-        out[name] = runs
-    # mistral-7b past its window, from the rolling ring (bf16 and e4m3
-    # pools); llama2-7b's speculative decoding beside spec-off on the same
-    # motif traffic
-    out["mistral-7b ring"] = {
-        "bf16": serve_run(dev, "mistral-7b", "bf16 ring",
-                          traffic="long-window"),
-        "fp8-pool": serve_run(dev, "mistral-7b", "fp8-pool ring",
-                              traffic="long-window", kv_cache_dtype="fp8")}
-    spec = {"spec-off": serve_run(dev, "llama2-7b", "motif spec-off",
-                                  traffic="motif"),
-            "ngram": serve_run(dev, "llama2-7b", "motif ngram",
-                               traffic="motif", spec_decode="ngram"),
-            "draft": serve_run(dev, "llama2-7b", "motif draft",
-                               traffic="motif", draft=True,
-                               spec_decode="draft")}
+    spec = out["llama2-7b spec"]
     for label in ("ngram", "draft"):
         r, off = spec[label], spec["spec-off"]
-        log(f"[serve] llama2-7b {label} vs spec-off: "
+        log(f"[serve] llama2-7b {label} (max_inflight {r['max_inflight']}) "
+            f"vs spec-off (max_inflight {off['max_inflight']}): "
             f"{r['output_tok_s']:.1f} vs {off['output_tok_s']:.1f} output "
             f"tok/s, p50 TTFT {r['ttft_p50_s']:.3f} vs "
             f"{off['ttft_p50_s']:.3f} s, {r['spec']['tokens_per_verify']:.2f}"
             f" tokens per verify at acceptance "
             f"{r['spec']['spec_accept_rate']:.3f}")
-    out["llama2-7b spec"] = spec
     return out
 
 

@@ -17,11 +17,24 @@ surface (``put`` / ``step`` / ``query`` / ``flush`` / ``generate`` /
   ``decode_window`` iterations in one dispatch, its fresh K/V accumulating
   in a stage buffer that merges once after the loop.
 
-What differs from the JAX engine: PyTorch runs eagerly, so there are no
-compiled programs to cache, stack layers for or warm (``weight_prefetch`` and
-``decode_early_exit`` keep their meaning as far as eager execution has one),
-and commits are synchronous — the ``max_inflight=0`` behaviour, with the
-same streams. Features of later slices (tensor parallelism, KV tiering,
+Dispatch never waits (the JAX engine's async pipeline): the last sampled
+token of every slot stays on the device (``_last_tok``), and a plan whose
+previous token is still in flight reads it there (``use_last``); each
+dispatch's sampled tokens ride a device-to-host copy into a pinned buffer
+of its own, and host commits lag up to ``max_inflight`` dispatches behind
+(``_drain``). ``max_inflight=0`` commits every dispatch within its
+``step()``, the synchronous contract.
+
+Compiled programs: on the card every decode window (``("win", W)``, each
+pow2 W up to ``decode_window``) and every decode step plan (``(1,
+max_seqs)``) replays a CUDA graph of its eager function, captured once per
+key (``inference/programs.py``; ``warm_decode_windows`` and
+``warm_decode_step`` capture them ahead of serving). Prefill plans, the speculative verify forward and the
+``decode_early_exit`` window (whose host test each iteration is the JAX
+``while_loop`` form's exit, which a graph cannot take) run eagerly, equally
+asynchronous; on the CPU every program runs eagerly through the kernels'
+plain versions. ``weight_prefetch`` (an XLA scheduling hint) has no
+counterpart. Features of later slices (tensor parallelism, KV tiering,
 telemetry, request tracing) raise NotImplementedError at construction.
 
 Sliding-window models (mistral) serve from a rolling KV ring: the block
@@ -76,6 +89,7 @@ from ..ops.quant_matmul import (QuantGrouped, QuantLinear,
                                 quantize_grouped, quantize_weight, to_e4m3)
 from ..utils.logging import logger
 from .attn_registry import select_attention
+from .programs import HostStaging, ProgramCache, pack, unpack
 from .ragged import StateManager, StepPlan
 from .sampling import sample_logits, sample_tree_logits
 from .scheduler import SpecAcceptTracker, SplitFuseScheduler
@@ -111,7 +125,8 @@ class RaggedInferenceConfig:
     #: an XLA scheduling hint in the JAX engine; eager PyTorch has no
     #: counterpart, so it is accepted and has no effect
     weight_prefetch: bool = True
-    #: accepted; commits are synchronous in this slice (max_inflight=0)
+    #: dispatches whose commits may lag behind (0 = commit within the
+    #: step() that dispatched)
     max_inflight: int = 8
     quant_bits: int | str | None = None
     prefill_pack: bool = True
@@ -171,6 +186,10 @@ def _refuse_later_slices(cfg: RaggedInferenceConfig) -> None:
 
 
 class InferenceEngineV2:
+    #: programs also return their sampled rows' fp32 logits (``out[1]`` of
+    #: an in-flight entry), for checks against a dense oracle; set before
+    #: the first dispatch, since a captured program keeps its outputs
+    _keep_logits = False
     #: token-tile size shared by the quantized-MoE sort alignment and the
     #: grouped quantized product K3 (the JAX engine's value: a serving step
     #: carries few tokens, so small tiles waste less padding)
@@ -277,15 +296,30 @@ class InferenceEngineV2:
         self._gen = torch.Generator(device=dev)
         self._gen.manual_seed(17)
         self._results: dict[int, list[int]] = {}
-        # dispatched steps awaiting their commit (drained every step)
+        # device-resident last sampled token per slot: a plan whose previous
+        # token is still in flight reads it here (use_last), so a dispatch
+        # never waits for the previous one's readback
+        self._last_tok = torch.zeros(cfg.max_seqs, dtype=torch.long,
+                                     device=dev)
+        # async pipeline: dispatched steps whose sampled tokens are still on
+        # their way to the host; committed lazily (see _drain)
         self._inflight: deque = deque()
+        # the card's captured programs and the pinned staging of plan
+        # arrays; on the CPU every program runs eagerly
+        cuda = dev.type == "cuda"
+        self._programs = ProgramCache(dev, self._gen) if cuda else None
+        self._staging = (HostStaging(max(cfg.max_inflight, 1) + 2) if cuda
+                         else None)
         # mixed-load alternation: True → the next dispatch prefers decode
         self._serve_toggle = False
         sel = self._attn_decode_sel.path
         self.stats = {"plan_s": 0.0, "dispatch_s": 0.0, "commit_s": 0.0,
+                      "drain_block_s": 0.0, "window_dispatch_s": 0.0,
                       "dispatches": 0, "prefill_steps": 0,
                       "decode_steps": 0, "windows": 0, "window_iters": 0,
-                      "window_iters_max": 0, "prefill_budget_tokens": 0,
+                      "window_iters_max": 0, "window_iters_dispatched": 0,
+                      "forced_drains": 0, "d2h_latency_s": 0.0,
+                      "opportunistic_drains": 0, "prefill_budget_tokens": 0,
                       "prefill_tokens": 0, "decode_tokens": 0,
                       "prefix_hit_tokens": 0, "prefix_lookup_tokens": 0,
                       "prefix_hit_rate": 0.0,
@@ -299,12 +333,16 @@ class InferenceEngineV2:
                       "spec_steps_saved": 0, "spec_accept_rate": 0.0,
                       f"attn_{sel}_decode": 0,
                       f"attn_{self._attn_tree_sel.path}_tree": 0}
+        # the first dispatch's readback, timed by events on the stream
+        # (``d2h_latency_s`` once it commits)
+        self._d2h_timing: tuple | None = None
 
         self._spec = None
         self._spec_tracker = None
         self._draft_engine = None
-        # tokens committed by spec rounds inside _dispatch_next, folded
-        # into step()'s emitted dict before it returns
+        # tokens committed outside step()'s own drains (a spec round, its
+        # pipeline drain, a flush's drain of other uids), folded into the
+        # next step()'s emitted dict
         self._spec_emit: dict[int, list[int]] = {}
         if cfg.spec_decode:
             self._init_speculative(draft_model, draft_params)
@@ -368,6 +406,7 @@ class InferenceEngineV2:
                 "dtype": cfg.dtype,
                 "greedy": True,          # proposals are the draft argmax
                 "decode_window": 1,
+                "max_inflight": 0,       # synchronous mirror stepping
                 "prefix_cache": False,
                 "use_pallas_decode": cfg.use_pallas_decode,
                 "device": self.device,
@@ -531,7 +570,8 @@ class InferenceEngineV2:
         runs with ``drop_tokens=False`` (where the dense model's forward
         drops past ``eval_capacity_factor``), the dropless route when
         ``moe.dropless`` is set, the quantized route for ``QuantGrouped``
-        experts; then qwen2-moe's shared expert."""
+        experts; then qwen2-moe's shared expert. The gating losses are left
+        out (``losses=False``): only training reads them."""
         m = self.mcfg
         if "moe" not in p:
             return dense_ffn(h, p["ffn"], m)
@@ -539,7 +579,8 @@ class InferenceEngineV2:
         if isinstance(ml["experts"]["w_up"], QuantGrouped):
             out = self._quant_moe(ml, h)
         else:
-            out, _ = moe_forward(h, ml,
+            # the gating losses serve training only: left out
+            out, _ = moe_forward(h, ml, losses=False,
                                  **moe_layer_kwargs(m, drop_tokens=False))
         return add_shared_expert(out, h, p["moe"], m)
 
@@ -554,7 +595,7 @@ class InferenceEngineV2:
         flat = h.reshape(S * T, E)
         gate = topk_dropless_gating(
             router_logits(flat, ml["gate"]["wg"])[None], mo.top_k,
-            normalize_gates=mo.normalize_gates)
+            normalize_gates=mo.normalize_gates, losses=False)
         bm = self._MOE_GEMM_BLOCK_M
 
         def gemm(buf, srt):
@@ -617,50 +658,130 @@ class InferenceEngineV2:
                              top_p=cfg.top_p, greedy=cfg.greedy)
 
     # ------------------------------------------------------------------
-    # dispatches
+    # programs: device functions of one packed int64 input, launched
+    # eagerly or as a replay of their captured graph
     # ------------------------------------------------------------------
-    def _program(self, plan: StepPlan):
-        """Run one scheduler plan (a prefill chunk step or a decode step)
-        and return its sampled tokens, one per plan row, on the device."""
-        if plan.use_last.any():
-            raise RuntimeError("plan reads an in-flight token, but commits "
-                               "are synchronous in this engine")
-        dev = self.device
+    def _upload(self, flat: np.ndarray) -> torch.Tensor:
+        """A packed int64 array on the device; on the card it is copied
+        from a pinned staging buffer, so the host does not wait."""
+        if self._staging is None:
+            return torch.from_numpy(flat).to(self.device)
+        x = self._staging.stage(flat).to(self.device, non_blocking=True)
+        self._staging.copied(torch.cuda.current_stream(self.device))
+        return x
 
-        def up(a, dtype):
-            return torch.from_numpy(a).to(device=dev, dtype=dtype)
+    def _launch(self, key: tuple, fn, arrays, graph: bool) -> tuple:
+        """Run ``fn`` over ``arrays`` packed: as a replay of the program
+        ``key`` when ``graph`` (captured on first use; a capture or replay
+        failure raises), else eagerly. Returns fn's outputs on the
+        device."""
+        flat = pack(arrays)
+        if not graph:
+            return fn(self._upload(flat))
+        prog = self._programs.get(key, fn, flat.size)
+        prog.inputs.copy_(self._staging.stage(flat), non_blocking=True)
+        self._staging.copied(torch.cuda.current_stream(self.device))
+        return prog.replay()
 
-        logits = self._ragged_forward(
-            up(plan.token_ids, torch.long), up(plan.positions, torch.long),
-            up(plan.slot_map, torch.long), up(plan.block_tables, torch.int32),
-            up(plan.seq_lens, torch.int32), up(plan.sample_idx, torch.long))
-        return self._sample(logits)
+    def _to_host(self, outs: tuple) -> tuple[tuple, Any]:
+        """A dispatch's outputs on their way to pinned host buffers of their
+        own, the copies enqueued right behind the dispatch (a graph's next
+        replay rewrites its outputs), and the event recorded behind the
+        copies. The engine's first readback is also timed by events: its
+        copies' time on the stream becomes ``stats["d2h_latency_s"]`` when it
+        commits. On the CPU the outputs are host tensors already (no
+        event)."""
+        if self._staging is None:
+            return tuple(outs), None
+        stream = torch.cuda.current_stream(self.device)
+        first = self._d2h_timing is None
+        if first:
+            start = torch.cuda.Event(enable_timing=True)
+            start.record(stream)
+        host = []
+        for t in outs:
+            h = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+            h.copy_(t, non_blocking=True)
+            host.append(h)
+        ev = torch.cuda.Event(enable_timing=first)
+        ev.record(stream)
+        if first:
+            self._d2h_timing = (start, ev)
+        return tuple(host), ev
 
-    def _window_program(self, W: int, tok0, pos0, lens0, tables, rem, eos):
-        """Up to W chained decode iterations in one dispatch. Slots run
-        independently: a slot goes inactive at its eos or when its budget
-        ``rem`` is spent; inactive slots emit -1 and their staged rows merge
-        into the trash block. Fresh K/V of every iteration accumulates in a
-        stage buffer whose base position is fixed at the window's start, and
-        merges into the pool once, after the loop. Returns (tokens [W, S],
-        iterations that emitted anything), both on the device."""
+    def _program(self, plan: StepPlan) -> tuple:
+        """Launch one scheduler plan (a prefill chunk step or a decode
+        step): on the card a plan of shape ``[max_seqs, 1]`` replays the
+        step program ``(1, max_seqs)``, any other runs eagerly. Returns its
+        outputs on the device: the sampled token of each plan row (and the
+        rows' fp32 logits under ``_keep_logits``)."""
+        S, T = plan.token_ids.shape
+        graph = (self._programs is not None and T == 1
+                 and S == self.state.max_seqs)
+        arrays = [plan.token_ids, plan.positions, plan.slot_map,
+                  plan.block_tables, plan.seq_lens, plan.sample_idx,
+                  plan.do_sample, plan.use_last, plan.row_slots]
+        return self._launch((T, S), lambda x: self._step_body(S, T, x),
+                            arrays, graph)
+
+    def _step_body(self, S: int, T: int, x: torch.Tensor) -> tuple:
+        """The step program over a packed ``[S, T]`` plan (the JAX engine's
+        ``_program``): a row whose previous token is still in flight
+        (``use_last``) reads it from ``_last_tok`` in column 0 (only 1-token
+        decode rows can), and every sampled row writes its token back there,
+        masked by ``do_sample``."""
+        mb = self.state.max_blocks_per_seq
+        (tok, pos, slot_map, tables, lens, sample_idx, do_sample, use_last,
+         row_slots) = unpack(x, [(S, T)] * 3 + [(S, mb)] + [(S,)] * 5)
+        row_last = self._last_tok[row_slots]
+        tok = torch.cat([torch.where(use_last != 0, row_last,
+                                     tok[:, 0])[:, None], tok[:, 1:]], dim=1)
+        logits = self._ragged_forward(tok, pos, slot_map, tables.int(),
+                                      lens.int(), sample_idx)
+        toks = self._sample(logits)
+        self._last_tok[row_slots] = torch.where(do_sample != 0, toks,
+                                                row_last)
+        return (toks, logits.float()) if self._keep_logits else (toks,)
+
+    def _window_program(self, W: int, arrays) -> tuple:
+        """Launch a decode window of W iterations over the arrays of
+        :meth:`_window_plan`: on the card a replay of ``("win", W)``; eagerly
+        on the CPU and under ``decode_early_exit``. Returns its outputs on
+        the device: the tokens ``[W, S]`` (and their fp32 logits ``[W, S,
+        V]`` under ``_keep_logits``)."""
+        graph = self._programs is not None and \
+            not self.config.decode_early_exit
+        return self._launch(("win", W), lambda x: self._window_body(W, x),
+                            arrays, graph)
+
+    def _window_body(self, W: int, x: torch.Tensor) -> tuple:
+        """Up to W chained decode iterations over a packed window input.
+        Slots run independently: a slot goes inactive at its eos or when its
+        budget ``rem`` is spent; inactive slots emit -1 and their staged rows
+        merge into the trash block. The first token of a slot comes from
+        ``_last_tok`` where ``use_last`` says it is still in flight. Fresh
+        K/V of every iteration accumulates in a stage buffer whose base
+        position is fixed at the window's start, and merges into the pool
+        once, after the loop; ``_last_tok`` takes the last token of each of
+        the window's participants only."""
         cfg, m = self.config, self.mcfg
         bs, dev = cfg.block_size, self.device
         L, KV, D = m.num_layers, m.kv_heads, m.head_dim
+        S, mb = self.state.max_seqs, self.state.max_blocks_per_seq
+        tok_host, use_last, pos, lens, rem, eos, tables = unpack(
+            x, [(S,)] * 6 + [(S, mb)])
+        tok = torch.where(use_last != 0, self._last_tok, tok_host)
+        lens, tables = lens.int(), tables.int()
         Ws = self._stage_rows(W)
-        up = lambda a: torch.from_numpy(a).to(dev)
-        tok, pos = up(tok0).long(), up(pos0).long()
-        lens, rem, eos = up(lens0), up(rem), up(eos).long()
-        tables = up(tables)
-        S = tok.shape[0]
-        active = rem > 0
+        active0 = active = rem > 0
         base = pos.to(torch.int32)           # stage base, fixed per window
         kbuf = torch.zeros((L, S, KV, Ws, D), dtype=cfg.dtype, device=dev)
         vbuf = torch.zeros_like(kbuf)
         buf = torch.full((W, S), -1, dtype=torch.long, device=dev)
         slots = torch.zeros((W, S), dtype=torch.long, device=dev)
         zero = torch.zeros(S, dtype=torch.long, device=dev)
-        mb = self.state.max_blocks_per_seq
+        kept = (torch.zeros((W, S, m.vocab_size), dtype=torch.float32,
+                            device=dev) if self._keep_logits else None)
         for i in range(W):
             if cfg.decode_early_exit and not bool(active.any()):
                 break
@@ -670,6 +791,8 @@ class InferenceEngineV2:
                 tok[:, None], pos[:, None], slot[:, None], tables, lens, zero,
                 kv_stage=(kbuf, vbuf), stage_fill=i, stage_starts=base)
             nxt = self._sample(logits)
+            if kept is not None:
+                kept[i] = logits.float()
             buf[i] = torch.where(active, nxt, -1)
             slots[i] = slot
             # slots stop at their eos or when their budget is spent
@@ -678,46 +801,99 @@ class InferenceEngineV2:
             pos = torch.where(active, pos + 1, pos)
             lens = torch.where(active, lens + 1, lens)
             active = nxt_active
+        # only the window's participants update the last token: a slot
+        # outside it carries tok0 = 0
+        self._last_tok.copy_(torch.where(active0, tok, self._last_tok))
         # merge the WHOLE window's staged KV into the pool: the one pool
         # write of this dispatch
         ks = kbuf[:, :, :, :W].permute(0, 3, 1, 2, 4).reshape(L, W * S, KV, D)
         vs = vbuf[:, :, :, :W].permute(0, 3, 1, 2, 4).reshape(L, W * S, KV, D)
         self._merge_stage(slots.reshape(-1), ks, vs)
-        return buf, (buf >= 0).any(dim=1).sum()
+        return (buf, kept) if kept is not None else (buf,)
 
-    def _try_dispatch_window(self, prefill_pending: bool = False) -> bool:
-        """Decode fast path: up to ``decode_window`` decode iterations in
-        one dispatch over the decode-ready slots (others ride along
-        inactive). While prefill chunks are pending the window is capped at
-        ``decode_window_mixed_cap`` so a waiting chunk is never stuck behind
-        a full window."""
+    def warm_decode_windows(self, sizes: list[int] | None = None,
+                            skip_existing: bool = True) -> None:
+        """Capture and run the decode-window programs ahead of serving, for
+        every pow2 window size the dispatcher can emit (full windows,
+        budget-shrunk tails, the mixed-load cap): a capture inside a timed
+        serve costs its eager warm-up and the capture. Harmless by
+        construction: ``rem`` = 0 keeps every slot inactive, the staged KV
+        lands in the trash block, and the masked last-token update leaves
+        ``_last_tok`` as it was. ``sizes`` defaults to every pow2 in [2,
+        decode_window]; ``skip_existing`` skips sizes already captured.
+        Eager windows (the CPU, ``decode_early_exit``) just run."""
+        if sizes is None:
+            W = self.config.decode_window
+            W = 1 << (W.bit_length() - 1) if W > 1 else 0
+            sizes = []
+            while W > 1:
+                sizes.append(W)
+                W //= 2
+        S, mb = self.state.max_seqs, self.state.max_blocks_per_seq
+        z = np.zeros(S, np.int64)
+        for W in sizes:
+            if W <= 1 or (skip_existing and self._programs is not None
+                          and ("win", W) in self._programs):
+                continue
+            self._window_program(W, [z, z, z, z, z, np.full(S, -1),
+                                     np.zeros((S, mb), np.int64)])
+        if self._programs is not None:
+            torch.cuda.synchronize(self.device)
+
+    def warm_decode_step(self) -> None:
+        """Capture and run the decode step program ``(1, max_seqs)`` ahead
+        of serving: a serve whose budget leaves a last single iteration
+        (63 = 7 x 8 + 4 + 2 + 1) dispatches it as a step plan. Harmless by
+        construction, like :meth:`warm_decode_windows`: every row is
+        padding (the scheduler's own padding: position 0, no keys, writing
+        the trash block) and samples nothing, so ``_last_tok`` keeps its
+        values. Runs eagerly on the CPU."""
+        S, mb = self.state.max_seqs, self.state.max_blocks_per_seq
+        z = np.zeros((S, 1), np.int64)
+        arrays = [z, z, z, np.zeros((S, mb), np.int64)] + \
+            [np.zeros(S, np.int64)] * 4 + [np.arange(S)]
+        self._launch((1, S), lambda x: self._step_body(S, 1, x), arrays,
+                     self._programs is not None)
+        if self._programs is not None:
+            torch.cuda.synchronize(self.device)
+
+    def _window_plan(self, prefill_pending: bool = False):
+        """The next decode window over the decode-ready slots (others ride
+        along inactive): ``(W, arrays, live sequences, {uid: (slot, n
+        scheduled)})``, or None. While prefill chunks are pending the window
+        is capped at ``decode_window_mixed_cap`` so a waiting chunk is never
+        stuck behind a full window. A slot with tokens in flight reads its
+        first token on the device (``use_last``)."""
         cfg = self.config
         W_max = cfg.decode_window
         if prefill_pending and cfg.decode_window_mixed_cap:
             W_max = min(W_max, cfg.decode_window_mixed_cap)
         if W_max <= 1:
-            return False
+            return None
         live = [s for s in self.state.seqs.values()
                 if not s.sched_done and s.slot >= 0 and s.pending_sched == 1]
         if not live:
-            return False
+            return None
         W = min(max(s.gen_remaining_sched for s in live), W_max)
         if W <= 1:
-            return False
+            return None
         W = 1 << (W.bit_length() - 1)        # pow2, like the JAX engine
 
-        t0 = time.perf_counter()
         S, mb = self.state.max_seqs, self.state.max_blocks_per_seq
-        tok0 = np.zeros((S,), np.int32)
-        pos0 = np.zeros((S,), np.int32)
-        lens0 = np.zeros((S,), np.int32)
-        tables = np.zeros((S, mb), np.int32)
-        rem = np.zeros((S,), np.int32)
-        eos = np.full((S,), -1, np.int32)
+        tok0 = np.zeros((S,), np.int64)
+        use_last = np.zeros((S,), np.int64)
+        pos0 = np.zeros((S,), np.int64)
+        lens0 = np.zeros((S,), np.int64)
+        rem = np.zeros((S,), np.int64)
+        eos = np.full((S,), -1, np.int64)
+        tables = np.zeros((S, mb), np.int64)
         sched: dict[int, tuple[int, int]] = {}   # uid -> (slot, n scheduled)
         for s in live:
             sl = s.slot
-            tok0[sl] = s.tokens[-1]
+            if s.n_inflight:
+                use_last[sl] = 1                 # value only on device
+            else:
+                tok0[sl] = s.tokens[-1]
             pos0[sl] = s.len_sched - 1
             lens0[sl] = s.len_sched
             tables[sl, :len(s.blocks)] = s.blocks
@@ -726,21 +902,35 @@ class InferenceEngineV2:
             if s.eos_id is not None:
                 eos[sl] = s.eos_id
             sched[s.uid] = (sl, n)
-        self.stats["plan_s"] += time.perf_counter() - t0
+        return W, [tok0, use_last, pos0, lens0, rem, eos, tables], live, sched
 
+    def _try_dispatch_window(self, prefill_pending: bool = False) -> bool:
+        """Decode fast path: up to ``decode_window`` decode iterations in
+        one dispatch (:meth:`_window_plan`), without waiting for any
+        readback."""
         t0 = time.perf_counter()
+        planned = self._window_plan(prefill_pending)
+        if planned is None:
+            return False
+        W, arrays, live, sched = planned
+        t1 = time.perf_counter()
+        self.stats["plan_s"] += t1 - t0
         self._emit_attn_kernel("decode")
-        toks, iters = self._window_program(W, tok0, pos0, lens0, tables, rem,
-                                           eos)
+        out, event = self._to_host(self._window_program(W, arrays))
+        # dispatch-time advance: KV up to len_sched - 1 + n - 1 is now
+        # scheduled, n new samples are in flight
         for s in live:
             _, n = sched[s.uid]
             s.n_sched = s.len_sched - 1 + n
             s.n_inflight += n
-        self._inflight.append({"kind": "window", "sched": sched,
-                               "toks": toks, "iters": iters})
-        self.stats["dispatch_s"] += time.perf_counter() - t0
+        t2 = time.perf_counter()
+        self._inflight.append({"kind": "window", "sched": sched, "out": out,
+                               "event": event, "t": t2})
+        self.stats["dispatch_s"] += t2 - t1
+        self.stats["window_dispatch_s"] += t2 - t0
         self.stats["dispatches"] += 1
         self.stats["windows"] += 1
+        self.stats["window_iters_dispatched"] += W
         return True
 
     def _spec_program(self, tok, pos, tables, lens, mask):
@@ -752,13 +942,15 @@ class InferenceEngineV2:
         (:meth:`_try_dispatch_spec` merges only the accepted path)."""
         cfg, m, dev = self.config, self.mcfg, self.device
         S, T = tok.shape
-        up = lambda a: torch.from_numpy(a).to(dev)
+        tok, pos, tables, lens, mask = unpack(
+            self._upload(pack([tok, pos, tables, lens, mask])),
+            [(S, T), (S, T), tables.shape, (S,), (S, T, T)])
         k_all = torch.zeros((m.num_layers, S, m.kv_heads, self._stage_rows(T),
                              m.head_dim), dtype=cfg.dtype, device=dev)
         v_all = torch.zeros_like(k_all)
         logits = self._ragged_forward(
-            up(tok).long(), up(pos).long(), None, up(tables), up(lens), None,
-            kv_stage=(k_all, v_all), tree_mask=up(mask))
+            tok, pos, None, tables.int(), lens.int(), None,
+            kv_stage=(k_all, v_all), tree_mask=mask.to(torch.uint8))
         toks = sample_tree_logits(logits.float(), self._gen,
                                   temperature=cfg.temperature,
                                   top_k=cfg.top_k, top_p=cfg.top_p,
@@ -776,9 +968,32 @@ class InferenceEngineV2:
         decode path then serves as before.
 
         The round runs verify → accept → merge → commit inside this call,
-        from committed state (commits are synchronous in this engine, so
-        nothing is in flight), and no provisional marker outlives it."""
+        from committed state: a pipeline holding dispatches is drained
+        first, but only when the proposer's ``probe`` says candidates
+        plausibly exist (a lookup miss stays a pipelined decode). No
+        provisional marker outlives the call."""
         cfg = self.config
+        if not any(not s.sched_done and s.slot >= 0 and s.pending_sched == 1
+                   for s in self.state.seqs.values()):
+            return False
+        if self._inflight:
+            # probe the committed token view before the blocking drain,
+            # over the sequences a round could use, with the request loop's
+            # depth caps; advisory only (a false positive costs one drain)
+            probe: dict[int, tuple[list[int], int]] = {}
+            for s in self.state.seqs.values():
+                if s.sched_done or s.slot < 0 or s.pending_sched != 1:
+                    continue
+                d = self._spec_tracker.depth(
+                    s.uid, prefill_pending=prefill_pending,
+                    mixed_cap=cfg.spec_depth_mixed_cap)
+                d = min(d, s.gen_remaining_sched - 1)
+                if d >= 1:
+                    probe[s.uid] = (s.tokens, d)
+            if not probe or not self._spec.probe(probe):
+                return False
+            for uid, new in self._drain(drain_all=True).items():
+                self._spec_emit.setdefault(uid, []).extend(new)
         live = [s for s in self.state.seqs.values()
                 if not s.done and s.slot >= 0 and s.pending_tokens == 1
                 and s.n_generated < s.max_new_tokens]
@@ -858,7 +1073,7 @@ class InferenceEngineV2:
                 L, S * T, KV, D)
             vs = v_all[:, :, :, :T].permute(0, 1, 3, 2, 4).reshape(
                 L, S * T, KV, D)
-            self._merge_stage(torch.from_numpy(flat).to(self.device), ks, vs)
+            self._merge_stage(self._upload(flat), ks, vs)
         except Exception:
             # a failed round leaves no provisional marker behind
             for uid in meta:
@@ -913,9 +1128,10 @@ class InferenceEngineV2:
             return False
         self._serve_toggle = plan.kind == "prefill"
         t0 = time.perf_counter()
-        toks = self._program(plan)
+        out, event = self._to_host(self._program(plan))
         self.scheduler.mark_dispatched(plan)
-        self._inflight.append({"kind": "plan", "plan": plan, "toks": toks})
+        self._inflight.append({"kind": "plan", "plan": plan, "out": out,
+                               "event": event, "t": time.perf_counter()})
         self.stats["dispatch_s"] += time.perf_counter() - t0
         self.stats["dispatches"] += 1
         n_tok = int(plan.active.sum())
@@ -930,22 +1146,52 @@ class InferenceEngineV2:
             self._emit_attn_kernel("decode")
         return True
 
-    def _drain(self) -> dict:
-        """Commit every dispatched step (reading its tokens back blocks on
-        the device). Returns {uid: accepted tokens}."""
+    def _entry_ready(self, entry: dict) -> bool:
+        """Whether a dispatch's outputs are on the host: its event, recorded
+        behind the device-to-host copy, covers the compute and the copy
+        together. CPU dispatches are ready as they return."""
+        return entry["event"] is None or entry["event"].query()
+
+    def _drain(self, force: bool = False, drain_all: bool = False) -> dict:
+        """Commit in-flight dispatches, oldest first. Without ``force`` or
+        ``drain_all`` only ready entries commit, and the oldest one also
+        when the pipeline holds ``max(max_inflight, 1)`` entries (waiting
+        for it: a forced drain); ``force`` takes at least the oldest;
+        ``drain_all`` empties the pipeline. Returns {uid: accepted tokens}
+        across the drained entries."""
         emitted: dict[int, list[int]] = {}
+        st = self.stats
         while self._inflight:
-            entry = self._inflight.popleft()
-            toks_h = entry["toks"].cpu().numpy()
+            entry = self._inflight[0]
+            # >=: the pipeline holds AT MOST max_inflight awaiting entries
+            over = len(self._inflight) >= max(self.config.max_inflight, 1)
+            ready = self._entry_ready(entry)
+            if not (ready or force or drain_all or over):
+                break
+            if ready:
+                st["opportunistic_drains"] += 1
+            else:
+                st["forced_drains"] += 1
+                t0 = time.perf_counter()
+                if entry["event"] is not None:
+                    entry["event"].synchronize()
+                st["drain_block_s"] += time.perf_counter() - t0
+            self._inflight.popleft()
+            force = False
+            if self._d2h_timing and entry["event"] is self._d2h_timing[1]:
+                start, end = self._d2h_timing
+                st["d2h_latency_s"] = start.elapsed_time(end) / 1e3
+                self._d2h_timing = ()
             t0 = time.perf_counter()
-            self._commit_entry(entry, toks_h, emitted)
-            self.stats["commit_s"] += time.perf_counter() - t0
+            self._commit_entry(entry, entry["out"][0].numpy(), emitted)
+            st["commit_s"] += time.perf_counter() - t0
         return emitted
 
     def _commit_entry(self, entry: dict, toks_h: np.ndarray,
                       emitted: dict) -> None:
         if entry["kind"] == "window":
-            self.stats["window_iters"] += int(entry["iters"])
+            # iterations that emitted anything, from the host copy
+            self.stats["window_iters"] += int((toks_h >= 0).any(axis=1).sum())
             self.stats["window_iters_max"] += toks_h.shape[0]
             for uid, (sl, n) in entry["sched"].items():
                 seq = self.state.seqs.get(uid)
@@ -1020,31 +1266,58 @@ class InferenceEngineV2:
             return {"live": False, "generated": self._results.get(uid, [])}
         return {"live": True, "done": seq.done,
                 "generated": list(self._results[uid]),
-                "n_computed": seq.n_computed}
+                "n_computed": seq.n_computed, "inflight": seq.n_inflight}
+
+    def _uid_inflight(self, uid: int) -> bool:
+        for entry in self._inflight:
+            uids = entry["sched"] if entry["kind"] == "window" \
+                else entry["plan"].uids
+            if uid in uids:
+                return True
+        return False
 
     def flush(self, uid: int) -> list[int]:
         """Release a request's KV and slot, returning its generated tokens
-        (its full pages are published into the prefix cache)."""
-        if self._inflight:
-            self._drain()
+        (its full pages are published into the prefix cache). Drains the
+        pipeline only up to the last in-flight dispatch naming ``uid`` (a
+        dispatch still running could otherwise write into blocks about to
+        be reused); dispatches of other uids keep riding, and the tokens of
+        other uids that the drain commits surface in the next step()."""
+        while self._inflight and self._uid_inflight(uid):
+            for u, new in self._drain(force=True).items():
+                if u != uid:
+                    self._spec_emit.setdefault(u, []).extend(new)
+        self._spec_emit.pop(uid, None)
         if self._spec is not None:
             # rounds complete inside a step, but a failed one may be caught
             # by a driver that then flushes: no marker survives the release
             self.state.rollback_provisional(uid)
             self._spec.release(uid)
             self._spec_tracker.forget(uid)
-            self._spec_emit.pop(uid, None)
         if uid in self.state.seqs:
             self.state.release(uid)
         return self._results.pop(uid, [])
 
     def step(self) -> dict[int, list[int]]:
-        """Dispatch the next scheduled step and commit it. Returns {uid:
-        accepted tokens}; an empty dict with nothing dispatched means the
-        engine is idle."""
-        self._dispatch_next()
+        """Commit the earlier dispatches whose tokens have arrived, then
+        dispatch the next scheduled step WITHOUT waiting for it (the JAX
+        engine's order). Returns {uid: accepted tokens} committed in this
+        call, possibly from dispatches several calls back: the pipeline runs
+        up to ``max_inflight`` dispatches ahead, decode chaining through the
+        device-resident last token. With ``max_inflight=0`` the step
+        dispatched in this call commits before it returns. An empty dict
+        means nothing committed; the engine is idle when nothing is in
+        flight either."""
         emitted = self._drain()
-        # tokens a spec round committed inside the dispatch
+        dispatched = self._dispatch_next()
+        if dispatched and self.config.max_inflight <= 0:
+            for uid, new in self._drain(drain_all=True).items():
+                emitted.setdefault(uid, []).extend(new)
+        elif not dispatched and self._inflight:
+            # nothing left to dispatch (all budget in flight): make progress
+            # by waiting for the oldest
+            for uid, new in self._drain(force=True).items():
+                emitted.setdefault(uid, []).extend(new)
         for uid, new in self._spec_emit.items():
             emitted.setdefault(uid, []).extend(new)
         self._spec_emit = {}

@@ -5,6 +5,11 @@ Counterpart of ``deepspeed_tpu/inference/sampling.py``. Greedy is
 streams are comparable across the two packages. Stochastic sampling draws
 from an explicit ``torch.Generator``; its numbers differ from JAX's
 threefry stream, so only distributions compare.
+
+Every step is capturable in a CUDA graph (``inference/programs.py``): no
+tensor is made from host values, and ``torch.multinomial`` captures. A
+graph that registers the generator advances it on every replay, so each
+replay draws new numbers.
 """
 from __future__ import annotations
 
@@ -18,7 +23,7 @@ def sample_logits(logits: torch.Tensor, generator: torch.Generator | None,
     if greedy or temperature == 0.0:
         return torch.argmax(logits, dim=-1)
     logits = logits.float() / max(temperature, 1e-6)
-    neg_inf = torch.tensor(float("-inf"), device=logits.device)
+    neg_inf = float("-inf")
     use_k = bool(top_k and top_k > 0)
     use_p = top_p < 1.0
     if use_k and not use_p:

@@ -110,8 +110,8 @@ def moe_forward(x: torch.Tensor, p, *, num_experts: int, k: int = 2,
                 dropless: bool = False, dropless_block_m: int = 128,
                 normalize_gates: bool = True, hidden_size: int | None = None,
                 ffn_size: int | None = None, training: bool = False,
-                noise: torch.Tensor | None = None
-                ) -> tuple[torch.Tensor, torch.Tensor]:
+                noise: torch.Tensor | None = None, losses: bool = True
+                ) -> tuple[torch.Tensor, torch.Tensor | None]:
     """The MoE layer over ``p`` (``gate/wg``, ``experts/...``): x [B, S, E]
     (B groups of S tokens) → (y [B, S, E] in x's dtype, the layer's fp32
     loss ``aux_loss * aux_loss_weight + z_loss * z_loss_weight``). Takes the
@@ -119,13 +119,15 @@ def moe_forward(x: torch.Tensor, p, *, num_experts: int, k: int = 2,
     come from the weights. ``training`` routes the capacity route at
     ``capacity_factor`` (else ``eval_capacity_factor``); ``noise`` (a
     standard-normal [B, S, n], the RSample jitter) is added to the router
-    logits at 1e-2."""
+    logits at 1e-2. ``losses=False`` (serving, which drops the loss) skips
+    the gating losses and returns None in the loss's place."""
     B, S, E = x.shape
     dt = x.dtype
     logits = router_logits(x, p["gate"]["wg"])                 # [B, S, n]
     if dropless:
         gate = topk_dropless_gating(logits, k, noise=noise,
-                                    normalize_gates=normalize_gates)
+                                    normalize_gates=normalize_gates,
+                                    losses=losses)
         y = dropless_dispatch_combine(
             x.reshape(B * S, E), gate.gates, gate.experts, num_experts, k,
             dropless_block_m,
@@ -137,10 +139,12 @@ def moe_forward(x: torch.Tensor, p, *, num_experts: int, k: int = 2,
                           capacity_factor if training
                           else eval_capacity_factor,
                           min_capacity, noise=noise, drop_tokens=drop_tokens,
-                          normalize_gates=normalize_gates)
+                          normalize_gates=normalize_gates, losses=losses)
         expert_in = torch.einsum("gsnc,gse->ngce", gate.dispatch.to(dt), x)
         expert_out = experts_capacity(expert_in, p["experts"], activation)
         y = torch.einsum("gsnc,ngce->gse", gate.combine.to(dt), expert_out)
+    if not losses:
+        return y, None
     return y, gate.aux_loss * aux_loss_weight + gate.z_loss * z_loss_weight
 
 

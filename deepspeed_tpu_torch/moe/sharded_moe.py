@@ -12,6 +12,11 @@ probabilities tie, and ``torch.topk`` promises no order among ties, so
 
 Nothing here reads a value back to the host: capacity is static, and the
 positions come from cumulative sums over one-hot masks.
+
+The losses cost a softmax statistic, a logsumexp and the one-hot counts per
+layer; only training reads them. ``losses=False`` (serving) leaves them out
+and sets ``aux_loss``, ``z_loss`` and ``exp_counts`` to None, where XLA
+removes them from the JAX engine's program as dead code.
 """
 from __future__ import annotations
 
@@ -23,20 +28,20 @@ import torch.nn.functional as F
 
 class GateOutput(NamedTuple):
     """The JAX package's ``GateOutput``."""
-    aux_loss: torch.Tensor     # scalar load-balance loss (unweighted)
+    aux_loss: torch.Tensor | None   # scalar load-balance loss (unweighted)
     combine: torch.Tensor      # [G, S, n, cap] fp32: gate * position one-hot
     dispatch: torch.Tensor     # [G, S, n, cap] fp32 mask
-    exp_counts: torch.Tensor   # [n] tokens routed per expert (pre-capacity)
-    z_loss: torch.Tensor       # router z-loss (unweighted)
+    exp_counts: torch.Tensor | None  # [n] routed per expert (pre-capacity)
+    z_loss: torch.Tensor | None      # router z-loss (unweighted)
 
 
 class DroplessGateOutput(NamedTuple):
     """The JAX package's ``DroplessGateOutput``: raw top-k choices."""
     gates: torch.Tensor        # [G, S, k] normalised gate weights
     experts: torch.Tensor      # [G, S, k] int32 expert ids
-    aux_loss: torch.Tensor
-    z_loss: torch.Tensor
-    exp_counts: torch.Tensor   # [n]
+    aux_loss: torch.Tensor | None
+    z_loss: torch.Tensor | None
+    exp_counts: torch.Tensor | None   # [n]
 
 
 def compute_capacity(tokens_per_group: int, num_experts: int, k: int,
@@ -53,8 +58,11 @@ def _top_k(probs: torch.Tensor, k: int):
     return vals[..., :k], idx[..., :k]
 
 
-def _losses(logits, probs, onehot, n):
-    """(aux_loss, z_loss, exp_counts) of the GShard formulation."""
+def _losses(logits, probs, onehot, n, wanted: bool = True):
+    """(aux_loss, z_loss, exp_counts) of the GShard formulation; three
+    Nones when not ``wanted``."""
+    if not wanted:
+        return None, None, None
     me = probs.mean(dim=(0, 1))                                    # [n]
     ce = onehot.sum(dim=2).mean(dim=(0, 1))                        # [n]
     aux_loss = (me * ce).sum() * n
@@ -74,10 +82,12 @@ def _noisy(logits, noise, noise_eps):
 def topkgating(logits: torch.Tensor, k: int, capacity_factor: float = 1.0,
                min_capacity: int = 4, *, noise: torch.Tensor | None = None,
                noise_eps: float = 1e-2, drop_tokens: bool = True,
-               normalize_gates: bool = True) -> GateOutput:
+               normalize_gates: bool = True,
+               losses: bool = True) -> GateOutput:
     """Generalised top-k capacity gating over ``logits`` [G, S, n] (G
     groups of S tokens; capacity is bounded per group). With
-    ``drop_tokens=False`` the capacity is S*k and nothing overflows."""
+    ``drop_tokens=False`` the capacity is S*k and nothing overflows;
+    ``losses=False`` leaves the losses out."""
     G, S, n = logits.shape
     logits = _noisy(logits.float(), noise, noise_eps)
     probs = torch.softmax(logits, dim=-1)
@@ -98,7 +108,7 @@ def topkgating(logits: torch.Tensor, k: int, capacity_factor: float = 1.0,
         denom = kept_gate.sum(dim=-1, keepdim=True)
         kept_gate = kept_gate / denom.clamp_min(1e-9)
 
-    aux_loss, z_loss, exp_counts = _losses(logits, probs, onehot, n)
+    aux_loss, z_loss, exp_counts = _losses(logits, probs, onehot, n, losses)
     pos_oh = F.one_hot(pos.long(), capacity).float()               # [G,S,k,c]
     keepf = keep.float() * onehot                                  # [G,S,k,n]
     dispatch = torch.einsum("gskn,gskc->gsnc", keepf, pos_oh)
@@ -110,11 +120,12 @@ def topkgating(logits: torch.Tensor, k: int, capacity_factor: float = 1.0,
 def topk_dropless_gating(logits: torch.Tensor, k: int, *,
                          noise: torch.Tensor | None = None,
                          noise_eps: float = 1e-2,
-                         normalize_gates: bool = True) -> DroplessGateOutput:
+                         normalize_gates: bool = True,
+                         losses: bool = True) -> DroplessGateOutput:
     """Top-k routing with no capacity and no drops: every token reaches all
     k chosen experts (the expert-sorted buffer of
     ``ops.grouped_matmul.sort_tokens_by_expert`` takes the place of
-    capacity)."""
+    capacity); ``losses=False`` leaves the losses out."""
     G, S, n = logits.shape
     logits = _noisy(logits.float(), noise, noise_eps)
     probs = torch.softmax(logits, dim=-1)
@@ -122,8 +133,9 @@ def topk_dropless_gating(logits: torch.Tensor, k: int, *,
     if normalize_gates:
         gate_vals = gate_vals / gate_vals.sum(
             dim=-1, keepdim=True).clamp_min(1e-9)
-    onehot = F.one_hot(expert_idx, n).float()
-    aux_loss, z_loss, exp_counts = _losses(logits, probs, onehot, n)
+    aux_loss, z_loss, exp_counts = _losses(
+        logits, probs, F.one_hot(expert_idx, n).float() if losses else None,
+        n, losses)
     return DroplessGateOutput(gates=gate_vals,
                               experts=expert_idx.to(torch.int32),
                               aux_loss=aux_loss, z_loss=z_loss,

@@ -1332,3 +1332,184 @@ def test_k7_bf16_kernels_match_plain_version(dev, T, bs, form):
     assert not got[2].any()
     err = (got.float() - ref.float()).abs().max().item()
     assert err / ref.float().abs().max().item() <= 1e-2, err
+
+
+# ---------------------------------------------------------------------------
+# the serving pipeline: decode programs as CUDA graphs
+# ---------------------------------------------------------------------------
+
+def _graph_engine(dev, name="tiny-llama", model_over=None, **over):
+    """A bf16 engine on the card over seeded random weights (hidden 256,
+    head dim 64), and its prompts."""
+    from deepspeed_tpu_torch.inference import InferenceEngineV2
+    from deepspeed_tpu_torch.models import build_model
+
+    model = build_model(name, hidden_size=256, device=dev,
+                        dtype=torch.bfloat16, seed=3, **(model_over or {}))
+    cfg = dict(block_size=8, num_blocks=96, max_seqs=4, chunk=16,
+               max_seq_len=128, dtype=torch.bfloat16, device=dev)
+    prompts = [list(range(i, i + n)) for i, n in ((0, 37), (50, 5), (9, 21),
+                                                  (3, 30))]
+    return InferenceEngineV2(model, config=dict(cfg, **over)), prompts
+
+
+def _decoding(eng, prompts, new=24):
+    """Put the prompts and step until every one decodes, the pipeline
+    drained."""
+    for uid, p in enumerate(prompts):
+        eng.put(uid, p, max_new_tokens=new)
+    while eng.scheduler.pending_kinds()[0]:
+        eng.step()
+    eng._drain(drain_all=True)
+    torch.cuda.synchronize()
+
+
+def _moe_over():
+    import dataclasses
+
+    from deepspeed_tpu_torch.models import get_model_config
+
+    return {"moe": dataclasses.replace(get_model_config("tiny-qwen2-moe").moe,
+                                       dropless=True)}
+
+
+@pytest.mark.parametrize("label", ["bf16", "int8+e4m3-pool", "moe-dropless"])
+def test_window_graph_replay_equals_the_eager_window(dev, label):
+    """A decode window's graph replay against the same window run eagerly
+    from the same state: identical tokens, pool and last tokens, bit for
+    bit, and the same kernel launches."""
+    from deepspeed_tpu_torch.inference.programs import count_snapshot, pack
+
+    name, model_over, over = {
+        "bf16": ("tiny-llama", None, {}),
+        "int8+e4m3-pool": ("tiny-llama", None,
+                           {"quant_bits": 8, "kv_cache_dtype": "fp8"}),
+        "moe-dropless": ("tiny-qwen2-moe", _moe_over(), {}),
+    }[label]
+    eng, prompts = _graph_engine(dev, name, model_over, **over)
+    _decoding(eng, prompts)
+    W, arrays, _, _ = eng._window_plan()
+    assert W == 8
+    pool, last = eng.kv_pool.clone(), eng._last_tok.clone()
+    flat = torch.from_numpy(pack(arrays)).to(dev)
+
+    def delta(before):
+        return [{k: v - b[k] for k, v in a.items() if v != b[k]}
+                for b, a in zip(before, count_snapshot())]
+
+    c0 = count_snapshot()
+    eager = eng._window_body(W, flat.clone())[0].clone()
+    torch.cuda.synchronize()
+    eager_counts = delta(c0)
+    eager_pool, eager_last = eng.kv_pool.clone(), eng._last_tok.clone()
+    eng.kv_pool.copy_(pool)
+    eng._last_tok.copy_(last)
+    prog = eng._programs.get(("win", W), lambda x: eng._window_body(W, x),
+                             flat.numel())
+    prog.inputs.copy_(flat)
+    c0 = count_snapshot()
+    replayed = prog.replay()[0]
+    torch.cuda.synchronize()
+    assert delta(c0) == eager_counts
+    assert any(eager_counts[0].values())          # K1 launched
+    assert torch.equal(replayed, eager) and bool((eager >= 0).any())
+    assert torch.equal(eng._last_tok, eager_last)
+    bits = lambda t: t.view(torch.uint8)[:, :, :, 1:]  # past the trash block
+    assert torch.equal(bits(eng.kv_pool), bits(eager_pool))
+
+
+@pytest.mark.parametrize("decode_window", [1, 8])
+def test_pipelined_streams_equal_the_synchronous_stream(dev, decode_window):
+    """Inputs that change at every dispatch, eight dispatches in flight:
+    every dispatch stages its plan through the pinned ring while earlier
+    copies may still be pending, and replays the same graphs. The streams
+    are the synchronous engine's, and every decode step or window replayed
+    a graph."""
+    streams = {}
+    for max_inflight in (0, 8):
+        eng, prompts = _graph_engine(dev, max_inflight=max_inflight,
+                                     decode_window=decode_window)
+        prompts = prompts + [list(range(7, 7 + n)) for n in (3, 11, 17, 2)]
+        streams[max_inflight] = eng.generate(prompts, max_new_tokens=20)
+        st = eng.stats
+        replays = eng._programs.stats()["replays"]
+        windows = sum(n for k, n in replays.items() if "win" in k)
+        assert windows == st["windows"]
+        assert replays.get("(1, 4)", 0) >= st["decode_steps"]
+        assert st["windows" if decode_window > 1 else "decode_steps"] > 0
+        if max_inflight:
+            assert st["forced_drains"] + st["opportunistic_drains"] \
+                == st["dispatches"]
+    assert streams[8] == streams[0]
+
+
+@pytest.mark.parametrize("filters", [{}, {"top_k": 20, "top_p": 0.9}])
+def test_sampling_replays_draw_new_numbers(dev, filters):
+    """At temperature 1 (with and without top-k / top-p), two replays of a
+    window from equal inputs draw different tokens (the engine's generator
+    is registered with the graph), and two engines with the same seed draw
+    the same streams."""
+    from deepspeed_tpu_torch.inference.programs import pack
+
+    over = dict(greedy=False, temperature=1.0, **filters)
+    eng, prompts = _graph_engine(dev, **over)
+    _decoding(eng, prompts)
+    W, arrays, _, _ = eng._window_plan()
+    flat = torch.from_numpy(pack(arrays)).to(dev)
+    prog = eng._programs.get(("win", W), lambda x: eng._window_body(W, x),
+                             flat.numel())
+    pool, last = eng.kv_pool.clone(), eng._last_tok.clone()
+    draws = []
+    for _ in range(2):
+        eng.kv_pool.copy_(pool)
+        eng._last_tok.copy_(last)
+        prog.inputs.copy_(flat)
+        draws.append(prog.replay()[0].clone())
+    assert not torch.equal(draws[0], draws[1])
+    a, prompts = _graph_engine(dev, **over)
+    b, _ = _graph_engine(dev, **over)
+    assert a.generate(prompts, 16) == b.generate(prompts, 16)
+
+
+def test_warm_ups_capture_every_decode_program(dev):
+    """``warm_decode_windows`` and ``warm_decode_step`` capture every decode
+    program a serve dispatches (23 tokens after the prefill's: windows of
+    8, 8, 4 and 2, then one decode step) and leave the pool past the trash
+    block and the last tokens as they were; the serve then captures nothing
+    and gives an unwarmed engine's streams."""
+    cold, prompts = _graph_engine(dev)
+    ref = cold.generate(prompts, 24)
+    del cold
+    eng, _ = _graph_engine(dev)
+    for uid, p in enumerate(prompts):
+        eng.put(uid, p, max_new_tokens=24)
+    while eng.scheduler.pending_kinds()[0]:
+        eng.step()
+    pool, last = eng.kv_pool.clone(), eng._last_tok.clone()
+    eng.warm_decode_windows()
+    eng.warm_decode_step()
+    bits = lambda t: t.view(torch.uint8)[:, :, :, 1:]  # past the trash block
+    assert torch.equal(bits(eng.kv_pool), bits(pool))
+    assert torch.equal(eng._last_tok, last)
+    keys = set(eng._programs.programs)
+    assert {("win", 8), ("win", 4), ("win", 2), (1, 4)} <= keys
+    while any(not eng.query(u)["done"] for u in range(len(prompts))):
+        eng.step()
+    assert set(eng._programs.programs) == keys
+    assert [eng.flush(u) for u in range(len(prompts))] == ref
+    assert eng._programs.stats()["replays"]["(1, 4)"] > 0
+
+
+def test_a_second_engine_captures_after_the_first_is_freed(dev):
+    import gc
+
+    eng, prompts = _graph_engine(dev)
+    eng.warm_decode_windows()
+    first = eng.generate(prompts, 16)
+    assert eng._programs.stats()["graphs"] >= 3
+    del eng
+    gc.collect()
+    torch.cuda.empty_cache()
+    eng, _ = _graph_engine(dev)
+    assert eng.generate(prompts, 16) == first
+    assert eng._programs.stats()["replays"]["('win', 8)"] > 0
