@@ -1,7 +1,7 @@
 """Smoke run of the PyTorch/CUDA port on one NVIDIA H100.
 
     python3 chip_smoke.py [--phases build,kernel,parity,serve,train-parity,
-                           train,moe-train-parity,moe-train,sparse]
+                           train,moe-train-parity,moe-train,zero,sparse]
                           [--out DIR]
 
 Phases (every one raises on failure; nothing is caught and passed over):
@@ -261,8 +261,28 @@ Phases (every one raises on failure; nothing is caught and passed over):
    nothing else. Prints ms per
    step, tokens/s, peak memory and a profiled step's split into K4, K5
    forward / dx / dw, cuBLAS, other and idle share.
+9. zero — ZeRO over NCCL at world 1 (an in-process store), TF32 off:
+   (a) llama2-7b width at 2 layers, bf16 with an fp32 master, AdamW, micro
+   1 x gas 2 x 1024, remat "full", no clipping: stages 0, 1, 2 and 3 for 3
+   steps each give bit-identical losses and master; clipping 1.0 at
+   stages 0 and 3 within 1e-6 relative; K4 launched layers x micro-batches
+   x 2 forward and x 1 backward a step, nothing else. (b) stage 3 saves at
+   step 2 (crc32); a fresh stage-1 engine loads it and its step 3 is bit
+   for bit stage 3's; ``get_fp32_state_dict_from_zero_checkpoint`` equals
+   the master; prints free disk, bytes on disk, save / verify / load
+   seconds. (c) a NaN injected at step 4 rewinds to the step-2 tag and the
+   replayed steps 3-5 are bit for bit the clean run's. (d) two CPU gloo
+   ranks train tiny-llama in fp32 at stage 3 and save; the card loads the
+   tag at stage 1: the eval loss within 1e-5 relative, a further step
+   finite. (e) stage 3 at the train phase's spec (8 layers, micro 2 x
+   gas 2 x 2048, 5 steps) beside stage 0 timed alike in this phase (and
+   the train phase's numbers): ms per step, tokens/s and peak memory, the
+   same losses bit for bit, K4's launches equal to the train phase's, a
+   profiled stage-3 step's split with ZeRO's own kernels apart. (f) qwen2-moe width at 2
+   layers, dropless, bf16: stage 0 and stage 3 losses bit-identical over 2
+   steps, every K5 launch on the wgmma route.
 
-9. sparse — ``SparseSelfAttention`` end to end: the Fixed, per-head
+10. sparse — ``SparseSelfAttention`` end to end: the Fixed, per-head
    BigBird, BSLongformer, Variable and Fixed-unidirectional (causal)
    configs at block 128, each at bert-large width (B 2, S 4096) and
    llama2-7b width (B 1, S 8192), bf16, forward and ``.backward()`` of a
@@ -306,7 +326,7 @@ PEAK_OPS = {torch.bfloat16: 989e12, torch.float32: 67e12,
             torch.float8_e4m3fn: 1979e12}
 
 ALL_PHASES = ("build", "kernel", "parity", "serve", "train-parity", "train",
-              "moe-train-parity", "moe-train", "sparse")
+              "moe-train-parity", "moe-train", "zero", "sparse")
 
 #: spread of the K1 cases' q against unit-normal K/V (see k1_case)
 Q_SD = 3.0
@@ -2349,6 +2369,16 @@ def device_breakdown(run) -> dict:
            "idle_share": max(0.0, 1 - busy / wall_ms)}
     for name, ms in by_name.items():
         out[kind(name)] += ms
+    # ZeRO's gathers, gradient reduce-scatters and post-update gathers run
+    # inside "zero.*" profiler ranges: their kernels (collectives, casts,
+    # flat-buffer copies; none of K1-K6 or the matrix products) move from
+    # "other" to "zero"
+    zero = sum(getattr(e, "device_time_total", None) or e.cuda_time_total
+               for e in prof.key_averages()
+               if e.key.startswith("zero.")) / 1e3
+    if zero:
+        out["zero_ms"] = zero
+        out["other_ms"] = max(0.0, out["other_ms"] - zero)
     out["top"] = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
     return out
 
@@ -4205,6 +4235,391 @@ def phase_moe_train(dev) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# zero: ZeRO stages 1-3 over NCCL, checkpoints that reshard, the rewind
+# ---------------------------------------------------------------------------
+
+#: (a)-(c): llama2-7b width at 2 layers, bf16 with an fp32 master, AdamW
+#: (wd 0.01), micro 1 x gas 2 x 1024, remat "full"
+ZERO_PARITY = dict(name="llama2-7b", layers=2, micro=1, gas=2, seq=1024,
+                   steps=3)
+#: (d): the two CPU ranks' run
+ZERO_CPU = dict(name="tiny-llama", micro=2, gas=2, seq=32, steps=2)
+#: (f): qwen2-moe width at 2 layers, dropless, bf16
+ZERO_MOE = dict(name="qwen2-moe-a2.7b", layers=2, micro=1, gas=2, seq=1024,
+                steps=2)
+#: where (b) writes its checkpoint (inside the checkout; removed after)
+ZERO_CKPT = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                         "zero_ckpt.tmp")
+
+
+def zero_config(spec: dict, stage: int, **over) -> dict:
+    return train_config(
+        spec, activation_checkpointing={"policy": "full"},
+        zero_optimization={"stage": stage}, **over)
+
+
+def zero_data(spec: dict, vocab: int, batches: int, seed: int) -> dict:
+    """``batches`` global batches of seeded tokens, for a loader whose
+    ``batch_for_step`` is the data position of a resume and a rewind."""
+    g = torch.Generator().manual_seed(seed)
+    rows = spec["micro"] * spec["gas"] * batches
+    return {"input_ids": torch.randint(0, vocab, (rows, spec["seq"]),
+                                       generator=g).numpy()}
+
+
+def zero_engine(spec: dict, dev, stage: int, **over):
+    import deepspeed_tpu_torch as dst
+    from deepspeed_tpu_torch.models import build_model
+
+    model = build_model(spec["name"], num_layers=spec["layers"],
+                        dtype=torch.bfloat16, param_dtype=torch.float32,
+                        device=dev, seed=0)
+    return dst.initialize(model=model, config=zero_config(spec, stage,
+                                                          **over))[0]
+
+
+def zero_steps(engine, loader, until: int) -> list[float]:
+    """Train until ``global_steps == until`` on the loader's batches, the
+    data position re-derived from ``global_steps`` (a rewind replays)."""
+    losses = []
+    while engine.global_steps < until:
+        loss = float(engine.train_batch(
+            loader.batch_for_step(engine.global_steps)))
+        if engine.last_step_rewound:
+            losses.append(("rewound", loss))
+            continue
+        losses.append(loss)
+    return losses
+
+
+def zero_check_launches(tag: str, got: dict, L: int, gas: int, steps: int,
+                        **extra) -> None:
+    want = {k: 0 for k in got}
+    want.update(k4_fwd=L * gas * 2 * steps, k4_bwd=L * gas * steps, **extra)
+    if got != want:
+        raise AssertionError(f"[{tag}] launches {got} != {want}")
+
+
+def zero_cpu_rank(d: str) -> float:
+    """One of two CPU gloo ranks: tiny-llama in fp32 at stage 3 over
+    ``{"fsdp": 2}``, ``ZERO_CPU["steps"]`` steps, saved to ``d``; returns
+    the eval loss of the batch (d) evaluates on the card."""
+    import deepspeed_tpu_torch as dst
+    from deepspeed_tpu_torch.models import build_model
+
+    spec = ZERO_CPU
+    model = build_model(spec["name"], device="cpu", dtype=torch.float32,
+                        seed=0)
+    cfg = train_config(spec, bf16={"enabled": False},
+                       zero_optimization={"stage": 3}, mesh={"fsdp": 2})
+    engine = dst.initialize(model=model, config=cfg, device="cpu")[0]
+    data = zero_data(dict(spec, micro=spec["micro"] * 2), 256, spec["steps"],
+                     seed=11)
+    loader = engine.deepspeed_io(data, shuffle=False)
+    for step in range(spec["steps"]):
+        engine.train_batch(loader.batch_for_step(step))
+    engine.save_checkpoint(d)
+    return float(engine.eval_batch(zero_data(spec, 256, 1, seed=12)))
+
+
+def phase_zero(dev, train: dict | None = None) -> dict:
+    """See the module docstring, phase 9. ``train`` is the train phase's
+    record of this run, for (e)'s comparison."""
+    import shutil
+    import tempfile
+
+    import torch.distributed as dist
+
+    from deepspeed_tpu_torch import comm
+    from deepspeed_tpu_torch.checkpoint import (
+        get_fp32_state_dict_from_zero_checkpoint, tag_status)
+    from deepspeed_tpu_torch.comm.spawn import RankPool
+
+    t_phase = time.perf_counter()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    comm.init_distributed()
+    if dist.get_backend() != "nccl" or dist.get_world_size() != 1:
+        raise AssertionError(f"[zero] process group {dist.get_backend()} of "
+                             f"{dist.get_world_size()}")
+    free_cuda()
+    rec: dict = {"launches": {}}
+
+    def add_launches(got):
+        for k, v in got.items():
+            rec["launches"][k] = rec["launches"].get(k, 0) + v
+
+    # (a) stage parity, (b) the checkpoint, (c) the rewind ----------------
+    spec = ZERO_PARITY
+    L, gas, steps = spec["layers"], spec["gas"], spec["steps"]
+    tag = f"zero {spec['name']} x{L}"
+    vocab = 32000
+    data = zero_data(spec, vocab, 6, seed=7)
+    ref = None
+    runs = {}
+    shutil.rmtree(ZERO_CKPT, ignore_errors=True)
+    os.makedirs(ZERO_CKPT)
+    ckpt = {}
+    for stage in (0, 1, 2, 3):
+        engine = zero_engine(spec, dev, stage)
+        loader = engine.deepspeed_io(data, shuffle=False)
+        reset_counts()
+        if stage == 3:
+            # save at step 2, then take step 3
+            losses = zero_steps(engine, loader, 2)
+            ckpt["free_disk_bytes"] = shutil.disk_usage(ZERO_CKPT).free
+            master2 = engine._full_master()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            engine.save_checkpoint(ZERO_CKPT)
+            ckpt["save_s"] = time.perf_counter() - t0
+            losses += zero_steps(engine, loader, 3)
+        else:
+            losses = zero_steps(engine, loader, steps)
+        launches = all_counts()
+        zero_check_launches(f"{tag} stage {stage}", launches, L, gas, steps)
+        add_launches(launches)
+        master = engine._full_master()
+        runs[stage] = losses
+        if ref is None:
+            ref = (losses, master)
+        elif losses != ref[0] or not all(
+                torch.equal(a, b) for a, b in zip(master, ref[1])):
+            raise AssertionError(f"[{tag}] stage {stage} losses {losses} "
+                                 f"against stage 0's {ref[0]}, or its "
+                                 f"master differs")
+        log(f"[{tag}] stage {stage}: losses "
+            f"{', '.join(repr(x) for x in losses)} (bit for bit stage 0's); "
+            f"launches k4 {launches['k4_fwd']} / {launches['k4_bwd']}")
+        if stage != 3:
+            engine.close()
+            del engine, master
+            free_cuda()
+    stage3_master = ref[1]
+    del ref, master
+    engine.close()
+    del engine
+    free_cuda()
+    rec["stages"] = runs
+    clip = {}
+    for stage in (0, 3):
+        engine = zero_engine(spec, dev, stage, gradient_clipping=1.0)
+        loader = engine.deepspeed_io(data, shuffle=False)
+        reset_counts()
+        clip[stage] = zero_steps(engine, loader, steps)
+        got = all_counts()
+        zero_check_launches(f"{tag} clipped stage {stage}", got, L, gas,
+                            steps)
+        add_launches(got)
+        engine.close()
+        del engine
+        free_cuda()
+    clip_rel = max(abs(a - b) / abs(b) for a, b in zip(clip[3], clip[0]))
+    log(f"[{tag}] clipping 1.0: stage 0 {clip[0]}, stage 3 {clip[3]}: "
+        f"{clip_rel:.2e} relative (limit 1e-6)")
+    if clip_rel > 1e-6:
+        raise AssertionError(f"[{tag}] clipped losses {clip_rel:.2e} apart")
+    rec["clipping"] = {"losses": clip, "max_rel": clip_rel}
+
+    # (b) a fresh stage-1 engine loads stage 3's step-2 tag
+    path = os.path.join(ZERO_CKPT, "global_step2")
+    ckpt["bytes"] = sum(os.path.getsize(os.path.join(dp, f))
+                        for dp, _, fs in os.walk(path) for f in fs)
+    t0 = time.perf_counter()
+    status, why = tag_status(path, "crc32")
+    ckpt["verify_s"] = time.perf_counter() - t0
+    if status != "verified":
+        raise AssertionError(f"[{tag}] saved tag {status}: {why}")
+    sd = get_fp32_state_dict_from_zero_checkpoint(ZERO_CKPT)
+    engine = zero_engine(spec, dev, 1)
+    names = engine._names
+    if set(sd) != set(names) or not all(
+            torch.equal(torch.from_numpy(sd[n]).to(dev), m)
+            for n, m in zip(names, master2)):
+        raise AssertionError(f"[{tag}] zero_to_fp32 state differs from the "
+                             f"step-2 master")
+    del sd, master2
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    engine.load_checkpoint(ZERO_CKPT)
+    torch.cuda.synchronize()
+    ckpt["load_s"] = time.perf_counter() - t0
+    loader = engine.deepspeed_io(data, shuffle=False)
+    resumed = zero_steps(engine, loader, 3)
+    if resumed != runs[3][2:] or not all(
+            torch.equal(a, b) for a, b in zip(engine._full_master(),
+                                              stage3_master)):
+        raise AssertionError(f"[{tag}] resumed step 3 {resumed} against "
+                             f"{runs[3][2:]}, or its master differs")
+    clean = resumed + zero_steps(engine, loader, 5)
+    engine.close()
+    del engine, stage3_master
+    free_cuda()
+    log(f"[{tag}] checkpoint at step 2 (stage 3 → stage 1): "
+        f"{ckpt['bytes'] / 1e9:.3f} GB on disk ({ckpt['free_disk_bytes'] / 1e9:.1f} "
+        f"GB free before), save {ckpt['save_s']:.2f} s, crc32 verify "
+        f"{ckpt['verify_s']:.2f} s, load {ckpt['load_s']:.2f} s; the resumed "
+        f"step 3 is bit for bit stage 3's")
+    rec["checkpoint"] = ckpt
+
+    # (c) the rewind: a NaN at step 4 rewinds to the step-2 tag
+    engine = zero_engine(spec, dev, 3, resilience={
+        "fault_injection": {"nan_grads_step": 4}, "max_consecutive_bad": 1,
+        "rewind_dir": ZERO_CKPT})
+    engine.load_checkpoint(ZERO_CKPT)
+    loader = engine.deepspeed_io(data, shuffle=False)
+    trace = zero_steps(engine, loader, 5)
+    counters = engine.resilience_counters
+    replayed = [x for x in trace if not isinstance(x, tuple)]
+    rewound = [x for x in trace if isinstance(x, tuple)]
+    if counters["rewinds"] != 1 or len(rewound) != 1 or \
+            replayed[-3:] != clean or engine.global_steps != 5:
+        raise AssertionError(f"[{tag}] rewind: trace {trace}, counters "
+                             f"{counters}, clean {clean}")
+    log(f"[{tag}] rewind: steps {trace} (NaN at step 4 → back to step 2); "
+        f"counters {counters}; steps 3-5 after it bit for bit the clean "
+        f"run's {clean}")
+    rec["rewind"] = {"trace": [list(x) if isinstance(x, tuple) else x
+                               for x in trace], "clean": clean,
+                     "counters": counters}
+    engine.close()
+    del engine
+    free_cuda()
+    shutil.rmtree(ZERO_CKPT)
+
+    # (d) two CPU ranks save; the card loads -------------------------------
+    with tempfile.TemporaryDirectory(dir=os.path.dirname(ZERO_CKPT)) as d:
+        with RankPool(2, os.path.join(d, "store")) as pool:
+            evals = pool.run(zero_cpu_rank, os.path.join(d, "ck"))
+        import deepspeed_tpu_torch as dst
+        from deepspeed_tpu_torch.models import build_model
+
+        model = build_model("tiny-llama", device=dev, dtype=torch.float32)
+        engine = dst.initialize(model=model, config=train_config(
+            ZERO_CPU, bf16={"enabled": False},
+            zero_optimization={"stage": 1}))[0]
+        engine.load_checkpoint(os.path.join(d, "ck"))
+        got = float(engine.eval_batch(zero_data(ZERO_CPU, 256, 1, seed=12)))
+        step = float(engine.train_batch(zero_data(ZERO_CPU, 256, 1,
+                                                  seed=13)))
+        rel = abs(got - evals[0]) / abs(evals[0])
+        log(f"[zero cpu→card] 2 gloo ranks (stage 3, fsdp 2) saved at step "
+            f"{engine.global_steps - 1}; eval loss {evals} on the CPU, "
+            f"{got} on the card at stage 1 ({rel:.2e} relative, limit "
+            f"1e-5); a further step's loss {step}")
+        if evals[0] != evals[1] or rel > 1e-5 or not math.isfinite(step):
+            raise AssertionError(f"[zero cpu→card] evals {evals} / {got}, "
+                                 f"step {step}")
+        rec["cpu_to_card"] = {"cpu_eval": evals, "card_eval": got,
+                              "rel": rel, "next_step": step}
+        engine.close()
+        del engine, model
+
+    # (e) stage 3 at the train phase's spec, beside stage 0 timed alike ----
+    spec = TRAIN
+    L, gas, steps = spec["layers"], spec["gas"], spec["steps"]
+    tag = f"zero {spec['name']} x{L}"
+    batch = train_batch_of(spec, vocab, seed=3)
+    tokens = batch["input_ids"].numel()
+    e_rec = {}
+    for stage in (0, 3):
+        free_cuda()
+        before = torch.cuda.memory_allocated()
+        engine = zero_engine(spec, dev, stage)
+        state = torch.cuda.memory_allocated() - before
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        losses, step_s = [], []
+        for _ in range(steps):
+            torch.cuda.synchronize()
+            ts = time.perf_counter()
+            losses.append(float(engine.train_batch(batch)))
+            step_s.append(time.perf_counter() - ts)
+        launches = all_counts()
+        zero_check_launches(f"{tag} stage {stage}", launches, L, gas, steps)
+        add_launches(launches)
+        if train is not None and (launches["k4_fwd"], launches["k4_bwd"]) \
+                != (train["launches"]["k4_fwd"], train["launches"]["k4_bwd"]):
+            raise AssertionError(f"[{tag}] K4 launches differ from the train "
+                                 f"phase's")
+        if not all(math.isfinite(x) for x in losses) or \
+                not losses[-1] < losses[0]:
+            raise AssertionError(f"[{tag}] stage {stage} losses {losses}")
+        # the steps' peak, less what was allocated before the engine
+        peak = torch.cuda.max_memory_allocated() - before
+        ms_step = statistics.mean(step_s[1:]) * 1e3
+        r = dict(losses=losses, step_s=step_s, ms_per_step=ms_step,
+                 tokens_per_s=tokens / (ms_step / 1e3), peak_mem_bytes=peak,
+                 state_bytes=state, allocated_before=before,
+                 launches=launches)
+        if stage == 3:
+            # profiled last: a profiler session slows later host work
+            r["profile"] = prof = device_breakdown(
+                lambda: engine.train_batch(batch))
+            r["zero_counts"] = dict(engine._zero.counts)
+            split = ("not measured" if prof.get("device") == "not measured"
+                     else ", ".join(f"{k[:-3]} {prof.get(k, 0.0):.1f}"
+                                    for k in ("k4_ms", "gemm_ms", "zero_ms",
+                                              "other_ms"))
+                     + f" of {prof['wall_ms']:.1f} ms wall, idle "
+                     f"{prof['idle_share']:.3f}")
+        log(f"[{tag}] stage {stage}: {tokens} tokens a step, losses "
+            f"{', '.join(f'{x:.4f}' for x in losses)}; {ms_step:.1f} "
+            f"ms/step, {r['tokens_per_s']:.0f} tokens/s, peak memory "
+            f"{peak / 1e9:.2f} GB in the steps (state after set-up "
+            f"{state / 1e9:.2f} GB; {before / 1e9:.2f} GB held before it)"
+            + (f"; profiled step (ms): {split}" if stage == 3 else ""))
+        e_rec[stage] = r
+        engine.close()
+        del engine
+    free_cuda()
+    if e_rec[0]["losses"] != e_rec[3]["losses"]:
+        raise AssertionError(f"[{tag}] stage 3 losses {e_rec[3]['losses']} "
+                             f"against stage 0's {e_rec[0]['losses']}")
+    if train is not None:
+        log(f"[{tag}] the train phase (stage 0) of this run: "
+            f"{train['ms_per_step']:.1f} ms/step, {train['tokens_per_s']:.0f} "
+            f"tokens/s, peak {train['peak_mem_bytes'] / 1e9:.2f} GB")
+    log(f"[{tag}] stage 3 / stage 0: ms/step x"
+        f"{e_rec[3]['ms_per_step'] / e_rec[0]['ms_per_step']:.3f}, peak "
+        f"memory {(e_rec[3]['peak_mem_bytes'] - e_rec[0]['peak_mem_bytes']) / 1e9:+.2f} GB")
+    rec["stage3_train"] = e_rec
+
+    # (f) MoE: stage 0 against stage 3 ---------------------------------------
+    spec = ZERO_MOE
+    L, gas, steps = spec["layers"], spec["gas"], spec["steps"]
+    tag = f"zero {spec['name']} x{L} dropless"
+    moe = {}
+    for stage in (0, 3):
+        import deepspeed_tpu_torch as dst
+
+        model = dropless_model(spec, dev, dtype=torch.bfloat16,
+                               param_dtype=torch.float32)
+        engine = dst.initialize(model=model,
+                                config=zero_config(spec, stage))[0]
+        batch = train_batch_of(spec, model.config.vocab_size, seed=6)
+        reset_counts()
+        moe[stage] = [float(engine.train_batch(batch)) for _ in range(steps)]
+        got = all_counts()
+        per = 3 * L * gas * steps
+        zero_check_launches(f"{tag} stage {stage}", got, L, gas, steps,
+                            k5=per * 2, k5_tc=per * 2, k5_dx=per,
+                            k5_dx_tc=per, k5_dw=per, k5_dw_tc=per)
+        add_launches(got)
+        engine.close()
+        del engine, model
+        free_cuda()
+    log(f"[{tag}] stage 0 {moe[0]}, stage 3 {moe[3]}: bit for bit; every K5 "
+        f"launch on the wgmma route")
+    if moe[0] != moe[3]:
+        raise AssertionError(f"[{tag}] losses {moe}")
+    rec["moe"] = moe
+    rec["seconds"] = time.perf_counter() - t_phase
+    log(f"[zero] phase {rec['seconds']:.1f} s; launches {rec['launches']}")
+    return rec
+
+
+# ---------------------------------------------------------------------------
 # main
 # ---------------------------------------------------------------------------
 
@@ -4390,6 +4805,14 @@ def main() -> int:
         k5_dw["launches"] = got["k5_dw"]
         k4_fwd["launches"] = (k4_fwd["launches"] or 0) + got["k4_fwd"]
         k4_bwd["launches"] = (k4_bwd["launches"] or 0) + got["k4_bwd"]
+    if "zero" in phases:
+        zero = phase_zero(dev, record["phases"].get("train"))
+        record["phases"]["zero"] = zero
+        got = zero["launches"]
+        # the ZeRO runs' K4 (dense and MoE) and K5 (MoE) launches
+        for rec, key in ((k4_fwd, "k4_fwd"), (k4_bwd, "k4_bwd"), (k5, "k5"),
+                         (k5_dx, "k5_dx"), (k5_dw, "k5_dw")):
+            rec["launches"] = (rec["launches"] or 0) + got[key]
     if "sparse" in phases:
         sparse = phase_sparse(dev)
         record["phases"]["sparse"] = sparse

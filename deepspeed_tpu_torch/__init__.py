@@ -12,18 +12,31 @@ is taken on a machine without one.
 
 Ported so far: FastGen serving (``inference.InferenceEngineV2``) over the
 dense and MoE transformer families, with its kernels written in CUDA for
-Hopper (``ops/csrc/``), and one-process dense training:
+Hopper (``ops/csrc/``), and training:
 ``deepspeed_tpu_torch.initialize(model=..., config=...)`` returns the
-training engine (``runtime/engine.py``), whose attention runs the flash
-kernel K4 (``ops/csrc/flash_attention.cu``). ``initialize``, ``Config`` /
-``DeepSpeedConfig`` and ``DeepSpeedEngine`` are imported on first use.
+training engine (``runtime/engine.py``), ZeRO stages 0-3 over
+``torch.distributed`` (``init_distributed``, ``comm``, ``zero``), with
+checkpoints that reshard on load (``runtime/checkpointing.py``,
+``checkpoint``) and the resilience rewind; its attention runs the flash
+kernel K4 (``ops/csrc/flash_attention.cu``). The names below are imported
+on first use.
 """
 from .version import __version__  # noqa: F401
 
 _LAZY = {"initialize": ("runtime.engine", "initialize"),
          "DeepSpeedEngine": ("runtime.engine", "DeepSpeedEngine"),
          "Config": ("config", "Config"),
-         "DeepSpeedConfig": ("config", "DeepSpeedConfig")}
+         "DeepSpeedConfig": ("config", "DeepSpeedConfig"),
+         "init_distributed": ("comm.comm", "init_distributed"),
+         "comm": ("comm", None),
+         "zero": ("zero", None),
+         "checkpoint": ("checkpoint", None),
+         "get_fp32_state_dict_from_zero_checkpoint": (
+             "checkpoint.universal", "get_fp32_state_dict_from_zero_checkpoint"),
+         "zero_to_fp32": ("checkpoint.universal", "zero_to_fp32"),
+         "ds_to_universal": ("checkpoint.universal", "ds_to_universal"),
+         "state_tree": ("runtime.checkpointing", "state_tree"),
+         "load_state_tree": ("runtime.checkpointing", "load_state_tree")}
 
 
 def __getattr__(name: str):
@@ -31,5 +44,6 @@ def __getattr__(name: str):
         import importlib
 
         module, attr = _LAZY[name]
-        return getattr(importlib.import_module(f".{module}", __name__), attr)
+        mod = importlib.import_module(f".{module}", __name__)
+        return mod if attr is None else getattr(mod, attr)
     raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

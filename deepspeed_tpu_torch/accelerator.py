@@ -8,6 +8,7 @@ request the CPU tests make.
 """
 from __future__ import annotations
 
+import os
 import subprocess
 
 import torch
@@ -18,9 +19,10 @@ KERNEL_CAPABILITY = (9, 0)
 
 
 def get_device(device: str | torch.device | None = None) -> torch.device:
-    """The device an entry point runs on: ``device`` when given, else the
-    current CUDA device. Raises RuntimeError when CUDA is asked for (or
-    defaulted to) and absent."""
+    """The device an entry point runs on: ``device`` when given, else
+    ``cuda:LOCAL_RANK`` under a process group (one device per process, as
+    torchrun starts them), else the current CUDA device. Raises
+    RuntimeError when CUDA is asked for (or defaulted to) and absent."""
     if device is not None:
         dev = torch.device(device)
         if dev.type == "cuda" and not torch.cuda.is_available():
@@ -33,6 +35,11 @@ def get_device(device: str | torch.device | None = None) -> torch.device:
         raise RuntimeError(
             "no CUDA device: the port runs on the GPU by default; pass "
             "device='cpu' to run the plain versions on the host")
+    import torch.distributed as dist
+
+    if dist.is_available() and dist.is_initialized() \
+            and os.environ.get("LOCAL_RANK"):
+        return torch.device("cuda", int(os.environ["LOCAL_RANK"]))
     return torch.device("cuda", torch.cuda.current_device())
 
 

@@ -1,0 +1,473 @@
+"""Communication facade over ``torch.distributed``.
+
+Counterpart of ``deepspeed_tpu/comm/comm.py`` (the reference's
+``deepspeed.comm``). The JAX package's collectives run inside a compiled
+program over a named mesh axis; these run eagerly over that axis's process
+group. Every collective takes the JAX ``axis_name`` (one of the mesh axes,
+or a tuple of them) and resolves it through the topology the engine
+registered (:func:`set_topology`) to the group of processes that share
+every other coordinate; ``None`` means the whole world. On the card the
+groups are NCCL's, on the CPU gloo's.
+
+``init_distributed`` brings the process group up from the environment
+``torchrun`` sets (``RANK``, ``WORLD_SIZE``, ``LOCAL_RANK``,
+``MASTER_ADDR`` / ``MASTER_PORT``), from the JAX package's variables
+(``DS_TPU_COORDINATOR``, ``DS_TPU_NUM_PROCESSES``, ``DS_TPU_PROCESS_ID``)
+or from a scheduler's (Open MPI, Slurm, PMI), or from its arguments. With
+none of them it makes a world of one on an in-process store, so nothing
+binds a port.
+
+:class:`CommsLogger` records each collective's op, axis and bytes, as the
+JAX package's does at trace time; here it records at each call.
+"""
+from __future__ import annotations
+
+import contextlib
+import datetime
+import os
+import threading
+from dataclasses import dataclass
+from typing import Sequence
+
+import torch
+import torch.distributed as dist
+
+from ..utils.logging import log_dist, logger
+
+
+@dataclass
+class CommOpRecord:
+    op: str
+    axis: str
+    size_bytes: int
+    count: int = 1
+    total_bytes: int = 0
+
+    def __post_init__(self):
+        self.total_bytes = self.size_bytes
+
+
+class CommsLogger:
+    """Collective accounting (reference comms_logging.py:67): counts and
+    bytes per (op, axis, message size)."""
+
+    def __init__(self, enabled: bool = False, verbose: bool = False,
+                 debug: bool = False):
+        self.enabled = enabled
+        self.verbose = verbose
+        self.debug = debug
+        self._records: dict[tuple[str, str, int], CommOpRecord] = {}
+        self._lock = threading.Lock()
+
+    def configure(self, enabled: bool = True, verbose: bool = False,
+                  debug: bool = False) -> None:
+        self.enabled = enabled
+        self.verbose = verbose
+        self.debug = debug
+
+    def record(self, op: str, axis: str, size_bytes: int) -> None:
+        if not self.enabled:
+            return
+        key = (op, axis, size_bytes)
+        with self._lock:
+            rec = self._records.get(key)
+            if rec is None:
+                self._records[key] = CommOpRecord(op=op, axis=axis,
+                                                  size_bytes=size_bytes)
+            else:
+                rec.count += 1
+                rec.total_bytes += size_bytes
+        if self.verbose:
+            log_dist(f"comm op: {op} | axis: {axis} | msg size: "
+                     f"{size_bytes} bytes")
+
+    def log_summary(self) -> str:
+        lines = [f"{'op':<20}{'axis':<10}{'msg size':<14}{'count':<8}"
+                 f"{'total':<14}"]
+        with self._lock:
+            for rec in sorted(self._records.values(),
+                              key=lambda r: -r.total_bytes):
+                lines.append(
+                    f"{rec.op:<20}{rec.axis:<10}"
+                    f"{_fmt_bytes(rec.size_bytes):<14}{rec.count:<8}"
+                    f"{_fmt_bytes(rec.total_bytes):<14}")
+        summary = "\n".join(lines)
+        log_dist("Communication summary:\n" + summary)
+        return summary
+
+    def reset(self) -> None:
+        with self._lock:
+            self._records.clear()
+
+
+def _fmt_bytes(n: float) -> str:
+    for unit in ("B", "KB", "MB", "GB", "TB"):
+        if n < 1024 or unit == "TB":
+            return f"{n:.1f} {unit}" if unit != "B" else f"{n} B"
+        n /= 1024
+    return f"{n} B"
+
+
+comms_logger = CommsLogger()
+
+
+def configure_comms_logger(enabled: bool = True, verbose: bool = False,
+                           debug: bool = False) -> None:
+    comms_logger.configure(enabled=enabled, verbose=verbose, debug=debug)
+
+
+def log_summary() -> str:
+    return comms_logger.log_summary()
+
+
+# --------------------------------------------------------------------------
+# Process bring-up (reference comm.py:619 init_distributed)
+# --------------------------------------------------------------------------
+
+def _env_int(*names: str) -> int | None:
+    for n in names:
+        v = os.environ.get(n)
+        if v not in (None, ""):
+            return int(v)
+    return None
+
+
+def init_distributed(dist_backend: str | None = None, *,
+                     init_method: str | None = None,
+                     rank: int | None = None, world_size: int | None = None,
+                     local_rank: int | None = None, device=None,
+                     timeout_s: int = 300) -> None:
+    """Bring the default process group up once (a no-op when it is up).
+
+    Rank and world size come from the arguments, else from ``RANK`` /
+    ``WORLD_SIZE`` (torchrun), ``DS_TPU_PROCESS_ID`` /
+    ``DS_TPU_NUM_PROCESSES``, or a scheduler's variables (the JAX package's
+    ``mpi_discovery`` list, comm.py:213-224); the rendezvous from
+    ``init_method``, else ``MASTER_ADDR`` / ``MASTER_PORT`` or
+    ``DS_TPU_COORDINATOR`` (``host:port``). The backend is NCCL when
+    ``device`` is (or defaults to) CUDA and gloo for ``device="cpu"``; on
+    CUDA the current device becomes ``cuda:LOCAL_RANK``. With no world size
+    anywhere the world is this process alone, on an in-process store."""
+    if dist.is_initialized():
+        return
+    from ..accelerator import get_device
+
+    dev = get_device(device)
+    backend = dist_backend or ("nccl" if dev.type == "cuda" else "gloo")
+    if rank is None:
+        rank = _env_int("RANK", "DS_TPU_PROCESS_ID", "OMPI_COMM_WORLD_RANK",
+                        "SLURM_PROCID", "PMI_RANK")
+    if world_size is None:
+        world_size = _env_int("WORLD_SIZE", "DS_TPU_NUM_PROCESSES",
+                              "OMPI_COMM_WORLD_SIZE", "SLURM_NTASKS",
+                              "PMI_SIZE")
+    if local_rank is None:
+        local_rank = _env_int("LOCAL_RANK", "OMPI_COMM_WORLD_LOCAL_RANK",
+                              "SLURM_LOCALID")
+    if local_rank is None:
+        local_rank = 0 if rank is None else rank % max(
+            1, torch.cuda.device_count() if dev.type == "cuda" else 1)
+    if dev.type == "cuda":
+        torch.cuda.set_device(local_rank)
+    timeout = datetime.timedelta(seconds=timeout_s)
+    if world_size is None or (world_size == 1 and init_method is None
+                              and "MASTER_ADDR" not in os.environ):
+        logger.info(f"init_distributed: a world of one ({backend}, "
+                    f"in-process store)")
+        dist.init_process_group(backend, store=dist.HashStore(), rank=0,
+                                world_size=1, timeout=timeout)
+        return
+    if init_method is None:
+        coord = os.environ.get("DS_TPU_COORDINATOR")
+        if "MASTER_ADDR" in os.environ:
+            init_method = (f"tcp://{os.environ['MASTER_ADDR']}:"
+                           f"{os.environ.get('MASTER_PORT', '29500')}")
+        elif coord:
+            init_method = f"tcp://{coord}"
+        else:
+            raise ValueError(
+                f"init_distributed: world size {world_size} but no "
+                f"rendezvous (set MASTER_ADDR/MASTER_PORT or pass "
+                f"init_method)")
+    logger.info(f"init_distributed: {backend} rank {rank}/{world_size} via "
+                f"{init_method}")
+    dist.init_process_group(backend, init_method=init_method,
+                            rank=int(rank or 0), world_size=int(world_size),
+                            timeout=timeout)
+
+
+def is_initialized() -> bool:
+    return dist.is_initialized()
+
+
+def get_rank(group=None) -> int:
+    return dist.get_rank(group) if dist.is_initialized() else 0
+
+
+def get_world_size(group=None) -> int:
+    """Processes in ``group`` (the world by default): one device each."""
+    return dist.get_world_size(group) if dist.is_initialized() else 1
+
+
+def get_process_count() -> int:
+    return get_world_size()
+
+
+def get_local_device_count() -> int:
+    return 1
+
+
+def barrier(group=None) -> None:
+    """Host-level barrier across processes (reference comm.py:412)."""
+    if dist.is_initialized() and dist.get_world_size() > 1:
+        dist.barrier(group=group)
+
+
+# --------------------------------------------------------------------------
+# Collectives over named mesh axes (reference comm.py:222-521)
+# --------------------------------------------------------------------------
+
+_topology = None
+
+
+def set_topology(topology) -> None:
+    """The topology whose axis groups resolve ``axis_name``s (the engine
+    registers its own)."""
+    global _topology
+    _topology = topology
+
+
+def group_of(axis_name: str | Sequence[str] | None):
+    """The process group of ``axis_name``: None (the world) for None or
+    when every named axis has size 1 in a world of one."""
+    if axis_name is None:
+        return None
+    if _topology is None:
+        if get_world_size() == 1:
+            return None
+        raise RuntimeError(f"axis '{axis_name}' named but no topology is "
+                           f"registered (comm.set_topology)")
+    return _topology.group(axis_name)
+
+
+def axis_size(axis_name: str | Sequence[str] | None) -> int:
+    return get_world_size(group_of(axis_name))
+
+
+def axis_index(axis_name: str | Sequence[str] | None) -> int:
+    return get_rank(group_of(axis_name))
+
+
+def _record(op: str, axis, x: torch.Tensor) -> None:
+    if comms_logger.enabled:
+        comms_logger.record(op, str(axis), x.numel() * x.element_size())
+
+
+# torch 2.13 renames the tensor forms (``*_single``); 2.11 has only the
+# older names. Resolve whichever this build has, once per call.
+def _gather_into(out: torch.Tensor, inp: torch.Tensor, group) -> None:
+    fn = getattr(dist, "all_gather_single", None) or \
+        dist.all_gather_into_tensor
+    fn(out, inp, group=group)
+
+
+def _scatter_into(out: torch.Tensor, inp: torch.Tensor, group,
+                  op=dist.ReduceOp.SUM) -> None:
+    fn = getattr(dist, "reduce_scatter_single", None) or \
+        dist.reduce_scatter_tensor
+    fn(out, inp, op=op, group=group)
+
+
+_OPS = {"sum": dist.ReduceOp.SUM, "max": dist.ReduceOp.MAX,
+        "min": dist.ReduceOp.MIN, "avg": dist.ReduceOp.SUM,
+        "mean": dist.ReduceOp.SUM}
+
+
+def all_reduce(x: torch.Tensor, axis_name=None, op: str = "sum"
+               ) -> torch.Tensor:
+    """A new tensor: ``x`` reduced (sum, mean / avg, max, min) over the
+    axis's group (reference comm.py:481)."""
+    if op not in _OPS:
+        raise ValueError(f"unsupported reduce op: {op}")
+    _record("all_reduce", axis_name, x)
+    out = x.clone()
+    group = group_of(axis_name)
+    if dist.is_initialized():
+        dist.all_reduce(out, op=_OPS[op], group=group)
+    if op in ("avg", "mean"):
+        out = out / get_world_size(group)
+    return out
+
+
+def all_gather(x: torch.Tensor, axis_name=None, axis: int = 0,
+               tiled: bool = True) -> torch.Tensor:
+    """Every member's ``x`` concatenated along ``axis`` in rank order
+    (``tiled``), or stacked on a new leading-``axis`` dim (reference
+    comm.py:315)."""
+    _record("all_gather", axis_name, x)
+    group = group_of(axis_name)
+    n = get_world_size(group)
+    src = x.movedim(axis, 0).contiguous() if tiled else x.contiguous()
+    out = src.new_empty((n * src.shape[0], *src.shape[1:]) if tiled
+                        else (n, *src.shape))
+    if dist.is_initialized():
+        _gather_into(out, src, group)
+    else:
+        out.copy_(src.reshape(out.shape))
+    return out.movedim(0, axis)
+
+
+def reduce_scatter(x: torch.Tensor, axis_name=None, axis: int = 0,
+                   op: str = "sum") -> torch.Tensor:
+    """``x`` summed over the group, this member's ``1/n`` slice of
+    ``axis`` kept (reference comm.py:257); ``op="mean"`` divides by n."""
+    _record("reduce_scatter", axis_name, x)
+    group = group_of(axis_name)
+    n = get_world_size(group)
+    src = x.movedim(axis, 0).contiguous()
+    if src.shape[0] % n:
+        raise ValueError(f"reduce_scatter: dim {axis} of {tuple(x.shape)} "
+                         f"does not divide over {n} members")
+    out = src.new_empty((src.shape[0] // n, *src.shape[1:]))
+    if dist.is_initialized():
+        _scatter_into(out, src, group)
+    else:
+        out.copy_(src)
+    if op in ("avg", "mean"):
+        out = out / n
+    return out.movedim(0, axis)
+
+
+def all_to_all(x: torch.Tensor, axis_name=None, split_axis: int = 0,
+               concat_axis: int = 0, tiled: bool = True) -> torch.Tensor:
+    """``x`` split into n pieces along ``split_axis``, piece j sent to
+    member j, the received pieces concatenated along ``concat_axis``
+    (reference comm.py:222)."""
+    _record("all_to_all", axis_name, x)
+    group = group_of(axis_name)
+    n = get_world_size(group)
+    pieces = x.movedim(split_axis, 0)
+    if pieces.shape[0] % n:
+        raise ValueError(f"all_to_all: dim {split_axis} of {tuple(x.shape)} "
+                         f"does not divide over {n} members")
+    src = pieces.reshape(n, pieces.shape[0] // n,
+                         *pieces.shape[1:]).contiguous()
+    out = torch.empty_like(src)
+    if dist.is_initialized():
+        dist.all_to_all_single(out, src, group=group)
+    else:
+        out.copy_(src)
+    # out[j] is member j's piece for this member, in x's layout along
+    # split_axis moved to the front
+    recv = [out[j].movedim(0, split_axis) for j in range(n)]
+    return torch.cat(recv, dim=concat_axis)
+
+
+def broadcast(x: torch.Tensor, axis_name=None, src: int = 0
+              ) -> torch.Tensor:
+    """Member ``src``'s ``x`` on every member (reference comm.py:285);
+    ``src`` is the rank within the axis's group."""
+    _record("broadcast", axis_name, x)
+    group = group_of(axis_name)
+    out = x.clone().contiguous()
+    if dist.is_initialized():
+        glob = dist.get_global_rank(group, src) if group is not None else src
+        dist.broadcast(out, src=glob, group=group)
+    return out
+
+
+def ppermute(x: torch.Tensor, axis_name, perm: list[tuple[int, int]]
+             ) -> torch.Tensor:
+    """Point-to-point permute: member ``s`` sends to ``d`` for each pair;
+    a member nobody sends to gets zeros (``lax.ppermute``)."""
+    _record("ppermute", axis_name, x)
+    group = group_of(axis_name)
+    me = get_rank(group)
+    n = get_world_size(group)
+    out = torch.zeros_like(x)
+    if n == 1:
+        return x.clone() if (0, 0) in perm else out
+    ops = []
+    to_glob = (lambda r: dist.get_global_rank(group, r)) \
+        if group is not None else (lambda r: r)
+    for s, d in perm:
+        if s == me:
+            ops.append(dist.P2POp(dist.isend, x.contiguous(), to_glob(d),
+                                  group=group))
+        if d == me:
+            ops.append(dist.P2POp(dist.irecv, out, to_glob(s), group=group))
+    for req in dist.batch_isend_irecv(ops) if ops else []:
+        req.wait()
+    return out
+
+
+def send_recv_next(x: torch.Tensor, axis_name) -> torch.Tensor:
+    """Shift +1 around the axis ring (pipeline forward activations)."""
+    n = axis_size(axis_name)
+    return ppermute(x, axis_name, [(i, (i + 1) % n) for i in range(n)])
+
+
+def send_recv_prev(x: torch.Tensor, axis_name) -> torch.Tensor:
+    """Shift -1 around the axis ring (pipeline backward grads)."""
+    n = axis_size(axis_name)
+    return ppermute(x, axis_name, [(i, (i - 1) % n) for i in range(n)])
+
+
+class _AllReduceMean(torch.autograd.Function):
+    """The mean over a group, with the gradient passed through: every
+    member's upstream gradient is the same (the loss is a function of the
+    mean), so each member's share of d(mean)/dx_r, summed by the engine's
+    mean over members, is the upstream gradient itself."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        out = x.clone()
+        dist.all_reduce(out, group=group)
+        return out / dist.get_world_size(group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+def all_reduce_mean_autograd(x: torch.Tensor, group) -> torch.Tensor:
+    """:class:`_AllReduceMean` (a no-op in a world of one)."""
+    if not dist.is_initialized() or dist.get_world_size(group) == 1:
+        return x
+    return _AllReduceMean.apply(x, group)
+
+
+# --------------------------------------------------------------------------
+# The data-parallel scope of a training step
+# --------------------------------------------------------------------------
+
+@dataclass
+class DataParallel:
+    """The group a step's rows are split over, with this member's rank."""
+    group: object
+    size: int
+    rank: int
+
+
+_dp: DataParallel | None = None
+
+
+@contextlib.contextmanager
+def data_parallel_scope(group, size: int, rank: int):
+    """While a step's forward and backward run, the statistics the JAX
+    engine takes over the whole global micro-batch (the loss's count of
+    labelled tokens, the MoE gating means) are taken over ``group``. A
+    process global, not a thread's: on CUDA the backward, and the forward
+    that remat runs again inside it, run on autograd's device thread. A
+    no-op for a group of one."""
+    global _dp
+    prev = _dp
+    _dp = DataParallel(group, size, rank) if size > 1 else None
+    try:
+        yield
+    finally:
+        _dp = prev
+
+
+def current_data_parallel() -> DataParallel | None:
+    return _dp

@@ -8,7 +8,17 @@ layers return, as the JAX loss adds what they sow).
 
 ``DS_TPU_CE_CHUNK=<rows>``, read at each call, streams the cross-entropy
 over ``[rows, V]`` pieces, each checkpointed so its fp32 logits are rebuilt
-in the backward rather than kept: the same function, in less memory. The fused vocab-chunked head loss (``fused_lm_head_loss``,
+in the backward rather than kept: the same function, in less memory.
+
+Under data parallelism (``comm.data_parallel_scope``, which the engine
+opens around a step) the mean is over the whole global micro-batch, as the
+JAX engine's is under GSPMD: the count of labelled tokens is summed over
+the group, and the rank's loss is its nll sum over that count times the
+group size, so the group's mean of losses and of gradients is the global
+loss and its gradient. A per-rank mean would miss whenever the ranks hold
+different numbers of ``IGNORE_INDEX`` labels.
+
+The fused vocab-chunked head loss (``fused_lm_head_loss``,
 behind ``DS_TPU_FUSED_HEAD_CHUNK``) and the masked-LM loss of the bert
 family are ported with later slices; setting the env switch raises.
 """
@@ -33,11 +43,27 @@ def _nll_logz_piece(lg: torch.Tensor, lb: torch.Tensor):
     return (lz - true) * mask, lz * mask
 
 
-def _masked_mean_loss(nll, logz, denom, z_loss_weight):
+def _masked_mean_loss(nll, logz, denom, z_loss_weight, ranks=1):
     loss = nll.sum() / denom
     if z_loss_weight:
         loss = loss + z_loss_weight * logz.square().sum() / denom
-    return loss
+    return loss * ranks if ranks > 1 else loss
+
+
+def _denominator(mask: torch.Tensor) -> tuple[torch.Tensor, int]:
+    """(labelled tokens, at least 1; the group size): over the
+    data-parallel group when a scope is open."""
+    from ..comm.comm import current_data_parallel
+
+    count = mask.sum()
+    dp = current_data_parallel()
+    if dp is None:
+        return torch.clamp(count, min=1), 1
+    import torch.distributed as dist
+
+    count = count.clone()
+    dist.all_reduce(count, group=dp.group)
+    return torch.clamp(count, min=1), dp.size
 
 
 def cross_entropy_lm(logits: torch.Tensor, labels: torch.Tensor,
@@ -48,7 +74,7 @@ def cross_entropy_lm(logits: torch.Tensor, labels: torch.Tensor,
     V = logits.shape[-1]
     N = math.prod(logits.shape[:-1])
     mask = labels != ignore_index
-    denom = torch.clamp(mask.sum(), min=1)
+    denom, ranks = _denominator(mask)
     ce_chunk = int(os.environ.get("DS_TPU_CE_CHUNK", "0"))
     if ce_chunk:
         chunk = min(ce_chunk, N)
@@ -59,7 +85,7 @@ def cross_entropy_lm(logits: torch.Tensor, labels: torch.Tensor,
                   for s in range(0, N, chunk)]
         nll = torch.cat([p[0] for p in pieces])
         logz = torch.cat([p[1] for p in pieces])
-        return _masked_mean_loss(nll, logz, denom, z_loss_weight)
+        return _masked_mean_loss(nll, logz, denom, z_loss_weight, ranks)
     logits = logits.float()
     safe_labels = torch.where(mask, labels, 0)
     logz = torch.logsumexp(logits, dim=-1)
@@ -68,7 +94,7 @@ def cross_entropy_lm(logits: torch.Tensor, labels: torch.Tensor,
     loss = nll.sum() / denom
     if z_loss_weight:
         loss = loss + z_loss_weight * (logz.square() * mask).sum() / denom
-    return loss
+    return loss * ranks if ranks > 1 else loss
 
 
 def shift_labels(input_ids: torch.Tensor) -> torch.Tensor:

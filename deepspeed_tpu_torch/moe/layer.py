@@ -265,7 +265,15 @@ class MoE(nn.Module):
              "experts": dict(self.experts.named_parameters())}
         noise = None
         if self.training and self.noisy_gate_policy == "RSample":
-            noise = gating_noise((*x.shape[:2], self.num_experts), x.device,
-                                 noise_seed)
+            from ..comm.comm import current_data_parallel
+
+            # under data parallelism: the global micro-batch's noise, this
+            # rank's rows of it
+            dp = current_data_parallel()
+            B = x.shape[0]
+            noise = gating_noise((B * (dp.size if dp else 1), x.shape[1],
+                                  self.num_experts), x.device, noise_seed)
+            if dp is not None:
+                noise = noise[dp.rank * B:(dp.rank + 1) * B]
         return moe_forward(x, p, training=self.training, noise=noise,
                            **self.options())

@@ -13,6 +13,16 @@ probabilities tie, and ``torch.topk`` promises no order among ties, so
 Nothing here reads a value back to the host: capacity is static, and the
 positions come from cumulative sums over one-hot masks.
 
+Under data parallelism (``comm.data_parallel_scope``) the load-balance
+loss's means ``me`` and ``ce`` are over every token of the global
+micro-batch, as the JAX engine's are under GSPMD: ``l_aux`` is not linear
+in them, so a mean of per-rank losses would differ. ``me`` is averaged
+over the group with its gradient passed through
+(``comm.all_reduce_mean_autograd``), ``ce`` (no gradient) plainly. The
+capacity is per group of S tokens (one sequence), which the split of rows
+over ranks leaves alone, and the z-loss is a plain mean over equal token
+counts.
+
 The losses cost a softmax statistic, a logsumexp and the one-hot counts per
 layer; only training reads them. ``losses=False`` (serving) leaves them out
 and sets ``aux_loss``, ``z_loss`` and ``exp_counts`` to None, where XLA
@@ -63,8 +73,14 @@ def _losses(logits, probs, onehot, n, wanted: bool = True):
     Nones when not ``wanted``."""
     if not wanted:
         return None, None, None
+    from ..comm.comm import all_reduce_mean_autograd, current_data_parallel
+
     me = probs.mean(dim=(0, 1))                                    # [n]
     ce = onehot.sum(dim=2).mean(dim=(0, 1))                        # [n]
+    dp = current_data_parallel()
+    if dp is not None:
+        me = all_reduce_mean_autograd(me, dp.group)
+        ce = all_reduce_mean_autograd(ce.detach(), dp.group)
     aux_loss = (me * ce).sum() * n
     z_loss = torch.logsumexp(logits, dim=-1).square().mean()
     return aux_loss, z_loss, onehot.sum(dim=(0, 1, 2))

@@ -13,6 +13,15 @@ rounding.
 where the JAX update returns new trees, updates the master tensors and the
 moments in place (one fp32 copy of each instead of two) and returns the
 state with its step advanced.
+
+The lists may also be ZeRO partitions (``runtime/zero``). An optimizer
+whose update is ``elementwise`` (Adam / AdamW, Lion, Adagrad, SGD) takes a
+rank's flat partition as one view per segment: each element sees the same
+operations in the same order as in its own tensor, so the bits do not
+change. LAMB's trust ratio is per tensor: it takes the partition as one
+view per piece of a tensor, and ``sq_norm_reduce`` sums each piece's
+squared weight and update norms over the pieces of its tensor on every
+rank before ``w_norm / u_norm``.
 """
 from __future__ import annotations
 
@@ -42,6 +51,8 @@ def _f32(x: float) -> torch.Tensor:
 class Optimizer:
     lr: float = 1e-3
     weight_decay: float = 0.0
+    #: True when each element's update reads only that element's state
+    elementwise = True
 
     def init(self, params: Tensors) -> OptState:
         raise NotImplementedError
@@ -124,13 +135,19 @@ class FusedLamb(Optimizer):
     def init(self, params):
         return OptState(step=0, mu=_zeros_like(params), nu=_zeros_like(params))
 
+    elementwise = False
+
     @torch.no_grad()
-    def update(self, grads, state, params, lr=None):
+    def update(self, grads, state, params, lr=None, sq_norm_reduce=None):
+        """``sq_norm_reduce(w_sq, u_sq)``, when given, maps the local
+        squared norms of every tensor in ``params`` (pieces of ZeRO
+        partitions) to those of the whole tensors they belong to."""
         lr = self.lr if lr is None else lr
         b1, b2 = self.betas
         step = state.step + 1
         stepf = _f32(step)
         bc1, bc2 = 1.0 - _f32(b1) ** stepf, 1.0 - _f32(b2) ** stepf
+        upds = []
         for p, g, m, v in zip(params, grads, state.mu, state.nu):
             g = g.float()
             m.copy_(b1 * m + (1.0 - b1) * g)
@@ -139,8 +156,16 @@ class FusedLamb(Optimizer):
                                             + self.eps)
             if self.weight_decay:
                 upd = upd + self.weight_decay * p
-            w_norm = torch.linalg.norm(p.reshape(-1))
-            u_norm = torch.linalg.norm(upd.reshape(-1))
+            upds.append(upd)
+        if sq_norm_reduce is None:
+            w_norms = [torch.linalg.norm(p.reshape(-1)) for p in params]
+            u_norms = [torch.linalg.norm(u.reshape(-1)) for u in upds]
+        elif params:
+            w_sq, u_sq = sq_norm_reduce(
+                torch.stack([torch.sum(torch.square(p)) for p in params]),
+                torch.stack([torch.sum(torch.square(u)) for u in upds]))
+            w_norms, u_norms = torch.sqrt(w_sq), torch.sqrt(u_sq)
+        for p, upd, w_norm, u_norm in zip(params, upds, w_norms, u_norms):
             trust = torch.where((w_norm > 0) & (u_norm > 0),
                                 torch.clamp(w_norm / u_norm, 0.0,
                                             self.max_trust_ratio),
@@ -213,8 +238,8 @@ def build_optimizer(type_name: str, params: dict[str, Any]) -> Optimizer:
     if name.replace("_", "") in ("onebitadam", "onebitlamb", "zerooneadam"):
         raise NotImplementedError(
             f"optimizer '{type_name}': the 1-bit family (compressed momentum "
-            f"across data-parallel processes) is ported after training part "
-            f"B (ROADMAP queue 1)")
+            f"across data-parallel processes) is ported with ROADMAP queue "
+            f"1, item 6 (runtime/onebit.py)")
 
     # 1-bit comm-only knobs may linger in a config whose type was switched
     # to a dense optimizer; they don't change dense behavior — drop them

@@ -13,7 +13,7 @@ instead of ``jax.checkpoint``. The policy names are the JAX package's:
 - "none" / "everything_saveable": no checkpointing;
 - "cpu" / "offload" / "offload_dots" (activations in host memory) raise
   NotImplementedError: activation offload comes with ZeRO-Offload (ROADMAP
-  queue 1, item 6).
+  queue 1, item 3).
 
 Every checkpoint is non-reentrant (``use_reentrant=False``), so parameters
 reached inside the call get their grads and the K4 autograd function runs
@@ -58,7 +58,7 @@ def make_policy(name: str) -> str | None:
         raise NotImplementedError(
             f"activation checkpointing policy '{name}' keeps activations in "
             f"host memory: it is ported with ZeRO-Offload (ROADMAP queue 1, "
-            f"item 6)")
+            f"item 3)")
     raise ValueError(f"unknown activation checkpointing policy '{name}'; "
                      f"one of {sorted(POLICIES)} or 'offload'")
 

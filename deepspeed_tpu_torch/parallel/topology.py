@@ -1,21 +1,34 @@
-"""Device mesh topology of one process.
+"""Device mesh topology over processes.
 
 Counterpart of ``deepspeed_tpu/parallel/topology.py``: the same named axes
 (``pipe``, ``data``, ``expert``, ``fsdp``, ``seq``, ``tensor``), the same
 :class:`MeshConfig` (sizes per axis, at most one ``"auto"``), ``size(axis)``
-and the world sizes derived from them. The one-process training engine runs
-on one device, so every axis resolves to 1: a configured axis larger than 1
-raises NotImplementedError, since parallel axes over several processes
-(``torch.distributed``, NCCL on the card and gloo on the CPU) are ported
-with training part B (ROADMAP queue 1, item 2).
+and the world sizes derived from them. The JAX mesh lays devices out
+row-major in ``AXIS_ORDER``; here one process drives one device, and
+process ``rank`` sits at the same coordinates (``coords``). Each axis, and
+the data-parallel set ``("data", "expert", "fsdp")``, has its own
+``torch.distributed`` group: the processes that share every other
+coordinate (NCCL on the card, gloo on the CPU).
+
+``data`` and ``fsdp`` may exceed 1: ZeRO partitions over their product.
+``tensor``, ``seq``, ``pipe`` and ``expert`` larger than 1 raise
+NotImplementedError: tensor, sequence, pipeline and expert parallelism are
+ROADMAP queue 1, item 6.
+
+``parallel/axes.py`` (flax logical axis constraints) has no counterpart:
+the port places no tensor by logical axis names.
 """
 from __future__ import annotations
 
 import math
 from dataclasses import dataclass
-from typing import Any
+from typing import Any, Sequence
 
 AXIS_ORDER = ("pipe", "data", "expert", "fsdp", "seq", "tensor")
+#: the data-parallel axes: the ZeRO partition count is their product
+DP_AXES = ("data", "expert", "fsdp")
+#: axes whose parallelism comes with a later slice
+LATER_AXES = ("pipe", "expert", "seq", "tensor")
 
 
 @dataclass
@@ -65,34 +78,117 @@ class MeshConfig:
         return {name: sizes[name] for name in AXIS_ORDER}
 
 
+def _world() -> tuple[int, int]:
+    import torch.distributed as dist
+
+    if dist.is_available() and dist.is_initialized():
+        return dist.get_rank(), dist.get_world_size()
+    return 0, 1
+
+
 class MeshTopology:
-    """The named axes of a one-process, one-device run. Raises
-    NotImplementedError for an axis larger than 1 (training part B)."""
+    """The named axes over the processes of the default group (one process
+    when none is up). The mesh must use every process: a run on fewer
+    processes than the world is started with fewer processes."""
 
     def __init__(self, config: MeshConfig | dict | None = None):
         if isinstance(config, dict) or config is None:
             config = MeshConfig.from_dict(config)
         self.config = config
-        big = {a: getattr(config, a) for a in AXIS_ORDER
-               if getattr(config, a) not in ("auto", -1, None)
-               and int(getattr(config, a)) > 1}
+        self.rank, self.world_size = _world()
+        # a later axis given a size refuses before the sizes must resolve;
+        # one made "auto" refuses once it resolves above 1
+        big = {a: v for a in LATER_AXES
+               if (v := getattr(config, a)) not in ("auto", -1, None)
+               and int(v) > 1}
+        if not big:
+            self.axis_sizes = config.resolve(self.world_size)
+            big = {a: self.axis_sizes[a] for a in LATER_AXES
+                   if self.axis_sizes[a] > 1}
         if big:
             raise NotImplementedError(
-                f"mesh axes {big}: parallel axes over several processes are "
-                f"ported with training part B (ZeRO over torch.distributed; "
-                f"ROADMAP queue 1, item 2)")
-        self.axis_sizes = config.resolve(1)
+                f"mesh axes {big}: tensor, sequence, pipeline and expert "
+                f"parallelism are ported with ROADMAP queue 1, item 6 "
+                f"(parallelism); data and fsdp may exceed 1")
+        used = math.prod(self.axis_sizes.values())
+        if used != self.world_size:
+            raise ValueError(f"mesh {self.axis_sizes} uses {used} devices "
+                             f"but the world has {self.world_size} processes")
+        self.coords = self._coords(self.rank)
+        self._groups: dict[tuple[str, ...], Any] = {}
+        if self.world_size > 1:
+            for axes in [(a,) for a in AXIS_ORDER] + [DP_AXES]:
+                self._groups[axes] = self._make_group(axes)
+
+    def _coords(self, rank: int) -> dict[str, int]:
+        out, rest = {}, rank
+        for a in reversed(AXIS_ORDER):
+            rest, out[a] = divmod(rest, self.axis_sizes[a])
+        return {a: out[a] for a in AXIS_ORDER}
+
+    def _make_group(self, axes: tuple[str, ...]):
+        """The group of the processes that share this one's coordinates on
+        every axis outside ``axes`` (created on every process, in one
+        order: ``new_subgroups_by_enumeration`` makes them all)."""
+        import torch.distributed as dist
+
+        slices: dict[tuple, list[int]] = {}
+        for r in range(self.world_size):
+            c = self._coords(r)
+            key = tuple(c[a] for a in AXIS_ORDER if a not in axes)
+            slices.setdefault(key, []).append(r)
+        group, _ = dist.new_subgroups_by_enumeration(list(slices.values()))
+        return group
+
+    @staticmethod
+    def _key(axis_name: str | Sequence[str]) -> tuple[str, ...]:
+        names = (axis_name,) if isinstance(axis_name, str) else tuple(axis_name)
+        bad = set(names) - set(AXIS_ORDER)
+        if bad:
+            raise ValueError(f"unknown mesh axes {sorted(bad)}")
+        return tuple(a for a in AXIS_ORDER if a in names)
+
+    def group(self, axis_name: str | Sequence[str]):
+        """The process group of one axis or of ``DP_AXES``; None (the
+        default group) in a world of one."""
+        key = self._key(axis_name)
+        if self.world_size == 1:
+            return None
+        if key in self._groups:
+            return self._groups[key]
+        # a subset of the data-parallel axes whose other members are all
+        # of size 1 spans the same processes
+        if set(key) <= set(DP_AXES) and all(
+                self.axis_sizes[a] == 1 for a in DP_AXES if a not in key):
+            return self._groups[DP_AXES]
+        raise ValueError(f"no process group for axes {key} (groups: each "
+                         f"axis and {DP_AXES})")
 
     def size(self, axis: str) -> int:
         return self.axis_sizes[axis]
+
+    def rank_in(self, axis: str | Sequence[str]) -> int:
+        """This process's index along ``axis`` (row-major over a tuple)."""
+        idx = 0
+        for a in self._key(axis):
+            idx = idx * self.axis_sizes[a] + self.coords[a]
+        return idx
 
     @property
     def dp_world_size(self) -> int:
         """Reference data-parallel world (= ZeRO partition count)."""
         return self.size("data") * self.size("expert") * self.size("fsdp")
 
+    @property
+    def dp_rank(self) -> int:
+        return self.rank_in(DP_AXES)
+
+    @property
+    def dp_group(self):
+        return self.group(DP_AXES)
+
     def __repr__(self) -> str:
-        return f"MeshTopology({self.axis_sizes})"
+        return f"MeshTopology({self.axis_sizes}, rank={self.rank})"
 
 
 def single_device_topology() -> MeshTopology:

@@ -7,8 +7,8 @@ Megatron-style module surface of the reference (``configure(config)`` and
 policies). ``partition_activations`` needs a sequence-parallel axis, which
 a one-process engine has not (the engine warns, as the JAX one does);
 ``cpu_checkpointing`` maps to the "offload" policy, which raises
-NotImplementedError until activation offload is ported (ROADMAP queue 1,
-item 6).
+NotImplementedError until activation offload is ported with ZeRO-Offload
+(ROADMAP queue 1, item 3).
 """
 from __future__ import annotations
 

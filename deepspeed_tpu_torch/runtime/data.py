@@ -80,10 +80,11 @@ class DataLoader:
         under per-epoch reshuffling.
 
         This is the data-order half of resuming a run: with
-        ``engine.global_steps`` restored, ``loader.batch_for_step(
-        engine.global_steps)`` replays the stream the lost run saw (the
-        JAX package's rewind and preemption use it; the port's checkpoints
-        come with training part B).
+        ``engine.global_steps`` restored by ``load_checkpoint`` or by the
+        sentinel's rewind (``engine.last_step_rewound``),
+        ``loader.batch_for_step(engine.global_steps)`` replays the stream
+        the lost run saw. Every rank gets the same global batch, which
+        ``train_batch`` splits by rank.
 
         Note: mutates the sampler's epoch to ``step // len(self)`` — mixing
         with a concurrent ``__iter__`` of a different epoch is undefined.

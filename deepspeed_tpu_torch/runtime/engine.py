@@ -1,24 +1,45 @@
-"""The training engine of one process (ZeRO stage 0).
+"""The training engine: ZeRO stages 0-3 over ``torch.distributed``.
 
 Counterpart of ``deepspeed_tpu/runtime/engine.py`` (``DeepSpeedEngine``,
-``initialize``) for one process on one device. The JAX engine compiles its
-whole step — the micro-batch scan of forward and backward, gradient
-accumulation, the update — into one program; this one runs the same steps
-eagerly, in the same order and precision:
+``initialize``). The JAX engine compiles its whole step — the micro-batch
+scan of forward and backward, gradient accumulation, the update — into one
+program over a device mesh; this one runs the same steps eagerly, one
+process per device, in the same order and precision:
 
 - state: the model's parameters in the compute dtype (bf16 / fp16, or fp32
   when neither is enabled) and, in mixed precision, an fp32 master copy
   with the optimizer's fp32 moments; an fp16 run adds the dynamic loss
   scaler (``runtime/fp16.py``);
-- ``train_batch(batch)``: the global batch split into
-  ``gradient_accumulation_steps`` micro-batches; each one's gradients (of
-  the scaled loss under fp16) cast to fp32, unscaled and summed; loss and
-  gradients divided by the accumulation count; clipping by global norm; a
-  non-finite step skipped (the fp16 scaler, and the resilience sentinel,
-  on by default); the optimizer on the master; the parameters cast back;
+- ZeRO (``zero_optimization.stage``) over the mesh's ``data`` x ``fsdp``
+  group (``runtime/zero``): stage 0 keeps everything on every rank and
+  all-reduces the gradients; stage 1 partitions the fp32 master and the
+  moments (full fp32 gradients, reduce-scattered once a step); stage 2
+  reduce-scatters each micro-batch's gradients as its backward accumulates
+  them; stage 3 partitions the compute parameters too, gathered per unit
+  around its use;
+- ``train_batch(batch)``: every rank is given the same global batch, as
+  the JAX ``train_batch`` is; it is split into
+  ``gradient_accumulation_steps`` micro-batches of ``micro x dp`` rows, of
+  which rank r keeps ``micro`` rows at ``g·micro·dp + r·micro``. Each
+  micro-batch's gradients (of the scaled loss under fp16) are cast to
+  fp32, unscaled and summed; loss and gradients are divided by the
+  accumulation count and averaged over the ranks; clipping by global norm;
+  a non-finite step skipped (the fp16 scaler, and the resilience
+  sentinel, on by default), every rank deciding together; the optimizer on
+  the master; the parameters cast back. The statistics the JAX engine
+  takes over the whole global micro-batch — the loss's count of labelled
+  tokens, the MoE gating means — are taken over the group
+  (``comm.data_parallel_scope``);
 - the ``forward`` / ``backward`` / ``step`` triplet with
   ``is_gradient_accumulation_boundary``; ``eval_batch``; ``zero_grad``;
   ``skipped_steps``, ``get_lr``, ``get_loss_scale``, ``num_parameters``;
+- checkpoints (``runtime/checkpointing.py``): ``save_checkpoint`` /
+  ``load_checkpoint`` / ``wait_for_checkpoint``, written as global logical
+  tensors, loaded under any stage and world size;
+- resilience (``runtime/resilience.py``): the divergence sentinel's skip →
+  rewind to the last verified checkpoint → abort, loss-spike detection,
+  the hang watchdog, fault injection and preemption saves;
+  ``last_step_rewound`` and ``resilience_counters``;
 - the ``activation_checkpointing`` section turns the model's ``remat`` on
   with the section's policy, as the JAX engine does;
 - MoE models train on both routes (capacity einsums, or the dropless
@@ -30,17 +51,14 @@ eagerly, in the same order and precision:
   layers (RSample jitter), drawn from a generator seeded with the engine's
   seed and the step.
 
-It runs on the CUDA device unless ``device="cpu"`` is given. Every feature
-that a later part of the port brings raises NotImplementedError when it is
-configured (:func:`check_ported`): ZeRO stages 1-3, optimizer and parameter
-offload, ZeRO++ (quantized weights / gradients, hpZ, MiCS), the 1-bit
-optimizers, curriculum learning and the other data-efficiency routes, the
-hybrid engine, the comms logger, monitor backends, telemetry, the flops
-profiler, checkpoints (with their resharding), and the resilience features
-that need checkpoints or watch the step from outside (rewind directory,
-loss-spike detection, the hang watchdog, fault injection, preemption
-signals other than the default SIGTERM, on which the process simply ends
-since there is nothing to save).
+It runs on the CUDA device unless ``device="cpu"`` is given; ZeRO stages
+1-3 bring a process group up (a world of one) when none is, NCCL on the
+card. Every feature that a later part of the port brings raises
+NotImplementedError when it is configured (:func:`check_ported`), naming
+its ROADMAP queue 1 item: optimizer and parameter offload (item 3), the
+monitor backends, telemetry, the flops profiler, data efficiency and the
+hybrid engine (items 5 and 7), the 1-bit optimizers and tensor, sequence,
+pipeline and expert parallelism (item 6), ZeRO++ and MiCS (after item 6).
 Model compression runs outside the config (a compression manager the JAX
 engine reads when set) and is not ported either.
 """
@@ -54,6 +72,7 @@ from typing import Any, Callable
 import numpy as np
 import torch
 
+from .. import comm
 from ..accelerator import get_device
 from ..config import Config
 from ..models.loss import lm_loss_fn
@@ -70,52 +89,37 @@ from ..utils.timer import (
 )
 from . import fp16 as fp16_mod
 from .lr_schedules import Schedule, build_scheduler, constant_lr
-
-PART_B = "training part B (ZeRO over torch.distributed, checkpoints with " \
-         "resharding, the resilience rewind; ROADMAP queue 1, item 2)"
+from .resilience import ResilienceManager
 
 
-class DivergenceError(RuntimeError):
-    """The resilience sentinel saw ``max_consecutive_bad`` bad steps in a
-    row and there is no checkpoint to rewind to."""
-
-
-def _later(feature: str, part: str = PART_B) -> NotImplementedError:
-    return NotImplementedError(f"{feature} is ported with {part}")
+def _later(feature: str, item: str) -> NotImplementedError:
+    return NotImplementedError(f"{feature} is ported with ROADMAP queue 1, "
+                               f"{item}")
 
 
 def check_ported(config: Config) -> None:
     """Raise NotImplementedError for every configured feature that a later
     part of the port brings (see the module docstring)."""
     z = config.zero_optimization
-    if z.stage != 0:
-        raise _later(f"ZeRO stage {z.stage}")
     if z.offload_optimizer.device != "none" or z.offload_param.device != "none":
-        raise _later("optimizer / parameter offload",
-                     "ZeRO-Offload (ROADMAP queue 1, item 6)")
+        raise _later("optimizer / parameter offload (ZeRO-Offload)",
+                     "item 3")
     if (z.zero_quantized_weights or z.zero_quantized_gradients
             or z.zero_hpz_partition_size > 1 or z.mics_shard_size > 0):
-        raise _later("ZeRO++ (qwZ, qgZ, hpZ) and MiCS")
+        raise _later("ZeRO++ (qwZ, qgZ, hpZ) and MiCS",
+                     "the ZeRO++ / MiCS line after item 6")
     if config.data_efficiency.enabled:
         raise _later("data efficiency (curriculum learning, random-LTD)",
-                     "a later slice")
+                     "item 7")
     if config.hybrid_engine.enabled:
-        raise _later("the hybrid engine", "a later slice")
-    if config.comms_logger.enabled:
-        raise _later("the comms logger")
+        raise _later("the hybrid engine", "item 7")
     for name in ("tensorboard", "csv_monitor", "wandb", "comet", "prometheus"):
         if getattr(config, name).enabled:
-            raise _later(f"the {name} monitor backend", "a later slice")
+            raise _later(f"the {name} monitor backend", "item 7 (monitor/)")
     if config.telemetry.enabled:
-        raise _later("telemetry", "a later slice")
+        raise _later("telemetry", "item 5")
     if config.flops_profiler.enabled:
-        raise _later("the flops profiler", "a later slice")
-    r = config.resilience
-    if (r.rewind_dir or r.loss_spike_factor > 0 or r.watchdog_timeout_s > 0
-            or r.fault_injection
-            or list(r.preemption_signals) not in ([], ["SIGTERM"])):
-        raise _later("resilience's rewind, spike detection, watchdog, fault "
-                     "injection and preemption saves (they need checkpoints)")
+        raise _later("the flops profiler", "item 7 (profiling/)")
 
 
 class DeepSpeedEngine:
@@ -133,9 +137,28 @@ class DeepSpeedEngine:
         check_ported(config)
         self.config = config
         self.device = get_device(device)
+        self.zero_stage = config.zero_optimization.stage
+        if self.zero_stage not in (0, 1, 2, 3):
+            raise ValueError(f"zero_optimization.stage must be 0-3, got "
+                             f"{self.zero_stage}")
+        if self.zero_stage > 0 or comm.is_initialized():
+            comm.init_distributed(device=self.device)
+            if self.device.type == "cuda" and \
+                    torch.distributed.get_backend() != "nccl":
+                raise RuntimeError(
+                    f"a CUDA engine needs the NCCL backend; the process "
+                    f"group is {torch.distributed.get_backend()}")
         self.topology = topology if topology is not None \
             else MeshTopology(config.mesh)
-        config.resolve_batch_terms(self.topology.dp_world_size)
+        comm.set_topology(self.topology)
+        self.dp_world_size = self.topology.dp_world_size
+        self.dp_rank = self.topology.dp_rank
+        self.dp_group = self.topology.dp_group
+        config.resolve_batch_terms(self.dp_world_size)
+        if config.comms_logger.enabled:
+            c = config.comms_logger
+            comm.configure_comms_logger(enabled=True, verbose=c.verbose,
+                                        debug=c.debug)
 
         # activation checkpointing: flip the model's remat switch from the
         # DeepSpeed-style section (reference checkpointing.py:893)
@@ -187,16 +210,21 @@ class DeepSpeedEngine:
             batch_size=config.train_batch_size,
             steps_per_output=config.steps_per_print)
 
+        self._zero = None
         self._init_state(params)
         self._gating = torch.Generator()
         self._accum_grads: list[torch.Tensor] | None = None
         self._accum_count = 0
         self._last_loss: torch.Tensor | None = None
         self._pending: torch.Tensor | None = None
-        self._bad_streak = 0
         self.global_steps = 0
+        self._resume_tag: str | None = None
+        # fault tolerance (runtime/resilience.py): divergence sentinel,
+        # preemption, watchdog, fault injection
+        self.resilience = ResilienceManager(self, config.resilience)
         logger.info(
-            f"engine up: zero_stage=0 device={self.device} "
+            f"engine up: zero_stage={self.zero_stage} dp={self.dp_world_size} "
+            f"device={self.device} "
             f"dtype={'fp16' if self.fp16_enabled else 'bf16' if self.bf16_enabled else 'fp32'} "
             f"micro_bs={config.train_micro_batch_size_per_gpu} "
             f"gas={config.gradient_accumulation_steps} "
@@ -204,9 +232,10 @@ class DeepSpeedEngine:
 
     # ------------------------------------------------------------------
     def _init_state(self, params: dict | None) -> None:
-        """Master, parameters and optimizer state. The model's own fp32
-        values become the master (no copy); its parameters are recast to
-        the compute dtype in place and their gradients turned on."""
+        """Master, parameters and optimizer state. At stage 0 the model's
+        own fp32 values become the master (no copy) and its parameters are
+        recast to the compute dtype in place; at stages 1-3 the values move
+        into the ZeRO buffers (``runtime/zero/partition.py``)."""
         model = self.module.to(self.device)
         self._names = [n for n, _ in model.named_parameters()]
         self._params = [p for _, p in model.named_parameters()]
@@ -216,6 +245,32 @@ class DeepSpeedEngine:
             from ..inference.weights import load_jax_params
 
             load_jax_params(model, params)
+        for p in self._params:
+            p.requires_grad_(True)
+        self.scaler = fp16_mod.init_scaler(self.config.fp16) \
+            if self.fp16_enabled else None
+        self.global_step = 0        # steps taken, applied or skipped
+        if self.zero_stage > 0:
+            from .zero.partition import ZeroRuntime
+            from .zero.planner import build_plan
+
+            plan = build_plan(
+                self.zero_stage, self._names,
+                [tuple(p.shape) for p in self._params],
+                world=self.dp_world_size, rank=self.dp_rank,
+                persistence_threshold=self.config.zero_optimization
+                .stage3_param_persistence_threshold)
+            modules = {u: getattr(model, f"layer_{k}")
+                       for u, k in enumerate(plan.unit_keys)
+                       if k is not None and hasattr(model, f"layer_{k}")}
+            self._zero = ZeroRuntime(
+                plan, self._params,
+                self.compute_dtype if self.mixed_precision else torch.float32,
+                self.optimizer, self.dp_group, self.device, modules)
+            self._master = None
+            self.opt_state = None
+            log_dist(plan.describe())
+            return
         if self.mixed_precision:
             self._master = []
             for p in self._params:
@@ -223,14 +278,15 @@ class DeepSpeedEngine:
                 p.data = p.data.to(self.compute_dtype)
         else:
             self._master = self._params
-        for p in self._params:
-            p.requires_grad_(True)
         with torch.no_grad():
             self.opt_state: OptState = self.optimizer.init(
                 [m.detach() for m in self._master])
-        self.scaler = fp16_mod.init_scaler(self.config.fp16) \
-            if self.fp16_enabled else None
-        self.global_step = 0        # steps taken, applied or skipped
+
+    @property
+    def opt_step(self) -> int:
+        """Applied optimizer updates."""
+        return self._zero.step if self._zero is not None \
+            else self.opt_state.step
 
     # ------------------------------------------------------------------
     def _to_device(self, x) -> torch.Tensor:
@@ -242,6 +298,17 @@ class DeepSpeedEngine:
     def _device_batch(self, batch: dict) -> dict:
         return {k: self._to_device(v) for k, v in batch.items()}
 
+    def _rows(self, batch: dict) -> dict:
+        """This rank's rows of a micro-batch of ``micro x dp`` rows (the
+        whole batch on one rank, or when the rows do not split)."""
+        n = self.dp_world_size
+        rows = next(iter(batch.values())).shape[0]
+        if n == 1 or rows % n:
+            return batch
+        m = rows // n
+        return {k: v[self.dp_rank * m:(self.dp_rank + 1) * m]
+                for k, v in batch.items()}
+
     def _split_for_gas(self, batch: dict) -> list[dict]:
         gas = self.config.gradient_accumulation_steps
         B = self.config.train_batch_size
@@ -250,28 +317,51 @@ class DeepSpeedEngine:
                 raise ValueError(f"train_batch expects global batch dim {B}, "
                                  f"got {v.shape[0]} for '{k}'")
         micro = B // gas
-        return [{k: v[g * micro:(g + 1) * micro] for k, v in batch.items()}
-                for g in range(gas)]
+        return [self._rows({k: v[g * micro:(g + 1) * micro]
+                            for k, v in batch.items()}) for g in range(gas)]
+
+    def _dp_scope(self):
+        return comm.data_parallel_scope(self.dp_group, self.dp_world_size,
+                                        self.dp_rank)
 
     def _train_loss(self, batch: dict) -> torch.Tensor:
         """The loss of a device micro-batch in train mode, with the step's
         ``_gating_seed``: one seed a step, shared by its micro-batches (the
         JAX engine folds one key per step), from a generator seeded with
-        the engine's seed and the step."""
+        the engine's seed and the step. A ``_fault_scale`` column (fault
+        injection's NaN rail) multiplies the loss by its mean."""
         self.module.train()
         self._gating.manual_seed(self.config.seed * 1_000_003
                                  + self.global_step)
         seed = int(torch.randint(0, 2 ** 62, (), generator=self._gating))
-        return self._loss_fn({**batch, "_gating_seed": seed})
+        batch = dict(batch)
+        fault = batch.pop("_fault_scale", None)
+        if self._zero is not None:
+            self._zero.begin_forward()
+        loss = self._loss_fn({**batch, "_gating_seed": seed})
+        if fault is not None:
+            loss = loss * fault.float().mean()
+        return loss
 
     def _backward(self, loss: torch.Tensor) -> None:
         """Add the gradients of ``loss`` (of the scaled loss under fp16,
-        then unscaled), as fp32, to the running sums, one parameter at a
-        time, so no second set of fp32 gradients is ever held; the
-        parameters' ``.grad`` are cleared."""
+        then unscaled), as fp32, to the running sums: at stages 0-1 one
+        parameter at a time, so no second set of fp32 gradients is ever
+        held; at stages 2-3 reduce-scattered into the rank's partition as
+        the backward produces them. The parameters' ``.grad`` are
+        cleared."""
         for p in self._params:
             p.grad = None
         scaled = loss * self.scaler.scale if self.scaler is not None else loss
+        if self.zero_stage >= 2:
+            if self._accum_count == 0:
+                self._zero.begin_accumulation()
+            with self._zero.backward(
+                    self.scaler.scale if self.scaler is not None else None):
+                scaled.backward()
+            self._accum_grads = self._zero.grad
+            self._accum_count += 1
+            return
         scaled.backward()
         first = self._accum_grads is None
         if first:
@@ -289,85 +379,112 @@ class DeepSpeedEngine:
                 self._accum_grads[i].add_(g)
         self._accum_count += 1
 
+    def _finish_grads(self, scale) -> list[torch.Tensor] | torch.Tensor:
+        """The accumulated gradients times ``scale`` (``("div", gas)`` or
+        ``("mul", 1/count)``) and averaged over the data-parallel ranks:
+        per-parameter tensors at stage 0, the rank's fp32 partition at
+        stages 1-3."""
+        op, v = scale
+        n = self.dp_world_size
+        if self._zero is not None:
+            if self.zero_stage == 1:
+                self._zero.begin_accumulation()
+                self._zero.reduce_full(self._accum_grads)
+            g = self._zero.grad
+            g.div_(v) if op == "div" else g.mul_(v)
+            if n > 1:
+                g.div_(n)
+            return g
+        grads = self._accum_grads
+        for g in grads:
+            g.div_(v) if op == "div" else g.mul_(v)
+        if n > 1:
+            for g in grads:
+                torch.distributed.all_reduce(g, group=self.dp_group)
+                g.div_(n)
+        return grads
+
     def _global_norm(self, grads) -> torch.Tensor:
+        if self._zero is not None:
+            return torch.sqrt(self._zero.grad_sq_norm())
         return torch.sqrt(torch.stack(
             [torch.sum(torch.square(g.float())) for g in grads]).sum())
 
-    def _apply_grads(self, grads: list[torch.Tensor],
-                     loss_finite: torch.Tensor | None = None) -> bool:
+    def _apply_grads(self, grads, loss_finite: torch.Tensor | None = None
+                     ) -> bool:
         """Clip, check, update the master and recast the parameters; the
-        step counter advances whether or not the update ran."""
+        step counter advances whether or not the update ran. Every rank
+        takes the same decision: the norm and the finite flag are reduced
+        over the group."""
         cfg = self.config
-        lr = self.lr_schedule(self.opt_state.step)
+        lr = self.lr_schedule(self.opt_step)
         if cfg.gradient_clipping:
             norm = self._global_norm(grads)
             clip = torch.clamp(cfg.gradient_clipping / (norm + 1e-6), max=1.0)
-            for g in grads:
+            for g in (grads if self._zero is None else [grads]):
                 g.mul_(clip)
         finite = True
         if self.scaler is not None or cfg.resilience.sentinel:
-            flag = fp16_mod.grads_finite(grads)
+            flag = self._zero.grads_finite() if self._zero is not None \
+                else fp16_mod.grads_finite(grads)
             if loss_finite is not None:
                 flag = flag & loss_finite.to(flag.device)
             finite = bool(flag)
         if finite:
-            self.opt_state = self.optimizer.update(grads, self.opt_state,
-                                                   self._master, lr=lr)
-            if self.mixed_precision:
-                with torch.no_grad():
-                    for p, m in zip(self._params, self._master):
-                        p.copy_(m)
+            if self._zero is not None:
+                self._zero.update(lr)
+            else:
+                self.opt_state = self.optimizer.update(
+                    grads, self.opt_state, self._master, lr=lr)
+                if self.mixed_precision:
+                    with torch.no_grad():
+                        for p, m in zip(self._params, self._master):
+                            p.copy_(m)
         if self.scaler is not None:
             self.scaler = fp16_mod.update_scaler(self.scaler, finite,
                                                  cfg.fp16)
         self.global_step += 1
         return finite
 
-    def _observe(self, loss: torch.Tensor, finite: bool) -> None:
-        """The divergence sentinel's host half: a streak of
-        ``max_consecutive_bad`` non-finite steps (not counted under the fp16
-        scaler, which owns overflow recovery) would rewind to a checkpoint;
-        without checkpoints it raises, as the JAX engine does when it has
-        none."""
-        r = self.config.resilience
-        if not r.sentinel:
-            return
-        if finite and bool(torch.isfinite(loss)):
-            self._bad_streak = 0
-            return
-        if self.scaler is not None:
-            return
-        self._bad_streak += 1
-        logger.warning(f"sentinel: bad step at {self.global_steps} "
-                       f"(loss={float(loss)}); streak {self._bad_streak}/"
-                       f"{r.max_consecutive_bad}")
-        if self._bad_streak >= r.max_consecutive_bad:
-            raise DivergenceError(
-                f"training diverged at step {self.global_steps}: "
-                f"{self._bad_streak} consecutive bad steps and no checkpoint "
-                f"to rewind to (checkpoints are ported with {PART_B})")
+    def _dp_mean(self, x: torch.Tensor) -> torch.Tensor:
+        if self.dp_world_size == 1:
+            return x
+        out = x.clone()
+        torch.distributed.all_reduce(out, group=self.dp_group)
+        return out / self.dp_world_size
 
     # ------------------------------------------------------------------
     # public API
     def train_batch(self, batch: dict) -> torch.Tensor:
         """One full training step over a global batch (each leaf
-        ``[train_batch_size, ...]``). Returns the mean micro-batch loss, a
-        0-d fp32 tensor on the engine's device."""
+        ``[train_batch_size, ...]``), the same on every rank. Returns the
+        mean micro-batch loss over the global batch, a 0-d fp32 tensor on
+        the engine's device.
+
+        Resilience (runtime/resilience.py): a pending preemption saves and
+        raises ``Preempted`` before the step; the sentinel observes the
+        step after it and may rewind (``last_step_rewound``: re-derive the
+        data position from the restored ``global_steps``) or raise
+        ``DivergenceError``."""
+        res = self.resilience
+        res.check_preemption()
         self.tput_timer.start()
         self.timers(TRAIN_BATCH_TIMER).start()
+        batch = res.arm_batch(batch, self.config.train_batch_size)
         gas = self.config.gradient_accumulation_steps
-        self._accum_grads, self._accum_count = None, 0
-        loss_sum = torch.zeros((), dtype=torch.float32, device=self.device)
-        for mb in self._split_for_gas(self._device_batch(batch)):
-            loss = self._train_loss(mb)
-            self._backward(loss)
-            loss_sum = loss_sum + loss.detach().float()
-        grads, self._accum_grads, self._accum_count = \
-            self._accum_grads, None, 0
-        for g in grads:
-            g.div_(gas)
-        loss = loss_sum / gas
-        finite = self._apply_grads(grads, torch.isfinite(loss))
+        with res.guard("train_step"), self._dp_scope():
+            res.injector.maybe_stall("stall_train_step_s")
+            self._accum_grads, self._accum_count = None, 0
+            loss_sum = torch.zeros((), dtype=torch.float32,
+                                   device=self.device)
+            for mb in self._split_for_gas(self._device_batch(batch)):
+                loss = self._train_loss(mb)
+                self._backward(loss)
+                loss_sum = loss_sum + loss.detach().float()
+            grads = self._finish_grads(("div", gas))
+            self._accum_grads, self._accum_count = None, 0
+            loss = self._dp_mean(loss_sum / gas)
+            finite = self._apply_grads(grads, torch.isfinite(loss))
         self.global_steps += 1
         sync = loss if self.config.wall_clock_breakdown else None
         self.timers(TRAIN_BATCH_TIMER).stop(sync_val=sync)
@@ -376,23 +493,36 @@ class DeepSpeedEngine:
             log_dist(f"step={self.global_steps} loss={float(loss):.4f} "
                      f"lr={self.get_lr():.3e}")
         self._last_loss = loss
-        self._observe(loss, finite)
+        res.observe_step(loss, finite)
         return loss
 
     @torch.no_grad()
     def eval_batch(self, batch: dict) -> torch.Tensor:
         """The loss of ``batch`` in eval mode (MoE layers route at
-        ``eval_capacity_factor``, with no jitter), without gradients."""
+        ``eval_capacity_factor``, with no jitter), without gradients; the
+        rows split over the data-parallel ranks when they divide."""
         self.module.eval()
-        return self._loss_fn(self._device_batch(batch)).detach().float()
+        b = self._device_batch(batch)
+        mine = self._rows(b)
+        split = mine is not b
+        with (self._dp_scope() if split
+              else comm.data_parallel_scope(None, 1, 0)):
+            if self._zero is not None:
+                self._zero.begin_forward()
+            loss = self._loss_fn(mine).detach().float()
+            if self._zero is not None:
+                self._zero.end_forward_no_grad()
+        return self._dp_mean(loss) if split else loss
 
     # --- imperative triplet (reference forward/backward/step) ----------
     def forward(self, batch: dict) -> torch.Tensor:
-        """The loss of a micro-batch, with its autograd graph kept for the
-        next :meth:`backward` (which may also be given a function of this
+        """The loss of a micro-batch (``micro x dp`` rows, of which this
+        rank keeps its own), with its autograd graph kept for the next
+        :meth:`backward` (which may also be given a function of this
         loss)."""
         self.timers(FORWARD_GLOBAL_TIMER).start()
-        loss = self._train_loss(self._device_batch(batch))
+        with self._dp_scope():
+            loss = self._train_loss(self._rows(self._device_batch(batch)))
         self.timers(FORWARD_GLOBAL_TIMER).stop()
         self._pending = loss
         return loss
@@ -405,17 +535,19 @@ class DeepSpeedEngine:
         self.timers(BACKWARD_GLOBAL_TIMER).start()
         if isinstance(batch, torch.Tensor):
             loss, batch = batch, None
-        if batch is not None:
-            loss = self._train_loss(self._device_batch(batch))
-        elif loss is None:
-            loss = self._pending
-            if loss is None:
-                raise ValueError("backward() needs a batch, a loss or a "
-                                 "prior forward()")
-        self._pending = None
-        self._backward(loss)
+        with self._dp_scope():
+            if batch is not None:
+                loss = self._train_loss(
+                    self._rows(self._device_batch(batch)))
+            elif loss is None:
+                loss = self._pending
+                if loss is None:
+                    raise ValueError("backward() needs a batch, a loss or a "
+                                     "prior forward()")
+            self._pending = None
+            self._backward(loss)
         self.timers(BACKWARD_GLOBAL_TIMER).stop()
-        self._last_loss = loss.detach().float()
+        self._last_loss = self._dp_mean(loss.detach().float())
         return self._last_loss
 
     def is_gradient_accumulation_boundary(self) -> bool:
@@ -424,22 +556,19 @@ class DeepSpeedEngine:
     def step(self) -> None:
         """Apply the accumulated gradients, scaled by one over their count
         (reference engine.step :2176); a no-op, with a warning, when
-        backward has not run."""
+        backward has not run. The sentinel observes this path too."""
         if self._accum_grads is None:
             logger.warning("step() called with no accumulated gradients")
             return
         self.timers(STEP_GLOBAL_TIMER).start()
-        scale = 1.0 / max(self._accum_count, 1)
-        grads = self._accum_grads
-        for g in grads:
-            g.mul_(scale)
+        grads = self._finish_grads(("mul", 1.0 / max(self._accum_count, 1)))
         self._accum_grads, self._accum_count = None, 0
         finite = self._apply_grads(grads)
         self._last_step_finite = finite
         self.global_steps += 1
         self.timers(STEP_GLOBAL_TIMER).stop()
         if self._last_loss is not None:
-            self._observe(self._last_loss, finite)
+            self.resilience.observe_step(self._last_loss, finite)
 
     def zero_grad(self) -> None:
         self._accum_grads = None
@@ -447,12 +576,29 @@ class DeepSpeedEngine:
         self._pending = None
 
     # ------------------------------------------------------------------
+    def _full_master(self) -> list[torch.Tensor]:
+        """Every parameter's fp32 master (the parameters themselves in fp32
+        training at stage 0), whole: at stages 1-3 gathered, a collective
+        every rank joins."""
+        if self._zero is None:
+            return [m.detach() for m in self._master]
+        z = self._zero
+        segs = z.full_segments(z.master)
+        out = []
+        for i, shape in enumerate(z.plan.shapes):
+            s, k = z.plan.where[i]
+            seg = z.plan.segments[s]
+            off, n = seg.offsets[k], seg.numels[k]
+            out.append(segs[s][off:off + n].view(shape))
+        return out
+
     @property
     def master(self) -> dict:
         """The fp32 master as the JAX-layout nested dict (the parameters
-        themselves in fp32 training)."""
+        themselves in fp32 training); at stages 1-3 gathered from every
+        rank."""
         out: dict = {}
-        for name, m in zip(self._names, self._master):
+        for name, m in zip(self._names, self._full_master()):
             node = out
             *path, leaf = name.split(".")
             for part in path:
@@ -464,10 +610,10 @@ class DeepSpeedEngine:
     def skipped_steps(self) -> int:
         """Steps whose update was skipped (fp16 overflow or the sentinel):
         the optimizer's step only advances on applied updates."""
-        return self.global_step - self.opt_state.step
+        return self.global_step - self.opt_step
 
     def get_lr(self) -> float:
-        return self.lr_schedule(self.opt_state.step)
+        return self.lr_schedule(self.opt_step)
 
     def get_loss_scale(self) -> float:
         return self.scaler.scale if self.scaler is not None else 1.0
@@ -477,6 +623,8 @@ class DeepSpeedEngine:
 
     def close(self) -> None:
         """Drop the engine's state so its device memory can be freed."""
+        if self._zero is not None:
+            self._zero.close()
         self._master = self._params = []
         self.opt_state = None
         self._accum_grads = self._pending = self._last_loss = None
@@ -485,7 +633,8 @@ class DeepSpeedEngine:
                      shuffle: bool = True, drop_last: bool = True,
                      collate_fn=None):
         """A global-batch DataLoader for this engine (reference
-        ``deepspeed_io``, engine.py:1743)."""
+        ``deepspeed_io``, engine.py:1743): every rank iterates the same
+        global batches, as ``train_batch`` takes them."""
         from .data import DataLoader
 
         return DataLoader(dataset,
@@ -494,11 +643,45 @@ class DeepSpeedEngine:
                           shuffle=shuffle, seed=self.config.seed,
                           drop_last=drop_last, collate_fn=collate_fn)
 
-    def save_checkpoint(self, *args, **kwargs):
-        raise _later("checkpoints")
+    # --- resilience surface (runtime/resilience.py) ---------------------
+    @property
+    def last_step_rewound(self) -> bool:
+        """True when the preceding step ended in a sentinel rewind: the
+        training loop re-derives its data position from the restored
+        ``global_steps`` (``loader.batch_for_step``)."""
+        return self.resilience.last_step_rewound
 
-    def load_checkpoint(self, *args, **kwargs):
-        raise _later("checkpoints")
+    @property
+    def resilience_counters(self) -> dict:
+        """Host-side resilience counters (bad/skipped steps, rewinds,
+        preemptions, aborts)."""
+        return dict(self.resilience.counters)
+
+    def _emit_counters(self, counters: dict, prefix: str) -> None:
+        """The JAX engine fans these out to its monitor backends, which
+        are not ported (ROADMAP queue 1, item 7): logged at debug level."""
+        logger.debug(f"{prefix} {counters} at step {self.global_steps}")
+
+    # --- checkpointing (reference engine.py:3109/:2763) -----------------
+    def save_checkpoint(self, save_dir: str, tag: str | None = None,
+                        client_state: dict | None = None) -> str:
+        from .checkpointing import save_checkpoint as _save
+
+        return _save(self, save_dir, tag=tag, client_state=client_state)
+
+    def load_checkpoint(self, load_dir: str, tag: str | None = None) -> dict:
+        from .checkpointing import load_checkpoint as _load
+
+        with self.resilience.guard("checkpoint_restore"):
+            return _load(self, load_dir, tag=tag)
+
+    def wait_for_checkpoint(self, timeout_s: float | None = None) -> None:
+        """Block until an async save has committed; bounded by
+        ``timeout_s`` (default ``checkpoint.wait_timeout_s``)."""
+        from .checkpointing import wait_for_checkpoint as _wait
+
+        _wait(self, timeout_s=timeout_s)
+
 
 
 def initialize(model: torch.nn.Module | None = None,
@@ -513,7 +696,7 @@ def initialize(model: torch.nn.Module | None = None,
     unless ``device="cpu"``."""
     cfg = Config.load(config)
     if cfg.hybrid_engine.enabled:
-        raise _later("the hybrid engine", "a later slice")
+        raise _later("the hybrid engine", "item 7")
     engine = DeepSpeedEngine(config=cfg, model=model, loss_fn=loss_fn,
                              params=params, topology=topology, device=device,
                              **kwargs)

@@ -118,7 +118,11 @@ def test_one_process_mesh():
                                "seq": 1, "tensor": 1}
     assert topo.dp_world_size == topo.size("tensor") == 1
     assert single_device_topology().dp_world_size == 1
-    with pytest.raises(NotImplementedError, match="part B"):
+    # data and fsdp may exceed 1 over that many processes: in a world of one
+    # the mesh does not resolve; a parallel axis still waits for its item
+    with pytest.raises(ValueError, match="device count 1"):
         MeshTopology({"fsdp": 2})
+    with pytest.raises(NotImplementedError, match="item 6"):
+        MeshTopology({"tensor": 2})
     with pytest.raises(ValueError, match="unknown mesh axes"):
         MeshConfig.from_dict({"model": 2})

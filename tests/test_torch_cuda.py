@@ -9,8 +9,10 @@ edges, and their backward bit for bit from call to call), the block-sparse
 flash kernels (K6: forward, dq, dk/dv, on the wgmma route K4's bits on a
 dense layout), TMA launches from a fresh thread, and the per-layer-slice paged
 attention (K7: linear, window and ring tables) against their plain
-versions, the CUDA serving engine against the CPU engine, and training
-steps on the card through K4 and through K5's forward and backward. These
+versions, the CUDA serving engine against the CPU engine, training
+steps on the card through K4 and through K5's forward and backward, and
+ZeRO-3 over NCCL (bit for bit stage 0, a checkpoint round trip, a backward
+from a fresh thread). These
 need an sm_90 GPU and nvcc, so they skip elsewhere; on a machine with the
 card run
 
@@ -1513,3 +1515,88 @@ def test_a_second_engine_captures_after_the_first_is_freed(dev):
     eng, _ = _graph_engine(dev)
     assert eng.generate(prompts, 16) == first
     assert eng._programs.stats()["replays"]["('win', 8)"] > 0
+
+
+def _zero_cuda_engine(stage, init, **over):
+    import deepspeed_tpu_torch as dst
+    from deepspeed_tpu_torch.models import build_model
+
+    cfg = {"train_micro_batch_size_per_gpu": 2,
+           "gradient_accumulation_steps": 2, "bf16": {"enabled": True},
+           "optimizer": {"type": "AdamW", "params": {"lr": 1e-3,
+                                                     "weight_decay": 0.01}},
+           "activation_checkpointing": {"policy": "full"},
+           "zero_optimization": {"stage": stage,
+                                 "stage3_param_persistence_threshold": 1000}}
+    cfg.update(over)
+    model = build_model("tiny-llama", device="cuda", hidden_size=256,
+                        dtype=torch.bfloat16, param_dtype=torch.float32)
+    return dst.initialize(model=model, config=cfg, params=init)[0]
+
+
+def _zero_case():
+    import numpy as np
+
+    from deepspeed_tpu_torch.inference.weights import to_jax_tree
+    from deepspeed_tpu_torch.models import build_model
+
+    init = to_jax_tree(build_model("tiny-llama", device="cpu",
+                                   hidden_size=256, dtype=torch.float32))
+    batch = {"input_ids": np.random.default_rng(0).integers(
+        0, 256, (4, 128)).astype(np.int32)}
+    return init, batch
+
+
+def test_cuda_zero3_is_bit_identical_to_stage0(dev):
+    """ZeRO-3 at world 1 over NCCL: bf16 with an fp32 master, remat full,
+    K4 on every attention; losses and master bit for bit stage 0's."""
+    import torch.distributed as dist
+
+    from deepspeed_tpu_torch.ops import flash_attention as fa
+
+    init, batch = _zero_case()
+    runs = {}
+    for stage in (0, 3):
+        e = _zero_cuda_engine(stage, init)
+        fa.counts.reset()
+        runs[stage] = ([float(e.train_batch(batch)) for _ in range(3)],
+                       e._full_master())
+        assert fa.counts.plain == fa.counts.plain_bwd == 0
+        assert fa.counts.bwd == 2 * 2 * 3
+    assert dist.get_backend() == "nccl"
+    assert runs[0][0] == runs[3][0]
+    assert all(torch.equal(a, b) for a, b in zip(runs[0][1], runs[3][1]))
+
+
+def test_cuda_checkpoint_roundtrip(dev, tmp_path):
+    """Saved at stage 3 on the card, loaded at stage 1: the next step is
+    bit for bit the uninterrupted one."""
+    init, batch = _zero_case()
+    a = _zero_cuda_engine(3, init)
+    for _ in range(2):
+        a.train_batch(batch)
+    a.save_checkpoint(str(tmp_path))
+    b = _zero_cuda_engine(1, None)
+    b.load_checkpoint(str(tmp_path))
+    assert float(b.train_batch(batch)) == float(a.train_batch(batch))
+    assert all(torch.equal(x, y) for x, y in zip(a._full_master(),
+                                                  b._full_master()))
+
+
+def test_cuda_zero3_backward_from_a_fresh_thread(dev):
+    """Stage 3's gathers and K4's TMA launches from a thread whose first
+    CUDA work this is (autograd's device thread is one such): the main
+    thread's loss."""
+    import threading
+
+    init, batch = _zero_case()
+    want = float(_zero_cuda_engine(3, init).train_batch(batch))
+    got = {}
+
+    def work():
+        got["loss"] = float(_zero_cuda_engine(3, init).train_batch(batch))
+
+    t = threading.Thread(target=work)
+    t.start()
+    t.join()
+    assert got["loss"] == want
