@@ -1,7 +1,8 @@
 """Smoke run of the PyTorch/CUDA port on one NVIDIA H100.
 
     python3 chip_smoke.py [--phases build,kernel,parity,serve,train-parity,
-                           train,moe-train-parity,moe-train,zero,sparse]
+                           train,moe-train-parity,moe-train,zero,sparse,
+                           offload]
                           [--out DIR]
 
 Phases (every one raises on failure; nothing is caught and passed over):
@@ -237,8 +238,9 @@ Phases (every one raises on failure; nothing is caught and passed over):
    ``attn_impl="pallas"`` (K4) and once with ``"xla"`` (the plain route):
    losses within 1e-5 relative, parameters within 1e-4 of max |param|.
 6. train — llama2-7b's width (E 4096, H 32, D 128, F 11008, vocab 32000)
-   at 8 layers (~1.9 B parameters; the full depth with Adam needs ~112 GB
-   and waits for offload) from seeded random fp32 weights: bf16 with an
+   at 8 layers (~1.9 B parameters; the full depth with Adam on the card
+   needs ~112 GB: the offload phase trains it) from seeded random fp32
+   weights: bf16 with an
    fp32 master, AdamW, micro-batch 2 x gas 2 of 2048 tokens, remat
    "full", 5 steps on a repeated batch. Every loss finite and the last
    below the first; K4's forward launched layers x micro-batches x 2 per
@@ -298,6 +300,42 @@ Phases (every one raises on failure; nothing is caught and passed over):
    no caller on any path, so its launches are the kernel phase's checked
    calls.
 
+11. offload — first prints the card's name and power limit,
+   MemAvailable, ``os.cpu_count()``, the host library's OpenMP threads and
+   g++ build seconds (``ops/native.py``), and the free disk. (a) ZeRO-Offload
+   on the main path: llama2-7b (E 4096, H 32, D 128, F 11008, vocab 32000)
+   at its 32 layers, bf16 with an fp32 master, AdamW, micro 2 x gas 2 x
+   2048, remat "full", ZeRO stage 2 at world 1 over NCCL,
+   ``offload_optimizer.device="cpu"``, 3 steps on a repeated batch. When
+   MemAvailable cannot hold the host state (12 bytes a parameter) plus the
+   pinned ring and 10 GB, the depth is cut to the deepest that fits and the
+   record says so. Losses finite and falling, the device's peak under 80
+   GB, K4 launched layers x 2 x 2 forward and layers x 2 backward a step,
+   nothing plain. Prints ms per step, tokens/s and the last step's split:
+   the device's forward + backward, the host step, the gradients' copy
+   (GB/s and the share hidden behind the host), the host Adam (GB/s of 28
+   bytes an element), the bf16 cast and the copy back. (b) The same width
+   at 2 layers with ``device="nvme"`` under ``offload.tmp/`` in the
+   checkout (free disk checked first, the files removed after), 2 steps:
+   losses and master bit for bit a cpu-offload run's; GB read and written
+   a step. (c) Twin-Flow ``ratio`` 0.5 against 1.0 at 2 layers: losses
+   within 2e-3 relative (the device share updates in ``FusedAdam``'s
+   order), both shares non-empty. (d) ZeRO-Infinity (``offload_param`` and
+   ``offload_optimizer`` on "cpu", stage 3, ``buffer_count`` 2) at 8
+   layers, 3 steps: the device's peak, counted from the first step (the
+   fp32 model is made on the card from the seed, as the reference's, and
+   moved to the host by ``initialize``), under the model's bf16 parameter
+   bytes; losses within 1e-2 relative of (a)'s engine at 8 layers; staged
+   bytes, staging hits and K4's launches (as (a)'s per layer). (e) (b)'s cpu
+   engine saves at step 2 (integrity "size"); a fresh offload engine loads
+   the tag and its step 3 is bit for bit (loss and master), a stage-1 engine
+   without offload loads it within 1e-2 relative. (f) The train phase's
+   8-layer spec for 3 steps with ``DS_TPU_FUSED_HEAD_CHUNK=8192``, then
+   with the "offload" remat policy (7 products a block through pinned host
+   memory): peak memory and ms per step beside the plain run's (the train
+   phase's, or one made here), losses within 1e-2 relative. K4's launches
+   of every run are added to the record line.
+
 The serving parity phase's dense oracles pass ``attn_impl="xla"``, so they
 stay independent of the kernels under test.
 
@@ -326,7 +364,7 @@ PEAK_OPS = {torch.bfloat16: 989e12, torch.float32: 67e12,
             torch.float8_e4m3fn: 1979e12}
 
 ALL_PHASES = ("build", "kernel", "parity", "serve", "train-parity", "train",
-              "moe-train-parity", "moe-train", "zero", "sparse")
+              "moe-train-parity", "moe-train", "zero", "sparse", "offload")
 
 #: spread of the K1 cases' q against unit-normal K/V (see k1_case)
 Q_SD = 3.0
@@ -3866,8 +3904,9 @@ def phase_k7(dev) -> tuple[dict, list]:
 # ---------------------------------------------------------------------------
 
 #: the train phase: llama2-7b's width (E 4096, H 32, D 128, F 11008, vocab
-#: 32000) at 8 layers (~1.9 B parameters: the full depth with Adam needs
-#: ~112 GB of fp32 master, moments and grads, and waits for offload), bf16
+#: 32000) at 8 layers (~1.9 B parameters: the full depth with Adam on the
+#: card needs ~112 GB of fp32 master, moments and grads; the offload phase
+#: trains it with the optimizer state on the host), bf16
 #: with an fp32 master, AdamW, micro-batch 2 x gas 2 of 2048 tokens, remat
 #: "full", 5 steps on one repeated batch
 TRAIN = dict(name="llama2-7b", layers=8, micro=2, gas=2, seq=2048, steps=5)
@@ -4620,6 +4659,604 @@ def phase_zero(dev, train: dict | None = None) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# phase 11: offload (ZeRO-Offload, ZeRO-Infinity, the fused head and the
+# activation-offload remat policy)
+# ---------------------------------------------------------------------------
+
+#: (a): llama2-7b at full width and depth, bf16 with an fp32 master, AdamW,
+#: micro 2 x gas 2 x 2048, remat "full", ZeRO stage 2 at world 1 over NCCL,
+#: the optimizer state on the host, 3 steps on one repeated batch
+OFFLOAD = dict(name="llama2-7b", layers=32, micro=2, gas=2, seq=2048,
+               steps=3)
+#: (b), (c), (e): the same width at 2 layers, 2 steps (then a third after
+#: the checkpoint)
+OFFLOAD_SMALL = dict(OFFLOAD, layers=2, steps=2)
+#: (d): ZeRO-Infinity at 8 layers, 3 steps
+OFFLOAD_STREAM = dict(OFFLOAD, layers=8, steps=3)
+#: host memory kept free beyond the offloaded state
+HOST_MARGIN = 10e9
+#: where (b) swaps and (e) saves (inside the checkout; removed after)
+OFFLOAD_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                           "offload.tmp")
+
+
+def mem_available() -> int:
+    with open("/proc/meminfo") as f:
+        for line in f:
+            if line.startswith("MemAvailable:"):
+                return int(line.split()[1]) * 1024
+    raise RuntimeError("no MemAvailable in /proc/meminfo")
+
+
+def param_count(name: str, layers: int) -> int:
+    """Parameters of a dense preset at ``layers`` layers, from its config."""
+    from deepspeed_tpu_torch.models import get_model_config
+
+    c = get_model_config(name)
+    E, H, KV, D, F = (c.hidden_size, c.num_heads, c.kv_heads, c.head_dim,
+                      c.ffn_size)
+    block = 2 * E * H * D + 2 * E * KV * D + 3 * E * F + 2 * E
+    root = c.vocab_size * E * (1 if c.tie_embeddings else 2) + E
+    return layers * block + root
+
+
+def vocab_of(spec: dict) -> int:
+    from deepspeed_tpu_torch.models import get_model_config
+
+    return get_model_config(spec["name"]).vocab_size
+
+
+def offload_depth(spec: dict, avail: int) -> tuple[int, str]:
+    """The deepest cut of ``spec`` whose host state (fp32 master and two
+    moments, 12 bytes a parameter, plus the pinned staging ring) leaves
+    ``HOST_MARGIN`` of MemAvailable: the full depth when it fits."""
+    from deepspeed_tpu_torch.runtime.zero.offload import RING, TILE
+
+    ring = RING * TILE * 6
+    need = lambda L: 12 * param_count(spec["name"], L) + ring + HOST_MARGIN
+    L = spec["layers"]
+    while L > 1 and need(L) > avail:
+        L -= 1
+    why = (f"full depth: {need(L) / 1e9:.1f} GB of host state + margin fit "
+           f"MemAvailable {avail / 1e9:.1f} GB") if L == spec["layers"] \
+        else (f"cut from {spec['layers']} to {L} layers: MemAvailable "
+              f"{avail / 1e9:.1f} GB holds {need(L) / 1e9:.1f} GB of host "
+              f"state + margin, {spec['layers']} layers need "
+              f"{need(spec['layers']) / 1e9:.1f} GB")
+    return L, why
+
+
+def offload_engine(spec: dict, dev, layers: int, zero: dict, **over):
+    import deepspeed_tpu_torch as dst
+    from deepspeed_tpu_torch.models import build_model
+
+    model = build_model(spec["name"], num_layers=layers,
+                        dtype=torch.bfloat16, param_dtype=torch.float32,
+                        device=dev, seed=0)
+    cfg = train_config(spec, activation_checkpointing={"policy": "full"},
+                       zero_optimization=zero, **over)
+    return dst.initialize(model=model, config=cfg)[0]
+
+
+def host_opt_split(ho, fwd_bwd_s: float) -> dict:
+    """The host step's split (``HostOffloadOptimizer.last_step``) as rates
+    and hidden shares: device-to-host gradients, the host Adam (28 bytes an
+    element: p, m, v and g read, p, m, v written), the bf16 cast (6 bytes)
+    and the host-to-device copies; a copy's hidden share is the part of its
+    device time the host did not spend waiting for it."""
+    st = dict(ho.last_step)
+    n = st["host_elements"]
+    d2h_s, h2d_s = st.get("d2h_ms", 0.0) / 1e3, st.get("h2d_ms", 0.0) / 1e3
+    return {
+        "device_fwd_bwd_s": fwd_bwd_s, "host_step_s": st["seconds"],
+        "d2h_GB": st["d2h_bytes"] / 1e9, "d2h_s": d2h_s,
+        "d2h_GBps": st["d2h_bytes"] / d2h_s / 1e9 if d2h_s else None,
+        "d2h_hidden": 1 - st["wait_d2h"] / d2h_s if d2h_s else None,
+        "adam_s": st["adam"], "adam_GBps": 28 * n / st["adam"] / 1e9,
+        "cast_s": st["cast"], "cast_GBps": 6 * n / st["cast"] / 1e9,
+        "h2d_GB": st["h2d_bytes"] / 1e9, "h2d_s": h2d_s,
+        "h2d_GBps": st["h2d_bytes"] / h2d_s / 1e9 if h2d_s else None,
+        "h2d_hidden": 1 - st["wait_h2d"] / h2d_s if h2d_s else None,
+        "nvme_wait_s": st["nvme_wait"], "tiles": st["tiles"]}
+
+
+def offload_steps(engine, batch, steps: int) -> tuple[list, list, list]:
+    """``steps`` timed steps: (losses, wall seconds, host-step splits). The
+    host optimizer's step is wrapped to mark where the device's forward
+    and backward ended (a synchronize there costs nothing: the host step
+    waits for the gradients' copies anyway)."""
+    ho = engine._host_opt
+    inner = ho.step
+    mark = {}
+
+    def timed(zero, lr):
+        torch.cuda.synchronize()
+        mark["host"] = time.perf_counter()
+        inner(zero, lr)
+
+    ho.step = timed
+    losses, walls, splits = [], [], []
+    try:
+        for _ in range(steps):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            losses.append(float(engine.train_batch(batch)))
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+            splits.append(host_opt_split(ho, mark["host"] - t0))
+    finally:
+        ho.step = inner
+    return losses, walls, splits
+
+
+def masters_equal(a: dict, b: dict) -> bool:
+    if isinstance(a, dict):
+        return set(a) == set(b) and all(masters_equal(a[k], b[k]) for k in a)
+    return torch.equal(a, b)
+
+
+def host_copy(tree: dict) -> dict:
+    if isinstance(tree, dict):
+        return {k: host_copy(v) for k, v in tree.items()}
+    return tree.detach().to("cpu", copy=True)
+
+
+def offload_main(dev, tag: str, layers: int) -> dict:
+    """(a): see the module docstring, phase 11."""
+    spec = OFFLOAD
+    gas, steps = spec["gas"], spec["steps"]
+    free_cuda()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    engine = offload_engine(spec, dev, layers, {
+        "stage": 2, "offload_optimizer": {"device": "cpu"}})
+    setup_s = time.perf_counter() - t0
+    init_peak = torch.cuda.max_memory_allocated()
+    ho = engine._host_opt
+    if engine._zero.master.device.type != "cpu" or ho.device_elements():
+        raise AssertionError(f"[{tag}] the fp32 master is not on the host")
+    batch = train_batch_of(spec, vocab_of(spec), seed=3)
+    tokens = batch["input_ids"].numel()
+    free_cuda()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    losses, walls, splits = offload_steps(engine, batch, steps)
+    launches = all_counts()
+    peak = torch.cuda.max_memory_allocated()
+    zero_check_launches(tag, launches, layers, gas, steps)
+    if not all(math.isfinite(x) for x in losses) or \
+            not losses[-1] < losses[0]:
+        raise AssertionError(f"[{tag}] losses {losses}: not finite and "
+                             f"falling on a repeated batch")
+    if peak >= 80e9:
+        raise AssertionError(f"[{tag}] device peak {peak / 1e9:.1f} GB")
+    ms = statistics.mean(walls[1:]) * 1e3
+    split = splits[-1]
+    rec = dict(layers=layers, params=engine.num_parameters(),
+               host_elements=ho.host_elements(), tokens_per_step=tokens,
+               losses=losses, step_s=walls, ms_per_step=ms,
+               tokens_per_s=tokens / (ms / 1e3), peak_mem_bytes=peak,
+               init_peak_mem_bytes=init_peak, setup_s=setup_s,
+               splits=splits, launches=launches)
+    log(f"[{tag}] {rec['params'] / 1e9:.2f} B parameters ({layers} layers), "
+        f"{tokens} tokens a step: losses "
+        f"{', '.join(repr(x) for x in losses)}; {ms:.1f} ms/step, "
+        f"{rec['tokens_per_s']:.0f} tokens/s; device peak {peak / 1e9:.2f} GB "
+        f"in the steps ({init_peak / 1e9:.2f} GB while the fp32 model moved "
+        f"to the host); set-up {setup_s:.1f} s; K4 {launches['k4_fwd']} / "
+        f"{launches['k4_bwd']}")
+    num = lambda x, f: "not measured" if x is None else format(x, f)
+    log(f"[{tag}] last step: device forward + backward "
+        f"{split['device_fwd_bwd_s']:.3f} s; host step "
+        f"{split['host_step_s']:.3f} s: gradients to the host "
+        f"{split['d2h_GB']:.2f} GB at {num(split['d2h_GBps'], '.1f')} GB/s "
+        f"({num(split['d2h_hidden'], '.0%')} hidden), host Adam "
+        f"{split['adam_s']:.3f} s ({split['adam_GBps']:.1f} GB/s of 28 B an "
+        f"element), bf16 cast {split['cast_s']:.3f} s "
+        f"({split['cast_GBps']:.1f} GB/s), to the card "
+        f"{split['h2d_GB']:.2f} GB at {num(split['h2d_GBps'], '.1f')} GB/s "
+        f"({num(split['h2d_hidden'], '.0%')} hidden), {split['tiles']} "
+        f"tiles")
+    engine.close()
+    del engine
+    free_cuda()
+    return rec
+
+
+def offload_small(dev, tag: str) -> dict:
+    """(b) NVMe bit for bit cpu, (c) Twin-Flow, (e) the checkpoint."""
+    import shutil
+
+    spec = OFFLOAD_SMALL
+    L, steps = spec["layers"], spec["steps"]
+    batch = train_batch_of(spec, vocab_of(spec), seed=5)
+    rec: dict = {"launches": {}}
+    shutil.rmtree(OFFLOAD_DIR, ignore_errors=True)
+    os.makedirs(OFFLOAD_DIR)
+    swap, ckpt = (os.path.join(OFFLOAD_DIR, d) for d in ("swap", "ckpt"))
+    n = param_count(spec["name"], L)
+    free = shutil.disk_usage(OFFLOAD_DIR).free
+    need = 12 * n + 14 * n + 2e9         # the swap files, the checkpoint
+    rec["free_disk_bytes"] = free
+    log(f"[{tag}] free disk under {OFFLOAD_DIR}: {free / 1e9:.1f} GB "
+        f"(needs {need / 1e9:.1f})")
+    if free < need:
+        raise AssertionError(f"[{tag}] {free / 1e9:.1f} GB free, "
+                             f"{need / 1e9:.1f} GB needed")
+
+    def add(got):
+        for k, v in got.items():
+            rec["launches"][k] = rec["launches"].get(k, 0) + v
+
+    def run(zero, label, **over):
+        free_cuda()
+        engine = offload_engine(spec, dev, L, zero, **over)
+        reset_counts()
+        losses, walls, splits = offload_steps(engine, batch, steps)
+        got = all_counts()
+        zero_check_launches(f"{tag} {label}", got, L, spec["gas"], steps)
+        add(got)
+        return engine, losses, walls, splits
+
+    # the cpu run: 2 steps, the step-2 tag, step 3
+    cpu = {"stage": 2, "offload_optimizer": {"device": "cpu"}}
+    ckpt_cfg = {"checkpoint": {"integrity": "size"}}
+    engine, l_cpu, _, _ = run(cpu, "cpu", **ckpt_cfg)
+    m_cpu = host_copy(engine.master)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    engine.save_checkpoint(ckpt, tag="step2")
+    save_s = time.perf_counter() - t0
+    reset_counts()
+    l3 = float(engine.train_batch(batch))
+    add(all_counts())
+    m3 = host_copy(engine.master)
+    engine.close()
+    del engine
+    # (b) NVMe: the set-up spills the state once, each step reads and
+    # writes it back
+    t0 = time.perf_counter()
+    engine = offload_engine(spec, dev, L, {
+        "stage": 2, "offload_optimizer": {"device": "nvme",
+                                          "nvme_path": swap}})
+    ho = engine._host_opt
+    spilled = ho.io_written_bytes
+    reset_counts()
+    l_nvme, walls, splits = offload_steps(engine, batch, steps)
+    got = all_counts()
+    zero_check_launches(f"{tag} nvme", got, L, spec["gas"], steps)
+    add(got)
+    io = {"spill_GB": spilled / 1e9,
+          "read_GB_per_step": ho.io_read_bytes / 1e9 / steps,
+          "written_GB_per_step": (ho.io_written_bytes - spilled) / 1e9
+          / steps,
+          "step_s": walls, "nvme_wait_s": [s["nvme_wait_s"] for s in splits],
+          "files": len(ho.swap_files()),
+          "seconds_with_setup": time.perf_counter() - t0}
+    same = l_nvme == l_cpu and masters_equal(host_copy(engine.master), m_cpu)
+    swap_dir = ho.nvme_dir
+    engine.close()
+    del engine
+    shutil.rmtree(swap_dir)
+    log(f"[{tag}] nvme: losses {l_nvme} (cpu {l_cpu}), master bit for bit: "
+        f"{same}; {io['read_GB_per_step']:.2f} GB read and "
+        f"{io['written_GB_per_step']:.2f} GB written a step (the set-up "
+        f"spilled {io['spill_GB']:.2f} GB), step "
+        f"{', '.join(f'{s:.2f}' for s in walls)} s, of which waiting on "
+        f"the disk {', '.join(f'{s:.2f}' for s in io['nvme_wait_s'])} s; "
+        f"{io['files']} swap files (removed)")
+    if not same:
+        raise AssertionError(f"[{tag}] NVMe differs from cpu offload")
+    rec["nvme"] = dict(losses=l_nvme, **io)
+    # (c) Twin-Flow
+    engine, l_half, walls, splits = run(
+        {"stage": 2, "offload_optimizer": {"device": "cpu", "ratio": 0.5}},
+        "twin-flow")
+    ho = engine._host_opt
+    shares = (ho.host_elements(), ho.device_elements())
+    rel = max(abs(a - b) / abs(b) for a, b in zip(l_half, l_cpu))
+    engine.close()
+    del engine
+    log(f"[{tag}] Twin-Flow ratio 0.5: losses {l_half} against ratio 1.0's "
+        f"{l_cpu}: {rel:.2e} relative (limit 2e-3); host {shares[0]} / "
+        f"device {shares[1]} elements; step "
+        f"{', '.join(f'{s:.2f}' for s in walls)} s")
+    if rel > 2e-3 or not all(shares):
+        raise AssertionError(f"[{tag}] Twin-Flow {rel:.2e}, shares {shares}")
+    rec["twin_flow"] = dict(losses=l_half, max_rel=rel, host_elements=shares[0],
+                            device_elements=shares[1], step_s=walls)
+    # (e) the checkpoint: a fresh offload engine, then stage 1 on the card
+    free_cuda()
+    engine = offload_engine(spec, dev, L, cpu, **ckpt_cfg)
+    t0 = time.perf_counter()
+    engine.load_checkpoint(ckpt, tag="step2")
+    load_s = time.perf_counter() - t0
+    reset_counts()
+    r3 = float(engine.train_batch(batch))
+    add(all_counts())
+    same = r3 == l3 and masters_equal(host_copy(engine.master), m3)
+    engine.close()
+    del engine
+    free_cuda()
+    engine = offload_engine(spec, dev, L, {"stage": 1}, **ckpt_cfg)
+    engine.load_checkpoint(ckpt, tag="step2")
+    reset_counts()
+    d3 = float(engine.train_batch(batch))
+    add(all_counts())
+    engine.close()
+    del engine
+    free_cuda()
+    size = sum(os.path.getsize(os.path.join(dp, f))
+               for dp, _, fs in os.walk(ckpt) for f in fs)
+    shutil.rmtree(OFFLOAD_DIR)
+    rel = abs(d3 - l3) / abs(l3)
+    log(f"[{tag}] checkpoint at step 2 ({size / 1e9:.2f} GB, save "
+        f"{save_s:.2f} s, load {load_s:.2f} s): the offload engine's step 3 "
+        f"{r3!r} against {l3!r}, master bit for bit: {same}; a stage-1 "
+        f"engine without offload {d3!r} ({rel:.2e} relative, limit 1e-2)")
+    if not same or rel > 1e-2:
+        raise AssertionError(f"[{tag}] checkpoint resume: {r3} / {d3} "
+                             f"against {l3}")
+    rec.update(cpu_losses=l_cpu + [l3], checkpoint=dict(
+        bytes=size, save_s=save_s, load_s=load_s, resumed=r3,
+        device_stage1=d3, device_rel=rel))
+    return rec
+
+
+def offload_stream(dev, tag: str) -> dict:
+    """(d) ZeRO-Infinity against (a)'s engine at the same depth."""
+    spec = OFFLOAD_STREAM
+    L, gas, steps = spec["layers"], spec["gas"], spec["steps"]
+    batch = train_batch_of(spec, vocab_of(spec), seed=9)
+    free_cuda()
+    engine = offload_engine(spec, dev, L, {
+        "stage": 2, "offload_optimizer": {"device": "cpu"}})
+    reset_counts()
+    ref, ref_walls, _ = offload_steps(engine, batch, steps)
+    got_ref = all_counts()
+    zero_check_launches(f"{tag} reference", got_ref, L, gas, steps)
+    engine.close()
+    del engine
+    free_cuda()
+    t0 = time.perf_counter()
+    engine = offload_engine(spec, dev, L, {
+        "stage": 3, "offload_optimizer": {"device": "cpu"},
+        "offload_param": {"device": "cpu", "buffer_count": 2}})
+    setup_s = time.perf_counter() - t0
+    ps = engine._param_stream
+    if engine._zero is not None or next(engine.module.parameters()).is_cuda:
+        raise AssertionError(f"[{tag}] parameters on the card")
+    free_cuda()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    losses, walls = [], []
+    for _ in range(steps):
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        losses.append(float(engine.train_batch(batch)))
+        walls.append(time.perf_counter() - t1)
+    got = all_counts()
+    peak = torch.cuda.max_memory_allocated()
+    zero_check_launches(tag, got, L, gas, steps)
+    bf16_bytes = ps.total_param_bytes
+    rel = max(abs(a - b) / abs(b) for a, b in zip(losses, ref))
+    ms = statistics.mean(walls[1:]) * 1e3
+    rec = dict(layers=L, losses=losses, reference=ref, max_rel=rel,
+               step_s=walls, ms_per_step=ms, reference_step_s=ref_walls,
+               peak_mem_bytes=peak, param_bytes=bf16_bytes,
+               peak_staged_bytes=ps.peak_staged_bytes,
+               peak_hbm_bytes=ps.peak_hbm_bytes, stage_hits=ps.stage_hits,
+               stage_misses=ps.stage_misses, setup_s=setup_s,
+               launches={k: got[k] + got_ref[k] for k in got})
+    log(f"[{tag}] losses {losses} against the offloaded device engine's "
+        f"{ref}: {rel:.2e} relative (limit 1e-2); {ms:.1f} ms/step "
+        f"(reference {statistics.mean(ref_walls[1:]) * 1e3:.1f}); device peak "
+        f"{peak / 1e9:.2f} GB against {bf16_bytes / 1e9:.2f} GB of bf16 "
+        f"parameters (staged peak {ps.peak_staged_bytes / 1e9:.2f} GB, with "
+        f"the gradient queue {ps.peak_hbm_bytes / 1e9:.2f}); staging hits "
+        f"{ps.stage_hits}, misses {ps.stage_misses}; K4 {got['k4_fwd']} / "
+        f"{got['k4_bwd']}; set-up {setup_s:.1f} s (the fp32 model is made on "
+        f"the card from the seed, as the reference's, and moved to the host "
+        f"before the peak is reset)")
+    if rel > 1e-2 or peak >= bf16_bytes:
+        raise AssertionError(f"[{tag}] {rel:.2e} relative, peak {peak} "
+                             f"against {bf16_bytes} parameter bytes")
+    engine.close()
+    del engine
+    free_cuda()
+    return rec
+
+
+def offload_head(dev, tag: str, train: dict | None) -> dict:
+    """(f) the train spec with ``DS_TPU_FUSED_HEAD_CHUNK=8192``, then with
+    the "offload" remat policy, beside the plain run (the train phase's,
+    or one made here)."""
+    import deepspeed_tpu_torch as dst
+    from deepspeed_tpu_torch.models import build_model
+    from deepspeed_tpu_torch.ops import remat
+
+    spec = dict(TRAIN, steps=3)
+    L, gas, steps = spec["layers"], spec["gas"], spec["steps"]
+    batch = train_batch_of(spec, vocab_of(spec), seed=3)
+    tokens = batch["input_ids"].numel()
+    rec: dict = {"launches": {}}
+
+    def run(label, policy, env):
+        free_cuda()
+        old = os.environ.pop("DS_TPU_FUSED_HEAD_CHUNK", None)
+        if env:
+            os.environ["DS_TPU_FUSED_HEAD_CHUNK"] = env
+        try:
+            model = build_model(spec["name"], num_layers=L,
+                                dtype=torch.bfloat16,
+                                param_dtype=torch.float32, device=dev, seed=0)
+            engine, *_ = dst.initialize(model=model, config=train_config(
+                spec, activation_checkpointing={"policy": policy}))
+            free_cuda()
+            torch.cuda.reset_peak_memory_stats()
+            reset_counts()
+            before = dict(remat.offload_counts)
+            losses, walls = [], []
+            for _ in range(steps):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                losses.append(float(engine.train_batch(batch)))
+                walls.append(time.perf_counter() - t0)
+            got = all_counts()
+            zero_check_launches(f"{tag} {label}", got, L, gas, steps)
+            for k, v in got.items():
+                rec["launches"][k] = rec["launches"].get(k, 0) + v
+            saved = remat.offload_counts["saved"] - before["saved"]
+            out = dict(losses=losses, step_s=walls,
+                       ms_per_step=statistics.mean(walls[1:]) * 1e3,
+                       peak_mem_bytes=torch.cuda.max_memory_allocated(),
+                       products_offloaded=saved,
+                       offloaded_GB=(remat.offload_counts["bytes"]
+                                     - before["bytes"]) / 1e9)
+            engine.close()
+            del engine, model
+        finally:
+            os.environ.pop("DS_TPU_FUSED_HEAD_CHUNK", None)
+            if old is not None:
+                os.environ["DS_TPU_FUSED_HEAD_CHUNK"] = old
+        free_cuda()
+        return out
+
+    if train is not None:
+        plain = dict(losses=train["losses"][:steps],
+                     ms_per_step=train["ms_per_step"],
+                     peak_mem_bytes=train["peak_mem_bytes"], source="train")
+    else:
+        plain = run("plain", "full", None)
+    rec["plain"] = plain
+    rec["fused_head"] = run("fused head", "full", "8192")
+    rec["offload_policy"] = run("remat offload", "offload", None)
+    # 7 products a block, each micro-batch's forward
+    want_saved = 7 * L * gas * steps
+    if rec["offload_policy"]["products_offloaded"] != want_saved:
+        raise AssertionError(f"[{tag}] the offload policy saved "
+                             f"{rec['offload_policy']['products_offloaded']} "
+                             f"products, not {want_saved}")
+    for key in ("fused_head", "offload_policy"):
+        r = rec[key]
+        r["max_rel"] = max(abs(a - b) / abs(b)
+                           for a, b in zip(r["losses"], plain["losses"]))
+        log(f"[{tag}] {key}: losses {r['losses']} ({r['max_rel']:.2e} "
+            f"relative to the plain run's, limit 1e-2); {r['ms_per_step']:.1f} "
+            f"ms/step ({tokens / r['ms_per_step'] * 1e3:.0f} tokens/s), peak "
+            f"{r['peak_mem_bytes'] / 1e9:.2f} GB; plain "
+            f"{plain['ms_per_step']:.1f} ms/step, peak "
+            f"{plain['peak_mem_bytes'] / 1e9:.2f} GB"
+            + (f"; {r['offloaded_GB']:.2f} GB of product outputs through "
+               f"pinned host memory" if key == "offload_policy" else ""))
+        if r["max_rel"] > 1e-2:
+            raise AssertionError(f"[{tag}] {key} losses {r['losses']} "
+                                 f"against {plain['losses']}")
+    return rec
+
+
+def host_build_seconds(scratch: str) -> float:
+    """Seconds of a cold g++ build of the host library into a directory
+    under ``scratch`` (removed after): the library the run loads may have
+    been built by an earlier process."""
+    import tempfile
+
+    from deepspeed_tpu_torch.ops import native
+
+    saved = native.BUILD_DIR, dict(native.build_info)
+    with tempfile.TemporaryDirectory(prefix="host_build.", dir=scratch) as d:
+        native.BUILD_DIR = d
+        try:
+            t0 = time.perf_counter()
+            native.build_library()
+            return time.perf_counter() - t0
+        finally:
+            native.BUILD_DIR = saved[0]
+            native.build_info.clear()
+            native.build_info.update(saved[1])
+
+
+def host_copy_rate(gib: float = 1.0, reps: int = 3) -> float:
+    """The host's memory rate for a plain copy on torch's threads (bytes
+    read + written over seconds, best of ``reps``): the yardstick of the
+    host step, which streams its state through memory once."""
+    n = int(gib * 2 ** 30) // 4
+    a = torch.ones(n)
+    b = torch.empty(n)
+    b.copy_(a)
+    best = float("inf")
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        b.copy_(a)
+        best = min(best, time.perf_counter() - t0)
+    del a, b
+    return 2 * n * 4 / best
+
+
+def phase_offload(dev, train: dict | None = None) -> dict:
+    """See the module docstring, phase 11."""
+    import shutil
+
+    import torch.distributed as dist
+
+    from deepspeed_tpu_torch import comm
+    from deepspeed_tpu_torch.accelerator import card_name_and_power_limit
+    from deepspeed_tpu_torch.ops import native
+
+    t_phase = time.perf_counter()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    comm.init_distributed()
+    if dist.get_backend() != "nccl" or dist.get_world_size() != 1:
+        raise AssertionError(f"[offload] process group "
+                             f"{dist.get_backend()} of "
+                             f"{dist.get_world_size()}")
+    t0 = time.perf_counter()
+    native.load_library()
+    load_s = time.perf_counter() - t0
+    avail = mem_available()
+    here = os.path.dirname(os.path.abspath(__file__))
+    host = dict(card=card_name_and_power_limit(), mem_available_bytes=avail,
+                cpu_count=os.cpu_count(),
+                affinity=len(os.sched_getaffinity(0)),
+                library_threads=native.library_threads(),
+                library=native.build_info.get("path"),
+                gxx_load_s=native.build_info.get("seconds"),
+                gxx_built=native.build_info.get("built"),
+                gxx_cold_build_s=host_build_seconds(here),
+                load_s=load_s, free_disk_bytes=shutil.disk_usage(here).free,
+                host_copy_GBps=host_copy_rate() / 1e9,
+                torch_threads=torch.get_num_threads())
+    log(f"[offload] {host['card']}; MemAvailable {avail / 1e9:.1f} GB, "
+        f"os.cpu_count() {host['cpu_count']} (affinity {host['affinity']}), "
+        f"host library {host['library_threads']} OpenMP threads, g++ build "
+        f"{host['gxx_cold_build_s']:.1f} s cold (the loaded library "
+        + (f"built in {host['gxx_load_s']:.1f} s" if host["gxx_built"]
+           else "was cached") + "), "
+        f"free disk under the checkout {host['free_disk_bytes'] / 1e9:.1f} "
+        f"GB; host memory copy {host['host_copy_GBps']:.1f} GB/s (read + "
+        f"written, torch's {host['torch_threads']} threads)")
+    rec: dict = {"host": host}
+    layers, why = offload_depth(OFFLOAD, avail)
+    log(f"[offload] (a) depth: {why}")
+    rec["depth"] = {"layers": layers, "reason": why}
+    rec["main"] = offload_main(dev, f"offload {OFFLOAD['name']} x{layers}",
+                               layers)
+    rec["small"] = offload_small(dev, f"offload {OFFLOAD['name']} x2")
+    rec["stream"] = offload_stream(dev, f"infinity {OFFLOAD['name']} x8")
+    rec["head"] = offload_head(dev, f"offload {TRAIN['name']} x8", train)
+    launches: dict = {}
+    for part in (rec["main"], rec["small"], rec["stream"], rec["head"]):
+        for k, v in part["launches"].items():
+            launches[k] = launches.get(k, 0) + v
+    rec["launches"] = launches
+    rec["seconds"] = time.perf_counter() - t_phase
+    log(f"[offload] phase {rec['seconds']:.1f} s; launches k4 "
+        f"{launches['k4_fwd']} / {launches['k4_bwd']}")
+    return rec
+
+
+# ---------------------------------------------------------------------------
 # main
 # ---------------------------------------------------------------------------
 
@@ -4818,6 +5455,12 @@ def main() -> int:
         record["phases"]["sparse"] = sparse
         k6_fwd["launches"] = sparse["k6_fwd"]
         k6_bwd["launches"] = sparse["k6_bwd"]
+    if "offload" in phases:
+        offload = phase_offload(dev, record["phases"].get("train"))
+        record["phases"]["offload"] = offload
+        got = offload["launches"]
+        for rec, key in ((k4_fwd, "k4_fwd"), (k4_bwd, "k4_bwd")):
+            rec["launches"] = (rec["launches"] or 0) + got[key]
     record["seconds"] = time.perf_counter() - t_start
     os.makedirs(args.out, exist_ok=True)
     with open(os.path.join(args.out, "chip_smoke.json"), "w") as f:

@@ -17,7 +17,9 @@ Hopper (``ops/csrc/``), and training:
 training engine (``runtime/engine.py``), ZeRO stages 0-3 over
 ``torch.distributed`` (``init_distributed``, ``comm``, ``zero``), with
 checkpoints that reshard on load (``runtime/checkpointing.py``,
-``checkpoint``) and the resilience rewind; its attention runs the flash
+``checkpoint``), the resilience rewind, and ZeRO-Offload / ZeRO-Infinity
+(the optimizer state, and the parameters, on the host or NVMe; the host
+library built with g++ from ``csrc/``); its attention runs the flash
 kernel K4 (``ops/csrc/flash_attention.cu``). The names below are imported
 on first use.
 """

@@ -90,7 +90,7 @@ class OffloadConfig:
     device: str = "none"
     nvme_path: str | None = None
     buffer_count: int = 4
-    pin_memory: bool = False  # accepted; host staging is always pinned by PJRT
+    pin_memory: bool = False  # accepted; host staging is always pinned
     #: ZeRO-Offload++ Twin-Flow (reference blogs/deepspeed-offloadpp):
     #: fraction of optimizer state offloaded to the host; the rest updates
     #: on device, overlapping with the host walk. 1.0 = classic full

@@ -18,9 +18,14 @@ group size, so the group's mean of losses and of gradients is the global
 loss and its gradient. A per-rank mean would miss whenever the ranks hold
 different numbers of ``IGNORE_INDEX`` labels.
 
-The fused vocab-chunked head loss (``fused_lm_head_loss``,
-behind ``DS_TPU_FUSED_HEAD_CHUNK``) and the masked-LM loss of the bert
-family are ported with later slices; setting the env switch raises.
+``DS_TPU_FUSED_HEAD_CHUNK=<vocab columns>`` routes :func:`lm_loss_fn`
+through :func:`fused_lm_head_loss`: the unembedding product and the
+softmax cross-entropy run together over vocab chunks with an online
+log-sum-exp, and the backward computes each chunk's logits again, so the
+``[B·S, V]`` logits never exist in any precision (the JAX package's
+``_fused_nll_logz`` custom VJP, ``loss.py:150-297``). The chunk products
+are plain ``torch.matmul``, as the JAX package computes them in XLA. The
+masked-LM loss of the bert family is ported with a later slice.
 """
 from __future__ import annotations
 
@@ -28,9 +33,11 @@ import math
 import os
 
 import torch
+import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 IGNORE_INDEX = -100
+NEG_INF_F32 = float(torch.finfo(torch.float32).min)
 
 
 def _nll_logz_piece(lg: torch.Tensor, lb: torch.Tensor):
@@ -97,6 +104,112 @@ def cross_entropy_lm(logits: torch.Tensor, labels: torch.Tensor,
     return loss * ranks if ranks > 1 else loss
 
 
+def _head_chunk(x2d, w, bias, c0: int, vchunk: int, w_is_ve: bool, V: int):
+    """One vocab chunk's fp32 logits and its effective start: the tail
+    chunk reads ``[V - vchunk, V)``, and the columns outside the logical
+    range ``[c0, min(c0 + vchunk, V))``, which earlier chunks covered, are
+    set to the most negative float."""
+    c0_eff = min(c0, V - vchunk)
+    if w_is_ve:
+        wc = w[c0_eff:c0_eff + vchunk]
+        lg = x2d @ wc.t()
+    else:
+        wc = w[:, c0_eff:c0_eff + vchunk]
+        lg = x2d @ wc
+    lg = lg.float()
+    if bias is not None:
+        lg = lg + bias[c0_eff:c0_eff + vchunk].float()[None, :]
+    pos = c0_eff + torch.arange(vchunk, device=x2d.device)
+    valid = (pos >= c0) & (pos < V)
+    return torch.where(valid[None, :], lg, NEG_INF_F32), c0_eff, wc
+
+
+class _FusedNllLogz(torch.autograd.Function):
+    """Per-token (nll, logz) in fp32 from hidden states ``x2d`` [N, E] and
+    the head weight ``w`` ([V, E] tied, or [E, V]), ``bias`` [V] or None,
+    ``labels`` [N] (negative: masked)."""
+
+    @staticmethod
+    def forward(ctx, x2d, w, bias, labels, vchunk: int, w_is_ve: bool):
+        N = x2d.shape[0]
+        V = w.shape[0] if w_is_ve else w.shape[1]
+        mask = labels >= 0
+        safe = torch.where(mask, labels, 0)
+        m = torch.full((N,), NEG_INF_F32, device=x2d.device)
+        l = torch.zeros(N, device=x2d.device)
+        true = torch.zeros(N, device=x2d.device)
+        for c0 in range(0, V, vchunk):
+            lg, c0_eff, _ = _head_chunk(x2d, w, bias, c0, vchunk, w_is_ve, V)
+            m_new = torch.maximum(m, lg.max(dim=-1).values)
+            l = l * torch.exp(m - m_new) + torch.exp(
+                lg - m_new[:, None]).sum(dim=-1)
+            in_chunk = (safe >= c0) & (safe < c0 + vchunk)
+            idx = torch.clamp(safe - c0_eff, 0, vchunk - 1)
+            true = true + torch.where(
+                in_chunk, lg.gather(1, idx[:, None])[:, 0], 0.0)
+            m = m_new
+        logz = m + torch.log(l)
+        ctx.save_for_backward(x2d, w, bias, labels, logz)
+        ctx.vchunk, ctx.w_is_ve = vchunk, w_is_ve
+        return (logz - true) * mask, logz * mask
+
+    @staticmethod
+    def backward(ctx, dnll, dlogz):
+        x2d, w, bias, labels, logz = ctx.saved_tensors
+        vchunk, w_is_ve = ctx.vchunk, ctx.w_is_ve
+        N, E = x2d.shape
+        V = w.shape[0] if w_is_ve else w.shape[1]
+        mask = labels >= 0
+        safe = torch.where(mask, labels, 0)
+        coeff = (dnll + dlogz) * mask
+        gn = dnll * mask
+        dx = torch.zeros(N, E, device=x2d.device)
+        dw = torch.zeros(w.shape, device=w.device)
+        db = None if bias is None else torch.zeros(V, device=w.device)
+        for c0 in range(0, V, vchunk):
+            lg, c0_eff, wc = _head_chunk(x2d, w, bias, c0, vchunk, w_is_ve, V)
+            d = torch.exp(lg - logz[:, None]) * coeff[:, None]
+            in_chunk = (safe >= c0) & (safe < c0 + vchunk)
+            hot = torch.where(in_chunk, safe - c0_eff, vchunk)
+            onehot = F.one_hot(hot, vchunk + 1)[:, :vchunk].float()
+            d = d - onehot * gn[:, None]
+            d16 = d.to(x2d.dtype)
+            if w_is_ve:
+                dx += (d16 @ wc).float()
+                dw[c0_eff:c0_eff + vchunk] += (d16.t() @ x2d).float()
+            else:
+                dx += (d16 @ wc.t()).float()
+                dw[:, c0_eff:c0_eff + vchunk] += (x2d.t() @ d16).float()
+            if db is not None:
+                db[c0_eff:c0_eff + vchunk] += d.sum(dim=0)
+        return (dx.to(x2d.dtype), dw.to(w.dtype),
+                None if db is None else db.to(bias.dtype), None, None, None)
+
+
+def fused_lm_head_loss(hidden: torch.Tensor, w: torch.Tensor,
+                       labels: torch.Tensor, *,
+                       bias: torch.Tensor | None = None,
+                       ignore_index: int = IGNORE_INDEX,
+                       z_loss_weight: float = 0.0, w_is_ve: bool = True,
+                       vchunk: int | None = None) -> torch.Tensor:
+    """Mean next-token cross entropy straight from hidden states [B, S, E]
+    and the head weight, with no logits tensor: ``w_is_ve``: ``w`` is the
+    tied embedding [V, E]; else the unembedding [E, V]. ``vchunk`` vocab
+    columns a chunk (default ``DS_TPU_FUSED_HEAD_CHUNK``, else 8192)."""
+    if vchunk is None:
+        vchunk = int(os.environ.get("DS_TPU_FUSED_HEAD_CHUNK", "8192"))
+    E = hidden.shape[-1]
+    N = math.prod(hidden.shape[:-1])
+    V = w.shape[0] if w_is_ve else w.shape[1]
+    vchunk = min(int(vchunk), V)
+    mask = labels != ignore_index
+    denom, ranks = _denominator(mask)
+    lab = torch.where(mask, labels, -1).reshape(N)
+    nll, logz = _FusedNllLogz.apply(hidden.reshape(N, E), w, bias, lab,
+                                    vchunk, w_is_ve)
+    return _masked_mean_loss(nll, logz, denom, z_loss_weight, ranks)
+
+
 def shift_labels(input_ids: torch.Tensor) -> torch.Tensor:
     """Next-token labels: ``labels[:, t] = input_ids[:, t + 1]``, the last
     column ``IGNORE_INDEX``."""
@@ -113,22 +226,29 @@ def lm_loss_fn(model, batch: dict) -> torch.Tensor:
     order, as the JAX loss adds the leaves of its ``losses`` collection;
     ``batch["_gating_seed"]``, which the engine sets for a training step,
     seeds their RSample jitter. Any other module maps input_ids to
-    logits."""
+    logits. ``DS_TPU_FUSED_HEAD_CHUNK=<vocab columns>`` takes a
+    ``TransformerLM``'s loss through :func:`fused_lm_head_loss`."""
     from .transformer import TransformerLM
 
-    if os.environ.get("DS_TPU_FUSED_HEAD_CHUNK"):
-        raise NotImplementedError(
-            "the fused vocab-chunked head loss (DS_TPU_FUSED_HEAD_CHUNK) is "
-            "ported with a later slice")
     input_ids = batch["input_ids"]
     labels = batch.get("labels")
     if labels is None:
         labels = shift_labels(input_ids)
     if not isinstance(model, TransformerLM):
         return cross_entropy_lm(model(input_ids), labels)
-    logits, layer_losses = model(input_ids, return_losses=True,
-                                 noise_seed=batch.get("_gating_seed"))
-    loss = cross_entropy_lm(logits, labels)
+    vchunk = int(os.environ.get("DS_TPU_FUSED_HEAD_CHUNK") or 0)
+    out, layer_losses = model(input_ids, return_losses=True,
+                              noise_seed=batch.get("_gating_seed"),
+                              return_hidden=vchunk > 0)
+    if vchunk > 0:
+        cfg, dt = model.config, model.config.dtype
+        w, w_is_ve = (model.embed, True) if cfg.tie_embeddings \
+            else (model.unembed, False)
+        bias = model.unembed_b.to(dt) if cfg.unembed_bias else None
+        loss = fused_lm_head_loss(out, w.to(dt), labels, bias=bias,
+                                  w_is_ve=w_is_ve, vchunk=vchunk)
+    else:
+        loss = cross_entropy_lm(out, labels)
     for aux in layer_losses:
         loss = loss + aux
     return loss

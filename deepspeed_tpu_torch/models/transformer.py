@@ -186,7 +186,7 @@ def check_served_family(cfg: ModelConfig) -> None:
             "bert-family encoders (bidirectional, post-norm, segment "
             "embeddings, dropout) are ported with a later slice")
     if cfg.remat:
-        make_policy(cfg.remat_policy)   # an unknown or offload policy raises
+        make_policy(cfg.remat_policy)   # an unknown policy raises
 
 
 # ---------------------------------------------------------------------------
@@ -539,12 +539,15 @@ class TransformerLM(nn.Module):
 
     def forward(self, input_ids: torch.Tensor,
                 positions: torch.Tensor | None = None, *,
-                return_losses: bool = False, noise_seed: int | None = None):
+                return_losses: bool = False, noise_seed: int | None = None,
+                return_hidden: bool = False):
         """input_ids [B, S] → logits [B, S, V] in ``config.dtype``; with
         ``return_losses`` → (logits, the MoE layers' fp32 losses in layer
         order). ``noise_seed`` seeds the RSample jitter of MoE layers that
         draw it in training mode (one seed per layer, drawn here, outside
-        any checkpointed block)."""
+        any checkpointed block). ``return_hidden``: the final norm's output
+        [B, S, E] in place of the logits, for the fused vocab-chunked head
+        loss (``models/loss.py``), which never builds them."""
         cfg = self.config
         dt = cfg.dtype
         B, S = input_ids.shape
@@ -572,6 +575,8 @@ class TransformerLM(nn.Module):
             if loss is not None:
                 losses.append(loss)
         x = self.ln_final(x)
+        if return_hidden:
+            return (x, losses) if return_losses else x
         if cfg.tie_embeddings:
             logits = torch.einsum("bse,ve->bsv", x, self.embed.to(dt))
         else:

@@ -6,9 +6,8 @@ Megatron-style module surface of the reference (``configure(config)`` and
 (``torch.utils.checkpoint``, selective checkpointing for the matmul-saving
 policies). ``partition_activations`` needs a sequence-parallel axis, which
 a one-process engine has not (the engine warns, as the JAX one does);
-``cpu_checkpointing`` maps to the "offload" policy, which raises
-NotImplementedError until activation offload is ported with ZeRO-Offload
-(ROADMAP queue 1, item 3).
+``cpu_checkpointing`` maps to the "offload" policy: the unbatched products'
+outputs kept in pinned host memory, everything else recomputed.
 """
 from __future__ import annotations
 

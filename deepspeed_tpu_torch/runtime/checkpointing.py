@@ -40,12 +40,19 @@ the rank's ranges to host copies and commits on a thread
 :class:`CheckpointWaitTimeout`); the fault-injection points fire where the
 JAX package fires them.
 
+Under ZeRO-Offload the master and the moments come from (and return to)
+the host optimizer, NVMe-backed ones read whole for the call; a streamed
+(ZeRO-Infinity) engine saves its host parameters. The files are the same,
+so an offloaded run resumes on the device and the reverse.
+
 The format is not the JAX package's: neither package loads the other's
 checkpoints. :func:`state_tree` / :func:`load_state_tree` carry a state
 across as numpy trees in these sections.
 """
 from __future__ import annotations
 
+import contextlib
+import functools
 import json
 import os
 import shutil
@@ -75,6 +82,21 @@ _STORE_BY_NAME = {name: npdt for npdt, name in _STORE.values()}
 
 class CheckpointIntegrityError(RuntimeError):
     """An explicitly requested tag failed manifest verification."""
+
+
+def _with_host_state(changed: bool):
+    """Run under the engine's ``_host_state`` (ZeRO-Offload's host master
+    and moments, a streamed engine's parameters, as whole tensors);
+    ``changed``: the call writes them (a load)."""
+    def deco(fn):
+        @functools.wraps(fn)
+        def wrapper(engine, *a, **k):
+            ctx = getattr(engine, "_host_state", None)
+            with ctx(changed) if ctx is not None else \
+                    contextlib.nullcontext():
+                return fn(engine, *a, **k)
+        return wrapper
+    return deco
 
 
 def _injector(engine):
@@ -227,6 +249,7 @@ def wait_for_checkpoint(engine, timeout_s: float | None = None) -> None:
         raise err
 
 
+@_with_host_state(changed=False)
 def save_checkpoint(engine, save_dir: str, tag: str | None = None,
                     client_state: dict | None = None) -> str:
     """Every rank calls this; see the module docstring. Returns the tag's
@@ -490,6 +513,7 @@ def _fill(engine, read) -> None:
         engine._zero.regather_persistent()
 
 
+@_with_host_state(changed=True)
 def load_checkpoint(engine, load_dir: str, tag: str | None = None) -> dict:
     """Every rank calls this; see the module docstring. Returns the saved
     ``client_state``."""
@@ -551,6 +575,8 @@ def load_checkpoint(engine, load_dir: str, tag: str | None = None) -> dict:
 
 
 def _set_counters(engine, opt_step: int, global_step: int) -> None:
+    if getattr(engine, "_host_opt", None) is not None:
+        engine._host_opt.step_count = opt_step
     if engine._zero is not None:
         engine._zero.step = opt_step
     else:
@@ -591,6 +617,7 @@ def _leaf(tree: dict, name: str):
     return node
 
 
+@_with_host_state(changed=False)
 def state_tree(engine) -> dict:
     """The engine's state as numpy trees in the checkpoint's sections
     (``params`` as fp32 values, ``master``, ``opt_mu``, ``opt_nu``,
@@ -624,6 +651,7 @@ def state_tree(engine) -> dict:
     return out
 
 
+@_with_host_state(changed=True)
 def load_state_tree(engine, tree: dict) -> None:
     """Load numpy trees in the checkpoint's sections (e.g. a JAX engine's
     ``TrainState``: params, master, opt_state.mu / nu, step) into the

@@ -51,19 +51,31 @@ process per device, in the same order and precision:
   layers (RSample jitter), drawn from a generator seeded with the engine's
   seed and the step.
 
+- ZeRO-Offload (``offload_optimizer``: "cpu" or "nvme", Twin-Flow's
+  ``ratio``): the fp32 master and the moments of the rank's partition live
+  on the host and the host library's SIMD step updates them
+  (``runtime/zero/offload.py``); stage 0 offloads through stage 1's
+  layout. fp16 is refused, as the JAX engine refuses it;
+- ZeRO-Infinity (``offload_param``, with ``offload_optimizer``): the
+  parameters stay on the host (or NVMe) and stream to the card a layer at
+  a time (``runtime/zero/infinity.py``); ``train_batch`` and
+  ``eval_batch`` only, a pure data-parallel mesh, no custom loss, the JAX
+  engine's messages.
+
 It runs on the CUDA device unless ``device="cpu"`` is given; ZeRO stages
-1-3 bring a process group up (a world of one) when none is, NCCL on the
-card. Every feature that a later part of the port brings raises
-NotImplementedError when it is configured (:func:`check_ported`), naming
-its ROADMAP queue 1 item: optimizer and parameter offload (item 3), the
-monitor backends, telemetry, the flops profiler, data efficiency and the
-hybrid engine (items 5 and 7), the 1-bit optimizers and tensor, sequence,
-pipeline and expert parallelism (item 6), ZeRO++ and MiCS (after item 6).
+1-3 and offload bring a process group up (a world of one) when none is,
+NCCL on the card. Every feature that a later part of the port brings
+raises NotImplementedError when it is configured (:func:`check_ported`),
+naming its ROADMAP queue 1 item: the monitor backends, telemetry, the
+flops profiler, data efficiency and the hybrid engine (items 5 and 7), the
+1-bit optimizers and tensor, sequence, pipeline and expert parallelism
+(item 6), ZeRO++ and MiCS (after item 6).
 Model compression runs outside the config (a compression manager the JAX
 engine reads when set) and is not ported either.
 """
 from __future__ import annotations
 
+import contextlib
 import copy
 import dataclasses
 from functools import partial
@@ -101,9 +113,6 @@ def check_ported(config: Config) -> None:
     """Raise NotImplementedError for every configured feature that a later
     part of the port brings (see the module docstring)."""
     z = config.zero_optimization
-    if z.offload_optimizer.device != "none" or z.offload_param.device != "none":
-        raise _later("optimizer / parameter offload (ZeRO-Offload)",
-                     "item 3")
     if (z.zero_quantized_weights or z.zero_quantized_gradients
             or z.zero_hpz_partition_size > 1 or z.mics_shard_size > 0):
         raise _later("ZeRO++ (qwZ, qgZ, hpZ) and MiCS",
@@ -141,6 +150,13 @@ class DeepSpeedEngine:
         if self.zero_stage not in (0, 1, 2, 3):
             raise ValueError(f"zero_optimization.stage must be 0-3, got "
                              f"{self.zero_stage}")
+        offload = self._check_offload(config, loss_fn)
+        if offload == "optimizer" and self.zero_stage == 0:
+            # the host walks a flat partition: stage 0 offloads through
+            # stage 1's layout, whose update gives the same bits
+            log_dist("offload_optimizer at ZeRO stage 0 runs stage 1's "
+                     "partitioned layout")
+            self.zero_stage = 1
         if self.zero_stage > 0 or comm.is_initialized():
             comm.init_distributed(device=self.device)
             if self.device.type == "cuda" and \
@@ -198,6 +214,22 @@ class DeepSpeedEngine:
 
         self.optimizer: Optimizer = build_optimizer(config.optimizer.type,
                                                     config.optimizer.params)
+        self._host_opt = self._param_stream = None
+        if offload is not None:
+            from .zero.offload import HostOffloadOptimizer
+
+            self._host_opt = HostOffloadOptimizer(
+                config.optimizer.type, config.optimizer.params,
+                config.zero_optimization.offload_optimizer,
+                self.compute_dtype if self.mixed_precision else torch.float32,
+                self.device)
+        if offload == "param":
+            from .zero.infinity import LayerStreamTrainer
+
+            self._param_stream = LayerStreamTrainer(
+                model, config, self._host_opt,
+                self.compute_dtype if self.mixed_precision else torch.float32,
+                self.device, self.dp_group, self.dp_world_size)
         base_lr = config.optimizer.params.get("lr", getattr(self.optimizer, "lr", 1e-3))
         if config.scheduler is not None:
             self.lr_schedule: Schedule = build_scheduler(
@@ -231,11 +263,60 @@ class DeepSpeedEngine:
             f"global_bs={config.train_batch_size}")
 
     # ------------------------------------------------------------------
+    def _check_offload(self, config: Config, loss_fn) -> str | None:
+        """Validate ``offload_optimizer`` / ``offload_param`` with the JAX
+        engine's rules and messages: None, "optimizer" (ZeRO-Offload) or
+        "param" (ZeRO-Infinity's layer streaming)."""
+        z = config.zero_optimization
+        off, poff = z.offload_optimizer, z.offload_param
+        if off.device in ("cpu", "nvme"):
+            if config.fp16.enabled:
+                raise ValueError("offload_optimizer requires bf16/fp32 "
+                                 "(dynamic loss scaling is device-side)")
+        elif off.device != "none":
+            raise ValueError(f"offload_optimizer.device '{off.device}' "
+                             f"unsupported (none|cpu|nvme)")
+        if poff.device in ("cpu", "nvme"):
+            if off.device not in ("cpu", "nvme"):
+                raise ValueError(
+                    "offload_param requires offload_optimizer (cpu|nvme): "
+                    "streamed params update on the host master")
+            if off.ratio != 1.0:
+                raise ValueError(
+                    "offload_param requires offload_optimizer.ratio == 1.0 "
+                    "(a Twin-Flow device share would keep streamed params "
+                    "resident)")
+            if poff.device == "nvme" and off.device != "nvme":
+                raise ValueError("offload_param.device='nvme' requires "
+                                 "offload_optimizer.device='nvme' (shared "
+                                 "async-I/O engine)")
+            if loss_fn is not None:
+                raise ValueError(
+                    "offload_param drives the model layer-by-layer — pass "
+                    "model= (a TransformerLM) without a custom loss_fn")
+            bad = [a for a in ("tensor", "seq", "pipe", "expert")
+                   if getattr(config.mesh, a) not in (1, "auto", -1)]
+            if bad:
+                raise ValueError(f"offload_param streaming needs a pure DP "
+                                 f"mesh (fsdp x data); axes {bad} have "
+                                 f"size > 1")
+            return "param"
+        if poff.device != "none":
+            raise ValueError(f"offload_param.device '{poff.device}' "
+                             f"unsupported (none|cpu|nvme)")
+        return "optimizer" if off.device in ("cpu", "nvme") else None
+
     def _init_state(self, params: dict | None) -> None:
         """Master, parameters and optimizer state. At stage 0 the model's
         own fp32 values become the master (no copy) and its parameters are
         recast to the compute dtype in place; at stages 1-3 the values move
-        into the ZeRO buffers (``runtime/zero/partition.py``)."""
+        into the ZeRO buffers (``runtime/zero/partition.py``), their master
+        and moments onto the host under ZeRO-Offload. Under ZeRO-Infinity
+        nothing moves to the card: the host optimizer takes the master and
+        the layer streamer a compute-dtype cache."""
+        if self._param_stream is not None:
+            self._init_stream_state(params)
+            return
         model = self.module.to(self.device)
         self._names = [n for n, _ in model.named_parameters()]
         self._params = [p for _, p in model.named_parameters()]
@@ -266,7 +347,8 @@ class DeepSpeedEngine:
             self._zero = ZeroRuntime(
                 plan, self._params,
                 self.compute_dtype if self.mixed_precision else torch.float32,
-                self.optimizer, self.dp_group, self.device, modules)
+                self.optimizer, self.dp_group, self.device, modules,
+                host_opt=self._host_opt)
             self._master = None
             self.opt_state = None
             log_dist(plan.describe())
@@ -282,9 +364,45 @@ class DeepSpeedEngine:
             self.opt_state: OptState = self.optimizer.init(
                 [m.detach() for m in self._master])
 
+    def _init_stream_state(self, params: dict | None) -> None:
+        model = self.module
+        self._names = [n for n, _ in model.named_parameters()]
+        self._params = [p for _, p in model.named_parameters()]
+        with torch.no_grad():
+            for p in self._params:
+                p.data = p.data.float().cpu()
+            if params is not None:
+                from ..inference.weights import load_jax_params
+
+                load_jax_params(model, params)
+        self.scaler = None
+        self.global_step = 0
+        self._master = None
+        self.opt_state = None
+        masters = {n: p.data.reshape(-1) for n, p in zip(self._names,
+                                                          self._params)}
+        self._host_opt.init_leaves(masters)
+        self._param_stream.init_from_master(masters)
+
+    @contextlib.contextmanager
+    def _host_state(self, changed: bool = False):
+        """The host-resident state as whole tensors for the block (a
+        checkpoint, ``master``): see ``HostOffloadOptimizer.materialized``
+        and ``LayerStreamTrainer.materialized``; a no-op without offload."""
+        if self._param_stream is not None:
+            with self._param_stream.materialized(self, changed):
+                yield
+        elif self._host_opt is not None:
+            with self._host_opt.materialized(self._zero, changed):
+                yield
+        else:
+            yield
+
     @property
     def opt_step(self) -> int:
         """Applied optimizer updates."""
+        if self._host_opt is not None:
+            return self._host_opt.step_count
         return self._zero.step if self._zero is not None \
             else self.opt_state.step
 
@@ -470,6 +588,8 @@ class DeepSpeedEngine:
         res.check_preemption()
         self.tput_timer.start()
         self.timers(TRAIN_BATCH_TIMER).start()
+        if self._param_stream is not None:
+            return self._train_batch_streamed(batch)
         batch = res.arm_batch(batch, self.config.train_batch_size)
         gas = self.config.gradient_accumulation_steps
         with res.guard("train_step"), self._dp_scope():
@@ -496,6 +616,38 @@ class DeepSpeedEngine:
         res.observe_step(loss, finite)
         return loss
 
+    def _train_batch_streamed(self, batch: dict) -> torch.Tensor:
+        """ZeRO-Infinity's step: each micro-batch streamed forward and
+        backward through the layer walk, then the host step (the JAX
+        engine's ``_train_batch_streamed``). The sentinel observes the
+        loss only: the update has already run."""
+        res = self.resilience
+        gas = self.config.gradient_accumulation_steps
+        ps = self._param_stream
+        with res.guard("train_step"), self._dp_scope():
+            losses = [ps.micro_fwd_bwd(mb)
+                      for mb in self._split_for_gas(
+                          self._device_batch(batch))]
+            ps.apply_grads(gas, self.lr_schedule(self.opt_step),
+                           self.config.gradient_clipping or None)
+            loss = self._dp_mean(torch.stack(losses).mean())
+        self.global_step += 1
+        self.global_steps += 1
+        self.timers(TRAIN_BATCH_TIMER).stop(sync_val=loss)
+        self.tput_timer.stop(sync_val=loss)
+        if self.global_steps % self.config.steps_per_print == 0:
+            log_dist(f"step={self.global_steps} loss={float(loss):.4f}")
+        self._last_loss = loss
+        res.observe_step(loss, None)
+        return loss
+
+    def _no_stream(self) -> None:
+        if self._param_stream is not None:
+            raise NotImplementedError(
+                "offload_param streaming exposes train_batch/eval_batch "
+                "only; the imperative forward/backward/step triplet needs "
+                "device-resident params")
+
     @torch.no_grad()
     def eval_batch(self, batch: dict) -> torch.Tensor:
         """The loss of ``batch`` in eval mode (MoE layers route at
@@ -507,6 +659,9 @@ class DeepSpeedEngine:
         split = mine is not b
         with (self._dp_scope() if split
               else comm.data_parallel_scope(None, 1, 0)):
+            if self._param_stream is not None:
+                loss = self._param_stream.micro_forward(mine)[0].float()
+                return self._dp_mean(loss) if split else loss
             if self._zero is not None:
                 self._zero.begin_forward()
             loss = self._loss_fn(mine).detach().float()
@@ -520,6 +675,7 @@ class DeepSpeedEngine:
         rank keeps its own), with its autograd graph kept for the next
         :meth:`backward` (which may also be given a function of this
         loss)."""
+        self._no_stream()
         self.timers(FORWARD_GLOBAL_TIMER).start()
         with self._dp_scope():
             loss = self._train_loss(self._rows(self._device_batch(batch)))
@@ -532,6 +688,7 @@ class DeepSpeedEngine:
         """Accumulate the gradients of a micro-batch: of ``loss`` (the
         reference's ``backward(loss)``; by default the last forward's), or
         of a fresh forward over ``batch`` when one is given."""
+        self._no_stream()
         self.timers(BACKWARD_GLOBAL_TIMER).start()
         if isinstance(batch, torch.Tensor):
             loss, batch = batch, None
@@ -557,6 +714,7 @@ class DeepSpeedEngine:
         """Apply the accumulated gradients, scaled by one over their count
         (reference engine.step :2176); a no-op, with a warning, when
         backward has not run. The sentinel observes this path too."""
+        self._no_stream()
         if self._accum_grads is None:
             logger.warning("step() called with no accumulated gradients")
             return
@@ -598,7 +756,11 @@ class DeepSpeedEngine:
         themselves in fp32 training); at stages 1-3 gathered from every
         rank."""
         out: dict = {}
-        for name, m in zip(self._names, self._full_master()):
+        with self._host_state():
+            full = self._full_master()
+            if self._param_stream is not None:
+                full = [m.clone() for m in full]
+        for name, m in zip(self._names, full):
             node = out
             *path, leaf = name.split(".")
             for part in path:
@@ -625,6 +787,8 @@ class DeepSpeedEngine:
         """Drop the engine's state so its device memory can be freed."""
         if self._zero is not None:
             self._zero.close()
+        elif self._host_opt is not None:
+            self._host_opt.close()
         self._master = self._params = []
         self.opt_state = None
         self._accum_grads = self._pending = self._last_loss = None

@@ -7,7 +7,8 @@ collectives (NCCL on the card, gloo on the CPU), over the layout of
 :mod:`.planner`:
 
 - every rank keeps its partition of the fp32 master and of the optimizer's
-  moments, one flat tensor each;
+  moments, one flat tensor each (on the host under ZeRO-Offload:
+  ``host_opt``, ``runtime/zero/offload.py``);
 - each segment has one compute-dtype buffer; the parameters' ``.data`` are
   views into it. After an update each rank casts its master chunk and the
   buffer is all-gathered in place of the old values (stages 1-2, and the
@@ -74,13 +75,16 @@ class ZeroRuntime:
     def __init__(self, plan: ZeroPlan, params: list[torch.nn.Parameter],
                  dtype: torch.dtype, optimizer: Optimizer, group,
                  device: torch.device, modules: dict[int, torch.nn.Module]
-                 | None = None):
+                 | None = None, host_opt=None):
         self.plan, self.params, self.dtype = plan, params, dtype
         self.optimizer, self.group, self.device = optimizer, group, device
         self.world, self.rank = plan.world, plan.rank
         self.stage = plan.stage
+        self.host_opt = host_opt
         P = plan.partition_numel
-        self.master = torch.zeros(P, dtype=torch.float32, device=device)
+        self.master = torch.zeros(P, dtype=torch.float32,
+                                  device="cpu" if host_opt is not None
+                                  else device)
         self.grad = torch.zeros(P, dtype=torch.float32, device=device)
         self.full: list[torch.Tensor] = []
         self.local: list[torch.Tensor] = []
@@ -109,9 +113,17 @@ class ZeroRuntime:
         self.index_of = {id(p): i for i, p in enumerate(params)}
         for p in params:
             p._zero_owner = weakref.ref(self)
-        st = optimizer.init([self.master])
-        self.mu = st.mu[0] if st.mu is not None else None
-        self.nu = st.nu[0] if st.nu is not None else None
+        if host_opt is not None:
+            # ZeRO-Offload: the master and the moments stay on the host
+            # (runtime/zero/offload.py), NVMe-backed ones between steps
+            host_opt.attach(self, self.master)
+            flats = host_opt._flats
+            self.master = flats.get("master")
+            self.mu, self.nu = flats.get("mu"), flats.get("nu")
+        else:
+            st = optimizer.init([self.master])
+            self.mu = st.mu[0] if st.mu is not None else None
+            self.nu = st.nu[0] if st.nu is not None else None
         self.step = 0
         # stage 2-3: per-unit counts of accumulated gradients
         self._unit_params = [[i for s in segs for i in plan.segments[s].params
@@ -226,7 +238,8 @@ class ZeroRuntime:
             for start, ln, po in self.plan.pieces(i):
                 m = self.master[po:po + ln]
                 m.copy_(torch.where(changed[start:start + ln],
-                                    new[start:start + ln].float(), m))
+                                    new[start:start + ln].float(),
+                                    m.to(new.device)).to(m.device))
                 lo = po - seg.part_offset
                 self.local[s][lo:lo + ln].copy_(new[start:start + ln])
 
@@ -319,7 +332,15 @@ class ZeroRuntime:
 
     def update(self, lr: float) -> None:
         """The optimizer on this rank's partition, then the compute
-        parameters recast from it (gathered for persistent segments)."""
+        parameters recast from it (gathered for persistent segments). With
+        a host optimizer (ZeRO-Offload) the host walks the partition and
+        copies the new compute chunks in."""
+        if self.host_opt is not None:
+            self.host_opt.step(self, lr)
+            self.step = self.host_opt.step_count
+            if self.world > 1:
+                self.regather_persistent()
+            return
         opt = self.optimizer
         if opt.elementwise:
             view = lambda t: None if t is None else self._segments(t)
@@ -393,7 +414,8 @@ class ZeroRuntime:
             buf = torch.empty(seg.padded, dtype=flat.dtype,
                               device=self.device)
             _gather_into(buf, flat[seg.part_offset:seg.part_offset
-                                   + seg.chunk].contiguous(), self.group)
+                                   + seg.chunk].to(self.device).contiguous(),
+                         self.group)
             out.append(buf)
         return out
 
@@ -401,5 +423,7 @@ class ZeroRuntime:
         for h in self._handles:
             h.remove()
         self._handles = []
+        if self.host_opt is not None:
+            self.host_opt.close()
         self.full = self.local = []
         self.master = self.grad = self.mu = self.nu = None

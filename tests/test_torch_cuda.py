@@ -1600,3 +1600,83 @@ def test_cuda_zero3_backward_from_a_fresh_thread(dev):
     t.start()
     t.join()
     assert got["loss"] == want
+
+
+def _offload_cuda_engine(init, tile=None, delay=0, **zero):
+    e = _zero_cuda_engine(2, init, zero_optimization={
+        "stage": 2, "offload_optimizer": {"device": "cpu", **zero}})
+    ho = e._host_opt
+    if tile is not None:
+        ho.tile = tile
+    ho.delay_copies = delay
+    return e
+
+
+def test_cuda_offload_host_step_is_the_cpu_step(dev):
+    """ZeRO-Offload on the card (stage 2 over NCCL, bf16 with an fp32
+    master, TF32 off): the host step over the gradients the card copied
+    back gives the master the host library gives for the same gradients
+    from plain CPU tensors, bit for bit; the parameters on the card are the
+    new master cast to bf16; K4 ran forward and backward, nothing plain."""
+    from deepspeed_tpu_torch.ops import flash_attention as fa
+    from deepspeed_tpu_torch.ops.cpu_optimizer import (HostOptState,
+                                                       build_cpu_optimizer)
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    init, batch = _zero_case()
+    e = _offload_cuda_engine(init, tile=1 << 14)
+    ho, z = e._host_opt, e._zero
+    seen = {}
+    step = ho.step
+
+    def spy(zero, lr):
+        seen.update(grad=zero.grad.cpu(), lr=lr,
+                    **{k: v.clone() for k, v in ho._flats.items()})
+        step(zero, lr)
+
+    ho.step = spy
+    fa.counts.reset()
+    for _ in range(2):
+        assert torch.isfinite(e.train_batch(batch))
+    assert fa.counts.plain == fa.counts.plain_bwd == 0
+    assert fa.counts.fwd == 2 * 2 * 2 * 2 and fa.counts.bwd == 2 * 2 * 2
+    ref = build_cpu_optimizer("AdamW", {"lr": 1e-3, "weight_decay": 0.01})
+    st = HostOptState(master=seen["master"], mu=seen["mu"], nu=seen["nu"],
+                      numel=seen["master"].numel())
+    ref.step(st, seen["grad"], 2, lr=seen["lr"])
+    for k in ("master", "mu", "nu"):
+        assert torch.equal(ho._flats[k], getattr(st, k)), k
+    assert z.master.device.type == "cpu" and z.grad.is_cuda
+    for s, seg in enumerate(z.plan.segments):
+        want = z.master[seg.part_offset:seg.part_offset + seg.chunk]
+        assert torch.equal(z.local[s].cpu(), want.to(torch.bfloat16))
+    assert ho.last_step["tiles"] > len(z.plan.segments)
+
+
+def test_cuda_offload_copies_are_ordered_against_the_host_walk(dev):
+    """Both copy streams deliberately late (each sleeps ~1 ms of GPU
+    cycles before every copy, 16 K-element tiles, so the ring of pinned
+    buffers wraps many times): the host must wait for each copy's event
+    before it reads or refills a buffer. Losses and master bit for bit the
+    undelayed run's, and Twin-Flow's device share too."""
+    init, batch = _zero_case()
+    for extra in ({}, {"ratio": 0.5}):
+        runs = []
+        for delay in (0, 2_000_000):
+            e = _offload_cuda_engine(init, tile=1 << 14, delay=delay,
+                                     **extra)
+            losses = [float(e.train_batch(batch)) for _ in range(3)]
+            flat = {}
+            _flatten(e.master, "", flat)
+            runs.append((losses, flat))
+        assert runs[0][0] == runs[1][0]
+        assert all(torch.equal(runs[0][1][k], runs[1][1][k])
+                   for k in runs[0][1])
+
+
+def _flatten(tree, prefix, out):
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            _flatten(v, f"{prefix}{k}.", out)
+        else:
+            out[prefix + k] = v

@@ -182,12 +182,13 @@ def test_triplet_equals_train_batch():
         float(a.eval_batch(b)), rel=1e-6)
 
 
-@pytest.mark.parametrize("policy", ["full", "dots_saveable"])
+@pytest.mark.parametrize("policy", ["full", "dots_saveable", "offload"])
 def test_remat_keeps_losses_and_reruns_k4(policy):
     """At S = 128 with head dim 64 every attention takes the flash route
     (its plain version on the CPU): counted once per layer and micro-batch,
-    twice under remat, where the checkpointed forward runs again. Remat
-    changes no loss."""
+    twice under remat, where the checkpointed forward runs again (under
+    "offload" too: only the unbatched products come back from host
+    memory). Remat changes no loss."""
     over = dict(hidden_size=256)
     init = to_jax_tree(build_model("tiny-llama", device="cpu",
                                    dtype=torch.float32, **over))
@@ -265,8 +266,6 @@ def test_dataloader_matches_the_jax_loader():
 
 DEFERRED = [
     ({"mesh": {"tensor": 2}}, "'tensor': 2.*item 6"),
-    ({"zero_optimization": {"offload_optimizer": {"device": "cpu"}}},
-     "offload"),
     ({"zero_optimization": {"zero_quantized_weights": True}}, "ZeRO\\+\\+"),
     ({"optimizer": {"type": "OneBitAdam", "params": {}}}, "1-bit"),
     ({"data_efficiency": {"enabled": True}}, "curriculum"),
@@ -278,8 +277,6 @@ DEFERRED = [
     ({"zero_optimization": {"zero_hpz_partition_size": 2}}, "hpZ"),
     ({"mesh": {"pipe": 2}}, "'pipe': 2.*item 6"),
     ({"mesh": {"seq": 2}}, "'seq': 2.*item 6"),
-    ({"activation_checkpointing": {"policy": "offload"}}, "item 3"),
-    ({"activation_checkpointing": {"cpu_checkpointing": True}}, "item 3"),
 ]
 
 
@@ -343,7 +340,8 @@ def test_cross_entropy_matches_jax(chunk, z, monkeypatch):
 
 def test_megatron_style_checkpoint_surface():
     """``configure`` + ``checkpoint(fn, *args)`` recompute ``fn`` in the
-    backward with the same gradients; the offload policy raises."""
+    backward with the same gradients, the offload policy's too (its
+    products taken back from host memory)."""
     w = torch.randn(8, 8, dtype=torch.float64, requires_grad=True)
     x = torch.randn(4, 8, dtype=torch.float64)
     fn = lambda t: torch.tanh(t @ w) @ w
@@ -354,7 +352,14 @@ def test_megatron_style_checkpoint_surface():
         grads.append(w.grad.clone())
         w.grad = None
     torch.testing.assert_close(grads[0], grads[1])
-    ac.configure(policy="offload")
-    with pytest.raises(NotImplementedError, match="item 3"):
-        ac.checkpoint(fn, x)
+    from deepspeed_tpu_torch.ops import remat
+
+    for cfg in ({"policy": "offload"}, {"cpu_checkpointing": True}):
+        ac.configure(cfg)
+        before = dict(remat.offload_counts)
+        ac.checkpoint(fn, x).square().sum().backward()
+        assert remat.offload_counts["saved"] - before["saved"] == 2
+        assert remat.offload_counts["restored"] - before["restored"] >= 1
+        torch.testing.assert_close(w.grad, grads[0])
+        w.grad = None
     ac.configure({"policy": "none"})
