@@ -2,7 +2,7 @@
 
     python3 chip_smoke.py [--phases build,kernel,parity,serve,train-parity,
                            train,moe-train-parity,moe-train,zero,sparse,
-                           offload]
+                           offload,kvmove]
                           [--out DIR]
 
 Phases (every one raises on failure; nothing is caught and passed over):
@@ -336,6 +336,52 @@ Phases (every one raises on failure; nothing is caught and passed over):
    phase's, or one made here), losses within 1e-2 relative. K4's launches
    of every run are added to the record line.
 
+12. kvmove — KV movement and the live weight swap on the serve phase's
+   llama2-7b (full width, all 32 layers, bf16, seeded random weights;
+   block 64, max_seqs 8, chunk 256, ``max_inflight`` 8, decode graphs
+   captured), the 8 requests of 256-1024 tokens behind the 128-token
+   prefix. Work goes under ``kvmove.tmp/`` in the checkout (free disk
+   checked first, removed after). Each leg resets the kernel counts before
+   its main path and holds K1 to once per layer of every forward (chunk or
+   split kernel), nothing plain. (a) Migration: engine A prefills the 8 to
+   their first token and exports them; the bundles cross the wire form
+   (8 MB raw chunks with crc32, delivered in reverse order to a
+   ``BundleAssembler``); engine B, on A's weight tensors, imports them in
+   uid order and decodes 64 tokens. B's imported pages are A's bit for bit,
+   every stream is bit for bit the one engine R gives serving the same 8
+   without migrating (driven alike: the same dispatches to the first
+   tokens, the same decode plans), ``export_commit`` returns A's prefixes
+   and both tries then serve the prefix. Prints pages and GB moved, export
+   and import ms and GB/s and the time from the export's start to B's first
+   decode. (b) ``export_prefix`` from A and ``import_prefix`` into a fresh
+   engine: a request hits the whole pulled chain (pages bit for bit the
+   source's); prefix-hit tokens and TTFT beside a cold engine. Then a
+   3968-token prompt split at token 2048 through ``gang_prefill_segment``
+   on two engines: the 62 merged pages and the first token bit for bit one
+   engine's serving the whole prompt. (c) One engine with ``kv_tier`` (2 GiB
+   of RAM, an 8 GiB spill under ``kvmove.tmp/``) over a pool of ~1.15 x one
+   wave's reserved blocks: wave 1 (8 prompts, 64 new tokens), wave 1 again
+   (HBM prefix hits), wave 2 (8 other prompts behind another prefix,
+   evicting wave 1's chains into the tier), wave 1 a third time
+   (promoted; its promotes' own evictions demote wave 2's chains, which
+   push the ring's oldest records into the spill): promoted pages bit for
+   bit the demoted, its streams bit for bit the second wave's, some promote
+   reading from the spill, ``kv_tier_fallbacks`` 0. Prints pages demoted
+   and the demotions' seconds, RAM and NVMe residency, each promote with
+   its ms and GB/s from RAM and from NVMe (less the demotions it ran),
+   crc32's share of wave 2 and the promoted wave, ``measure_tier_rates``
+   and the ``min_pages`` it would size, and each wave's p50 TTFT. (d)
+   ``save_weights`` (13.5 GB), then ``swap_weights`` to that tag with the 8
+   sequences 16 tokens into a 64-token decode, graphs live: every stream
+   bit for bit an unswapped run's, graph replays rising with no recapture,
+   the tensors at their addresses; save, verify (crc32), quiesce and swap
+   seconds printed. The refusals — a torn tag (``integrity``), a 2-layer
+   tag (``shape_mismatch``), a missing tag (``no_checkpoint``), a tag with
+   a NaN leaf (``probe_failed``) — each leave the old weights serving the
+   same stream. Then at 2 layers a swap to a second seed's weights: new
+   requests equal a fresh engine's on them, the prefix cache flushed and
+   the tier's records dropped.
+
 The serving parity phase's dense oracles pass ``attn_impl="xla"``, so they
 stay independent of the kernels under test.
 
@@ -352,6 +398,7 @@ import gc
 import json
 import math
 import os
+import shutil
 import statistics
 import sys
 import time
@@ -364,7 +411,8 @@ PEAK_OPS = {torch.bfloat16: 989e12, torch.float32: 67e12,
             torch.float8_e4m3fn: 1979e12}
 
 ALL_PHASES = ("build", "kernel", "parity", "serve", "train-parity", "train",
-              "moe-train-parity", "moe-train", "zero", "sparse", "offload")
+              "moe-train-parity", "moe-train", "zero", "sparse", "offload",
+              "kvmove")
 
 #: spread of the K1 cases' q against unit-normal K/V (see k1_case)
 Q_SD = 3.0
@@ -5257,6 +5305,735 @@ def phase_offload(dev, train: dict | None = None) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# phase 12: kvmove — KV movement and the live weight swap at full depth
+# ---------------------------------------------------------------------------
+
+#: the serve phase's model, from the same seed, at full depth
+KVMOVE = dict(name="llama2-7b", layers=None, seed=1, new=64)
+#: the tier run: new tokens a request of its waves generates, the RAM
+#: ring's and the NVMe spill's budgets
+KVMOVE_TIER = dict(new=64, ram=2 << 30, nvme=8 << 30)
+KVMOVE_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                          "kvmove.tmp")
+#: free disk the phase needs under the checkout: the 13.5 GB swap tag, two
+#: 2-layer tags of ~1.3 GB, the tier's 8 GB spill budget, and margin
+KVMOVE_DISK = 30e9
+
+
+def kv_engine(model, dev, **over):
+    """An engine over ``model``'s own weights (engines on one model share
+    them, no copy) with the serve phase's settings, every decode program
+    captured."""
+    from deepspeed_tpu_torch.inference import InferenceEngineV2
+
+    cfg = dict(block_size=64, num_blocks=256, max_seqs=8, chunk=256,
+               max_seq_len=2048, decode_window=8, dtype=torch.bfloat16,
+               device=dev)
+    cfg.update(over)
+    eng = InferenceEngineV2(model, config=cfg)
+    eng.warm_decode_windows()
+    eng.warm_decode_step()
+    return eng
+
+
+def kv_prompts(vocab: int, seed: int, lens=TRAFFIC["shared-prefix"][0],
+               sys_len: int = TRAFFIC["shared-prefix"][1],
+               system_seed: int = 1) -> list:
+    """8 prompts of ``lens`` tokens behind a 128-token system prefix (the
+    serve phase's from ``system_seed`` 1), their bodies drawn from
+    ``seed``."""
+    g = torch.Generator().manual_seed(system_seed)
+    system = torch.randint(0, vocab, (sys_len,), generator=g).tolist()
+    g = torch.Generator().manual_seed(seed)
+    return [system + torch.randint(0, vocab, (n - sys_len,),
+                                   generator=g).tolist() for n in lens]
+
+
+def zero_stats(*engines) -> None:
+    for eng in engines:
+        for k in list(eng.stats):
+            eng.stats[k] = 0 if not isinstance(eng.stats[k], float) else 0.0
+
+
+def first_tokens(eng, uids) -> None:
+    """Step until every uid has its first token scheduled. The stop reads
+    the scheduled view, so the dispatches made do not depend on when
+    readbacks land: two engines driven alike dispatch alike."""
+    while any(eng.state.seqs[u].n_generated + eng.state.seqs[u].n_inflight
+              < 1 for u in uids):
+        eng.step()
+
+
+def run_done(eng, uids, t0: float | None = None) -> tuple[dict, dict]:
+    """Step until every uid is done, then flush: ``({uid: stream}, {uid:
+    seconds from t0 to its first emitted token})``."""
+    first: dict = {}
+    while any(not eng.query(u).get("done", True) for u in uids):
+        emitted = eng.step()
+        if t0 is not None:
+            now = time.perf_counter() - t0
+            for u, toks in emitted.items():
+                if toks and u not in first:
+                    first[u] = now
+    return {u: eng.flush(u) for u in uids}, first
+
+
+def serve_wave(eng, prompts, new: int, uid0: int = 0) -> tuple[dict, float]:
+    """Put every prompt and run them to the end: ``(streams by uid, p50
+    TTFT)``."""
+    uids = [uid0 + i for i in range(len(prompts))]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for u, p in zip(uids, prompts):
+        eng.put(u, p, max_new_tokens=new)
+    streams, first = run_done(eng, uids, t0)
+    return streams, statistics.median(first.values())
+
+
+def pool_pages(eng, blocks) -> torch.Tensor:
+    """Whole pool pages as bytes, ``[L, 2, KV, n, block_size, D x
+    itemsize]`` (a copy)."""
+    idx = torch.as_tensor(list(blocks), device=eng.device)
+    return eng.kv_pool.view(torch.uint8).index_select(3, idx)
+
+
+def wire(bundle):
+    """The bundle through the wire form: raw chunks of 8 MB (crc32 each),
+    delivered in reverse order to a ``BundleAssembler`` on the bundle's
+    meta as JSON."""
+    from deepspeed_tpu_torch.inference.migration import (BundleAssembler,
+                                                         iter_chunks)
+
+    chunks = iter_chunks(bundle, max_bytes=8 << 20, encode=False)
+    asm = BundleAssembler(json.loads(json.dumps(bundle.meta())))
+    for c in reversed(chunks):
+        asm.add_raw(c, c["raw"])
+    asm.eof(len(chunks))
+    return asm.assemble()
+
+
+def kv_launches(tag, cfg, engines) -> dict:
+    """The kernels' launches since the last reset, held to K1 once per
+    layer of every forward of ``engines`` (chunk or split kernel, bf16),
+    nothing plain, no other kernel."""
+    got = all_counts()
+    forwards = sum(forwards_of(e) for e in engines)
+    check_launches(tag, got, cfg, forwards=forwards, e4m3_pool=False,
+                   quant=False, bf16=True)
+    return {"k1": got["k1"], "k1_chunk": got["k1_chunk"],
+            "k1_split": got["k1_split"], "forwards": forwards}
+
+
+def kv_migration(dev, model, prompts, new) -> dict:
+    """(a) Engine A prefills the 8 requests to their first token and
+    exports them; the bundles cross the wire; engine B imports them in uid
+    order and decodes. R serves the same 8 without migrating, driven alike
+    (the same dispatches to the first tokens, then the same decode plans
+    from committed state)."""
+    tag = "kvmove (a)"
+    cfg = model.config
+    uids = list(range(len(prompts)))
+    R, A, B = (kv_engine(model, dev) for _ in range(3))
+    for u, p in enumerate(prompts):
+        R.put(u, p, max_new_tokens=new)
+    first_tokens(R, uids)
+    R._drain(drain_all=True)            # decode from committed state, as B
+    ref, _ = run_done(R, uids)
+    del R
+    free_cuda()
+    zero_stats(A, B)
+    replays0 = graph_replays(B)
+    reset_counts()
+    for u, p in enumerate(prompts):
+        A.put(u, p, max_new_tokens=new)
+    first_tokens(A, uids)
+    torch.cuda.synchronize()
+    t_exp = time.perf_counter()
+    bundles = [A.export_migration(u, trace_id=f"kvmove-{u}") for u in uids]
+    export_s = time.perf_counter() - t_exp
+    t0 = time.perf_counter()
+    wired = [wire(b) for b in bundles]
+    wire_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    for u, b in zip(uids, wired):
+        if not B.can_import(len(b.tokens), b.max_new_tokens - b.n_generated):
+            raise AssertionError(f"[{tag}] B cannot import uid {u}")
+        B.import_reserve(u, b.meta())
+        B.import_complete(u, b)
+    torch.cuda.synchronize()
+    import_s = time.perf_counter() - t0
+    B.step()
+    torch.cuda.synchronize()
+    to_decode_s = time.perf_counter() - t_exp
+    # B's imported pages are the exported bytes, bit for bit
+    for u, b in zip(uids, bundles):
+        a_blocks, b_blocks = A.state.seqs[u].blocks, B.state.seqs[u].blocks
+        n = b.n_full
+        if n and not torch.equal(pool_pages(A, a_blocks[:n]),
+                                 pool_pages(B, b_blocks[:n])):
+            raise AssertionError(f"[{tag}] uid {u}: imported pages differ")
+        if b.tail_rows and not torch.equal(
+                pool_pages(A, [a_blocks[n]])[:, :, :, :, :b.tail_rows],
+                pool_pages(B, [b_blocks[n]])[:, :, :, :, :b.tail_rows]):
+            raise AssertionError(f"[{tag}] uid {u}: imported tail differs")
+    got, _ = run_done(B, uids)
+    torch.cuda.synchronize()
+    launches = kv_launches(tag, cfg, (A, B))
+    replays = check_replays(tag + " B", B, replays0, {})
+    for u in uids:
+        if got[u] != ref[u] or len(got[u]) != new:
+            raise AssertionError(f"[{tag}] uid {u}: the migrated stream "
+                                 f"differs from the unmigrated one")
+        prefix = A.export_commit(u)
+        if prefix != ref[u][:len(prefix)] or not prefix:
+            raise AssertionError(f"[{tag}] uid {u}: export_commit gave "
+                                 f"{len(prefix)} tokens")
+    A.state.audit()
+    B.state.audit()
+    # both tries serve the prefix: the 1024-token prompt's 16 pages
+    hits = []
+    for eng in (A, B):
+        eng.put(99, prompts[6] + [1], max_new_tokens=1)
+        hits.append(eng.state.seqs[99].prefix_hit_tokens)
+        eng.flush(99)
+        eng.state.audit()
+    if min(hits) < len(prompts[6]):
+        raise AssertionError(f"[{tag}] prefix hits {hits} after the handoff")
+    pages = sum(b.n_full for b in bundles)
+    moved = sum(b.payload_bytes for b in bundles)
+    rec = {"pages": pages, "tails": sum(bool(b.tail_rows) for b in bundles),
+           "bytes": moved, "export_s": export_s, "wire_s": wire_s,
+           "import_s": import_s, "export_GBps": moved / export_s / 1e9,
+           "import_GBps": moved / import_s / 1e9,
+           "export_to_first_decode_s": to_decode_s,
+           "generated_on_A": [b.n_generated for b in bundles],
+           "prefix_hits_after": hits, "launches": launches,
+           "replays_B": replays}
+    log(f"[{tag}] {len(uids)} sequences exported after their first tokens "
+        f"({rec['generated_on_A']} generated on A): {pages} pages + "
+        f"{rec['tails']} tails, {moved / 1e9:.3f} GB; export "
+        f"{1e3 * export_s:.1f} ms ({rec['export_GBps']:.2f} GB/s), wire "
+        f"(8 MB raw chunks, crc32, reverse order) {1e3 * wire_s:.1f} ms, "
+        f"import {1e3 * import_s:.1f} ms ({rec['import_GBps']:.2f} GB/s); "
+        f"export start to B's first decode {to_decode_s:.3f} s; imported "
+        f"pages bit for bit, {new}-token streams bit for bit the unmigrated "
+        f"engine's; prefix hits after {hits}; K1 {launches}")
+    del A, B
+    free_cuda()
+    return rec
+
+
+def kv_pull_and_gang(dev, model, prompts) -> dict:
+    """(b) A pulled prefix chain against a cold engine, then a 3968-token
+    prompt prefilled as two gang segments against one engine."""
+    tag = "kvmove (b)"
+    cfg = model.config
+    A = kv_engine(model, dev)
+    P = prompts[6] + [1]                     # 16 full pages + one token
+    A.put(0, P, max_new_tokens=1)            # publishes P's pages
+    run_done(A, [0])
+    cold = kv_engine(model, dev)
+    zero_stats(cold)
+    reset_counts()
+    cold_streams, cold_ttft = serve_wave(cold, [P], 16)
+    cold_launches = kv_launches(tag + " cold", cfg, (cold,))
+    del cold
+    free_cuda()
+    warm = kv_engine(model, dev)
+    zero_stats(warm)
+    reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    bundle = A.export_prefix(P, trace_id="kvmove-pull")
+    export_s = time.perf_counter() - t0
+    got = wire(bundle)
+    t0 = time.perf_counter()
+    pages = warm.import_prefix(got)
+    torch.cuda.synchronize()
+    import_s = time.perf_counter() - t0
+    warm_streams, warm_ttft = serve_wave(warm, [P], 16, uid0=5)
+    hit = warm.stats["prefix_hit_tokens"]
+    if pages != len(P) // 64 or hit != pages * 64:
+        raise AssertionError(f"[{tag}] pulled {pages} pages, hit {hit}")
+    launches = kv_launches(tag + " pull", cfg, (warm,))
+    snap = warm.state.snapshot_prefix(P)
+    src = A.state.snapshot_prefix(P)
+    same = torch.equal(pool_pages(warm, snap["blocks"]),
+                       pool_pages(A, src["blocks"]))
+    warm.state.release_prefix(snap["handle"])
+    A.state.release_prefix(src["handle"])
+    if not same:
+        raise AssertionError(f"[{tag}] pulled pages differ from the source")
+    for s in (cold_streams, warm_streams):
+        for toks in s.values():
+            if len(toks) != 16 or not all(0 <= t < cfg.vocab_size
+                                          for t in toks):
+                raise AssertionError(f"[{tag}] stream {toks}")
+    del A, warm
+    free_cuda()
+    pull = {"pages": pages, "bytes": bundle.payload_bytes,
+            "export_s": export_s, "import_s": import_s,
+            "prefix_hit_tokens": hit, "ttft_pulled_s": warm_ttft,
+            "ttft_cold_s": cold_ttft,
+            "streams_equal_cold": warm_streams[5] == cold_streams[0],
+            "launches": launches, "launches_cold": cold_launches}
+    log(f"[{tag}] pull: {pages} pages ({bundle.payload_bytes / 1e9:.3f} GB) "
+        f"exported in {1e3 * export_s:.1f} ms, imported in "
+        f"{1e3 * import_s:.1f} ms, bit for bit; a request of {len(P)} tokens "
+        f"hits {hit} tokens: TTFT {warm_ttft:.3f} s pulled vs "
+        f"{cold_ttft:.3f} s cold (streams "
+        f"{'equal' if pull['streams_equal_cold'] else 'differ in bf16'}); "
+        f"K1 {launches}")
+
+    # gang prefill: segment 0 (2048 tokens, a multiple of the chunk) on
+    # G1, the rest on G2 over G1's pages; S serves the whole prompt
+    g = torch.Generator().manual_seed(7)
+    prompt = prompts[0][:128] + torch.randint(
+        0, cfg.vocab_size, (3968 - 128,), generator=g).tolist()
+    over = dict(max_seq_len=4096, num_blocks=128)
+    S, G1, G2 = (kv_engine(model, dev, **over) for _ in range(3))
+    n_pages = len(prompt) // 64
+
+    def prefill_one(eng, uid):
+        while not eng.query(uid)["done"]:
+            eng.step()
+        eng._drain(drain_all=True)
+        pages = pool_pages(eng, eng.state.seqs[uid].blocks[:n_pages])
+        return eng.flush(uid), pages
+
+    S.put(0, prompt, max_new_tokens=1)
+    s_tok, s_pages = prefill_one(S, 0)
+    del S
+    free_cuda()
+    zero_stats(G1, G2)
+    reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    if G1.gang_prefill_segment(0, prompt[:2048], max_new_tokens=1) != 0:
+        raise AssertionError(f"[{tag}] member 0 adopted pages")
+    prefill_one(G1, 0)
+    hop = wire(G1.export_prefix(prompt[:2048], trace_id="kvmove-gang"))
+    adopted = G2.gang_prefill_segment(0, prompt, prefix_bundle=hop,
+                                      max_new_tokens=1)
+    hit = G2.state.seqs[0].prefix_hit_tokens
+    g_tok, g_pages = prefill_one(G2, 0)
+    torch.cuda.synchronize()
+    gang_s = time.perf_counter() - t0
+    launches = kv_launches(tag + " gang", cfg, (G1, G2))
+    if adopted != 32 or hit != 2048 or g_tok != s_tok or \
+            not torch.equal(g_pages, s_pages):
+        raise AssertionError(f"[{tag}] gang: adopted {adopted}, hit {hit}, "
+                             f"token {g_tok} vs {s_tok}, pages equal "
+                             f"{torch.equal(g_pages, s_pages)}")
+    del G1, G2, s_pages, g_pages
+    free_cuda()
+    gang = {"prompt": len(prompt), "split": 2048, "adopted_pages": adopted,
+            "merged_pages": n_pages, "first_token": g_tok, "seconds": gang_s,
+            "hop_bytes": hop.payload_bytes, "launches": launches}
+    log(f"[{tag}] gang: a {len(prompt)}-token prompt split at 2048 over two "
+        f"engines ({adopted} pages hopped, {hop.payload_bytes / 1e9:.3f} GB) "
+        f"in {gang_s:.2f} s: {n_pages} merged pages and the first token "
+        f"{g_tok} bit for bit one engine's; K1 {launches}")
+    return {"pull": pull, "gang": gang}
+
+
+class _TimedZlib:
+    """kvtier's ``zlib`` with ``crc32`` timed (its share of the tier's
+    admission work)."""
+
+    def __init__(self, real):
+        self.real, self.seconds, self.bytes = real, 0.0, 0
+
+    def crc32(self, data, *a):
+        t0 = time.perf_counter()
+        out = self.real.crc32(data, *a)
+        self.seconds += time.perf_counter() - t0
+        self.bytes += len(data)
+        return out
+
+
+def kv_tier(dev, model, prompts, others) -> dict:
+    """(c) One engine with the KV tier under a pool of ~1.15 waves: wave 1
+    computed, wave 1 again from HBM prefix hits, wave 2 evicting wave 1's
+    chains into RAM and NVMe, wave 1 a third time promoted."""
+    from deepspeed_tpu_torch.inference import kvtier as kt
+
+    tag = "kvmove (c)"
+    cfg = model.config
+    new = KVMOVE_TIER["new"]
+    wave_blocks = sum(-(-(len(p) + new) // 64) for p in prompts)
+    blocks = math.ceil(1.15 * wave_blocks) + 1
+    nvme = os.path.join(KVMOVE_DIR, "nvme")
+    rates = kt.measure_tier_rates(nvme_dir=nvme)
+    page_bytes = 2 * cfg.num_layers * cfg.kv_heads * 64 * cfg.head_dim * 2
+    auto = {"ram": kt.auto_min_pages(rates, page_bytes=page_bytes,
+                                     block_size=64),
+            "nvme": kt.auto_min_pages(rates, page_bytes=page_bytes,
+                                      block_size=64, nvme=True)}
+    T = kv_engine(model, dev, num_blocks=blocks, kv_tier=True,
+                  kv_tier_ram_bytes=KVMOVE_TIER["ram"],
+                  kv_tier_nvme_dir=nvme,
+                  kv_tier_nvme_bytes=KVMOVE_TIER["nvme"],
+                  kv_tier_min_pages=1)
+    zero_stats(T)
+    w1, ttft1 = serve_wave(T, prompts, new)
+    w1b, ttft1b = serve_wave(T, prompts, new, uid0=10)
+    hits1b = T.stats["prefix_hit_tokens"]
+    # wave 1's prompt chains as they sit in HBM, kept on the card
+    kept = []
+    for p in prompts:
+        snap = T.state.snapshot_prefix(p[:len(p) - 1])
+        kept.append(pool_pages(T, snap["blocks"]))
+        T.state.release_prefix(snap["handle"])
+    timed = _TimedZlib(kt.zlib)
+    kt.zlib = timed
+    # demotions timed where they run: inside the evictions that admissions
+    # and promotes make (the eviction sink, with the gathers it waits on)
+    demotes = {"s": 0.0, "pages": 0}
+    sink = T._prefix_cache.evict_sink
+
+    def timed_sink(chains):
+        p0 = T.stats["kv_tier_demoted_pages"]
+        t = time.perf_counter()
+        try:
+            sink(chains)
+        finally:
+            demotes["s"] += time.perf_counter() - t
+            demotes["pages"] += T.stats["kv_tier_demoted_pages"] - p0
+
+    T._prefix_cache.evict_sink = timed_sink
+    try:
+        t0 = time.perf_counter()
+        w2, ttft2 = serve_wave(T, others, new, uid0=20)
+        wave2_s = time.perf_counter() - t0
+        wave2_demote = dict(demotes)
+        after2 = T.kv_tier_stats()
+        if after2["demoted_pages"] == 0:
+            raise AssertionError(f"[{tag}] wave 2 demoted {after2}")
+        zero_stats(T)
+        reset_counts()
+        # a promote's pages read from the spill (the rest come from RAM)
+        spill = T._kv_tier.spill
+        reads: list = []
+        spill_read = spill.read
+        spill.read = lambda h: reads.append(h) or spill_read(h)
+        promotes = []
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for u, p in enumerate(prompts):
+            r0, d0 = len(reads), dict(demotes)
+            t1 = time.perf_counter()
+            n = T._tier_promote(p)
+            torch.cuda.synchronize()
+            promotes.append({"pages": n, "s": time.perf_counter() - t1,
+                             "from_nvme": len(reads) - r0,
+                             "demote_s": demotes["s"] - d0["s"],
+                             "demoted": demotes["pages"] - d0["pages"]})
+            T.put(30 + u, p, max_new_tokens=new)
+        for u, p in enumerate(prompts):
+            seq = T.state.seqs[30 + u]
+            d = min(seq.n_shared_blocks, kept[u].shape[3])
+            if d < kept[u].shape[3] or not torch.equal(
+                    pool_pages(T, seq.blocks[:d]), kept[u][:, :, :, :d]):
+                raise AssertionError(f"[{tag}] uid {30 + u}: promoted pages "
+                                     f"differ from the demoted ({d} of "
+                                     f"{kept[u].shape[3]})")
+        w1c, first = run_done(T, [30 + u for u in range(len(prompts))], t0)
+        ttft1c = statistics.median(first.values())
+        tier_s = time.perf_counter() - t0 + wave2_s
+    finally:
+        kt.zlib = timed.real
+        T._prefix_cache.evict_sink = sink
+        del T._kv_tier.spill.read
+    del kept
+    launches = kv_launches(tag, cfg, (T,))
+    st = T.kv_tier_stats()
+    hits1c = T.stats["prefix_hit_tokens"]
+    for u in range(len(prompts)):
+        if w1c[30 + u] != w1b[10 + u]:
+            raise AssertionError(f"[{tag}] uid {u}: the promoted wave's "
+                                 f"stream differs from the HBM-hit wave's")
+    if T.stats["kv_tier_fallbacks"] or hits1c != hits1b or \
+            T.stats["kv_tier_promotes"] != sum(1 for p in promotes
+                                               if p["pages"]) or \
+            not any(p["from_nvme"] for p in promotes):
+        raise AssertionError(f"[{tag}] fallbacks "
+                             f"{T.stats['kv_tier_fallbacks']}, hits "
+                             f"{hits1c} vs {hits1b}, {promotes}")
+    T.state.audit()
+
+    def rate(rows):
+        """Promotes' pages over their time less the demotions their own
+        evictions ran (reported apart)."""
+        pages = sum(r["pages"] for r in rows)
+        secs = sum(r["s"] - r["demote_s"] for r in rows)
+        return {"promotes": len(rows), "pages": pages,
+                "pages_read_from_nvme": sum(r["from_nvme"] for r in rows),
+                "ms": 1e3 * secs,
+                "demoted_meanwhile": sum(r["demoted"] for r in rows),
+                "demote_ms": 1e3 * sum(r["demote_s"] for r in rows),
+                "GBps": pages * page_bytes / secs / 1e9 if secs else None}
+
+    rec = {"pool_blocks": blocks, "wave_blocks": wave_blocks,
+           "after_wave2": after2, "stats": st, "promotes": promotes,
+           "from_ram": rate([p for p in promotes if p["pages"]
+                             and not p["from_nvme"]]),
+           # a promote that read any page from the spill counts here
+           "from_nvme": rate([p for p in promotes if p["from_nvme"]]),
+           "wave2_demote": wave2_demote,
+           "wave2_demote_GBps": wave2_demote["pages"] * page_bytes
+           / wave2_demote["s"] / 1e9 if wave2_demote["s"] else None,
+           "crc_s": timed.seconds, "crc_bytes": timed.bytes,
+           "crc_share": timed.seconds / tier_s, "rates": rates,
+           "auto_min_pages": auto, "ttft_s": {"wave1": ttft1,
+                                              "wave1_again": ttft1b,
+                                              "wave2": ttft2,
+                                              "wave1_promoted": ttft1c},
+           "prefix_hit_tokens": hits1c, "launches": launches,
+           "streams_equal_cold": all(w1c[30 + u] == w1[u]
+                                     for u in range(len(prompts)))}
+    log(f"[{tag}] pool {blocks} blocks ({wave_blocks} a wave); wave 2 "
+        f"demoted {after2['demoted_pages']} pages in "
+        f"{wave2_demote['s']:.3f} s of its admissions "
+        f"({rec['wave2_demote_GBps'] or 0:.2f} GB/s): RAM "
+        f"{after2['ram_pages']} pages ({after2['ram_bytes'] / 1e9:.2f} GB), "
+        f"NVMe {after2['nvme_pages']} ({after2['nvme_bytes'] / 1e9:.2f} "
+        f"GB); wave 1 promoted in {len(promotes)} promotes: from RAM "
+        f"{rec['from_ram']}, from NVMe {rec['from_nvme']}; crc32 "
+        f"{timed.seconds:.3f} s over {timed.bytes / 1e9:.2f} GB, "
+        f"{100 * rec['crc_share']:.1f}% of wave 2 + the promoted wave; "
+        f"measure_tier_rates {rates}, auto min_pages {auto}; p50 TTFT wave "
+        f"1 {ttft1:.3f} s, again {ttft1b:.3f} s, wave 2 {ttft2:.3f} s, "
+        f"promoted {ttft1c:.3f} s; promoted streams bit for bit the HBM-hit "
+        f"wave's, fallbacks 0; K1 {launches}")
+    T._kv_tier.close()
+    del T
+    free_cuda()
+    shutil.rmtree(nvme, ignore_errors=True)
+    return rec
+
+
+def nan_tag(root: str, src: str, dst: str, leaf: str) -> None:
+    """A verified tag equal to ``src`` but for ``leaf``, whose first value
+    is NaN: the state files are hard links to ``src``'s, the manifest is
+    ``src``'s with that one entry's size and crc32 made anew."""
+    import numpy as np
+
+    from deepspeed_tpu_torch.checkpoint.manifest import file_crc32
+
+    s, d = os.path.join(root, src), os.path.join(root, dst)
+    os.makedirs(os.path.join(d, "state"))
+    for f in os.listdir(os.path.join(s, "state")):
+        os.link(os.path.join(s, "state", f), os.path.join(d, "state", f))
+    shutil.copy(os.path.join(s, "meta.json"), os.path.join(d, "meta.json"))
+    f = os.path.join(d, "state", leaf + ".npy")
+    a = np.load(f)
+    os.remove(f)                          # the link, not src's file
+    flat = a.reshape(-1)
+    flat[0] = 0x7FC0 if a.dtype == np.uint16 else np.nan   # bf16 NaN bits
+    np.save(f, a)
+    with open(os.path.join(s, "manifest.json")) as fh:
+        man = json.load(fh)
+    rel = os.path.join("state", leaf + ".npy")
+    man["tag"] = dst
+    man["entries"][rel] = {"size": os.path.getsize(f), "crc32": file_crc32(f)}
+    with open(os.path.join(d, "manifest.json"), "w") as fh:
+        json.dump(man, fh, indent=2)
+
+
+def kv_swap(dev, model, prompts, new) -> dict:
+    """(d) ``save_weights`` at full depth, ``swap_weights`` to it with the
+    8 sequences mid-decode and graphs live, the four refusals; then, at 2
+    layers, a swap to a second seed's weights."""
+    from deepspeed_tpu_torch.checkpoint.manifest import tag_status
+    from deepspeed_tpu_torch.inference.engine_v2 import WeightSwapError
+    from deepspeed_tpu_torch.inference.weights import tree_tensors
+    from deepspeed_tpu_torch.models import build_model
+
+    tag = "kvmove (d)"
+    cfg = model.config
+    root = os.path.join(KVMOVE_DIR, "weights")
+    W = kv_engine(model, dev)
+    uids = list(range(len(prompts)))
+    W.state.flush_prefix_cache()
+    ref, _ = serve_wave(W, prompts, new)
+    W.state.flush_prefix_cache()
+    ref1, _ = serve_wave(W, prompts[7:], 16, uid0=50)
+    t0 = time.perf_counter()
+    path = W.save_weights(root, tag="full")
+    save_s = time.perf_counter() - t0
+    on_disk = sum(os.path.getsize(os.path.join(dp, f))
+                  for dp, _, fs in os.walk(path) for f in fs)
+    t0 = time.perf_counter()
+    status = tag_status(path)
+    verify_s = time.perf_counter() - t0
+    if status[0] != "verified":
+        raise AssertionError(f"[{tag}] tag {status}")
+    # mid-decode: the 8 driven as for the reference, swapped at 16 tokens
+    W.state.flush_prefix_cache()
+    zero_stats(W)
+    reset_counts()
+    for u, p in enumerate(prompts):
+        W.put(100 + u, p, max_new_tokens=new)
+    while any(s.n_generated + s.n_inflight < 16
+              for s in W.state.seqs.values()):
+        W.step()
+    progs0 = captured(W)
+    replays0 = graph_replays(W)
+    ptrs0 = [t.data_ptr() for t in tree_tensors(W.params)]
+    inflight = len(W._inflight)
+    info = W.swap_weights(root, "full")
+    got, _ = run_done(W, [100 + u for u in uids])
+    replays = {k: n - replays0.get(k, 0) for k, n in graph_replays(W).items()
+               if n != replays0.get(k, 0)}
+    if captured(W) != progs0 or not any("win" in k for k in replays) or \
+            [t.data_ptr() for t in tree_tensors(W.params)] != ptrs0:
+        raise AssertionError(f"[{tag}] after the swap: programs "
+                             f"{sorted(captured(W) - progs0)} new, replays "
+                             f"{replays}")
+    for u in uids:
+        if got[100 + u] != ref[u]:
+            raise AssertionError(f"[{tag}] uid {u}: the swapped stream "
+                                 f"differs from the unswapped one")
+    launches = kv_launches(tag, cfg, (W,))
+    log(f"[{tag}] save_weights {on_disk / 1e9:.2f} GB in {save_s:.1f} s, "
+        f"verify (crc32) {verify_s:.1f} s; swap with {inflight} dispatches "
+        f"in flight: quiesce {info['quiesce_s']:.3f} s, swap (load + probe "
+        f"+ copy) {info['swap_s']:.2f} s; the 8 streams bit for bit the "
+        f"unswapped run's, replays since {replays}, no recapture")
+    # refusals, each leaving the old weights serving
+    small = build_model(KVMOVE["name"], dtype=torch.bfloat16, device=dev,
+                        seed=KVMOVE["seed"], num_layers=2)
+    S2 = kv_engine(small, dev, num_blocks=16)
+    S2.save_weights(root, tag="shallow")
+    S2.save_weights(root, tag="torn")
+    del S2
+    torn = os.path.join(root, "torn", "state", "embed.npy")
+    with open(torn, "r+b") as f:
+        f.truncate(os.path.getsize(torn) - 64)
+    nan_tag(root, "full", "nan", "ln_final.scale")
+    refusals = {}
+    wv = W.weight_version()
+    for bad, reason in (("torn", "integrity"), ("shallow", "shape_mismatch"),
+                        ("absent", "no_checkpoint"),
+                        ("nan", "probe_failed")):
+        t0 = time.perf_counter()
+        try:
+            W.swap_weights(root, bad)
+        except WeightSwapError as e:
+            if e.reason != reason:
+                raise AssertionError(f"[{tag}] {bad}: {e.reason} != "
+                                     f"{reason}")
+        else:
+            raise AssertionError(f"[{tag}] {bad}: the swap went through")
+        secs = time.perf_counter() - t0
+        W.state.flush_prefix_cache()
+        again, _ = serve_wave(W, prompts[7:], 16, uid0=60)
+        if again[60] != ref1[50] or W.weight_version() != wv or \
+                [t.data_ptr() for t in tree_tensors(W.params)] != ptrs0:
+            raise AssertionError(f"[{tag}] {bad}: the old weights no longer "
+                                 f"serve")
+        refusals[bad] = {"reason": reason, "s": secs}
+    log(f"[{tag}] refusals {refusals}: each left the old weights serving "
+        f"(same tensors, same stream)")
+    del W
+    free_cuda()
+    shutil.rmtree(os.path.join(root, "nan"), ignore_errors=True)
+    # 2 layers: a swap to a second seed's weights
+    over = dict(num_blocks=96, kv_tier=True,
+                kv_tier_ram_bytes=KVMOVE_TIER["ram"], kv_tier_min_pages=1)
+    X = kv_engine(small, dev, **over)
+    Y = kv_engine(build_model(KVMOVE["name"], dtype=torch.bfloat16,
+                              device=dev, seed=KVMOVE["seed"] + 1,
+                              num_layers=2), dev, **over)
+    Y.save_weights(root, tag="seed2")
+    serve_wave(X, prompts, 16)
+    X.state.allocator.free(X.state._alloc(X.state.allocator.free_blocks
+                                          + 16))
+    before = (X.prefix_cache_stats()["cached_pages"],
+              X.kv_tier_stats()["ram_pages"])
+    info2 = X.swap_weights(root, "seed2")
+    after = (X.prefix_cache_stats()["cached_pages"],
+             X.kv_tier_stats()["ram_pages"] + X.kv_tier_stats()["nvme_pages"])
+    mine, _ = serve_wave(X, prompts, 16)
+    fresh, _ = serve_wave(Y, prompts, 16)
+    if before[0] == 0 or before[1] == 0 or after != (0, 0) or mine != fresh:
+        raise AssertionError(f"[{tag}] second seed: cache and tier {before} "
+                             f"-> {after}, streams equal {mine == fresh}")
+    log(f"[{tag}] 2 layers: a swap to the second seed's weights "
+        f"({info2['swap_s']:.3f} s) flushed {before[0]} cached pages and "
+        f"{before[1]} tier pages; new requests equal a fresh engine's")
+    del X, Y
+    free_cuda()
+    return {"tag_bytes": on_disk, "save_s": save_s, "verify_s": verify_s,
+            "quiesce_s": info["quiesce_s"], "swap_s": info["swap_s"],
+            "inflight_at_swap": inflight, "replays_after": replays,
+            "refusals": refusals, "launches": launches,
+            "second_seed": {"flushed_pages": before[0],
+                            "tier_pages": before[1],
+                            "swap_s": info2["swap_s"]}}
+
+
+def captured(eng) -> set:
+    """The keys of an engine's captured programs."""
+    return set(eng._programs.programs)
+
+
+def phase_kvmove(dev) -> dict:
+    """See the module docstring, phase 12."""
+    from deepspeed_tpu_torch.accelerator import card_name_and_power_limit
+    from deepspeed_tpu_torch.models import build_model
+
+    t_phase = time.perf_counter()
+    here = os.path.dirname(os.path.abspath(__file__))
+    free = shutil.disk_usage(here).free
+    card = card_name_and_power_limit()
+    log(f"[kvmove] {card}; free disk under the checkout {free / 1e9:.1f} GB")
+    if free < KVMOVE_DISK:
+        raise AssertionError(f"[kvmove] {free / 1e9:.1f} GB free under the "
+                             f"checkout, {KVMOVE_DISK / 1e9:.0f} GB needed")
+    shutil.rmtree(KVMOVE_DIR, ignore_errors=True)
+    os.makedirs(KVMOVE_DIR)
+    try:
+        t0 = time.perf_counter()
+        extra = {} if KVMOVE["layers"] is None else {
+            "num_layers": KVMOVE["layers"]}
+        model = build_model(KVMOVE["name"], dtype=torch.bfloat16, device=dev,
+                            seed=KVMOVE["seed"], **extra)
+        cfg = model.config
+        log(f"[kvmove] {KVMOVE['name']} ({cfg.num_layers} layers, bf16, "
+            f"seeded random weights) up in {time.perf_counter() - t0:.1f} s")
+        prompts = kv_prompts(cfg.vocab_size, 2)
+        # the tier's second wave: other prompts behind another prefix
+        others = kv_prompts(cfg.vocab_size, 3, system_seed=4)
+        rec: dict = {"card": card, "layers": cfg.num_layers,
+                     "free_disk_bytes": free}
+        legs = (("migration", lambda: kv_migration(dev, model, prompts,
+                                                  KVMOVE["new"])),
+                ("pull_gang", lambda: kv_pull_and_gang(dev, model, prompts)),
+                ("tier", lambda: kv_tier(dev, model, prompts, others)),
+                ("swap", lambda: kv_swap(dev, model, prompts,
+                                         KVMOVE["new"])))
+        for key, leg in legs:
+            t0 = time.perf_counter()
+            rec[key] = leg()
+            rec[key]["leg_s"] = time.perf_counter() - t0
+    finally:
+        shutil.rmtree(KVMOVE_DIR, ignore_errors=True)
+    launches = {"k1": 0, "k1_chunk": 0, "k1_split": 0}
+    for part in (rec["migration"], rec["pull_gang"]["pull"],
+                 rec["pull_gang"]["gang"], rec["tier"], rec["swap"]):
+        for k in launches:
+            launches[k] += part["launches"][k]
+    rec["launches"] = launches
+    rec["seconds"] = time.perf_counter() - t_phase
+    log(f"[kvmove] phase {rec['seconds']:.1f} s ("
+        + ", ".join(f"{k} {rec[k]['leg_s']:.1f} s" for k, _ in legs)
+        + f"); K1 {launches}")
+    return rec
+
+
+# ---------------------------------------------------------------------------
 # main
 # ---------------------------------------------------------------------------
 
@@ -5461,6 +6238,28 @@ def main() -> int:
         got = offload["launches"]
         for rec, key in ((k4_fwd, "k4_fwd"), (k4_bwd, "k4_bwd")):
             rec["launches"] = (rec["launches"] or 0) + got[key]
+    if "kvmove" in phases:
+        kvmove = phase_kvmove(dev)
+        record["phases"]["kvmove"] = kvmove
+        got = kvmove["launches"]
+        # K1 (bf16 pool) on every migrated, pulled, gang-merged and
+        # promoted sequence and through the swap; the phase's numbers ride
+        # beside
+        k1["launches"] = (k1["launches"] or 0) + got["k1"]
+        mig, tier, swap = kvmove["migration"], kvmove["tier"], kvmove["swap"]
+        k1["kvmove"] = {
+            "launches": got, "card": kvmove["card"],
+            "layers": kvmove["layers"],
+            "migration": {k: mig[k] for k in (
+                "pages", "bytes", "export_GBps", "import_GBps",
+                "export_to_first_decode_s")},
+            "pull_ttft_s": [kvmove["pull_gang"]["pull"]["ttft_pulled_s"],
+                            kvmove["pull_gang"]["pull"]["ttft_cold_s"]],
+            "tier_promote_GBps": [tier["from_ram"]["GBps"],
+                                  tier["from_nvme"]["GBps"]],
+            "tier_crc_share": tier["crc_share"],
+            "swap_s": {k: swap[k] for k in ("save_s", "verify_s",
+                                            "quiesce_s", "swap_s")}}
     record["seconds"] = time.perf_counter() - t_start
     os.makedirs(args.out, exist_ok=True)
     with open(os.path.join(args.out, "chip_smoke.json"), "w") as f:

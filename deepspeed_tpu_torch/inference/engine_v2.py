@@ -34,8 +34,33 @@ key (``inference/programs.py``; ``warm_decode_windows`` and
 ``while_loop`` form's exit, which a graph cannot take) run eagerly, equally
 asynchronous; on the CPU every program runs eagerly through the kernels'
 plain versions. ``weight_prefetch`` (an XLA scheduling hint) has no
-counterpart. Features of later slices (tensor parallelism, KV tiering,
-telemetry, request tracing) raise NotImplementedError at construction.
+counterpart. Features of later slices (tensor parallelism, telemetry,
+request tracing) raise NotImplementedError at construction.
+
+KV movement (the JAX engine's surface, with its contracts, stats keys and
+refusals): page migration (``export_migration`` / ``export_commit`` /
+``export_abort``, ``import_reserve`` / ``import_complete`` /
+``import_abort``), radix pulls (``export_prefix`` / ``import_prefix``),
+gang-prefill segments (``gang_prefill_segment``) and the HBM → host RAM →
+NVMe tier (``kv_tier``; eviction demotes through ``_demote_evicted``,
+admission promotes through ``tier_promote_begin`` / ``_finish``). Pages
+travel as ``inference/migration.PageBundle`` bytes, the JAX package's wire
+form. The pool is never rebound (the captured graphs hold its address):
+exports and demotes gather whole pages in one ``index_select`` over a byte
+view of the pool into pinned host memory, read after the copy's event;
+imports, pulls and promotes write them back with one ``index_copy_``, from
+a pinned buffer kept until its copy has run. Both are issued on the
+engine's stream, behind the dispatches in flight.
+
+Weight swap (``save_weights`` / ``swap_weights``): the parameter tree is
+saved as one ``.npy`` per leaf under ``<tag>/state`` with ``meta.json``, the
+size + crc32 ``manifest.json`` and an atomic ``latest`` — the port's own
+format (the JAX engine's tag is orbax; neither package reads the other's).
+A swap quiesces the pipeline, verifies the manifest, loads the tag into a
+staged tree on the device, checks it matches the live tree leaf for leaf
+and holds only finite values, and only then copies it into the live
+tensors in place: the captured graphs replay the new weights with no
+recapture, and any refusal leaves the old weights serving.
 
 Sliding-window models (mistral) serve from a rolling KV ring: the block
 table shrinks to ``nwin`` pages, enough for the window plus one step, and
@@ -65,6 +90,8 @@ in the compute dtype.
 """
 from __future__ import annotations
 
+import json
+import os
 import time
 from collections import deque
 from dataclasses import dataclass
@@ -93,7 +120,27 @@ from .programs import HostStaging, ProgramCache, pack, unpack
 from .ragged import StateManager, StepPlan
 from .sampling import sample_logits, sample_tree_logits
 from .scheduler import SpecAcceptTracker, SplitFuseScheduler
-from .weights import cast_tree, module_param_tree, tree_nbytes
+from .weights import (cast_tree, copy_param_tree_, load_param_tree,
+                      module_param_tree, save_param_tree, tree_nbytes,
+                      tree_tensors)
+
+#: the pool dtype's name on the wire (``PageBundle.kv_dtype``): numpy's
+#: names, as the JAX engine writes them
+KV_DTYPE_NAMES = {torch.float32: "float32", torch.bfloat16: "bfloat16",
+                  torch.float16: "float16",
+                  torch.float8_e4m3fn: "float8_e4m3fn"}
+
+
+class WeightSwapError(RuntimeError):
+    """A live weight swap was refused or failed verification. ``reason`` is
+    machine-readable (``integrity`` | ``shape_mismatch`` | ``probe_failed``
+    | ``no_checkpoint``); raising never leaves the engine on partial
+    weights."""
+
+    def __init__(self, reason: str, detail: str = ""):
+        super().__init__(f"weight swap refused: {reason}"
+                         + (f" ({detail})" if detail else ""))
+        self.reason = reason
 
 
 @dataclass
@@ -168,7 +215,6 @@ def _refuse_later_slices(cfg: RaggedInferenceConfig) -> None:
          "tensor parallelism (per-shard quantization)"),
         (cfg.tensor_parallel != 1 or cfg.tp_overlap, "tensor_parallel>1",
          "tensor parallelism"),
-        (cfg.kv_tier, "kv_tier", "KV tiering"),
         (cfg.telemetry, "telemetry=True", "serving telemetry"),
         (cfg.reqtrace, "reqtrace=True", "request tracing"),
     ]
@@ -249,6 +295,44 @@ class InferenceEngineV2:
             from .prefix_cache import PrefixCache
             self._prefix_cache = PrefixCache(cfg.block_size)
             self.state.attach_prefix_cache(self._prefix_cache)
+        kv_dtype = (torch.float8_e4m3fn if cfg.kv_cache_dtype == "fp8"
+                    else cfg.dtype)
+        self._kv_name = KV_DTYPE_NAMES[kv_dtype]
+        # one page's bytes: its full cross-layer K/V slab [L, 2, KV, bs, D]
+        self._page_bytes = (m.num_layers * 2 * m.kv_heads * cfg.block_size
+                            * m.head_dim
+                            * torch.empty((), dtype=kv_dtype).element_size())
+
+        # KV tiering: HBM → host RAM → NVMe (inference/kvtier.py)
+        self._kv_tier = None
+        if cfg.kv_tier:
+            if self._prefix_cache is None:
+                raise ValueError(
+                    "kv_tier requires the shared-prefix cache: the tier "
+                    "is an eviction sink under the radix trie (enable "
+                    "prefix_cache, or serve pack-mode linear where auto "
+                    "turns it on)")
+            from .kvtier import (KVTier, KVTierConfig, auto_min_pages,
+                                 measure_tier_rates)
+            min_pages = cfg.kv_tier_min_pages
+            if min_pages is None:
+                # the promote threshold from MEASURED tier rates
+                min_pages = auto_min_pages(
+                    measure_tier_rates(nvme_dir=cfg.kv_tier_nvme_dir),
+                    page_bytes=self._page_bytes, block_size=cfg.block_size,
+                    nvme=cfg.kv_tier_nvme_dir is not None)
+            self._kv_tier = KVTier(KVTierConfig(
+                ram_bytes=cfg.kv_tier_ram_bytes,
+                nvme_dir=cfg.kv_tier_nvme_dir,
+                nvme_bytes=cfg.kv_tier_nvme_bytes,
+                min_pages=min_pages))
+            # eviction becomes demotion
+            self._prefix_cache.evict_sink = self._demote_evicted
+
+        # the weights' version: {"id": monotonic int, "digest": manifest
+        # digest} ("init" = the constructor's weights); stamped on every
+        # exported bundle, written only here and by swap_weights
+        self._weight_version: dict = {"id": 0, "digest": "init"}
 
         self.params = (module_param_tree(model, dtype=cfg.dtype, device=dev)
                        if params is None
@@ -263,8 +347,6 @@ class InferenceEngineV2:
         # the paged KV pool, [L, 2, KV, num_blocks, block_size, D], in the
         # compute dtype or e4m3; block 0 is the trash block padded tokens
         # write to
-        kv_dtype = (torch.float8_e4m3fn if cfg.kv_cache_dtype == "fp8"
-                    else cfg.dtype)
         self.kv_pool = torch.zeros(
             (m.num_layers, 2, m.kv_heads, cfg.num_blocks, cfg.block_size,
              m.head_dim), dtype=kv_dtype, device=dev)
@@ -332,7 +414,19 @@ class InferenceEngineV2:
                       "spec_proposed": 0, "spec_accepted": 0,
                       "spec_steps_saved": 0, "spec_accept_rate": 0.0,
                       f"attn_{sel}_decode": 0,
-                      f"attn_{self._attn_tree_sel.path}_tree": 0}
+                      f"attn_{self._attn_tree_sel.path}_tree": 0,
+                      # KV tiering: pages demoted on eviction, chains
+                      # promoted at admission, prompt tokens the tier saved
+                      # from recompute, refused promotes
+                      "kv_tier_demoted_pages": 0, "kv_tier_promotes": 0,
+                      "kv_tier_promoted_tokens": 0,
+                      "kv_tier_fallbacks": 0,
+                      # KV-page migration through this engine's pool
+                      "migrations_out": 0, "migrations_in": 0,
+                      "migration_bytes_out": 0, "migration_bytes_in": 0}
+        # pinned host buffers of page imports, kept until the event behind
+        # their copy has passed
+        self._h2d_keep: deque = deque()
         # the first dispatch's readback, timed by events on the stream
         # (``d2h_latency_s`` once it commits)
         self._d2h_timing: tuple | None = None
@@ -995,7 +1089,8 @@ class InferenceEngineV2:
             for uid, new in self._drain(drain_all=True).items():
                 self._spec_emit.setdefault(uid, []).extend(new)
         live = [s for s in self.state.seqs.values()
-                if not s.done and s.slot >= 0 and s.pending_tokens == 1
+                if not s.done and not s.frozen and s.slot >= 0
+                and s.pending_tokens == 1
                 and s.n_generated < s.max_new_tokens]
         if not live:
             return False
@@ -1161,6 +1256,8 @@ class InferenceEngineV2:
         across the drained entries."""
         emitted: dict[int, list[int]] = {}
         st = self.stats
+        while self._h2d_keep and self._h2d_keep[0][0].query():
+            self._h2d_keep.popleft()
         while self._inflight:
             entry = self._inflight[0]
             # >=: the pipeline holds AT MOST max_inflight awaiting entries
@@ -1230,15 +1327,22 @@ class InferenceEngineV2:
         return self.state.can_admit(prompt_len, max_new_tokens)
 
     def put(self, uid: int, prompt_tokens, max_new_tokens: int = 32,
-            eos_token_id: int | None = None) -> None:
+            eos_token_id: int | None = None,
+            trace_id: str | None = None) -> None:
         """Admit a request. Raises if the pool or slot budget is exhausted —
         callers gate on ``can_schedule``. ``eos_token_id`` stops the
-        sequence early (truncated at the eos)."""
+        sequence early (truncated at the eos). ``trace_id`` names the
+        request for the JAX engine's request tracer, which has no
+        counterpart yet: accepted and unused. With ``kv_tier``, a chain the
+        tier holds deeper than the HBM trie is promoted first, so the admit
+        hits it."""
         toks = [int(t) for t in prompt_tokens]
         if not toks:
             raise ValueError("empty prompt")
         if len(toks) + max_new_tokens > self.config.max_seq_len:
             raise ValueError("prompt + max_new_tokens exceeds max_seq_len")
+        if self._kv_tier is not None:
+            self._tier_promote(toks)
         if not self.state.can_admit(len(toks), max_new_tokens):
             raise RuntimeError("cannot schedule: pool/slots exhausted")
         seq = self.state.admit(uid, toks, max_new_tokens,
@@ -1288,6 +1392,13 @@ class InferenceEngineV2:
                 if u != uid:
                     self._spec_emit.setdefault(u, []).extend(new)
         self._spec_emit.pop(uid, None)
+        seq = self.state.seqs.get(uid)
+        if seq is not None and seq.migrating == "out":
+            # flushing a pinned export is its abort: unfreeze, then release
+            self.state.export_abort(uid)
+        elif seq is not None and seq.migrating == "in":
+            # a half-imported sequence has no committed content
+            self.state.abort_import(uid)
         if self._spec is not None:
             # rounds complete inside a step, but a failed one may be caught
             # by a driver that then flushes: no marker survives the release
@@ -1347,3 +1458,577 @@ class InferenceEngineV2:
                     live.remove(uid)
         return [out[i] for i in range(len(prompts))]
 
+
+    # ------------------------------------------------------------------
+    # introspection for a serving replica's heartbeat
+    # ------------------------------------------------------------------
+    def prefix_cache_stats(self) -> dict | None:
+        """Lifetime shared-prefix cache counters (None when the cache is
+        off); the per-run view is ``stats["prefix_hit_tokens"]``."""
+        return None if self._prefix_cache is None \
+            else self._prefix_cache.stats()
+
+    def residency_digest(self, max_entries: int = 4096) -> list[int] | None:
+        """Chain hashes of every current-version page the prefix cache
+        holds (``prefix_cache.chain_hashes`` scheme); None without a
+        cache."""
+        return None if self._prefix_cache is None \
+            else self._prefix_cache.residency_digest(max_entries)
+
+    def prefix_cache_version(self) -> int:
+        """Digest version: moves on every trie insert and evict."""
+        return 0 if self._prefix_cache is None \
+            else self._prefix_cache.version
+
+    def load_summary(self) -> dict:
+        """Scheduler backlog + pool headroom (a router's placement and
+        shed signal)."""
+        out = self.scheduler.load_summary()
+        out["free_blocks"] = self.state.allocator.free_blocks
+        out["max_seqs"] = self.config.max_seqs
+        out["inflight"] = len(self._inflight)
+        return out
+
+    def drain(self, deadline_s: float | None = None) -> bool:
+        """Step until every admitted sequence is done and the pipeline is
+        empty (callers stop admitting first). Frozen (mid-migration)
+        sequences are left to their migration. Returns False if
+        ``deadline_s`` elapses with work pending; the engine stays usable."""
+        t0 = time.perf_counter()
+        while any(not s.done and not s.frozen
+                  for s in self.state.seqs.values()) or self._inflight:
+            if deadline_s is not None \
+                    and time.perf_counter() - t0 > deadline_s:
+                return False
+            self.step()
+        return True
+
+    # ------------------------------------------------------------------
+    # page movement: whole pool pages to and from host bytes
+    # ------------------------------------------------------------------
+    def _pool_bytes(self) -> torch.Tensor:
+        """The pool as bytes, ``[L, 2, KV, num_blocks, block_size, D x
+        itemsize]`` uint8 (a view: writes land in the pool)."""
+        return self.kv_pool.view(torch.uint8)
+
+    def _block_index(self, blocks) -> torch.Tensor:
+        return torch.as_tensor(np.asarray(blocks, np.int64),
+                               device=self.device)
+
+    def _host_bytes(self, t: torch.Tensor) -> np.ndarray:
+        """``t``'s bytes on the host, read after the event behind their copy
+        into pinned memory (the copy is issued on the engine's stream,
+        behind the dispatches in flight)."""
+        if self.device.type != "cuda":
+            return t.contiguous().numpy()
+        h = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+        h.copy_(t, non_blocking=True)
+        ev = torch.cuda.Event()
+        ev.record(torch.cuda.current_stream(self.device))
+        ev.synchronize()
+        return h.numpy()
+
+    def _gather_pages(self, blocks) -> list[bytes]:
+        """The bytes of whole pool pages, each ``[L, 2, KV, block_size, D]``
+        in C order (the JAX engine's page layout): one ``index_select`` and
+        one device-to-host copy for all of them."""
+        if not blocks:
+            return []
+        pages = self._pool_bytes().permute(3, 0, 1, 2, 4, 5).index_select(
+            0, self._block_index(blocks))
+        flat = self._host_bytes(pages).reshape(len(blocks), -1)
+        return [flat[j].tobytes() for j in range(len(blocks))]
+
+    def _scatter_pages(self, blocks, pages) -> None:
+        """Write whole pages (bytes as :meth:`_gather_pages` gives them)
+        into pool ``blocks``: one host-to-device copy from a pinned buffer
+        and one ``index_copy_`` into the pool, in place."""
+        if not blocks:
+            return
+        pool = self._pool_bytes()
+        shape = (len(blocks), *pool.shape[:3], *pool.shape[4:])
+        cuda = self.device.type == "cuda"
+        buf = torch.empty(shape, dtype=torch.uint8, pin_memory=cuda)
+        flat = buf.numpy().reshape(len(blocks), -1)
+        for j, blob in enumerate(pages):
+            flat[j] = np.frombuffer(blob, np.uint8)
+        src = buf.to(self.device, non_blocking=True)
+        pool.index_copy_(3, self._block_index(blocks),
+                         src.permute(1, 2, 3, 0, 4, 5))
+        if cuda:
+            ev = torch.cuda.Event()
+            ev.record(torch.cuda.current_stream(self.device))
+            self._h2d_keep.append((ev, buf))
+
+    def _tail_page(self, tail: bytes, rows: int) -> bytes:
+        """A whole page holding a bundle's partial tail extent in its first
+        ``rows`` rows, zeros past them (as the JAX engine writes it)."""
+        pool = self._pool_bytes()
+        L, two, KV, _, bs, Db = pool.shape
+        page = np.zeros((L, two, KV, bs, Db), np.uint8)
+        page[:, :, :, :rows] = np.frombuffer(tail, np.uint8).reshape(
+            L, two, KV, rows, Db)
+        return page.tobytes()
+
+    def _check_geometry(self, block_size: int, kv_dtype: str,
+                        page_bytes: int) -> None:
+        from .migration import MigrationError
+        if block_size != self.config.block_size:
+            raise MigrationError(
+                f"block_size mismatch: bundle {block_size}, "
+                f"pool {self.config.block_size}")
+        if kv_dtype != self._kv_name:
+            raise MigrationError(
+                f"kv dtype mismatch: bundle {kv_dtype}, pool "
+                f"{self._kv_name}")
+        if page_bytes != self._page_bytes:
+            raise MigrationError(
+                f"page geometry mismatch: bundle pages are "
+                f"{page_bytes}B, this pool's are {self._page_bytes}B")
+
+    # ------------------------------------------------------------------
+    # KV-page migration (inference/migration.py): a sequence's computed KV
+    # moves between engine pools as a PageBundle; ownership and rollback
+    # ride StateManager's migration API
+    # ------------------------------------------------------------------
+    def can_import(self, n_tokens: int, remaining_gen: int) -> bool:
+        """Would ``import_reserve`` succeed right now?"""
+        if self._ring_tokens:
+            return False
+        return self.state.can_admit(n_tokens, remaining_gen)
+
+    def export_migration(self, uid: int, trace_id: str = "",
+                         tenant: str = "default"):
+        """Snapshot a live sequence into a :class:`PageBundle`: drain the
+        pipeline up to the last dispatch naming ``uid`` (the committed view
+        then IS the pool content; tokens the drain commits surface in the
+        next ``step()``), pin it (``StateManager.migrate_out``) and read its
+        page extents to the host. The sequence stays frozen until
+        ``export_commit`` or ``export_abort``."""
+        from .migration import PageBundle
+        from .prefix_cache import chain_hashes
+
+        if self._ring_tokens:
+            raise RuntimeError(
+                "page migration requires linear block tables "
+                "(rolling-ring mode reuses page slots in place)")
+        while self._inflight and self._uid_inflight(uid):
+            for u, new in self._drain(force=True).items():
+                self._spec_emit.setdefault(u, []).extend(new)
+        snap = self.state.migrate_out(uid, trace=trace_id or None)
+        bs = self.config.block_size
+        n_full = len(snap["page_blocks"])
+        page_blobs = self._gather_pages(snap["page_blocks"])
+        tail = None
+        if snap["tail_rows"]:
+            tail = self._host_bytes(self._pool_bytes()[
+                :, :, :, snap["tail_block"], :snap["tail_rows"]]).tobytes()
+        bundle = PageBundle(
+            trace_id=trace_id,
+            tokens=snap["tokens"],
+            prompt_len=len(snap["tokens"]) - snap["n_generated"],
+            n_computed=snap["n_computed"],
+            n_generated=snap["n_generated"],
+            max_new_tokens=snap["max_new_tokens"],
+            eos_id=snap["eos_id"], tenant=tenant,
+            block_size=bs, kv_dtype=self._kv_name,
+            page_bytes=self._page_bytes,
+            tail_rows=snap["tail_rows"],
+            tail_bytes=len(tail or b""),
+            # the e4m3 pool is scale-free: no side-car scales
+            weight_version=dict(self._weight_version),
+            chain=chain_hashes(snap["tokens"][:n_full * bs], bs),
+            scales=None, pages=page_blobs, tail=tail)
+        bundle.validate()
+        self.stats["migrations_out"] += 1
+        self.stats["migration_bytes_out"] += bundle.payload_bytes
+        return bundle
+
+    def export_commit(self, uid: int) -> list[int]:
+        """The importer acked: unpin, mark done and flush — release
+        publishes the computed pages into the LOCAL trie. Returns the
+        tokens generated here (the committed stream prefix)."""
+        self.state.export_ack(uid)
+        return self.flush(uid)
+
+    def export_abort(self, uid: int) -> None:
+        """Transfer failed or was refused: unpin; the sequence resumes
+        locally exactly where it stopped."""
+        self.state.export_abort(uid)
+
+    def import_reserve(self, uid: int, meta: dict) -> None:
+        """Claim a slot and the full remaining block budget for an arriving
+        bundle (its wire header) BEFORE its first payload byte; the sequence
+        stays frozen until ``import_complete``. Raises MigrationError on a
+        geometry or dtype mismatch."""
+        from .migration import MigrationError, PageBundle
+
+        shell = PageBundle.from_meta(meta)
+        if self._ring_tokens:
+            raise MigrationError("rolling-ring pools cannot import "
+                                 "page chains")
+        self._check_geometry(shell.block_size, shell.kv_dtype,
+                             shell.page_bytes)
+        self.state.migrate_in_begin(
+            uid, shell.tokens, shell.n_computed, shell.n_generated,
+            shell.max_new_tokens, eos_id=shell.eos_id,
+            trace=shell.trace_id or None)
+        # the stream prefix generated on the exporter: flush() returns it
+        # followed by what this engine generates
+        self._results[uid] = list(shell.tokens[shell.prompt_len:])
+
+    def import_complete(self, uid: int, bundle) -> None:
+        """Payload landed: write the page extents into the reserved blocks
+        and commit — the full pages seed the local prefix trie and the
+        sequence unfreezes decode-ready. Its first plan decodes the last
+        token from the host (``use_last`` stays off: nothing of it is in
+        flight), so a greedy stream continues bit for bit."""
+        from .migration import MigrationError, version_skew
+
+        bundle.validate()
+        if version_skew(bundle.weight_version, self._weight_version):
+            raise MigrationError(
+                f"version_skew: bundle weights "
+                f"{bundle.weight_version} vs pool {self._weight_version}")
+        seq = self.state.seqs[uid]
+        blocks = list(seq.blocks[:bundle.n_full])
+        pages = list(bundle.pages)
+        if bundle.tail_rows:
+            blocks.append(seq.blocks[bundle.n_full])
+            pages.append(self._tail_page(bundle.tail, bundle.tail_rows))
+        self._scatter_pages(blocks, pages)
+        self.state.import_commit(uid)
+        if self._spec is not None:
+            # the proposer sees the imported history as its prompt
+            self._spec.admit(uid, list(seq.tokens),
+                             seq.max_new_tokens - seq.n_generated
+                             + self._spec_tracker.base_depth + 1)
+        self.stats["migrations_in"] += 1
+        self.stats["migration_bytes_in"] += bundle.payload_bytes
+
+    def import_abort(self, uid: int) -> None:
+        """Transfer died before commit: free the reservation."""
+        self.state.abort_import(uid)
+        self._results.pop(uid, None)
+
+    # ------------------------------------------------------------------
+    # radix pulls and gang prefill: a cached page chain moves as a
+    # kind="prefix" PageBundle, no sequence involved
+    # ------------------------------------------------------------------
+    def export_prefix(self, tokens, trace_id: str = ""):
+        """Bundle the longest cached chain prefixing ``tokens``, or raise
+        MigrationError if nothing is cached."""
+        from .migration import MigrationError, PageBundle
+
+        if self._prefix_cache is None or self._ring_tokens:
+            raise MigrationError("no shareable prefix cache on this pool")
+        snap = self.state.snapshot_prefix(tokens, trace=trace_id or None)
+        if snap is None:
+            raise MigrationError("prefix chain not cached")
+        try:
+            blobs = self._gather_pages(snap["blocks"])
+        finally:
+            self.state.release_prefix(snap["handle"])
+        bundle = PageBundle.prefix(
+            trace_id, [int(t) for t in tokens[:snap["n_tokens"]]],
+            self.config.block_size, self._kv_name, self._page_bytes, blobs,
+            weight_version=dict(self._weight_version))
+        bundle.validate()
+        self.stats["kv_pull_bytes_out"] = self.stats.get(
+            "kv_pull_bytes_out", 0) + bundle.payload_bytes
+        return bundle
+
+    def import_prefix(self, bundle, source: str = "pull") -> int:
+        """Adopt a pulled chain into the local trie (allocate-and-adopt
+        through the refcounted API), then write the payload into exactly the
+        freshly inserted blocks (deduplicated pages keep the cached copy).
+        Returns the pages now cache-resident. Raises MigrationError, having
+        adopted nothing, on version skew, a geometry or dtype mismatch, a
+        pool too full for the chain, or a chain a pre-swap sequence still
+        pins a stale page of. ``source`` labels the byte counter:
+        "pull" (a radix pull) or "tier" (a KV-tier promote)."""
+        from .migration import MigrationError, version_skew
+
+        bundle.validate()
+        if bundle.kind != "prefix":
+            raise MigrationError(f"not a prefix bundle ({bundle.kind})")
+        if version_skew(bundle.weight_version, self._weight_version):
+            raise MigrationError(
+                f"version_skew: chain computed under "
+                f"{bundle.weight_version}, pool serves "
+                f"{self._weight_version}")
+        if self._prefix_cache is None or self._ring_tokens:
+            raise MigrationError("no shareable prefix cache on this pool")
+        self._check_geometry(bundle.block_size, bundle.kv_dtype,
+                             bundle.page_bytes)
+        avail = self.state.allocator.free_blocks \
+            + self._prefix_cache.evictable_blocks
+        if bundle.n_full > avail:
+            raise MigrationError(
+                f"capacity: a chain of {bundle.n_full} pages, "
+                f"{avail} blocks free or evictable")
+        stale = self._prefix_cache.stale_pin_depth(bundle.tokens,
+                                                   bundle.n_computed)
+        if stale is not None:
+            raise MigrationError(
+                f"stale pin: a pre-swap sequence pins page {stale} of the "
+                f"chain (weight swap in flight)")
+        fresh = self.state.adopt_prefix(bundle.tokens, bundle.n_computed,
+                                        trace=bundle.trace_id or None)
+        self._scatter_pages([b for _, b in fresh],
+                            [bundle.pages[j] for j, _ in fresh])
+        key = f"kv_{source}_bytes_in"
+        self.stats[key] = self.stats.get(key, 0) + bundle.payload_bytes
+        return bundle.n_full
+
+    def gang_prefill_segment(self, uid: int, tokens, prefix_bundle=None,
+                             max_new_tokens: int = 1,
+                             trace_id: str | None = None) -> int:
+        """One gang-prefill member's leg: adopt the upstream hop's merged
+        chain first (``import_prefix``), then admit ``tokens``; the radix
+        match skips every adopted page, so this engine computes exactly its
+        own segment. The final member passes the full prompt. Returns pages
+        adopted from upstream; raises MigrationError without admitting on
+        skew or a geometry mismatch."""
+        pages = 0
+        if prefix_bundle is not None:
+            pages = self.import_prefix(prefix_bundle, source="pull")
+        self.put(uid, list(tokens), max_new_tokens=max_new_tokens,
+                 trace_id=trace_id)
+        return pages
+
+    # ------------------------------------------------------------------
+    # KV tiering (inference/kvtier.py): _demote_evicted is the prefix
+    # cache's eviction sink; admission promotes through the two-phase
+    # tier_promote_begin / tier_promote_finish and the same adopt + scatter
+    # path radix pulls use
+    # ------------------------------------------------------------------
+    def _demote_evicted(self, chains) -> None:
+        """Serialize each reclaimed chain as a kind="prefix" PageBundle into
+        the tier; one gather per chain whose deepest page the tier lacks
+        (residency is contiguous-from-root). The tier's own failures
+        (refusal, crc, version, file I/O) raise DemoteError, which the cache
+        counts and evicts past; a failed gather reaches the caller."""
+        from .kvtier import KVTierError
+        from .migration import MigrationError, PageBundle
+        from .prefix_cache import DemoteError, chain_hashes
+
+        tier = self._kv_tier
+        if tier is None:
+            return
+        bs = self.config.block_size
+        demoted = 0
+        try:
+            for tokens, blocks in chains:
+                chain = chain_hashes(tokens, bs)
+                if not chain or tier.has(chain[-1]):
+                    continue
+                blobs = self._gather_pages(blocks)
+                try:
+                    bundle = PageBundle.prefix(
+                        "", [int(t) for t in tokens], bs, self._kv_name,
+                        self._page_bytes, blobs,
+                        weight_version=dict(self._weight_version))
+                    demoted += tier.absorb(bundle)
+                except (KVTierError, MigrationError, OSError) as e:
+                    raise DemoteError(str(e)) from e
+        finally:
+            self.stats["kv_tier_demoted_pages"] += demoted
+
+    def tier_promote_begin(self, tokens):
+        """Promote-ahead, phase one: plan the admission-path tier extract
+        without touching tier state. Returns an opaque handle, or None when
+        the tier holds nothing deeper than the HBM trie."""
+        from .prefix_cache import chain_hashes
+
+        tier = self._kv_tier
+        bs = self.config.block_size
+        cap = min(len(tokens) - 1, self.state.max_blocks_per_seq * bs)
+        n_full = cap // bs
+        if tier is None or n_full < 1:
+            return None
+        aligned = [int(t) for t in tokens[:n_full * bs]]
+        have = self._prefix_cache.cached_depth(aligned)
+        deep = tier.probe(chain_hashes(aligned, bs))
+        if deep <= have:
+            return None              # HBM already covers the tier's chain
+        h = tier.extract_begin(aligned[:deep * bs], bs)
+        if h is not None:
+            h["have"] = have
+        return h
+
+    def tier_promote_finish(self, handle) -> int:
+        """Promote-ahead, phase two: the payload reads + crc checks the plan
+        named, then ``import_prefix`` so the admit that follows hits the
+        chain. Returns pages promoted; 0 (recompute covers the prompt) on a
+        miss, corruption, version skew or a capacity refusal, the last
+        three counted in ``kv_tier_fallbacks``."""
+        from .migration import MigrationError
+
+        tier = self._kv_tier
+        if tier is None or handle is None:
+            return 0
+        bs = self.config.block_size
+        t0 = time.perf_counter()
+        bundle = tier.extract_finish(handle)
+        if bundle is None:
+            return 0
+        try:
+            pages = self.import_prefix(bundle, source="tier")
+        except MigrationError as e:
+            tier._fallback("adopt")
+            self.stats["kv_tier_fallbacks"] += 1
+            logger.warning(f"engine_v2: tier promote refused ({e}); "
+                           f"recomputing")
+            return 0
+        tier.note_promote_latency(time.perf_counter() - t0, pages=pages)
+        if self.config.kv_tier_min_pages is None:
+            tier.refine_min_pages(block_size=bs)
+        gained = max((len(handle["tok"]) // bs
+                      - int(handle.get("have", 0))) * bs, 0)
+        self.stats["kv_tier_promotes"] += 1
+        self.stats["kv_tier_promoted_tokens"] += gained
+        return pages
+
+    def _tier_promote(self, tokens) -> int:
+        """Admission-path promote: the two phases back to back."""
+        return self.tier_promote_finish(self.tier_promote_begin(tokens))
+
+    def kv_tier_stats(self) -> dict | None:
+        """Lifetime tier counters; None when tiering is off."""
+        return None if self._kv_tier is None else self._kv_tier.stats()
+
+    def kv_tier_digest(self, max_entries: int = 4096) -> list[int] | None:
+        """Chain hashes of tier-resident pages (RAM first)."""
+        return None if self._kv_tier is None \
+            else self._kv_tier.residency_digest(max_entries)
+
+    def kv_tier_version(self) -> int:
+        """Tier membership version."""
+        return 0 if self._kv_tier is None else self._kv_tier.version
+
+    # ------------------------------------------------------------------
+    # versioned weights: save, and swap in place
+    # ------------------------------------------------------------------
+    def weight_version(self) -> dict:
+        """``{"id": monotonic int, "digest": manifest digest}`` of the
+        weights being served ("init" digest = the constructor's)."""
+        return dict(self._weight_version)
+
+    def save_weights(self, save_dir: str, tag: str | None = None,
+                     wid: int | None = None) -> str:
+        """Publish the live parameter tree as a verified swap tag:
+        ``<save_dir>/<tag>/state`` (one ``.npy`` per leaf + ``index.json``;
+        quantized codes and scales as they are), ``meta.json``,
+        ``manifest.json`` (size + crc32 of every file), then the atomic
+        ``latest``. The port's own format: the JAX engine's tag is orbax,
+        and neither package reads the other's. Returns the tag path."""
+        from ..checkpoint.manifest import (manifest_digest,
+                                           write_file_atomic,
+                                           write_manifest)
+
+        wid = int(wid if wid is not None
+                  else self._weight_version["id"] + 1)
+        tag = tag or f"weights_v{wid}"
+        root = os.path.abspath(save_dir)
+        path = os.path.join(root, tag)
+        os.makedirs(path, exist_ok=True)
+        save_param_tree(self.params, os.path.join(path, "state"))
+        m = self.mcfg
+        meta = {"tag": tag, "global_steps": wid, "format": "engine_weights",
+                "model_dims": {"num_layers": m.num_layers,
+                               "hidden": m.hidden_size,
+                               "heads": m.num_heads,
+                               "vocab": m.vocab_size},
+                "quant_bits": self.config.quant_bits,
+                "dtype": str(self.config.dtype)}
+        with open(os.path.join(path, "meta.json"), "w") as f:
+            json.dump(meta, f, indent=2)
+        write_manifest(path, tag, wid)
+        write_file_atomic(os.path.join(root, "latest"), tag)
+        logger.info(f"engine_v2: published weights {path} "
+                    f"(digest {manifest_digest(path)})")
+        return path
+
+    def _all_finite(self, tree) -> bool:
+        """One device sync over every floating tensor of ``tree`` (e4m3
+        codes by their NaN bit pattern, as torch has no isfinite for
+        them)."""
+        flags = []
+        for t in tree_tensors(tree):
+            if t.dtype == torch.float8_e4m3fn:
+                flags.append(((t.view(torch.uint8) & 0x7F) != 0x7F).all())
+            elif t.is_floating_point():
+                flags.append(torch.isfinite(t).all())
+        return not flags or bool(torch.stack(flags).all())
+
+    def swap_weights(self, ckpt_dir: str, tag: str | None = None,
+                     wid: int | None = None) -> dict:
+        """In-place live weight swap from a verified tag of
+        :meth:`save_weights`.
+
+        (1) quiesce: every in-flight dispatch commits (its tokens surface in
+        the next ``step()``); live sequences pause with their KV. (2)
+        verify the tag's size + crc32 manifest (``integrity``;
+        ``no_checkpoint`` when missing). (3) load it into a staged tree on
+        the device, refusing any difference of leaf names, shapes or dtypes
+        (``shape_mismatch``). (4) probe: every floating leaf finite
+        (``probe_failed``). (5) commit: copy the staged tree into the live
+        tensors in place — the captured graphs replay the new weights, no
+        recapture — stamp the new ``weight_version``, flush the prefix
+        cache's unpinned pages and invalidate the tier's records. Any
+        refusal leaves the old weights serving untouched. The live tensors
+        may be a model's own parameters (``module_param_tree`` serves them
+        without a copy): they take the new weights too."""
+        from ..checkpoint.manifest import (manifest_digest, resolve_tag,
+                                           tag_status)
+
+        t0 = time.perf_counter()
+        for u, new in self._drain(drain_all=True).items():
+            self._spec_emit.setdefault(u, []).extend(new)
+        quiesce_s = time.perf_counter() - t0
+        if tag is not None:
+            status, reason = tag_status(os.path.join(ckpt_dir, tag))
+            if status == "missing":
+                raise WeightSwapError("no_checkpoint",
+                                      f"tag '{tag}' missing")
+            if status != "verified":
+                raise WeightSwapError(
+                    "integrity", f"tag '{tag}' {status}: {reason}")
+        else:
+            tag, why = resolve_tag(ckpt_dir, None)
+            if not tag:
+                raise WeightSwapError("no_checkpoint", why)
+        path = os.path.join(ckpt_dir, tag)
+        try:
+            digest = manifest_digest(path)
+        except OSError as e:
+            raise WeightSwapError("integrity", f"manifest unreadable: {e}")
+        wid = int(wid if wid is not None
+                  else self._weight_version["id"] + 1)
+        t1 = time.perf_counter()
+        try:
+            staged = load_param_tree(os.path.join(path, "state"),
+                                     self.params, self.device)
+        except (ValueError, OSError, KeyError) as e:
+            raise WeightSwapError("shape_mismatch", str(e))
+        if not self._all_finite(staged):
+            raise WeightSwapError(
+                "probe_failed", "restored weights hold non-finite values")
+        copy_param_tree_(self.params, staged)
+        del staged
+        self._weight_version = {"id": wid, "digest": digest}
+        flushed = self.state.flush_prefix_cache()
+        if self._prefix_cache is not None:
+            self._prefix_cache.set_weight_version(wid)
+        if self._kv_tier is not None:
+            self._kv_tier.set_weight_version(self._weight_version)
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        swap_s = time.perf_counter() - t1
+        logger.info(f"engine_v2: weight swap to v{wid} (digest {digest}) "
+                    f"quiesce {quiesce_s * 1e3:.1f}ms "
+                    f"swap {swap_s * 1e3:.1f}ms, {flushed} cached pages "
+                    f"flushed")
+        return {"wv": self.weight_version(),
+                "quiesce_s": quiesce_s, "swap_s": swap_s}

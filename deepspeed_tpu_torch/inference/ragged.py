@@ -9,10 +9,15 @@ arrays the forward consumes.
 
 Carried: the allocator, ``SequenceDescriptor`` with its committed and
 scheduled views, the refcounted admit/release API over the shared-prefix
-cache, the rollback-aware provisional API of speculative decoding with
-the draft mirror's ``rewind``, the prefix snapshot/adopt pair of radix pulls and the full-pool ``audit()``.
-The KV-page migration API (disaggregated serving) and the weight hot-swap
-skew guard arrive with their slices.
+cache (with the weight-swap skew guard: ``admit_wv``, release never
+publishing across a weight version, ``flush_prefix_cache``), the
+rollback-aware provisional API of speculative decoding with the draft
+mirror's ``rewind``, the KV-page migration API (``migrate_out`` /
+``export_ack`` / ``export_abort`` / ``migrate_in_begin`` /
+``import_commit`` / ``abort_import``), the prefix snapshot/adopt pair of
+radix pulls and the full-pool ``audit()``. The JAX package's request
+tracer has no counterpart yet: ``trace`` arguments are accepted and
+unused.
 """
 from __future__ import annotations
 
@@ -80,10 +85,25 @@ class SequenceDescriptor:
     n_inflight: int = 0               # sampled tokens not yet read back
     n_shared_blocks: int = 0          # leading trie-owned (read-only) pages
     prefix_hit_tokens: int = 0        # prompt tokens served from the trie
+    #: prefix-cache weight version at admit: a sequence that lived across a
+    #: weight swap computed its KV (partly) under the OLD weights, so its
+    #: release frees its pages instead of publishing them
+    admit_wv: int = 0
     #: speculative candidate tokens whose KV may land in this sequence's
     #: owned tail pages ahead of acceptance; only the provisional API of
     #: StateManager mutates it
     n_provisional: int = 0
+    #: KV-page migration: None, "out" (an exported bundle is in flight: the
+    #: pages are pinned, release refused until the importer acks or the
+    #: export aborts) or "in" (created by ``migrate_in_begin``, pages still
+    #: arriving until ``import_commit``). Only the migration API of
+    #: StateManager mutates it
+    migrating: str | None = None
+
+    @property
+    def frozen(self) -> bool:
+        """True while a migration pins this sequence: never schedulable."""
+        return self.migrating is not None
 
     @property
     def pending_tokens(self) -> int:
@@ -115,8 +135,9 @@ class SequenceDescriptor:
 
     @property
     def sched_done(self) -> bool:
-        """Nothing left to dispatch (committed-done or budget in flight)."""
-        return self.done or self.gen_remaining_sched <= 0
+        """Nothing left to dispatch (committed-done, budget in flight, or
+        frozen by a page migration — every plan builder gates on this)."""
+        return self.done or self.frozen or self.gen_remaining_sched <= 0
 
     def commit_generated(self, new_tokens: list[int],
                          n_computed: int) -> list[int]:
@@ -175,6 +196,20 @@ class StateManager:
         if self.seqs:
             raise RuntimeError("attach_prefix_cache before admitting")
         self.prefix_cache = cache
+
+    def flush_prefix_cache(self) -> int:
+        """Evict EVERY unreferenced cached page back to the free list (the
+        weight swap's skew guard: a page computed under the old weights must
+        not seed a new request's prefill). Pinned pages stay with their live
+        sequences and fall to the LRU once released. ``demote=False``: old-
+        weight pages never go to the KV tier. Returns pages reclaimed."""
+        if self.prefix_cache is None:
+            return 0
+        reclaimed = self.prefix_cache.evict(len(self.prefix_cache),
+                                            demote=False)
+        if reclaimed:
+            self.allocator.free(reclaimed)
+        return len(reclaimed)
 
     def _blocks_for(self, n_tokens: int) -> int:
         return min(-(-n_tokens // self.block_size), self.max_blocks_per_seq)
@@ -249,22 +284,38 @@ class StateManager:
             seq.n_computed = len(shared_nodes) * bs
             seq.prefix_hit_tokens = seq.n_computed
         seq.blocks = [n.block for n in shared_nodes] + fresh
+        if self.prefix_cache is not None:
+            seq.admit_wv = self.prefix_cache.weight_version
         self.seqs[uid] = seq
         return seq
 
     def release(self, uid: int) -> None:
         """Free a sequence's slot and pages. With a prefix cache attached,
         computed full pages are published into the trie instead of freed
-        and shared pages drop their refcount. Callers must have committed
-        in-flight steps referencing this uid first."""
+        and shared pages drop their refcount — unless the weights swapped
+        while the sequence lived, when its owned pages are freed instead.
+        Callers must have committed in-flight steps referencing this uid
+        first. Refused while a migration pins the sequence."""
+        if self.seqs[uid].frozen:
+            raise RuntimeError(
+                f"uid {uid} is pinned by an in-flight migration "
+                f"({self.seqs[uid].migrating!r}): settle it via "
+                f"export_ack/export_abort/abort_import before release")
         seq = self.seqs.pop(uid)
         if self.prefix_cache is not None and seq.slot >= 0:
-            self._shared_nodes.pop(uid, None)
-            to_free = self.prefix_cache.publish(
-                seq.tokens, seq.blocks, seq.n_shared_blocks,
-                min(seq.n_computed, len(seq.tokens)))
-            if to_free:
-                self.allocator.free(to_free)
+            shared = self._shared_nodes.pop(uid, None)
+            if seq.admit_wv != self.prefix_cache.weight_version:
+                if shared:
+                    self.prefix_cache.release(shared)
+                owned = seq.blocks[seq.n_shared_blocks:]
+                if owned:
+                    self.allocator.free(owned)
+            else:
+                to_free = self.prefix_cache.publish(
+                    seq.tokens, seq.blocks, seq.n_shared_blocks,
+                    min(seq.n_computed, len(seq.tokens)))
+                if to_free:
+                    self.allocator.free(to_free)
         elif seq.blocks:
             self.allocator.free(seq.blocks)
         if seq.slot >= 0:
@@ -358,9 +409,171 @@ class StateManager:
         seq.n_generated = max(0, seq.max_new_tokens - (cap - len(tokens)))
         seq.done = False
 
-    # --- radix pulls: prefix snapshot (export) and adopt (import) --------
+    # --- KV-page migration: the refcounted export/import/abort API -------
+    # Ownership never changes hands mid-transfer: the exporter's pages stay
+    # owned by the (frozen) source sequence until the importer acks, and the
+    # importer's pages are ordinary owned blocks until ``import_commit``
+    # seeds the prefix trie from them. An abort on either side is pure
+    # bookkeeping. These six methods are the only mutators of ``migrating``.
 
-    def snapshot_prefix(self, tokens) -> dict | None:
+    def migrate_out(self, uid: int, trace: str | None = None) -> dict:
+        """Pin a live sequence for export and return its page-chain
+        snapshot: token history, committed-KV extent, and the pool blocks
+        holding it (full pages + the partial tail extent). Callers must
+        have committed in-flight steps referencing this uid first (the
+        committed view IS the pool content then). The sequence stays live,
+        frozen until ``export_ack`` or ``export_abort``."""
+        seq = self.seqs[uid]
+        if seq.frozen:
+            raise RuntimeError(f"uid {uid} is already migrating "
+                               f"({seq.migrating!r})")
+        if seq.done:
+            raise RuntimeError(f"uid {uid} is done: nothing to migrate")
+        if seq.n_provisional:
+            raise RuntimeError(
+                f"uid {uid} has a provisional speculative tree in flight "
+                f"— commit or roll it back before migrating")
+        if seq.n_inflight:
+            raise RuntimeError(
+                f"uid {uid} has {seq.n_inflight} sampled tokens in "
+                f"flight — drain the pipeline before migrating")
+        bs = self.block_size
+        if -(-(len(seq.tokens) + seq.max_new_tokens - seq.n_generated)
+             // bs) > self.max_blocks_per_seq:
+            # a wrap-capable sequence's rolling table reuses page slots in
+            # place: the linear page chain of a bundle does not exist
+            raise RuntimeError(
+                f"uid {uid} can wrap its block table "
+                f"(rolling-ring regime): page migration requires linear "
+                f"tables")
+        n_full = seq.n_computed // bs
+        tail_rows = seq.n_computed - n_full * bs
+        seq.migrating = "out"
+        return {
+            "uid": uid, "tokens": list(seq.tokens),
+            "n_computed": seq.n_computed,
+            "n_generated": seq.n_generated,
+            "max_new_tokens": seq.max_new_tokens,
+            "eos_id": seq.eos_id, "block_size": bs,
+            "page_blocks": list(seq.blocks[:n_full]),
+            "tail_block": seq.blocks[n_full] if tail_rows else None,
+            "tail_rows": tail_rows,
+        }
+
+    def export_ack(self, uid: int) -> None:
+        """The importer owns the stream now: unfreeze and mark the source
+        done, so the caller's flush releases it (publishing its computed
+        pages into the LOCAL trie)."""
+        seq = self.seqs[uid]
+        if seq.migrating != "out":
+            raise RuntimeError(f"uid {uid} has no export in flight")
+        seq.migrating = None
+        seq.done = True
+
+    def export_abort(self, uid: int) -> None:
+        """Transfer failed or was refused: unfreeze. The sequence resumes
+        exactly where it stopped (no block changed hands)."""
+        seq = self.seqs[uid]
+        if seq.migrating != "out":
+            raise RuntimeError(f"uid {uid} has no export in flight")
+        seq.migrating = None
+
+    def migrate_in_begin(self, uid: int, tokens: list[int],
+                         n_computed: int, n_generated: int,
+                         max_new_tokens: int, eos_id: int | None = None,
+                         trace: str | None = None) -> SequenceDescriptor:
+        """Reserve a slot + the FULL remaining block budget for an arriving
+        sequence before the first payload byte lands. The sequence is
+        created frozen (``migrating="in"``): the caller writes the bundle's
+        KV into the returned descriptor's blocks, then ``import_commit``
+        seeds the prefix trie and unfreezes — or ``abort_import`` hands
+        every block back."""
+        if uid in self.seqs:
+            raise ValueError(f"uid {uid} already live")
+        if not tokens:
+            raise ValueError("empty token chain")
+        if not 0 <= n_computed <= len(tokens) - 1:
+            raise ValueError(
+                f"n_computed {n_computed} outside [0, {len(tokens) - 1}] "
+                f"(the last token is always recomputed)")
+        if n_generated > max_new_tokens:
+            raise ValueError(f"n_generated {n_generated} exceeds the "
+                             f"budget {max_new_tokens}")
+        if not self._free_slots:
+            raise RuntimeError("no free sequence slots")
+        bs = self.block_size
+        remaining = max_new_tokens - n_generated
+        if -(-(len(tokens) + remaining) // bs) > self.max_blocks_per_seq:
+            raise RuntimeError(
+                f"import of {len(tokens)} + {remaining} tokens would wrap "
+                f"the {self.max_blocks_per_seq} x {bs} block table")
+        seq = SequenceDescriptor(uid=uid, tokens=list(tokens),
+                                 max_new_tokens=max_new_tokens,
+                                 eos_id=eos_id,
+                                 slot=self._free_slots.pop(0))
+        try:
+            fresh = self._alloc(self._blocks_for(len(tokens) + remaining))
+        except RuntimeError:
+            self._free_slots.insert(0, seq.slot)
+            raise
+        seq.blocks = fresh
+        seq.n_computed = n_computed
+        seq.n_sched = n_computed
+        seq.n_generated = n_generated
+        seq.migrating = "in"
+        self.seqs[uid] = seq
+        return seq
+
+    def import_commit(self, uid: int) -> None:
+        """Payload landed: seed the local prefix trie from the imported full
+        pages (they become shared trie nodes this sequence references;
+        pages already cached dedup, the fresh copy going back to the
+        allocator) and unfreeze."""
+        seq = self.seqs[uid]
+        if seq.migrating != "in":
+            raise RuntimeError(f"uid {uid} has no import in flight")
+        bs = self.block_size
+        n_full = seq.n_computed // bs
+        if self.prefix_cache is not None and n_full > 0:
+            nodes, dups = self.prefix_cache.adopt(
+                seq.tokens, seq.blocks[:n_full], n_full * bs)
+            if len(nodes) != n_full:    # pragma: no cover — adopt contract
+                raise RuntimeError(
+                    f"uid {uid}: adopted {len(nodes)} trie pages, "
+                    f"expected {n_full}")
+            self._shared_nodes[uid] = nodes
+            seq.n_shared_blocks = n_full
+            seq.blocks = [n.block for n in nodes] + seq.blocks[n_full:]
+            seq.prefix_hit_tokens = 0     # imported, not served from cache
+            if dups:
+                self.allocator.free(dups)
+        if self.prefix_cache is not None:
+            # skew-gated imports only land same-version bundles
+            seq.admit_wv = self.prefix_cache.weight_version
+        seq.migrating = None
+
+    def abort_import(self, uid: int) -> None:
+        """Transfer died before commit: free the whole reservation and the
+        slot (the trie was never touched)."""
+        seq = self.seqs.get(uid)
+        if seq is None:
+            return
+        if seq.migrating != "in":
+            raise RuntimeError(f"uid {uid} has no import in flight")
+        self.seqs.pop(uid)
+        if seq.blocks:
+            self.allocator.free(seq.blocks)
+        seq.blocks = []
+        if seq.slot >= 0:
+            self._free_slots.append(seq.slot)
+            self._free_slots.sort()
+
+    # --- radix pulls: prefix snapshot (export) and adopt (import) --------
+    # Gang prefill reuses both legs: each member exports its merged chain
+    # (snapshot_prefix), the next adopts it (adopt_prefix) and prefills
+    # only its own segment on top.
+
+    def snapshot_prefix(self, tokens, trace: str | None = None) -> dict | None:
         """Match and PIN the longest cached chain prefixing ``tokens`` so
         its payloads can be read while nothing evicts them. Returns
         ``{"handle", "blocks", "n_tokens"}`` or None on a miss; the caller
@@ -383,7 +596,8 @@ class StateManager:
         if nodes:
             self.prefix_cache.release(nodes)
 
-    def adopt_prefix(self, tokens, n_tokens: int) -> list[tuple[int, int]]:
+    def adopt_prefix(self, tokens, n_tokens: int,
+                     trace: str | None = None) -> list[tuple[int, int]]:
         """Allocate a block per full page of ``tokens[:n_tokens]`` and
         insert the chain into the trie UNREFERENCED. Pages already cached
         dedup. Returns ``(page index, block)`` for the freshly inserted
@@ -406,7 +620,9 @@ class StateManager:
         {free list, prefix trie, one sequence's owned tail}; shared table
         entries point at live trie nodes; per-node refcounts equal the live
         sharers (sequences plus snapshot pins). Raises AssertionError on any
-        leak, double-own or refcount drift."""
+        leak, double-own or refcount drift; also a bad migration state, an
+        importing sequence that already shares trie pages, or an exported
+        one with work in flight."""
         free = list(self.allocator._free)
         if len(set(free)) != len(free):
             raise AssertionError("free list holds duplicate blocks")
@@ -421,6 +637,20 @@ class StateManager:
                 owners[b] = "trie"
         ref_counts: dict[int, int] = {}
         for uid, seq in self.seqs.items():
+            if seq.migrating not in (None, "out", "in"):
+                raise AssertionError(
+                    f"uid {uid}: bad migration state {seq.migrating!r}")
+            if seq.migrating == "in" and seq.n_shared_blocks:
+                raise AssertionError(
+                    f"uid {uid}: importing sequence already shares "
+                    f"{seq.n_shared_blocks} trie pages (seeding must "
+                    f"happen at import_commit)")
+            if seq.migrating == "out" and (seq.n_inflight
+                                           or seq.n_provisional):
+                raise AssertionError(
+                    f"uid {uid}: exported sequence has in-flight work "
+                    f"(inflight {seq.n_inflight}, provisional "
+                    f"{seq.n_provisional}) — pages are not bit-stable")
             if seq.n_provisional < 0:
                 raise AssertionError(
                     f"uid {uid}: negative provisional count "

@@ -124,6 +124,35 @@ class SplitFuseScheduler:
                 T //= 2
         return out
 
+    def queue_depth(self) -> int:
+        """Sequences with unscheduled work — the serving backlog gauge."""
+        return sum(1 for seq in self.state.seqs.values()
+                   if not seq.sched_done)
+
+    def load_summary(self) -> dict:
+        """Compact load view for a serving replica's heartbeat: live
+        sequences, backlog (prompt tokens not yet scheduled + decode budget
+        remaining), sequences a migration pins (they hold capacity but
+        schedule nothing) and the prefill/decode pending split."""
+        live = queued = pending_tokens = migrating = 0
+        for seq in self.state.seqs.values():
+            live += 1
+            if seq.frozen:
+                migrating += 1
+                continue
+            if seq.sched_done:
+                continue
+            queued += 1
+            pending_tokens += max(seq.pending_sched - 1, 0) \
+                + max(seq.max_new_tokens - seq.n_generated
+                      - seq.n_inflight, 0)
+        has_prefill, has_decode = self.pending_kinds()
+        return {"live": live, "queued": queued,
+                "pending_tokens": pending_tokens,
+                "migrating": migrating,
+                "pending_prefill": has_prefill,
+                "pending_decode": has_decode}
+
     def next_step(self, prefer: str | None = None) -> StepPlan | None:
         """Build the next step plan from the scheduled view, or None if
         nothing can run. Mixed prefill/decode load alternates pure steps;

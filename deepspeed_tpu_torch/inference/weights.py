@@ -22,12 +22,22 @@ A leaf may be a ``QuantLinear`` or, for an MoE layer's routed experts, a
 ``QuantGrouped`` (codes + scales, ``ops/quant_matmul.py``): it moves to the
 device as it is, never cast.
 
+:func:`save_param_tree` / :func:`load_param_tree` write and read an
+engine's tree as one ``.npy`` file per leaf (bf16 as uint16 bits, e4m3 as
+uint8 bits; a quantized leaf's codes and scales kept as they are) with an
+``index.json``; :func:`copy_param_tree_` copies a staged tree into the live
+one in place, after checking that structure, shapes and dtypes match (the
+engine's weight swap: captured CUDA graphs keep reading the same
+addresses).
+
 Layers stay per-layer (``layer_{i}``). The JAX engine stacks them to
 ``lax.scan`` over depth, which bounds its compile time; eager PyTorch loops
 over layers at no such cost, and stacking would copy every weight.
 """
 from __future__ import annotations
 
+import json
+import os
 from typing import Any
 
 import numpy as np
@@ -184,3 +194,131 @@ def to_jax_tree(params) -> dict:
         return t.numpy()
 
     return conv(tree)
+
+
+# ---------------------------------------------------------------------------
+# per-leaf files and in-place copies (the engine's save_weights /
+# swap_weights)
+# ---------------------------------------------------------------------------
+
+def _leaf_meta(t: torch.Tensor) -> dict:
+    return {"dtype": str(t.dtype).removeprefix("torch."),
+            "shape": list(t.shape)}
+
+
+def _host_array(t: torch.Tensor) -> np.ndarray:
+    """A host copy numpy can hold: bf16 as uint16 bits, e4m3 as uint8."""
+    from ..runtime.checkpointing import to_numpy
+    if t.dtype == torch.float8_e4m3fn:
+        return t.detach().cpu().view(torch.uint8).numpy()
+    return to_numpy(t)
+
+
+def _stored_tensor(a: np.ndarray, dtype_name: str) -> torch.Tensor:
+    from ..runtime.checkpointing import from_stored
+    if dtype_name == "float8_e4m3fn":
+        return torch.from_numpy(np.array(a, copy=True)).view(
+            torch.float8_e4m3fn)
+    return from_stored(a, dtype_name)
+
+
+def _tree_index(tree: Tree) -> dict:
+    """name → what :func:`save_param_tree` records for the leaf."""
+    out = {}
+    for name, v in flatten_tree(tree).items():
+        if isinstance(v, (QuantLinear, QuantGrouped)):
+            out[name] = {"kind": type(v).__name__, "bits": v.bits,
+                         "group_size": int(v.group_size),
+                         "shape": [int(d) for d in v.shape],
+                         "compute_dtype": str(v.dtype).removeprefix("torch."),
+                         "data": _leaf_meta(v.data),
+                         "scale": _leaf_meta(v.scale)}
+        else:
+            out[name] = {"kind": "tensor", **_leaf_meta(v)}
+    return out
+
+
+def save_param_tree(tree: Tree, state_dir: str) -> None:
+    """Write ``tree`` under ``state_dir``: ``<name>.npy`` per tensor leaf,
+    ``<name>.data.npy`` + ``<name>.scale.npy`` per quantized leaf, and
+    ``index.json`` describing every leaf (read back by
+    :func:`load_param_tree`)."""
+    os.makedirs(state_dir, exist_ok=True)
+    for name, v in flatten_tree(tree).items():
+        if isinstance(v, (QuantLinear, QuantGrouped)):
+            np.save(os.path.join(state_dir, f"{name}.data.npy"),
+                    _host_array(v.data))
+            np.save(os.path.join(state_dir, f"{name}.scale.npy"),
+                    _host_array(v.scale))
+        else:
+            np.save(os.path.join(state_dir, f"{name}.npy"), _host_array(v))
+    with open(os.path.join(state_dir, "index.json"), "w") as f:
+        json.dump(_tree_index(tree), f, indent=1, sort_keys=True)
+
+
+def tree_mismatch(index: dict, like: Tree) -> str:
+    """Why a saved tree's index cannot replace ``like`` in place ("" when
+    names, kinds, shapes and dtypes all match)."""
+    want = _tree_index(like)
+    if set(index) != set(want):
+        extra = sorted(set(index) - set(want))[:4]
+        missing = sorted(set(want) - set(index))[:4]
+        return f"leaf names differ (extra {extra}, missing {missing})"
+    for name, w in want.items():
+        if index[name] != w:
+            return f"leaf {name}: saved {index[name]}, live {w}"
+    return ""
+
+
+def load_param_tree(state_dir: str, like: Tree, device) -> Tree:
+    """Read a tree written by :func:`save_param_tree` onto ``device``,
+    refusing (ValueError, before any data is read) unless its structure,
+    shapes and dtypes are ``like``'s."""
+    with open(os.path.join(state_dir, "index.json")) as f:
+        index = json.load(f)
+    why = tree_mismatch(index, like)
+    if why:
+        raise ValueError(why)
+
+    def read(name, meta):
+        a = np.load(os.path.join(state_dir, name + ".npy"), mmap_mode="r")
+        return _stored_tensor(a, meta["dtype"]).to(device)
+
+    out: Tree = {}
+    for name, v in flatten_tree(like).items():
+        meta = index[name]
+        if isinstance(v, (QuantLinear, QuantGrouped)):
+            leaf = v._replace(data=read(f"{name}.data", meta["data"]),
+                              scale=read(f"{name}.scale", meta["scale"]))
+        else:
+            leaf = read(name, meta)
+        node = out
+        *path, last = name.split(".")
+        for part in path:
+            node = node.setdefault(part, {})
+        node[last] = leaf
+    return out
+
+
+def tree_tensors(tree: Tree) -> list[torch.Tensor]:
+    """Every tensor of a tree, quantized leaves' codes and scales included,
+    in a fixed order."""
+    out = []
+    for v in flatten_tree(tree).values():
+        if isinstance(v, (QuantLinear, QuantGrouped)):
+            out += [v.data, v.scale]
+        else:
+            out.append(v)
+    return out
+
+
+def copy_param_tree_(dst: Tree, src: Tree) -> None:
+    """Copy ``src`` into ``dst``'s tensors in place (addresses kept), after
+    checking that the two trees' names, kinds, shapes and dtypes match
+    (ValueError otherwise, with ``dst`` untouched)."""
+    why = tree_mismatch(_tree_index(src), dst)
+    if why:
+        raise ValueError(why)
+    with torch.no_grad():
+        for d, s in zip(tree_tensors(dst), tree_tensors(src)):
+            d.copy_(s)

@@ -9,7 +9,9 @@ edges, and their backward bit for bit from call to call), the block-sparse
 flash kernels (K6: forward, dq, dk/dv, on the wgmma route K4's bits on a
 dense layout), TMA launches from a fresh thread, and the per-layer-slice paged
 attention (K7: linear, window and ring tables) against their plain
-versions, the CUDA serving engine against the CPU engine, training
+versions, the CUDA serving engine against the CPU engine, page imports,
+the KV tier and the live weight swap into engines whose decode graphs are
+captured, training
 steps on the card through K4 and through K5's forward and backward, and
 ZeRO-3 over NCCL (bit for bit stage 0, a checkpoint round trip, a backward
 from a fresh thread). These
@@ -1515,6 +1517,141 @@ def test_a_second_engine_captures_after_the_first_is_freed(dev):
     eng, _ = _graph_engine(dev)
     assert eng.generate(prompts, 16) == first
     assert eng._programs.stats()["replays"]["('win', 8)"] > 0
+
+
+# ---------------------------------------------------------------------------
+# KV movement and the weight swap into engines whose graphs are captured
+# ---------------------------------------------------------------------------
+
+def _to_first_tokens(eng, prompts, new):
+    """Put the prompts and step until each has its first token scheduled
+    (the scheduled view: two engines driven alike dispatch alike)."""
+    for uid, p in enumerate(prompts):
+        eng.put(uid, p, max_new_tokens=new)
+    while any(s.n_generated + s.n_inflight < 1
+              for s in eng.state.seqs.values()):
+        eng.step()
+
+
+def _finish(eng, uids):
+    while any(not eng.query(u)["done"] for u in uids):
+        eng.step()
+    return [eng.flush(u) for u in uids]
+
+
+@pytest.mark.parametrize("kv", [None, "fp8"])
+def test_import_into_a_captured_engine_keeps_streams_and_graphs(dev, kv):
+    """Sequences exported after their first tokens and imported into an
+    engine whose decode programs are captured: the imported pages are the
+    exported bytes, the streams equal an engine's that served them without
+    migrating (driven alike), and the importer replays its graphs with no
+    recapture. Exports gather through pinned memory, imports scatter from
+    it, on the engine's stream behind the dispatches in flight."""
+    over = {"kv_cache_dtype": kv} if kv else {}
+    ref, prompts = _graph_engine(dev, **over)
+    uids = list(range(len(prompts)))
+    _to_first_tokens(ref, prompts, 24)
+    ref._drain(drain_all=True)
+    want = _finish(ref, uids)
+    a, _ = _graph_engine(dev, **over)
+    b, _ = _graph_engine(dev, **over)
+    b.warm_decode_windows()
+    b.warm_decode_step()
+    keys = set(b._programs.programs)
+    windows = lambda: sum(n for k, n in b._programs.stats()[
+        "replays"].items() if "win" in k)
+    warm = windows()
+    _to_first_tokens(a, prompts, 24)
+    bundles = [a.export_migration(u) for u in uids]
+    for u, bundle in zip(uids, bundles):
+        b.import_reserve(u, bundle.meta())
+        b.import_complete(u, bundle)
+    for u, bundle in zip(uids, bundles):
+        n = bundle.n_full
+        got = b._gather_pages(b.state.seqs[u].blocks[:n])
+        assert got == bundle.pages
+    assert _finish(b, uids) == want
+    assert set(b._programs.programs) == keys
+    assert windows() - warm == b.stats["windows"] > 0
+    assert [a.export_commit(u) for u in uids] == \
+        [w[:len(bd.tokens) - bd.prompt_len] for w, bd in zip(want, bundles)]
+    a.state.audit()
+    b.state.audit()
+
+
+@pytest.mark.parametrize("quant", [None, 8])
+def test_swap_with_captured_graphs_keeps_streams_and_recaptures_nothing(
+        dev, tmp_path, quant):
+    """A swap to the engine's own tag while its sequences are mid-decode,
+    graphs live and dispatches in flight: every stream equals an unswapped
+    engine's, the tensors (codes and scales too) keep their addresses, no
+    program is captured again and replays continue; then a swap to other
+    weights makes the same graphs serve them, as a fresh engine on those
+    weights does."""
+    from deepspeed_tpu_torch.inference import InferenceEngineV2
+    from deepspeed_tpu_torch.inference.weights import tree_tensors
+    from deepspeed_tpu_torch.models import build_model
+
+    over = {"quant_bits": quant} if quant else {}
+    ref, prompts = _graph_engine(dev, **over)
+    uids = list(range(len(prompts)))
+    _to_first_tokens(ref, prompts, 24)
+    while any(s.n_generated + s.n_inflight < 8
+              for s in ref.state.seqs.values()):
+        ref.step()
+    ref._drain(drain_all=True)
+    want = _finish(ref, uids)
+    eng, _ = _graph_engine(dev, **over)
+    eng.warm_decode_windows()
+    eng.warm_decode_step()
+    eng.save_weights(str(tmp_path), tag="own")
+    keys = set(eng._programs.programs)
+    ptrs = [t.data_ptr() for t in tree_tensors(eng.params)]
+    _to_first_tokens(eng, prompts, 24)
+    while any(s.n_generated + s.n_inflight < 8
+              for s in eng.state.seqs.values()):
+        eng.step()
+    assert eng._inflight
+    replays = dict(eng._programs.stats()["replays"])
+    eng.swap_weights(str(tmp_path), "own")
+    assert _finish(eng, uids) == want
+    assert set(eng._programs.programs) == keys
+    assert [t.data_ptr() for t in tree_tensors(eng.params)] == ptrs
+    after = eng._programs.stats()["replays"]
+    assert sum(after.values()) > sum(replays.values())
+    model = build_model("tiny-llama", hidden_size=256, device=dev,
+                        dtype=torch.bfloat16, seed=4)
+    other = InferenceEngineV2(model, config=dict(eng.config.__dict__))
+    fresh = other.generate(prompts, 16)
+    other.save_weights(str(tmp_path), tag="other")
+    eng.state.flush_prefix_cache()
+    mine = eng.generate(prompts, 16)
+    eng.swap_weights(str(tmp_path), "other")
+    assert eng.generate(prompts, 16) == fresh != mine
+    assert set(eng._programs.programs) == keys
+
+
+def test_tier_demote_and_promote_on_the_card(dev, tmp_path):
+    """Eviction demotes through the pinned gather, admission promotes
+    through the pinned scatter: the promoted pages are the demoted bytes and
+    the stream is the one before the demotion."""
+    eng, prompts = _graph_engine(dev, kv_tier=True, kv_tier_min_pages=1,
+                                 kv_tier_ram_bytes=1 << 20,
+                                 kv_tier_nvme_dir=str(tmp_path))
+    prompt = prompts[0]
+    base = eng.generate([prompt], 12)
+    snap = eng.state.snapshot_prefix(prompt[:-1])
+    before = eng._gather_pages(snap["blocks"])
+    eng.state.release_prefix(snap["handle"])
+    eng.state.allocator.free(eng._prefix_cache.evict(len(eng._prefix_cache)))
+    assert eng.stats["kv_tier_demoted_pages"] >= len(before)
+    eng.put(7, prompt, max_new_tokens=12)
+    assert eng.stats["kv_tier_promotes"] == 1
+    seq = eng.state.seqs[7]
+    assert eng._gather_pages(seq.blocks[:len(before)]) == before
+    assert _finish(eng, [7]) == base
+    assert eng.stats["kv_tier_fallbacks"] == 0
+    eng.state.audit()
 
 
 def _zero_cuda_engine(stage, init, **over):

@@ -133,12 +133,17 @@ def test_put_step_query_flush_and_eos(served):
 
 def test_later_slices_and_the_default_device_raise(served):
     _, tm, tree, _ = served
-    for over, match in [({"quant_bits": 8, "tensor_parallel": 2}, "quant"),
-                        ({"tensor_parallel": 2}, "tensor"),
-                        ({"kv_tier": True}, "tier"),
-                        ({"telemetry": True}, "telemetry"),
-                        ({"reqtrace": True}, "reqtrace")]:
-        with pytest.raises(NotImplementedError, match=match):
+    for over, exc, match in [
+            ({"quant_bits": 8, "tensor_parallel": 2}, NotImplementedError,
+             "quant"),
+            ({"tensor_parallel": 2}, NotImplementedError, "tensor"),
+            # KV tiering serves (the KV-movement slice); like the JAX
+            # engine, it refuses to run without the prefix cache
+            ({"kv_tier": True, "prefix_cache": False}, ValueError,
+             "kv_tier requires the shared-prefix cache"),
+            ({"telemetry": True}, NotImplementedError, "telemetry"),
+            ({"reqtrace": True}, NotImplementedError, "reqtrace")]:
+        with pytest.raises(exc, match=match):
             InferenceEngineV2(tm, params=tree,
                               config=dict(BASE, device="cpu", **over))
     # speculative decoding serves (the window/spec slice), with either
