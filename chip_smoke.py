@@ -2,7 +2,7 @@
 
     python3 chip_smoke.py [--phases build,kernel,parity,serve,train-parity,
                            train,moe-train-parity,moe-train,zero,sparse,
-                           offload,kvmove]
+                           offload,kvmove,observe]
                           [--out DIR]
 
 Phases (every one raises on failure; nothing is caught and passed over):
@@ -382,6 +382,58 @@ Phases (every one raises on failure; nothing is caught and passed over):
    requests equal a fresh engine's on them, the prefix cache flushed and
    the tier's records dropped.
 
+13. observe — telemetry and HF import on llama2-7b at full depth. Its
+   legs (a)-(d) run right after the kernel phase, before every other
+   phase (once a profiler has run, CUPTI's tracing stays subscribed and
+   every later launch costs more host time: the serve phase profiles), and
+   (e) runs last of the whole run. (a) A
+   seeded llama2-7b state dict in HF's names and layout
+   (``model.layers.{i}.self_attn.q_proj.weight``, torch Linear ``[out,
+   in]``, bf16, 32 layers, an untied ``lm_head``; 13.5 GB) sits in host
+   memory with a ``SimpleNamespace`` of Llama-2-7B's published config.json
+   values as its config; ``models.hf.from_hf_model`` converts it onto the
+   card. The config equals the ``llama2-7b`` preset but dtype; every leaf is
+   its source under the documented map bit for bit (transpose, heads, q and
+   k's half-split → interleaved pairs; checked here with plain indexing);
+   no source is left over. Prints conversion seconds and GB/s, peak host
+   RSS and device memory, beside a plain copy of the same tensors to the
+   card. (b) The imported weights serve the serve phase's traffic and
+   settings (8 requests of 256-1024 tokens behind a 128-token
+   prefix, 64 new tokens, block 64, ``max_seqs`` 8, chunk 256,
+   ``max_inflight`` 8, decode graphs captured first) with ``telemetry=True``,
+   ``reqtrace=True``, the HTTP endpoint on port 0 and the requests under two
+   tenants, in three pairs (each with fresh suffixes behind the prefix; the
+   order within a pair alternates; one untimed serve each first) with a
+   second engine on the same weight tensors and telemetry off: streams bit
+   for bit equal, graph replays,
+   forced drains and K1's launches equal (no plain launch, no capture in a
+   serve); ``/metrics`` scraped over 127.0.0.1 with the serve's exact counts
+   (``serving_ttft_s`` 8, ``serving_tokens_total`` 512, queue waits 8), the
+   occupancy histograms, the page gauge and both tenants' series;
+   ``/healthz`` serving; 8 completed reqtrace timelines of lifecycle kinds
+   from ``enqueue`` to ``release``, each TTFT within 5 ms of this script's
+   own put → first-commit time; the Chrome trace holds ``admit``,
+   ``dispatch`` and ``drain_block``. The first request's stream (from a tap
+   engine serving the same, its stream checked equal) against the dense
+   bf16 oracle (``attn_impl="xla"``): logits within OBSERVE_LOGITS_TOL
+   relative, tokens equal but at near-ties (recorded). Prints, on against
+   off: decode ms a token-step (CUDA events), host µs a window dispatch,
+   p50 TTFT, and the added host work timed alone (the span, the dispatch
+   recorder, a window's 8 lifecycle events). (c) Every plan of (b) was packed by ``dstpu_build_atoms``
+   (the count printed); 1000 plans of (b)'s shapes packed both ways off
+   the path give equal arrays; host µs a plan each. (d) The train phase's
+   8-layer spec, 3 steps through K4, with the three below off, then with the
+   telemetry section, the CSV monitor and the Prometheus backend: losses
+   bit for bit; the MFU gauge (every step of the run) within 2% of this
+   script's model FLOPs over its step times and PEAK_OPS[bf16]; a CSV row
+   per step; the Prometheus backend's gauges on ``/metrics``. Prints MFU,
+   the steady MFU of the steps after the first and goodput beside the
+   card's name and power limit. (e) Last of the run: on the seeded
+   llama2-7b, a 1 ms TTFT SLO with ``breach_profile_dir`` set makes the one
+   request breach; the torch.profiler capture's trace names the
+   ``dispatch`` ranges and the replayed K1 kernels. Work goes under ``observe.tmp/`` in the checkout
+   and is removed.
+
 The serving parity phase's dense oracles pass ``attn_impl="xla"``, so they
 stay independent of the kernels under test.
 
@@ -412,7 +464,7 @@ PEAK_OPS = {torch.bfloat16: 989e12, torch.float32: 67e12,
 
 ALL_PHASES = ("build", "kernel", "parity", "serve", "train-parity", "train",
               "moe-train-parity", "moe-train", "zero", "sparse", "offload",
-              "kvmove")
+              "kvmove", "observe")
 
 #: spread of the K1 cases' q against unit-normal K/V (see k1_case)
 Q_SD = 3.0
@@ -6034,6 +6086,869 @@ def phase_kvmove(dev) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# observe: telemetry and HF import (phase 13)
+# ---------------------------------------------------------------------------
+
+#: the observe phase: llama2-7b's HF-layout weights (seed), the serve's
+#: tenants and alternations, and the plans packed off the path
+OBSERVE = dict(name="llama2-7b", seed=5, serves=3,
+               tenants=("tenant-a", "tenant-b"), plans=1000, train_steps=3)
+#: Llama-2-7B's published config.json values (the HF hub's
+#: meta-llama/Llama-2-7b-hf), as a loaded checkpoint's config carries them
+LLAMA2_7B_CONFIG_JSON = dict(
+    model_type="llama", architectures=["LlamaForCausalLM"],
+    hidden_act="silu", hidden_size=4096, intermediate_size=11008,
+    num_attention_heads=32, num_hidden_layers=32, num_key_value_heads=32,
+    vocab_size=32000, rms_norm_eps=1e-5, rope_theta=10000.0,
+    max_position_embeddings=4096, rope_scaling=None,
+    tie_word_embeddings=False, torch_dtype="float16")
+OBSERVE_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                           "observe.tmp")
+#: the imported engine's first stream against the dense bf16 oracle:
+#: logits by max |error| over max |oracle logit|, and a token may part from
+#: the oracle's argmax only where the oracle's top-2 gap is within twice
+#: that step's max |logits error| (a near-tie, recorded). K1 in bf16 is held
+#: to 1e-2 of max |plain| per call (K1_TOL: p rounds to bf16 before the PV
+#: product); through 32 layers that compounds to between sqrt(32) x 1e-2 ~
+#: 0.06 (independent errors) and 32 x 1e-2 = 0.32 (aligned ones): 0.2
+OBSERVE_LOGITS_TOL = 0.2
+#: reqtrace's TTFT against this script's own put-to-first-commit time
+OBSERVE_TTFT_TOL_S = 5e-3
+
+
+def hf_llama_state_dict(cfg, dev, seed: int) -> dict:
+    """Seeded weights for the llama-family ``cfg`` under HF's names and
+    layout (torch Linear ``[out, in]``, bf16, an untied ``lm_head``), in
+    host memory as a loaded checkpoint holds them: each tensor drawn on
+    the card (N(0, 0.02), norms N(1, 0.05)) and copied to the host."""
+    E, H, KV, D = cfg.hidden_size, cfg.num_heads, cfg.kv_heads, cfg.head_dim
+    F, V = cfg.ffn_size, cfg.vocab_size
+    g = torch.Generator(device=dev)
+    g.manual_seed(seed)
+
+    def draw(*shape, mean=0.0, std=0.02):
+        t = torch.randn(shape, generator=g, device=dev, dtype=torch.float32)
+        return t.mul_(std).add_(mean).to(torch.bfloat16).cpu()
+
+    sd = {"model.embed_tokens.weight": draw(V, E)}
+    for i in range(cfg.num_layers):
+        p = f"model.layers.{i}."
+        sd[p + "input_layernorm.weight"] = draw(E, mean=1.0, std=0.05)
+        sd[p + "self_attn.q_proj.weight"] = draw(H * D, E)
+        sd[p + "self_attn.k_proj.weight"] = draw(KV * D, E)
+        sd[p + "self_attn.v_proj.weight"] = draw(KV * D, E)
+        sd[p + "self_attn.o_proj.weight"] = draw(E, H * D)
+        sd[p + "post_attention_layernorm.weight"] = draw(E, mean=1.0,
+                                                         std=0.05)
+        sd[p + "mlp.gate_proj.weight"] = draw(F, E)
+        sd[p + "mlp.up_proj.weight"] = draw(F, E)
+        sd[p + "mlp.down_proj.weight"] = draw(E, F)
+    sd["model.norm.weight"] = draw(E, mean=1.0, std=0.05)
+    sd["lm_head.weight"] = draw(V, E)
+    return sd
+
+
+def check_hf_leaves(tag, params, sd, cfg, dev) -> int:
+    """Every converted leaf against its source under the documented map, bit
+    for bit, with plain indexing: Linear weights transposed and split into
+    heads; q and k's head dims reordered from HF's half split to pairs
+    (``out[..., 2j] = src[..., j]``, ``out[..., 2j + 1] = src[..., j +
+    D/2]``); norms and the embedding as they are. Every source tensor is
+    used once and every leaf checked. Returns the leaves checked."""
+    from deepspeed_tpu_torch.inference.weights import flatten_tree
+
+    E, H, KV, D = cfg.hidden_size, cfg.num_heads, cfg.kv_heads, cfg.head_dim
+    flat = flatten_tree(params)
+    used: set[str] = set()
+    checked: set[str] = set()
+
+    def src(key):
+        used.add(key)
+        return sd[key].to(dev)
+
+    def heads(w, n, rope):
+        x = w.T.reshape(E, n, D)
+        if not rope:
+            return x
+        out = torch.empty_like(x)
+        out[:, :, 0::2] = x[:, :, :D // 2]
+        out[:, :, 1::2] = x[:, :, D // 2:]
+        return out
+
+    def same(name, want):
+        leaf = flat[name]
+        checked.add(name)
+        if leaf.dtype != want.dtype or leaf.shape != want.shape \
+                or not torch.equal(leaf, want):
+            raise AssertionError(f"[{tag}] leaf {name} ({leaf.dtype} "
+                                 f"{tuple(leaf.shape)}) is not its source "
+                                 f"under the map")
+
+    same("embed", src("model.embed_tokens.weight"))
+    same("unembed", src("lm_head.weight").T)
+    same("ln_final.scale", src("model.norm.weight"))
+    for i in range(cfg.num_layers):
+        p, q = f"model.layers.{i}.", f"layer_{i}."
+        same(q + "ln_attn.scale", src(p + "input_layernorm.weight"))
+        same(q + "ln_ffn.scale", src(p + "post_attention_layernorm.weight"))
+        same(q + "attn.wq", heads(src(p + "self_attn.q_proj.weight"), H,
+                                  True))
+        same(q + "attn.wk", heads(src(p + "self_attn.k_proj.weight"), KV,
+                                  True))
+        same(q + "attn.wv", heads(src(p + "self_attn.v_proj.weight"), KV,
+                                  False))
+        same(q + "attn.wo", src(p + "self_attn.o_proj.weight").T
+             .reshape(H, D, E))
+        same(q + "ffn.w_gate", src(p + "mlp.gate_proj.weight").T)
+        same(q + "ffn.w_up", src(p + "mlp.up_proj.weight").T)
+        same(q + "ffn.w_down", src(p + "mlp.down_proj.weight").T)
+    if used != set(sd) or checked != set(flat):
+        raise AssertionError(
+            f"[{tag}] sources unused {sorted(set(sd) - used)[:4]}, leaves "
+            f"unchecked {sorted(set(flat) - checked)[:4]}")
+    return len(checked)
+
+
+def rss_bytes() -> int:
+    """This process's resident set now (``VmRSS``)."""
+    with open("/proc/self/status") as f:
+        for line in f:
+            if line.startswith("VmRSS:"):
+                return int(line.split()[1]) * 1024
+    return 0
+
+
+def observe_import(dev) -> tuple:
+    """(a) llama2-7b from an HF-layout state dict in host memory, converted
+    onto the card by ``models.hf.from_hf_model``. Returns (model, params,
+    record)."""
+    import resource
+    from types import SimpleNamespace
+
+    from deepspeed_tpu_torch.models import PRESETS
+    from deepspeed_tpu_torch.models.hf import from_hf_model
+
+    tag = "observe import"
+    preset = PRESETS[OBSERVE["name"]]
+    rss0 = rss_bytes()
+    t0 = time.perf_counter()
+    sd = hf_llama_state_dict(preset, dev, OBSERVE["seed"])
+    rss_sd = rss_bytes()
+    nbytes = sum(t.numel() * t.element_size() for t in sd.values())
+    draw_s = time.perf_counter() - t0
+    hf = SimpleNamespace(config=SimpleNamespace(**LLAMA2_7B_CONFIG_JSON),
+                         state_dict=lambda: sd)
+    # the yardstick: the same tensors copied to the card as they are
+    free_cuda()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for t in sd.values():
+        t.to(dev)
+    torch.cuda.synchronize()
+    copy_s = time.perf_counter() - t0
+    free_cuda()
+    torch.cuda.reset_peak_memory_stats(dev)
+    base = torch.cuda.memory_allocated(dev)
+    t0 = time.perf_counter()
+    model, params = from_hf_model(hf, device=dev)
+    torch.cuda.synchronize()
+    convert_s = time.perf_counter() - t0
+    rss_converted = rss_bytes()
+    peak_dev = torch.cuda.max_memory_allocated(dev) - base
+    rss_peak = resource.getrusage(resource.RUSAGE_SELF).ru_maxrss * 1024
+    if dataclasses.replace(model.config, dtype=preset.dtype) != preset:
+        raise AssertionError(f"[{tag}] config {model.config} != the "
+                             f"{OBSERVE['name']} preset")
+    leaves = check_hf_leaves(tag, params, sd, model.config, dev)
+    for name, p in model.named_parameters():
+        if p.device != dev:
+            raise AssertionError(f"[{tag}] {name} on {p.device}")
+    rec = dict(source_bytes=nbytes, draw_s=draw_s, convert_s=convert_s,
+               convert_GBps=nbytes / convert_s / 1e9, copy_s=copy_s,
+               copy_GBps=nbytes / copy_s / 1e9, leaves=leaves,
+               peak_host_rss_bytes=rss_peak, rss_before_bytes=rss0,
+               rss_with_state_dict_bytes=rss_sd,
+               rss_after_convert_bytes=rss_converted,
+               peak_device_bytes_over_base=peak_dev,
+               resident_device_bytes=torch.cuda.memory_allocated(dev) - base)
+    log(f"[{tag}] {OBSERVE['name']} ({model.config.num_layers} layers) from "
+        f"a {nbytes / 1e9:.2f} GB bf16 HF-layout state dict in host memory "
+        f"(drawn in {draw_s:.1f} s): converted onto the card in "
+        f"{convert_s:.2f} s, {rec['convert_GBps']:.2f} GB/s (the tensors "
+        f"copied as they are: {copy_s:.2f} s, {rec['copy_GBps']:.2f} GB/s); "
+        f"config equals "
+        f"the preset but dtype; {leaves} leaves bit for bit their sources "
+        f"under the map, no source left over; host RSS {rss0 / 1e9:.2f} GB "
+        f"before, {rss_sd / 1e9:.2f} with the state dict, "
+        f"{rss_converted / 1e9:.2f} after the conversion (the process's "
+        f"peak {rss_peak / 1e9:.2f}); device peak {peak_dev / 1e9:.2f} GB "
+        f"over the {rec['resident_device_bytes'] / 1e9:.2f} GB kept")
+    del sd, hf
+    gc.collect()
+    return model, params, rec
+
+
+def observe_prompts(vocab: int, serve: int) -> list:
+    """The serve phase's traffic for serve number ``serve``: the shared
+    128-token system prefix (the same every serve) and fresh suffixes to
+    256-1024 tokens, so each serve prefills like the serve phase's first."""
+    lens, sys_len = TRAFFIC["shared-prefix"][:2]
+    system = torch.randint(0, vocab, (sys_len,),
+                           generator=torch.Generator().manual_seed(1))
+    g = torch.Generator().manual_seed(1000 + serve)
+    return [system.tolist() + torch.randint(0, vocab, (n - sys_len,),
+                                            generator=g).tolist()
+            for n in lens]
+
+
+def observe_engine(model, params, dev, cls=None, **over):
+    """The serve phase's engine settings over the imported weights (shared,
+    not copied), a first request publishing the system prefix and every
+    decode program captured."""
+    from deepspeed_tpu_torch.inference import InferenceEngineV2
+
+    lens, sys_len, new, max_seq_len, num_blocks = TRAFFIC["shared-prefix"]
+    eng = (cls or InferenceEngineV2)(model, params=params, config=dict(
+        block_size=64, num_blocks=num_blocks, max_seqs=8, chunk=256,
+        max_seq_len=max_seq_len, decode_window=8, dtype=torch.bfloat16,
+        device=dev, **over))
+    if eng.params["layer_0"]["attn"]["wq"].data_ptr() != \
+            params["layer_0"]["attn"]["wq"].data_ptr():
+        raise AssertionError("[observe] the engine copied the weights")
+    first = observe_prompts(model.config.vocab_size, -1)[0][:sys_len + 64]
+    eng.generate([first], max_new_tokens=8)
+    eng.warm_decode_windows()
+    eng.warm_decode_step()
+    return eng
+
+
+def telemetry_host_cost(eng, n: int = 2000) -> dict:
+    """The host work telemetry adds to a window dispatch, timed alone
+    (after the scrapes; its series are not checked again): the dispatch
+    span (perf_counter pair, ring slot, ``record_function`` + NVTX range),
+    the dispatch-side recorder, and the window's 8 lifecycle events (into
+    the tracer's unattributed ring here). µs each."""
+    telem, rt = eng._telem, eng._rt
+    out = {}
+    t0 = time.perf_counter_ns()
+    for _ in range(n):
+        with telem.span("dispatch", kind="window", W=8):
+            pass
+    out["span_us"] = (time.perf_counter_ns() - t0) / n / 1e3
+    t0 = time.perf_counter_ns()
+    for _ in range(n):
+        eng._record_dispatch_telemetry("decode_window", 8, 8, ())
+    out["recorder_us"] = (time.perf_counter_ns() - t0) / n / 1e3
+    t0 = time.perf_counter_ns()
+    for _ in range(n):
+        for _ in range(8):
+            rt.event(-1, "decode_window", W=8, tokens=8)
+    out["events_us"] = (time.perf_counter_ns() - t0) / n / 1e3
+    return out
+
+
+def observe_serve(tag, eng, prompts, new, record_plans=None) -> dict:
+    """The 8 requests through put/step/flush under two tenants, every
+    decode program captured beforehand. This script's own TTFT is put →
+    the drain that hands the uid's first token to the host (the engine's
+    commit, where both packages time TTFT), stamped by a wrapper around
+    ``_drain`` that reads no telemetry; p50 TTFT as the serve phase takes
+    it (from the serve's start to step()'s return)."""
+    cfg = eng.mcfg
+    captured0, replays0 = captured(eng), graph_replays(eng)
+    for k in list(eng.stats):
+        eng.stats[k] = 0 if not isinstance(eng.stats[k], float) else 0.0
+    plans0 = eng.scheduler.native_plans
+    committed: dict[int, float] = {}
+    drain = eng._drain
+
+    def stamped(*a, **kw):
+        out = drain(*a, **kw)
+        now = time.perf_counter()
+        for u, toks in out.items():
+            if toks and u not in committed:
+                committed[u] = now
+        return out
+
+    eng._drain = stamped
+    # every window dispatch timed whole (plan, dispatch, the recorders)
+    window_us: list[float] = []
+    dispatch_window = eng._try_dispatch_window
+
+    def timed_window(*a, **kw):
+        t = time.perf_counter_ns()
+        ok = dispatch_window(*a, **kw)
+        if ok:
+            window_us.append((time.perf_counter_ns() - t) / 1e3)
+        return ok
+
+    eng._try_dispatch_window = timed_window
+    native = eng.scheduler._native_build
+    if record_plans is not None:
+        from types import SimpleNamespace
+
+        def recording(plan, T, entries, row_of):
+            record_plans.append((plan.token_ids.shape[0], T, [
+                (SimpleNamespace(uid=s.uid, slot=s.slot,
+                                 blocks=list(s.blocks)), list(toks), start,
+                 sample) for s, toks, start, sample in entries],
+                dict(row_of)))
+            return native(plan, T, entries, row_of)
+
+        eng.scheduler._native_build = recording
+    reset_counts()
+    torch.cuda.synchronize()
+    tail_ev, end_ev = (torch.cuda.Event(enable_timing=True)
+                       for _ in range(2))
+    tail = None
+    t_put: dict[int, float] = {}
+    first: dict[int, float] = {}
+    out: dict[int, list[int]] = {u: [] for u in range(len(prompts))}
+    try:
+        t0 = time.perf_counter()
+        for uid, p in enumerate(prompts):
+            t_put[uid] = time.perf_counter()
+            eng.put(uid, p, max_new_tokens=new,
+                    tenant=OBSERVE["tenants"][uid % 2])
+        while any(not eng.query(u).get("done", True) for u in out):
+            if tail is None and not eng.scheduler.pending_kinds()[0]:
+                tail_ev.record()
+                tail = token_steps(eng)
+            emitted = eng.step()
+            now = time.perf_counter() - t0
+            for u, toks in emitted.items():
+                if toks and u not in first:
+                    first[u] = now
+                out[u].extend(toks)
+        end_ev.record()
+        wall = time.perf_counter() - t0
+        torch.cuda.synchronize()
+    finally:
+        del eng._drain, eng._try_dispatch_window
+        if record_plans is not None:
+            del eng.scheduler._native_build
+    launches = all_counts()
+    st = dict(eng.stats)
+    replays = check_replays(tag, eng, replays0, {})
+    if captured(eng) != captured0:
+        raise AssertionError(f"[{tag}] captured "
+                             f"{sorted(captured(eng) - captured0)} in the "
+                             f"serve")
+    streams = {}
+    for u in out:
+        streams[u] = eng.flush(u)
+        if streams[u] != out[u] or len(out[u]) != new:
+            raise AssertionError(f"[{tag}] uid {u}: stream of "
+                                 f"{len(out[u])}")
+    eng.state.audit()
+    check_launches(tag, launches, cfg, forwards=forwards_of(eng),
+                   e4m3_pool=False, quant=False, bf16=True)
+    plans = st["prefill_steps"] + st["decode_steps"]
+    native_plans = eng.scheduler.native_plans - plans0
+    if native_plans != plans or plans == 0:
+        raise AssertionError(f"[{tag}] {native_plans} plans packed by "
+                             f"dstpu_build_atoms for {plans} plans")
+    tail_steps = token_steps(eng) - tail
+    return dict(streams=streams, wall_s=wall,
+                ttft_s={u: committed[u] - t_put[u] for u in out},
+                ttft_p50_s=statistics.median(first.values()),
+                decode_ms_per_token=tail_ev.elapsed_time(end_ev) / tail_steps,
+                window_dispatch_s=st["window_dispatch_s"], window_us=window_us,
+                windows=st["windows"], forced_drains=st["forced_drains"],
+                opportunistic_drains=st["opportunistic_drains"],
+                replays=replays, launches=launches, plans=plans,
+                native_plans=native_plans)
+
+
+def observe_scrape(tag, telem, port: int) -> dict:
+    """/metrics and /healthz over 127.0.0.1: the serve's exact counts, the
+    occupancy histograms, the page gauge and both tenants' series."""
+    import urllib.request
+
+    base = f"http://127.0.0.1:{port}"
+    with urllib.request.urlopen(base + "/metrics", timeout=30) as r:
+        text = r.read().decode()
+    with urllib.request.urlopen(base + "/healthz", timeout=30) as r:
+        health = json.loads(r.read().decode())
+    n, new = len(TRAFFIC["shared-prefix"][0]), TRAFFIC["shared-prefix"][2]
+    want = [f"serving_ttft_s_count {n}", f"serving_tokens_total {n * new}",
+            f"serving_queue_wait_s_count {n}", f"serving_requests_total {n}",
+            "serving_prefill_occupancy_count",
+            "serving_decode_window_occupancy_count",
+            "serving_kv_page_utilization "]
+    for tenant in OBSERVE["tenants"]:
+        want.append(f'serving_tenant_requests_total{{tenant="{tenant}"}} '
+                    f'{n // 2}')
+        want.append(f'serving_tenant_ttft_s_count{{tenant="{tenant}"}} '
+                    f'{n // 2}')
+    missing = [w for w in want if w not in text]
+    if missing or health.get("serving") is not True:
+        raise AssertionError(f"[{tag}] /metrics lacks {missing}; /healthz "
+                             f"{health}")
+    return dict(metrics_lines=text.count("\n"), health=health)
+
+
+def observe_timelines(tag, rt, ttft: dict) -> dict:
+    """8 completed timelines, every kind a lifecycle event, enqueue to
+    release, each TTFT (its first commit after its enqueue) within
+    OBSERVE_TTFT_TOL_S of this script's own."""
+    from deepspeed_tpu_torch.telemetry import LIFECYCLE_EVENTS
+
+    tls = rt.timelines()
+    if sorted(tl["uid"] for tl in tls) != sorted(ttft):
+        raise AssertionError(f"[{tag}] timelines for "
+                             f"{sorted(tl['uid'] for tl in tls)}")
+    worst = 0.0
+    for tl in tls:
+        kinds = [e["kind"] for e in tl["events"]]
+        if kinds[0] != "enqueue" or kinds[-1] != "release" or \
+                not set(kinds) <= set(LIFECYCLE_EVENTS) or \
+                tl["events_dropped"]:
+            raise AssertionError(f"[{tag}] uid {tl['uid']}: {kinds}")
+        t_first = next(e["t"] for e in tl["events"] if e["kind"] == "commit")
+        mine = t_first - tl["events"][0]["t"]
+        worst = max(worst, abs(mine - ttft[tl["uid"]]))
+    if worst > OBSERVE_TTFT_TOL_S:
+        raise AssertionError(f"[{tag}] reqtrace TTFT {worst * 1e3:.2f} ms "
+                             f"off this script's")
+    return dict(timelines=len(tls), ttft_max_diff_s=worst)
+
+
+def observe_oracle(tag, model, params, dev, want_stream) -> dict:
+    """The first request's greedy stream on a tap engine (the same weights
+    and serve, its programs also returning logits) equals the observed
+    one, and is held against the dense oracle (``attn_impl="xla"``) in the
+    parity phase's form at bf16 (OBSERVE_LOGITS_TOL)."""
+    from deepspeed_tpu_torch.models.transformer import TransformerLM
+
+    eng = observe_engine(model, params, dev, cls=tap_engine_class())
+    prompts = observe_prompts(model.config.vocab_size, 0)
+    new = TRAFFIC["shared-prefix"][2]
+    eng.taps.clear()                  # the first request's
+    got = eng.generate(prompts, max_new_tokens=new)
+    taps = eng.taps[0]
+    del eng
+    free_cuda()
+    if got[0] != want_stream:
+        raise AssertionError(f"[{tag}] the tap engine's first stream is "
+                             f"not the observed one")
+    oracle = TransformerLM(dataclasses.replace(model.config,
+                                               attn_impl="xla"),
+                           device="meta", param_dtype=torch.bfloat16)
+    from deepspeed_tpu_torch.inference.weights import flatten_tree
+
+    oracle.load_state_dict(flatten_tree(params), strict=True, assign=True)
+    worst, near, seq = 0.0, [], list(prompts[0])
+    with torch.no_grad():
+        for k, tok in enumerate(got[0]):
+            ref = oracle(torch.tensor([seq], device=dev))[0, -1].float()
+            ours = taps[k].to(dev)
+            err = (ours - ref).abs().max().item()
+            rel = err / ref.abs().max().item()
+            worst = max(worst, rel)
+            if rel > OBSERVE_LOGITS_TOL:
+                raise AssertionError(f"[{tag}] step {k}: logits {rel:.2e} "
+                                     f"relative off the oracle's")
+            if int(ref.argmax()) != tok:
+                top2 = torch.topk(ref, 2).values
+                gap = (top2[0] - top2[1]).item()
+                if gap > 2 * err:
+                    raise AssertionError(
+                        f"[{tag}] step {k}: token {tok} != oracle "
+                        f"{int(ref.argmax())}, top-2 gap {gap:.3e} > 2 x "
+                        f"{err:.3e}")
+                near.append((k, gap, err))
+                log(f"[{tag}] NEAR-TIE step {k}: oracle top-2 gap "
+                    f"{gap:.3e} within 2 x the step's logits error "
+                    f"{err:.3e}")
+            seq.append(tok)
+    del oracle
+    free_cuda()
+    return dict(max_rel_logits_err=worst, near_ties=near, tokens=len(got[0]))
+
+
+def observe_plans(tag, recorded) -> dict:
+    """(c) The serve's plans, OBSERVE["plans"] of them cycled, packed by
+    both packers into fresh arrays off the path: equal, with each one's
+    host µs a plan."""
+    import numpy as np
+
+    from deepspeed_tpu_torch.inference.ragged import StateManager, StepPlan
+    from deepspeed_tpu_torch.inference.scheduler import SplitFuseScheduler
+
+    lens, sys_len, new, max_seq_len, num_blocks = TRAFFIC["shared-prefix"]
+    st = StateManager(num_blocks, 64, 8, -(-max_seq_len // 64))
+    sched = SplitFuseScheduler(st, 256)
+    mb = st.max_blocks_per_seq
+    names = ("token_ids", "positions", "slot_map", "active", "block_tables",
+             "seq_lens", "sample_idx", "do_sample")
+
+    def fresh(S, T):
+        return StepPlan(
+            kind="prefill", token_ids=np.zeros((S, T), np.int32),
+            positions=np.zeros((S, T), np.int32),
+            slot_map=np.zeros((S, T), np.int32),
+            active=np.zeros((S, T), np.uint8),
+            block_tables=np.zeros((S, mb), np.int32),
+            seq_lens=np.zeros(S, np.int32),
+            sample_idx=np.zeros(S, np.int32),
+            do_sample=np.zeros(S, np.uint8))
+
+    native_ns = python_ns = 0
+    for i in range(OBSERVE["plans"]):
+        S, T, entries, row_of = recorded[i % len(recorded)]
+        a, b = fresh(S, T), fresh(S, T)
+        t0 = time.perf_counter_ns()
+        sched._native_build(a, T, entries, row_of)
+        t1 = time.perf_counter_ns()
+        sched._python_build(b, T, entries, row_of)
+        t2 = time.perf_counter_ns()
+        native_ns += t1 - t0
+        python_ns += t2 - t1
+        for n in names:
+            if not np.array_equal(getattr(a, n), getattr(b, n)):
+                raise AssertionError(f"[{tag}] plan {i}: {n} differs")
+    n = OBSERVE["plans"]
+    rec = dict(plans=n, distinct=len(recorded),
+               native_us=native_ns / n / 1e3, python_us=python_ns / n / 1e3)
+    log(f"[{tag}] {n} plans of the serve's {len(recorded)} shapes packed "
+        f"both ways off the path, equal: dstpu_build_atoms "
+        f"{rec['native_us']:.1f} host us a plan, the Python packer "
+        f"{rec['python_us']:.1f}")
+    return rec
+
+
+def train_step_flops(spec: dict) -> float:
+    """This script's own count of a train step's model FLOPs for ``spec``
+    (a dense llama-family preset): 3 x the forward's 2 per weight of every
+    product per token plus 4 x head_dim per query head and causal pair."""
+    from deepspeed_tpu_torch.models import get_model_config
+
+    c = get_model_config(spec["name"])
+    E, H, KV, D, F, V = (c.hidden_size, c.num_heads, c.kv_heads, c.head_dim,
+                         c.ffn_size, c.vocab_size)
+    L, S = spec["layers"], spec["seq"]
+    rows = spec["micro"] * spec["gas"]
+    weights = L * (2 * E * H * D + 2 * E * KV * D + 3 * E * F) + V * E
+    fwd = 2.0 * weights * rows * S + 4.0 * D * H * L * S * (S + 1) / 2 * rows
+    return 3.0 * fwd
+
+
+def observe_train(dev, telem, port: int, card: str) -> dict:
+    """(d) The train phase's 8-layer spec, OBSERVE["train_steps"] steps
+    through K4: with the three off (first, so that whatever the first step
+    of a process loads is loaded), then with the telemetry section, the CSV
+    monitor (under OBSERVE_DIR) and the Prometheus backend. Losses bit for
+    bit; the MFU gauge — over every step of the run, the first included, as
+    the tracker counts a run — within 2% of this script's FLOPs over its
+    own step times and PEAK_OPS[bf16]; a CSV row per step; the Prometheus
+    backend's gauges on /metrics. Also prints the steady MFU (the steps
+    after the first, by this script's times)."""
+    import urllib.request
+
+    import deepspeed_tpu_torch as dst
+    from deepspeed_tpu_torch.models import build_model
+
+    spec = dict(TRAIN, steps=OBSERVE["train_steps"])
+    tag = f"observe train {spec['name']} x{spec['layers']}"
+    L, gas, steps = spec["layers"], spec["gas"], spec["steps"]
+    runs = {}
+    for label in ("off", "on"):
+        over = dict(activation_checkpointing={"policy": "full"},
+                    steps_per_print=1, wall_clock_breakdown=True)
+        if label == "on":
+            telem.reconfigure(enabled=True)
+            telem.registry.reset()
+            over.update(telemetry={"enabled": True},
+                        csv_monitor={"enabled": True,
+                                     "output_path": OBSERVE_DIR,
+                                     "job_name": "train"},
+                        prometheus={"enabled": True, "port": port})
+        else:
+            telem.reconfigure(enabled=False)
+        free_cuda()
+        model = build_model(spec["name"], num_layers=L,
+                            dtype=torch.bfloat16, param_dtype=torch.float32,
+                            device=dev, seed=0)
+        engine, *_ = dst.initialize(model=model,
+                                    config=train_config(spec, **over))
+        batch = train_batch_of(spec, model.config.vocab_size, seed=3)
+        reset_counts()
+        losses, step_s = [], []
+        for _ in range(steps):
+            torch.cuda.synchronize()
+            ts = time.perf_counter()
+            losses.append(float(engine.train_batch(batch)))
+            step_s.append(time.perf_counter() - ts)
+        launches = all_counts()
+        want = {k: 0 for k in launches}
+        want.update(k4_fwd=L * gas * 2 * steps, k4_bwd=L * gas * steps)
+        if launches != want:
+            raise AssertionError(f"[{tag} {label}] launches {launches}")
+        runs[label] = dict(losses=losses, step_s=step_s, launches=launches)
+        if label == "on":
+            snap = telem.registry.snapshot()
+            m = snap["train_mfu"]["series"][0]["value"]
+            g = snap["train_goodput"]["series"][0]["value"]
+            own = train_step_flops(spec) * steps / (
+                sum(step_s) * PEAK_OPS[torch.bfloat16])
+            if abs(m - own) > 0.02 * own or g != m:
+                raise AssertionError(f"[{tag}] MFU gauge {m:.6g}, goodput "
+                                     f"{g:.6g}, own {own:.6g} (step "
+                                     f"FLOPs {engine._step_flops:.6g}, this "
+                                     f"script's {train_step_flops(spec):.6g}"
+                                     f")")
+            csv = os.path.join(OBSERVE_DIR, "train",
+                               "Train_train_batch_ms.csv")
+            with open(csv) as f:
+                rows = f.read().strip().split("\n")[1:]
+            if [r.split(",")[0] for r in rows] != \
+                    [str(i + 1) for i in range(steps)]:
+                raise AssertionError(f"[{tag}] CSV rows {rows}")
+            with urllib.request.urlopen(f"http://127.0.0.1:{port}/metrics",
+                                        timeout=30) as r:
+                text = r.read().decode()
+            if "Train_train_batch_ms " not in text or \
+                    f"monitor_last_step {float(steps)}" not in text:
+                raise AssertionError(f"[{tag}] /metrics lacks the "
+                                     f"Prometheus backend's gauges")
+            steady = train_step_flops(spec) / (
+                statistics.mean(step_s[1:]) * PEAK_OPS[torch.bfloat16])
+            runs[label].update(mfu=m, goodput=g, own_mfu=own,
+                               steady_mfu=steady,
+                               step_flops=engine._step_flops,
+                               csv_rows=len(rows))
+        engine.close()
+        del engine, model
+        free_cuda()
+    if runs["on"]["losses"] != runs["off"]["losses"]:
+        raise AssertionError(f"[{tag}] losses {runs['on']['losses']} with "
+                             f"telemetry, {runs['off']['losses']} without")
+    on = runs["on"]
+    log(f"[{tag}] {card}: losses bit for bit with and without telemetry "
+        f"({', '.join(f'{x:.4f}' for x in on['losses'])}); MFU "
+        f"{on['mfu']:.4f} (this script's {on['own_mfu']:.4f}), goodput "
+        f"{on['goodput']:.4f}, steady (steps 2-{steps}) "
+        f"{on['steady_mfu']:.4f}; {on['csv_rows']} CSV rows; ms per step on "
+        f"{statistics.mean(on['step_s'][1:]) * 1e3:.1f}, off "
+        f"{statistics.mean(runs['off']['step_s'][1:]) * 1e3:.1f}; K4 "
+        f"{on['launches']['k4_fwd']} / {on['launches']['k4_bwd']}")
+    return runs
+
+
+def observe_breach(dev, model, params, telem) -> dict:
+    """(e) Last, once every timed leg of every phase has run (a profiler's
+    CUPTI tracing stays subscribed): a 1 ms TTFT SLO with
+    ``breach_profile_dir`` makes the one request breach; the capture's
+    Chrome trace names the engine's ``dispatch`` ranges and the K1 kernels
+    the decode graphs replayed."""
+    import glob
+
+    tag = "observe breach"
+    rt = telem.reqtrace
+    prof_dir = os.path.join(OBSERVE_DIR, "breach")
+    telem.reconfigure(enabled=True, reqtrace=True)
+    eng = observe_engine(model, params, dev, telemetry=True, reqtrace=True)
+    prompts = observe_prompts(model.config.vocab_size, 0)
+    new = TRAFFIC["shared-prefix"][2]
+    # the SLO and the capture armed once the warm-up and the captures ran
+    telem.reconfigure(slo_ttft_s=1e-3, breach_interval_s=0.0,
+                      breach_profile_dir=prof_dir, breach_profile_s=0.3,
+                      flight_recorder_path=os.path.join(OBSERVE_DIR,
+                                                        "flight.json"))
+    breaches0 = rt.breaches
+    reset_counts()
+    eng.generate(prompts[:1], max_new_tokens=new)
+    rt.finish_profile()
+    k1 = all_counts()["k1"]
+    traces = sorted(glob.glob(os.path.join(prof_dir, "breach_*.json")))
+    if rt.breaches - breaches0 != 1 or not traces:
+        raise AssertionError(f"[{tag}] {rt.breaches - breaches0} breaches, "
+                             f"traces {traces}")
+    with open(traces[0]) as f:
+        events = json.load(f)["traceEvents"]
+    names = [e.get("name", "") for e in events]
+    dispatch = sum(n == "dispatch" for n in names)
+    k1_named = sum("ragged_paged_attn" in n for n in names)
+    if not dispatch or not k1_named:
+        raise AssertionError(f"[{tag}] the trace names {dispatch} dispatch "
+                             f"ranges and {k1_named} K1 kernels")
+    rt.slo_ttft_s = None
+    rt.breach_profile_dir = None
+    del eng
+    free_cuda()
+    rec = dict(breaches=1, trace_events=len(events), dispatch_ranges=dispatch,
+               k1_kernels_named=k1_named, k1_launches=k1)
+    log(f"[{tag}] one request past a 1 ms TTFT SLO: flight dump and a "
+        f"torch.profiler capture of {len(events)} events naming {dispatch} "
+        f"dispatch ranges and {k1_named} K1 kernel runs ({k1} K1 launches "
+        f"in the serve)")
+    return rec
+
+
+def phase_observe(dev) -> dict:
+    """See the module docstring, phase 13."""
+    from deepspeed_tpu_torch import telemetry
+    from deepspeed_tpu_torch.accelerator import card_name_and_power_limit
+
+    t_phase = time.perf_counter()
+    card = card_name_and_power_limit()
+    log(f"[observe] {card}")
+    shutil.rmtree(OBSERVE_DIR, ignore_errors=True)
+    os.makedirs(OBSERVE_DIR)
+    telem = telemetry.get_telemetry()
+    rec: dict = {"card": card}
+    try:
+        model, params, rec["import"] = observe_import(dev)
+        # (b) the observed serve against the same weights without telemetry
+        telem.reconfigure(enabled=True, reqtrace=True)
+        port = telem.start_http(0)
+        on = observe_engine(model, params, dev, telemetry=True,
+                            reqtrace=True)
+        off = observe_engine(model, params, dev, telemetry=False)
+        if off._telem.enabled or off._rt.enabled or not on._rt.enabled:
+            raise AssertionError("[observe] telemetry pins")
+        vocab, new = model.config.vocab_size, TRAFFIC["shared-prefix"][2]
+        # one untimed serve each first: the serve's shapes meet cuBLAS and
+        # the kernels' caches once, before either timed serve
+        for eng in (on, off):
+            observe_serve("observe warm", eng, observe_prompts(vocab, -2),
+                          new)
+        serves = {"on": [], "off": []}
+        recorded: list = []
+        for i in range(OBSERVE["serves"]):
+            prompts = observe_prompts(vocab, i)
+            # the pair's order alternates: on first, then off first, ...
+            order = (("on", on), ("off", off))[::1 if i % 2 == 0 else -1]
+            for label, eng in order:
+                tag = f"observe serve {label} {i + 1}"
+                if label == "on":
+                    telem.reset_metrics()
+                    telem.tracer.clear()
+                    telem.reqtrace.clear()
+                res = observe_serve(tag, eng, prompts, new,
+                                    recorded if (label, i) == ("on", 0)
+                                    else None)
+                if label == "on":
+                    res["scrape"] = observe_scrape(tag, telem, port)
+                    res["reqtrace"] = observe_timelines(tag, telem.reqtrace,
+                                                        res["ttft_s"])
+                    path = telem.export_chrome_trace(
+                        os.path.join(OBSERVE_DIR, f"serve{i}.json"))
+                    with open(path) as f:
+                        names = {e["name"] for e in
+                                 json.load(f)["traceEvents"]}
+                    if not {"admit", "dispatch", "drain_block"} <= names:
+                        raise AssertionError(f"[{tag}] spans {names}")
+                serves[label].append(res)
+            a, b = serves["on"][-1], serves["off"][-1]
+            same = {k: a[k] == b[k] for k in ("streams", "replays",
+                                               "forced_drains")}
+            same["k1"] = a["launches"] == b["launches"]
+            if not all(same.values()):
+                raise AssertionError(f"[observe] serve {i + 1}: on vs off "
+                                     f"{same}; drains {a['forced_drains']}"
+                                     f"/{b['forced_drains']}")
+        host_cost = telemetry_host_cost(on)
+        first = serves["on"][0]["streams"][0]
+        del on, off
+        free_cuda()
+
+        def med(label, key):
+            return statistics.median(r[key] for r in serves[label])
+
+        summary = {label: {
+            "decode_ms_per_token": med(label, "decode_ms_per_token"),
+            "ttft_p50_s": med(label, "ttft_p50_s"),
+            # every window of the serves: their dispatch seconds summed
+            "window_dispatch_us": 1e6 * sum(r["window_dispatch_s"]
+                                            for r in serves[label])
+            / sum(r["windows"] for r in serves[label]),
+            # each window's whole dispatch call, the recorders included
+            "window_call_us_p50": statistics.median(
+                u for r in serves[label] for u in r["window_us"]),
+            "window_call_us_mean": statistics.mean(
+                u for r in serves[label] for u in r["window_us"])}
+            for label in serves}
+        rec["serve"] = {"summary": summary, "host_cost": host_cost,
+                        "runs": {
+            label: [{k: v for k, v in r.items() if k not in ("streams",
+                                                             "ttft_s")}
+                    for r in runs] for label, runs in serves.items()}}
+        s_on, s_off = summary["on"], summary["off"]
+        log(f"[observe serve] {card}: {OBSERVE['serves']} serves each, "
+            f"streams, replays, forced drains and K1 launches equal on and "
+            f"off; on / off: decode {s_on['decode_ms_per_token']:.3f} / "
+            f"{s_off['decode_ms_per_token']:.3f} ms a token-step (medians), "
+            f"{s_on['window_dispatch_us']:.1f} / "
+            f"{s_off['window_dispatch_us']:.1f} host us a window dispatch "
+            f"(every window; the whole dispatch call, recorders included: "
+            f"median {s_on['window_call_us_p50']:.1f} / "
+            f"{s_off['window_call_us_p50']:.1f}, mean "
+            f"{s_on['window_call_us_mean']:.1f} / "
+            f"{s_off['window_call_us_mean']:.1f}), p50 TTFT "
+            f"{s_on['ttft_p50_s']:.4f} / "
+            f"{s_off['ttft_p50_s']:.4f} s (medians); the added work timed "
+            f"alone: span {host_cost['span_us']:.2f} us, recorder "
+            f"{host_cost['recorder_us']:.2f} us, 8 events "
+            f"{host_cost['events_us']:.2f} us; reqtrace TTFT within "
+            f"{max(r['reqtrace']['ttft_max_diff_s'] for r in serves['on']) * 1e3:.2f}"
+            f" ms of this script's; "
+            f"{sum(r['native_plans'] for r in serves['on'])} plans of the "
+            f"on-serves packed by dstpu_build_atoms")
+        rec["oracle"] = observe_oracle("observe oracle", model, params, dev,
+                                       first)
+        log(f"[observe oracle] the first stream ({rec['oracle']['tokens']} "
+            f"tokens) against the dense bf16 oracle: logits within "
+            f"{rec['oracle']['max_rel_logits_err']:.2e} relative, "
+            f"{len(rec['oracle']['near_ties'])} near-ties")
+        rec["plans"] = observe_plans("observe plans", recorded)
+        del model, params
+        free_cuda()
+        rec["train"] = observe_train(dev, telem, port, card)
+        rec["launches"] = {
+            "k1": sum(r["launches"]["k1"] for runs in serves.values()
+                      for r in runs),
+            "k4_fwd": sum(r["launches"]["k4_fwd"]
+                          for r in rec["train"].values()),
+            "k4_bwd": sum(r["launches"]["k4_bwd"]
+                          for r in rec["train"].values())}
+    finally:
+        telem.stop_http()
+        telem.reconfigure(enabled=False, reqtrace=False)
+        shutil.rmtree(OBSERVE_DIR, ignore_errors=True)
+        free_cuda()
+    rec["seconds"] = time.perf_counter() - t_phase
+    log(f"[observe] (a)-(d) {rec['seconds']:.1f} s; launches "
+        f"{rec['launches']}")
+    return rec
+
+
+def phase_observe_breach(dev) -> dict:
+    """Phase 13 (e), run last of all: the breach capture over the seeded
+    llama2-7b (full depth, bf16), its telemetry set up as in (b)."""
+    from deepspeed_tpu_torch import telemetry
+    from deepspeed_tpu_torch.inference.weights import module_param_tree
+    from deepspeed_tpu_torch.models import build_model
+
+    t_phase = time.perf_counter()
+    shutil.rmtree(OBSERVE_DIR, ignore_errors=True)
+    os.makedirs(OBSERVE_DIR)
+    telem = telemetry.get_telemetry()
+    try:
+        model = build_model(OBSERVE["name"], dtype=torch.bfloat16,
+                            device=dev, seed=OBSERVE["seed"])
+        rec = observe_breach(dev, model, module_param_tree(model), telem)
+        del model
+    finally:
+        telem.reconfigure(enabled=False, reqtrace=False)
+        shutil.rmtree(OBSERVE_DIR, ignore_errors=True)
+        free_cuda()
+    rec["seconds"] = time.perf_counter() - t_phase
+    return rec
+
+
+# ---------------------------------------------------------------------------
 # main
 # ---------------------------------------------------------------------------
 
@@ -6182,6 +7097,22 @@ def main() -> int:
                                       "k3": k3_cases, "k4": k4_cases,
                                       "k5": k5_cases, "k6": k6_cases,
                                       "k7": k7_cases}
+    if "observe" in phases:
+        # telemetry and HF import: its timed legs before any profiler of
+        # any phase runs (the serve phase profiles after its serves)
+        observe = phase_observe(dev)
+        record["phases"]["observe"] = observe
+        summ = observe["serve"]["summary"]
+        k1["observe"] = {
+            "card": observe["card"],
+            "import_GBps": observe["import"]["convert_GBps"],
+            "decode_ms_per_token": [summ["on"]["decode_ms_per_token"],
+                                    summ["off"]["decode_ms_per_token"]],
+            "window_dispatch_us": [summ["on"]["window_dispatch_us"],
+                                   summ["off"]["window_dispatch_us"]],
+            "plan_us": [observe["plans"]["native_us"],
+                        observe["plans"]["python_us"]],
+            "mfu": observe["train"]["on"]["mfu"]}
     if "parity" in phases:
         record["phases"]["parity"] = phase_parity(dev)
     if "serve" in phases:
@@ -6260,6 +7191,16 @@ def main() -> int:
             "tier_crc_share": tier["crc_share"],
             "swap_s": {k: swap[k] for k in ("save_s", "verify_s",
                                             "quiesce_s", "swap_s")}}
+    if "observe" in phases:
+        # the breach capture (a profiler) last of all
+        breach = phase_observe_breach(dev)
+        observe["breach"] = breach
+        # K1 on every forward of the observed serves (telemetry on and
+        # off) and of the breach capture's; K4 in the observed training
+        got = dict(observe["launches"])
+        got["k1"] += breach["k1_launches"]
+        for rec, key in ((k1, "k1"), (k4_fwd, "k4_fwd"), (k4_bwd, "k4_bwd")):
+            rec["launches"] = (rec["launches"] or 0) + got[key]
     record["seconds"] = time.perf_counter() - t_start
     os.makedirs(args.out, exist_ok=True)
     with open(os.path.join(args.out, "chip_smoke.json"), "w") as f:

@@ -240,8 +240,10 @@ class TelemetryConfig:
     enabled: bool = False
     #: span ring-buffer capacity (most recent N spans retained)
     span_buffer: int = 4096
-    #: mirror spans into jax.profiler Trace/StepTraceAnnotation so host
-    #: spans overlay the xplane device trace (profiling/trace.py)
+    #: mirror every span as a torch.profiler ``record_function`` range
+    #: (plus an NVTX range on CUDA) so a torch.profiler trace groups the
+    #: kernels a span launched under its name. The key keeps the JAX
+    #: package's name so one JSON drives both packages
     mirror_jax: bool = True
     #: serve /metrics + /healthz on this port (None = off; 0 = ephemeral)
     http_port: int | None = None
@@ -250,8 +252,8 @@ class TelemetryConfig:
     #: where watchdog/divergence dumps land (None → DS_TPU_FLIGHT_RECORDER
     #: env var, else log-only)
     flight_recorder_path: str | None = None
-    #: MFU denominator override (per-chip dense bf16 peak); None = probe
-    #: the device kind (telemetry/mfu.py table; unknown/CPU → no MFU gauge)
+    #: MFU denominator override (per-card dense bf16 peak); None = probe
+    #: the card's name (telemetry/mfu.py table; unknown/CPU → no MFU gauge)
     peak_tflops: float | None = None
     #: per-request lifecycle tracing (telemetry/reqtrace.py): trace IDs,
     #: sampled timelines, per-tenant attribution, SLO-breach auto-capture
@@ -276,7 +278,8 @@ class TelemetryConfig:
     #: min seconds between breach DUMPS (the counter always increments;
     #: tracer default 60)
     breach_interval_s: float | None = None
-    #: when set, a breach also captures a bounded jax.profiler trace here
+    #: when set, a breach also captures a bounded torch.profiler trace
+    #: (CPU ranges + CUDA kernels, a Chrome trace) here
     breach_profile_dir: str | None = None
     breach_profile_s: float | None = None
     #: aggregate scrape (/metrics?aggregate=1): peer snapshot files older

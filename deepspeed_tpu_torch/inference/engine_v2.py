@@ -34,8 +34,22 @@ key (``inference/programs.py``; ``warm_decode_windows`` and
 ``while_loop`` form's exit, which a graph cannot take) run eagerly, equally
 asynchronous; on the CPU every program runs eagerly through the kernels'
 plain versions. ``weight_prefetch`` (an XLA scheduling hint) has no
-counterpart. Features of later slices (tensor parallelism, telemetry,
-request tracing) raise NotImplementedError at construction.
+counterpart. Tensor parallelism, a later slice, raises NotImplementedError
+at construction.
+
+Telemetry (``telemetry=True``, ``reqtrace=True``; ``telemetry/``), at the
+JAX engine's sites with its metric, span and event names: ``admit``,
+``dispatch`` (by plan kind, ``window``, ``spec_verify``) and
+``drain_block`` spans, and the KV-movement spans; the serving histograms
+(TTFT, time between tokens, queue wait, occupancy), the KV-page gauges and
+the token counters; per-request lifecycle timelines with tenants
+(``put(..., tenant=)``), exemplars and SLO-breach dumps. Every hook reads
+host state only — no hook synchronizes with the card or reads a device
+tensor: dispatch-side instruments run after the enqueue, commit-side ones
+after the drain's copy. TTFT and the time between tokens are therefore
+COMMIT times, as in the JAX engine: under ``max_inflight`` > 0 commits
+trail the device by design, and a span around a graph replay times the
+host's enqueue, not the kernels.
 
 KV movement (the JAX engine's surface, with its contracts, stats keys and
 refusals): page migration (``export_migration`` / ``export_commit`` /
@@ -215,8 +229,6 @@ def _refuse_later_slices(cfg: RaggedInferenceConfig) -> None:
          "tensor parallelism (per-shard quantization)"),
         (cfg.tensor_parallel != 1 or cfg.tp_overlap, "tensor_parallel>1",
          "tensor parallelism"),
-        (cfg.telemetry, "telemetry=True", "serving telemetry"),
-        (cfg.reqtrace, "reqtrace=True", "request tracing"),
     ]
     for on, what, slice_ in later:
         if on:
@@ -392,6 +404,57 @@ class InferenceEngineV2:
         self._programs = ProgramCache(dev, self._gen) if cuda else None
         self._staging = (HostStaging(max(cfg.max_inflight, 1) + 2) if cuda
                          else None)
+        # serving SLO instruments (telemetry/) — all no-ops when disabled
+        from .. import telemetry as _telemetry
+        if cfg.reqtrace and cfg.telemetry is False:
+            raise ValueError(
+                "reqtrace=True cannot combine with telemetry=False: "
+                "request timelines ride the telemetry bundle (drop the "
+                "telemetry=False pin or disable reqtrace)")
+        if cfg.telemetry or cfg.reqtrace:
+            rt_kw: dict[str, Any] = {}
+            if cfg.reqtrace:
+                # reqtrace implies the base substrate: timelines without
+                # the registry/recorder would answer nothing
+                rt_kw = {"reqtrace": True}
+                if cfg.reqtrace_sample is not None:
+                    rt_kw["reqtrace_sample"] = cfg.reqtrace_sample
+                if cfg.slo_ttft_s is not None:
+                    rt_kw["slo_ttft_s"] = cfg.slo_ttft_s
+                if cfg.slo_tbt_s is not None:
+                    rt_kw["slo_tbt_s"] = cfg.slo_tbt_s
+            _telemetry.configure(enabled=True, **rt_kw)
+        self._telem = _telemetry.get_telemetry() \
+            if cfg.telemetry is not False \
+            else _telemetry.Telemetry(enabled=False)
+        self.scheduler._telem = self._telem   # cfg.telemetry=False pins both
+        # per-request lifecycle tracing: cfg.reqtrace=False pins THIS
+        # engine's emissions to a private disabled tracer even when the
+        # process-wide one is on; the StateManager / scheduler / prefix
+        # cache emit through the same handle, so one pin silences the
+        # whole serving stack
+        self._rt = self._telem.reqtrace if cfg.reqtrace is not False \
+            else _telemetry.ReqTracer(enabled=False)
+        self.scheduler._reqtrace = self._rt
+        self.state.reqtrace = self._rt
+        if self._prefix_cache is not None:
+            self._prefix_cache.reqtrace = self._rt
+        if self._rt.enabled:
+            # breach dumps attach an engine/pool state snapshot; weakref
+            # so the process-wide tracer never keeps a dead engine (and
+            # its device pool) alive. Two engines in one process: last
+            # one wins, like the shared registry.
+            import weakref
+            ref = weakref.ref(self)
+            self._rt.state_probe = lambda: (
+                lambda e: None if e is None
+                else e._reqtrace_state_snapshot())(ref())
+        self._admit_t: dict[int, float] = {}      # uid → put() time
+        self._first_sched: set[int] = set()       # uids past their 1st chunk
+        self._last_commit_t: dict[int, float] = {}
+        if self._telem.enabled:
+            self._telem.set_health(serving=True, max_seqs=cfg.max_seqs,
+                                   num_blocks=cfg.num_blocks)
         # mixed-load alternation: True → the next dispatch prefers decode
         self._serve_toggle = False
         sel = self._attn_decode_sel.path
@@ -440,6 +503,10 @@ class InferenceEngineV2:
         self._spec_emit: dict[int, list[int]] = {}
         if cfg.spec_decode:
             self._init_speculative(draft_model, draft_params)
+            if self._spec is not None:
+                # draft-mirror rewinds show up on the TARGET request's
+                # timeline (the mirror engine runs with telemetry off)
+                self._spec.reqtrace = self._rt
         logger.info(
             f"engine_v2 up on {dev}: blocks={cfg.num_blocks}x"
             f"{cfg.block_size} pool="
@@ -502,6 +569,7 @@ class InferenceEngineV2:
                 "decode_window": 1,
                 "max_inflight": 0,       # synchronous mirror stepping
                 "prefix_cache": False,
+                "telemetry": False,
                 "use_pallas_decode": cfg.use_pallas_decode,
                 "device": self.device,
             })
@@ -1010,7 +1078,8 @@ class InferenceEngineV2:
         t1 = time.perf_counter()
         self.stats["plan_s"] += t1 - t0
         self._emit_attn_kernel("decode")
-        out, event = self._to_host(self._window_program(W, arrays))
+        with self._telem.span("dispatch", kind="window", W=W):
+            out, event = self._to_host(self._window_program(W, arrays))
         # dispatch-time advance: KV up to len_sched - 1 + n - 1 is now
         # scheduled, n new samples are in flight
         for s in live:
@@ -1025,6 +1094,14 @@ class InferenceEngineV2:
         self.stats["dispatches"] += 1
         self.stats["windows"] += 1
         self.stats["window_iters_dispatched"] += W
+        if self._rt.enabled:
+            for s in live:
+                self._rt.event(s.uid, "decode_window", W=W,
+                               tokens=sched[s.uid][1])
+        if self._telem.enabled:
+            # window occupancy is row-based: live decoders / max slots
+            self._record_dispatch_telemetry("decode_window", len(live),
+                                            self.state.max_seqs, ())
         return True
 
     def _spec_program(self, tok, pos, tables, lens, mask):
@@ -1146,9 +1223,10 @@ class InferenceEngineV2:
             t0 = time.perf_counter()
             # every verify dispatch counts against the tree selection
             self._emit_attn_kernel("tree")
-            k_all, v_all, toks = self._spec_program(tok, pos, tables, lens,
-                                                    mask)
-            toks_h = toks.cpu().numpy()
+            with self._telem.span("dispatch", kind="spec_verify", T=T):
+                k_all, v_all, toks = self._spec_program(tok, pos, tables,
+                                                        lens, mask)
+                toks_h = toks.cpu().numpy()
 
             # exact acceptance on the host, then ONE merge of exactly the
             # accepted path's staged rows (everything else → trash block)
@@ -1176,10 +1254,15 @@ class InferenceEngineV2:
             raise
 
         st = self.stats
+        emitted: dict[int, list[int]] = {}
         for uid, accepted in accepts.items():
             tree = meta[uid][1]
             out = self.state.commit_speculative(uid, accepted)
             n_acc = len(accepted) - 1        # matched candidates
+            if self._rt.enabled:
+                self._rt.event(uid, "spec_round",
+                               proposed=tree.n_candidates, accepted=n_acc,
+                               committed=len(out))
             st["spec_verifies"] += 1
             st["spec_proposed"] += tree.n_candidates
             st["spec_accepted"] += n_acc
@@ -1188,14 +1271,47 @@ class InferenceEngineV2:
             if out:
                 self._results[uid].extend(out)
                 self._spec_emit.setdefault(uid, []).extend(out)
+                emitted[uid] = out
             if cfg.spec_adapt and tree.n_candidates:
-                self._spec_tracker.observe(uid, tree.n_candidates, n_acc)
+                ev = self._spec_tracker.observe(uid, tree.n_candidates,
+                                                n_acc)
+                if ev is not None:
+                    # draft-depth adaptation is a postmortem-grade event:
+                    # the flight recorder notes it even when metrics are
+                    # off (note() is cheap and only read on dumps)
+                    self._telem.note(
+                        "spec_depth_adapt", uid=uid, old=ev[0], new=ev[1],
+                        rate=round(self._spec_tracker.rate(uid), 4))
+                    if self._rt.enabled:
+                        self._rt.event(uid, "spec_depth_adapt",
+                                       old=ev[0], new=ev[1])
         st["spec_rounds"] += 1
         st["spec_accept_rate"] = round(
             st["spec_accepted"] / max(st["spec_proposed"], 1), 4)
         st["dispatches"] += 1
         st["decode_steps"] += 1
         st["dispatch_s"] += time.perf_counter() - t0
+        if self._telem.enabled:
+            reg = self._telem.registry
+            reg.counter("serving_spec_proposed_total",
+                        help="candidate tree tokens proposed for "
+                             "verification").inc(
+                sum(meta[u][1].n_candidates for u in meta))
+            reg.counter("serving_spec_accepted_total",
+                        help="proposed candidates accepted by the exact "
+                             "verify walk").inc(
+                sum(len(a) - 1 for a in accepts.values()))
+            for accepted in accepts.values():
+                reg.histogram(
+                    "serving_spec_tokens_per_verify",
+                    buckets=tuple(float(b) for b in range(1, T + 2)),
+                    help="tokens committed per sequence per verify "
+                         "forward (1 = no candidate survived)"
+                ).observe(float(len(accepted)))
+            self._record_dispatch_telemetry("spec_verify", len(live),
+                                            self.state.max_seqs, ())
+            if emitted:
+                self._record_commit_telemetry(emitted)
         return True
 
     def _dispatch_next(self) -> bool:
@@ -1223,7 +1339,8 @@ class InferenceEngineV2:
             return False
         self._serve_toggle = plan.kind == "prefill"
         t0 = time.perf_counter()
-        out, event = self._to_host(self._program(plan))
+        with self._telem.span("dispatch", kind=plan.kind):
+            out, event = self._to_host(self._program(plan))
         self.scheduler.mark_dispatched(plan)
         self._inflight.append({"kind": "plan", "plan": plan, "out": out,
                                "event": event, "t": time.perf_counter()})
@@ -1239,6 +1356,10 @@ class InferenceEngineV2:
             self.stats["decode_steps"] += 1
             self.stats["decode_tokens"] += n_tok
             self._emit_attn_kernel("decode")
+        if self._telem.enabled:
+            self._record_dispatch_telemetry(
+                plan.kind, n_tok, int(np.prod(plan.token_ids.shape)),
+                plan.uids)
         return True
 
     def _entry_ready(self, entry: dict) -> bool:
@@ -1270,8 +1391,9 @@ class InferenceEngineV2:
             else:
                 st["forced_drains"] += 1
                 t0 = time.perf_counter()
-                if entry["event"] is not None:
-                    entry["event"].synchronize()
+                with self._telem.span("drain_block", kind=entry["kind"]):
+                    if entry["event"] is not None:
+                        entry["event"].synchronize()
                 st["drain_block_s"] += time.perf_counter() - t0
             self._inflight.popleft()
             force = False
@@ -1282,6 +1404,8 @@ class InferenceEngineV2:
             t0 = time.perf_counter()
             self._commit_entry(entry, entry["out"][0].numpy(), emitted)
             st["commit_s"] += time.perf_counter() - t0
+        if emitted and self._telem.enabled:
+            self._record_commit_telemetry(emitted)
         return emitted
 
     def _commit_entry(self, entry: dict, toks_h: np.ndarray,
@@ -1301,6 +1425,9 @@ class InferenceEngineV2:
                 if new:
                     self._results[uid].extend(new)
                     emitted.setdefault(uid, []).extend(new)
+                    if self._rt.enabled:
+                        self._rt.event(uid, "commit", tokens=len(new),
+                                       window=True)
             return
         plan = entry["plan"]
         sampled = {uid: int(toks_h[s]) for s, uid in enumerate(plan.uids)
@@ -1317,6 +1444,136 @@ class InferenceEngineV2:
         count is the visible sign that the kernel did not serve."""
         sel = self._attn_tree_sel if mode == "tree" else self._attn_decode_sel
         self.stats[f"attn_{sel.path}_{mode}"] += 1
+        if self._telem.enabled:
+            self._telem.registry.counter(
+                "serving_attn_kernel_total",
+                labels={"path": sel.path, "mode": mode},
+                help="decode/tree-verify dispatches by the attention "
+                     "formulation the registry selected (the kernel vs "
+                     "the plain gather)").inc()
+
+    def _record_dispatch_telemetry(self, kind: str, useful: int,
+                                   budget: int, uids) -> None:
+        """Dispatch-side SLO instruments: queue wait (admission → first
+        scheduled prefill chunk), per-step occupancy (useful/budget — the
+        honest prefill-MFU accounting as a live histogram), KV-page
+        utilization. Runs after the enqueue, on host state only. Caller
+        gates on ``self._telem.enabled``."""
+        from ..telemetry import RATIO_BUCKETS
+
+        now = time.perf_counter()
+        reg = self._telem.registry
+        rt = self._rt
+        for uid in uids:
+            if uid >= 0 and uid not in self._first_sched:
+                self._first_sched.add(uid)
+                t_admit = self._admit_t.get(uid)
+                if t_admit is not None:
+                    reg.histogram(
+                        "serving_queue_wait_s",
+                        help="admission (put) → first scheduled prefill "
+                             "chunk").observe(now - t_admit,
+                                              exemplar=rt.exemplar(uid))
+                    if rt.enabled:
+                        rt.observe_queue_wait(uid, now - t_admit)
+        if budget > 0:
+            reg.histogram(
+                f"serving_{kind}_occupancy", buckets=RATIO_BUCKETS,
+                help="useful fraction of the step's paid token/row budget"
+            ).observe(useful / budget)
+        if kind in ("prefill", "decode"):
+            # the prefill-vs-decode token split (window tokens land on the
+            # commit side as serving_tokens_total)
+            reg.counter(f"serving_{kind}_tokens_total",
+                        help="useful tokens dispatched in pure "
+                             f"{kind} plans").inc(useful)
+        alloc = self.state.allocator
+        cap = max(alloc.num_blocks - 1, 1)      # block 0 is the trash slot
+        reg.gauge("serving_kv_page_utilization",
+                  help="allocated fraction of the paged KV pool").set(
+            1.0 - alloc.free_blocks / cap)
+        if self._prefix_cache is not None:
+            # ownership split behind the utilization number: cached pages
+            # (trie LRU, reclaimable) vs referenced (shared with live
+            # sequences) vs plainly owned tails vs free
+            pc = self._prefix_cache
+            cached, referenced = pc.cached_blocks, pc.referenced_blocks
+            for kind, val in (("free", alloc.free_blocks),
+                              ("prefix_cached", cached - referenced),
+                              ("prefix_referenced", referenced),
+                              ("seq_owned",
+                               cap - alloc.free_blocks - cached)):
+                reg.gauge("serving_kv_pages", labels={"kind": kind},
+                          help="paged-pool block ownership split"
+                          ).set(val)
+
+    def _record_commit_telemetry(self, emitted: dict) -> None:
+        """Commit-side SLOs: TTFT (admission → first committed token) and
+        observed per-token time-between-tokens — a window committing n
+        tokens dt after the previous commit contributes n samples of dt/n.
+        Runs after the drain's copy, on host tokens only: these are COMMIT
+        times, which trail the device by up to ``max_inflight``
+        dispatches."""
+        now = time.perf_counter()
+        reg = self._telem.registry
+        rt = self._rt
+        total = 0
+        for uid, toks in emitted.items():
+            n = len(toks)
+            if not n:
+                continue
+            total += n
+            last = self._last_commit_t.get(uid)
+            if last is None:
+                t_admit = self._admit_t.get(uid)
+                if t_admit is not None:
+                    reg.histogram(
+                        "serving_ttft_s",
+                        help="admission (put) → first committed token"
+                    ).observe(now - t_admit, exemplar=rt.exemplar(uid))
+                    if rt.enabled:
+                        # per-tenant TTFT + the SLO-breach auto-capture
+                        # threshold check live behind this call
+                        rt.observe_ttft(uid, now - t_admit)
+            else:
+                reg.histogram(
+                    "serving_tbt_s",
+                    help="observed per-token time between committed tokens"
+                ).observe((now - last) / n, n=n, exemplar=rt.exemplar(uid))
+                if rt.enabled:
+                    rt.observe_tbt(uid, (now - last) / n, n)
+            self._last_commit_t[uid] = now
+        if total:
+            reg.counter("serving_tokens_total",
+                        help="committed (accepted) generated tokens"
+                        ).inc(total)
+
+    def _reqtrace_state_snapshot(self) -> dict:
+        """Engine/pool state attached to SLO-breach flight dumps: the
+        scheduler backlog, pool occupancy, pipeline depth, and a
+        per-sequence summary — "what else was the engine juggling when
+        this request blew its SLO"."""
+        alloc = self.state.allocator
+        has_prefill, has_decode = self.scheduler.pending_kinds()
+        out = {
+            "queue_depth": self.scheduler.queue_depth(),
+            "pending_prefill": has_prefill,
+            "pending_decode": has_decode,
+            "inflight_steps": len(self._inflight),
+            "free_blocks": alloc.free_blocks,
+            "num_blocks": alloc.num_blocks,
+            "seqs": {
+                uid: {"slot": s.slot, "len": len(s.tokens),
+                      "n_computed": s.n_computed,
+                      "pending_sched": s.pending_sched,
+                      "blocks": len(s.blocks),
+                      "shared_blocks": s.n_shared_blocks,
+                      "done": s.done}
+                for uid, s in self.state.seqs.items()},
+        }
+        if self._prefix_cache is not None:
+            out["prefix_cache"] = self._prefix_cache.stats()
+        return out
 
     # ------------------------------------------------------------------
     # public API (reference engine_v2.py put/query/flush)
@@ -1327,15 +1584,18 @@ class InferenceEngineV2:
         return self.state.can_admit(prompt_len, max_new_tokens)
 
     def put(self, uid: int, prompt_tokens, max_new_tokens: int = 32,
-            eos_token_id: int | None = None,
+            eos_token_id: int | None = None, tenant: str | None = None,
             trace_id: str | None = None) -> None:
         """Admit a request. Raises if the pool or slot budget is exhausted —
         callers gate on ``can_schedule``. ``eos_token_id`` stops the
-        sequence early (truncated at the eos). ``trace_id`` names the
-        request for the JAX engine's request tracer, which has no
-        counterpart yet: accepted and unused. With ``kv_tier``, a chain the
-        tier holds deeper than the HBM trie is promoted first, so the admit
-        hits it."""
+        sequence early (truncated at the eos). ``tenant`` attributes the
+        request's tokens / KV residency / SLO observations to a
+        bounded-cardinality tenant label (reqtrace; ignored when tracing is
+        off). ``trace_id`` adopts an externally minted trace ID for the
+        request's timeline (a serving replica passes the router's) instead
+        of minting a process-local one. With ``kv_tier``, a chain the tier
+        holds deeper than the HBM trie is promoted first, so the admit hits
+        it."""
         toks = [int(t) for t in prompt_tokens]
         if not toks:
             raise ValueError("empty prompt")
@@ -1345,8 +1605,19 @@ class InferenceEngineV2:
             self._tier_promote(toks)
         if not self.state.can_admit(len(toks), max_new_tokens):
             raise RuntimeError("cannot schedule: pool/slots exhausted")
-        seq = self.state.admit(uid, toks, max_new_tokens,
-                               eos_id=eos_token_id)
+        if self._rt.enabled:
+            # trace opens BEFORE admit so the admit event (prefix-hit
+            # extent, pages pinned — emitted inside StateManager.admit)
+            # lands on an existing timeline
+            self._rt.begin(uid, tenant=tenant, prompt=len(toks),
+                           trace_id=trace_id)
+        try:
+            with self._telem.span("admit", prompt=len(toks)):
+                seq = self.state.admit(uid, toks, max_new_tokens,
+                                       eos_id=eos_token_id)
+        except Exception:
+            self._rt.drop(uid)     # the request never existed
+            raise
         self._results[uid] = []
         if self._spec is not None:
             # draft mirrors reserve once, at admit, for the full budget plus
@@ -1362,6 +1633,20 @@ class InferenceEngineV2:
             st["prefix_hit_rate"] = round(
                 st["prefix_hit_tokens"] / max(st["prefix_lookup_tokens"], 1),
                 4)
+        if self._telem.enabled:
+            self._admit_t[uid] = time.perf_counter()
+            self._telem.registry.counter(
+                "serving_requests_total",
+                help="requests admitted (put)").inc()
+            if self._prefix_cache is not None:
+                self._telem.registry.counter(
+                    "serving_prefix_hit_tokens_total",
+                    help="prompt tokens served from the shared-prefix KV "
+                         "cache").inc(seq.prefix_hit_tokens)
+                self._telem.registry.counter(
+                    "serving_prefix_lookup_tokens_total",
+                    help="prompt tokens looked up against the shared-"
+                         "prefix KV cache").inc(len(toks))
 
     def query(self, uid: int) -> dict:
         """Request status."""
@@ -1407,6 +1692,12 @@ class InferenceEngineV2:
             self._spec_tracker.forget(uid)
         if uid in self.state.seqs:
             self.state.release(uid)
+        self._admit_t.pop(uid, None)
+        self._first_sched.discard(uid)
+        self._last_commit_t.pop(uid, None)
+        # release normally finalized the timeline (StateManager.release
+        # emits it); this is the safety net for uids that never admitted
+        self._rt.forget(uid)
         return self._results.pop(uid, [])
 
     def step(self) -> dict[int, list[int]]:
@@ -1618,11 +1909,13 @@ class InferenceEngineV2:
         snap = self.state.migrate_out(uid, trace=trace_id or None)
         bs = self.config.block_size
         n_full = len(snap["page_blocks"])
-        page_blobs = self._gather_pages(snap["page_blocks"])
-        tail = None
-        if snap["tail_rows"]:
-            tail = self._host_bytes(self._pool_bytes()[
-                :, :, :, snap["tail_block"], :snap["tail_rows"]]).tobytes()
+        with self._telem.span("migrate_out", pages=n_full):
+            page_blobs = self._gather_pages(snap["page_blocks"])
+            tail = None
+            if snap["tail_rows"]:
+                tail = self._host_bytes(self._pool_bytes()[
+                    :, :, :, snap["tail_block"],
+                    :snap["tail_rows"]]).tobytes()
         bundle = PageBundle(
             trace_id=trace_id,
             tokens=snap["tokens"],
@@ -1669,10 +1962,20 @@ class InferenceEngineV2:
                                  "page chains")
         self._check_geometry(shell.block_size, shell.kv_dtype,
                              shell.page_bytes)
-        self.state.migrate_in_begin(
-            uid, shell.tokens, shell.n_computed, shell.n_generated,
-            shell.max_new_tokens, eos_id=shell.eos_id,
-            trace=shell.trace_id or None)
+        if self._rt.enabled:
+            # adopt the exporter's canonical (router-minted) trace ID so
+            # both halves of the migrated request share one timeline key
+            self._rt.begin(uid, tenant=shell.tenant,
+                           prompt=shell.prompt_len,
+                           trace_id=shell.trace_id or None)
+        try:
+            self.state.migrate_in_begin(
+                uid, shell.tokens, shell.n_computed, shell.n_generated,
+                shell.max_new_tokens, eos_id=shell.eos_id,
+                trace=shell.trace_id or None)
+        except Exception:
+            self._rt.drop(uid)
+            raise
         # the stream prefix generated on the exporter: flush() returns it
         # followed by what this engine generates
         self._results[uid] = list(shell.tokens[shell.prompt_len:])
@@ -1696,7 +1999,8 @@ class InferenceEngineV2:
         if bundle.tail_rows:
             blocks.append(seq.blocks[bundle.n_full])
             pages.append(self._tail_page(bundle.tail, bundle.tail_rows))
-        self._scatter_pages(blocks, pages)
+        with self._telem.span("migrate_in", pages=bundle.n_full):
+            self._scatter_pages(blocks, pages)
         self.state.import_commit(uid)
         if self._spec is not None:
             # the proposer sees the imported history as its prompt
@@ -1705,11 +2009,14 @@ class InferenceEngineV2:
                              + self._spec_tracker.base_depth + 1)
         self.stats["migrations_in"] += 1
         self.stats["migration_bytes_in"] += bundle.payload_bytes
+        if self._telem.enabled:
+            self._admit_t[uid] = time.perf_counter()
 
     def import_abort(self, uid: int) -> None:
         """Transfer died before commit: free the reservation."""
         self.state.abort_import(uid)
         self._results.pop(uid, None)
+        self._rt.drop(uid)
 
     # ------------------------------------------------------------------
     # radix pulls and gang prefill: a cached page chain moves as a
@@ -1726,7 +2033,9 @@ class InferenceEngineV2:
         if snap is None:
             raise MigrationError("prefix chain not cached")
         try:
-            blobs = self._gather_pages(snap["blocks"])
+            with self._telem.span("kv_pull_export",
+                                  pages=len(snap["blocks"])):
+                blobs = self._gather_pages(snap["blocks"])
         finally:
             self.state.release_prefix(snap["handle"])
         bundle = PageBundle.prefix(
@@ -1775,8 +2084,9 @@ class InferenceEngineV2:
                 f"chain (weight swap in flight)")
         fresh = self.state.adopt_prefix(bundle.tokens, bundle.n_computed,
                                         trace=bundle.trace_id or None)
-        self._scatter_pages([b for _, b in fresh],
-                            [bundle.pages[j] for j, _ in fresh])
+        with self._telem.span("kv_pull_import", pages=len(fresh)):
+            self._scatter_pages([b for _, b in fresh],
+                                [bundle.pages[j] for j, _ in fresh])
         key = f"kv_{source}_bytes_in"
         self.stats[key] = self.stats.get(key, 0) + bundle.payload_bytes
         return bundle.n_full
@@ -1823,7 +2133,8 @@ class InferenceEngineV2:
                 chain = chain_hashes(tokens, bs)
                 if not chain or tier.has(chain[-1]):
                     continue
-                blobs = self._gather_pages(blocks)
+                with self._telem.span("kv_tier_demote", pages=len(blocks)):
+                    blobs = self._gather_pages(blocks)
                 try:
                     bundle = PageBundle.prefix(
                         "", [int(t) for t in tokens], bs, self._kv_name,
@@ -1834,6 +2145,8 @@ class InferenceEngineV2:
                     raise DemoteError(str(e)) from e
         finally:
             self.stats["kv_tier_demoted_pages"] += demoted
+        if demoted and self._rt.enabled:
+            self._rt.event(-1, "kv_tier", dir="demote", pages=demoted)
 
     def tier_promote_begin(self, tokens):
         """Promote-ahead, phase one: plan the admission-path tier extract
@@ -1888,6 +2201,9 @@ class InferenceEngineV2:
                       - int(handle.get("have", 0))) * bs, 0)
         self.stats["kv_tier_promotes"] += 1
         self.stats["kv_tier_promoted_tokens"] += gained
+        if self._rt.enabled:
+            self._rt.event(-1, "kv_tier", dir="promote", pages=pages,
+                           tokens=gained)
         return pages
 
     def _tier_promote(self, tokens) -> int:
@@ -2026,6 +2342,13 @@ class InferenceEngineV2:
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
         swap_s = time.perf_counter() - t1
+        if self._rt.enabled:
+            self._rt.event(-1, "weight_swap", wid=wid, flushed=flushed,
+                           quiesce_s=round(quiesce_s, 6),
+                           swap_s=round(swap_s, 6))
+        self._telem.note("weight_swap", wid=wid, digest=digest,
+                         quiesce_s=round(quiesce_s, 4),
+                         swap_s=round(swap_s, 4))
         logger.info(f"engine_v2: weight swap to v{wid} (digest {digest}) "
                     f"quiesce {quiesce_s * 1e3:.1f}ms "
                     f"swap {swap_s * 1e3:.1f}ms, {flushed} cached pages "

@@ -751,6 +751,23 @@ class KVTier:
         self.promote_obs["total_s"] += float(dt_s)
         self.promote_obs["pages"] += max(int(pages), 0)
 
+    def drain_promote_latencies(self, registry) -> int:
+        """Move the recent promote wall-times into the
+        ``serving_kv_tier_promote_latency_s`` histogram of ``registry`` (a
+        telemetry ``MetricsRegistry``) and clear them; returns how many.
+        The serving replica calls this at its heartbeat cadence, as the
+        JAX package's replica drains the same list."""
+        n = len(self.promote_latencies)
+        if n:
+            hist = registry.histogram(
+                "serving_kv_tier_promote_latency_s",
+                help="wall time of a tier promote (extract + adopt + "
+                     "scatter)")
+            for dt in self.promote_latencies:
+                hist.observe(dt)
+            self.promote_latencies.clear()
+        return n
+
     def refine_min_pages(self, *, block_size: int,
                          prefill_tok_s: float = GUESS_PREFILL_TOK_S,
                          fixed_s: float = PROMOTE_FIXED_S, cap: int = 64,

@@ -123,6 +123,12 @@ class PrefixCache:
         #: it was; a :class:`DemoteError` is counted (``demote_errors``) and
         #: eviction proceeds without demotion.
         self.evict_sink = None
+        #: per-request lifecycle tracer (telemetry/reqtrace.py, duck-typed)
+        #: — engine_v2 attaches it; evictions are pool-level events (the
+        #: reclaimed pages had no live owner), so they land in the
+        #: tracer's unattributed ring; the admitting request's own
+        #: timeline carries the count via its admit event
+        self.reqtrace = None
         self.demote_errors = 0
 
     # -- introspection ----------------------------------------------------
@@ -464,7 +470,11 @@ class PrefixCache:
             self._n_nodes -= 1
             self.evicted_pages += 1
             self.version += 1
-        return [v.block for v in victims]
+        out = [v.block for v in victims]
+        rt = self.reqtrace
+        if rt is not None and rt.enabled and out:
+            rt.event(-1, "evict", pages=len(out), cached=self._n_nodes)
+        return out
 
     # -- audit -------------------------------------------------------------
     def check(self) -> None:

@@ -15,9 +15,11 @@ rollback-aware provisional API of speculative decoding with the draft
 mirror's ``rewind``, the KV-page migration API (``migrate_out`` /
 ``export_ack`` / ``export_abort`` / ``migrate_in_begin`` /
 ``import_commit`` / ``abort_import``), the prefix snapshot/adopt pair of
-radix pulls and the full-pool ``audit()``. The JAX package's request
-tracer has no counterpart yet: ``trace`` arguments are accepted and
-unused.
+radix pulls and the full-pool ``audit()``. The request tracer
+(``telemetry/reqtrace.py``, attached by the engine as ``reqtrace``) gets
+the JAX package's lifecycle events: admit, release, the speculative
+commit / rollback / rewind, migrate_out / migrate_in (carrying the
+migration's ``trace`` id) and the two legs of a radix pull.
 """
 from __future__ import annotations
 
@@ -190,6 +192,15 @@ class StateManager:
         # node chains pinned by an in-flight prefix snapshot (handle → list)
         self._pull_pins: dict[int, list] = {}
         self._pull_ctr = 0
+        #: per-request lifecycle tracer (telemetry/reqtrace.py, duck-typed:
+        #: ``.enabled`` + ``.event(uid, kind, **fields)``) — engine_v2
+        #: attaches it; None = no tracing (bare StateManager users)
+        self.reqtrace = None
+        # pages the last _alloc call reclaimed from the prefix LRU (admit
+        # folds this into its lifecycle event for attribution)
+        self._last_evicted = 0
+        # an import's migration trace id, carried to its migrate_in event
+        self._mig_trace: dict[int, str | None] = {}
 
     def attach_prefix_cache(self, cache) -> None:
         """Enable shared-prefix serving (before the first admit)."""
@@ -217,11 +228,13 @@ class StateManager:
     def _alloc(self, n: int) -> list[int]:
         """Allocation that tops the free list up from the prefix LRU under
         pressure (unreferenced cached pages only)."""
+        self._last_evicted = 0
         short = n - self.allocator.free_blocks
         if short > 0 and self.prefix_cache is not None:
             reclaimed = self.prefix_cache.evict(short)
             if reclaimed:
                 self.allocator.free(reclaimed)
+                self._last_evicted = len(reclaimed)
         return self.allocator.allocate(n)
 
     def can_admit(self, prompt_len: int, max_new_tokens: int = 0) -> bool:
@@ -287,6 +300,16 @@ class StateManager:
         if self.prefix_cache is not None:
             seq.admit_wv = self.prefix_cache.weight_version
         self.seqs[uid] = seq
+        rt = self.reqtrace
+        if rt is not None and rt.enabled:
+            # the admit transition carries the prefix-cache hit extent and
+            # the reservation — the timeline's "where did this request
+            # start from" ground truth
+            rt.event(uid, "admit", prompt=len(tokens),
+                     max_new=max_new_tokens, blocks=len(seq.blocks),
+                     prefix_hit=seq.prefix_hit_tokens,
+                     shared_blocks=seq.n_shared_blocks,
+                     evicted=self._last_evicted, slot=seq.slot)
         return seq
 
     def release(self, uid: int) -> None:
@@ -302,6 +325,7 @@ class StateManager:
                 f"({self.seqs[uid].migrating!r}): settle it via "
                 f"export_ack/export_abort/abort_import before release")
         seq = self.seqs.pop(uid)
+        published = 0
         if self.prefix_cache is not None and seq.slot >= 0:
             shared = self._shared_nodes.pop(uid, None)
             if seq.admit_wv != self.prefix_cache.weight_version:
@@ -314,6 +338,7 @@ class StateManager:
                 to_free = self.prefix_cache.publish(
                     seq.tokens, seq.blocks, seq.n_shared_blocks,
                     min(seq.n_computed, len(seq.tokens)))
+                published = len(seq.blocks) - len(to_free)
                 if to_free:
                     self.allocator.free(to_free)
         elif seq.blocks:
@@ -321,6 +346,12 @@ class StateManager:
         if seq.slot >= 0:
             self._free_slots.append(seq.slot)
             self._free_slots.sort()
+        rt = self.reqtrace
+        if rt is not None and rt.enabled:
+            # release closes the timeline (and settles the tenant's KV
+            # page-seconds integral inside the tracer)
+            rt.event(uid, "release", pages=len(seq.blocks),
+                     published=published, generated=seq.n_generated)
 
     # --- speculative decoding: the rollback-aware provisional API --------
     # Candidate KV only ever lands in the sequence's OWNED tail pages and
@@ -361,13 +392,20 @@ class StateManager:
         out = seq.commit_generated(list(accepted), n)
         seq.n_sched = seq.n_computed
         seq.n_inflight = 0
+        rt = self.reqtrace
+        if rt is not None and rt.enabled and out:
+            rt.event(uid, "commit", tokens=len(out), spec=True)
         return out
 
     def rollback_provisional(self, uid: int) -> None:
         """Discard a provisioned-but-unverified tree."""
         seq = self.seqs.get(uid)
         if seq is not None:
+            had = seq.n_provisional
             seq.n_provisional = 0
+            rt = self.reqtrace
+            if rt is not None and rt.enabled and had:
+                rt.event(uid, "rollback", provisional=had)
 
     def rewind(self, uid: int, tokens: list[int]) -> None:
         """Reset a sequence's history to ``tokens`` (the draft-model
@@ -408,6 +446,10 @@ class StateManager:
         cap = len(seq.blocks) * self.block_size
         seq.n_generated = max(0, seq.max_new_tokens - (cap - len(tokens)))
         seq.done = False
+        rt = self.reqtrace
+        if rt is not None and rt.enabled:
+            rt.event(uid, "rewind", to_len=len(tokens),
+                     kept_kv=seq.n_computed)
 
     # --- KV-page migration: the refcounted export/import/abort API -------
     # Ownership never changes hands mid-transfer: the exporter's pages stay
@@ -449,6 +491,10 @@ class StateManager:
         n_full = seq.n_computed // bs
         tail_rows = seq.n_computed - n_full * bs
         seq.migrating = "out"
+        rt = self.reqtrace
+        if rt is not None and rt.enabled:
+            rt.event(uid, "migrate_out", pages=n_full, tail=tail_rows,
+                     tokens=len(seq.tokens), trace=trace)
         return {
             "uid": uid, "tokens": list(seq.tokens),
             "n_computed": seq.n_computed,
@@ -521,6 +567,7 @@ class StateManager:
         seq.n_sched = n_computed
         seq.n_generated = n_generated
         seq.migrating = "in"
+        self._mig_trace[uid] = trace
         self.seqs[uid] = seq
         return seq
 
@@ -551,6 +598,13 @@ class StateManager:
             # skew-gated imports only land same-version bundles
             seq.admit_wv = self.prefix_cache.weight_version
         seq.migrating = None
+        rt = self.reqtrace
+        if rt is not None and rt.enabled:
+            rt.event(uid, "migrate_in", pages=n_full,
+                     tokens=len(seq.tokens), shared=seq.n_shared_blocks,
+                     trace=self._mig_trace.pop(uid, None))
+        else:
+            self._mig_trace.pop(uid, None)
 
     def abort_import(self, uid: int) -> None:
         """Transfer died before commit: free the whole reservation and the
@@ -561,6 +615,7 @@ class StateManager:
         if seq.migrating != "in":
             raise RuntimeError(f"uid {uid} has no import in flight")
         self.seqs.pop(uid)
+        self._mig_trace.pop(uid, None)
         if seq.blocks:
             self.allocator.free(seq.blocks)
         seq.blocks = []
@@ -587,6 +642,10 @@ class StateManager:
         self._pull_ctr += 1
         handle = self._pull_ctr
         self._pull_pins[handle] = nodes
+        rt = self.reqtrace
+        if rt is not None and rt.enabled:
+            rt.event(-1, "kv_pull", dir="out", pages=len(nodes),
+                     trace=trace)
         return {"handle": handle, "blocks": [n.block for n in nodes],
                 "n_tokens": len(nodes) * self.block_size}
 
@@ -612,8 +671,13 @@ class StateManager:
         self.prefix_cache.release(nodes)
         if dups:
             self.allocator.free(dups)
-        return [(j, nodes[j].block) for j in range(n_full)
-                if nodes[j].block == blocks[j]]
+        fresh = [(j, nodes[j].block) for j in range(n_full)
+                 if nodes[j].block == blocks[j]]
+        rt = self.reqtrace
+        if rt is not None and rt.enabled:
+            rt.event(-1, "kv_pull", dir="in", pages=n_full,
+                     fresh=len(fresh), trace=trace)
+        return fresh
 
     def audit(self) -> None:
         """FULL-POOL audit: every non-trash block is owned by exactly one of

@@ -8,9 +8,18 @@ windows. With ``pack`` (token-budget packing), a plan carries exactly the
 rows that have work and each row's chunk grows along the page-aligned chunk
 chain (:meth:`program_shape_menu` lists every shape it can emit).
 
-Plans are packed in Python here; the JAX package's native atom builder
-(``csrc/atoms.cpp``) is ported with a later slice, as are its telemetry
-hooks. Importing this module loads no telemetry code.
+Every plan is packed by the host library's atom builder
+(``csrc/atoms.cpp``, ``dstpu_build_atoms``), as the JAX scheduler packs
+when its library loads; the library is built at first use and a failed
+build raises (``ops/native.py``). :meth:`SplitFuseScheduler._python_build`
+is the same packing in Python, the plain version the tests hold the native
+one against; nothing on the serving path calls it.
+
+Telemetry as in the JAX scheduler: plan building runs under a
+``sched_plan`` span beside the ``serving_queue_depth`` gauge, and each
+dispatched row and each commit lands a lifecycle event on its request's
+timeline (``prefill_chunk`` / ``decode_step`` / ``commit``). Importing
+this module loads no telemetry code; a scheduler's construction does.
 
 :class:`SpecAcceptTracker` is the scheduler-side half of speculative
 decoding: per-request draft depth adapted to the acceptance rate.
@@ -26,6 +35,18 @@ class SplitFuseScheduler:
     def __init__(self, state: StateManager, chunk: int, pack: bool = False):
         self.state = state
         self.chunk = chunk
+        # process-wide telemetry (telemetry/); configure() mutates the
+        # instance in place, so caching the reference here stays live.
+        # Imported here: loading this module loads no telemetry code
+        from ..telemetry import get_telemetry
+
+        self._telem = get_telemetry()
+        # per-request lifecycle tracing (telemetry/reqtrace.py): the
+        # scheduler emits the per-row dispatch/commit transitions —
+        # engine_v2 overrides this with its (possibly pinned-off) handle
+        self._reqtrace = self._telem.reqtrace
+        #: plans packed by the host library's atom builder
+        self.native_plans = 0
         #: token-budget prefill packing: when fewer than max_seqs rows have
         #: work, the plan carries exactly those rows and each row's chunk
         #: grows along the chunk chain to keep rows x T near-constant
@@ -57,9 +78,68 @@ class SplitFuseScheduler:
                   for r, (seq, *_) in enumerate(entries)}
         for s in use_last_slots:
             plan.use_last[row_of[s]] = 1
+        if entries:
+            self._native_build(plan, T, entries, row_of)
+        for seq, *_ in entries:
+            s = row_of[seq.slot]
+            plan.uids[s] = seq.uid
+            plan.row_slots[s] = seq.slot
+        # empty rows get DISTINCT unused slots: the last-token scatter by
+        # row_slots must never carry duplicate indices
+        if packed or len(entries) < S:
+            used = {seq.slot for seq, *_ in entries}
+            free = (s for s in range(self.state.max_seqs) if s not in used)
+            for r in range(S):
+                if plan.uids[r] < 0:
+                    plan.row_slots[r] = next(free)
+        return plan
+
+    def _native_build(self, plan: StepPlan, T: int, entries,
+                      row_of: dict) -> None:
+        """Pack the plan's arrays with ``dstpu_build_atoms`` (the host
+        library's ``csrc/atoms.cpp``). The builder indexes rows by the
+        first meta field: the plan row (``row_of[slot]``)."""
+        import ctypes
+
+        from ..ops.native import load_library
+
+        lib = load_library()
+        tokens, blocks, meta = [], [], []
+        for seq, toks, start_pos, sample in entries:
+            meta.extend((row_of[seq.slot], len(toks), start_pos, int(sample),
+                         len(seq.blocks), len(tokens), len(blocks)))
+            tokens.extend(toks)
+            blocks.extend(seq.blocks)
+        tok = np.asarray(tokens, np.int32)
+        blk = np.asarray(blocks, np.int32)
+        met = np.asarray(meta, np.int32)
+        pp = lambda a: a.ctypes.data_as(ctypes.c_void_p)   # noqa: E731
+        rc = lib.dstpu_build_atoms(
+            len(entries), pp(tok), pp(met), pp(blk),
+            plan.token_ids.shape[0], T, self.state.max_blocks_per_seq,
+            self.state.block_size,
+            pp(plan.token_ids), pp(plan.positions), pp(plan.slot_map),
+            pp(plan.active), pp(plan.block_tables), pp(plan.seq_lens),
+            pp(plan.sample_idx), pp(plan.do_sample))
+        if rc != 0:
+            raise ValueError(
+                f"atom builder: entry {rc - 1} violates plan-shape "
+                f"invariants (meta {meta[(rc - 1) * 7:rc * 7]})")
+        self.native_plans += 1
+
+    def _python_build(self, plan: StepPlan, T: int, entries,
+                      row_of: dict) -> None:
+        """The same packing as :meth:`_native_build` in numpy: the plain
+        version the tests hold the native builder against."""
+        bs = self.state.block_size
+        max_blocks = self.state.max_blocks_per_seq
         for seq, toks, start_pos, sample in entries:
             s = row_of[seq.slot]
             n = len(toks)
+            if n > T or len(seq.blocks) > max_blocks:
+                raise ValueError(f"plan row {s}: {n} tokens / "
+                                 f"{len(seq.blocks)} blocks exceed the plan's "
+                                 f"[{T}] / [{max_blocks}]")
             pos = np.arange(start_pos, start_pos + n)
             blocks = np.asarray(seq.blocks, np.int32)
             plan.token_ids[s, :n] = toks
@@ -73,17 +153,6 @@ class SplitFuseScheduler:
             plan.seq_lens[s] = start_pos + n
             plan.sample_idx[s] = n - 1
             plan.do_sample[s] = sample
-            plan.uids[s] = seq.uid
-            plan.row_slots[s] = seq.slot
-        # empty rows get DISTINCT unused slots: the last-token scatter by
-        # row_slots must never carry duplicate indices
-        if packed or len(entries) < S:
-            used = {seq.slot for seq, *_ in entries}
-            free = (s for s in range(self.state.max_seqs) if s not in used)
-            for r in range(S):
-                if plan.uids[r] < 0:
-                    plan.row_slots[r] = next(free)
-        return plan
 
     def pending_kinds(self) -> tuple[bool, bool]:
         """(has_prefill, has_decode) over the scheduled view."""
@@ -154,6 +223,23 @@ class SplitFuseScheduler:
                 "pending_decode": has_decode}
 
     def next_step(self, prefer: str | None = None) -> StepPlan | None:
+        """Plan-building entry point (see :meth:`_next_step_inner`).
+        Telemetry wrapper: plan construction runs under a ``sched_plan``
+        span and the queue-depth gauge updates per call."""
+        telem = self._telem
+        if not telem.enabled:
+            return self._next_step_inner(prefer)
+        telem.registry.gauge(
+            "serving_queue_depth",
+            help="sequences with unscheduled work").set(self.queue_depth())
+        with telem.span("sched_plan") as sp:
+            plan = self._next_step_inner(prefer)
+            if plan is not None:
+                sp.set(kind=plan.kind, rows=plan.token_ids.shape[0],
+                       T=plan.token_ids.shape[1])
+        return plan
+
+    def _next_step_inner(self, prefer: str | None = None) -> StepPlan | None:
         """Build the next step plan from the scheduled view, or None if
         nothing can run. Mixed prefill/decode load alternates pure steps;
         ``prefer="decode"`` emits the decode plan when both kinds exist. A
@@ -200,14 +286,26 @@ class SplitFuseScheduler:
 
     def mark_dispatched(self, plan: StepPlan) -> None:
         """Advance the scheduled view for every row of a dispatched plan
-        (``commit`` is the readback-time half)."""
+        (``commit`` is the readback-time half). Each real row lands one
+        lifecycle event on its request timeline (reqtrace): the prefill
+        chunk's token count and plan width, or the decode step."""
+        rt = self._reqtrace
+        trace = rt.enabled
+        T = plan.token_ids.shape[1]
         for s, uid in enumerate(plan.uids):
             if uid < 0:
                 continue
             seq = self.state.seqs[uid]
-            seq.n_sched = seq.kv_next + int(plan.active[s].sum())
+            n = int(plan.active[s].sum())
+            seq.n_sched = seq.kv_next + n
             if plan.do_sample[s]:
                 seq.n_inflight += 1
+            if trace:
+                if plan.kind == "prefill":
+                    rt.event(uid, "prefill_chunk", tokens=n, T=T,
+                             rows=len(plan.uids))
+                else:
+                    rt.event(uid, "decode_step", tokens=n)
         plan.dispatched = True
 
     def commit(self, plan: StepPlan,
@@ -215,6 +313,7 @@ class SplitFuseScheduler:
         """Advance sequence state after a step ran. ``sampled``: uid → token
         for every row that had do_sample. Returns uid → tokens accepted by
         each sequence's stop criteria."""
+        rt = self._reqtrace
         accepted: dict[int, list[int]] = {}
         for s, uid in enumerate(plan.uids):
             if uid < 0:
@@ -227,6 +326,8 @@ class SplitFuseScheduler:
             accepted[uid] = seq.commit_generated(
                 [sampled[uid]] if plan.do_sample[s] and uid in sampled
                 else [], int(plan.active[s].sum()))
+            if rt.enabled and accepted[uid]:
+                rt.event(uid, "commit", tokens=len(accepted[uid]))
         return accepted
 
 

@@ -226,6 +226,10 @@ class DraftModelProposer:
     def __init__(self, engine):
         self.engine = engine
         self._mirrors: set[int] = set()
+        #: per-request lifecycle tracer (telemetry/reqtrace.py) for the
+        #: TARGET engine's timelines — the mirror engine itself runs with
+        #: telemetry off, so its own StateManager emits nothing
+        self.reqtrace = None
 
     def admit(self, uid: int, tokens: list[int], budget: int) -> None:
         """Mirror a target admit. ``budget`` must cover the target's FULL
@@ -256,10 +260,13 @@ class DraftModelProposer:
         base: dict[int, int] = {}
         want: dict[int, int] = {}
         max_depth = 0
+        rt = self.reqtrace
         for uid, (tokens, depth) in requests.items():
             if uid not in self._mirrors or depth <= 0:
                 continue
             eng.state.rewind(uid, list(tokens))
+            if rt is not None and rt.enabled:
+                rt.event(uid, "rewind", mirror=True, to_len=len(tokens))
             base[uid] = len(tokens)
             want[uid] = depth
             max_depth = max(max_depth, depth)

@@ -1,0 +1,1189 @@
+"""HuggingFace checkpoint import — weights land in the TransformerLM tree.
+
+The port's counterpart of ``deepspeed_tpu/models/hf.py``: the same eleven
+family converters, the generic name/shape converter and the coverage check,
+producing the same tree (leaf for leaf, under the JAX package's names) as
+torch tensors. ``from_hf_model`` maps a loaded model's state dict onto the
+equivalent preset tree; the numerics are exact (tests/test_torch_hf_import.py
+holds every family against the JAX package's tree and the transformers
+forward).
+
+``transformers`` is never imported: a model is anything with a ``config``
+(an object with attributes — a transformers config, or a ``SimpleNamespace``
+of a ``config.json``'s values) and a ``state_dict()`` of torch tensors.
+Attributes a ``config.json`` may omit take the transformers config class's
+default (:data:`HF_CONFIG_DEFAULTS`).
+
+The converters work on torch tensors, never through numpy (numpy has no
+bfloat16): each source tensor moves to the target device on its own before
+it is transposed, split or permuted, so the host never holds a second copy
+of the checkpoint. Leaves keep the source dtype; the returned config's
+``dtype`` is the compute dtype.
+
+Conventions handled:
+- GPT-2 Conv1D stores [in, out] (no transpose needed); torch Linear stores
+  [out, in] (transposed on the way in).
+- Llama-family RoPE uses the half-split rotation (rotate_half); this
+  model's rope pairs even/odd lanes (NeoX-interleaved), so q/k projection
+  head dims are permuted half→interleaved during conversion (an index
+  tensor) — attention outputs are invariant under the shared permutation.
+"""
+from __future__ import annotations
+
+import torch
+
+from . import PRESETS
+from .transformer import ModelConfig, TransformerLM
+
+#: model types of bidirectional encoders, which the port's TransformerLM
+#: does not serve yet
+BERT_FAMILY = ("bert", "roberta", "distilbert", "albert", "electra",
+               "deberta", "deberta-v2", "xlm-roberta", "camembert")
+
+
+def _refuse_bert_family(model_type: str) -> None:
+    if model_type in BERT_FAMILY:
+        raise NotImplementedError(
+            f"HF model_type '{model_type}': bert-family encoders "
+            f"(bidirectional, post-norm) are ported with ROADMAP queue 1, "
+            f"item 7")
+
+
+def _interleave_perm(d: int, device=None) -> torch.Tensor:
+    """half-split [0..d/2, d/2..d] pairs → even/odd interleaved pairs."""
+    perm = torch.empty(d, dtype=torch.long)
+    perm[0::2] = torch.arange(d // 2)
+    perm[1::2] = torch.arange(d // 2) + d // 2
+    return perm.to(device)
+
+
+def _gpt2_tree(sd: dict, cfg: ModelConfig) -> dict:
+    E, H, D = cfg.hidden_size, cfg.num_heads, cfg.head_dim
+    t = {"embed": sd["transformer.wte.weight"],
+         "pos_embed": sd["transformer.wpe.weight"],
+         "ln_final": {"scale": sd["transformer.ln_f.weight"],
+                      "bias": sd["transformer.ln_f.bias"]}}
+    for i in range(cfg.num_layers):
+        p = f"transformer.h.{i}."
+        w_qkv = sd[p + "attn.c_attn.weight"]          # Conv1D [E, 3E]
+        b_qkv = sd[p + "attn.c_attn.bias"]
+        wq, wk, wv = torch.chunk(w_qkv, 3, dim=1)
+        bq, bk, bv = torch.chunk(b_qkv, 3)
+        t[f"layer_{i}"] = {
+            "ln_attn": {"scale": sd[p + "ln_1.weight"],
+                        "bias": sd[p + "ln_1.bias"]},
+            "attn": {
+                "wq": wq.reshape(E, H, D), "wk": wk.reshape(E, H, D),
+                "wv": wv.reshape(E, H, D),
+                "bq": bq.reshape(H, D), "bk": bk.reshape(H, D),
+                "bv": bv.reshape(H, D),
+                "wo": sd[p + "attn.c_proj.weight"].reshape(H, D, E),
+                "bo": sd[p + "attn.c_proj.bias"],
+            },
+            "ln_ffn": {"scale": sd[p + "ln_2.weight"],
+                       "bias": sd[p + "ln_2.bias"]},
+            "ffn": {"w_up": sd[p + "mlp.c_fc.weight"],
+                    "b_up": sd[p + "mlp.c_fc.bias"],
+                    "w_down": sd[p + "mlp.c_proj.weight"],
+                    "b_down": sd[p + "mlp.c_proj.bias"]},
+        }
+    return t
+
+
+def _llama_tree(sd: dict, cfg: ModelConfig) -> dict:
+    t = _llama_tree_attn_only(sd, cfg)
+    for i in range(cfg.num_layers):
+        p = f"model.layers.{i}."
+        t[f"layer_{i}"]["ffn"] = {
+            "w_gate": sd[p + "mlp.gate_proj.weight"].T,
+            "w_up": sd[p + "mlp.up_proj.weight"].T,
+            "w_down": sd[p + "mlp.down_proj.weight"].T}
+    return t
+
+
+def _qwen2_tree(sd: dict, cfg: ModelConfig) -> dict:
+    """qwen2 = llama + qkv biases (the biases see RoPE's head-dim layout,
+    so they get the same half→interleaved permutation as the weights)."""
+    H, KV, D = cfg.num_heads, cfg.kv_heads, cfg.head_dim
+    perm = _interleave_perm(D, sd.device)
+    t = _llama_tree(sd, cfg)
+    for i in range(cfg.num_layers):
+        p = f"model.layers.{i}."
+        a = t[f"layer_{i}"]["attn"]
+        a["bq"] = sd[p + "self_attn.q_proj.bias"].reshape(H, D)[:, perm]
+        a["bk"] = sd[p + "self_attn.k_proj.bias"].reshape(KV, D)[:, perm]
+        a["bv"] = sd[p + "self_attn.v_proj.bias"].reshape(KV, D)
+    return t
+
+
+def _mixtral_tree(sd: dict, cfg: ModelConfig) -> dict:
+    """mixtral = llama attention + stacked-expert MoE FFN (HF w1=gate,
+    w3=up, w2=down per expert; gate.weight is the router)."""
+    E = cfg.hidden_size
+    t = _llama_tree_attn_only(sd, cfg)
+    n_exp = cfg.moe.num_experts
+    for i in range(cfg.num_layers):
+        p = f"model.layers.{i}.block_sparse_moe."
+        t[f"layer_{i}"]["moe"] = {"moe_layer": {
+            "gate": {"wg": sd[p + "gate.weight"].T},            # [E, n_exp]
+            "experts": {
+                "w_gate": torch.stack([sd[p + f"experts.{k}.w1.weight"].T
+                                       for k in range(n_exp)]),
+                "w_up": torch.stack([sd[p + f"experts.{k}.w3.weight"].T
+                                     for k in range(n_exp)]),
+                "w_down": torch.stack([sd[p + f"experts.{k}.w2.weight"].T
+                                       for k in range(n_exp)]),
+            }}}
+    return t
+
+
+def _llama_tree_attn_only(sd: dict, cfg: ModelConfig) -> dict:
+    """The llama embedding/attention/norm skeleton without the dense FFN
+    (mixtral swaps in its MoE block)."""
+    E, H, KV, D = (cfg.hidden_size, cfg.num_heads, cfg.kv_heads,
+                   cfg.head_dim)
+    perm = _interleave_perm(D, sd.device)
+    t = {"embed": sd["model.embed_tokens.weight"],
+         "ln_final": {"scale": sd["model.norm.weight"]}}
+    if not cfg.tie_embeddings:
+        t["unembed"] = sd["lm_head.weight"].T
+    for i in range(cfg.num_layers):
+        p = f"model.layers.{i}."
+        t[f"layer_{i}"] = {
+            "ln_attn": {"scale": sd[p + "input_layernorm.weight"]},
+            "attn": {
+                "wq": sd[p + "self_attn.q_proj.weight"].T
+                .reshape(E, H, D)[:, :, perm],
+                "wk": sd[p + "self_attn.k_proj.weight"].T
+                .reshape(E, KV, D)[:, :, perm],
+                "wv": sd[p + "self_attn.v_proj.weight"].T.reshape(E, KV, D),
+                "wo": sd[p + "self_attn.o_proj.weight"].T.reshape(H, D, E),
+            },
+            "ln_ffn": {"scale": sd[p + "post_attention_layernorm.weight"]},
+        }
+    return t
+
+
+def _falcon_tree(sd: dict, cfg: ModelConfig) -> dict:
+    """falcon-7b layout: fused query_key_value with multi-query K/V tail
+    ([H*D + 2*D, E]: H query heads, then one K and one V head), parallel
+    attn/FFN with ONE input layernorm, no linear biases."""
+    E, H, KV, D = (cfg.hidden_size, cfg.num_heads, cfg.kv_heads,
+                   cfg.head_dim)
+    perm = _interleave_perm(D, sd.device)
+    t = {"embed": sd["transformer.word_embeddings.weight"],
+         "ln_final": {"scale": sd["transformer.ln_f.weight"],
+                      "bias": sd["transformer.ln_f.bias"]}}
+    if not cfg.tie_embeddings:
+        t["unembed"] = sd["lm_head.weight"].T
+    F = cfg.ffn_size
+    for i in range(cfg.num_layers):
+        p = f"transformer.h.{i}."
+        w = sd[p + "self_attention.query_key_value.weight"].T  # [E, (H+2K)D]
+        wq = w[:, :H * D].reshape(E, H, D)[:, :, perm]
+        wk = w[:, H * D:(H + KV) * D].reshape(E, KV, D)[:, :, perm]
+        wv = w[:, (H + KV) * D:].reshape(E, KV, D)
+        t[f"layer_{i}"] = {
+            "ln_attn": {"scale": sd[p + "input_layernorm.weight"],
+                        "bias": sd[p + "input_layernorm.bias"]},
+            "attn": {
+                "wq": wq, "wk": wk, "wv": wv,
+                "wo": sd[p + "self_attention.dense.weight"].T
+                .reshape(H, D, E),
+            },
+            "ffn": {"w_up": sd[p + "mlp.dense_h_to_4h.weight"].T,
+                    "b_up": sd.zeros(F),                   # falcon: no bias
+                    "w_down": sd[p + "mlp.dense_4h_to_h.weight"].T,
+                    "b_down": sd.zeros(E)},
+        }
+    return t
+
+
+def _bloom_tree(sd: dict, cfg: ModelConfig) -> dict:
+    """bloom layout: embedding layernorm, fused per-head-interleaved QKV
+    ([H, 3, D, E] after reshape), ALiBi (no position params)."""
+    E, H, D = cfg.hidden_size, cfg.num_heads, cfg.head_dim
+    t = {"embed": sd["transformer.word_embeddings.weight"],
+         "ln_embed": {"scale": sd["transformer.word_embeddings_layernorm.weight"],
+                      "bias": sd["transformer.word_embeddings_layernorm.bias"]},
+         "ln_final": {"scale": sd["transformer.ln_f.weight"],
+                      "bias": sd["transformer.ln_f.bias"]}}
+    for i in range(cfg.num_layers):
+        p = f"transformer.h.{i}."
+        w = sd[p + "self_attention.query_key_value.weight"]  # [3HD, E]
+        b = sd[p + "self_attention.query_key_value.bias"]
+        w = w.reshape(H, 3, D, E)
+        b = b.reshape(H, 3, D)
+        t[f"layer_{i}"] = {
+            "ln_attn": {"scale": sd[p + "input_layernorm.weight"],
+                        "bias": sd[p + "input_layernorm.bias"]},
+            "attn": {
+                "wq": w[:, 0].permute(2, 0, 1), "bq": b[:, 0],
+                "wk": w[:, 1].permute(2, 0, 1), "bk": b[:, 1],
+                "wv": w[:, 2].permute(2, 0, 1), "bv": b[:, 2],
+                "wo": sd[p + "self_attention.dense.weight"].T
+                .reshape(H, D, E),
+                "bo": sd[p + "self_attention.dense.bias"],
+            },
+            "ln_ffn": {"scale": sd[p + "post_attention_layernorm.weight"],
+                       "bias": sd[p + "post_attention_layernorm.bias"]},
+            "ffn": {"w_up": sd[p + "mlp.dense_h_to_4h.weight"].T,
+                    "b_up": sd[p + "mlp.dense_h_to_4h.bias"],
+                    "w_down": sd[p + "mlp.dense_4h_to_h.weight"].T,
+                    "b_down": sd[p + "mlp.dense_4h_to_h.bias"]},
+        }
+    return t
+
+
+def _opt_tree(sd: dict, cfg: ModelConfig) -> dict:
+    """OPT layout: learned positions with a +2 offset (sliced off here),
+    separate q/k/v/out projections with biases, ReLU FFN with biases."""
+    E, H, D = cfg.hidden_size, cfg.num_heads, cfg.head_dim
+    t = {"embed": sd["model.decoder.embed_tokens.weight"],
+         # OPT feeds positions + 2 into its table; drop the offset rows
+         "pos_embed": sd["model.decoder.embed_positions.weight"][2:],
+         "ln_final": {"scale": sd["model.decoder.final_layer_norm.weight"],
+                      "bias": sd["model.decoder.final_layer_norm.bias"]}}
+    if not cfg.tie_embeddings:
+        t["unembed"] = sd["lm_head.weight"].T
+    for i in range(cfg.num_layers):
+        p = f"model.decoder.layers.{i}."
+        t[f"layer_{i}"] = {
+            "ln_attn": {"scale": sd[p + "self_attn_layer_norm.weight"],
+                        "bias": sd[p + "self_attn_layer_norm.bias"]},
+            "attn": {
+                "wq": sd[p + "self_attn.q_proj.weight"].T.reshape(E, H, D),
+                "bq": sd[p + "self_attn.q_proj.bias"].reshape(H, D),
+                "wk": sd[p + "self_attn.k_proj.weight"].T.reshape(E, H, D),
+                "bk": sd[p + "self_attn.k_proj.bias"].reshape(H, D),
+                "wv": sd[p + "self_attn.v_proj.weight"].T.reshape(E, H, D),
+                "bv": sd[p + "self_attn.v_proj.bias"].reshape(H, D),
+                "wo": sd[p + "self_attn.out_proj.weight"].T.reshape(H, D, E),
+                "bo": sd[p + "self_attn.out_proj.bias"],
+            },
+            "ln_ffn": {"scale": sd[p + "final_layer_norm.weight"],
+                       "bias": sd[p + "final_layer_norm.bias"]},
+            "ffn": {"w_up": sd[p + "fc1.weight"].T,
+                    "b_up": sd[p + "fc1.bias"],
+                    "w_down": sd[p + "fc2.weight"].T,
+                    "b_down": sd[p + "fc2.bias"]},
+        }
+    return t
+
+
+def _phi_tree(sd: dict, cfg: ModelConfig) -> dict:
+    """phi-2 layout: parallel attn/FFN under ONE layernorm, PARTIAL rotary
+    (the interleave permutation applies only to the rotary slice of each
+    head), biases everywhere incl. the lm_head."""
+    E, H, D = cfg.hidden_size, cfg.num_heads, cfg.head_dim
+    d_rot = (int(D * cfg.rotary_pct) // 2) * 2
+    perm = torch.cat([_interleave_perm(d_rot, sd.device),
+                      torch.arange(d_rot, D, device=sd.device)])
+    t = {"embed": sd["model.embed_tokens.weight"],
+         "ln_final": {"scale": sd["model.final_layernorm.weight"],
+                      "bias": sd["model.final_layernorm.bias"]},
+         "unembed": sd["lm_head.weight"].T,
+         "unembed_b": sd["lm_head.bias"]}
+    for i in range(cfg.num_layers):
+        p = f"model.layers.{i}."
+        t[f"layer_{i}"] = {
+            "ln_attn": {"scale": sd[p + "input_layernorm.weight"],
+                        "bias": sd[p + "input_layernorm.bias"]},
+            "attn": {
+                "wq": sd[p + "self_attn.q_proj.weight"].T
+                .reshape(E, H, D)[:, :, perm],
+                "bq": sd[p + "self_attn.q_proj.bias"].reshape(H, D)[:, perm],
+                "wk": sd[p + "self_attn.k_proj.weight"].T
+                .reshape(E, H, D)[:, :, perm],
+                "bk": sd[p + "self_attn.k_proj.bias"].reshape(H, D)[:, perm],
+                "wv": sd[p + "self_attn.v_proj.weight"].T.reshape(E, H, D),
+                "bv": sd[p + "self_attn.v_proj.bias"].reshape(H, D),
+                "wo": sd[p + "self_attn.dense.weight"].T.reshape(H, D, E),
+                "bo": sd[p + "self_attn.dense.bias"],
+            },
+            "ffn": {"w_up": sd[p + "mlp.fc1.weight"].T,
+                    "b_up": sd[p + "mlp.fc1.bias"],
+                    "w_down": sd[p + "mlp.fc2.weight"].T,
+                    "b_down": sd[p + "mlp.fc2.bias"]},
+        }
+    return t
+
+
+def _phi3_tree(sd: dict, cfg: ModelConfig) -> dict:
+    """phi-3 layout (reference inference/v2 model_implementations/phi3):
+    llama skeleton with FUSED qkv_proj ([(H+2KV)D, E] — q, then k, then v)
+    and FUSED gate_up_proj ([2F, E] — gate half then up half)."""
+    E, H, KV, D = (cfg.hidden_size, cfg.num_heads, cfg.kv_heads,
+                   cfg.head_dim)
+    F = cfg.ffn_size
+    perm = _interleave_perm(D, sd.device)
+    t = {"embed": sd["model.embed_tokens.weight"],
+         "ln_final": {"scale": sd["model.norm.weight"]}}
+    if not cfg.tie_embeddings:
+        t["unembed"] = sd["lm_head.weight"].T
+    for i in range(cfg.num_layers):
+        p = f"model.layers.{i}."
+        w = sd[p + "self_attn.qkv_proj.weight"].T         # [E, (H+2KV)D]
+        gu = sd[p + "mlp.gate_up_proj.weight"].T          # [E, 2F]
+        t[f"layer_{i}"] = {
+            "ln_attn": {"scale": sd[p + "input_layernorm.weight"]},
+            "attn": {
+                "wq": w[:, :H * D].reshape(E, H, D)[:, :, perm],
+                "wk": w[:, H * D:(H + KV) * D].reshape(E, KV, D)[:, :, perm],
+                "wv": w[:, (H + KV) * D:].reshape(E, KV, D),
+                "wo": sd[p + "self_attn.o_proj.weight"].T.reshape(H, D, E),
+            },
+            "ln_ffn": {"scale": sd[p + "post_attention_layernorm.weight"]},
+            "ffn": {"w_gate": gu[:, :F], "w_up": gu[:, F:],
+                    "w_down": sd[p + "mlp.down_proj.weight"].T},
+        }
+    return t
+
+
+def _qwen_tree(sd: dict, cfg: ModelConfig) -> dict:
+    """qwen v1 layout (reference inference/v2 model_implementations/qwen):
+    gpt2-style module names over llama-style math — RMSNorm ln_1/ln_2,
+    FUSED c_attn ([3E, E] torch Linear: q, k, v stacked) WITH bias,
+    bias-free c_proj, and a SwiGLU MLP where HF's ``w2`` is the gate
+    (silu) branch and ``w1`` the up branch (modeling_qwen.py:
+    ``c_proj(a1 * silu(a2))`` with a1=w1(x), a2=w2(x))."""
+    E, H, D = cfg.hidden_size, cfg.num_heads, cfg.head_dim
+    perm = _interleave_perm(D, sd.device)
+    t = {"embed": sd["transformer.wte.weight"],
+         "ln_final": {"scale": sd["transformer.ln_f.weight"]}}
+    if not cfg.tie_embeddings:
+        t["unembed"] = sd["lm_head.weight"].T
+    for i in range(cfg.num_layers):
+        p = f"transformer.h.{i}."
+        w = sd[p + "attn.c_attn.weight"].T                # [E, 3E]
+        b = sd[p + "attn.c_attn.bias"]                    # [3E]
+        wq, wk, wv = torch.chunk(w, 3, dim=1)
+        bq, bk, bv = torch.chunk(b, 3)
+        t[f"layer_{i}"] = {
+            "ln_attn": {"scale": sd[p + "ln_1.weight"]},
+            "attn": {
+                "wq": wq.reshape(E, H, D)[:, :, perm],
+                "bq": bq.reshape(H, D)[:, perm],
+                "wk": wk.reshape(E, H, D)[:, :, perm],
+                "bk": bk.reshape(H, D)[:, perm],
+                "wv": wv.reshape(E, H, D),
+                "bv": bv.reshape(H, D),
+                "wo": sd[p + "attn.c_proj.weight"].T.reshape(H, D, E),
+            },
+            "ln_ffn": {"scale": sd[p + "ln_2.weight"]},
+            "ffn": {"w_gate": sd[p + "mlp.w2.weight"].T,
+                    "w_up": sd[p + "mlp.w1.weight"].T,
+                    "w_down": sd[p + "mlp.c_proj.weight"].T},
+        }
+    return t
+
+
+def _qwen2_moe_tree(sd: dict, cfg: ModelConfig) -> dict:
+    """qwen2-moe layout (reference inference/v2 qwen_v2_moe): qwen2
+    attention (qkv bias) + per-layer MoE with HF-named experts
+    (gate_proj/up_proj/down_proj), a router ``mlp.gate``, and the
+    sigmoid-gated shared expert (``mlp.shared_expert[_gate]``)."""
+    from .transformer import is_moe_layer
+
+    t = _llama_tree_attn_only(sd, cfg)
+    H, KV, D = cfg.num_heads, cfg.kv_heads, cfg.head_dim
+    perm = _interleave_perm(D, sd.device)
+    n_exp = cfg.moe.num_experts
+    for i in range(cfg.num_layers):
+        p = f"model.layers.{i}."
+        a = t[f"layer_{i}"]["attn"]
+        a["bq"] = sd[p + "self_attn.q_proj.bias"].reshape(H, D)[:, perm]
+        a["bk"] = sd[p + "self_attn.k_proj.bias"].reshape(KV, D)[:, perm]
+        a["bv"] = sd[p + "self_attn.v_proj.bias"].reshape(KV, D)
+        mp = p + "mlp."
+        if not is_moe_layer(cfg, i):
+            # mixed stack (mlp_only_layers / decoder_sparse_step): this
+            # layer carries a plain qwen2 dense FFN
+            t[f"layer_{i}"]["ffn"] = {
+                "w_gate": sd[mp + "gate_proj.weight"].T,
+                "w_up": sd[mp + "up_proj.weight"].T,
+                "w_down": sd[mp + "down_proj.weight"].T}
+            continue
+        t[f"layer_{i}"]["moe"] = {
+            "moe_layer": {
+                "gate": {"wg": sd[mp + "gate.weight"].T},   # [E, n_exp]
+                "experts": {
+                    "w_gate": torch.stack(
+                        [sd[mp + f"experts.{k}.gate_proj.weight"].T
+                         for k in range(n_exp)]),
+                    "w_up": torch.stack(
+                        [sd[mp + f"experts.{k}.up_proj.weight"].T
+                         for k in range(n_exp)]),
+                    "w_down": torch.stack(
+                        [sd[mp + f"experts.{k}.down_proj.weight"].T
+                         for k in range(n_exp)]),
+                }},
+            "shared_expert": {
+                "w_gate": sd[mp + "shared_expert.gate_proj.weight"].T,
+                "w_up": sd[mp + "shared_expert.up_proj.weight"].T,
+                "w_down": sd[mp + "shared_expert.down_proj.weight"].T,
+            },
+            "shared_gate": sd[mp + "shared_expert_gate.weight"].T,  # [E, 1]
+        }
+    return t
+
+
+_CONVERTERS = {"gpt2": _gpt2_tree, "llama": _llama_tree,
+               "mistral": _llama_tree, "qwen2": _qwen2_tree,
+               "mixtral": _mixtral_tree, "falcon": _falcon_tree,
+               "bloom": _bloom_tree, "opt": _opt_tree, "phi": _phi_tree,
+               "phi3": _phi3_tree, "qwen": _qwen_tree,
+               "qwen2_moe": _qwen2_moe_tree}
+
+
+def _reject_rope_scaling(hf_config) -> None:
+    """Scaled-RoPE checkpoints (llama3/yarn/longrope factors) would import
+    with plain RoPE and silently wrong position math — raise instead."""
+    rs = getattr(hf_config, "rope_scaling", None)
+    if rs:
+        raise NotImplementedError(
+            f"rope_scaling={rs} is not converted (plain-RoPE checkpoints "
+            f"are); scaled-rope position math would silently diverge")
+
+
+def _kv_heads_default(c) -> int:
+    return c.num_attention_heads
+
+
+#: the transformers config classes' defaults (transformers 4.57) of every
+#: attribute :func:`config_from_hf` reads, by ``model_type``: a
+#: ``config.json`` may omit an attribute that the class then fills in, and
+#: a config given as a ``SimpleNamespace`` of its values gets the same
+#: filling here. A callable default is computed from the config (a
+#: ``num_key_value_heads`` of None or absent means one KV head per query
+#: head). ``qwen`` (v1) is a remote-code architecture with no class.
+_LLAMA_LIKE = {"vocab_size": 32000, "hidden_size": 4096,
+               "num_hidden_layers": 32, "num_attention_heads": 32,
+               "num_key_value_heads": _kv_heads_default,
+               "intermediate_size": 11008, "max_position_embeddings": 2048,
+               "rms_norm_eps": 1e-6, "rope_theta": 10000.0,
+               "tie_word_embeddings": False}
+HF_CONFIG_DEFAULTS: dict[str, dict] = {
+    "gpt2": {"vocab_size": 50257, "n_embd": 768, "n_layer": 12,
+             "n_head": 12, "n_positions": 1024, "layer_norm_epsilon": 1e-5},
+    "llama": dict(_LLAMA_LIKE),
+    "mistral": dict(_LLAMA_LIKE, num_key_value_heads=8,
+                    intermediate_size=14336,
+                    max_position_embeddings=131072, sliding_window=4096),
+    "qwen2": dict(_LLAMA_LIKE, vocab_size=151936, intermediate_size=22016,
+                  max_position_embeddings=32768, sliding_window=None,
+                  use_sliding_window=False),
+    "mixtral": dict(_LLAMA_LIKE, num_key_value_heads=8,
+                    intermediate_size=14336,
+                    max_position_embeddings=131072, rms_norm_eps=1e-5,
+                    rope_theta=1e6, sliding_window=None,
+                    num_local_experts=8, num_experts_per_tok=2,
+                    router_aux_loss_coef=0.001),
+    "falcon": {"vocab_size": 65024, "hidden_size": 4544,
+               "num_hidden_layers": 32, "num_attention_heads": 71,
+               "multi_query": True, "new_decoder_architecture": False,
+               "parallel_attn": True, "alibi": False, "bias": False,
+               "max_position_embeddings": 2048, "rope_theta": 10000.0,
+               "layer_norm_epsilon": 1e-5, "tie_word_embeddings": True},
+    "bloom": {"vocab_size": 250880, "hidden_size": 64, "n_layer": 2,
+              "n_head": 8, "layer_norm_epsilon": 1e-5},
+    "opt": {"vocab_size": 50272, "hidden_size": 768,
+            "num_hidden_layers": 12, "num_attention_heads": 12,
+            "ffn_dim": 3072, "max_position_embeddings": 2048,
+            "do_layer_norm_before": True, "word_embed_proj_dim": 768,
+            "tie_word_embeddings": True},
+    "phi": {"vocab_size": 51200, "hidden_size": 2048,
+            "num_hidden_layers": 24, "num_attention_heads": 32,
+            "intermediate_size": 8192, "max_position_embeddings": 2048,
+            "rope_theta": 10000.0, "partial_rotary_factor": 0.5,
+            "layer_norm_eps": 1e-5, "tie_word_embeddings": False},
+    "phi3": dict(_LLAMA_LIKE, vocab_size=32064, hidden_size=3072,
+                 intermediate_size=8192, max_position_embeddings=4096,
+                 rms_norm_eps=1e-5, sliding_window=None),
+    "qwen2_moe": dict(_LLAMA_LIKE, vocab_size=151936, hidden_size=2048,
+                      num_hidden_layers=24, num_attention_heads=16,
+                      intermediate_size=5632, moe_intermediate_size=1408,
+                      shared_expert_intermediate_size=5632, num_experts=60,
+                      num_experts_per_tok=4, decoder_sparse_step=1,
+                      mlp_only_layers=(), norm_topk_prob=False,
+                      router_aux_loss_coef=0.001,
+                      max_position_embeddings=32768, use_sliding_window=False,
+                      sliding_window=None),
+}
+#: names a config.json may carry instead of the one the converter reads
+#: (the config classes' ``attribute_map``s)
+_HF_ALIASES = {"falcon": {"num_hidden_layers": ("n_layer",),
+                          "num_attention_heads": ("n_head",)},
+               "bloom": {"hidden_size": ("n_embed",)}}
+#: attributes whose None means "the class default" (the class resolves it)
+_NONE_IS_DEFAULT = ("num_key_value_heads",)
+
+
+class _HFConfig:
+    """A model's config read as its transformers class would fill it: an
+    attribute the config lacks falls back to an alias, then to
+    :data:`HF_CONFIG_DEFAULTS`; one it has is returned as it is."""
+
+    def __init__(self, cfg):
+        self._cfg = cfg
+        mt = getattr(cfg, "model_type", None)
+        self._defaults = HF_CONFIG_DEFAULTS.get(mt, {})
+        self._aliases = _HF_ALIASES.get(mt, {})
+
+    def __getattr__(self, name):
+        if name.startswith("_"):
+            raise AttributeError(name)
+        cfg = self._cfg
+        if hasattr(cfg, name) and not (name in _NONE_IS_DEFAULT
+                                       and getattr(cfg, name) is None):
+            return getattr(cfg, name)
+        for alias in self._aliases.get(name, ()):
+            if hasattr(cfg, alias):
+                return getattr(cfg, alias)
+        if name not in self._defaults:
+            raise AttributeError(f"HF config ({cfg.model_type}) has no "
+                                 f"'{name}'")
+        d = self._defaults[name]
+        return d(self) if callable(d) else d
+
+
+def config_from_hf(hf_config) -> ModelConfig:
+    """Map a transformers config (or a ``SimpleNamespace`` of a
+    ``config.json``'s values) onto a ModelConfig for supported archs."""
+    import dataclasses
+
+    if not isinstance(hf_config, _HFConfig):
+        hf_config = _HFConfig(hf_config)
+    mt = hf_config.model_type
+    _refuse_bert_family(mt)
+    if mt in ("llama", "mistral", "qwen2", "mixtral", "phi3", "qwen2_moe",
+              "phi"):
+        _reject_rope_scaling(hf_config)
+    if mt == "gpt2":
+        return dataclasses.replace(
+            PRESETS["gpt2-125m"],
+            vocab_size=hf_config.vocab_size,
+            hidden_size=hf_config.n_embd, num_layers=hf_config.n_layer,
+            num_heads=hf_config.n_head, max_seq_len=hf_config.n_positions,
+            norm_eps=hf_config.layer_norm_epsilon)
+    if mt in ("llama", "mistral"):
+        sw = getattr(hf_config, "sliding_window", None)
+        if sw is not None and sw >= hf_config.max_position_embeddings:
+            sw = None                     # window never binds → plain causal
+        return dataclasses.replace(
+            PRESETS["llama2-7b"],
+            vocab_size=hf_config.vocab_size,
+            hidden_size=hf_config.hidden_size,
+            num_layers=hf_config.num_hidden_layers,
+            num_heads=hf_config.num_attention_heads,
+            num_kv_heads=hf_config.num_key_value_heads,
+            intermediate_size=hf_config.intermediate_size,
+            max_seq_len=hf_config.max_position_embeddings,
+            rope_theta=float(getattr(hf_config, "rope_theta", 10000.0)),
+            norm_eps=hf_config.rms_norm_eps,
+            sliding_window=sw,
+            tie_embeddings=bool(getattr(hf_config, "tie_word_embeddings",
+                                        False)))
+    if mt == "qwen2":
+        sw = hf_config.sliding_window if getattr(
+            hf_config, "use_sliding_window", False) else None
+        if sw is not None and sw >= hf_config.max_position_embeddings:
+            sw = None
+        return dataclasses.replace(
+            PRESETS["qwen2-7b"],
+            vocab_size=hf_config.vocab_size,
+            hidden_size=hf_config.hidden_size,
+            num_layers=hf_config.num_hidden_layers,
+            num_heads=hf_config.num_attention_heads,
+            num_kv_heads=hf_config.num_key_value_heads,
+            intermediate_size=hf_config.intermediate_size,
+            max_seq_len=hf_config.max_position_embeddings,
+            rope_theta=float(getattr(hf_config, "rope_theta", 10000.0)),
+            norm_eps=hf_config.rms_norm_eps, sliding_window=sw,
+            tie_embeddings=bool(getattr(hf_config, "tie_word_embeddings",
+                                        False)))
+    if mt == "mixtral":
+        from .transformer import MoEConfig
+
+        n_exp = hf_config.num_local_experts
+        k = hf_config.num_experts_per_tok
+        sw = getattr(hf_config, "sliding_window", None)
+        if sw is not None and sw >= hf_config.max_position_embeddings:
+            sw = None
+        return dataclasses.replace(
+            PRESETS["mixtral-8x7b"],
+            sliding_window=sw,
+            vocab_size=hf_config.vocab_size,
+            hidden_size=hf_config.hidden_size,
+            num_layers=hf_config.num_hidden_layers,
+            num_heads=hf_config.num_attention_heads,
+            num_kv_heads=hf_config.num_key_value_heads,
+            intermediate_size=hf_config.intermediate_size,
+            max_seq_len=hf_config.max_position_embeddings,
+            rope_theta=float(getattr(hf_config, "rope_theta", 10000.0)),
+            norm_eps=hf_config.rms_norm_eps,
+            tie_embeddings=bool(getattr(hf_config, "tie_word_embeddings",
+                                        False)),
+            # eval capacity >= n/k so no token ever drops — HF mixtral
+            # routes every token, and import parity requires the same
+            moe=MoEConfig(num_experts=n_exp, top_k=k,
+                          eval_capacity_factor=float(n_exp) / k,
+                          aux_loss_weight=float(getattr(
+                              hf_config, "router_aux_loss_coef", 0.01))))
+    if mt == "falcon":
+        if getattr(hf_config, "new_decoder_architecture", False):
+            raise NotImplementedError(
+                "falcon new_decoder_architecture (40b/180b grouped layout) "
+                "conversion is not implemented yet; 7b-style multi_query "
+                "checkpoints convert")
+        if not getattr(hf_config, "parallel_attn", True):
+            raise NotImplementedError("non-parallel falcon variants are "
+                                      "not converted")
+        if getattr(hf_config, "alibi", False):
+            raise NotImplementedError("alibi falcon variants are not "
+                                      "converted (rope falcons are)")
+        if not hf_config.multi_query:
+            raise NotImplementedError(
+                "falcon multi_query=False stores fused QKV per-head "
+                "interleaved — that layout is not converted")
+        if getattr(hf_config, "bias", False):
+            raise NotImplementedError("falcon bias=True checkpoints are "
+                                      "not converted (7b-style bias-free "
+                                      "ones are)")
+        return dataclasses.replace(
+            PRESETS["falcon-7b"],
+            activation="gelu_exact",     # FalconMLP uses nn.GELU (erf)
+            vocab_size=hf_config.vocab_size,
+            hidden_size=hf_config.hidden_size,
+            num_layers=hf_config.num_hidden_layers,
+            num_heads=hf_config.num_attention_heads,
+            num_kv_heads=1 if hf_config.multi_query
+            else hf_config.num_attention_heads,
+            max_seq_len=getattr(hf_config, "max_position_embeddings", 2048),
+            rope_theta=float(getattr(hf_config, "rope_theta", 10000.0)),
+            norm_eps=hf_config.layer_norm_epsilon,
+            tie_embeddings=bool(getattr(hf_config, "tie_word_embeddings",
+                                        True)))
+    if mt == "bloom":
+        return dataclasses.replace(
+            PRESETS["bloom-7b1"],
+            vocab_size=hf_config.vocab_size,
+            hidden_size=hf_config.hidden_size,
+            num_layers=hf_config.n_layer, num_heads=hf_config.n_head,
+            max_seq_len=2048,                  # ALiBi: no positional table
+            norm_eps=hf_config.layer_norm_epsilon)
+    if mt == "opt":
+        if not getattr(hf_config, "do_layer_norm_before", True):
+            raise NotImplementedError("opt-350m's post-norm layout is not "
+                                      "converted")
+        if hf_config.word_embed_proj_dim != hf_config.hidden_size:
+            raise NotImplementedError("opt embed-projection checkpoints "
+                                      "(word_embed_proj_dim != hidden) are "
+                                      "not converted")
+        return dataclasses.replace(
+            PRESETS["opt-125m"],
+            vocab_size=hf_config.vocab_size,
+            hidden_size=hf_config.hidden_size,
+            num_layers=hf_config.num_hidden_layers,
+            num_heads=hf_config.num_attention_heads,
+            intermediate_size=hf_config.ffn_dim,
+            max_seq_len=hf_config.max_position_embeddings,
+            tie_embeddings=bool(getattr(hf_config, "tie_word_embeddings",
+                                        True)))
+    if mt == "phi":
+        return dataclasses.replace(
+            PRESETS["phi-2"],
+            vocab_size=hf_config.vocab_size,
+            hidden_size=hf_config.hidden_size,
+            num_layers=hf_config.num_hidden_layers,
+            num_heads=hf_config.num_attention_heads,
+            intermediate_size=hf_config.intermediate_size,
+            max_seq_len=hf_config.max_position_embeddings,
+            rope_theta=float(getattr(hf_config, "rope_theta", 10000.0)),
+            rotary_pct=float(getattr(hf_config, "partial_rotary_factor",
+                                     0.5)),
+            norm_eps=hf_config.layer_norm_eps,
+            tie_embeddings=bool(getattr(hf_config, "tie_word_embeddings",
+                                        False)))
+    if mt == "phi3":
+        sw = getattr(hf_config, "sliding_window", None)
+        if sw is not None and sw >= hf_config.max_position_embeddings:
+            sw = None
+        return dataclasses.replace(
+            PRESETS["phi-3-mini"],
+            vocab_size=hf_config.vocab_size,
+            hidden_size=hf_config.hidden_size,
+            num_layers=hf_config.num_hidden_layers,
+            num_heads=hf_config.num_attention_heads,
+            num_kv_heads=hf_config.num_key_value_heads,
+            intermediate_size=hf_config.intermediate_size,
+            max_seq_len=hf_config.max_position_embeddings,
+            rope_theta=float(getattr(hf_config, "rope_theta", 10000.0)),
+            norm_eps=hf_config.rms_norm_eps, sliding_window=sw,
+            tie_embeddings=bool(getattr(hf_config, "tie_word_embeddings",
+                                        False)))
+    if mt == "qwen":
+        # qwen v1 (remote-code arch): intermediate_size counts BOTH swiglu
+        # branches — each of w1/w2 is half (modeling_qwen.py QWenMLP)
+        return dataclasses.replace(
+            PRESETS["qwen-7b"],
+            vocab_size=hf_config.vocab_size,
+            hidden_size=hf_config.hidden_size,
+            num_layers=hf_config.num_hidden_layers,
+            num_heads=hf_config.num_attention_heads,
+            intermediate_size=hf_config.intermediate_size // 2,
+            max_seq_len=getattr(hf_config, "seq_length", 8192),
+            rope_theta=float(getattr(hf_config, "rotary_emb_base", 10000.0)),
+            norm_eps=hf_config.layer_norm_epsilon,
+            tie_embeddings=bool(getattr(hf_config, "tie_word_embeddings",
+                                        False)))
+    if mt == "qwen2_moe":
+        from .transformer import MoEConfig
+
+        # mixed dense/MoE stacks convert via an explicit per-layer pattern
+        # (HF semantics: MoE at layer i iff i not in mlp_only_layers and
+        # (i+1) % decoder_sparse_step == 0 — transformers
+        # models/qwen2_moe/modeling_qwen2_moe.py decoder layer)
+        step = int(getattr(hf_config, "decoder_sparse_step", 1) or 1)
+        only = set(getattr(hf_config, "mlp_only_layers", None) or ())
+        nl = hf_config.num_hidden_layers
+        pattern = tuple(i not in only and (i + 1) % step == 0
+                        for i in range(nl))
+        if not any(pattern):
+            raise NotImplementedError(
+                "qwen2-moe checkpoint with NO MoE layers "
+                f"(decoder_sparse_step={step}, mlp_only_layers={only})")
+        moe_pattern = None if all(pattern) else pattern
+        sw = hf_config.sliding_window if getattr(
+            hf_config, "use_sliding_window", False) else None
+        if sw is not None and sw >= hf_config.max_position_embeddings:
+            sw = None
+        return dataclasses.replace(
+            PRESETS["qwen2-moe-a2.7b"],
+            vocab_size=hf_config.vocab_size,
+            hidden_size=hf_config.hidden_size,
+            num_layers=hf_config.num_hidden_layers,
+            num_heads=hf_config.num_attention_heads,
+            num_kv_heads=hf_config.num_key_value_heads,
+            # intermediate_size is the EXPERT ffn width here; the shared
+            # expert carries its own
+            intermediate_size=hf_config.moe_intermediate_size,
+            max_seq_len=hf_config.max_position_embeddings,
+            rope_theta=float(getattr(hf_config, "rope_theta", 10000.0)),
+            norm_eps=hf_config.rms_norm_eps, sliding_window=sw,
+            tie_embeddings=bool(getattr(hf_config, "tie_word_embeddings",
+                                        False)),
+            moe=MoEConfig(
+                num_experts=hf_config.num_experts,
+                top_k=hf_config.num_experts_per_tok,
+                # HF routes every token (no capacity); eval capacity n/k
+                # guarantees the same
+                eval_capacity_factor=float(hf_config.num_experts)
+                / hf_config.num_experts_per_tok,
+                shared_expert_intermediate=
+                hf_config.shared_expert_intermediate_size,
+                normalize_gates=bool(getattr(hf_config, "norm_topk_prob",
+                                             False)),
+                aux_loss_weight=float(getattr(
+                    hf_config, "router_aux_loss_coef", 0.001)),
+                moe_layer_pattern=moe_pattern,
+                # mixed stacks: the mlp-only layers keep the checkpoint's
+                # DENSE width (e.g. Qwen1.5-MoE-A2.7B: 5632 dense vs 1408
+                # per expert)
+                dense_ffn_intermediate=(hf_config.intermediate_size
+                                        if moe_pattern is not None
+                                        else None)))
+    raise NotImplementedError(
+        f"no converter for HF model_type '{mt}' (have: "
+        f"{sorted(_CONVERTERS)})")
+
+
+# ---------------------------------------------------------------------------
+# Generic fallback — the AutoTP role (reference module_inject/auto_tp.py:189
+# shards ANY HF module tree by walking it; here the equivalent promise is
+# "any llama/neox-shaped causal LM converts by name+shape heuristics").
+# Fails loudly listing every tensor it could not place.
+# ---------------------------------------------------------------------------
+
+#: per-layer suffix → role. First match wins; names follow the common HF
+#: conventions across gpt-neox / stablelm / internlm / persimmon-style
+#: decoders. Fused ``query_key_value`` is per-head-interleaved ([H, 3, D]
+#: rows — the neox/bloom convention); ``qkv_proj`` is sequential q|k|v.
+_G_ATTN_Q = ("self_attn.q_proj", "attention.q_proj", "attn.q_proj")
+_G_ATTN_K = ("self_attn.k_proj", "attention.k_proj", "attn.k_proj")
+_G_ATTN_V = ("self_attn.v_proj", "attention.v_proj", "attn.v_proj")
+_G_ATTN_FUSED_HEADWISE = ("attention.query_key_value",
+                          "self_attention.query_key_value")
+#: NB deliberately NOT "attn.qkv_proj": codegen fuses qkv in mp_num-blocked
+#: order, which the sequential q|k|v split would silently mis-read — that
+#: layout must fail loudly until it has a dedicated converter
+_G_ATTN_FUSED_SEQ = ("self_attn.qkv_proj",)
+_G_ATTN_O = ("self_attn.o_proj", "attention.dense", "self_attn.dense",
+             "self_attn.out_proj", "attn.out_proj", "attention.o_proj")
+_G_MLP_GATE = ("mlp.gate_proj",)
+_G_MLP_UP = ("mlp.up_proj", "mlp.dense_h_to_4h", "mlp.fc1", "mlp.fc_in")
+_G_MLP_DOWN = ("mlp.down_proj", "mlp.dense_4h_to_h", "mlp.fc2",
+               "mlp.fc_out")
+_G_LN_ATTN = ("input_layernorm", "ln_1", "attention_norm")
+_G_LN_FFN = ("post_attention_layernorm", "ln_2", "ffn_norm")
+#: buffers that carry no weights (causal masks, rope caches)
+_G_IGNORE = ("rotary_emb.inv_freq", "masked_bias", ".attn.bias",
+             ".attention.bias", "rotary_pos_emb", "position_ids")
+
+
+def generic_config_and_tree(hf_config, sd: dict, device=None):
+    """Heuristic conversion for causal-LM archs WITHOUT a hand-written
+    tree. Locates embedding / layers / norms / projections by module name
+    and shape, derives the ModelConfig from the HF config plus what the
+    state dict proves (norm family from bias presence, biases from key
+    presence, parallel residual from config), and raises listing the
+    unmatched tensors for genuinely alien layouts. ``sd`` maps names to
+    torch tensors; each one moves to ``device`` as it is taken."""
+    import re
+
+    if not isinstance(hf_config, _HFConfig):
+        hf_config = _HFConfig(hf_config)
+
+    def attr(*names, default=None):
+        for n in names:
+            v = getattr(hf_config, n, None)
+            if v is not None:
+                return v
+        return default
+
+    used: set[str] = set()
+
+    def take(key):
+        used.add(key)
+        return sd[key].detach().to(device)
+
+    def find_top(*suffixes):
+        for k in sd:
+            depth = k.count(".")
+            for s in suffixes:
+                if k.endswith(s) and depth <= 2 and ".layers." not in k \
+                        and ".h." not in k:
+                    return k
+        return None
+
+    embed_key = find_top("embed_in.weight", "embed_tokens.weight",
+                         "wte.weight", "word_embeddings.weight")
+    if embed_key is None:
+        raise NotImplementedError(
+            f"generic HF import: no token embedding found (model_type "
+            f"'{hf_config.model_type}'); top-level keys: "
+            f"{sorted(k for k in sd if k.count('.') <= 2)[:20]}")
+    lnf_key = find_top("final_layer_norm.weight", "ln_f.weight",
+                       "norm.weight", "final_layernorm.weight")
+    head_key = find_top("embed_out.weight", "lm_head.weight")
+    pos_key = find_top("wpe.weight", "embed_positions.weight")
+
+    ids = sorted({int(m.group(1)) for k in sd
+                  if (m := re.search(r"\.(?:h|layers)\.(\d+)\.", k))})
+    if not ids or lnf_key is None:
+        raise NotImplementedError(
+            f"generic HF import: could not locate decoder layers / final "
+            f"norm for model_type '{hf_config.model_type}'")
+    sample = next(k for k in sd if re.search(r"\.(?:h|layers)\.0\.", k))
+    layer_prefix = sample[:re.search(r"\.(?:h|layers)\.0\.", sample).end()]
+    layer_tmpl = layer_prefix.replace(".0.", ".{i}.")
+
+    V, E = sd[embed_key].shape
+    L = len(ids)
+    H = attr("num_attention_heads", "n_head")
+    KV = attr("num_key_value_heads", default=H)
+    D = E // H
+
+    def layer_keys(i):
+        p = layer_tmpl.format(i=i)
+        return {k[len(p):]: k for k in sd if k.startswith(p)}
+
+    lk0 = layer_keys(0)
+
+    def match(suffixes, kind="weight"):
+        for s in suffixes:
+            if f"{s}.{kind}" in lk0:
+                return s
+        return None
+
+    q_name = match(_G_ATTN_Q)
+    fused_hw = match(_G_ATTN_FUSED_HEADWISE)
+    fused_seq = match(_G_ATTN_FUSED_SEQ)
+    o_name = match(_G_ATTN_O)
+    gate_name = match(_G_MLP_GATE)
+    up_name = match(_G_MLP_UP)
+    down_name = match(_G_MLP_DOWN)
+    ln_attn_name = match(_G_LN_ATTN)
+    ln_ffn_name = match(_G_LN_FFN)
+    if o_name is None or up_name is None or down_name is None \
+            or ln_attn_name is None \
+            or (q_name is None and fused_hw is None and fused_seq is None):
+        raise NotImplementedError(
+            f"generic HF import: could not identify the attention/FFN "
+            f"projections for model_type '{hf_config.model_type}'; "
+            f"layer-0 keys: {sorted(lk0)}")
+
+    # ---- config, from HF attrs + what the tensors prove ---------------
+    _reject_rope_scaling(hf_config)
+    act = str(attr("hidden_act", "activation_function", "hidden_activation",
+                   default="gelu")).lower()
+    if "silu" in act or "swish" in act:
+        activation = "silu_glu"
+    elif "relu" in act:
+        activation = "relu"
+    elif act in ("gelu_new", "gelu_fast", "gelu_pytorch_tanh"):
+        activation = "gelu"              # tanh approximation family
+    else:
+        activation = "gelu_exact"        # torch nn.GELU default = erf
+    if activation == "silu_glu" and gate_name is None:
+        raise NotImplementedError(
+            "generic HF import: silu activation without a gate_proj "
+            "(non-GLU silu MLPs are not modeled)")
+    norm = "layernorm" if f"{ln_attn_name}.bias" in lk0 else "rmsnorm"
+    # parallel residual: advertised by config (neox/falcon), or structural
+    # — a pre-norm decoder with ONE per-layer norm must feed attn and ffn
+    # from it in parallel (gpt-j/codegen carry no flag)
+    parallel = bool(attr("use_parallel_residual", "parallel_attn",
+                         default=False)) or ln_ffn_name is None
+    # rotary convention: archs with a ``rotary_dim`` attr (gpt-j, codegen)
+    # rotate INTERLEAVED pairs — this model's native layout, no
+    # permutation; rotate_half archs (neox rotary_pct, stablelm
+    # partial_rotary_factor, plain rope_theta) need the half→interleaved
+    # head-dim permutation
+    rotary_dim = attr("rotary_dim")
+    if rotary_dim:
+        rot_pct = float(rotary_dim) / D
+        # ModelConfig stores the ratio; apply_rope reconstructs the dim as
+        # (int(D * pct) // 2) * 2 — refuse the rare (D, rotary_dim) pairs
+        # where that round-trip is lossy rather than rotate the wrong dims
+        if (int(D * rot_pct) // 2) * 2 != (int(rotary_dim) // 2) * 2:
+            raise NotImplementedError(
+                f"generic HF import: rotary_dim={rotary_dim} with "
+                f"head_dim={D} does not round-trip through rotary_pct "
+                f"exactly — silently rotating fewer dims than the "
+                f"checkpoint is not acceptable")
+        interleaved_native = True
+    else:
+        rot_pct = float(attr("rotary_pct", "partial_rotary_factor",
+                             default=1.0))
+        interleaved_native = False
+    qkv_bias = (f"{q_name}.bias" in lk0 if q_name
+                else f"{fused_hw or fused_seq}.bias" in lk0)
+    cfg = ModelConfig(
+        vocab_size=V, hidden_size=E, num_layers=L, num_heads=H,
+        num_kv_heads=KV,
+        intermediate_size=sd[lk0[f"{down_name}.weight"]].shape[1],
+        max_seq_len=int(attr("max_position_embeddings", "n_positions",
+                             "seq_length", default=2048)),
+        position_embedding="learned" if pos_key else "rope",
+        rotary_pct=rot_pct,
+        rope_theta=float(attr("rope_theta", "rotary_emb_base",
+                              default=10000.0)),
+        norm=norm,
+        norm_eps=float(attr("rms_norm_eps", "layer_norm_eps",
+                            "layer_norm_epsilon", default=1e-5)),
+        activation=activation,
+        qkv_bias=qkv_bias,
+        attn_out_bias=f"{o_name}.bias" in lk0,
+        parallel_block=parallel,
+        parallel_block_norms=2 if parallel and ln_ffn_name else 1,
+        unembed_bias=bool(head_key
+                          and head_key.replace(".weight", ".bias") in sd),
+        tie_embeddings=head_key is None,
+    )
+    F = cfg.ffn_size
+    d_rot = (int(D * rot_pct) // 2) * 2
+    perm = torch.cat([_interleave_perm(d_rot, device),
+                      torch.arange(d_rot, D, device=device)]) \
+        if cfg.position_embedding == "rope" and not interleaved_native \
+        else torch.arange(D, device=device)
+
+    # ---- tree ----------------------------------------------------------
+    def norm_tree(base_key):
+        out = {"scale": take(base_key)}
+        b = base_key.replace(".weight", ".bias")
+        if norm == "layernorm":
+            out["bias"] = take(b) if b in sd else torch.zeros(
+                sd[base_key].shape, dtype=sd[base_key].dtype, device=device)
+        elif b in sd:
+            raise NotImplementedError(
+                f"generic HF import: rmsnorm with a bias at {b}")
+        return out
+
+    t = {"embed": take(embed_key), "ln_final": norm_tree(lnf_key)}
+    if pos_key:
+        t["pos_embed"] = take(pos_key)
+    if head_key:
+        t["unembed"] = take(head_key).T
+        hb = head_key.replace(".weight", ".bias")
+        if hb in sd:
+            t["unembed_b"] = take(hb)
+
+    for i in range(L):
+        lk = layer_keys(i)
+
+        def w(name):  # torch Linear [out, in] → [in, out]
+            return take(lk[f"{name}.weight"]).T
+
+        def b(name):
+            return take(lk[f"{name}.bias"])
+
+        attn = {}
+        if q_name:
+            attn["wq"] = w(q_name).reshape(E, H, D)[:, :, perm]
+            attn["wk"] = w(match(_G_ATTN_K)).reshape(E, KV, D)[:, :, perm]
+            attn["wv"] = w(match(_G_ATTN_V)).reshape(E, KV, D)
+            if qkv_bias:
+                attn["bq"] = b(q_name).reshape(H, D)[:, perm]
+                attn["bk"] = b(match(_G_ATTN_K)).reshape(KV, D)[:, perm]
+                attn["bv"] = b(match(_G_ATTN_V)).reshape(KV, D)
+        elif fused_hw:
+            # neox/bloom convention: rows are [H, 3, D]
+            wf = take(lk[f"{fused_hw}.weight"]).reshape(H, 3, D, E)
+            attn["wq"] = wf[:, 0].permute(2, 0, 1)[:, :, perm]
+            attn["wk"] = wf[:, 1].permute(2, 0, 1)[:, :, perm]
+            attn["wv"] = wf[:, 2].permute(2, 0, 1)
+            if qkv_bias:
+                bf = take(lk[f"{fused_hw}.bias"]).reshape(H, 3, D)
+                attn["bq"] = bf[:, 0][:, perm]
+                attn["bk"] = bf[:, 1][:, perm]
+                attn["bv"] = bf[:, 2]
+        else:
+            wf = take(lk[f"{fused_seq}.weight"]).T      # [E, (H+2KV)D]
+            attn["wq"] = wf[:, :H * D].reshape(E, H, D)[:, :, perm]
+            attn["wk"] = wf[:, H * D:(H + KV) * D] \
+                .reshape(E, KV, D)[:, :, perm]
+            attn["wv"] = wf[:, (H + KV) * D:].reshape(E, KV, D)
+            if qkv_bias:
+                bf = take(lk[f"{fused_seq}.bias"])
+                attn["bq"] = bf[:H * D].reshape(H, D)[:, perm]
+                attn["bk"] = bf[H * D:(H + KV) * D].reshape(KV, D)[:, perm]
+                attn["bv"] = bf[(H + KV) * D:].reshape(KV, D)
+        attn["wo"] = w(o_name).reshape(H, D, E)
+        if cfg.attn_out_bias:
+            attn["bo"] = b(o_name)
+
+        ffn = {"w_up": w(up_name), "w_down": w(down_name)}
+        if gate_name and activation == "silu_glu":
+            ffn["w_gate"] = w(gate_name)
+        if activation != "silu_glu":        # two-matrix FFN carries biases
+            zeros = dict(dtype=ffn["w_up"].dtype, device=device)
+            ffn["b_up"] = b(up_name) if f"{up_name}.bias" in lk \
+                else torch.zeros(F, **zeros)
+            ffn["b_down"] = b(down_name) if f"{down_name}.bias" in lk \
+                else torch.zeros(E, **zeros)
+
+        layer = {"ln_attn": norm_tree(lk[f"{ln_attn_name}.weight"]),
+                 "attn": attn, "ffn": ffn}
+        if ln_ffn_name and (not parallel or cfg.parallel_block_norms == 2):
+            layer["ln_ffn"] = norm_tree(lk[f"{ln_ffn_name}.weight"])
+        t[f"layer_{i}"] = layer
+
+    leftover = [k for k in sd if k not in used
+                and not any(s in k for s in _G_IGNORE)]
+    if leftover:
+        raise NotImplementedError(
+            f"generic HF import: {len(leftover)} tensors could not be "
+            f"placed for model_type '{hf_config.model_type}': "
+            f"{sorted(leftover)[:12]}{'...' if len(leftover) > 12 else ''}")
+    return cfg, t
+
+
+class _TrackedSD(dict):
+    """State dict that records which tensors a converter consumed, so
+    ``from_hf_model`` can verify coverage (nothing silently dropped), and
+    hands each one out moved to ``device`` (one tensor at a time)."""
+
+    def __init__(self, sd: dict, device):
+        super().__init__(sd)
+        self.used: set[str] = set()
+        self.device = device
+
+    def __getitem__(self, k):
+        self.used.add(k)
+        return super().__getitem__(k).detach().to(self.device)
+
+    def get(self, k, default=None):
+        if k in self:
+            return self[k]          # records the access
+        return default
+
+    def zeros(self, n: int) -> torch.Tensor:
+        """A zero bias of ``n`` (a bias-free checkpoint's), in the
+        checkpoint's floating dtype."""
+        dt = next((v.dtype for v in self.values()
+                   if v.is_floating_point()), torch.float32)
+        return torch.zeros(n, dtype=dt, device=self.device)
+
+
+def _contiguous(tree: dict) -> dict:
+    """Every leaf made contiguous IN PLACE, one at a time: a transposed leaf
+    is a view that keeps its moved source alive, so replacing it at once
+    frees that source before the next copy (the device never holds the
+    sources and all their copies together)."""
+    for k, v in tree.items():
+        tree[k] = _contiguous(v) if isinstance(v, dict) else v.contiguous()
+    return tree
+
+
+def _model_of(cfg: ModelConfig, tree: dict, device) -> tuple:
+    """A ``TransformerLM`` whose parameters ARE the tree's tensors (built
+    on the meta device, then the tree assigned): no second copy of the
+    weights. Returns ``(model, params)``, the params the model's own."""
+    from ..inference.weights import flatten_tree, module_param_tree
+
+    flat = flatten_tree(tree)
+    dtype = next(iter(flat.values())).dtype
+    model = TransformerLM(cfg, device="meta", param_dtype=dtype)
+    model.load_state_dict(flat, strict=True, assign=True)
+    return model, module_param_tree(model)
+
+
+def from_hf_model(hf_model, dtype=None, device=None
+                  ) -> tuple[TransformerLM, dict]:
+    """(TransformerLM, params) from a loaded model: ``hf_model.config`` (a
+    transformers config or a ``SimpleNamespace`` of a ``config.json``'s
+    values) and ``hf_model.state_dict()`` (torch tensors). Unknown
+    ``model_type``s go through the generic name/shape converter (the
+    AutoTP role) and raise listing unmatched tensors when the layout is
+    genuinely alien; bert-family encoders raise NotImplementedError naming
+    their ROADMAP item.
+
+    The leaves land on ``device`` (the CUDA device by default) in the
+    checkpoint's dtype; ``dtype`` sets the config's compute dtype. The
+    model's parameters are the returned tensors themselves."""
+    import dataclasses
+
+    from ..accelerator import get_device
+
+    dev = get_device(device)
+    hf_config = _HFConfig(hf_model.config)
+    sd = {k: v.detach() for k, v in hf_model.state_dict().items()}
+    mt = hf_config.model_type
+    _refuse_bert_family(mt)
+    if mt in _CONVERTERS:
+        cfg = config_from_hf(hf_config)
+        if dtype is not None:
+            cfg = dataclasses.replace(cfg, dtype=dtype)
+        tsd = _TrackedSD(sd, dev)
+        tree = _CONVERTERS[mt](tsd, cfg)
+        # the generic path's coverage check, applied to the hand-written
+        # converters too: a checkpoint variant carrying tensors a
+        # converter does not expect must fail loudly, not drop them into
+        # wrong logits. Tied heads duplicate the embedding; ignore them.
+        ignore = _G_IGNORE + (("lm_head.weight",)
+                              if cfg.tie_embeddings else ())
+        leftover = [k for k in sd if k not in tsd.used
+                    and not any(s in k for s in ignore)]
+        if leftover:
+            raise NotImplementedError(
+                f"HF import ({mt}): {len(leftover)} checkpoint tensors "
+                f"were not consumed by the converter — the layout has "
+                f"tensors this converter would silently drop: "
+                f"{sorted(leftover)[:12]}"
+                f"{'...' if len(leftover) > 12 else ''}")
+    else:
+        cfg, tree = generic_config_and_tree(hf_config, sd, device=dev)
+        if dtype is not None:
+            cfg = dataclasses.replace(cfg, dtype=dtype)
+    return _model_of(cfg, _contiguous(tree), dev)

@@ -43,7 +43,8 @@ are being recorded, and attention passes ``attn_impl`` to the dispatcher
 (``ops/attention.py``: "auto" and "pallas" reach the flash kernel K4 where
 its gate holds), as the JAX model does; a sliding window or ALiBi takes the
 plain route. The bert-family encoder layout (post-norm, bidirectional,
-segment embeddings) is ported with a later slice and raises here.
+segment embeddings) is ported with ROADMAP queue 1, item 7 and raises
+here.
 """
 from __future__ import annotations
 
@@ -184,7 +185,7 @@ def check_served_family(cfg: ModelConfig) -> None:
             or cfg.dropout:
         raise NotImplementedError(
             "bert-family encoders (bidirectional, post-norm, segment "
-            "embeddings, dropout) are ported with a later slice")
+            "embeddings, dropout) are ported with ROADMAP queue 1, item 7")
     if cfg.remat:
         make_policy(cfg.remat_policy)   # an unknown policy raises
 
@@ -336,17 +337,24 @@ def _fan_in(shape) -> int:
 
 class _ParamFactory:
     """Creates a module's parameters on ``device`` in ``dtype`` from one
-    seeded ``torch.Generator`` on that device (never through the host)."""
+    seeded ``torch.Generator`` on that device (never through the host). On
+    the meta device the parameters have shapes and no storage."""
 
     def __init__(self, device: torch.device, dtype, seed: int):
         self.device, self.dtype = device, dtype
-        self.gen = torch.Generator(device=device)
-        self.gen.manual_seed(seed)
+        self.gen = None
+        if device.type != "meta":
+            self.gen = torch.Generator(device=device)
+            self.gen.manual_seed(seed)
 
     def _p(self, t: torch.Tensor) -> nn.Parameter:
         return nn.Parameter(t.to(self.dtype), requires_grad=False)
 
     def normal(self, shape, std: float) -> nn.Parameter:
+        if self.gen is None:
+            # meta: shapes only (randn on meta runs Python decompositions
+            # whose first use imports the compiler stack, seconds of it)
+            return self._p(torch.empty(shape, device=self.device))
         t = torch.randn(shape, generator=self.gen, device=self.device,
                         dtype=torch.float32)
         return self._p(t.mul_(std))
@@ -508,7 +516,8 @@ class TransformerLM(nn.Module):
     """The flagship causal LM. Parameters are created on ``device`` (the
     CUDA device by default; ``device="cpu"`` for the host) in
     ``param_dtype`` (default ``config.dtype``) from a ``torch.Generator``
-    seeded with ``seed``.
+    seeded with ``seed``; ``device="meta"`` builds the module without
+    storage, for weights assigned afterwards (``models/hf.py``).
 
     :meth:`forward` is the dense, non-paged forward — the training forward,
     and the oracle the serving engine's streams are held against."""
@@ -520,7 +529,8 @@ class TransformerLM(nn.Module):
 
         check_served_family(config)
         self.config = cfg = config
-        pf = _ParamFactory(get_device(device), param_dtype or cfg.dtype, seed)
+        dev = torch.device("meta") if device == "meta" else get_device(device)
+        pf = _ParamFactory(dev, param_dtype or cfg.dtype, seed)
         E, V = cfg.hidden_size, cfg.vocab_size
         self.embed = pf.normal((V, E), 0.02)
         if cfg.position_embedding == "learned":

@@ -4,7 +4,8 @@ with g++ at first use and bound with ctypes.
 Counterpart of ``deepspeed_tpu/ops/native/__init__.py``. The sources are
 the port's copies of the JAX package's ``cpu_adam.cpp`` (the host Adam,
 Adagrad and Lion steps and the fp32 → bf16 cast), ``aio.cpp`` (the async
-file I/O engine) and ``threadpool.h``, compiled with the JAX loader's
+file I/O engine), ``atoms.cpp`` (the serving scheduler's plan packer,
+``dstpu_build_atoms``) and ``threadpool.h``, compiled with the JAX loader's
 flags, one object per source::
 
     g++ -O3 -march=native -std=c++17 -fPIC -fopenmp -Wall -c <source>
@@ -21,7 +22,8 @@ builds again.
 There is no quiet fallback: a failed build raises :class:`RuntimeError`
 with the compiler's output. The plain torch versions in
 ``ops/cpu_optimizer.py`` and ``ops/aio.py`` run only where their caller
-asks for them (``native=False``).
+asks for them (``native=False``); the scheduler's Python packer only in
+tests.
 
 OpenMP: the library's loops take their team size from a ``num_threads``
 clause, set once at load (``dstpu_set_num_threads``) to
@@ -44,7 +46,7 @@ from ..utils.logging import logger
 _HERE = os.path.dirname(os.path.abspath(__file__))
 CSRC = os.path.join(os.path.dirname(_HERE), "csrc")
 BUILD_DIR = os.path.join(_HERE, "build")
-SOURCES = ("aio.cpp", "cpu_adam.cpp")
+SOURCES = ("aio.cpp", "atoms.cpp", "cpu_adam.cpp")
 HEADERS = ("threadpool.h",)
 FLAGS = ("-O3", "-march=native", "-std=c++17", "-fPIC", "-fopenmp", "-Wall")
 
@@ -177,6 +179,9 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.dstpu_num_threads.restype = i32
     lib.dstpu_set_num_threads.argtypes = [i32]
     lib.dstpu_set_num_threads.restype = None
+    lib.dstpu_build_atoms.argtypes = [i32, p, p, p, i32, i32, i32, i32,
+                                      p, p, p, p, p, p, p, p]
+    lib.dstpu_build_atoms.restype = i32
     return lib
 
 

@@ -249,11 +249,37 @@ def wait_for_checkpoint(engine, timeout_s: float | None = None) -> None:
         raise err
 
 
-@_with_host_state(changed=False)
 def save_checkpoint(engine, save_dir: str, tag: str | None = None,
                     client_state: dict | None = None) -> str:
     """Every rank calls this; see the module docstring. Returns the tag's
-    path."""
+    path.
+
+    Telemetry wrapper, as in the JAX package: the save runs under a
+    ``checkpoint_save`` span and its host-blocking wall time lands in a
+    histogram (the async path's wall time is the snapshot cost only —
+    commit durations flow separately through ``record_committed`` →
+    Checkpoint/ counters). The flight recorder gets a breadcrumb either
+    way, so postmortems show the last save attempt."""
+    from ..telemetry import get_telemetry
+
+    telem = get_telemetry()
+    t0 = time.perf_counter()
+    with telem.span("checkpoint_save", dir=save_dir):
+        path = _save_checkpoint_inner(engine, save_dir, tag=tag,
+                                      client_state=client_state)
+    host_s = time.perf_counter() - t0
+    if telem.enabled:
+        telem.registry.histogram(
+            "checkpoint_save_call_s",
+            help="host-blocking save_checkpoint wall time").observe(host_s)
+    telem.note("checkpoint_save", path=path, host_s=round(host_s, 3),
+               async_save=engine.config.checkpoint.async_save)
+    return path
+
+
+@_with_host_state(changed=False)
+def _save_checkpoint_inner(engine, save_dir: str, tag: str | None = None,
+                           client_state: dict | None = None) -> str:
     t_start = time.perf_counter()
     inj = _injector(engine)
     res = getattr(engine, "resilience", None)
@@ -513,10 +539,29 @@ def _fill(engine, read) -> None:
         engine._zero.regather_persistent()
 
 
-@_with_host_state(changed=True)
 def load_checkpoint(engine, load_dir: str, tag: str | None = None) -> dict:
     """Every rank calls this; see the module docstring. Returns the saved
-    ``client_state``."""
+    ``client_state``. Runs under a ``checkpoint_load`` span with a
+    restore-time histogram and a flight-recorder breadcrumb (a rewind
+    storm shows up as a run of checkpoint_load events)."""
+    from ..telemetry import get_telemetry
+
+    telem = get_telemetry()
+    t0 = time.perf_counter()
+    with telem.span("checkpoint_load", dir=load_dir):
+        out = _load_checkpoint_inner(engine, load_dir, tag=tag)
+    load_s = time.perf_counter() - t0
+    if telem.enabled:
+        telem.registry.histogram(
+            "checkpoint_load_s", help="load_checkpoint wall time"
+        ).observe(load_s)
+    telem.note("checkpoint_load", dir=load_dir, load_s=round(load_s, 3))
+    return out
+
+
+@_with_host_state(changed=True)
+def _load_checkpoint_inner(engine, load_dir: str,
+                           tag: str | None = None) -> dict:
     load_dir = os.path.abspath(load_dir)
     level = getattr(engine.config.checkpoint, "integrity", "crc32")
     wait_for_checkpoint(engine)  # an in-flight async save may be the target

@@ -62,14 +62,25 @@ process per device, in the same order and precision:
   ``eval_batch`` only, a pure data-parallel mesh, no custom loss, the JAX
   engine's messages.
 
+- telemetry (the ``telemetry`` section, ``telemetry/``): each
+  ``train_batch`` runs under a step span (a ``record_function`` + NVTX
+  range named ``train_batch#<step>``) and feeds the step-time histogram,
+  the token counters and, under ``wall_clock_breakdown`` (where the step
+  time is device-synced), tokens/s, MFU and goodput: the model's FLOPs
+  (:func:`model_step_flops`) over the step time and the card's peak
+  (``telemetry.mfu.device_peak_flops`` or ``peak_tflops``);
+- the monitor backends (``tensorboard``, ``csv_monitor``, ``wandb``,
+  ``comet``, ``prometheus``; ``monitor/``): the timer means every
+  ``steps_per_print`` steps under ``wall_clock_breakdown``, the
+  resilience and checkpoint counters when they change.
+
 It runs on the CUDA device unless ``device="cpu"`` is given; ZeRO stages
 1-3 and offload bring a process group up (a world of one) when none is,
 NCCL on the card. Every feature that a later part of the port brings
 raises NotImplementedError when it is configured (:func:`check_ported`),
-naming its ROADMAP queue 1 item: the monitor backends, telemetry, the
-flops profiler, data efficiency and the hybrid engine (items 5 and 7), the
-1-bit optimizers and tensor, sequence, pipeline and expert parallelism
-(item 6), ZeRO++ and MiCS (after item 6).
+naming its ROADMAP queue 1 item: the flops profiler, data efficiency and
+the hybrid engine (item 7), the 1-bit optimizers and tensor, sequence,
+pipeline and expert parallelism (item 6), ZeRO++ and MiCS (after item 6).
 Model compression runs outside the config (a compression manager the JAX
 engine reads when set) and is not ported either.
 """
@@ -93,8 +104,11 @@ from ..parallel.topology import MeshTopology
 from ..utils.logging import log_dist, logger
 from ..utils.timer import (
     BACKWARD_GLOBAL_TIMER,
+    BACKWARD_MICRO_TIMER,
     FORWARD_GLOBAL_TIMER,
+    FORWARD_MICRO_TIMER,
     STEP_GLOBAL_TIMER,
+    STEP_MICRO_TIMER,
     TRAIN_BATCH_TIMER,
     SynchronizedWallClockTimer,
     ThroughputTimer,
@@ -102,6 +116,45 @@ from ..utils.timer import (
 from . import fp16 as fp16_mod
 from .lr_schedules import Schedule, build_scheduler, constant_lr
 from .resilience import ResilienceManager
+
+
+def model_step_flops(module: torch.nn.Module, rows: int, seq: int) -> float:
+    """Model FLOPs of one training step over ``rows`` sequences of ``seq``
+    tokens (PaLM appendix B): forward plus a backward of twice its cost,
+    without remat's recomputation. The forward counts 2 per weight of
+    every product a token goes through (the parameters of two or more
+    dimensions but the embedding tables, whose rows are looked up; a tied
+    head counts the table once; an expert stack counts ``top_k`` of its
+    ``num_experts``) and 4 x head_dim per query head and causally visible
+    (query, key) pair (scores and the weighted sum; a sliding window
+    bounds the pairs). 0.0 when the module has no ``TransformerLM``
+    config."""
+    cfg = getattr(module, "config", None)
+    if cfg is None or not hasattr(cfg, "num_heads"):
+        return 0.0
+    weights = 0
+    names = {n for n, _ in module.named_parameters()}
+    for n, p in module.named_parameters():
+        if p.dim() < 2 or n in ("pos_embed", "type_embed"):
+            continue
+        if n == "embed":
+            weights += p.numel() if "unembed" not in names else 0
+        elif ".experts." in n:
+            weights += p.numel() * cfg.moe.top_k // cfg.moe.num_experts
+        else:
+            weights += p.numel()
+    w = cfg.sliding_window
+    if not cfg.causal:
+        pairs = seq * seq
+    elif w is None or w >= seq:
+        pairs = seq * (seq + 1) // 2
+    else:
+        pairs = w * (w + 1) // 2 + (seq - w) * w
+    head_dim = cfg.hidden_size // cfg.num_heads if getattr(
+        cfg, "head_dim", None) is None else cfg.head_dim
+    fwd = 2.0 * weights * rows * seq \
+        + 4.0 * head_dim * cfg.num_heads * cfg.num_layers * pairs * rows
+    return 3.0 * fwd
 
 
 def _later(feature: str, item: str) -> NotImplementedError:
@@ -122,11 +175,6 @@ def check_ported(config: Config) -> None:
                      "item 7")
     if config.hybrid_engine.enabled:
         raise _later("the hybrid engine", "item 7")
-    for name in ("tensorboard", "csv_monitor", "wandb", "comet", "prometheus"):
-        if getattr(config, name).enabled:
-            raise _later(f"the {name} monitor backend", "item 7 (monitor/)")
-    if config.telemetry.enabled:
-        raise _later("telemetry", "item 5")
     if config.flops_profiler.enabled:
         raise _later("the flops profiler", "item 7 (profiling/)")
 
@@ -254,6 +302,26 @@ class DeepSpeedEngine:
         # fault tolerance (runtime/resilience.py): divergence sentinel,
         # preemption, watchdog, fault injection
         self.resilience = ResilienceManager(self, config.resilience)
+        self._monitor_master = None   # lazy MonitorMaster (monitor/)
+
+        # telemetry (telemetry/): spans + SLO/health metrics + MFU/goodput
+        # + flight recorder. The process-wide instance is shared with
+        # engine_v2 / checkpointing / resilience so /metrics is one pane;
+        # configure() mutates it in place when this engine enables it.
+        from .. import telemetry as _telemetry
+
+        if config.telemetry.enabled:
+            _telemetry.configure(config.telemetry)
+        self._telem = _telemetry.get_telemetry()
+        self._mfu_tracker: _telemetry.MFUTracker | None = None
+        self._step_flops: float | None = None   # counted at the first step
+        if self._telem.enabled:
+            peak = (config.telemetry.peak_tflops * 1e12
+                    if config.telemetry.peak_tflops
+                    else _telemetry.device_peak_flops())
+            self._mfu_tracker = _telemetry.MFUTracker(peak_flops=peak)
+            self._telem.set_health(job="train",
+                                   zero_stage=config.zero_optimization.stage)
         logger.info(
             f"engine up: zero_stage={self.zero_stage} dp={self.dp_world_size} "
             f"device={self.device} "
@@ -583,7 +651,25 @@ class DeepSpeedEngine:
         raises ``Preempted`` before the step; the sentinel observes the
         step after it and may rewind (``last_step_rewound``: re-derive the
         data position from the restored ``global_steps``) or raise
-        ``DivergenceError``."""
+        ``DivergenceError``.
+
+        Telemetry (telemetry/): when enabled, the step runs under a step
+        span mirrored as a ``record_function`` + NVTX range (a
+        ``torch.profiler`` trace groups the step's kernels under it) and
+        feeds the training-health instruments — step-time histogram,
+        tokens/s, MFU, and goodput that discounts sentinel-skipped and
+        rewound steps."""
+        telem = self._telem
+        if not telem.enabled:
+            return self._train_batch_inner(batch)
+        step_before = self.global_steps
+        skipped_before = self.skipped_steps
+        with telem.step_span("train_batch", self.global_steps):
+            loss = self._train_batch_inner(batch)
+        self._record_train_telemetry(batch, step_before, skipped_before)
+        return loss
+
+    def _train_batch_inner(self, batch: dict) -> torch.Tensor:
         res = self.resilience
         res.check_preemption()
         self.tput_timer.start()
@@ -612,6 +698,8 @@ class DeepSpeedEngine:
         if self.global_steps % self.config.steps_per_print == 0:
             log_dist(f"step={self.global_steps} loss={float(loss):.4f} "
                      f"lr={self.get_lr():.3e}")
+            if self.config.wall_clock_breakdown:
+                self._emit_timer_means()
         self._last_loss = loss
         res.observe_step(loss, finite)
         return loss
@@ -637,6 +725,8 @@ class DeepSpeedEngine:
         self.tput_timer.stop(sync_val=loss)
         if self.global_steps % self.config.steps_per_print == 0:
             log_dist(f"step={self.global_steps} loss={float(loss):.4f}")
+            if self.config.wall_clock_breakdown:
+                self._emit_timer_means()
         self._last_loss = loss
         res.observe_step(loss, None)
         return loss
@@ -822,9 +912,89 @@ class DeepSpeedEngine:
         return dict(self.resilience.counters)
 
     def _emit_counters(self, counters: dict, prefix: str) -> None:
-        """The JAX engine fans these out to its monitor backends, which
-        are not ported (ROADMAP queue 1, item 7): logged at debug level."""
-        logger.debug(f"{prefix} {counters} at step {self.global_steps}")
+        """Fan resilience/checkpoint counters out to the configured
+        monitor/ backends (lazy MonitorMaster; no-op when none enabled)."""
+        if self._monitor_master is None:
+            from ..monitor import MonitorMaster
+
+            self._monitor_master = MonitorMaster(self.config)
+        self._monitor_master.write_counters(counters, self.global_steps,
+                                            prefix=prefix)
+
+    #: wall_clock_breakdown timers exported to dashboards (means, ms)
+    _BREAKDOWN_TIMERS = (TRAIN_BATCH_TIMER, FORWARD_GLOBAL_TIMER,
+                         BACKWARD_GLOBAL_TIMER, STEP_GLOBAL_TIMER,
+                         FORWARD_MICRO_TIMER, BACKWARD_MICRO_TIMER,
+                         STEP_MICRO_TIMER)
+
+    def _emit_timer_means(self) -> None:
+        """Fan the wall_clock_breakdown timer MEANS out through
+        ``MonitorMaster.write_counters`` (and telemetry gauges) every
+        ``steps_per_print``. Emitted timers reset, so each point is the
+        mean over the last print window."""
+        means: dict[str, float] = {}
+        for name in self._BREAKDOWN_TIMERS:
+            if self.timers.has(name):
+                t = self.timers.timers[name]
+                if t.count:
+                    means[f"{name}_ms"] = t.mean() * 1000.0
+                    t.reset()
+        if not means:
+            return
+        self._emit_counters(means, "Train/")
+        if self._telem.enabled:
+            for k, v in means.items():
+                self._telem.registry.gauge(f"train_{k}").set(v)
+
+    def _record_train_telemetry(self, batch: dict, step_before: int,
+                                skipped_before: int) -> None:
+        """Post-step training-health instruments (train_batch wrapper).
+        Reads host values only: the step time, the batch's shape and the
+        host counters; no device tensor."""
+        reg = self._telem.registry
+        dt = self.tput_timer.last_step_s
+        # without wall_clock_breakdown the timer stops unsynced and dt is
+        # the host's enqueue time — rate/MFU gauges computed from it would
+        # be confident nonsense; the raw histogram stays
+        synced = self.config.wall_clock_breakdown
+        if dt:
+            reg.histogram(
+                "train_step_time_s",
+                help="train_batch wall time per step (device-synced only "
+                     "under wall_clock_breakdown)").observe(dt)
+        tokens, rows, seq = 0, 0, 0
+        for leaf in batch.values():
+            shape = getattr(leaf, "shape", ())
+            if len(shape) >= 2:
+                rows, seq = int(shape[0]), int(shape[1])
+                tokens = rows * seq
+                break
+        reg.counter("train_steps_total").inc()
+        if tokens:
+            reg.counter("train_tokens_total").inc(tokens)
+            if dt and synced:
+                reg.gauge("train_tokens_per_s").set(tokens / dt)
+        tracker = self._mfu_tracker
+        if tracker is not None and self._step_flops is None and tokens:
+            self._step_flops = model_step_flops(self.module, rows, seq)
+            if self._step_flops:
+                tracker.flops_per_step = self._step_flops
+        if tracker is not None and dt and synced:
+            rewound = self.resilience.last_step_rewound
+            skipped = self.skipped_steps > skipped_before
+            tracker.on_step(dt, useful=not (rewound or skipped))
+            if rewound:
+                # the rewind rolled global_steps back: everything between
+                # the restored step and the divergence was wasted work
+                tracker.discard_steps(max(0, step_before - self.global_steps))
+            m, g = tracker.mfu(), tracker.goodput()
+            if m is not None:
+                reg.gauge("train_mfu", help="model FLOPs utilization "
+                          "(model FLOPs / peak)").set(m)
+                reg.gauge("train_goodput", help="MFU counting only steps "
+                          "whose update survived (skips/rewinds discounted)"
+                          ).set(g)
+        self._telem.set_health(global_step=self.global_steps)
 
     # --- checkpointing (reference engine.py:3109/:2763) -----------------
     def save_checkpoint(self, save_dir: str, tag: str | None = None,

@@ -22,8 +22,10 @@ any framework, copied with the device diagnostics written for torch:
 
 Every rank takes the same decision: the engine reduces the loss and the
 finite flag over the data-parallel group before the sentinel sees them.
-The JAX package's telemetry spans and flight records are not ported
-(ROADMAP queue 1, item 5); its counters are kept. Checkpoint integrity
+Telemetry (``telemetry/``) as in the JAX package: a watchdog stall, a
+divergence abort and a rewind with nowhere to go dump the flight recorder;
+preemptions, bad steps, rewinds and checkpoint commits leave notes in it;
+the counters fan out to the monitor backends. Checkpoint integrity
 (manifest checksums, verified-tag fallback, retention) lives in
 ``runtime/checkpointing.py``.
 """
@@ -143,7 +145,7 @@ class FaultInjector:
 
     The serving fleet's points (replica, swap, KV-tier, elastic and
     router crashes; :meth:`countdown` fires them at a seeded index) arm the
-    same way; the fleet is ROADMAP queue 1, item 5.
+    same way; the serving fleet is ROADMAP queue 1, item 5.
 
     Crashes raise :class:`InjectedFault` (catchable in-process), or hard-kill
     the process with ``os._exit(INJECTED_CRASH_EXIT_CODE)`` when
@@ -546,7 +548,8 @@ class ResilienceManager:
         self.sentinel = DivergenceSentinel(cfg) \
             if (cfg.sentinel or cfg.loss_spike_factor > 0) else None
         self.watchdog = HangWatchdog(cfg.watchdog_timeout_s,
-                                     exit_on_stall=cfg.watchdog_exit)
+                                     exit_on_stall=cfg.watchdog_exit,
+                                     on_stall=self._flight_dump_on_stall)
         self.preemption: PreemptionHandler | None = None
         if cfg.preemption_signals:
             self.preemption = PreemptionHandler.install(cfg.preemption_signals)
@@ -560,6 +563,20 @@ class ResilienceManager:
             "preemptions": 0, "aborts": 0,
         }
 
+    # -- telemetry (telemetry/) ------------------------------------------
+    @staticmethod
+    def _telemetry():
+        from ..telemetry import get_telemetry
+
+        return get_telemetry()
+
+    def _flight_dump_on_stall(self, report: str) -> None:
+        """Watchdog stall callback: the stack dump says WHERE the job is
+        stuck; the flight record adds WHAT it was doing — the most recent
+        spans, discrete events, and a metrics snapshot."""
+        self._telemetry().flight_dump(
+            "hang", detail=report.splitlines()[0] if report else None)
+
     # -- checkpoint bookkeeping (called from checkpointing.py) -----------
     def record_save_dir(self, save_dir: str) -> None:
         self.last_save_dir = save_dir
@@ -567,6 +584,9 @@ class ResilienceManager:
     def record_committed(self, save_dir: str, tag: str,
                          durations: dict | None = None) -> None:
         self.last_verified = (save_dir, tag)
+        self._telemetry().note("checkpoint_commit", tag=tag,
+                               **{k: round(v, 3)
+                                  for k, v in (durations or {}).items()})
         if durations:
             self.engine._emit_counters(durations, "Checkpoint/")
 
@@ -603,6 +623,8 @@ class ResilienceManager:
         if cause is None:
             return
         self.counters["preemptions"] += 1
+        self._telemetry().note("preemption", cause=cause,
+                               step=self.engine.global_steps)
         path = None
         try:
             path = self.priority_save()
@@ -663,6 +685,8 @@ class ResilienceManager:
         if action == "ok":
             return
         self.counters["bad_steps"] += 1
+        self._telemetry().note("bad_step", step=self.engine.global_steps,
+                               action=action, loss=loss_f)
         if action in ("skip", "spike"):
             if action == "skip":
                 self.counters["skipped_steps"] += 1
@@ -675,6 +699,9 @@ class ResilienceManager:
         if action == "abort":
             self.counters["aborts"] += 1
             self._emit_sentinel_events()
+            self._telemetry().flight_dump(
+                "divergence", detail=f"abort at step "
+                f"{self.engine.global_steps} (loss={loss_f})")
             raise DivergenceError(
                 f"training diverged: {self.sentinel.bad_streak} consecutive "
                 f"bad steps at step {self.engine.global_steps} after "
@@ -688,6 +715,9 @@ class ResilienceManager:
             self.last_save_dir
         if load_dir is None:
             self.counters["aborts"] += 1
+            self._telemetry().flight_dump(
+                "divergence", detail=f"no checkpoint to rewind to at step "
+                f"{self.engine.global_steps}")
             raise DivergenceError(
                 f"training diverged at step {self.engine.global_steps} "
                 f"(loss={loss_f}) and there is no checkpoint to rewind to "
@@ -700,6 +730,9 @@ class ResilienceManager:
         self.sentinel.note_rewind()
         self.counters["rewinds"] += 1
         self.last_step_rewound = True
+        self._telemetry().note("rewind", from_step=bad_step,
+                               to_step=self.engine.global_steps,
+                               loss=loss_f)
         logger.warning(
             f"sentinel: REWOUND from step {bad_step} (loss={loss_f}) to "
             f"verified checkpoint at step {self.engine.global_steps} "

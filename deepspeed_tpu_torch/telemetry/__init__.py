@@ -1,0 +1,417 @@
+"""Unified observability: span tracer, metrics registry, MFU/goodput,
+Prometheus exposition, flight recorder, per-request lifecycle tracing.
+
+The port's copy of ``deepspeed_tpu/telemetry``: the same metric names,
+label sets, span names, reqtrace event kinds, config keys and environment
+variables, so one config and one dashboard serve both packages. The
+fleet-side modules (``fleettrace``, ``timeseries``, ``alerts``,
+``console``) come with the port of ``serving/*``, which alone uses them.
+
+One process-wide :class:`Telemetry` instance (:func:`get_telemetry`) is
+shared by the training engine, the inference engine, the scheduler,
+checkpointing, resilience and the monitor backends, so ``/metrics`` is one
+pane of glass for the whole job. It exists from first access but starts
+DISABLED: every hot-path call is a cheap ``enabled`` check, ``span()``
+returns a shared null object, nothing buffers, no server binds. Enable via
+
+- config: ``{"telemetry": {"enabled": true, "http_port": 9100, ...}}``
+  (the training engine calls :func:`configure` from its config section),
+- engine_v2: ``RaggedInferenceConfig(telemetry=True)``,
+- env: ``DS_TPU_TELEMETRY=1`` (+ ``DS_TPU_TELEMETRY_PORT`` for the HTTP
+  endpoint) — for a scripted run, no config edit needed.
+
+``configure()`` mutates the default instance IN PLACE so references cached
+by already-constructed engines stay live.
+"""
+from __future__ import annotations
+
+import os
+import threading
+
+from ..utils.logging import logger
+from .metrics import (LATENCY_BUCKETS_S, RATIO_BUCKETS, Counter, Gauge,
+                      Histogram, MetricsRegistry, sanitize_label_value,
+                      sanitize_metric_name)
+from .mfu import MFUTracker, device_peak_flops, goodput, mfu
+from .recorder import FlightRecorder
+from .reqtrace import (LIFECYCLE_EVENTS, TENANT_CARDINALITY_CAP,
+                       TENANT_OVERFLOW_LABEL, ReqTracer)
+from .spans import NULL_SPAN, SpanTracer
+from .exposition import TelemetryHTTPServer
+
+#: metric-name prefix of every router-side series (serving/router.py) —
+#: the registry-zeroing scopes the bench and the router harness use to
+#: coexist in one process registry (Telemetry.reset_metrics)
+SERVING_ROUTER_PREFIX = "serving_router_"
+#: families the ROUTER harness owns per measured scenario: its own
+#: counters plus the per-tenant attribution it emits (serving_tenant_*)
+ROUTER_RUN_PREFIXES = (SERVING_ROUTER_PREFIX, "serving_tenant_")
+
+__all__ = [
+    "Telemetry", "get_telemetry", "configure",
+    "SERVING_ROUTER_PREFIX", "ROUTER_RUN_PREFIXES",
+    "SpanTracer", "MetricsRegistry", "Counter", "Gauge", "Histogram",
+    "FlightRecorder", "TelemetryHTTPServer", "MFUTracker", "ReqTracer",
+    "mfu", "goodput", "device_peak_flops", "sanitize_metric_name",
+    "sanitize_label_value", "LIFECYCLE_EVENTS", "TENANT_CARDINALITY_CAP",
+    "TENANT_OVERFLOW_LABEL",
+    "LATENCY_BUCKETS_S", "RATIO_BUCKETS", "NULL_SPAN",
+]
+
+
+class Telemetry:
+    """The observability bundle. ``enabled`` gates recording; the registry
+    and recorder objects always exist (the Prometheus monitor backend and
+    crash dumps may use them regardless)."""
+
+    def __init__(self, enabled: bool = False, span_buffer: int = 4096,
+                 mirror_jax: bool = True, flight_recorder: int = 256,
+                 flight_recorder_path: str | None = None,
+                 peer_snapshot_glob: str | None = None):
+        self.enabled = bool(enabled)
+        #: glob of peer hosts' snapshot JSON files (write_snapshot); when
+        #: set, /metrics?aggregate=1 serves the fleet-wide merge
+        self.peer_snapshot_glob = peer_snapshot_glob
+        self.tracer = SpanTracer(capacity=span_buffer, enabled=enabled,
+                                 mirror_jax=mirror_jax)
+        self.registry = MetricsRegistry()
+        self.recorder = FlightRecorder(tracer=self.tracer,
+                                       registry=self.registry,
+                                       capacity=flight_recorder,
+                                       path=flight_recorder_path)
+        #: per-request lifecycle tracing (reqtrace.py) — separately gated
+        #: (``reqtrace.enabled``): timelines + per-tenant attribution +
+        #: SLO-breach auto-capture are opt-in on top of base telemetry
+        self.reqtrace = ReqTracer(registry=self.registry,
+                                  recorder=self.recorder)
+        self.server: TelemetryHTTPServer | None = None
+        self._health_extra: dict = {}
+        # watchtower hooks: plain callables set via attach_watchtower by
+        # whoever owns the fleet's store (the router, with serving/*);
+        # served at /alerts and /series once the HTTP endpoint is up
+        self._alerts_fn = None
+        self._series_fn = None
+
+    # -- recording shorthands -------------------------------------------
+    def span(self, name: str, **args):
+        if not self.enabled:
+            return NULL_SPAN
+        return self.tracer.span(name, **args)
+
+    def step_span(self, name: str, step: int, **args):
+        if not self.enabled:
+            return NULL_SPAN
+        return self.tracer.step_span(name, step, **args)
+
+    def note(self, kind: str, **data) -> None:
+        self.recorder.note(kind, **data)
+
+    # -- lifecycle -------------------------------------------------------
+    def reconfigure(self, *, enabled: bool | None = None,
+                    span_buffer: int | None = None,
+                    mirror_jax: bool | None = None,
+                    flight_recorder: int | None = None,
+                    flight_recorder_path: str | None = None,
+                    http_port: int | None = None,
+                    peer_snapshot_glob: str | None = None,
+                    peer_staleness_s: float | None = None,
+                    reqtrace: bool | None = None,
+                    reqtrace_sample: float | None = None,
+                    reqtrace_timeline_ring: int | None = None,
+                    reqtrace_max_events: int | None = None,
+                    slo_ttft_s: float | None = None,
+                    slo_tbt_s: float | None = None,
+                    breach_interval_s: float | None = None,
+                    breach_profile_dir: str | None = None,
+                    breach_profile_s: float | None = None) -> "Telemetry":
+        """In-place update so cached references stay valid. The span ring
+        is rebuilt only when its capacity changes (history is then lost)."""
+        if peer_snapshot_glob is not None:
+            self.peer_snapshot_glob = peer_snapshot_glob
+            if self.server is not None:
+                self.server.peer_glob = peer_snapshot_glob
+        if peer_staleness_s is not None and self.server is not None:
+            self.server.peer_staleness_s = peer_staleness_s
+        self._peer_staleness = peer_staleness_s \
+            if peer_staleness_s is not None \
+            else getattr(self, "_peer_staleness", None)
+        if enabled is not None:
+            self.enabled = bool(enabled)
+            self.tracer.enabled = bool(enabled)
+        if mirror_jax is not None:
+            self.tracer.mirror_jax = bool(mirror_jax)
+        if span_buffer is not None and span_buffer != self.tracer.capacity:
+            self.tracer = SpanTracer(capacity=span_buffer,
+                                     enabled=self.enabled,
+                                     mirror_jax=self.tracer.mirror_jax)
+            self.recorder.tracer = self.tracer
+        if flight_recorder is not None \
+                and flight_recorder != self.recorder.capacity:
+            self.recorder = FlightRecorder(
+                tracer=self.tracer, registry=self.registry,
+                capacity=flight_recorder, path=self.recorder.path)
+            self.reqtrace.recorder = self.recorder
+        if flight_recorder_path is not None:
+            self.recorder.path = flight_recorder_path
+        rt = self.reqtrace
+        if reqtrace is not None:
+            rt.enabled = bool(reqtrace)
+        if reqtrace_sample is not None:
+            if not 0.0 <= reqtrace_sample <= 1.0:
+                raise ValueError(f"reqtrace_sample must be in [0, 1], got "
+                                 f"{reqtrace_sample}")
+            rt.sample = float(reqtrace_sample)
+        if reqtrace_timeline_ring is not None:
+            rt.timeline_ring = reqtrace_timeline_ring
+        if reqtrace_max_events is not None:
+            rt.max_events = int(reqtrace_max_events)
+        if slo_ttft_s is not None:
+            rt.slo_ttft_s = slo_ttft_s
+        if slo_tbt_s is not None:
+            rt.slo_tbt_s = slo_tbt_s
+        if breach_interval_s is not None:
+            rt.breach_interval_s = float(breach_interval_s)
+        if breach_profile_dir is not None:
+            rt.breach_profile_dir = breach_profile_dir
+        if breach_profile_s is not None:
+            rt.breach_profile_s = float(breach_profile_s)
+        if http_port is not None:
+            try:
+                self.start_http(http_port)
+            except OSError as e:   # a busy port must not kill the job
+                logger.error(f"telemetry: cannot bind /metrics port "
+                             f"{http_port} ({e}); exposition is render-only")
+        return self
+
+    def start_http(self, port: int = 0) -> int:
+        """Start (or return) the /metrics + /healthz endpoint; idempotent.
+        Explicit calls work even when recording is disabled — a user
+        configuring the PrometheusMonitor backend wants the scrape either
+        way."""
+        if self.server is None:
+            server = TelemetryHTTPServer(self.registry,
+                                         health_fn=self._health,
+                                         peer_glob=self.peer_snapshot_glob,
+                                         trace_fn=self._chrome_dict,
+                                         alerts_fn=self._alerts_fn,
+                                         series_fn=self._series_fn)
+            if getattr(self, "_peer_staleness", None) is not None:
+                server.peer_staleness_s = self._peer_staleness
+            server.start(port)      # raises on a busy port — don't keep a
+            self.server = server    # dead server blocking later attempts
+        elif port not in (0, self.server.port):
+            logger.warning(
+                f"telemetry: /metrics already bound on port "
+                f"{self.server.port}; ignoring request for port {port} "
+                f"(one endpoint per process)")
+        return self.server.port
+
+    def attach_watchtower(self, alerts_fn=None, series_fn=None) -> None:
+        """Wire the fleet watchtower's ``/alerts`` + ``/series`` providers
+        onto the exposition endpoint (live server updated in place; a
+        later ``start_http`` picks them up too). Pass None to detach."""
+        self._alerts_fn = alerts_fn
+        self._series_fn = series_fn
+        if self.server is not None:
+            self.server.alerts_fn = alerts_fn
+            self.server.series_fn = series_fn
+
+    def stop_http(self) -> None:
+        if self.server is not None:
+            self.server.stop()
+            self.server = None
+
+    def set_health(self, **fields) -> None:
+        """Attach job identity / progress fields to /healthz responses."""
+        self._health_extra.update(fields)
+
+    def _health(self) -> dict:
+        h = dict(self._health_extra)
+        h["telemetry_enabled"] = self.enabled
+        h["spans_recorded"] = self.tracer.total_recorded
+        if self.reqtrace.enabled:
+            h["reqtrace_traces"] = self.reqtrace.traces_started
+            h["reqtrace_breaches"] = self.reqtrace.breaches
+        return h
+
+    def reset_metrics(self, prefix: str | tuple[str, ...] | None = None,
+                      keep: tuple[str, ...] = ()) -> None:
+        """THE registry-zeroing entry point for per-run measurement scopes
+        (bench phases, router bench scenarios). Components co-resident in
+        one process zero only their own families: the bench-driven engine
+        resets with ``keep=(SERVING_ROUTER_PREFIX,)`` and the router
+        harness resets with ``prefix=ROUTER_RUN_PREFIXES`` — an inline
+        ``registry.reset()`` at either site would clobber the other
+        component's series mid-run."""
+        self.registry.reset(prefix=prefix, keep=keep)
+
+    # -- reading ---------------------------------------------------------
+    def snapshot(self) -> dict:
+        return self.registry.snapshot()
+
+    def write_snapshot(self, path: str) -> None:
+        """Dump this registry's snapshot as JSON for a host-0 aggregate
+        scrape to merge (``/metrics?aggregate=1`` on the host whose
+        ``peer_snapshot_glob`` matches ``path``). Atomic (tmp + replace):
+        a peer scraping mid-write sees the previous snapshot, never a
+        torn file."""
+        import json as _json
+        import os as _os
+
+        tmp = f"{path}.tmp.{_os.getpid()}"
+        with open(tmp, "w", encoding="utf-8") as f:
+            _json.dump(self.registry.snapshot(), f)
+        _os.replace(tmp, path)
+
+    def flight_dump(self, reason: str, path: str | None = None,
+                    detail: str | None = None) -> dict:
+        return self.recorder.dump(reason, path=path, detail=detail)
+
+    def _chrome_dict(self) -> dict:
+        """The live process timeline as a Chrome trace-event dict (host
+        spans + request lifecycles) — served at ``/trace`` so a fleet
+        postmortem can pull any process's view over HTTP."""
+        data = self.tracer.chrome_trace()
+        data["traceEvents"].extend(
+            self.reqtrace.chrome_events(self.tracer._epoch))
+        return data
+
+    def export_chrome_trace(self, path: str, last: int | None = None,
+                            fleet=None) -> str:
+        """One Chrome/Perfetto trace carrying BOTH the host span timeline
+        (pid 0, per-thread tracks) and the per-request lifecycle timelines
+        (pid 1, one track per trace ID — reqtrace) on the same clock, so
+        "which requests were in flight while dispatch stalled" is one
+        view.
+
+        **Fleet mode**: pass the router's fleet-trace assembler (any
+        object with ``chrome_events(epoch=)``) as ``fleet`` and the
+        merged cross-replica request timelines render as additional
+        ALIGNED tracks — one pid per process (router + every replica),
+        replica events shifted onto the router's clock by the heartbeat
+        clock-offset estimates. perf_counter and monotonic are both
+        CLOCK_MONOTONIC on CPython/Linux, so the span tracks and fleet
+        tracks share a timebase."""
+        import json as _json
+
+        data = self.tracer.chrome_trace(last=last)
+        data["traceEvents"].extend(
+            self.reqtrace.chrome_events(self.tracer._epoch))
+        if fleet is not None:
+            data["traceEvents"].extend(
+                fleet.chrome_events(epoch=self.tracer._epoch))
+        with open(path, "w") as f:
+            _json.dump(data, f)
+        return path
+
+    def tenant_summary(self) -> dict:
+        """Per-tenant attribution rolled up from the ``serving_tenant_*``
+        series (bench artifacts, log lines): {tenant: {metric: value |
+        {p50, p95, count}}}. Empty when reqtrace never ran."""
+        prefix = "serving_tenant_"
+        out: dict = {}
+        for name, fam in self.registry.snapshot().items():
+            if not name.startswith(prefix):
+                continue
+            key = name[len(prefix):]
+            for s in fam["series"]:
+                tenant = s["labels"].get("tenant", "")
+                d = out.setdefault(tenant, {})
+                if fam["type"] == "histogram":
+                    h = Histogram(buckets=s["bounds"])
+                    h.counts = list(s["counts"])
+                    h.sum, h.count = s["sum"], s["count"]
+                    if h.count:
+                        d[key] = {"p50": round(h.percentile(50), 6),
+                                  "p95": round(h.percentile(95), 6),
+                                  "count": h.count}
+                else:
+                    d[key] = s["value"]
+        return out
+
+    def slo_summary(self) -> dict:
+        """Compact percentile view of every histogram (bench artifacts,
+        log lines): {name: {p50, p95, p99, mean, count}}."""
+        out: dict = {}
+        for name, fam in self.registry.snapshot().items():
+            if fam["type"] != "histogram":
+                continue
+            if not fam["series"]:
+                continue
+            h = Histogram(buckets=fam["series"][0]["bounds"])
+            # merge label series under the family for the summary view;
+            # series created with DIFFERENT buckets (the registry allows
+            # it per label set) cannot fold — skip them rather than
+            # mis-bin or crash the bench artifact assembly
+            for s in fam["series"]:
+                if tuple(s["bounds"]) != h.bounds:
+                    continue
+                for i, c in enumerate(s["counts"]):
+                    h.counts[i] += c
+                h.sum += s["sum"]
+                h.count += s["count"]
+            if not h.count:
+                continue
+            out[name] = {
+                "p50": round(h.percentile(50), 6),
+                "p95": round(h.percentile(95), 6),
+                "p99": round(h.percentile(99), 6),
+                "mean": round(h.mean, 6),
+                "count": h.count,
+            }
+        return out
+
+
+_default: Telemetry | None = None
+_default_lock = threading.Lock()
+
+
+def get_telemetry() -> Telemetry:
+    """The process-wide instance; created disabled unless DS_TPU_TELEMETRY
+    is set truthy in the environment."""
+    global _default
+    if _default is None:
+        with _default_lock:
+            if _default is None:
+                env_rt = os.environ.get("DS_TPU_REQTRACE", "") \
+                    not in ("", "0", "false")
+                env_on = env_rt or os.environ.get("DS_TPU_TELEMETRY", "") \
+                    not in ("", "0", "false")
+                t = Telemetry(enabled=env_on,
+                              peer_snapshot_glob=os.environ.get(
+                                  "DS_TPU_TELEMETRY_PEERS") or None)
+                if env_rt:
+                    # DS_TPU_REQTRACE=1: per-request lifecycle tracing
+                    # implies the base substrate (timelines without
+                    # metrics would answer nothing)
+                    t.reqtrace.enabled = True
+                if env_on:
+                    port = os.environ.get("DS_TPU_TELEMETRY_PORT")
+                    if port is not None:
+                        try:
+                            t.start_http(int(port))
+                        except (OSError, ValueError) as e:
+                            logger.error(f"DS_TPU_TELEMETRY_PORT: {e}")
+                _default = t
+    return _default
+
+
+def configure(config=None, **overrides) -> Telemetry:
+    """Enable/retune the process-wide instance from a config section
+    (duck-typed: ``config.enabled``, ``config.span_buffer``, ...). Called
+    by engines at init; explicit kwargs win over the section."""
+    t = get_telemetry()
+    kw: dict = {}
+    if config is not None:
+        for k in ("enabled", "span_buffer", "mirror_jax", "flight_recorder",
+                  "flight_recorder_path", "http_port",
+                  "peer_snapshot_glob", "peer_staleness_s",
+                  "reqtrace", "reqtrace_sample", "reqtrace_timeline_ring",
+                  "reqtrace_max_events", "slo_ttft_s", "slo_tbt_s",
+                  "breach_interval_s", "breach_profile_dir",
+                  "breach_profile_s"):
+            v = getattr(config, k, None)
+            if v is not None:
+                kw[k] = v
+    kw.update(overrides)
+    return t.reconfigure(**kw)

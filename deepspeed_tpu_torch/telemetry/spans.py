@@ -1,0 +1,198 @@
+"""Host-side span tracer: nested context-manager spans in a bounded ring
+buffer, exportable as Chrome trace-event JSON.
+
+The HOST timeline: where the serving loop spent its time (plan building,
+dispatch, drain, commit), where the train step blocked, what the job was
+doing right before a hang. Spans are cheap enough to leave on in production
+(one perf_counter pair + one ring-buffer slot per span; no allocation growth
+past the buffer capacity). Every span is mirrored as a
+``torch.profiler.record_function`` range plus, when CUDA is present, an NVTX
+range (``torch.cuda.nvtx``), so a ``torch.profiler`` trace groups the
+kernels a span launched under the span's name. The ``mirror_jax`` switch
+keeps the JAX package's config key so one JSON drives both packages; here it
+turns the torch mirror on and off.
+
+CUDA graphs: a span around a graph replay times the host enqueue, not the
+device work. No range opens while the current stream is capturing (a range
+opened inside ``torch.cuda.graph`` is skipped), so captures stay free of
+profiler calls.
+
+Lock discipline: the ring buffer is written with GIL-atomic operations only
+(index bump + slot store) — "lock-free-ish" — because spans wrap latency-
+critical serving paths; ``events()``/export take a snapshot copy and
+tolerate a concurrent writer (a torn read can at worst drop the newest
+span, never corrupt an older one).
+"""
+from __future__ import annotations
+
+import json
+import threading
+import time
+from typing import Any
+
+
+class _NullSpan:
+    """Shared do-nothing context manager for the disabled path — one
+    process-wide instance so a disabled tracer allocates nothing per span."""
+
+    __slots__ = ()
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        return False
+
+    def set(self, **args) -> None:
+        pass
+
+
+NULL_SPAN = _NullSpan()
+
+
+class _Span:
+    """A live span; records itself into the tracer's ring on exit."""
+
+    __slots__ = ("_tracer", "name", "args", "t0", "depth", "_ann")
+
+    def __init__(self, tracer: "SpanTracer", name: str,
+                 args: dict | None, ann):
+        self._tracer = tracer
+        self.name = name
+        self.args = args
+        self._ann = ann
+        self.t0 = 0.0
+        self.depth = 0
+
+    def set(self, **args) -> None:
+        """Attach/override span args after entry (e.g. results computed
+        inside the span)."""
+        if self.args is None:
+            self.args = {}
+        self.args.update(args)
+
+    def __enter__(self):
+        tl = self._tracer._tl
+        self.depth = getattr(tl, "depth", 0)
+        tl.depth = self.depth + 1
+        self.t0 = time.perf_counter()
+        if self._ann is not None:
+            self._ann.__enter__()
+        return self
+
+    def __exit__(self, *exc):
+        t1 = time.perf_counter()
+        if self._ann is not None:
+            self._ann.__exit__(*exc)
+        tr = self._tracer
+        tr._tl.depth = self.depth
+        rec = {"name": self.name, "t0": self.t0, "dur": t1 - self.t0,
+               "depth": self.depth, "tid": threading.get_ident()}
+        if self.args:
+            rec["args"] = self.args
+        # GIL-atomic ring write: reserve a slot by bumping the counter,
+        # then store. Two racing threads may reserve adjacent slots; the
+        # store itself is a plain list item assignment.
+        i = tr._n
+        tr._n = i + 1
+        tr._buf[i % tr.capacity] = rec
+        return False
+
+
+class SpanTracer:
+    """Bounded-ring span recorder.
+
+    ``capacity`` bounds memory forever: the buffer holds the most recent
+    ``capacity`` completed spans and silently overwrites the oldest — the
+    flight-recorder property (postmortems want the END of the timeline).
+    Disabled tracers return a shared null span and never touch the buffer.
+    """
+
+    def __init__(self, capacity: int = 4096, enabled: bool = True,
+                 mirror_jax: bool = True):
+        if capacity < 1:
+            raise ValueError("span buffer capacity must be >= 1")
+        self.capacity = int(capacity)
+        self.enabled = bool(enabled)
+        self.mirror_jax = bool(mirror_jax)
+        self._buf: list[dict | None] = [None] * self.capacity
+        self._n = 0                       # total spans ever recorded
+        self._tl = threading.local()      # per-thread nesting depth
+        self._epoch = time.perf_counter()
+        #: wall-clock anchor of ``_epoch`` — span t0s are monotonic-only
+        #: (cheap), but once timelines cross process boundaries a dump
+        #: needs the wall mapping (wall ≈ epoch_wall + (t0 - _epoch))
+        self.epoch_wall = time.time()
+
+    # -- recording -------------------------------------------------------
+    def _annotation(self, name: str, step: int | None):
+        if not self.mirror_jax:
+            return None
+        from ..utils.annotations import range_push
+
+        return range_push(name if step is None else f"{name}#{step}")
+
+    def span(self, name: str, **args):
+        """``with tracer.span("dispatch", kind="prefill"): ...`` — records
+        a completed span on exit; no-op (shared null) when disabled."""
+        if not self.enabled:
+            return NULL_SPAN
+        return _Span(self, name, args or None, self._annotation(name, None))
+
+    def step_span(self, name: str, step: int, **args):
+        """A span mirrored as a range named ``<name>#<step>`` so a
+        concurrently captured ``torch.profiler`` trace groups the step's
+        kernels under the host step."""
+        if not self.enabled:
+            return NULL_SPAN
+        args["step"] = step
+        return _Span(self, name, args, self._annotation(name, step))
+
+    # -- reading ---------------------------------------------------------
+    def __len__(self) -> int:
+        return min(self._n, self.capacity)
+
+    @property
+    def total_recorded(self) -> int:
+        """Spans ever recorded, including ones the ring overwrote."""
+        return self._n
+
+    def events(self, last: int | None = None) -> list[dict]:
+        """Chronological list of the retained spans (oldest → newest);
+        ``last`` keeps only the newest N."""
+        n, cap = self._n, self.capacity
+        if n <= cap:
+            out = [r for r in self._buf[:n] if r is not None]
+        else:
+            head = n % cap
+            out = [r for r in self._buf[head:] + self._buf[:head]
+                   if r is not None]
+        out.sort(key=lambda r: r["t0"])   # interleaved threads
+        if last is not None:
+            out = out[-last:]
+        return out
+
+    def clear(self) -> None:
+        self._buf = [None] * self.capacity
+        self._n = 0
+
+    # -- export ----------------------------------------------------------
+    def chrome_trace(self, last: int | None = None) -> dict:
+        """Chrome trace-event JSON (``chrome://tracing`` / Perfetto "X"
+        complete events; timestamps in µs relative to tracer start)."""
+        events = []
+        for r in self.events(last=last):
+            ev = {"name": r["name"], "ph": "X", "pid": 0, "tid": r["tid"],
+                  "ts": (r["t0"] - self._epoch) * 1e6,
+                  "dur": r["dur"] * 1e6}
+            if "args" in r:
+                ev["args"] = {k: repr(v) if not isinstance(
+                    v, (int, float, str, bool, type(None))) else v
+                    for k, v in r["args"].items()}
+            events.append(ev)
+        return {"traceEvents": events, "displayTimeUnit": "ms"}
+
+    def export_chrome_trace(self, path: str, last: int | None = None) -> str:
+        with open(path, "w") as f:
+            json.dump(self.chrome_trace(last=last), f)
+        return path

@@ -141,11 +141,27 @@ def test_later_slices_and_the_default_device_raise(served):
             # engine, it refuses to run without the prefix cache
             ({"kv_tier": True, "prefix_cache": False}, ValueError,
              "kv_tier requires the shared-prefix cache"),
-            ({"telemetry": True}, NotImplementedError, "telemetry"),
-            ({"reqtrace": True}, NotImplementedError, "reqtrace")]:
+            # reqtrace rides telemetry, as in the JAX engine
+            ({"reqtrace": True, "telemetry": False}, ValueError,
+             "reqtrace=True cannot combine with telemetry=False")]:
         with pytest.raises(exc, match=match):
             InferenceEngineV2(tm, params=tree,
                               config=dict(BASE, device="cpu", **over))
+    # telemetry and request tracing serve (the telemetry slice); the
+    # process-wide instance is put back as it was
+    from deepspeed_tpu_torch import telemetry
+
+    t = telemetry.get_telemetry()
+    prev = (t.enabled, t.reqtrace.enabled)
+    try:
+        for over in ({"telemetry": True}, {"reqtrace": True}):
+            eng = InferenceEngineV2(tm, params=tree,
+                                    config=dict(BASE, device="cpu", **over))
+            assert eng._telem.enabled
+            assert eng._rt.enabled == ("reqtrace" in over)
+    finally:
+        t.reconfigure(enabled=prev[0])
+        t.reqtrace.enabled = prev[1]
     # speculative decoding serves (the window/spec slice), with either
     # proposer
     for over in ({"spec_decode": "ngram"}, {"spec_decode": "draft"}):

@@ -175,10 +175,20 @@ def test_spec_config_gates():
     with pytest.raises(ValueError, match="spec_verify_pallas"):
         InferenceEngineV2(bloom, config=dict(BASE, spec_decode="ngram",
                                              spec_verify_pallas=True))
-    # tensor parallelism, telemetry and request tracing stay refused
-    for over, match in (({"tensor_parallel": 2}, "tensor"),
-                        ({"telemetry": True}, "telemetry"),
-                        ({"reqtrace": True}, "reqtrace")):
-        with pytest.raises(NotImplementedError, match=match):
-            InferenceEngineV2(tm, params=tree, config=dict(
-                BASE, spec_decode="ngram", **over))
+    # tensor parallelism stays refused; telemetry and request tracing
+    # serve beside speculative decoding (the process-wide instance is put
+    # back as it was)
+    with pytest.raises(NotImplementedError, match="tensor"):
+        InferenceEngineV2(tm, params=tree, config=dict(
+            BASE, spec_decode="ngram", tensor_parallel=2))
+    from deepspeed_tpu_torch import telemetry
+
+    t = telemetry.get_telemetry()
+    prev = (t.enabled, t.reqtrace.enabled)
+    try:
+        eng = InferenceEngineV2(tm, params=tree, config=dict(
+            BASE, spec_decode="ngram", telemetry=True, reqtrace=True))
+        assert eng._spec.reqtrace is eng._rt and eng._rt.enabled
+    finally:
+        t.reconfigure(enabled=prev[0])
+        t.reqtrace.enabled = prev[1]

@@ -1,0 +1,721 @@
+"""The port's telemetry subsystem (deepspeed_tpu_torch/telemetry): spans,
+metrics, MFU/goodput, Prometheus exposition, flight recorder, and the
+monitor/engine wiring — a copy of tests/test_telemetry.py run against the
+port, on the CPU, the engine legs on tiny fp32 models.
+
+The disabled paths are asserted ZERO-overhead: no buffer growth, no HTTP
+server, shared null span object. Every test touches the port's
+process-wide instance only (``global_telem``), never the JAX package's.
+"""
+import json
+import os
+import re
+import time
+import types
+import urllib.request
+
+import numpy as np
+import pytest
+
+import torch
+
+from deepspeed_tpu_torch import telemetry as T
+from deepspeed_tpu_torch.telemetry import (
+    FlightRecorder,
+    Histogram,
+    MetricsRegistry,
+    MFUTracker,
+    Telemetry,
+    sanitize_metric_name,
+)
+
+
+@pytest.fixture
+def global_telem(tmp_path):
+    """The process-wide instance, restored after the test (other suites
+    share it — engine tests may have enabled it earlier in the session)."""
+    t = T.get_telemetry()
+    prev = (t.enabled, t.recorder.path, t.recorder.dumps)
+    yield t
+    t.reconfigure(enabled=prev[0])
+    t.recorder.path, t.recorder.dumps = prev[1], prev[2]
+
+
+# --------------------------------------------------------------------------
+# spans
+# --------------------------------------------------------------------------
+
+def test_span_nesting_depths_and_args():
+    t = Telemetry(enabled=True, span_buffer=64)
+    with t.span("outer", kind="a"):
+        with t.span("mid"):
+            with t.span("inner"):
+                pass
+        with t.span("mid2") as sp:
+            sp.set(rows=4)
+    ev = t.tracer.events()
+    by_name = {e["name"]: e for e in ev}
+    assert by_name["outer"]["depth"] == 0
+    assert by_name["mid"]["depth"] == 1 == by_name["mid2"]["depth"]
+    assert by_name["inner"]["depth"] == 2
+    assert by_name["outer"]["args"] == {"kind": "a"}
+    assert by_name["mid2"]["args"] == {"rows": 4}
+    # children complete before parents; parent interval covers child
+    outer, inner = by_name["outer"], by_name["inner"]
+    assert outer["t0"] <= inner["t0"]
+    assert inner["t0"] + inner["dur"] <= outer["t0"] + outer["dur"] + 1e-6
+
+
+def test_span_ring_buffer_wraparound():
+    t = Telemetry(enabled=True, span_buffer=8)
+    for i in range(20):
+        with t.span(f"s{i}"):
+            pass
+    assert len(t.tracer) == 8
+    assert t.tracer.total_recorded == 20
+    names = [e["name"] for e in t.tracer.events()]
+    assert names == [f"s{i}" for i in range(12, 20)]  # newest 8, in order
+    assert [e["name"] for e in t.tracer.events(last=3)] == \
+        ["s17", "s18", "s19"]
+
+
+def test_chrome_trace_export_roundtrip(tmp_path):
+    t = Telemetry(enabled=True, span_buffer=32)
+    with t.span("step", step=3):
+        with t.span("dispatch", kind="prefill"):
+            time.sleep(0.002)
+    path = t.tracer.export_chrome_trace(str(tmp_path / "trace.json"))
+    with open(path) as f:
+        data = json.load(f)
+    evs = data["traceEvents"]
+    assert {e["name"] for e in evs} == {"step", "dispatch"}
+    for e in evs:
+        assert e["ph"] == "X" and e["ts"] >= 0 and e["dur"] > 0
+    disp = next(e for e in evs if e["name"] == "dispatch")
+    step = next(e for e in evs if e["name"] == "step")
+    assert disp["dur"] >= 2000                      # µs: the 2ms sleep
+    assert step["ts"] <= disp["ts"]                 # nesting preserved
+    assert disp["ts"] + disp["dur"] <= step["ts"] + step["dur"] + 1
+    assert disp["args"]["kind"] == "prefill"
+
+
+# --------------------------------------------------------------------------
+# histograms / registry
+# --------------------------------------------------------------------------
+
+def test_histogram_percentiles_against_numpy():
+    rng = np.random.default_rng(0)
+    buckets = tuple(np.round(np.arange(0.01, 1.01, 0.01), 4))  # 10ms width
+    vals = rng.uniform(0.02, 0.9, 5000)
+    h = Histogram(buckets=buckets)
+    for v in vals:
+        h.observe(float(v))
+    for q in (10, 50, 90, 95, 99):
+        est = h.percentile(q)
+        exact = float(np.percentile(vals, q))
+        assert abs(est - exact) <= 0.011, (q, est, exact)  # one bucket
+    assert abs(h.mean - vals.mean()) < 1e-6
+    assert h.count == 5000
+    # n>1 amortized observation (decode-window burst convention)
+    h2 = Histogram(buckets=buckets)
+    h2.observe(0.05, n=10)
+    assert h2.count == 10 and abs(h2.sum - 0.5) < 1e-9
+
+
+def test_histogram_empty_and_bad_buckets():
+    h = Histogram()
+    assert h.percentile(50) is None and h.mean is None
+    with pytest.raises(ValueError):
+        Histogram(buckets=[1.0, 1.0])
+    with pytest.raises(ValueError):
+        Histogram(buckets=[])
+
+
+def test_registry_snapshot_merge_is_additive():
+    r1, r2 = MetricsRegistry(), MetricsRegistry()
+    for r, k in ((r1, 3), (r2, 4)):
+        r.counter("steps").inc(k)
+        r.gauge("util").set(k / 10)
+        hh = r.histogram("lat_s", buckets=(0.1, 1.0))
+        hh.observe(0.05, n=k)
+    merged = MetricsRegistry()
+    merged.merge(r1.snapshot())
+    merged.merge(r2.snapshot())
+    assert merged.counter("steps").value == 7
+    assert merged.gauge("util").value == 0.4          # last-write-wins
+    h = merged.histogram("lat_s", buckets=(0.1, 1.0))
+    assert h.count == 7 and h.counts[0] == 7
+    with pytest.raises(ValueError):
+        merged.merge({"lat_s": {"type": "histogram", "help": "", "series": [
+            {"labels": {}, "bounds": [9.9], "counts": [1, 0], "sum": 1.0,
+             "count": 1}]}})
+
+
+def test_sanitize_metric_name():
+    assert sanitize_metric_name("Resilience/rewinds") == "Resilience_rewinds"
+    assert sanitize_metric_name("fwd ms") == "fwd_ms"
+    assert sanitize_metric_name("9lives") == "_9lives"
+    assert sanitize_metric_name("a:b_c1") == "a:b_c1"
+    with pytest.raises(ValueError):
+        sanitize_metric_name("")
+    r = MetricsRegistry()
+    r.counter("steps")
+    with pytest.raises(ValueError):          # one name, one metric type
+        r.histogram("steps")
+
+
+# --------------------------------------------------------------------------
+# MFU / goodput
+# --------------------------------------------------------------------------
+
+def test_mfu_goodput_arithmetic():
+    # 1e10 flops/step at 0.05 s/step against 1e12 peak → 20% MFU exactly
+    tr = MFUTracker(peak_flops=1e12, flops_per_step=1e10)
+    for _ in range(10):
+        tr.on_step(0.05)
+    assert tr.mfu() == pytest.approx(0.2)
+    assert tr.goodput() == pytest.approx(0.2)          # nothing wasted yet
+    # a skipped step: wall time spent, no progress
+    tr.on_step(0.05, useful=False)
+    assert tr.goodput() < tr.mfu() == pytest.approx(0.2)
+    # a rewind discards previously-useful work → goodput drops further
+    before = tr.goodput()
+    tr.discard_steps(3)
+    assert tr.goodput() < before < tr.mfu()
+    assert tr.goodput() == pytest.approx(
+        1e10 * 7 / (0.55 * 1e12))                      # 7 useful of 11
+    # unconfigured tracker (CPU: no peak flops) reports None, not garbage
+    assert MFUTracker().mfu() is None
+    un = MFUTracker(peak_flops=1e12)
+    un.on_step(0.05)
+    assert un.mfu() is None and un.goodput() is None
+
+
+def test_peak_flops_probe_unknown_backend_is_none():
+    # no CUDA here: MFU is not meaningful on the CPU
+    assert T.device_peak_flops() is None
+
+
+@pytest.mark.parametrize("name,tflops", [
+    ("NVIDIA H100 80GB HBM3", 989.0), ("NVIDIA H100 NVL", 835.0),
+    ("NVIDIA H100 PCIe", 756.0), ("NVIDIA A100-SXM4-80GB", 312.0),
+    ("NVIDIA GeForce RTX 4090", None)])
+def test_peak_flops_probe_reads_the_card_name(monkeypatch, name, tflops):
+    """The probe matches the card's name against the data-sheet table; a
+    card it does not know gives None, as the JAX probe does for an
+    unknown device kind."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "get_device_name", lambda i=0: name)
+    got = T.device_peak_flops()
+    assert got == (None if tflops is None else tflops * 1e12)
+
+
+# --------------------------------------------------------------------------
+# Prometheus exposition
+# --------------------------------------------------------------------------
+
+#: one line of text-format 0.0.4: HELP/TYPE comments, or a sample with
+#: optional labels and a float/int value
+_PROM_LINE = re.compile(
+    r"^(?:# (?:HELP|TYPE) [a-zA-Z_:][a-zA-Z0-9_:]* .+"
+    r"|[a-zA-Z_:][a-zA-Z0-9_:]*"
+    r"(?:\{[a-zA-Z_][a-zA-Z0-9_]*=\"[^\"]*\""
+    r"(?:,[a-zA-Z_][a-zA-Z0-9_]*=\"[^\"]*\")*\})?"
+    r" -?(?:[0-9]+(?:\.[0-9]+)?(?:[eE][-+]?[0-9]+)?|\+Inf|-Inf|NaN)$)")
+
+
+def _assert_prometheus_wellformed(text: str) -> list[str]:
+    lines = text.strip("\n").split("\n")
+    for line in lines:
+        assert _PROM_LINE.match(line), f"malformed exposition line: {line!r}"
+    return lines
+
+
+def test_prometheus_text_format_strict():
+    r = MetricsRegistry()
+    r.counter("serving_requests_total", help="requests admitted").inc(3)
+    r.gauge("kv_util").set(0.625)
+    r.gauge("occupancy", labels={"kind": "prefill"}).set(0.5)
+    h = r.histogram("ttft_s", buckets=(0.1, 1.0, 10.0), help="ttft")
+    for v in (0.05, 0.5, 0.5, 30.0):
+        h.observe(v)
+    lines = _assert_prometheus_wellformed(r.render_prometheus())
+    text = "\n".join(lines)
+    assert "# TYPE ttft_s histogram" in text
+    assert 'ttft_s_bucket{le="0.1"} 1' in text
+    assert 'ttft_s_bucket{le="1.0"} 3' in text
+    assert 'ttft_s_bucket{le="+Inf"} 4' in text       # cumulative
+    assert "ttft_s_count 4" in text
+    assert 'occupancy{kind="prefill"} 0.5' in text
+    assert "# HELP serving_requests_total requests admitted" in text
+
+
+def test_live_metrics_and_healthz_scrape_over_localhost():
+    t = Telemetry(enabled=True)
+    t.registry.counter("scrape_probe_total").inc(7)
+    t.registry.histogram("probe_lat_s", buckets=(0.1, 1.0)).observe(0.25)
+    t.set_health(job="test-job")
+    port = t.start_http(0)                        # ephemeral localhost port
+    assert t.start_http(0) == port                # idempotent
+    try:
+        with urllib.request.urlopen(
+                f"http://127.0.0.1:{port}/metrics", timeout=10) as resp:
+            assert resp.status == 200
+            assert resp.headers["Content-Type"].startswith("text/plain")
+            body = resp.read().decode()
+        lines = _assert_prometheus_wellformed(body)
+        assert any(line == "scrape_probe_total 7.0" for line in lines)
+        assert 'probe_lat_s_bucket{le="+Inf"} 1' in lines
+        with urllib.request.urlopen(
+                f"http://127.0.0.1:{port}/healthz", timeout=10) as resp:
+            assert resp.status == 200
+            health = json.loads(resp.read().decode())
+        assert health["status"] == "ok"
+        assert health["job"] == "test-job"
+        assert health["telemetry_enabled"] is True
+        with pytest.raises(urllib.error.HTTPError):
+            urllib.request.urlopen(
+                f"http://127.0.0.1:{port}/nope", timeout=10)
+    finally:
+        t.stop_http()
+    assert t.server is None
+
+
+def test_aggregate_scrape_merges_peer_snapshots(tmp_path):
+    """The host-0 fleet scrape (ROADMAP item): /metrics?aggregate=1 merges
+    every readable peer snapshot file into this process's registry —
+    counters add, gauges last-write-win — and a torn/garbage peer file is
+    skipped (logged), never a 500. The plain /metrics stays local-only."""
+    peer = Telemetry(enabled=True)
+    peer.registry.counter("serving_prefix_hit_tokens_total").inc(30)
+    peer.registry.gauge("serving_queue_depth").set(4)
+    peer.write_snapshot(str(tmp_path / "peer1.json"))
+    (tmp_path / "peer2.json").write_text("{ torn mid-wri")   # skipped
+
+    t = Telemetry(enabled=True,
+                  peer_snapshot_glob=str(tmp_path / "peer*.json"))
+    t.registry.counter("serving_prefix_hit_tokens_total").inc(12)
+    port = t.start_http(0)
+    try:
+        with urllib.request.urlopen(
+                f"http://127.0.0.1:{port}/metrics?aggregate=1",
+                timeout=10) as resp:
+            assert resp.status == 200
+            body = resp.read().decode()
+        lines = _assert_prometheus_wellformed(body)
+        assert any(line == "serving_prefix_hit_tokens_total 42.0"
+                   for line in lines)                    # 12 + 30 summed
+        assert any(line == "telemetry_aggregated_peers 1.0"
+                   for line in lines)                    # torn peer skipped
+        with urllib.request.urlopen(
+                f"http://127.0.0.1:{port}/metrics", timeout=10) as resp:
+            local = resp.read().decode()
+        assert "serving_prefix_hit_tokens_total 12.0" in local.splitlines()
+    finally:
+        t.stop_http()
+
+
+def test_busy_port_degrades_to_render_only_and_recovers():
+    """A metrics-port collision must not kill the job (reconfigure logs and
+    stays render-only) nor leave a dead server blocking later binds."""
+    import socket
+
+    s = socket.socket()
+    s.bind(("127.0.0.1", 0))
+    busy = s.getsockname()[1]
+    s.listen(1)
+    t = Telemetry(enabled=True)
+    try:
+        t.reconfigure(http_port=busy)            # must not raise
+        assert t.server is None
+    finally:
+        s.close()
+    port = t.start_http(0)                       # recovers once port frees
+    try:
+        assert port and t.start_http(port + 1) == port   # warn, keep bound
+    finally:
+        t.stop_http()
+
+
+# --------------------------------------------------------------------------
+# flight recorder
+# --------------------------------------------------------------------------
+
+def test_flight_recorder_bounded_events_and_dump(tmp_path):
+    t = Telemetry(enabled=True, flight_recorder=4,
+                  flight_recorder_path=str(tmp_path / "fr.json"))
+    for i in range(10):
+        t.note("bad_step", step=i)
+    with t.span("train_batch", step=9):
+        pass
+    rec = t.flight_dump("divergence", detail="test abort")
+    assert [e["step"] for e in rec["events"]] == [6, 7, 8, 9]  # last N
+    assert rec["reason"] == "divergence" and rec["detail"] == "test abort"
+    assert rec["spans"][-1]["name"] == "train_batch"
+    with open(rec["dump_path"]) as f:
+        on_disk = json.load(f)
+    assert on_disk["reason"] == "divergence"
+    # second dump numbers itself instead of clobbering
+    rec2 = t.flight_dump("divergence")
+    assert rec2["dump_path"].endswith(".2")
+
+
+def test_watchdog_stall_triggers_flight_dump_with_recent_spans(
+        tmp_path, global_telem):
+    """The resilience wiring end to end: a wedged guarded region makes the
+    HangWatchdog fire, which dumps the flight record — containing the most
+    recent spans — alongside its stack dump."""
+    from deepspeed_tpu_torch.config import ResilienceConfig
+    from deepspeed_tpu_torch.runtime.resilience import ResilienceManager
+
+    dump = tmp_path / "hang.json"
+    global_telem.reconfigure(enabled=True,
+                             flight_recorder_path=str(dump))
+    global_telem.recorder.dumps = 0
+    cfg = ResilienceConfig(sentinel=False, preemption_signals=[],
+                           watchdog_timeout_s=0.15)
+    res = ResilienceManager(types.SimpleNamespace(), cfg)
+    with global_telem.span("dispatch", kind="decode"):
+        pass
+    global_telem.note("checkpoint_commit", tag="global_step7")
+    with res.guard("wedged_collective"):
+        time.sleep(0.6)                     # stall past the 0.15s timeout
+    deadline = time.time() + 5
+    while not dump.exists() and time.time() < deadline:
+        time.sleep(0.05)
+    assert dump.exists(), "watchdog did not produce a flight-recorder dump"
+    with open(dump) as f:
+        rec = json.load(f)
+    assert rec["reason"] == "hang"
+    assert any(s["name"] == "dispatch" for s in rec["spans"])
+    assert any(e["kind"] == "checkpoint_commit" for e in rec["events"])
+    assert res.watchdog.stall_count == 1
+
+
+def test_divergence_abort_dumps_flight_record(tmp_path, global_telem):
+    from deepspeed_tpu_torch.config import ResilienceConfig
+    from deepspeed_tpu_torch.runtime.resilience import (DivergenceError,
+                                                  ResilienceManager)
+
+    dump = tmp_path / "div.json"
+    global_telem.reconfigure(enabled=True, flight_recorder_path=str(dump))
+    global_telem.recorder.dumps = 0
+    cfg = ResilienceConfig(sentinel=True, preemption_signals=[],
+                           max_consecutive_bad=1, max_rewinds=0)
+    eng = types.SimpleNamespace(
+        global_steps=5, state=types.SimpleNamespace(scaler=None),
+        _emit_counters=lambda *a, **k: None)
+    res = ResilienceManager(eng, cfg)
+    with pytest.raises(DivergenceError):
+        res.observe_step(float("nan"), False)
+    with open(dump) as f:
+        rec = json.load(f)
+    assert rec["reason"] == "divergence"
+    assert any(e["kind"] == "bad_step" and e["action"] == "abort"
+               for e in rec["events"])
+
+
+# --------------------------------------------------------------------------
+# disabled = zero overhead
+# --------------------------------------------------------------------------
+
+def test_disabled_paths_are_zero_overhead():
+    t = Telemetry(enabled=False)
+    null = t.span("anything")
+    for _ in range(100):
+        with t.span("hot", arg=1):
+            pass
+        with t.step_span("step", 3):
+            pass
+    assert t.span("other") is null is T.NULL_SPAN   # shared singleton
+    assert len(t.tracer) == 0                       # no buffer growth
+    assert t.tracer.total_recorded == 0
+    assert t.server is None                         # no HTTP server bound
+    assert t.registry.snapshot() == {}
+    assert t.tracer.chrome_trace() == {"traceEvents": [],
+                                       "displayTimeUnit": "ms"}
+
+
+def test_disabled_scheduler_and_recorder_stay_silent():
+    from deepspeed_tpu_torch.inference.ragged import StateManager
+    from deepspeed_tpu_torch.inference.scheduler import SplitFuseScheduler
+
+    st = StateManager(num_blocks=16, block_size=4, max_seqs=2,
+                      max_blocks_per_seq=8)
+    sched = SplitFuseScheduler(st, chunk=4)
+    silent = Telemetry(enabled=False)
+    sched._telem = silent                    # the cfg.telemetry=False pin
+    st.admit(1, list(range(6)), max_new_tokens=2)
+    plan = sched.next_step()
+    assert plan is not None and plan.kind == "prefill"
+    assert silent.registry.snapshot() == {} and len(silent.tracer) == 0
+    # breadcrumbs still work when disabled (cheap, read only on crashes)
+    silent.note("rewind", step=3)
+    assert silent.recorder.events()[-1]["kind"] == "rewind"
+
+
+# --------------------------------------------------------------------------
+# monitor fan-out isolation + prometheus backend (satellite)
+# --------------------------------------------------------------------------
+
+class _BrokenBackend:
+    enabled = True
+    calls = 0
+
+    def write_events(self, event_list):
+        type(self).calls += 1
+        raise RuntimeError("backend exploded")
+
+    def flush(self):
+        raise RuntimeError("flush exploded")
+
+
+def test_monitor_master_isolates_a_broken_backend(tmp_path):
+    """One failing backend must not raise out of the train step nor starve
+    the healthy backends; the failure logs once, not per step."""
+    from deepspeed_tpu_torch.config import Config
+    from deepspeed_tpu_torch.monitor import MonitorMaster
+
+    cfg = Config.from_dict({
+        "train_batch_size": 1,
+        "csv_monitor": {"enabled": True, "output_path": str(tmp_path),
+                        "job_name": "iso"}})
+    mm = MonitorMaster(cfg)
+    assert [type(b).__name__ for b in mm.backends] == ["CSVMonitor"]
+    broken = _BrokenBackend()
+    mm.backends.insert(0, broken)            # fails BEFORE the healthy one
+    for step in range(3):
+        mm.write_events([("Train/loss", 1.0 + step, step)])
+    mm.flush()                               # broken flush isolated too
+    assert broken.calls == 3                 # kept alive, kept isolated
+    assert len([k for k in mm._backend_warned
+                if k.startswith("_BrokenBackend")]) == 2  # once per method
+    csv = tmp_path / "iso" / "Train_loss.csv"
+    assert csv.exists()
+    rows = csv.read_text().strip().split("\n")
+    assert rows[0] == "step,value" and len(rows) == 4  # all 3 events landed
+
+
+def test_prometheus_monitor_backend_exposes_write_counters(global_telem):
+    from deepspeed_tpu_torch.config import Config
+    from deepspeed_tpu_torch.monitor import MonitorMaster
+
+    global_telem.registry.reset()
+    cfg = Config.from_dict({"train_batch_size": 1,
+                            "prometheus": {"enabled": True}})
+    mm = MonitorMaster(cfg)
+    assert [type(b).__name__ for b in mm.backends] == ["PrometheusMonitor"]
+    mm.write_counters({"rewinds": 2, "bad_steps": 5}, 11,
+                      prefix="Resilience/")
+    text = global_telem.registry.render_prometheus()
+    _assert_prometheus_wellformed(text)
+    assert "Resilience_rewinds 2.0" in text
+    assert "Resilience_bad_steps 5.0" in text
+    assert "monitor_last_step 11.0" in text
+
+
+# Left out of this copy, with the JAX file's TP satellite:
+# test_tp_counter_base_rebase_never_negative and
+# test_overlap_breakdown_with_mixed_ring_blocking_totals read the tensor-
+# parallel overlap counters and the device-trace collective breakdown,
+# which come with the port of parallel/tensor.py (ROADMAP queue 1, item 6).
+
+
+# --------------------------------------------------------------------------
+# engine integration (tiny fp32 models on the CPU)
+# --------------------------------------------------------------------------
+
+def _engine(mc, cfg):
+    from deepspeed_tpu_torch.inference.engine_v2 import InferenceEngineV2
+    from deepspeed_tpu_torch.models.transformer import TransformerLM
+
+    return InferenceEngineV2(TransformerLM(mc, device="cpu"), config=cfg)
+
+
+def test_serving_engine_telemetry_end_to_end(global_telem):
+    from deepspeed_tpu_torch.inference.engine_v2 import RaggedInferenceConfig
+    from deepspeed_tpu_torch.models.transformer import ModelConfig
+
+    mc = ModelConfig(vocab_size=128, hidden_size=64, num_layers=2,
+                     num_heads=4, max_seq_len=256, dtype=torch.float32)
+    cfg = RaggedInferenceConfig(block_size=8, num_blocks=32, max_seqs=2,
+                                chunk=8, max_seq_len=128, decode_window=4,
+                                max_inflight=2, telemetry=True,
+                                dtype=torch.float32, device="cpu")
+    eng = _engine(mc, cfg)
+    t = eng._telem
+    t.registry.reset()
+    prompts = [list(range(1, 12)), list(range(3, 9))]
+    out = eng.generate(prompts, max_new_tokens=6)
+    assert [len(o) for o in out] == [6, 6]
+    snap = t.registry.snapshot()
+    assert snap["serving_requests_total"]["series"][0]["value"] == 2
+    assert snap["serving_ttft_s"]["series"][0]["count"] == 2  # one/request
+    assert snap["serving_tokens_total"]["series"][0]["value"] == 12
+    assert snap["serving_tbt_s"]["series"][0]["count"] > 0
+    assert snap["serving_queue_wait_s"]["series"][0]["count"] == 2
+    util = snap["serving_kv_page_utilization"]["series"][0]["value"]
+    assert 0.0 <= util <= 1.0
+    names = {e["name"] for e in t.tracer.events()}
+    assert {"dispatch", "sched_plan"} <= names
+    _assert_prometheus_wellformed(t.registry.render_prometheus())
+    # per-request maps drain on flush: no leak across the workload
+    assert not eng._admit_t and not eng._last_commit_t
+
+    # disabled engine: private silent instance, zero overhead
+    cfg_off = RaggedInferenceConfig(block_size=8, num_blocks=32, max_seqs=2,
+                                    chunk=8, max_seq_len=128,
+                                    decode_window=4, telemetry=False,
+                                    dtype=torch.float32, device="cpu")
+    eng_off = _engine(mc, cfg_off)
+    eng_off.generate([list(range(1, 8))], max_new_tokens=4)
+    assert eng_off._telem.enabled is False
+    assert len(eng_off._telem.tracer) == 0
+    assert eng_off._telem.registry.snapshot() == {}
+    assert eng_off._telem.server is None
+
+
+def test_training_engine_telemetry_and_timer_means(tmp_path, global_telem):
+    import deepspeed_tpu_torch as ds
+    from deepspeed_tpu_torch.models import build_model
+
+    global_telem.registry.reset()
+    cfg = {
+        "train_micro_batch_size_per_gpu": 2,
+        "optimizer": {"type": "AdamW", "params": {"lr": 1e-3}},
+        "steps_per_print": 2,
+        "wall_clock_breakdown": True,
+        "telemetry": {"enabled": True, "peak_tflops": 0.001},
+        "csv_monitor": {"enabled": True, "output_path": str(tmp_path),
+                        "job_name": "train"},
+        "mesh": {"data": 1},
+    }
+    engine, *_ = ds.initialize(
+        model=build_model("tiny-gpt2", device="cpu", dtype=torch.float32),
+        config=cfg, device="cpu")
+    rng = np.random.default_rng(0)
+    batch = {"input_ids": torch.from_numpy(rng.integers(
+        0, 256, (engine.config.train_batch_size, 32)))}
+    for _ in range(4):
+        engine.train_batch(batch)
+    t = engine._telem
+    snap = t.registry.snapshot()
+    assert snap["train_steps_total"]["series"][0]["value"] == 4
+    assert snap["train_step_time_s"]["series"][0]["count"] == 4
+    assert snap["train_tokens_total"]["series"][0]["value"] == \
+        4 * engine.config.train_batch_size * 32
+    # MFU/goodput: the model's FLOPs over a tiny fake peak → configured,
+    # clean run → equal; tracked per step
+    from deepspeed_tpu_torch.runtime.engine import model_step_flops
+
+    assert engine._step_flops == model_step_flops(
+        engine.module, engine.config.train_batch_size, 32) > 0
+    mfu_v = snap["train_mfu"]["series"][0]["value"]
+    good_v = snap["train_goodput"]["series"][0]["value"]
+    assert mfu_v > 0 and good_v == pytest.approx(mfu_v)
+    tr = engine._mfu_tracker
+    tr.discard_steps(2)                      # synthetic rewind accounting
+    assert tr.goodput() < tr.mfu()
+    # satellite: wall_clock_breakdown means reached the monitor backends
+    csv = tmp_path / "train" / "Train_train_batch_ms.csv"
+    assert csv.exists(), "timer means did not reach MonitorMaster"
+    assert len(csv.read_text().strip().split("\n")) >= 2  # header + means
+    # spans mirrored as step spans
+    assert any(e["name"] == "train_batch" for e in t.tracer.events())
+
+
+def test_registry_scoped_reset_two_components():
+    """The registry-zeroing helper (Telemetry.reset_metrics /
+    MetricsRegistry.reset with prefix/keep scopes): a bench-driven engine
+    and a co-resident router share one process registry, and each zeroes
+    ITS families per measured run without clobbering the other's — the
+    inline registry.reset() the bench used to do would wipe the router's
+    counters mid-scenario."""
+    from deepspeed_tpu_torch.telemetry import (ROUTER_RUN_PREFIXES,
+                                         SERVING_ROUTER_PREFIX, Telemetry)
+
+    t = Telemetry(enabled=True)
+    # engine-side families (bench's measured-run scope)...
+    t.registry.counter("serving_requests_total").inc(3)
+    t.registry.histogram("serving_ttft_s").observe(0.1)
+    # ...and router-side families, co-resident
+    t.registry.counter("serving_router_requests_total").inc(7)
+    t.registry.counter("serving_router_sheds_total",
+                       labels={"reason": "queue_full"}).inc()
+    t.registry.counter("serving_tenant_requests_total",
+                       labels={"tenant": "acme"}).inc()
+
+    # bench zeroes ITS run: router families survive
+    t.reset_metrics(keep=ROUTER_RUN_PREFIXES)
+    snap = t.snapshot()
+    assert "serving_requests_total" not in snap
+    assert "serving_ttft_s" not in snap
+    assert snap["serving_router_requests_total"]["series"][0]["value"] == 7
+    assert "serving_tenant_requests_total" in snap
+
+    # router zeroes ITS scenario: engine families survive
+    t.registry.counter("serving_requests_total").inc(5)
+    t.reset_metrics(prefix=ROUTER_RUN_PREFIXES)
+    snap = t.snapshot()
+    assert not any(k.startswith(SERVING_ROUTER_PREFIX) for k in snap)
+    assert "serving_tenant_requests_total" not in snap
+    assert snap["serving_requests_total"]["series"][0]["value"] == 5
+
+    # no scope = the historical full wipe
+    t.reset_metrics()
+    assert t.snapshot() == {}
+
+
+# --------------------------------------------------------------------------
+# the port's torch mirror: profiler ranges (utils/annotations.py), spans
+# --------------------------------------------------------------------------
+
+def test_ranges_and_spans_appear_in_a_torch_profiler_trace():
+    """``range_push`` / ``instrument_w_nvtx`` and a mirrored span open a
+    ``record_function`` range (no NVTX on the CPU); a span's step range is
+    named ``<name>#<step>``; ``mirror_jax=False`` turns the mirror off."""
+    from deepspeed_tpu_torch.utils.annotations import (instrument_w_nvtx,
+                                                       range_push)
+
+    @instrument_w_nvtx
+    def decorated(x):
+        return x + 1
+
+    @instrument_w_nvtx(name="custom_range")
+    def named(x):
+        return x * 2
+
+    t = Telemetry(enabled=True)
+    quiet = Telemetry(enabled=True, mirror_jax=False)
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
+        with range_push("pushed_range"):
+            decorated(torch.ones(2))
+        named(torch.ones(2))
+        with t.span("dispatch", kind="window"):
+            pass
+        with t.step_span("train_batch", 7):
+            pass
+        with quiet.span("unmirrored"):
+            pass
+    names = {e.name for e in prof.events()}
+    assert {"pushed_range", "custom_range", "dispatch",
+            "train_batch#7"} <= names
+    assert any(n.endswith("decorated") for n in names)
+    assert "unmirrored" not in names
+    assert [e["name"] for e in quiet.tracer.events()] == ["unmirrored"]
+
+
+def test_kv_tier_promote_latencies_drain_into_the_histogram():
+    from deepspeed_tpu_torch.inference.kvtier import KVTier, KVTierConfig
+
+    tier = KVTier(KVTierConfig(ram_bytes=1 << 20, min_pages=1))
+    for dt in (0.01, 0.02, 0.03):
+        tier.note_promote_latency(dt, pages=4)
+    reg = MetricsRegistry()
+    assert tier.drain_promote_latencies(reg) == 3
+    assert tier.promote_latencies == []
+    h = reg.snapshot()["serving_kv_tier_promote_latency_s"]["series"][0]
+    assert h["count"] == 3 and h["sum"] == pytest.approx(0.06)
+    assert tier.promote_obs["count"] == 3        # the running record stays
+    assert tier.drain_promote_latencies(reg) == 0

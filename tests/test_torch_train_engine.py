@@ -270,10 +270,8 @@ DEFERRED = [
     ({"optimizer": {"type": "OneBitAdam", "params": {}}}, "1-bit"),
     ({"data_efficiency": {"enabled": True}}, "curriculum"),
     ({"hybrid_engine": {"enabled": True}}, "hybrid engine"),
-    ({"telemetry": {"enabled": True}}, "telemetry"),
     ({"flops_profiler": {"enabled": True}}, "flops profiler"),
     ({"mesh": {"expert": 2}}, "'expert': 2.*item 6"),
-    ({"tensorboard": {"enabled": True}}, "tensorboard"),
     ({"zero_optimization": {"zero_hpz_partition_size": 2}}, "hpZ"),
     ({"mesh": {"pipe": 2}}, "'pipe': 2.*item 6"),
     ({"mesh": {"seq": 2}}, "'seq': 2.*item 6"),
