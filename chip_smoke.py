@@ -2,7 +2,7 @@
 
     python3 chip_smoke.py [--phases build,kernel,parity,serve,train-parity,
                            train,moe-train-parity,moe-train,zero,sparse,
-                           offload,kvmove,observe]
+                           offload,kvmove,observe,fleet]
                           [--out DIR]
 
 Phases (every one raises on failure; nothing is caught and passed over):
@@ -337,7 +337,9 @@ Phases (every one raises on failure; nothing is caught and passed over):
    of every run are added to the record line.
 
 12. kvmove — KV movement and the live weight swap on the serve phase's
-   llama2-7b (full width, all 32 layers, bf16, seeded random weights;
+   llama2-7b (full width, 16 of its 32 layers since the fleet phase joined
+   the run — the script's time limit; all 32 before — bf16, seeded random
+   weights;
    block 64, max_seqs 8, chunk 256, ``max_inflight`` 8, decode graphs
    captured), the 8 requests of 256-1024 tokens behind the 128-token
    prefix. Work goes under ``kvmove.tmp/`` in the checkout (free disk
@@ -358,8 +360,8 @@ Phases (every one raises on failure; nothing is caught and passed over):
    source's); prefix-hit tokens and TTFT beside a cold engine. Then a
    3968-token prompt split at token 2048 through ``gang_prefill_segment``
    on two engines: the 62 merged pages and the first token bit for bit one
-   engine's serving the whole prompt. (c) One engine with ``kv_tier`` (2 GiB
-   of RAM, an 8 GiB spill under ``kvmove.tmp/``) over a pool of ~1.15 x one
+   engine's serving the whole prompt. (c) One engine with ``kv_tier`` (64 pages
+   of RAM, a 256-page spill under ``kvmove.tmp/``) over a pool of ~1.15 x one
    wave's reserved blocks: wave 1 (8 prompts, 64 new tokens), wave 1 again
    (HBM prefix hits), wave 2 (8 other prompts behind another prefix,
    evicting wave 1's chains into the tier), wave 1 a third time
@@ -371,7 +373,7 @@ Phases (every one raises on failure; nothing is caught and passed over):
    its ms and GB/s from RAM and from NVMe (less the demotions it ran),
    crc32's share of wave 2 and the promoted wave, ``measure_tier_rates``
    and the ``min_pages`` it would size, and each wave's p50 TTFT. (d)
-   ``save_weights`` (13.5 GB), then ``swap_weights`` to that tag with the 8
+   ``save_weights`` (6.9 GB), then ``swap_weights`` to that tag with the 8
    sequences 16 tokens into a 64-token decode, graphs live: every stream
    bit for bit an unswapped run's, graph replays rising with no recapture,
    the tensors at their addresses; save, verify (crc32), quiesce and swap
@@ -434,6 +436,50 @@ Phases (every one raises on failure; nothing is caught and passed over):
    ``dispatch`` ranges and the replayed K1 kernels. Work goes under ``observe.tmp/`` in the checkout
    and is removed.
 
+14. fleet — the serving fleet on the card: the port's ``Router`` in this
+   process, engine replicas spawned by its ``Fleet`` (``python -m
+   deepspeed_tpu_torch.serving.replica``), each llama2-7b at full width and
+   depth in bf16 from one seed, at the serve phase's engine settings (block
+   64, ``max_seqs`` 8, chunk 256, ``max_inflight`` 8, 256 blocks), serving
+   the serve phase's traffic (8 requests of 256-1024 tokens behind a
+   128-token prefix, 64 greedy tokens). The kernels and the host library are
+   built here first, so replicas load them and never race a compiler. (a)
+   Two mixed replicas, one request pinned to each first (its decode graphs
+   captured); the traffic (under two tenants) with no fault, then again
+   with a replica killed — slot 0, or the slot of the first request to
+   stream a token where slot 0 has none: every request done exactly once
+   with 0
+   double commits, the killed slot respawned to READY, prefix-hit tokens
+   above 0. Prints each slot's spawn → READY seconds, output tok/s and p50
+   TTFT of the no-fault run, kill → replay-admit seconds, the replays'
+   TTFT, respawn → READY seconds. (c) On the same router, telemetry, replica
+   snapshots, fleet tracing and the watchtower are on: ``/metrics?aggregate
+   =1`` over 127.0.0.1 merges the router and both replicas, its
+   ``serving_ttft_s`` counting exactly the requests served; no critical
+   alert fires in the no-fault run and the store holds series; fleettrace
+   assembles every request's timeline from router to replica, the replays'
+   with their retry and both placements; ``python -m
+   deepspeed_tpu_torch.telemetry.console --once`` exits 0 and renders both
+   replicas. (b) One ``prefill`` and one ``decode`` replica, the prefill
+   replica's shared-memory ring sized from /dev/shm's free space (no ring,
+   and every chunk on the relay, where it cannot hold one), the same
+   traffic after one warm request: each request handed off and decoded on
+   the decode replica, ``migrations_out == migrations_in`` = the requests
+   served (an import commits only with every chunk's crc verified). Prints
+   GB handed off, handoff ms (emit → ack) p50 / max and GB/s, chunks by
+   transport, TTFT and tok/s. Every replica exits cleanly and logs its K1
+   launches, forwards, capture seconds and peak device memory: K1 once per
+   layer of every forward, all on the bf16 chunk or split kernel, nothing
+   plain (the killed incarnation logs nothing); this process launches no
+   kernel. Last, with the replicas gone, the teacher-forced oracle: the
+   dense model (``attn_impl="xla"``, the same seed) over each prompt plus
+   each stream; every token its argmax or within ``FLEET_TIE_GAP`` of its
+   top logit (a near-tie, counted), for the final streams and the
+   client-visible committed ones (a committed stream the router counted as
+   a replay mismatch is reported). bf16 streams batched differently may
+   part at a near-tie, so streams are not compared with each other. Work
+   goes under ``fleet.tmp/`` in the checkout and is removed.
+
 The serving parity phase's dense oracles pass ``attn_impl="xla"``, so they
 stay independent of the kernels under test.
 
@@ -444,6 +490,7 @@ script exits non-zero and prints no result.
 from __future__ import annotations
 
 import argparse
+import collections
 import contextlib
 import dataclasses
 import gc
@@ -464,7 +511,7 @@ PEAK_OPS = {torch.bfloat16: 989e12, torch.float32: 67e12,
 
 ALL_PHASES = ("build", "kernel", "parity", "serve", "train-parity", "train",
               "moe-train-parity", "moe-train", "zero", "sparse", "offload",
-              "kvmove", "observe")
+              "kvmove", "observe", "fleet")
 
 #: spread of the K1 cases' q against unit-normal K/V (see k1_case)
 Q_SD = 3.0
@@ -5357,17 +5404,19 @@ def phase_offload(dev, train: dict | None = None) -> dict:
 
 
 # ---------------------------------------------------------------------------
-# phase 12: kvmove — KV movement and the live weight swap at full depth
+# phase 12: kvmove — KV movement and the live weight swap (16 layers)
 # ---------------------------------------------------------------------------
 
-#: the serve phase's model, from the same seed, at full depth
-KVMOVE = dict(name="llama2-7b", layers=None, seed=1, new=64)
+#: the serve phase's model, from the same seed, at 16 of its 32 layers (the
+#: whole script's time limit; full depth until the fleet phase joined)
+KVMOVE = dict(name="llama2-7b", layers=16, seed=1, new=64)
 #: the tier run: new tokens a request of its waves generates, the RAM
-#: ring's and the NVMe spill's budgets
-KVMOVE_TIER = dict(new=64, ram=2 << 30, nvme=8 << 30)
+#: ring's and the NVMe spill's budgets (64 and 256 pages of 16.8 MB: the
+#: page counts of the full-depth runs)
+KVMOVE_TIER = dict(new=64, ram=1 << 30, nvme=4 << 30)
 KVMOVE_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)),
                           "kvmove.tmp")
-#: free disk the phase needs under the checkout: the 13.5 GB swap tag, two
+#: free disk the phase needs under the checkout: the 6.9 GB swap tag, two
 #: 2-layer tags of ~1.3 GB, the tier's 8 GB spill budget, and margin
 KVMOVE_DISK = 30e9
 
@@ -6949,6 +6998,562 @@ def phase_observe_breach(dev) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# fleet: the serving fleet behind the port's router (phase 14)
+# ---------------------------------------------------------------------------
+
+#: the fleet phase's replicas: llama2-7b at full width and depth, bf16, one
+#: seed; ``overrides`` and ``device`` reach the replicas' configs (empty
+#: and None on the card: the preset, on the CUDA device)
+FLEET = dict(name="llama2-7b", seed=7, new=64, overrides={}, device=None)
+#: the serve phase's engine settings
+FLEET_ENGINE = {"block_size": 64, "num_blocks": 256, "max_seqs": 8,
+                "chunk": 256, "max_inflight": 8, "max_seq_len": 2048}
+#: the teacher-forced oracle's near-tie bound, in logits: a fleet token
+#: that is not the dense oracle's argmax must sit within this of the top
+#: logit. fp32 streams hold to 1e-4 (the parity phase); this engine in
+#: bf16 at llama2-7b's 32 layers sat up to 0.48 off the same dense oracle
+#: per step in the observe phase's chip runs, its near-ties' top-2
+#: gaps up to 0.22: the bound is twice that error. A token drawn away from
+#: the top (a wrong splice) sits ~4 of the random model's logit spreads
+#: (~1.1) below it
+FLEET_TIE_GAP = 1.0
+FLEET_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                         "fleet.tmp")
+#: a handoff ring no larger than this share of /dev/shm's free space
+FLEET_SHM_SHARE = 0.5
+FLEET_SHM_MAX = 4 << 30
+
+
+def fleet_router(tag: str, roles: list, per_slot: dict | None = None,
+                 **rkw):
+    """A router over ``len(roles)`` engine replicas spawned by the port's
+    ``Fleet`` (logs under ``FLEET_DIR/<tag>``). A graph capture or an export
+    blocks a replica's loop, its heartbeats and its reads (a full pipe
+    blocks the router's sends), so the liveness and send deadlines sit
+    above them, and the start deadline above a replica's start; the radix
+    pulls, gang prefill and rebalancing stay off (their cost models run on
+    the JAX package's guessed CPU rates; the CPU tests hold them)."""
+    from deepspeed_tpu_torch.serving import FleetConfig, Router, RouterConfig
+
+    replica = {"backend": "engine", "model": FLEET["name"],
+               "seed": FLEET["seed"], "dtype": "bfloat16",
+               "device": FLEET["device"],
+               "overrides": dict(FLEET["overrides"]),
+               "engine": dict(FLEET_ENGINE), "hb_interval_s": 0.05}
+    fcfg = FleetConfig(
+        n_replicas=len(roles), replica=replica, roles=list(roles),
+        per_slot=per_slot or {}, hb_timeout_s=120.0, ready_timeout_s=600.0,
+        send_timeout_s=30.0, log_dir=os.path.join(FLEET_DIR, tag),
+        snapshot_dir=rkw.pop("snapshot_dir", None))
+    return Router(RouterConfig(
+        fleet=fcfg, request_timeout_s=300.0, max_retries=3, kv_pull=False,
+        gang_prefill=False, rebalance=False, kv_rate_probe=False, **rkw))
+
+
+def fleet_until(router, pred, deadline_s: float, what: str,
+                each=None) -> float:
+    """Poll ``router`` until ``pred()``; raise past ``deadline_s``. Returns
+    the seconds it took. ``each()`` runs after every poll."""
+    t0 = time.perf_counter()
+    while not pred():
+        if time.perf_counter() - t0 > deadline_s:
+            raise AssertionError(f"[fleet] {what}: not within {deadline_s} s")
+        router.poll()
+        if each is not None:
+            each()
+    return time.perf_counter() - t0
+
+
+def fleet_start(router, tag: str) -> dict:
+    """Spawn the fleet; each slot's spawn → READY seconds."""
+    from deepspeed_tpu_torch.serving.fleet import READY
+
+    t0 = time.perf_counter()
+    router.fleet.start()
+    ready: dict = {}
+
+    def note():
+        for h in router.fleet.replicas:
+            if h.state == READY and h.slot not in ready:
+                ready[h.slot] = time.perf_counter() - t0
+
+    fleet_until(router, lambda: len(ready) == len(router.fleet.replicas),
+                600.0, f"{tag} replicas ready", note)
+    log(f"[fleet {tag}] spawn -> READY s by slot: "
+        + ", ".join(f"{s}: {t:.1f}" for s, t in sorted(ready.items())))
+    return ready
+
+
+def fleet_wait_digests(router) -> None:
+    fleet_until(router, lambda: all(h.digest for h in router.fleet.replicas),
+                60.0, "residency digests")
+
+
+def fleet_serve(router, prompts, tag: str, kill: bool = False,
+                warm: bool = False) -> dict:
+    """Submit ``prompts`` (FLEET["new"] greedy tokens each, under two
+    tenants) and poll to the end, watching each request: handoffs (emit →
+    ack, bytes, chunks by transport) and, with ``kill``, the kill of the
+    first replica (slot 0 where it is one of them) to have streamed a
+    token for a request, each orphan's replay admit and the replay's first
+    token on the survivor, and the slot's respawn to READY. Returns the
+    router's results and what was watched."""
+    from deepspeed_tpu_torch.serving.fleet import READY
+
+    new = FLEET["new"]
+    t0 = time.perf_counter()
+    tids = [router.submit(p, max_new_tokens=new, trace_id=f"{tag}{i}",
+                          tenant=f"tenant-{i % 2}")
+            for i, p in enumerate(prompts)]
+    reqs = {t: router._reqs[t] for t in tids}
+    migs: dict = {}
+    killed: dict = {}
+
+    def watch():
+        now = time.monotonic()
+        for tid, r in reqs.items():
+            m = r.mig
+            if m is not None and tid not in migs:
+                migs[tid] = {"m": m, "start": m.started_t}
+            rec = migs.get(tid)
+            if rec is not None and "ack_s" not in rec and r.migrated:
+                rec["ack_s"] = now - rec["start"]
+        if not kill:
+            return
+        if "t" not in killed:
+            streaming = sorted(r.assigned_slot for r in reqs.values()
+                               if r.status == "assigned" and r.committed)
+            if streaming:
+                slot = killed["slot"] = streaming[0]
+                killed["orphans"] = {
+                    tid: r.attempt for tid, r in reqs.items()
+                    if r.status == "assigned" and r.assigned_slot == slot}
+                killed["epoch"] = router.fleet.replicas[slot].epoch
+                killed["t"] = time.monotonic()
+                router.fleet.kill_replica(slot)
+            return
+        slot = killed["slot"]
+        for tid, attempt in killed["orphans"].items():
+            r = reqs[tid]
+            if r.attempt > attempt and r.assigned_slot != slot:
+                killed.setdefault("admit", {}).setdefault(
+                    tid, r.assign_t - killed["t"])
+                if r.last_activity_t > r.assign_t:
+                    killed.setdefault("first", {}).setdefault(
+                        tid, r.last_activity_t - r.assign_t)
+        h = router.fleet.replicas[slot]
+        if "ready_s" not in killed and h.state == READY \
+                and h.epoch > killed["epoch"]:
+            killed["ready_s"] = time.monotonic() - killed["t"]
+
+    ended: list = []
+
+    def done():
+        if not ended and all(r.status not in ("queued", "assigned",
+                                              "recovering", "gang")
+                             for r in reqs.values()):
+            ended.append(time.perf_counter())
+        return bool(ended) and (not kill or "ready_s" in killed)
+
+    fleet_until(router, done, 900.0, f"{tag} serve", watch)
+    wall = ended[0] - t0
+    res = {t: router.result(t) for t in tids}
+    for t, info in res.items():
+        if info["status"] != "done" or len(info["tokens"]) != new:
+            raise AssertionError(f"[fleet {tag}] {t}: {info['status']} "
+                                 f"{info['reason']}, {len(info['tokens'])} "
+                                 f"tokens")
+    if router.double_commits:
+        raise AssertionError(f"[fleet {tag}] {router.double_commits} double "
+                             f"commits")
+    ttft = sorted(info["ttft_s"] for info in res.values())
+    placed = collections.Counter(info["placed"][0] for info in res.values())
+    out = {"results": res, "wall_s": wall, "placed": dict(placed),
+           "committed": {t: list(r.committed) for t, r in reqs.items()},
+           "tok_s": len(tids) * new / wall, "ttft_p50_s": ttft[len(ttft) // 2],
+           "replay_mismatches": router.replay_mismatches}
+    if migs:
+        out["handoffs"] = [
+            {"tid": t, "bytes": rec["m"].payload_bytes,
+             "chunks": rec["m"].total, "ms": rec["ack_s"] * 1e3,
+             "transport": "shm" if rec["m"].shm and not rec["m"].relayed
+             else "relay"} for t, rec in migs.items() if "ack_s" in rec]
+    if kill:
+        orphans = sorted(killed["orphans"])
+        if not orphans or set(killed.get("admit", {})) != set(orphans):
+            raise AssertionError(f"[fleet {tag}] orphans {orphans}, replays "
+                                 f"admitted {killed.get('admit')}")
+        out["kill"] = {"slot": killed["slot"], "orphans": orphans,
+                       "replay_admit_s": killed["admit"],
+                       "replay_ttft_s": killed.get("first", {}),
+                       "respawn_ready_s": killed["ready_s"]}
+    if not warm:
+        log(f"[fleet {tag}] {len(tids)} requests x {new} tokens in "
+            f"{wall:.2f} s: {out['tok_s']:.1f} output tok/s, p50 TTFT "
+            f"{out['ttft_p50_s']:.3f} s; first placed by slot "
+            f"{dict(sorted(placed.items()))}; replay mismatches "
+            f"{router.replay_mismatches}, double commits 0")
+    return out
+
+
+def fleet_reports(log_dir: str) -> dict:
+    """Each replica incarnation's ``replica report`` (written at its clean
+    exit) from the fleet's logs: ``{"<slot>.e<epoch>": report}``."""
+    out = {}
+    for name in sorted(os.listdir(log_dir)):
+        if not name.endswith(".log"):
+            continue
+        with open(os.path.join(log_dir, name), encoding="utf-8",
+                  errors="replace") as f:
+            for line in f:
+                if line.startswith("replica report "):
+                    out[name[len("replica"):-len(".log")]] = json.loads(
+                        line[len("replica report "):])
+    return out
+
+
+def check_fleet_launches(tag: str, reports: dict) -> dict:
+    """Each replica's K1: one launch per layer of every forward it ran,
+    every one on the bf16 chunk or split kernel, none plain; some replica
+    ran forwards."""
+    total = {"k1": 0, "k1_chunk": 0, "k1_split": 0}
+    for key, rep in reports.items():
+        k1 = rep["k1"]
+        want = rep["layers"] * rep["forwards"]
+        if k1["kernel"] != want or k1["plain"] or k1["kernel_e4m3"] \
+                or k1["kernel_chunk"] + k1["kernel_split"] != want:
+            raise AssertionError(f"[fleet {tag}] replica {key}: K1 {k1} != "
+                                 f"{rep['layers']} layers x "
+                                 f"{rep['forwards']} forwards")
+        total["k1"] += k1["kernel"]
+        total["k1_chunk"] += k1["kernel_chunk"]
+        total["k1_split"] += k1["kernel_split"]
+    if total["k1"] <= 0:
+        raise AssertionError(f"[fleet {tag}] no K1 launch in {reports}")
+    return total
+
+
+def fleet_shutdown(router, tag: str) -> dict:
+    """Shut every replica down cleanly and read their reports."""
+    router.fleet.shutdown(deadline_s=120.0)
+    codes = {h.slot: (h.proc.returncode if h.proc is not None else None)
+             for h in router.fleet.replicas}
+    router.close()
+    if any(c != 0 for c in codes.values()):
+        raise AssertionError(f"[fleet {tag}] replica exit codes {codes}")
+    reports = fleet_reports(os.path.join(FLEET_DIR, tag))
+    for key, rep in sorted(reports.items()):
+        log(f"[fleet {tag}] replica {key}: built in {rep['build_s']:.1f} s, "
+            f"{rep.get('graphs', 0)} graphs captured in "
+            f"{rep.get('capture_s', 0.0):.2f} s, peak "
+            f"{rep.get('peak_bytes', 0) / 1e9:.2f} GB, K1 "
+            f"{rep['k1']['kernel']} over {rep['forwards']} forwards, "
+            f"migrations out / in {rep['migrations_out']} / "
+            f"{rep['migrations_in']}")
+    return reports
+
+
+def fleet_scrape(router, tag: str, served: int) -> dict:
+    """(c): ``/metrics?aggregate=1`` over 127.0.0.1 merges the router and
+    both replicas, ``serving_ttft_s`` counting exactly the requests the
+    replicas served; the port's ds_top renders both replicas."""
+    import re
+    import subprocess
+    import urllib.request
+
+    telem = router._telem
+    port = telem.start_http(0)
+    url = f"http://127.0.0.1:{port}"
+    try:
+        body, count, peers = "", None, None
+
+        def scraped():
+            nonlocal body, count, peers
+            body = urllib.request.urlopen(f"{url}/metrics?aggregate=1",
+                                          timeout=10).read().decode()
+            m = re.search(r"^serving_ttft_s_count(?:\{\})? (\S+)$", body,
+                          re.M)
+            p = re.search(r"^telemetry_aggregated_peers(?:\{\})? (\S+)$",
+                          body, re.M)
+            count = float(m.group(1)) if m else None
+            peers = float(p.group(1)) if p else None
+            return count == served and peers == 2
+
+        fleet_until(router, scraped, 60.0,
+                    f"{tag} aggregate scrape (serving_ttft_s {count}, "
+                    f"peers {peers}, want {served} over 2)")
+        out = subprocess.run(
+            [sys.executable, "-m", "deepspeed_tpu_torch.telemetry.console",
+             "--once", "--url", url], capture_output=True, text=True,
+            timeout=120, cwd=os.path.dirname(os.path.abspath(__file__)))
+    finally:
+        telem.stop_http()
+    rows = re.findall(r"^ ([01])\s+ready\s+mixed", out.stdout, re.M)
+    if out.returncode != 0 or sorted(rows) != ["0", "1"]:
+        raise AssertionError(f"[fleet {tag}] ds_top exit {out.returncode}, "
+                             f"rows {rows}:\n{out.stdout}\n{out.stderr}")
+    log(f"[fleet {tag}] /metrics?aggregate=1: serving_ttft_s count "
+        f"{count:.0f} = the {served} requests served, 2 replica peers; "
+        f"ds_top --once rendered both replicas")
+    return {"serving_ttft_s_count": count, "peers": peers,
+            "ds_top_lines": len(out.stdout.splitlines())}
+
+
+def fleet_timelines(router, tag: str, tids, orphans) -> dict:
+    """(c): fleettrace assembles every request's timeline across the
+    router and a replica; an orphan's holds its retry and both
+    placements."""
+    n_events = 0
+    for tid in tids:
+        tl = router._ftrace.assemble(tid)
+        srcs = {e["src"] for e in (tl or {}).get("events", ())}
+        kinds = [e["kind"] for e in (tl or {}).get("events", ())
+                 if e["src"] == "router"]
+        if "router" not in srcs or not any(s.startswith("replica")
+                                           for s in srcs):
+            raise AssertionError(f"[fleet {tag}] {tid}: timeline sources "
+                                 f"{sorted(srcs)}")
+        if tid in orphans and ("retry" not in kinds
+                               or kinds.count("placed") < 2):
+            raise AssertionError(f"[fleet {tag}] {tid}: the replay is not "
+                                 f"in its timeline: {kinds}")
+        n_events += len(tl["events"])
+    log(f"[fleet {tag}] fleettrace: {len(tids)} timelines, router to "
+        f"replica ({n_events} events), the {len(orphans)} replays in theirs")
+    return {"timelines": len(tids), "events": n_events}
+
+
+def fleet_oracle(dev, runs: dict, prompts: dict) -> dict:
+    """Teacher forcing: the dense model (``attn_impl="xla"``, the replicas'
+    seed) runs over each prompt plus the fleet's tokens; every token must
+    be the oracle's argmax there, or sit within FLEET_TIE_GAP of its top
+    logit (a near-tie, counted). Held for each final stream and each
+    client-visible committed stream (a wrong splice shows as a token off
+    the top past it); a committed stream the router counted as a replay
+    mismatch is reported, its final stream held."""
+    from deepspeed_tpu_torch.models import build_model
+
+    oracle = build_model(FLEET["name"], dtype=torch.bfloat16, device=dev,
+                         seed=FLEET["seed"], attn_impl="xla",
+                         **FLEET["overrides"])
+    out: dict = {}
+
+    def check(tag, tid, prompt, toks) -> list:
+        ids = torch.tensor([list(prompt) + list(toks[:-1])], device=dev)
+        with torch.no_grad():
+            logits = oracle(ids)[0, len(prompt) - 1:].float()
+        top = logits.max(dim=-1).values
+        got = logits[torch.arange(len(toks), device=dev),
+                     torch.tensor(toks, device=dev)]
+        gaps = (top - got).cpu().tolist()
+        ties = [(k, g) for k, g in enumerate(gaps) if g > 0]
+        bad = [(k, g) for k, g in ties if g > FLEET_TIE_GAP]
+        if bad:
+            raise AssertionError(f"[fleet {tag}] {tid}: tokens off the "
+                                 f"oracle's top past the near-tie bound: "
+                                 f"{bad[:4]}")
+        return ties
+
+    for tag, run in runs.items():
+        ties, worst, forked = 0, 0.0, []
+        for tid, info in run["results"].items():
+            prompt = prompts[tag][tid]
+            t = check(tag, tid, prompt, info["tokens"])
+            ties += len(t)
+            worst = max([worst] + [g for _, g in t])
+            com = run["committed"][tid]
+            if com and com != info["tokens"][:len(com)]:
+                forked.append(tid)
+                try:
+                    check(tag, tid, prompt, com)
+                except AssertionError as e:
+                    log(f"[fleet {tag}] {tid}: committed stream (a counted "
+                        f"replay mismatch) off the oracle: {e}")
+            elif com:
+                check(tag, tid, prompt, com)
+        if len(forked) > run["replay_mismatches"]:
+            raise AssertionError(f"[fleet {tag}] committed streams {forked} "
+                                 f"part from their results, "
+                                 f"{run['replay_mismatches']} mismatches "
+                                 f"counted")
+        out[tag] = {"near_ties": ties, "max_tie_gap": worst,
+                    "forked": forked}
+        log(f"[fleet {tag}] {len(run['results'])} streams pass the "
+            f"teacher-forced oracle: {ties} near-ties of "
+            f"{len(run['results']) * FLEET['new']} tokens (largest gap "
+            f"{worst:.3f} <= {FLEET_TIE_GAP}); forked committed streams "
+            f"{forked}")
+    del oracle
+    free_cuda()
+    return out
+
+
+def fleet_mixed(card: str, prompts: list, again: list,
+                warm: list) -> dict:
+    """(a) failover on two mixed replicas (the traffic ``prompts``, then
+    ``again``: the same prefix, fresh suffixes) and (c) the fleet's
+    telemetry on the same router."""
+    from deepspeed_tpu_torch.serving.fleet import READY
+
+    tag = "a"
+    router = fleet_router(
+        tag, ["mixed", "mixed"], telemetry=True,
+        snapshot_dir=os.path.join(FLEET_DIR, "snap"), fleet_trace=True,
+        fleet_trace_dir=os.path.join(FLEET_DIR, "blackbox"),
+        watchtower=True, watchtower_dir=os.path.join(FLEET_DIR, "watch"))
+    rec: dict = {}
+    try:
+        rec["ready_s"] = fleet_start(router, tag)
+        # one request pinned to each replica first: its decode graphs
+        # are captured before the timed runs
+        for slot, p in enumerate(warm):
+            router.submit(p, max_new_tokens=FLEET["new"],
+                          trace_id=f"warm{slot}", pin_slot=slot)
+        router.run(deadline_s=600.0)
+        fleet_wait_digests(router)
+        nofault = fleet_serve(router, prompts, "a-nofault")
+        hit = router._telem.snapshot()[
+            "serving_router_placement_prefix_tokens_total"]["series"][0][
+            "value"]
+        if hit <= 0:
+            raise AssertionError(f"[fleet a] prefix placement hit {hit} "
+                                 f"tokens")
+        critical = [a.rule for a in router._alerts.firing("critical")]
+        if critical or router._watch.stats().get("series", 0) <= 0:
+            raise AssertionError(f"[fleet a] watchtower: critical alerts "
+                                 f"{critical}, store {router._watch.stats()}")
+        rec["scrape"] = fleet_scrape(router, tag, len(warm) + len(prompts))
+        fault = fleet_serve(router, again, "a-kill", kill=True)
+        k = fault["kill"]
+        log(f"[fleet a-kill] slot {k['slot']} killed with "
+            f"{len(k['orphans'])} "
+            f"requests on it: replay admitted on the survivor "
+            f"{max(k['replay_admit_s'].values()):.3f} s after the kill "
+            f"(max), the replays' TTFT "
+            + ", ".join(f"{v:.3f}" for v in k["replay_ttft_s"].values())
+            + f" s; respawned to READY in {k['respawn_ready_s']:.1f} s")
+        rec["trace"] = fleet_timelines(
+            router, tag, list(nofault["results"]) + list(fault["results"]),
+            set(k["orphans"]))
+        rec["hit_tokens"] = hit
+        rec["watch"] = router._watch.stats()
+        rec["alerts_fired"] = [a.rule for a in router._alerts.firing()]
+        if any(h.state != READY for h in router.fleet.replicas):
+            raise AssertionError("[fleet a] the killed slot did not come "
+                                 "back")
+    finally:
+        reports = fleet_shutdown(router, tag)
+    rec.update(nofault=nofault, kill=fault, reports=reports,
+               launches=check_fleet_launches(tag, reports))
+    want = sorted(f"{s}.e{1 if s == k['slot'] else 0}" for s in (0, 1))
+    if sorted(reports) != want:
+        raise AssertionError(f"[fleet a] reports {sorted(reports)}, want "
+                             f"{want}: the respawned slot and the survivor")
+    log(f"[fleet a] {card}: no fault {nofault['tok_s']:.1f} tok/s, p50 TTFT "
+        f"{nofault['ttft_p50_s']:.3f} s; prefix-hit tokens {hit:.0f}")
+    return rec
+
+
+def fleet_disagg(card: str, prompts: list, warm: list) -> dict:
+    """(b) one prefill and one decode replica."""
+    shm_free = shutil.disk_usage("/dev/shm").free
+    ring = int(min(FLEET_SHM_MAX, shm_free * FLEET_SHM_SHARE))
+    ring = ring if ring >= 64 << 20 else 0
+    log(f"[fleet b] /dev/shm free {shm_free / 1e9:.2f} GB: the prefill "
+        f"replica's ring {ring / 1e9:.2f} GB"
+        + ("" if ring else " (none: every chunk rides the relay)"))
+    tag = "b"
+    router = fleet_router(tag, ["prefill", "decode"], telemetry=True,
+                          per_slot={"0": {"shm_bytes": ring}})
+    rec: dict = {"shm_free_bytes": shm_free, "ring_bytes": ring}
+    try:
+        rec["ready_s"] = fleet_start(router, tag)
+        warm_run = fleet_serve(router, warm[:1], "bwarm", warm=True)
+        run = fleet_serve(router, prompts, "b-disagg")
+    finally:
+        reports = fleet_shutdown(router, tag)
+    served = 1 + len(prompts)
+    for tid, info in run["results"].items():
+        if not info["migrated"] or info["placed"][0] != 0:
+            raise AssertionError(f"[fleet b] {tid}: placed {info['placed']}, "
+                                 f"migrated {info['migrated']}")
+    pre, dec = reports.get("0.e0"), reports.get("1.e0")
+    if pre is None or dec is None or pre["migrations_out"] != served \
+            or dec["migrations_in"] != served:
+        raise AssertionError(f"[fleet b] migrations out / in "
+                             f"{pre and pre['migrations_out']} / "
+                             f"{dec and dec['migrations_in']}, want {served}")
+    hand = run.get("handoffs", [])
+    if len(hand) != len(prompts):
+        raise AssertionError(f"[fleet b] {len(hand)} handoffs watched")
+    ms = sorted(h["ms"] for h in hand)
+    gb = sum(h["bytes"] for h in hand) / 1e9
+    chunks = {"shm": 0, "relay": 0}
+    for h in hand:
+        chunks[h["transport"]] += h["chunks"]
+    rate = gb / (sum(ms) / 1e3)
+    log(f"[fleet b] {card}: {len(hand)} handoffs (+ the warm one), "
+        f"{gb:.3f} GB handed off, handoff ms p50 {ms[len(ms) // 2]:.1f} / "
+        f"max {ms[-1]:.1f}, {rate:.2f} GB/s over the handoffs' time; chunks "
+        f"by transport {chunks} (every chunk's crc verified at import: "
+        f"{served} imports committed); TTFT p50 {run['ttft_p50_s']:.3f} s, "
+        f"{run['tok_s']:.1f} tok/s")
+    rec.update(run=run, warm=warm_run, reports=reports, gb=gb,
+               handoff_ms_p50=ms[len(ms) // 2], handoff_ms_max=ms[-1],
+               GBps=rate, chunks=chunks,
+               launches=check_fleet_launches(tag, reports))
+    return rec
+
+
+def phase_fleet(dev) -> dict:
+    """See the module docstring, phase 14."""
+    from deepspeed_tpu_torch import telemetry
+    from deepspeed_tpu_torch.accelerator import card_name_and_power_limit
+    from deepspeed_tpu_torch.models import get_model_config
+    from deepspeed_tpu_torch.ops import native
+
+    t_phase = time.perf_counter()
+    card = card_name_and_power_limit()
+    native.load_library()        # built once here: replicas never race g++
+    free_cuda()
+    reset_counts()
+    telem = telemetry.get_telemetry()
+    telem.reset_metrics()
+    shutil.rmtree(FLEET_DIR, ignore_errors=True)
+    os.makedirs(FLEET_DIR)
+    vocab = get_model_config(FLEET["name"], **FLEET["overrides"]).vocab_size
+    prompts = kv_prompts(vocab, 21)
+    again = kv_prompts(vocab, 23)
+    warm = kv_prompts(vocab, 22)[:2]
+    try:
+        mixed = fleet_mixed(card, prompts, again, warm)
+        disagg = fleet_disagg(card, prompts, warm)
+    finally:
+        telem.reconfigure(enabled=False)
+        telem.reset_metrics()
+        shutil.rmtree(FLEET_DIR, ignore_errors=True)
+    parent = all_counts()
+    if any(parent.values()):
+        raise AssertionError(f"[fleet] the router's process launched "
+                             f"kernels: {parent}")
+    runs = {"a-nofault": mixed["nofault"], "a-kill": mixed["kill"],
+            "b-disagg": disagg["run"]}
+    by_tid = {tag: {f"{tag}{i}": p for i, p in enumerate(
+        again if tag == "a-kill" else prompts)} for tag in runs}
+    oracle = fleet_oracle(dev, runs, by_tid)
+    launches = {k: mixed["launches"][k] + disagg["launches"][k]
+                for k in mixed["launches"]}
+    rec = {"card": card, "mixed": mixed, "disagg": disagg, "oracle": oracle,
+           "launches": launches, "seconds": time.perf_counter() - t_phase}
+    log(f"[fleet] {card}: phase {rec['seconds']:.1f} s; K1 in the replicas "
+        f"{launches}; no fault {mixed['nofault']['tok_s']:.1f} tok/s, p50 "
+        f"TTFT {mixed['nofault']['ttft_p50_s']:.3f} s; disaggregated "
+        f"{disagg['run']['tok_s']:.1f} tok/s, p50 TTFT "
+        f"{disagg['run']['ttft_p50_s']:.3f} s")
+    return rec
+
+
+# ---------------------------------------------------------------------------
 # main
 # ---------------------------------------------------------------------------
 
@@ -7191,6 +7796,22 @@ def main() -> int:
             "tier_crc_share": tier["crc_share"],
             "swap_s": {k: swap[k] for k in ("save_s", "verify_s",
                                             "quiesce_s", "swap_s")}}
+    if "fleet" in phases:
+        fleet = phase_fleet(dev)
+        record["phases"]["fleet"] = fleet
+        # K1 in every engine replica that exited cleanly (their own
+        # counts, from their logs); the phase's numbers ride beside
+        k1["launches"] = (k1["launches"] or 0) + fleet["launches"]["k1"]
+        mixed, disagg = fleet["mixed"], fleet["disagg"]
+        k1["fleet"] = {
+            "launches": fleet["launches"], "card": fleet["card"],
+            "tok_s": [mixed["nofault"]["tok_s"], disagg["run"]["tok_s"]],
+            "ttft_p50_s": [mixed["nofault"]["ttft_p50_s"],
+                           disagg["run"]["ttft_p50_s"]],
+            "respawn_ready_s": mixed["kill"]["kill"]["respawn_ready_s"],
+            "handoff_GBps": disagg["GBps"],
+            "near_ties": {k: v["near_ties"]
+                          for k, v in fleet["oracle"].items()}}
     if "observe" in phases:
         # the breach capture (a profiler) last of all
         breach = phase_observe_breach(dev)

@@ -1,0 +1,59 @@
+"""Resilient multi-replica serving tier.
+
+A stateless router (router.py) fronts N ``engine_v2`` replica workers
+(replica.py) over a newline-JSON protocol (protocol.py) with a deadline
+on every wait — local stdio pipes by default, TCP/unix sockets for
+remote replicas (transport.py). Placement is prefix-cache-aware
+(placement.py: chain-hash the prompt's page-aligned prefix, prefer the
+replica whose residency digest holds the longest chain); the fleet layer
+(fleet.py) supervises replica processes with heartbeat liveness,
+exponential-backoff restarts and a crash-loop circuit breaker; failed or
+wedged replicas' in-flight requests are replayed onto survivors and
+dedup'd by trace ID + attempt nonce so results commit exactly once.
+Replicas take roles (disagg.py): prefill-role replicas run prompts and
+hand each sequence's KV pages off to a decode-capable replica through
+the router (chunked, resumable, pinned-until-ack — the KV-page migration
+primitive in inference/migration.py), and per-role autoscale hint gauges
+ride the router's existing load signals. workload.py generates the
+seeded multi-tenant traces the bench and chaos suites replay.
+Fleet-wide distributed tracing (telemetry/fleettrace.py,
+``RouterConfig(fleet_trace=True)``) assembles router + replica timelines
+into clock-aligned per-request views with black-box postmortem dumps
+(``bin/ds_postmortem``) and straggler gauges. The router itself is
+crash-safe (journal.py, ``RouterConfig.journal_dir``): a write-ahead
+request journal plus the resync/re_adopt exchange let a restarted
+router re-adopt daemon replicas' in-flight work — decode continues
+through the outage and streams re-attach without replay.
+
+See README.md "Serving fleet" / "Disaggregated serving" for topology,
+knobs, and runbooks.
+"""
+from .deploy import (DeployConfig, DeployError, DeployManager,
+                     write_toy_checkpoint)
+from .disagg import MigrationState, RebalancePolicy, ROLES, ScaleAdvisor
+from .fleet import Fleet, FleetConfig
+from .journal import (Journal, JournalError, RecoveredState,
+                      reduce_router_records)
+from .placement import (StickyMap, best_digest_peer, chain_hashes,
+                        match_pages, pick_replica, plan_kv_source,
+                        pull_beats_recompute)
+from .protocol import (ChannelClosed, ChannelTimeout, LineChannel,
+                       RequestRecord, poll_channels)
+from .router import AdmissionError, Router, RouterConfig
+from .shm import ShmReader, ShmRing, attach_ring, open_ring
+from .transport import SocketChannel, SocketListener, connect_channel
+from .workload import TraceConfig, synth_trace
+
+__all__ = [
+    "AdmissionError", "ChannelClosed", "ChannelTimeout", "DeployConfig",
+    "DeployError", "DeployManager", "Fleet",
+    "FleetConfig", "Journal", "JournalError", "LineChannel",
+    "MigrationState", "ROLES", "RecoveredState",
+    "reduce_router_records",
+    "RebalancePolicy", "RequestRecord", "Router", "RouterConfig",
+    "ScaleAdvisor", "ShmReader", "ShmRing", "SocketChannel",
+    "SocketListener", "StickyMap", "TraceConfig", "attach_ring",
+    "best_digest_peer", "chain_hashes", "connect_channel", "match_pages",
+    "open_ring", "pick_replica", "plan_kv_source", "poll_channels",
+    "pull_beats_recompute", "synth_trace", "write_toy_checkpoint",
+]

@@ -1,0 +1,469 @@
+"""Zero-downtime fleet weight hot-swap: versioned rolling deploys.
+
+A new model version reaches a serving fleet today by killing replicas
+and eating cold starts; this module makes it a first-class, always-safe
+operation instead — the serving half of the DeepSpeed-Chat hybrid-engine
+republish (live weights pushed into a serving engine in place), driven
+replica-by-replica behind the router with no dropped requests.
+
+The deploy state machine (one instance per rolling deploy, ticked from
+``Router.poll`` — every wait is a deadline checked per tick, never a
+block; ``bin/check_deadlines.py`` lints this file like the rest of the
+package)::
+
+    verify checkpoint (router-side manifest crc gate — a torn deploy
+        target is refused before the fleet hears about it)
+      -> canary_swap    one replica quiesces at a window boundary and
+                        swaps in place ({"t":"swap"} / swap_ok|swap_fail)
+      -> canary_probe   a real request pinned to the canary must
+                        complete within its deadline (and TTFT SLO): the
+                        handshake proves the load, the probe proves the
+                        FORWARD
+      -> canary_soak    the canary serves live traffic for a window
+                        while the fleet health signals watch it
+                        (straggler gauges, breaker opens, liveness)
+      -> rolling        remaining replicas swap one at a time — at most
+                        one replica quiesced fleet-wide at any moment
+      -> done           outcome "ok": the fleet template commits to the
+                        new version (restarts now spawn on it)
+
+Any failure — canary breach, a structured swap refusal, a replica death
+mid-swap, a deadline — triggers the always-safe unwind: replicas that
+already swapped roll back to the prior version (outcome "rolled_back");
+if nothing had swapped yet the deploy simply aborts (outcome "aborted")
+with the whole fleet still on the old weights. A replica that DIES
+mid-swap restarts from the fleet template, which still names the old
+version until the deploy fully converges — so a crash can never strand a
+half-deployed fleet, and a crash-looping swap trips the ordinary fleet
+circuit breaker.
+
+Skew safety rides the ``weight_version`` (monotonic id + checkpoint
+manifest digest) stamped on every ready message, heartbeat and
+:class:`~..inference.migration.PageBundle`: while the fleet is mixed-
+version mid-roll, cross-replica KV pulls, prefill->decode handoffs and
+rebalance migrations are refused across versions (reason
+``version_skew``) and fall back to the established recompute /
+resume-on-source paths — KV computed under one set of weights never
+seeds a pool serving another.
+"""
+from __future__ import annotations
+
+import os
+import time
+from dataclasses import dataclass, field
+
+from ..checkpoint.manifest import (manifest_digest, resolve_tag,
+                                   tag_status, write_file_atomic,
+                                   write_manifest)
+from ..utils.logging import logger
+from .fleet import READY
+
+#: terminal deploy outcomes (the ``deploys_total`` label set)
+DEPLOY_OUTCOMES = ("ok", "rolled_back", "aborted")
+
+#: deploy phases, in nominal order
+DEPLOY_PHASES = ("canary_swap", "canary_probe", "canary_soak", "rolling",
+                 "rollback", "done")
+
+
+class DeployError(RuntimeError):
+    """A deploy could not START (bad checkpoint, one already active).
+    Failures after start never raise — they resolve to a terminal
+    outcome ("rolled_back"/"aborted") in :meth:`DeployManager.status`."""
+
+
+@dataclass
+class DeployConfig:
+    """Knobs for one rolling deploy (see README "Deploying a new model
+    version"). Every phase is deadline-bounded; the deploy as a whole is
+    capped by ``deadline_s`` — a wedged fleet ends in a rollback, never
+    a hung deploy."""
+    #: per-replica swap handshake deadline (quiesce + verify + load)
+    swap_timeout_s: float = 20.0
+    #: canary probe request: must complete within this
+    probe_timeout_s: float = 10.0
+    #: and (when set) its TTFT must beat this — the "canary serves slow"
+    #: breach detector when straggler signals are off
+    probe_ttft_slo_s: float | None = None
+    #: probe prompt/geometry (tiny by design: the probe proves the new
+    #: weights FORWARD, the soak proves they serve)
+    probe_prompt: tuple = (3, 1, 4, 1, 5, 9, 2, 6)
+    probe_max_new: int = 4
+    #: health-watch window after the probe, before the roll continues
+    canary_soak_s: float = 0.5
+    #: unwind already-swapped replicas on a later failure (False = leave
+    #: the fleet mixed and just abort — debugging escape hatch)
+    rollback_on_failure: bool = True
+    #: whole-deploy hard deadline
+    deadline_s: float = 120.0
+
+
+@dataclass
+class _Pending:
+    """One in-flight swap handshake: (slot, epoch) names the exact
+    incarnation asked; any other answerer is stale."""
+    slot: int
+    epoch: int
+    deadline: float
+    sent_t: float = field(default_factory=time.monotonic)
+
+
+class DeployManager:
+    """One rolling deploy over a :class:`~.router.Router`'s fleet.
+
+    Constructed by ``Router.start_deploy`` (which verifies the
+    checkpoint first); driven by :meth:`tick` from the router's poll
+    loop and by :meth:`on_swap` when swap replies arrive. Never blocks:
+    every state advances on a tick or a message, and every wait carries
+    a deadline."""
+
+    def __init__(self, router, ckpt: str, tag: str, wid: int,
+                 digest: str, cfg: DeployConfig):
+        self.router = router
+        self.cfg = cfg
+        self.ckpt = ckpt
+        self.tag = tag
+        self.wid = int(wid)
+        #: the target's manifest digest, pre-computed router-side: a
+        #: swap_ok whose digest disagrees means the replica loaded
+        #: DIFFERENT bytes (torn mirror, path skew) — treated as failure
+        self.digest = digest
+        fleet_cfg = router.fleet.cfg.replica
+        #: rollback target: what the template serves today (ckpt None =
+        #: the template's init weights, id 0 by convention)
+        self.prev = {"ckpt": fleet_cfg.get("ckpt"),
+                     "tag": fleet_cfg.get("ckpt_tag"),
+                     "wid": int(fleet_cfg.get("wid", 0))}
+        self.phase = "canary_swap"
+        self.outcome: str | None = None
+        self.reason: str | None = None
+        self.started_t = time.monotonic()
+        self.finished_t = 0.0
+        self.hard_deadline = self.started_t + cfg.deadline_s
+        self.pending: _Pending | None = None
+        self.swapped: list[int] = []
+        self.rollback_queue: list[int] = []
+        self.rollback_failures: list[tuple[int, str]] = []
+        self.probe_tid: str | None = None
+        self.probe_deadline = 0.0
+        self.soak_until = 0.0
+        self._breaker_baseline = router.fleet.breaker_opens_total
+        logger.info(f"deploy: starting rolling swap to v{self.wid} "
+                    f"({ckpt}@{tag}, digest {digest}); rollback target "
+                    f"v{self.prev['wid']}")
+
+    # -- public ----------------------------------------------------------
+    @property
+    def active(self) -> bool:
+        return self.phase != "done"
+
+    def status(self) -> dict:
+        return {"active": self.active, "phase": self.phase,
+                "wid": self.wid, "digest": self.digest,
+                "ckpt": self.ckpt, "tag": self.tag,
+                "prev_wid": self.prev["wid"],
+                "outcome": self.outcome, "reason": self.reason,
+                "swapped": list(self.swapped),
+                "rollback_failures": list(self.rollback_failures),
+                "probe_tid": self.probe_tid,
+                "duration_s": round(
+                    (self.finished_t or time.monotonic())
+                    - self.started_t, 4)}
+
+    # -- message side ----------------------------------------------------
+    def on_swap(self, h, msg: dict) -> None:
+        """A swap_ok / swap_fail arrived from slot ``h``."""
+        p = self.pending
+        if p is None or h.slot != p.slot or h.epoch != p.epoch:
+            return                       # stale incarnation / not ours
+        self.pending = None
+        ok = msg.get("t") == "swap_ok"
+        if ok:
+            self._observe_swap(msg, time.monotonic() - p.sent_t)
+        if self.phase == "rollback":
+            if not ok:
+                # a replica that refuses the rollback swap keeps serving
+                # the NEW version — record it loudly, keep unwinding the
+                # rest (its next restart comes up on the old template)
+                self.rollback_failures.append(
+                    (h.slot, str(msg.get("reason", "swap_fail"))))
+                logger.error(f"deploy: rollback swap on slot {h.slot} "
+                             f"refused ({msg.get('reason')})")
+            return                       # tick() sends the next one
+        if not ok:
+            self._fail(f"swap_fail:{msg.get('reason', 'unknown')}",
+                       slot=h.slot)
+            return
+        wv = msg.get("wv") or {}
+        if int(wv.get("id", -1)) != self.wid \
+                or wv.get("digest") != self.digest:
+            # the replica swapped to something else than we verified —
+            # a torn mirror or path skew; treat as a failed swap
+            self._fail(f"digest_mismatch:slot{h.slot}", slot=h.slot)
+            return
+        self.swapped.append(h.slot)
+        if self.phase == "canary_swap":
+            self._launch_probe()
+
+    # -- the tick --------------------------------------------------------
+    def tick(self, now: float) -> None:
+        if self.phase == "done":
+            return
+        if now >= self.hard_deadline and self.phase != "rollback":
+            self._fail("deploy_deadline")
+            return
+        if self.pending is not None:
+            self._check_pending(now)
+            return
+        if self.phase == "canary_swap":
+            slot = self._next_swap_target()
+            if slot is not None:
+                self._send_swap(slot, now)
+        elif self.phase == "canary_probe":
+            self._check_probe(now)
+        elif self.phase == "canary_soak":
+            if not self._canary_healthy():
+                return                   # _canary_healthy failed us over
+            if now >= self.soak_until:
+                self.phase = "rolling"
+        elif self.phase == "rolling":
+            slot = self._next_swap_target()
+            if slot is None:
+                self._succeed()
+            else:
+                self._send_swap(slot, now)
+        elif self.phase == "rollback":
+            # unwind one slot at a time through the same quiesce path —
+            # the rollback never quiesces more of the fleet than the
+            # deploy itself did. Hard-deadline override: the rollback
+            # itself is bounded by per-slot swap timeouts plus the queue
+            # length, so it always terminates.
+            while self.rollback_queue:
+                slot = self.rollback_queue.pop(0)
+                rep = self.router.fleet.replicas[slot]
+                if rep.state != READY:
+                    # dead/quarantined: its restart loads the template,
+                    # which still names the prior version — already safe
+                    continue
+                self._send_swap(slot, now, rollback=True)
+                return
+            self._finish("rolled_back")
+
+    # -- internals -------------------------------------------------------
+    def _ready_slots(self) -> list:
+        return [r.slot for r in self.router.fleet.replicas
+                if r.state == READY]
+
+    def _next_swap_target(self) -> int | None:
+        """Lowest READY slot still serving another version (determinism:
+        chaos tests replay deploy order). Slots that are dead or
+        quarantined are skipped — when they come back they load the
+        template, which flips to the new version on success."""
+        for r in self.router.fleet.replicas:
+            if r.state != READY or r.slot in self.swapped:
+                continue
+            if int((r.wv or {}).get("id", -1)) == self.wid:
+                continue                 # already there (restart raced us)
+            return r.slot
+        return None
+
+    def _send_swap(self, slot: int, now: float,
+                   rollback: bool = False) -> None:
+        rep = self.router.fleet.replicas[slot]
+        if rollback:
+            msg = {"t": "swap", "wid": self.prev["wid"],
+                   "ckpt": self.prev["ckpt"], "tag": self.prev["tag"]}
+        else:
+            msg = {"t": "swap", "wid": self.wid, "ckpt": self.ckpt,
+                   "tag": self.tag}
+        if not rep.send(msg):
+            if rollback:
+                self.rollback_failures.append((slot, "send_failed"))
+                return                   # next tick pops the next slot
+            self._fail(f"swap_send_failed:slot{slot}", slot=slot)
+            return
+        self.pending = _Pending(slot=slot, epoch=rep.epoch,
+                                deadline=now + self.cfg.swap_timeout_s)
+
+    def _check_pending(self, now: float) -> None:
+        p = self.pending
+        rep = self.router.fleet.replicas[p.slot]
+        if rep.epoch != p.epoch or rep.state != READY:
+            # the incarnation we asked died mid-swap (or its breaker
+            # opened): it restarts from the template = the OLD version.
+            # (_fail would pointlessly-but-harmlessly unwind the dead
+            # slot; clear pending first so it doesn't.)
+            self.pending = None
+            if self.phase == "rollback":
+                # nothing to unwind on a dead slot; keep going
+                return
+            self._fail(f"replica_lost:slot{p.slot}", slot=p.slot)
+            return
+        if now >= p.deadline:
+            if self.phase == "rollback":
+                self.pending = None
+                self.rollback_failures.append((p.slot, "swap_timeout"))
+                return
+            # pending stays set: _fail unwinds the slot — a wedged swap
+            # may still complete to the new version after we give up
+            self._fail(f"swap_timeout:slot{p.slot}", slot=p.slot)
+
+    def _launch_probe(self) -> None:
+        """A real request pinned to the canary: the swap handshake
+        proved the load; this proves the new weights serve a forward
+        end to end before anyone else swaps."""
+        from .router import AdmissionError
+
+        canary = self.swapped[0]
+        self.phase = "canary_probe"
+        self.probe_deadline = time.monotonic() + self.cfg.probe_timeout_s
+        try:
+            self.probe_tid = self.router.submit(
+                list(self.cfg.probe_prompt), tenant="_deploy_probe",
+                max_new_tokens=self.cfg.probe_max_new,
+                priority=1 << 20,        # probes never shed on SLO gates
+                trace_id=f"deploy-v{self.wid}-probe",
+                pin_slot=canary)
+        except (AdmissionError, ValueError) as e:
+            self._fail(f"probe_refused:{e}")
+
+    def _check_probe(self, now: float) -> None:
+        res = self.router.result(self.probe_tid)
+        if res["status"] == "done":
+            ttft = res.get("ttft_s")
+            slo = self.cfg.probe_ttft_slo_s
+            if slo is not None and (ttft is None or ttft > slo):
+                self._fail(f"canary_probe_slo:ttft={ttft}")
+                return
+            self.phase = "canary_soak"
+            self.soak_until = now + self.cfg.canary_soak_s
+        elif res["status"] in ("failed", "shed"):
+            self._fail(f"canary_probe_{res['status']}:{res['reason']}")
+        elif now >= self.probe_deadline:
+            self._fail("canary_probe_timeout")
+
+    def _canary_healthy(self) -> bool:
+        """The soak gate, fed by the fleet health signals: canary
+        liveness/incarnation, fleet breaker opens, straggler degrade
+        verdicts. Returns False after routing to the failure path."""
+        canary = self.swapped[0]
+        rep = self.router.fleet.replicas[canary]
+        if rep.state != READY:
+            self._fail(f"canary_lost:slot{canary}", slot=canary)
+            return False
+        if self.router.fleet.breaker_opens_total > self._breaker_baseline:
+            self._fail("breaker_open_during_deploy")
+            return False
+        strag = getattr(self.router, "_straggler", None)
+        if strag is not None and strag.degraded().get(canary, False):
+            self._fail(f"canary_degraded:slot{canary}", slot=canary)
+            return False
+        return True
+
+    def _fail(self, reason: str, slot: int | None = None) -> None:
+        self.reason = reason
+        logger.error(f"deploy: v{self.wid} failed ({reason})"
+                     + (f" at slot {slot}" if slot is not None else ""))
+        unwind = list(self.swapped)
+        if self.pending is not None:
+            # a handshake still in flight at failure time (the hard
+            # deadline fired) may yet complete to the NEW version after
+            # this point — unwind that slot too. A rollback swap on a
+            # replica that never swapped is idempotent (it re-loads the
+            # version it already serves), so over-including is safe;
+            # leaving it out could strand a mixed-version fleet behind a
+            # "rolled_back" status.
+            if self.pending.slot not in unwind:
+                unwind.append(self.pending.slot)
+            self.pending = None
+        if self.cfg.rollback_on_failure and unwind:
+            self.phase = "rollback"
+            self.rollback_queue = unwind
+        else:
+            self._finish("aborted")
+
+    def _succeed(self) -> None:
+        # commit the template LAST: only a fully-converged fleet changes
+        # what a restarted replica loads
+        self.router.fleet.set_deployed_weights(self.ckpt, self.tag,
+                                               self.wid)
+        self._finish("ok")
+
+    def _finish(self, outcome: str) -> None:
+        self.phase = "done"
+        self.outcome = outcome
+        self.finished_t = time.monotonic()
+        dur = self.finished_t - self.started_t
+        logger.info(f"deploy: v{self.wid} {outcome} in {dur:.2f}s "
+                    f"(swapped {self.swapped}, reason {self.reason})")
+        self.router.note_deploy_finished(self)
+
+    def _observe_swap(self, msg: dict, wall_s: float) -> None:
+        telem = self.router._telem
+        if not telem.enabled:
+            return
+        from ..telemetry import LATENCY_BUCKETS_S
+
+        telem.registry.histogram(
+            "serving_router_swap_duration_s", buckets=LATENCY_BUCKETS_S,
+            help="swap message sent -> swap_ok (quiesce + verify + "
+                 "load + probe sweep, per replica)").observe(wall_s)
+        telem.registry.histogram(
+            "serving_router_swap_quiesce_stall_s",
+            buckets=LATENCY_BUCKETS_S,
+            help="replica-reported quiesce stall: how long in-flight "
+                 "sequences paused at the window boundary for the "
+                 "swap").observe(float(msg.get("quiesce_s", 0.0)))
+
+
+# --------------------------------------------------------------------------
+# Toy checkpoints — the deploy suite's (and bench's) swap targets. Real
+# engine fleets publish via InferenceEngineV2.save_weights; the toy
+# format carries no tensors, but it exercises the REAL contract: meta +
+# state + size/crc32 manifest + atomic 'latest', verified by the same
+# checkpoint.manifest code the engine path uses.
+# --------------------------------------------------------------------------
+
+def write_toy_checkpoint(root: str, tag: str, *, vocab: int = 1024,
+                         block_size: int = 16, steps: int = 0,
+                         note: str = "") -> str:
+    """Write a verified toy weight checkpoint under ``<root>/<tag>`` and
+    advance ``latest``. The ``shape`` block is the same-shape guard the
+    toy backend enforces (a vocab/block_size mismatch is a structured
+    ``shape_mismatch`` swap refusal)."""
+    import json
+
+    path = os.path.join(os.path.abspath(root), tag)
+    os.makedirs(os.path.join(path, "state"), exist_ok=True)
+    with open(os.path.join(path, "state", "weights.json"), "w") as f:
+        json.dump({"vocab": vocab, "block_size": block_size,
+                   "note": note, "steps": steps}, f)
+    with open(os.path.join(path, "meta.json"), "w") as f:
+        json.dump({"tag": tag, "global_steps": steps,
+                   "format": "toy_weights",
+                   "shape": {"vocab": vocab, "block_size": block_size}},
+                  f)
+    write_manifest(path, tag, steps)
+    write_file_atomic(os.path.join(os.path.abspath(root), "latest"), tag)
+    return path
+
+
+def verify_deploy_target(ckpt: str, tag: str | None
+                         ) -> tuple[str, str]:
+    """Router-side pre-flight for ``Router.start_deploy``: resolve the
+    tag, run the manifest crc gate, and return ``(tag, digest)``.
+    Raises :class:`DeployError` — a deploy that would fail on every
+    replica is refused before the fleet hears about it."""
+    rtag, why = resolve_tag(ckpt, tag)
+    if not rtag:
+        raise DeployError(f"deploy target rejected: {why}")
+    path = os.path.join(ckpt, rtag)
+    status, reason = tag_status(path)
+    if status != "verified":
+        raise DeployError(
+            f"deploy target rejected: tag '{rtag}' {status} ({reason})")
+    try:
+        digest = manifest_digest(path)
+    except OSError as e:
+        raise DeployError(f"deploy target rejected: {e}")
+    return rtag, digest

@@ -1,0 +1,309 @@
+"""Disaggregated prefill/decode serving: roles, handoffs, scale hints.
+
+Prefill and decode have opposite roofline profiles (compute-bound vs
+HBM-bound — bench ``device_probe``/``time_split`` shows it on this very
+engine), so production systems split them onto separate pools and ship
+the KV cache across (Splitwise ISCA'24, DistServe OSDI'24). This module
+is the serving-tier half of that split over the KV-page migration
+primitive (``inference/migration.py``):
+
+- **roles**: every replica slot is ``prefill``, ``decode`` or ``mixed``
+  (the default — today's behavior). The router places new prompts on
+  prefill-capable replicas; a prefill-role replica runs the prompt and
+  the first sampled token, then freezes the sequence and emits a
+  **handoff**: bundle metadata + chunked page payload, streamed to the
+  router over the same deadline-bounded line-JSON protocol as tokens.
+- **the router relays**: it buffers the bundle (it already holds every
+  request as a replayable record — the bundle is just more of the same),
+  picks a decode-capable target by residency digest against the bundle's
+  chain hashes (the same cache-aware placement admission uses), and
+  streams the chunks on. The transfer is resumable per-chunk: the
+  importer names gaps after EOF (``mig_need``) and the router resends
+  exactly those from its buffer.
+- **pinned-until-ack**: the source keeps the pages frozen until the
+  importer's ``mig_ack`` comes back through the router. A decode-replica
+  death mid-migration falls back to the fleet's retry-with-replay on a
+  survivor; a source death after the ack costs nothing (the stream
+  already lives on the target). If no decode-capable replica is ready,
+  the router sends ``mig_resume`` and the source simply keeps decoding —
+  role-split degrades to mixed instead of failing requests.
+
+:class:`ScaleAdvisor` closes the loop operationally: per-role
+scale-up/down **hints** (gauges only, no actuator) derived from the
+router's queue-wait estimate and the per-role replica load summaries.
+
+Gang prefill (``router.py`` ``_maybe_gang``) is a second consumer of the
+role split: a single long prompt is sharded page-aligned across several
+*prefill-capable* replicas (``role_of`` decides eligibility, exactly as
+for placement), each member prefills its segment concurrently, and the
+merged KV lands on the final member via the same ``kind="prefix"``
+bundle hops — so one prompt's TTFT scales with the prefill pool instead
+of a single replica's throughput.
+"""
+from __future__ import annotations
+
+from dataclasses import dataclass, field
+
+ROLE_PREFILL, ROLE_DECODE, ROLE_MIXED = "prefill", "decode", "mixed"
+ROLES = (ROLE_PREFILL, ROLE_DECODE, ROLE_MIXED)
+#: roles that may take fresh prompts / that may take migrated-in decodes
+PREFILL_CAPABLE = (ROLE_PREFILL, ROLE_MIXED)
+DECODE_CAPABLE = (ROLE_DECODE, ROLE_MIXED)
+
+
+@dataclass
+class MigrationState:
+    """Router-side bookkeeping for one in-flight transfer. The router
+    buffers the source's chunks verbatim (re-tagged with the target's
+    attempt nonce on relay), which is what makes the target leg
+    resumable — and a target failure cheap to retry. Shared-memory
+    chunks are descriptors (``ref`` instead of ``data``): the buffer is
+    then bytes-light and the payload lives in the source's ring until
+    the importer copies it out (a lapped extent fails its crc and the
+    importer asks for a relay resend; ``relayed`` remembers the fallback
+    engaged, for the ack-time transport label)."""
+    meta: dict
+    src_slot: int
+    src_epoch: int
+    started_t: float
+    #: when the source leg completed and the router began relaying to
+    #: the target (monotonic; 0 = still receiving) — fleet tracing
+    #: splits the handoff stall into recv vs relay phases with it
+    recv_done_t: float = 0.0
+    #: "handoff" (prefill->decode role split) | "rebalance" (router
+    #: pulled a mid-decode victim off a hot replica — aborts RESUME the
+    #: source instead of replaying) | "pull" (placement-time radix pull;
+    #: failure just means the puller recomputes)
+    kind: str = "handoff"
+    #: chunk id -> wire message (as received from the source)
+    chunks: dict[int, dict] = field(default_factory=dict)
+    total: int | None = None
+    #: "recv" (source -> router) | "xfer" (router -> target, awaiting ack)
+    phase: str = "recv"
+    tgt_slot: int = -1
+    resends: int = 0
+    payload_bytes: int = 0
+    #: the source's attempt nonce before the relay bumped it — a
+    #: rebalance abort restores the request to this (slot, nonce) so the
+    #: resumed source stream is not dropped as stale
+    src_attempt: int = 0
+    #: the source ring's segment name (shm transport), passed through to
+    #: the target so it can attach; None = base64 relay chunks
+    shm: str | None = None
+    #: the shm relay fallback engaged at least once (the ack-time
+    #: transport label — a transfer that needed inline bytes was NOT an
+    #: shm transfer)
+    relayed: bool = False
+
+    @property
+    def weight_version(self) -> dict | None:
+        """The producing weight version stamped in the bundle meta at
+        export — the router's relay gates targets on it (a bundle
+        computed under one version must never import into a replica
+        serving another; the skew-safe fallback is resume-on-source /
+        replay, see serving/deploy.py)."""
+        return (self.meta or {}).get("wv")
+
+    def add_chunk(self, msg: dict) -> None:
+        i = int(msg["i"])
+        if i not in self.chunks:
+            self.payload_bytes += int(msg.get("n", 0))
+        self.chunks[i] = msg
+
+    @property
+    def buffered_bytes(self) -> int:
+        """Router-held buffer weight (the GC gauge): inline payload is
+        ~4/3 its raw size on the wire; descriptors are a few dozen bytes."""
+        return sum(len(c.get("data", "")) or 64
+                   for c in self.chunks.values())
+
+    @property
+    def complete(self) -> bool:
+        return self.total is not None and len(self.chunks) >= self.total \
+            and all(i in self.chunks for i in range(self.total))
+
+    def missing(self) -> list[int]:
+        if self.total is None:
+            return []
+        return sorted(set(range(self.total)) - set(self.chunks))
+
+
+def role_of(handle) -> str:
+    """A replica handle's role, defaulting to mixed (pre-role configs)."""
+    return getattr(handle, "role", None) or ROLE_MIXED
+
+
+class ScaleAdvisor:
+    """Per-role autoscale **hints** from signals the router already has:
+    the queue-wait estimator (backlog tokens over the observed commit
+    rate) and per-role replica load summaries. Pure signal — gauges named
+    ``serving_router_scale_hint{role,direction}`` flip to 1 when the
+    condition holds; nothing in-process acts on them.
+
+    - **scale-up (prefill)**: estimated queue wait breaches the TTFT SLO
+      headroom (new prompts queue at prefill-capable replicas), or
+      requests are queued with zero ready prefill-capable slots.
+    - **scale-up (decode)**: decode-capable occupancy (live sequences
+      over capacity) stays above ``busy_util``, or a handoff found no
+      ready decode-capable slot (the router fell back to mig_resume).
+    - **scale-down**: a role's replicas served nothing — no live
+      sequence, nothing queued for them — for ``idle_s`` straight.
+    """
+
+    def __init__(self, slo_ttft_s: float | None = None,
+                 headroom: float = 0.8, busy_util: float = 0.85,
+                 idle_s: float = 10.0, min_interval_s: float = 0.25):
+        self.slo_ttft_s = slo_ttft_s
+        self.headroom = headroom
+        self.busy_util = busy_util
+        self.idle_s = idle_s
+        self.min_interval_s = min_interval_s
+        self._last_update = 0.0
+        self._busy_t: dict[str, float] = {}
+        #: last computed hints: (role, direction) -> 0/1
+        self.hints: dict[tuple[str, str], int] = {}
+        #: when each hint flipped to 1 and stayed there — the elastic
+        #: controller acts only on hints SUSTAINED past its hold (one
+        #: noisy sample must not drain a replica)
+        self.hint_since: dict[tuple[str, str], float] = {}
+        #: set by the router when a handoff had no decode-capable target
+        self.decode_starved = False
+
+    def update(self, now: float, handles, n_queued: int,
+               est_queue_wait_s: float | None,
+               registry=None) -> dict[tuple[str, str], int] | None:
+        """Recompute hints (rate-limited); returns them, or None when
+        skipped. ``handles``: READY replica handles (``.role`` +
+        heartbeat ``.load``)."""
+        if now - self._last_update < self.min_interval_s:
+            return None
+        self._last_update = now
+        by_role: dict[str, list] = {}
+        for h in handles:
+            by_role.setdefault(role_of(h), []).append(h)
+        roles_present = set(by_role)
+        hints: dict[tuple[str, str], int] = {}
+        for role in sorted(roles_present):
+            reps = by_role[role]
+            live = sum((h.load or {}).get("live", 0) for h in reps)
+            cap = sum(max(h.max_live, 1) for h in reps)
+            queued_here = n_queued if role in PREFILL_CAPABLE else 0
+            up = 0
+            if role in PREFILL_CAPABLE:
+                if self.slo_ttft_s is not None \
+                        and est_queue_wait_s is not None \
+                        and est_queue_wait_s > self.slo_ttft_s \
+                        * self.headroom:
+                    up = 1
+            if role in DECODE_CAPABLE:
+                if cap and live / cap > self.busy_util:
+                    up = 1
+                if role == ROLE_DECODE and self.decode_starved:
+                    up = 1
+            busy = live > 0 or queued_here > 0
+            if busy or role not in self._busy_t:
+                self._busy_t[role] = now if busy else \
+                    self._busy_t.get(role, now)
+            down = int(not busy
+                       and now - self._busy_t.get(role, now) > self.idle_s)
+            hints[(role, "up")] = up
+            hints[(role, "down")] = down
+        # a starved role with ZERO ready replicas never shows up in
+        # handles — queued work with no prefill-capable slot, or a
+        # fallback'd handoff with no decode slot, is the loudest up
+        # signal there is
+        if n_queued > 0 and not (roles_present & set(PREFILL_CAPABLE)):
+            hints[(ROLE_PREFILL, "up")] = 1
+        if self.decode_starved and ROLE_DECODE not in roles_present:
+            hints[(ROLE_DECODE, "up")] = 1
+        self.decode_starved = False
+        self.hints = hints
+        for key, v in hints.items():
+            if v:
+                self.hint_since.setdefault(key, now)
+            else:
+                self.hint_since.pop(key, None)
+        for key in [k for k in self.hint_since if k not in hints]:
+            del self.hint_since[key]       # role vanished from the fleet
+        if registry is not None:
+            for (role, direction), v in hints.items():
+                registry.gauge(
+                    "serving_router_scale_hint",
+                    labels={"role": role, "direction": direction},
+                    help="per-role autoscale hint (1 = act): scale-up on "
+                         "queue-wait SLO pressure / decode saturation, "
+                         "scale-down on sustained idle — signals only, "
+                         "no actuator").set(v)
+        return hints
+
+    def sustained(self, role: str, direction: str, now: float,
+                  hold_s: float) -> bool:
+        """True when the (role, direction) hint has been continuously 1
+        for at least ``hold_s`` — the elastic controller's act gate."""
+        t0 = self.hint_since.get((role, direction))
+        return t0 is not None and now - t0 >= hold_s
+
+
+class RebalancePolicy:
+    """Hot-replica rebalancing: WHEN to migrate a mid-decode sequence off
+    a saturated replica, and where. The mechanism is the handoff's migration
+    primitive (the router asks the hot replica to hand a victim off, the
+    normal handoff relay moves it); this class is only the trigger, so
+    every anti-flap control lives in one place:
+
+    - **sustain**: a slot is hot only after its decode-capable occupancy
+      (heartbeat ``live`` over capacity) stays >= ``hot_util`` for
+      ``sustain_s`` straight — a one-tick spike never migrates anything.
+    - **hysteresis band**: the destination must sit at or below
+      ``idle_util`` (well under ``hot_util``), so a migration can never
+      make the target hot enough to migrate straight back.
+    - **rate limit**: at most one victim per ``min_interval_s``
+      fleet-wide; the router additionally rebalances any given request
+      at most once (its ``rebalanced`` flag), so a sequence can never
+      ping-pong.
+
+    ``pick(now, handles)`` returns ``(hot_handle, peer_handle)`` or None;
+    the caller (router) chooses the victim — the YOUNGEST mid-decode
+    sequence, because it has the least KV to ship and the most decode
+    left to amortize the move — and checks digest compatibility."""
+
+    def __init__(self, hot_util: float = 0.85, idle_util: float = 0.5,
+                 sustain_s: float = 2.0, min_interval_s: float = 1.0):
+        self.hot_util = hot_util
+        self.idle_util = idle_util
+        self.sustain_s = sustain_s
+        self.min_interval_s = min_interval_s
+        self._hot_since: dict[int, float] = {}
+        self._last_t = 0.0
+
+    @staticmethod
+    def _util(h) -> float:
+        cap = max(getattr(h, "max_live", 1), 1)
+        return float((h.load or {}).get("live", 0)) / cap
+
+    def pick(self, now: float, handles) -> tuple | None:
+        """``handles``: READY decode-capable replica handles. Updates the
+        sustain clocks every call; returns a (hot, idle-peer) pair only
+        when every anti-flap gate passes."""
+        hot_cand = None
+        for h in handles:
+            if self._util(h) >= self.hot_util:
+                self._hot_since.setdefault(h.slot, now)
+                if now - self._hot_since[h.slot] >= self.sustain_s and (
+                        hot_cand is None
+                        or self._util(h) > self._util(hot_cand)):
+                    hot_cand = h
+            else:
+                self._hot_since.pop(h.slot, None)
+        if hot_cand is None or now - self._last_t < self.min_interval_s:
+            return None
+        peers = [h for h in handles if h.slot != hot_cand.slot
+                 and self._util(h) <= self.idle_util]
+        if not peers:
+            return None
+        peer = min(peers, key=lambda h: (self._util(h), h.slot))
+        self._last_t = now
+        return hot_cand, peer
+
+    def note_slot_died(self, slot: int) -> None:
+        self._hot_since.pop(slot, None)

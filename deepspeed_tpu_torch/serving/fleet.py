@@ -1,0 +1,546 @@
+"""Fleet supervision: N replica subprocesses, kept alive and honest.
+
+Each slot owns one replica incarnation at a time. The supervisor's whole
+job is bounded-time truth about liveness plus a restart policy that can't
+melt the host:
+
+- **liveness**: a replica is alive while its process runs AND any message
+  (heartbeats count) arrived within ``hb_timeout_s``. A silent process is
+  a WEDGED process — it is killed, not waited on. Every pipe operation
+  carries a deadline (bin/check_deadlines.py).
+- **restart with backoff**: a dead slot respawns after
+  ``backoff_base_s * 2^recent_failures`` (capped), so a crash-looper
+  can't busy-spin fork().
+- **circuit breaker**: more than ``breaker_max_restarts`` deaths within
+  ``breaker_window_s`` opens the slot's breaker — QUARANTINED, no
+  respawns — until ``breaker_cooloff_s`` elapses, then ONE half-open
+  probe incarnation; surviving clears the window, dying re-opens. A
+  persistent crash-looper (bad host, torn install) costs the fleet one
+  slot, not an infinite restart storm.
+
+The fleet never decides what requests mean — the router observes slot
+epochs (each incarnation bumps ``epoch``) and replays orphans itself.
+"""
+from __future__ import annotations
+
+import json
+import os
+import subprocess
+import sys
+import time
+from collections import deque
+from dataclasses import dataclass, field
+
+from ..utils.logging import logger
+from .protocol import ChannelClosed, ChannelTimeout, LineChannel
+
+# replica lifecycle states (gauge value = index). RETIRED is terminal
+# until an elastic spawn revives the slot: no respawn, no breaker — the
+# slot was drained on purpose (serving/elastic.py).
+SPAWNING, READY, DRAINING, DEAD, QUARANTINED, RETIRED = (
+    "spawning", "ready", "draining", "dead", "quarantined", "retired")
+STATE_CODES = {SPAWNING: 0, READY: 1, DRAINING: 2, DEAD: 3, QUARANTINED: 4,
+               RETIRED: 5}
+
+
+@dataclass
+class FleetConfig:
+    n_replicas: int = 2
+    replica: dict = field(default_factory=dict)   # backend config template
+    #: per-slot overrides (chaos: {"0": {"faults": {...}}})
+    per_slot: dict = field(default_factory=dict)
+    #: disaggregated serving roles by slot index ("prefill" | "decode" |
+    #: "mixed"); shorter than n_replicas leaves the tail mixed. A
+    #: per-slot/replica-template "role" key overrides this convenience.
+    roles: list | None = None
+    hb_timeout_s: float = 2.0
+    ready_timeout_s: float = 60.0
+    send_timeout_s: float = 2.0
+    #: remote slots (replica/per-slot "address" set): bounded dial time
+    connect_timeout_s: float = 5.0
+    backoff_base_s: float = 0.1
+    backoff_max_s: float = 5.0
+    breaker_window_s: float = 30.0
+    breaker_max_restarts: int = 3
+    breaker_cooloff_s: float = 30.0
+    log_dir: str | None = None
+    snapshot_dir: str | None = None               # replica telemetry files
+    env: dict = field(default_factory=dict)
+
+
+class ReplicaHandle:
+    """One slot: the current incarnation's process + channel + the
+    router-visible signals (state, load, residency digest, epoch)."""
+
+    def __init__(self, slot: int, fcfg: FleetConfig):
+        self.slot = slot
+        self.fcfg = fcfg
+        self.proc: subprocess.Popen | None = None
+        self.chan: LineChannel | None = None
+        self.state = DEAD
+        self.epoch = -1                 # bumps on every spawn
+        self.last_msg_t = 0.0
+        self.load: dict | None = None
+        self.digest: set[int] | None = None
+        #: KV-tier residency (inference/kvtier.py): chain hashes the
+        #: replica's host-RAM/NVMe tier could promote locally — rides
+        #: the heartbeat next to the HBM digest; the router's
+        #: pull-vs-promote-vs-recompute cost model reads it
+        self.tier_digest: set[int] | None = None
+        #: the replica's shared-memory page ring segment name (shm
+        #: transport, serving/shm.py); None = relay-only peer
+        self.shm: str | None = None
+        #: the weight version this incarnation serves
+        #: (``{"id", "digest"}`` from ready/heartbeat; None until ready).
+        #: Router-side MIRROR of the replica's authoritative
+        #: ``weight_version`` — named ``wv`` so the state-invariant lint
+        #: can pin mutation of the real thing to the swap API.
+        self.wv: dict | None = None
+        #: fleet tracing (telemetry/fleettrace.py): the router's latest
+        #: heartbeat-RTT and clock-offset estimates for this incarnation
+        #: (None until a ping round-trips; reset on respawn — the new
+        #: process re-measures)
+        self.rtt_s: float | None = None
+        self.clock_offset_s: float | None = None
+        self.max_live = 0
+        self.block_size = 0
+        cfg = self._config()
+        #: disaggregated serving role (serving/disagg.py); the replica's
+        #: ready message confirms (and, for remote slots whose config
+        #: lives with the daemon, overrides) it
+        self.role = str(cfg.get("role", "mixed"))
+        #: remote transport: an address here means this slot DIALS a
+        #: replica daemon (transport.connect_channel) instead of spawning
+        #: a subprocess; restart policy = reconnect with backoff
+        self.address = cfg.get("address")
+        #: elastic lifecycle (serving/elastic.py): ``retiring`` marks a
+        #: slot whose next death is a PLANNED drain/retire (no breaker,
+        #: no respawn); ``preempt_latched`` is set when the replica's
+        #: ``preempt`` notice arrives, so even an address (dialed) slot —
+        #: whose exit code the router cannot see — classifies correctly
+        self.retiring = False
+        self.preempt_latched = False
+        self.deaths: deque[float] = deque()      # breaker window
+        self.next_spawn_t = 0.0
+        self.breaker_open_until = 0.0
+        self.half_open = False
+        self._log_f = None
+
+    # -- config ----------------------------------------------------------
+    def _config(self) -> dict:
+        cfg = dict(self.fcfg.replica)
+        roles = self.fcfg.roles
+        if roles and self.slot < len(roles):
+            cfg["role"] = roles[self.slot]
+        cfg.update(self.fcfg.per_slot.get(str(self.slot), {}))
+        cfg["replica_id"] = self.slot
+        cfg["epoch"] = self.epoch
+        if self.fcfg.snapshot_dir:
+            cfg["telemetry_snapshot"] = os.path.join(
+                self.fcfg.snapshot_dir, f"replica{self.slot}.json")
+        return cfg
+
+    # -- lifecycle -------------------------------------------------------
+    def spawn(self) -> None:
+        if self.proc is not None or self.chan is not None:
+            self.kill()          # never orphan a previous incarnation
+        self.epoch += 1
+        self.retiring = False
+        self.preempt_latched = False
+        if self.address:
+            # remote slot: dial the daemon. A failed dial leaves the slot
+            # SPAWNING with no channel — the next maintain() tick
+            # observes the death and applies the normal backoff/breaker
+            # policy (a downed remote host costs retries, not a hang).
+            from .transport import connect_channel
+
+            self.state = SPAWNING
+            self.load = self.digest = self.tier_digest = self.shm = None
+            self.wv = None
+            self.rtt_s = self.clock_offset_s = None
+            self.last_msg_t = time.monotonic()
+            try:
+                self.chan = connect_channel(
+                    self.address, timeout=self.fcfg.connect_timeout_s)
+                logger.info(f"fleet: slot {self.slot} connected to "
+                            f"{self.address} (epoch {self.epoch})")
+            except OSError as e:
+                self.chan = None
+                logger.warning(f"fleet: slot {self.slot} dial of "
+                               f"{self.address} failed: {e}")
+            return
+        env = dict(os.environ)
+        # the worker must import THIS package tree regardless of the
+        # router's cwd or install state; its device comes from its config
+        import deepspeed_tpu_torch as _pkg
+        pkg_root = os.path.dirname(os.path.dirname(
+            os.path.abspath(_pkg.__file__)))
+        env["PYTHONPATH"] = pkg_root + (
+            os.pathsep + env["PYTHONPATH"] if env.get("PYTHONPATH") else "")
+        env.update(self.fcfg.env)
+        if self._log_f is not None:
+            self._log_f.close()
+        if self.fcfg.log_dir:
+            os.makedirs(self.fcfg.log_dir, exist_ok=True)
+            self._log_f = open(os.path.join(
+                self.fcfg.log_dir,
+                f"replica{self.slot}.e{self.epoch}.log"), "wb")
+            stderr = self._log_f
+        else:
+            stderr = subprocess.DEVNULL
+        self.proc = subprocess.Popen(
+            [sys.executable, "-m", "deepspeed_tpu_torch.serving.replica",
+             json.dumps(self._config())],
+            stdin=subprocess.PIPE, stdout=subprocess.PIPE, stderr=stderr,
+            env=env)
+        self.chan = LineChannel(self.proc.stdout.fileno(),
+                                self.proc.stdin.fileno(), own_fds=False)
+        self.state = SPAWNING
+        self.load = self.digest = self.tier_digest = self.shm = None
+        self.wv = None
+        self.rtt_s = self.clock_offset_s = None
+        self.last_msg_t = time.monotonic()
+        logger.info(f"fleet: slot {self.slot} spawned epoch {self.epoch} "
+                    f"(pid {self.proc.pid})")
+
+    def alive(self, now: float, hb_timeout: float) -> bool:
+        if not self.address \
+                and (self.proc is None or self.proc.poll() is not None):
+            return False
+        if self.chan is None or self.chan.closed:
+            return False
+        grace = self.fcfg.ready_timeout_s if self.state == SPAWNING \
+            else hb_timeout
+        if now - self.last_msg_t <= grace:
+            return True
+        # Heartbeat-silence race: ``last_msg_t`` advances only when the
+        # ROUTER consumes a message, and maintain() runs BEFORE the
+        # channel drain each poll tick. A router stalled past
+        # ``hb_timeout`` (CPU contention, a long relay burst) must not
+        # reap a healthy replica whose heartbeats sit unread in the pipe
+        # — unread input is proof of life. The drain that follows
+        # refreshes ``last_msg_t`` from the messages themselves.
+        if self.chan.pending():
+            self.last_msg_t = now
+            return True
+        return False
+
+    def kill(self) -> None:
+        """Hard-stop the incarnation (wedged or superseded). Bounded:
+        SIGKILL then a deadline-capped reap."""
+        if self.proc is not None and self.proc.poll() is None:
+            self.proc.kill()
+            try:
+                self.proc.wait(timeout=5.0)
+            except subprocess.TimeoutExpired:   # pragma: no cover — kernel
+                logger.error(f"fleet: slot {self.slot} unreapable")
+        if self.chan is not None:
+            self.chan.close()                   # marks dead; Popen owns fds
+            self.chan = None
+        if self.proc is not None:
+            for f in (self.proc.stdin, self.proc.stdout):
+                if f is not None:
+                    try:
+                        f.close()
+                    except OSError:
+                        pass                    # broken pipe at close
+
+    def send(self, msg: dict) -> bool:
+        """Bounded write; False (and a dead channel) on failure — the
+        caller's next maintain() pass observes the death."""
+        if self.chan is None or self.state not in (READY, DRAINING,
+                                                   SPAWNING):
+            return False
+        try:
+            self.chan.send(msg, timeout=self.fcfg.send_timeout_s)
+            return True
+        except (ChannelClosed, ChannelTimeout) as e:
+            logger.warning(f"fleet: slot {self.slot} send failed: {e}")
+            self.chan.closed = True
+            return False
+
+    def close(self) -> None:
+        self.kill()
+        if self._log_f is not None:
+            self._log_f.close()
+            self._log_f = None
+
+
+class Fleet:
+    """The slot array + restart/breaker policy. ``maintain`` is the one
+    entry point the router calls each poll tick; it returns the slots
+    that DIED this tick (the router replays their orphans)."""
+
+    def __init__(self, cfg: FleetConfig, telemetry=None):
+        self.cfg = cfg
+        self.replicas = [ReplicaHandle(i, cfg)
+                         for i in range(cfg.n_replicas)]
+        self._telem = telemetry
+        self.restarts_total = 0
+        self.breaker_opens_total = 0
+        self.preemptions_total = 0
+
+    # -- queries ---------------------------------------------------------
+    def ready(self) -> list[ReplicaHandle]:
+        return [r for r in self.replicas if r.state == READY]
+
+    def channels(self) -> list[LineChannel]:
+        return [r.chan for r in self.replicas
+                if r.chan is not None and not r.chan.closed]
+
+    def by_channel(self, chan: LineChannel) -> ReplicaHandle | None:
+        for r in self.replicas:
+            if r.chan is chan:
+                return r
+        return None
+
+    # -- lifecycle -------------------------------------------------------
+    def start(self) -> None:
+        """Idempotent: a slot that already has an incarnation (any state
+        but DEAD/QUARANTINED) is left alone — double-start must not
+        orphan live worker processes. RETIRED slots stay retired: only
+        an explicit :meth:`revive` brings them back."""
+        for r in self.replicas:
+            if r.state != RETIRED and (
+                    (r.proc is None and r.chan is None)
+                    or r.state == DEAD):
+                r.spawn()
+
+    def maintain(self, now: float) -> list[ReplicaHandle]:
+        """Reap the dead, open/close breakers, respawn eligible slots.
+        Returns slots that transitioned to DEAD this call."""
+        from ..runtime.resilience import PREEMPTED_EXIT_CODE
+
+        died: list[ReplicaHandle] = []
+        for r in self.replicas:
+            if r.state in (READY, DRAINING, SPAWNING) \
+                    and not r.alive(now, self.cfg.hb_timeout_s):
+                code = r.proc.poll() if r.proc is not None else None
+                preempted = r.preempt_latched \
+                    or code == PREEMPTED_EXIT_CODE
+                if r.address:
+                    cause = "disconnected"
+                elif r.proc is None or code is not None:
+                    cause = "exited"
+                else:
+                    cause = "unresponsive"
+                if r.retiring:
+                    # a PLANNED drain/retire finishing: terminal until an
+                    # elastic spawn revives the slot — no failure budget,
+                    # no backoff, no breaker accounting at all
+                    logger.info(f"fleet: slot {r.slot} epoch {r.epoch} "
+                                f"retired")
+                    r.kill()
+                    r.state = RETIRED
+                    r.retiring = False
+                    r.load = r.digest = r.tier_digest = None
+                    died.append(r)
+                    continue
+                if preempted:
+                    # the replica drained against its preemption deadline
+                    # and exited 83 (or latched via its preempt notice):
+                    # a planned event, not a crash — the death never
+                    # burns the breaker window's failure budget
+                    logger.warning(f"fleet: slot {r.slot} epoch "
+                                   f"{r.epoch} preempted")
+                    r.kill()
+                    r.state = DEAD
+                    r.preempt_latched = False
+                    r.load = r.digest = r.tier_digest = None
+                    r.next_spawn_t = now + self.cfg.backoff_base_s
+                    died.append(r)
+                    self.preemptions_total += 1
+                    if self._telem is not None and self._telem.enabled:
+                        self._telem.registry.counter(
+                            "serving_replica_preemptions_total",
+                            labels={"replica": str(r.slot)},
+                            help="replica incarnations that exited via "
+                                 "the preemption drain path (SIGTERM / "
+                                 "maintenance event; never a breaker "
+                                 "hit)").inc()
+                    continue
+                logger.warning(f"fleet: slot {r.slot} epoch {r.epoch} "
+                               f"died ({cause})")
+                r.kill()
+                r.state = DEAD
+                r.load = r.digest = r.tier_digest = None
+                r.deaths.append(now)
+                died.append(r)
+                # half-open probe died: straight back to quarantine
+                if r.half_open:
+                    r.half_open = False
+                    self._open_breaker(r, now)
+                    continue
+                while r.deaths and now - r.deaths[0] \
+                        > self.cfg.breaker_window_s:
+                    r.deaths.popleft()
+                if len(r.deaths) > self.cfg.breaker_max_restarts:
+                    self._open_breaker(r, now)
+                else:
+                    backoff = min(
+                        self.cfg.backoff_base_s * 2 ** max(
+                            len(r.deaths) - 1, 0),
+                        self.cfg.backoff_max_s)
+                    r.next_spawn_t = now + backoff
+            elif r.state == QUARANTINED and now >= r.breaker_open_until:
+                # half-open: ONE probe incarnation
+                r.half_open = True
+                r.state = DEAD
+                r.next_spawn_t = now
+                logger.info(f"fleet: slot {r.slot} breaker half-open")
+        for r in self.replicas:
+            if r.state == DEAD and now >= r.next_spawn_t:
+                r.spawn()
+                if r.epoch > 0:
+                    self.restarts_total += 1
+                    if self._telem is not None and self._telem.enabled:
+                        self._telem.registry.counter(
+                            "serving_router_replica_restarts_total",
+                            help="replica incarnations respawned after "
+                                 "a death (exponential backoff)").inc()
+        self._export_state()
+        return died
+
+    def _open_breaker(self, r: ReplicaHandle, now: float) -> None:
+        r.state = QUARANTINED
+        r.breaker_open_until = now + self.cfg.breaker_cooloff_s
+        self.breaker_opens_total += 1
+        logger.error(f"fleet: slot {r.slot} circuit breaker OPEN "
+                     f"({len(r.deaths)} deaths in "
+                     f"{self.cfg.breaker_window_s}s window); quarantined "
+                     f"for {self.cfg.breaker_cooloff_s}s")
+        if self._telem is not None and self._telem.enabled:
+            self._telem.registry.counter(
+                "serving_router_breaker_opens_total",
+                help="replica slots quarantined by the crash-loop "
+                     "circuit breaker").inc()
+
+    def on_ready(self, r: ReplicaHandle, msg: dict) -> None:
+        r.state = READY
+        r.max_live = int(msg.get("max_live", 1))
+        r.block_size = int(msg.get("block_size", 0))
+        r.shm = msg.get("shm") or None
+        # r.wv is deliberately NOT set here: the router's _note_wv owns
+        # every wv transition (gauge + sticky invalidation) and would
+        # see an already-updated handle as "no change"
+        # the worker's own view of its role wins (a remote daemon's
+        # config lives with the daemon, not the fleet)
+        r.role = str(msg.get("role", r.role))
+        if r.half_open:
+            # the probe came up: give it a clean slate
+            r.half_open = False
+            r.deaths.clear()
+        logger.info(f"fleet: slot {r.slot} epoch {r.epoch} ready "
+                    f"(max_live={r.max_live})")
+
+    def kill_replica(self, slot: int) -> None:
+        """Chaos/bench hook: SIGKILL the slot's current incarnation (the
+        next maintain() observes the death and runs the normal policy)."""
+        self.replicas[slot].kill()
+
+    # -- elastic actuators (serving/elastic.py) --------------------------
+    def retire(self, slot: int) -> ReplicaHandle:
+        """Mark the slot's NEXT death as a planned retirement: when the
+        drained replica exits, maintain() parks it RETIRED (no breaker,
+        no respawn) instead of running the crash policy. The controller
+        owns the drain sequencing; this just flips the classification."""
+        r = self.replicas[slot]
+        r.retiring = True
+        return r
+
+    def revive(self, slot: int, role: str | None = None) -> ReplicaHandle:
+        """Bring a RETIRED (or DEAD) slot back: optionally re-role it via
+        a per-slot override (the spawn config template reads it), then
+        spawn a fresh incarnation immediately. The ordinary
+        ready/breaker machinery takes over from there — a revived slot
+        that crash-loops is quarantined exactly like any other."""
+        r = self.replicas[slot]
+        if role is not None:
+            self.cfg.per_slot.setdefault(str(slot), {})["role"] = role
+            r.role = str(role)
+        if r.state in (RETIRED, DEAD):
+            r.state = DEAD
+            r.next_spawn_t = 0.0
+            r.spawn()
+            self.restarts_total += 1
+        return r
+
+    def add_slot(self, overrides: dict | None = None) -> ReplicaHandle:
+        """Append a brand-new slot (elastic scale-up past the configured
+        fleet size) without spawning it — the caller revives it, so the
+        spawn is journaled before the process exists."""
+        slot = len(self.replicas)
+        if overrides:
+            self.cfg.per_slot[str(slot)] = dict(overrides)
+        r = ReplicaHandle(slot, self.cfg)
+        r.state = RETIRED                # parked until revive()
+        self.replicas.append(r)
+        return r
+
+    def abandon(self) -> None:
+        """Chaos/bench hook (the router-crash emulation): drop every
+        channel with no shutdown message and no kill. Daemon (address)
+        slots observe the disconnect and keep serving their in-flight
+        work; pipe-spawned children see EOF on stdin and exit on their
+        own. This Fleet is dead afterwards."""
+        for r in self.replicas:
+            if r.chan is not None:
+                r.chan.close()
+                r.chan = None
+            if r.proc is not None:
+                for f in (r.proc.stdin, r.proc.stdout):
+                    if f is not None:
+                        try:
+                            f.close()
+                        except OSError:
+                            pass         # broken pipe at close
+            r.state = DEAD
+
+    def set_deployed_weights(self, ckpt: str | None, tag: str | None,
+                             wid: int) -> None:
+        """Commit a COMPLETED deploy to the spawn template: replicas
+        respawned from here on load this checkpoint at startup. Called
+        only once a rolling deploy fully converged (serving/deploy.py) —
+        during the roll the template still names the prior version, so a
+        replica that dies mid-swap restarts on the OLD weights (the
+        always-safe side of the canary gate). ``ckpt=None`` reverts the
+        template to init weights."""
+        if ckpt is None:
+            self.cfg.replica.pop("ckpt", None)
+            self.cfg.replica.pop("ckpt_tag", None)
+        else:
+            self.cfg.replica["ckpt"] = ckpt
+            self.cfg.replica["ckpt_tag"] = tag
+        self.cfg.replica["wid"] = int(wid)
+
+    def _export_state(self) -> None:
+        if self._telem is None or not self._telem.enabled:
+            return
+        counts = {s: 0 for s in STATE_CODES}
+        for r in self.replicas:
+            counts[r.state] += 1
+            self._telem.registry.gauge(
+                "serving_router_replica_state",
+                labels={"replica": str(r.slot)},
+                help="replica slot state code (0 spawning, 1 ready, "
+                     "2 draining, 3 dead, 4 quarantined, "
+                     "5 retired)").set(
+                STATE_CODES[r.state])
+        for s, n in counts.items():
+            self._telem.registry.gauge(
+                "serving_router_replicas", labels={"state": s},
+                help="replica slots by state").set(n)
+
+    def shutdown(self, deadline_s: float = 5.0) -> None:
+        """Polite shutdown, then the hammer."""
+        for r in self.replicas:
+            r.send({"t": "shutdown"})
+        t0 = time.monotonic()
+        for r in self.replicas:
+            if r.proc is not None and r.proc.poll() is None:
+                try:
+                    r.proc.wait(timeout=max(
+                        0.05, deadline_s - (time.monotonic() - t0)))
+                except subprocess.TimeoutExpired:
+                    pass                 # the close() below SIGKILLs it
+            r.close()

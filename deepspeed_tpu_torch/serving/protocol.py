@@ -1,0 +1,416 @@
+"""Newline-JSON wire protocol between the router and replica workers.
+
+One JSON object per line, over the replica subprocess's stdin/stdout
+pipes. The format is deliberately boring: every message is replayable and
+greppable, a replica's stream can be captured and re-fed for a
+deterministic repro, and the router can resend the SAME request record to
+another replica after a failure and (greedy decoding being deterministic)
+obtain a bit-identical token stream — retry-with-replay is the protocol's
+whole failover story.
+
+Message vocabulary (``t`` is the type tag)::
+
+  router -> replica
+    {"t":"put","id":str,"prompt":[int],"max_new":int,"eos":int|null,
+     "tenant":str}                          admit a request
+    {"t":"flush","id":str}                  abandon/clean up a request
+    {"t":"drain"}                           finish in-flight, refuse puts
+    {"t":"ping","ts":float?}                answer with a heartbeat now;
+                                            "ts" (router monotonic) is
+                                            echoed in that heartbeat —
+                                            the fleet-trace clock-sync
+                                            exchange (RTT midpoint ->
+                                            per-replica clock offset)
+    {"t":"trace_req","id":str}              fleet tracing: ship a live
+                                            (non-final) snapshot of this
+                                            request's timeline segment
+                                            now (breach sampling)
+    {"t":"shutdown"}                        exit after "bye"
+    {"t":"mig_begin","id":str,"a":int,"meta":{...}}  a page bundle is
+                                            about to arrive (decode
+                                            role): claim capacity now
+    {"t":"mig_chunk","id":str,"a":int,"i":int,"p":int,"o":int,"n":int,
+     "crc":int,"data":b64}                  one bundle payload chunk
+                                            (also replica->router on the
+                                            export leg)
+    {"t":"mig_eof","id":str,"a":int,"chunks":int}    transfer complete
+                                            (both legs); the importer
+                                            checks for gaps
+    {"t":"mig_ack","id":str}                importer took over: release
+                                            the pinned export
+    {"t":"mig_abort","id":str}              migration dead: drop the
+                                            pinned export entirely
+    {"t":"mig_resume","id":str}             no decode-capable replica (or
+                                            a rebalance died): unfreeze
+                                            and keep decoding
+    {"t":"mig_request","id":str}            rebalancing: freeze + hand
+                                            this mid-decode sequence off
+    {"t":"mig_relay","id":str,"missing":[int]}  the importer could not
+                                            read the source's shm ring:
+                                            resend those chunks inline
+    {"t":"kv_req","id":str,"a":int,"tok":[int]}  placement-time radix
+                                            pull: export your cached
+                                            chain prefixing these tokens
+    {"t":"kv_relay","id":str,"missing":[int]}    inline resend for a
+                                            pull whose shm leg failed
+    {"t":"kv_bundle","id":str,"a":int,"meta":{...},"chunks":int,
+     "shm":str|null}                        a pulled chain is arriving
+                                            (router -> puller relay; the
+                                            same shape travels peer ->
+                                            router on the export leg)
+    {"t":"kv_chunk",...}/{"t":"kv_eof",...} pull payload (mig_chunk
+                                            shape; "ref" replaces "data"
+                                            on the shm transport)
+    {"t":"kv_fail","id":str}                pull dead: admit the held
+                                            request and recompute
+    {"t":"gang_seg","id":str,"a":int,"seg":int,"k":int,"tok":[int],
+     "own":int,"pull":{...}?}               gang prefill (router->member
+                                            ``seg`` of ``k``): prefill
+                                            the LAST ``own`` tokens of
+                                            ``tok`` as one segment of a
+                                            sharded long-prompt prefill;
+                                            "pull" means the upstream
+                                            KV chain (everything before
+                                            the segment) arrives via the
+                                            kv_bundle machinery under
+                                            the same gang id — publish
+                                            only after adopting it
+    {"t":"gang_abort","id":str}             the gang collapsed (a member
+                                            died/refused/timed out):
+                                            drop the gang job; pages
+                                            already published stay (they
+                                            are ordinary valid cache)
+    {"t":"resync"}                          crash-safe router (journal.py):
+                                            a restarted router asks what
+                                            this replica still holds —
+                                            answered with "resync_ok"
+    {"t":"re_adopt","id":str,"a":int,"have":int}  the restarted router
+                                            re-owns this request under a
+                                            fresh attempt nonce; the
+                                            replica clears its orphan
+                                            deadline and re-attaches the
+                                            stream from offset "have"
+                                            (a buffered terminal reply
+                                            re-sends instead)
+    {"t":"swap","wid":int,"ckpt":str|null,"tag":str|null}
+                                            versioned weight hot-swap
+                                            (serving/deploy.py): quiesce
+                                            at the next window boundary,
+                                            load the checkpoint through
+                                            the verified-manifest path,
+                                            answer swap_ok/swap_fail;
+                                            ckpt null = revert to the
+                                            template ("init") weights
+    {"t":"retire"}                          elastic drain/retire
+                                            (serving/elastic.py): the
+                                            slot is leaving the fleet on
+                                            purpose — flush the radix
+                                            into the KV tier (evict-sink
+                                            path, deepest-first), spill
+                                            the tier warm, send "bye",
+                                            exit 0
+    {"t":"re_role","role":str}              flip this replica's serving
+                                            role at a quiesce boundary
+                                            (prefill<->decode, no process
+                                            restart); answered with
+                                            "re_role_ok"
+    {"t":"prewarm","id":str,"tok":[int],"deadline_s":float}  pre-warm a
+                                            fresh spawn: adopt the chain
+                                            prefixing ``tok`` arriving
+                                            via the kv_bundle machinery
+                                            under this id (no put is
+                                            held; the deadline settles a
+                                            dead transfer silently)
+
+  replica -> router
+    {"t":"ready","pid":int,"block_size":int,"max_live":int,"epoch":int,
+     "role":"prefill"|"decode"|"mixed",
+     "wv":{"id":int,"digest":str}}          "wv" = the weight version
+                                            this replica serves (id is
+                                            the fleet-monotonic deploy
+                                            id, digest the checkpoint
+                                            manifest fingerprint); also
+                                            rides every heartbeat so the
+                                            router's skew gates and
+                                            per-replica version gauges
+                                            track swaps live
+    {"t":"chunk","id":str,"off":int,"toks":[int]}    stream tokens; "off"
+                                            is the stream offset of the
+                                            first token (replay dedup)
+    {"t":"done","id":str,"toks":[int]}      FULL final stream — the
+                                            authoritative result; chunks
+                                            only serve streaming latency
+    {"t":"failed","id":str,"reason":str}    structured per-request failure
+    {"t":"hb","load":{...},"digest":[int]|null}  liveness + backlog +
+                                            prefix-cache residency digest;
+                                            when answering a ping it also
+                                            carries "echo" (the ping's
+                                            ts), "mono" and "wall" (this
+                                            replica's clocks) — the
+                                            router's clock-offset sample
+    {"t":"trace","id":str,"a":int,"pid":int,"fin":bool,
+     "events":[[mono,wall,kind,fields]],"dropped":int}  fleet tracing:
+                                            one bounded, drop-counted
+                                            timeline segment for this
+                                            request (shipped at release/
+                                            handoff, or live on
+                                            trace_req); the router's
+                                            assembler merges it
+                                            clock-aligned
+    {"t":"handoff","id":str,"a":int,"meta":{...},"chunks":int}  this
+                                            sequence crossed the
+                                            prefill->decode boundary;
+                                            bundle chunks follow
+    {"t":"mig_ack","id":str,"a":int}        import committed (decode
+                                            role): the stream continues
+                                            here
+    {"t":"mig_need","id":str,"a":int,"missing":[int],"relay":bool}
+                                            gaps after EOF — resend
+                                            exactly these chunk ids
+                                            (resumable transfer); relay
+                                            additionally asks the SOURCE
+                                            for inline payload (the shm
+                                            ring was unreadable here)
+    {"t":"kv_need","id":str,"a":int,"missing":[int],"relay":bool}
+                                            same, for a pulled chain
+    {"t":"kv_ack","id":str,"a":int,"pages":int,"bytes":int}  pull
+                                            settled: pages adopted (0 =
+                                            recompute fallback engaged)
+    {"t":"kv_none","id":str,"a":int}        chain not cached here (pull
+                                            export miss)
+    {"t":"gang_seg_ok","id":str,"a":int,"seg":int,"pages":int}  this
+                                            gang member finished its
+                                            segment AND adopted the
+                                            upstream chain: it now holds
+                                            ``pages`` root-contiguous
+                                            KV pages of the prompt
+    {"t":"gang_seg_fail","id":str,"a":int,"reason":str}  the member
+                                            refused (capacity, draining,
+                                            version_skew) or its segment
+                                            died — the router collapses
+                                            the gang to single-replica
+                                            prefill on a survivor
+    {"t":"swap_ok","wid":int,"wv":{...},"quiesce_s":float,
+     "swap_s":float}                        weight swap committed: the
+                                            new version serves, with the
+                                            quiesce-stall and load costs
+                                            the deploy histograms record
+    {"t":"swap_fail","wid":int,"reason":str}  swap refused (integrity |
+                                            shape_mismatch | probe_failed
+                                            | no_checkpoint | unsupported)
+                                            — the OLD weights keep
+                                            serving; the deploy aborts or
+                                            rolls back
+    {"t":"resync_ok","reqs":[{"id":str,"committed":int,"done":bool?}],
+     "role":str,"wv":{...},"digest":[int]}  re-adoption inventory: live
+                                            sequences (with streamed-token
+                                            counts) + recently-terminal
+                                            requests whose replies may
+                                            have died with the old
+                                            router, plus role / weight
+                                            version / residency digest so
+                                            the restarted router's
+                                            placement state rebuilds in
+                                            one exchange
+    {"t":"preempt","cause":str}             the host latched a preemption
+                                            notice (SIGTERM / GCE
+                                            maintenance-event): the
+                                            replica is emergency-draining
+                                            against a hard deadline, will
+                                            flush its radix into the KV
+                                            tier and exit 83 — classify
+                                            as preempted (no breaker hit,
+                                            no failure budget)
+    {"t":"re_role_ok","role":str}           role flip committed at the
+                                            quiesce boundary; the next
+                                            heartbeat carries a fresh
+                                            digest for the new role
+    {"t":"bye"}                             clean shutdown ack
+
+Deadlines are LAW here (bin/check_deadlines.py lints this package): every
+read and write below is bounded by ``select`` with an explicit timeout —
+a wedged replica must never be able to hang the router, and a wedged
+router must never hang a replica. Reads that time out return ``None``
+(the caller's poll loop decides what staleness means); writes that time
+out raise :class:`ChannelTimeout` (a full pipe means the peer stopped
+reading — the caller treats it like a death).
+"""
+from __future__ import annotations
+
+import json
+import os
+import select
+import time
+from dataclasses import dataclass, field
+
+
+class ChannelClosed(Exception):
+    """Peer hung up (EOF / EPIPE): the process died or exited."""
+
+
+class ChannelTimeout(Exception):
+    """A bounded write could not complete: the peer stopped reading."""
+
+
+class LineChannel:
+    """Newline-JSON message channel over a (read fd, write fd) pair with
+    a deadline on EVERY operation. Both fds are switched to non-blocking;
+    waits go through ``select`` with explicit timeouts. Unparseable input
+    lines are counted and skipped, never fatal — a stray ``print`` to a
+    replica's stdout must not take its slot down."""
+
+    def __init__(self, rfd: int | None, wfd: int | None,
+                 own_fds: bool = True):
+        self.rfd = rfd
+        self.wfd = wfd
+        #: False when the fds belong to someone else's file objects (a
+        #: Popen's pipes): close() then only marks the channel dead and
+        #: the owner closes the fds, so they are never double-closed
+        self.own_fds = own_fds
+        for fd in (rfd, wfd):
+            if fd is not None:
+                os.set_blocking(fd, False)
+        self._buf = b""
+        self._msgs: list[dict] = []
+        self.bad_lines = 0
+        self.closed = False
+
+    # -- receive ---------------------------------------------------------
+    def _pump(self) -> None:
+        """Drain whatever is readable RIGHT NOW into parsed messages."""
+        while True:
+            try:
+                data = os.read(self.rfd, 65536)
+            except BlockingIOError:
+                return
+            except OSError:
+                self.closed = True
+                return
+            if not data:                      # EOF: peer is gone
+                self.closed = True
+                return
+            self._buf += data
+            while b"\n" in self._buf:
+                line, self._buf = self._buf.split(b"\n", 1)
+                if not line.strip():
+                    continue
+                try:
+                    msg = json.loads(line)
+                    if not isinstance(msg, dict) or "t" not in msg:
+                        raise ValueError("not a tagged message")
+                except (ValueError, UnicodeDecodeError):
+                    self.bad_lines += 1
+                    continue
+                self._msgs.append(msg)
+
+    def recv(self, timeout: float) -> dict | None:
+        """Next message, waiting up to ``timeout`` seconds. ``None`` on
+        timeout; :class:`ChannelClosed` once the peer is gone AND every
+        buffered message has been consumed (death must not eat the
+        messages that raced it)."""
+        if self._msgs:
+            return self._msgs.pop(0)
+        deadline = time.perf_counter() + max(timeout, 0.0)
+        while True:
+            if not self.closed:
+                wait = max(deadline - time.perf_counter(), 0.0)
+                r, _, _ = select.select([self.rfd], [], [], wait)
+                if r:
+                    self._pump()
+            if self._msgs:
+                return self._msgs.pop(0)
+            if self.closed:
+                raise ChannelClosed("peer closed the channel")
+            if time.perf_counter() >= deadline:
+                return None
+
+    def pending(self) -> bool:
+        """True if a recv(0) would return a message without waiting."""
+        if not self._msgs and not self.closed:
+            self._pump()
+        return bool(self._msgs)
+
+    # -- send ------------------------------------------------------------
+    def send(self, msg: dict, timeout: float) -> None:
+        """Write one message, waiting up to ``timeout`` for pipe space.
+        Raises :class:`ChannelTimeout` when the peer stops reading and
+        :class:`ChannelClosed` on EPIPE."""
+        data = json.dumps(msg, separators=(",", ":")).encode() + b"\n"
+        deadline = time.perf_counter() + max(timeout, 0.0)
+        while data:
+            wait = max(deadline - time.perf_counter(), 0.0)
+            _, w, _ = select.select([], [self.wfd], [], wait)
+            if not w:
+                raise ChannelTimeout(
+                    f"send timed out after {timeout}s ({len(data)} bytes "
+                    f"unwritten) — peer stopped reading")
+            try:
+                n = os.write(self.wfd, data)
+            except BlockingIOError:
+                continue
+            except (BrokenPipeError, OSError) as e:
+                self.closed = True
+                raise ChannelClosed(f"peer closed the channel ({e})")
+            data = data[n:]
+
+    def close(self) -> None:
+        if self.own_fds:
+            for fd in (self.rfd, self.wfd):
+                if fd is not None:
+                    try:
+                        os.close(fd)
+                    except OSError:
+                        pass                   # already closed by the peer
+        self.closed = True
+
+
+def poll_channels(channels: list[LineChannel],
+                  timeout: float) -> list[LineChannel]:
+    """One bounded ``select`` across many channels: the router's event
+    loop blocks HERE (and only here) for up to ``timeout`` seconds, then
+    drains every readable channel. Channels holding already-buffered
+    messages short-circuit the wait. Returns the channels with messages
+    pending (closed channels included — the caller must observe the
+    death via their ``recv`` raising)."""
+    ready = [ch for ch in channels if ch.pending() or ch.closed]
+    if ready:
+        return ready
+    fds = {ch.rfd: ch for ch in channels if not ch.closed}
+    if not fds:
+        # nothing alive to wait on: honor the pacing bound anyway so a
+        # caller's poll loop cannot spin hot on an all-dead fleet
+        time.sleep(min(timeout, 0.05))
+        return []
+    r, _, _ = select.select(list(fds), [], [], max(timeout, 0.0))
+    for fd in r:
+        fds[fd]._pump()
+    return [ch for ch in channels if ch.pending() or ch.closed]
+
+
+@dataclass
+class RequestRecord:
+    """One serving request as a replayable record: everything a replica
+    needs to reproduce the stream from scratch lives here, so failover is
+    literally "send the same record to someone else". ``trace_id`` is the
+    dedup key end to end — results commit exactly once per trace ID no
+    matter how many replicas saw the record."""
+    trace_id: str
+    prompt: list[int]
+    max_new_tokens: int = 16
+    eos_token_id: int | None = None
+    tenant: str = "default"
+    priority: int = 0
+    submitted_t: float = field(default=0.0, compare=False)
+
+    def to_wire(self) -> dict:
+        return {"t": "put", "id": self.trace_id, "prompt": self.prompt,
+                "max_new": self.max_new_tokens, "eos": self.eos_token_id,
+                "tenant": self.tenant}
+
+    @classmethod
+    def from_wire(cls, msg: dict) -> "RequestRecord":
+        return cls(trace_id=str(msg["id"]),
+                   prompt=[int(t) for t in msg["prompt"]],
+                   max_new_tokens=int(msg.get("max_new", 16)),
+                   eos_token_id=msg.get("eos"),
+                   tenant=str(msg.get("tenant", "default")))

@@ -1,0 +1,2834 @@
+"""Replica worker: one engine process behind the router, speaking the
+newline-JSON protocol on stdin/stdout.
+
+Two backends share the loop:
+
+- ``toy``: a deterministic pure-host generator (LCG stream seeded from
+  the prompt) over a REAL :class:`~..inference.prefix_cache.PrefixCache`
+  instance — the chaos matrix runs dozens of multi-process
+  fault-injection cases in tier-1 seconds because nothing imports or
+  compiles a model, while placement/digest code paths are the production
+  ones. Determinism is the point: a replayed request on ANY replica
+  reproduces the byte-identical stream, so failover tests assert
+  bit-equality, not similarity.
+- ``engine``: the port's :class:`~..inference.engine_v2.InferenceEngineV2`
+  built from a named model config + seed, on the CUDA device unless the
+  config says ``"device": "cpu"`` (identical weights in every replica by
+  construction — greedy failover replay in fp32 is bit-identical for the
+  same reason it is in the toy). At a clean exit it logs its K1 launches,
+  forwards, capture seconds and peak device memory (``replica report``).
+
+Fault injection (``cfg["faults"]`` ->
+:class:`~..runtime.resilience.FaultInjector`, count-based via
+``countdown``) drills every failover path deterministically:
+crash-on-start / on the k-th put / during prefill, a process-wide hang
+(heartbeats stop -> the router's liveness deadline), a stream-only stall
+(heartbeats continue -> the router's per-request deadline, and the
+un-stalled stale delivery exercises the dedup-by-trace-ID guard), and a
+dropped completion reply. Crashes are HARD (``os._exit``) — a real
+no-unwind death, not an exception the loop could accidentally absorb.
+
+The loop never blocks unboundedly: reads poll with a short timeout so
+stepping and heartbeats interleave with message handling, and writes are
+deadline-bounded (a dead router cannot wedge a replica in a pipe write).
+
+``--listen`` daemons are additionally ROUTER-CRASH-SAFE (the serving
+tier's control-plane survivability, serving/journal.py): one
+:class:`DaemonState` survives every router connection, so in-flight
+decode continues through a router outage — streams buffer per request
+(bounded, with an orphan deadline) and re-attach when a restarted
+router re-adopts them via the ``resync``/``re_adopt`` exchange. An idle
+daemon's re-accept loop backs off exponentially with seeded jitter
+(:class:`AcceptBackoff`) instead of spinning while the router is down.
+"""
+from __future__ import annotations
+
+import os
+import sys
+import time
+
+from ..inference.prefix_cache import PrefixCache, chain_hashes
+from ..runtime.resilience import PREEMPTED_EXIT_CODE, FaultInjector
+from ..utils.logging import logger
+from .protocol import (ChannelClosed, ChannelTimeout, LineChannel,
+                       RequestRecord)
+
+_MASK = (1 << 64) - 1
+
+#: structured per-request failure reasons a replica may report
+#: ("version_skew" = a KV transfer was refused because the pages were
+#: computed under different weights than this replica serves — the
+#: rolling-deploy skew guard; the router falls back to
+#: recompute/resume, never a mixed-version forward)
+FAIL_REASONS = ("capacity", "draining", "duplicate", "internal",
+                "version_skew")
+
+#: structured weight-swap refusal reasons (the ``swap_fail`` reply's
+#: vocabulary; engine_v2.WeightSwapError.reason uses the same words)
+SWAP_FAIL_REASONS = ("integrity", "shape_mismatch", "probe_failed",
+                     "no_checkpoint", "unsupported")
+
+
+def _mix(s: int, t: int) -> int:
+    return (s * 6364136223846793005 + t + 1442695040888963407) & _MASK
+
+
+def _slot_tier_cfg(cfg: dict) -> dict:
+    """Per-replica KV-tier config: the fleet template names ONE
+    ``nvme_dir``, but spill segments are per-pool state — two replicas
+    appending to one directory would interleave segment ids and reap
+    each other's records. Each slot gets a ``r<slot>`` subdirectory; a
+    respawned incarnation (same slot) reopens ITS OWN spill, which is
+    exactly what the crash-mid-demote recovery drill needs."""
+    tier = dict(cfg.get("kv_tier") or {})
+    if tier.get("nvme_dir"):
+        tier["nvme_dir"] = os.path.join(
+            str(tier["nvme_dir"]), f"r{int(cfg.get('replica_id', 0))}")
+    return tier
+
+
+class ToyBackend:
+    """Deterministic token generator + real prefix-cache bookkeeping.
+
+    A prompt prefills at ``prefill_chunk`` tokens per step (minus the
+    prefix-cache hit — cached pages are skipped exactly like the real
+    scheduler skips them), then decodes ``tokens_per_step`` per step,
+    optionally sleeping ``decode_delay_s`` per token to simulate a loaded
+    device for shed/SLO tests."""
+
+    def __init__(self, cfg: dict, inj: FaultInjector | None = None):
+        self.vocab = int(cfg.get("vocab", 1024))
+        self.block_size = int(cfg.get("block_size", 16))
+        self.max_live = int(cfg.get("max_live", 8))
+        self.cache_pages = int(cfg.get("cache_pages", 256))
+        self.prefill_chunk = int(cfg.get("prefill_chunk", 64))
+        self.tokens_per_step = int(cfg.get("tokens_per_step", 4))
+        self.decode_delay_s = float(cfg.get("decode_delay_s", 0.0))
+        #: simulated per-prefill-step device time: what a cache hit (or
+        #: a pulled chain) SKIPS — the kv_pull bench's compute model
+        self.prefill_delay_s = float(cfg.get("prefill_delay_s", 0.0))
+        #: disaggregated serving role (serving/disagg.py): "prefill"
+        #: freezes each sequence after its first sampled token and hands
+        #: it off; "decode"/"mixed" serve to completion (a decode replica
+        #: ALSO accepts fresh puts — the router's fallback when no
+        #: prefill-capable slot is ready)
+        self.role = str(cfg.get("role", "mixed"))
+        #: the real radix trie — digest/match/publish are the production
+        #: code paths (host-only; named ``radix`` because this backend
+        #: OWNS its fake pool — StateManager's refcounted-API lint governs
+        #: the engine's pool, not this simulation)
+        self.radix = PrefixCache(self.block_size)
+        #: serving weight version (monotonic id + checkpoint manifest
+        #: digest; "init" = template weights). Assignment is pinned to
+        #: __init__/swap_weights (bin/check_state_invariants.py).
+        self.weight_version = {"id": 0, "digest": "init"}
+        self._next_block = 1
+        self.seqs: dict[str, dict] = {}
+        self.order: list[str] = []
+        self.prefix_hit_tokens = 0
+        self._handoff: list[str] = []      # crossed the boundary this step
+        self._exports: dict[str, dict] = {}     # rid -> frozen seq (pinned)
+        self._imports: dict[str, object] = {}   # rid -> BundleAssembler
+        self.migrations_out = 0
+        self.migrations_in = 0
+        self.pulled_pages = 0              # radix pages adopted via pulls
+        #: gang prefill (fleet-sharded prompt prefill): gid -> job. A
+        #: member prefills ONE contiguous segment of a long prompt;
+        #: downstream members publish their merged chain only after the
+        #: upstream hop's pages are adopted (adopt_prefix under the
+        #: same "g:"-prefixed id). Jobs never sample — the router's
+        #: pinned put after the merge owns the stream.
+        self._gang_jobs: dict[str, dict] = {}
+        #: KV tiering (inference/kvtier.py): eviction from this
+        #: backend's radix demotes chains into a host-RAM/NVMe tier
+        #: (toy payloads are chain-derived, so the multiprocess suite
+        #: verifies REAL payload integrity through the tier); an
+        #: admission miss whose chain is tier-resident promotes back
+        #: instead of recomputing. None = no tier.
+        self.kv_tier = None
+        self.tier_promotes = 0
+        #: anticipatory-movement counters (serving/push.py PR): tier
+        #: promotes begun ahead of admission on the router's
+        #: promote_hint, and overlap promises confirmed / rolled back
+        #: into recompute
+        self.promote_ahead = 0
+        self.overlap_commits = 0
+        self.overlap_rollbacks = 0
+        if cfg.get("kv_tier"):
+            from ..inference.kvtier import KVTier
+            self.kv_tier = KVTier(_slot_tier_cfg(cfg), inj=inj)
+            self.radix.evict_sink = self._demote_evicted
+
+    def has_work(self) -> bool:
+        return bool(self.seqs) or bool(self._gang_jobs)
+
+    # -- KV tiering (demote on evict / promote on admission miss) --------
+    def _demote_evicted(self, chains) -> None:
+        """Radix eviction sink: serialize each reclaimed chain as a
+        kind="prefix" PageBundle (toy payloads — pure functions of the
+        chain, which is what lets an importer VERIFY them) and absorb it
+        into the tier. Chains whose deepest page is already resident
+        skip (leaf-first cascades demote each page once)."""
+        from ..inference.migration import toy_prefix_bundle
+
+        tier = self.kv_tier
+        for tokens, _blocks in chains:
+            chain = chain_hashes(tokens, self.block_size)
+            if not chain or tier.has(chain[-1]):
+                continue
+            bundle = toy_prefix_bundle(
+                "", tokens, self.block_size,
+                weight_version=dict(self.weight_version))
+            if bundle is not None:
+                tier.absorb(bundle)
+
+    def tier_promote_begin(self, prompt):
+        """Promote-ahead, phase one: plan the admission-path tier
+        extract WITHOUT touching tier state — a pure membership walk
+        (``KVTier.extract_begin``), so a crash between the phases
+        leaves the tier byte-identical. Returns an opaque handle for
+        :meth:`tier_promote_finish`, or None when the tier holds
+        nothing deeper than the radix."""
+        tier = self.kv_tier
+        bs = self.block_size
+        n_full = (len(prompt) - 1) // bs
+        if tier is None or n_full < 1:
+            return None
+        aligned = [int(t) for t in prompt[:n_full * bs]]
+        have = self.radix.cached_depth(aligned)
+        deep = tier.probe(chain_hashes(aligned, bs))
+        if deep <= have:
+            return None
+        return self.kv_tier.extract_begin(aligned[:deep * bs], bs)
+
+    def tier_promote_finish(self, handle, ahead: bool = False) -> int:
+        """Promote-ahead, phase two: the NVMe/RAM reads + crc verify
+        the plan named, then the toy payload oracle and the radix
+        adopt, so the admission match that follows hits the chain. Any
+        failure — torn record, crc, version skew — returns 0 and the
+        prompt recomputes (always safe). ``ahead`` marks a promote the
+        router's ``promote_hint`` started before admission."""
+        from ..inference.migration import MigrationError, toy_verify
+
+        tier = self.kv_tier
+        if tier is None or handle is None:
+            return 0
+        t0 = time.perf_counter()
+        bundle = self.kv_tier.extract_finish(handle)
+        if bundle is None:
+            return 0
+        try:
+            toy_verify(bundle)        # the payload-integrity oracle
+            nodes, _ = self.radix.adopt(
+                bundle.tokens,
+                [self._fresh_block() for _ in range(bundle.n_full)],
+                bundle.n_full * self.block_size)
+        except (MigrationError, RuntimeError):
+            tier._fallback("adopt")
+            return 0
+        self.radix.release(nodes)
+        tier.note_promote_latency(time.perf_counter() - t0,
+                                  pages=bundle.n_full)
+        self.tier_promotes += 1
+        if ahead:
+            self.promote_ahead += 1
+        # deliberately NO cache_pages trim here: the caller (put) is
+        # about to match-and-pin exactly these pages — trimming first
+        # would evict the promote before it serves (and re-demote it).
+        # The ordinary release-path trim reclaims them later.
+        return bundle.n_full
+
+    def _tier_promote(self, prompt) -> int:
+        """Admission-path promote, one-shot composition of the
+        two-phase form: when the tier's chain outruns the radix's,
+        extract it (crc-verified) and adopt it so the match below hits
+        it."""
+        return self.tier_promote_finish(self.tier_promote_begin(prompt))
+
+    def put(self, rec: RequestRecord,
+            promised_tokens: int = 0) -> str | None:
+        """Admit a request. ``promised_tokens`` > 0 engages
+        transfer/compute overlap: that many prompt tokens are promised
+        by an in-flight KV transfer, so prefill starts at the promised
+        boundary (only the suffix computes while pages are on the
+        wire) and decode holds until :meth:`settle_promise` confirms
+        the pages landed — or rolls the provisional skip back into
+        prefill (recompute). The stream is seed-derived from the prompt
+        alone, so it is bit-identical either way."""
+        if rec.trace_id in self.seqs:
+            return "duplicate"
+        if len(self.seqs) >= self.max_live:
+            return "capacity"
+        if self.kv_tier is not None:
+            self._tier_promote(rec.prompt)
+        nodes = self.radix.match(rec.prompt, max_tokens=len(rec.prompt) - 1)
+        self.radix.acquire(nodes)
+        hit = len(nodes) * self.block_size
+        self.prefix_hit_tokens += hit
+        promised = min(int(promised_tokens),
+                       ((len(rec.prompt) - 1) // self.block_size)
+                       * self.block_size)
+        skip = max(promised - hit, 0)
+        seed = 0
+        for t in rec.prompt:
+            seed = _mix(seed, int(t))
+        self.seqs[rec.trace_id] = {
+            "rec": rec, "nodes": nodes, "generated": [],
+            "prefill_left": len(rec.prompt) - hit - skip, "seed": seed,
+            "provisional_skip": skip,
+            "wv": self.weight_version["id"]}
+        self.order.append(rec.trace_id)
+        return None
+
+    def settle_promise(self, rid: str, ok: bool) -> str | None:
+        """The transfer behind an overlap promise settled. ``ok`` =
+        its pages were adopted into the radix: re-match to pin
+        whatever chain is now resident, and convert any uncovered
+        remainder of the promise back into prefill (recompute —
+        always safe, and the seed-derived stream is unchanged).
+        Returns "commit" (promise fully covered), "short" (landed but
+        under-delivered), "recompute" (nothing landed), or None (no
+        promise outstanding — the admit was refused or the sequence
+        is gone)."""
+        seq = self.seqs.get(rid)
+        if seq is None or not seq.get("provisional_skip"):
+            return None
+        skip = int(seq.pop("provisional_skip"))
+        covered = len(seq["nodes"]) * self.block_size
+        boundary = covered + skip
+        if ok:
+            rec = seq["rec"]
+            nodes = self.radix.match(rec.prompt,
+                                     max_tokens=len(rec.prompt) - 1)
+            if len(nodes) > len(seq["nodes"]):
+                self.radix.acquire(nodes)
+                self.radix.release(seq["nodes"])
+                self.prefix_hit_tokens += \
+                    (len(nodes) - len(seq["nodes"])) * self.block_size
+                seq["nodes"] = nodes
+                covered = len(nodes) * self.block_size
+        if covered >= boundary:
+            self.overlap_commits += 1
+            return "commit"
+        seq["prefill_left"] += boundary - covered
+        self.overlap_rollbacks += 1
+        return "short" if ok else "recompute"
+
+    # -- gang prefill (fleet-sharded prompt prefill) ---------------------
+    def gang_put(self, gid: str, tokens: list[int], own: int,
+                 wait_upstream: bool) -> str | None:
+        """Admit one gang segment: prefill the LAST ``own`` tokens of
+        ``tokens`` (the earlier prefix arrives as an upstream KV hop —
+        empty for member 0). Structured refusal reason or None."""
+        if gid in self._gang_jobs or gid in self.seqs:
+            return "duplicate"
+        if len(self.seqs) + len(self._gang_jobs) >= self.max_live:
+            return "capacity"
+        self._gang_jobs[gid] = {
+            "tok": [int(t) for t in tokens],
+            "own_left": max(int(own), 0),
+            "upstream": not wait_upstream,
+            "failed": None,
+            "wv": self.weight_version["id"]}
+        return None
+
+    def gang_upstream(self, gid: str, ok: bool) -> None:
+        """The upstream hop settled: pages adopted (ok) or the hop
+        failed/timed out — without them the segment cannot publish a
+        root-contiguous merged chain."""
+        job = self._gang_jobs.get(gid)
+        if job is None:
+            return
+        if ok:
+            job["upstream"] = True
+        else:
+            job["failed"] = "upstream_lost"
+
+    def gang_abort(self, gid: str) -> None:
+        """Router gave up on the gang: drop the job. Pages already
+        published stay — they are ordinary cache residency."""
+        self._gang_jobs.pop(gid, None)
+
+    def cancel(self, rid: str) -> None:
+        seq = self.seqs.pop(rid, None)
+        if seq is None:
+            return
+        if rid in self.order:
+            self.order.remove(rid)
+        if rid in self._handoff:
+            self._handoff.remove(rid)
+        self._exports.pop(rid, None)
+        self._imports.pop(rid, None)
+        if seq.get("nodes"):
+            self.radix.release(seq["nodes"])
+
+    def _finish(self, rid: str) -> None:
+        """Release path: publish full computed pages into the trie (the
+        blocks are fake ids — the trie only tracks ownership), exactly
+        like StateManager.release, so the residency digest grows the way
+        a real replica's does — including the swap skew guard: a
+        sequence that lived across a weight swap releases WITHOUT
+        publishing (its pages would be stale under the new weights)."""
+        seq = self.seqs.pop(rid)
+        self.order.remove(rid)
+        if seq.get("wv", 0) != self.weight_version["id"]:
+            if seq["nodes"]:
+                self.radix.release(seq["nodes"])
+            return
+        tokens = list(seq["rec"].prompt) + seq["generated"]
+        n_full = len(tokens) // self.block_size
+        blocks = [n.block for n in seq["nodes"]]
+        blocks += [self._fresh_block() for _ in range(n_full - len(blocks))]
+        self.radix.publish(tokens, blocks, len(seq["nodes"]), len(tokens))
+        over = len(self.radix) - self.cache_pages
+        if over > 0:
+            self.radix.evict(over)
+
+    def _fresh_block(self) -> int:
+        self._next_block += 1
+        return self._next_block
+
+    def step(self, inj: FaultInjector) -> list[tuple]:
+        """Advance every live sequence one scheduling quantum. Returns
+        ``(rid, kind, toks, off)`` events; ``done`` events carry the FULL
+        final stream (the protocol's authoritative result)."""
+        events: list[tuple] = []
+        for gid in list(self._gang_jobs):
+            job = self._gang_jobs[gid]
+            if job["failed"]:
+                self._gang_jobs.pop(gid)
+                events.append((gid, "gang_fail", job["failed"], 0))
+                continue
+            if job["own_left"] > 0:
+                if inj.countdown("replica_crash_during_gang_seg"):
+                    inj.crash_now("replica_crash_during_gang_seg",
+                                  f"gang segment {gid}")
+                if self.prefill_delay_s:
+                    time.sleep(self.prefill_delay_s)
+                job["own_left"] -= min(self.prefill_chunk,
+                                       job["own_left"])
+                continue
+            if not job["upstream"]:
+                continue                 # awaiting the upstream hop
+            self._gang_jobs.pop(gid)
+            if job["wv"] != self.weight_version["id"]:
+                # a weight swap raced the gang: this segment's KV is
+                # stale under the new weights — never publish it
+                events.append((gid, "gang_fail", "version_skew", 0))
+                continue
+            tokens = job["tok"]
+            n_full = len(tokens) // self.block_size
+            try:
+                nodes, _ = self.radix.adopt(
+                    tokens,
+                    [self._fresh_block() for _ in range(n_full)],
+                    n_full * self.block_size)
+            except RuntimeError:
+                # a pinned stale-version page blocks the chain
+                events.append((gid, "gang_fail", "publish_failed", 0))
+                continue
+            self.radix.release(nodes)
+            # deliberately NO cache_pages trim: the hop export / pinned
+            # put is about to read exactly these pages — the ordinary
+            # release-path trim reclaims them later
+            events.append((gid, "gang_ok", n_full, 0))
+        for rid in list(self.order):
+            seq = self.seqs[rid]
+            rec = seq["rec"]
+            if seq["prefill_left"] > 0:
+                if inj.countdown("replica_crash_during_prefill"):
+                    inj.crash_now("replica_crash_during_prefill",
+                                  f"prefill of {rid}")
+                if self.prefill_delay_s:
+                    time.sleep(self.prefill_delay_s)
+                seq["prefill_left"] -= min(self.prefill_chunk,
+                                           seq["prefill_left"])
+                continue
+            if seq.get("provisional_skip"):
+                # transfer/compute overlap: the suffix beyond the
+                # promised boundary is computed, but sampling needs the
+                # promised pages (or their recompute) first — hold at
+                # the boundary until the promise settles
+                continue
+            n = min(self.tokens_per_step,
+                    rec.max_new_tokens - len(seq["generated"]))
+            if self.role == "prefill" and not seq.get("resumed"):
+                # prefill role: sample exactly the FIRST token (TTFT is
+                # this replica's product), then freeze the sequence for
+                # handoff — unless that token already finishes it. A
+                # mig_resume'd sequence serves out locally at full rate
+                # (role-split degraded to mixed for it).
+                n = min(n, 1)
+            off = len(seq["generated"])
+            new: list[int] = []
+            for i in range(n):
+                seq["seed"] = _mix(seq["seed"], off + i)
+                tok = (seq["seed"] >> 33) % self.vocab
+                new.append(int(tok))
+                if rec.eos_token_id is not None \
+                        and tok == rec.eos_token_id:
+                    break
+            if self.decode_delay_s:
+                time.sleep(self.decode_delay_s * len(new))
+            seq["generated"].extend(new)
+            done = len(seq["generated"]) >= rec.max_new_tokens or (
+                rec.eos_token_id is not None
+                and rec.eos_token_id in new)
+            if new:
+                events.append((rid, "chunk", new, off))
+            if done:
+                toks = list(seq["generated"])
+                self._finish(rid)
+                events.append((rid, "done", toks, 0))
+            elif self.role == "prefill" and seq["generated"] \
+                    and not seq.get("resumed"):
+                # crossed the prefill->decode boundary: freeze (out of
+                # the step loop, capacity + trie pins held) until the
+                # handoff settles — take_handoffs() exports it
+                self.order.remove(rid)
+                self._handoff.append(rid)
+        return events
+
+    # -- KV-page migration (disaggregated serving) -----------------------
+    def request_handoff(self, rid: str) -> bool:
+        """Rebalancing (router-initiated): freeze a mid-decode sequence
+        for export at the next step boundary. Refused (False) when the
+        sequence is gone, still prefilling, already migrating, or has
+        nothing generated yet — the router's view lags and a stale
+        request must be a no-op."""
+        seq = self.seqs.get(rid)
+        if seq is None or rid not in self.order or rid in self._exports \
+                or seq.get("importing") or seq["prefill_left"] > 0 \
+                or not seq["generated"]:
+            return False
+        self.order.remove(rid)
+        self._handoff.append(rid)
+        return True
+
+    def _bundle_of(self, rid: str):
+        from ..inference.migration import toy_bundle
+
+        seq = self.seqs[rid]
+        rec = seq["rec"]
+        return toy_bundle(rid, list(rec.prompt), list(seq["generated"]),
+                          rec.max_new_tokens, rec.eos_token_id,
+                          rec.tenant, self.block_size,
+                          weight_version=dict(self.weight_version))
+
+    def take_handoffs(self) -> list[tuple]:
+        """Bundle every sequence frozen for transfer this step — prefill
+        sequences that crossed the decode boundary plus router-requested
+        rebalance victims: ``(rid, PageBundle, catchup, off)`` — catchup
+        is always empty for the toy (every generated token was streamed
+        as a chunk already). Pages are synthetic chain-derived payloads
+        (migration.toy_page_payload) the importer VERIFIES, so the chaos
+        suite proves transfer integrity, not just bookkeeping."""
+        out = []
+        for rid in self._handoff:
+            self._exports[rid] = self.seqs[rid]
+            out.append((rid, self._bundle_of(rid), [], 0))
+        self._handoff = []
+        return out
+
+    def export_chunks(self, rid: str, max_bytes: int | None = None):
+        """Re-chunk a pinned export WITH inline payload (the shm-relay
+        fallback: the importer could not read the ring, the source owes
+        the bytes). The frozen sequence regenerates the identical bundle
+        — toy payloads are pure functions of the chain."""
+        from ..inference.migration import CHUNK_BYTES, iter_chunks
+
+        if rid not in self._exports:
+            return None
+        return iter_chunks(self._bundle_of(rid),
+                           max_bytes or CHUNK_BYTES)
+
+    # -- placement-time radix pulls (distributed prefix cache) -----------
+    def kv_export(self, tokens: list[int]):
+        """Export the longest locally-cached chain prefixing ``tokens``
+        as a kind="prefix" bundle (or None on a miss). No pin outlives
+        this call: payloads are chain-derived, the importer adopts a
+        copy. With a KV tier attached, a tier-resident chain DEEPER
+        than the radix's serves the export instead — one replica's
+        host-RAM/NVMe tier can warm another replica's HBM (the digest
+        union best_digest_peer matches on)."""
+        from ..inference.migration import toy_prefix_bundle
+
+        nodes = self.radix.match(tokens)
+        tier = self.kv_tier
+        if tier is not None:
+            bs = self.block_size
+            aligned = [int(t) for t in
+                       tokens[:(len(tokens) // bs) * bs]]
+            if aligned and tier.probe(chain_hashes(aligned, bs)) \
+                    > len(nodes):
+                bundle = tier.extract(aligned, bs)
+                if bundle is not None and bundle.n_full > len(nodes):
+                    return bundle
+        if not nodes:
+            return None
+        return toy_prefix_bundle(
+            "", tokens[:len(nodes) * self.block_size], self.block_size,
+            weight_version=dict(self.weight_version))
+
+    def adopt_prefix(self, bundle) -> int:
+        """Seed the local radix from a pulled chain (verifying payload
+        integrity first); the pulling request's admit then hits these
+        pages through the normal match path. Returns pages adopted, 0 on
+        a corrupt OR version-skewed bundle (caller recomputes — a chain
+        computed under other weights must never seed this trie)."""
+        from ..inference.migration import (MigrationError, toy_verify,
+                                           version_skew)
+
+        if version_skew(bundle.weight_version, self.weight_version):
+            return 0
+        try:
+            toy_verify(bundle)
+            nodes, _ = self.radix.adopt(
+                bundle.tokens,
+                [self._fresh_block() for _ in range(bundle.n_full)],
+                bundle.n_full * self.block_size)
+        except (MigrationError, RuntimeError):
+            # corrupt bundle, or a pinned stale-version page blocks the
+            # chain (a swap raced the pull): recompute
+            return 0
+        self.radix.release(nodes)
+        self.pulled_pages += bundle.n_full
+        over = len(self.radix) - self.cache_pages
+        if over > 0:
+            self.radix.evict(over)
+        return bundle.n_full
+
+    def export_commit(self, rid: str) -> None:
+        """Importer acked: publish the computed pages into the local trie
+        (the source keeps serving this prefix from cache) and drop the
+        sequence."""
+        seq = self._exports.pop(rid, None)
+        if seq is None:
+            return
+        self.seqs.pop(rid, None)
+        if seq.get("wv", 0) != self.weight_version["id"]:
+            if seq["nodes"]:            # lived across a swap: no publish
+                self.radix.release(seq["nodes"])
+            self.migrations_out += 1
+            return
+        tokens = list(seq["rec"].prompt) + seq["generated"]
+        n_computed = len(tokens) - 1
+        n_full = n_computed // self.block_size
+        blocks = [n.block for n in seq["nodes"]]
+        blocks += [self._fresh_block()
+                   for _ in range(max(n_full - len(blocks), 0))]
+        self.radix.publish(tokens, blocks[:n_full], len(seq["nodes"]),
+                           n_full * self.block_size)
+        self.migrations_out += 1
+        over = len(self.radix) - self.cache_pages
+        if over > 0:
+            self.radix.evict(over)
+
+    def export_abort(self, rid: str, resume: bool) -> None:
+        """Transfer failed. ``resume`` = keep serving it here (role-split
+        degrades to mixed); otherwise drop it entirely (the router
+        replays elsewhere)."""
+        if resume and rid in self._exports:
+            seq = self._exports.pop(rid)
+            seq["resumed"] = True       # finish locally, no re-handoff
+            self.order.append(rid)
+        else:
+            self.cancel(rid)
+
+    def import_begin(self, rid: str, meta: dict) -> str | None:
+        """Reserve capacity for an arriving bundle; structured refusal
+        reason or None."""
+        from ..inference.migration import BundleAssembler, version_skew
+
+        if rid in self.seqs:
+            return "duplicate"
+        if version_skew(meta.get("wv"), self.weight_version):
+            return "version_skew"
+        if len(self.seqs) >= self.max_live:
+            return "capacity"
+        self._imports[rid] = BundleAssembler(meta)
+        # capacity placeholder: holds the slot while chunks stream
+        self.seqs[rid] = {"rec": None, "importing": True, "nodes": [],
+                          "generated": [], "prefill_left": 0, "seed": 0}
+        return None
+
+    def import_chunk(self, rid: str, msg: dict,
+                     raw: bytes | None = None) -> str | None:
+        from ..inference.migration import MigrationError
+
+        asm = self._imports.get(rid)
+        if asm is None:
+            return "import_failed"
+        try:
+            if raw is not None:
+                asm.add_raw(msg, raw)    # shm payload, crc still gates
+            else:
+                asm.add(msg)
+        except MigrationError:
+            return "import_failed"
+        return None
+
+    def import_eof(self, rid: str, total: int):
+        """``("need", missing ids)`` | ``("ok", None)`` | ``("fail",
+        reason)``. On ok the sequence is live and decode-ready: the toy
+        re-derives its LCG state from the token chain, and the imported
+        full pages seed the local radix (the distributed-cache leg — the
+        digest grows before this replica ever finished a request)."""
+        from ..inference.migration import MigrationError, toy_verify
+
+        asm = self._imports.get(rid)
+        if asm is None:
+            if rid in self.seqs and not self.seqs[rid].get("importing"):
+                return ("ok", None)    # duplicate EOF after commit: re-ack
+            return ("fail", "import_failed")
+        asm.eof(total)
+        missing = asm.missing()
+        if missing:
+            return ("need", missing)
+        try:
+            bundle = asm.assemble()
+            toy_verify(bundle)      # payload integrity oracle
+            n_aligned = bundle.n_full * self.block_size
+            nodes, _ = self.radix.adopt(
+                bundle.tokens,
+                [self._fresh_block() for _ in range(bundle.n_full)],
+                n_aligned)
+        except (MigrationError, RuntimeError):
+            # torn payload, or a pinned stale-version page blocks the
+            # chain (a swap raced the transfer): the router replays
+            self.import_abort(rid)
+            return ("fail", "import_failed")
+        del self._imports[rid]
+        prompt = bundle.tokens[:bundle.prompt_len]
+        generated = bundle.tokens[bundle.prompt_len:]
+        seed = 0
+        for t in prompt:
+            seed = _mix(seed, int(t))
+        for i in range(len(generated)):
+            seed = _mix(seed, i)
+        self.seqs[rid] = {
+            "rec": RequestRecord(
+                trace_id=rid, prompt=[int(t) for t in prompt],
+                max_new_tokens=bundle.max_new_tokens,
+                eos_token_id=bundle.eos_id, tenant=bundle.tenant),
+            "nodes": nodes, "generated": [int(t) for t in generated],
+            "prefill_left": 0, "seed": seed,
+            "wv": self.weight_version["id"]}
+        self.order.append(rid)
+        self.migrations_in += 1
+        return ("ok", None)
+
+    def import_abort(self, rid: str) -> None:
+        if rid in self._imports:
+            del self._imports[rid]
+            self.seqs.pop(rid, None)
+
+    def drain_done(self) -> bool:
+        return not self.seqs
+
+    # -- fleet re-adoption (crash-safe router, serving/journal.py) -------
+    def live_requests(self) -> dict[str, int]:
+        """rid -> generated-token count for every ADOPTABLE sequence a
+        restarted router could re-attach to. Imports in flight are
+        excluded: their payload buffer died with the router that was
+        relaying it, so they can only abort."""
+        return {rid: len(seq["generated"])
+                for rid, seq in self.seqs.items()
+                if not seq.get("importing")}
+
+    def resync_resume(self, rid: str) -> None:
+        """A restarted router re-adopted this request: any pinned export
+        resumes local decode (the old router's relay buffer is gone) and
+        a pending boundary handoff un-freezes — role-split degrades to
+        mixed for the outage's sequences instead of stranding them."""
+        if rid in self._exports:
+            self.export_abort(rid, resume=True)
+        elif rid in self._handoff:
+            self._handoff.remove(rid)
+            seq = self.seqs.get(rid)
+            if seq is not None:
+                seq["resumed"] = True
+                self.order.append(rid)
+
+    def load(self) -> dict:
+        # frozen sequences (handoff pending / export pinned / import
+        # arriving) hold capacity but schedule nothing — mirror the
+        # engine's load_summary shape
+        active = [self.seqs[r] for r in self.order]
+        pend = sum(s["prefill_left"] + s.get("provisional_skip", 0)
+                   + (s["rec"].max_new_tokens - len(s["generated"]))
+                   for s in active)
+        return {"live": len(self.seqs), "queued": len(active),
+                "pending_tokens": pend,
+                "migrating": len(self.seqs) - len(active),
+                "pending_prefill": any(s["prefill_left"] > 0
+                                       for s in active),
+                "pending_decode": any(s["prefill_left"] == 0
+                                      for s in active),
+                "max_seqs": self.max_live}
+
+    def digest(self, max_entries: int = 4096) -> list[int]:
+        return self.radix.residency_digest(max_entries)
+
+    def digest_version(self) -> int:
+        return self.radix.version
+
+    def tier_digest(self, max_entries: int = 4096) -> list[int]:
+        return [] if self.kv_tier is None \
+            else self.kv_tier.residency_digest(max_entries)
+
+    def tier_version(self) -> int:
+        return 0 if self.kv_tier is None else self.kv_tier.version
+
+    # -- versioned weight hot-swap (serving/deploy.py) -------------------
+    def swap_weights(self, ckpt: str | None, tag: str | None,
+                     wid: int) -> tuple[str | None, dict | None]:
+        """Load a "weights" checkpoint through the verified-manifest path
+        and adopt its version, or refuse with a structured reason. The
+        toy has no real parameters — its stream is a pure function of
+        the prompt, which is what lets the multiprocess deploy suite
+        assert bit-identical streams across a rolling swap — but it runs
+        the REAL verification: manifest crc gate, shape guard, digest
+        stamp. ``ckpt=None`` reverts to the template ("init") weights —
+        the rollback target when the fleet never deployed a checkpoint.
+        Returns ``(None, info)`` on success, ``(reason, None)`` on
+        refusal; the old version keeps serving on ANY refusal."""
+        t0 = time.perf_counter()
+        if ckpt is None:
+            self.weight_version = {"id": int(wid), "digest": "init"}
+            self._flush_radix(int(wid))
+            return None, {"wv": dict(self.weight_version),
+                          "quiesce_s": 0.0,
+                          "swap_s": time.perf_counter() - t0}
+        import json
+
+        from ..checkpoint.manifest import (manifest_digest, resolve_tag,
+                                           tag_status)
+
+        if tag is not None:
+            # an explicitly named tag NEVER silently falls back: missing
+            # is a structured no_checkpoint, anything torn/tampered is
+            # the crc gate's integrity refusal
+            status, reason = tag_status(os.path.join(ckpt, tag))
+            if status == "missing":
+                return "no_checkpoint", None
+            if status != "verified":
+                return "integrity", None
+            rtag = tag
+        else:
+            rtag, why = resolve_tag(ckpt, None)
+            if not rtag:
+                return "no_checkpoint", None
+        path = os.path.join(ckpt, rtag)
+        try:
+            with open(os.path.join(path, "meta.json")) as f:
+                meta = json.load(f)
+        except (OSError, ValueError):
+            return "integrity", None
+        shape = meta.get("shape") or {}
+        if int(shape.get("vocab", self.vocab)) != self.vocab \
+                or int(shape.get("block_size",
+                                 self.block_size)) != self.block_size:
+            # the same-shape contract: a different-geometry checkpoint
+            # is refused BEFORE anything changes (KV would be invalid)
+            return "shape_mismatch", None
+        self.weight_version = {"id": int(wid),
+                               "digest": manifest_digest(path)}
+        self._flush_radix(int(wid))
+        return None, {"wv": dict(self.weight_version), "quiesce_s": 0.0,
+                      "swap_s": time.perf_counter() - t0}
+
+    def _flush_radix(self, wid: int) -> None:
+        """Swap commit, trie half (mirrors
+        ``StateManager.flush_prefix_cache``): evict every unreferenced
+        cached page — a new request must not prefill from pages the old
+        weights computed — and stamp the new version so the digest
+        re-ships. Live sequences keep their pins and release without
+        publishing (the ``wv`` guard in :meth:`_finish`). The KV tier
+        invalidates its own stale records (never demote them — the
+        version-skew gate would refuse every promote anyway)."""
+        self.radix.evict(len(self.radix), demote=False)
+        self.radix.set_weight_version(wid)
+        if self.kv_tier is not None:
+            self.kv_tier.set_weight_version(dict(self.weight_version))
+
+    def degrade(self, delay_s: float) -> None:
+        """Chaos hook (``swap_canary_degrade``): the canary came up
+        'working' but slow — every decoded token now pays ``delay_s``,
+        so the deploy's health gate (probe TTFT / straggler signals)
+        must catch what the swap handshake alone cannot."""
+        self.decode_delay_s = float(delay_s)
+
+
+class EngineBackend:
+    """The port's :class:`~..inference.engine_v2.InferenceEngineV2` over a
+    named model, on the card unless the config says ``"device": "cpu"``.
+
+    Weights are deterministic in the (model, overrides, seed, dtype)
+    quadruple within the port (``models.build_model``'s seeded init), so N
+    replicas built from the same spec hold IDENTICAL parameters — greedy
+    replay on a survivor reproduces the stream the dead replica was
+    producing (bit for bit in fp32; in bf16 a stream batched differently
+    may part at a near-tie). The port's seeded weights are not the JAX
+    package's: streams are compared across the packages by the engine
+    parity tests, not through the fleet. ``"dtype"`` (a torch dtype name,
+    e.g. ``"float32"``) sets both the model's and the engine's dtype; the
+    weight swap reads the port's own tags (``engine_v2.save_weights``)."""
+
+    def __init__(self, cfg: dict, inj: FaultInjector | None = None):
+        import torch
+
+        from ..models import build_model
+        from ..inference.engine_v2 import InferenceEngineV2
+
+        t0 = time.perf_counter()
+        threads = os.environ.get("OMP_NUM_THREADS")
+        if threads:
+            # a CPU replica beside other workers: torch's intra-op pool
+            # would otherwise take every core of the host
+            torch.set_num_threads(int(threads))
+        overrides = dict(cfg.get("overrides") or {})
+        ecfg = dict(cfg.get("engine") or {})
+        if cfg.get("dtype"):
+            dtype = getattr(torch, str(cfg["dtype"]), None)
+            if not isinstance(dtype, torch.dtype):
+                raise ValueError(f"replica dtype {cfg['dtype']!r} is not a "
+                                 f"torch dtype name")
+            overrides["dtype"] = dtype
+            ecfg["dtype"] = dtype
+        device = cfg.get("device")
+        model = build_model(cfg.get("model", "tiny-gpt2"), device=device,
+                            seed=int(cfg.get("seed", 0)), **overrides)
+        ecfg.setdefault("block_size", 16)
+        ecfg.setdefault("num_blocks", 128)
+        ecfg.setdefault("max_seqs", 4)
+        ecfg.setdefault("max_seq_len", 512)
+        if device is not None:
+            ecfg.setdefault("device", device)
+        tier_cfg = _slot_tier_cfg(cfg) if cfg.get("kv_tier") else None
+        if tier_cfg:
+            # KV tiering rides the engine's own config surface (the
+            # tier lives under the engine's prefix cache)
+            ecfg.setdefault("kv_tier", True)
+            ecfg.setdefault("prefix_cache", True)
+            for src, dst in (("ram_bytes", "kv_tier_ram_bytes"),
+                             ("nvme_dir", "kv_tier_nvme_dir"),
+                             ("nvme_bytes", "kv_tier_nvme_bytes"),
+                             ("min_pages", "kv_tier_min_pages")):
+                if src in tier_cfg:
+                    ecfg.setdefault(dst, tier_cfg[src])
+        if str(cfg.get("role", "mixed")) == "prefill":
+            # a prefill-role replica hands each sequence off right after
+            # its first sampled token: a multi-token decode window would
+            # only generate tokens the decode pool exists to own
+            ecfg.setdefault("decode_window", 1)
+        self.eng = InferenceEngineV2(model, config=ecfg)
+        del model                    # the engine serves the same tensors
+        self.build_s = time.perf_counter() - t0
+        self.block_size = self.eng.config.block_size
+        self.max_live = self.eng.config.max_seqs
+        self.role = str(cfg.get("role", "mixed"))
+        self._uids: dict[str, int] = {}
+        self._next_uid = 1
+        self._sent: dict[str, int] = {}          # rid -> tokens streamed
+        self._tenants: dict[str, str] = {}       # rid -> tenant label
+        self._exports: dict[str, int] = {}       # rid -> frozen uid
+        self._export_bundles: dict[str, object] = {}  # rid -> PageBundle
+        self._imports: dict[str, object] = {}    # rid -> BundleAssembler
+        self._resumed: set[str] = set()          # mig_resume'd: serve local
+        self._handoff_req: set[str] = set()      # rebalance victims
+        self._degrade_s = 0.0                    # swap_canary_degrade chaos
+        self.migrations_out = 0
+        self.migrations_in = 0
+        self.pulled_pages = 0
+        if self.kv_tier is not None and inj is not None:
+            # the tier's fault points (tier_torn_spill /
+            # tier_crash_mid_demote) arm from the replica's per-slot
+            # injector, like every other chaos point
+            self.kv_tier.inj = inj
+
+    @property
+    def kv_tier(self):
+        return self.eng._kv_tier
+
+    @property
+    def tier_promotes(self) -> int:
+        return int(self.eng.stats.get("kv_tier_promotes", 0))
+
+    @property
+    def weight_version(self) -> dict:
+        return self.eng.weight_version()
+
+    def has_work(self) -> bool:
+        return bool(self._uids) or bool(self.eng._inflight)
+
+    def put(self, rec: RequestRecord,
+            promised_tokens: int = 0) -> str | None:
+        # ``promised_tokens`` (transfer/compute overlap) is accepted
+        # for loop parity with the toy backend but not acted on: the
+        # engine admits at the COMPUTED boundary, so a promise here
+        # degrades to the reactive shape (full prefill — always
+        # correct, just no overlap win) until the ragged scheduler
+        # grows a provisional-start form
+        if rec.trace_id in self._uids:
+            return "duplicate"
+        if not self.eng.can_schedule(len(rec.prompt), rec.max_new_tokens):
+            return "capacity"
+        uid = self._next_uid
+        self._next_uid += 1
+        try:
+            # the router's trace ID is the canonical one fleet-wide: the
+            # engine's reqtrace timeline adopts it instead of minting its
+            # own, so one ID names the request in every process
+            self.eng.put(uid, rec.prompt, rec.max_new_tokens,
+                         eos_token_id=rec.eos_token_id, tenant=rec.tenant,
+                         trace_id=rec.trace_id)
+        except (RuntimeError, ValueError) as e:
+            logger.warning(f"replica: admit of {rec.trace_id} failed: {e}")
+            return "capacity"
+        self._uids[rec.trace_id] = uid
+        self._sent[rec.trace_id] = 0
+        self._tenants[rec.trace_id] = rec.tenant
+        return None
+
+    def tier_promote_begin(self, prompt):
+        """Promote-ahead plan (engine_v2's two-phase tier extract):
+        mutation-free, so it can run at put receipt — the reads happen
+        in :meth:`tier_promote_finish` before/concurrently with
+        admission."""
+        return self.eng.tier_promote_begin([int(t) for t in prompt])
+
+    def tier_promote_finish(self, handle, ahead: bool = False) -> int:
+        return self.eng.tier_promote_finish(handle)
+
+    def settle_promise(self, rid: str, ok: bool) -> str | None:
+        # the engine backend never admits with a promise (see put), so
+        # there is nothing to confirm or roll back
+        return None
+
+    def cancel(self, rid: str) -> None:
+        uid = self._uids.pop(rid, None)
+        self._exports.pop(rid, None)
+        self._export_bundles.pop(rid, None)
+        self._imports.pop(rid, None)
+        self._tenants.pop(rid, None)
+        self._resumed.discard(rid)
+        self._handoff_req.discard(rid)
+        if uid is not None:
+            # engine flush settles any pinned migration state itself
+            # (export_abort / abort_import) before releasing
+            self.eng.flush(uid)
+            self._sent.pop(rid, None)
+
+    def _in_prefill(self) -> bool:
+        return any(not s.done and s.pending_tokens > 1
+                   for s in self.eng.state.seqs.values())
+
+    def step(self, inj: FaultInjector) -> list[tuple]:
+        if not self.has_work():
+            return []
+        if self._in_prefill() \
+                and inj.countdown("replica_crash_during_prefill"):
+            inj.crash_now("replica_crash_during_prefill", "engine prefill")
+        if self._degrade_s:
+            time.sleep(self._degrade_s)
+        emitted = self.eng.step()
+        events: list[tuple] = []
+        by_uid = {uid: rid for rid, uid in self._uids.items()}
+        for uid, toks in emitted.items():
+            rid = by_uid.get(uid)
+            if rid is None or not toks:
+                continue
+            events.append((rid, "chunk", [int(t) for t in toks],
+                           self._sent[rid]))
+            self._sent[rid] += len(toks)
+        for rid, uid in list(self._uids.items()):
+            seq = self.eng.state.seqs.get(uid)
+            if seq is not None and seq.done and not seq.frozen \
+                    and not self.eng._uid_inflight(uid):
+                toks = [int(t) for t in self.eng.flush(uid)]
+                del self._uids[rid]
+                self._sent.pop(rid, None)
+                self._tenants.pop(rid, None)
+                self._resumed.discard(rid)
+                events.append((rid, "done", toks, 0))
+        return events
+
+    # -- KV-page migration (disaggregated serving) -----------------------
+    def request_handoff(self, rid: str) -> bool:
+        """Rebalancing: flag a mid-decode sequence for export at the
+        next exportable step boundary (the pipeline may need a step or
+        two to drain). Stale requests no-op."""
+        uid = self._uids.get(rid)
+        if uid is None or rid in self._exports or rid in self._imports:
+            return False
+        seq = self.eng.state.seqs.get(uid)
+        if seq is None or seq.done or seq.frozen or seq.n_generated < 1:
+            return False
+        self._handoff_req.add(rid)
+        return True
+
+    def take_handoffs(self) -> list[tuple]:
+        """Freeze + bundle every exportable sequence: past the
+        prefill->decode boundary (first committed token) for a
+        prefill-role replica, router-requested rebalance victims on any
+        role. The export drains the async pipeline for that uid, so the
+        bundle may carry a couple more committed tokens than were
+        streamed — the catchup chunk closes that gap so the router's
+        committed prefix stays continuous."""
+        out = []
+        for rid, uid in list(self._uids.items()):
+            if self.role != "prefill" and rid not in self._handoff_req:
+                continue
+            if rid in self._exports or rid in self._resumed:
+                continue
+            seq = self.eng.state.seqs.get(uid)
+            if seq is None or seq.done or seq.frozen \
+                    or seq.n_generated < 1 or seq.pending_tokens != 1:
+                if seq is None or seq.done:
+                    self._handoff_req.discard(rid)
+                continue
+            try:
+                bundle = self.eng.export_migration(
+                    uid, trace_id=rid,
+                    tenant=self._tenants.get(rid, "default"))
+            except RuntimeError as e:
+                logger.warning(f"replica: export of {rid} refused: {e}")
+                # a refused rebalance victim is refused for good (ring
+                # pools, provisional trees): drop the request, don't
+                # retry-and-log every event-loop step — the router's ask
+                # TTL re-marks the victim so it is never picked again
+                self._handoff_req.discard(rid)
+                continue
+            if self.eng.state.seqs[uid].done:
+                # the drain finished it — no handoff, the done-scan in
+                # the next step() surfaces it (abort unfreezes nothing
+                # here because migrate_out refuses done sequences)
+                self._handoff_req.discard(rid)
+                continue
+            self._exports[rid] = uid
+            self._export_bundles[rid] = bundle
+            self._handoff_req.discard(rid)
+            sent = self._sent.get(rid, 0)
+            catchup = [int(t)
+                       for t in bundle.tokens[len(bundle.tokens)
+                                              - bundle.n_generated
+                                              + sent:]]
+            self._sent[rid] = bundle.n_generated
+            out.append((rid, bundle, catchup, sent))
+        return out
+
+    def export_chunks(self, rid: str, max_bytes: int | None = None):
+        """Inline-payload re-chunk of a pinned export (shm-relay
+        fallback): the bundle built at freeze time is retained — frozen
+        pages are bit-stable — so this is pure host work."""
+        from ..inference.migration import CHUNK_BYTES, iter_chunks
+
+        bundle = self._export_bundles.get(rid)
+        if bundle is None:
+            return None
+        return iter_chunks(bundle, max_bytes or CHUNK_BYTES)
+
+    def export_commit(self, rid: str) -> None:
+        uid = self._exports.pop(rid, None)
+        self._export_bundles.pop(rid, None)
+        if uid is None:
+            return
+        self.eng.export_commit(uid)
+        self._uids.pop(rid, None)
+        self._sent.pop(rid, None)
+        self._tenants.pop(rid, None)
+        self.migrations_out += 1
+
+    def export_abort(self, rid: str, resume: bool) -> None:
+        uid = self._exports.pop(rid, None)
+        self._export_bundles.pop(rid, None)
+        if resume and uid is not None:
+            self.eng.export_abort(uid)
+            self._resumed.add(rid)      # finish locally, no re-handoff
+        else:
+            self.cancel(rid)
+
+    # -- placement-time radix pulls (distributed prefix cache) -----------
+    def kv_export(self, tokens: list[int]):
+        """Longest locally-cached chain prefixing ``tokens`` as a
+        kind="prefix" bundle (device gather under a gather-scoped pin);
+        None on a miss. A deeper tier-resident chain serves the export
+        straight from the host tier — no device gather at all."""
+        from ..inference.migration import MigrationError
+
+        try:
+            bundle = self.eng.export_prefix([int(t) for t in tokens])
+        except (MigrationError, RuntimeError):
+            bundle = None
+        tier = self.kv_tier
+        if tier is not None:
+            bs = self.eng.config.block_size
+            aligned = [int(t) for t in tokens[:(len(tokens) // bs) * bs]]
+            have = bundle.n_full if bundle is not None else 0
+            if aligned and tier.probe(chain_hashes(aligned, bs)) > have:
+                tb = tier.extract(aligned, bs)
+                if tb is not None and tb.n_full > have:
+                    return tb
+        return bundle
+
+    def adopt_prefix(self, bundle) -> int:
+        """Scatter a pulled chain into the pool + trie through the
+        refcounted adopt API; 0 on any refusal (caller recomputes)."""
+        from ..inference.migration import MigrationError
+
+        try:
+            pages = self.eng.import_prefix(bundle)
+        except (MigrationError, RuntimeError) as e:
+            logger.warning(f"replica: prefix adopt refused: {e}")
+            return 0
+        self.pulled_pages += pages
+        return pages
+
+    def import_begin(self, rid: str, meta: dict) -> str | None:
+        from ..inference.migration import (BundleAssembler,
+                                           MigrationError, PageBundle,
+                                           version_skew)
+
+        if rid in self._uids:
+            return "duplicate"
+        if version_skew(meta.get("wv"), self.weight_version):
+            return "version_skew"
+        shell = PageBundle.from_meta(meta)
+        if not self.eng.can_import(
+                len(shell.tokens),
+                shell.max_new_tokens - shell.n_generated):
+            return "capacity"
+        uid = self._next_uid
+        self._next_uid += 1
+        try:
+            self.eng.import_reserve(uid, meta)
+        except (MigrationError, RuntimeError, ValueError) as e:
+            logger.warning(f"replica: import of {rid} refused: {e}")
+            return "import_failed"
+        self._uids[rid] = uid
+        self._imports[rid] = BundleAssembler(meta)
+        # the exporter already streamed the bundle's generated prefix
+        self._sent[rid] = shell.n_generated
+        self._tenants[rid] = shell.tenant
+        return None
+
+    def import_chunk(self, rid: str, msg: dict,
+                     raw: bytes | None = None) -> str | None:
+        from ..inference.migration import MigrationError
+
+        asm = self._imports.get(rid)
+        if asm is None:
+            return "import_failed"
+        try:
+            if raw is not None:
+                asm.add_raw(msg, raw)
+            else:
+                asm.add(msg)
+        except MigrationError:
+            return "import_failed"
+        return None
+
+    def import_eof(self, rid: str, total: int):
+        from ..inference.migration import MigrationError
+
+        asm = self._imports.get(rid)
+        if asm is None:
+            if rid in self._uids:
+                return ("ok", None)    # duplicate EOF after commit: re-ack
+            return ("fail", "import_failed")
+        asm.eof(total)
+        missing = asm.missing()
+        if missing:
+            return ("need", missing)
+        try:
+            bundle = asm.assemble()
+            self.eng.import_complete(self._uids[rid], bundle)
+        except (MigrationError, RuntimeError) as e:
+            logger.warning(f"replica: import of {rid} failed: {e}")
+            self.import_abort(rid)
+            return ("fail", "import_failed")
+        del self._imports[rid]
+        self.migrations_in += 1
+        return ("ok", None)
+
+    def import_abort(self, rid: str) -> None:
+        if rid in self._imports:
+            del self._imports[rid]
+            uid = self._uids.pop(rid, None)
+            if uid is not None:
+                self.eng.import_abort(uid)
+            self._sent.pop(rid, None)
+            self._tenants.pop(rid, None)
+
+    def drain_done(self) -> bool:
+        return not self.has_work()
+
+    # -- fleet re-adoption (crash-safe router, serving/journal.py) -------
+    def live_requests(self) -> dict[str, int]:
+        out: dict[str, int] = {}
+        for rid, uid in self._uids.items():
+            if rid in self._imports:
+                continue
+            seq = self.eng.state.seqs.get(uid)
+            if seq is not None:
+                out[rid] = int(seq.n_generated)
+        return out
+
+    def resync_resume(self, rid: str) -> None:
+        if rid in self._exports:
+            self.export_abort(rid, resume=True)
+        self._handoff_req.discard(rid)
+
+    def load(self) -> dict:
+        return self.eng.load_summary()
+
+    def digest(self, max_entries: int = 4096) -> list[int]:
+        return self.eng.residency_digest(max_entries) or []
+
+    def digest_version(self) -> int:
+        return self.eng.prefix_cache_version()
+
+    def tier_digest(self, max_entries: int = 4096) -> list[int]:
+        return self.eng.kv_tier_digest(max_entries) or []
+
+    def tier_version(self) -> int:
+        return self.eng.kv_tier_version()
+
+    # -- versioned weight hot-swap (serving/deploy.py) -------------------
+    def swap_weights(self, ckpt: str | None, tag: str | None,
+                     wid: int) -> tuple[str | None, dict | None]:
+        """In-place engine weight swap through
+        ``engine_v2.swap_weights`` (the port's own tag written by
+        ``save_weights``: verified manifest, same-shape copy into the live
+        tensors, finiteness probe; any failure keeps the old params
+        serving). ``ckpt=None`` (revert to init weights) is unsupported
+        here — an engine fleet bootstraps from a published
+        ``save_weights`` checkpoint so rollback always has a verified
+        target."""
+        from ..inference.engine_v2 import WeightSwapError
+
+        if ckpt is None:
+            return "unsupported", None
+        try:
+            info = self.eng.swap_weights(ckpt, tag=tag, wid=int(wid))
+        except WeightSwapError as e:
+            return e.reason, None
+        return None, info
+
+    def degrade(self, delay_s: float) -> None:
+        self._degrade_s = float(delay_s)
+
+    def report(self) -> dict:
+        """What this process ran, for its log at a clean exit: K1's
+        launches by route, the forwards that ran them and the model's
+        layers (one launch a layer of every forward), the build and the
+        decode graphs' capture seconds, and the device's peak memory."""
+        import dataclasses
+
+        import torch
+
+        from ..ops import paged_attention as pa
+
+        st = self.eng.stats
+        out = {"k1": dataclasses.asdict(pa.counts),
+               "forwards": int(st["prefill_steps"] + st["decode_steps"]
+                               + st["window_iters_max"]),
+               "layers": int(self.eng.mcfg.num_layers),
+               "build_s": self.build_s, "device": str(self.eng.device),
+               "migrations_out": self.migrations_out,
+               "migrations_in": self.migrations_in}
+        if self.eng._programs is not None:
+            ps = self.eng._programs.stats()
+            out.update(graphs=ps["graphs"], capture_s=ps["capture_s"])
+        if self.eng.device.type == "cuda":
+            out["peak_bytes"] = int(
+                torch.cuda.max_memory_allocated(self.eng.device))
+        return out
+
+
+def _log_report(backend) -> None:
+    """One ``replica report {json}`` line on the log (stderr) at a clean
+    exit, for backends that keep one (the engine's launch counts)."""
+    report = getattr(backend, "report", None)
+    if report is not None:
+        import json
+
+        sys.stderr.write(f"replica report {json.dumps(report())}\n")
+        sys.stderr.flush()
+
+
+def _build_backend(cfg: dict, inj: FaultInjector | None = None):
+    kind = cfg.get("backend", "toy")
+    if kind == "toy":
+        return ToyBackend(cfg, inj)
+    if kind == "engine":
+        return EngineBackend(cfg, inj)
+    raise ValueError(f"unknown replica backend {kind!r}")
+
+
+def _sync_tier_metrics(telem, backend, last: dict) -> None:
+    """Fold the backend's KV-tier stats into the telemetry registry at
+    heartbeat cadence: residency gauges set absolute, counters inc by
+    delta since the last sync (``last`` carries the high-water marks, so
+    one emission site serves toy AND engine backends without double
+    counting), and the promote-latency list drains into its histogram
+    (``KVTier.drain_promote_latencies``).
+    One dict lookup + early return when there is no tier or telemetry —
+    the zero-overhead-when-off property every telemetry hook keeps."""
+    tier = getattr(backend, "kv_tier", None)
+    if telem is None or tier is None:
+        return
+    st = tier.stats()
+    reg = telem.registry
+    for sub in ("ram", "nvme"):
+        reg.gauge("serving_kv_tier_resident_bytes", labels={"tier": sub},
+                  help="payload bytes resident in this KV tier").set(
+            st[f"{sub}_bytes"])
+        reg.gauge("serving_kv_tier_pages", labels={"tier": sub},
+                  help="KV pages resident in this tier").set(
+            st[f"{sub}_pages"])
+    def _delta(key: str) -> int:
+        cur = int(st.get(key, 0))
+        d = cur - last.get(key, 0)
+        last[key] = cur
+        return max(d, 0)
+
+    # literal metric names at the call sites — bin/check_metric_names.py
+    # reads them for the sanitizer gate and the docs/METRICS.md drift
+    # lint, so the family names must never hide behind a variable
+    d = _delta("demoted_pages")
+    if d:
+        reg.counter("serving_kv_tier_demotes_total",
+                    help="pages demoted from the HBM radix into the "
+                         "host-RAM/NVMe tier").inc(d)
+    d = _delta("promotes")
+    if d:
+        reg.counter("serving_kv_tier_promotes_total",
+                    help="chains promoted from the tier instead of "
+                         "recomputed (admission misses + peer "
+                         "exports)").inc(d)
+    d = _delta("probe_hits")
+    if d:
+        reg.counter("serving_kv_tier_hits_total",
+                    help="tier probes that found a promotable "
+                         "chain").inc(d)
+    d = _delta("promote_ahead_pages")
+    if d:
+        reg.counter("serving_kv_tier_promote_ahead_total",
+                    help="pages staged NVMe - host RAM ahead of an "
+                         "admission promote (prefetch during the "
+                         "put's pull wait)").inc(d)
+    d = _delta("torn_skipped")
+    if d:
+        reg.counter("serving_kv_tier_torn_skipped_total",
+                    help="torn/truncated spill records detected and "
+                         "skipped (crash mid-demote recovery)").inc(d)
+    for reason, cur in st.get("fallbacks", {}).items():
+        k = f"fb_{reason}"
+        d = int(cur) - last.get(k, 0)
+        if d > 0:
+            reg.counter("serving_kv_tier_fallbacks_total",
+                        labels={"reason": reason},
+                        help="tier promotes that degraded to recompute, "
+                             "by reason").inc(d)
+        last[k] = int(cur)
+    tier.drain_promote_latencies(reg)
+
+
+def _cleanup_shm(ring, readers: dict) -> None:
+    """Unlink our ring and drop borrowed views on clean exits (a HARD
+    crash leaks the segment to the resource tracker, which reaps it)."""
+    if ring is not None:
+        ring.close()
+    for r in readers.values():
+        if r is not None:
+            r.close()
+    readers.clear()
+
+
+class AcceptBackoff:
+    """Exponential backoff + seeded jitter for a daemon's re-accept loop.
+
+    A down router used to cost an idle ``--listen`` daemon one wakeup
+    per fixed 1s accept timeout forever; this paces the accept waits out
+    to ``max_s`` instead. The accept's ``select`` IS the sleep —
+    :meth:`next` returns the timeout to pass ``accept_channel`` — and
+    the whole sequence is deterministic in the seed so the unit test
+    pins exact delays. :meth:`reset` on any accepted connection (or
+    while the backend still holds work, where the loop polls fast).
+    ``_sleep`` is the test seam for :meth:`pause`, the out-of-loop
+    variant."""
+
+    def __init__(self, base_s: float = 0.05, max_s: float = 2.0,
+                 jitter: float = 0.5, seed: int = 0):
+        import random
+        self.base_s = float(base_s)
+        self.max_s = float(max_s)
+        self.jitter = min(max(float(jitter), 0.0), 1.0)
+        self._rng = random.Random(seed)
+        self._n = 0
+        self._sleep = time.sleep          # test seam
+
+    def next(self) -> float:
+        """The next accept timeout: ``base * 2^n`` capped at ``max_s``,
+        shaved by up to ``jitter`` of itself (never below
+        ``(1 - jitter) * base``) so a fleet of daemons desynchronizes."""
+        d = min(self.base_s * (2.0 ** self._n), self.max_s)
+        self._n += 1
+        return d * (1.0 - self.jitter * self._rng.random())
+
+    def pause(self) -> float:
+        """Sleep the next delay through the ``_sleep`` seam; returns it."""
+        d = self.next()
+        self._sleep(d)
+        return d
+
+    def reset(self) -> None:
+        self._n = 0
+
+
+class DaemonState:
+    """Replica state that must survive a router connection (the serving
+    tier's control-plane crash safety, serving/journal.py): the backend
+    with its in-flight sequences, per-request attempt nonces and stream
+    logs, buffered terminal replies, and the orphan deadlines that bound
+    work no restarted router ever re-adopts.
+
+    A pipe-parent replica builds a fresh one per process (its lifetime
+    IS the connection). A ``--listen`` daemon builds ONE and threads it
+    through every accept, so in-flight decode continues through a router
+    outage and streams re-attach on the ``resync``/``re_adopt`` exchange
+    without replay."""
+
+    def __init__(self, cfg: dict):
+        from .shm import open_ring
+
+        self.cfg = cfg
+        self.inj = FaultInjector(spec=cfg.get("faults") or {}, env="",
+                                 hard=True)
+        v = self.inj.fire("replica_slow_start_s")
+        if v:
+            time.sleep(float(v))
+        if self.inj.countdown("replica_crash_on_start"):
+            self.inj.crash_now("replica_crash_on_start", "replica startup")
+        self.backend = _build_backend(cfg, self.inj)
+        if cfg.get("ckpt"):
+            # the fleet's deployed version: a replica (re)spawned mid- or
+            # post-deploy loads the SAME verified checkpoint the template
+            # names, so a crash during a rolling swap restarts on the
+            # version the fleet had committed to — never a half-deployed
+            # one. A load failure is always-safe: log and serve the
+            # template ("init") weights; the version gauges surface it.
+            reason, _ = self.backend.swap_weights(
+                cfg["ckpt"], cfg.get("ckpt_tag"), int(cfg.get("wid", 1)))
+            if reason:
+                logger.error(f"replica: startup weight load from "
+                             f"{cfg['ckpt']} refused ({reason}); serving "
+                             f"init weights")
+        # intra-host fast path (serving/shm.py): payload rides this
+        # replica's shared ring, descriptors ride the line protocol
+        self.ring = open_ring(int(cfg.get("shm_bytes", 0) or 0))
+        self.readers: dict[str, object] = {}
+        self.attempts: dict[str, int] = {}   # rid -> router attempt nonce
+        #: rid -> every generated token streamed so far (insertion-
+        #: ordered; re_adopt re-sends the tail from the router's offset)
+        self.stream_log: dict[str, list[int]] = {}
+        #: rid -> buffered terminal reply ({"msg", "t"}) — the done/failed
+        #: a dead router may never have durably received; bounded LRU +
+        #: TTL, re-sent on re_adopt
+        self.term_buf: dict[str, dict] = {}
+        #: rid -> deadline past which un-re-adopted work is flushed
+        self.orphans: dict[str, float] = {}
+        # transfer-protocol state (pulls hold deferred puts; exports are
+        # retained for shm-relay resends)
+        self.pulls: dict[str, dict] = {}
+        self.pull_exports: dict[str, tuple] = {}
+        self.mig_shm: dict[str, str | None] = {}
+        self.mig_relay_need: set[str] = set()
+        self.orphan_deadline_s = float(cfg.get("orphan_deadline_s", 30.0))
+        self.stream_log_cap = int(cfg.get("stream_log_cap", 256))
+        self.term_buf_cap = int(cfg.get("term_buf_cap", 128))
+        # elastic preemption latch (runtime/resilience.py), installed
+        # once per process: SIGTERM and/or a GCE maintenance-event
+        # poller flip a flag the serve loop consumes — emergency drain
+        # against the grace deadline, radix flush into the KV tier,
+        # exit PREEMPTED_EXIT_CODE. Gated behind an explicit "preempt"
+        # config block so plain fleets keep default signal semantics.
+        self.preempt_cfg = dict(cfg.get("preempt") or {})
+        self.preempt_h = None
+        if self.preempt_cfg:
+            from ..runtime.resilience import (GceMaintenancePoller,
+                                              PreemptionHandler)
+            self.preempt_h = PreemptionHandler.install(
+                [str(s) for s in
+                 self.preempt_cfg.get("signals", ["SIGTERM"])])
+            self.preempt_h.clear()       # never inherit a stale latch
+            GceMaintenancePoller.install_from(self.preempt_cfg,
+                                              self.preempt_h)
+
+    # -- stream bookkeeping ---------------------------------------------
+    def note_chunk(self, rid: str, off: int, toks: list[int]) -> None:
+        """Fold a streamed chunk into the per-request log (idempotent on
+        overlap, exactly like the router's committed-prefix folding)."""
+        log = self.stream_log.get(rid)
+        if log is None:
+            while len(self.stream_log) >= self.stream_log_cap:
+                self.stream_log.pop(next(iter(self.stream_log)))
+            log = self.stream_log[rid] = []
+        if off <= len(log):
+            log.extend(toks[len(log) - off:])
+
+    def note_term(self, rid: str, msg: dict) -> None:
+        self.stream_log.pop(rid, None)
+        self.term_buf[rid] = {"msg": dict(msg), "t": time.monotonic()}
+        while len(self.term_buf) > self.term_buf_cap:
+            self.term_buf.pop(next(iter(self.term_buf)))
+
+    def reset_request(self, rid: str) -> None:
+        """A fresh put supersedes anything remembered for this id."""
+        self.orphans.pop(rid, None)
+        self.stream_log.pop(rid, None)
+        self.term_buf.pop(rid, None)
+
+    # -- router-outage handling -----------------------------------------
+    def admit_offline(self, msg: dict) -> None:
+        """Admit a (pull-deferred) put with no router to answer: the
+        stream buffers; a refusal buffers as a terminal reply."""
+        rid = str(msg["id"])
+        self.backend.cancel(rid)
+        reason = self.backend.put(RequestRecord.from_wire(msg))
+        if reason:
+            self.note_term(rid, {"t": "failed", "id": rid,
+                                 "a": self.attempts.get(rid, 0),
+                                 "reason": reason})
+
+    def on_disconnect(self) -> None:
+        """The router went away: stamp every live/recently-terminal
+        request with an orphan deadline, and settle in-flight pulls
+        locally (the relaying router is gone, the chain can never
+        complete — recompute is the always-safe fallback)."""
+        now = time.monotonic()
+        dl = now + self.orphan_deadline_s
+        for rid, entry in list(self.pulls.items()):
+            self.pulls.pop(rid, None)
+            if entry.get("gang"):
+                # a gang dies with its router: fail the segment out
+                self.backend.gang_upstream(rid, ok=False)
+            elif entry.get("overlap"):
+                # the promise can never land (the relaying router is
+                # gone): recompute the provisional skip
+                self.backend.settle_promise(
+                    entry.get("join_rid", rid), ok=False)
+            elif entry.get("put") is not None:
+                self.admit_offline(entry["put"])
+        for rid in set(self.attempts) | set(self.term_buf):
+            self.orphans.setdefault(rid, dl)
+
+    def offline_tick(self) -> None:
+        """One disconnected scheduling quantum: decode CONTINUES through
+        the router outage — events buffer in the stream logs / terminal
+        buffer, bounded by the orphan deadlines."""
+        now = time.monotonic()
+        self.expire_orphans(now)
+        for rid in [r for r, e in list(self.pulls.items())
+                    if now >= e["deadline"]]:
+            entry = self.pulls.pop(rid)
+            if entry.get("gang"):
+                self.backend.gang_upstream(rid, ok=False)
+            elif entry.get("overlap"):
+                self.backend.settle_promise(
+                    entry.get("join_rid", rid), ok=False)
+            elif entry.get("put") is not None:
+                self.admit_offline(entry["put"])
+        for rid, kind, toks, off in self.backend.step(self.inj):
+            if kind == "chunk":
+                self.note_chunk(rid, off, [int(t) for t in toks])
+            elif kind == "done":
+                self.note_term(rid, {"t": "done", "id": rid,
+                                     "a": self.attempts.pop(rid, 0),
+                                     "toks": [int(t) for t in toks]})
+            else:
+                self.note_term(rid, {"t": "failed", "id": rid,
+                                     "a": self.attempts.pop(rid, 0),
+                                     "reason": str(toks)})
+        # boundary crossings with nobody to relay the handoff: resume
+        # them local right away (role-split degrades to mixed for the
+        # outage's sequences — never a stranded frozen export)
+        for rid in list(getattr(self.backend, "_handoff", ())):
+            self.backend.resync_resume(rid)
+
+    def expire_orphans(self, now: float) -> None:
+        """Flush work whose orphan deadline passed un-re-adopted, and
+        age out stale buffered terminals."""
+        for rid in [r for r, dl in list(self.orphans.items())
+                    if now >= dl]:
+            self.drop_request(rid)
+        for rid in [r for r, e in list(self.term_buf.items())
+                    if now - e["t"] > self.orphan_deadline_s]:
+            self.term_buf.pop(rid, None)
+            self.orphans.pop(rid, None)
+
+    def drop_request(self, rid: str) -> None:
+        self.orphans.pop(rid, None)
+        self.attempts.pop(rid, None)
+        self.stream_log.pop(rid, None)
+        self.term_buf.pop(rid, None)
+        self.pulls.pop(rid, None)
+        for e in self.pulls.values():
+            if e.get("put") is not None \
+                    and str(e["put"].get("id", "")) == rid:
+                # a flushed request joined to a still-running push:
+                # detach the held put — the push settles as plain
+                # cache warming
+                e["put"] = None
+        self.pull_exports.pop(rid, None)
+        self.mig_shm.pop(rid, None)
+        self.mig_relay_need.discard(rid)
+        self.backend.cancel(rid)
+
+    # -- resync ----------------------------------------------------------
+    def resync_inventory(self) -> list[dict]:
+        """What a freshly-connected router needs for re-adoption: live
+        sequences (committed = tokens logged so far) and recently-
+        terminal requests whose replies may have died with the old
+        router."""
+        out = []
+        live = self.backend.live_requests()
+        for rid in live:
+            out.append({"id": rid,
+                        "committed": len(self.stream_log.get(rid, ()))})
+        for rid, e in self.term_buf.items():
+            if rid in live:
+                continue
+            m = e["msg"]
+            out.append({"id": rid, "done": m.get("t") == "done",
+                        "committed": len(m.get("toks", ()))})
+        return out
+
+
+def _drain_flush(backend, inj) -> int:
+    """Elastic drain-flush: push every unpinned cached chain into the
+    KV tier — block-at-a-time eviction WITH demotion drives the
+    evict-sink absorb path (deepest pages cascade leaf-first, each
+    demoted once) — then spill the tier's RAM ring so the pages survive
+    this process. The per-block crash point is the chaos seam: a
+    SIGKILL mid-flush leaves at most a torn tail record, which the
+    tier's scan gate skips on the next open. Returns blocks flushed."""
+    n = 0
+    radix = getattr(backend, "radix", None)
+    tier = getattr(backend, "kv_tier", None)
+    if radix is not None and tier is not None:
+        while len(radix):
+            if not radix.evict(1):
+                break                    # only pinned pages remain
+            n += 1
+            if inj.countdown("replica_crash_mid_drain_flush"):
+                inj.crash_now("replica_crash_mid_drain_flush",
+                              f"drain flush after {n} pages")
+    if tier is not None:
+        tier.close(flush=True)
+    return n
+
+
+def serve(cfg: dict, chan: LineChannel,
+          state: DaemonState | None = None) -> int:
+    """The replica event loop. Returns 0 on an explicit shutdown message
+    and 2 when the router went away (a ``--listen`` daemon then goes
+    back to accepting — with ``state`` threaded through, its in-flight
+    work keeps decoding between routers; the pipe-parent mode exits
+    either way); raises only on injected soft faults (the worker runs
+    injection HARD, so in production shape a crash is an ``os._exit``)."""
+    st = state if state is not None else DaemonState(cfg)
+    inj = st.inj
+    backend = st.backend
+
+    telem = None
+    snap_path = cfg.get("telemetry_snapshot")
+    if snap_path:
+        from ..telemetry import configure
+        telem = configure(enabled=True)
+    hb_interval = float(cfg.get("hb_interval_s", 0.05))
+    send_t = float(cfg.get("send_timeout_s", 2.0))
+    digest_max = int(cfg.get("digest_max", 4096))
+    role = getattr(backend, "role", "mixed")
+    from .shm import attach_ring
+    ring = st.ring
+    chan.send({"t": "ready", "pid": os.getpid(),
+               "block_size": backend.block_size,
+               "max_live": backend.max_live, "role": role,
+               "shm": ring.name if ring is not None else None,
+               "wv": dict(backend.weight_version),
+               "epoch": int(cfg.get("epoch", 0))}, timeout=send_t)
+
+    draining = False
+    # elastic actuators (serving/elastic.py): "retire" drains then
+    # flushes the radix into the KV tier and exits cleanly; a latched
+    # preemption does the same under a hard grace deadline and exits
+    # PREEMPTED_EXIT_CODE so the fleet classifies it (no breaker hit)
+    retiring = False
+    retire_deadline = float("inf")
+    preempt_h = st.preempt_h
+    preempt_deadline: float | None = None
+    preempt_grace_s = float(st.preempt_cfg.get("deadline_s", 5.0))
+    attempts = st.attempts               # rid -> router attempt nonce
+    last_hb = 0.0
+    digest_ver_sent = -1                 # first heartbeat always ships it
+    tier_ver_sent = -1                   # KV-tier residency, same scheme
+    tier_stat_marks: dict = {}           # telemetry delta-sync marks
+    stall_until = 0.0
+    stalled: list[dict] = []             # stream msgs queued during a stall
+    # fleet tracing (telemetry/fleettrace.py): record per-request
+    # timeline segments (both clocks) and ship them to the router on the
+    # line protocol — bounded per request AND per process, drop-counted.
+    # Disabled (the default) records nothing and ships nothing: every
+    # entry point below is one `trace_on` check.
+    trace_on = bool(cfg.get("fleet_trace"))
+    trace_max = int(cfg.get("fleet_trace_max_events", 64))
+    # live refinement of the tier's min-pages promote threshold
+    # (inference/kvtier.py): observed promote latencies beat the startup
+    # break-even guess once enough samples land. An explicitly pinned
+    # "min_pages" stays authoritative unless refinement is asked for.
+    _tier_cfg = cfg.get("kv_tier") or {}
+    tier_refine = isinstance(_tier_cfg, dict) and bool(
+        _tier_cfg.get("refine_min_pages", "min_pages" not in _tier_cfg))
+    rtrace: dict[str, dict] = {}         # rid -> {ev, sent, dropped}
+    # injected clock skew (chaos/tests): shifts every timestamp this
+    # replica reports — trace events AND the heartbeat echo clocks — so
+    # the router's offset estimator must actually correct it
+    skew = float(cfg.get("clock_skew_s", 0.0) or 0.0)
+    ping_echo: float | None = None       # ts of the ping to echo next hb
+
+    def _tnow() -> float:
+        return time.monotonic() + skew
+
+    def _trace_ev(rid: str, kind: str, **fields) -> None:
+        if not trace_on:
+            return
+        ent = rtrace.get(rid)
+        if ent is None:
+            while len(rtrace) >= 64:     # bounded live set, oldest out
+                rtrace.pop(next(iter(rtrace)))
+            ent = rtrace[rid] = {"ev": [], "sent": 0, "dropped": 0}
+        if len(ent["ev"]) < trace_max:
+            ent["ev"].append([round(_tnow(), 6),
+                              round(time.time() + skew, 6), kind,
+                              fields or None])
+        else:
+            ent["dropped"] += 1
+
+    def _trace_ship(rid: str, fin: bool = True) -> None:
+        """Ship this request's unsent timeline events to the router.
+        ``fin`` frees the buffer (request left this replica); a non-final
+        ship (breach sampling / handoff export) marks what was sent so
+        nothing is delivered twice."""
+        if not trace_on:
+            return
+        ent = rtrace.pop(rid, None) if fin else rtrace.get(rid)
+        if ent is None:
+            return
+        ev = ent["ev"][ent["sent"]:]
+        if not ev and not (fin and ent["dropped"]):
+            return
+        if not fin:
+            ent["sent"] = len(ent["ev"])
+        # the drop count rides only the FINAL segment (the assembler
+        # sums per-segment drops; an incremental resend must not double
+        # it)
+        _stream({"t": "trace", "id": rid, "a": attempts.get(rid, 0),
+                 "pid": os.getpid(), "fin": fin, "events": ev,
+                 "dropped": ent["dropped"] if fin else 0})
+    # placement-time radix pulls (puller side): puts held back while
+    # their pulled chain is in flight — {"put", "deadline", "asm",
+    # "shm", "relay"}; admitted (recompute fallback) at the deadline NO
+    # MATTER WHAT the fleet does. All of these live on the daemon state
+    # so they survive a router outage.
+    pulls = st.pulls
+    # peer exports retained for shm-relay resends (bounded FIFO)
+    pull_exports = st.pull_exports
+    # import leg: source ring name per in-flight migration, and rids
+    # whose shm reads failed (EOF then asks for an inline relay resend)
+    mig_shm = st.mig_shm
+    mig_relay_need = st.mig_relay_need
+    # per-peer-ring attach results (the transport negotiation cache):
+    # name -> ShmReader | None (None = attach failed, relay forever)
+    readers = st.readers
+    # gang prefill, member leg: gid -> segment index (echoed in
+    # gang_seg_ok). Deliberately NOT on the daemon state: a gang dies
+    # with its router — on disconnect the pull deadline settles the
+    # upstream wait and the job fails out locally.
+    gang_meta: dict[str, int] = {}
+
+    def _send(msg: dict) -> bool:
+        """Protocol send that survives a dead router: on failure, drain
+        whatever the router already wrote — a put that raced the crash
+        is real admitted work the restarted router will re-adopt via
+        resync — then mark the channel closed so the recv loop observes
+        the death only AFTER the drained messages are processed."""
+        if chan.closed:
+            return False
+        try:
+            chan.send(msg, timeout=send_t)
+            return True
+        except (ChannelClosed, ChannelTimeout) as e:
+            logger.warning(f"replica: send failed ({e}); holding state "
+                           f"for resync")
+            chan._pump()
+            chan.closed = True
+            return False
+
+    def _stream(msg: dict) -> None:
+        """Send a chunk/done/failed message, honoring an active
+        stream-stall window (heartbeats keep flowing — the 'engine
+        wedged, process alive' shape). Generated-stream messages are
+        noted in the daemon state FIRST, so a router death mid-send
+        loses nothing a later resync cannot re-attach."""
+        t = msg.get("t")
+        if t == "chunk":
+            st.note_chunk(str(msg["id"]), int(msg.get("off", 0)),
+                          [int(x) for x in msg.get("toks", ())])
+        elif t in ("done", "failed"):
+            st.note_term(str(msg["id"]), msg)
+        if time.monotonic() < stall_until:
+            stalled.append(msg)
+            return
+        _send(msg)
+
+    def _reader(name: str | None):
+        """Attach a peer's ring once; cache the verdict per pair. The
+        cache is bounded: a crashed-and-respawned peer publishes a NEW
+        ring name, so old entries would otherwise pin their (unlinked)
+        segments' memory for the life of this process."""
+        if not name:
+            return None
+        if name not in readers:
+            while len(readers) >= 8:
+                old = readers.pop(next(iter(readers)))   # oldest first
+                if old is not None:
+                    old.close()
+            if inj.countdown("replica_shm_attach_fail"):
+                readers[name] = None     # injected map failure
+            else:
+                readers[name] = attach_ring(name)
+        return readers[name]
+
+    def _chunk_payload(msg: dict, shm_name: str | None):
+        """Resolve one incoming chunk's payload: ``(raw, ok)``. Inline
+        chunks pass through (raw None, assembler decodes); shm
+        descriptors are copied out of the peer's ring — a failed attach
+        or lapped/corrupt extent returns ok=False and the caller asks
+        for a relay resend."""
+        if "ref" not in msg:
+            return None, True
+        rd = _reader(shm_name)
+        if rd is None:
+            return None, False
+        raw = rd.read(int(msg["ref"]), int(msg["n"]), int(msg["crc"]))
+        return raw, raw is not None
+
+    def _wire_chunks(bundle) -> tuple[list[dict], bool]:
+        """Chunk a bundle for the wire: payloads go to this replica's
+        ring when it has one (descriptor chunks with ``ref``), inline
+        base64 otherwise — mixed per chunk if the ring can't take a
+        blob. A bundle that would fill more than half the ring goes
+        inline wholesale: the importer only reads AFTER the router
+        relays the buffered descriptors, so an oversized bundle would
+        lap its own early chunks and pay ring writes + failed reads + a
+        relay round-trip on top of the inline bytes it ends up sending
+        anyway. Returns (chunks, used_shm)."""
+        import base64 as _b64
+
+        from ..inference.migration import iter_chunks
+
+        if ring is None or bundle.payload_bytes > ring.size // 2:
+            return iter_chunks(bundle), False
+        out, used = [], False
+        for c in iter_chunks(bundle, encode=False):
+            raw = c.pop("raw")
+            off = ring.write(raw)
+            if off is None:              # oversized blob: inline
+                c["data"] = _b64.b64encode(raw).decode("ascii")
+            else:
+                used = True
+                c["ref"] = off
+            out.append(c)
+        return out, used
+
+    def _admit_put(msg: dict, promised: int = 0) -> None:
+        """Admit a (possibly pull-deferred) put into the backend.
+        ``promised`` > 0 engages transfer/compute overlap: that many
+        prompt tokens are promised by an in-flight transfer, so the
+        backend prefills only the suffix beyond them and holds decode
+        until the promise settles."""
+        rid = str(msg["id"])
+        if draining:
+            _stream({"t": "failed", "id": rid,
+                     "a": attempts.get(rid, 0), "reason": "draining"})
+            return
+        # a replayed put for a request this replica already runs
+        # (router presumed us dead, then re-picked us): restart from
+        # scratch — the attempt nonce already invalidates the old
+        # stream's messages
+        backend.cancel(rid)
+        reason = backend.put(RequestRecord.from_wire(msg), promised)
+        if reason:
+            _trace_ev(rid, "reject", reason=reason)
+            _trace_ship(rid)
+            _stream({"t": "failed", "id": rid,
+                     "a": attempts.get(rid, 0), "reason": reason})
+        else:
+            _trace_ev(rid, "admit")
+            if telem is not None:
+                telem.registry.counter(
+                    "serving_replica_requests_total",
+                    help="requests admitted by this replica").inc()
+
+    def _settle_pull(rid: str, pages: int, nbytes: int = 0) -> None:
+        """A pull resolved (adopted, failed, or timed out): admit the
+        deferred put and tell the router how it went (pages=0 = the
+        recompute fallback engaged). A gang member's upstream hop rides
+        the same path but wakes its gang job instead of admitting a put
+        — a failed hop fails the segment (the router collapses the gang
+        to the single-replica fallback)."""
+        entry = pulls.pop(rid, None)
+        if entry is None:
+            return
+        _trace_ev(rid, "pull_settle", pages=pages)
+        _stream({"t": "kv_ack", "id": rid, "a": attempts.get(rid, 0),
+                 "pages": pages, "bytes": nbytes})
+        if entry.get("gang"):
+            backend.gang_upstream(rid, ok=pages > 0)
+        elif entry.get("overlap"):
+            # transfer/compute overlap: the put was admitted at the
+            # promised boundary when it arrived — settle the promise
+            # instead of admitting. A failed or short transfer rolls
+            # the provisional skip back into prefill (recompute; the
+            # seed-derived stream is bit-identical either way).
+            res = backend.settle_promise(entry.get("join_rid", rid),
+                                         ok=pages > 0)
+            if telem is not None and res is not None:
+                if res == "commit":
+                    telem.registry.counter(
+                        "serving_replica_overlap_commits_total",
+                        help="overlap promises confirmed — the "
+                             "transferred pages landed while the "
+                             "suffix prefilled").inc()
+                else:
+                    telem.registry.counter(
+                        "serving_replica_overlap_fallbacks_total",
+                        labels={"reason": res},
+                        help="overlap promises rolled back into "
+                             "prefill recompute, by reason (short = "
+                             "the transfer under-delivered, recompute "
+                             "= it failed outright)").inc()
+            if entry.get("prewarm"):
+                attempts.pop(rid, None)   # the push id's nonce
+        elif entry.get("put") is not None:
+            # a held demand put: its own pull, or a join onto a push
+            _admit_put(entry["put"])
+            if entry.get("prewarm"):
+                attempts.pop(rid, None)   # the push id's nonce
+        else:
+            # elastic pre-warm / unjoined push: the adopted chain IS
+            # the result — the kv_ack page count above tells the
+            # router how warm we got
+            attempts.pop(rid, None)
+
+    while True:
+        if preempt_h is not None and preempt_deadline is None:
+            cause = preempt_h.check()
+            if cause:
+                # the host is taking this machine: stop admissions,
+                # race the grace window to finish in-flight decodes,
+                # then flush-and-exit. The router classifies via this
+                # notice (and the exit code): no breaker hit, no
+                # failure budget, sticky/digest state dropped eagerly.
+                draining = True
+                grace = float("inf") \
+                    if inj.value("preempt_ignore_deadline") \
+                    else preempt_grace_s
+                preempt_deadline = time.monotonic() + grace
+                logger.warning(f"replica: preemption latched "
+                               f"({cause}); draining for {grace:.1f}s")
+                _send({"t": "preempt", "cause": str(cause)})
+        busy = backend.has_work()
+        try:
+            msg = chan.recv(timeout=0.001 if busy else
+                            min(hb_interval, 0.05))
+        except ChannelClosed:
+            # mark orphan deadlines + settle pulls locally so a --listen
+            # daemon keeps decoding through the outage; the pipe-parent
+            # mode exits (its replacement respawns clean)
+            st.on_disconnect()
+            if state is None:
+                _cleanup_shm(ring, readers)
+            return 2                     # router went away
+        if msg is not None:
+            t = msg.get("t")
+            if t == "put":
+                rid = str(msg["id"])
+                attempts[rid] = int(msg.get("a", 0))
+                st.reset_request(rid)
+                _trace_ev(rid, "put", prompt=len(msg.get("prompt", ())),
+                          pull=bool(msg.get("pull")))
+                if not draining and inj.countdown("replica_crash_on_put"):
+                    inj.crash_now("replica_crash_on_put",
+                                  f"admit of {rid}")
+                if msg.get("pull") and not draining:
+                    p = msg["pull"]
+                    jid = p.get("join")
+                    overlap = bool(p.get("overlap"))
+                    promised = int(p.get("pages", 0)) \
+                        * backend.block_size
+                    jent = pulls.get(str(jid)) if jid is not None \
+                        else None
+                    if jid is not None and (jent is None
+                                            or not jent.get("push")):
+                        # the push this put meant to join already
+                        # settled (or died): admit now — its pages are
+                        # either resident (the match hits them) or the
+                        # prompt recomputes
+                        _admit_put(msg)
+                    elif jent is not None:
+                        # JOIN an in-flight push: from here its relay
+                        # is demand movement for this request — the
+                        # settle admits (or, under overlap, confirms
+                        # the already-admitted promise)
+                        if overlap:
+                            jent["overlap"] = True
+                            jent["join_rid"] = rid
+                            _admit_put(msg, promised=promised)
+                        else:
+                            jent["put"] = msg
+                    else:
+                        # a wanted-chain hint rode the record: hold
+                        # admission while the peer's pages are in
+                        # flight (bounded by the pull deadline —
+                        # recompute is always safe) … unless overlap
+                        # is on, where admission starts NOW at the
+                        # promised boundary and the retained entry
+                        # settles the promise
+                        entry = pulls[rid] = {
+                            "put": msg, "asm": None, "shm": None,
+                            "relay": False,
+                            "deadline": time.monotonic() + float(
+                                p.get("deadline_s", 5.0))}
+                        if overlap:
+                            entry["put"] = None
+                            entry["overlap"] = True
+                            _admit_put(msg, promised=promised)
+                        # promote-AHEAD: the network wait is free time
+                        # to stage this prompt's NVMe-resident tier
+                        # records up into host RAM, so whichever way
+                        # the pull settles (adopt dedup or recompute
+                        # fallback), the admission-time tier promote
+                        # reads at RAM rate
+                        tier = getattr(backend, "kv_tier", None)
+                        if tier is not None:
+                            bs = backend.block_size
+                            ptoks = [int(x)
+                                     for x in msg.get("prompt", ())]
+                            n_full = len(ptoks) // bs
+                            if n_full:
+                                tier.prefetch(
+                                    chain_hashes(ptoks[:n_full * bs],
+                                                 bs))
+                elif msg.get("promote_hint") and not draining:
+                    # promote-AHEAD at placement time: the router's
+                    # sticky/digest match says the tier likely holds
+                    # this chain — start the extract (NVMe read + crc
+                    # verify) before admission instead of inside it.
+                    # The two-phase split keeps the begin mutation-free
+                    # (crash-safe) and the counted fallback-to-
+                    # recompute story intact.
+                    ph = backend.tier_promote_begin(
+                        [int(x) for x in msg.get("prompt", ())])
+                    if backend.tier_promote_finish(ph, ahead=True) \
+                            and telem is not None:
+                        telem.registry.counter(
+                            "serving_replica_promote_ahead_total",
+                            help="tier promotes started ahead of "
+                                 "admission on the router's "
+                                 "promote_hint").inc()
+                    _admit_put(msg)
+                else:
+                    _admit_put(msg)
+            elif t == "flush":
+                rid = str(msg["id"])
+                _trace_ev(rid, "flush")
+                _trace_ship(rid)
+                st.drop_request(rid)     # pulls/exports/buffers + cancel
+            elif t == "mig_begin":
+                # a migrated-in sequence is arriving (decode role): claim
+                # capacity BEFORE the first payload chunk
+                rid = str(msg["id"])
+                attempts[rid] = int(msg.get("a", 0))
+                reason = "draining" if draining \
+                    else backend.import_begin(rid, msg["meta"])
+                if reason:
+                    _stream({"t": "failed", "id": rid, "a": attempts[rid],
+                             "reason": reason})
+                else:
+                    _trace_ev(rid, "import_begin")
+                    mig_shm[rid] = msg.get("shm")
+            elif t == "mig_chunk":
+                rid = str(msg["id"])
+                if inj.countdown("replica_crash_during_import"):
+                    inj.crash_now("replica_crash_during_import",
+                                  f"import of {rid}")
+                raw, ok = _chunk_payload(msg, mig_shm.get(rid))
+                if not ok:
+                    # ring unreadable (attach failed / extent lapped):
+                    # leave the chunk missing — EOF asks for a relay
+                    # resend with inline payload, silently
+                    mig_relay_need.add(rid)
+                else:
+                    err = backend.import_chunk(rid, msg, raw)
+                    if err:
+                        backend.import_abort(rid)
+                        mig_shm.pop(rid, None)
+                        mig_relay_need.discard(rid)
+                        _stream({"t": "failed", "id": rid,
+                                 "a": attempts.get(rid, 0),
+                                 "reason": err})
+            elif t == "mig_eof":
+                rid = str(msg["id"])
+                status, aux = backend.import_eof(rid,
+                                                 int(msg["chunks"]))
+                a = attempts.get(rid, 0)
+                if status == "need":
+                    # resumable-per-chunk: name the gaps, the router
+                    # resends exactly those from its buffer — relay=True
+                    # additionally asks the SOURCE to re-emit them with
+                    # inline payload (the shm fast path failed here)
+                    _stream({"t": "mig_need", "id": rid, "a": a,
+                             "missing": aux,
+                             "relay": rid in mig_relay_need})
+                    mig_relay_need.discard(rid)
+                elif status == "ok":
+                    mig_shm.pop(rid, None)
+                    mig_relay_need.discard(rid)
+                    _trace_ev(rid, "import_ok")
+                    _stream({"t": "mig_ack", "id": rid, "a": a})
+                    if telem is not None:
+                        telem.registry.counter(
+                            "serving_replica_migrations_in_total",
+                            help="page bundles imported by this "
+                                 "replica").inc()
+                else:
+                    mig_shm.pop(rid, None)
+                    mig_relay_need.discard(rid)
+                    _trace_ev(rid, "import_failed", reason=str(aux))
+                    _stream({"t": "failed", "id": rid, "a": a,
+                             "reason": str(aux)})
+                    _trace_ship(rid)
+            elif t == "mig_ack":
+                # the importer owns the stream: release our pinned pages
+                # (publishing the prefix into the local trie)
+                rid = str(msg["id"])
+                _trace_ev(rid, "export_commit")
+                _trace_ship(rid)
+                backend.export_commit(rid)
+            elif t == "mig_abort":
+                rid = str(msg["id"])
+                _trace_ev(rid, "export_abort")
+                _trace_ship(rid)
+                backend.export_abort(rid, resume=False)
+            elif t == "mig_resume":
+                # no decode-capable replica: keep serving it here
+                rid = str(msg["id"])
+                _trace_ev(rid, "resume_local")
+                backend.export_abort(rid, resume=True)
+            elif t == "mig_request":
+                # hot-replica rebalancing: the router asked us to hand
+                # this mid-decode sequence off; stale requests no-op
+                backend.request_handoff(str(msg["id"]))
+            elif t == "mig_relay":
+                # the importer could not read our ring: resend the named
+                # chunks with inline payload (pinned pages re-chunk
+                # bit-identically), then a fresh EOF
+                rid = str(msg["id"])
+                a = attempts.get(rid, 0)
+                chunks = backend.export_chunks(rid)
+                if chunks is not None:
+                    want = {int(i) for i in msg.get("missing", ())}
+                    for c in chunks:
+                        if c["i"] in want:
+                            _stream({"t": "mig_chunk", "id": rid,
+                                     "a": a, **c})
+                    _stream({"t": "mig_eof", "id": rid, "a": a,
+                             "chunks": len(chunks)})
+            elif t == "kv_req":
+                # placement-time radix pull, export leg: a peer replica
+                # was placed a request whose prefix WE hold — bundle the
+                # cached chain (pages only, no sequence)
+                rid = str(msg["id"])
+                a = int(msg.get("a", 0))
+                if inj.countdown("replica_crash_during_kv_export"):
+                    inj.crash_now("replica_crash_during_kv_export",
+                                  f"kv export for {rid}")
+                bundle = backend.kv_export([int(x) for x in msg["tok"]])
+                if bundle is None:
+                    _stream({"t": "kv_none", "id": rid, "a": a})
+                else:
+                    while len(pull_exports) >= 8:   # bounded retention
+                        pull_exports.pop(next(iter(pull_exports)))
+                    pull_exports[rid] = (bundle, a)
+                    chunks, used = _wire_chunks(bundle)
+                    _stream({"t": "kv_bundle", "id": rid, "a": a,
+                             "meta": bundle.meta(),
+                             "chunks": len(chunks),
+                             "shm": ring.name if used else None})
+                    for c in chunks:
+                        _stream({"t": "kv_chunk", "id": rid, "a": a,
+                                 **c})
+                    _stream({"t": "kv_eof", "id": rid, "a": a,
+                             "chunks": len(chunks)})
+            elif t == "kv_relay":
+                # inline-payload resend for a pull whose shm leg failed
+                rid = str(msg["id"])
+                exp = pull_exports.get(rid)
+                if exp is None:
+                    _stream({"t": "kv_none", "id": rid,
+                             "a": int(msg.get("a", 0))})
+                else:
+                    from ..inference.migration import iter_chunks
+
+                    bundle, a = exp
+                    want = {int(i) for i in msg.get("missing", ())}
+                    chunks = iter_chunks(bundle)
+                    for c in chunks:
+                        if c["i"] in want:
+                            _stream({"t": "kv_chunk", "id": rid,
+                                     "a": a, **c})
+                    _stream({"t": "kv_eof", "id": rid, "a": a,
+                             "chunks": len(chunks)})
+            elif t == "kv_bundle":
+                # pull import leg: the chain we asked the router for
+                rid = str(msg["id"])
+                entry = pulls.get(rid)
+                if entry is not None:
+                    from ..inference.migration import BundleAssembler
+
+                    entry["asm"] = BundleAssembler(msg["meta"])
+                    entry["shm"] = msg.get("shm")
+                    entry["relay"] = False
+            elif t == "kv_chunk":
+                rid = str(msg["id"])
+                entry = pulls.get(rid)
+                if entry is not None and entry["asm"] is not None:
+                    from ..inference.migration import MigrationError
+
+                    raw, ok = _chunk_payload(msg, entry["shm"])
+                    if not ok:
+                        entry["relay"] = True
+                    else:
+                        try:
+                            if raw is not None:
+                                entry["asm"].add_raw(msg, raw)
+                            else:
+                                entry["asm"].add(msg)
+                        except MigrationError:
+                            entry["relay"] = True
+            elif t == "kv_eof":
+                rid = str(msg["id"])
+                entry = pulls.get(rid)
+                if entry is not None and entry["asm"] is not None:
+                    from ..inference.migration import MigrationError
+
+                    asm = entry["asm"]
+                    asm.eof(int(msg["chunks"]))
+                    missing = asm.missing()
+                    if missing:
+                        _stream({"t": "kv_need", "id": rid,
+                                 "a": attempts.get(rid, 0),
+                                 "missing": missing,
+                                 "relay": bool(entry["relay"])})
+                        entry["relay"] = False
+                    else:
+                        try:
+                            bundle = asm.assemble()
+                        except MigrationError:
+                            bundle = None
+                        pages = backend.adopt_prefix(bundle) \
+                            if bundle is not None else 0
+                        _settle_pull(rid, pages,
+                                     asm.bytes_received if pages else 0)
+            elif t == "kv_fail":
+                # the pull died somewhere (peer gone, chain evicted,
+                # router gave up): recompute — the always-safe fallback
+                _settle_pull(str(msg["id"]), 0)
+            elif t == "gang_seg":
+                # gang prefill, member leg: prefill ONE contiguous
+                # segment of a long prompt. Downstream members (a
+                # "pull" rode the message) also await an upstream KV
+                # hop — the kv_* import leg under this same gang id —
+                # before publishing their merged chain.
+                rid = str(msg["id"])
+                a = int(msg.get("a", 0))
+                attempts[rid] = a
+                seg = int(msg.get("seg", 0))
+                _trace_ev(rid, "gang_seg", seg=seg,
+                          own=int(msg.get("own", 0)))
+                if draining:
+                    reason = "draining"
+                elif inj.countdown("gang_refuse_version_skew"):
+                    # deterministic chaos: a member that swapped
+                    # weights between the router's same-version pick
+                    # and this admit must refuse, skew-safe
+                    reason = "version_skew"
+                else:
+                    reason = backend.gang_put(
+                        rid, [int(x) for x in msg.get("tok", ())],
+                        int(msg.get("own", 0)),
+                        wait_upstream="pull" in msg)
+                if reason:
+                    attempts.pop(rid, None)
+                    _trace_ev(rid, "gang_refuse", reason=reason)
+                    _trace_ship(rid)
+                    _stream({"t": "gang_seg_fail", "id": rid, "a": a,
+                             "reason": reason})
+                else:
+                    gang_meta[rid] = seg
+                    if "pull" in msg:
+                        pulls[rid] = {
+                            "put": None, "gang": True, "asm": None,
+                            "shm": None, "relay": False,
+                            "deadline": time.monotonic() + float(
+                                msg["pull"].get("deadline_s", 10.0))}
+            elif t == "gang_abort":
+                # the gang collapsed (the router falls back to a
+                # single-replica prefill): drop the job — published
+                # pages stay, they are ordinary cache residency
+                rid = str(msg["id"])
+                _trace_ev(rid, "gang_abort")
+                _trace_ship(rid)
+                backend.gang_abort(rid)
+                gang_meta.pop(rid, None)
+                pulls.pop(rid, None)
+                attempts.pop(rid, None)
+            elif t == "resync":
+                # fleet re-adoption (crash-safe router): a restarted
+                # router asks what this replica still holds — live
+                # sequences with their committed counts, recently-
+                # terminal replies, plus role/version/digest so its
+                # placement state rebuilds in one exchange
+                _send({"t": "resync_ok",
+                       "reqs": st.resync_inventory(), "role": role,
+                       "wv": dict(backend.weight_version),
+                       "digest": backend.digest(digest_max),
+                       "tier_digest": backend.tier_digest(digest_max)})
+                digest_ver_sent = backend.digest_version()
+                tier_ver_sent = backend.tier_version()
+            elif t == "re_adopt":
+                # the restarted router re-owns this request under a
+                # fresh attempt nonce: clear its orphan deadline, resume
+                # any pinned transfer state locally, and re-attach the
+                # stream from the router's journaled offset — a buffered
+                # terminal reply re-sends instead
+                rid = str(msg["id"])
+                a = int(msg.get("a", 0))
+                have = int(msg.get("have", 0))
+                st.orphans.pop(rid, None)
+                _trace_ev(rid, "re_adopt", have=have)
+                ent = st.term_buf.get(rid)
+                if ent is not None \
+                        and rid not in backend.live_requests():
+                    st.attempts.pop(rid, None)
+                    _stream({**ent["msg"], "a": a})
+                else:
+                    attempts[rid] = a
+                    backend.resync_resume(rid)
+                    tail = st.stream_log.get(rid, [])[have:]
+                    if tail:
+                        _stream({"t": "chunk", "id": rid, "a": a,
+                                 "off": have,
+                                 "toks": [int(x) for x in tail]})
+            elif t == "swap":
+                # versioned weight hot-swap (serving/deploy.py): the
+                # loop sits between step() calls here, so this IS the
+                # window boundary — in-flight sequences are paused, not
+                # drained, and their KV stays valid for the same-shape
+                # update. The backend verifies + loads; any failure is a
+                # structured swap_fail with the OLD weights serving.
+                wid = int(msg.get("wid", 0))
+                if inj.countdown("swap_crash_mid_quiesce"):
+                    inj.crash_now("swap_crash_mid_quiesce",
+                                  f"weight swap to v{wid}")
+                t_sw = time.monotonic()
+                if inj.countdown("swap_corrupt_manifest"):
+                    reason, info = "integrity", None
+                else:
+                    reason, info = backend.swap_weights(
+                        msg.get("ckpt"), msg.get("tag"), wid)
+                if reason:
+                    logger.error(f"replica: weight swap to v{wid} "
+                                 f"refused ({reason})")
+                    _send({"t": "swap_fail", "wid": wid,
+                           "reason": reason})
+                else:
+                    # stamp every in-flight request's fleet-trace
+                    # segment: a rolling-deploy stall shows up ON the
+                    # requests that paid it
+                    for rid in list(rtrace):
+                        _trace_ev(rid, "weight_swap", wid=wid)
+                    v = inj.fire("swap_canary_degrade")
+                    if v:
+                        backend.degrade(float(v))
+                    _send({"t": "swap_ok", "wid": wid,
+                           "wv": dict(backend.weight_version),
+                           "quiesce_s": round(info["quiesce_s"], 6),
+                           "swap_s": round(info.get(
+                               "swap_s", time.monotonic() - t_sw), 6)})
+                    last_hb = 0.0    # ship the new version immediately
+            elif t == "drain":
+                draining = True
+            elif t == "retire":
+                # elastic retire (serving/elastic.py): stop admissions,
+                # finish what's still in flight (deadline-bounded — the
+                # router already rebalanced what it could), then flush
+                # the radix into the KV tier and leave cleanly; the
+                # fleet classifies this exit as retired, not a death
+                draining = True
+                retiring = True
+                retire_deadline = time.monotonic() + float(
+                    msg.get("deadline_s", 10.0))
+            elif t == "re_role":
+                # elastic re-role: flip prefill<->decode at this quiesce
+                # boundary — the loop sits between step() calls, so
+                # in-flight sequences simply continue under the new
+                # role's policies (no process restart, cache intact)
+                role = str(msg.get("role", role))
+                backend.role = role
+                _send({"t": "re_role_ok", "role": role})
+                last_hb = 0.0            # fresh load/digest right away
+            elif t == "prewarm":
+                # elastic pre-warm (fresh spawn): register a pull-import
+                # entry with NO held put — the kv_bundle/kv_chunk/kv_eof
+                # leg arriving under this id adopts the chain into the
+                # radix before traffic lands; the deadline settles a
+                # dead transfer silently (kv_ack pages=0 = warm missed)
+                rid = str(msg["id"])
+                if not draining:
+                    attempts[rid] = int(msg.get("a", 0))
+                    pulls[rid] = {
+                        "put": None, "prewarm": True, "asm": None,
+                        "shm": None, "relay": False,
+                        "deadline": time.monotonic() + float(
+                            msg.get("deadline_s", 5.0))}
+            elif t == "kv_push":
+                # anticipatory push OFFER (serving/push.py): the router
+                # wants to land a hot chain here ahead of demand. This
+                # replica arbitrates its own idleness — pushes are
+                # strictly lower priority than live work, so draining
+                # or busy replicas DECLINE and the planner moves on; an
+                # accepted offer registers a prewarm-shaped pull entry
+                # the kv_bundle/kv_chunk/kv_eof relay then fills (the
+                # deadline settles a dead transfer into kv_ack pages=0)
+                rid = str(msg["id"])
+                if draining:
+                    _stream({"t": "kv_push_no", "id": rid,
+                             "reason": "draining"})
+                elif rid in pulls:
+                    _stream({"t": "kv_push_no", "id": rid,
+                             "reason": "duplicate"})
+                elif backend.has_work() or len(pulls) >= 4:
+                    _stream({"t": "kv_push_no", "id": rid,
+                             "reason": "busy"})
+                else:
+                    attempts[rid] = 0
+                    pulls[rid] = {
+                        "put": None, "prewarm": True, "push": True,
+                        "asm": None, "shm": None, "relay": False,
+                        "deadline": time.monotonic() + float(
+                            msg.get("deadline_s", 5.0))}
+                    _stream({"t": "kv_push_ok", "id": rid})
+            elif t == "trace_req":
+                # breach sampling: the router wants this request's LIVE
+                # timeline segment now (fin=False — the rest ships at
+                # release)
+                _trace_ship(str(msg["id"]), fin=False)
+            elif t == "ping":
+                last_hb = 0.0            # answer with an immediate hb
+                if "ts" in msg:
+                    # clock-sync exchange: echo the router's timestamp
+                    # (with our clocks) in that heartbeat
+                    ping_echo = msg["ts"]
+            elif t == "shutdown":
+                _log_report(backend)
+                try:
+                    chan.send({"t": "bye"}, timeout=1.0)
+                except (ChannelClosed, ChannelTimeout):
+                    pass                 # router already gone: exit anyway
+                tier = getattr(backend, "kv_tier", None)
+                if tier is not None:
+                    # graceful exit: spill the RAM ring so a restarted
+                    # replica's tier reopens warm (a crash loses exactly
+                    # the RAM tier; the spill's scan gate covers the rest)
+                    tier.close(flush=True)
+                _cleanup_shm(ring, readers)
+                return 0
+
+        for rid, kind, toks, off in backend.step(inj):
+            a = attempts.get(rid, 0)
+            if kind == "chunk":
+                if inj.countdown("replica_hang_after_chunks"):
+                    # process-wide wedge: heartbeats stop too, the
+                    # router's liveness deadline is the only way out
+                    time.sleep(float(inj.value("replica_hang_s") or 3600.0))
+                if inj.countdown("replica_stall_stream_after_chunks"):
+                    stall_until = time.monotonic() + float(
+                        inj.value("replica_stall_stream_s") or 1.0)
+                _trace_ev(rid, "chunk", n=len(toks), off=off)
+                _stream({"t": "chunk", "id": rid, "a": a, "off": off,
+                         "toks": toks})
+                if telem is not None:
+                    telem.registry.counter(
+                        "serving_replica_tokens_total",
+                        help="tokens streamed by this replica").inc(
+                        len(toks))
+            elif kind == "done":
+                attempts.pop(rid, None)
+                if inj.countdown("replica_drop_done"):
+                    continue             # lost completion reply
+                _trace_ev(rid, "done", n=len(toks))
+                _stream({"t": "done", "id": rid, "a": a, "toks": toks})
+                _trace_ship(rid)
+            elif kind == "gang_ok":
+                attempts.pop(rid, None)
+                seg = gang_meta.pop(rid, 0)
+                _trace_ev(rid, "gang_seg_ok", pages=int(toks))
+                _trace_ship(rid)
+                _stream({"t": "gang_seg_ok", "id": rid, "a": a,
+                         "seg": seg, "pages": int(toks)})
+            elif kind == "gang_fail":
+                attempts.pop(rid, None)
+                gang_meta.pop(rid, None)
+                pulls.pop(rid, None)
+                _trace_ev(rid, "gang_seg_fail", reason=str(toks))
+                _trace_ship(rid)
+                _stream({"t": "gang_seg_fail", "id": rid, "a": a,
+                         "reason": str(toks)})
+            else:
+                attempts.pop(rid, None)
+                _trace_ev(rid, "failed", reason=str(toks))
+                _stream({"t": "failed", "id": rid, "a": a,
+                         "reason": str(toks)})
+                _trace_ship(rid)
+
+        # sequences frozen for transfer — a prefill role's boundary
+        # crossings plus any router-requested rebalance victims: bundle
+        # and stream the page chunks (ring descriptors on the shm fast
+        # path) to the router, which relays them to the target. Pages
+        # stay pinned here until mig_ack / mig_abort / mig_resume.
+        for rid, bundle, catchup, off in backend.take_handoffs():
+            a = attempts.get(rid, 0)
+            if catchup:
+                # committed-but-unstreamed tokens the export drain
+                # folded in: stream them so the router's committed
+                # prefix stays gapless
+                _stream({"t": "chunk", "id": rid, "a": a, "off": off,
+                         "toks": catchup})
+            chunks, used = _wire_chunks(bundle)
+            _trace_ev(rid, "handoff_export", chunks=len(chunks),
+                      bytes=bundle.payload_bytes)
+            # non-final ship: the export may still commit, abort or
+            # resume here — those events ride the final segment
+            _trace_ship(rid, fin=False)
+            _stream({"t": "handoff", "id": rid, "a": a,
+                     "meta": bundle.meta(), "chunks": len(chunks),
+                     "shm": ring.name if used else None})
+            for c in chunks:
+                if inj.countdown("replica_crash_during_handoff"):
+                    inj.crash_now("replica_crash_during_handoff",
+                                  f"handoff of {rid}")
+                _stream({"t": "mig_chunk", "id": rid, "a": a, **c})
+            _stream({"t": "mig_eof", "id": rid, "a": a,
+                     "chunks": len(chunks)})
+            if telem is not None:
+                telem.registry.counter(
+                    "serving_replica_migrations_out_total",
+                    help="page bundles exported by this "
+                         "replica").inc()
+
+        if pulls:
+            # pull deadlines are LOCAL law: a dead router/peer can delay
+            # a held-back put at most this long before it recomputes
+            now_p = time.monotonic()
+            for rid in [r for r, e in list(pulls.items())
+                        if now_p >= e["deadline"]]:
+                _settle_pull(rid, 0)
+
+        if preempt_deadline is not None and (
+                backend.drain_done()
+                or time.monotonic() >= preempt_deadline):
+            # grace window closed (or the drain finished early):
+            # whatever still runs is orphaned work the router replays
+            # on a surviving replica — flush what the cache holds and
+            # get off the machine
+            pages = _drain_flush(backend, inj)
+            logger.warning(f"replica: preempted; flushed {pages} pages "
+                           f"into the tier, exiting "
+                           f"{PREEMPTED_EXIT_CODE}")
+            _cleanup_shm(ring, readers)
+            return PREEMPTED_EXIT_CODE
+
+        if retiring and (backend.drain_done()
+                         or time.monotonic() >= retire_deadline):
+            pages = _drain_flush(backend, inj)
+            logger.info(f"replica: retiring; flushed {pages} pages "
+                        f"into the tier")
+            try:
+                chan.send({"t": "bye"}, timeout=1.0)
+            except (ChannelClosed, ChannelTimeout):
+                pass
+            _cleanup_shm(ring, readers)
+            return 0
+
+        if stalled and time.monotonic() >= stall_until:
+            # stall expired: deliver the queued stream late — the router
+            # has usually reassigned by now and must drop these as stale
+            for m in stalled:
+                _send(m)
+            stalled.clear()
+
+        now = time.monotonic()
+        if now - last_hb >= hb_interval:
+            last_hb = now
+            # orphan hygiene rides the heartbeat cadence: work a router
+            # (restarted or not) never re-acked is flushed at its
+            # deadline even while a NEW router is connected
+            st.expire_orphans(now)
+            hb: dict = {"t": "hb", "load": backend.load(),
+                        "wv": dict(backend.weight_version)}
+            if ping_echo is not None:
+                # clock-sync answer: the router computes rtt from its
+                # echoed timestamp and our offset from the RTT midpoint
+                hb["echo"] = ping_echo
+                hb["mono"] = round(_tnow(), 6)
+                hb["wall"] = round(time.time() + skew, 6)
+                ping_echo = None
+            # the digest rides the heartbeat only when the trie actually
+            # changed — at heartbeat cadence, recomputing and re-shipping
+            # a warm cache's thousands of chain hashes every few dozen
+            # ms is pure waste (the router keeps its last copy)
+            ver = backend.digest_version()
+            if ver != digest_ver_sent:
+                hb["digest"] = backend.digest(digest_max)
+                digest_ver_sent = ver
+            # KV-tier residency rides the same ship-on-change scheme:
+            # the router's pull-vs-promote-vs-recompute cost model needs
+            # to know what the tier could serve locally
+            tver = backend.tier_version()
+            if tver != tier_ver_sent:
+                hb["tier_digest"] = backend.tier_digest(digest_max)
+                tier_ver_sent = tver
+            _send(hb)
+            if tier_refine:
+                tier = getattr(backend, "kv_tier", None)
+                if tier is not None:
+                    tier.refine_min_pages(block_size=backend.block_size)
+            if telem is not None:
+                _sync_tier_metrics(telem, backend, tier_stat_marks)
+                telem.write_snapshot(snap_path)
+
+
+def main(argv: list[str]) -> int:
+    import json
+
+    args = list(argv[1:])
+    listen = None
+    if args and args[0] == "--listen":
+        # remote-transport daemon (serving/transport.py): accept one
+        # router at a time on a TCP/unix socket, go back to accepting
+        # when that router disappears, exit only on an explicit shutdown
+        # — role-split replicas need not share a pipe parent or a host
+        listen = args[1]
+        args = args[2:]
+    raw = args[0] if args else os.environ.get(
+        "DS_TPU_REPLICA_CONFIG", "{}")
+    if raw.startswith("@"):
+        with open(raw[1:], encoding="utf-8") as f:
+            raw = f.read()
+    cfg = json.loads(raw)
+    if listen is not None:
+        from .transport import SocketListener
+
+        listener = SocketListener(listen)
+        logger.info(f"replica: listening on {listener.bound_address}")
+        # ONE daemon state across every router connection: in-flight
+        # decode continues through a router outage (offline_tick between
+        # accepts), streams re-attach on resync/re_adopt, and the orphan
+        # deadline bounds work no restarted router ever collects
+        state = DaemonState(cfg)
+        backoff = AcceptBackoff(
+            base_s=float(cfg.get("accept_backoff_base_s", 0.05)),
+            max_s=float(cfg.get("accept_backoff_max_s", 2.0)),
+            seed=int(cfg.get("seed", 0) or 0)
+            ^ int(cfg.get("replica_id", 0) or 0))
+        offline_preempt_t: float | None = None
+        try:
+            while True:
+                # the accept's select IS the idle sleep: a busy daemon
+                # polls fast so decode keeps moving, an idle one backs
+                # off (seeded exponential + jitter, capped) instead of
+                # spinning on accept timeouts while the router is down
+                timeout = 0.001 if state.backend.has_work() \
+                    else backoff.next()
+                chan = listener.accept_channel(timeout=timeout)
+                if chan is None:
+                    state.offline_tick()
+                    # a preemption latched with no router connected
+                    # still drains against the grace window, flushes
+                    # the radix into the tier, and exits 83 — the
+                    # respawning fleet reads the code, not the socket
+                    if state.preempt_h is not None \
+                            and state.preempt_h.check():
+                        if offline_preempt_t is None:
+                            offline_preempt_t = time.monotonic() \
+                                + float(state.preempt_cfg.get(
+                                    "deadline_s", 5.0))
+                        if state.backend.drain_done() or \
+                                time.monotonic() >= offline_preempt_t:
+                            _drain_flush(state.backend, state.inj)
+                            _cleanup_shm(state.ring, state.readers)
+                            return PREEMPTED_EXIT_CODE
+                    continue
+                backoff.reset()
+                try:
+                    rc = serve(cfg, chan, state)
+                except (ChannelClosed, ChannelTimeout) as e:
+                    logger.warning(f"replica: router lost ({e}); "
+                                   f"accepting again")
+                    state.on_disconnect()
+                    rc = None
+                finally:
+                    chan.close()
+                if rc in (0, PREEMPTED_EXIT_CODE):
+                    # explicit shutdown/retire (0) or a latched
+                    # preemption (83): the daemon's life is over either
+                    # way — the exit code is the fleet's classifier
+                    _cleanup_shm(state.ring, state.readers)
+                    return rc
+        except KeyboardInterrupt:
+            return 0
+        finally:
+            listener.close()
+    # fd hygiene: the protocol owns a PRIVATE dup of stdout, and fd 1 is
+    # pointed at stderr — any stray print()/C-level write to stdout lands
+    # in the log instead of corrupting the message stream
+    proto_fd = os.dup(1)
+    os.dup2(2, 1)
+    sys.stdout = sys.stderr
+    chan = LineChannel(0, proto_fd)
+    try:
+        return serve(cfg, chan)
+    except (ChannelClosed, ChannelTimeout) as e:
+        logger.warning(f"replica: channel lost ({e}); exiting")
+        return 0
+    except KeyboardInterrupt:
+        return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main(sys.argv))

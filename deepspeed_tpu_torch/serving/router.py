@@ -1,0 +1,3281 @@
+"""The serving router: admission, placement, failover — crash-safe.
+
+One router process fronts N replica workers (fleet.py). Requests are
+replayable records (protocol.py); the router owns nothing durable by
+default — its whole state is reconstructible from the records in
+flight, which is what makes failover "resend the record and dedup by
+trace ID". With ``RouterConfig.journal_dir`` set, the state is ALSO
+durable: every transition write-ahead-journals (serving/journal.py) and
+a restarted router replays the journal and re-adopts the fleet's
+in-flight work via the ``resync`` exchange — the router itself stops
+being a single point of failure.
+
+The control loop (:meth:`Router.poll`) is single-threaded and every wait
+in it is bounded (bin/check_deadlines.py lints the package): one
+``select`` across replica channels, deadline checks, restart policy,
+dispatch. No message, death, or wedge anywhere in the fleet can make the
+router block unboundedly.
+
+Request lifecycle::
+
+    submit -> [admission: tenant cap, queue bound, SLO shed]
+           -> queued (per-priority FIFO)
+           -> assigned (prefix-cache-aware placement, attempt nonce n)
+           -> streaming (chunks dedup'd/appended against the committed
+              prefix; stale attempts dropped by (slot, epoch, nonce))
+           -> done (replica's "done" carries the FULL stream —
+              authoritative, committed exactly once)
+         | -> failed {replica_lost | timeout | <replica reason> | ...}
+         | -> shed {queue_full | tenant_limit | shed_slo | shed_overload
+                    | draining | no_capacity}
+
+Failover: when a replica dies (process exit, EOF, heartbeat silence) or
+a single request's stream stalls past ``request_timeout_s``, its
+in-flight requests are REPLAYED onto a surviving replica — same record,
+fresh attempt nonce. Greedy decoding makes the replayed stream
+bit-identical, so the router keeps the already-streamed committed prefix
+and appends only beyond it; messages from the presumed-dead attempt are
+dropped by nonce (a slow original can never double-commit). Every retry,
+shed, stale drop, restart and breaker-open is a ``serving_router_*``
+counter, and ``/metrics?aggregate=1`` merges the replicas' snapshot
+files into one fleet scrape.
+"""
+from __future__ import annotations
+
+import json
+import os
+import time
+from collections import deque
+from dataclasses import dataclass, field
+
+from ..telemetry import LATENCY_BUCKETS_S, get_telemetry, configure as \
+    telemetry_configure, sanitize_label_value
+from ..telemetry.reqtrace import (TENANT_CARDINALITY_CAP,
+                                  TENANT_OVERFLOW_LABEL)
+from ..inference.migration import version_skew
+from ..runtime.resilience import FaultInjector
+from ..utils.logging import logger
+from .deploy import DeployConfig, DeployError, DeployManager, \
+    verify_deploy_target
+from .elastic import ElasticController
+from .journal import Journal, OPEN, reduce_router_records
+from .disagg import (DECODE_CAPABLE, MigrationState, PREFILL_CAPABLE,
+                     RebalancePolicy, ScaleAdvisor, role_of)
+from .fleet import DRAINING, Fleet, FleetConfig, QUARANTINED, READY
+from .push import PushPlanner
+from .placement import (StickyMap, best_digest_peer, chain_hashes,
+                        gang_segments, load_score, match_pages,
+                        pick_replica, plan_gang_prefill, plan_kv_source)
+from .protocol import ChannelClosed, RequestRecord, poll_channels
+
+#: terminal request states
+DONE, FAILED, SHED = "done", "failed", "shed"
+QUEUED, ASSIGNED = "queued", "assigned"
+#: journal-recovered, waiting for a replica to claim it via resync
+#: (bounded by ``resync_hold_s``, then it requeues and replays)
+RECOVERING = "recovering"
+#: gang prefill in flight: the prompt's prefill is sharded across a
+#: gang of prefill-capable replicas; the request is NOT assigned (no
+#: stream can arrive) until the merged chain lands and it requeues
+#: pinned to the final gang member
+GANG = "gang"
+
+
+class AdmissionError(RuntimeError):
+    """Structured admission refusal: ``reason`` is machine-readable (the
+    shed taxonomy in the module docstring), the message is for humans."""
+
+    def __init__(self, reason: str, detail: str = ""):
+        super().__init__(f"request refused: {reason}"
+                         + (f" ({detail})" if detail else ""))
+        self.reason = reason
+
+
+@dataclass
+class RouterConfig:
+    fleet: FleetConfig = field(default_factory=FleetConfig)
+    #: queued (not yet assigned) requests the router will hold
+    max_queue: int = 256
+    #: live (queued+assigned) requests per tenant; 0 = unlimited
+    per_tenant_live: int = 0
+    #: TTFT SLO driving shed decisions: when the estimated queue wait
+    #: (backlog tokens over the observed fleet token rate) exceeds
+    #: ``slo_ttft_s * shed_headroom``, priority<=0 admissions shed with
+    #: reason "shed_slo" (higher priorities ride the queue bound only).
+    #: None disables estimate-based shedding.
+    slo_ttft_s: float | None = None
+    shed_headroom: float = 1.0
+    #: per-request activity deadline: no chunk/done for this long (while
+    #: the replica itself stays healthy) -> the assignment is presumed
+    #: lost and the request replays elsewhere
+    request_timeout_s: float = 30.0
+    #: replays a request survives before failing "replica_lost"/"timeout"
+    max_retries: int = 2
+    poll_interval_s: float = 0.02
+    #: verify replayed greedy streams against the committed prefix (a
+    #: mismatch is counted either way; strict additionally fails the
+    #:  request — determinism is a correctness property here)
+    strict_replay: bool = False
+    #: disaggregated serving: how many ``mig_need`` resend rounds a
+    #: bundle transfer gets before the migration is abandoned and the
+    #: request replays from scratch
+    migration_resend_max: int = 3
+    #: autoscale hints (disagg.ScaleAdvisor): sustained-idle window for
+    #: the per-role scale-down signal
+    scale_idle_s: float = 10.0
+    #: placement-time cross-replica radix pulls (distributed prefix
+    #: cache): when the deepest digest match is NOT the placed replica,
+    #: ship a wanted-chain hint and have the placed replica pull the
+    #: chain from the peer instead of recomputing it
+    kv_pull: bool = True
+    #: the peer must beat the placed replica's own match by at least
+    #: this many pages to bother
+    kv_pull_min_pages: int = 2
+    #: puller-side recompute deadline AND the router's pull-state TTL
+    kv_pull_timeout_s: float = 5.0
+    #: cost-model rates (pull engages only when est transfer time beats
+    #: est prefill time; recompute is the always-safe fallback)
+    kv_pull_prefill_tok_s: float = 2000.0
+    kv_pull_relay_bytes_s: float = 64e6
+    kv_pull_shm_bytes_s: float = 2e9
+    kv_pull_overhead_s: float = 0.02
+    #: gang prefill: shard ONE long prompt's prefill across several
+    #: prefill-capable replicas (contiguous page-aligned segments),
+    #: merge the KV shards forward member-to-member over the kv_pull
+    #: machinery, and land the full merged chain on the final member —
+    #: the request then requeues pinned there and flows through the
+    #: untouched put/handoff/decode path. Engages only when the cost
+    #: model (plan_gang_prefill over the kv_pull_* rates) says a gang
+    #: beats a single prefill; ANY member failing collapses the gang
+    #: back to the ordinary single-replica prefill (bit-identical by
+    #: construction — the gang never samples).
+    gang_prefill: bool = True
+    #: prompts shorter than this never gang (the transfer overhead
+    #: can't win on short prefills regardless of rates)
+    gang_min_tokens: int = 512
+    #: cap on gang size K (cost model may choose fewer)
+    gang_max_members: int = 4
+    #: whole-gang deadline: a gang older than this collapses
+    gang_timeout_s: float = 10.0
+    #: KV tiering (inference/kvtier.py): per-tier byte rates for the
+    #: pull-vs-LOCAL-TIER-PROMOTE-vs-recompute decision
+    #: (placement.plan_kv_source) — a placed replica whose host-RAM/
+    #: NVMe tier already holds the chain promotes it locally instead of
+    #: paying a cross-replica pull. None = seed from the startup
+    #: micro-probe (kv_rate_probe) or the CPU-guessed fallbacks
+    #: (kvtier.GUESS_*); an explicit value always wins. All the
+    #: ``kv_pull_*`` rate constants above are config-overridable the
+    #: same way (router CLI cfg json included).
+    kv_tier_ram_bytes_s: float | None = None
+    kv_tier_nvme_bytes_s: float | None = None
+    #: measure host-RAM and spill-read bandwidth at router startup
+    #: (kvtier.measure_tier_rates — a few MB, a few ms) to seed the
+    #: unset per-tier rates; False pins the guessed fallbacks
+    kv_rate_probe: bool = True
+    #: directory the NVMe-rate micro-probe touches (it writes + reads a
+    #: few MB); None probes RAM only and guesses the NVMe rate
+    kv_rate_probe_dir: str | None = None
+    #: transfer-buffer GC: a buffered bundle/pull whose importer never
+    #: settles is dropped (and the migration failed) after this long
+    migration_buffer_ttl_s: float = 60.0
+    #: hot-replica rebalancing (disagg.RebalancePolicy): migrate the
+    #: youngest mid-decode sequence off a saturated decode-capable
+    #: replica onto an idle digest-compatible peer
+    rebalance: bool = True
+    rebalance_hot_util: float = 0.85
+    rebalance_idle_util: float = 0.5
+    rebalance_sustain_s: float = 2.0
+    rebalance_min_interval_s: float = 1.0
+    telemetry: bool = False
+    #: fleet-wide distributed tracing (telemetry/fleettrace.py): the
+    #: router records its own per-request events, replicas ship their
+    #: timeline segments back on the line protocol, heartbeat pings
+    #: estimate per-replica clock offsets, and the merged clock-aligned
+    #: timeline feeds black-box dumps + straggler gauges. Disabled (the
+    #: default) none of it exists: no assembler, no pings, no segment
+    #: shipping, zero buffer growth — the telemetry zero-overhead property.
+    fleet_trace: bool = False
+    #: router-observed TTFT threshold that triggers a black-box dump
+    #: (falls back to ``slo_ttft_s``; None with no slo_ttft_s = breach
+    #: dumps off, death/breaker/migration triggers still fire)
+    fleet_trace_slo_ttft_s: float | None = None
+    #: rate limit between black-box dumps (the breach storm guard)
+    fleet_breach_interval_s: float = 60.0
+    #: directory for black-box dump files (fleet_blackbox_*.json);
+    #: None = the flight recorder's default path / log-only
+    fleet_trace_dir: str | None = None
+    #: clock-sync ping cadence per ready replica
+    clock_sync_interval_s: float = 0.25
+    #: robust z-score past which a replica's latency distributions mark
+    #: it degraded (straggler detection — signals only)
+    straggler_z: float = 3.0
+    #: fleet watchtower (telemetry/timeseries.py + alerts.py): on the
+    #: poll tick the router samples its own registry plus every
+    #: replica's heartbeat-shipped snapshot into one time-series store
+    #: tagged by slot, evaluates the alert rules against it, cuts a
+    #: black-box dump on newly-firing CRITICAL alerts, and feeds firing
+    #: warning alerts to the elastic controller as hint signals.
+    #: Off (the default) none of it exists: no store, no sampler, no
+    #: rules — zero overhead by absence like fleet_trace.
+    watchtower: bool = False
+    #: history directory (segmented crc'd frames; None = memory-only)
+    watchtower_dir: str | None = None
+    #: sample + alert-evaluation cadence
+    watchtower_interval_s: float = 1.0
+    watchtower_segment_bytes: int = 1 << 20
+    watchtower_retention_bytes: int = 8 << 20
+    #: alert rules (telemetry.alerts.AlertRule list); None = the default
+    #: fleet pack scaled to watchtower_interval_s
+    watchtower_rules: list | None = None
+    #: retention caps for the black-box dump directory
+    #: (fleet_trace_dir), oldest-out past either bound
+    fleet_dump_max_files: int = 64
+    fleet_dump_max_bytes: int = 256 << 20
+    #: crash-safe control plane (serving/journal.py): a directory here
+    #: write-ahead-journals every router state transition (admits,
+    #: placements, committed-chunk progress, terminals, deploy phases)
+    #: and a restarted Router over the SAME directory replays it,
+    #: re-dials daemon replicas, and re-adopts their in-flight work via
+    #: the ``resync`` exchange. None (the default) = journaling off:
+    #: behavior identical to the stateless router.
+    journal_dir: str | None = None
+    #: journal durability vs a HOST crash ("always" | "interval" |
+    #: "none"); a SIGKILL'd router process loses nothing under any mode
+    #: (records are written unbuffered)
+    journal_fsync: str = "interval"
+    journal_fsync_interval_s: float = 0.2
+    journal_segment_bytes: int = 4 << 20
+    #: how long recovered in-flight requests wait for a replica to claim
+    #: them via resync (extended on each replica ready) before falling
+    #: back to the ordinary retry-with-replay path
+    resync_hold_s: float = 3.0
+    #: elastic fleet actuators (serving/elastic.py): act on sustained
+    #: ``serving_router_scale_hint`` signals — drain/retire idle
+    #: replicas (radix flushed tier-warm), spawn + pre-warm new ones,
+    #: flip roles at quiesce boundaries. Off (the default) the advisor
+    #: stays signals-only, exactly the pre-elastic router.
+    elastic: bool = False
+    #: never retire below this many READY replicas
+    elastic_min_replicas: int = 1
+    #: hard cap on fleet size for scale-up (0 = never ADD slots; spawn
+    #: then only revives previously retired ones)
+    elastic_max_replicas: int = 0
+    #: a hint must hold continuously this long before the controller
+    #: acts on it (the one-noisy-sample guard)
+    elastic_sustain_s: float = 1.0
+    #: quiet period between settled actions
+    elastic_cooldown_s: float = 5.0
+    #: drain budget: in-flight work asked off / finished within this,
+    #: then the victim is told to flush-and-exit regardless
+    elastic_drain_deadline_s: float = 10.0
+    #: spawn-to-READY budget before the action settles "timeout"
+    elastic_spawn_deadline_s: float = 30.0
+    #: hottest distinct prefix chains pushed into a fresh replica
+    elastic_prewarm_chains: int = 4
+    #: per-transfer (and whole prewarm phase) budget — best-effort: the
+    #: deadline settles the action "ok" either way
+    elastic_prewarm_deadline_s: float = 5.0
+    #: allow prefill<->decode re-role when one role wants up and the
+    #: other down simultaneously (cheaper than retire + spawn)
+    elastic_re_role: bool = True
+    #: anticipatory KV movement (serving/push.py): proactively ship hot
+    #: prefix chains to digest-cold decode-capable replicas while the
+    #: fleet is idle, so the next placement miss finds the pages
+    #: already resident. Strictly lower-priority than demand pulls.
+    kv_push: bool = False
+    #: concurrent proactive pushes in flight (fleet-wide)
+    kv_push_max_inflight: int = 2
+    #: min seconds between push launch rounds (rebalance-style
+    #: rate limit — pushes must never become churn)
+    kv_push_min_interval_s: float = 0.25
+    #: the idle budget: pushes engage only while the queue-wait
+    #: estimator reads at or under this (None estimate = cold = idle)
+    kv_push_idle_wait_s: float = 0.05
+    #: hottest distinct chains considered per launch round
+    kv_push_chains: int = 4
+    #: per-push budget offer-to-ack; past it the push fails "deadline"
+    kv_push_deadline_s: float = 5.0
+    #: per-(chain, target) cooldown — a chain just offered somewhere is
+    #: not re-offered there every tick (hysteresis against thrash)
+    kv_push_hysteresis_s: float = 5.0
+    #: minimum heat (sticky hits + live sharers) before a chain is
+    #: worth speculating bandwidth on
+    kv_push_min_heat: int = 2
+    #: transfer/compute overlap: a put whose pages are in flight
+    #: (pull or push join) admits IMMEDIATELY and prefills the suffix
+    #: beyond the promised boundary while the transfer lands, rolling
+    #: back to recompute if it fails — instead of holding admission
+    #: until the pages arrive
+    kv_overlap: bool = False
+    #: deterministic router-side chaos (runtime/resilience.py
+    #: FaultInjector, always HARD — a real no-unwind os._exit):
+    #: router_crash_after_admit / router_crash_after_place /
+    #: router_crash_before_relay_ack / router_crash_mid_kv_pull /
+    #: router_crash_mid_deploy_canary / router_crash_mid_elastic,
+    #: count-based like the replica points — the journal chaos matrix
+    #: drives these
+    faults: dict = field(default_factory=dict)
+
+
+@dataclass
+class _Req:
+    rec: RequestRecord
+    chain: list[int]
+    status: str = QUEUED
+    committed: list[int] = field(default_factory=list)
+    result: list[int] | None = None
+    reason: str | None = None
+    attempt: int = 0                  # bumps per assignment (dedup nonce)
+    retries: int = 0
+    assigned_slot: int = -1
+    assigned_epoch: int = -1
+    submit_t: float = 0.0
+    assign_t: float = 0.0
+    first_tok_t: float = 0.0
+    done_t: float = 0.0
+    last_activity_t: float = 0.0
+    hit_pages: int = 0
+    placed: list[int] = field(default_factory=list)   # slot per attempt
+    #: in-flight prefill->decode handoff (disagg.MigrationState)
+    mig: MigrationState | None = None
+    #: the request completed decode on a replica it migrated to
+    migrated: bool = False
+    #: pages shipped by a placement-time radix pull (0 = none/fell back)
+    pulled_pages: int = 0
+    #: a rebalance mig_request is out for this request (the next handoff
+    #: from its replica is the victim's — tagged kind="rebalance")
+    rebalance_asked: bool = False
+    rebalance_ask_t: float = 0.0
+    #: this request was rebalanced once already (or a rebalance for it
+    #: aborted): never pick it again — the anti-ping-pong hysteresis
+    rebalanced: bool = False
+    #: dispatch only to this slot (-1 = normal placement): the deploy
+    #: canary probe pins itself to the freshly-swapped replica; a pinned
+    #: request whose slot is not ready stays queued (its submitter's
+    #: deadline — the deploy probe timeout — bounds the wait)
+    pin_slot: int = -1
+    #: gang prefill (status GANG): members the prompt was sharded over
+    #: (0 = never ganged), whether the merged chain landed, and the
+    #: one-shot guard — a collapsed gang never re-engages
+    gang_k: int = 0
+    gang_merged: bool = False
+    gang_tried: bool = False
+    #: rebuilt from the journal by a restarted router incarnation
+    recovered: bool = False
+    #: claimed by a replica through the resync exchange (its stream
+    #: re-attached without replay)
+    readopted: bool = False
+
+
+class Router:
+    def __init__(self, cfg: RouterConfig | None = None):
+        self.cfg = cfg or RouterConfig()
+        telem = get_telemetry()
+        if self.cfg.telemetry:
+            telem = telemetry_configure(enabled=True)
+            snap = self.cfg.fleet.snapshot_dir
+            if snap:
+                os.makedirs(snap, exist_ok=True)
+                telem.reconfigure(peer_snapshot_glob=os.path.join(
+                    snap, "*.json"))
+        self._telem = telem
+        self.fleet = Fleet(self.cfg.fleet, telemetry=telem)
+        self._reqs: dict[str, _Req] = {}
+        self._queues: dict[int, deque[str]] = {}
+        self._sticky = StickyMap()
+        self._assigned_n: dict[int, int] = {}     # slot -> live assignments
+        self._tenant_live: dict[str, int] = {}
+        self._tenants_seen: set[str] = set()
+        self._draining = False
+        self._tid_ctr = 0
+        self._commits: deque[tuple[float, int]] = deque()  # (t, n) window
+        self._scale = ScaleAdvisor(slo_ttft_s=self.cfg.slo_ttft_s,
+                                   idle_s=self.cfg.scale_idle_s)
+        self._rebal = RebalancePolicy(
+            hot_util=self.cfg.rebalance_hot_util,
+            idle_util=self.cfg.rebalance_idle_util,
+            sustain_s=self.cfg.rebalance_sustain_s,
+            min_interval_s=self.cfg.rebalance_min_interval_s)
+        #: in-flight placement-time radix pulls (trace -> MigrationState
+        #: kind="pull"; separate from _Req.mig — a pulled request can
+        #: later hand off or rebalance like any other)
+        self._pulls: dict[str, MigrationState] = {}
+        #: in-flight gang prefills: tid -> {"members": [(slot, epoch)],
+        #: "ends": [pages], "ends_tok": [tokens], "stage": int,
+        #: "nonce": int, "started_t": float, "stage_t": float,
+        #: "pages": int}; the hop transfer for stage i rides
+        #: ``_pulls["g:" + tid]`` (kind="gang")
+        self._gangs: dict[str, dict] = {}
+        self.gang_plans = 0
+        self.gang_merges = 0
+        self.gang_fallbacks = 0
+        #: page geometry learned from the last bundle meta seen (the
+        #: pull cost model's bytes-per-page term; 0 until known)
+        self._page_bytes = 0
+        self.double_commits = 0
+        self.stale_msgs = 0
+        self.replay_mismatches = 0
+        self.migrations = 0
+        self.migration_fallbacks = 0
+        self.kv_pulls = 0
+        self.kv_pull_fallbacks = 0
+        #: placements where the cost model chose a LOCAL TIER PROMOTE
+        #: over a cross-replica pull (the placed replica's host-RAM/
+        #: NVMe tier already held the chain — kvtier.py)
+        self.kv_tier_locals = 0
+        # resolve the per-tier rates the cost model runs on: explicit
+        # config wins, else the startup micro-probe, else the guessed
+        # fallbacks (kv_pull satellite: the constants were CPU-guessed)
+        from ..inference.kvtier import (GUESS_NVME_BYTES_S,
+                                        GUESS_RAM_BYTES_S,
+                                        measure_tier_rates)
+        ram_s, nvme_s = (self.cfg.kv_tier_ram_bytes_s,
+                         self.cfg.kv_tier_nvme_bytes_s)
+        # the probe only pays off when some replica actually HAS a tier
+        # (the rates' one consumer is plan_kv_source's tier leg) — a
+        # tierless fleet must not spend startup time measuring it
+        fleet_cfg = self.cfg.fleet
+        tiered = bool((fleet_cfg.replica or {}).get("kv_tier")) or any(
+            (s or {}).get("kv_tier")
+            for s in (fleet_cfg.per_slot or {}).values())
+        if (ram_s is None or nvme_s is None) and self.cfg.kv_rate_probe \
+                and tiered:
+            probed = measure_tier_rates(self.cfg.kv_rate_probe_dir)
+            ram_s = probed["ram_bytes_s"] if ram_s is None else ram_s
+            nvme_s = probed["nvme_bytes_s"] if nvme_s is None else nvme_s
+        self._kv_rates = {
+            "ram": ram_s if ram_s is not None else GUESS_RAM_BYTES_S,
+            "nvme": nvme_s if nvme_s is not None else GUESS_NVME_BYTES_S,
+        }
+        self.rebalances = 0
+        #: cross-version KV transfers refused by the skew guard, by path
+        self.version_skews = 0
+        #: rolling weight deploys (serving/deploy.py): the active state
+        #: machine (None = no deploy ever started / last one finished
+        #: and was replaced) and per-outcome completion counts
+        self._deploy: DeployManager | None = None
+        self.deploys = {o: 0 for o in ("ok", "rolled_back", "aborted")}
+        # fleet-wide distributed tracing (telemetry/fleettrace.py):
+        # constructed ONLY when enabled — disabled is zero-overhead by
+        # absence, and replicas are told to record/ship segments via the
+        # config template so both sides gate on one knob
+        self._ftrace = None
+        self._straggler = None
+        self.blackbox_dumps = 0
+        self.trace_segments = 0
+        if self.cfg.fleet_trace:
+            from ..telemetry.fleettrace import (FleetTraceAssembler,
+                                                StragglerScorer)
+            self._ftrace = FleetTraceAssembler()
+            self._straggler = StragglerScorer(
+                z_threshold=self.cfg.straggler_z)
+            self.cfg.fleet.replica.setdefault("fleet_trace", True)
+        # fleet watchtower (telemetry/timeseries.py + alerts.py): same
+        # zero-overhead-by-absence discipline — off means no store, no
+        # alert manager, no sampling branch beyond one None check
+        self._watch = None
+        self._alerts = None
+        self._last_watch_sample = 0.0
+        if self.cfg.watchtower:
+            from ..telemetry.alerts import AlertManager, default_fleet_rules
+            from ..telemetry.timeseries import TimeSeriesStore
+            self._watch = TimeSeriesStore(
+                self.cfg.watchtower_dir,
+                segment_bytes=self.cfg.watchtower_segment_bytes,
+                retention_bytes=self.cfg.watchtower_retention_bytes)
+            rules = self.cfg.watchtower_rules
+            if rules is None:
+                rules = default_fleet_rules(
+                    sample_interval_s=self.cfg.watchtower_interval_s,
+                    slo_ttft_s=self.cfg.fleet_trace_slo_ttft_s
+                    if self.cfg.fleet_trace_slo_ttft_s is not None
+                    else self.cfg.slo_ttft_s)
+            self._alerts = AlertManager(
+                rules,
+                registry=telem.registry if telem.enabled else None)
+            telem.attach_watchtower(alerts_fn=self._alerts_payload,
+                                    series_fn=self._series_payload)
+        self._last_clock_ping = 0.0
+        self._last_bb_dump = 0.0
+        self._bb_dumped: set[str] = set()
+        #: breach dumps waiting for the live replica segment to land:
+        #: tid -> (deadline, trigger dict)
+        self._bb_pending: dict[str, tuple[float, dict]] = {}
+        self._seen_breaker_opens = 0
+        self._last_straggler_gauges = 0.0
+        # crash-safe control plane (serving/journal.py): deterministic
+        # router-side fault points are HARD — an injected crash is a
+        # real no-unwind process death, exactly what the journal exists
+        # to survive
+        self._inj = FaultInjector(spec=dict(self.cfg.faults or {}),
+                                  env="", hard=True)
+        self._journal: Journal | None = None
+        self._recovering = False
+        self._resync_until = 0.0
+        self._recovered_deploy: dict | None = None
+        self._jdeploy_key = None
+        self._journal_deploy_last: dict | None = None
+        self._jbytes_seen = 0
+        #: a deploy record (any outcome) exists in the journal — the CLI
+        #: uses this to not re-start a deploy recovery already owns
+        self.journal_saw_deploy = False
+        self._boots = 1
+        self.recovered = 0
+        self.readopted = 0
+        self.resync_orphans = 0
+        #: restart -> first committed chunk of a re-adopted stream (the
+        #: bench scorecard's recovery-time headline); None until observed
+        self.recovery_first_chunk_s: float | None = None
+        self._recover_t0 = time.monotonic()
+        self._recovered_elastic: dict | None = None
+        if self.cfg.journal_dir:
+            self._open_journal()
+        #: the scale-hint actuator (serving/elastic.py) — constructed
+        #: AFTER journal recovery (it adopts a half-done action, and a
+        #: retire that reached its flush phase must park the slot
+        #: RETIRED before fleet.start() can resurrect it) and BEFORE
+        #: start() is ever called
+        self._elastic = ElasticController(
+            self, recovered=self._recovered_elastic) \
+            if self.cfg.elastic else None
+        #: anticipatory-push planner (serving/push.py) — always
+        #: constructed (state is a few dicts); tick() gates on
+        #: ``cfg.kv_push``, and demand placement prices its in-flight
+        #: pushes either way
+        self._push = PushPlanner(self)
+
+    # -- crash safety: journal + recovery (serving/journal.py) -----------
+    def _open_journal(self) -> None:
+        t0 = time.perf_counter()
+        self._journal = Journal(
+            self.cfg.journal_dir, fsync=self.cfg.journal_fsync,
+            fsync_interval_s=self.cfg.journal_fsync_interval_s,
+            segment_bytes=self.cfg.journal_segment_bytes)
+        state = reduce_router_records(self._journal.replay())
+        self._journal.snapshot_fn = self._journal_snapshot
+        self.journal_saw_deploy = state.saw_deploy
+        self._recovered_deploy = state.deploy
+        self._recovered_elastic = state.elastic
+        bs = self._fleet_block_size()
+        for tid, r in state.reqs.items():
+            req = _Req(rec=r.rec,
+                       chain=chain_hashes(r.rec.prompt[:-1], bs)
+                       if bs else [],
+                       status=RECOVERING, committed=list(r.committed),
+                       attempt=r.attempt, retries=r.retries,
+                       submit_t=time.monotonic(), recovered=True)
+            if r.status != OPEN:
+                req.status = {"done": DONE, "failed": FAILED,
+                              "shed": SHED}.get(r.status, FAILED)
+                req.reason = r.reason
+                req.result = r.result
+            else:
+                req.last_activity_t = time.monotonic()
+                self._tenant_live[r.rec.tenant] = \
+                    self._tenant_live.get(r.rec.tenant, 0) + 1
+            self._reqs[tid] = req
+        self.recovered = sum(1 for q in self._reqs.values()
+                             if q.status == RECOVERING)
+        self._recovering = self.recovered > 0 \
+            or self._recovered_deploy is not None
+        self._resync_until = time.monotonic() + self.cfg.resync_hold_s
+        self._boots = state.boots + 1
+        self._jrec("boot", {"gen": self._boots,
+                            "ts": round(time.time(), 3)}, critical=True)
+        replay_s = time.perf_counter() - t0
+        if state.boots:
+            logger.warning(
+                f"router: recovered journal {self.cfg.journal_dir} "
+                f"(incarnation {state.boots + 1}): {self.recovered} "
+                f"in-flight request(s), deploy "
+                f"{'in flight' if self._recovered_deploy else 'settled'},"
+                f" replay {replay_s * 1e3:.1f}ms, "
+                f"{self._journal.bad_records} torn record(s) skipped")
+        if self._telem.enabled:
+            if state.boots:
+                self._telem.registry.counter(
+                    "serving_router_recoveries_total",
+                    help="router incarnations that recovered prior "
+                         "state from the write-ahead journal").inc()
+            self._telem.registry.gauge(
+                "serving_router_journal_replay_s",
+                help="journal replay duration at the last router "
+                     "boot").set(round(replay_s, 6))
+            self._telem.registry.gauge(
+                "serving_router_recovered_requests",
+                help="non-terminal requests rebuilt from the journal at "
+                     "the last router boot").set(self.recovered)
+
+    def _journal_snapshot(self) -> dict:
+        """Compaction snapshot written at segment rotation: every
+        non-terminal request (full replayable record + committed prefix
+        + nonce), TERMINAL results (id + status + tokens — what keeps
+        duplicate re-submission dedup and ``result()`` fidelity across a
+        compaction; no larger than what ``_reqs`` already retains in
+        memory), the deploy state, and the incarnation count — everything
+        an older segment could have said that still matters."""
+        reqs, terms = [], []
+        for tid, r in self._reqs.items():
+            if r.status in (DONE, FAILED, SHED):
+                e = {"id": tid, "status": r.status,
+                     "tenant": r.rec.tenant, "prio": r.rec.priority}
+                if r.reason:
+                    e["reason"] = r.reason
+                if r.status == DONE and r.result is not None:
+                    e["toks"] = list(r.result)
+                terms.append(e)
+                continue
+            w = r.rec.to_wire()
+            reqs.append({"id": tid, "prompt": w["prompt"],
+                         "max_new": w["max_new"], "eos": w["eos"],
+                         "tenant": w["tenant"], "prio": r.rec.priority,
+                         "committed": list(r.committed),
+                         "a": r.attempt, "retries": r.retries})
+        if self._deploy is not None and self._deploy.active:
+            dep = self._journal_deploy_last
+        else:
+            # a recovered deploy still awaiting its rollback must
+            # survive a compaction that races the recovery window
+            dep = self._recovered_deploy
+        return {"reqs": reqs, "terms": terms, "deploy": dep,
+                "saw_deploy": self.journal_saw_deploy,
+                "elastic": self._elastic.journal_payload()
+                if self._elastic is not None
+                else self._recovered_elastic,
+                "boots": self._boots}
+
+    def _jrec(self, kind: str, data: dict,
+              critical: bool = False) -> None:
+        if self._journal is None:
+            return
+        self._journal.append(kind, data, critical=critical)
+        if self._telem.enabled:
+            self._telem.registry.counter(
+                "serving_router_journal_records_total",
+                labels={"kind": sanitize_label_value(kind)},
+                help="write-ahead journal records appended, by "
+                     "kind").inc()
+            delta = self._journal.bytes_appended - self._jbytes_seen
+            self._jbytes_seen = self._journal.bytes_appended
+            self._telem.registry.counter(
+                "serving_router_journal_bytes_total",
+                help="write-ahead journal bytes appended").inc(delta)
+
+    def journal_stats(self) -> dict | None:
+        """Journal counters for scorecards/results, or None when off."""
+        return self._journal.stats() if self._journal is not None \
+            else None
+
+    def _tick_recovery(self, now: float) -> None:
+        """Recovery settlement: requests a resync claimed are already
+        streaming; once the hold expires (it extends on every replica
+        ready), everything still unclaimed falls back to the ordinary
+        retry-with-replay path — fresh nonces dedup any late deliveries
+        from un-adopted copies — and a journaled in-flight deploy
+        resolves deterministically (rollback)."""
+        if not self._recovering:
+            return
+        open_recs = [tid for tid, r in self._reqs.items()
+                     if r.status == RECOVERING]
+        if now < self._resync_until \
+                and (open_recs or self._recovered_deploy is not None):
+            return
+        for tid in open_recs:
+            req = self._reqs[tid]
+            req.status = QUEUED
+            req.attempt += 1     # invalidate any un-adopted copy's stream
+            self._queues.setdefault(req.rec.priority,
+                                    deque()).append(tid)
+            self._jrec("requeue", {"id": tid, "a": req.attempt,
+                                   "reason": "resync_orphan"})
+            self.resync_orphans += 1
+            logger.warning(f"router: recovered request {tid} unclaimed "
+                           f"by resync; replaying from scratch")
+            if self._telem.enabled:
+                self._telem.registry.counter(
+                    "serving_router_resync_orphans_total",
+                    help="journal-recovered requests no replica claimed "
+                         "within the resync hold (fell back to "
+                         "retry-with-replay)").inc()
+        self._rollback_recovered_deploy()
+        self._recovering = False
+
+    def _rollback_recovered_deploy(self) -> None:
+        """A deploy was journaled in flight when the router died. The
+        deterministic resolution is ROLLBACK: every resynced replica
+        serving the half-deployed version swaps back to the journaled
+        rollback target (the fleet template never advanced — it commits
+        only at convergence — so restarts already load the old
+        version)."""
+        dep = self._recovered_deploy
+        self._recovered_deploy = None
+        if dep is None:
+            return
+        wid = int(dep.get("wid", 0))
+        prev = dep.get("prev") or {}
+        rolled = 0
+        for h in self.fleet.ready():
+            if int((h.wv or {}).get("id", -1)) == wid:
+                h.send({"t": "swap", "wid": int(prev.get("wid", 0)),
+                        "ckpt": prev.get("ckpt"),
+                        "tag": prev.get("tag")})
+                rolled += 1
+        self.deploys["rolled_back"] = \
+            self.deploys.get("rolled_back", 0) + 1
+        self._jrec("deploy", {"wid": wid, "phase": "rollback",
+                              "outcome": "rolled_back",
+                              "reason": "router_crash",
+                              "prev": dict(prev)}, critical=True)
+        logger.warning(f"router: deploy to v{wid} was in flight at the "
+                       f"crash (journaled phase {dep.get('phase')}); "
+                       f"rolled {rolled} replica(s) back to "
+                       f"v{prev.get('wid', 0)}")
+        if self._telem.enabled:
+            self._telem.registry.counter(
+                "serving_router_deploys_total",
+                labels={"outcome": "rolled_back"},
+                help="rolling weight deploys by terminal outcome "
+                     "(ok | rolled_back | aborted)").inc()
+
+    def _journal_deploy_tick(self) -> None:
+        """Journal deploy phase transitions (one record per change, so
+        recovery knows exactly how far the roll got)."""
+        if self._journal is None or self._deploy is None:
+            return
+        dep = self._deploy
+        key = (dep.wid, dep.phase, dep.outcome)
+        if key == self._jdeploy_key:
+            return
+        self._jdeploy_key = key
+        self.journal_saw_deploy = True
+        payload = {"wid": dep.wid, "phase": dep.phase,
+                   "outcome": dep.outcome, "reason": dep.reason,
+                   "ckpt": dep.ckpt, "tag": dep.tag,
+                   "prev": dict(dep.prev)}
+        self._journal_deploy_last = payload
+        self._jrec("deploy", payload, critical=True)
+
+    def _on_resync(self, h, msg: dict) -> None:
+        """A replica answered resync with its inventory: re-adopt every
+        recovered request it still holds (greedily — the first reporter
+        wins, and greedy determinism makes any claimant's continued
+        stream identical), tell it to flush whatever this router does
+        not know or already re-placed, and fold the shipped
+        digest/role/version into the handle like a heartbeat would."""
+        if "digest" in msg:
+            d = msg["digest"]
+            h.digest = set(d) if d else None
+        if "tier_digest" in msg:
+            d = msg["tier_digest"]
+            h.tier_digest = set(d) if d else None
+        h.role = str(msg.get("role", h.role))
+        if "wv" in msg:
+            self._note_wv(h, msg.get("wv"))
+        now = time.monotonic()
+        for e in msg.get("reqs") or ():
+            tid = str(e.get("id"))
+            req = self._reqs.get(tid)
+            if req is None or req.status in (DONE, FAILED, SHED) \
+                    or (req.status == ASSIGNED
+                        and req.assigned_slot != h.slot):
+                # unknown here, already terminal, or re-placed elsewhere
+                # — nobody will ever collect that copy: flush it
+                h.send({"t": "flush", "id": tid})
+                continue
+            if req.status == ASSIGNED:
+                continue             # already re-adopted on this slot
+            if req.status == QUEUED:
+                for q in self._queues.values():
+                    if tid in q:
+                        q.remove(tid)
+                        break
+            req.attempt += 1
+            req.status = ASSIGNED
+            req.assigned_slot = h.slot
+            req.assigned_epoch = h.epoch
+            req.assign_t = req.last_activity_t = now
+            req.readopted = True
+            req.placed.append(h.slot)
+            self._assigned_n[h.slot] = \
+                self._assigned_n.get(h.slot, 0) + 1
+            self._jrec("place", {"id": tid, "slot": h.slot,
+                                 "epoch": h.epoch, "a": req.attempt,
+                                 "via": "readopt"})
+            h.send({"t": "re_adopt", "id": tid, "a": req.attempt,
+                    "have": len(req.committed)})
+            self.readopted += 1
+            self._fev(tid, "readopt", slot=h.slot,
+                      have=len(req.committed))
+            if self._telem.enabled:
+                self._telem.registry.counter(
+                    "serving_router_readopted_total",
+                    help="recovered requests a replica claimed through "
+                         "the resync exchange (streams re-attached "
+                         "without replay)").inc()
+
+    # -- lifecycle -------------------------------------------------------
+    def start(self, min_ready: int = 1) -> None:
+        """Spawn the fleet and wait (bounded by the fleet's
+        ``ready_timeout_s``) until ``min_ready`` replicas answered."""
+        self.fleet.start()
+        deadline = time.monotonic() + self.cfg.fleet.ready_timeout_s
+        while len(self.fleet.ready()) < min_ready:
+            if time.monotonic() >= deadline:
+                raise RuntimeError(
+                    f"fleet: {len(self.fleet.ready())}/{min_ready} "
+                    f"replicas ready within "
+                    f"{self.cfg.fleet.ready_timeout_s}s")
+            self.poll(0.05)
+
+    def close(self) -> None:
+        self.fleet.shutdown()
+        if self._journal is not None:
+            self._journal.close()
+        if self._watch is not None:
+            self._watch.close()
+            # detach /alerts + /series so a later router in this process
+            # doesn't serve this (now dead) router's state
+            self._telem.attach_watchtower(None, None)
+
+    def abandon(self) -> None:
+        """Chaos/bench hook: the in-process emulation of a router crash.
+        Every fleet channel drops with NO shutdown message, NO replica
+        kill and NO journal flush — ``--listen`` daemon slots observe a
+        disconnect and keep decoding (buffering for resync), pipe
+        children exit on their closed pipes. This Router object is dead
+        afterwards; build a new one over the same ``journal_dir`` to
+        recover."""
+        self.fleet.abandon()
+        self._journal = None             # deliberately not closed/flushed
+
+    def __enter__(self) -> "Router":
+        self.start()
+        return self
+
+    def __exit__(self, *exc) -> None:
+        self.close()
+
+    # -- admission -------------------------------------------------------
+    def submit(self, prompt, *, tenant: str = "default",
+               max_new_tokens: int = 16, eos_token_id: int | None = None,
+               priority: int = 0, trace_id: str | None = None,
+               pin_slot: int = -1) -> str:
+        """Admit a request or refuse it with a structured
+        :class:`AdmissionError`. Returns the trace ID; results arrive via
+        :meth:`poll`/:meth:`run` and :meth:`result`."""
+        if self._draining:
+            self._count_shed("draining", tenant)
+            raise AdmissionError("draining")
+        if self.fleet.replicas and all(r.state == QUARANTINED
+                                       for r in self.fleet.replicas):
+            # degrade mode: every slot's breaker is open — nothing will
+            # serve this within any SLO, fail fast with a structured
+            # reason instead of queueing into the void
+            self._count_shed("no_capacity", tenant)
+            raise AdmissionError("no_capacity",
+                                 "all replica slots quarantined")
+        cap = self.cfg.per_tenant_live
+        if cap and self._tenant_live.get(tenant, 0) >= cap:
+            self._count_shed("tenant_limit", tenant)
+            raise AdmissionError("tenant_limit",
+                                 f"{tenant} at {cap} live requests")
+        n_queued = sum(len(q) for q in self._queues.values())
+        if n_queued >= self.cfg.max_queue:
+            victim = self._lowest_priority_queued(below=priority)
+            if victim is None:
+                self._count_shed("queue_full", tenant)
+                raise AdmissionError(
+                    "queue_full", f"{n_queued} queued (max "
+                    f"{self.cfg.max_queue}), none lower priority")
+            # priority shed: a lower-priority queued request yields its
+            # place — it terminates SHED with a structured reason, the
+            # submitter of THIS request gets the slot
+            self._terminate(victim, SHED, "shed_overload")
+        if self.cfg.slo_ttft_s is not None and priority <= 0:
+            est = self._est_queue_wait_s()
+            if est is not None and est > self.cfg.slo_ttft_s \
+                    * self.cfg.shed_headroom:
+                self._count_shed("shed_slo", tenant)
+                raise AdmissionError(
+                    "shed_slo", f"estimated queue wait {est:.2f}s over "
+                    f"TTFT SLO {self.cfg.slo_ttft_s}s")
+
+        self._tid_ctr += 1
+        tid = trace_id or f"r{os.getpid():x}-{self._tid_ctr}"
+        if tid in self._reqs:
+            raise ValueError(f"duplicate trace id {tid}")
+        bs = self._fleet_block_size()
+        rec = RequestRecord(trace_id=tid,
+                            prompt=[int(t) for t in prompt],
+                            max_new_tokens=int(max_new_tokens),
+                            eos_token_id=eos_token_id, tenant=tenant,
+                            priority=int(priority),
+                            submitted_t=time.monotonic())
+        # the chain commits to full pages of the PREFIX a replica could
+        # actually serve from cache: the prompt's last token always
+        # computes fresh (its forward produces the first logits)
+        chain = chain_hashes(rec.prompt[:-1], bs) if bs else []
+        req = _Req(rec=rec, chain=chain, submit_t=rec.submitted_t,
+                   pin_slot=int(pin_slot))
+        self._reqs[tid] = req
+        self._queues.setdefault(rec.priority, deque()).append(tid)
+        self._tenant_live[tenant] = self._tenant_live.get(tenant, 0) + 1
+        self._jrec("admit", {"id": tid, "prompt": rec.prompt,
+                             "max_new": rec.max_new_tokens,
+                             "eos": rec.eos_token_id, "tenant": tenant,
+                             "prio": rec.priority}, critical=True)
+        if self._inj.countdown("router_crash_after_admit"):
+            self._inj.crash_now("router_crash_after_admit",
+                                f"admit of {tid}")
+        self._fev(tid, "enqueue", tenant=tenant, prompt=len(rec.prompt),
+                  priority=int(priority))
+        if self._telem.enabled:
+            self._telem.registry.counter(
+                "serving_router_requests_total",
+                help="requests admitted by the router").inc()
+            self._telem.registry.counter(
+                "serving_tenant_requests_total",
+                labels={"tenant": self._tenant_label(tenant)},
+                help="router admissions per tenant").inc()
+        return tid
+
+    def _lowest_priority_queued(self, below: int) -> str | None:
+        for p in sorted(self._queues):
+            if p >= below:
+                return None
+            q = self._queues[p]
+            if q:
+                return q[0]              # oldest at the lowest priority
+        return None
+
+    def _est_queue_wait_s(self) -> float | None:
+        """Backlog tokens over the observed commit rate (5s window).
+        None while cold — estimate-based shedding never fires before the
+        fleet has produced tokens to estimate from."""
+        now = time.monotonic()
+        while self._commits and now - self._commits[0][0] > 5.0:
+            self._commits.popleft()
+        tok = sum(n for _, n in self._commits)
+        if tok < 16:
+            return None
+        # rate over the ACTUAL observed span (floored against div-zero),
+        # not the window width — right after warm-up the history covers
+        # far less than 5s and dividing by the window would underestimate
+        # the fleet ~25x and shed load it could serve within SLO
+        span = min(max(now - self._commits[0][0], 0.25), 5.0)
+        rate = tok / span
+        backlog = sum(
+            r.rec.max_new_tokens + len(r.rec.prompt) // 8
+            for r in self._reqs.values() if r.status == QUEUED)
+        return backlog / rate
+
+    # -- the control loop ------------------------------------------------
+    def poll(self, budget_s: float | None = None) -> None:
+        """One tick: reap/restart replicas, replay orphans, pump
+        messages, enforce per-request deadlines, dispatch the queue."""
+        now = time.monotonic()
+        for r in self.fleet.maintain(now):
+            self._sticky.forget_slot(r.slot)
+            self._rebal.note_slot_died(r.slot)
+            if self._ftrace is not None:
+                # black-box the death BEFORE replaying its orphans: the
+                # dump's timeline is one of the requests the death
+                # interrupted, assembled from router-side events plus
+                # whatever segments already shipped (the surviving
+                # replicas' halves)
+                orphan = next(
+                    (tid for tid, rq in self._reqs.items()
+                     if rq.status == ASSIGNED
+                     and rq.assigned_slot == r.slot
+                     and rq.assigned_epoch <= r.epoch), None)
+                self._blackbox({"kind": "replica_death", "slot": r.slot,
+                                "trace_id": orphan})
+                self._straggler.forget_slot(r.slot)
+                # the dead incarnation's clock samples are deliberately
+                # KEPT: its buffered trace segments still need alignment
+                # (ClockSync keys by (slot, epoch) and bounds retention)
+            self._fail_pulls_from(r.slot, r.epoch)
+            self._fail_gangs_from(r.slot, r.epoch)
+            self._push.note_slot_died(r)
+            if self._elastic is not None:
+                self._elastic.note_slot_died(r)
+            # retired slots normally drained clean (no-op replay);
+            # drain-deadline stragglers and preempted streams replay
+            # through the ordinary orphan path
+            self._replay_orphans(r.slot, r.epoch, "replica_lost")
+        if self._ftrace is not None \
+                and self.fleet.breaker_opens_total > self._seen_breaker_opens:
+            self._seen_breaker_opens = self.fleet.breaker_opens_total
+            self._blackbox({"kind": "breaker_open"})
+        for ch in poll_channels(
+                self.fleet.channels(),
+                self.cfg.poll_interval_s if budget_s is None else budget_s):
+            h = self.fleet.by_channel(ch)
+            if h is None:
+                continue
+            while True:
+                try:
+                    msg = ch.recv(timeout=0)
+                except ChannelClosed:
+                    break                # maintain() reaps it next tick
+                if msg is None:
+                    break
+                h.last_msg_t = time.monotonic()
+                self._handle(h, msg)
+        self._check_deadlines(time.monotonic())
+        now = time.monotonic()
+        self._sweep_transfers(now)
+        if self._ftrace is not None:
+            # clock-sync pings (the replicas echo next heartbeat), any
+            # breach dumps whose live segments landed, straggler gauges
+            if now - self._last_clock_ping \
+                    >= self.cfg.clock_sync_interval_s:
+                self._last_clock_ping = now
+                for rep in self.fleet.ready():
+                    rep.send({"t": "ping",
+                              "ts": round(time.monotonic(), 6)})
+            self._sweep_blackbox(now)
+            if now - self._last_straggler_gauges >= 1.0:
+                self._last_straggler_gauges = now
+                self._update_straggler_gauges()
+        if self._watch is not None and now - self._last_watch_sample \
+                >= self.cfg.watchtower_interval_s:
+            self._last_watch_sample = now
+            self._watchtower_tick(now)
+        if self._deploy is not None and self._deploy.active:
+            if self._deploy.phase in ("canary_probe", "canary_soak") \
+                    and self._inj.countdown(
+                        "router_crash_mid_deploy_canary"):
+                self._inj.crash_now("router_crash_mid_deploy_canary",
+                                    f"deploy v{self._deploy.wid} canary")
+            # the rolling-deploy state machine: deadline checks + the
+            # next swap/probe/rollback action, one bounded step per tick
+            self._deploy.tick(now)
+            self._journal_deploy_tick()
+        self._tick_recovery(now)
+        self._dispatch(now)
+        # per-role autoscale hints: signals only (gauges), no actuator
+        self._scale.update(
+            now, self.fleet.ready(),
+            sum(len(q) for q in self._queues.values()),
+            self._est_queue_wait_s(),
+            registry=self._telem.registry if self._telem.enabled
+            else None)
+        # hot-replica rebalancing consumes those same saturation signals
+        # — this is the one actuator, and it is rate-limited + hysteretic
+        # (disagg.RebalancePolicy) so it can never flap
+        if self.cfg.rebalance:
+            self._maybe_rebalance(now)
+        # anticipatory pushes ride the leftover idle capacity AFTER
+        # dispatch and rebalance saw the tick — the planner's own gates
+        # (no demand pulls in flight, queue-wait under the idle budget,
+        # rate limit + per-chain cooldown) keep it strictly background
+        self._push.tick(now)
+        # elastic fleet-shape actuators last: they read the freshly
+        # updated hints and the post-dispatch assignment counts
+        if self._elastic is not None:
+            self._elastic.tick(now)
+
+    def run(self, deadline_s: float = 60.0) -> dict:
+        """Poll until every submitted request is terminal, or fail the
+        stragglers with reason ``router_deadline`` at the deadline (the
+        loop is bounded NO MATTER WHAT the fleet does). Returns
+        :meth:`results`."""
+        deadline = time.monotonic() + deadline_s
+        while any(r.status in (QUEUED, ASSIGNED, RECOVERING, GANG)
+                  for r in self._reqs.values()):
+            if time.monotonic() >= deadline:
+                for tid, r in list(self._reqs.items()):
+                    if r.status in (QUEUED, ASSIGNED, RECOVERING, GANG):
+                        self._terminate(tid, FAILED, "router_deadline")
+                break
+            self.poll()
+        return self.results()
+
+    # -- zero-downtime weight deploys (serving/deploy.py) ----------------
+    # One rolling swap at a time: canary -> probe -> soak -> replica-by-
+    # replica, at most one replica quiesced fleet-wide, automatic
+    # rollback on canary breach / swap failure / crash. The state
+    # machine is ticked from poll(); nothing here blocks.
+
+    def start_deploy(self, ckpt: str, tag: str | None = None,
+                     cfg: DeployConfig | None = None) -> dict:
+        """Begin a rolling deploy of the verified checkpoint at
+        ``ckpt`` (tag resolved via its ``latest`` when not given).
+        Non-blocking: progress rides :meth:`poll`; watch
+        :meth:`deploy_status`. Raises :class:`~.deploy.DeployError` on a
+        bad target and ``RuntimeError`` when a deploy is already
+        running. Returns the initial status dict."""
+        if self._deploy is not None and self._deploy.active:
+            raise RuntimeError(
+                f"a deploy to v{self._deploy.wid} is already running "
+                f"(phase {self._deploy.phase})")
+        rtag, digest = verify_deploy_target(ckpt, tag)
+        wid = 1 + max(
+            [int(self.fleet.cfg.replica.get("wid", 0))]
+            + [int((r.wv or {}).get("id", 0))
+               for r in self.fleet.replicas])
+        self._deploy = DeployManager(self, os.path.abspath(ckpt), rtag,
+                                     wid, digest, cfg or DeployConfig())
+        self._jdeploy_key = None
+        self._journal_deploy_tick()      # the deploy is now journaled
+        return self._deploy.status()
+
+    def deploy(self, ckpt: str, tag: str | None = None,
+               cfg: DeployConfig | None = None,
+               deadline_s: float = 180.0) -> dict:
+        """Blocking convenience over :meth:`start_deploy`: poll until
+        the deploy reaches a terminal outcome (bounded by
+        ``deadline_s`` on top of the deploy's own deadline). Traffic
+        submitted before or during keeps flowing — poll() serves it on
+        the same ticks."""
+        self.start_deploy(ckpt, tag, cfg)
+        deadline = time.monotonic() + deadline_s
+        while self._deploy.active:
+            if time.monotonic() >= deadline:
+                break
+            self.poll()
+        return self._deploy.status()
+
+    def deploy_status(self) -> dict | None:
+        """The latest (possibly finished) deploy's status, or None."""
+        return self._deploy.status() if self._deploy is not None else None
+
+    def note_deploy_finished(self, dep: DeployManager) -> None:
+        """DeployManager callback at terminal transition: outcome
+        counters + the fleet-target version gauge."""
+        self.deploys[dep.outcome] = self.deploys.get(dep.outcome, 0) + 1
+        self._journal_deploy_tick()      # the terminal outcome is durable
+        if self._ftrace is not None and dep.outcome != "ok":
+            self._blackbox({"kind": "deploy_" + dep.outcome,
+                            "reason": dep.reason})
+        if self._telem.enabled:
+            self._telem.registry.counter(
+                "serving_router_deploys_total",
+                labels={"outcome": dep.outcome},
+                help="rolling weight deploys by terminal outcome "
+                     "(ok | rolled_back | aborted)").inc()
+            self._telem.registry.gauge(
+                "serving_router_weight_version",
+                help="the fleet template's deployed weight-version id "
+                     "(what a restarted replica loads)").set(
+                int(self.fleet.cfg.replica.get("wid", 0)))
+
+    def _note_wv(self, h, wv: dict | None) -> None:
+        """A ready/heartbeat carried a weight version: track it on the
+        handle and invalidate what a version change breaks — sticky
+        placement entries bias toward cache the OLD version computed."""
+        if wv is None or wv == h.wv:
+            return
+        if h.wv is not None:
+            self._sticky.forget_slot(h.slot)
+        h.wv = dict(wv)
+        if self._telem.enabled:
+            self._telem.registry.gauge(
+                "serving_router_replica_weight_version",
+                labels={"replica": str(h.slot)},
+                help="weight-version id each replica currently serves "
+                     "(mixed values across replicas = a rolling deploy "
+                     "in flight)").set(int(wv.get("id", 0)))
+
+    def _count_version_skew(self, path: str) -> None:
+        self.version_skews += 1
+        if self._telem.enabled:
+            self._telem.registry.counter(
+                "serving_router_version_skew_total",
+                labels={"path": path},
+                help="cross-version KV transfers refused by the "
+                     "rolling-deploy skew guard, by path (the fallback "
+                     "is recompute / resume-on-source — never a "
+                     "mixed-version forward)").inc()
+
+    # -- message handling ------------------------------------------------
+    def _handle(self, h, msg: dict) -> None:
+        t = msg.get("t")
+        if t == "ready":
+            self.fleet.on_ready(h, msg)
+            self._note_wv(h, msg.get("wv"))
+            if self._journal is not None:
+                # crash-safe control plane: ask what this incarnation
+                # still holds (re-adoption); a fresh replica answers
+                # with an empty inventory, so this is cheap when there
+                # is nothing to recover
+                h.send({"t": "resync"})
+                if self._recovering:
+                    self._resync_until = max(
+                        self._resync_until,
+                        time.monotonic() + self.cfg.resync_hold_s)
+        elif t == "resync_ok":
+            self._on_resync(h, msg)
+        elif t == "hb":
+            h.load = msg.get("load")
+            if "digest" in msg:
+                # absent key = unchanged since the last shipped digest
+                # (replicas version it); the router keeps its copy
+                d = msg["digest"]
+                h.digest = set(d) if d else None
+            if "tier_digest" in msg:
+                # KV-tier residency (kvtier.py), same ship-on-change
+                # scheme: what the replica could promote locally
+                d = msg["tier_digest"]
+                h.tier_digest = set(d) if d else None
+            if "wv" in msg:
+                self._note_wv(h, msg.get("wv"))
+            if self._ftrace is not None and "echo" in msg:
+                self._on_clock_sample(h, msg)
+        elif t in ("swap_ok", "swap_fail"):
+            if self._deploy is not None:
+                self._deploy.on_swap(h, msg)
+        elif t == "trace":
+            self._on_trace(h, msg)
+        elif t in ("chunk", "done", "failed"):
+            self._on_stream(h, msg)
+        elif t in ("handoff", "mig_chunk", "mig_eof", "mig_ack",
+                   "mig_need"):
+            self._on_migration(h, msg)
+        elif t in ("kv_bundle", "kv_chunk", "kv_eof", "kv_none",
+                   "kv_need", "kv_ack"):
+            # gang hop transfers ride the same kv_* vocabulary under a
+            # "g:"-prefixed id, elastic pre-warm pushes under "w:",
+            # anticipatory pushes under "p:" — route each to its own
+            # state machine
+            rid = str(msg.get("id", ""))
+            if rid.startswith("g:"):
+                self._on_gang_pull(h, msg)
+            elif rid.startswith("w:"):
+                if self._elastic is not None:
+                    self._elastic.on_kv(h, msg)
+            elif rid.startswith("p:"):
+                self._push.on_kv(h, msg)
+            else:
+                self._on_pull(h, msg)
+        elif t in ("kv_push_ok", "kv_push_no"):
+            self._push.on_offer_reply(h, msg)
+        elif t in ("gang_seg_ok", "gang_seg_fail"):
+            self._on_gang_seg(h, msg)
+        elif t == "preempt":
+            # the replica latched a preemption notice: it is flushing
+            # its radix tier-ward and will exit 83 — classify eagerly
+            # (fleet.maintain spares it the breaker) and drop routing
+            # state NOW, not when the process dies
+            h.preempt_latched = True
+            if self._elastic is not None:
+                self._elastic.on_preempt(h)
+            else:
+                self._sticky.forget_slot(h.slot)
+                h.digest = None
+                h.tier_digest = None
+            logger.warning(f"router: slot {h.slot} preempted "
+                           f"({msg.get('cause')})")
+        elif t == "re_role_ok":
+            if self._elastic is not None:
+                self._elastic.on_re_role_ok(h, msg)
+            else:
+                h.role = str(msg.get("role", h.role))
+        elif t == "bye":
+            h.state = DRAINING
+
+    def _stale(self, h, req: _Req | None, msg: dict) -> bool:
+        if (req is None or req.status != ASSIGNED
+                or req.assigned_slot != h.slot
+                or req.assigned_epoch != h.epoch
+                or int(msg.get("a", -1)) != req.attempt):
+            self.stale_msgs += 1
+            if self._telem.enabled:
+                self._telem.registry.counter(
+                    "serving_router_stale_msgs_total",
+                    help="stream messages dropped by the (slot, epoch, "
+                         "attempt) dedup guard — a presumed-dead "
+                         "replica's late delivery").inc()
+            return True
+        return False
+
+    def _on_stream(self, h, msg: dict) -> None:
+        tid = str(msg.get("id"))
+        req = self._reqs.get(tid)
+        if self._stale(h, req, msg):
+            return
+        now = time.monotonic()
+        req.last_activity_t = now
+        if msg["t"] == "chunk":
+            off = int(msg.get("off", 0))
+            toks = [int(x) for x in msg.get("toks", ())]
+            self._append_stream(req, off, toks, now)
+        elif msg["t"] == "done":
+            toks = [int(x) for x in msg.get("toks", ())]
+            if req.committed and req.committed != \
+                    toks[:len(req.committed)]:
+                self._note_mismatch(req)
+                if self.cfg.strict_replay:
+                    self._terminate(tid, FAILED, "replay_mismatch")
+                    return
+            req.result = toks
+            req.done_t = now
+            if req.readopted and self.recovery_first_chunk_s is None:
+                # the whole stream finished during the outage: the
+                # re-sent authoritative done IS the first re-attached
+                # delivery
+                self.recovery_first_chunk_s = round(
+                    now - self._recover_t0, 6)
+            if req.first_tok_t == 0.0 and toks:
+                req.first_tok_t = now
+            self._observe_latency(req)
+            self._note_commit(now, max(len(toks) - len(req.committed), 0))
+            self._terminate(tid, DONE, None)
+        else:                            # failed
+            reason = str(msg.get("reason", "internal"))
+            if reason == "version_skew" and req.mig is not None \
+                    and self._slot_alive(req.mig.src_slot,
+                                         req.mig.src_epoch):
+                # the race backstop: the target swapped between our
+                # version check and its import_begin. The SOURCE still
+                # holds the frozen sequence — resume it there (zero work
+                # lost; role-split degrades to mixed for this request)
+                # instead of burning a retry on a replay
+                self._count_version_skew("import")
+                self._abort_rebalance(req, reason)
+                return
+            if reason == "draining":
+                # the replica is winding down, not broken: stop routing
+                # to it and requeue WITHOUT burning a retry (the drain
+                # deadline bounds this, not the retry budget)
+                h.state = DRAINING
+                self._abort_migration(req, "target_draining")
+                self._unassign(req)
+                req.status = QUEUED
+                self._queues.setdefault(req.rec.priority,
+                                        deque()).appendleft(
+                    req.rec.trace_id)
+                return
+            self._retry_or_fail(req, reason)
+
+    def _append_stream(self, req: _Req, off: int, toks: list[int],
+                       now: float) -> None:
+        """Fold a chunk into the committed stream. A replayed attempt
+        restarts at off 0 — the overlap with the committed prefix must
+        match bit-for-bit (greedy determinism); only tokens beyond the
+        prefix append. Gaps (off past the committed end) mean a dropped
+        chunk: ignore — the authoritative "done" stream heals it."""
+        have = len(req.committed)
+        if off > have:
+            return
+        overlap = req.committed[off:]
+        if overlap and toks[:len(overlap)] != overlap[:len(toks)]:
+            self._note_mismatch(req)
+            if self.cfg.strict_replay:
+                self._terminate(req.rec.trace_id, FAILED,
+                                "replay_mismatch")
+                return
+        new = toks[have - off:]
+        if not new:
+            return
+        if req.first_tok_t == 0.0:
+            req.first_tok_t = now
+            if self._ftrace is not None:
+                ttft = now - req.submit_t
+                self._fev(req.rec.trace_id, "first_chunk",
+                          slot=req.assigned_slot,
+                          ttft_s=round(ttft, 6))
+                self._straggler.note(req.assigned_slot, "ttft", ttft)
+                self._maybe_breach(req, ttft)
+            if self._telem.enabled:
+                self._telem.registry.histogram(
+                    "serving_router_ttft_s", buckets=LATENCY_BUCKETS_S,
+                    help="submit -> first streamed token "
+                         "(router-observed)").observe(now - req.submit_t)
+                self._telem.registry.histogram(
+                    "serving_tenant_ttft_s", buckets=LATENCY_BUCKETS_S,
+                    labels={"tenant": self._tenant_label(req.rec.tenant)},
+                    help="per-tenant router-observed TTFT").observe(
+                    now - req.submit_t)
+                self._telem.registry.histogram(
+                    "serving_router_queue_wait_s",
+                    buckets=LATENCY_BUCKETS_S,
+                    help="submit -> assignment dispatch").observe(
+                    req.assign_t - req.submit_t)
+        req.committed.extend(new)
+        self._jrec("prog", {"id": req.rec.trace_id, "off": have,
+                            "toks": new})
+        if req.readopted and self.recovery_first_chunk_s is None:
+            # the recovery headline: restart -> first chunk of a stream
+            # that re-attached without replay
+            self.recovery_first_chunk_s = round(
+                now - self._recover_t0, 6)
+        self._note_commit(now, len(new))
+
+    def _note_mismatch(self, req: _Req) -> None:
+        self.replay_mismatches += 1
+        logger.error(f"router: replay stream mismatch on "
+                     f"{req.rec.trace_id} attempt {req.attempt} — greedy "
+                     f"replay should be bit-identical")
+        if self._telem.enabled:
+            self._telem.registry.counter(
+                "serving_router_replay_mismatch_total",
+                help="replayed streams disagreeing with the committed "
+                     "prefix (should be zero under greedy "
+                     "decoding)").inc()
+
+    def _note_commit(self, now: float, n: int) -> None:
+        if n > 0:
+            self._commits.append((now, n))
+
+    def _observe_latency(self, req: _Req) -> None:
+        if req.result is None:
+            return
+        n = len(req.result)
+        if self._straggler is not None and n >= 2 and req.first_tok_t \
+                and req.assigned_slot >= 0:
+            self._straggler.note(
+                req.assigned_slot, "tbt",
+                (req.done_t - req.first_tok_t) / (n - 1))
+        if not self._telem.enabled:
+            return
+        if n >= 2 and req.first_tok_t:
+            tbt = (req.done_t - req.first_tok_t) / (n - 1)
+            self._telem.registry.histogram(
+                "serving_router_tbt_s", buckets=LATENCY_BUCKETS_S,
+                help="per-token time between tokens (router-observed, "
+                     "amortized over the stream)").observe(tbt, n=n - 1)
+
+    # -- disaggregated prefill/decode: handoff relay ---------------------
+    # A prefill-role replica freezes each sequence after its first
+    # sampled token and streams a page bundle (meta + chunked KV payload)
+    # to the router; the router buffers it, picks a decode-capable target
+    # by residency digest against the bundle's chain hashes, relays the
+    # chunks (resumable: the importer names gaps, the router resends from
+    # its buffer), and moves the request's assignment to the target on
+    # its ack. The source keeps its pages pinned until that ack arrives
+    # back through the router. Failure anywhere composes with the fleet's
+    # machinery: the request replays from scratch on a survivor — except
+    # "no decode-capable replica", where the router tells the source to
+    # simply keep decoding (role-split degrades to mixed).
+
+    def _on_migration(self, h, msg: dict) -> None:
+        t = msg["t"]
+        tid = str(msg.get("id"))
+        req = self._reqs.get(tid)
+        mig = req.mig if req is not None else None
+        # source-leg messages during the xfer phase are the shm-relay
+        # fallback resend (the request is assigned to the TARGET then, so
+        # the normal (slot, epoch, attempt) guard would drop them): gate
+        # them on the migration's own source identity instead
+        src_leg = (t in ("mig_chunk", "mig_eof") and mig is not None
+                   and mig.phase == "xfer" and h.slot == mig.src_slot
+                   and h.epoch == mig.src_epoch
+                   and int(msg.get("a", -1)) == mig.src_attempt)
+        if not src_leg and self._stale(h, req, msg):
+            return
+        now = time.monotonic()
+        req.last_activity_t = now
+        if t == "handoff":
+            # a rebalance victim's handoff aborts back to the source on
+            # any failure (the sequence keeps decoding there); a
+            # prefill-role boundary handoff replays from scratch
+            kind = "rebalance" if req.rebalance_asked else "handoff"
+            req.rebalance_asked = False
+            req.mig = MigrationState(meta=msg.get("meta") or {},
+                                     src_slot=h.slot, src_epoch=h.epoch,
+                                     started_t=now, kind=kind,
+                                     src_attempt=req.attempt,
+                                     shm=msg.get("shm"))
+            self._page_bytes = int((msg.get("meta") or {}).get(
+                "page_bytes", self._page_bytes) or self._page_bytes)
+            self._fev(tid, "handoff_recv", slot=h.slot, mig_kind=kind,
+                      chunks=int(msg.get("chunks", 0)))
+            self.migrations += 1
+            if self._telem.enabled:
+                self._telem.registry.counter(
+                    "serving_router_migrations_total",
+                    labels={"kind": kind},
+                    help="page-bundle transfers started (prefill->decode "
+                         "handoffs and rebalance evacuations)").inc()
+        elif t == "mig_chunk":
+            if mig is None:
+                return
+            if mig.phase == "recv":
+                mig.add_chunk(msg)
+            elif src_leg:
+                # relay resend: buffer (future gap-resends serve from
+                # here) and forward to the target with ITS nonce
+                mig.add_chunk(msg)
+                self._send_to_slot(
+                    mig.tgt_slot, req.assigned_epoch,
+                    {**msg, "id": tid, "a": req.attempt})
+        elif t == "mig_eof":
+            if mig is None:
+                return
+            if mig.phase == "xfer":
+                if src_leg:              # relay resend complete
+                    self._send_to_slot(
+                        mig.tgt_slot, req.assigned_epoch,
+                        {"t": "mig_eof", "id": tid, "a": req.attempt,
+                         "chunks": mig.total})
+                return
+            mig.total = int(msg.get("chunks", 0))
+            if not mig.complete:
+                # the source leg is a lossless pipe: a gap means the
+                # source died mid-stream (maintain() reaps it next tick)
+                self._abort_migration(req, "torn_bundle")
+                self._retry_or_fail(req, "migration_torn")
+                return
+            self._relay_migration(req)
+        elif t == "mig_need":
+            if mig is None or mig.phase != "xfer" \
+                    or h.slot != req.assigned_slot:
+                return
+            mig.resends += 1
+            if mig.resends > self.cfg.migration_resend_max:
+                self._settle_failed_migration(req, "resend_budget")
+                return
+            missing = [int(i) for i in msg.get("missing", ())]
+            if msg.get("relay"):
+                # the target could not read the source's ring: ask the
+                # source for those chunks WITH inline payload (the
+                # pinned pages re-chunk bit-identically); its resend
+                # flows through the src_leg branches above
+                mig.relayed = True
+                if not self._send_to_slot(
+                        mig.src_slot, mig.src_epoch,
+                        {"t": "mig_relay", "id": tid,
+                         "missing": missing}):
+                    self._settle_failed_migration(req, "relay_source_lost")
+                return
+            rep = self.fleet.replicas[h.slot]
+            for i in missing:
+                c = mig.chunks.get(i)
+                if c is not None:
+                    rep.send({**c, "id": tid, "a": req.attempt})
+            rep.send({"t": "mig_eof", "id": tid, "a": req.attempt,
+                      "chunks": mig.total})
+        elif t == "mig_ack":
+            if mig is None or mig.phase != "xfer" \
+                    or h.slot != req.assigned_slot:
+                return
+            if self._inj.countdown("router_crash_before_relay_ack"):
+                # the source stays pinned-until-ack: recovery must
+                # settle it (resync re-adopts exactly one copy, the
+                # orphan deadline flushes the other)
+                self._inj.crash_now("router_crash_before_relay_ack",
+                                    f"handoff ack of {tid}")
+            # importer owns the stream now; tell the source to release
+            # its pinned pages (best effort — a source that died after
+            # the export costs nothing, the bundle already landed)
+            self._send_to_slot(mig.src_slot, mig.src_epoch,
+                               {"t": "mig_ack", "id": tid})
+            self._release_slot_count(mig.src_slot)
+            if self._ftrace is not None:
+                stall = now - mig.started_t
+                self._fev(tid, "handoff_ack", src_slot=mig.src_slot,
+                          tgt_slot=h.slot, stall_s=round(stall, 6),
+                          relay_s=round(now - mig.recv_done_t, 6)
+                          if mig.recv_done_t else None)
+                self._straggler.note(mig.src_slot, "handoff_stall", stall)
+            req.migrated = True
+            if mig.kind == "rebalance":
+                req.rebalanced = True
+            req.mig = None
+            if self._telem.enabled:
+                transport = "shm" if mig.shm and not mig.relayed \
+                    else "relay"
+                self._telem.registry.counter(
+                    "serving_router_migration_bytes_total",
+                    labels={"transport": transport},
+                    help="page-bundle payload bytes transferred, by "
+                         "transport (relay = base64 through the router, "
+                         "shm = intra-host shared-memory ring)").inc(
+                    mig.payload_bytes)
+                self._telem.registry.histogram(
+                    "serving_router_migration_stall_s",
+                    buckets=LATENCY_BUCKETS_S,
+                    help="handoff emitted -> importer ack (the decode "
+                         "hand-over stall a migrated request "
+                         "pays)").observe(now - mig.started_t)
+
+    def _relay_migration(self, req: _Req) -> None:
+        """Pick a decode-capable target and stream the buffered bundle
+        to it — or, with no target, tell the source to keep decoding."""
+        mig = req.mig
+        tid = req.rec.trace_id
+        pre = [r for r in self._candidates(DECODE_CAPABLE)
+               if r.slot != mig.src_slot]
+        # skew gate: the bundle's pages were computed under the source's
+        # weights — a target serving another version must never import
+        # them. Mid-deploy this degrades role-split to mixed (resume on
+        # the source) instead of corrupting KV.
+        cands = [r for r in pre
+                 if not version_skew(mig.weight_version,
+                                     getattr(r, "wv", None))]
+        if pre and not cands:
+            self._count_version_skew("migration")
+        if not cands:
+            # degrade to mixed: cheaper than failing or re-prefilling,
+            # and the scale advisor turns this into a decode-up hint
+            # (a rebalance victim just resumes — the hot replica keeps
+            # it, and the hysteresis flag stops us re-picking it)
+            if mig.kind != "rebalance":
+                self._scale.decode_starved = True
+            else:
+                req.rebalanced = True
+            self.migration_fallbacks += 1
+            self._fev(tid, "mig_resume", slot=mig.src_slot)
+            self._send_to_slot(mig.src_slot, mig.src_epoch,
+                               {"t": "mig_resume", "id": tid})
+            req.mig = None
+            if self._telem.enabled:
+                self._telem.registry.counter(
+                    "serving_router_migration_fallbacks_total",
+                    help="handoffs resumed on the source for lack of a "
+                         "decode-capable replica (role-split degraded "
+                         "to mixed)").inc()
+            return
+        chain = [int(x) for x in mig.meta.get("chain", ())]
+        rep, hit = pick_replica(cands, chain, self._sticky)
+        # the assignment moves to the target, but the SOURCE still holds
+        # the pinned export (a real slot there) until its ack/abort —
+        # deliberately NOT _unassign here: the source stays counted so
+        # dispatch can't overfill it with puts it would refuse
+        # "capacity" (_release_slot_count(src) runs at ack/abort)
+        req.attempt += 1
+        req.assigned_slot = rep.slot
+        req.assigned_epoch = rep.epoch
+        req.last_activity_t = time.monotonic()
+        req.placed.append(rep.slot)
+        self._assigned_n[rep.slot] = self._assigned_n.get(rep.slot, 0) + 1
+        self._sticky.note(chain, rep.slot)
+        self._jrec("place", {"id": tid, "slot": rep.slot,
+                             "epoch": rep.epoch, "a": req.attempt,
+                             "via": "relay"})
+        mig.phase = "xfer"
+        mig.tgt_slot = rep.slot
+        mig.recv_done_t = time.monotonic()
+        self._fev(tid, "relay_begin", src_slot=mig.src_slot,
+                  tgt_slot=rep.slot, hit_pages=hit, chunks=mig.total,
+                  recv_s=round(mig.recv_done_t - mig.started_t, 6))
+        ok = rep.send({"t": "mig_begin", "id": tid, "a": req.attempt,
+                       "meta": mig.meta, "shm": mig.shm})
+        for i in range(mig.total if ok else 0):
+            ok = rep.send({**mig.chunks[i], "id": tid, "a": req.attempt})
+            if not ok:
+                break
+        ok = ok and rep.send({"t": "mig_eof", "id": tid,
+                              "a": req.attempt, "chunks": mig.total})
+        if not ok:
+            self._settle_failed_migration(req, "target_send_failed")
+
+    def _abort_migration(self, req: _Req, reason: str) -> None:
+        """Settle a dead migration: the source flushes its pinned export,
+        an already-begun import gets flushed too, the buffer drops. Every
+        send is best-effort — a dead slot simply doesn't hear it."""
+        mig = req.mig
+        if mig is None:
+            return
+        req.mig = None
+        tid = req.rec.trace_id
+        self._fev(tid, "migration_abort", reason=reason,
+                  src_slot=mig.src_slot)
+        self._send_to_slot(mig.src_slot, mig.src_epoch,
+                           {"t": "mig_abort", "id": tid})
+        if mig.phase == "xfer":
+            # the source stayed counted across the relay (see
+            # _relay_migration); its pinned export flushes on the abort
+            self._release_slot_count(mig.src_slot)
+        if mig.phase == "xfer" and mig.tgt_slot >= 0 \
+                and mig.tgt_slot != mig.src_slot:
+            self._send_to_slot(mig.tgt_slot, -1, {"t": "flush", "id": tid})
+        logger.warning(f"router: migration of {tid} aborted ({reason})")
+        if self._telem.enabled:
+            self._telem.registry.counter(
+                "serving_router_migration_aborts_total",
+                labels={"reason": sanitize_label_value(reason)},
+                help="handoffs abandoned, by structured reason").inc()
+
+    def _slot_alive(self, slot: int, epoch: int) -> bool:
+        if not 0 <= slot < len(self.fleet.replicas):
+            return False
+        rep = self.fleet.replicas[slot]
+        return rep.epoch == epoch and rep.state == READY
+
+    def _abort_rebalance(self, req: _Req, reason: str) -> None:
+        """A rebalance transfer died but the SOURCE still holds the
+        frozen sequence: resume it there instead of replaying — zero
+        work is lost, zero blocks change hands. The request's assignment
+        (and nonce) roll back to the source so its resumed stream passes
+        the staleness guard."""
+        mig = req.mig
+        req.mig = None
+        tid = req.rec.trace_id
+        if mig.phase == "xfer":
+            # the relay moved the assignment to the target: undo it and
+            # flush the target's half-import
+            self._release_slot_count(mig.tgt_slot)
+            if mig.tgt_slot >= 0 and mig.tgt_slot != mig.src_slot:
+                self._send_to_slot(mig.tgt_slot, -1,
+                                   {"t": "flush", "id": tid})
+        self._send_to_slot(mig.src_slot, mig.src_epoch,
+                           {"t": "mig_resume", "id": tid})
+        req.assigned_slot = mig.src_slot
+        req.assigned_epoch = mig.src_epoch
+        req.attempt = mig.src_attempt
+        req.last_activity_t = time.monotonic()
+        req.rebalanced = True            # hysteresis: one shot per request
+        logger.warning(f"router: rebalance of {tid} aborted ({reason}); "
+                       f"resumed on slot {mig.src_slot}")
+        if self._telem.enabled:
+            self._telem.registry.counter(
+                "serving_router_migration_aborts_total",
+                labels={"reason": sanitize_label_value(reason)},
+                help="handoffs abandoned, by structured reason").inc()
+
+    def _settle_failed_migration(self, req: _Req, reason: str) -> None:
+        """One settlement path for every mid-transfer failure: a
+        rebalance victim whose source is still alive resumes there (no
+        retry burned); anything else aborts and replays from scratch."""
+        mig = req.mig
+        if mig is not None and mig.kind == "rebalance" \
+                and self._slot_alive(mig.src_slot, mig.src_epoch):
+            self._abort_rebalance(req, reason)
+            return
+        if self._ftrace is not None and mig is not None:
+            # a genuinely failed transfer (not a benign settle) is a
+            # black-box trigger: the dump shows which leg died
+            self._blackbox({"kind": "migration_failed", "reason": reason,
+                            "trace_id": req.rec.trace_id,
+                            "slot": mig.src_slot})
+        self._abort_migration(req, reason)
+        self._retry_or_fail(req, reason)
+
+    def _send_to_slot(self, slot: int, epoch: int, msg: dict) -> bool:
+        """Best-effort message to a slot's CURRENT incarnation (epoch -1
+        = whatever runs there now; a stale epoch means the incarnation we
+        meant is gone — nothing to say to its successor)."""
+        if not 0 <= slot < len(self.fleet.replicas):
+            return False
+        rep = self.fleet.replicas[slot]
+        if epoch >= 0 and rep.epoch != epoch:
+            return False
+        return rep.send(msg)
+
+    # -- failover --------------------------------------------------------
+    def _replay_orphans(self, slot: int, epoch: int, reason: str) -> None:
+        for tid, req in list(self._reqs.items()):
+            if req.status == ASSIGNED and req.assigned_slot == slot \
+                    and req.assigned_epoch <= epoch:
+                self._retry_or_fail(req, reason)
+
+    def _retry_or_fail(self, req: _Req, reason: str) -> None:
+        tid = req.rec.trace_id
+        mig = req.mig
+        if mig is not None and mig.kind == "rebalance" \
+                and self._slot_alive(mig.src_slot, mig.src_epoch):
+            # a rebalance victim's transfer failed but its source still
+            # runs: resume there — no retry burned, no work lost
+            self._abort_rebalance(req, reason)
+            return
+        # a replay restarts from scratch: settle any half-done handoff
+        # and pull first (source unpins/flushes, target reservation
+        # flushes; a replayed attempt may re-pull on its new replica)
+        self._abort_migration(req, reason)
+        self._pulls.pop(tid, None)
+        req.rebalance_asked = False
+        self._unassign(req)
+        if req.retries >= self.cfg.max_retries:
+            self._terminate(tid, FAILED, reason)
+            return
+        req.retries += 1
+        req.status = QUEUED
+        self._jrec("requeue", {"id": tid, "a": req.attempt,
+                               "reason": reason})
+        self._fev(tid, "retry", reason=reason, retries=req.retries)
+        # replay jumps the line: the request already waited its turn once
+        self._queues.setdefault(req.rec.priority, deque()).appendleft(tid)
+        if self._telem.enabled:
+            self._telem.registry.counter(
+                "serving_router_retries_total",
+                help="requests replayed onto another replica after a "
+                     "loss").inc()
+        logger.warning(f"router: replaying {tid} (attempt "
+                       f"{req.attempt + 1}, cause {reason}, "
+                       f"{len(req.committed)} tokens already streamed)")
+
+    def _check_deadlines(self, now: float) -> None:
+        for tid, req in list(self._reqs.items()):
+            if req.status != ASSIGNED:
+                continue
+            if now - req.last_activity_t > self.cfg.request_timeout_s:
+                # the replica may be healthy (lost reply / wedged stream)
+                # — clean up our sequence there, then replay
+                slot = req.assigned_slot
+                if 0 <= slot < len(self.fleet.replicas):
+                    self.fleet.replicas[slot].send(
+                        {"t": "flush", "id": tid})
+                self._retry_or_fail(req, "timeout")
+
+    # -- fleet tracing: clock sync, assembly, black box, stragglers ------
+    # (telemetry/fleettrace.py; everything here is a no-op when
+    # cfg.fleet_trace is off — self._ftrace is None and no branch runs)
+
+    def _fev(self, tid: str, kind: str, **fields) -> None:
+        if self._ftrace is not None:
+            self._ftrace.router_event(tid, kind, **fields)
+
+    def _on_clock_sample(self, h, msg: dict) -> None:
+        """A heartbeat answered a clock-sync ping: RTT from the echoed
+        timestamp, offset from the RTT midpoint (replica clock minus
+        router clock; half-RTT is the uncertainty)."""
+        now = time.monotonic()
+        try:
+            echo = float(msg["echo"])
+            mono = float(msg["mono"])
+        except (TypeError, ValueError, KeyError):
+            return
+        rtt = max(now - echo, 0.0)
+        offset = mono - (echo + rtt / 2.0)
+        self._ftrace.clock.note(h.slot, rtt, offset, epoch=h.epoch)
+        h.rtt_s = self._ftrace.clock.rtt(h.slot, h.epoch)
+        h.clock_offset_s = self._ftrace.clock.offset(h.slot, h.epoch)[0]
+        if self._telem.enabled:
+            self._telem.registry.gauge(
+                "serving_router_replica_rtt_s",
+                labels={"replica": str(h.slot)},
+                help="best heartbeat round-trip time per replica in the "
+                     "clock-sync window").set(round(h.rtt_s, 6))
+            self._telem.registry.gauge(
+                "serving_router_replica_clock_offset_s",
+                labels={"replica": str(h.slot)},
+                help="estimated replica monotonic-clock offset vs the "
+                     "router (RTT-midpoint method); drift here is drift "
+                     "in every aligned timeline").set(
+                round(h.clock_offset_s, 6))
+
+    def _on_trace(self, h, msg: dict) -> None:
+        """A replica shipped a timeline segment. NOT nonce-guarded: a
+        source's final segment legitimately arrives after the request's
+        assignment moved to the handoff target — the assembler keys
+        segments by (slot, epoch) so stale incarnations stay separate."""
+        if self._ftrace is None:
+            return
+        self.trace_segments += 1
+        self._ftrace.add_segment(
+            str(msg.get("id")), h.slot, h.epoch,
+            int(msg.get("pid", 0)), msg.get("events") or [],
+            int(msg.get("dropped", 0)))
+        if self._telem.enabled:
+            self._telem.registry.counter(
+                "serving_router_trace_segments_total",
+                help="replica timeline segments shipped to the fleet "
+                     "trace assembler").inc()
+
+    def _maybe_breach(self, req: _Req, ttft_s: float) -> None:
+        """Router-observed TTFT crossed the fleet-trace threshold: count
+        it and schedule ONE rate-limited black-box dump — after asking
+        the assigned replica for its live timeline segment (breach
+        sampling), so the dump carries both sides."""
+        thr = self.cfg.fleet_trace_slo_ttft_s \
+            if self.cfg.fleet_trace_slo_ttft_s is not None \
+            else self.cfg.slo_ttft_s
+        if self._ftrace is None or thr is None or ttft_s <= thr:
+            return
+        if self._telem.enabled:
+            self._telem.registry.counter(
+                "serving_router_slo_breach_total", labels={"slo": "ttft"},
+                help="router-observed SLO threshold crossings (fleet "
+                     "tracing)").inc()
+        tid = req.rec.trace_id
+        now = time.monotonic()
+        if tid in self._bb_dumped \
+                or now - self._last_bb_dump \
+                < self.cfg.fleet_breach_interval_s:
+            return
+        self._last_bb_dump = now
+        self._bb_dumped.add(tid)
+        self._send_to_slot(req.assigned_slot, req.assigned_epoch,
+                           {"t": "trace_req", "id": tid})
+        self._bb_pending[tid] = (now + 1.0, {
+            "kind": "ttft_breach", "slo": "ttft", "trace_id": tid,
+            "value": round(ttft_s, 6), "threshold": thr})
+
+    def _sweep_blackbox(self, now: float) -> None:
+        """Flush pending breach dumps once their request went terminal
+        (the replica's final segment shipped with its done) or the wait
+        deadline passed — the dump is atomic and bounded either way."""
+        for tid in list(self._bb_pending):
+            deadline, trig = self._bb_pending[tid]
+            req = self._reqs.get(tid)
+            if req is None or req.status in (DONE, FAILED, SHED) \
+                    or now >= deadline:
+                del self._bb_pending[tid]
+                self._dump_blackbox(trig)
+
+    def _blackbox(self, trigger: dict) -> None:
+        """Rate-limited immediate black-box dump for non-breach triggers
+        (replica death, breaker open, failed migration)."""
+        now = time.monotonic()
+        if now - self._last_bb_dump < self.cfg.fleet_breach_interval_s:
+            return
+        self._last_bb_dump = now
+        tid = trigger.get("trace_id")
+        if tid:
+            self._bb_dumped.add(tid)
+        self._dump_blackbox(trigger)
+
+    def _fleet_state(self) -> dict:
+        """The dump's fleet snapshot: slot states, live assignments,
+        queue depths, transfer buffers, residency-digest summary."""
+        reps = {}
+        for r in self.fleet.replicas:
+            reps[str(r.slot)] = {
+                "state": r.state, "role": role_of(r), "epoch": r.epoch,
+                "live": (r.load or {}).get("live"),
+                "digest_entries": len(r.digest) if r.digest else 0,
+                "tier_entries": len(r.tier_digest) if r.tier_digest
+                else 0,
+                "weight_version": r.wv,
+                "rtt_s": r.rtt_s, "clock_offset_s": r.clock_offset_s}
+        assignments = {
+            tid: {"status": rq.status, "slot": rq.assigned_slot,
+                  "attempt": rq.attempt, "retries": rq.retries,
+                  "migrating": rq.mig is not None}
+            for tid, rq in self._reqs.items()
+            if rq.status in (QUEUED, ASSIGNED, RECOVERING)}
+        return {
+            "replicas": reps,
+            "assignments": assignments,
+            "queued": {str(p): len(q) for p, q in self._queues.items()
+                       if q},
+            "transfers": {
+                "migrations_in_flight": sum(
+                    1 for rq in self._reqs.values() if rq.mig is not None),
+                "pulls_in_flight": len(self._pulls)},
+            "quarantined": [r.slot for r in self.fleet.replicas
+                            if r.state == QUARANTINED]}
+
+    def _dump_blackbox(self, trigger: dict) -> None:
+        """One atomic flight-recorder dump: trigger + merged clock-
+        aligned timeline + clock table + fleet state + health rollup."""
+        tid = trigger.get("trace_id")
+        # watchtower alert dumps fire with or without fleet tracing —
+        # without it there is no timeline/clock to attach, only state
+        timeline = self._ftrace.assemble(tid) \
+            if (self._ftrace is not None and tid) else None
+        path = None
+        if self.cfg.fleet_trace_dir:
+            os.makedirs(self.cfg.fleet_trace_dir, exist_ok=True)
+            path = os.path.join(
+                self.cfg.fleet_trace_dir,
+                f"fleet_blackbox_{self.blackbox_dumps + 1}.json")
+        detail = trigger.get("kind", "fleet") + (
+            f" (trace {tid})" if tid else "")
+        self._telem.recorder.dump(
+            "fleet_blackbox", path=path, detail=detail,
+            extra={"fleet": {
+                "trigger": trigger,
+                "timeline": timeline,
+                "clock": self._ftrace.clock.to_dict()
+                if self._ftrace is not None else {},
+                "fleet_state": self._fleet_state(),
+                "health": self.fleet_health()}})
+        self.blackbox_dumps += 1
+        if path is not None:
+            # breach/alert storms age out their own history instead of
+            # filling the disk (telemetry_dumps_pruned_total counts)
+            from ..telemetry.recorder import prune_dump_dir
+            prune_dump_dir(
+                self.cfg.fleet_trace_dir,
+                max_files=self.cfg.fleet_dump_max_files,
+                max_bytes=self.cfg.fleet_dump_max_bytes,
+                prefix="fleet_blackbox_",
+                registry=self._telem.registry if self._telem.enabled
+                else None)
+        if self._telem.enabled:
+            self._telem.registry.counter(
+                "serving_router_blackbox_dumps_total",
+                labels={"trigger": sanitize_label_value(
+                    trigger.get("kind", "unknown"))},
+                help="rate-limited fleet black-box dumps, by "
+                     "trigger").inc()
+
+    def _update_straggler_gauges(self) -> None:
+        if not self._telem.enabled:
+            return
+        degraded = self._straggler.degraded()
+        for r in self.fleet.replicas:
+            self._telem.registry.gauge(
+                "serving_router_replica_degraded",
+                labels={"replica": str(r.slot)},
+                help="1 when this replica's rolling TTFT/TBT/handoff "
+                     "latency medians score past the robust-z straggler "
+                     "threshold vs the fleet (signals only, no "
+                     "actuation)").set(int(degraded.get(r.slot, False)))
+
+    # -- fleet watchtower ------------------------------------------------
+    def _watchtower_tick(self, now: float) -> None:
+        """One sample + alert-evaluation pass (watchtower_interval_s
+        cadence on the poll tick). Samples the router registry plus every
+        replica's heartbeat-shipped snapshot file into the store tagged
+        by slot, evaluates the rules, black-boxes newly-firing critical
+        alerts, and feeds firing warning hints to the ScaleAdvisor."""
+        wall = time.time()
+        # per-slot occupancy gauge FIRST so this tick's sample carries
+        # it: the stall rule's guard ("router still believes the replica
+        # holds live sequences") and ds_top's fleet table both read it
+        if self._telem.enabled:
+            for r in self.fleet.replicas:
+                self._telem.registry.gauge(
+                    "serving_router_replica_live",
+                    labels={"replica": str(r.slot)},
+                    help="live sequences on each replica per its latest "
+                         "heartbeat (watchtower occupancy sample)").set(
+                    float((r.load or {}).get("live") or 0))
+        snaps = {"router": self._telem.registry.snapshot()}
+        snap_dir = self.cfg.fleet.snapshot_dir
+        if snap_dir:
+            for r in self.fleet.replicas:
+                p = os.path.join(snap_dir, f"replica{r.slot}.json")
+                try:
+                    with open(p, encoding="utf-8") as f:
+                        snaps[f"replica{r.slot}"] = json.load(f)
+                except (OSError, ValueError):
+                    continue   # not written yet / torn: next tick
+        self._watch.sample_many(snaps, now=wall)
+        if self._telem.enabled:
+            self._telem.registry.counter(
+                "serving_watch_samples_total",
+                help="watchtower sample ticks (router registry + replica "
+                     "snapshots folded into the time-series store)").inc()
+        for alert in self._alerts.evaluate(self._watch, now=wall):
+            logger.warning(
+                f"watchtower alert FIRING [{alert.severity}] "
+                f"{alert.fingerprint} value={alert.value}")
+            if alert.severity == "critical":
+                # an anomaly captures its own postmortem: the standard
+                # rate-limited black-box path, trigger carries the
+                # fingerprint so the dump and the alert correlate
+                self._blackbox({"kind": "alert", "rule": alert.rule,
+                                "severity": alert.severity,
+                                "fingerprint": alert.fingerprint,
+                                "source": alert.source,
+                                "value": alert.value})
+        # firing warning alerts nudge the elastic controller: re-seed the
+        # advisor's hint clock from the alert's fire time each tick (the
+        # advisor's own update() clears hints it did not compute)
+        for role, direction, fired_mono in self._alerts.elastic_hints():
+            key = (role, direction)
+            self._scale.hints[key] = 1
+            self._scale.hint_since.setdefault(key, fired_mono or now)
+
+    def _alerts_payload(self) -> dict:
+        """The ``/alerts`` endpoint body: alert state + rules + fleet
+        health + store stats (ds_top renders all of it in one fetch)."""
+        d = self._alerts.to_dict() if self._alerts is not None else {}
+        d["fleet"] = self.fleet_health()
+        if self._watch is not None:
+            d["store"] = self._watch.stats()
+        return d
+
+    def _series_payload(self, q: dict) -> dict:
+        """The ``/series`` endpoint body: history points for sparklines.
+        Query params: ``name`` (required), ``window_s``, ``q``
+        (percentile 0-1 → percentile_series), ``src``."""
+        if self._watch is None:
+            return {"points": []}
+        name = q.get("name", "")
+        window = float(q.get("window_s", 60.0))
+        src = q.get("src") or None
+        last = self._watch.last_t()
+        t0 = (last - window) if last is not None else None
+        if q.get("q"):
+            pts = self._watch.percentile_series(
+                name, float(q["q"]), window_s=float(q.get("pwin", 10.0)),
+                t0=t0, src=src)
+        else:
+            pts = self._watch.range(name, t0=t0, src=src)
+        return {"name": name, "src": src,
+                "points": [[round(t, 3), v] for t, v in pts]}
+
+    def fleet_health(self) -> dict:
+        """The fleet-health rollup: per-slot state/role/clock/straggler
+        scores plus fleet-trace counters. Cheap, JSON-serializable —
+        bench artifacts and postmortem dumps attach it verbatim.
+        Straggler fields appear only with ``fleet_trace`` on."""
+        scores = self._straggler.scores() if self._straggler else {}
+        degraded = self._straggler.degraded() if self._straggler else {}
+        reps = {}
+        for r in self.fleet.replicas:
+            e = {"state": r.state, "role": role_of(r), "epoch": r.epoch,
+                 "live": (r.load or {}).get("live"),
+                 "weight_version": r.wv,
+                 "tier_entries": len(r.tier_digest) if r.tier_digest
+                 else 0}
+            if self._ftrace is not None:
+                e["rtt_s"] = r.rtt_s
+                e["clock_offset_s"] = r.clock_offset_s
+                e["degraded"] = bool(degraded.get(r.slot, False))
+                if scores.get(r.slot):
+                    e["z"] = scores[r.slot]
+            reps[str(r.slot)] = e
+        return {"replicas": reps,
+                "degraded": sorted(s for s, d in degraded.items() if d),
+                "blackbox_dumps": self.blackbox_dumps,
+                "trace_segments": self.trace_segments,
+                "deploy": self.deploy_status(),
+                "deploys": dict(self.deploys),
+                "version_skews": self.version_skews,
+                "fleet_trace": self._ftrace is not None,
+                "watchtower": self._watch is not None}
+
+    def export_fleet_chrome(self, path: str,
+                            tids: list[str] | None = None) -> str:
+        """Fleet-mode Chrome trace: one track per process (router + each
+        replica), replica events shifted onto the router's clock by the
+        heartbeat offset estimates. Requires ``fleet_trace=True``."""
+        if self._ftrace is None:
+            raise RuntimeError("fleet tracing is disabled "
+                               "(RouterConfig.fleet_trace)")
+        return self._ftrace.export_chrome_trace(path, tids)
+
+    # -- dispatch --------------------------------------------------------
+    def _candidates(self, roles=None) -> list:
+        return [r for r in self.fleet.ready()
+                if self._assigned_n.get(r.slot, 0) < max(r.max_live, 1)
+                and (roles is None or role_of(r) in roles)]
+
+    def _dispatch(self, now: float) -> None:
+        while True:
+            # fresh prompts are prefill work: place them on
+            # prefill-capable replicas; an all-decode (or
+            # prefill-saturated) moment falls back to ANY ready slot —
+            # role is placement policy, not capability, and a decode
+            # replica serves a put end to end like a mixed one
+            cands = self._candidates(PREFILL_CAPABLE)
+            role_fallback = not cands
+            if role_fallback:
+                cands = self._candidates()
+            if not cands:
+                return
+            tid = None
+            cand_slots = {c.slot for c in cands}
+            for p in sorted(self._queues, reverse=True):
+                q = self._queues[p]
+                for i, qt in enumerate(q):
+                    rq = self._reqs[qt]
+                    if rq.pin_slot >= 0 and rq.pin_slot not in cand_slots:
+                        # pinned slot not dispatchable right now: stays
+                        # queued (the pinner's deadline bounds the wait),
+                        # everyone behind it keeps flowing
+                        continue
+                    del q[i]
+                    tid = qt
+                    break
+                if tid is not None:
+                    break
+            if tid is None:
+                return
+            if role_fallback and self._telem.enabled:
+                # counted only when a request is actually placed off-role
+                self._telem.registry.counter(
+                    "serving_router_role_fallbacks_total",
+                    help="prompts placed on a decode-role replica for "
+                         "lack of a ready prefill-capable slot").inc()
+            req = self._reqs[tid]
+            if self._maybe_gang(req, cands, role_fallback, now):
+                continue
+            pool = [c for c in cands if c.slot == req.pin_slot] \
+                if req.pin_slot >= 0 else cands
+            rep, hit_pages = pick_replica(pool, req.chain, self._sticky)
+            req.attempt += 1
+            req.status = ASSIGNED
+            req.assigned_slot = rep.slot
+            req.assigned_epoch = rep.epoch
+            req.assign_t = req.last_activity_t = now
+            req.hit_pages = hit_pages
+            req.placed.append(rep.slot)
+            self._assigned_n[rep.slot] = \
+                self._assigned_n.get(rep.slot, 0) + 1
+            self._sticky.note(req.chain, rep.slot)
+            pull_peer, peer_pages = (None, 0)
+            join_pid, join_pages, promote_pages = None, 0, 0
+            if self.cfg.kv_pull and req.chain \
+                    and tid not in self._pulls:
+                (pull_peer, peer_pages, join_pid, join_pages,
+                 promote_pages) = self._maybe_pull(req, rep, hit_pages)
+            wire = req.rec.to_wire()
+            wire["a"] = req.attempt
+            if pull_peer is not None:
+                # wanted-chain hint: the replica holds admission until
+                # the pulled pages land (or its own deadline fires and
+                # it recomputes — the always-safe fallback); with
+                # overlap it instead admits NOW and prefills the suffix
+                # past the promised boundary while the pages land
+                wire["pull"] = {"pages": peer_pages,
+                                "deadline_s": self.cfg.kv_pull_timeout_s}
+                if self.cfg.kv_overlap:
+                    wire["pull"]["overlap"] = True
+            elif join_pid is not None:
+                # JOIN the proactive push already streaming this chain
+                # toward the replica (serving/push.py) — the pages are
+                # in flight, so no new movement starts
+                wire["pull"] = {"pages": join_pages,
+                                "deadline_s": self.cfg.kv_push_deadline_s,
+                                "join": join_pid}
+                if self.cfg.kv_overlap:
+                    wire["pull"]["overlap"] = True
+                self._push.note_join(join_pid, tid)
+            if promote_pages:
+                # promote-ahead: the replica starts the tier extract
+                # (NVMe read + crc verify) concurrently with admission
+                # instead of after the admit match
+                wire["promote_hint"] = promote_pages
+            self._fev(tid, "placed", slot=rep.slot, attempt=req.attempt,
+                      hit_pages=hit_pages, chain_pages=len(req.chain),
+                      role_fallback=role_fallback,
+                      pull_slot=pull_peer.slot
+                      if pull_peer is not None else None,
+                      join=join_pid, promote=promote_pages or None)
+            # WAL discipline: the placement is journaled BEFORE the put
+            # goes out — a crash in between leaves a journaled
+            # assignment nobody holds, which resync simply never claims
+            # (it requeues at the hold expiry)
+            self._jrec("place", {"id": tid, "slot": rep.slot,
+                                 "epoch": rep.epoch, "a": req.attempt,
+                                 "via": "dispatch"})
+            if not rep.send(wire):
+                # send failed: the slot is toast; requeue and let
+                # maintain() reap it next tick
+                self._retry_or_fail(req, "send_failed")
+                return
+            if self._inj.countdown("router_crash_after_place"):
+                self._inj.crash_now("router_crash_after_place",
+                                    f"placement of {tid}")
+            if pull_peer is not None:
+                self._start_pull(req, rep, pull_peer, peer_pages, now)
+            if self._telem.enabled:
+                bs = rep.block_size or self._fleet_block_size() or 1
+                self._telem.registry.counter(
+                    "serving_router_placements_total",
+                    help="dispatch decisions").inc()
+                self._telem.registry.counter(
+                    "serving_router_placement_prefix_tokens_total",
+                    help="prompt tokens estimated cache-resident at the "
+                         "chosen replica (placement quality "
+                         "numerator)").inc(hit_pages * bs)
+                self._telem.registry.counter(
+                    "serving_router_placement_lookup_tokens_total",
+                    help="page-aligned prompt tokens considered by "
+                         "placement (denominator)").inc(
+                    len(req.chain) * bs)
+                self._telem.registry.gauge(
+                    "serving_router_queue_depth",
+                    help="requests queued at the router").set(
+                    sum(len(q) for q in self._queues.values()))
+
+    # -- placement-time radix pulls (distributed prefix cache) -----------
+    # The router chain-hashes every prompt and holds per-replica
+    # residency digests already; when the deepest match is NOT the
+    # placed replica, the request ships with a wanted-chain hint and the
+    # placed replica PULLS the page chain from the peer through the same
+    # bundle/chunk protocol migration uses (kind="prefix" bundles, no
+    # sequence, no pinned-until-ack — the importer adopts a copy).
+    # Pull vs LOCAL-TIER PROMOTE vs recompute is a cost model
+    # (placement.plan_kv_source — per-transport and per-tier byte rates,
+    # seeded by the startup micro-probe) and recompute is the
+    # always-safe fallback: the puller admits the held-back request the
+    # moment the pull fails, times out, or the router says kv_fail; a
+    # "tier" decision just skips the pull and lets the placed replica's
+    # admission-path promote (kvtier.py) serve the chain.
+
+    def _maybe_pull(self, req: _Req, rep, hit_pages: int):
+        """The KV-sourcing plan for a just-placed request:
+        ``(peer, peer_pages, join_pid, join_pages, promote_pages)``.
+        At most ONE anticipatory leg is set — a pull source, a
+        proactive push in flight the put can JOIN (serving/push.py), or
+        a tier-promote hint (``promote_pages`` > 0 rides the wire as
+        ``promote_hint`` so the replica starts the extract concurrently
+        with admission). ``plan_kv_source`` is the single decision
+        point for all of it."""
+        rep_wv = getattr(rep, "wv", None)
+        # the placed replica's OWN KV tier (kvtier.py) may hold the
+        # chain — promoting it locally beats shipping pages across the
+        # fleet; and a proactive push already in flight toward this
+        # replica is movement already paid for
+        tier_pages = match_pages(req.chain, getattr(rep, "tier_digest",
+                                                    None))
+        push_pid, push_pages = self._push.inflight(req.chain, rep.slot)
+        peer, pages = best_digest_peer(req.chain, self.fleet.ready(),
+                                       exclude_slot=rep.slot,
+                                       weight_version=rep_wv)
+        extra = pages - hit_pages
+        if peer is None or extra < self.cfg.kv_pull_min_pages:
+            # was a cross-version peer the only thing worth pulling
+            # from? Only worth asking while the fleet is actually
+            # mixed-version (a deploy in flight) — the cheap any() gate
+            # keeps the steady state to one digest scan per dispatch
+            if rep_wv is not None and any(
+                    version_skew(getattr(h, "wv", None), rep_wv)
+                    for h in self.fleet.ready()):
+                p_any, pg_any = best_digest_peer(
+                    req.chain, self.fleet.ready(), exclude_slot=rep.slot)
+                if p_any is not None \
+                        and pg_any - hit_pages >= self.cfg.kv_pull_min_pages \
+                        and version_skew(getattr(p_any, "wv", None),
+                                         rep_wv):
+                    self._count_version_skew("kv_pull")
+                    self._fail_pull_count_only("version_skew")
+            peer, pages = None, 0
+            if max(tier_pages, push_pages) - hit_pages \
+                    < self.cfg.kv_pull_min_pages:
+                return None, 0, None, 0, 0
+        bs = rep.block_size or self._fleet_block_size() or 1
+        shm_ok = peer is not None and bool(peer.shm) \
+            and not rep.address and not peer.address
+        rate = self.cfg.kv_pull_shm_bytes_s if shm_ok \
+            else self.cfg.kv_pull_relay_bytes_s
+        plan = plan_kv_source(
+            len(req.chain), hit_pages, pages, tier_pages,
+            self._page_bytes, bs, self.cfg.kv_pull_prefill_tok_s,
+            rate,
+            # conservative tier rate: the slower of RAM and NVMe — the
+            # router cannot see which sub-tier holds the chain, and
+            # recompute/tier are both safe while a pull burns messages
+            min(self._kv_rates["ram"], self._kv_rates["nvme"]),
+            self.cfg.kv_pull_overhead_s,
+            min_pages=self.cfg.kv_pull_min_pages,
+            push_pages=push_pages, overlap=self.cfg.kv_overlap)
+        if plan == "tier":
+            self.kv_tier_locals += 1
+            self._fev(req.rec.trace_id, "tier_local", pages=tier_pages)
+            if self._telem.enabled:
+                self._telem.registry.counter(
+                    "serving_router_kv_tier_locals_total",
+                    help="placements where the cost model chose a local "
+                         "KV-tier promote over a cross-replica "
+                         "pull").inc()
+            return None, 0, None, 0, tier_pages
+        if plan == "push" and push_pid is not None:
+            return None, 0, push_pid, push_pages, 0
+        if plan != "pull" or peer is None:
+            return None, 0, None, 0, 0
+        return peer, pages, None, 0, 0
+
+    def _start_pull(self, req: _Req, rep, peer, pages: int,
+                    now: float) -> None:
+        tid = req.rec.trace_id
+        bs = rep.block_size or self._fleet_block_size() or 1
+        if not self._send_to_slot(
+                peer.slot, peer.epoch,
+                {"t": "kv_req", "id": tid, "a": req.attempt,
+                 "tok": [int(x) for x in req.rec.prompt[:pages * bs]]}):
+            # peer unreachable: tell the puller to recompute right away
+            self._fail_pull_notify(req, "peer_send_failed")
+            return
+        self._pulls[tid] = MigrationState(
+            meta={}, src_slot=peer.slot, src_epoch=peer.epoch,
+            started_t=now, kind="pull", tgt_slot=rep.slot,
+            src_attempt=req.attempt)
+        self._fev(tid, "pull_start", src_slot=peer.slot,
+                  tgt_slot=rep.slot, pages=pages)
+        self.kv_pulls += 1
+        if self._inj.countdown("router_crash_mid_kv_pull"):
+            # the pull can never complete without this relay: the
+            # puller's local deadline admits the held put and recomputes
+            # (the always-safe fallback), then resync re-adopts it
+            self._inj.crash_now("router_crash_mid_kv_pull",
+                                f"pull for {tid}")
+        if self._telem.enabled:
+            self._telem.registry.counter(
+                "serving_router_kv_pulls_total",
+                help="placement-time cross-replica radix pulls "
+                     "started").inc()
+
+    def _fail_pull_notify(self, req: _Req, reason: str) -> None:
+        """Count a fallback and release the puller to recompute."""
+        self._fail_pull_count_only(reason)
+        if req.status == ASSIGNED:
+            self._send_to_slot(req.assigned_slot, req.assigned_epoch,
+                               {"t": "kv_fail",
+                                "id": req.rec.trace_id})
+
+    def _fail_pull(self, tid: str, reason: str) -> None:
+        self._pulls.pop(tid, None)
+        req = self._reqs.get(tid)
+        if req is not None:
+            self._fail_pull_notify(req, reason)
+
+    def _fail_pulls_from(self, slot: int, epoch: int) -> None:
+        """A replica died: every pull it was exporting falls back."""
+        for tid in [t for t, p in self._pulls.items()
+                    if p.src_slot == slot and p.src_epoch <= epoch]:
+            self._fail_pull(tid, "peer_lost")
+
+    def _on_pull(self, h, msg: dict) -> None:
+        t = msg["t"]
+        tid = str(msg.get("id"))
+        pull = self._pulls.get(tid)
+        req = self._reqs.get(tid)
+        if pull is None or req is None:
+            self.stale_msgs += 1
+            return
+        src_ok = (h.slot == pull.src_slot and h.epoch == pull.src_epoch
+                  and int(msg.get("a", -1)) == pull.src_attempt)
+        tgt_ok = (req.status == ASSIGNED
+                  and h.slot == req.assigned_slot == pull.tgt_slot
+                  and h.epoch == req.assigned_epoch
+                  and int(msg.get("a", -1)) == req.attempt)
+        now = time.monotonic()
+        if t == "kv_none":
+            if src_ok:
+                self._fail_pull(tid, "peer_miss")
+        elif t == "kv_bundle":
+            if src_ok and pull.phase == "recv":
+                pull.meta = msg.get("meta") or {}
+                pull.shm = msg.get("shm")
+                self._page_bytes = int(pull.meta.get(
+                    "page_bytes", self._page_bytes) or self._page_bytes)
+        elif t == "kv_chunk":
+            if not src_ok:
+                return
+            pull.add_chunk(msg)
+            if pull.phase == "xfer":     # relay resend: forward along
+                self._send_to_slot(pull.tgt_slot, req.assigned_epoch,
+                                   {**msg, "id": tid, "a": req.attempt})
+        elif t == "kv_eof":
+            if not src_ok:
+                return
+            if pull.phase == "xfer":     # relay resend complete
+                self._send_to_slot(pull.tgt_slot, req.assigned_epoch,
+                                   {"t": "kv_eof", "id": tid,
+                                    "a": req.attempt,
+                                    "chunks": pull.total})
+                return
+            pull.total = int(msg.get("chunks", 0))
+            if not pull.complete or req.status != ASSIGNED \
+                    or req.assigned_slot != pull.tgt_slot:
+                # torn source leg, or the request moved on (replayed
+                # elsewhere) while the chain was in flight
+                self._fail_pull(tid, "torn_or_moved")
+                return
+            tgt = self.fleet.replicas[pull.tgt_slot]
+            if version_skew((pull.meta or {}).get("wv"),
+                            getattr(tgt, "wv", None)):
+                # either side swapped while the chain was in flight:
+                # kv_fail releases the puller to recompute (skew-safe)
+                self._count_version_skew("kv_pull")
+                self._fail_pull(tid, "version_skew")
+                return
+            pull.phase = "xfer"
+            ok = self._send_to_slot(
+                pull.tgt_slot, req.assigned_epoch,
+                {"t": "kv_bundle", "id": tid, "a": req.attempt,
+                 "meta": pull.meta, "chunks": pull.total,
+                 "shm": pull.shm})
+            for i in range(pull.total if ok else 0):
+                ok = self._send_to_slot(
+                    pull.tgt_slot, req.assigned_epoch,
+                    {**pull.chunks[i], "id": tid, "a": req.attempt})
+                if not ok:
+                    break
+            if ok:
+                self._send_to_slot(
+                    pull.tgt_slot, req.assigned_epoch,
+                    {"t": "kv_eof", "id": tid, "a": req.attempt,
+                     "chunks": pull.total})
+            else:
+                self._pulls.pop(tid, None)   # target gone: replay path
+        elif t == "kv_need":
+            if not tgt_ok or pull.phase != "xfer":
+                return
+            pull.resends += 1
+            if pull.resends > self.cfg.migration_resend_max:
+                self._fail_pull(tid, "resend_budget")
+                return
+            missing = [int(i) for i in msg.get("missing", ())]
+            if msg.get("relay"):
+                pull.relayed = True
+                if not self._send_to_slot(
+                        pull.src_slot, pull.src_epoch,
+                        {"t": "kv_relay", "id": tid,
+                         "missing": missing}):
+                    self._fail_pull(tid, "relay_source_lost")
+                return
+            for i in missing:
+                c = pull.chunks.get(i)
+                if c is not None:
+                    self._send_to_slot(pull.tgt_slot, req.assigned_epoch,
+                                       {**c, "id": tid,
+                                        "a": req.attempt})
+            self._send_to_slot(pull.tgt_slot, req.assigned_epoch,
+                               {"t": "kv_eof", "id": tid,
+                                "a": req.attempt, "chunks": pull.total})
+        elif t == "kv_ack":
+            if not tgt_ok:
+                return
+            self._pulls.pop(tid, None)
+            req.last_activity_t = now
+            pages = int(msg.get("pages", 0))
+            if pages <= 0:
+                # the puller adopted nothing (corrupt bundle / pool
+                # refusal / its local deadline fired): it recomputed
+                self._fail_pull_count_only("adopt_failed")
+                return
+            req.pulled_pages = pages
+            bs = int(pull.meta.get("bs", 0)) \
+                or self._fleet_block_size() or 1
+            if self._telem.enabled:
+                transport = "shm" if pull.shm and not pull.relayed \
+                    else "relay"
+                self._telem.registry.counter(
+                    "serving_router_kv_pull_tokens_total",
+                    help="prompt tokens served from a peer's cache via "
+                         "placement-time pulls (prefill compute "
+                         "skipped)").inc(pages * bs)
+                self._telem.registry.counter(
+                    "serving_router_kv_pull_bytes_total",
+                    labels={"transport": transport},
+                    help="pulled page-chain payload bytes, by "
+                         "transport").inc(pull.payload_bytes)
+
+    def _fail_pull_count_only(self, reason: str) -> None:
+        self.kv_pull_fallbacks += 1
+        if self._telem.enabled:
+            self._telem.registry.counter(
+                "serving_router_kv_pull_fallbacks_total",
+                labels={"reason": sanitize_label_value(reason)},
+                help="pulls that fell back to local recompute, by "
+                     "structured reason").inc()
+
+    # -- gang prefill (fleet-sharded prompt prefill) ---------------------
+    # One LONG prompt's prefill sharded across a gang of K prefill-
+    # capable replicas: the router splits the page-aligned chain into K
+    # contiguous segments (placement.gang_segments), every member
+    # prefills its OWN segment concurrently (segment KV depends causally
+    # only on earlier segments — members attend over adopted upstream
+    # pages plus their own), and the merged root-contiguous chain grows
+    # member to member in K-1 staged hops over the SAME kv_* bundle
+    # machinery pulls use (kind="prefix" bundles under a "g:"-prefixed
+    # id, chain hashes intact). When the final member holds the full
+    # chain the request requeues PINNED there and flows through the
+    # untouched put/handoff/decode path — the gang never samples a
+    # token, so any member dying/refusing/timing out collapses to the
+    # ordinary single-replica prefill, bit-identical by construction.
+    # Gangs are never journaled and recovered requests never gang: after
+    # a router crash the ordinary replay path owns the request.
+
+    def _gang_id(self, tid: str) -> str:
+        return "g:" + tid
+
+    def _count_gang_plan(self, decision: str) -> None:
+        self.gang_plans += 1
+        if self._telem.enabled:
+            self._telem.registry.counter(
+                "serving_router_gang_plans_total",
+                labels={"decision": decision},
+                help="gang-prefill cost-model decisions at dispatch "
+                     "(engage vs single)").inc()
+
+    def _maybe_gang(self, req: _Req, cands, role_fallback: bool,
+                    now: float) -> bool:
+        """Engage a gang prefill for ``req`` when the cost model
+        (placement.plan_gang_prefill over the kv_pull_* rates) says a
+        gang strictly beats one replica prefilling the whole prompt.
+        True = engaged (the request left the queue into status GANG);
+        False = dispatch places it normally."""
+        cfg = self.cfg
+        if not cfg.gang_prefill or role_fallback or req.gang_tried \
+                or req.pin_slot >= 0 or req.recovered or req.committed \
+                or len(req.rec.prompt) < cfg.gang_min_tokens \
+                or len(req.chain) < 2:
+            return False
+        # a gang must be same-version end to end (KV crosses replicas
+        # K-1 times): largest same-wv candidate group, least loaded first
+        groups: dict[tuple, list] = {}
+        for c in cands:
+            wv = getattr(c, "wv", None) or {}
+            groups.setdefault((wv.get("id"), wv.get("digest")),
+                              []).append(c)
+        group = max(groups.values(), key=len)
+        if len(group) < 2:
+            return False
+        group.sort(key=lambda c: (load_score(c.load), c.slot))
+        hit = max(match_pages(req.chain, getattr(c, "digest", None))
+                  for c in group)
+        bs = group[0].block_size or self._fleet_block_size() or 1
+        shm_ok = all(bool(c.shm) and not c.address for c in group)
+        rate = cfg.kv_pull_shm_bytes_s if shm_ok \
+            else cfg.kv_pull_relay_bytes_s
+        k = plan_gang_prefill(
+            len(req.chain), hit, min(cfg.gang_max_members, len(group)),
+            self._page_bytes, bs, cfg.kv_pull_prefill_tok_s, rate,
+            cfg.kv_pull_overhead_s)
+        if k < 2:
+            self._count_gang_plan("single")
+            return False
+        tid = req.rec.trace_id
+        gid = self._gang_id(tid)
+        members = group[:k]
+        ends = gang_segments(len(req.chain), k)
+        ends_tok = [e * bs for e in ends]
+        req.attempt += 1                 # the whole gang rides ONE nonce
+        nonce = req.attempt
+        sent = []
+        ok = True
+        for i, m in enumerate(members):
+            msg = {"t": "gang_seg", "id": gid, "a": nonce, "seg": i,
+                   "k": k,
+                   "tok": [int(x) for x in req.rec.prompt[:ends_tok[i]]],
+                   "own": ends_tok[i] - (ends_tok[i - 1] if i else 0)}
+            if i:
+                # downstream members also await an upstream KV hop —
+                # bounded by the gang deadline, after which they fail
+                # their segment locally and the gang collapses
+                msg["pull"] = {"deadline_s": cfg.gang_timeout_s}
+            if not m.send(msg):
+                ok = False
+                break
+            sent.append(m)
+        if not ok:
+            # a member's channel is toast: abort what went out, requeue,
+            # and let maintain() reap the slot — nothing was placed, so
+            # no retry burns; gang_tried keeps this one-shot
+            for m in sent:
+                m.send({"t": "gang_abort", "id": gid})
+            req.gang_tried = True
+            self._queues.setdefault(req.rec.priority,
+                                    deque()).appendleft(tid)
+            return True
+        req.status = GANG
+        req.gang_k = k
+        req.gang_tried = True
+        req.last_activity_t = now
+        self._gangs[tid] = {
+            "members": [(m.slot, m.epoch) for m in members],
+            "ends": ends, "ends_tok": ends_tok, "stage": 0,
+            "nonce": nonce, "started_t": now, "stage_t": now,
+            "pages": 0}
+        self._count_gang_plan("engage")
+        self._fev(tid, "gang_start", k=k,
+                  members=[m.slot for m in members],
+                  chain_pages=len(req.chain), hit_pages=hit)
+        if self._telem.enabled:
+            self._telem.registry.counter(
+                "serving_router_gang_segments_total",
+                help="prompt segments dispatched to gang members").inc(k)
+        return True
+
+    def _on_gang_seg(self, h, msg: dict) -> None:
+        gid = str(msg.get("id"))
+        tid = gid[2:] if gid.startswith("g:") else gid
+        g = self._gangs.get(tid)
+        req = self._reqs.get(tid)
+        if g is None or req is None or req.status != GANG \
+                or int(msg.get("a", -1)) != g["nonce"]:
+            self.stale_msgs += 1
+            return
+        member = (h.slot, h.epoch)
+        if msg["t"] == "gang_seg_fail":
+            if member not in g["members"]:
+                self.stale_msgs += 1
+                return
+            reason = str(msg.get("reason", "internal"))
+            if reason == "version_skew":
+                self._count_version_skew("gang")
+            self._collapse_gang(tid, reason)
+            return
+        seg = int(msg.get("seg", -1))
+        if seg != g["stage"] or seg >= len(g["members"]) \
+                or member != g["members"][seg]:
+            self.stale_msgs += 1
+            return
+        now = time.monotonic()
+        req.last_activity_t = now
+        g["pages"] = int(msg.get("pages", 0))
+        if self._telem.enabled:
+            self._telem.registry.histogram(
+                "serving_router_gang_stage_s",
+                buckets=LATENCY_BUCKETS_S,
+                help="per-stage gang wall time (stage entered -> "
+                     "segment ready)").observe(now - g["stage_t"])
+        g["stage_t"] = now
+        if seg == len(g["members"]) - 1:
+            self._finish_gang(tid)
+        else:
+            g["stage"] = seg + 1
+            self._start_gang_hop(tid, seg)
+
+    def _start_gang_hop(self, tid: str, seg: int) -> None:
+        """Ship the merged chain ``[0 .. ends[seg])`` from member
+        ``seg`` to member ``seg + 1`` over the kv_* machinery (the hop
+        state rides ``_pulls[gid]`` with kind="gang")."""
+        g = self._gangs[tid]
+        req = self._reqs[tid]
+        gid = self._gang_id(tid)
+        src_slot, src_epoch = g["members"][seg]
+        if not self._send_to_slot(
+                src_slot, src_epoch,
+                {"t": "kv_req", "id": gid, "a": g["nonce"],
+                 "tok": [int(x)
+                         for x in req.rec.prompt[:g["ends_tok"][seg]]]}):
+            self._collapse_gang(tid, "hop_source_lost")
+            return
+        self._pulls[gid] = MigrationState(
+            meta={}, src_slot=src_slot, src_epoch=src_epoch,
+            started_t=time.monotonic(), kind="gang",
+            tgt_slot=g["members"][seg + 1][0], src_attempt=g["nonce"])
+
+    def _on_gang_pull(self, h, msg: dict) -> None:
+        """Gang-hop mirror of :meth:`_on_pull`: same kv_* legs, but any
+        failure collapses the whole gang (there is no per-hop recompute
+        — the single-replica fallback IS the recompute)."""
+        t = msg["t"]
+        gid = str(msg.get("id"))
+        tid = gid[2:]
+        pull = self._pulls.get(gid)
+        g = self._gangs.get(tid)
+        req = self._reqs.get(tid)
+        if pull is None or g is None or req is None \
+                or req.status != GANG:
+            self.stale_msgs += 1
+            return
+        nonce_ok = int(msg.get("a", -1)) == g["nonce"]
+        src_ok = (h.slot == pull.src_slot and h.epoch == pull.src_epoch
+                  and nonce_ok)
+        tgt_slot, tgt_epoch = g["members"][g["stage"]]
+        tgt_ok = (h.slot == tgt_slot == pull.tgt_slot
+                  and h.epoch == tgt_epoch and nonce_ok)
+        if t == "kv_none":
+            if src_ok:
+                self._collapse_gang(tid, "hop_miss")
+        elif t == "kv_bundle":
+            if src_ok and pull.phase == "recv":
+                pull.meta = msg.get("meta") or {}
+                pull.shm = msg.get("shm")
+                self._page_bytes = int(pull.meta.get(
+                    "page_bytes", self._page_bytes) or self._page_bytes)
+        elif t == "kv_chunk":
+            if not src_ok:
+                return
+            pull.add_chunk(msg)
+            if pull.phase == "xfer":     # relay resend: forward along
+                self._send_to_slot(tgt_slot, tgt_epoch,
+                                   {**msg, "id": gid, "a": g["nonce"]})
+        elif t == "kv_eof":
+            if not src_ok:
+                return
+            if pull.phase == "xfer":     # relay resend complete
+                self._send_to_slot(tgt_slot, tgt_epoch,
+                                   {"t": "kv_eof", "id": gid,
+                                    "a": g["nonce"],
+                                    "chunks": pull.total})
+                return
+            pull.total = int(msg.get("chunks", 0))
+            if not pull.complete:
+                self._collapse_gang(tid, "hop_torn")
+                return
+            tgt = self.fleet.replicas[tgt_slot]
+            if version_skew((pull.meta or {}).get("wv"),
+                            getattr(tgt, "wv", None)):
+                # a member swapped mid-gang (rolling deploy): the merged
+                # chain can't cross versions — fall back, skew-safe
+                self._count_version_skew("gang")
+                self._collapse_gang(tid, "version_skew")
+                return
+            pull.phase = "xfer"
+            ok = self._send_to_slot(
+                tgt_slot, tgt_epoch,
+                {"t": "kv_bundle", "id": gid, "a": g["nonce"],
+                 "meta": pull.meta, "chunks": pull.total,
+                 "shm": pull.shm})
+            for i in range(pull.total if ok else 0):
+                ok = self._send_to_slot(
+                    tgt_slot, tgt_epoch,
+                    {**pull.chunks[i], "id": gid, "a": g["nonce"]})
+                if not ok:
+                    break
+            if ok:
+                self._send_to_slot(
+                    tgt_slot, tgt_epoch,
+                    {"t": "kv_eof", "id": gid, "a": g["nonce"],
+                     "chunks": pull.total})
+            else:
+                self._collapse_gang(tid, "hop_target_lost")
+        elif t == "kv_need":
+            if not tgt_ok or pull.phase != "xfer":
+                return
+            pull.resends += 1
+            if pull.resends > self.cfg.migration_resend_max:
+                self._collapse_gang(tid, "resend_budget")
+                return
+            missing = [int(i) for i in msg.get("missing", ())]
+            if msg.get("relay"):
+                pull.relayed = True
+                if not self._send_to_slot(
+                        pull.src_slot, pull.src_epoch,
+                        {"t": "kv_relay", "id": gid,
+                         "missing": missing}):
+                    self._collapse_gang(tid, "relay_source_lost")
+                return
+            for i in missing:
+                c = pull.chunks.get(i)
+                if c is not None:
+                    self._send_to_slot(tgt_slot, tgt_epoch,
+                                       {**c, "id": gid,
+                                        "a": g["nonce"]})
+            self._send_to_slot(tgt_slot, tgt_epoch,
+                               {"t": "kv_eof", "id": gid,
+                                "a": g["nonce"], "chunks": pull.total})
+        elif t == "kv_ack":
+            if not tgt_ok:
+                return
+            self._pulls.pop(gid, None)
+            req.last_activity_t = time.monotonic()
+            if int(msg.get("pages", 0)) <= 0:
+                # the member adopted nothing (corrupt hop / pool
+                # refusal / its deadline fired): the merge is broken
+                self._collapse_gang(tid, "adopt_failed")
+                return
+            if self._telem.enabled:
+                self._telem.registry.counter(
+                    "serving_router_gang_bytes_total",
+                    help="gang hop payload bytes relayed member to "
+                         "member").inc(pull.payload_bytes)
+            # the hop landed; now await the member's own gang_seg_ok
+            # (own segment done + adopted upstream published)
+
+    def _collapse_gang(self, tid: str, reason: str) -> None:
+        """Any gang failure degrades to the ordinary single-replica
+        prefill: abort every member, requeue WITHOUT burning a retry
+        (the gang never placed the request — collapse is an
+        optimization miss, not a request failure), never gang again."""
+        g = self._gangs.pop(tid, None)
+        if g is None:
+            return
+        gid = self._gang_id(tid)
+        self._pulls.pop(gid, None)
+        for slot, epoch in g["members"]:
+            self._send_to_slot(slot, epoch,
+                               {"t": "gang_abort", "id": gid})
+        self.gang_fallbacks += 1
+        self._fev(tid, "gang_collapse", reason=reason)
+        logger.info(f"router: gang for {tid} collapsed ({reason}); "
+                    f"falling back to single-replica prefill")
+        if self._telem.enabled:
+            self._telem.registry.counter(
+                "serving_router_gang_fallbacks_total",
+                labels={"reason": sanitize_label_value(reason)},
+                help="gangs collapsed to the single-replica fallback, "
+                     "by structured reason").inc()
+        req = self._reqs.get(tid)
+        if req is not None and req.status == GANG:
+            req.status = QUEUED
+            req.last_activity_t = time.monotonic()
+            self._queues.setdefault(req.rec.priority,
+                                    deque()).appendleft(tid)
+
+    def _finish_gang(self, tid: str) -> None:
+        """The final member holds the merged full-prompt chain: requeue
+        the request PINNED there — the ordinary put hits the merged
+        radix chain and prefills only the sub-page tail."""
+        g = self._gangs.pop(tid, None)
+        req = self._reqs.get(tid)
+        if g is None or req is None or req.status != GANG:
+            return
+        self._pulls.pop(self._gang_id(tid), None)
+        req.gang_merged = True
+        req.status = QUEUED
+        req.pin_slot = g["members"][-1][0]
+        req.last_activity_t = time.monotonic()
+        self._queues.setdefault(req.rec.priority,
+                                deque()).appendleft(tid)
+        self.gang_merges += 1
+        self._fev(tid, "gang_merged", slot=req.pin_slot,
+                  pages=g["pages"])
+        if self._telem.enabled:
+            self._telem.registry.counter(
+                "serving_router_gang_merged_total",
+                help="gangs whose merged chain landed on the final "
+                     "member (the request dispatches pinned "
+                     "there)").inc()
+
+    def _fail_gangs_from(self, slot: int, epoch: int) -> None:
+        """A replica died: collapse every gang it was a member of, and
+        unpin gang-merged requests pinned to it — the merged chain died
+        with the radix, so plain placement must own the replay."""
+        for tid in [t for t, g in self._gangs.items()
+                    if any(s == slot and e <= epoch
+                           for s, e in g["members"])]:
+            self._collapse_gang(tid, "member_lost")
+        for req in self._reqs.values():
+            if req.gang_merged and req.pin_slot == slot \
+                    and req.status not in (DONE, FAILED, SHED):
+                req.pin_slot = -1
+
+    # -- transfer-buffer GC + hot-replica rebalancing --------------------
+    def _sweep_transfers(self, now: float) -> None:
+        """Bound the router's transfer buffers: a bundle whose importer
+        never settles (dies without acking, wedges, or its request went
+        terminal) is dropped after ``migration_buffer_ttl_s`` — and the
+        migration settled — instead of being retained forever. Pulls ride
+        their own (shorter) deadline. The buffered total is a gauge."""
+        buffered = 0
+        ttl = self.cfg.migration_buffer_ttl_s
+        for tid, req in list(self._reqs.items()):
+            if req.rebalance_asked and req.mig is None \
+                    and now - req.rebalance_ask_t > 5.0:
+                # the replica never handed the victim off (export
+                # refused, stale ask): stop reserving it and never pick
+                # it again — an un-exportable sequence stays un-exportable
+                req.rebalance_asked = False
+                req.rebalanced = True
+            mig = req.mig
+            if mig is None:
+                continue
+            if req.status in (DONE, FAILED, SHED):
+                req.mig = None           # terminal leftover: just drop
+                self._count_buffer_expired()
+                continue
+            if now - mig.started_t > ttl:
+                self._count_buffer_expired()
+                self._settle_failed_migration(req, "buffer_ttl")
+                continue
+            buffered += mig.buffered_bytes
+        for tid in list(self._pulls):
+            pull = self._pulls[tid]
+            if pull.kind == "gang":
+                buffered += pull.buffered_bytes
+                continue                 # gang hops ride the gang deadline
+            req = self._reqs.get(tid)
+            if req is None or req.status in (DONE, FAILED, SHED):
+                self._pulls.pop(tid, None)
+                continue
+            if now - pull.started_t > self.cfg.kv_pull_timeout_s:
+                self._fail_pull(tid, "timeout")
+                continue
+            buffered += pull.buffered_bytes
+        for tid in list(self._gangs):
+            if now - self._gangs[tid]["started_t"] \
+                    > self.cfg.gang_timeout_s:
+                self._collapse_gang(tid, "timeout")
+        if self._telem.enabled:
+            self._telem.registry.gauge(
+                "serving_router_migration_buffer_bytes",
+                help="bundle/pull chunks currently buffered in the "
+                     "router (the GC'd relay buffer)").set(buffered)
+
+    def _count_buffer_expired(self) -> None:
+        if self._telem.enabled:
+            self._telem.registry.counter(
+                "serving_router_migration_buffer_expired_total",
+                help="buffered transfers dropped by the TTL/orphan "
+                     "sweep (importer died or wedged before "
+                     "settling)").inc()
+
+    def _maybe_rebalance(self, now: float) -> None:
+        """The one hint-driven actuator: when a decode-capable replica
+        stays saturated (disagg.RebalancePolicy's sustain/hysteresis/
+        rate-limit gates) and an idle peer exists, migrate the YOUNGEST
+        mid-decode sequence off it — least KV to ship, most decode left
+        to amortize the move. The victim's replica exports it through
+        the ordinary handoff flow; the relay picks the actual target
+        digest-aware (capacity > affinity), and any failure resumes the
+        victim on its source."""
+        handles = [r for r in self.fleet.ready()
+                   if role_of(r) in DECODE_CAPABLE]
+        if len(handles) < 2:
+            return
+        pair = self._rebal.pick(now, handles)
+        if pair is None:
+            return
+        hot, _ = pair
+        victim = None
+        for tid, req in self._reqs.items():
+            if req.status != ASSIGNED or req.assigned_slot != hot.slot \
+                    or not req.committed or req.mig is not None \
+                    or req.rebalanced or req.rebalance_asked \
+                    or tid in self._pulls:
+                continue
+            if victim is None or req.assign_t > victim.assign_t:
+                victim = req
+        if victim is None:
+            return
+        victim.rebalance_asked = True
+        victim.rebalance_ask_t = now
+        victim.last_activity_t = now
+        if not self._send_to_slot(hot.slot, hot.epoch,
+                                  {"t": "mig_request",
+                                   "id": victim.rec.trace_id}):
+            victim.rebalance_asked = False
+            return
+        self.rebalances += 1
+        logger.info(f"router: rebalancing {victim.rec.trace_id} off hot "
+                    f"slot {hot.slot}")
+        if self._telem.enabled:
+            self._telem.registry.counter(
+                "serving_router_rebalances_total",
+                help="mid-decode sequences asked off a saturated "
+                     "replica by the rebalance policy").inc()
+
+    # -- bookkeeping -----------------------------------------------------
+    def _release_slot_count(self, slot: int) -> None:
+        if slot >= 0:
+            n = self._assigned_n.get(slot, 0)
+            self._assigned_n[slot] = max(n - 1, 0)
+
+    def _unassign(self, req: _Req) -> None:
+        self._release_slot_count(req.assigned_slot)
+        req.assigned_slot = req.assigned_epoch = -1
+
+    def _terminate(self, tid: str, status: str, reason: str | None) -> None:
+        req = self._reqs.get(tid)
+        if req is None:
+            return
+        if req.status in (DONE, FAILED, SHED):
+            self.double_commits += 1
+            logger.error(f"router: refusing double terminal transition "
+                         f"for {tid} ({req.status} -> {status})")
+            return
+        if status != DONE:
+            # a request failing/shedding mid-handoff must not leave the
+            # source's pages pinned forever
+            self._abort_migration(req, f"terminated_{status}")
+        self._pulls.pop(tid, None)       # a terminal request pulls nothing
+        g = self._gangs.pop(tid, None)
+        if g is not None:                # gang in flight: tell the members
+            self._pulls.pop("g:" + tid, None)
+            for slot, epoch in g["members"]:
+                self._send_to_slot(slot, epoch,
+                                   {"t": "gang_abort", "id": "g:" + tid})
+        if req.status == QUEUED:
+            for q in self._queues.values():
+                if tid in q:
+                    q.remove(tid)
+                    break
+        self._unassign(req)
+        req.status = status
+        req.reason = reason
+        jdata: dict = {"id": tid, "status": status}
+        if reason:
+            jdata["reason"] = reason
+        if status == DONE and req.result is not None:
+            jdata["toks"] = req.result
+        self._jrec("term", jdata, critical=True)
+        self._fev(tid, status, reason=reason,
+                  tokens=len(req.result) if req.result is not None
+                  else len(req.committed))
+        t = self._tenant_live.get(req.rec.tenant, 1) - 1
+        self._tenant_live[req.rec.tenant] = max(t, 0)
+        if self._telem.enabled:
+            if status == DONE:
+                self._telem.registry.counter(
+                    "serving_router_completed_total",
+                    help="requests completed exactly once").inc()
+            elif status == FAILED:
+                self._telem.registry.counter(
+                    "serving_router_failed_total",
+                    labels={"reason": sanitize_label_value(reason)},
+                    help="requests failed with a structured "
+                         "reason").inc()
+            else:
+                self._count_shed(reason or "shed", req.rec.tenant)
+
+    def _count_shed(self, reason: str, tenant: str) -> None:
+        if not self._telem.enabled:
+            return
+        self._telem.registry.counter(
+            "serving_router_sheds_total",
+            labels={"reason": sanitize_label_value(reason)},
+            help="admissions refused / queued requests shed, by "
+                 "structured reason").inc()
+        self._telem.registry.counter(
+            "serving_tenant_shed_total",
+            labels={"tenant": self._tenant_label(tenant)},
+            help="per-tenant sheds").inc()
+
+    def _tenant_label(self, tenant: str) -> str:
+        v = sanitize_label_value(tenant)
+        if v in self._tenants_seen \
+                or len(self._tenants_seen) < TENANT_CARDINALITY_CAP:
+            self._tenants_seen.add(v)
+            return v
+        return TENANT_OVERFLOW_LABEL
+
+    def _fleet_block_size(self) -> int:
+        for r in self.fleet.replicas:
+            if r.block_size:
+                return r.block_size
+        return int(self.cfg.fleet.replica.get("block_size", 16))
+
+    # -- results / drain -------------------------------------------------
+    def result(self, tid: str) -> dict:
+        req = self._reqs[tid]
+        return {"status": req.status, "reason": req.reason,
+                "tokens": list(req.result) if req.result is not None
+                else list(req.committed),
+                "tenant": req.rec.tenant, "attempts": req.attempt,
+                "retries": req.retries, "placed": list(req.placed),
+                "hit_pages": req.hit_pages, "migrated": req.migrated,
+                "pulled_pages": req.pulled_pages,
+                "gang_k": req.gang_k, "gang_merged": req.gang_merged,
+                "rebalanced": req.rebalanced,
+                "ttft_s": (req.first_tok_t - req.submit_t)
+                if req.first_tok_t else None}
+
+    def results(self) -> dict:
+        return {tid: self.result(tid) for tid in self._reqs}
+
+    def drain(self, deadline_s: float = 30.0) -> bool:
+        """Graceful drain: stop admitting (submit sheds "draining"),
+        finish everything already admitted — queued included — then tell
+        the replicas to wind down. The replica-side drain goes out only
+        once the router's queue is EMPTY: sending it earlier makes
+        replicas bounce the router's own still-queued dispatches.
+        Stragglers past the deadline fail with reason ``drain_timeout``.
+        True if everything in flight completed."""
+        self._draining = True
+        deadline = time.monotonic() + deadline_s
+        drain_sent = False
+        while any(r.status in (QUEUED, ASSIGNED, RECOVERING, GANG)
+                  for r in self._reqs.values()):
+            if not drain_sent and not any(
+                    r.status in (QUEUED, GANG)
+                    for r in self._reqs.values()):
+                for rep in self.fleet.ready():
+                    rep.send({"t": "drain"})
+                drain_sent = True
+            if time.monotonic() >= deadline:
+                for tid, r in list(self._reqs.items()):
+                    if r.status in (QUEUED, ASSIGNED, RECOVERING, GANG):
+                        self._terminate(tid, FAILED, "drain_timeout")
+                return False
+            self.poll()
+        if not drain_sent:
+            for rep in self.fleet.ready():
+                rep.send({"t": "drain"})
+        return True
+
+
+def main(argv: list[str]) -> int:
+    """``python -m deepspeed_tpu_torch.serving.router [--journal DIR] <cfg>``
+
+    The operational entry point the chaos matrix SIGKILLs: build a
+    Router from a JSON config (inline, or ``@path`` to a file), submit
+    its request waves, optionally start a deploy, run everything to a
+    terminal state and write a results JSON. Re-running the SAME command
+    over the same ``--journal`` directory IS the recovery path:
+    already-journaled admits are skipped (duplicate trace IDs), the
+    restarted router re-dials the fleet and re-adopts in-flight work via
+    resync, and a journaled in-flight deploy resolves deterministically.
+
+    Config keys::
+
+        router         RouterConfig fields; "fleet" nests FleetConfig
+        waves          [[request, ...], ...]: each request has
+                       {"prompt": [int], "trace_id": str,
+                        "max_new_tokens": int, "tenant": str,
+                        "eos_token_id": int|null, "priority": int};
+                       run() drives each wave to completion
+        poll_every     poll N times after each submit (staggers
+                       placement so crash points land mid-stream)
+        deploy         {"ckpt": str, "tag": str|null} started after the
+                       first wave's submits — skipped on recovery when
+                       the journal already carries a deploy
+        min_ready / run_deadline_s / results (output JSON path)
+    """
+    import json as _json
+
+    args = list(argv[1:])
+    journal = None
+    if args and args[0] == "--journal":
+        if len(args) < 2:
+            raise SystemExit(
+                "usage: python -m deepspeed_tpu_torch.serving.router "
+                "[--journal DIR] <cfg json | @cfg-file>")
+        journal = args[1]
+        args = args[2:]
+    raw = args[0] if args else "{}"
+    if raw.startswith("@"):
+        with open(raw[1:], encoding="utf-8") as f:
+            raw = f.read()
+    cfg = _json.loads(raw)
+    rkw = dict(cfg.get("router") or {})
+    fkw = dict(rkw.pop("fleet", {}) or {})
+    rcfg = RouterConfig(fleet=FleetConfig(**fkw), **rkw)
+    if journal:
+        rcfg.journal_dir = journal
+    router = Router(rcfg)
+    deadline_s = float(cfg.get("run_deadline_s", 120.0))
+    poll_every = int(cfg.get("poll_every", 0))
+    out: dict = {}
+    try:
+        router.start(min_ready=int(cfg.get("min_ready", 1)))
+        waves = cfg.get("waves") or []
+        if cfg.get("requests"):
+            waves = [cfg["requests"]] + list(waves)
+        for wi, wave in enumerate(waves):
+            for r in wave:
+                try:
+                    router.submit(
+                        [int(x) for x in r["prompt"]],
+                        tenant=str(r.get("tenant", "default")),
+                        max_new_tokens=int(r.get("max_new_tokens", 16)),
+                        eos_token_id=r.get("eos_token_id"),
+                        priority=int(r.get("priority", 0)),
+                        trace_id=r.get("trace_id"))
+                except ValueError:
+                    pass             # journal-recovered: already owned
+                except AdmissionError:
+                    pass             # structured shed: lands in results
+                for _ in range(poll_every):
+                    router.poll()
+            if wi == 0 and cfg.get("deploy") \
+                    and not router.journal_saw_deploy:
+                router.start_deploy(cfg["deploy"]["ckpt"],
+                                    cfg["deploy"].get("tag"))
+            router.run(deadline_s=deadline_s)
+            for _ in range(int(cfg.get("inter_wave_polls", 0))):
+                router.poll()            # e.g. let digests land
+        dep_deadline = time.monotonic() + deadline_s
+        while router._deploy is not None and router._deploy.active:
+            if time.monotonic() >= dep_deadline:
+                break
+            router.poll()
+        for _ in range(int(cfg.get("settle_polls", 0))):
+            router.poll()                # e.g. let rollback wvs land
+        out = {
+            "results": router.results(),
+            "double_commits": router.double_commits,
+            "replay_mismatches": router.replay_mismatches,
+            "stale_msgs": router.stale_msgs,
+            "recovered": router.recovered,
+            "readopted": router.readopted,
+            "resync_orphans": router.resync_orphans,
+            "recovery_first_chunk_s": router.recovery_first_chunk_s,
+            "deploys": dict(router.deploys),
+            "deploy_status": router.deploy_status(),
+            "fleet_wv": {str(h.slot): h.wv
+                         for h in router.fleet.replicas},
+            "fleet_states": {str(h.slot): h.state
+                             for h in router.fleet.replicas},
+            "preemptions": router.fleet.preemptions_total,
+            "elastic": router._elastic.stats()
+            if router._elastic is not None else None,
+            "push": router._push.stats(),
+            "journal": router.journal_stats(),
+        }
+    finally:
+        path = cfg.get("results")
+        if path:
+            tmp = path + ".tmp"
+            with open(tmp, "w", encoding="utf-8") as f:
+                _json.dump(out, f)
+            os.replace(tmp, path)
+        if cfg.get("leave_fleet"):
+            # drop the channels but keep daemon replicas running —
+            # multi-incarnation harnesses reuse the fleet
+            router.abandon()
+        else:
+            router.close()
+    return 0
+
+
+if __name__ == "__main__":
+    import sys
+
+    sys.exit(main(sys.argv))

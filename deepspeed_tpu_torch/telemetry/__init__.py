@@ -4,8 +4,11 @@ Prometheus exposition, flight recorder, per-request lifecycle tracing.
 The port's copy of ``deepspeed_tpu/telemetry``: the same metric names,
 label sets, span names, reqtrace event kinds, config keys and environment
 variables, so one config and one dashboard serve both packages. The
-fleet-side modules (``fleettrace``, ``timeseries``, ``alerts``,
-``console``) come with the port of ``serving/*``, which alone uses them.
+fleet-side modules serve the port's ``serving/*``: ``fleettrace`` (clock
+sync, cross-process request timelines, straggler scores, post-mortems),
+``timeseries`` and ``alerts`` (the router's watchtower: a series store and
+its alert rules, served at ``/series`` and ``/alerts``) and ``console``
+(``python -m deepspeed_tpu_torch.telemetry.console``, the ops console).
 
 One process-wide :class:`Telemetry` instance (:func:`get_telemetry`) is
 shared by the training engine, the inference engine, the scheduler,
@@ -29,6 +32,8 @@ import os
 import threading
 
 from ..utils.logging import logger
+from .fleettrace import (ClockSync, FleetTraceAssembler, StragglerScorer,
+                         postmortem_report)
 from .metrics import (LATENCY_BUCKETS_S, RATIO_BUCKETS, Counter, Gauge,
                       Histogram, MetricsRegistry, sanitize_label_value,
                       sanitize_metric_name)
@@ -38,6 +43,8 @@ from .reqtrace import (LIFECYCLE_EVENTS, TENANT_CARDINALITY_CAP,
                        TENANT_OVERFLOW_LABEL, ReqTracer)
 from .spans import NULL_SPAN, SpanTracer
 from .exposition import TelemetryHTTPServer
+from .timeseries import StoreSampler, TimeSeriesStore
+from .alerts import AlertManager, AlertRule, default_fleet_rules
 
 #: metric-name prefix of every router-side series (serving/router.py) —
 #: the registry-zeroing scopes the bench and the router harness use to
@@ -56,6 +63,10 @@ __all__ = [
     "sanitize_label_value", "LIFECYCLE_EVENTS", "TENANT_CARDINALITY_CAP",
     "TENANT_OVERFLOW_LABEL",
     "LATENCY_BUCKETS_S", "RATIO_BUCKETS", "NULL_SPAN",
+    "ClockSync", "FleetTraceAssembler", "StragglerScorer",
+    "postmortem_report",
+    "TimeSeriesStore", "StoreSampler", "AlertManager", "AlertRule",
+    "default_fleet_rules",
 ]
 
 
@@ -86,9 +97,9 @@ class Telemetry:
                                   recorder=self.recorder)
         self.server: TelemetryHTTPServer | None = None
         self._health_extra: dict = {}
-        # watchtower hooks: plain callables set via attach_watchtower by
-        # whoever owns the fleet's store (the router, with serving/*);
-        # served at /alerts and /series once the HTTP endpoint is up
+        # watchtower hooks (telemetry/alerts.py + timeseries.py): set via
+        # attach_watchtower by whoever owns the store (the router); served
+        # at /alerts and /series once the HTTP endpoint is up
         self._alerts_fn = None
         self._series_fn = None
 
@@ -284,8 +295,8 @@ class Telemetry:
         "which requests were in flight while dispatch stalled" is one
         view.
 
-        **Fleet mode**: pass the router's fleet-trace assembler (any
-        object with ``chrome_events(epoch=)``) as ``fleet`` and the
+        **Fleet mode**: pass the router's
+        :class:`~.fleettrace.FleetTraceAssembler` as ``fleet`` and the
         merged cross-replica request timelines render as additional
         ALIGNED tracks — one pid per process (router + every replica),
         replica events shifted onto the router's clock by the heartbeat

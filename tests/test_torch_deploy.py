@@ -1,0 +1,597 @@
+"""Zero-downtime fleet weight hot-swap (serving/deploy.py).
+
+The acceptance gate: a rolling deploy across >= 3 replicas under
+continuous traffic drops ZERO requests and double-commits nothing —
+greedy streams that started before the swap finish bit-identical to the
+closed-form oracle (the toy stream is weight-independent by
+construction, which is exactly what lets these tests assert
+bit-identity across a version change); an injected canary degrade rolls
+the whole fleet back to the prior version; a SIGKILL mid-swap restarts
+the replica on the OLD version and aborts the deploy; and cross-version
+KV pulls/handoffs are refused with the structured ``version_skew``
+reason, completing via recompute/resume bit-identically.
+
+The port's copy of ``tests/test_deploy.py``, over ``deepspeed_tpu_torch``:
+its router, its replicas (spawned as ``python -m
+deepspeed_tpu_torch.serving.replica``) and its telemetry. Engine legs run
+the port's engine in fp32 on the CPU (``"device": "cpu"``, one torch thread
+a replica) and are tier-1 here; waits poll for their condition under
+generous deadlines.
+"""
+import os
+import tempfile
+import time
+
+import pytest
+
+from deepspeed_tpu_torch.checkpoint.manifest import (manifest_digest,
+                                                     resolve_tag, tag_status)
+from deepspeed_tpu_torch.inference.migration import (toy_bundle, version_skew,
+                                                     PageBundle)
+from deepspeed_tpu_torch.serving import (DeployConfig, DeployError,
+                                         FleetConfig,
+                                         Router, RouterConfig,
+                                         best_digest_peer, chain_hashes,
+                                         write_toy_checkpoint)
+from deepspeed_tpu_torch.serving.replica import ToyBackend, _mix
+from tests.test_torch_serving import restore_telemetry  # noqa: F401
+
+#: replica logs of these tests, under the run's own temporary directory
+TMP_ROOT = tempfile.gettempdir()
+
+VOCAB = 1024
+
+
+def toy_stream(prompt, n, vocab=VOCAB):
+    """Closed-form oracle for the toy backend's deterministic stream."""
+    seed = 0
+    for t in prompt:
+        seed = _mix(seed, int(t))
+    out = []
+    for i in range(n):
+        seed = _mix(seed, i)
+        out.append((seed >> 33) % vocab)
+    return out
+
+
+def make_router(n_replicas=3, replica=None, per_slot=None, roles=None,
+                log_tag="deploy", **rkw):
+    replica_cfg = {"backend": "toy", "block_size": 16, "max_live": 4,
+                   "vocab": VOCAB, "hb_interval_s": 0.03,
+                   "tokens_per_step": 4}
+    replica_cfg.update(replica or {})
+    fcfg = FleetConfig(
+        n_replicas=n_replicas, replica=replica_cfg,
+        per_slot=per_slot or {}, roles=roles,
+        hb_timeout_s=rkw.pop("hb_timeout_s", 1.0),
+        backoff_base_s=0.05,
+        log_dir=os.path.join(TMP_ROOT, "ds_torch_deploy_tests", log_tag),
+        env=rkw.pop("env", {}))
+    return Router(RouterConfig(
+        fleet=fcfg,
+        request_timeout_s=rkw.pop("request_timeout_s", 10.0),
+        max_retries=rkw.pop("max_retries", 3), **rkw))
+
+
+def make_ckpt(tmp_path, tag="v1", **kw):
+    root = str(tmp_path / "ckpts")
+    write_toy_checkpoint(root, tag, vocab=kw.pop("vocab", VOCAB),
+                         block_size=kw.pop("block_size", 16), **kw)
+    return root
+
+
+# ---------------------------------------------------------------------------
+# units: manifest verification / version stamps / skew rules
+# ---------------------------------------------------------------------------
+
+def test_toy_checkpoint_verifies_and_digests(tmp_path):
+    root = make_ckpt(tmp_path, "v1")
+    path = os.path.join(root, "v1")
+    assert tag_status(path) == ("verified", "")
+    d1 = manifest_digest(path)
+    assert len(d1) == 8
+    # 'latest' resolves; a second tag supersedes it
+    assert resolve_tag(root, None) == ("v1", "")
+    write_toy_checkpoint(root, "v2", steps=2)
+    assert resolve_tag(root, None) == ("v2", "")
+    assert manifest_digest(os.path.join(root, "v2")) != d1
+    # tamper one state byte: the crc gate catches it and resolution
+    # falls back to the older verified tag
+    with open(os.path.join(root, "v2", "state", "weights.json"),
+              "r+b") as f:
+        f.write(b"X")
+    status, reason = tag_status(os.path.join(root, "v2"))
+    assert status == "bad" and "checksum" in reason
+    assert resolve_tag(root, None) == ("v1", "")
+    # an explicitly named bad tag never silently falls back
+    tag, why = resolve_tag(root, "v2")
+    assert tag == "" and "v2" in why
+
+
+def test_toy_backend_swap_refusals_keep_old_version(tmp_path):
+    root = make_ckpt(tmp_path, "v1")
+    tb = ToyBackend({"vocab": VOCAB, "block_size": 16})
+    assert tb.weight_version == {"id": 0, "digest": "init"}
+    reason, info = tb.swap_weights(root, None, 1)
+    assert reason is None and info["wv"]["id"] == 1
+    assert tb.radix.weight_version == 1
+    v1 = dict(tb.weight_version)
+    # shape mismatch: refused BEFORE anything changes
+    write_toy_checkpoint(root, "wide", vocab=VOCAB * 2)
+    assert tb.swap_weights(root, "wide", 2)[0] == "shape_mismatch"
+    assert tb.weight_version == v1
+    # explicit missing tag / tampered tag: structured, old version serves
+    assert tb.swap_weights(root, "nope", 2)[0] == "no_checkpoint"
+    with open(os.path.join(root, "v1", "state", "weights.json"),
+              "r+b") as f:
+        f.write(b"X")
+    assert tb.swap_weights(root, "v1", 2)[0] == "integrity"
+    assert tb.weight_version == v1
+    # revert-to-init (the rollback target of a never-deployed fleet)
+    reason, info = tb.swap_weights(None, None, 0)
+    assert reason is None
+    assert tb.weight_version == {"id": 0, "digest": "init"}
+
+
+def test_version_skew_rule_and_bundle_stamp():
+    a = {"id": 1, "digest": "aa"}
+    b = {"id": 2, "digest": "bb"}
+    assert version_skew(a, b) and not version_skew(a, dict(a))
+    # None (pre-versioning) is compatible-with-anything, both ways
+    assert not version_skew(None, a) and not version_skew(a, None)
+    bundle = toy_bundle("t1", list(range(20)), [7, 8], 4, None, "x", 16,
+                        weight_version=a)
+    shell = PageBundle.from_meta(bundle.meta())
+    assert shell.weight_version == a
+
+
+def test_toy_import_refuses_version_skew():
+    src = ToyBackend({"vocab": VOCAB, "block_size": 16})
+    dst = ToyBackend({"vocab": VOCAB, "block_size": 16})
+    dst.weight_version = {"id": 9, "digest": "other"}  # test-only skew
+    bundle = toy_bundle("t1", list(range(20)), [7, 8], 8, None, "x", 16,
+                        weight_version=dict(src.weight_version))
+    assert dst.import_begin("t1", bundle.meta()) == "version_skew"
+    # prefix adopt: skewed chain adopts nothing (caller recomputes)
+    pb = src.kv_export(list(range(32)))
+    assert pb is None  # nothing cached yet — miss, not skew
+    src.put(__import__("deepspeed_tpu_torch.serving.protocol",
+                       fromlist=["RequestRecord"]).RequestRecord(
+        trace_id="w", prompt=list(range(32)), max_new_tokens=4))
+    for _ in range(40):
+        src.step(_NoInj())
+        if "w" not in src.seqs:
+            break
+    pb = src.kv_export(list(range(32)))
+    assert pb is not None
+    assert dst.adopt_prefix(pb) == 0          # skew: nothing adopted
+    dst.weight_version = dict(src.weight_version)
+    assert dst.adopt_prefix(pb) > 0           # same version: adopted
+
+
+class _NoInj:
+    def countdown(self, p):
+        return False
+
+    def value(self, p):
+        return None
+
+
+def test_pinned_stale_pages_invisible_after_swap():
+    """The silent-corruption edge the skew guard exists for: pages
+    PINNED by an in-flight pre-swap sequence survive the swap flush
+    (eviction can't take a referenced page) but must never serve a
+    post-swap request — match, digest and re-publish all refuse them,
+    and once unpinned they are replaced in place."""
+    from deepspeed_tpu_torch.inference.prefix_cache import PrefixCache
+
+    pc = PrefixCache(4)
+    toks = list(range(24))
+    pc.publish(toks, [1, 2, 3, 4, 5, 6], 0, 24)
+    pinned = pc.match(toks)
+    assert len(pinned) == 6
+    pc.acquire(pinned)                   # a live pre-swap sequence
+    assert pc.evict(len(pc)) == []       # the flush reclaims nothing
+    pc.set_weight_version(1)
+    # invisible to placement and admission alike
+    assert pc.match(toks) == []
+    assert pc.residency_digest() == []
+    # a post-swap publish of the same chain stops at the pinned stale
+    # page: every fresh block comes back (conservative miss, never a
+    # cross-version serve or a stranded block)
+    fresh = [11, 12, 13, 14, 15, 16]
+    assert pc.publish(toks, list(fresh), 0, 24) == fresh
+    assert pc.match(toks) == []
+    # the pre-swap sequence finishes: unpinned stale pages are replaced
+    # in place by the next publish, and the chain serves again
+    pc.release(pinned)
+    freed = pc.publish(toks, [21, 22, 23, 24, 25, 26], 0, 24)
+    assert sorted(freed) == [1, 2, 3, 4, 5, 6]   # the stale copies
+    assert len(pc.match(toks)) == 6
+    pc.check()
+
+
+def test_toy_backend_swap_does_not_serve_stale_pinned_prefix():
+    """ToyBackend end-to-end shape of the same property: warm a chain,
+    pin it with a live request, swap — a same-prefix request admitted
+    post-swap gets ZERO prefix hits."""
+    from deepspeed_tpu_torch.serving.protocol import RequestRecord
+
+    tb = ToyBackend({"vocab": VOCAB, "block_size": 16, "max_live": 4})
+    prefix = list(range(48))
+    tb.put(RequestRecord(trace_id="w", prompt=prefix + [1] * 4,
+                         max_new_tokens=4))
+    for _ in range(40):
+        tb.step(_NoInj())
+        if "w" not in tb.seqs:
+            break
+    assert "w" not in tb.seqs            # released: chain published
+    tb.put(RequestRecord(trace_id="a", prompt=prefix + [2] * 4,
+                         max_new_tokens=64))
+    a_hit = tb.seqs["a"]["nodes"]
+    assert len(a_hit) >= 3               # pinned pre-swap
+    assert tb.swap_weights(None, None, 5)[0] is None
+    before = tb.prefix_hit_tokens
+    tb.put(RequestRecord(trace_id="b", prompt=prefix + [3] * 4,
+                         max_new_tokens=4))
+    assert tb.prefix_hit_tokens == before, \
+        "post-swap admit must not hit stale pinned pages"
+    assert tb.seqs["b"]["nodes"] == []
+    tb.radix.check()
+
+
+class _Cand:
+    def __init__(self, slot, digest, wv=None):
+        self.slot, self.digest, self.load, self.wv = slot, digest, None, wv
+
+
+def test_best_digest_peer_skips_cross_version():
+    chain = chain_hashes(list(range(64)), 16)
+    v1, v2 = {"id": 1, "digest": "a"}, {"id": 2, "digest": "b"}
+    deep = _Cand(0, set(chain), wv=v2)        # deepest but wrong version
+    shallow = _Cand(1, set(chain[:1]), wv=v1)
+    peer, pages = best_digest_peer(chain, [deep, shallow],
+                                   weight_version=v1)
+    assert peer is shallow and pages == 1
+    # no version filter: the deep peer wins (pre-versioning behavior)
+    peer, pages = best_digest_peer(chain, [deep, shallow])
+    assert peer is deep and pages == len(chain)
+    # None-versioned peers stay eligible
+    legacy = _Cand(2, set(chain), wv=None)
+    peer, _ = best_digest_peer(chain, [deep, legacy], weight_version=v1)
+    assert peer is legacy
+
+
+def test_deploy_target_preflight_rejects_bad_checkpoints(tmp_path):
+    r = make_router(n_replicas=1, log_tag="preflight")
+    # no fleet started: preflight is pure host logic
+    with pytest.raises(DeployError):
+        r.start_deploy(str(tmp_path / "nothing"))
+    root = make_ckpt(tmp_path, "v1")
+    with open(os.path.join(root, "v1", "state", "weights.json"),
+              "r+b") as f:
+        f.write(b"X")
+    with pytest.raises(DeployError):
+        r.start_deploy(root, tag="v1")
+
+
+# ---------------------------------------------------------------------------
+# multiprocess: the rolling deploy itself
+# ---------------------------------------------------------------------------
+
+def _drive(router, tids, deadline_s=90.0, want_deploy_done=True):
+    deadline = time.monotonic() + deadline_s
+    while time.monotonic() < deadline:
+        dep = router.deploy_status()
+        busy = any(router._reqs[t].status in ("queued", "assigned")
+                   for t in tids)
+        if not busy and (not want_deploy_done
+                         or (dep is not None and not dep["active"])):
+            break
+        router.poll()
+    return router.deploy_status()
+
+
+def test_rolling_deploy_under_traffic_zero_drops(tmp_path):
+    """The acceptance test: >= 3 replicas, traffic flowing the whole
+    time, fleet converges to the new version, 0 dropped requests, 0
+    double commits, streams bit-identical to the oracle."""
+    root = make_ckpt(tmp_path, "v1")
+    router = make_router(n_replicas=3, log_tag="rolling")
+    with router:
+        router.start(min_ready=3)
+        prompts = {f"d{i}": [(11 * i + j) % VOCAB for j in range(40)]
+                   for i in range(12)}
+        tids = []
+        it = iter(prompts.items())
+        # a first wave starts BEFORE the deploy...
+        for _ in range(4):
+            tid, p = next(it)
+            tids.append(router.submit(p, max_new_tokens=24,
+                                      trace_id=tid))
+        for _ in range(3):
+            router.poll()
+        st = router.start_deploy(root,
+                                 cfg=DeployConfig(canary_soak_s=0.2))
+        assert st["active"] and st["wid"] == 1
+        # ...and the rest lands while the roll is in flight
+        for tid, p in it:
+            tids.append(router.submit(p, max_new_tokens=24,
+                                      trace_id=tid))
+            router.poll()
+        dep = _drive(router, tids)
+        assert dep["outcome"] == "ok", dep
+        assert dep["swapped"][0] == min(dep["swapped"])  # canary first
+        res = {t: router.result(t) for t in tids}
+        assert all(v["status"] == "done" for v in res.values()), res
+        for tid, v in res.items():
+            assert v["tokens"] == toy_stream(prompts[tid], 24), tid
+        assert router.double_commits == 0
+        assert router.replay_mismatches == 0
+        # every replica heartbeats the new version, and a future restart
+        # loads it too (template committed)
+        deadline = time.monotonic() + 60.0
+        while time.monotonic() < deadline and not all(
+                (h.wv or {}).get("id") == 1
+                for h in router.fleet.replicas):
+            router.poll()
+        assert all((h.wv or {}).get("id") == 1
+                   for h in router.fleet.replicas)
+        assert router.fleet.cfg.replica["wid"] == 1
+        assert router.deploys["ok"] == 1
+
+
+def test_canary_degrade_rolls_back_whole_fleet(tmp_path):
+    """swap_canary_degrade: the canary swaps 'successfully' but serves
+    slow — the probe TTFT gate catches it and the fleet ends on the old
+    version everywhere, traffic unharmed."""
+    root = make_ckpt(tmp_path, "v1")
+    router = make_router(
+        n_replicas=3, log_tag="degrade",
+        per_slot={"0": {"faults": {"swap_canary_degrade": 0.3}}})
+    with router:
+        router.start(min_ready=3)
+        prompts = {f"c{i}": [(7 * i + j) % VOCAB for j in range(40)]
+                   for i in range(6)}
+        tids = [router.submit(p, max_new_tokens=16, trace_id=t)
+                for t, p in prompts.items()]
+        router.start_deploy(root, cfg=DeployConfig(
+            canary_soak_s=0.2, probe_ttft_slo_s=0.15))
+        dep = _drive(router, tids)
+        assert dep["outcome"] == "rolled_back", dep
+        assert "canary_probe_slo" in dep["reason"]
+        # verifiably back on the old version everywhere
+        deadline = time.monotonic() + 60.0
+        while time.monotonic() < deadline and not all(
+                (h.wv or {}).get("id") == 0
+                for h in router.fleet.replicas):
+            router.poll()
+        assert all((h.wv or {}).get("id") == 0
+                   for h in router.fleet.replicas)
+        assert router.fleet.cfg.replica.get("wid", 0) == 0
+        res = {t: router.result(t) for t in tids}
+        assert all(v["status"] == "done" for v in res.values())
+        for tid, v in res.items():
+            assert v["tokens"] == toy_stream(prompts[tid], 16)
+        assert router.double_commits == 0
+        assert router.deploys["rolled_back"] == 1
+
+
+def test_sigkill_mid_swap_restarts_old_version_and_aborts(tmp_path):
+    """swap_crash_mid_quiesce: the canary dies inside the swap handler
+    (hard os._exit — a real no-unwind death). The deploy aborts, the
+    replica respawns from the template on the OLD version, and traffic
+    replays onto survivors bit-identically."""
+    root = make_ckpt(tmp_path, "v1")
+    router = make_router(
+        n_replicas=3, log_tag="sigkill",
+        per_slot={"0": {"faults": {"swap_crash_mid_quiesce": 1}}})
+    with router:
+        router.start(min_ready=3)
+        prompts = {f"k{i}": [(5 * i + j) % VOCAB for j in range(40)]
+                   for i in range(6)}
+        tids = [router.submit(p, max_new_tokens=16, trace_id=t)
+                for t, p in prompts.items()]
+        router.start_deploy(root, cfg=DeployConfig(canary_soak_s=0.1))
+        dep = _drive(router, tids)
+        assert dep["outcome"] == "aborted", dep
+        assert "replica_lost" in dep["reason"]
+        assert router.deploys["aborted"] == 1
+        res = {t: router.result(t) for t in tids}
+        assert all(v["status"] == "done" for v in res.values()), res
+        for tid, v in res.items():
+            assert v["tokens"] == toy_stream(prompts[tid], 16)
+        # the crashed slot came back on the old version (template never
+        # advanced); wait for its respawn to report in
+        deadline = time.monotonic() + 60.0
+        while time.monotonic() < deadline:
+            h = router.fleet.replicas[0]
+            if h.state == "ready" and h.wv is not None:
+                break
+            router.poll()
+        assert router.fleet.replicas[0].epoch >= 1
+        assert (router.fleet.replicas[0].wv or {}).get("id") == 0
+        assert router.fleet.cfg.replica.get("wid", 0) == 0
+
+
+def test_corrupt_manifest_swap_refused_structured(tmp_path):
+    """swap_corrupt_manifest: the canary's verification fails with the
+    structured integrity reason; the deploy aborts with the old weights
+    serving everywhere (nothing ever swapped)."""
+    root = make_ckpt(tmp_path, "v1")
+    router = make_router(
+        n_replicas=2, log_tag="corrupt",
+        per_slot={"0": {"faults": {"swap_corrupt_manifest": 1}}})
+    with router:
+        router.start(min_ready=2)
+        tids = [router.submit([3] * 40, max_new_tokens=8,
+                              trace_id="m1")]
+        router.start_deploy(root, cfg=DeployConfig(canary_soak_s=0.1))
+        dep = _drive(router, tids)
+        assert dep["outcome"] == "aborted", dep
+        assert dep["reason"] == "swap_fail:integrity"
+        assert dep["swapped"] == []
+        assert all((h.wv or {}).get("id") == 0
+                   for h in router.fleet.replicas)
+        assert router.result("m1")["status"] == "done"
+
+
+def test_second_deploy_while_active_refused(tmp_path):
+    root = make_ckpt(tmp_path, "v1")
+    router = make_router(n_replicas=2, log_tag="double")
+    with router:
+        router.start(min_ready=2)
+        router.start_deploy(root, cfg=DeployConfig(canary_soak_s=0.3))
+        with pytest.raises(RuntimeError):
+            router.start_deploy(root)
+        dep = _drive(router, [])
+        assert dep["outcome"] == "ok"
+        # a finished deploy can be followed by another (wid moves on)
+        write_toy_checkpoint(root, "v2", steps=2)
+        st = router.start_deploy(root, tag="v2",
+                                 cfg=DeployConfig(canary_soak_s=0.1))
+        assert st["wid"] == 2
+        dep = _drive(router, [])
+        assert dep["outcome"] == "ok"
+        deadline = time.monotonic() + 60.0
+        while time.monotonic() < deadline and not all(
+                (h.wv or {}).get("id") == 2
+                for h in router.fleet.replicas):
+            router.poll()
+        assert all((h.wv or {}).get("id") == 2
+                   for h in router.fleet.replicas)
+
+
+# ---------------------------------------------------------------------------
+# multiprocess: version-skew guards on the KV transfer paths
+# ---------------------------------------------------------------------------
+
+def test_cross_version_pull_refused_recompute_bit_identical(tmp_path):
+    """Two replicas on different versions: the warm peer's chain is the
+    deepest digest match, but the pull is never attempted — the
+    structured version_skew fallback counts and the stream recomputes
+    bit-identically to the no-pull oracle."""
+    root = make_ckpt(tmp_path, "v1")
+    router = make_router(
+        n_replicas=2, log_tag="skewpull",
+        replica={"max_live": 1},
+        per_slot={"1": {"ckpt": root, "wid": 1}},
+        kv_pull=True, kv_pull_min_pages=1, rebalance=False,
+        telemetry=True)
+    with router:
+        router.start(min_ready=2)
+        shared = list(range(64))
+        w = router.submit(shared + [7] * 8, max_new_tokens=8,
+                          trace_id="warm")
+        router.run(deadline_s=20)
+        for _ in range(30):             # let the digest heartbeat in
+            router.poll()
+        warm_slot = router._reqs["warm"].placed[-1]
+        # occupy the warm replica so the same-prefix request spills to
+        # the OTHER (different-version) slot
+        router.submit([3] * 24, max_new_tokens=64, trace_id="hold",
+                      pin_slot=warm_slot)
+        for _ in range(10):
+            router.poll()
+        t2 = router.submit(shared + [8] * 8, max_new_tokens=8,
+                           trace_id="spill")
+        res = router.run(deadline_s=20)
+        assert res["spill"]["status"] == "done"
+        assert res["spill"]["pulled_pages"] == 0
+        assert router.kv_pulls == 0          # never even attempted
+        assert router.version_skews >= 1
+        assert res["spill"]["tokens"] == toy_stream(shared + [8] * 8, 8)
+        snap = router._telem.snapshot()
+        fam = snap.get("serving_router_kv_pull_fallbacks_total")
+        reasons = {s["labels"]["reason"]: s["value"]
+                   for s in fam["series"]}
+        assert reasons.get("version_skew", 0) >= 1
+
+
+def test_engine_fleet_deploy_serves_checkpoint_weights(tmp_path):
+    """Real engine_v2 replicas: publish a differently-seeded engine's
+    weights via save_weights, roll them across a 2-replica fleet, and
+    the post-deploy greedy stream through the router is bit-identical
+    to the checkpoint engine's own stream — the fleet genuinely serves
+    the NEW weights, not just a bumped version number."""
+    import torch
+
+    from deepspeed_tpu_torch.inference.engine_v2 import InferenceEngineV2
+    from deepspeed_tpu_torch.models import build_model
+
+    ecfg = {"block_size": 4, "num_blocks": 64, "max_seqs": 2,
+            "chunk": 8, "max_seq_len": 128}
+    prev = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        oracle = InferenceEngineV2(
+            build_model("tiny-gpt2", device="cpu", dtype=torch.float32,
+                        seed=9),
+            config=dict(ecfg, dtype=torch.float32, device="cpu"))
+        root = str(tmp_path / "engine_ckpts")
+        oracle.save_weights(root, tag="v1", wid=1)
+        prompt = [5, 6, 7, 8, 9, 10]
+        oracle.put(1, prompt, 8)
+        while not oracle.state.seqs[1].done or oracle._uid_inflight(1):
+            oracle.step()
+        want = [int(t) for t in oracle.flush(1)]
+    finally:
+        torch.set_num_threads(prev)
+
+    router = make_router(
+        n_replicas=2, log_tag="engine_deploy",
+        replica={"backend": "engine", "model": "tiny-gpt2", "seed": 7,
+                 "device": "cpu", "dtype": "float32",
+                 "engine": dict(ecfg), "hb_interval_s": 0.05},
+        env={"OMP_NUM_THREADS": "1", "MKL_NUM_THREADS": "1"},
+        hb_timeout_s=60.0, request_timeout_s=120.0)
+    router.cfg.fleet.ready_timeout_s = 300.0
+    with router:
+        # both replicas up before the deploy: a slot still spawning when
+        # the deploy succeeds comes up on the template it was spawned from
+        router.start(min_ready=2)
+        # pre-deploy baseline (seed-7 weights): different stream
+        tid = router.submit(prompt, max_new_tokens=8, trace_id="pre")
+        router.run(deadline_s=180)
+        pre = router.result(tid)
+        assert pre["status"] == "done"
+        dep = router.deploy(root, cfg=DeployConfig(
+            canary_soak_s=0.2, swap_timeout_s=120.0,
+            probe_timeout_s=120.0, deadline_s=600.0), deadline_s=600.0)
+        assert dep["outcome"] == "ok", dep
+        tid = router.submit(prompt, max_new_tokens=8, trace_id="post")
+        router.run(deadline_s=180)
+        post = router.result(tid)
+        assert post["status"] == "done"
+        assert post["tokens"] == want, \
+            "post-deploy stream must match the checkpoint engine"
+        assert post["tokens"] != pre["tokens"], \
+            "seed-7 and seed-9 weights should not stream identically"
+        # every replica's next heartbeat reports the new version
+        deadline = time.monotonic() + 60.0
+        while time.monotonic() < deadline and not all(
+                (h.wv or {}).get("id") == 1 for h in router.fleet.replicas):
+            router.poll()
+        assert all((h.wv or {}).get("id") == 1
+                   for h in router.fleet.replicas)
+
+
+def test_cross_version_handoff_resumes_on_source(tmp_path):
+    """Role-split with the prefill replica one version ahead: the
+    decode target would import skewed KV, so the relay refuses and the
+    source serves the stream out (mixed-resume), bit-identically."""
+    root = make_ckpt(tmp_path, "v1")
+    router = make_router(
+        n_replicas=2, log_tag="skewmig",
+        roles=["prefill", "decode"],
+        per_slot={"0": {"ckpt": root, "wid": 1}})
+    with router:
+        router.start(min_ready=2)
+        tid = router.submit([9] * 40, max_new_tokens=16, trace_id="h1")
+        res = router.run(deadline_s=20)
+        assert res["h1"]["status"] == "done"
+        assert res["h1"]["migrated"] is False        # never moved
+        assert router.migration_fallbacks >= 1       # resumed on source
+        assert router.version_skews >= 1
+        assert res["h1"]["tokens"] == toy_stream([9] * 40, 16)
+        assert router.double_commits == 0

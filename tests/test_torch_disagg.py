@@ -1,0 +1,696 @@
+"""Disaggregated prefill/decode serving: KV-page migration subsystem.
+
+Three layers under test:
+
+- the bundle wire form (inference/migration.py): chunking, crc,
+  out-of-order + resumable reassembly, integrity oracles;
+- the refcounted export/import/abort API (ragged.StateManager): pages
+  pinned until the importer acks, schedulers skip frozen sequences,
+  aborts roll back with zero leaked/double-owned blocks (full ``audit()``
+  at every stage), imports seed the prefix trie;
+- the serving tier (serving/disagg.py + router/replica/fleet): role-split
+  fleets hand sequences prefill->decode through the router with
+  bit-identical greedy streams (toy LCG oracle in tier-1, real engine
+  pairs in the slow tier), chaos deaths mid-bundle on either side fall
+  back to retry-with-replay, no decode capacity degrades to mixed via
+  mig_resume, and the remote-transport socket path carries it all.
+
+The port's copy of ``tests/test_disagg.py``, over ``deepspeed_tpu_torch``:
+its router, its replicas (spawned as ``python -m
+deepspeed_tpu_torch.serving.replica``) and its telemetry. Engine legs run
+the port's engine in fp32 on the CPU (``"device": "cpu"``, one torch thread
+a replica) and are tier-1 here; waits poll for their condition under
+generous deadlines.
+"""
+import collections
+import json
+import os
+import signal
+import subprocess
+import sys
+import tempfile
+import time
+
+import pytest
+
+from deepspeed_tpu_torch.inference import PrefixCache, StateManager
+from deepspeed_tpu_torch.inference.migration import (
+    BundleAssembler, MigrationError, iter_chunks, toy_bundle,
+    toy_verify)
+from deepspeed_tpu_torch.inference.scheduler import SplitFuseScheduler
+from deepspeed_tpu_torch.serving import (FleetConfig, Router, RouterConfig,
+                                         ScaleAdvisor, TraceConfig,
+                                         connect_channel, synth_trace)
+from deepspeed_tpu_torch.serving.disagg import ROLE_DECODE, ROLE_PREFILL
+from deepspeed_tpu_torch.serving.replica import _mix
+from deepspeed_tpu_torch.serving.transport import SocketListener
+from tests.test_torch_serving import restore_telemetry  # noqa: F401
+
+#: replica logs of these tests, under the run's own temporary directory
+TMP_ROOT = tempfile.gettempdir()
+
+VOCAB = 1024
+
+
+def toy_stream(prompt, n, vocab=VOCAB):
+    seed = 0
+    for t in prompt:
+        seed = _mix(seed, int(t))
+    out = []
+    for i in range(n):
+        seed = _mix(seed, i)
+        out.append((seed >> 33) % vocab)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# bundle wire form (host-only, tier 1)
+# ---------------------------------------------------------------------------
+
+def _bundle(n_prompt=37, n_gen=3, bs=8):
+    return toy_bundle("t-1", list(range(n_prompt)),
+                      toy_stream(list(range(n_prompt)), n_gen), 16, None,
+                      "acme", bs)
+
+
+def test_bundle_chunks_reassemble_out_of_order_and_resume():
+    b = _bundle()
+    chunks = iter_chunks(b, max_bytes=20)    # force multi-chunk pages
+    assert len(chunks) > b.n_full
+    asm = BundleAssembler(b.meta())
+    # deliver a prefix only, then ask what's missing (the resume path)
+    for c in chunks[: len(chunks) // 2]:
+        asm.add(c)
+    asm.eof(len(chunks))
+    missing = asm.missing()
+    assert missing == [c["i"] for c in chunks[len(chunks) // 2:]]
+    with pytest.raises(MigrationError, match="gaps"):
+        asm.assemble()
+    # resend arrives out of order, with a duplicate mixed in
+    for c in reversed(chunks[len(chunks) // 2:]):
+        asm.add(c)
+    asm.add(chunks[0])
+    assert asm.missing() == []
+    b2 = asm.assemble()
+    toy_verify(b2)
+    assert b2.tokens == b.tokens and b2.pages == b.pages \
+        and b2.tail == b.tail
+
+
+def test_bundle_chunk_crc_rejects_corruption():
+    b = _bundle()
+    chunks = iter_chunks(b)
+    asm = BundleAssembler(b.meta())
+    bad = dict(chunks[0])
+    bad["data"] = chunks[-1]["data"]         # payload/crc mismatch
+    with pytest.raises(MigrationError, match="crc"):
+        asm.add(bad)
+
+
+def test_bundle_meta_commits_to_token_chain():
+    b = _bundle()
+    meta = b.meta()
+    meta["tok"] = list(meta["tok"])
+    meta["tok"][3] += 1                      # corrupt one token
+    asm = BundleAssembler(meta)
+    for c in iter_chunks(b):
+        asm.add(c)
+    asm.eof(len(iter_chunks(b)))
+    with pytest.raises(MigrationError, match="chain"):
+        asm.assemble()
+
+
+def test_toy_verify_catches_payload_corruption():
+    b = _bundle()
+    b.pages[0] = b"\x00" * len(b.pages[0])
+    with pytest.raises(MigrationError, match="payload corrupt"):
+        toy_verify(b)
+
+
+# ---------------------------------------------------------------------------
+# StateManager: the refcounted export/import/abort API (tier 1)
+# ---------------------------------------------------------------------------
+
+def _pool(num_blocks=24, bs=4, max_seqs=4, mb=8, cache=True):
+    st = StateManager(num_blocks=num_blocks, block_size=bs,
+                      max_seqs=max_seqs, max_blocks_per_seq=mb)
+    if cache:
+        st.attach_prefix_cache(PrefixCache(bs))
+    return st
+
+
+def _decode_ready(st, sched, uid, prompt, gen_budget=6, first_tok=7):
+    st.admit(uid, prompt, gen_budget)
+    seq = st.seqs[uid]
+    while seq.pending_tokens > 1 or seq.n_generated < 1:
+        p = sched.next_step()
+        sampled = {u: first_tok for s, u in enumerate(p.uids)
+                   if u >= 0 and p.do_sample[s]}
+        sched.commit(p, sampled)
+    return seq
+
+
+def test_export_pins_until_ack_and_abort_resumes():
+    st = _pool()
+    sched = SplitFuseScheduler(st, chunk=8)
+    seq = _decode_ready(st, sched, 1, list(range(13)))
+    snap = st.migrate_out(1, trace="t-1")
+    st.audit()
+    assert seq.frozen and seq.migrating == "out"
+    # pinned: the scheduler must not touch it, release must refuse
+    assert sched.next_step() is None
+    with pytest.raises(RuntimeError, match="pinned"):
+        st.release(1)
+    # page-aligned extents + the partial tail
+    assert len(snap["page_blocks"]) == seq.n_computed // st.block_size
+    assert snap["tail_rows"] == seq.n_computed % st.block_size
+    # double-export refused
+    with pytest.raises(RuntimeError, match="already migrating"):
+        st.migrate_out(1)
+    # abort: decode resumes exactly where it stopped
+    st.export_abort(1)
+    st.audit()
+    assert not seq.frozen and sched.next_step() is not None
+    # ack path: done + released through the normal publish path
+    st.migrate_out(1)
+    st.export_ack(1)
+    assert seq.done and not seq.frozen
+    st.release(1)
+    st.audit()
+    assert len(st.prefix_cache) > 0          # prefix published locally
+
+
+def test_import_reserves_then_commits_seeding_the_trie():
+    src = _pool()
+    sched = SplitFuseScheduler(src, chunk=8)
+    _decode_ready(src, sched, 1, list(range(13)))
+    snap = src.migrate_out(1)
+
+    dst = _pool()
+    dsched = SplitFuseScheduler(dst, chunk=8)
+    free0 = dst.allocator.free_blocks
+    seq = dst.migrate_in_begin(9, snap["tokens"], snap["n_computed"],
+                               snap["n_generated"],
+                               snap["max_new_tokens"], trace="t-1")
+    dst.audit()
+    # capacity claimed up front, sequence frozen until the payload lands
+    assert dst.allocator.free_blocks < free0
+    assert seq.migrating == "in" and dsched.next_step() is None
+    with pytest.raises(RuntimeError, match="pinned"):
+        dst.release(9)
+    dst.import_commit(9)
+    dst.audit()
+    assert not seq.frozen and seq.pending_tokens == 1
+    # the imported full pages ARE the local radix now (distributed cache)
+    n_full = snap["n_computed"] // dst.block_size
+    assert seq.n_shared_blocks == n_full
+    assert len(dst.prefix_cache) == n_full
+    # a same-prefix admit on the importer hits those pages
+    s2 = dst.admit(2, snap["tokens"][:12] + [999], 1)
+    assert s2.prefix_hit_tokens > 0
+    dst.audit()
+    # dedup: a second import of the same chain surrenders its copies
+    src.export_abort(1)
+    snap2 = src.migrate_out(1)
+    dst.migrate_in_begin(3, snap2["tokens"], snap2["n_computed"],
+                         snap2["n_generated"], snap2["max_new_tokens"])
+    dst.import_commit(3)
+    dst.audit()
+    assert len(dst.prefix_cache) == n_full   # no duplicate nodes
+    for uid in (9, 2, 3):
+        dst.release(uid)
+    dst.audit()
+
+
+def test_abort_import_returns_every_block():
+    src = _pool()
+    sched = SplitFuseScheduler(src, chunk=8)
+    _decode_ready(src, sched, 1, list(range(13)))
+    snap = src.migrate_out(1)
+    dst = _pool()
+    free0 = dst.allocator.free_blocks
+    dst.migrate_in_begin(9, snap["tokens"], snap["n_computed"],
+                         snap["n_generated"], snap["max_new_tokens"])
+    dst.abort_import(9)
+    dst.audit()
+    assert dst.allocator.free_blocks == free0
+    assert 9 not in dst.seqs
+    # source side settles cleanly too
+    src.export_abort(1)
+    src.audit()
+
+
+def test_migration_refusals():
+    st = _pool()
+    sched = SplitFuseScheduler(st, chunk=8)
+    seq = _decode_ready(st, sched, 1, list(range(13)), gen_budget=6)
+    # in-flight sampled tokens -> refused (pages not bit-stable)
+    p = sched.next_step()
+    sched.mark_dispatched(p)
+    with pytest.raises(RuntimeError, match="in.*flight|drain"):
+        st.migrate_out(1)
+    sched.commit(p, {1: 7})
+    # provisional spec tree -> refused
+    st.provision(1, 1)
+    with pytest.raises(RuntimeError, match="provisional"):
+        st.migrate_out(1)
+    st.rollback_provisional(1)
+    # done -> refused
+    while not seq.done:
+        p = sched.next_step()
+        sched.commit(p, {u: 7 for s, u in enumerate(p.uids)
+                         if u >= 0 and p.do_sample[s]})
+    with pytest.raises(RuntimeError, match="done"):
+        st.migrate_out(1)
+    st.release(1)
+    st.audit()
+    # import that would wrap the table -> refused
+    with pytest.raises(RuntimeError, match="wrap"):
+        st.migrate_in_begin(5, list(range(30)), 29, 0, 40)
+    st.audit()
+
+
+# ---------------------------------------------------------------------------
+# scale advisor (host-only, tier 1)
+# ---------------------------------------------------------------------------
+
+class _H:
+    def __init__(self, role, live, max_live=4):
+        self.role = role
+        self.load = {"live": live}
+        self.max_live = max_live
+
+
+def test_scale_advisor_up_and_down_hints():
+    adv = ScaleAdvisor(slo_ttft_s=1.0, idle_s=5.0, min_interval_s=0.0)
+    # queue-wait pressure -> prefill up; saturated decode -> decode up
+    hints = adv.update(100.0, [_H(ROLE_PREFILL, 2), _H(ROLE_DECODE, 4)],
+                       n_queued=8, est_queue_wait_s=3.0)
+    assert hints[(ROLE_PREFILL, "up")] == 1
+    assert hints[(ROLE_DECODE, "up")] == 1
+    assert hints[(ROLE_PREFILL, "down")] == 0
+    # healthy load: no hints
+    hints = adv.update(101.0, [_H(ROLE_PREFILL, 1), _H(ROLE_DECODE, 1)],
+                       n_queued=0, est_queue_wait_s=0.1)
+    assert not any(hints.values())
+    # sustained idle -> down (only after idle_s elapses)
+    hints = adv.update(102.0, [_H(ROLE_PREFILL, 0), _H(ROLE_DECODE, 0)],
+                       n_queued=0, est_queue_wait_s=None)
+    assert hints[(ROLE_DECODE, "down")] == 0
+    hints = adv.update(110.0, [_H(ROLE_PREFILL, 0), _H(ROLE_DECODE, 0)],
+                       n_queued=0, est_queue_wait_s=None)
+    assert hints[(ROLE_PREFILL, "down")] == 1
+    assert hints[(ROLE_DECODE, "down")] == 1
+    # a starved handoff fallback -> decode up even with zero decode slots
+    adv.decode_starved = True
+    hints = adv.update(111.0, [_H(ROLE_PREFILL, 1)], n_queued=0,
+                       est_queue_wait_s=None)
+    assert hints[(ROLE_DECODE, "up")] == 1
+
+
+# ---------------------------------------------------------------------------
+# remote transport (tier 1)
+# ---------------------------------------------------------------------------
+
+def test_socket_channel_roundtrip_and_bounded_connect():
+    lst = SocketListener("127.0.0.1:0")
+    try:
+        addr = lst.bound_address
+        a = connect_channel(addr, timeout=5.0)
+        b = lst.accept_channel(timeout=5.0)
+        assert b is not None
+        a.send({"t": "ping", "x": [1, 2, 3]}, timeout=1.0)
+        assert b.recv(1.0) == {"t": "ping", "x": [1, 2, 3]}
+        b.send({"t": "hb", "load": {"live": 0}}, timeout=1.0)
+        assert a.recv(1.0)["t"] == "hb"
+        assert a.recv(0.02) is None          # bounded, no hang
+        a.close()
+        b.close()
+    finally:
+        lst.close()
+    # dialing a dead port fails within the deadline, never hangs
+    t0 = time.monotonic()
+    with pytest.raises(OSError):
+        connect_channel(addr, timeout=0.5)
+    assert time.monotonic() - t0 < 5.0
+
+
+# ---------------------------------------------------------------------------
+# role-split fleets (multiprocess, tier 1): bit-identity + chaos
+# ---------------------------------------------------------------------------
+
+def _disagg_router(roles, n_replicas=None, per_slot=None, log_tag="d",
+                   replica=None, **rkw):
+    replica_cfg = {"backend": "toy", "block_size": 16, "max_live": 8,
+                   "vocab": VOCAB, "hb_interval_s": 0.03,
+                   "tokens_per_step": 4}
+    replica_cfg.update(replica or {})
+    fcfg = FleetConfig(
+        n_replicas=n_replicas or len(roles), replica=replica_cfg,
+        roles=list(roles), per_slot=per_slot or {},
+        hb_timeout_s=rkw.pop("hb_timeout_s", 1.0), backoff_base_s=0.05,
+        log_dir=os.path.join(TMP_ROOT, "ds_torch_disagg_tests", log_tag),
+        env=rkw.pop("env", {}))
+    return Router(RouterConfig(
+        fleet=fcfg, request_timeout_s=rkw.pop("request_timeout_s", 10.0),
+        max_retries=rkw.pop("max_retries", 3), **rkw))
+
+
+@pytest.mark.multiprocess
+def test_role_split_bit_identical_and_digest_routes_handoffs():
+    """1 prefill + 2 decode replicas: every stream is bit-identical to
+    the closed-form oracle, handoffs happen, and the SECOND same-tenant
+    request's handoff follows the first one's pages (digest/sticky
+    routing of the bundle chain — the distributed-radix-cache leg)."""
+    trace = synth_trace(TraceConfig(n_requests=8, n_tenants=2,
+                                    prefix_len=64, max_new_tokens=12,
+                                    vocab=VOCAB, seed=5))
+    router = _disagg_router(["prefill", "decode", "decode"],
+                            log_tag="split", telemetry=True)
+    try:
+        router.start(min_ready=3)
+        tids = [router.submit(r.prompt, tenant=r.tenant,
+                              max_new_tokens=r.max_new_tokens,
+                              trace_id=r.trace_id) for r in trace]
+        res = router.run(deadline_s=90)
+        by_tenant = collections.defaultdict(list)
+        for rec, tid in zip(trace, tids):
+            assert res[tid]["status"] == "done", (tid, res[tid])
+            assert res[tid]["tokens"] == toy_stream(rec.prompt,
+                                                    rec.max_new_tokens)
+            if res[tid]["migrated"]:
+                by_tenant[rec.tenant].append(res[tid]["placed"][-1])
+        assert router.double_commits == 0
+        assert router.migrations > 0
+        assert sum(len(v) for v in by_tenant.values()) >= 4
+        for tenant, slots in by_tenant.items():
+            assert all(s in (1, 2) for s in slots), (tenant, slots)
+            assert len(set(slots)) == 1, \
+                f"{tenant} handoffs split across {slots} despite the " \
+                f"bundle chain living on one decode replica"
+        # one explicit advisor tick so the gauge assertion is immune to
+        # rate-limit timing
+        router._scale.update(time.monotonic() + 1.0, router.fleet.ready(),
+                             0, None, registry=router._telem.registry)
+        snap = router._telem.snapshot()
+        assert "serving_router_migrations_total" in snap
+        assert "serving_router_migration_bytes_total" in snap
+        assert "serving_router_migration_stall_s" in snap
+        assert "serving_router_scale_hint" in snap
+    finally:
+        router.close()
+
+
+DISAGG_CHAOS = {
+    # the prefill replica dies mid-bundle-stream: the router observes the
+    # death, aborts the buffered migration, replays from scratch
+    "src_dies_mid_handoff": ("0", {"replica_crash_during_handoff": 3}),
+    # the decode replica dies mid-import: the request (assigned to it)
+    # replays; the source is told to abort its pinned export
+    "tgt_dies_mid_import": ("1", {"replica_crash_during_import": 3}),
+}
+
+
+@pytest.mark.multiprocess
+@pytest.mark.parametrize("case", sorted(DISAGG_CHAOS))
+def test_disagg_chaos_death_mid_bundle_exactly_once(case):
+    slot, faults = DISAGG_CHAOS[case]
+    trace = synth_trace(TraceConfig(n_requests=6, n_tenants=2,
+                                    prefix_len=32, max_new_tokens=10,
+                                    vocab=VOCAB, seed=3))
+    router = _disagg_router(["prefill", "decode", "decode"],
+                            per_slot={slot: {"faults": faults}},
+                            replica={"tokens_per_step": 2},
+                            log_tag=f"chaos_{case}",
+                            request_timeout_s=5.0)
+    try:
+        router.start(min_ready=3)
+        tids = [router.submit(r.prompt, tenant=r.tenant,
+                              max_new_tokens=r.max_new_tokens,
+                              trace_id=r.trace_id) for r in trace]
+        res = router.run(deadline_s=90)
+        for rec, tid in zip(trace, tids):
+            assert res[tid]["status"] == "done", (case, tid, res[tid])
+            assert res[tid]["tokens"] == toy_stream(
+                rec.prompt, rec.max_new_tokens), (case, tid)
+        assert router.double_commits == 0
+        assert router.replay_mismatches == 0
+        assert router.migrations > 0, (case, "fault never exercised")
+    finally:
+        router.close()
+
+
+def test_unread_heartbeat_is_proof_of_life():
+    """Pins the ``src_dies_mid_handoff`` flake: ``last_msg_t`` advances
+    only when the ROUTER consumes a message, and ``maintain()`` runs
+    before the channel drain each poll tick — so a router stalled past
+    ``hb_timeout_s`` (CPU contention under concurrent bench load) used
+    to reap a healthy replica whose heartbeats sat unread in the pipe.
+    In the chaos case above that false death re-arms the crash injector
+    on the respawn and burns the request's retry budget. Unread input is
+    proof of life; real silence (empty pipe) still reaps immediately."""
+    from deepspeed_tpu_torch.serving.fleet import READY, Fleet, FleetConfig
+    from deepspeed_tpu_torch.serving.protocol import LineChannel
+
+    fcfg = FleetConfig(n_replicas=1, hb_timeout_s=0.05,
+                       backoff_base_s=30.0,
+                       replica={"address": "unix:/nonexistent"})
+    fleet = Fleet(fcfg)
+    h = fleet.replicas[0]
+    r, w = os.pipe()
+    h.chan = LineChannel(r, None)
+    h.state = READY
+    now = time.monotonic()
+    h.last_msg_t = now - 10.0            # silence way past hb_timeout
+    # a heartbeat sits UNREAD in the pipe: the slot must survive
+    os.write(w, b'{"t":"hb","load":{}}\n')
+    assert fleet.maintain(now) == []
+    assert h.state == READY
+    # the drain that follows maintain() consumes it normally
+    assert h.chan.recv(timeout=0)["t"] == "hb"
+    # with the pipe EMPTY and the silence persisting, the slot really
+    # is wedged: the next maintain reaps it
+    h.last_msg_t = now - 10.0
+    died = fleet.maintain(now)
+    assert [d.slot for d in died] == [0]
+    assert h.state != READY
+    os.close(w)
+
+
+@pytest.mark.multiprocess
+def test_no_decode_capacity_degrades_to_mixed_via_resume():
+    """A prefill-only fleet: handoffs find no decode-capable replica, the
+    router answers mig_resume, and the source serves every request out
+    locally — bit-identical, nothing fails, fallback counted."""
+    trace = synth_trace(TraceConfig(n_requests=4, n_tenants=2,
+                                    prefix_len=32, max_new_tokens=8,
+                                    vocab=VOCAB, seed=7))
+    router = _disagg_router(["prefill"], log_tag="resume")
+    try:
+        router.start(min_ready=1)
+        tids = [router.submit(r.prompt, max_new_tokens=r.max_new_tokens,
+                              trace_id=r.trace_id) for r in trace]
+        res = router.run(deadline_s=60)
+        for rec, tid in zip(trace, tids):
+            assert res[tid]["status"] == "done", res[tid]
+            assert res[tid]["tokens"] == toy_stream(rec.prompt,
+                                                    rec.max_new_tokens)
+            assert not res[tid]["migrated"]
+        assert router.migration_fallbacks > 0
+        assert router.double_commits == 0
+    finally:
+        router.close()
+
+
+@pytest.mark.multiprocess
+def test_remote_socket_replica_serves_migrations_and_fails_over(tmp_path):
+    """A decode replica running as a --listen socket daemon (no pipe
+    parent): the fleet dials it, handoffs stream over the socket, and
+    killing the daemon mid-run falls back to the local survivor with
+    bit-identical replays."""
+    sock = str(tmp_path / "r.sock")
+    daemon_cfg = {"backend": "toy", "block_size": 16, "max_live": 8,
+                  "vocab": VOCAB, "hb_interval_s": 0.03,
+                  "tokens_per_step": 4, "role": "decode"}
+    env = dict(os.environ)
+    daemon = subprocess.Popen(
+        [sys.executable, "-m", "deepspeed_tpu_torch.serving.replica",
+         "--listen", f"unix:{sock}", json.dumps(daemon_cfg)],
+        env=env, stderr=subprocess.DEVNULL)
+    router = _disagg_router(
+        ["prefill", "mixed"], n_replicas=2,
+        per_slot={"1": {"address": f"unix:{sock}"}},
+        log_tag="remote")
+    trace = synth_trace(TraceConfig(n_requests=5, n_tenants=2,
+                                    prefix_len=32, max_new_tokens=8,
+                                    vocab=VOCAB))
+    try:
+        deadline = time.monotonic() + 60
+        while not os.path.exists(sock) and time.monotonic() < deadline:
+            time.sleep(0.05)
+        router.start(min_ready=2)
+        rep = router.fleet.replicas[1]
+        assert rep.proc is None and rep.role == "decode"
+        tids = [router.submit(r.prompt, max_new_tokens=8,
+                              trace_id=r.trace_id) for r in trace]
+        res = router.run(deadline_s=60)
+        n_mig = 0
+        for rec, tid in zip(trace, tids):
+            assert res[tid]["status"] == "done", res[tid]
+            assert res[tid]["tokens"] == toy_stream(rec.prompt, 8)
+            n_mig += bool(res[tid]["migrated"])
+        assert n_mig >= 3, "nothing migrated over the socket"
+        # kill the daemon mid-second-wave: replay onto the local survivor
+        tids2 = [router.submit(r.prompt, max_new_tokens=8,
+                               trace_id=f"k{i}")
+                 for i, r in enumerate(trace)]
+        router.poll()
+        daemon.send_signal(signal.SIGKILL)
+        daemon.wait(timeout=10)
+        res2 = router.run(deadline_s=60)
+        for rec, tid in zip(trace, tids2):
+            assert res2[tid]["status"] == "done", res2[tid]
+            assert res2[tid]["tokens"] == toy_stream(rec.prompt, 8)
+        assert router.double_commits == 0
+    finally:
+        router.close()
+        if daemon.poll() is None:
+            daemon.kill()
+
+
+# ---------------------------------------------------------------------------
+# real engine: bit-identical handoff on the port's pool (tier-1 here: the
+# port's engine compiles nothing; fp32 on the CPU)
+# ---------------------------------------------------------------------------
+
+@pytest.fixture
+def _one_thread():
+    import torch
+
+    prev = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(prev)
+
+
+def _engine(**over):
+    """The port's engine over tiny-gpt2 (hidden 256) in fp32 on the CPU;
+    every engine built here holds the same seeded weights."""
+    import torch
+
+    from deepspeed_tpu_torch.inference import InferenceEngineV2
+    from deepspeed_tpu_torch.models import build_model
+
+    model = build_model("tiny-gpt2", device="cpu", dtype=torch.float32,
+                        seed=5, hidden_size=256, num_heads=4)
+    cfg = {"block_size": 8, "num_blocks": 64, "max_seqs": 4, "chunk": 8,
+           "max_seq_len": 128, "prefix_cache": True, "decode_window": 2,
+           "dtype": torch.float32, "device": "cpu", **over}
+    return InferenceEngineV2(model, config=cfg)
+
+
+@pytest.mark.parametrize("kv", [None, "fp8"])
+def test_engine_pair_handoff_bit_identical(kv, _one_thread):
+    """Acceptance criterion on the real pool: a greedy request prefilled
+    on engine A and decoded on engine B after page migration (full wire
+    roundtrip) produces the exact stream of a single-engine baseline —
+    fp32 AND fp8-KV pools — with audits clean after every op and both
+    tries warm afterwards."""
+    import numpy as np
+
+    over = {"kv_cache_dtype": kv} if kv else {}
+    A, B, ref = _engine(**over), _engine(**over), _engine(**over)
+    rng = np.random.default_rng(7)
+    prompt = list(map(int, rng.integers(0, 256, (21,))))
+
+    ref.put(1, prompt, max_new_tokens=10)
+    while not ref.query(1).get("done", False):
+        ref.step()
+    base = ref.flush(1)
+
+    A.put(1, prompt, max_new_tokens=10)
+    while not A.state.seqs[1].done and A.state.seqs[1].n_generated < 1:
+        A.step()
+    bundle = A.export_migration(1, trace_id="t-1", tenant="acme")
+    A.state.audit()
+    prefix = list(A._results[1])             # committed stream prefix
+    assert bundle.n_generated == len(prefix)
+
+    chunks = iter_chunks(bundle, max_bytes=16384)
+    asm = BundleAssembler(bundle.meta())
+    for c in reversed(chunks):               # out of order
+        asm.add(c)
+    asm.eof(len(chunks))
+    b2 = asm.assemble()
+
+    assert B.can_import(len(b2.tokens),
+                        b2.max_new_tokens - b2.n_generated)
+    B.import_reserve(9, b2.meta())
+    B.state.audit()
+    B.import_complete(9, b2)
+    B.state.audit()
+    assert B.state.seqs[9].pending_tokens == 1   # plain decode resume
+    while not B.query(9).get("done", False):
+        B.step()
+    got = B.flush(9)
+    B.state.audit()
+    assert got == base, "disaggregated stream diverged from baseline"
+    assert A.export_commit(1) == prefix
+    A.state.audit()
+    # both sides serve the prefix from cache afterwards
+    for eng in (A, B):
+        eng.put(2, prompt + [3], max_new_tokens=1)
+        assert eng.state.seqs[2].prefix_hit_tokens >= 16
+        eng.flush(2)
+        eng.state.audit()
+    assert A.stats["migrations_out"] == 1
+    assert B.stats["migrations_in"] == 1
+    assert B.stats["migration_bytes_in"] == bundle.payload_bytes
+
+
+#: the engine replicas' spec: the port's tiny-gpt2 in fp32 on the CPU
+ENGINE_REPLICA = {"backend": "engine", "model": "tiny-gpt2", "seed": 7,
+                  "device": "cpu", "dtype": "float32",
+                  "engine": {"block_size": 4, "num_blocks": 64,
+                             "max_seqs": 2, "chunk": 8, "max_seq_len": 128,
+                             "decode_window": 2},
+                  "hb_interval_s": 0.05}
+#: each CPU engine replica on one thread: several share the test's cores
+ONE_THREAD = {"OMP_NUM_THREADS": "1", "MKL_NUM_THREADS": "1"}
+
+
+@pytest.mark.multiprocess
+def test_engine_fleet_role_split_bit_identical():
+    """A real-engine prefill/decode pair behind the router produces
+    exactly the stream a single mixed replica does."""
+    import random
+    rng = random.Random(0)
+    prompts = [[rng.randrange(256) for _ in range(12)] for _ in range(2)]
+
+    def run(roles, tag):
+        router = _disagg_router(
+            roles, replica=ENGINE_REPLICA, log_tag=tag, env=ONE_THREAD,
+            hb_timeout_s=60.0, request_timeout_s=120.0)
+        router.cfg.fleet.ready_timeout_s = 300.0
+        out = {}
+        try:
+            router.start(min_ready=len(roles))
+            for i, p in enumerate(prompts):
+                tid = router.submit(p, max_new_tokens=8,
+                                    trace_id=f"{tag}{i}")
+                router.run(deadline_s=300)
+                info = router.result(tid)
+                assert info["status"] == "done", info
+                out[i] = (info["tokens"], info["migrated"])
+            assert router.double_commits == 0
+        finally:
+            router.close()
+        return out
+
+    mixed = run(["mixed"], "em")
+    split = run(["prefill", "decode"], "es")
+    for i in mixed:
+        assert split[i][0] == mixed[i][0], \
+            "role-split engine stream diverged from the mixed replica"
+        assert len(split[i][0]) == 8
+    assert any(m for _, m in split.values()), "nothing migrated"

@@ -255,23 +255,30 @@ def test_custom_loss_is_refused():
 class _SlowAIO:
     """The real handle with an injected latency on every read (a private
     pool serves the reads; ids negative so they never meet the handle's
-    own); writes pass through."""
+    own); writes pass through. ``spans`` records each read's group, its
+    issue time and its completion time."""
 
     def __init__(self, inner, delay=0.0):
         from concurrent.futures import ThreadPoolExecutor
 
         self.inner, self.delay = inner, delay
         self.reads = 0
+        self.group = None                  # the group being fetched
+        self.fetched = []
+        self.spans = []                    # [group, issued, done]
         self._pool = ThreadPoolExecutor(max_workers=32)
         self._futs, self._n = {}, 0
 
     def async_pread(self, buf, path, file_offset=0):
         delay = self.delay
+        span = [self.group, time.perf_counter(), None]
+        self.spans.append(span)
 
         def work():
             if delay:
                 time.sleep(delay)
             self.inner.sync_pread(buf, path, file_offset)
+            span[2] = time.perf_counter()
 
         self._n += 1
         self.reads += 1
@@ -288,28 +295,66 @@ class _SlowAIO:
             self.inner.wait(rid)
 
 
+def _record_walk(ps, slow):
+    """Wrap the streamer so that every fetch tags its reads with its group
+    and every group's compute (from ``_use`` returning to ``_release``) is
+    recorded as ``[group, start, end]``; ``slow.fetched`` lists the groups
+    fetched."""
+    computes = []
+    issue, use, release = ps._issue_fetch, ps._use, ps._release
+
+    def issue_fetch(g):
+        slow.fetched.append(g)
+        slow.group = g
+        try:
+            return issue(g)
+        finally:
+            slow.group = None
+
+    def use_(g):
+        use(g)
+        computes.append([g, time.perf_counter(), None])
+
+    def release_(g):
+        if computes and computes[-1][0] == g and computes[-1][2] is None:
+            computes[-1][2] = time.perf_counter()
+        release(g)
+
+    ps._issue_fetch, ps._use, ps._release = issue_fetch, use_, release_
+    return computes
+
+
+def _overlapped(computes, spans):
+    """How many computes past the first had a read of another group in
+    flight (issued before the compute ended, done after it began)."""
+    n = 0
+    for g, c0, c1 in computes[1:]:
+        n += any(rg != g and r0 < c1 and r1 > c0 for rg, r0, r1 in spans)
+    return n
+
+
 def test_nvme_reads_overlap_the_walk(tmp_path):
+    """Overlap is read off what the stream did, not off two wall-clock
+    timings: with every read slowed to 80 ms, most groups' computes run
+    while a read of a group to come is in flight. A streamer whose fetch
+    waits for its own reads before returning overlaps none."""
     e = engine("tiny-gpt2", config(zero("nvme", str(tmp_path),
                                         buffer_count=2)), num_layers=8)
     ps = e._param_stream
     slow = _SlowAIO(ps.aio)
     ps.aio = slow
-    fetches = [0]
-    issue = ps._issue_fetch
-    ps._issue_fetch = lambda g: (fetches.__setitem__(0, fetches[0] + 1)
-                                 or issue(g))
     b = batches(1)[0]
     e.train_batch(b)
-    t0 = time.perf_counter()
+    computes = _record_walk(ps, slow)
+    slow.delay = 0.08
+    slow.spans.clear()
+    slow.fetched.clear()
     e.train_batch(b)
-    compute_s = time.perf_counter() - t0
-    DELAY = 0.08
-    slow.delay = DELAY
-    fetches[0] = 0
-    t0 = time.perf_counter()
-    e.train_batch(b)
-    stream_s = time.perf_counter() - t0
-    assert fetches[0] >= 15                # the forward and backward walks
-    serial_s = compute_s + fetches[0] * DELAY
-    assert stream_s < 0.75 * serial_s, (stream_s, serial_s, fetches[0])
+    assert all(c[2] is not None for c in computes), computes
+    assert all(s[2] is not None for s in slow.spans)
+    assert len(slow.fetched) >= 15         # the forward and backward walks
+    past_first = len(computes) - 1
+    assert past_first >= 30, len(computes)
+    n = _overlapped(computes, slow.spans)
+    assert n >= 0.75 * past_first, (n, past_first, computes, slow.spans)
     assert ps.nvme_prefetch_hits > ps.nvme_prefetch_misses

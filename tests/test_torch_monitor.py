@@ -29,9 +29,14 @@ def _one_thread():
 
 @pytest.fixture
 def global_telem():
+    """The process-wide instance, off and empty at the start (tests that
+    ran before in this process may have left it on or its span ring
+    full), restored after."""
     t = T.get_telemetry()
     prev = (t.enabled, t.recorder.path, t.recorder.dumps)
+    t.reconfigure(enabled=False)
     t.registry.reset()
+    t.tracer.clear()
     yield t
     t.reconfigure(enabled=prev[0])
     t.recorder.path, t.recorder.dumps = prev[1], prev[2]

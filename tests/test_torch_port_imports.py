@@ -52,7 +52,14 @@ for m in ('deepspeed_tpu_torch.inference.engine_v2',
           'deepspeed_tpu_torch.runtime.resilience',
           'deepspeed_tpu_torch.checkpoint.manifest',
           'deepspeed_tpu_torch.checkpoint.universal',
-          'deepspeed_tpu_torch.utils.naming'):
+          'deepspeed_tpu_torch.utils.naming',
+          *('deepspeed_tpu_torch.serving.' + s for s in (
+              'protocol', 'transport', 'shm', 'workload', 'placement',
+              'journal', 'fleet', 'replica', 'disagg', 'push', 'elastic',
+              'deploy', 'router')),
+          'deepspeed_tpu_torch.serving',
+          *('deepspeed_tpu_torch.telemetry.' + s for s in (
+              'fleettrace', 'timeseries', 'alerts', 'console'))):
     assert m in names, (m, names)
 print(len(names))
 """
@@ -107,6 +114,25 @@ def test_entry_points_default_to_the_card():
         build_model("tiny-llama")
     with pytest.raises(RuntimeError, match="CUDA"):
         get_device("cuda")
+
+
+def test_engine_replica_defaults_to_the_card():
+    """A fleet's engine replica builds its engine on the CUDA device unless
+    its config says ``"device": "cpu"``."""
+    from deepspeed_tpu_torch.serving.replica import EngineBackend
+
+    if torch.cuda.is_available():
+        pytest.skip("this check is for machines without a CUDA device")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        EngineBackend({"backend": "engine", "model": "tiny-gpt2"})
+    prev = torch.get_num_threads()
+    try:
+        b = EngineBackend({"backend": "engine", "model": "tiny-gpt2",
+                           "device": "cpu", "dtype": "float32"})
+    finally:
+        torch.set_num_threads(prev)
+    assert b.eng.device.type == "cpu"
+    assert b.eng.config.dtype == torch.float32
 
 
 def test_kernel_sources_ship_with_the_package():

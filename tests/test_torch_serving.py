@@ -1,0 +1,597 @@
+"""Serving tier: router + replica fleet + chaos matrix.
+
+The chaos suite is the acceptance gate for the whole tier: with
+deterministic fault injection killing/hanging/stalling replicas
+mid-stream, every request must complete EXACTLY ONCE or fail with a
+structured reason — no hangs (every wait in serving/ is bounded, see
+bin/check_deadlines.py), no double commits (dedup by trace ID + attempt
+nonce), and the failover output must be BIT-IDENTICAL to the no-fault
+run. The toy backend's LCG stream gives an independent oracle for that
+last property: the expected stream is recomputed in-test, so "identical
+to the no-fault run" is asserted against closed-form truth, not a second
+(possibly equally wrong) run.
+
+The port's copy of ``tests/test_serving.py``, over ``deepspeed_tpu_torch``:
+its router, its replicas (spawned as ``python -m
+deepspeed_tpu_torch.serving.replica``) and its telemetry. Engine legs run
+the port's engine in fp32 on the CPU (``"device": "cpu"``, one torch thread
+a replica) and are tier-1 here; waits poll for their condition under
+generous deadlines.
+"""
+import collections
+import os
+import tempfile
+import time
+
+import pytest
+
+from deepspeed_tpu_torch.serving import (
+    AdmissionError, ChannelClosed, FleetConfig, LineChannel, RequestRecord,
+    Router, RouterConfig, StickyMap, TraceConfig, chain_hashes, match_pages,
+    pick_replica, synth_trace)
+from deepspeed_tpu_torch.serving.replica import ToyBackend, _mix
+from deepspeed_tpu_torch.inference.prefix_cache import PrefixCache, page_hash
+
+#: replica logs of these tests, under the run's own temporary directory
+TMP_ROOT = tempfile.gettempdir()
+
+VOCAB = 1024
+
+
+@pytest.fixture(autouse=True)
+def restore_telemetry():
+    """A router with ``telemetry=True`` enables the port's process-wide
+    telemetry instance; the tests that run after this one in the same
+    process expect it as it was."""
+    from deepspeed_tpu_torch.telemetry import get_telemetry
+
+    t = get_telemetry()
+    prev = (t.enabled, t.recorder.path, t.recorder.dumps)
+    yield
+    t.reconfigure(enabled=prev[0])
+    t.recorder.path, t.recorder.dumps = prev[1], prev[2]
+
+
+def toy_stream(prompt, n, vocab=VOCAB):
+    """Closed-form oracle for the toy backend's deterministic stream."""
+    seed = 0
+    for t in prompt:
+        seed = _mix(seed, int(t))
+    out = []
+    for i in range(n):
+        seed = _mix(seed, i)
+        out.append((seed >> 33) % vocab)
+    return out
+
+
+def make_router(n_replicas=2, replica=None, per_slot=None, log_tag="t",
+                **rkw):
+    replica_cfg = {"backend": "toy", "block_size": 16, "max_live": 4,
+                   "vocab": VOCAB, "hb_interval_s": 0.03,
+                   "tokens_per_step": 4}
+    replica_cfg.update(replica or {})
+    fkw = {}
+    for k in ("hb_timeout_s", "backoff_base_s", "breaker_max_restarts",
+              "breaker_window_s", "breaker_cooloff_s", "snapshot_dir",
+              "env"):
+        if k in rkw:
+            fkw[k] = rkw.pop(k)
+    fcfg = FleetConfig(
+        n_replicas=n_replicas, replica=replica_cfg,
+        per_slot=per_slot or {},
+        hb_timeout_s=fkw.pop("hb_timeout_s", 1.0),
+        backoff_base_s=fkw.pop("backoff_base_s", 0.05),
+        log_dir=os.path.join(TMP_ROOT, "ds_torch_serving_tests", log_tag),
+        **fkw)
+    return Router(RouterConfig(fleet=fcfg,
+                               request_timeout_s=rkw.pop(
+                                   "request_timeout_s", 10.0),
+                               max_retries=rkw.pop("max_retries", 3),
+                               **rkw))
+
+
+def submit_trace(router, trace):
+    tids = []
+    for rec in trace:
+        tids.append(router.submit(
+            rec.prompt, tenant=rec.tenant,
+            max_new_tokens=rec.max_new_tokens, priority=rec.priority,
+            trace_id=rec.trace_id))
+    return tids
+
+
+def assert_exactly_once(router, res):
+    """Every request terminal exactly once, failures structured, and no
+    protocol-level duplication anywhere."""
+    for tid, info in res.items():
+        assert info["status"] in ("done", "failed", "shed"), (tid, info)
+        if info["status"] != "done":
+            assert info["reason"], (tid, info)
+    assert router.double_commits == 0
+    assert router.replay_mismatches == 0
+
+
+# ---------------------------------------------------------------------------
+# units: hashing / placement / protocol / workload
+# ---------------------------------------------------------------------------
+
+def test_chain_hashes_match_residency_digest():
+    """The router-side prompt chain and the replica-side trie digest are
+    the same key space: publishing a prompt makes its chain hashes appear
+    verbatim in the digest."""
+    pc = PrefixCache(4)
+    toks = list(range(24))
+    pc.publish(toks, [1, 2, 3, 4, 5, 6], 0, 24)
+    assert set(chain_hashes(toks, 4)) == set(pc.residency_digest())
+    # divergence after page 2 changes exactly the tail hashes
+    other = toks[:8] + [999] * 16
+    ch, co = chain_hashes(toks, 4), chain_hashes(other, 4)
+    assert ch[:2] == co[:2] and all(a != b for a, b in zip(ch[2:], co[2:]))
+    # stability across "processes": pure function of content
+    assert page_hash(0, (1, 2, 3, 4)) == page_hash(0, (1, 2, 3, 4))
+    assert page_hash(0, (1, 2, 3, 4)) != page_hash(1, (1, 2, 3, 4))
+
+
+def test_residency_digest_cap_keeps_newest():
+    pc = PrefixCache(2)
+    pc.publish([1, 2, 3, 4], [10, 11], 0, 4)
+    pc._clock += 10
+    pc.publish([5, 6, 7, 8], [12, 13], 0, 4)
+    d = pc.residency_digest(max_entries=2)
+    assert len(d) == 2
+    assert set(d) == set(chain_hashes([5, 6, 7, 8], 2))
+
+
+class _Cand:
+    def __init__(self, slot, digest, load):
+        self.slot, self.digest, self.load = slot, digest, load
+
+
+def test_pick_replica_prefers_longest_chain_then_load():
+    chain = chain_hashes(list(range(64)), 16)          # 4 pages
+    full = set(chain)
+    shallow = {chain[0]}
+    a = _Cand(0, shallow, {"live": 0})
+    b = _Cand(1, full, {"live": 3})                    # busier BUT deeper
+    rep, hit = pick_replica([a, b], chain)
+    assert rep is b and hit == 4
+    assert match_pages(chain, shallow) == 1
+    assert match_pages(chain, None) == 0
+    # no cache signal: least loaded wins; equal load: lowest slot
+    c, d = _Cand(0, None, {"live": 2}), _Cand(1, None, {"live": 1})
+    assert pick_replica([c, d], chain)[0] is d
+    e, f = _Cand(0, None, {"live": 1}), _Cand(1, None, {"live": 1})
+    assert pick_replica([e, f], chain)[0] is e
+
+
+def test_sticky_map_biases_and_forgets():
+    chain = chain_hashes(list(range(48)), 16)
+    sticky = StickyMap(cap=8)
+    sticky.note(chain, slot=1)
+    a, b = _Cand(0, None, {"live": 0}), _Cand(1, None, {"live": 2})
+    rep, hit = pick_replica([a, b], chain, sticky)
+    assert rep is b and hit == 3                       # sticky beats load
+    sticky.forget_slot(1)
+    assert pick_replica([a, b], chain, sticky)[0] is a
+    # digest ground truth outranks a sticky estimate
+    sticky.note(chain, slot=1)
+    a2 = _Cand(0, set(chain), {"live": 5})
+    assert pick_replica([a2, b], chain, sticky)[0] is a2
+
+
+def test_sticky_lookup_honors_candidate_slots():
+    """A deeper sticky entry pointing at an INELIGIBLE slot must not
+    shadow a shallower eligible one — the handoff-relay case: the
+    request's own dispatch noted its full prompt chain at the
+    prefill-role replica (one page deeper than the tenant's shared
+    prefix), and a relay restricted to decode-capable candidates used
+    to discard the sticky signal entirely, splitting same-tenant
+    bundles across decode replicas on lagging load estimates."""
+    chain = chain_hashes(list(range(80)), 16)          # 5 pages
+    sticky = StickyMap()
+    sticky.note(chain[:4], slot=1)       # tenant prefix -> decode slot
+    sticky.note([chain[4]], slot=0)      # own full chain -> prefill slot
+    assert sticky.lookup(chain) == (0, 5)
+    assert sticky.lookup(chain, {1, 2}) == (1, 4)
+    assert sticky.lookup(chain, {2}) is None
+    # pick_replica routes through the restricted walk: slot 1 wins even
+    # though the deepest raw entry names the non-candidate slot 0
+    a, b = _Cand(1, None, {"live": 5}), _Cand(2, None, {"live": 0})
+    rep, hit = pick_replica([a, b], chain, sticky)
+    assert rep is a and hit == 4
+
+
+def test_line_channel_roundtrip_and_deadlines():
+    r1, w1 = os.pipe()
+    a = LineChannel(r1, w1)
+    a.send({"t": "hb", "x": [1, 2]}, timeout=1.0)
+    a.send({"t": "done", "id": "q"}, timeout=1.0)
+    assert a.recv(0.1) == {"t": "hb", "x": [1, 2]}
+    assert a.recv(0.1) == {"t": "done", "id": "q"}
+    assert a.recv(0.02) is None                        # bounded, no hang
+    # garbage lines are counted, skipped, never fatal
+    os.write(w1, b"not json\n{\"no_tag\": 1}\n")
+    a.send({"t": "ok"}, timeout=1.0)
+    assert a.recv(0.1) == {"t": "ok"} and a.bad_lines == 2
+    # EOF after buffered data: drain first, then ChannelClosed
+    r2, w2 = os.pipe()
+    b = LineChannel(r2, None)
+    os.write(w2, b'{"t":"last"}\n')
+    os.close(w2)
+    assert b.recv(0.1) == {"t": "last"}
+    with pytest.raises(ChannelClosed):
+        b.recv(0.1)
+    a.close()
+    b.close()
+
+
+def test_request_record_wire_roundtrip():
+    rec = RequestRecord(trace_id="x-1", prompt=[1, 2, 3],
+                        max_new_tokens=5, eos_token_id=9, tenant="acme")
+    back = RequestRecord.from_wire(rec.to_wire())
+    assert (back.trace_id, back.prompt, back.max_new_tokens,
+            back.eos_token_id, back.tenant) == \
+        ("x-1", [1, 2, 3], 5, 9, "acme")
+
+
+def test_synth_trace_deterministic_shared_prefixes():
+    a = synth_trace(TraceConfig(n_requests=12, n_tenants=3, seed=5))
+    b = synth_trace(TraceConfig(n_requests=12, n_tenants=3, seed=5))
+    assert [r.prompt for r in a] == [r.prompt for r in b]
+    by_tenant = collections.defaultdict(list)
+    for r in a:
+        by_tenant[r.tenant].append(r.prompt)
+    for prompts in by_tenant.values():
+        heads = {tuple(p[:64]) for p in prompts}
+        assert len(heads) == 1                          # shared prefix
+    assert len({tuple(p[:64]) for r in a for p in [r.prompt]}) == 3
+
+
+def test_toy_backend_is_deterministic_and_caches_prefixes():
+    be1, be2 = ToyBackend({"vocab": VOCAB}), ToyBackend({"vocab": VOCAB})
+    rec = RequestRecord(trace_id="a", prompt=list(range(40)),
+                        max_new_tokens=9)
+
+    class _NoFault:
+        def countdown(self, p):
+            return False
+
+    outs = []
+    for be in (be1, be2):
+        assert be.put(rec) is None
+        toks = []
+        while be.has_work():
+            for rid, kind, t, off in be.step(_NoFault()):
+                if kind == "done":
+                    toks = t
+        outs.append(toks)
+    assert outs[0] == outs[1] == toy_stream(rec.prompt, 9)
+    # release published the prompt pages: a second same-prefix admit hits
+    assert be1.put(RequestRecord(trace_id="b",
+                                 prompt=list(range(40)) + [7],
+                                 max_new_tokens=2)) is None
+    assert be1.prefix_hit_tokens >= 32
+    assert be1.digest()                                 # non-empty
+
+
+# ---------------------------------------------------------------------------
+# 2-replica smoke (tier-1 acceptance): admission, placement, one failover
+# ---------------------------------------------------------------------------
+
+@pytest.mark.multiprocess
+def test_two_replica_smoke_admission_placement_failover():
+    trace = synth_trace(TraceConfig(n_requests=10, n_tenants=2,
+                                    prefix_len=64, suffix_min=8,
+                                    suffix_max=16, max_new_tokens=12,
+                                    vocab=VOCAB))
+    router = make_router(log_tag="smoke", telemetry=True)
+    with router:
+        # ---- admission + completion, exactly once, oracle-identical
+        tids = submit_trace(router, trace)
+        res = router.run(deadline_s=60)
+        assert_exactly_once(router, res)
+        for rec, tid in zip(trace, tids):
+            assert res[tid]["status"] == "done"
+            assert res[tid]["tokens"] == toy_stream(rec.prompt,
+                                                    rec.max_new_tokens)
+        assert router.stale_msgs == 0
+
+        # ---- placement: serialized same-prefix requests co-locate on
+        # the replica whose digest holds the chain. Digests publish at
+        # RELEASE and ride the next heartbeat — give each one a bounded
+        # window to land before the next placement decision, or the
+        # decision falls back to sticky/load and can split under machine
+        # load (this was a measured ~1/4 flake on a loaded box)
+        placements = collections.defaultdict(set)
+        for i, rec in enumerate(trace[:6]):
+            deadline = time.monotonic() + 30.0
+            while time.monotonic() < deadline and any(
+                    h.digest is None for h in router.fleet.ready()):
+                router.poll()
+            tid = router.submit(rec.prompt, tenant=rec.tenant,
+                                max_new_tokens=4,
+                                trace_id=f"p{i}")
+            router.run(deadline_s=30)
+            assert router.result(tid)["status"] == "done"
+            placements[rec.tenant].add(router.result(tid)["placed"][0])
+        for tenant, slots in placements.items():
+            assert len(slots) == 1, \
+                f"{tenant} split across {slots} despite cached prefix"
+        snap = router._telem.snapshot()
+        hit = snap["serving_router_placement_prefix_tokens_total"][
+            "series"][0]["value"]
+        assert hit > 0
+
+        # ---- one failover: kill a replica mid-stream; everything still
+        # completes exactly once with oracle-identical tokens
+        tids2 = submit_trace(router, [
+            RequestRecord(trace_id=f"f{i}", prompt=rec.prompt,
+                          max_new_tokens=16, tenant=rec.tenant)
+            for i, rec in enumerate(trace)])
+        for _ in range(3):
+            router.poll()                      # let streams start
+        router.fleet.kill_replica(0)
+        res2 = router.run(deadline_s=60)
+        assert_exactly_once(router, res2)
+        for rec, tid in zip(trace, tids2):
+            assert res2[tid]["status"] == "done", res2[tid]
+            assert res2[tid]["tokens"] == toy_stream(rec.prompt, 16), \
+                "failover stream diverged from the no-fault oracle"
+
+
+# ---------------------------------------------------------------------------
+# chaos matrix: seeded fault injection across every failover path
+# ---------------------------------------------------------------------------
+
+CHAOS_CASES = {
+    "crash_during_prefill": (
+        {"replica_crash_during_prefill": 2}, {}),
+    "crash_on_admit": (
+        {"replica_crash_on_put": 2}, {}),
+    "hang_during_decode": (
+        {"replica_hang_after_chunks": 3, "replica_hang_s": 30.0},
+        {"hb_timeout_s": 0.4}),
+    "stalled_stream_stale_delivery": (
+        {"replica_stall_stream_after_chunks": 2,
+         "replica_stall_stream_s": 1.0},
+        {"request_timeout_s": 0.35}),
+    "dropped_completion_reply": (
+        {"replica_drop_done": 1}, {"request_timeout_s": 0.5}),
+}
+
+
+@pytest.mark.multiprocess
+@pytest.mark.parametrize("case", sorted(CHAOS_CASES))
+def test_chaos_matrix_exactly_once_bit_identical(case):
+    """Faults are injected on slot 0 at seeded points; slot 1 survives.
+    Every request completes exactly once with the oracle stream, or
+    fails with a structured reason — and a presumed-dead replica's late
+    deliveries never double-commit."""
+    faults, over = CHAOS_CASES[case]
+    trace = synth_trace(TraceConfig(n_requests=8, n_tenants=2,
+                                    prefix_len=64, max_new_tokens=12,
+                                    vocab=VOCAB, seed=3))
+    router = make_router(per_slot={"0": {"faults": faults}},
+                        replica={"tokens_per_step": 2},
+                        log_tag=f"chaos_{case}", **over)
+    with router:
+        # both replicas up before the trace: placed while slot 0 still
+        # starts, every request lands on slot 1 and no fault fires
+        router.start(min_ready=2)
+        tids = submit_trace(router, trace)
+        res = router.run(deadline_s=60)
+        assert_exactly_once(router, res)
+        n_done = 0
+        for rec, tid in zip(trace, tids):
+            if res[tid]["status"] == "done":
+                n_done += 1
+                assert res[tid]["tokens"] == toy_stream(
+                    rec.prompt, rec.max_new_tokens), (case, tid)
+        # the surviving replica must have absorbed everything
+        assert n_done == len(trace), (case, res)
+        if case == "stalled_stream_stale_delivery":
+            # completion can beat the stall expiry: keep polling until
+            # the un-stalled late delivery lands (bounded)
+            deadline = time.monotonic() + 60
+            while router.stale_msgs == 0 \
+                    and time.monotonic() < deadline:
+                router.poll()
+            assert router.stale_msgs > 0, \
+                "the un-stalled late delivery never arrived — the dedup " \
+                "guard was not exercised"
+            assert router.double_commits == 0
+
+
+@pytest.mark.multiprocess
+def test_crash_loop_opens_breaker_survivor_serves():
+    """Slot 0 dies at startup every incarnation: backoff restarts exhaust
+    the breaker budget, the slot is quarantined, and the whole trace is
+    served by the survivor."""
+    trace = synth_trace(TraceConfig(n_requests=6, n_tenants=2,
+                                    max_new_tokens=8, vocab=VOCAB))
+    router = make_router(
+        per_slot={"0": {"faults": {"replica_crash_on_start": True}}},
+        breaker_max_restarts=2, breaker_window_s=30.0,
+        breaker_cooloff_s=120.0, log_tag="breaker", telemetry=True)
+    with router:
+        tids = submit_trace(router, trace)
+        res = router.run(deadline_s=60)
+        assert_exactly_once(router, res)
+        assert all(res[t]["status"] == "done" for t in tids)
+        # drive maintenance until the breaker verdict lands
+        deadline = time.monotonic() + 60
+        while router.fleet.breaker_opens_total == 0 \
+                and time.monotonic() < deadline:
+            router.poll()
+        assert router.fleet.breaker_opens_total >= 1
+        assert router.fleet.replicas[0].state == "quarantined"
+        snap = router._telem.snapshot()
+        assert snap["serving_router_breaker_opens_total"]["series"][0][
+            "value"] >= 1
+        assert "serving_router_replica_restarts_total" in snap
+
+
+@pytest.mark.multiprocess
+def test_shed_under_overload_and_priority_eviction():
+    """A deliberately tiny, slow fleet: admissions past the queue bound
+    shed with structured reasons; a higher-priority submit evicts a
+    queued priority-0 request (which sheds, also structured)."""
+    router = make_router(
+        n_replicas=1,
+        replica={"max_live": 1, "tokens_per_step": 1,
+                 "decode_delay_s": 0.08},
+        max_queue=2, per_tenant_live=3, log_tag="shed", telemetry=True)
+    with router:
+        sheds = collections.Counter()
+        admitted = []
+        for i in range(9):
+            try:
+                admitted.append(router.submit(
+                    [1, 2, 3] * 8, tenant=f"ten{i % 4}",
+                    max_new_tokens=6,
+                    priority=1 if i == 8 else 0))
+            except AdmissionError as e:
+                sheds[e.reason] += 1
+            router.poll()
+        assert sheds.get("queue_full", 0) > 0
+        res = router.run(deadline_s=60)
+        assert_exactly_once(router, res)
+        statuses = collections.Counter(v["status"] for v in res.values())
+        # the priority-1 submit evicted one queued pri-0 request
+        assert statuses.get("shed", 0) >= 1
+        shed_req = [v for v in res.values() if v["status"] == "shed"]
+        assert all(v["reason"] == "shed_overload" for v in shed_req)
+        # every admitted-and-kept request finished
+        assert statuses["done"] == len(res) - statuses.get("shed", 0)
+        snap = router._telem.snapshot()
+        assert "serving_router_sheds_total" in snap
+        assert "serving_tenant_requests_total" in snap
+
+
+@pytest.mark.multiprocess
+def test_tenant_limit_is_enforced():
+    router = make_router(n_replicas=1,
+                         replica={"max_live": 2, "tokens_per_step": 1,
+                                  "decode_delay_s": 0.005},
+                         per_tenant_live=2, log_tag="tenant")
+    with router:
+        router.submit([1] * 20, tenant="acme", max_new_tokens=8)
+        router.submit([2] * 20, tenant="acme", max_new_tokens=8)
+        with pytest.raises(AdmissionError) as ei:
+            router.submit([3] * 20, tenant="acme", max_new_tokens=8)
+        assert ei.value.reason == "tenant_limit"
+        # other tenants are unaffected
+        router.submit([4] * 20, tenant="other", max_new_tokens=8)
+        res = router.run(deadline_s=60)
+        assert_exactly_once(router, res)
+        assert all(v["status"] == "done" for v in res.values())
+
+
+@pytest.mark.multiprocess
+def test_drain_completes_inflight_then_refuses():
+    trace = synth_trace(TraceConfig(n_requests=6, max_new_tokens=10,
+                                    vocab=VOCAB))
+    router = make_router(log_tag="drain")
+    with router:
+        tids = submit_trace(router, trace)
+        for _ in range(2):
+            router.poll()
+        assert router.drain(deadline_s=60) is True
+        res = router.results()
+        assert all(res[t]["status"] == "done" for t in tids)
+        for rec, tid in zip(trace, tids):
+            assert res[tid]["tokens"] == toy_stream(rec.prompt, 10)
+        with pytest.raises(AdmissionError) as ei:
+            router.submit([1, 2, 3], max_new_tokens=2)
+        assert ei.value.reason == "draining"
+        assert_exactly_once(router, res)
+
+
+@pytest.mark.multiprocess
+def test_fleet_aggregate_scrape_merges_router_and_replicas(tmp_path):
+    """?aggregate=1 on the router's /metrics merges the replicas'
+    snapshot files into one fleet view: router serving_router_* counters
+    AND replica-side serving_replica_* counters in one scrape body."""
+    from deepspeed_tpu_torch.telemetry import get_telemetry
+    import urllib.request
+
+    get_telemetry().reset_metrics()
+    router = make_router(snapshot_dir=str(tmp_path / "snap"),
+                         log_tag="agg", telemetry=True)
+    with router:
+        for i in range(4):
+            router.submit([i] * 40, tenant=f"ten{i % 2}",
+                          max_new_tokens=6, trace_id=f"g{i}")
+        res = router.run(deadline_s=60)
+        assert all(v["status"] == "done" for v in res.values())
+        port = router._telem.start_http(0)
+        try:
+            # replicas write snapshots on their heartbeat cadence —
+            # scrape until both replica-side families landed (bounded)
+            deadline = time.monotonic() + 60
+            body = ""
+            while time.monotonic() < deadline:
+                router.poll()
+                body = urllib.request.urlopen(
+                    f"http://127.0.0.1:{port}/metrics?aggregate=1",
+                    timeout=5).read().decode()
+                if "serving_replica_requests_total" in body \
+                        and "serving_replica_tokens_total" in body:
+                    break
+        finally:
+            router._telem.stop_http()
+        assert "serving_router_requests_total" in body
+        assert "serving_replica_requests_total" in body
+        assert "serving_replica_tokens_total" in body
+        assert "telemetry_aggregated_peers" in body
+
+
+# ---------------------------------------------------------------------------
+# real-engine fleet: greedy failover bit-identity with the port's engine_v2
+# (tier-1 here: the port's engine compiles nothing; fp32 on the CPU)
+# ---------------------------------------------------------------------------
+
+#: the engine replicas' spec: the port's tiny-gpt2 in fp32 on the CPU
+ENGINE_REPLICA = {"backend": "engine", "model": "tiny-gpt2", "seed": 7,
+                  "device": "cpu", "dtype": "float32",
+                  "engine": {"block_size": 4, "num_blocks": 64,
+                             "max_seqs": 2, "chunk": 8,
+                             "max_seq_len": 128, "decode_window": 2},
+                  "hb_interval_s": 0.05}
+#: each CPU engine replica on one thread: several share the test's cores
+ONE_THREAD = {"OMP_NUM_THREADS": "1", "MKL_NUM_THREADS": "1"}
+
+
+@pytest.mark.multiprocess
+def test_engine_fleet_failover_greedy_bit_identical():
+    """Two engine_v2 replicas built from the same (model, seed) spec.
+    The same prompt is served before the fault and THROUGH a mid-stream
+    replica kill — greedy determinism makes both streams bit-identical,
+    replayed prefill included."""
+    import random
+    rng = random.Random(0)
+    prompts = [[rng.randrange(256) for _ in range(12)] for _ in range(3)]
+    router = make_router(replica=ENGINE_REPLICA, env=ONE_THREAD,
+                         hb_timeout_s=60.0, request_timeout_s=120.0,
+                         log_tag="engine")
+    router.cfg.fleet.ready_timeout_s = 300.0
+    with router:
+        # no-fault baseline streams
+        base = {}
+        for i, p in enumerate(prompts):
+            tid = router.submit(p, max_new_tokens=8, trace_id=f"b{i}")
+            router.run(deadline_s=180)
+            info = router.result(tid)
+            assert info["status"] == "done" and len(info["tokens"]) == 8
+            base[i] = info["tokens"]
+        # same prompts again, replica killed mid-flight
+        tids = [router.submit(p, max_new_tokens=8, trace_id=f"k{i}")
+                for i, p in enumerate(prompts)]
+        router.poll()
+        router.fleet.kill_replica(0)
+        res = router.run(deadline_s=180)
+        assert_exactly_once(router, res)
+        for i, tid in enumerate(tids):
+            assert res[tid]["status"] == "done", res[tid]
+            assert res[tid]["tokens"] == base[i], \
+                "greedy failover stream diverged from the no-fault run"
