@@ -145,6 +145,13 @@ Phases (every one raises on failure; nothing is caught and passed over):
      launched twice, identical bits required). Bound: q, the output and
      the K/V rows some query row sees. Yardstick: SDPA over the gathered
      K/V with the boolean mask of who sees what.
+   - The tp phase's per-rank shapes (``phase_tp_shards``), with the same
+     tolerances, times and bounds: K1 at one rank's heads (llama2-7b 16 /
+     16 and qwen2-moe 8 / 8 in bf16, default and e4m3 pools; mistral-7b 8
+     / 2 in fp32 on its ring), K2 on per-shard codes (llama2-7b's w_gate,
+     w_down and unembedding shards at TP 2 and 4, qwen2-moe's wq at TP
+     2; every format where the last column block is padded or the group
+     falls under 128), K3 on qwen2-moe's experts split in two (704).
 3. parity — llama2-7b at full width with 4 layers in fp32: the engine's
    greedy streams against a greedy loop over the dense
    ``TransformerLM.forward``. TF32 is off for matmuls and cuDNN. Streams
@@ -337,9 +344,9 @@ Phases (every one raises on failure; nothing is caught and passed over):
    of every run are added to the record line.
 
 12. kvmove — KV movement and the live weight swap on the serve phase's
-   llama2-7b (full width, 16 of its 32 layers since the fleet phase joined
-   the run — the script's time limit; all 32 before — bf16, seeded random
-   weights;
+   llama2-7b (full width, 4 of its 32 layers since the tp phase joined
+   the run, 16 since the fleet phase did — the script's time limit; all 32
+   before — bf16, seeded random weights;
    block 64, max_seqs 8, chunk 256, ``max_inflight`` 8, decode graphs
    captured), the 8 requests of 256-1024 tokens behind the 128-token
    prefix. Work goes under ``kvmove.tmp/`` in the checkout (free disk
@@ -439,7 +446,8 @@ Phases (every one raises on failure; nothing is caught and passed over):
 14. fleet — the serving fleet on the card: the port's ``Router`` in this
    process, engine replicas spawned by its ``Fleet`` (``python -m
    deepspeed_tpu_torch.serving.replica``), each llama2-7b at full width and
-   depth in bf16 from one seed, at the serve phase's engine settings (block
+   16 of its 32 layers (the script's time limit since the tp phase joined)
+   in bf16 from one seed, at the serve phase's engine settings (block
    64, ``max_seqs`` 8, chunk 256, ``max_inflight`` 8, 256 blocks), serving
    the serve phase's traffic (8 requests of 256-1024 tokens behind a
    128-token prefix, 64 greedy tokens). The kernels and the host library are
@@ -480,6 +488,39 @@ Phases (every one raises on failure; nothing is caught and passed over):
    part at a near-tie, so streams are not compared with each other. Work
    goes under ``fleet.tmp/`` in the checkout and is removed.
 
+15. tp — tensor-parallel serving as rank processes sharing the one card
+   over gloo (NCCL refuses two ranks on one device; tensors gloo cannot
+   take from the card pass through pinned host memory, counted in
+   ``comm.staged``): ``comm.spawn.RankPool`` ranks, each building
+   ``InferenceEngineV2(..., topology=MeshTopology({"tensor": n}))`` from a
+   meta model (each rank draws its slices of the seeded weights a block at
+   a time), on the serve phase's engine settings with ``max_inflight`` 0
+   (commits within each step; programs run eagerly over gloo, no graph).
+   Legs: (a) llama2-7b at full width and depth in bf16 at TP 2, the serve
+   phase's shared-prefix traffic (8 requests of 256-1024 tokens behind a
+   128-token prefix, 64 new tokens), ``tp_overlap`` off and auto; (b) the
+   same model with ``quant_bits=8`` and an e4m3 pool at TP 2, the same
+   prompts and 32 new tokens; (c) qwen2-moe-a2.7b at full width, 4 layers,
+   int8, TP 2, the same as (b); (d) mistral-7b, 8 layers, fp32, TP 4 (2 KV
+   heads a rank, G 4, on its 4096-key rolling ring), ``tp_overlap=True``,
+   4 prompts of 4608 / 256 / 384 / 512 tokens and 16 new (the depths and
+   budgets: the script's time limit). Every rank's streams and ring counters
+   must agree; per rank the phase prints output tok/s, p50 TTFT, decode ms
+   per token-step (the eager windows' host time over their iterations),
+   host seconds inside the collective calls, the ring counters, and each
+   kernel's launches beside the TP-1 engine's on the same forwards: K1
+   exactly once a layer of every forward on every rank (bf16: all on the
+   chunk or split kernel; (d) all on the ring form), K2 / K3 once a
+   quantized product blocking and once a ring step ringing (so at least
+   the TP-1 count), no plain version and no other kernel. Streams: (a) the
+   teacher-forced dense oracle of the fleet phase (every token its argmax
+   or within ``FLEET_TIE_GAP``), (b) and (c) the same oracle over weights
+   quantized and dequantized shard by shard as the engine does them
+   (qwen2-moe routing every token), (d) the TP-1 engine's streams on the
+   same weights, parting only at a near-tie (top-2 gap below 1e-4). These
+   are ranks time-slicing one card over gloo: their times say nothing of
+   tensor parallelism's speed. Work goes under ``tp.tmp/`` and is removed.
+
 The serving parity phase's dense oracles pass ``attn_impl="xla"``, so they
 stay independent of the kernels under test.
 
@@ -511,7 +552,7 @@ PEAK_OPS = {torch.bfloat16: 989e12, torch.float32: 67e12,
 
 ALL_PHASES = ("build", "kernel", "parity", "serve", "train-parity", "train",
               "moe-train-parity", "moe-train", "zero", "sparse", "offload",
-              "kvmove", "observe", "fleet")
+              "kvmove", "observe", "fleet", "tp")
 
 #: spread of the K1 cases' q against unit-normal K/V (see k1_case)
 Q_SD = 3.0
@@ -1114,6 +1155,111 @@ def phase_k1_forms(dev) -> tuple[dict, list]:
             "tree": summary("tree", "llama2-7b/tree-verify-T8")}, results
 
 
+#: the tp phase's per-rank shapes. K1: each leg's heads on one rank
+#: (llama2-7b at TP 2, qwen2-moe-a2.7b at TP 2, mistral-7b at TP 4: G 4 on
+#: its sliding-window ring). K2: the per-shard weights (llama2-7b's w_gate
+#: columns at TP 2 / 4 — 43 x 128 and 21.5 x 128, the last padded — its
+#: w_down rows, where int8's default group of 512 resolves to 128 / 64 on
+#: the shard, the TP-4 unembedding's 8000 columns; qwen2-moe's wq at TP 2).
+#: K3: qwen2-moe's expert FFN width 1408 split in two (704 = 5.5 x 128).
+TP_K1_GEOMS = {"llama2-7b/tp2": dict(H=16, KV=16, D=128),
+               "qwen2-moe/tp2": dict(H=8, KV=8, D=128),
+               "mistral-7b/tp4": dict(H=8, KV=2, D=128)}
+TP_K2_SHAPES = {"llama2/tp2/w_gate": (4096, 5504),
+                "llama2/tp2/w_down": (5504, 4096),
+                "llama2/tp4/w_gate": (4096, 2752),
+                "llama2/tp4/w_down": (2752, 4096),
+                "llama2/tp4/unembed": (4096, 8000),
+                "qwen2-moe/tp2/wq": (2048, 1024)}
+#: K2's shards with a padded last column block or a group under 128: every
+#: code format there, int8 on the rest
+TP_K2_RAGGED = ("llama2/tp4/w_gate", "llama2/tp4/w_down")
+TP_K3_SHAPES = (("qwen2-moe/tp2/w_gate", 60, 2048, 704, 4, 2048),
+                ("qwen2-moe/tp2/w_down", 60, 704, 2048, 4, 2048))
+
+
+def phase_tp_shards(dev) -> list:
+    """K1, K2 and K3 at the per-rank shapes of the tp phase against their
+    plain versions, with the kernel phase's tolerances, times and bounds
+    (``TP_K1_GEOMS``, ``TP_K2_SHAPES``, ``TP_K3_SHAPES``); K2 / K3 codes
+    quantized per shard as the engine does. Returns the cases."""
+    from deepspeed_tpu_torch.ops.paged_attention import counts
+    from deepspeed_tpu_torch.ops.quant_matmul import (
+        counts as qcounts, grouped_counts, quantize_grouped,
+        quantize_weight)
+
+    cases = []
+    decode_ctx = [256, 397, 512, 611, 700, 833, 1022, -1]
+    shapes = {"window": dict(T=1, Ts=8, window=True,
+                             ctx=[c + 3 if c >= 0 else c
+                                  for c in decode_ctx]),
+              "prefill256": dict(T=256, Ts=256, ctx=[0, 192, 320, 768])}
+    seed = 1300
+    for gname, geom in TP_K1_GEOMS.items():
+        mistral = gname.startswith("mistral")
+        pools = ("fp32",) if mistral else ("bf16",) + (
+            ("e4m3",) if gname.startswith("llama2") else ())
+        for pool in pools:
+            for sname, sh in shapes.items():
+                seed += 1
+                dtype = torch.float32 if pool == "fp32" else torch.bfloat16
+                label = f"{gname}/{sname}" + ("/e4m3-pool" if pool == "e4m3"
+                                              else "")
+                kw = dict(bs=64, dtype=dtype, dev=dev, seed=seed,
+                          e4m3=pool == "e4m3", **geom, **sh)
+                if mistral:
+                    # the leg's rolling ring under the 4096-key window
+                    kw.update(sliding=MISTRAL_WINDOW,
+                              ring_pages=MISTRAL_RING_PAGES,
+                              nb=len(sh["ctx"]) * MISTRAL_RING_PAGES + 1)
+                case = k1_case(label, **kw)
+                cases.append(k1_run_case(case, "ring" if mistral
+                                         else "default", plain_graph=False))
+                del case
+                free_cuda()
+    counts.reset()
+    for bits in (8, 4, "fp8"):
+        for wname, (K, N) in TP_K2_SHAPES.items():
+            # int4 and e4m3 at the shards whose N or group is ragged
+            if bits != 8 and wname not in TP_K2_RAGGED:
+                continue
+            seed += 1
+            qw = quantize_weight(k2_weight(K, N, dev, seed), bits=bits,
+                                 shard=True)
+            for M in (8, 256):
+                x = torch.randn(M, K, device=dev,
+                                generator=torch.Generator(
+                                    device=dev).manual_seed(seed + M))
+                k2_run(dev, cases, f"{bits}/{wname}/M={M}",
+                       x.to(torch.bfloat16), qw)
+                if bits == 8 and M == 8:
+                    k2_run(dev, cases, f"{bits}/{wname}/M={M}", x, qw)
+            del qw
+            free_cuda()
+    qcounts.reset()
+    for label, n, K, N, k, T_pre in TP_K3_SHAPES:
+        seed += 10
+        g = torch.Generator(device=dev).manual_seed(seed)
+        w32 = torch.randn(n, K, N, generator=g, device=dev) / K ** 0.5
+        w_bf16 = w32.to(torch.bfloat16)
+        for bits in (8, 4, "fp8"):
+            qw = quantize_grouped(w32, bits=bits, shard=True)
+            # every format at decode, int8 at prefill too
+            for i, (phase, T) in enumerate((("decode", DECODE_TOKENS),
+                                             ("prefill", T_pre))[
+                                                 :2 if bits == 8 else 1]):
+                buf, srt, cnt = grouped_case(T, k, n, K, K3_BLOCK_M,
+                                             torch.bfloat16, dev, seed + i)
+                k3_run(dev, cases, f"{bits}/{label}/{phase}/T={T}x{k}",
+                       buf, srt, cnt, qw, w_bf16)
+                del buf, srt
+            del qw
+            free_cuda()
+        del w32, w_bf16
+    grouped_counts.reset()
+    return cases
+
+
 def k2_weight(K, N, dev, seed) -> torch.Tensor:
     """A [K, N] fp32 weight whose quantization is not trivial: unit-normal
     entries scaled by e^U(-2,2) per row and e^U(-1,1) per column, so every
@@ -1239,55 +1385,63 @@ def k2_resources(built: dict) -> list:
     return rows
 
 
+def k2_run(dev, results: list, label, x, qw, layer_index=None) -> None:
+    """One K2 case against its plain version, timed beside the plain
+    version, a dense bf16 matmul and the bound; appended to ``results``."""
+    from deepspeed_tpu_torch.ops.quant_matmul import (
+        counts, kernel_route, quant_matmul, quant_matmul_reference)
+
+    M, K = x.shape
+    N = qw.shape[1]
+    dtype = x.dtype
+    route = k2_route(M, K, qw, dtype, dev)
+    got = launch_twice(f"K2 {label} {dtype}", lambda: quant_matmul(
+        x, qw, layer_index=layer_index), counts,
+        kernel_route(dtype, qw.bits) == "wgmma")
+    ref = quant_matmul_reference(x, qw, layer_index=layer_index)
+    if got.shape != (M, N) or not torch.isfinite(got).all():
+        raise AssertionError(f"K2 {label}: shape {tuple(got.shape)} or "
+                             f"non-finite output")
+    err = (got.float() - ref.float()).abs().max().item()
+    judged = err / ref.float().abs().max().item()
+    if judged > K2_TOL[dtype]:
+        raise AssertionError(f"K2 {label} {dtype}: kernel against plain "
+                             f"error {judged:.3e} > {K2_TOL[dtype]:.0e} "
+                             f"(max abs {err:.3e})")
+    ms = cuda_time_ms(lambda: quant_matmul(x, qw,
+                                           layer_index=layer_index))
+    plain_ms = cuda_time_ms(
+        lambda: quant_matmul_reference(x, qw, layer_index=layer_index),
+        iters=3, warmup=1)
+    dense = torch.randn(K, N, device=dev, dtype=torch.bfloat16)
+    xb = x.to(torch.bfloat16)
+    dense_ms = cuda_time_ms(lambda: torch.matmul(xb, dense))
+    bound, by, nbytes = k2_bound(M, K, N, qw, dtype)
+    rec = dict(case=label, bits=str(qw.bits), M=M, K=K, N=N,
+               dtype=str(dtype).replace("torch.", ""), route=route,
+               max_abs_err=err,
+               judged_err=judged, tol=K2_TOL[dtype],
+               max_abs_ref=ref.float().abs().max().item(), ms=ms,
+               plain_ms=plain_ms, dense_bf16_matmul_ms=dense_ms,
+               bound_ms=bound, bound_by=by, bytes=nbytes)
+    results.append(rec)
+    log(f"[kernel] K2 {label:<30} {rec['dtype']:<8} {route:<20} err "
+        f"{judged:.2e} (tol {K2_TOL[dtype]:.0e}; max abs {err:.2e})  "
+        f"kernel "
+        f"{ms:.4f} ms  plain {plain_ms:.3f} ms  dense bf16 matmul "
+        f"{dense_ms:.4f} ms  bound {bound:.4f} ms ({by})")
+    del got, ref, dense
+
+
 def phase_k2(dev) -> tuple[dict, list]:
     """K2 against its plain version. Returns (summary, cases)."""
     from deepspeed_tpu_torch.ops.quant_matmul import (
-        QuantLinear, counts, kernel_route, quant_matmul,
-        quant_matmul_reference, quantize_weight)
+        QuantLinear, counts, quant_matmul, quantize_weight)
 
     results = []
 
     def run(label, x, qw, layer_index=None):
-        M, K = x.shape
-        N = qw.shape[1]
-        dtype = x.dtype
-        route = k2_route(M, K, qw, dtype, dev)
-        got = launch_twice(f"K2 {label} {dtype}", lambda: quant_matmul(
-            x, qw, layer_index=layer_index), counts,
-            kernel_route(dtype, qw.bits) == "wgmma")
-        ref = quant_matmul_reference(x, qw, layer_index=layer_index)
-        if got.shape != (M, N) or not torch.isfinite(got).all():
-            raise AssertionError(f"K2 {label}: shape {tuple(got.shape)} or "
-                                 f"non-finite output")
-        err = (got.float() - ref.float()).abs().max().item()
-        judged = err / ref.float().abs().max().item()
-        if judged > K2_TOL[dtype]:
-            raise AssertionError(f"K2 {label} {dtype}: kernel against plain "
-                                 f"error {judged:.3e} > {K2_TOL[dtype]:.0e} "
-                                 f"(max abs {err:.3e})")
-        ms = cuda_time_ms(lambda: quant_matmul(x, qw,
-                                               layer_index=layer_index))
-        plain_ms = cuda_time_ms(
-            lambda: quant_matmul_reference(x, qw, layer_index=layer_index),
-            iters=3, warmup=1)
-        dense = torch.randn(K, N, device=dev, dtype=torch.bfloat16)
-        xb = x.to(torch.bfloat16)
-        dense_ms = cuda_time_ms(lambda: torch.matmul(xb, dense))
-        bound, by, nbytes = k2_bound(M, K, N, qw, dtype)
-        rec = dict(case=label, bits=str(qw.bits), M=M, K=K, N=N,
-                   dtype=str(dtype).replace("torch.", ""), route=route,
-                   max_abs_err=err,
-                   judged_err=judged, tol=K2_TOL[dtype],
-                   max_abs_ref=ref.float().abs().max().item(), ms=ms,
-                   plain_ms=plain_ms, dense_bf16_matmul_ms=dense_ms,
-                   bound_ms=bound, bound_by=by, bytes=nbytes)
-        results.append(rec)
-        log(f"[kernel] K2 {label:<30} {rec['dtype']:<8} {route:<20} err "
-            f"{judged:.2e} (tol {K2_TOL[dtype]:.0e}; max abs {err:.2e})  "
-            f"kernel "
-            f"{ms:.4f} ms  plain {plain_ms:.3f} ms  dense bf16 matmul "
-            f"{dense_ms:.4f} ms  bound {bound:.4f} ms ({by})")
-        del got, ref, dense
+        k2_run(dev, results, label, x, qw, layer_index)
 
     seed = 100
     for bits in (8, 4, "fp8"):
@@ -1822,59 +1976,71 @@ def phase_k5_bwd(dev) -> tuple[dict, dict, list]:
     return dx_rec, dw_rec, results
 
 
+def k3_run(dev, results: list, tag, buf, srt, cnt, qw, w_bf16,
+           layer_index=None) -> dict:
+    """One K3 case against its plain version, timed beside the plain
+    version, bf16 ``torch._grouped_mm`` and the bound; appended to
+    ``results``."""
+    from deepspeed_tpu_torch.ops.quant_matmul import (
+        grouped_counts, grouped_run_tiles, kernel_route,
+        quant_grouped_matmul, quant_grouped_matmul_reference)
+
+    n, K, N = qw.shape
+    dtype = buf.dtype
+    kw = dict(layer_index=layer_index, block_m=K3_BLOCK_M,
+              tile_rows=srt.tile_rows)
+    route = kernel_route(dtype, qw.bits)
+    if route == "wgmma":
+        route += f" runs of {grouped_run_tiles(srt.Tp, n, K3_BLOCK_M)}"
+    got = launch_twice(f"K3 {tag} {dtype}", lambda: quant_grouped_matmul(
+        buf, qw, srt.tile_expert, **kw), grouped_counts,
+        kernel_route(dtype, qw.bits) == "wgmma")
+    ref = quant_grouped_matmul_reference(buf, qw, srt.tile_expert, **kw)
+    err, judged = check_grouped(f"K3 {tag}", got, ref, srt.Tp, N, dtype)
+    ms = cuda_time_ms(lambda: quant_grouped_matmul(
+        buf, qw, srt.tile_expert, **kw))
+    plain_ms = cuda_time_ms(lambda: quant_grouped_matmul_reference(
+        buf, qw, srt.tile_expert, **kw), iters=3, warmup=1, graph=False)
+    lib = library_grouped_mm(buf, w_bf16, cnt, K3_BLOCK_M)
+    lib_ms = cuda_time_ms(lib) if lib is not None else None
+    # one expert's codes and scales
+    data, scale = qw.data, qw.scale
+    if layer_index is not None:
+        data, scale = data[layer_index], scale[layer_index]
+    wbytes = data[0].numel() * data.element_size() + scale[0].numel() * 4
+    bound, by, nbytes, ops = grouped_bound(cnt, K, N, dtype, wbytes)
+    rec = dict(case=tag, bits=str(qw.bits),
+               dtype=str(dtype).replace("torch.", ""), route=route,
+               Tp=srt.Tp,
+               active_experts=int((cnt > 0).sum()), max_abs_err=err,
+               judged_err=judged, tol=K2_TOL[dtype], ms=ms,
+               plain_ms=plain_ms, library_ms=lib_ms, bound_ms=bound,
+               bound_by=by, bytes=nbytes, ops=ops)
+    results.append(rec)
+    lib_txt = f"{lib_ms:.4f}" if lib_ms is not None else "none"
+    log(f"[kernel] K3 {tag:<46} {rec['dtype']:<8} {route:<14} err "
+        f"{judged:.2e} (tol {K2_TOL[dtype]:.0e}; max abs {err:.2e})  "
+        f"kernel "
+        f"{ms:.4f} ms  plain {plain_ms:.3f} ms  bf16 _grouped_mm "
+        f"{lib_txt} ms  bound {bound:.4f} ms ({by})")
+    del got, ref
+    return rec
+
+
 def phase_k3(dev) -> tuple[dict, list]:
     """K3 against its plain version: int8, int4 and e4m3 codes at the MoE
     shapes, decode and prefill routings in bf16, skewed and idle-expert
     routings and fp32 x for int8, and stacked [L, n, ...] codes at a
     non-zero layer. Returns (summary, cases)."""
     from deepspeed_tpu_torch.ops.quant_matmul import (
-        QuantGrouped, grouped_counts, grouped_run_tiles, kernel_route,
-        quant_grouped_matmul, quant_grouped_matmul_reference,
+        QuantGrouped, grouped_counts, quant_grouped_matmul,
         quantize_grouped)
 
     results = []
 
     def run(tag, buf, srt, cnt, qw, w_bf16, layer_index=None):
-        n, K, N = qw.shape
-        dtype = buf.dtype
-        kw = dict(layer_index=layer_index, block_m=K3_BLOCK_M,
-                  tile_rows=srt.tile_rows)
-        route = kernel_route(dtype, qw.bits)
-        if route == "wgmma":
-            route += f" runs of {grouped_run_tiles(srt.Tp, n, K3_BLOCK_M)}"
-        got = launch_twice(f"K3 {tag} {dtype}", lambda: quant_grouped_matmul(
-            buf, qw, srt.tile_expert, **kw), grouped_counts,
-            kernel_route(dtype, qw.bits) == "wgmma")
-        ref = quant_grouped_matmul_reference(buf, qw, srt.tile_expert, **kw)
-        err, judged = check_grouped(f"K3 {tag}", got, ref, srt.Tp, N, dtype)
-        ms = cuda_time_ms(lambda: quant_grouped_matmul(
-            buf, qw, srt.tile_expert, **kw))
-        plain_ms = cuda_time_ms(lambda: quant_grouped_matmul_reference(
-            buf, qw, srt.tile_expert, **kw), iters=3, warmup=1, graph=False)
-        lib = library_grouped_mm(buf, w_bf16, cnt, K3_BLOCK_M)
-        lib_ms = cuda_time_ms(lib) if lib is not None else None
-        # one expert's codes and scales
-        data, scale = qw.data, qw.scale
-        if layer_index is not None:
-            data, scale = data[layer_index], scale[layer_index]
-        wbytes = data[0].numel() * data.element_size() + scale[0].numel() * 4
-        bound, by, nbytes, ops = grouped_bound(cnt, K, N, dtype, wbytes)
-        rec = dict(case=tag, bits=str(qw.bits),
-                   dtype=str(dtype).replace("torch.", ""), route=route,
-                   Tp=srt.Tp,
-                   active_experts=int((cnt > 0).sum()), max_abs_err=err,
-                   judged_err=judged, tol=K2_TOL[dtype], ms=ms,
-                   plain_ms=plain_ms, library_ms=lib_ms, bound_ms=bound,
-                   bound_by=by, bytes=nbytes, ops=ops)
-        results.append(rec)
-        lib_txt = f"{lib_ms:.4f}" if lib_ms is not None else "none"
-        log(f"[kernel] K3 {tag:<46} {rec['dtype']:<8} {route:<14} err "
-            f"{judged:.2e} (tol {K2_TOL[dtype]:.0e}; max abs {err:.2e})  "
-            f"kernel "
-            f"{ms:.4f} ms  plain {plain_ms:.3f} ms  bf16 _grouped_mm "
-            f"{lib_txt} ms  bound {bound:.4f} ms ({by})")
-        del got, ref
-        return rec
+        return k3_run(dev, results, tag, buf, srt, cnt, qw, w_bf16,
+                      layer_index)
 
     seed = 500
     for label, n, K, N, k, T_pre in GROUPED_SHAPES:
@@ -2057,21 +2223,11 @@ def forwards_of(eng) -> int:
     return st["prefill_steps"] + st["decode_steps"] + st["window_iters_max"]
 
 
-def check_launches(tag, got: dict, cfg, *, forwards, e4m3_pool, quant,
-                   ring=False, verifies=0, draft_k1=0, bf16=False):
-    """Per forward: K1 (over a pool of q's dtype or of e4m3 codes) once per
-    layer, with the window and the ring on every one of a ring-served
-    model's, and its tree form once per layer of each of the ``verifies``
-    speculative verify forwards (which count among ``forwards``);
-    ``draft_k1`` more launches of K1 by a draft engine (bf16 pool); when
-    the weights are quantized, K2 once per dense weight product (q, k, v, o
-    of every layer, a dense FFN's products, the unembedding) and K3 once per
-    expert product of every MoE layer; K5 once per expert product under
-    ``moe.dropless`` without quantization; never K4 (serving has no
-    full-sequence attention), K6 or K7; no plain version at all. With
-    ``bf16`` every K1 launch is one of the chunk or the split kernel's and
-    every K2, K3 and K5 launch took the wgmma route (K5: the engine sorts
-    at ``dropless_block_m`` 128); in fp32 none does."""
+def want_launches(cfg, *, forwards, e4m3_pool, quant, ring=False,
+                  verifies=0, draft_k1=0, bf16=False) -> dict:
+    """The launches of every kernel wrapper an engine serving ``cfg`` makes
+    in ``forwards`` forwards (see :func:`check_launches`); ``k1_routed`` is
+    K1's chunk + split launches."""
     from deepspeed_tpu_torch.models.transformer import is_moe_layer
 
     L = cfg.num_layers
@@ -2097,9 +2253,32 @@ def check_launches(tag, got: dict, cfg, *, forwards, e4m3_pool, quant,
             "k7_plain": 0}
     for key in ("k2", "k3", "k5"):
         want[key + "_tc"] = want[key] if bf16 else 0
+    want["k1_routed"] = want["k1"] + want["k1_e4m3"] if bf16 else 0
+    return want
+
+
+def check_launches(tag, got: dict, cfg, *, forwards, e4m3_pool, quant,
+                   ring=False, verifies=0, draft_k1=0, bf16=False):
+    """Per forward: K1 (over a pool of q's dtype or of e4m3 codes) once per
+    layer, with the window and the ring on every one of a ring-served
+    model's, and its tree form once per layer of each of the ``verifies``
+    speculative verify forwards (which count among ``forwards``);
+    ``draft_k1`` more launches of K1 by a draft engine (bf16 pool); when
+    the weights are quantized, K2 once per dense weight product (q, k, v, o
+    of every layer, a dense FFN's products, the unembedding) and K3 once per
+    expert product of every MoE layer; K5 once per expert product under
+    ``moe.dropless`` without quantization; never K4 (serving has no
+    full-sequence attention), K6 or K7; no plain version at all. With
+    ``bf16`` every K1 launch is one of the chunk or the split kernel's and
+    every K2, K3 and K5 launch took the wgmma route (K5: the engine sorts
+    at ``dropless_block_m`` 128); in fp32 none does."""
+    want = want_launches(cfg, forwards=forwards, e4m3_pool=e4m3_pool,
+                         quant=quant, ring=ring, verifies=verifies,
+                         draft_k1=draft_k1, bf16=bf16)
+    L = cfg.num_layers
+    want_routed = want.pop("k1_routed")
     rest = dict(got)
     routed = rest.pop("k1_chunk") + rest.pop("k1_split")
-    want_routed = want["k1"] + want["k1_e4m3"] if bf16 else 0
     if forwards <= 0 or rest != want or routed != want_routed:
         raise AssertionError(f"[{tag}] launches {got} != {want}, K1 chunk + "
                              f"split {routed} != {want_routed} "
@@ -5404,16 +5583,17 @@ def phase_offload(dev, train: dict | None = None) -> dict:
 
 
 # ---------------------------------------------------------------------------
-# phase 12: kvmove — KV movement and the live weight swap (16 layers)
+# phase 12: kvmove — KV movement and the live weight swap (4 layers)
 # ---------------------------------------------------------------------------
 
-#: the serve phase's model, from the same seed, at 16 of its 32 layers (the
-#: whole script's time limit; full depth until the fleet phase joined)
-KVMOVE = dict(name="llama2-7b", layers=16, seed=1, new=64)
+#: the serve phase's model, from the same seed, at 4 of its 32 layers (the
+#: whole script's time limit: 16 since the fleet phase joined, 4 since the
+#: tp phase did; full depth before)
+KVMOVE = dict(name="llama2-7b", layers=4, seed=1, new=64)
 #: the tier run: new tokens a request of its waves generates, the RAM
-#: ring's and the NVMe spill's budgets (64 and 256 pages of 16.8 MB: the
+#: ring's and the NVMe spill's budgets (64 and 256 pages of 4.2 MB: the
 #: page counts of the full-depth runs)
-KVMOVE_TIER = dict(new=64, ram=1 << 30, nvme=4 << 30)
+KVMOVE_TIER = dict(new=64, ram=256 << 20, nvme=1 << 30)
 KVMOVE_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)),
                           "kvmove.tmp")
 #: free disk the phase needs under the checkout: the 6.9 GB swap tag, two
@@ -7001,10 +7181,12 @@ def phase_observe_breach(dev) -> dict:
 # fleet: the serving fleet behind the port's router (phase 14)
 # ---------------------------------------------------------------------------
 
-#: the fleet phase's replicas: llama2-7b at full width and depth, bf16, one
-#: seed; ``overrides`` and ``device`` reach the replicas' configs (empty
-#: and None on the card: the preset, on the CUDA device)
-FLEET = dict(name="llama2-7b", seed=7, new=64, overrides={}, device=None)
+#: the fleet phase's replicas: llama2-7b at full width, 16 of its 32 layers
+#: (the script's time limit since the tp phase joined), bf16, one seed;
+#: ``overrides`` and ``device`` reach the replicas' configs (None on the
+#: card: the CUDA device)
+FLEET = dict(name="llama2-7b", seed=7, new=64,
+             overrides={"num_layers": 16}, device=None)
 #: the serve phase's engine settings
 FLEET_ENGINE = {"block_size": 64, "num_blocks": 256, "max_seqs": 8,
                 "chunk": 256, "max_inflight": 8, "max_seq_len": 2048}
@@ -7554,6 +7736,423 @@ def phase_fleet(dev) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# phase 15: tensor-parallel serving, ranks sharing the one card over gloo
+# ---------------------------------------------------------------------------
+
+TP_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tp.tmp")
+#: every leg's engine: the serve phase's, committing within each step
+TP_ENGINE = dict(block_size=64, num_blocks=256, max_seqs=8, chunk=256,
+                 max_seq_len=2048, decode_window=8, max_inflight=0)
+TP_SEED = 11
+#: (tag, tensor ranks, model, its config overrides (depth), dtype, {run:
+#: options}, traffic: prompt lengths, system prefix, new tokens; engine
+#: overrides)
+TP_LEGS = (
+    ("llama2-7b/bf16", 2, "llama2-7b", {}, "bfloat16",
+     {"off": {"tp_overlap": False}, "auto": {}},
+     (TRAFFIC["shared-prefix"][0], 128, 64), {}),
+    ("llama2-7b/int8+e4m3", 2, "llama2-7b", {}, "bfloat16",
+     {"auto": {"quant_bits": 8, "kv_cache_dtype": "fp8"}},
+     (TRAFFIC["shared-prefix"][0], 128, 32), {}),
+    ("qwen2-moe-a2.7b/int8", 2, "qwen2-moe-a2.7b", {"num_layers": 4},
+     "bfloat16",
+     {"auto": {"quant_bits": 8}}, (TRAFFIC["shared-prefix"][0], 128, 32),
+     {}),
+    ("mistral-7b/fp32-ring", 4, "mistral-7b", {"num_layers": 8}, "float32",
+     {"forced": {"tp_overlap": True}}, ((4608, 256, 384, 512), 0, 16),
+     {"max_seq_len": 8192, "num_blocks": 600}),
+)
+
+
+class CollectiveTimer:
+    """Host seconds and calls inside the port's collectives in this process
+    (``comm.all_reduce``, ``comm.all_gather``, ``comm.ring_shift`` and the
+    waits of its pending exchanges), host staging included."""
+
+    def __init__(self):
+        from deepspeed_tpu_torch import comm
+
+        self.reset()
+
+        def wrap(fn):
+            def timed(*a, **kw):
+                t0 = time.perf_counter()
+                try:
+                    return fn(*a, **kw)
+                finally:
+                    self.seconds += time.perf_counter() - t0
+                    self.calls += 1
+            return timed
+
+        for name in ("all_reduce", "all_gather", "ring_shift"):
+            setattr(comm, name, wrap(getattr(comm, name)))
+        comm.PendingExchange.wait = wrap(comm.PendingExchange.wait)
+
+    def reset(self) -> None:
+        self.seconds, self.calls = 0.0, 0
+
+
+def tp_prompts(vocab: int, lens, sys_len: int, seed: int) -> tuple:
+    """(a warm-up prompt that publishes the system prefix, the prompts)."""
+    g = torch.Generator().manual_seed(seed)
+    system = torch.randint(0, vocab, (sys_len,), generator=g).tolist()
+    warm = system + torch.randint(0, vocab, (64,), generator=g).tolist()
+    return warm, [system + torch.randint(0, vocab, (n - sys_len,),
+                                         generator=g).tolist()
+                  for n in lens]
+
+
+def tp_rank_leg(leg: tuple, warm: list, prompts: list,
+                device: str = "cuda") -> dict:
+    """One rank of a tp leg (runs in a ``RankPool`` process) on ``device``:
+    for each run, the engine from a meta model, a warm-up request, then the
+    prompts served greedily; returns each run's streams, times, ring
+    counters and launches."""
+    from deepspeed_tpu_torch import comm
+    from deepspeed_tpu_torch.inference import InferenceEngineV2
+    from deepspeed_tpu_torch.models import build_model
+    from deepspeed_tpu_torch.parallel.tensor import overlap_counters
+    from deepspeed_tpu_torch.parallel.topology import MeshTopology
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    tag, tp, name, mover, dtype, runs, (lens, sys_len, new), over = leg
+    cuda = device == "cuda"
+    dev = torch.device("cuda", 0) if cuda else torch.device(device)
+    if cuda:
+        torch.cuda.set_device(dev)
+    sync = torch.cuda.synchronize if cuda else (lambda *a: None)
+    dtype = getattr(torch, dtype)
+    timer = CollectiveTimer()
+    topo = MeshTopology({"tensor": tp})
+    extra = dict(mover)
+    out = {"rank": topo.rank_in("tensor"), "runs": {}}
+    for run, opts in runs.items():
+        t0 = time.perf_counter()
+        model = build_model(name, device="meta", dtype=dtype, seed=TP_SEED,
+                            **extra)
+        eng = InferenceEngineV2(model, config=dict(
+            TP_ENGINE, **over, dtype=dtype, device=dev, **opts),
+            topology=topo)
+        sync()
+        build_s = time.perf_counter() - t0
+        eng.generate([warm], max_new_tokens=8)
+        reset_counts()
+        zero_stats(eng)
+        timer.reset()
+        staged0 = {k: list(v) for k, v in comm.staged.items()}
+        products0 = overlap_counters.products_snapshot()
+        if cuda:
+            torch.cuda.reset_peak_memory_stats(dev)
+        t0 = time.perf_counter()
+        for uid, p in enumerate(prompts):
+            eng.put(uid, p, max_new_tokens=new)
+        first: dict = {}
+        while any(eng.query(u).get("live") and not eng.query(u)["done"]
+                  for u in range(len(prompts))) or eng._inflight:
+            for uid in eng.step():
+                first.setdefault(uid, time.perf_counter() - t0)
+        sync()
+        wall = time.perf_counter() - t0
+        streams = [eng.flush(u) for u in range(len(prompts))]
+        st = eng.stats
+        made = {k: [m - products0.get(k, (0, 0))[0],
+                    b - products0.get(k, (0, 0))[1]]
+                for k, (m, b) in overlap_counters.products_snapshot().items()}
+        out["runs"][run] = dict(
+            streams=streams, build_s=build_s, wall_s=wall,
+            tok_s=sum(map(len, streams)) / wall,
+            ttft_p50_s=statistics.median(first.values()),
+            decode_ms_per_token_step=1e3 * st["window_dispatch_s"] / max(
+                st["window_iters_dispatched"], 1),
+            collective_s=timer.seconds, collective_calls=timer.calls,
+            staged={k: [v[0] - staged0.get(k, [0, 0])[0],
+                        v[1] - staged0.get(k, [0, 0])[1]]
+                    for k, v in comm.staged.items()},
+            ring={k: st[k] for k in ("tp_ring_matmuls", "tp_ring_steps",
+                                     "tp_bytes_permuted", "tp_fallbacks")},
+            ring_products=made,
+            launches=all_counts(), forwards=forwards_of(eng),
+            graphs_off_reason=eng.graphs_off_reason,
+            peak_bytes=torch.cuda.max_memory_allocated(dev) if cuda else 0)
+        del eng, model
+        free_cuda()
+    return out
+
+
+def load_shard_dequantized(model, bits, tp: int) -> None:
+    """Overwrite ``model``'s quantized weights (attention and dense FFN
+    products, routed experts, the unembedding) with their codes quantized
+    shard by shard at ``tp`` ranks, as the engine quantizes them, and
+    dequantized: the dense oracle of a quantized TP engine."""
+    from deepspeed_tpu_torch.inference.weights import module_param_tree
+    from deepspeed_tpu_torch.ops.quant_matmul import (
+        dequantize_grouped, dequantize_weight, quantize_grouped,
+        quantize_weight)
+    from deepspeed_tpu_torch.runtime.zero.planner import (tensor_plan,
+                                                          tensor_shard)
+
+    tree = module_param_tree(model)
+    products = ("wq", "wk", "wv", "wo", "w_gate", "w_up", "w_down")
+    with torch.no_grad():
+        for path, (spec, _) in tensor_plan(tree, {"tensor": tp}).items():
+            leaf = path[-1]
+            if not ((leaf in products and ("attn" in path or "ffn" in path
+                                           or "experts" in path))
+                    or path == ("unembed",)):
+                continue
+            w = tree
+            for k in path:
+                w = w[k]
+            parts = []
+            for r in range(tp):
+                sh = tensor_shard(w, spec, r, tp).float()
+                if "experts" in path:
+                    parts.append(dequantize_grouped(quantize_grouped(
+                        sh, bits=bits, shard=tp > 1)))
+                    continue
+                K = sh.shape[0] * sh.shape[1] if leaf == "wo" else \
+                    sh.shape[0]
+                parts.append(dequantize_weight(quantize_weight(
+                    sh.reshape(K, -1), bits=bits, shard=tp > 1)
+                ).reshape(sh.shape))
+            whole = torch.cat(parts, dim=spec.index("tensor")) \
+                if "tensor" in spec else parts[0]
+            w.copy_(whole.to(w.dtype))
+
+
+def teacher_forced(oracle, prompt, toks, dev) -> list:
+    """Per token of ``toks`` after ``prompt``: the oracle's top logit there
+    minus the token's."""
+    ids = torch.tensor([list(prompt) + list(toks[:-1])], device=dev)
+    with torch.no_grad():
+        logits = oracle(ids)[0, len(prompt) - 1:].float()
+    got = logits[torch.arange(len(toks), device=dev),
+                 torch.tensor(toks, device=dev)]
+    return (logits.max(dim=-1).values - got).cpu().tolist()
+
+
+def tp_oracle(tag, oracle, prompts, runs: dict, dev) -> dict:
+    """Every token of every run's streams the teacher-forced oracle's argmax
+    or within ``FLEET_TIE_GAP`` of its top logit (a near-tie, counted)."""
+    out = {}
+    for run, rec in runs.items():
+        ties, worst = 0, 0.0
+        for uid, (p, toks) in enumerate(zip(prompts, rec["streams"])):
+            gaps = teacher_forced(oracle, p, toks, dev)
+            bad = [(k, g) for k, g in enumerate(gaps) if g > FLEET_TIE_GAP]
+            if bad:
+                raise AssertionError(f"[tp {tag} {run}] uid {uid}: tokens "
+                                     f"off the oracle's top past the "
+                                     f"near-tie bound: {bad[:4]}")
+            ties += sum(g > 0 for g in gaps)
+            worst = max([worst] + gaps)
+        out[run] = dict(near_ties=ties, max_tie_gap=worst)
+        log(f"[tp {tag} {run}] {len(prompts)} streams pass the "
+            f"teacher-forced oracle: {ties} near-ties (largest gap "
+            f"{worst:.3f} <= {FLEET_TIE_GAP})")
+    return out
+
+
+def tp_tp1_streams(leg, prompts, warm, dev) -> tuple:
+    """The TP-1 engine's streams and per-token logits on a leg's weights
+    and traffic (the mistral leg's reference)."""
+    from deepspeed_tpu_torch.models import build_model
+
+    tag, tp, name, mover, dtype, runs, (lens, sys_len, new), over = leg
+    dtype = getattr(torch, dtype)
+    extra = dict(mover)
+    model = build_model(name, device=dev, dtype=dtype, seed=TP_SEED, **extra)
+    eng = tap_engine_class()(model, config=dict(TP_ENGINE, **over,
+                                                dtype=dtype, device=dev))
+    del model
+    eng.generate([warm], max_new_tokens=8)
+    eng.taps.clear()
+    streams = eng.generate(prompts, max_new_tokens=new)
+    taps = [[t.cpu() for t in eng.taps[u]] for u in range(len(prompts))]
+    del eng
+    free_cuda()
+    return streams, taps
+
+
+def tp_check_ranks(leg, recs: list) -> dict:
+    """Every rank's streams, ring counters, ring products and launches equal
+    rank 0's; each rank's launches equal the TP-1 engine's on the same
+    forwards plus, where a ring ran, the local products it made beyond the
+    blocking path's (an all-gather ring makes n products a weight, a
+    two-way reduce-scatter ring 2n half products, the grouped ring n; the
+    ring cores count them as they make them). Returns the per-run launches
+    of every rank and the TP-1 figures."""
+    from deepspeed_tpu_torch.models import get_model_config
+
+    tag, tp, name, mover, dtype, runs, (lens, sys_len, new), over = leg
+    extra = dict(mover)
+    cfg = get_model_config(name, **extra)
+    bf16 = dtype == "bfloat16"
+    out = {}
+    for run, opts in runs.items():
+        r0 = recs[0]["runs"][run]
+        for rec in recs[1:]:
+            r = rec["runs"][run]
+            if any(r[k] != r0[k] for k in ("streams", "ring", "ring_products",
+                                           "forwards", "launches")):
+                raise AssertionError(
+                    f"[tp {tag} {run}] rank {rec['rank']} disagrees with "
+                    f"rank 0: launches {r['launches']} vs {r0['launches']}, "
+                    f"ring products {r['ring_products']} vs "
+                    f"{r0['ring_products']}")
+        if any(len(s) != new for s in r0["streams"]):
+            raise AssertionError(f"[tp {tag} {run}] streams of "
+                                 f"{[len(s) for s in r0['streams']]} tokens")
+        quant = "quant_bits" in opts
+        tp1 = want_launches(cfg, forwards=r0["forwards"],
+                            e4m3_pool=opts.get("kv_cache_dtype") == "fp8",
+                            quant=quant, ring=cfg.sliding_window is not None
+                            and over.get("max_seq_len", 0) > cfg.sliding_window,
+                            bf16=bf16)
+        routed = tp1.pop("k1_routed")
+        want = dict(tp1)
+        for k, (made, blocking) in r0["ring_products"].items():
+            want[k] += made - blocking
+            if bf16:
+                want[k + "_tc"] += made - blocking
+        for rec in recs:
+            got = dict(rec["runs"][run]["launches"])
+            g_routed = got.pop("k1_chunk") + got.pop("k1_split")
+            if got != want or g_routed != routed:
+                raise AssertionError(
+                    f"[tp {tag} {run}] rank {rec['rank']} launches {got} "
+                    f"!= {want}: the TP-1 engine's {tp1} ({cfg.num_layers} "
+                    f"layers x {r0['forwards']} forwards) plus the ring "
+                    f"products {r0['ring_products']}; K1 chunk + split "
+                    f"{g_routed} vs {routed}")
+        out[run] = dict(per_rank={k: v for k, v in r0["launches"].items()
+                                  if v}, tp1=dict(
+                                      {k: v for k, v in tp1.items() if v},
+                                      k1_routed=routed),
+                        ring_products=r0["ring_products"],
+                        by_rank={rec["rank"]: rec["runs"][run]["launches"]
+                                 for rec in recs},
+                        times={rec["rank"]: {k: rec["runs"][run][k] for k in (
+                            "tok_s", "ttft_p50_s", "decode_ms_per_token_step",
+                            "collective_s", "collective_calls")}
+                               for rec in recs})
+        r = r0
+        per_rank = "; ".join(
+            f"rank {k}: {t['tok_s']:.1f} tok/s, p50 TTFT "
+            f"{t['ttft_p50_s']:.3f} s, decode "
+            f"{t['decode_ms_per_token_step']:.2f} ms/token-step, "
+            f"collectives {t['collective_s']:.2f} s in "
+            f"{t['collective_calls']} calls"
+            for k, t in out[run]["times"].items())
+        log(f"[tp {tag} {run}] TP {tp} (ranks agree; eager): {per_rank}; "
+            f"ring {r['ring']}, host-staged "
+            f"{r['staged']}; launches a rank {out[run]['per_rank']}, equal "
+            f"on all {tp} ranks (TP-1 engine on the same forwards: "
+            f"{out[run]['tp1']}; ring products made / blocking "
+            f"{out[run]['ring_products']}); build "
+            f"{r['build_s']:.1f} s, peak {r['peak_bytes'] / 1e9:.1f} GB")
+    return out
+
+
+def phase_tp(dev) -> dict:
+    """See the module docstring, phase 15."""
+    from deepspeed_tpu_torch.accelerator import card_name_and_power_limit
+    from deepspeed_tpu_torch.comm.spawn import RankPool
+    from deepspeed_tpu_torch.models import build_model, get_model_config
+    from deepspeed_tpu_torch.ops import native
+
+    t_phase = time.perf_counter()
+    card = card_name_and_power_limit()
+    native.load_library()        # built once here: ranks never race g++
+    free_cuda()
+    reset_counts()
+    shutil.rmtree(TP_DIR, ignore_errors=True)
+    legs: dict = {}
+    traffic: dict = {}
+    for leg in TP_LEGS:
+        tag, tp, name, mover, dtype, runs, (lens, sys_len, new), _ = leg
+        traffic[tag] = tp_prompts(
+            get_model_config(name, **mover).vocab_size, lens, sys_len, 31)
+    try:
+        for n in sorted({leg[1] for leg in TP_LEGS}):
+            with RankPool(n, os.path.join(TP_DIR, f"store{n}")) as pool:
+                for leg in (lg for lg in TP_LEGS if lg[1] == n):
+                    t0 = time.perf_counter()
+                    recs = pool.run(tp_rank_leg, leg, *traffic[leg[0]],
+                                    dev.type, timeout=900)
+                    legs[leg[0]] = dict(
+                        seconds=time.perf_counter() - t0,
+                        runs={run: {k: v for k, v in r.items()
+                                    if k != "streams"}
+                              for run, r in recs[0]["runs"].items()},
+                        streams={run: r["streams"]
+                                 for run, r in recs[0]["runs"].items()},
+                        launches=tp_check_ranks(leg, recs))
+            free_cuda()
+    finally:
+        shutil.rmtree(TP_DIR, ignore_errors=True)
+    parent = all_counts()
+    if any(parent.values()):
+        raise AssertionError(f"[tp] this process launched kernels: {parent}")
+    # the oracles, with the ranks gone
+    oracles = {}
+    for leg in TP_LEGS:
+        tag, tp, name, mover, dtype, runs, (lens, sys_len, new), _ = leg
+        warm, prompts = traffic[tag]
+        runs_got = {run: {"streams": s}
+                    for run, s in legs[tag]["streams"].items()}
+        if dtype == "float32":
+            want, taps = tp_tp1_streams(leg, prompts, warm, dev)
+            ties = []
+            for uid, (a, b) in enumerate(zip(runs_got["forced"]["streams"],
+                                             want)):
+                k = next((i for i, (x, y) in enumerate(zip(a, b)) if x != y),
+                         None)
+                if k is None:
+                    continue
+                top2 = torch.topk(taps[uid][k], 2).values
+                gap = (top2[0] - top2[1]).item()
+                if gap >= 1e-4:
+                    raise AssertionError(f"[tp {tag}] uid {uid} parts from "
+                                         f"the TP-1 engine at token {k} "
+                                         f"(top-2 gap {gap:.3e} >= 1e-4)")
+                ties.append((uid, k, gap))
+            oracles[tag] = dict(against="TP-1 engine", near_ties=ties)
+            log(f"[tp {tag}] streams equal the TP-1 engine's"
+                + (f" but at near-ties {ties}" if ties else ""))
+            continue
+        extra = dict(mover)
+        oracle = build_model(name, dtype=torch.bfloat16, device=dev,
+                             seed=TP_SEED, attn_impl="xla", **extra)
+        quant = next(iter(runs.values())).get("quant_bits")
+        if quant:
+            load_shard_dequantized(oracle, quant, tp)
+        if oracle.config.moe is not None:
+            no_drop_oracle(oracle)
+        oracles[tag] = tp_oracle(tag, oracle, prompts, runs_got, dev)
+        del oracle
+        free_cuda()
+    rec = {"card": card, "legs": legs, "oracles": oracles,
+           "seconds": time.perf_counter() - t_phase}
+    log(f"[tp] {card}: phase {rec['seconds']:.1f} s (ranks time-slicing one "
+        f"card over gloo: no measure of tensor parallelism's speed)")
+    return rec
+
+
+def tp_launches(rec: dict) -> dict:
+    """Each kernel's launches summed over every rank of every tp run, as
+    each rank counted them."""
+    total: dict = collections.Counter()
+    for leg in TP_LEGS:
+        for run in leg[5]:
+            for got in rec["legs"][leg[0]]["launches"][run]["by_rank"] \
+                    .values():
+                total.update(got)
+    return {k: v for k, v in total.items() if v}
+
+
+# ---------------------------------------------------------------------------
 # main
 # ---------------------------------------------------------------------------
 
@@ -7701,7 +8300,8 @@ def main() -> int:
         record["phases"]["kernel"] = {"k1": cases, "k2": k2_cases,
                                       "k3": k3_cases, "k4": k4_cases,
                                       "k5": k5_cases, "k6": k6_cases,
-                                      "k7": k7_cases}
+                                      "k7": k7_cases,
+                                      "tp_shards": phase_tp_shards(dev)}
     if "observe" in phases:
         # telemetry and HF import: its timed legs before any profiler of
         # any phase runs (the serve phase profiles after its serves)
@@ -7812,6 +8412,23 @@ def main() -> int:
             "handoff_GBps": disagg["GBps"],
             "near_ties": {k: v["near_ties"]
                           for k, v in fleet["oracle"].items()}}
+    if "tp" in phases:
+        tp = phase_tp(dev)
+        record["phases"]["tp"] = tp
+        # K1 on every rank of every tp run, and K2 / K3 on the quantized
+        # legs' (per-shard shapes, ring steps included)
+        got = tp_launches(tp)
+        for rec, key in ((k1, "k1"), (k1_e4m3, "k1_e4m3"),
+                         (k1_forms["window"], "k1_window"),
+                         (k1_forms["ring"], "k1_ring"), (k2, "k2"),
+                         (k3, "k3")):
+            rec["launches"] = (rec["launches"] or 0) + got.get(key, 0)
+        k1["tp"] = {"card": tp["card"], "launches": got,
+                    "legs": {tag: {run: {k: r[k] for k in (
+                        "tok_s", "ttft_p50_s", "decode_ms_per_token_step",
+                        "collective_s", "ring")}
+                        for run, r in leg["runs"].items()}
+                        for tag, leg in tp["legs"].items()}}
     if "observe" in phases:
         # the breach capture (a profiler) last of all
         breach = phase_observe_breach(dev)

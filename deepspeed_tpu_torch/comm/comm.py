@@ -19,6 +19,16 @@ binds a port.
 
 :class:`CommsLogger` records each collective's op, axis and bytes, as the
 JAX package's does at trace time; here it records at each call.
+
+CUDA tensors over a gloo group (the tensor-parallel ranks that share one
+card, where NCCL refuses two ranks on one device): gloo takes
+``all_reduce`` and ``broadcast`` of a device tensor itself; every other op
+(the gathers and scatters, ``all_to_all`` and the point-to-point sends of
+``ppermute`` and the ring shifts) is staged here through pinned host
+memory: a blocking copy to the host, the op on the host copy, a copy back.
+Staging is never silent: :data:`staged` counts each op's calls and bytes,
+the first staged call of an op is logged, and an enabled ``CommsLogger``
+records it as ``<op>:host_staged``.
 """
 from __future__ import annotations
 
@@ -263,6 +273,42 @@ def _record(op: str, axis, x: torch.Tensor) -> None:
         comms_logger.record(op, str(axis), x.numel() * x.element_size())
 
 
+#: ops gloo runs on CUDA tensors itself; the others are staged here
+GLOO_DEVICE_OPS = frozenset({"all_reduce", "broadcast"})
+#: staged ops: op -> [calls, bytes]
+staged: dict[str, list[int]] = {}
+
+
+def _host_staged(op: str, axis, x: torch.Tensor, group) -> bool:
+    """Whether ``op`` on ``x`` over ``group`` goes through pinned host
+    memory (a CUDA tensor, a gloo group, an op gloo does not take on the
+    device); counts and logs it when it does."""
+    if (not x.is_cuda or op in GLOO_DEVICE_OPS or not dist.is_initialized()
+            or dist.get_backend(group) != "gloo"):
+        return False
+    nbytes = x.numel() * x.element_size()
+    rec = staged.setdefault(op, [0, 0])
+    rec[0] += 1
+    rec[1] += nbytes
+    if rec[0] == 1:
+        logger.info(f"comm: {op} of CUDA tensors over gloo is staged "
+                    f"through pinned host memory")
+    if comms_logger.enabled:
+        comms_logger.record(f"{op}:host_staged", str(axis), nbytes)
+    return True
+
+
+def _pinned(x: torch.Tensor) -> torch.Tensor:
+    """A pinned host copy of ``x``, complete when this returns."""
+    h = torch.empty(x.shape, dtype=x.dtype, pin_memory=True)
+    h.copy_(x)
+    return h
+
+
+def _pinned_empty(shape, dtype) -> torch.Tensor:
+    return torch.empty(shape, dtype=dtype, pin_memory=True)
+
+
 # torch 2.13 renames the tensor forms (``*_single``); 2.11 has only the
 # older names. Resolve whichever this build has, once per call.
 def _gather_into(out: torch.Tensor, inp: torch.Tensor, group) -> None:
@@ -308,8 +354,12 @@ def all_gather(x: torch.Tensor, axis_name=None, axis: int = 0,
     group = group_of(axis_name)
     n = get_world_size(group)
     src = x.movedim(axis, 0).contiguous() if tiled else x.contiguous()
-    out = src.new_empty((n * src.shape[0], *src.shape[1:]) if tiled
-                        else (n, *src.shape))
+    shape = (n * src.shape[0], *src.shape[1:]) if tiled else (n, *src.shape)
+    if _host_staged("all_gather", axis_name, src, group):
+        out = _pinned_empty(shape, src.dtype)
+        _gather_into(out, _pinned(src), group)
+        return out.to(x.device).movedim(0, axis)
+    out = src.new_empty(shape)
     if dist.is_initialized():
         _gather_into(out, src, group)
     else:
@@ -328,11 +378,16 @@ def reduce_scatter(x: torch.Tensor, axis_name=None, axis: int = 0,
     if src.shape[0] % n:
         raise ValueError(f"reduce_scatter: dim {axis} of {tuple(x.shape)} "
                          f"does not divide over {n} members")
-    out = src.new_empty((src.shape[0] // n, *src.shape[1:]))
-    if dist.is_initialized():
+    shape = (src.shape[0] // n, *src.shape[1:])
+    if _host_staged("reduce_scatter", axis_name, src, group):
+        out = _pinned_empty(shape, src.dtype)
+        _scatter_into(out, _pinned(src), group)
+        out = out.to(x.device)
+    elif dist.is_initialized():
+        out = src.new_empty(shape)
         _scatter_into(out, src, group)
     else:
-        out.copy_(src)
+        out = src.clone()
     if op in ("avg", "mean"):
         out = out / n
     return out.movedim(0, axis)
@@ -352,11 +407,15 @@ def all_to_all(x: torch.Tensor, axis_name=None, split_axis: int = 0,
                          f"does not divide over {n} members")
     src = pieces.reshape(n, pieces.shape[0] // n,
                          *pieces.shape[1:]).contiguous()
-    out = torch.empty_like(src)
-    if dist.is_initialized():
+    if _host_staged("all_to_all", axis_name, src, group):
+        out = _pinned_empty(src.shape, src.dtype)
+        dist.all_to_all_single(out, _pinned(src), group=group)
+        out = out.to(x.device)
+    elif dist.is_initialized():
+        out = torch.empty_like(src)
         dist.all_to_all_single(out, src, group=group)
     else:
-        out.copy_(src)
+        out = src.clone()
     # out[j] is member j's piece for this member, in x's layout along
     # split_axis moved to the front
     recv = [out[j].movedim(0, split_axis) for j in range(n)]
@@ -376,6 +435,48 @@ def broadcast(x: torch.Tensor, axis_name=None, src: int = 0
     return out
 
 
+class PendingExchange:
+    """Point-to-point receives in flight: :meth:`wait` returns the received
+    tensors (on the senders' device: a host-staged receive is copied back
+    to it)."""
+
+    def __init__(self, reqs: list, outs: list, device=None, keep=()):
+        self._reqs, self._outs, self._device = reqs, outs, device
+        self._keep = keep          # the send buffers, alive until wait()
+
+    def wait(self) -> list[torch.Tensor]:
+        for req in self._reqs:
+            req.wait()
+        self._reqs, self._keep = [], ()
+        if self._device is None:
+            return self._outs
+        return [o.to(self._device) for o in self._outs]
+
+
+def _exchange(sends: list, recvs: list, axis_name, group, op: str
+              ) -> PendingExchange:
+    """One batch of point-to-point operations: ``sends`` = [(tensor, peer)]
+    and ``recvs`` = [(like, peer)] (peers are ranks in ``group``); the i-th
+    send of a member pairs with the i-th receive of its peer from it (tag
+    i), so two messages between one pair of members cannot cross."""
+    to_glob = (lambda r: dist.get_global_rank(group, r)) \
+        if group is not None else (lambda r: r)
+    device = None
+    if sends and _host_staged(op, axis_name, sends[0][0], group):
+        device = sends[0][0].device
+        sends = [(_pinned(t), p) for t, p in sends]
+        outs = [_pinned_empty(t.shape, t.dtype) for t, _ in recvs]
+    else:
+        outs = [torch.empty_like(t) for t, _ in recvs]
+    bufs = [t.contiguous() for t, _ in sends]
+    ops = [dist.P2POp(dist.isend, t, to_glob(p), group=group, tag=i)
+           for i, (t, (_, p)) in enumerate(zip(bufs, sends))]
+    ops += [dist.P2POp(dist.irecv, o, to_glob(p), group=group, tag=i)
+            for i, (o, (_, p)) in enumerate(zip(outs, recvs))]
+    reqs = dist.batch_isend_irecv(ops) if ops else []
+    return PendingExchange(reqs, outs, device, keep=bufs)
+
+
 def ppermute(x: torch.Tensor, axis_name, perm: list[tuple[int, int]]
              ) -> torch.Tensor:
     """Point-to-point permute: member ``s`` sends to ``d`` for each pair;
@@ -384,33 +485,43 @@ def ppermute(x: torch.Tensor, axis_name, perm: list[tuple[int, int]]
     group = group_of(axis_name)
     me = get_rank(group)
     n = get_world_size(group)
-    out = torch.zeros_like(x)
     if n == 1:
-        return x.clone() if (0, 0) in perm else out
-    ops = []
-    to_glob = (lambda r: dist.get_global_rank(group, r)) \
-        if group is not None else (lambda r: r)
-    for s, d in perm:
-        if s == me:
-            ops.append(dist.P2POp(dist.isend, x.contiguous(), to_glob(d),
-                                  group=group))
-        if d == me:
-            ops.append(dist.P2POp(dist.irecv, out, to_glob(s), group=group))
-    for req in dist.batch_isend_irecv(ops) if ops else []:
-        req.wait()
-    return out
+        return x.clone() if (0, 0) in perm else torch.zeros_like(x)
+    sends = [(x, d) for s, d in perm if s == me]
+    recvs = [(x, s) for s, d in perm if d == me]
+    got = _exchange(sends, recvs, axis_name, group, "ppermute").wait()
+    return got[0] if got else torch.zeros_like(x)
+
+
+def ring_shift(xs: Sequence[torch.Tensor], shifts: Sequence[int], axis_name,
+               async_op: bool = False):
+    """Ring shifts over the axis in one batch: ``xs[i]`` goes to the member
+    ``shifts[i]`` places on, and each member receives the ``xs[i]`` of the
+    member ``shifts[i]`` places back. Returns the received tensors, or with
+    ``async_op`` a :class:`PendingExchange` (the sends and receives run
+    while the caller computes; its ``wait()`` gives them)."""
+    group = group_of(axis_name)
+    n = get_world_size(group)
+    for x in xs:
+        _record("ppermute", axis_name, x)
+    if n == 1:
+        pending = PendingExchange([], [x.clone() for x in xs])
+    else:
+        me = get_rank(group)
+        pending = _exchange([(x, (me + k) % n) for x, k in zip(xs, shifts)],
+                            [(x, (me - k) % n) for x, k in zip(xs, shifts)],
+                            axis_name, group, "ppermute")
+    return pending if async_op else pending.wait()
 
 
 def send_recv_next(x: torch.Tensor, axis_name) -> torch.Tensor:
     """Shift +1 around the axis ring (pipeline forward activations)."""
-    n = axis_size(axis_name)
-    return ppermute(x, axis_name, [(i, (i + 1) % n) for i in range(n)])
+    return ring_shift([x], [1], axis_name)[0]
 
 
 def send_recv_prev(x: torch.Tensor, axis_name) -> torch.Tensor:
     """Shift -1 around the axis ring (pipeline backward grads)."""
-    n = axis_size(axis_name)
-    return ppermute(x, axis_name, [(i, (i - 1) % n) for i in range(n)])
+    return ring_shift([x], [-1], axis_name)[0]
 
 
 class _AllReduceMean(torch.autograd.Function):

@@ -34,8 +34,39 @@ key (``inference/programs.py``; ``warm_decode_windows`` and
 ``while_loop`` form's exit, which a graph cannot take) run eagerly, equally
 asynchronous; on the CPU every program runs eagerly through the kernels'
 plain versions. ``weight_prefetch`` (an XLA scheduling hint) has no
-counterpart. Tensor parallelism, a later slice, raises NotImplementedError
-at construction.
+counterpart.
+
+Tensor parallelism (``tensor_parallel`` > 1, or a ``topology`` whose
+``tensor`` axis is): SPMD, one process per tensor rank (``torchrun``, or
+``comm.spawn.RankPool``), each building the engine with the same arguments.
+Every rank makes the same host calls and runs the same scheduler, prefix
+cache and plans; only the forward is sharded, as the JAX engine's
+``tensor`` mesh axis shards it. Each rank holds its slices of the weights
+(``weights.load_tp_params``: vocab, heads, kv heads, mlp and the expert FFN
+width on ``tensor``) and a pool of its KV heads, ``[L, 2, KV/n, blocks,
+block_size, D]``; K1 runs on its query heads, column products on its
+columns, row products (``wo``, ``w_down``, the experts' ``w_down``) are
+summed over the tensor group; the embedding is a masked lookup of this
+rank's vocabulary rows summed over the group, and the logits' vocabulary
+columns are gathered in rank order before sampling, so every rank samples
+the same tokens from the same seeded generator. ``quant_bits`` quantizes
+each rank's slices (group boundaries inside shards, the JAX engine's
+``shard_map(quantize_weight)``). ``tp_overlap`` (None: programs of at least
+``tp_overlap_min_rows`` rows a chunk; True: every program whose rows divide
+the axis) runs the residual stream token-sharded and the projections as
+ring collective matmuls (``parallel/tensor.py``): QKV and the GLU pair each
+one all-gather ring, ``wo`` and ``w_down`` reduce-scatter rings, the
+quantized experts' ``w_down`` the grouped ring over whole token tiles;
+``stats`` carries the ring counters (``tp_ring_matmuls``,
+``tp_ring_steps``, ``tp_bytes_permuted``, ``tp_fallbacks``). A dispatch is
+committed only when the pipeline is full or drained (never on a readiness
+poll, which could differ between ranks). At ``tensor_parallel`` > 1 the
+programs run eagerly whatever the backend, every kernel as on a graph, and
+``stats["graphs_off_reason"]`` says why: graphs of NCCL collectives are
+not verified on several cards, and gloo's (ranks sharing one card, where
+NCCL refuses two ranks on one device) cannot be captured. Speculative decoding, the KV movement
+surface, the KV tier and the weight swap refuse tensor parallelism
+(ROADMAP queue 1, item 6a).
 
 Telemetry (``telemetry=True``, ``reqtrace=True``; ``telemetry/``), at the
 JAX engine's sites with its metric, span and event names: ``admit``,
@@ -113,9 +144,11 @@ from typing import Any
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
+from .. import comm
 from ..accelerator import get_device, is_sm90
-from ..models.transformer import (TransformerLM, add_shared_expert,
+from ..models.transformer import (_ACTS, TransformerLM, add_shared_expert,
                                   alibi_slopes, apply_rope,
                                   check_served_family, dense_ffn,
                                   moe_layer_kwargs, norm, proj_heads,
@@ -123,6 +156,9 @@ from ..models.transformer import (TransformerLM, add_shared_expert,
 from ..moe.layer import (dropless_dispatch_combine, expert_ffn, moe_forward,
                          router_logits)
 from ..moe.sharded_moe import topk_dropless_gating
+from ..parallel.tensor import (_ring_rs_core, allgather_matmul,
+                               matmul_reduce_scatter, overlap_counters)
+from ..parallel.topology import MeshConfig, MeshTopology
 from ..ops.paged_attention import (paged_ragged_attention,
                                    paged_ragged_attention_reference)
 from ..ops.quant_matmul import (QuantGrouped, QuantLinear,
@@ -135,8 +171,8 @@ from .ragged import StateManager, StepPlan
 from .sampling import sample_logits, sample_tree_logits
 from .scheduler import SpecAcceptTracker, SplitFuseScheduler
 from .weights import (cast_tree, copy_param_tree_, load_param_tree,
-                      module_param_tree, save_param_tree, tree_nbytes,
-                      tree_tensors)
+                      load_tp_params, module_param_tree, save_param_tree,
+                      tree_nbytes, tree_tensors)
 
 #: the pool dtype's name on the wire (``PageBundle.kv_dtype``): numpy's
 #: names, as the JAX engine writes them
@@ -221,20 +257,17 @@ class RaggedInferenceConfig:
     device: Any = None
 
 
-def _refuse_later_slices(cfg: RaggedInferenceConfig) -> None:
-    """NotImplementedError for every configuration a later slice ports."""
-    later = [
-        (cfg.quant_bits and cfg.tensor_parallel != 1,
-         "quant_bits with tensor_parallel>1",
-         "tensor parallelism (per-shard quantization)"),
-        (cfg.tensor_parallel != 1 or cfg.tp_overlap, "tensor_parallel>1",
-         "tensor parallelism"),
-    ]
-    for on, what, slice_ in later:
-        if on:
-            raise NotImplementedError(
-                f"{what}: not ported yet — arrives with the port's slice for "
-                f"{slice_}")
+#: the ROADMAP item that holds what tensor-parallel serving left
+TP_LATER = "ROADMAP queue 1, item 6a (what tensor-parallel serving left)"
+
+
+def tp_refusal(what: str, tp: int) -> NotImplementedError:
+    return NotImplementedError(f"{what} at tensor_parallel={tp} is not "
+                               f"ported: {TP_LATER}")
+
+
+def _check_config(cfg: RaggedInferenceConfig) -> None:
+    """The config's value checks."""
     if cfg.kv_cache_dtype not in (None, "fp8"):
         raise ValueError(f"kv_cache_dtype must be None or 'fp8', got "
                          f"{cfg.kv_cache_dtype!r}")
@@ -256,7 +289,7 @@ class InferenceEngineV2:
     def __init__(self, model: TransformerLM, params: dict | None = None,
                  config: RaggedInferenceConfig | dict | None = None,
                  draft_model: TransformerLM | None = None,
-                 draft_params: dict | None = None):
+                 draft_params: dict | None = None, topology=None):
         """``model`` supplies the configuration and, when ``params`` is
         None, the weights (served without a copy when its dtype and device
         match). ``params`` is a parameter tree with the flax tree's names
@@ -264,14 +297,22 @@ class InferenceEngineV2:
         engine's tree drops the dense weights it quantizes; the model keeps
         its own, so a caller that wants their memory back drops the model
         once the engine is up. ``draft_model`` / ``draft_params`` are the
-        draft of ``spec_decode="draft"``, served by a second engine."""
+        draft of ``spec_decode="draft"``, served by a second engine.
+
+        ``topology`` (a ``parallel.topology.MeshTopology``; by default one
+        of ``tensor=tensor_parallel`` when that exceeds 1) shards the
+        forward over its ``tensor`` axis: every rank builds the engine with
+        the same arguments. ``params`` is then the WHOLE tree, or None with
+        ``model`` built on the meta device (``device="meta"``): each rank
+        draws its slices of the seeded weights a block at a time."""
         if isinstance(config, dict):
             config = RaggedInferenceConfig(**config)
         self.config = cfg = config or RaggedInferenceConfig()
         self.mcfg = m = model.config
         check_served_family(m)
-        _refuse_later_slices(cfg)
+        _check_config(cfg)
         self.device = dev = get_device(cfg.device)
+        self._init_tensor_parallel(topology)
 
         max_blocks_per_seq = -(-cfg.max_seq_len // cfg.block_size)
         # a sliding-window model only needs the last window (plus the step
@@ -292,6 +333,7 @@ class InferenceEngineV2:
         self.scheduler = SplitFuseScheduler(
             self.state, cfg.chunk,
             pack=cfg.prefill_pack and not self._ring_tokens)
+        self._init_ring()
         # shared-prefix KV cache: auto = on for pack-mode linear serving
         use_pc = cfg.prefix_cache
         if use_pc is None:
@@ -311,7 +353,7 @@ class InferenceEngineV2:
                     else cfg.dtype)
         self._kv_name = KV_DTYPE_NAMES[kv_dtype]
         # one page's bytes: its full cross-layer K/V slab [L, 2, KV, bs, D]
-        self._page_bytes = (m.num_layers * 2 * m.kv_heads * cfg.block_size
+        self._page_bytes = (m.num_layers * 2 * self._KV * cfg.block_size
                             * m.head_dim
                             * torch.empty((), dtype=kv_dtype).element_size())
 
@@ -346,9 +388,14 @@ class InferenceEngineV2:
         # exported bundle, written only here and by swap_weights
         self._weight_version: dict = {"id": 0, "digest": "init"}
 
-        self.params = (module_param_tree(model, dtype=cfg.dtype, device=dev)
-                       if params is None
-                       else cast_tree(params, dtype=cfg.dtype, device=dev))
+        if self._tp > 1:
+            self.params, self._tp_plan = load_tp_params(
+                model, params, self.topology, dtype=cfg.dtype, device=dev)
+        else:
+            self.params = (
+                module_param_tree(model, dtype=cfg.dtype, device=dev)
+                if params is None
+                else cast_tree(params, dtype=cfg.dtype, device=dev))
         missing = [i for i in range(m.num_layers)
                    if f"layer_{i}" not in self.params]
         if missing:
@@ -360,13 +407,13 @@ class InferenceEngineV2:
         # compute dtype or e4m3; block 0 is the trash block padded tokens
         # write to
         self.kv_pool = torch.zeros(
-            (m.num_layers, 2, m.kv_heads, cfg.num_blocks, cfg.block_size,
+            (m.num_layers, 2, self._KV, cfg.num_blocks, cfg.block_size,
              m.head_dim), dtype=kv_dtype, device=dev)
 
         # one attention selection per mode; every decode and verify
         # dispatch counts against its mode's (attn_registry.py)
-        sel_kw = dict(device_type=dev.type, num_heads=m.num_heads,
-                      kv_heads=m.kv_heads, head_dim=m.head_dim,
+        sel_kw = dict(device_type=dev.type, num_heads=self._H,
+                      kv_heads=self._KV, head_dim=m.head_dim,
                       block_size=cfg.block_size,
                       use_kernel=cfg.use_pallas_decode,
                       alibi=m.position_embedding == "alibi",
@@ -384,8 +431,11 @@ class InferenceEngineV2:
                 kernels.load("quant_matmul")
             elif m.moe is not None and m.moe.dropless:
                 kernels.load("grouped_matmul")
-        self._alibi_slopes = (alibi_slopes(m.num_heads, device=dev)
-                              if m.position_embedding == "alibi" else None)
+        self._alibi_slopes = None
+        if m.position_embedding == "alibi":         # this rank's heads
+            r = self._tp_rank * self._H
+            self._alibi_slopes = alibi_slopes(m.num_heads,
+                                              device=dev)[r:r + self._H]
 
         self._gen = torch.Generator(device=dev)
         self._gen.manual_seed(17)
@@ -401,7 +451,15 @@ class InferenceEngineV2:
         # the card's captured programs and the pinned staging of plan
         # arrays; on the CPU every program runs eagerly
         cuda = dev.type == "cuda"
-        self._programs = ProgramCache(dev, self._gen) if cuda else None
+        self.graphs_off_reason = ""
+        if cuda and self._tp > 1:
+            self.graphs_off_reason = (
+                f"tensor_parallel={self._tp}: CUDA graphs of the tensor "
+                f"group's collectives are not verified (gloo's cannot be "
+                f"captured at all), so every program runs eagerly")
+            logger.warning(f"engine_v2: {self.graphs_off_reason}")
+        self._programs = (ProgramCache(dev, self._gen)
+                          if cuda and not self.graphs_off_reason else None)
         self._staging = (HostStaging(max(cfg.max_inflight, 1) + 2) if cuda
                          else None)
         # serving SLO instruments (telemetry/) — all no-ops when disabled
@@ -486,7 +544,14 @@ class InferenceEngineV2:
                       "kv_tier_fallbacks": 0,
                       # KV-page migration through this engine's pool
                       "migrations_out": 0, "migrations_in": 0,
-                      "migration_bytes_out": 0, "migration_bytes_in": 0}
+                      "migration_bytes_out": 0, "migration_bytes_in": 0,
+                      # ring collective matmuls (parallel/tensor.py), as
+                      # deltas of its process-wide counters
+                      "tp_ring_matmuls": 0, "tp_ring_steps": 0,
+                      "tp_bytes_permuted": 0, "tp_fallbacks": 0}
+        if self.graphs_off_reason:
+            self.stats["graphs_off_reason"] = self.graphs_off_reason
+        self._tp_counter_base = overlap_counters.snapshot()
         # pinned host buffers of page imports, kept until the event behind
         # their copy has passed
         self._h2d_keep: deque = deque()
@@ -516,7 +581,78 @@ class InferenceEngineV2:
                if self._attn_decode_sel.reason else "")
             + (f" ring={self._ring_tokens} tokens" if self._ring_tokens
                else "")
-            + (f" spec={cfg.spec_decode}" if cfg.spec_decode else ""))
+            + (f" spec={cfg.spec_decode}" if cfg.spec_decode else "")
+            + (f" tp={self._tp} (rank {self._tp_rank}, ring "
+               f"{self._tp_ring_n})" if self._tp > 1 else ""))
+
+    def _init_tensor_parallel(self, topology) -> None:
+        """The tensor axis: its size and this process's rank on it, the
+        heads this rank serves, and the refusals of what the slice leaves
+        out (heads that do not divide the axis, speculative decoding, the
+        KV tier)."""
+        cfg, m = self.config, self.mcfg
+        tp = (topology.size("tensor") if topology is not None
+              else cfg.tensor_parallel)
+        if tp > 1:
+            if m.num_heads % tp or m.kv_heads % tp:
+                raise tp_refusal(
+                    f"head counts ({m.num_heads}q/{m.kv_heads}kv) that do "
+                    f"not divide the tensor axis ({tp})", tp)
+            if cfg.spec_decode and cfg.tp_overlap is True:
+                raise ValueError(
+                    "spec_decode cannot combine with tp_overlap=True: the "
+                    "verify forward samples all-position logits, which the "
+                    "forced token-sharded ring stream does not carry (auto "
+                    "mode is fine — verify programs fall back per-program)")
+            for on, what in ((cfg.spec_decode, "spec_decode"),
+                             (cfg.kv_tier, "kv_tier")):
+                if on:
+                    raise tp_refusal(what, tp)
+        if topology is None and tp != 1:
+            topology = MeshTopology(MeshConfig(tensor=tp, data=1))
+        self.topology = topology
+        self._tp = tp
+        self._tp_rank = topology.rank_in("tensor") if tp > 1 else 0
+        self._tp_plan: dict = {}
+        if tp > 1:
+            comm.set_topology(topology)
+        #: the query and KV heads this rank serves
+        self._H, self._KV = m.num_heads // tp, m.kv_heads // tp
+
+    def _init_ring(self) -> None:
+        """The JAX engine's static ring gate: ``tp_overlap`` None or True
+        rings when the heads and the FFN width divide the axis (True
+        requires it); programs whose rows do not divide fall back per
+        program (:meth:`_ring_gate`). Packed prefill plans pad their rows
+        to the ring degree."""
+        cfg, m, tp = self.config, self.mcfg, self._tp
+        ring_geom = (tp > 1 and m.num_heads % tp == 0
+                     and m.kv_heads % tp == 0 and m.ffn_size % tp == 0)
+        if cfg.tp_overlap and not ring_geom:
+            raise ValueError(
+                f"tp_overlap=True but the geometry can't ring: heads "
+                f"{m.num_heads}, kv_heads {m.kv_heads}, ffn {m.ffn_size} "
+                f"must all divide by the tensor axis size {tp}")
+        self._tp_ring_n = tp if (ring_geom and cfg.tp_overlap is not False) \
+            else 0
+        self._tp_ring_force = cfg.tp_overlap is True
+        if self._tp_ring_n:
+            self.scheduler.row_multiple = self._tp_ring_n
+
+    def _tp_kind(self, *path: str) -> str:
+        """The TP kind (``col`` / ``row`` / ``rep``) of the weight at
+        ``path``; ``rep`` without tensor parallelism."""
+        got = self._tp_plan.get(tuple(path))
+        return got[1] if got is not None else "rep"
+
+    def _no_tp(self, what: str) -> None:
+        if self._tp > 1:
+            raise tp_refusal(what, self._tp)
+
+    def _reduce(self, y: torch.Tensor) -> torch.Tensor:
+        """The sum of a row-sharded product's partial outputs over the
+        tensor ranks."""
+        return comm.all_reduce(y, "tensor") if self._tp > 1 else y
 
     def _init_speculative(self, draft_model, draft_params) -> None:
         """The configured proposer and the per-request accept-rate tracker.
@@ -584,12 +720,20 @@ class InferenceEngineV2:
         exact for the gather and projects logits through ``logits_q``, a
         quantized copy of ``embed.T``. An MoE layer's routed experts become
         ``QuantGrouped`` slabs; its router and shared expert stay exact.
-        The tree drops each dense weight as it is replaced."""
+        The tree drops each dense weight as it is replaced.
+
+        Under tensor parallelism each weight is this rank's slice, and each
+        slice is quantized alone: group boundaries fall inside shards, and
+        codes and scales are bit for bit the shards of the JAX engine's
+        ``shard_map(quantize_weight)`` / ``quantize_grouped``."""
         m, P = self.mcfg, self.params
         E = m.hidden_size
 
+        shard = self._tp > 1
+
         def q2d(w, K):
-            return quantize_weight(w.float().reshape(K, -1), bits=bits)
+            return quantize_weight(w.float().reshape(K, -1), bits=bits,
+                                   shard=shard)
 
         before = tree_nbytes(P)
         for i in range(m.num_layers):
@@ -597,7 +741,7 @@ class InferenceEngineV2:
             a = layer["attn"]
             for k in ("wq", "wk", "wv"):
                 a[k] = q2d(a[k], E)                       # [E, (H|KV)*D]
-            a["wo"] = q2d(a["wo"], m.num_heads * m.head_dim)
+            a["wo"] = q2d(a["wo"], a["wo"].shape[0] * a["wo"].shape[1])
             if "ffn" in layer:
                 f = layer["ffn"]
                 for k in ("w_gate", "w_up"):
@@ -608,7 +752,8 @@ class InferenceEngineV2:
                 ex = layer["moe"]["moe_layer"]["experts"]
                 for k in ("w_gate", "w_up", "w_down"):
                     if k in ex:
-                        ex[k] = quantize_grouped(ex[k].float(), bits=bits)
+                        ex[k] = quantize_grouped(ex[k].float(), bits=bits,
+                                                 shard=shard)
         if not m.tie_embeddings:
             P["unembed"] = q2d(P["unembed"], E)
         else:
@@ -648,7 +793,7 @@ class InferenceEngineV2:
         tensors; ``token_ids``/``positions``/``slot_map`` int64."""
         m, cfg, P = self.mcfg, self.config, self.params
         S, T = token_ids.shape
-        KV, D, L = m.kv_heads, m.head_dim, m.num_layers
+        H, KV, D, L = self._H, self._KV, m.head_dim, m.num_layers
         staged = kv_stage is not None
         q_starts = positions[:, 0].to(torch.int32)
         if stage_starts is None:
@@ -667,18 +812,22 @@ class InferenceEngineV2:
             k_all[:, :, :, T:] = 0
             v_all[:, :, :, T:] = 0
 
-        x = P["embed"][token_ids]                                  # [S,T,E]
-        if m.position_embedding == "learned":
-            x = x + P["pos_embed"][positions]
-        if "ln_embed" in P:                                        # bloom
-            x = norm(x, P["ln_embed"], m)
+        rn = self._ring_gate(S, T, tree is not None)
+        x = self._embed(token_ids, positions)                      # [S,T,E]
+        if rn:
+            # token-sharded residual stream: norms and residual adds run on
+            # this rank's rows; the ring projections gather and scatter
+            x = self._own_rows(x, rn)
         for li in range(L):
             p = P[f"layer_{li}"]
             a = p["attn"]
             h = norm(x, p["ln_attn"], m)
-            q = proj_heads(h, a["wq"], m.num_heads)    # [S, T, H, D]
-            k = proj_heads(h, a["wk"], KV)
-            v = proj_heads(h, a["wv"], KV)
+            if rn:
+                q, k, v = self._ring_qkv(h, a, S, T)
+            else:
+                q = proj_heads(h, a["wq"], H)          # [S, T, H, D]
+                k = proj_heads(h, a["wk"], KV)
+                v = proj_heads(h, a["wv"], KV)
             if m.qkv_bias:
                 q, k, v = q + a["bq"], k + a["bk"], v + a["bv"]
             if m.position_embedding == "rope":
@@ -689,19 +838,27 @@ class InferenceEngineV2:
             v_st[:, :, stage_fill:stage_fill + T] = v.transpose(1, 2)
             o = self._attention(q, k_st, v_st, li, block_tables, seq_lens,
                                 q_starts, stage_starts, tree)
-            o = proj_out(o, a["wo"])
+            if rn:
+                o = self._ring_out(o, a["wo"], S, T)
+            else:
+                o = self._reduce(proj_out(o, a["wo"]))
             if m.attn_out_bias:
                 o = o + a["bo"]
             if m.parallel_block:
                 h_ffn = h if m.parallel_block_norms == 1 else \
                     norm(x, p["ln_ffn"], m)
-                x = x + o + self._ffn(h_ffn, p)
+                x = x + o + self._ffn(h_ffn, p, li, rn)
             else:
                 x = x + o
-                x = x + self._ffn(norm(x, p["ln_ffn"], m), p)
+                x = x + self._ffn(norm(x, p["ln_ffn"], m), p, li, rn)
         # norm is row-wise: taking each row's sampled token first is exact
         if sample_idx is None:
             last = x.reshape(S * T, -1)                            # [S*T, E]
+        elif rn:
+            c, r = S // rn, self._tp_rank
+            last = comm.all_gather(
+                x[torch.arange(c, device=x.device),
+                  sample_idx[r * c:(r + 1) * c]], "tensor", axis=0)
         else:
             last = x[torch.arange(S, device=x.device), sample_idx]  # [S, E]
         last = norm(last, P["ln_final"], m)
@@ -715,6 +872,10 @@ class InferenceEngineV2:
             logits = last @ P["unembed"]
         if m.unembed_bias:
             logits = logits + P["unembed_b"]
+        if self._vocab_cols:
+            # this rank's vocabulary columns: gathered in rank order, so
+            # every rank samples from the same logits
+            logits = comm.all_gather(logits, "tensor", axis=-1)
         if sample_idx is None:
             logits = logits.reshape(S, T, -1)
         if not staged:
@@ -726,31 +887,147 @@ class InferenceEngineV2:
             self._merge_stage(slot_map.reshape(-1), ks, vs)
         return logits
 
-    def _ffn(self, h, p):
-        """The FFN of a layer over ``h`` [S, T, E]: the dense FFN, or the
-        MoE layer. Generation drops no routed token: the capacity route
-        runs with ``drop_tokens=False`` (where the dense model's forward
-        drops past ``eval_capacity_factor``), the dropless route when
-        ``moe.dropless`` is set, the quantized route for ``QuantGrouped``
-        experts; then qwen2-moe's shared expert. The gating losses are left
-        out (``losses=False``): only training reads them."""
+    # ------------------------------------------------------------------
+    # tensor-parallel pieces of the forward
+    # ------------------------------------------------------------------
+    @property
+    def _vocab_cols(self) -> bool:
+        """Whether the logits projection holds this rank's vocabulary
+        columns (the vocabulary divides the tensor axis)."""
+        if self._tp == 1:
+            return False
+        if self.mcfg.tie_embeddings:
+            return self._tp_kind("embed") == "row"
+        return self._tp_kind("unembed") == "col"
+
+    def _embed(self, token_ids, positions):
+        """The token (and learned position) embedding ``[S, T, E]``. A
+        vocabulary-sharded table is looked up where a token is this rank's
+        (zeros elsewhere) and summed over the tensor ranks."""
+        m, P = self.mcfg, self.params
+        emb = P["embed"]
+        if self._tp > 1 and self._tp_kind("embed") == "row":
+            Vl = emb.shape[0]
+            loc = token_ids - self._tp_rank * Vl
+            hit = (loc >= 0) & (loc < Vl)
+            x = self._reduce(torch.where(hit[..., None],
+                                         emb[loc.clamp(0, Vl - 1)], 0))
+        else:
+            x = emb[token_ids]
+        if m.position_embedding == "learned":
+            x = x + P["pos_embed"][positions]
+        if "ln_embed" in P:                                        # bloom
+            x = norm(x, P["ln_embed"], m)
+        return x
+
+    def _ring_gate(self, S: int, T: int, tree: bool) -> int:
+        """The ring degree of one program (the JAX engine's per-program
+        gate), 0 when it takes the blocking path: a verify forward, rows
+        that do not divide the axis, or — in the auto mode — fewer than
+        ``tp_overlap_min_rows`` token rows a chunk. A ring engine's
+        blocking program counts a fallback."""
+        rn = self._tp_ring_n
+        if rn and (tree or S % rn or not (
+                self._tp_ring_force
+                or (S * T) // rn >= self.config.tp_overlap_min_rows)):
+            overlap_counters.fallback()
+            rn = 0
+        return rn
+
+    def _own_rows(self, x: torch.Tensor, rn: int) -> torch.Tensor:
+        """This rank's chunk of the leading (sequence) dim."""
+        c = x.shape[0] // rn
+        return x[self._tp_rank * c:(self._tp_rank + 1) * c]
+
+    def _ring_qkv(self, h, a, S: int, T: int):
+        """Q, K and V of every row from this rank's rows ``h`` through ONE
+        bidirectional all-gather ring feeding the three projections."""
+        def w2(w):
+            return w if isinstance(w, QuantLinear) else \
+                w.reshape(w.shape[0], -1)
+
+        q2, k2, v2 = allgather_matmul(h.reshape(-1, h.shape[-1]),
+                                      (w2(a["wq"]), w2(a["wk"]),
+                                       w2(a["wv"])))
+        return (q2.reshape(S, T, self._H, -1), k2.reshape(S, T, self._KV, -1),
+                v2.reshape(S, T, self._KV, -1))
+
+    def _ring_out(self, o, wo, S: int, T: int):
+        """The out-projection of every row's heads as a reduce-scatter ring
+        into this rank's rows ``[S/n, T, E]``."""
+        w = wo if isinstance(wo, QuantLinear) else wo.reshape(-1, wo.shape[-1])
+        y = matmul_reduce_scatter(o.reshape(S * T, -1), w)
+        return y.reshape(S // self._tp_ring_n, T, -1)
+
+    def _ring_ffn(self, h, f):
+        """The dense FFN of this rank's rows: gate and up share one
+        all-gather ring, down is a reduce-scatter ring back into the
+        token-sharded stream."""
         m = self.mcfg
+        h2 = h.reshape(-1, h.shape[-1])
+        if m.activation == "silu_glu":
+            g2, u2 = allgather_matmul(h2, (f["w_gate"], f["w_up"]))
+            z = F.silu(g2) * u2
+        else:
+            z = _ACTS[m.activation](allgather_matmul(h2, f["w_up"])
+                                    + f["b_up"])
+        out = matmul_reduce_scatter(z, f["w_down"]).reshape(h.shape)
+        return out if m.activation == "silu_glu" else out + f["b_down"]
+
+    def _ffn(self, h, p, li: int, rn: int = 0):
+        """The FFN of layer ``li`` over ``h`` [S, T, E] (this rank's rows
+        when ``rn``): the dense FFN, or the MoE layer. Generation drops no
+        routed token: the capacity route runs with ``drop_tokens=False``
+        (where the dense model's forward drops past
+        ``eval_capacity_factor``), the dropless route when ``moe.dropless``
+        is set, the quantized route for ``QuantGrouped`` experts; then
+        qwen2-moe's shared expert. The gating losses are left out
+        (``losses=False``): only training reads them.
+
+        Under tensor parallelism row-sharded down products are summed over
+        the ranks; in a ring program the dense FFN rings, and an MoE layer
+        gathers the rows (routing needs every token, a counted fallback),
+        runs as in a blocking program and keeps its rows."""
+        m, layer = self.mcfg, f"layer_{li}"
         if "moe" not in p:
-            return dense_ffn(h, p["ffn"], m)
+            f = p["ffn"]
+            if rn and self._tp_kind(layer, "ffn", "w_up") == "col":
+                return self._ring_ffn(h, f)
+            if rn:
+                overlap_counters.fallback()
+            return dense_ffn(h, f, m, self._row_reduce(layer, "ffn"))
         ml = p["moe"]["moe_layer"]
+        if rn:
+            overlap_counters.fallback()
+            h = comm.all_gather(h, "tensor", axis=0)
+        red = self._row_reduce(layer, "moe", "moe_layer", "experts")
         if isinstance(ml["experts"]["w_up"], QuantGrouped):
-            out = self._quant_moe(ml, h)
+            out = self._quant_moe(ml, h, red)
         else:
             # the gating losses serve training only: left out
             out, _ = moe_forward(h, ml, losses=False,
                                  **moe_layer_kwargs(m, drop_tokens=False))
-        return add_shared_expert(out, h, p["moe"], m)
+            if red is not None:
+                out = red(out)
+        out = add_shared_expert(
+            out, h, p["moe"], m,
+            self._row_reduce(layer, "moe", "shared_expert"))
+        return self._own_rows(out, rn) if rn else out
 
-    def _quant_moe(self, ml, h):
+    def _row_reduce(self, *path: str):
+        """:meth:`_reduce` when the ``w_down`` under ``path`` is
+        row-sharded, else None."""
+        return self._reduce if self._tp_kind(*path, "w_down") == "row" \
+            else None
+
+    def _quant_moe(self, ml, h, reduce=None):
         """Routed experts over ``QuantGrouped`` slabs: dropless routing and
         the quantized grouped product (K3) in tiles of
         ``_MOE_GEMM_BLOCK_M`` rows — the same routes every token takes
-        through the no-drop capacity route, with the same gates."""
+        through the no-drop capacity route, with the same gates. ``reduce``
+        (row-sharded expert ``w_down``) sums the down product over the
+        tensor ranks, or in a ring engine runs it as the grouped ring
+        (:meth:`_qgmm_row`)."""
         m = self.mcfg
         mo = m.moe
         S, T, E = h.shape
@@ -759,9 +1036,12 @@ class InferenceEngineV2:
             router_logits(flat, ml["gate"]["wg"])[None], mo.top_k,
             normalize_gates=mo.normalize_gates, losses=False)
         bm = self._MOE_GEMM_BLOCK_M
+        down = ml["experts"]["w_down"]
 
         def gemm(buf, srt):
             def mm(z, w):
+                if w is down and reduce is not None:
+                    return self._qgmm_row(z, w, srt)
                 return quant_grouped_matmul(z, w, srt.tile_expert,
                                             block_m=bm,
                                             tile_rows=srt.tile_rows)
@@ -771,6 +1051,36 @@ class InferenceEngineV2:
         out = dropless_dispatch_combine(flat, gate.gates[0], gate.experts[0],
                                         mo.num_experts, mo.top_k, bm, gemm)
         return out.reshape(S, T, E)
+
+    def _qgmm_row(self, z, w, srt):
+        """A row-sharded quantized expert product summed over the tensor
+        ranks (the JAX engine's ``_qgmm`` row kind): with the ring on and
+        the sorted rows in whole tiles per rank, the grouped ring — each
+        step one rank's chunk of whole token tiles with its slice of the
+        tile→expert map (one direction: a half chunk need not hold whole
+        tiles) — then an all-gather; otherwise the product and a sum."""
+        bm, n = self._MOE_GEMM_BLOCK_M, self._tp
+        te, tr = srt.tile_expert, srt.tile_rows
+        Tp = z.shape[0]
+        ring = bool(self._tp_ring_n) and Tp % (n * bm) == 0
+        if self._tp_ring_n and not ring:
+            overlap_counters.fallback()
+        if not ring:
+            return self._reduce(quant_grouped_matmul(
+                z, w, te, block_m=bm, tile_rows=tr))
+
+        def dot(rows, start):
+            # the kernel takes 16-byte-aligned tables: slices are copied
+            t0, nt = start // bm, rows.shape[0] // bm
+            return quant_grouped_matmul(
+                rows, w, te[t0:t0 + nt].clone(), block_m=bm,
+                tile_rows=None if tr is None else tr[t0:t0 + nt].clone())
+
+        overlap_counters.ring(steps=n - 1,
+                              bytes_permuted=(n - 1) * Tp * w.shape[2] * 4)
+        y_c = _ring_rs_core(z, dot, n, "tensor", z.dtype, bidir=False,
+                            kernel="k3")
+        return comm.all_gather(y_c, "tensor", axis=0)
 
     def _attention(self, q, k_st, v_st, li, block_tables, seq_lens,
                    q_starts, stage_starts, tree=None):
@@ -928,7 +1238,7 @@ class InferenceEngineV2:
         the window's participants only."""
         cfg, m = self.config, self.mcfg
         bs, dev = cfg.block_size, self.device
-        L, KV, D = m.num_layers, m.kv_heads, m.head_dim
+        L, KV, D = m.num_layers, self._KV, m.head_dim
         S, mb = self.state.max_seqs, self.state.max_blocks_per_seq
         tok_host, use_last, pos, lens, rem, eos, tables = unpack(
             x, [(S,)] * 6 + [(S, mb)])
@@ -1116,7 +1426,7 @@ class InferenceEngineV2:
         tok, pos, tables, lens, mask = unpack(
             self._upload(pack([tok, pos, tables, lens, mask])),
             [(S, T), (S, T), tables.shape, (S,), (S, T, T)])
-        k_all = torch.zeros((m.num_layers, S, m.kv_heads, self._stage_rows(T),
+        k_all = torch.zeros((m.num_layers, S, self._KV, self._stage_rows(T),
                              m.head_dim), dtype=cfg.dtype, device=dev)
         v_all = torch.zeros_like(k_all)
         logits = self._ragged_forward(
@@ -1193,7 +1503,7 @@ class InferenceEngineV2:
         S = self.state.max_seqs
         mb = self.state.max_blocks_per_seq
         bs = cfg.block_size
-        L, KV, D = self.mcfg.num_layers, self.mcfg.kv_heads, self.mcfg.head_dim
+        L, KV, D = self.mcfg.num_layers, self._KV, self.mcfg.head_dim
         tok = np.zeros((S, T), np.int32)
         pos = np.zeros((S, T), np.int32)
         tables = np.zeros((S, mb), np.int32)
@@ -1365,8 +1675,13 @@ class InferenceEngineV2:
     def _entry_ready(self, entry: dict) -> bool:
         """Whether a dispatch's outputs are on the host: its event, recorded
         behind the device-to-host copy, covers the compute and the copy
-        together. CPU dispatches are ready as they return."""
-        return entry["event"] is None or entry["event"].query()
+        together. CPU dispatches are ready as they return. Under tensor
+        parallelism a card dispatch is never polled ready: a poll may
+        answer differently on two ranks, whose host state must not part, so
+        dispatches commit when the pipeline is full or drained."""
+        if entry["event"] is None:
+            return True
+        return self._tp == 1 and entry["event"].query()
 
     def _drain(self, force: bool = False, drain_all: bool = False) -> dict:
         """Commit in-flight dispatches, oldest first. Without ``force`` or
@@ -1700,6 +2015,17 @@ class InferenceEngineV2:
         self._rt.forget(uid)
         return self._results.pop(uid, [])
 
+    def _refresh_tp_stats(self) -> None:
+        """Add the ring counters' growth since the last refresh
+        (``parallel/tensor.overlap_counters``, process-wide) to ``stats``;
+        a snapshot below the base (someone reset the counters) counts from
+        zero. Two ring engines in one process share the counters."""
+        snap = overlap_counters.snapshot()
+        for k, v in snap.items():
+            base = self._tp_counter_base.get(k, 0)
+            self.stats[k] += v - (base if v >= base else 0)
+        self._tp_counter_base = snap
+
     def step(self) -> dict[int, list[int]]:
         """Commit the earlier dispatches whose tokens have arrived, then
         dispatch the next scheduled step WITHOUT waiting for it (the JAX
@@ -1712,6 +2038,8 @@ class InferenceEngineV2:
         flight either."""
         emitted = self._drain()
         dispatched = self._dispatch_next()
+        if self._tp_ring_n:
+            self._refresh_tp_stats()
         if dispatched and self.config.max_inflight <= 0:
             for uid, new in self._drain(drain_all=True).items():
                 emitted.setdefault(uid, []).extend(new)
@@ -1896,6 +2224,7 @@ class InferenceEngineV2:
         next ``step()``), pin it (``StateManager.migrate_out``) and read its
         page extents to the host. The sequence stays frozen until
         ``export_commit`` or ``export_abort``."""
+        self._no_tp("export_migration")
         from .migration import PageBundle
         from .prefix_cache import chain_hashes
 
@@ -1941,12 +2270,14 @@ class InferenceEngineV2:
         """The importer acked: unpin, mark done and flush — release
         publishes the computed pages into the LOCAL trie. Returns the
         tokens generated here (the committed stream prefix)."""
+        self._no_tp("export_commit")
         self.state.export_ack(uid)
         return self.flush(uid)
 
     def export_abort(self, uid: int) -> None:
         """Transfer failed or was refused: unpin; the sequence resumes
         locally exactly where it stopped."""
+        self._no_tp("export_abort")
         self.state.export_abort(uid)
 
     def import_reserve(self, uid: int, meta: dict) -> None:
@@ -1954,6 +2285,7 @@ class InferenceEngineV2:
         bundle (its wire header) BEFORE its first payload byte; the sequence
         stays frozen until ``import_complete``. Raises MigrationError on a
         geometry or dtype mismatch."""
+        self._no_tp("import_reserve")
         from .migration import MigrationError, PageBundle
 
         shell = PageBundle.from_meta(meta)
@@ -1986,6 +2318,7 @@ class InferenceEngineV2:
         sequence unfreezes decode-ready. Its first plan decodes the last
         token from the host (``use_last`` stays off: nothing of it is in
         flight), so a greedy stream continues bit for bit."""
+        self._no_tp("import_complete")
         from .migration import MigrationError, version_skew
 
         bundle.validate()
@@ -2014,6 +2347,7 @@ class InferenceEngineV2:
 
     def import_abort(self, uid: int) -> None:
         """Transfer died before commit: free the reservation."""
+        self._no_tp("import_abort")
         self.state.abort_import(uid)
         self._results.pop(uid, None)
         self._rt.drop(uid)
@@ -2025,6 +2359,7 @@ class InferenceEngineV2:
     def export_prefix(self, tokens, trace_id: str = ""):
         """Bundle the longest cached chain prefixing ``tokens``, or raise
         MigrationError if nothing is cached."""
+        self._no_tp("export_prefix")
         from .migration import MigrationError, PageBundle
 
         if self._prefix_cache is None or self._ring_tokens:
@@ -2056,6 +2391,7 @@ class InferenceEngineV2:
         pool too full for the chain, or a chain a pre-swap sequence still
         pins a stale page of. ``source`` labels the byte counter:
         "pull" (a radix pull) or "tier" (a KV-tier promote)."""
+        self._no_tp("import_prefix")
         from .migration import MigrationError, version_skew
 
         bundle.validate()
@@ -2100,6 +2436,7 @@ class InferenceEngineV2:
         own segment. The final member passes the full prompt. Returns pages
         adopted from upstream; raises MigrationError without admitting on
         skew or a geometry mismatch."""
+        self._no_tp("gang_prefill_segment")
         pages = 0
         if prefix_bundle is not None:
             pages = self.import_prefix(prefix_bundle, source="pull")
@@ -2152,6 +2489,7 @@ class InferenceEngineV2:
         """Promote-ahead, phase one: plan the admission-path tier extract
         without touching tier state. Returns an opaque handle, or None when
         the tier holds nothing deeper than the HBM trie."""
+        self._no_tp("tier_promote_begin")
         from .prefix_cache import chain_hashes
 
         tier = self._kv_tier
@@ -2176,6 +2514,7 @@ class InferenceEngineV2:
         chain. Returns pages promoted; 0 (recompute covers the prompt) on a
         miss, corruption, version skew or a capacity refusal, the last
         three counted in ``kv_tier_fallbacks``."""
+        self._no_tp("tier_promote_finish")
         from .migration import MigrationError
 
         tier = self._kv_tier
@@ -2239,6 +2578,7 @@ class InferenceEngineV2:
         ``manifest.json`` (size + crc32 of every file), then the atomic
         ``latest``. The port's own format: the JAX engine's tag is orbax,
         and neither package reads the other's. Returns the tag path."""
+        self._no_tp("save_weights")
         from ..checkpoint.manifest import (manifest_digest,
                                            write_file_atomic,
                                            write_manifest)
@@ -2296,6 +2636,7 @@ class InferenceEngineV2:
         refusal leaves the old weights serving untouched. The live tensors
         may be a model's own parameters (``module_param_tree`` serves them
         without a copy): they take the new weights too."""
+        self._no_tp("swap_weights")
         from ..checkpoint.manifest import (manifest_digest, resolve_tag,
                                            tag_status)
 

@@ -51,6 +51,12 @@ class SplitFuseScheduler:
         #: work, the plan carries exactly those rows and each row's chunk
         #: grows along the chunk chain to keep rows x T near-constant
         self.pack = pack
+        #: packed prefill plans' rows are padded up to a multiple of this
+        #: (the engine sets the ring degree under ``tp_overlap``, so every
+        #: prefill plan's rows divide the tensor axis); padded rows are
+        #: empty, like a full plan's idle rows. 1 = exactly the rows with
+        #: work
+        self.row_multiple = 1
 
     def _desc(self, kind: str, T: int, entries,
               use_last_slots=(), n_rows: int | None = None) -> StepPlan:
@@ -176,9 +182,18 @@ class SplitFuseScheduler:
         if not self.pack:
             return sorted(shapes)
         for k in range(1, S_max):
-            for T in self._chunk_chain(k):
-                shapes.add((T, k))
+            n_rows = self._pad_rows(k)
+            for T in self._chunk_chain(n_rows):
+                shapes.add((T, n_rows))
         return sorted(shapes)
+
+    def _pad_rows(self, k: int) -> int:
+        """A packed plan's rows for ``k`` pending sequences: ``k`` rounded
+        up to ``row_multiple``, at most the table's width."""
+        m = self.row_multiple
+        if m <= 1:
+            return k
+        return min(-(-k // m) * m, self.state.max_seqs)
 
     def _chunk_chain(self, n_rows: int) -> list[int]:
         """The T values a packed ``n_rows``-row prefill plan may carry: the
@@ -260,7 +275,7 @@ class SplitFuseScheduler:
             n_rows = st.max_seqs
             T = self.chunk
             if self.pack and k < st.max_seqs:
-                n_rows = k
+                n_rows = self._pad_rows(k)
                 chain = self._chunk_chain(n_rows)
                 if len(chain) > 1:
                     # don't pad a row wider than the largest pending prompt

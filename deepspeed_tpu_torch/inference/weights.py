@@ -30,6 +30,10 @@ one in place, after checking that structure, shapes and dtypes match (the
 engine's weight swap: captured CUDA graphs keep reading the same
 addresses).
 
+:func:`load_tp_params` (the JAX package's ``load_tp_params``) gives a
+tensor-parallel rank its slices of a whole tree, by the tensor specs of
+``runtime/zero/planner.tensor_plan``.
+
 Layers stay per-layer (``layer_{i}``). The JAX engine stacks them to
 ``lax.scan`` over depth, which bounds its compile time; eager PyTorch loops
 over layers at no such cost, and stacking would copy every weight.
@@ -139,6 +143,60 @@ def module_param_tree(module: torch.nn.Module, *, dtype=None,
         t = p.detach()
         node[leaf] = _cast(t, dtype or t.dtype, device or t.device)
     return out
+
+
+def load_tp_params(model, params: Tree | None, topology, *, dtype,
+                   device) -> tuple[Tree, dict]:
+    """This tensor rank's parameter tree and the tree's tensor plan
+    (``{path: (spec, kind)}``, ``planner.tensor_plan`` at the topology's
+    axis sizes).
+
+    ``params`` (a whole tree, e.g. ``params_from_jax`` on the host) is
+    sliced leaf by leaf onto ``device``. Without it the weights are
+    ``model``'s: a model on the meta device is drawn again a module at a
+    time from its seed (``models.transformer.init_modules``), each module
+    sliced and dropped before the next is drawn, so a rank never holds more
+    than one whole block — and gets the slices of the very weights the
+    model built with that seed holds; a materialized model is sliced as it
+    is. Floating leaves are cast to ``dtype``; every slice is a copy of its
+    own."""
+    from ..models.transformer import init_modules
+    from ..runtime.zero.planner import tensor_plan, tensor_shard
+
+    sizes = dict(topology.axis_sizes)
+    n, rank = topology.size("tensor"), topology.rank_in("tensor")
+
+    def shard(tree: Tree, prefix: tuple) -> tuple[Tree, dict]:
+        plan = tensor_plan(tree, sizes, prefix)
+        out: Tree = {}
+        for path, (spec, _) in plan.items():
+            node, src = out, tree
+            for k in path[len(prefix):-1]:
+                node = node.setdefault(k, {})
+                src = src[k]
+            whole = src[path[-1]].detach()
+            t = _cast(tensor_shard(whole, spec, rank, n), dtype, device)
+            same = (t.untyped_storage().data_ptr()
+                    == whole.untyped_storage().data_ptr())
+            node[path[-1]] = (t.clone(memory_format=torch.contiguous_format)
+                              if same else t.contiguous())
+        return out, plan
+
+    if params is not None:
+        return shard(params, ())
+    if next(model.parameters()).device.type != "meta":
+        return shard(module_param_tree(model), ())
+    out: Tree = {}
+    plan: dict = {}
+    for name, part in init_modules(model.config, torch.device(device),
+                                   model.seed, model.param_dtype):
+        whole = ({name: part.detach()} if isinstance(part, torch.Tensor)
+                 else {name: module_param_tree(part)})
+        got, p = shard(whole, ())
+        out.update(got)
+        plan.update(p)
+        del whole, part
+    return out, plan
 
 
 def tree_nbytes(tree: Tree) -> int:

@@ -295,11 +295,14 @@ _ACTS = {
 }
 
 
-def dense_ffn(x: torch.Tensor, p, cfg: ModelConfig) -> torch.Tensor:
+def dense_ffn(x: torch.Tensor, p, cfg: ModelConfig, reduce=None
+              ) -> torch.Tensor:
     """SwiGLU or two-matrix FFN over ``p`` (``w_gate``/``w_up``/``w_down``,
     plus ``b_up``/``b_down`` for the two-matrix form). ``QuantLinear``
     weights run the quantized-weight kernel, as the JAX engine's quantized
-    FFN branch does."""
+    FFN branch does. ``reduce`` (a tensor-parallel engine's sum over the
+    tensor ranks) takes the down product of row-sharded weights before
+    ``b_down`` is added."""
     dt = x.dtype
 
     def mm(h, w):
@@ -307,20 +310,22 @@ def dense_ffn(x: torch.Tensor, p, cfg: ModelConfig) -> torch.Tensor:
 
     if cfg.activation == "silu_glu":
         h = F.silu(mm(x, p["w_gate"])) * mm(x, p["w_up"])
-        return mm(h, p["w_down"])
+        y = mm(h, p["w_down"])
+        return y if reduce is None else reduce(y)
     h = _ACTS[cfg.activation](mm(x, p["w_up"]) + p["b_up"].to(dt))
-    return mm(h, p["w_down"]) + p["b_down"].to(dt)
+    y = mm(h, p["w_down"])
+    return (y if reduce is None else reduce(y)) + p["b_down"].to(dt)
 
 
 def add_shared_expert(out: torch.Tensor, x: torch.Tensor, p,
-                      cfg: ModelConfig) -> torch.Tensor:
+                      cfg: ModelConfig, reduce=None) -> torch.Tensor:
     """``out`` plus qwen2-moe's shared expert over ``p`` (an MoE layer's
     ``shared_expert`` FFN and ``shared_gate`` [E, 1]) when the config has
     one: ``out + sigmoid(x @ shared_gate) * shared_expert(x)``, the gate in
-    fp32 and cast to out's dtype."""
+    fp32 and cast to out's dtype. ``reduce``: as :func:`dense_ffn`'s."""
     if not cfg.moe.shared_expert_intermediate:
         return out
-    shared = dense_ffn(x, p["shared_expert"], cfg)
+    shared = dense_ffn(x, p["shared_expert"], cfg, reduce)
     g = torch.sigmoid(x.float() @ p["shared_gate"].float())
     return out + g.to(out.dtype) * shared
 
@@ -512,6 +517,28 @@ class Block(nn.Module):
         return x + out, loss
 
 
+def init_modules(cfg: ModelConfig, device: torch.device, seed: int = 0,
+                 param_dtype=None):
+    """``(name, parameter or module)`` of a ``TransformerLM`` in the order
+    its init draws them from one generator seeded with ``seed``: a caller
+    that keeps only slices of each (``inference/weights.load_tp_params``)
+    holds one block at a time and gets the values the whole model has."""
+    pf = _ParamFactory(device, param_dtype or cfg.dtype, seed)
+    E, V = cfg.hidden_size, cfg.vocab_size
+    yield "embed", pf.normal((V, E), 0.02)
+    if cfg.position_embedding == "learned":
+        yield "pos_embed", pf.normal((cfg.max_seq_len, E), 0.02)
+    if cfg.embed_norm:
+        yield "ln_embed", Norm(cfg, pf)
+    for i in range(cfg.num_layers):
+        yield f"layer_{i}", Block(cfg, pf, use_moe=is_moe_layer(cfg, i))
+    yield "ln_final", Norm(cfg, pf)
+    if not cfg.tie_embeddings:
+        yield "unembed", pf.normal((E, V), 0.02)
+    if cfg.unembed_bias:
+        yield "unembed_b", pf.zeros((V,))
+
+
 class TransformerLM(nn.Module):
     """The flagship causal LM. Parameters are created on ``device`` (the
     CUDA device by default; ``device="cpu"`` for the host) in
@@ -528,23 +555,14 @@ class TransformerLM(nn.Module):
         from ..accelerator import get_device
 
         check_served_family(config)
-        self.config = cfg = config
+        self.config = config
+        #: the init's seed and dtype: a tensor-parallel engine given this
+        #: model on the meta device draws the same weights a module at a
+        #: time (``init_modules``) and keeps its rank's slices
+        self.seed, self.param_dtype = seed, param_dtype
         dev = torch.device("meta") if device == "meta" else get_device(device)
-        pf = _ParamFactory(dev, param_dtype or cfg.dtype, seed)
-        E, V = cfg.hidden_size, cfg.vocab_size
-        self.embed = pf.normal((V, E), 0.02)
-        if cfg.position_embedding == "learned":
-            self.pos_embed = pf.normal((cfg.max_seq_len, E), 0.02)
-        if cfg.embed_norm:
-            self.ln_embed = Norm(cfg, pf)
-        for i in range(cfg.num_layers):
-            self.add_module(f"layer_{i}",
-                            Block(cfg, pf, use_moe=is_moe_layer(cfg, i)))
-        self.ln_final = Norm(cfg, pf)
-        if not cfg.tie_embeddings:
-            self.unembed = pf.normal((E, V), 0.02)
-        if cfg.unembed_bias:
-            self.unembed_b = pf.zeros((V,))
+        for name, part in init_modules(config, dev, seed, param_dtype):
+            setattr(self, name, part)
         self.eval()
 
     def forward(self, input_ids: torch.Tensor,

@@ -126,19 +126,29 @@ def _resolve_group(K: int, bits, group_size: int | None) -> int:
     return group_size
 
 
-def _quantize_slabs(w3: torch.Tensor, bits, G: int):
+def _quantize_slabs(w3: torch.Tensor, bits, G: int, shard: bool = False):
     """Symmetric per-(slab, K-group, column) quantization of ``[n, K, Np]``
-    slabs → (codes, scale ``[n, K/G, Np]`` fp32)."""
+    slabs → (codes, scale ``[n, K/G, Np]`` fp32). ``shard``: the scale as
+    the JAX engine's per-shard quantization computes it, inside a jitted
+    ``shard_map``, where XLA turns the division by the constant qmax into
+    a product with its fp32 reciprocal (one ulp apart from the division
+    for some values)."""
     n, K, Np = w3.shape
     w32 = w3.float().reshape(n, K // G, G, Np)
     amax = w32.abs().amax(dim=2, keepdim=True)
     one = torch.ones_like(amax)
+
+    def over(qmax: float):
+        if shard:
+            return amax * torch.tensor(1.0 / qmax, dtype=torch.float32)
+        return amax / qmax
+
     if bits == "fp8":
-        scale = torch.where(amax > 0, amax / E4M3_MAX, one)
+        scale = torch.where(amax > 0, over(E4M3_MAX), one)
         q = to_e4m3((w32 / scale).reshape(n, K, Np))
         return q, scale[:, :, 0, :]
     qmax = float(2 ** (bits - 1) - 1)
-    scale = torch.where(amax > 0, amax / qmax, one)
+    scale = torch.where(amax > 0, over(qmax), one)
     q = torch.clamp(torch.round(w32 / scale), -qmax - 1, qmax)
     q = q.reshape(n, K, Np).to(torch.int8)
     if bits == 4:
@@ -164,10 +174,14 @@ def _dequantize_slabs(codes: torch.Tensor, scale: torch.Tensor, bits,
 
 
 def quantize_weight(w: torch.Tensor, bits: int | str = 8,
-                    group_size: int | None = None) -> QuantLinear:
+                    group_size: int | None = None, *,
+                    shard: bool = False) -> QuantLinear:
     """Symmetric per-(K-group, column) quantization of a ``[K, N]`` weight
     (8, 4 or "fp8"), N padded to a multiple of 128; codes and scales are
-    bit-identical to the JAX package's ``quantize_weight``."""
+    bit-identical to the JAX package's ``quantize_weight``. ``shard=True``
+    quantizes one tensor-parallel shard (the groups resolved on its own K,
+    its own padding) bit for bit as the JAX engine's jitted
+    ``shard_map(quantize_weight)`` does (see :func:`_quantize_slabs`)."""
     if bits not in (4, 8, "fp8"):
         raise ValueError(f"bits must be 4, 8 or 'fp8', got {bits!r}")
     K, N = w.shape
@@ -175,7 +189,7 @@ def quantize_weight(w: torch.Tensor, bits: int | str = 8,
     if n_pad:
         w = torch.nn.functional.pad(w, (0, n_pad))
     G = _resolve_group(K, bits, group_size)
-    q, scale = _quantize_slabs(w[None], bits, G)
+    q, scale = _quantize_slabs(w[None], bits, G, shard)
     return QuantLinear(q[0], scale[0], bits, G, (K, N), w.dtype)
 
 
@@ -595,11 +609,12 @@ grouped_counts = QuantCounts()
 
 
 def quantize_grouped(w: torch.Tensor, bits: int | str = 8,
-                     group_size: int | None = None) -> QuantGrouped:
+                     group_size: int | None = None, *,
+                     shard: bool = False) -> QuantGrouped:
     """Symmetric per-(expert, K-group, column) quantization of stacked
     expert weights ``[n, K, N]`` — :func:`quantize_weight`'s grid applied
     per expert; codes and scales bit-identical to the JAX package's
-    ``quantize_grouped``."""
+    ``quantize_grouped`` (``shard``: as :func:`quantize_weight`'s)."""
     if bits not in (4, 8, "fp8"):
         raise ValueError(f"bits must be 4, 8 or 'fp8', got {bits!r}")
     n, K, N = w.shape
@@ -607,7 +622,7 @@ def quantize_grouped(w: torch.Tensor, bits: int | str = 8,
     if n_pad:
         w = torch.nn.functional.pad(w, (0, n_pad))
     G = _resolve_group(K, bits, group_size)
-    q, scale = _quantize_slabs(w, bits, G)
+    q, scale = _quantize_slabs(w, bits, G, shard)
     return QuantGrouped(q, scale, bits, G, (n, K, N), w.dtype)
 
 

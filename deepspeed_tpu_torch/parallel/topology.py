@@ -11,9 +11,11 @@ the data-parallel set ``("data", "expert", "fsdp")``, has its own
 coordinate (NCCL on the card, gloo on the CPU).
 
 ``data`` and ``fsdp`` may exceed 1: ZeRO partitions over their product.
-``tensor``, ``seq``, ``pipe`` and ``expert`` larger than 1 raise
-NotImplementedError: tensor, sequence, pipeline and expert parallelism are
-ROADMAP queue 1, item 6.
+``tensor`` may exceed 1 for serving (``inference/engine_v2.py`` shards its
+forward over the tensor group, one rank per process; the training engine
+refuses it). ``seq``, ``pipe`` and ``expert`` larger than 1 raise
+NotImplementedError: sequence, pipeline and expert parallelism are ROADMAP
+queue 1, item 6 (6b and 6c).
 
 ``parallel/axes.py`` (flax logical axis constraints) has no counterpart:
 the port places no tensor by logical axis names.
@@ -28,7 +30,7 @@ AXIS_ORDER = ("pipe", "data", "expert", "fsdp", "seq", "tensor")
 #: the data-parallel axes: the ZeRO partition count is their product
 DP_AXES = ("data", "expert", "fsdp")
 #: axes whose parallelism comes with a later slice
-LATER_AXES = ("pipe", "expert", "seq", "tensor")
+LATER_AXES = ("pipe", "expert", "seq")
 
 
 @dataclass
@@ -107,9 +109,10 @@ class MeshTopology:
                    if self.axis_sizes[a] > 1}
         if big:
             raise NotImplementedError(
-                f"mesh axes {big}: tensor, sequence, pipeline and expert "
+                f"mesh axes {big}: sequence, pipeline and expert "
                 f"parallelism are ported with ROADMAP queue 1, item 6 "
-                f"(parallelism); data and fsdp may exceed 1")
+                f"(6b: seq; 6c: pipe and expert); data, fsdp and tensor "
+                f"may exceed 1")
         used = math.prod(self.axis_sizes.values())
         if used != self.world_size:
             raise ValueError(f"mesh {self.axis_sizes} uses {used} devices "

@@ -80,7 +80,8 @@ NCCL on the card. Every feature that a later part of the port brings
 raises NotImplementedError when it is configured (:func:`check_ported`),
 naming its ROADMAP queue 1 item: the flops profiler, data efficiency and
 the hybrid engine (item 7), the 1-bit optimizers and tensor, sequence,
-pipeline and expert parallelism (item 6), ZeRO++ and MiCS (after item 6).
+pipeline and expert parallelism in training (item 6: 6b, 6c, 6d), ZeRO++
+and MiCS (after item 6).
 Model compression runs outside the config (a compression manager the JAX
 engine reads when set) and is not ported either.
 """
@@ -177,6 +178,16 @@ def check_ported(config: Config) -> None:
         raise _later("the hybrid engine", "item 7")
     if config.flops_profiler.enabled:
         raise _later("the flops profiler", "item 7 (profiling/)")
+    tp = config.mesh.tensor
+    if tp not in ("auto", -1, None) and int(tp) > 1:
+        raise _tensor_training(int(tp))
+
+
+def _tensor_training(tp: int) -> NotImplementedError:
+    return _later(f"mesh axes {{'tensor': {tp}}}: tensor parallelism in "
+                  f"training (the model's Megatron layers, tp_overlap_scope, "
+                  f"vocab-parallel cross entropy; the serving engine takes "
+                  f"tensor > 1)", "item 6b (training across tensor and seq)")
 
 
 class DeepSpeedEngine:
@@ -214,6 +225,8 @@ class DeepSpeedEngine:
                     f"group is {torch.distributed.get_backend()}")
         self.topology = topology if topology is not None \
             else MeshTopology(config.mesh)
+        if self.topology.size("tensor") > 1:
+            raise _tensor_training(self.topology.size("tensor"))
         comm.set_topology(self.topology)
         self.dp_world_size = self.topology.dp_world_size
         self.dp_rank = self.topology.dp_rank

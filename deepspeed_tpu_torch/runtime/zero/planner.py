@@ -23,6 +23,16 @@ of every segment, in segment order, back to back.
 
 The geometry is not the JAX planner's (largest divisible dimension): only
 the arithmetic and a checkpoint's logical content must agree, and they do.
+
+The tensor half (:func:`tensor_spec`, :func:`tp_kind`, :func:`tensor_plan`)
+is the JAX planner's logical-axis translation for the ``tensor`` axis: each
+parameter of a ``TransformerLM`` tree carries the logical names the JAX
+model zoo gives it (``nn.with_partitioning``), ``DEFAULT_LOGICAL_RULES``
+put vocab, heads, kv_heads, mlp and expert_mlp on ``tensor``, and a dim
+that does not divide the axis stays whole (the JAX planner's replicate
+fallback). The serving engine reads each weight's kind from it: ``col``
+(output columns sharded), ``row`` (contraction sharded, followed by a sum
+over the axis) or ``rep``.
 """
 from __future__ import annotations
 
@@ -162,3 +172,103 @@ def build_plan(stage: int, names: list[str], shapes: list[tuple[int, ...]],
                     shapes=[tuple(s) for s in shapes], units=units,
                     unit_keys=unit_keys, segments=segments, partition_numel=part,
                     threshold=persistence_threshold, where=where)
+
+
+# ---------------------------------------------------------------------------
+# the tensor half: TP specs of a TransformerLM tree
+# ---------------------------------------------------------------------------
+
+#: logical axis -> mesh axis (the JAX planner's ``DEFAULT_LOGICAL_RULES``)
+LOGICAL_RULES = {"vocab": "tensor", "heads": "tensor", "kv_heads": "tensor",
+                 "mlp": "tensor", "expert": "expert",
+                 "expert_mlp": "tensor", "pipe_layers": "pipe"}
+
+_ATTN_AXES = {"wq": ("embed", "heads", "head_dim"),
+              "wk": ("embed", "kv_heads", "head_dim"),
+              "wv": ("embed", "kv_heads", "head_dim"),
+              "wo": ("heads", "head_dim", "embed"),
+              "bq": ("heads", "head_dim"), "bk": ("kv_heads", "head_dim"),
+              "bv": ("kv_heads", "head_dim"), "bo": ("embed",)}
+_FFN_AXES = {"w_gate": ("embed", "mlp"), "w_up": ("embed", "mlp"),
+             "w_down": ("mlp", "embed"), "b_up": ("mlp",),
+             "b_down": ("embed",)}
+_EXPERT_AXES = {"w_gate": ("expert", "embed", "expert_mlp"),
+                "w_up": ("expert", "embed", "expert_mlp"),
+                "w_down": ("expert", "expert_mlp", "embed")}
+_ROOT_AXES = {"embed": ("vocab", "embed"), "pos_embed": (None, "embed"),
+              "type_embed": (None, "embed"), "unembed": ("embed", "vocab"),
+              "unembed_b": ("vocab",)}
+
+
+def logical_axes(path: tuple[str, ...]) -> tuple:
+    """The JAX model zoo's logical axis names of the parameter at ``path``
+    (its keys in a ``TransformerLM`` tree)."""
+    leaf = path[-1]
+    parent = path[-2] if len(path) > 1 else ""
+    if parent == "attn" and leaf in _ATTN_AXES:
+        return _ATTN_AXES[leaf]
+    if parent == "experts" and leaf in _EXPERT_AXES:
+        return _EXPERT_AXES[leaf]
+    if parent in ("ffn", "shared_expert") and leaf in _FFN_AXES:
+        return _FFN_AXES[leaf]
+    if parent == "gate" and leaf == "wg":
+        return ("embed", "expert")
+    if leaf == "shared_gate":
+        return ("embed", None)
+    if parent.startswith("ln_") and leaf in ("scale", "bias"):
+        return ("embed",)
+    if len(path) == 1 and leaf in _ROOT_AXES:
+        return _ROOT_AXES[leaf]
+    raise ValueError(f"no logical axes for parameter {'/'.join(path)}")
+
+
+def tensor_spec(path: tuple[str, ...], shape: tuple[int, ...],
+                axis_sizes: dict[str, int]) -> tuple:
+    """The mesh axes of each dim of the parameter at ``path`` (the JAX
+    planner's ``_translate_logical``): an axis of size 1, or one the dim
+    does not divide, leaves the dim whole (None)."""
+    out = []
+    for name, d in zip(logical_axes(path), shape):
+        axis = LOGICAL_RULES.get(name) if name else None
+        size = axis_sizes.get(axis, 1) if axis else 1
+        out.append(axis if size > 1 and d % size == 0 else None)
+    return tuple(out)
+
+
+def tp_kind(spec: tuple) -> str:
+    """The JAX engine's ``_tp_kind`` of a spec: ``row`` when the first dim
+    is on ``tensor``, ``col`` when a later one is, else ``rep``."""
+    if spec and spec[0] == "tensor":
+        return "row"
+    return "col" if "tensor" in spec[1:] else "rep"
+
+
+def weight_kind(path: tuple[str, ...], spec: tuple) -> str:
+    """The TP kind the serving engine gives a weight: routed-expert slabs
+    ``[n, K, N]`` by their ``[K, N]`` dims (the expert dim is never on
+    ``tensor`` in serving), every other parameter by :func:`tp_kind`."""
+    return tp_kind(spec[1:] if "experts" in path else spec)
+
+
+def tensor_plan(tree: dict, axis_sizes: dict[str, int],
+                prefix: tuple[str, ...] = ()) -> dict:
+    """``{path: (spec, kind)}`` for every tensor of ``tree``."""
+    out = {}
+    for k, v in tree.items():
+        path = prefix + (k,)
+        if isinstance(v, dict):
+            out.update(tensor_plan(v, axis_sizes, path))
+        else:
+            spec = tensor_spec(path, tuple(v.shape), axis_sizes)
+            out[path] = (spec, weight_kind(path, spec))
+    return out
+
+
+def tensor_shard(t, spec: tuple, rank: int, n: int):
+    """This rank's slice of the whole tensor ``t`` under ``spec`` (a view;
+    the tensor itself when no dim is on ``tensor``)."""
+    if "tensor" not in spec:
+        return t
+    d = spec.index("tensor")
+    c = t.shape[d] // n
+    return t.narrow(d, rank * c, c)

@@ -889,6 +889,14 @@ class EngineBackend:
             torch.set_num_threads(int(threads))
         overrides = dict(cfg.get("overrides") or {})
         ecfg = dict(cfg.get("engine") or {})
+        tp = int(cfg.get("tensor_parallel") or ecfg.get("tensor_parallel")
+                 or 1)
+        if tp != 1:
+            # a replica is one process; a tensor-parallel engine is one
+            # process per rank, each making the same calls
+            from ..inference.engine_v2 import tp_refusal
+            raise tp_refusal("a serving replica (one process per engine)",
+                             tp)
         if cfg.get("dtype"):
             dtype = getattr(torch, str(cfg["dtype"]), None)
             if not isinstance(dtype, torch.dtype):

@@ -119,10 +119,13 @@ def test_one_process_mesh():
     assert topo.dp_world_size == topo.size("tensor") == 1
     assert single_device_topology().dp_world_size == 1
     # data and fsdp may exceed 1 over that many processes: in a world of one
-    # the mesh does not resolve; a parallel axis still waits for its item
-    with pytest.raises(ValueError, match="device count 1"):
-        MeshTopology({"fsdp": 2})
-    with pytest.raises(NotImplementedError, match="item 6"):
-        MeshTopology({"tensor": 2})
+    # the mesh does not resolve (tensor serves over that many processes);
+    # a later parallel axis still waits for its item
+    for axis in ("fsdp", "tensor"):
+        with pytest.raises(ValueError, match="device count 1"):
+            MeshTopology({axis: 2})
+    for axis in ("seq", "pipe", "expert"):
+        with pytest.raises(NotImplementedError, match="item 6"):
+            MeshTopology({axis: 2})
     with pytest.raises(ValueError, match="unknown mesh axes"):
         MeshConfig.from_dict({"model": 2})

@@ -1817,3 +1817,118 @@ def _flatten(tree, prefix, out):
             _flatten(v, f"{prefix}{k}.", out)
         else:
             out[prefix + k] = v
+
+
+# --- tensor-parallel serving: the per-rank shapes and ranks on one card ----
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),
+                                       (torch.bfloat16, 1e-2)])
+@pytest.mark.parametrize("H,KV", [(16, 16), (8, 8), (8, 2)])
+@pytest.mark.parametrize("T,Ts", [(1, 8), (40, 48)])
+def test_kernel_at_tp_rank_heads_matches_plain_version(dev, dtype, tol, H,
+                                                       KV, T, Ts):
+    """K1 with one rank's heads: llama2-7b's 32 / 32 at TP 2, qwen2-moe's
+    16 / 16 at TP 2, mistral-7b's 32 / 8 at TP 4 (G 4 over 2 KV heads)."""
+    args = _case(dev, dtype, H=H, KV=KV, D=128, T=T, Ts=Ts,
+                 ctx=[0, 37, 100, -1])
+    before = pa.counts.kernel
+    got = pa.paged_ragged_attention(*args, block_size=16, layer_index=1)
+    torch.cuda.synchronize()
+    assert pa.counts.kernel == before + 1
+    ref = pa.paged_ragged_attention_reference(*args, block_size=16,
+                                              layer_index=1)
+    err = (got.float() - ref.float()).abs().max().item()
+    if dtype == torch.bfloat16:
+        err /= ref.float().abs().max().item()
+    assert err <= tol
+
+
+@pytest.mark.parametrize("bits", [8, 4, "fp8"])
+@pytest.mark.parametrize("M", [8, 256])
+@pytest.mark.parametrize("K,N", [(4096, 5504), (5504, 4096), (4096, 2752),
+                                 (2752, 4096), (4096, 8000)])
+def test_quant_matmul_at_per_shard_shapes(dev, bits, M, K, N):
+    """K2 on per-shard codes (quantized shard by shard: N padded on the
+    shard, int8's group resolved on the shard's K — 128 at 5504, 64 at
+    2752): bf16 on the wgmma route within K2_TOL of the plain version, fp32
+    within 1e-5, the same bits on a second launch."""
+    qw = qm.quantize_weight(_qweight(dev, K, N, seed=M + K), bits=bits,
+                            shard=True)
+    x = torch.randn(M, K, device=dev,
+                    generator=torch.Generator(device=dev).manual_seed(3))
+    for dtype, tol in ((torch.bfloat16, 1e-2), (torch.float32, 1e-5)):
+        if dtype == torch.float32 and M != 8:
+            continue
+        xd = x.to(dtype)
+        got = qm.quant_matmul(xd, qw)
+        ref = qm.quant_matmul_reference(xd, qw)
+        assert got.shape == ref.shape == (M, N)
+        assert _judged(got, ref) <= tol
+        assert torch.equal(got, qm.quant_matmul(xd, qw))
+
+
+@pytest.mark.parametrize("bits", [8, 4, "fp8"])
+@pytest.mark.parametrize("T", [8, 2048])
+@pytest.mark.parametrize("K,N", [(2048, 704), (704, 2048)])
+def test_quant_grouped_matmul_at_per_shard_shapes(dev, bits, T, K, N):
+    """K3 on qwen2-moe's 60 experts with the expert FFN width split in two
+    (704 = 5.5 x 128 columns; 704 rows, int8 groups of 64), at decode and
+    prefill routings, bf16: within K2_TOL of the plain version."""
+    buf, srt = _routed(dev, torch.bfloat16, T=T, k=4, n=60, K=K, bm=32,
+                       seed=T + K)
+    w = torch.randn(60, K, N, device=dev,
+                    generator=torch.Generator(device=dev).manual_seed(K))
+    qw = qm.quantize_grouped(w / K ** 0.5, bits=bits, shard=True)
+    kw = dict(block_m=32, tile_rows=srt.tile_rows)
+    got = qm.quant_grouped_matmul(buf, qw, srt.tile_expert, **kw)
+    ref = qm.quant_grouped_matmul_reference(buf, qw, srt.tile_expert, **kw)
+    assert got.shape == ref.shape == (srt.Tp, N)
+    assert _judged(got, ref) <= 1e-2
+
+
+def _tp_rank_streams(n, cfg, prompts):
+    """A rank of a CUDA TP engine (fp32, gloo): its streams and what it
+    staged through host memory."""
+    from deepspeed_tpu_torch import comm
+    from deepspeed_tpu_torch.inference import InferenceEngineV2
+    from deepspeed_tpu_torch.models import build_model
+    from deepspeed_tpu_torch.parallel.topology import MeshTopology
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    model = build_model("tiny-llama", hidden_size=256, num_kv_heads=4,
+                        device="meta", dtype=torch.float32, seed=3)
+    eng = InferenceEngineV2(model, config=dict(cfg, device="cuda"),
+                            topology=MeshTopology({"tensor": n}))
+    assert eng._programs is None and eng.graphs_off_reason
+    return (eng.generate(prompts, 8), {k: v[0] for k, v in
+                                       comm.staged.items()},
+            pa.counts.kernel, pa.counts.plain)
+
+
+@pytest.mark.parametrize("overlap", [False, True])
+def test_cuda_tp_engine_on_gloo_ranks_matches_tp1_engine(dev, overlap,
+                                                         tmp_path):
+    """Two gloo ranks sharing the card (NCCL refuses two ranks on one
+    device): their fp32 streams equal the CUDA TP-1 engine's, the ring
+    exchanges are staged through pinned host memory, and every attention
+    ran K1 on the card."""
+    from deepspeed_tpu_torch.comm.spawn import RankPool
+    from deepspeed_tpu_torch.inference import InferenceEngineV2
+    from deepspeed_tpu_torch.models import build_model
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = dict(block_size=16, num_blocks=64, max_seqs=4, chunk=16,
+               max_seq_len=128, dtype=torch.float32, tp_overlap=overlap)
+    prompts = [list(range(i, i + n)) for i, n in ((0, 37), (50, 5), (9, 21))]
+    one = InferenceEngineV2(
+        build_model("tiny-llama", hidden_size=256, num_kv_heads=4,
+                    device=dev, dtype=torch.float32, seed=3),
+        config=dict(cfg, device=dev, tp_overlap=False))
+    want = one.generate(prompts, 8)
+    with RankPool(2, str(tmp_path)) as pool:
+        outs = pool.run(_tp_rank_streams, 2, cfg, prompts)
+    for streams, staged, kernel, plain in outs:
+        assert streams == want
+        assert kernel > 0 and plain == 0
+        assert ("ppermute" in staged) == overlap
+        assert "all_gather" in staged

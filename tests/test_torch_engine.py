@@ -134,9 +134,12 @@ def test_put_step_query_flush_and_eos(served):
 def test_later_slices_and_the_default_device_raise(served):
     _, tm, tree, _ = served
     for over, exc, match in [
-            ({"quant_bits": 8, "tensor_parallel": 2}, NotImplementedError,
-             "quant"),
-            ({"tensor_parallel": 2}, NotImplementedError, "tensor"),
+            # tensor parallelism serves (the TP slice) over as many
+            # processes as ranks: one process cannot hold a mesh of two
+            ({"quant_bits": 8, "tensor_parallel": 2}, ValueError,
+             "mesh product 2 > device count 1"),
+            ({"tensor_parallel": 2}, ValueError,
+             "mesh product 2 > device count 1"),
             # KV tiering serves (the KV-movement slice); like the JAX
             # engine, it refuses to run without the prefix cache
             ({"kv_tier": True, "prefix_cache": False}, ValueError,

@@ -32,6 +32,8 @@ for m in ('deepspeed_tpu_torch.inference.engine_v2',
           'deepspeed_tpu_torch.moe.sharded_moe',
           'deepspeed_tpu_torch.ops.grouped_matmul',
           'deepspeed_tpu_torch.config', 'deepspeed_tpu_torch.parallel.topology',
+          'deepspeed_tpu_torch.parallel.tensor',
+          'deepspeed_tpu_torch.inference.weights',
           'deepspeed_tpu_torch.utils.timer',
           'deepspeed_tpu_torch.runtime.lr_schedules',
           'deepspeed_tpu_torch.ops.optimizers',
