@@ -1,8 +1,8 @@
 """Smoke run of the PyTorch/CUDA port on one NVIDIA H100.
 
-    python3 chip_smoke.py [--phases build,kernel,parity,serve,train-parity,
-                           train,moe-train-parity,moe-train,zero,sparse,
-                           offload,kvmove,observe,fleet]
+    python3 chip_smoke.py [--phases build,kernel,parity,serve,serve-profile,
+                           train-parity,train,moe-train-parity,moe-train,
+                           zero,sparse,offload,kvmove,observe,fleet,tp,seq]
                           [--out DIR]
 
 Phases (every one raises on failure; nothing is caught and passed over):
@@ -207,7 +207,10 @@ Phases (every one raises on failure; nothing is caught and passed over):
    same state, bit for bit (tokens, pool pages, last tokens, launches).
    Every timed serve runs before any profiler: its CUPTI tracing stays
    subscribed in the process and slows every later launch from the host.
-   Then each configuration is built again alike, and a profiled decode
+   Then, with the ``serve-profile`` phase (named on its own: ``--phases
+   build,serve,serve-profile``; the default run leaves this record out,
+   for the script's time limit), each configuration is built again alike,
+   and a profiled decode
    window (the pipeline drained first) splits its device time by kernel
    and says whether the profiler named the replayed kernels; the next
    window's host time is printed beside the timed pass's.
@@ -313,7 +316,8 @@ Phases (every one raises on failure; nothing is caught and passed over):
    on the main path: llama2-7b (E 4096, H 32, D 128, F 11008, vocab 32000)
    at its 32 layers, bf16 with an fp32 master, AdamW, micro 2 x gas 2 x
    2048, remat "full", ZeRO stage 2 at world 1 over NCCL,
-   ``offload_optimizer.device="cpu"``, 3 steps on a repeated batch. When
+   ``offload_optimizer.device="cpu"``, 2 steps on a repeated batch (the
+   script's time limit on the slower machines). When
    MemAvailable cannot hold the host state (12 bytes a parameter) plus the
    pinned ring and 10 GB, the depth is cut to the deepest that fits and the
    record says so. Losses finite and falling, the device's peak under 80
@@ -329,7 +333,7 @@ Phases (every one raises on failure; nothing is caught and passed over):
    within 2e-3 relative (the device share updates in ``FusedAdam``'s
    order), both shares non-empty. (d) ZeRO-Infinity (``offload_param`` and
    ``offload_optimizer`` on "cpu", stage 3, ``buffer_count`` 2) at 8
-   layers, 3 steps: the device's peak, counted from the first step (the
+   layers, 2 steps: the device's peak, counted from the first step (the
    fp32 model is made on the card from the seed, as the reference's, and
    moved to the host by ``initialize``), under the model's bf16 parameter
    bytes; losses within 1e-2 relative of (a)'s engine at 8 layers; staged
@@ -414,9 +418,11 @@ Phases (every one raises on failure; nothing is caught and passed over):
    tenants, in three pairs (each with fresh suffixes behind the prefix; the
    order within a pair alternates; one untimed serve each first) with a
    second engine on the same weight tensors and telemetry off: streams bit
-   for bit equal, graph replays,
-   forced drains and K1's launches equal (no plain launch, no capture in a
-   serve); ``/metrics`` scraped over 127.0.0.1 with the serve's exact counts
+   for bit equal, graph replays, windows, plans, drains (forced plus
+   opportunistic) and K1's launches equal (no plain launch, no capture in a
+   serve); which drains wait is a readiness poll the host's timing against
+   the device's decides, so the forced count is printed on and off, not
+   held equal; ``/metrics`` scraped over 127.0.0.1 with the serve's exact counts
    (``serving_ttft_s`` 8, ``serving_tokens_total`` 512, queue waits 8), the
    occupancy histograms, the page gauge and both tenants' series;
    ``/healthz`` serving; 8 completed reqtrace timelines of lifecycle kinds
@@ -520,6 +526,32 @@ Phases (every one raises on failure; nothing is caught and passed over):
    same weights, parting only at a near-tie (top-2 gap below 1e-4). These
    are ranks time-slicing one card over gloo: their times say nothing of
    tensor parallelism's speed. Work goes under ``tp.tmp/`` and is removed.
+16. seq — sequence-parallel training as rank processes sharing the one
+   card over gloo (``comm.spawn.RankPool``: one rank for the seq-1
+   references, two for seq 2; this process launches no kernel). (a) At
+   the bf16 leg's shape, [1, 4096, 32, 128] from one seed on both ranks:
+   ``ulysses_attention`` over the two ranks (K4 at 16 heads a rank, one
+   forward and one backward launch each) against one K4 over the whole
+   sequence, and ``ring_attention`` against plain attention in fp32,
+   output and q/k/v gradients by max |error| over max |reference| within
+   2e-2 (K4's bf16 bound). (b) llama2-7b's width (E 4096, H = KV = 32, D
+   128, F 11008, V 32000), micro-batch 1 x 4096 tokens (2048 a rank),
+   remat "full", ZeRO stage 0, AdamW at eps 1e-5, 3 steps on one batch,
+   at ``{"seq": 2}`` against the same model at seq 1: fp32 at 2 layers
+   (0.67 B parameters, 16 B each with the moments and gradients: ~11 GB a
+   rank), losses within 1e-5 relative and every parameter within the train
+   parity phase's bounds of the seq-1 master (through
+   ``seq.tmp/fp32.master.pt``); bf16 with an fp32 master at 4 layers
+   (1.07 B parameters at ~18 B each, ~19 GB a rank, ~38 GB for both),
+   losses within 2e-3 relative (products over 2048 rows may round a bf16
+   ulp apart from those over 4096). Depth is the only cut. Every rank's K4
+   launches exactly layers x micro-batches x steps backward and twice
+   that forward (remat), no plain launch and no other kernel, the ranks
+   alike; the kernels line adds each seq-2 rank's own counts. Prints per
+   rank the step times, the host seconds inside Ulysses' all-to-alls and
+   the gradient reduction, peak memory and bytes staged through host
+   memory: ranks time-slicing one card over gloo, no measure of sequence
+   parallelism's speed. Work goes under ``seq.tmp/`` and is removed.
 
 The serving parity phase's dense oracles pass ``attn_impl="xla"``, so they
 stay independent of the kernels under test.
@@ -550,9 +582,13 @@ HBM_BYTES_PER_S = 3.35e12
 PEAK_OPS = {torch.bfloat16: 989e12, torch.float32: 67e12,
             torch.float8_e4m3fn: 1979e12}
 
-ALL_PHASES = ("build", "kernel", "parity", "serve", "train-parity", "train",
-              "moe-train-parity", "moe-train", "zero", "sparse", "offload",
-              "kvmove", "observe", "fleet", "tp")
+ALL_PHASES = ("build", "kernel", "parity", "serve", "serve-profile",
+              "train-parity", "train", "moe-train-parity", "moe-train", "zero",
+              "sparse", "offload", "kvmove", "observe", "fleet", "tp", "seq")
+#: the run with no ``--phases``: every path; the serve phase's profiling
+#: pass (a record of where a window's device time goes, not a path) runs
+#: only when named
+DEFAULT_PHASES = tuple(p for p in ALL_PHASES if p != "serve-profile")
 
 #: spread of the K1 cases' q against unit-normal K/V (see k1_case)
 Q_SD = 3.0
@@ -3282,16 +3318,17 @@ def serve_label(key: str, label: str) -> str:
             f"motif {label}" if key == "llama2-7b spec" else label)
 
 
-def phase_serve(dev) -> dict:
-    """Every timed serve first, then every profile: once a profiler has
-    run, its tracing stays subscribed in the process and slows every
-    launch from the host, so no timed serve follows one."""
+def phase_serve(dev, profile: bool = False) -> dict:
+    """Every timed serve first, then (``profile``: the ``serve-profile``
+    phase) every profile: once a profiler has run, its tracing stays
+    subscribed in the process and slows every launch from the host, so no
+    timed serve follows one."""
     out: dict = {}
     runs = serve_runs()
     for key, label, name, kw in runs:
         out.setdefault(key, {})[label] = serve_run(
             dev, name, serve_label(key, label), **kw)
-    for key, label, name, kw in runs:
+    for key, label, name, kw in runs if profile else ():
         res = out[key][label]
         res["profiled_window"] = serve_profile(
             dev, name, serve_label(key, label), **kw)
@@ -3332,11 +3369,13 @@ def phase_serve(dev) -> dict:
 K4_TOL = {torch.float32: (1e-4, 1e-3), torch.bfloat16: (2e-2, 2e-2)}
 #: (label, B, H, KV, S, D, causal): llama2-7b geometry where the Pallas
 #: backward is one block (S = 1024, ``_dqkv_kernel``) and split (2048 — the
-#: train phase's shape — and 4096), mistral-7b's GQA, gpt2-1.3b's head dim
-#: 64, and one non-causal call
+#: train phase's shape — and 4096), a seq-2 rank's shape in the seq phase
+#: (llama2-7b's 32 heads over 2 ranks, the whole 4096 tokens), mistral-7b's
+#: GQA, gpt2-1.3b's head dim 64, and one non-causal call
 K4_CASES = (("llama2-7b S=1024", 2, 32, 32, 1024, 128, True),
             ("llama2-7b S=2048", 2, 32, 32, 2048, 128, True),
             ("llama2-7b S=4096", 1, 32, 32, 4096, 128, True),
+            ("llama2-7b seq-2 rank S=4096", 1, 16, 16, 4096, 128, True),
             ("mistral-7b GQA S=2048", 2, 32, 8, 2048, 128, True),
             ("gpt2-1.3b S=1024", 4, 32, 32, 1024, 64, True),
             ("llama2-7b S=1024 non-causal", 1, 32, 32, 1024, 128, False))
@@ -4991,14 +5030,14 @@ def phase_zero(dev, train: dict | None = None) -> dict:
 
 #: (a): llama2-7b at full width and depth, bf16 with an fp32 master, AdamW,
 #: micro 2 x gas 2 x 2048, remat "full", ZeRO stage 2 at world 1 over NCCL,
-#: the optimizer state on the host, 3 steps on one repeated batch
+#: the optimizer state on the host, 2 steps on one repeated batch
 OFFLOAD = dict(name="llama2-7b", layers=32, micro=2, gas=2, seq=2048,
-               steps=3)
+               steps=2)
 #: (b), (c), (e): the same width at 2 layers, 2 steps (then a third after
 #: the checkpoint)
 OFFLOAD_SMALL = dict(OFFLOAD, layers=2, steps=2)
-#: (d): ZeRO-Infinity at 8 layers, 3 steps
-OFFLOAD_STREAM = dict(OFFLOAD, layers=8, steps=3)
+#: (d): ZeRO-Infinity at 8 layers, 2 steps
+OFFLOAD_STREAM = dict(OFFLOAD, layers=8, steps=2)
 #: host memory kept free beyond the offloaded state
 HOST_MARGIN = 10e9
 #: where (b) swaps and (e) saves (inside the checkout; removed after)
@@ -7071,13 +7110,19 @@ def phase_observe(dev) -> dict:
                         raise AssertionError(f"[{tag}] spans {names}")
                 serves[label].append(res)
             a, b = serves["on"][-1], serves["off"][-1]
+            # the dispatches and their commits; which drain waits (forced)
+            # is the host's timing against the device's (PERF.md §6)
             same = {k: a[k] == b[k] for k in ("streams", "replays",
-                                               "forced_drains")}
+                                               "windows", "plans")}
+            same["drains"] = a["forced_drains"] + a["opportunistic_drains"] \
+                == b["forced_drains"] + b["opportunistic_drains"]
             same["k1"] = a["launches"] == b["launches"]
             if not all(same.values()):
-                raise AssertionError(f"[observe] serve {i + 1}: on vs off "
-                                     f"{same}; drains {a['forced_drains']}"
-                                     f"/{b['forced_drains']}")
+                raise AssertionError(
+                    f"[observe] serve {i + 1}: on vs off {same}; forced / "
+                    f"opportunistic drains {a['forced_drains']}/"
+                    f"{a['opportunistic_drains']} vs {b['forced_drains']}/"
+                    f"{b['opportunistic_drains']}")
         host_cost = telemetry_host_cost(on)
         first = serves["on"][0]["streams"][0]
         del on, off
@@ -7106,8 +7151,11 @@ def phase_observe(dev) -> dict:
                     for r in runs] for label, runs in serves.items()}}
         s_on, s_off = summary["on"], summary["off"]
         log(f"[observe serve] {card}: {OBSERVE['serves']} serves each, "
-            f"streams, replays, forced drains and K1 launches equal on and "
-            f"off; on / off: decode {s_on['decode_ms_per_token']:.3f} / "
+            f"streams, replays, windows, plans, drains and K1 launches "
+            f"equal on and off (forced drains on / off "
+            f"{[r['forced_drains'] for r in serves['on']]} / "
+            f"{[r['forced_drains'] for r in serves['off']]}); "
+            f"on / off: decode {s_on['decode_ms_per_token']:.3f} / "
             f"{s_off['decode_ms_per_token']:.3f} ms a token-step (medians), "
             f"{s_on['window_dispatch_us']:.1f} / "
             f"{s_off['window_dispatch_us']:.1f} host us a window dispatch "
@@ -8153,12 +8201,307 @@ def tp_launches(rec: dict) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# phase 16: sequence-parallel training, ranks sharing the one card over gloo
+# ---------------------------------------------------------------------------
+
+SEQ_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "seq.tmp")
+#: llama2-7b's width, micro-batch 1 x 4096 tokens (2048 a rank at seq 2),
+#: remat "full", ZeRO stage 0, AdamW at eps 1e-5 (see phase_train_parity)
+SEQ = dict(name="llama2-7b", micro=1, gas=1, seq=4096, steps=3, seed=17)
+#: (leg, layers, dtype): fp32 held by losses and parameters, bf16 with an
+#: fp32 master by losses
+SEQ_LEGS = (("fp32", 2, "float32"), ("bf16", 4, "bfloat16"))
+#: seq 2 against seq 1, the losses' relative difference: fp32 (the products
+#: split over 2048 rows sum in another order) and bf16 (products over 2048
+#: rows may round a bf16 ulp apart from those over 4096)
+SEQ_LOSS_TOL = {"float32": 1e-5, "bfloat16": 2e-3}
+
+
+def seq_rank_leg(leg: tuple, sp: int, device: str = "cuda") -> dict:
+    """One rank of a seq leg (runs in a ``RankPool`` process): the model
+    from the seed, ``initialize`` at ``{"seq": sp}`` on ``device``, the
+    steps on one batch. At seq 1 (the reference) an fp32 leg saves its
+    master under ``SEQ_DIR``; at seq 2 an fp32 leg holds its master
+    against it here, a parameter at a time. Returns losses, step times,
+    launches and the parameter comparison."""
+    import deepspeed_tpu_torch as dst
+    from deepspeed_tpu_torch import comm
+    from deepspeed_tpu_torch.models import build_model
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    tag, layers, dtype_name = leg
+    dtype = getattr(torch, dtype_name)
+    cuda = device == "cuda"
+    dev = torch.device("cuda", 0) if cuda else torch.device(device)
+    if cuda:
+        torch.cuda.set_device(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+    sync = torch.cuda.synchronize if cuda else (lambda *a: None)
+    spec = SEQ
+    model = build_model(spec["name"], num_layers=layers, dtype=dtype,
+                        param_dtype=torch.float32, device=dev,
+                        seed=spec["seed"])
+    engine, *_ = dst.initialize(model=model, device=dev, config=train_config(
+        spec, activation_checkpointing={"policy": "full"},
+        mesh={"seq": sp}, bf16={"enabled": dtype == torch.bfloat16},
+        optimizer={"type": "AdamW", "params": {"lr": 1e-4, "eps": 1e-5,
+                                               "weight_decay": 0.01}}))
+    batch = train_batch_of(spec, model.config.vocab_size, spec["seed"])
+    staged0 = {k: list(v) for k, v in comm.staged.items()}
+    # host seconds a step inside Ulysses' all-to-alls (forward, remat and
+    # backward) and in the gradient reduction (the all-reduce over seq)
+    spent = {"all_to_all": 0.0, "grad_reduce": 0.0}
+
+    def timed(key, fn):
+        def call(*a, **kw):
+            t = time.perf_counter()
+            try:
+                return fn(*a, **kw)
+            finally:
+                sync()
+                spent[key] += time.perf_counter() - t
+        return call
+
+    a2a = comm.comm._all_to_all
+    comm.comm._all_to_all = timed("all_to_all", a2a)
+    engine._finish_grads = timed("grad_reduce", engine._finish_grads)
+    reset_counts()
+    losses, step_s, split = [], [], []
+    try:
+        for _ in range(spec["steps"]):
+            sync()
+            spent.update(all_to_all=0.0, grad_reduce=0.0)
+            t0 = time.perf_counter()
+            losses.append(float(engine.train_batch(batch)))
+            step_s.append(time.perf_counter() - t0)
+            split.append(dict(spent))
+    finally:
+        comm.comm._all_to_all = a2a
+    launches = all_counts()
+    out = dict(rank=engine.sp_rank, losses=losses, step_s=step_s,
+               split_s=split, launches=launches,
+               params=engine.num_parameters(),
+               staged={k: [v[0] - staged0.get(k, [0, 0])[0],
+                           v[1] - staged0.get(k, [0, 0])[1]]
+                       for k, v in comm.staged.items()},
+               peak_bytes=torch.cuda.max_memory_allocated(dev) if cuda
+               else 0)
+    if dtype == torch.float32:
+        path = os.path.join(SEQ_DIR, f"{tag}.master.pt")
+        final = {n: p.detach() for n, p in zip(engine._names,
+                                               engine._params)}
+        if sp == 1:
+            torch.save({n: p.cpu() for n, p in final.items()}, path)
+            start = build_model(spec["name"], num_layers=layers,
+                                dtype=dtype, device=dev, seed=spec["seed"])
+            out["max_change"] = max(
+                (final[n] - p.detach()).abs().max().item()
+                for n, p in start.named_parameters())
+            out["max_abs"] = max(p.abs().max().item()
+                                 for p in final.values())
+            del start
+        else:
+            ref = torch.load(path, mmap=True)
+            out["max_diff"] = max((final[n] - ref[n].to(dev)).abs().max()
+                                  .item() for n in final)
+            del ref
+    engine.close()
+    del engine, model
+    free_cuda()
+    return out
+
+
+def seq_rank_attention(S: int, H: int, D: int, seed: int,
+                       device: str = "cuda") -> dict:
+    """One rank of the attention check at a leg's shape (bf16 [1, S, H, D]
+    from one seed on both ranks, do too): ``ulysses_attention`` over the
+    two ranks (K4 at [1, S, H/2, D] on each) against one rank's K4 over the
+    whole sequence, and ``ring_attention`` against plain attention over
+    the whole sequence in fp32: this rank's output rows and its q/k/v
+    gradients' rows, errors over the reference's max |value|."""
+    from deepspeed_tpu_torch.comm import set_topology
+    from deepspeed_tpu_torch.ops import flash_attention as fa
+    from deepspeed_tpu_torch.ops.attention import plain_attention
+    from deepspeed_tpu_torch.parallel import sequence as seqp
+    from deepspeed_tpu_torch.parallel.topology import MeshTopology
+
+    dev = torch.device("cuda", 0) if device == "cuda" else torch.device(device)
+    if dev.type == "cuda":
+        torch.cuda.set_device(dev)
+    topo = MeshTopology({"seq": 2})
+    set_topology(topo)
+    r = topo.rank_in("seq")
+    g = torch.Generator(device=dev).manual_seed(seed)
+    q, k, v, do = (torch.randn((1, S, H, D), generator=g, device=dev)
+                   .to(torch.bfloat16) for _ in range(4))
+    rows = slice(r * S // 2, (r + 1) * S // 2)
+
+    def run(fn, inputs, grad_out):
+        xs = [x.detach().clone().requires_grad_() for x in inputs]
+        y = fn(*xs)
+        y.backward(grad_out)
+        return [y.detach()] + [x.grad for x in xs]
+
+    def errors(got, want):
+        return {name: ((a.float() - b.float()).abs().max()
+                       / b.float().abs().max()).item()
+                for name, a, b in zip(("out", "dq", "dk", "dv"), got, want)}
+
+    mine = [x[:, rows] for x in (q, k, v)]
+    before = fa.counts.fwd, fa.counts.bwd
+    uly = run(lambda *a: seqp.ulysses_attention(*a), mine, do[:, rows])
+    uly_launches = (fa.counts.fwd - before[0], fa.counts.bwd - before[1])
+    full = run(lambda *a: fa.flash_attention(*a, causal=True), (q, k, v), do)
+    res = dict(rank=r, ulysses_launches=uly_launches,
+               ulysses=errors(uly, [t[:, rows] for t in full]))
+    del uly, full
+    ring = run(lambda *a: seqp.ring_attention(*a), mine, do[:, rows])
+    ref = run(lambda *a: plain_attention(*a).to(torch.bfloat16),
+              [x.float() for x in (q, k, v)], do)
+    res["ring"] = errors(ring, [t[:, rows] for t in ref])
+    del ring, ref
+    free_cuda()
+    return res
+
+
+def seq_check(tag: str, ref: dict, recs: list, leg: tuple) -> dict:
+    """The seq-2 ranks against each other and the seq-1 run: losses, the
+    fp32 master, and each rank's K4 launches exactly layers x micro-batches
+    x steps backward and twice that forward (remat runs each layer's
+    forward again), no plain version and no other kernel."""
+    _, layers, dtype_name = leg
+    spec = SEQ
+    n = spec["gas"] * spec["steps"]
+    want = {k: 0 for k in ref["launches"]}
+    want.update(k4_fwd=2 * layers * n, k4_bwd=layers * n)
+    for rec in [ref] + recs:
+        if rec["launches"] != want:
+            raise AssertionError(f"[{tag}] rank {rec['rank']} launches "
+                                 f"{rec['launches']} != {want}")
+    if recs[0]["losses"] != recs[1]["losses"]:
+        raise AssertionError(f"[{tag}] ranks' losses {recs[0]['losses']} "
+                             f"vs {recs[1]['losses']}")
+    losses = recs[0]["losses"]
+    if not all(math.isfinite(x) for x in losses + ref["losses"]):
+        raise AssertionError(f"[{tag}] losses {losses} / {ref['losses']}")
+    rel = max(abs(a - b) / abs(b) for a, b in zip(losses, ref["losses"]))
+    out = dict(losses=losses, ref_losses=ref["losses"], max_rel_loss_diff=rel,
+               loss_tol=SEQ_LOSS_TOL[dtype_name],
+               launches_per_rank={k: v for k, v in want.items() if v})
+    if rel > SEQ_LOSS_TOL[dtype_name]:
+        raise AssertionError(f"[{tag}] losses {losses} against seq 1's "
+                             f"{ref['losses']}: {rel:.2e} relative > "
+                             f"{SEQ_LOSS_TOL[dtype_name]:.0e}")
+    if dtype_name == "float32":
+        diff = max(r["max_diff"] for r in recs)
+        moved = ref["max_change"]
+        out.update(max_param_diff=diff, max_abs_param=ref["max_abs"],
+                   max_param_change=moved, param_diff_over_change=diff / moved)
+        # the train parity phase's bounds
+        if diff > 1e-4 * ref["max_abs"] or diff > 1e-2 * moved:
+            raise AssertionError(f"[{tag}] parameters {diff:.2e} apart "
+                                 f"(max |param| {ref['max_abs']:.3f}, largest "
+                                 f"change {moved:.2e})")
+    return out
+
+
+def phase_seq(dev) -> dict:
+    """See the module docstring, phase 16."""
+    from deepspeed_tpu_torch.accelerator import card_name_and_power_limit
+    from deepspeed_tpu_torch.comm.spawn import RankPool
+
+    t_phase = time.perf_counter()
+    card = card_name_and_power_limit()
+    free_cuda()
+    reset_counts()
+    shutil.rmtree(SEQ_DIR, ignore_errors=True)
+    os.makedirs(SEQ_DIR)
+    rec: dict = {"card": card, "legs": {}}
+    try:
+        with RankPool(1, os.path.join(SEQ_DIR, "store1")) as one, \
+                RankPool(2, os.path.join(SEQ_DIR, "store2")) as two:
+            # (a) attention at the bf16 leg's shape
+            from deepspeed_tpu_torch.models import get_model_config
+
+            cfg = get_model_config(SEQ["name"])
+            att = two.run(seq_rank_attention, SEQ["seq"], cfg.num_heads,
+                          cfg.head_dim, SEQ["seed"], dev.type, timeout=600)
+            for a in att:
+                if a["ulysses_launches"] != (1, 1):
+                    raise AssertionError(f"[seq attention] rank {a['rank']} "
+                                         f"K4 launches {a['ulysses_launches']}")
+                for what in ("ulysses", "ring"):
+                    bad = {k: v for k, v in a[what].items() if v > 2e-2}
+                    if bad:
+                        raise AssertionError(
+                            f"[seq attention] rank {a['rank']} {what}: "
+                            f"{bad} over 2e-2 of max |reference|")
+            rec["attention"] = att
+            log(f"[seq attention] {card}: bf16 [1, {SEQ['seq']}, "
+                f"{cfg.num_heads}, {cfg.head_dim}] over 2 ranks: Ulysses (K4 "
+                f"at {cfg.num_heads // 2} heads a rank) against one K4 "
+                f"over the whole sequence {[a['ulysses'] for a in att]}; "
+                f"ring against fp32 plain attention "
+                f"{[a['ring'] for a in att]} (errors over max |reference|, "
+                f"limit 2e-2)")
+            # (b) the legs, each at seq 1 then seq 2
+            for leg in SEQ_LEGS:
+                tag = f"seq {SEQ['name']} x{leg[1]} {leg[0]}"
+                ref = one.run(seq_rank_leg, leg, 1, dev.type, timeout=600)[0]
+                recs = two.run(seq_rank_leg, leg, 2, dev.type, timeout=600)
+                res = seq_check(tag, ref, recs, leg)
+                res.update(ranks=recs, ref=ref)
+                rec["legs"][leg[0]] = res
+                steps = "; ".join(
+                    f"rank {r['rank']}: {', '.join(f'{t:.2f}' for t in r['step_s'])} s"
+                    f" a step (all-to-alls / gradient reduction "
+                    f"{', '.join(f'{d['all_to_all']:.2f} / {d['grad_reduce']:.2f}' for d in r['split_s'])}"
+                    f" s), peak {r['peak_bytes'] / 1e9:.1f} GB, staged "
+                    f"{r['staged']}" for r in recs)
+                log(f"[{tag}] {recs[0]['params'] / 1e9:.2f} B parameters, "
+                    f"{SEQ['seq']} tokens a step, {SEQ['seq'] // 2} a rank: "
+                    f"losses {', '.join(f'{x:.6f}' for x in res['losses'])} "
+                    f"against seq 1's "
+                    f"{', '.join(f'{x:.6f}' for x in ref['losses'])} "
+                    f"({res['max_rel_loss_diff']:.2e} relative, limit "
+                    f"{res['loss_tol']:.0e})"
+                    + (f"; parameters within {res['max_param_diff']:.2e} "
+                       f"(max |param| {res['max_abs_param']:.3f}, largest "
+                       f"change {res['max_param_change']:.2e})"
+                       if "max_param_diff" in res else "")
+                    + f"; K4 launches a rank {res['launches_per_rank']}; "
+                    f"{steps} (seq 1: "
+                    f"{', '.join(f'{t:.2f}' for t in ref['step_s'])} s); "
+                    f"ranks time-slicing one card over gloo: no measure of "
+                    f"sequence parallelism's speed")
+    finally:
+        shutil.rmtree(SEQ_DIR, ignore_errors=True)
+    parent = all_counts()
+    if any(parent.values()):
+        raise AssertionError(f"[seq] this process launched kernels: {parent}")
+    rec["seconds"] = time.perf_counter() - t_phase
+    log(f"[seq] {card}: phase {rec['seconds']:.1f} s")
+    return rec
+
+
+def seq_launches(rec: dict) -> dict:
+    """Each kernel's launches summed over the seq-2 ranks of every leg, as
+    each rank counted them."""
+    total: dict = collections.Counter()
+    for leg in rec["legs"].values():
+        for r in leg["ranks"]:
+            total.update(r["launches"])
+    return {k: v for k, v in total.items() if v}
+
+
+# ---------------------------------------------------------------------------
 # main
 # ---------------------------------------------------------------------------
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--phases", default=",".join(ALL_PHASES),
+    ap.add_argument("--phases", default=",".join(DEFAULT_PHASES),
                     help="comma-separated subset of " + ",".join(ALL_PHASES))
     ap.add_argument("--out", default="chiprun_out",
                     help="directory for the full JSON record")
@@ -8167,6 +8510,8 @@ def main() -> int:
     bad = set(phases) - set(ALL_PHASES)
     if bad:
         ap.error(f"unknown phases {sorted(bad)}")
+    if "serve-profile" in phases and "serve" not in phases:
+        ap.error("serve-profile profiles the serve phase's runs: name both")
     if not torch.cuda.is_available():
         log("no CUDA device: this smoke run needs one NVIDIA GPU")
         return 2
@@ -8181,6 +8526,14 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     t_start = time.perf_counter()
     record: dict = {"card": card, "phases": {}}
+    # wall seconds of each phase (the script's time limit is 1200 s)
+    laps: dict = {}
+    t_lap = [t_start]
+
+    def lap(name: str) -> None:
+        now = time.perf_counter()
+        laps[name] = laps.get(name, 0.0) + now - t_lap[0]
+        t_lap[0] = now
     k1 = {"name": "paged_ragged_attention", "route": "cuda",
           "source": "deepspeed_tpu_torch/ops/csrc/paged_attention.cu",
           "replaces": "deepspeed_tpu/ops/pallas/paged_attention.py:137",
@@ -8264,6 +8617,7 @@ def main() -> int:
           "launches": None}
     built = phase_build()          # every later phase runs the kernels
     record["phases"]["build"] = {n: r["seconds"] for n, r in built.items()}
+    lap("build")
     if "kernel" in phases:
         k1_res = k1_resources(built)
         k1_host = k1_host_cost(dev)
@@ -8302,6 +8656,7 @@ def main() -> int:
                                       "k5": k5_cases, "k6": k6_cases,
                                       "k7": k7_cases,
                                       "tp_shards": phase_tp_shards(dev)}
+    lap("kernel")
     if "observe" in phases:
         # telemetry and HF import: its timed legs before any profiler of
         # any phase runs (the serve phase profiles after its serves)
@@ -8318,10 +8673,12 @@ def main() -> int:
             "plan_us": [observe["plans"]["native_us"],
                         observe["plans"]["python_us"]],
             "mfu": observe["train"]["on"]["mfu"]}
+    lap("observe")
     if "parity" in phases:
         record["phases"]["parity"] = phase_parity(dev)
+    lap("parity")
     if "serve" in phases:
-        serve = phase_serve(dev)
+        serve = phase_serve(dev, profile="serve-profile" in phases)
         record["phases"]["serve"] = serve
         # each kernel's launches summed over the serve runs (each run's
         # counts start at 0)
@@ -8335,15 +8692,19 @@ def main() -> int:
         # K2's and K3's launches on the wgmma route (every bf16 one)
         for rec, key in ((k2, "k2_tc"), (k3, "k3_tc")):
             rec["launches_wgmma"] = sum(run["launches"][key] for run in runs)
+    lap("serve")
     if "train-parity" in phases:
         record["phases"]["train-parity"] = phase_train_parity(dev)
+    lap("train-parity")
     if "train" in phases:
         train = phase_train(dev)
         record["phases"]["train"] = train
         k4_fwd["launches"] = train["launches"]["k4_fwd"]
         k4_bwd["launches"] = train["launches"]["k4_bwd"]
+    lap("train")
     if "moe-train-parity" in phases:
         record["phases"]["moe-train-parity"] = phase_moe_train_parity(dev)
+    lap("moe-train-parity")
     if "moe-train" in phases:
         moe_train = phase_moe_train(dev)
         record["phases"]["moe-train"] = moe_train
@@ -8355,6 +8716,7 @@ def main() -> int:
         k5_dw["launches"] = got["k5_dw"]
         k4_fwd["launches"] = (k4_fwd["launches"] or 0) + got["k4_fwd"]
         k4_bwd["launches"] = (k4_bwd["launches"] or 0) + got["k4_bwd"]
+    lap("moe-train")
     if "zero" in phases:
         zero = phase_zero(dev, record["phases"].get("train"))
         record["phases"]["zero"] = zero
@@ -8363,17 +8725,20 @@ def main() -> int:
         for rec, key in ((k4_fwd, "k4_fwd"), (k4_bwd, "k4_bwd"), (k5, "k5"),
                          (k5_dx, "k5_dx"), (k5_dw, "k5_dw")):
             rec["launches"] = (rec["launches"] or 0) + got[key]
+    lap("zero")
     if "sparse" in phases:
         sparse = phase_sparse(dev)
         record["phases"]["sparse"] = sparse
         k6_fwd["launches"] = sparse["k6_fwd"]
         k6_bwd["launches"] = sparse["k6_bwd"]
+    lap("sparse")
     if "offload" in phases:
         offload = phase_offload(dev, record["phases"].get("train"))
         record["phases"]["offload"] = offload
         got = offload["launches"]
         for rec, key in ((k4_fwd, "k4_fwd"), (k4_bwd, "k4_bwd")):
             rec["launches"] = (rec["launches"] or 0) + got[key]
+    lap("offload")
     if "kvmove" in phases:
         kvmove = phase_kvmove(dev)
         record["phases"]["kvmove"] = kvmove
@@ -8396,6 +8761,7 @@ def main() -> int:
             "tier_crc_share": tier["crc_share"],
             "swap_s": {k: swap[k] for k in ("save_s", "verify_s",
                                             "quiesce_s", "swap_s")}}
+    lap("kvmove")
     if "fleet" in phases:
         fleet = phase_fleet(dev)
         record["phases"]["fleet"] = fleet
@@ -8412,6 +8778,7 @@ def main() -> int:
             "handoff_GBps": disagg["GBps"],
             "near_ties": {k: v["near_ties"]
                           for k, v in fleet["oracle"].items()}}
+    lap("fleet")
     if "tp" in phases:
         tp = phase_tp(dev)
         record["phases"]["tp"] = tp
@@ -8429,6 +8796,20 @@ def main() -> int:
                         "collective_s", "ring")}
                         for run, r in leg["runs"].items()}
                         for tag, leg in tp["legs"].items()}}
+    lap("tp")
+    if "seq" in phases:
+        seq = phase_seq(dev)
+        record["phases"]["seq"] = seq
+        # K4 forward and backward on every seq-2 rank of both legs, each
+        # rank's own counts summed
+        got = seq_launches(seq)
+        for rec, key in ((k4_fwd, "k4_fwd"), (k4_bwd, "k4_bwd")):
+            rec["launches"] = (rec["launches"] or 0) + got.get(key, 0)
+        k4_fwd["seq"] = {"card": seq["card"], "launches": got,
+                         "legs": {tag: {k: leg[k] for k in (
+                             "losses", "ref_losses", "max_rel_loss_diff")}
+                             for tag, leg in seq["legs"].items()}}
+    lap("seq")
     if "observe" in phases:
         # the breach capture (a profiler) last of all
         breach = phase_observe_breach(dev)
@@ -8439,6 +8820,10 @@ def main() -> int:
         got["k1"] += breach["k1_launches"]
         for rec, key in ((k1, "k1"), (k4_fwd, "k4_fwd"), (k4_bwd, "k4_bwd")):
             rec["launches"] = (rec["launches"] or 0) + got[key]
+    lap("observe-breach")
+    record["phase_seconds"] = laps
+    log(f"[time] seconds by phase: "
+        f"{', '.join(f'{k} {v:.1f}' for k, v in laps.items())}")
     record["seconds"] = time.perf_counter() - t_start
     os.makedirs(args.out, exist_ok=True)
     with open(os.path.join(args.out, "chip_smoke.json"), "w") as f:

@@ -20,8 +20,16 @@ binds a port.
 :class:`CommsLogger` records each collective's op, axis and bytes, as the
 JAX package's does at trace time; here it records at each call.
 
-CUDA tensors over a gloo group (the tensor-parallel ranks that share one
-card, where NCCL refuses two ranks on one device): gloo takes
+``all_to_all``, the tiled ``all_gather`` and the ring shifts
+``send_recv_next`` / ``send_recv_prev`` are differentiable when their input
+requires a gradient, as the JAX collectives are under ``jax.grad``: the
+backward is the inverse all-to-all, a reduce-scatter, and the shift the
+other way round. :func:`sequence_parallel_scope` says, while a training
+step runs, which axis splits each row's tokens.
+
+CUDA tensors over a gloo group (the tensor-parallel or sequence-parallel
+ranks that share one card, where NCCL refuses two ranks on one device):
+gloo takes
 ``all_reduce`` and ``broadcast`` of a device tensor itself; every other op
 (the gathers and scatters, ``all_to_all`` and the point-to-point sends of
 ``ppermute`` and the ring shifts) is staged here through pinned host
@@ -310,10 +318,17 @@ def _pinned_empty(shape, dtype) -> torch.Tensor:
 
 
 # torch 2.13 renames the tensor forms (``*_single``); 2.11 has only the
-# older names. Resolve whichever this build has, once per call.
+# older names. Resolve whichever this build has, once per call. CUDA
+# tensors over gloo (ZeRO's flat buffers on ranks sharing one card) go
+# through pinned host memory.
 def _gather_into(out: torch.Tensor, inp: torch.Tensor, group) -> None:
     fn = getattr(dist, "all_gather_single", None) or \
         dist.all_gather_into_tensor
+    if _host_staged("all_gather", None, inp, group):
+        host = _pinned_empty(out.shape, out.dtype)
+        fn(host, _pinned(inp), group=group)
+        out.copy_(host)
+        return
     fn(out, inp, group=group)
 
 
@@ -321,6 +336,11 @@ def _scatter_into(out: torch.Tensor, inp: torch.Tensor, group,
                   op=dist.ReduceOp.SUM) -> None:
     fn = getattr(dist, "reduce_scatter_single", None) or \
         dist.reduce_scatter_tensor
+    if _host_staged("reduce_scatter", None, inp, group):
+        host = _pinned_empty(out.shape, out.dtype)
+        fn(host, _pinned(inp), op=op, group=group)
+        out.copy_(host)
+        return
     fn(out, inp, op=op, group=group)
 
 
@@ -349,7 +369,16 @@ def all_gather(x: torch.Tensor, axis_name=None, axis: int = 0,
                tiled: bool = True) -> torch.Tensor:
     """Every member's ``x`` concatenated along ``axis`` in rank order
     (``tiled``), or stacked on a new leading-``axis`` dim (reference
-    comm.py:315)."""
+    comm.py:315). Tiled, it is differentiable, as ``lax.all_gather`` is:
+    the backward sums the members' gradients and keeps this member's slice
+    (a reduce-scatter)."""
+    if tiled and _recording(x):
+        return _AllGather.apply(x, axis_name, axis)
+    return _all_gather(x, axis_name, axis, tiled)
+
+
+def _all_gather(x: torch.Tensor, axis_name, axis: int, tiled: bool
+                ) -> torch.Tensor:
     _record("all_gather", axis_name, x)
     group = group_of(axis_name)
     n = get_world_size(group)
@@ -397,7 +426,16 @@ def all_to_all(x: torch.Tensor, axis_name=None, split_axis: int = 0,
                concat_axis: int = 0, tiled: bool = True) -> torch.Tensor:
     """``x`` split into n pieces along ``split_axis``, piece j sent to
     member j, the received pieces concatenated along ``concat_axis``
-    (reference comm.py:222)."""
+    (reference comm.py:222). Differentiable: the backward is the inverse
+    all-to-all, split and concat axes swapped (Ulysses' head <-> sequence
+    exchange, ``parallel/sequence.py``)."""
+    if _recording(x):
+        return _AllToAll.apply(x, axis_name, split_axis, concat_axis)
+    return _all_to_all(x, axis_name, split_axis, concat_axis)
+
+
+def _all_to_all(x: torch.Tensor, axis_name, split_axis: int,
+                concat_axis: int) -> torch.Tensor:
     _record("all_to_all", axis_name, x)
     group = group_of(axis_name)
     n = get_world_size(group)
@@ -515,13 +553,72 @@ def ring_shift(xs: Sequence[torch.Tensor], shifts: Sequence[int], axis_name,
 
 
 def send_recv_next(x: torch.Tensor, axis_name) -> torch.Tensor:
-    """Shift +1 around the axis ring (pipeline forward activations)."""
+    """Shift +1 around the axis ring (pipeline forward activations; ring
+    attention's K/V rotation). Differentiable: the cotangent goes the
+    other way round the ring."""
+    if _recording(x):
+        return _RingShift.apply(x, axis_name, 1)
     return ring_shift([x], [1], axis_name)[0]
 
 
 def send_recv_prev(x: torch.Tensor, axis_name) -> torch.Tensor:
-    """Shift -1 around the axis ring (pipeline backward grads)."""
+    """Shift -1 around the axis ring (pipeline backward grads);
+    differentiable as :func:`send_recv_next`."""
+    if _recording(x):
+        return _RingShift.apply(x, axis_name, -1)
     return ring_shift([x], [-1], axis_name)[0]
+
+
+# --------------------------------------------------------------------------
+# collectives with gradients (the transposes XLA gives the JAX package's)
+# --------------------------------------------------------------------------
+
+def _recording(x: torch.Tensor) -> bool:
+    return torch.is_grad_enabled() and x.requires_grad
+
+
+class _AllToAll(torch.autograd.Function):
+    """:func:`all_to_all`; the backward is the inverse exchange."""
+
+    @staticmethod
+    def forward(ctx, x, axis_name, split_axis: int, concat_axis: int):
+        ctx.args = (axis_name, split_axis, concat_axis)
+        return _all_to_all(x, axis_name, split_axis, concat_axis)
+
+    @staticmethod
+    def backward(ctx, g):
+        axis_name, split_axis, concat_axis = ctx.args
+        return (_all_to_all(g.contiguous(), axis_name, concat_axis,
+                            split_axis), None, None, None)
+
+
+class _AllGather(torch.autograd.Function):
+    """Tiled :func:`all_gather`; the backward is a reduce-scatter (sum)
+    along the gathered dim."""
+
+    @staticmethod
+    def forward(ctx, x, axis_name, axis: int):
+        ctx.args = (axis_name, axis)
+        return _all_gather(x, axis_name, axis, True)
+
+    @staticmethod
+    def backward(ctx, g):
+        axis_name, axis = ctx.args
+        return reduce_scatter(g, axis_name, axis=axis), None, None
+
+
+class _RingShift(torch.autograd.Function):
+    """A ring shift by ``k``; the backward shifts the cotangent by -k."""
+
+    @staticmethod
+    def forward(ctx, x, axis_name, k: int):
+        ctx.args = (axis_name, k)
+        return ring_shift([x], [k], axis_name)[0]
+
+    @staticmethod
+    def backward(ctx, g):
+        axis_name, k = ctx.args
+        return ring_shift([g.contiguous()], [-k], axis_name)[0], None, None
 
 
 class _AllReduceMean(torch.autograd.Function):
@@ -582,3 +679,42 @@ def data_parallel_scope(group, size: int, rank: int):
 
 def current_data_parallel() -> DataParallel | None:
     return _dp
+
+
+# --------------------------------------------------------------------------
+# The sequence-parallel scope of a training step
+# --------------------------------------------------------------------------
+
+@dataclass
+class SequenceParallel:
+    """The mesh axis a step's sequence dim is split over: ``size`` members,
+    this one holding global positions ``[rank * S_local, (rank + 1) *
+    S_local)``."""
+    axis: str
+    size: int
+    rank: int
+
+
+_sp: SequenceParallel | None = None
+
+
+@contextlib.contextmanager
+def sequence_parallel_scope(axis: str, size: int, rank: int):
+    """While a step's forward and backward run, each rank holds a
+    contiguous slice of every row's tokens: the model places them at their
+    global positions and runs attention over the whole sequence through
+    Ulysses' all-to-alls over ``axis`` (``models/transformer.py``). A
+    process global, as :func:`data_parallel_scope` is (autograd's device
+    thread runs the backward and remat's forwards); a no-op for a size of
+    one."""
+    global _sp
+    prev = _sp
+    _sp = SequenceParallel(axis, size, rank) if size > 1 else None
+    try:
+        yield
+    finally:
+        _sp = prev
+
+
+def current_sequence_parallel() -> SequenceParallel | None:
+    return _sp

@@ -16,7 +16,11 @@ JAX engine's is under GSPMD: the count of labelled tokens is summed over
 the group, and the rank's loss is its nll sum over that count times the
 group size, so the group's mean of losses and of gradients is the global
 loss and its gradient. A per-rank mean would miss whenever the ranks hold
-different numbers of ``IGNORE_INDEX`` labels.
+different numbers of ``IGNORE_INDEX`` labels. Under sequence parallelism
+(``comm.sequence_parallel_scope``) the count and the factor span the seq
+axis too, so the loss is one masked mean over every token of the global
+batch; a rank's labels then come with its slice, shifted on whole rows
+before the split (the JAX loss's ``roll`` across the sharded dim).
 
 ``DS_TPU_FUSED_HEAD_CHUNK=<vocab columns>`` routes :func:`lm_loss_fn`
 through :func:`fused_lm_head_loss`: the unembedding product and the
@@ -58,19 +62,24 @@ def _masked_mean_loss(nll, logz, denom, z_loss_weight, ranks=1):
 
 
 def _denominator(mask: torch.Tensor) -> tuple[torch.Tensor, int]:
-    """(labelled tokens, at least 1; the group size): over the
-    data-parallel group when a scope is open."""
-    from ..comm.comm import current_data_parallel
+    """(labelled tokens, at least 1; the ranks that split the batch): over
+    the data-parallel group and the seq axis when their scopes are open."""
+    from ..comm.comm import (all_reduce, current_data_parallel,
+                             current_sequence_parallel)
 
-    count = mask.sum()
+    count, ranks = mask.sum(), 1
     dp = current_data_parallel()
-    if dp is None:
-        return torch.clamp(count, min=1), 1
-    import torch.distributed as dist
+    if dp is not None:
+        import torch.distributed as dist
 
-    count = count.clone()
-    dist.all_reduce(count, group=dp.group)
-    return torch.clamp(count, min=1), dp.size
+        count = count.clone()
+        dist.all_reduce(count, group=dp.group)
+        ranks = dp.size
+    sp = current_sequence_parallel()
+    if sp is not None:
+        count = all_reduce(count, sp.axis)
+        ranks *= sp.size
+    return torch.clamp(count, min=1), ranks
 
 
 def cross_entropy_lm(logits: torch.Tensor, labels: torch.Tensor,
@@ -233,6 +242,11 @@ def lm_loss_fn(model, batch: dict) -> torch.Tensor:
     input_ids = batch["input_ids"]
     labels = batch.get("labels")
     if labels is None:
+        from ..comm.comm import current_sequence_parallel
+
+        if current_sequence_parallel() is not None:
+            raise ValueError("a sequence-parallel rank's labels come with "
+                             "its slice: shift whole rows first")
         labels = shift_labels(input_ids)
     if not isinstance(model, TransformerLM):
         return cross_entropy_lm(model(input_ids), labels)
@@ -252,3 +266,7 @@ def lm_loss_fn(model, batch: dict) -> torch.Tensor:
     for aux in layer_losses:
         loss = loss + aux
     return loss
+
+
+#: it reads the sequence-parallel scope (the engine accepts it at seq > 1)
+lm_loss_fn.sequence_parallel = True

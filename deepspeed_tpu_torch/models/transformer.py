@@ -42,7 +42,14 @@ block under the ``ops/remat.py`` policy ``remat_policy`` while gradients
 are being recorded, and attention passes ``attn_impl`` to the dispatcher
 (``ops/attention.py``: "auto" and "pallas" reach the flash kernel K4 where
 its gate holds), as the JAX model does; a sliding window or ALiBi takes the
-plain route. The bert-family encoder layout (post-norm, bidirectional,
+plain route. Under a sequence-parallel scope (``comm.sequence_parallel_scope``,
+which the training engine opens at ``seq`` > 1) the input holds this rank's
+slice of each row's tokens: positions (RoPE, learned embeddings) are
+global, ``rank * S_local`` on, and attention runs through Ulysses
+(``parallel/sequence.ulysses_model_attention``): the rank's own heads over
+the whole sequence, K4 allowed in a world of many, ALiBi over the whole
+sequence's positions. The norms, the FFN and the head stay token-local.
+The bert-family encoder layout (post-norm, bidirectional,
 segment embeddings) is ported with ROADMAP queue 1, item 7 and raises
 here.
 """
@@ -57,10 +64,12 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..comm.comm import all_gather, current_sequence_parallel
 from ..moe.layer import MoE
 from ..ops.attention import dot_product_attention
 from ..ops.quant_matmul import QuantLinear, quant_matmul
 from ..ops.remat import checkpoint_fn, make_policy
+from ..parallel.sequence import ulysses_model_attention
 
 
 @dataclass(frozen=True)
@@ -417,21 +426,42 @@ class Attention(nn.Module):
             v = v + self.bv.to(dt)
         if cfg.position_embedding == "rope":
             q, k = apply_rope(q, k, positions, cfg.rope_theta, cfg.rotary_pct)
-        bias = None
-        if cfg.position_embedding == "alibi":
-            slopes = alibi_slopes(cfg.num_heads, device=x.device)
-            k_pos = torch.arange(k.shape[1], device=x.device,
-                                 dtype=torch.float32)
-            rel = k_pos[None, None, None, :] - positions.float()[:, None, :, None]
-            bias = slopes[None, :, None, None] * rel
-        out = dot_product_attention(
-            q, k, v, causal=cfg.causal, bias=bias, window=cfg.sliding_window,
-            impl="xla" if (bias is not None or cfg.sliding_window)
-            else cfg.attn_impl)
+        sp = current_sequence_parallel()
+        if sp is None:
+            out = self._attend(q, k, v, positions, cfg.num_heads, 0)
+        else:
+            # Ulysses: this rank's tokens → every token of its own heads;
+            # ALiBi reads the whole sequence's positions
+            full = all_gather(positions, sp.axis, axis=1) \
+                if cfg.position_embedding == "alibi" else None
+            heads = cfg.num_heads // sp.size
+            out = ulysses_model_attention(
+                q, k, v, sp.axis, lambda q, k, v: self._attend(
+                    q, k, v, full, heads, sp.rank * heads, sp=True))
         out = proj_out(out, self.wo.to(dt))
         if cfg.attn_out_bias:
             out = out + self.bo.to(dt)
         return out
+
+    def _attend(self, q, k, v, positions, heads: int, head0: int,
+                sp: bool = False):
+        """Attention over q [B, S, heads, D] (query heads ``head0`` on of
+        the model's) and their K/V; ``positions`` [B, S] place the queries
+        for ALiBi. ``sp``: a sequence-parallel rank's whole-sequence call,
+        which K4 may serve in a world of many processes."""
+        cfg = self.config
+        bias = None
+        if cfg.position_embedding == "alibi":
+            slopes = alibi_slopes(cfg.num_heads,
+                                  device=q.device)[head0:head0 + heads]
+            k_pos = torch.arange(k.shape[1], device=q.device,
+                                 dtype=torch.float32)
+            rel = k_pos[None, None, None, :] - positions.float()[:, None, :, None]
+            bias = slopes[None, :, None, None] * rel
+        return dot_product_attention(
+            q, k, v, causal=cfg.causal, bias=bias, window=cfg.sliding_window,
+            impl="xla" if (bias is not None or cfg.sliding_window)
+            else cfg.attn_impl, allow_multi_device=sp)
 
 
 class DenseFFN(nn.Module):
@@ -580,7 +610,11 @@ class TransformerLM(nn.Module):
         dt = cfg.dtype
         B, S = input_ids.shape
         if positions is None:
-            positions = torch.arange(S, device=input_ids.device).expand(B, S)
+            # a sequence-parallel rank holds positions [rank*S, (rank+1)*S)
+            sp = current_sequence_parallel()
+            start = 0 if sp is None else sp.rank * S
+            positions = torch.arange(start, start + S,
+                                     device=input_ids.device).expand(B, S)
         x = self.embed.to(dt)[input_ids]
         if cfg.position_embedding == "learned":
             x = x + self.pos_embed.to(dt)[positions]

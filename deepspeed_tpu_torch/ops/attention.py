@@ -18,7 +18,8 @@ import torch
 
 def dot_product_attention(q, k, v, *, causal: bool = True, positions=None,
                           kv_len=None, mask=None, bias=None,
-                          impl: str = "auto", window: int | None = None):
+                          impl: str = "auto", window: int | None = None,
+                          allow_multi_device: bool = False):
     """q: [B, Sq, H, D]; k/v: [B, Skv, KV, D] (KV divides H for GQA).
 
     ``positions`` [B, Sq] places each query at an absolute position (the
@@ -26,7 +27,11 @@ def dot_product_attention(q, k, v, *, causal: bool = True, positions=None,
     the mistral sliding window (query p attends keys in (p - window, p]);
     ``mask`` [B, Skv] (1 = attend) or broadcastable; ``bias`` is added to
     the fp32 logits, broadcastable to [B, H, Sq, Skv]. ``impl``: "auto" |
-    "pallas" (K4, or ValueError where its gate refuses) | "xla" (plain)."""
+    "pallas" (K4, or ValueError where its gate refuses) | "xla" (plain).
+    ``allow_multi_device`` must only be set by a caller that runs on its
+    own rank's whole heads (``parallel/sequence.py``'s Ulysses): the gate
+    otherwise refuses K4 in a world of more than one process, as the JAX
+    gate does; ``impl="pallas"`` alone does not opt in."""
     if window and positions is None and not causal:
         raise ValueError("sliding_window requires causal attention")
     if impl not in ("auto", "pallas", "xla"):
@@ -35,7 +40,8 @@ def dot_product_attention(q, k, v, *, causal: bool = True, positions=None,
         from .flash_attention import flash_attention, flash_attention_usable
 
         if flash_attention_usable(q, k, v, causal=causal, positions=positions,
-                                  mask=mask):
+                                  mask=mask,
+                                  allow_multi_device=allow_multi_device):
             return flash_attention(q, k, v, causal=causal)
         if impl == "pallas":
             raise ValueError("pallas flash attention not usable for these "

@@ -125,11 +125,15 @@ def _world_size() -> int:
 
 
 def flash_attention_usable(q, k, v, *, causal: bool, positions=None,
-                           mask=None) -> bool:
+                           mask=None, allow_multi_device: bool = False
+                           ) -> bool:
     """Whether the dispatcher claims K4: full-sequence self-attention
     (Sq == Skv >= 128, no positions or mask), a Pallas block choice, whole
-    GQA groups, D in (64, 128, 256), and one process."""
-    if _world_size() > 1:
+    GQA groups, D in (64, 128, 256), and one process. ``allow_multi_device``
+    lifts the last condition; only a caller that runs attention on its own
+    rank's whole heads sets it (Ulysses, ``parallel/sequence.py``), as in
+    the JAX gate."""
+    if _world_size() > 1 and not allow_multi_device:
         return False
     if positions is not None or mask is not None:
         return False

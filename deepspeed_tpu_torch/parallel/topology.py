@@ -13,9 +13,12 @@ coordinate (NCCL on the card, gloo on the CPU).
 ``data`` and ``fsdp`` may exceed 1: ZeRO partitions over their product.
 ``tensor`` may exceed 1 for serving (``inference/engine_v2.py`` shards its
 forward over the tensor group, one rank per process; the training engine
-refuses it). ``seq``, ``pipe`` and ``expert`` larger than 1 raise
-NotImplementedError: sequence, pipeline and expert parallelism are ROADMAP
-queue 1, item 6 (6b and 6c).
+refuses it). ``seq`` may exceed 1 for training: each row's tokens split
+over the seq group (``parallel/sequence.py``, ``runtime/engine.py``), whose
+statistics span the batch group ``BATCH_AXES`` (the data-parallel axes and
+``seq``), which has a group of its own too. ``pipe`` and ``expert`` larger
+than 1 raise NotImplementedError: pipeline and expert parallelism are
+ROADMAP queue 1, item 6c.
 
 ``parallel/axes.py`` (flax logical axis constraints) has no counterpart:
 the port places no tensor by logical axis names.
@@ -29,8 +32,11 @@ from typing import Any, Sequence
 AXIS_ORDER = ("pipe", "data", "expert", "fsdp", "seq", "tensor")
 #: the data-parallel axes: the ZeRO partition count is their product
 DP_AXES = ("data", "expert", "fsdp")
+#: the axes a training batch's tokens are split over: the data-parallel
+#: axes (rows) and ``seq`` (each row's positions)
+BATCH_AXES = DP_AXES + ("seq",)
 #: axes whose parallelism comes with a later slice
-LATER_AXES = ("pipe", "expert", "seq")
+LATER_AXES = ("pipe", "expert")
 
 
 @dataclass
@@ -109,10 +115,9 @@ class MeshTopology:
                    if self.axis_sizes[a] > 1}
         if big:
             raise NotImplementedError(
-                f"mesh axes {big}: sequence, pipeline and expert "
-                f"parallelism are ported with ROADMAP queue 1, item 6 "
-                f"(6b: seq; 6c: pipe and expert); data, fsdp and tensor "
-                f"may exceed 1")
+                f"mesh axes {big}: pipeline and expert parallelism are "
+                f"ported with ROADMAP queue 1, item 6c; data, fsdp, seq "
+                f"and tensor may exceed 1")
         used = math.prod(self.axis_sizes.values())
         if used != self.world_size:
             raise ValueError(f"mesh {self.axis_sizes} uses {used} devices "
@@ -120,7 +125,7 @@ class MeshTopology:
         self.coords = self._coords(self.rank)
         self._groups: dict[tuple[str, ...], Any] = {}
         if self.world_size > 1:
-            for axes in [(a,) for a in AXIS_ORDER] + [DP_AXES]:
+            for axes in [(a,) for a in AXIS_ORDER] + [DP_AXES, BATCH_AXES]:
                 self._groups[axes] = self._make_group(axes)
 
     def _coords(self, rank: int) -> dict[str, int]:
@@ -152,20 +157,21 @@ class MeshTopology:
         return tuple(a for a in AXIS_ORDER if a in names)
 
     def group(self, axis_name: str | Sequence[str]):
-        """The process group of one axis or of ``DP_AXES``; None (the
-        default group) in a world of one."""
+        """The process group of one axis, of ``DP_AXES`` or of
+        ``BATCH_AXES``; None (the default group) in a world of one."""
         key = self._key(axis_name)
         if self.world_size == 1:
             return None
         if key in self._groups:
             return self._groups[key]
-        # a subset of the data-parallel axes whose other members are all
-        # of size 1 spans the same processes
-        if set(key) <= set(DP_AXES) and all(
-                self.axis_sizes[a] == 1 for a in DP_AXES if a not in key):
-            return self._groups[DP_AXES]
+        # a subset of the data-parallel (or batch) axes whose other
+        # members are all of size 1 spans the same processes
+        for axes in (DP_AXES, BATCH_AXES):
+            if set(key) <= set(axes) and all(
+                    self.axis_sizes[a] == 1 for a in axes if a not in key):
+                return self._groups[axes]
         raise ValueError(f"no process group for axes {key} (groups: each "
-                         f"axis and {DP_AXES})")
+                         f"axis, {DP_AXES} and {BATCH_AXES})")
 
     def size(self, axis: str) -> int:
         return self.axis_sizes[axis]

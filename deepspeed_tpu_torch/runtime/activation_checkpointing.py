@@ -4,8 +4,10 @@ Counterpart of ``deepspeed_tpu/runtime/activation_checkpointing.py``: the
 Megatron-style module surface of the reference (``configure(config)`` and
 ``checkpoint(fn, *args)``) over the policy registry of ``ops/remat.py``
 (``torch.utils.checkpoint``, selective checkpointing for the matmul-saving
-policies). ``partition_activations`` needs a sequence-parallel axis, which
-a one-process engine has not (the engine warns, as the JAX one does);
+policies). ``partition_activations`` asks for the residual stream
+partitioned over the sequence: at ``seq`` > 1 each rank already holds only
+its slice of every row's tokens (``parallel/sequence.py``), and at seq 1
+the engine warns that activations stay whole, as the JAX one does;
 ``cpu_checkpointing`` maps to the "offload" policy: the unbatched products'
 outputs kept in pinned host memory, everything else recomputed.
 """

@@ -22,7 +22,8 @@ has no bf16 type.
 
 Writing: rank 0 creates every file's header (``open_memmap``) and all
 ranks meet at a barrier; each rank writes the element ranges it owns (its
-ZeRO partition; at stage 0 rank 0 writes everything), flushes, and meets
+ZeRO partition, from seq index 0 of the ranks that share it; at stage 0
+rank 0 writes everything), flushes, and meets
 the others again; rank 0 then writes ``meta.json``, the manifest and
 ``latest``. No rank ever holds the whole state. Loading: every rank
 memory-maps the files and reads the ranges of its own partition under the
@@ -164,6 +165,8 @@ def _views(engine, section: str, i: int, writing: bool):
              "opt_nu": None if engine.opt_state.nu is None
              else engine.opt_state.nu[i]}[section]
         return [(0, p.numel(), t.reshape(-1))]
+    if writing and engine.sp_rank != 0:
+        return []                  # seq ranks hold one partition: index 0 writes
     s, _ = z.plan.where[i]
     seg = z.plan.segments[s]
     out = []

@@ -30,6 +30,22 @@ process per device, in the same order and precision:
   takes over the whole global micro-batch — the loss's count of labelled
   tokens, the MoE gating means — are taken over the group
   (``comm.data_parallel_scope``);
+- sequence parallelism (``mesh.seq`` > 1): each row's tokens split over
+  the seq group, rank i keeping positions ``[i·S/n, (i+1)·S/n)`` of every
+  leaf of two or more dims (the JAX engine's seq sharding of the batch),
+  after ``labels`` are made by the next-token shift on whole rows. The
+  model runs attention through Ulysses (``models/transformer.py``,
+  ``parallel/sequence.py``) under ``comm.sequence_parallel_scope``; the
+  loss's labelled-token count spans data x seq, so the loss is one masked
+  mean over the global batch; the gradients of the parameters, replicated
+  over seq as GSPMD keeps them, are summed over the seq ranks (at stages
+  1-3 after ZeRO's reduce-scatter over the data-parallel group: the seq
+  ranks of one partition hold the same partition) and averaged with the
+  data-parallel ones. Only seq index 0 writes a partition to a
+  checkpoint. MoE models, ZeRO-Offload / Infinity and a custom
+  ``loss_fn`` that does not take the scope are refused at seq > 1 (item
+  6b part 2). A CUDA engine runs over NCCL, or over gloo when every rank is
+  on one card (ranks time-slicing it: no measure of speed);
 - the ``forward`` / ``backward`` / ``step`` triplet with
   ``is_gradient_accumulation_boundary``; ``eval_batch``; ``zero_grad``;
   ``skipped_steps``, ``get_lr``, ``get_loss_scale``, ``num_parameters``;
@@ -79,9 +95,9 @@ It runs on the CUDA device unless ``device="cpu"`` is given; ZeRO stages
 NCCL on the card. Every feature that a later part of the port brings
 raises NotImplementedError when it is configured (:func:`check_ported`),
 naming its ROADMAP queue 1 item: the flops profiler, data efficiency and
-the hybrid engine (item 7), the 1-bit optimizers and tensor, sequence,
-pipeline and expert parallelism in training (item 6: 6b, 6c, 6d), ZeRO++
-and MiCS (after item 6).
+the hybrid engine (item 7), the 1-bit optimizers and tensor, pipeline and
+expert parallelism in training (item 6: 6b part 2, 6c, 6d), ZeRO++ and
+MiCS (after item 6).
 Model compression runs outside the config (a compression manager the JAX
 engine reads when set) and is not ported either.
 """
@@ -99,9 +115,9 @@ import torch
 from .. import comm
 from ..accelerator import get_device
 from ..config import Config
-from ..models.loss import lm_loss_fn
+from ..models.loss import lm_loss_fn, shift_labels
 from ..ops.optimizers import OptState, Optimizer, build_optimizer
-from ..parallel.topology import MeshTopology
+from ..parallel.topology import BATCH_AXES, MeshTopology
 from ..utils.logging import log_dist, logger
 from ..utils.timer import (
     BACKWARD_GLOBAL_TIMER,
@@ -181,13 +197,24 @@ def check_ported(config: Config) -> None:
     tp = config.mesh.tensor
     if tp not in ("auto", -1, None) and int(tp) > 1:
         raise _tensor_training(int(tp))
+    sp = config.mesh.seq
+    if sp not in ("auto", -1, None) and int(sp) > 1:
+        z = config.zero_optimization
+        if (z.offload_optimizer.device, z.offload_param.device) != \
+                ("none", "none"):
+            raise _seq_later(int(sp), "ZeRO-Offload and ZeRO-Infinity")
 
 
 def _tensor_training(tp: int) -> NotImplementedError:
     return _later(f"mesh axes {{'tensor': {tp}}}: tensor parallelism in "
                   f"training (the model's Megatron layers, tp_overlap_scope, "
-                  f"vocab-parallel cross entropy; the serving engine takes "
-                  f"tensor > 1)", "item 6b (training across tensor and seq)")
+                  f"ring_row_matmul's caller; the serving engine takes "
+                  f"tensor > 1)", "item 6b part 2")
+
+
+def _seq_later(sp: int, feature: str) -> NotImplementedError:
+    return _later(f"mesh axes {{'seq': {sp}}}: {feature} at seq > 1",
+                  "item 6b part 2")
 
 
 class DeepSpeedEngine:
@@ -218,11 +245,7 @@ class DeepSpeedEngine:
             self.zero_stage = 1
         if self.zero_stage > 0 or comm.is_initialized():
             comm.init_distributed(device=self.device)
-            if self.device.type == "cuda" and \
-                    torch.distributed.get_backend() != "nccl":
-                raise RuntimeError(
-                    f"a CUDA engine needs the NCCL backend; the process "
-                    f"group is {torch.distributed.get_backend()}")
+            self._check_backend()
         self.topology = topology if topology is not None \
             else MeshTopology(config.mesh)
         if self.topology.size("tensor") > 1:
@@ -231,6 +254,15 @@ class DeepSpeedEngine:
         self.dp_world_size = self.topology.dp_world_size
         self.dp_rank = self.topology.dp_rank
         self.dp_group = self.topology.dp_group
+        # sequence parallelism: each row's tokens split over the seq group;
+        # the step's statistics and gradients span data x seq (the batch)
+        self.sp_size = self.topology.size("seq")
+        self.sp_rank = self.topology.rank_in("seq")
+        self.batch_world_size = self.dp_world_size * self.sp_size
+        self.batch_group = self.topology.group(BATCH_AXES) \
+            if self.sp_size > 1 else self.dp_group
+        if self.sp_size > 1:
+            self._check_seq(model, loss_fn, offload)
         config.resolve_batch_terms(self.dp_world_size)
         if config.comms_logger.enabled:
             c = config.comms_logger
@@ -344,6 +376,42 @@ class DeepSpeedEngine:
             f"global_bs={config.train_batch_size}")
 
     # ------------------------------------------------------------------
+    def _check_backend(self) -> None:
+        """A CUDA engine runs over NCCL; over gloo only when every rank is
+        on one physical card (ranks time-slicing it, NCCL refusing two
+        ranks on one device), its collectives staged through pinned host
+        memory (``comm``). Such a run measures nothing about speed."""
+        dist = torch.distributed
+        backend = dist.get_backend()
+        if self.device.type != "cuda" or backend == "nccl":
+            return
+        if backend == "gloo":
+            uuids = [None] * dist.get_world_size()
+            dist.all_gather_object(uuids, str(
+                torch.cuda.get_device_properties(self.device).uuid))
+            if len(set(uuids)) == 1:
+                log_dist(f"a CUDA engine over gloo: {len(uuids)} ranks on "
+                         f"one card, collectives staged through host "
+                         f"memory; this run measures nothing about speed")
+                return
+        raise RuntimeError(
+            f"a CUDA engine needs the NCCL backend (or gloo with every rank "
+            f"on one card); the process group is {backend}")
+
+    def _check_seq(self, model, loss_fn, offload) -> None:
+        """What a seq axis above 1 does not take yet (ROADMAP item 6b part
+        2)."""
+        sp = self.sp_size
+        if getattr(getattr(model, "config", None), "moe", None) is not None:
+            raise _seq_later(sp, "a MoE model")
+        if offload is not None:
+            raise _seq_later(sp, "ZeRO-Offload and ZeRO-Infinity")
+        if loss_fn is not None and not getattr(loss_fn, "sequence_parallel",
+                                               False):
+            raise _seq_later(sp, "a custom loss_fn that does not take the "
+                                 "sequence-parallel scope (mark it "
+                                 "`sequence_parallel = True`)")
+
     def _check_offload(self, config: Config, loss_fn) -> str | None:
         """Validate ``offload_optimizer`` / ``offload_param`` with the JAX
         engine's rules and messages: None, "optimizer" (ZeRO-Offload) or
@@ -508,6 +576,31 @@ class DeepSpeedEngine:
         return {k: v[self.dp_rank * m:(self.dp_rank + 1) * m]
                 for k, v in batch.items()}
 
+    def _columns(self, batch: dict) -> dict:
+        """At seq > 1, this rank's ``[S/n]`` slice of dim 1 of every leaf of
+        two or more dims (the JAX engine's seq sharding of the batch),
+        after ``labels`` are made by the next-token shift on whole rows (a
+        shard's last label is its neighbour's first token)."""
+        n = self.sp_size
+        if n == 1:
+            return batch
+        if "labels" not in batch:
+            batch = {**batch, "labels": shift_labels(batch["input_ids"])}
+        out = {}
+        for k, v in batch.items():
+            if v.dim() >= 2:
+                S = v.shape[1]
+                if S % n:
+                    raise ValueError(f"'{k}' has {S} positions, which do "
+                                     f"not split over seq {n}")
+                v = v[:, self.sp_rank * (S // n):(self.sp_rank + 1) * (S // n)]
+            out[k] = v
+        return out
+
+    def _mine(self, batch: dict) -> dict:
+        """This rank's rows and columns of a micro-batch."""
+        return self._columns(self._rows(batch))
+
     def _split_for_gas(self, batch: dict) -> list[dict]:
         gas = self.config.gradient_accumulation_steps
         B = self.config.train_batch_size
@@ -516,12 +609,19 @@ class DeepSpeedEngine:
                 raise ValueError(f"train_batch expects global batch dim {B}, "
                                  f"got {v.shape[0]} for '{k}'")
         micro = B // gas
-        return [self._rows({k: v[g * micro:(g + 1) * micro]
+        return [self._mine({k: v[g * micro:(g + 1) * micro]
                             for k, v in batch.items()}) for g in range(gas)]
 
-    def _dp_scope(self):
-        return comm.data_parallel_scope(self.dp_group, self.dp_world_size,
-                                        self.dp_rank)
+    @contextlib.contextmanager
+    def _dp_scope(self, rows: bool = True):
+        """The step's scopes: the data-parallel one when the rows split
+        over the ranks, the sequence-parallel one at seq > 1."""
+        with comm.data_parallel_scope(
+                *((self.dp_group, self.dp_world_size, self.dp_rank) if rows
+                  else (None, 1, 0))), \
+                comm.sequence_parallel_scope("seq", self.sp_size,
+                                             self.sp_rank):
+            yield
 
     def _train_loss(self, batch: dict) -> torch.Tensor:
         """The loss of a device micro-batch in train mode, with the step's
@@ -584,13 +684,17 @@ class DeepSpeedEngine:
         per-parameter tensors at stage 0, the rank's fp32 partition at
         stages 1-3."""
         op, v = scale
-        n = self.dp_world_size
+        n = self.batch_world_size
         if self._zero is not None:
             if self.zero_stage == 1:
                 self._zero.begin_accumulation()
                 self._zero.reduce_full(self._accum_grads)
             g = self._zero.grad
             g.div_(v) if op == "div" else g.mul_(v)
+            if self.sp_size > 1:
+                # the seq ranks of a partition hold its partial sums
+                torch.distributed.all_reduce(
+                    g, group=self.topology.group("seq"))
             if n > 1:
                 g.div_(n)
             return g
@@ -599,7 +703,7 @@ class DeepSpeedEngine:
             g.div_(v) if op == "div" else g.mul_(v)
         if n > 1:
             for g in grads:
-                torch.distributed.all_reduce(g, group=self.dp_group)
+                torch.distributed.all_reduce(g, group=self.batch_group)
                 g.div_(n)
         return grads
 
@@ -645,12 +749,16 @@ class DeepSpeedEngine:
         self.global_step += 1
         return finite
 
-    def _dp_mean(self, x: torch.Tensor) -> torch.Tensor:
-        if self.dp_world_size == 1:
+    def _dp_mean(self, x: torch.Tensor, rows: bool = True) -> torch.Tensor:
+        """The mean of ``x`` over the ranks that split the batch: data x
+        seq, or seq alone where the rows did not split."""
+        group, n = (self.batch_group, self.batch_world_size) if rows \
+            else (self.topology.group("seq"), self.sp_size)
+        if n == 1:
             return x
         out = x.clone()
-        torch.distributed.all_reduce(out, group=self.dp_group)
-        return out / self.dp_world_size
+        torch.distributed.all_reduce(out, group=group)
+        return out / n
 
     # ------------------------------------------------------------------
     # public API
@@ -758,19 +866,19 @@ class DeepSpeedEngine:
         rows split over the data-parallel ranks when they divide."""
         self.module.eval()
         b = self._device_batch(batch)
-        mine = self._rows(b)
-        split = mine is not b
-        with (self._dp_scope() if split
-              else comm.data_parallel_scope(None, 1, 0)):
+        rows = self._rows(b)
+        split = rows is not b
+        mine = self._columns(rows)
+        with self._dp_scope(split):
             if self._param_stream is not None:
                 loss = self._param_stream.micro_forward(mine)[0].float()
-                return self._dp_mean(loss) if split else loss
+                return self._dp_mean(loss, split)
             if self._zero is not None:
                 self._zero.begin_forward()
             loss = self._loss_fn(mine).detach().float()
             if self._zero is not None:
                 self._zero.end_forward_no_grad()
-        return self._dp_mean(loss) if split else loss
+        return self._dp_mean(loss, split)
 
     # --- imperative triplet (reference forward/backward/step) ----------
     def forward(self, batch: dict) -> torch.Tensor:
@@ -781,7 +889,7 @@ class DeepSpeedEngine:
         self._no_stream()
         self.timers(FORWARD_GLOBAL_TIMER).start()
         with self._dp_scope():
-            loss = self._train_loss(self._rows(self._device_batch(batch)))
+            loss = self._train_loss(self._mine(self._device_batch(batch)))
         self.timers(FORWARD_GLOBAL_TIMER).stop()
         self._pending = loss
         return loss
@@ -798,7 +906,7 @@ class DeepSpeedEngine:
         with self._dp_scope():
             if batch is not None:
                 loss = self._train_loss(
-                    self._rows(self._device_batch(batch)))
+                    self._mine(self._device_batch(batch)))
             elif loss is None:
                 loss = self._pending
                 if loss is None:

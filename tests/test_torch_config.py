@@ -119,12 +119,12 @@ def test_one_process_mesh():
     assert topo.dp_world_size == topo.size("tensor") == 1
     assert single_device_topology().dp_world_size == 1
     # data and fsdp may exceed 1 over that many processes: in a world of one
-    # the mesh does not resolve (tensor serves over that many processes);
-    # a later parallel axis still waits for its item
-    for axis in ("fsdp", "tensor"):
+    # the mesh does not resolve (tensor serves and seq trains over that many
+    # processes); a later parallel axis still waits for its item
+    for axis in ("fsdp", "tensor", "seq"):
         with pytest.raises(ValueError, match="device count 1"):
             MeshTopology({axis: 2})
-    for axis in ("seq", "pipe", "expert"):
+    for axis in ("pipe", "expert"):
         with pytest.raises(NotImplementedError, match="item 6"):
             MeshTopology({axis: 2})
     with pytest.raises(ValueError, match="unknown mesh axes"):

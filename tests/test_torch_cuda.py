@@ -12,9 +12,11 @@ attention (K7: linear, window and ring tables) against their plain
 versions, the CUDA serving engine against the CPU engine, page imports,
 the KV tier and the live weight swap into engines whose decode graphs are
 captured, training
-steps on the card through K4 and through K5's forward and backward, and
+steps on the card through K4 and through K5's forward and backward,
 ZeRO-3 over NCCL (bit for bit stage 0, a checkpoint round trip, a backward
-from a fresh thread). These
+from a fresh thread), and sequence parallelism on two gloo ranks sharing
+the card (Ulysses against one rank's K4, seq-2 training at ZeRO 0 and 3
+against one rank). These
 need an sm_90 GPU and nvcc, so they skip elsewhere; on a machine with the
 card run
 
@@ -1932,3 +1934,122 @@ def test_cuda_tp_engine_on_gloo_ranks_matches_tp1_engine(dev, overlap,
         assert kernel > 0 and plain == 0
         assert ("ppermute" in staged) == overlap
         assert "all_gather" in staged
+
+
+def _seq_rank_ulysses(dtype_name, S, H, D):
+    """A seq rank's Ulysses attention over two gloo ranks on the card: its
+    output rows and its q/k/v gradient rows of sum(out * do), K4's
+    launches and what was staged through host memory."""
+    from deepspeed_tpu_torch import comm
+    from deepspeed_tpu_torch.ops import flash_attention as fa
+    from deepspeed_tpu_torch.parallel import sequence as seqp
+    from deepspeed_tpu_torch.parallel.topology import MeshTopology
+
+    topo = MeshTopology({"seq": 2})
+    comm.set_topology(topo)
+    r = topo.rank_in("seq")
+    q, k, v, do = _seq_inputs(getattr(torch, dtype_name), S, H, D)
+    rows = slice(r * S // 2, (r + 1) * S // 2)
+    xs = [x[:, rows].clone().requires_grad_() for x in (q, k, v)]
+    fa.counts.reset()
+    out = seqp.ulysses_attention(*xs)
+    out.backward(do[:, rows])
+    return ([out.detach()] + [x.grad for x in xs],
+            (fa.counts.fwd, fa.counts.bwd, fa.counts.plain),
+            sorted(comm.staged))
+
+
+def _seq_inputs(dtype, S, H, D):
+    g = torch.Generator(device="cuda").manual_seed(S + H)
+    return [torch.randn((1, S, H, D), generator=g, device="cuda").to(dtype)
+            for _ in range(4)]
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5),
+                                       (torch.bfloat16, 2e-2)])
+def test_ulysses_on_gloo_ranks_matches_one_rank_k4(dev, dtype, tol,
+                                                   tmp_path):
+    """Two gloo ranks sharing the card, each running K4 over the whole
+    sequence at half the heads after the all-to-all: their output and
+    gradient rows equal one rank's K4 over the whole sequence at every
+    head (within K4's own tolerance against its plain version: fp32
+    absolute, bf16 over max |reference|); the exchanges are staged
+    through pinned host memory."""
+    from deepspeed_tpu_torch.comm.spawn import RankPool
+    from deepspeed_tpu_torch.ops import flash_attention as fa
+
+    S, H, D = 1024, 4, 128
+    q, k, v, do = _seq_inputs(dtype, S, H, D)
+    xs = [x.clone().requires_grad_() for x in (q, k, v)]
+    out = fa.flash_attention(*xs, causal=True)
+    out.backward(do)
+    want = [out.detach()] + [x.grad for x in xs]
+    with RankPool(2, str(tmp_path)) as pool:
+        got = pool.run(_seq_rank_ulysses, str(dtype).split(".")[1], S, H, D)
+    for r, (parts, launches, staged) in enumerate(got):
+        assert launches == (1, 1, 0), launches
+        assert "all_to_all" in staged
+        for part, ref in zip(parts, want):
+            ref = ref[:, r * S // 2:(r + 1) * S // 2].float().cpu()
+            err = (torch.from_numpy(part).float() - ref).abs().max()
+            judged = err if dtype == torch.float32 else err / ref.abs().max()
+            assert judged <= tol, (r, judged)
+
+
+def _seq_rank_train(stage, steps):
+    """A seq-2 rank's fp32 tiny-llama (head dim 64) training on the card
+    over gloo at ZeRO ``stage``: its losses, master and K4 launches."""
+    return _seq_train({"seq": 2}, stage, steps)
+
+
+def _seq_train(mesh, stage, steps):
+    import deepspeed_tpu_torch as dst
+    from deepspeed_tpu_torch.models import build_model
+    from deepspeed_tpu_torch.ops import flash_attention as fa
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    model = build_model("tiny-llama", hidden_size=256, device="cuda",
+                        dtype=torch.float32, seed=5)
+    e, *_ = dst.initialize(model=model, device="cuda", config={
+        "train_micro_batch_size_per_gpu": 2, "gradient_accumulation_steps": 1,
+        "bf16": {"enabled": False}, "mesh": mesh,
+        "zero_optimization": {"stage": stage,
+                              "stage3_param_persistence_threshold": 1000},
+        "optimizer": {"type": "AdamW", "params": {"lr": 1e-3, "eps": 1e-5}}})
+    g = torch.Generator().manual_seed(9)
+    batch = {"input_ids": torch.randint(0, 256, (2, 256), generator=g)}
+    fa.counts.reset()
+    losses = [float(e.train_batch(batch)) for _ in range(steps)]
+
+    def host(t):
+        return {k: host(v) for k, v in t.items()} if isinstance(t, dict) \
+            else t.cpu()
+
+    return (losses, host(e.master),
+            (fa.counts.fwd, fa.counts.bwd, fa.counts.plain))
+
+
+@pytest.mark.parametrize("stage", [0, 3])
+def test_seq_2_training_on_gloo_ranks_matches_one_rank(dev, stage, tmp_path):
+    """Two gloo ranks sharing the card train at {"seq": 2} (ZeRO's flat
+    buffers and Ulysses' exchanges staged through pinned host memory): fp32
+    losses within 1e-5 relative and the master within 1e-5 of one rank at
+    seq 1 on the card, K4 launched on each rank at its half of the
+    heads."""
+    import numpy as np
+
+    from deepspeed_tpu_torch.comm.spawn import RankPool
+
+    want, master, _ = _seq_train({"data": 1}, 0, 3)
+    with RankPool(2, str(tmp_path)) as pool:
+        got = pool.run(_seq_rank_train, stage, 3)
+
+    def flat(t):
+        return [x for v in t.values() for x in
+                (flat(v) if isinstance(v, dict) else [np.asarray(v)])]
+
+    for losses, m, (fwd, bwd, plain) in got:
+        np.testing.assert_allclose(losses, want, rtol=1e-5)
+        assert max(np.abs(a - b).max()
+                   for a, b in zip(flat(m), flat(master))) <= 1e-5
+        assert (fwd, bwd, plain) == (2 * 3, 2 * 3, 0)

@@ -7,11 +7,11 @@ Four legs under test:
 
 - **segment math**: a member's segment through the port's attention (its
   queries at their absolute positions over the adopted prefix KV and its
-  own) equals the matching rows of the port's full causal attention over
-  the concatenated sequence, and the JAX reference's
-  ``gang_segment_attention`` (parallel/sequence.py, which the port does
-  not carry yet) — the algebraic fact that lets each member prefill its
-  own segment over adopted prefix KV.
+  own) and through the port's own ``gang_segment_attention``
+  (``parallel/sequence.py``) equals the matching rows of the port's full
+  causal attention over the concatenated sequence, and the JAX
+  reference's ``gang_segment_attention`` — the algebraic fact that lets
+  each member prefill its own segment over adopted prefix KV.
 - **planning**: page-aligned segment cover and the gang-vs-single cost
   model (a mostly-cached prompt or a slow transport must never gang).
 - **happy path**: a gang-of-2 engages on a long prompt, the merged
@@ -74,13 +74,15 @@ def _port_segment(q, k, v, start, end):
 @pytest.mark.parametrize("gqa", [1, 2])
 @pytest.mark.parametrize("ends", [[32, 64, 96], [40, 96], [96]])
 def test_gang_segment_attention_matches_full_rows(gqa, ends):
-    """Each member's segment output equals the matching rows of full
-    causal attention over the whole sequence — including a lone-member
-    'gang' (ends=[S]) and uneven splits — and the JAX reference's
-    segment fold on the same inputs."""
+    """Each member's segment output — the port's attention at absolute
+    positions, and the port's segment fold — equals the matching rows of
+    full causal attention over the whole sequence, including a lone-member
+    'gang' (ends=[S]) and uneven splits, and the JAX reference's segment
+    fold on the same inputs."""
     import jax.numpy as jnp
 
     from deepspeed_tpu.parallel.sequence import gang_segment_attention
+    from deepspeed_tpu_torch.parallel import sequence as port_sequence
 
     q, k, v = _full_qkv(KV=4 // gqa)
     ref = plain_attention(*map(torch.from_numpy, (q, k, v)),
@@ -98,17 +100,31 @@ def test_gang_segment_attention_matches_full_rows(gqa, ends):
             jk[:, start:end], jv[:, start:end], block=32)
         np.testing.assert_allclose(out, np.asarray(want),
                                    atol=1e-5, rtol=1e-5)
+        tq, tk, tv = map(torch.from_numpy, (q, k, v))
+        fold = port_sequence.gang_segment_attention(
+            tq[:, start:end], tk[:, :start] if start else None,
+            tv[:, :start] if start else None, tk[:, start:end],
+            tv[:, start:end], block=32).numpy()
+        np.testing.assert_allclose(fold, ref[:, start:end],
+                                   atol=1e-5, rtol=1e-5)
+        np.testing.assert_allclose(fold, np.asarray(want),
+                                   atol=1e-5, rtol=1e-5)
         start = end
 
 
 def test_gang_segment_attention_rejects_bad_gqa():
     """A KV head count that does not divide the query heads is refused by
-    the reference's segment fold and by the port's attention."""
+    the reference's segment fold, the port's and the port's attention."""
     from deepspeed_tpu.parallel.sequence import gang_segment_attention
+    from deepspeed_tpu_torch.parallel import sequence as port_sequence
 
     q, k, v = _full_qkv(H=4, KV=3)
     with pytest.raises(ValueError, match="divisible"):
         gang_segment_attention(q, None, None, k, v)
+    with pytest.raises(ValueError, match="divisible"):
+        port_sequence.gang_segment_attention(
+            torch.from_numpy(q), None, None, torch.from_numpy(k),
+            torch.from_numpy(v))
     with pytest.raises(RuntimeError):
         _port_segment(q, k, v, 0, q.shape[1])
 

@@ -274,7 +274,11 @@ DEFERRED = [
     ({"mesh": {"expert": 2}}, "'expert': 2.*item 6"),
     ({"zero_optimization": {"zero_hpz_partition_size": 2}}, "hpZ"),
     ({"mesh": {"pipe": 2}}, "'pipe': 2.*item 6"),
-    ({"mesh": {"seq": 2}}, "'seq': 2.*item 6"),
+    # seq > 1 trains (tests/test_torch_train_engine_seq.py) but not yet
+    # with ZeRO-Offload
+    ({"mesh": {"seq": 2}, "zero_optimization": {
+        "stage": 1, "offload_optimizer": {"device": "cpu"}}},
+     "'seq': 2.*item 6"),
 ]
 
 
