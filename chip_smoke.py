@@ -153,8 +153,9 @@ Phases (every one raises on failure; nothing is caught and passed over):
      2; every format where the last column block is padded or the group
      falls under 128), K3 on qwen2-moe's experts split in two (704).
 3. parity — llama2-7b at full width with 4 layers in fp32: the engine's
-   greedy streams against a greedy loop over the dense
-   ``TransformerLM.forward``. TF32 is off for matmuls and cuDNN. Streams
+   greedy streams against the dense ``TransformerLM.forward``
+   teacher-forced on each stream (one forward over the prompt and the
+   stream gives every step's logits). TF32 is off for matmuls and cuDNN. Streams
    must be identical and every sampled step's logits agree within 1e-3
    relative; the one allowed exception is a step where the oracle's top-2
    logit gap is below 1e-4 (a near-tie in random weights), printed as such.
@@ -284,7 +285,8 @@ Phases (every one raises on failure; nothing is caught and passed over):
    the master; prints free disk, bytes on disk, save / verify / load
    seconds. (c) a NaN injected at step 4 rewinds to the step-2 tag and the
    replayed steps 3-5 are bit for bit the clean run's. (d) two CPU gloo
-   ranks train tiny-llama in fp32 at stage 3 and save; the card loads the
+   ranks (the pool of 2 the tp and seq phases use later, on the CPU
+   here) train tiny-llama in fp32 at stage 3 and save; the card loads the
    tag at stage 1: the eval loss within 1e-5 relative, a further step
    finite. (e) stage 3 at the train phase's spec (8 layers, micro 2 x
    gas 2 x 2048, 5 steps) beside stage 0 timed alike in this phase (and
@@ -497,7 +499,9 @@ Phases (every one raises on failure; nothing is caught and passed over):
 15. tp — tensor-parallel serving as rank processes sharing the one card
    over gloo (NCCL refuses two ranks on one device; tensors gloo cannot
    take from the card pass through pinned host memory, counted in
-   ``comm.staged``): ``comm.spawn.RankPool`` ranks, each building
+   ``comm.staged``): ``comm.spawn.RankPool`` ranks (the pools of 2 and 4
+   ranks start before the zero phase, whose CPU ranks and the seq phase
+   share the pool of 2; see :func:`start_pools`), each building
    ``InferenceEngineV2(..., topology=MeshTopology({"tensor": n}))`` from a
    meta model (each rank draws its slices of the seeded weights a block at
    a time), on the serve phase's engine settings with ``max_inflight`` 0
@@ -525,10 +529,11 @@ Phases (every one raises on failure; nothing is caught and passed over):
    (qwen2-moe routing every token), (d) the TP-1 engine's streams on the
    same weights, parting only at a near-tie (top-2 gap below 1e-4). These
    are ranks time-slicing one card over gloo: their times say nothing of
-   tensor parallelism's speed. Work goes under ``tp.tmp/`` and is removed.
+   tensor parallelism's speed. The pools' stores go under ``pools.tmp/``
+   and are removed.
 16. seq — sequence-parallel training as rank processes sharing the one
-   card over gloo (``comm.spawn.RankPool``: one rank for the seq-1
-   references, two for seq 2; this process launches no kernel). (a) At
+   card over gloo (the tp phase's pool of two ranks; the seq-1 references
+   run in this process first, and it launches no kernel after them). (a) At
    the bf16 leg's shape, [1, 4096, 32, 128] from one seed on both ranks:
    ``ulysses_attention`` over the two ranks (K4 at 16 heads a rank, one
    forward and one backward launch each) against one K4 over the whole
@@ -551,7 +556,19 @@ Phases (every one raises on failure; nothing is caught and passed over):
    rank the step times, the host seconds inside Ulysses' all-to-alls and
    the gradient reduction, peak memory and bytes staged through host
    memory: ranks time-slicing one card over gloo, no measure of sequence
-   parallelism's speed. Work goes under ``seq.tmp/`` and is removed.
+   parallelism's speed. (c) Each leg again in the same two ranks at
+   ``{"tensor": 2}`` (the model given on the meta device: each rank draws
+   its 16 heads, 5504 FFN columns and 16000 vocab rows a block at a time),
+   held against the same seq-1 run (the tensor-1 reference) by the same
+   bounds; then the fp32 leg with ``tensor_parallel.overlap`` on, its
+   losses within 1e-5 relative of the overlap-off run's. Each rank's K4
+   launches exactly as in (b) and equal; the replicated parameters (the
+   norms, compute and master) bit-identical on both ranks; the ring
+   counters exact: none off, 2 a layer a forward on (remat's second
+   forward included; 4096 rows divide 2), no fallback. Prints per rank
+   the step times and the host seconds inside the Megatron all-reduces;
+   the kernels line adds each tensor rank's own counts. Work goes under
+   ``seq.tmp/`` and is removed.
 
 The serving parity phase's dense oracles pass ``attn_impl="xla"``, so they
 stay independent of the kernels under test.
@@ -663,6 +680,80 @@ def cuda_time_ms(fn, iters: int = 20, warmup: int = 3,
 def free_cuda() -> None:
     gc.collect()
     torch.cuda.empty_cache()
+
+
+# ---------------------------------------------------------------------------
+# rank pools, shared by the phases that run ranks
+# ---------------------------------------------------------------------------
+
+#: where the pools' ``file://`` stores live (inside the checkout; removed)
+POOL_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                        "pools.tmp")
+#: world size -> (``RankPool``, the thread running its warm-up, its error)
+_POOLS: dict = {}
+
+
+def warm_rank() -> None:
+    """A pool's first task: the compiler stack that
+    ``torch.utils.checkpoint`` imports at its first call (seconds a
+    process), so that no timed step of a rank pays it."""
+    import torch._dynamo  # noqa: F401
+
+
+def start_pools(worlds) -> None:
+    """Start a ``RankPool`` of each size in ``worlds`` now, its processes
+    importing and warming up (:func:`warm_rank`) while this process runs
+    other phases. zero's CPU ranks, the tp phase and the seq phase then
+    share them, each task setting up its own mesh, as the CPU tests' pools
+    run one case after another."""
+    import threading
+
+    from deepspeed_tpu_torch.comm.spawn import RankPool
+
+    if not _POOLS:
+        shutil.rmtree(POOL_DIR, ignore_errors=True)   # a stale store hangs
+    for n in worlds:
+        if n in _POOLS:
+            continue
+        os.makedirs(POOL_DIR, exist_ok=True)
+        pool = RankPool(n, os.path.join(POOL_DIR, f"store{n}"))
+        entry = [pool, None, None]
+
+        def warm(entry=entry):
+            try:
+                entry[0].run(warm_rank, timeout=600)
+            except BaseException as e:       # raised where the pool is used
+                entry[2] = e
+        entry[1] = threading.Thread(target=warm, daemon=True)
+        entry[1].start()
+        _POOLS[n] = entry
+
+
+def rank_pool(n: int):
+    """The pool of ``n`` ranks (started now if :func:`start_pools` did
+    not), once its warm-up has ended."""
+    start_pools([n])
+    pool, thread, _ = _POOLS[n]
+    thread.join()
+    err = _POOLS[n][2]
+    if err is not None:
+        raise RuntimeError(f"the pool of {n} ranks did not start") from err
+    if not pool.procs:
+        raise RuntimeError(f"the pool of {n} ranks was closed by a failed "
+                           f"task")
+    return pool
+
+
+def close_pools(worlds=None) -> None:
+    """Stop the pools of the sizes in ``worlds`` (default: all), and remove
+    their stores once none is left."""
+    for n in list(_POOLS if worlds is None else worlds):
+        entry = _POOLS.pop(n, None)
+        if entry is not None:
+            entry[0].close()
+            entry[1].join(timeout=30)
+    if not _POOLS:
+        shutil.rmtree(POOL_DIR, ignore_errors=True)
 
 
 # ---------------------------------------------------------------------------
@@ -2322,18 +2413,21 @@ def check_launches(tag, got: dict, cfg, *, forwards, e4m3_pool, quant,
 
 
 def oracle_check(tag, eng, oracle, prompts, streams, new, dev):
-    """Each stream against a greedy loop over the dense ``oracle``: logits
-    within 1e-3 relative, tokens equal except at near-ties (top-2 gap below
-    1e-4). Returns (worst relative logits error, near-ties)."""
+    """Each stream against the dense ``oracle`` teacher-forced on it: one
+    forward over the prompt and the stream gives every step's logits (a
+    causal model's logits at a position read only the tokens up to it, so
+    they are a greedy loop's over the same prefix); logits within 1e-3
+    relative, tokens equal except at near-ties (top-2 gap below 1e-4).
+    Returns (worst relative logits error, near-ties)."""
     worst, near_ties = 0.0, []
     with torch.no_grad():
         for uid, (prompt, got) in enumerate(zip(prompts, streams)):
             if len(got) != new:
                 raise AssertionError(f"[{tag}] uid {uid}: {len(got)} tokens")
-            seq = list(prompt)
+            ids = torch.tensor([list(prompt) + list(got[:-1])], device=dev)
+            refs = oracle(ids)[0, len(prompt) - 1:].float().cpu()
             for k, tok in enumerate(got):
-                ids = torch.tensor([seq], device=dev)
-                ref = oracle(ids)[0, -1].float().cpu()
+                ref = refs[k]
                 top2 = torch.topk(ref, 2).values
                 ours = eng.taps[uid][k]
                 rel = ((ours - ref).abs().max() / ref.abs().max()).item()
@@ -2352,7 +2446,6 @@ def oracle_check(tag, eng, oracle, prompts, streams, new, dev):
                     near_ties.append((uid, k, gap))
                     log(f"[{tag}] NEAR-TIE uid {uid} step {k}: oracle top-2 "
                         f"gap {gap:.2e} < 1e-4; streams part here by design")
-                seq.append(tok)
     return worst, near_ties
 
 
@@ -2418,8 +2511,8 @@ def phase_parity(dev) -> dict:
 def parity_ring(dev) -> dict:
     """mistral-7b at full width x 4 layers in fp32 served from its rolling
     ring (69 pages of 64): two prompts past the 4416-token ring and a short
-    one, 32 new tokens each, against a greedy loop over the dense forward
-    (which masks the 4096-key window) under oracle_check's rule; then an
+    one, 32 new tokens each, against the dense forward (which masks the
+    4096-key window) under oracle_check's rule; then an
     e4m3-pool ring against the fp32 one within the JAX package's fp8 bound
     (max 0.5, mean 0.05 on the logits while the streams agree)."""
     from deepspeed_tpu_torch.models import build_model
@@ -4723,7 +4816,9 @@ def zero_cpu_rank(d: str) -> float:
     for step in range(spec["steps"]):
         engine.train_batch(loader.batch_for_step(step))
     engine.save_checkpoint(d)
-    return float(engine.eval_batch(zero_data(spec, 256, 1, seed=12)))
+    loss = float(engine.eval_batch(zero_data(spec, 256, 1, seed=12)))
+    engine.close()
+    return loss
 
 
 def phase_zero(dev, train: dict | None = None) -> dict:
@@ -4737,7 +4832,6 @@ def phase_zero(dev, train: dict | None = None) -> dict:
     from deepspeed_tpu_torch import comm
     from deepspeed_tpu_torch.checkpoint import (
         get_fp32_state_dict_from_zero_checkpoint, tag_status)
-    from deepspeed_tpu_torch.comm.spawn import RankPool
 
     t_phase = time.perf_counter()
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -4893,8 +4987,7 @@ def phase_zero(dev, train: dict | None = None) -> dict:
 
     # (d) two CPU ranks save; the card loads -------------------------------
     with tempfile.TemporaryDirectory(dir=os.path.dirname(ZERO_CKPT)) as d:
-        with RankPool(2, os.path.join(d, "store")) as pool:
-            evals = pool.run(zero_cpu_rank, os.path.join(d, "ck"))
+        evals = rank_pool(2).run(zero_cpu_rank, os.path.join(d, "ck"))
         import deepspeed_tpu_torch as dst
         from deepspeed_tpu_torch.models import build_model
 
@@ -7787,7 +7880,6 @@ def phase_fleet(dev) -> dict:
 # phase 15: tensor-parallel serving, ranks sharing the one card over gloo
 # ---------------------------------------------------------------------------
 
-TP_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tp.tmp")
 #: every leg's engine: the serve phase's, committing within each step
 TP_ENGINE = dict(block_size=64, num_blocks=256, max_seqs=8, chunk=256,
                  max_seq_len=2048, decode_window=8, max_inflight=0)
@@ -8106,7 +8198,6 @@ def tp_check_ranks(leg, recs: list) -> dict:
 def phase_tp(dev) -> dict:
     """See the module docstring, phase 15."""
     from deepspeed_tpu_torch.accelerator import card_name_and_power_limit
-    from deepspeed_tpu_torch.comm.spawn import RankPool
     from deepspeed_tpu_torch.models import build_model, get_model_config
     from deepspeed_tpu_torch.ops import native
 
@@ -8115,31 +8206,27 @@ def phase_tp(dev) -> dict:
     native.load_library()        # built once here: ranks never race g++
     free_cuda()
     reset_counts()
-    shutil.rmtree(TP_DIR, ignore_errors=True)
     legs: dict = {}
     traffic: dict = {}
     for leg in TP_LEGS:
         tag, tp, name, mover, dtype, runs, (lens, sys_len, new), _ = leg
         traffic[tag] = tp_prompts(
             get_model_config(name, **mover).vocab_size, lens, sys_len, 31)
-    try:
-        for n in sorted({leg[1] for leg in TP_LEGS}):
-            with RankPool(n, os.path.join(TP_DIR, f"store{n}")) as pool:
-                for leg in (lg for lg in TP_LEGS if lg[1] == n):
-                    t0 = time.perf_counter()
-                    recs = pool.run(tp_rank_leg, leg, *traffic[leg[0]],
-                                    dev.type, timeout=900)
-                    legs[leg[0]] = dict(
-                        seconds=time.perf_counter() - t0,
-                        runs={run: {k: v for k, v in r.items()
-                                    if k != "streams"}
-                              for run, r in recs[0]["runs"].items()},
-                        streams={run: r["streams"]
-                                 for run, r in recs[0]["runs"].items()},
-                        launches=tp_check_ranks(leg, recs))
-            free_cuda()
-    finally:
-        shutil.rmtree(TP_DIR, ignore_errors=True)
+    for n in sorted({leg[1] for leg in TP_LEGS}):
+        pool = rank_pool(n)
+        for leg in (lg for lg in TP_LEGS if lg[1] == n):
+            t0 = time.perf_counter()
+            recs = pool.run(tp_rank_leg, leg, *traffic[leg[0]], dev.type,
+                            timeout=900)
+            legs[leg[0]] = dict(
+                seconds=time.perf_counter() - t0,
+                runs={run: {k: v for k, v in r.items() if k != "streams"}
+                      for run, r in recs[0]["runs"].items()},
+                streams={run: r["streams"]
+                         for run, r in recs[0]["runs"].items()},
+                launches=tp_check_ranks(leg, recs))
+        if n != 2:
+            close_pools([n])          # the seq phase shares the 2 ranks'
     parent = all_counts()
     if any(parent.values()):
         raise AssertionError(f"[tp] this process launched kernels: {parent}")
@@ -8217,16 +8304,27 @@ SEQ_LEGS = (("fp32", 2, "float32"), ("bf16", 4, "bfloat16"))
 SEQ_LOSS_TOL = {"float32": 1e-5, "bfloat16": 2e-3}
 
 
-def seq_rank_leg(leg: tuple, sp: int, device: str = "cuda") -> dict:
-    """One rank of a seq leg (runs in a ``RankPool`` process): the model
-    from the seed, ``initialize`` at ``{"seq": sp}`` on ``device``, the
-    steps on one batch. At seq 1 (the reference) an fp32 leg saves its
-    master under ``SEQ_DIR``; at seq 2 an fp32 leg holds its master
-    against it here, a parameter at a time. Returns losses, step times,
-    launches and the parameter comparison."""
+def seq_rank_leg(leg: tuple, sp: int, device: str = "cuda",
+                 axis: str = "seq", overlap: bool = False) -> dict:
+    """One rank of a seq or tensor leg (runs in a ``RankPool`` process;
+    a size-1 reference in this one): the model from the seed,
+    ``initialize`` at ``{axis: sp}`` on ``device``, the steps on one
+    batch. At ``tensor`` > 1 the model is
+    given on the meta device, so the engine draws its seeded weights a
+    block at a time and keeps this rank's slices; ``overlap`` turns
+    ``tensor_parallel.overlap`` on. At size 1 (the reference) an fp32 leg
+    saves its master under ``SEQ_DIR``; at size 2 an fp32 leg holds its
+    master (a tensor rank's slices against the reference's) against it
+    here, a parameter at a time. Returns losses, step times, launches, the
+    parameter comparison, a digest of the replicated parameters and the
+    ring counters."""
+    import hashlib
+
     import deepspeed_tpu_torch as dst
     from deepspeed_tpu_torch import comm
     from deepspeed_tpu_torch.models import build_model
+    from deepspeed_tpu_torch.parallel.tensor import overlap_counters
+    from deepspeed_tpu_torch.runtime.zero.planner import tensor_shard
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -8239,19 +8337,23 @@ def seq_rank_leg(leg: tuple, sp: int, device: str = "cuda") -> dict:
         torch.cuda.reset_peak_memory_stats(dev)
     sync = torch.cuda.synchronize if cuda else (lambda *a: None)
     spec = SEQ
+    tensor = axis == "tensor" and sp > 1
     model = build_model(spec["name"], num_layers=layers, dtype=dtype,
-                        param_dtype=torch.float32, device=dev,
-                        seed=spec["seed"])
+                        param_dtype=torch.float32,
+                        device="meta" if tensor else dev, seed=spec["seed"])
     engine, *_ = dst.initialize(model=model, device=dev, config=train_config(
         spec, activation_checkpointing={"policy": "full"},
-        mesh={"seq": sp}, bf16={"enabled": dtype == torch.bfloat16},
+        mesh={axis: sp}, bf16={"enabled": dtype == torch.bfloat16},
+        tensor_parallel={"overlap": overlap},
         optimizer={"type": "AdamW", "params": {"lr": 1e-4, "eps": 1e-5,
                                                "weight_decay": 0.01}}))
     batch = train_batch_of(spec, model.config.vocab_size, spec["seed"])
     staged0 = {k: list(v) for k, v in comm.staged.items()}
     # host seconds a step inside Ulysses' all-to-alls (forward, remat and
-    # backward) and in the gradient reduction (the all-reduce over seq)
-    spent = {"all_to_all": 0.0, "grad_reduce": 0.0}
+    # backward), in the gradient reduction (the all-reduce over seq) and
+    # inside the tensor all-reduces of the Megatron layers (a blocking
+    # gloo call waits for the device work before it)
+    spent = {"all_to_all": 0.0, "grad_reduce": 0.0, "tensor": 0.0}
 
     def timed(key, fn):
         def call(*a, **kw):
@@ -8267,19 +8369,37 @@ def seq_rank_leg(leg: tuple, sp: int, device: str = "cuda") -> dict:
     comm.comm._all_to_all = timed("all_to_all", a2a)
     engine._finish_grads = timed("grad_reduce", engine._finish_grads)
     reset_counts()
+    overlap_counters.reset()
+    tensor0 = dict(comm.tensor_allreduce)
     losses, step_s, split = [], [], []
     try:
         for _ in range(spec["steps"]):
             sync()
             spent.update(all_to_all=0.0, grad_reduce=0.0)
+            t_ar = comm.tensor_allreduce["seconds"]
             t0 = time.perf_counter()
             losses.append(float(engine.train_batch(batch)))
             step_s.append(time.perf_counter() - t0)
+            spent["tensor"] = comm.tensor_allreduce["seconds"] - t_ar
             split.append(dict(spent))
     finally:
         comm.comm._all_to_all = a2a
     launches = all_counts()
-    out = dict(rank=engine.sp_rank, losses=losses, step_s=step_s,
+    # the replicated parameters' digest, which tensor_check compares across
+    # the tensor ranks (elsewhere every parameter is replicated: seconds of
+    # hashing that nothing reads)
+    rep_bytes = hashlib.sha256()
+    for i, (n, p) in enumerate(zip(engine._names, engine._params)):
+        if tensor and "tensor" not in (engine._tp_specs[i] or ()):
+            for t in (p, engine._master[i]):
+                rep_bytes.update(t.detach().contiguous().view(torch.uint8)
+                                 .cpu().numpy().tobytes())
+    out = dict(rank=engine.tp_rank if tensor else engine.sp_rank,
+               losses=losses, step_s=step_s,
+               ring=overlap_counters.snapshot(),
+               replicated_sha256=rep_bytes.hexdigest() if tensor else None,
+               tensor_allreduce={k: comm.tensor_allreduce[k] - tensor0[k]
+                                 for k in tensor0},
                split_s=split, launches=launches,
                params=engine.num_parameters(),
                staged={k: [v[0] - staged0.get(k, [0, 0])[0],
@@ -8303,8 +8423,11 @@ def seq_rank_leg(leg: tuple, sp: int, device: str = "cuda") -> dict:
             del start
         else:
             ref = torch.load(path, mmap=True)
-            out["max_diff"] = max((final[n] - ref[n].to(dev)).abs().max()
-                                  .item() for n in final)
+            specs = dict(zip(engine._names, engine._tp_specs))
+            out["max_diff"] = max(
+                (final[n] - tensor_shard(ref[n], specs[n] or (),
+                                         engine.tp_rank, engine.tp_size)
+                 .to(dev)).abs().max().item() for n in final)
             del ref
     engine.close()
     del engine, model
@@ -8406,75 +8529,158 @@ def seq_check(tag: str, ref: dict, recs: list, leg: tuple) -> dict:
     return out
 
 
+def tensor_check(tag: str, ref: dict, recs: list, leg: tuple,
+                 off: list | None = None) -> dict:
+    """The tensor-2 ranks against the size-1 run as :func:`seq_check`
+    holds the seq-2 ones, plus: the replicated parameters (compute and
+    master) bit-identical on both ranks; ring counters exact. Without
+    ``tensor_parallel.overlap`` no ring runs; with it (``off``: the
+    overlap-off ranks, whose losses the overlap run's match within 1e-5
+    relative) every ``wo`` and ``w_down`` forward rings (4096 rows divide
+    2): 2 a layer a forward, remat's second forward included, no
+    fallback. (Each ring's transposed ring in the backward is counted by
+    no counter.)"""
+    out = seq_check(tag, ref, recs, leg)
+    digests = {r["replicated_sha256"] for r in recs}
+    if len(digests) != 1:
+        raise AssertionError(f"[{tag}] replicated parameters differ across "
+                             f"the tensor ranks: {digests}")
+    _, layers, _ = leg
+    n = SEQ["gas"] * SEQ["steps"]
+    want = {"tp_ring_matmuls": 2 * 2 * layers * n if off else 0,
+            "tp_fallbacks": 0}
+    for r in recs:
+        got = {k: r["ring"][k] for k in want}
+        if got != want:
+            raise AssertionError(f"[{tag}] rank {r['rank']} ring counters "
+                                 f"{r['ring']} != {want}")
+    out["ring"] = recs[0]["ring"]
+    if off:
+        rel = max(abs(a - b) / abs(b)
+                  for a, b in zip(recs[0]["losses"], off[0]["losses"]))
+        out["max_rel_loss_diff_overlap_off"] = rel
+        if rel > 1e-5:
+            raise AssertionError(f"[{tag}] losses {recs[0]['losses']} "
+                                 f"against overlap off "
+                                 f"{off[0]['losses']}: {rel:.2e} > 1e-5")
+    return out
+
+
+def log_tensor_leg(tag: str, res: dict, recs: list, ref: dict) -> None:
+    steps = "; ".join(
+        f"rank {r['rank']}: {', '.join(f'{t:.2f}' for t in r['step_s'])} s"
+        f" a step (host seconds inside the tensor all-reduces "
+        f"{', '.join(f'{d['tensor']:.2f}' for d in r['split_s'])}; "
+        f"{r['tensor_allreduce']['calls']} all-reduces, "
+        f"{r['tensor_allreduce']['bytes'] / 1e9:.2f} GB in all), peak "
+        f"{r['peak_bytes'] / 1e9:.1f} GB, staged {r['staged']}"
+        for r in recs)
+    log(f"[{tag}] {recs[0]['params'] / 1e9:.2f} B parameters, half a "
+        f"rank: losses {', '.join(f'{x:.6f}' for x in res['losses'])} "
+        f"against size 1's {', '.join(f'{x:.6f}' for x in ref['losses'])} "
+        f"({res['max_rel_loss_diff']:.2e} relative, limit "
+        f"{res['loss_tol']:.0e})"
+        + (f"; parameters within {res['max_param_diff']:.2e} (max |param| "
+           f"{res['max_abs_param']:.3f}, largest change "
+           f"{res['max_param_change']:.2e})"
+           if "max_param_diff" in res else "")
+        + (f"; overlap off's losses within "
+           f"{res['max_rel_loss_diff_overlap_off']:.2e}"
+           if "max_rel_loss_diff_overlap_off" in res else "")
+        + f"; replicated parameters bit-identical on both ranks; ring "
+        f"counters {res['ring']}; K4 launches a rank "
+        f"{res['launches_per_rank']}; {steps} (size 1: "
+        f"{', '.join(f'{t:.2f}' for t in ref['step_s'])} s); ranks "
+        f"time-slicing one card over gloo: no measure of tensor "
+        f"parallelism's speed")
+
+
 def phase_seq(dev) -> dict:
     """See the module docstring, phase 16."""
     from deepspeed_tpu_torch.accelerator import card_name_and_power_limit
-    from deepspeed_tpu_torch.comm.spawn import RankPool
+    from deepspeed_tpu_torch.models import get_model_config
 
     t_phase = time.perf_counter()
     card = card_name_and_power_limit()
     free_cuda()
-    reset_counts()
     shutil.rmtree(SEQ_DIR, ignore_errors=True)
     os.makedirs(SEQ_DIR)
-    rec: dict = {"card": card, "legs": {}}
+    rec: dict = {"card": card, "legs": {}, "tensor": {}}
     try:
-        with RankPool(1, os.path.join(SEQ_DIR, "store1")) as one, \
-                RankPool(2, os.path.join(SEQ_DIR, "store2")) as two:
-            # (a) attention at the bf16 leg's shape
-            from deepspeed_tpu_torch.models import get_model_config
-
-            cfg = get_model_config(SEQ["name"])
-            att = two.run(seq_rank_attention, SEQ["seq"], cfg.num_heads,
-                          cfg.head_dim, SEQ["seed"], dev.type, timeout=600)
-            for a in att:
-                if a["ulysses_launches"] != (1, 1):
-                    raise AssertionError(f"[seq attention] rank {a['rank']} "
-                                         f"K4 launches {a['ulysses_launches']}")
-                for what in ("ulysses", "ring"):
-                    bad = {k: v for k, v in a[what].items() if v > 2e-2}
-                    if bad:
-                        raise AssertionError(
-                            f"[seq attention] rank {a['rank']} {what}: "
-                            f"{bad} over 2e-2 of max |reference|")
-            rec["attention"] = att
-            log(f"[seq attention] {card}: bf16 [1, {SEQ['seq']}, "
-                f"{cfg.num_heads}, {cfg.head_dim}] over 2 ranks: Ulysses (K4 "
-                f"at {cfg.num_heads // 2} heads a rank) against one K4 "
-                f"over the whole sequence {[a['ulysses'] for a in att]}; "
-                f"ring against fp32 plain attention "
-                f"{[a['ring'] for a in att]} (errors over max |reference|, "
-                f"limit 2e-2)")
-            # (b) the legs, each at seq 1 then seq 2
-            for leg in SEQ_LEGS:
-                tag = f"seq {SEQ['name']} x{leg[1]} {leg[0]}"
-                ref = one.run(seq_rank_leg, leg, 1, dev.type, timeout=600)[0]
-                recs = two.run(seq_rank_leg, leg, 2, dev.type, timeout=600)
-                res = seq_check(tag, ref, recs, leg)
-                res.update(ranks=recs, ref=ref)
-                rec["legs"][leg[0]] = res
-                steps = "; ".join(
-                    f"rank {r['rank']}: {', '.join(f'{t:.2f}' for t in r['step_s'])} s"
-                    f" a step (all-to-alls / gradient reduction "
-                    f"{', '.join(f'{d['all_to_all']:.2f} / {d['grad_reduce']:.2f}' for d in r['split_s'])}"
-                    f" s), peak {r['peak_bytes'] / 1e9:.1f} GB, staged "
-                    f"{r['staged']}" for r in recs)
-                log(f"[{tag}] {recs[0]['params'] / 1e9:.2f} B parameters, "
-                    f"{SEQ['seq']} tokens a step, {SEQ['seq'] // 2} a rank: "
-                    f"losses {', '.join(f'{x:.6f}' for x in res['losses'])} "
-                    f"against seq 1's "
-                    f"{', '.join(f'{x:.6f}' for x in ref['losses'])} "
-                    f"({res['max_rel_loss_diff']:.2e} relative, limit "
-                    f"{res['loss_tol']:.0e})"
-                    + (f"; parameters within {res['max_param_diff']:.2e} "
-                       f"(max |param| {res['max_abs_param']:.3f}, largest "
-                       f"change {res['max_param_change']:.2e})"
-                       if "max_param_diff" in res else "")
-                    + f"; K4 launches a rank {res['launches_per_rank']}; "
-                    f"{steps} (seq 1: "
-                    f"{', '.join(f'{t:.2f}' for t in ref['step_s'])} s); "
-                    f"ranks time-slicing one card over gloo: no measure of "
-                    f"sequence parallelism's speed")
+        # the size-1 references (seq 1 and tensor 1) in this process, then
+        # every other run in the two ranks
+        refs = {leg[0]: seq_rank_leg(leg, 1, dev.type) for leg in SEQ_LEGS}
+        free_cuda()
+        reset_counts()
+        two = rank_pool(2)
+        # (a) attention at the bf16 leg's shape
+        cfg = get_model_config(SEQ["name"])
+        att = two.run(seq_rank_attention, SEQ["seq"], cfg.num_heads,
+                      cfg.head_dim, SEQ["seed"], dev.type, timeout=600)
+        for a in att:
+            if a["ulysses_launches"] != (1, 1):
+                raise AssertionError(f"[seq attention] rank {a['rank']} "
+                                     f"K4 launches {a['ulysses_launches']}")
+            for what in ("ulysses", "ring"):
+                bad = {k: v for k, v in a[what].items() if v > 2e-2}
+                if bad:
+                    raise AssertionError(
+                        f"[seq attention] rank {a['rank']} {what}: "
+                        f"{bad} over 2e-2 of max |reference|")
+        rec["attention"] = att
+        log(f"[seq attention] {card}: bf16 [1, {SEQ['seq']}, "
+            f"{cfg.num_heads}, {cfg.head_dim}] over 2 ranks: Ulysses (K4 "
+            f"at {cfg.num_heads // 2} heads a rank) against one K4 "
+            f"over the whole sequence {[a['ulysses'] for a in att]}; "
+            f"ring against fp32 plain attention "
+            f"{[a['ring'] for a in att]} (errors over max |reference|, "
+            f"limit 2e-2)")
+        # (b) the legs at seq 2
+        for leg in SEQ_LEGS:
+            tag = f"seq {SEQ['name']} x{leg[1]} {leg[0]}"
+            ref = refs[leg[0]]
+            recs = two.run(seq_rank_leg, leg, 2, dev.type, timeout=600)
+            res = seq_check(tag, ref, recs, leg)
+            res.update(ranks=recs, ref=ref)
+            rec["legs"][leg[0]] = res
+            steps = "; ".join(
+                f"rank {r['rank']}: {', '.join(f'{t:.2f}' for t in r['step_s'])} s"
+                f" a step (all-to-alls / gradient reduction "
+                f"{', '.join(f'{d['all_to_all']:.2f} / {d['grad_reduce']:.2f}' for d in r['split_s'])}"
+                f" s), peak {r['peak_bytes'] / 1e9:.1f} GB, staged "
+                f"{r['staged']}" for r in recs)
+            log(f"[{tag}] {recs[0]['params'] / 1e9:.2f} B parameters, "
+                f"{SEQ['seq']} tokens a step, {SEQ['seq'] // 2} a rank: "
+                f"losses {', '.join(f'{x:.6f}' for x in res['losses'])} "
+                f"against seq 1's "
+                f"{', '.join(f'{x:.6f}' for x in ref['losses'])} "
+                f"({res['max_rel_loss_diff']:.2e} relative, limit "
+                f"{res['loss_tol']:.0e})"
+                + (f"; parameters within {res['max_param_diff']:.2e} "
+                   f"(max |param| {res['max_abs_param']:.3f}, largest "
+                   f"change {res['max_param_change']:.2e})"
+                   if "max_param_diff" in res else "")
+                + f"; K4 launches a rank {res['launches_per_rank']}; "
+                f"{steps} (seq 1: "
+                f"{', '.join(f'{t:.2f}' for t in ref['step_s'])} s); "
+                f"ranks time-slicing one card over gloo: no measure of "
+                f"sequence parallelism's speed")
+            # (c) the same leg at {"tensor": 2} against the same
+            # reference; the fp32 leg again with the ring overlap on
+            runs = [(leg[0], False)] + ([(f"{leg[0]} overlap", True)]
+                                        if leg[1] == SEQ_LEGS[0][1]
+                                        else [])
+            off = None
+            for name, overlap in runs:
+                ttag = f"tensor {SEQ['name']} x{leg[1]} {name}"
+                trecs = two.run(seq_rank_leg, leg, 2, dev.type, "tensor",
+                                overlap, timeout=600)
+                tres = tensor_check(ttag, ref, trecs, leg,
+                                    off if overlap else None)
+                tres.update(ranks=trecs)
+                rec["tensor"][name] = tres
+                log_tensor_leg(ttag, tres, trecs, ref)
+                off = trecs
     finally:
         shutil.rmtree(SEQ_DIR, ignore_errors=True)
     parent = all_counts()
@@ -8486,10 +8692,10 @@ def phase_seq(dev) -> dict:
 
 
 def seq_launches(rec: dict) -> dict:
-    """Each kernel's launches summed over the seq-2 ranks of every leg, as
-    each rank counted them."""
+    """Each kernel's launches summed over the seq-2 and tensor-2 ranks of
+    every leg, as each rank counted them."""
     total: dict = collections.Counter()
-    for leg in rec["legs"].values():
+    for leg in list(rec["legs"].values()) + list(rec["tensor"].values()):
         for r in leg["ranks"]:
             total.update(r["launches"])
     return {k: v for k, v in total.items() if v}
@@ -8717,6 +8923,11 @@ def main() -> int:
         k4_fwd["launches"] = (k4_fwd["launches"] or 0) + got["k4_fwd"]
         k4_bwd["launches"] = (k4_bwd["launches"] or 0) + got["k4_bwd"]
     lap("moe-train")
+    # the rank pools of zero's CPU ranks and the tp and seq phases start
+    # here: their processes import and warm up while the phases up to the
+    # fleet's run (idle, ~0.3 GB of host memory each)
+    start_pools(([2] if {"zero", "tp", "seq"} & set(phases) else [])
+                + ([4] if "tp" in phases else []))
     if "zero" in phases:
         zero = phase_zero(dev, record["phases"].get("train"))
         record["phases"]["zero"] = zero
@@ -8800,15 +9011,20 @@ def main() -> int:
     if "seq" in phases:
         seq = phase_seq(dev)
         record["phases"]["seq"] = seq
-        # K4 forward and backward on every seq-2 rank of both legs, each
-        # rank's own counts summed
+        # K4 forward and backward on every seq-2 and tensor-2 rank of the
+        # legs, each rank's own counts summed
         got = seq_launches(seq)
         for rec, key in ((k4_fwd, "k4_fwd"), (k4_bwd, "k4_bwd")):
             rec["launches"] = (rec["launches"] or 0) + got.get(key, 0)
         k4_fwd["seq"] = {"card": seq["card"], "launches": got,
                          "legs": {tag: {k: leg[k] for k in (
                              "losses", "ref_losses", "max_rel_loss_diff")}
-                             for tag, leg in seq["legs"].items()}}
+                             for tag, leg in seq["legs"].items()},
+                         "tensor_legs": {tag: {k: leg[k] for k in (
+                             "losses", "ref_losses", "max_rel_loss_diff",
+                             "ring")}
+                             for tag, leg in seq["tensor"].items()}}
+    close_pools()
     lap("seq")
     if "observe" in phases:
         # the breach capture (a profiler) last of all
@@ -8840,4 +9056,7 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    try:
+        sys.exit(main())
+    finally:
+        close_pools()

@@ -25,7 +25,11 @@ JAX package's does at trace time; here it records at each call.
 requires a gradient, as the JAX collectives are under ``jax.grad``: the
 backward is the inverse all-to-all, a reduce-scatter, and the shift the
 other way round. :func:`sequence_parallel_scope` says, while a training
-step runs, which axis splits each row's tokens.
+step runs, which axis splits each row's tokens, and
+:func:`tensor_parallel_scope` which axis shards the model; Megatron's two
+conjugate operators :func:`copy_to_tensor` (identity forward, sum
+backward) and :func:`reduce_from_tensor` (sum forward, identity backward)
+carry its layers' all-reduces.
 
 CUDA tensors over a gloo group (the tensor-parallel or sequence-parallel
 ranks that share one card, where NCCL refuses two ranks on one device):
@@ -44,6 +48,7 @@ import contextlib
 import datetime
 import os
 import threading
+import time
 from dataclasses import dataclass
 from typing import Sequence
 
@@ -646,6 +651,73 @@ def all_reduce_mean_autograd(x: torch.Tensor, group) -> torch.Tensor:
 
 
 # --------------------------------------------------------------------------
+# Megatron's conjugate operators over the tensor axis
+# --------------------------------------------------------------------------
+
+#: the tensor all-reduces of :func:`copy_to_tensor` / :func:`reduce_from_tensor`
+#: (forward and backward): calls, bytes and host seconds inside them
+tensor_allreduce = {"calls": 0, "bytes": 0, "seconds": 0.0}
+
+
+def _tensor_sum(x: torch.Tensor, axis: str) -> torch.Tensor:
+    """``x`` summed over ``axis`` (a new tensor), counted in
+    :data:`tensor_allreduce`. gloo takes CUDA tensors for ``all_reduce``
+    itself (:data:`GLOO_DEVICE_OPS`): nothing is staged."""
+    t0 = time.perf_counter()
+    out = all_reduce(x.contiguous(), axis)
+    tensor_allreduce["calls"] += 1
+    tensor_allreduce["bytes"] += x.numel() * x.element_size()
+    tensor_allreduce["seconds"] += time.perf_counter() - t0
+    return out
+
+
+class _CopyToTensor(torch.autograd.Function):
+    """Identity forward; the backward sums the gradient over the axis."""
+
+    @staticmethod
+    def forward(ctx, x, axis):
+        ctx.axis = axis
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _tensor_sum(g, ctx.axis), None
+
+
+class _ReduceFromTensor(torch.autograd.Function):
+    """The sum over the axis forward; identity backward."""
+
+    @staticmethod
+    def forward(ctx, x, axis):
+        return _tensor_sum(x, axis)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+def copy_to_tensor(x: torch.Tensor, axis: str = "tensor") -> torch.Tensor:
+    """Megatron's ``f``: the replicated stream entering column-parallel
+    products. Identity forward; the backward all-reduces (sums) the
+    gradient over ``axis``, each member holding its columns' share. A
+    no-op on an axis of one."""
+    if axis_size(axis) == 1:
+        return x
+    return _CopyToTensor.apply(x, axis)
+
+
+def reduce_from_tensor(x: torch.Tensor, axis: str = "tensor") -> torch.Tensor:
+    """Megatron's ``g``: the partial sums of a row-parallel product summed
+    over ``axis`` (an all-reduce); identity backward, every member's
+    upstream gradient being the same. A no-op on an axis of one."""
+    if axis_size(axis) == 1:
+        return x
+    if _recording(x):
+        return _ReduceFromTensor.apply(x, axis)
+    return _tensor_sum(x, axis)
+
+
+# --------------------------------------------------------------------------
 # The data-parallel scope of a training step
 # --------------------------------------------------------------------------
 
@@ -718,3 +790,41 @@ def sequence_parallel_scope(axis: str, size: int, rank: int):
 
 def current_sequence_parallel() -> SequenceParallel | None:
     return _sp
+
+
+# --------------------------------------------------------------------------
+# The tensor-parallel scope of a training step
+# --------------------------------------------------------------------------
+
+@dataclass
+class TensorParallel:
+    """The mesh axis a step's model is sharded over, Megatron-style:
+    ``size`` members, this one holding slice ``rank`` of every sharded
+    parameter (heads, FFN columns, vocab rows)."""
+    axis: str
+    size: int
+    rank: int
+
+
+_tp: TensorParallel | None = None
+
+
+@contextlib.contextmanager
+def tensor_parallel_scope(axis: str, size: int, rank: int):
+    """While a step's forward and backward run, the model's modules hold
+    this member's slices and run their Megatron layers over ``axis``
+    (``models/transformer.py``): :func:`copy_to_tensor` before a
+    column-parallel product, :func:`reduce_from_tensor` after a row-parallel
+    one, the loss over vocab-sharded logits. A process global, as
+    :func:`sequence_parallel_scope` is; a no-op for a size of one."""
+    global _tp
+    prev = _tp
+    _tp = TensorParallel(axis, size, rank) if size > 1 else None
+    try:
+        yield
+    finally:
+        _tp = prev
+
+
+def current_tensor_parallel() -> TensorParallel | None:
+    return _tp

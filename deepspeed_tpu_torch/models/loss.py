@@ -22,12 +22,20 @@ axis too, so the loss is one masked mean over every token of the global
 batch; a rank's labels then come with its slice, shifted on whole rows
 before the split (the JAX loss's ``roll`` across the sharded dim).
 
+Under tensor parallelism (``comm.tensor_parallel_scope``) a
+``TransformerLM``'s logits are this rank's vocab shard: the loss runs
+through ``parallel/sequence.vocab_parallel_nll_logz`` over the axis (the
+log-partition summed over the shards, the z-loss term kept), and its
+count of labelled tokens stays over data x seq: the tensor ranks hold the
+same rows.
+
 ``DS_TPU_FUSED_HEAD_CHUNK=<vocab columns>`` routes :func:`lm_loss_fn`
 through :func:`fused_lm_head_loss`: the unembedding product and the
 softmax cross-entropy run together over vocab chunks with an online
 log-sum-exp, and the backward computes each chunk's logits again, so the
 ``[B·S, V]`` logits never exist in any precision (the JAX package's
-``_fused_nll_logz`` custom VJP, ``loss.py:150-297``). The chunk products
+``_fused_nll_logz`` custom VJP, ``loss.py:150-297``); at tensor > 1 it
+raises NotImplementedError (ROADMAP queue 1, item 6b part 3). The chunk products
 are plain ``torch.matmul``, as the JAX package computes them in XLA. The
 masked-LM loss of the bert family is ported with a later slice.
 """
@@ -84,19 +92,32 @@ def _denominator(mask: torch.Tensor) -> tuple[torch.Tensor, int]:
 
 def cross_entropy_lm(logits: torch.Tensor, labels: torch.Tensor,
                      ignore_index: int = IGNORE_INDEX,
-                     z_loss_weight: float = 0.0) -> torch.Tensor:
+                     z_loss_weight: float = 0.0,
+                     vocab_axis: str | None = None) -> torch.Tensor:
     """Mean next-token cross entropy. ``logits`` [B,S,V], ``labels`` [B,S]
-    already shifted by the caller (labels[t] is the target for logits[t])."""
+    already shifted by the caller (labels[t] is the target for logits[t]).
+    ``vocab_axis``: the logits are this rank's vocab shard [B,S,V/n] over
+    that mesh axis (``parallel/sequence.vocab_parallel_nll_logz``); the
+    loss, the same on every member, is the whole vocab's."""
     V = logits.shape[-1]
     N = math.prod(logits.shape[:-1])
     mask = labels != ignore_index
     denom, ranks = _denominator(mask)
     ce_chunk = int(os.environ.get("DS_TPU_CE_CHUNK", "0"))
+    if vocab_axis is not None:
+        from ..parallel.sequence import vocab_parallel_nll_logz
+
+        piece = lambda lg, lb: vocab_parallel_nll_logz(lg, lb, vocab_axis)
+        if not ce_chunk:
+            nll, logz = piece(logits, torch.where(mask, labels, -1))
+            return _masked_mean_loss(nll, logz, denom, z_loss_weight, ranks)
+    else:
+        piece = _nll_logz_piece
     if ce_chunk:
         chunk = min(ce_chunk, N)
         lab = torch.where(mask, labels, -1).reshape(N)
         lg = logits.reshape(N, V)
-        pieces = [checkpoint(_nll_logz_piece, lg[s:s + chunk], lab[s:s + chunk],
+        pieces = [checkpoint(piece, lg[s:s + chunk], lab[s:s + chunk],
                              use_reentrant=False)
                   for s in range(0, N, chunk)]
         nll = torch.cat([p[0] for p in pieces])
@@ -250,7 +271,15 @@ def lm_loss_fn(model, batch: dict) -> torch.Tensor:
         labels = shift_labels(input_ids)
     if not isinstance(model, TransformerLM):
         return cross_entropy_lm(model(input_ids), labels)
+    from ..comm.comm import current_tensor_parallel
+
+    tp = current_tensor_parallel()
     vchunk = int(os.environ.get("DS_TPU_FUSED_HEAD_CHUNK") or 0)
+    if vchunk > 0 and tp is not None:
+        raise NotImplementedError(
+            f"the fused vocab-chunked head (DS_TPU_FUSED_HEAD_CHUNK) at "
+            f"tensor {tp.size} is ported with ROADMAP queue 1, item 6b "
+            f"part 3")
     out, layer_losses = model(input_ids, return_losses=True,
                               noise_seed=batch.get("_gating_seed"),
                               return_hidden=vchunk > 0)
@@ -262,11 +291,15 @@ def lm_loss_fn(model, batch: dict) -> torch.Tensor:
         loss = fused_lm_head_loss(out, w.to(dt), labels, bias=bias,
                                   w_is_ve=w_is_ve, vchunk=vchunk)
     else:
-        loss = cross_entropy_lm(out, labels)
+        sharded = tp is not None and out.shape[-1] != model.config.vocab_size
+        loss = cross_entropy_lm(out, labels,
+                                vocab_axis=tp.axis if sharded else None)
     for aux in layer_losses:
         loss = loss + aux
     return loss
 
 
-#: it reads the sequence-parallel scope (the engine accepts it at seq > 1)
+#: it reads the sequence- and tensor-parallel scopes (the engine accepts it
+#: at seq > 1 and at tensor > 1)
 lm_loss_fn.sequence_parallel = True
+lm_loss_fn.tensor_parallel = True

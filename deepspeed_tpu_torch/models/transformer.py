@@ -49,9 +49,20 @@ global, ``rank * S_local`` on, and attention runs through Ulysses
 (``parallel/sequence.ulysses_model_attention``): the rank's own heads over
 the whole sequence, K4 allowed in a world of many, ALiBi over the whole
 sequence's positions. The norms, the FFN and the head stay token-local.
-The bert-family encoder layout (post-norm, bidirectional,
-segment embeddings) is ported with ROADMAP queue 1, item 7 and raises
-here.
+Under a tensor-parallel scope (``comm.tensor_parallel_scope``, which the
+training engine opens at ``tensor`` > 1) the modules hold this rank's
+slices and read their local head, column and vocab counts from the
+parameter shapes (Megatron's layers): ``copy_to_tensor`` on the replicated
+stream before q/k/v, before ``w_gate`` / ``w_up`` and before the head;
+``wo`` and ``w_down`` row-parallel, then ``reduce_from_tensor`` (or, under
+an open ``tp_overlap_scope``, ``parallel/tensor.ring_row_matmul``), then
+their replicated biases; the embedding a masked lookup of the rank's
+vocab rows, summed; the logits the rank's vocab columns. K/V heads that
+do not divide the axis stay whole: a rank projects those its query heads
+read. ALiBi takes the global heads' slopes; under seq too, Ulysses splits
+the rank's heads again (tensor-major). The bert-family encoder layout
+(post-norm, bidirectional, segment embeddings) is ported with ROADMAP
+queue 1, item 7 and raises here.
 """
 from __future__ import annotations
 
@@ -64,12 +75,15 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ..comm.comm import all_gather, current_sequence_parallel
+from ..comm.comm import (all_gather, copy_to_tensor, current_sequence_parallel,
+                         current_tensor_parallel, reduce_from_tensor)
 from ..moe.layer import MoE
 from ..ops.attention import dot_product_attention
 from ..ops.quant_matmul import QuantLinear, quant_matmul
 from ..ops.remat import checkpoint_fn, make_policy
 from ..parallel.sequence import ulysses_model_attention
+from ..parallel.tensor import current_tp_overlap, overlap_counters, \
+    ring_row_matmul
 
 
 @dataclass(frozen=True)
@@ -304,26 +318,44 @@ _ACTS = {
 }
 
 
-def dense_ffn(x: torch.Tensor, p, cfg: ModelConfig, reduce=None
-              ) -> torch.Tensor:
+def dense_ffn(x: torch.Tensor, p, cfg: ModelConfig, reduce=None,
+              down=None) -> torch.Tensor:
     """SwiGLU or two-matrix FFN over ``p`` (``w_gate``/``w_up``/``w_down``,
     plus ``b_up``/``b_down`` for the two-matrix form). ``QuantLinear``
     weights run the quantized-weight kernel, as the JAX engine's quantized
     FFN branch does. ``reduce`` (a tensor-parallel engine's sum over the
     tensor ranks) takes the down product of row-sharded weights before
-    ``b_down`` is added."""
+    ``b_down`` is added; ``down(h, w_down)``, when given, computes that
+    summed down product itself (the training model's row-parallel route,
+    plain or ring)."""
     dt = x.dtype
 
     def mm(h, w):
         return _qmm(h, w) if isinstance(w, QuantLinear) else h @ w.to(dt)
 
-    if cfg.activation == "silu_glu":
-        h = F.silu(mm(x, p["w_gate"])) * mm(x, p["w_up"])
+    def out(h):
+        if down is not None:
+            return down(h, p["w_down"].to(dt))
         y = mm(h, p["w_down"])
         return y if reduce is None else reduce(y)
+
+    if cfg.activation == "silu_glu":
+        return out(F.silu(mm(x, p["w_gate"])) * mm(x, p["w_up"]))
     h = _ACTS[cfg.activation](mm(x, p["w_up"]) + p["b_up"].to(dt))
-    y = mm(h, p["w_down"])
-    return (y if reduce is None else reduce(y)) + p["b_down"].to(dt)
+    return out(h) + p["b_down"].to(dt)
+
+
+def _row_parallel(x: torch.Tensor, w: torch.Tensor, axis: str,
+                  ring: bool) -> torch.Tensor:
+    """The summed row-parallel product ``x @ w`` of this rank's contraction
+    slices (x ``[..., K/n]``, w ``[K/n, N]``): under an open
+    ``tp_overlap_scope`` (``ring``) the ring matmul⊗reduce-scatter and
+    all-gather (``parallel/tensor.ring_row_matmul``), else, and where the
+    ring declines, the product then :func:`reduce_from_tensor`."""
+    y = ring_row_matmul(x, w, axis=axis) if ring else None
+    if y is None:
+        y = reduce_from_tensor(x @ w, axis)
+    return y
 
 
 def add_shared_expert(out: torch.Tensor, x: torch.Tensor, p,
@@ -417,28 +449,67 @@ class Attention(nn.Module):
     def forward(self, x, positions):
         cfg = self.config
         dt = x.dtype
+        tp = current_tensor_parallel()
+        heads = self.wq.shape[1]
+        sharded = tp is not None and heads != cfg.num_heads
+        head0 = tp.rank * heads if sharded else 0
+        if sharded:
+            x = copy_to_tensor(x, tp.axis)
         q = proj_heads(x, self.wq.to(dt))
-        k = proj_heads(x, self.wk.to(dt))
-        v = proj_heads(x, self.wv.to(dt))
+        wk, wv, kv_heads = self.wk, self.wv, None
+        bk = self.bk if cfg.qkv_bias else None
+        bv = self.bv if cfg.qkv_bias else None
+        if sharded and wk.shape[1] == cfg.kv_heads:
+            # KV heads that do not divide the axis stay whole: this rank
+            # projects the ones its query heads read (their gradients are
+            # summed over the tensor ranks by the engine)
+            group = cfg.num_heads // cfg.kv_heads
+            kv0, kv1 = head0 // group, (head0 + heads - 1) // group + 1
+            wk, wv = wk[:, kv0:kv1], wv[:, kv0:kv1]
+            if cfg.qkv_bias:
+                bk, bv = bk[kv0:kv1], bv[kv0:kv1]
+            need = [(head0 + j) // group - kv0 for j in range(heads)]
+            n_kv = kv1 - kv0
+            if heads % n_kv or need != [j // (heads // n_kv)
+                                        for j in range(heads)]:
+                kv_heads = torch.tensor(need, device=x.device)
+        k = proj_heads(x, wk.to(dt))
+        v = proj_heads(x, wv.to(dt))
         if cfg.qkv_bias:
             q = q + self.bq.to(dt)
-            k = k + self.bk.to(dt)
-            v = v + self.bv.to(dt)
+            k = k + bk.to(dt)
+            v = v + bv.to(dt)
         if cfg.position_embedding == "rope":
             q, k = apply_rope(q, k, positions, cfg.rope_theta, cfg.rotary_pct)
+        if kv_heads is not None:
+            # a rank's query heads straddle KV groups: one KV head each
+            k, v = k.index_select(2, kv_heads), v.index_select(2, kv_heads)
         sp = current_sequence_parallel()
         if sp is None:
-            out = self._attend(q, k, v, positions, cfg.num_heads, 0)
+            out = self._attend(q, k, v, positions, heads, head0,
+                               sp=tp is not None)
         else:
-            # Ulysses: this rank's tokens → every token of its own heads;
+            # Ulysses: this rank's tokens → every token of its own heads
+            # (the tensor rank's heads split over seq, tensor-major);
             # ALiBi reads the whole sequence's positions
             full = all_gather(positions, sp.axis, axis=1) \
                 if cfg.position_embedding == "alibi" else None
-            heads = cfg.num_heads // sp.size
+            per = heads // sp.size
             out = ulysses_model_attention(
                 q, k, v, sp.axis, lambda q, k, v: self._attend(
-                    q, k, v, full, heads, sp.rank * heads, sp=True))
-        out = proj_out(out, self.wo.to(dt))
+                    q, k, v, full, per, head0 + sp.rank * per, sp=True))
+        if sharded:
+            # row-parallel wo: the rank's heads, summed over the axis
+            scope = current_tp_overlap()
+            B, S = out.shape[:2]
+            wo = self.wo.to(dt)
+            out = _row_parallel(out.reshape(B, S, -1),
+                                wo.reshape(-1, wo.shape[-1]), tp.axis,
+                                scope is not None and scope.attention)
+        else:
+            if tp is not None and current_tp_overlap() is not None:
+                overlap_counters.fallback()     # whole heads: no ring
+            out = proj_out(out, self.wo.to(dt))
         if cfg.attn_out_bias:
             out = out + self.bo.to(dt)
         return out
@@ -447,8 +518,9 @@ class Attention(nn.Module):
                 sp: bool = False):
         """Attention over q [B, S, heads, D] (query heads ``head0`` on of
         the model's) and their K/V; ``positions`` [B, S] place the queries
-        for ALiBi. ``sp``: a sequence-parallel rank's whole-sequence call,
-        which K4 may serve in a world of many processes."""
+        for ALiBi. ``sp``: a sequence- or tensor-parallel rank's call over
+        whole sequences, which K4 may serve in a world of many
+        processes."""
         cfg = self.config
         bias = None
         if cfg.position_embedding == "alibi":
@@ -480,7 +552,19 @@ class DenseFFN(nn.Module):
             self.b_down = pf.zeros((E,))
 
     def forward(self, x):
-        return dense_ffn(x, dict(self.named_parameters()), self.config)
+        cfg = self.config
+        p = dict(self.named_parameters())
+        tp = current_tensor_parallel()
+        if tp is None or self.w_down.shape[0] == cfg.ffn_size:
+            if tp is not None and current_tp_overlap() is not None:
+                overlap_counters.fallback()     # whole columns: no ring
+            return dense_ffn(x, p, cfg)
+        # Megatron: column-parallel w_gate / w_up, row-parallel w_down
+        scope = current_tp_overlap()
+        ring = scope is not None and scope.ffn
+        return dense_ffn(copy_to_tensor(x, tp.axis), p, cfg,
+                         down=lambda h, w: _row_parallel(h, w, tp.axis,
+                                                         ring))
 
 
 class MoEFFN(nn.Module):
@@ -615,7 +699,17 @@ class TransformerLM(nn.Module):
             start = 0 if sp is None else sp.rank * S
             positions = torch.arange(start, start + S,
                                      device=input_ids.device).expand(B, S)
-        x = self.embed.to(dt)[input_ids]
+        tp = current_tensor_parallel()
+        vocab = tp is not None and self.embed.shape[0] != cfg.vocab_size
+        if vocab:
+            # vocab-parallel lookup: this rank's rows, summed over the axis
+            local = input_ids - tp.rank * self.embed.shape[0]
+            inside = (local >= 0) & (local < self.embed.shape[0])
+            x = self.embed.to(dt)[torch.where(inside, local, 0)]
+            x = reduce_from_tensor(x.masked_fill(~inside[..., None], 0),
+                                   tp.axis)
+        else:
+            x = self.embed.to(dt)[input_ids]
         if cfg.position_embedding == "learned":
             x = x + self.pos_embed.to(dt)[positions]
         if cfg.embed_norm:
@@ -639,6 +733,9 @@ class TransformerLM(nn.Module):
         x = self.ln_final(x)
         if return_hidden:
             return (x, losses) if return_losses else x
+        if vocab:
+            # this rank's vocab columns of the logits
+            x = copy_to_tensor(x, tp.axis)
         if cfg.tie_embeddings:
             logits = torch.einsum("bse,ve->bsv", x, self.embed.to(dt))
         else:

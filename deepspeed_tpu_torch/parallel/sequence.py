@@ -24,7 +24,9 @@ gets its own slice back:
   contiguous segment of a prompt over the KV of every earlier segment
   (serving's gang prefill);
 - :func:`vocab_parallel_cross_entropy`: cross entropy over vocab-sharded
-  logits without the full softmax on any rank.
+  logits without the full softmax on any rank; :func:`vocab_parallel_nll_logz`
+  gives its per-token terms and log-partition, the training loss's route
+  at ``tensor`` > 1 (``models/loss.py``).
 
 Every exchange is differentiable (``comm``'s all-to-all, all-gather and
 ring shifts carry their transposes), so each function's gradient on a rank
@@ -258,6 +260,32 @@ class _ReplicatedSum(torch.autograd.Function):
         return g, None
 
 
+def vocab_parallel_nll_logz(logits, labels, axis: str = "tensor"):
+    """Per-token fp32 ``(nll, logz)`` of vocab-sharded logits, masked where
+    ``labels`` is negative (0 there), the same on every member of
+    ``axis``: ``logits`` is this rank's [..., V/n] (rank i holding vocab
+    ids [i*V/n, (i+1)*V/n)), ``labels`` the matching global ids. The
+    gradient on a rank is its vocab shard of plain cross entropy's (and of
+    the log-partition's: the max shift is a constant for both)."""
+    idx = comm.axis_index(axis)
+    V_loc = logits.shape[-1]
+    lo = idx * V_loc
+
+    logits = logits.float()
+    gmax = comm.all_reduce(logits.detach().amax(dim=-1), axis, op="max")
+    sumexp = torch.exp(logits - gmax[..., None]).sum(dim=-1)
+    gsum = _ReplicatedSum.apply(sumexp, axis)
+
+    in_shard = (labels >= lo) & (labels < lo + V_loc)
+    local_label = torch.clamp(labels - lo, 0, V_loc - 1)
+    picked = logits.gather(-1, local_label[..., None])[..., 0]
+    target = _ReplicatedSum.apply(torch.where(in_shard, picked, 0.0), axis)
+
+    mask = labels >= 0
+    logz = torch.log(gsum) + gmax
+    return (logz - target) * mask, logz * mask
+
+
 def vocab_parallel_cross_entropy(logits, labels, axis: str = "tensor", *,
                                  ignore_index: int = -100,
                                  seq_axis: str | None = None):
@@ -269,23 +297,10 @@ def vocab_parallel_cross_entropy(logits, labels, axis: str = "tensor", *,
     unevenly). Returns the global loss on every rank; its gradient on a
     rank is that rank's vocab shard of plain cross entropy's (the max shift
     is a constant for it)."""
-    idx = comm.axis_index(axis)
-    V_loc = logits.shape[-1]
-    lo = idx * V_loc
-
-    logits = logits.float()
-    gmax = comm.all_reduce(logits.detach().amax(dim=-1), axis, op="max")
-    sumexp = torch.exp(logits - gmax[..., None]).sum(dim=-1)
-    gsum = _ReplicatedSum.apply(sumexp, axis)                    # [B,S]
-
-    in_shard = (labels >= lo) & (labels < lo + V_loc)
-    local_label = torch.clamp(labels - lo, 0, V_loc - 1)
-    picked = logits.gather(-1, local_label[..., None])[..., 0]
-    target = _ReplicatedSum.apply(torch.where(in_shard, picked, 0.0), axis)
-
-    nll = torch.log(gsum) + gmax - target                        # [B,S]
-    mask = (labels != ignore_index).float()
-    num, den = (nll * mask).sum(), mask.sum()
+    mask = labels != ignore_index
+    nll, _ = vocab_parallel_nll_logz(logits, torch.where(mask, labels, -1),
+                                     axis)
+    num, den = nll.sum(), mask.float().sum()
     if seq_axis is not None:
         num = _ReplicatedSum.apply(num, seq_axis)
         den = comm.all_reduce(den, seq_axis)
@@ -294,4 +309,4 @@ def vocab_parallel_cross_entropy(logits, labels, axis: str = "tensor", *,
 
 __all__ = ["DistributedAttention", "gang_segment_attention",
            "ring_attention", "ulysses_attention", "ulysses_model_attention",
-           "vocab_parallel_cross_entropy"]
+           "vocab_parallel_cross_entropy", "vocab_parallel_nll_logz"]

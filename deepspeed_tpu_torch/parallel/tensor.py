@@ -44,7 +44,6 @@ the JAX package counts once per traced program, the port at every call.
 """
 from __future__ import annotations
 
-import contextvars
 import dataclasses
 import math
 import threading
@@ -111,7 +110,9 @@ overlap_counters = OverlapCounters()
 
 
 # ---------------------------------------------------------------------------
-# scope: how model code finds the ring (TP training is ROADMAP item 6b)
+# scope: how model code finds the ring (the training engine opens it under
+# tensor_parallel.overlap; models/transformer.py's row-parallel wo and
+# w_down read it)
 # ---------------------------------------------------------------------------
 
 @dataclasses.dataclass(frozen=True)
@@ -126,8 +127,7 @@ class TPOverlapScope:
     ffn: bool = True
 
 
-_SCOPE: contextvars.ContextVar[TPOverlapScope | None] = \
-    contextvars.ContextVar("tp_overlap_scope", default=None)
+_scope: TPOverlapScope | None = None
 
 
 @contextmanager
@@ -136,17 +136,22 @@ def tp_overlap_scope(topology, *, axis: str = "tensor",
                                            "seq"),
                      attention: bool = True, ffn: bool = True):
     """Enable ring collective matmuls in model code run inside the
-    context."""
-    tok = _SCOPE.set(TPOverlapScope(topology, axis, tuple(token_specs),
-                                    attention, ffn))
+    context. A process global, as ``comm.sequence_parallel_scope`` is: on
+    CUDA the backward, and the forward that remat runs again inside it,
+    run on autograd's device thread, which a context variable set here
+    would not reach."""
+    global _scope
+    prev = _scope
+    _scope = TPOverlapScope(topology, axis, tuple(token_specs), attention,
+                            ffn)
     try:
         yield
     finally:
-        _SCOPE.reset(tok)
+        _scope = prev
 
 
 def current_tp_overlap() -> TPOverlapScope | None:
-    return _SCOPE.get()
+    return _scope
 
 
 # ---------------------------------------------------------------------------

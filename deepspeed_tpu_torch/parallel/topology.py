@@ -12,8 +12,9 @@ coordinate (NCCL on the card, gloo on the CPU).
 
 ``data`` and ``fsdp`` may exceed 1: ZeRO partitions over their product.
 ``tensor`` may exceed 1 for serving (``inference/engine_v2.py`` shards its
-forward over the tensor group, one rank per process; the training engine
-refuses it). ``seq`` may exceed 1 for training: each row's tokens split
+forward over the tensor group, one rank per process) and for training
+(the model's Megatron layers over the tensor group, ``runtime/engine.py``).
+``seq`` may exceed 1 for training: each row's tokens split
 over the seq group (``parallel/sequence.py``, ``runtime/engine.py``), whose
 statistics span the batch group ``BATCH_AXES`` (the data-parallel axes and
 ``seq``), which has a group of its own too. ``pipe`` and ``expert`` larger

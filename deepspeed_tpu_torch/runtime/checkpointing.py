@@ -23,11 +23,15 @@ has no bf16 type.
 Writing: rank 0 creates every file's header (``open_memmap``) and all
 ranks meet at a barrier; each rank writes the element ranges it owns (its
 ZeRO partition, from seq index 0 of the ranks that share it; at stage 0
-rank 0 writes everything), flushes, and meets
-the others again; rank 0 then writes ``meta.json``, the manifest and
-``latest``. No rank ever holds the whole state. Loading: every rank
-memory-maps the files and reads the ranges of its own partition under the
-current plan — which is the resharding.
+data-parallel index 0 writes everything), flushes, and meets the others
+again; rank 0 then writes ``meta.json``, the manifest and ``latest``. At
+tensor > 1 the files still hold the logical tensors: each tensor rank
+writes its slice of a sharded parameter into the whole tensor's file, and
+tensor index 0 alone writes a replicated one. No rank ever holds the
+whole state. Loading: every rank memory-maps the files and reads the
+ranges of its own partition (of its own slice, at tensor > 1) under the
+current plan — which is the resharding, so a tag moves between any tensor,
+data, seq and ZeRO layout.
 
 The integrity contract is the JAX package's: state → manifest → atomic
 ``latest``; ``load_checkpoint`` falls back to the newest verified tag when
@@ -150,13 +154,95 @@ def _targets(engine) -> list[str]:
     return out
 
 
+def _tp(engine, i: int):
+    """``(spec, tensor rank, tensor size)`` of parameter ``i`` where it is
+    sharded over ``tensor``, else None."""
+    specs = getattr(engine, "_tp_specs", None)
+    spec = specs[i] if specs is not None else None
+    if spec is None or "tensor" not in spec:
+        return None
+    return spec, engine.tp_rank, engine.tp_size
+
+
+def _shape(engine, i: int) -> tuple:
+    """Parameter ``i``'s logical (whole) shape."""
+    shapes = getattr(engine, "_global_shapes", None)
+    return tuple(shapes[i]) if shapes is not None \
+        else tuple(engine._params[i].shape)
+
+
+def _rank_view(a: np.ndarray, shape: tuple, tp) -> np.ndarray:
+    """This tensor rank's slice of the whole flat array ``a`` as a 2-D view
+    ``[rows, width]`` whose row-major order is the slice's own: the
+    sharded dim ``d`` splits the whole tensor into ``[prod(shape[:d]), n,
+    width]``."""
+    spec, rank, n = tp
+    d = spec.index("tensor")
+    rows = int(np.prod(shape[:d], dtype=np.int64))
+    return a.reshape(rows, n, -1)[:, rank, :]
+
+
+def _spans(width: int, start: int, length: int):
+    """``(row, col0, col1, offset)`` pieces of the flat range ``[start,
+    start + length)`` of a ``[rows, width]`` array: a partial first row,
+    whole rows as one piece (``row`` a slice), a partial last row."""
+    pos, off, end = start, 0, start + length
+    while pos < end:
+        r, c = divmod(pos, width)
+        if c == 0 and end - pos >= width:
+            k = (end - pos) // width
+            yield slice(r, r + k), 0, width, off
+            pos, off = pos + k * width, off + k * width
+            continue
+        k = min(width - c, end - pos)
+        yield r, c, c + k, off
+        pos, off = pos + k, off + k
+
+
+def _put(flat: np.ndarray, shape: tuple, tp, start: int,
+         data: np.ndarray) -> None:
+    """Write the rank's flat elements ``[start, start + data.size)`` (of
+    its slice, when ``tp``) into the whole tensor's flat array."""
+    data = data.reshape(-1)
+    if tp is None:
+        flat[start:start + data.size] = data
+        return
+    v = _rank_view(flat, shape, tp)
+    for r, c0, c1, off in _spans(v.shape[1], start, data.size):
+        n = (c1 - c0) * (r.stop - r.start if isinstance(r, slice) else 1)
+        v[r, c0:c1] = data[off:off + n].reshape(v[r, c0:c1].shape)
+
+
+def _take(flat: np.ndarray, shape: tuple, tp, start: int,
+          length: int) -> np.ndarray:
+    """The rank's flat elements ``[start, start + length)`` (of its slice,
+    when ``tp``) read from the whole tensor's flat array."""
+    if tp is None:
+        return flat[start:start + length]
+    v = _rank_view(flat, shape, tp)
+    return np.concatenate([v[r, c0:c1].reshape(-1) for r, c0, c1, _
+                           in _spans(v.shape[1], start, length)])
+
+
+def _writes(engine, i: int) -> bool:
+    """Whether this rank writes parameter ``i``'s elements it holds: seq
+    index 0 of the ranks that share them, and of a replicated parameter
+    tensor index 0 (at stage 0 also data-parallel index 0)."""
+    if getattr(engine, "sp_rank", 0) != 0:
+        return False
+    if _tp(engine, i) is None and getattr(engine, "tp_rank", 0) != 0:
+        return False
+    return engine._zero is not None or engine.dp_rank == 0
+
+
 def _views(engine, section: str, i: int, writing: bool):
     """``[(start, length, 1-D tensor)]``: the elements of parameter ``i``'s
-    ``section`` this rank holds (writing: the ones it writes)."""
+    ``section`` this rank holds (writing: the ones it writes), their
+    offsets in its own slice at tensor > 1."""
     z = engine._zero
+    if writing and not _writes(engine, i):
+        return []
     if z is None:
-        if writing and comm.get_rank() != 0:
-            return []
         p = engine._params[i]
         t = {"params": p.data,
              "master": engine._master[i] if engine.mixed_precision else p.data,
@@ -165,8 +251,6 @@ def _views(engine, section: str, i: int, writing: bool):
              "opt_nu": None if engine.opt_state.nu is None
              else engine.opt_state.nu[i]}[section]
         return [(0, p.numel(), t.reshape(-1))]
-    if writing and engine.sp_rank != 0:
-        return []                  # seq ranks hold one partition: index 0 writes
     s, _ = z.plan.where[i]
     seg = z.plan.segments[s]
     out = []
@@ -191,7 +275,7 @@ def _entries(engine) -> list[tuple[str, int, str, tuple, str]]:
         for i, name in enumerate(engine._names):
             p = engine._params[i]
             dt = p.dtype if section == "params" else torch.float32
-            out.append((section, i, _file(section, name), tuple(p.shape),
+            out.append((section, i, _file(section, name), _shape(engine, i),
                         _STORE[dt][1]))
     return out
 
@@ -318,10 +402,10 @@ def _save_checkpoint_inner(engine, save_dir: str, tag: str | None = None,
     # this rank's ranges, as host copies under async_save (the engine
     # updates its buffers in place while the thread writes)
     pieces = []
-    for section, i, fn, _, _ in entries:
+    for section, i, fn, shape, _ in entries:
         for start, ln, t in _views(engine, section, i, writing=True):
-            pieces.append((fn, start, to_numpy(t).copy() if async_save
-                           else t))
+            pieces.append((fn, (shape, _tp(engine, i)), start,
+                           to_numpy(t).copy() if async_save else t))
     meta = {
         "tag": tag,
         "global_steps": engine.global_steps,
@@ -337,15 +421,15 @@ def _save_checkpoint_inner(engine, save_dir: str, tag: str | None = None,
 
     def write_pieces():
         by_file: dict[str, list] = {}
-        for fn, start, data in pieces:
-            by_file.setdefault(fn, []).append((start, data))
+        for fn, where, start, data in pieces:
+            by_file.setdefault(fn, []).append((where, start, data))
         for fn, items in by_file.items():
             mm = np.load(os.path.join(state, fn), mmap_mode="r+")
             flat = mm.reshape(-1)
-            for start, data in items:
+            for (shape, tp), start, data in items:
                 data = data if isinstance(data, np.ndarray) \
                     else to_numpy(data)
-                flat[start:start + data.size] = data.reshape(-1)
+                _put(flat, shape, tp, start, data)
             mm.flush()
             del mm, flat
 
@@ -536,8 +620,10 @@ def _fill(engine, read) -> None:
             if not views:
                 continue
             flat, dt = read(section, i)
+            shape, tp = _shape(engine, i), _tp(engine, i)
             for start, ln, t in views:
-                t.copy_(from_stored(flat[start:start + ln], dt).to(t.dtype))
+                t.copy_(from_stored(_take(flat, shape, tp, start, ln), dt)
+                        .to(t.dtype))
     if engine._zero is not None:
         engine._zero.regather_persistent()
 
@@ -596,10 +682,10 @@ def _load_checkpoint_inner(engine, load_dir: str,
     def read(section, i):
         name = engine._names[i]
         ent = index[f"{_source(section, engine, index, name)}.{name}"]
-        if tuple(ent["shape"]) != tuple(engine._params[i].shape):
+        if tuple(ent["shape"]) != _shape(engine, i):
             raise ValueError(f"checkpoint {path}: {name} has shape "
                              f"{ent['shape']}, the model "
-                             f"{tuple(engine._params[i].shape)}")
+                             f"{_shape(engine, i)}")
         a = np.load(os.path.join(state, ent["file"]), mmap_mode="r")
         return a.reshape(-1), ent["dtype"]
 
@@ -692,8 +778,8 @@ def state_tree(engine) -> dict:
                 vals.append(segs[s][seg.offsets[k]:seg.offsets[k]
                                     + seg.numels[k]])
         out[section] = _nest(engine._names, [
-            v.detach().float().cpu().numpy().reshape(engine._params[i].shape)
-            for i, v in enumerate(vals)])
+            engine._whole(i, v.detach().reshape(engine._params[i].shape))
+            .float().cpu().numpy() for i, v in enumerate(vals)])
     out["opt_step"] = np.asarray(engine.opt_step, np.int32)
     out["global_step"] = np.asarray(engine.global_step, np.int32)
     return out

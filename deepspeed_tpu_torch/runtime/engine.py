@@ -42,10 +42,30 @@ process per device, in the same order and precision:
   1-3 after ZeRO's reduce-scatter over the data-parallel group: the seq
   ranks of one partition hold the same partition) and averaged with the
   data-parallel ones. Only seq index 0 writes a partition to a
-  checkpoint. MoE models, ZeRO-Offload / Infinity and a custom
-  ``loss_fn`` that does not take the scope are refused at seq > 1 (item
-  6b part 2). A CUDA engine runs over NCCL, or over gloo when every rank is
+  checkpoint. A CUDA engine runs over NCCL, or over gloo when every rank is
   on one card (ranks time-slicing it: no measure of speed);
+- tensor parallelism (``mesh.tensor`` > 1), Megatron-style where the JAX
+  engine leaves it to GSPMD: each rank holds its slices of the model
+  (``planner.tensor_spec``: heads, FFN columns and vocab rows; a dim that
+  does not divide stays whole), drawn a block at a time from the seed of a
+  model given on the meta device, sliced from ``params`` or from a whole
+  model; the model runs its Megatron layers under
+  ``comm.tensor_parallel_scope`` (``models/transformer.py``), and under
+  ``tensor_parallel.overlap`` its row-parallel ``wo`` / ``w_down`` through
+  ``ring_row_matmul`` (``tp_overlap_scope``, the JAX ``_loss_with_rules``).
+  The tensor ranks of a data-parallel rank take the same rows. A sharded
+  parameter's gradient stays on its rank (never reduced over ``tensor``);
+  K/V projections kept whole beside sharded query heads have theirs summed
+  over ``tensor`` first (each rank's covers its own heads). The clipping
+  norm sums sharded squares over ``tensor`` and counts replicated ones
+  once, the finite flag spans the tensor group, ZeRO partitions each rank's
+  slices over the data-parallel group. ``master``, ``num_parameters`` and
+  the MFU's FLOPs read the whole model; checkpoints hold logical tensors.
+  MoE models, ZeRO-Offload (Infinity keeps the JAX engine's ValueError)
+  and a custom ``loss_fn`` not marked as taking the axis's scope
+  (``tensor_parallel`` / ``sequence_parallel = True``) are refused at
+  tensor > 1 and at seq > 1, and the fused head at tensor > 1 (item 6b
+  part 3);
 - the ``forward`` / ``backward`` / ``step`` triplet with
   ``is_gradient_accumulation_boundary``; ``eval_batch``; ``zero_grad``;
   ``skipped_steps``, ``get_lr``, ``get_loss_scale``, ``num_parameters``;
@@ -95,9 +115,9 @@ It runs on the CUDA device unless ``device="cpu"`` is given; ZeRO stages
 NCCL on the card. Every feature that a later part of the port brings
 raises NotImplementedError when it is configured (:func:`check_ported`),
 naming its ROADMAP queue 1 item: the flops profiler, data efficiency and
-the hybrid engine (item 7), the 1-bit optimizers and tensor, pipeline and
-expert parallelism in training (item 6: 6b part 2, 6c, 6d), ZeRO++ and
-MiCS (after item 6).
+the hybrid engine (item 7), the 1-bit optimizers, MoE / offload / custom
+losses at tensor or seq > 1 and pipeline and expert parallelism in
+training (item 6: 6b part 3, 6c, 6d), ZeRO++ and MiCS (after item 6).
 Model compression runs outside the config (a compression manager the JAX
 engine reads when set) and is not ported either.
 """
@@ -106,6 +126,7 @@ from __future__ import annotations
 import contextlib
 import copy
 import dataclasses
+import math
 from functools import partial
 from typing import Any, Callable
 
@@ -135,7 +156,8 @@ from .lr_schedules import Schedule, build_scheduler, constant_lr
 from .resilience import ResilienceManager
 
 
-def model_step_flops(module: torch.nn.Module, rows: int, seq: int) -> float:
+def model_step_flops(module: torch.nn.Module, rows: int, seq: int,
+                     shapes: dict | None = None) -> float:
     """Model FLOPs of one training step over ``rows`` sequences of ``seq``
     tokens (PaLM appendix B): forward plus a backward of twice its cost,
     without remat's recomputation. The forward counts 2 per weight of
@@ -145,21 +167,24 @@ def model_step_flops(module: torch.nn.Module, rows: int, seq: int) -> float:
     ``num_experts``) and 4 x head_dim per query head and causally visible
     (query, key) pair (scores and the weighted sum; a sliding window
     bounds the pairs). 0.0 when the module has no ``TransformerLM``
-    config."""
+    config. ``shapes`` (name -> logical shape) stands in for the
+    parameters' own where a tensor rank holds slices."""
     cfg = getattr(module, "config", None)
     if cfg is None or not hasattr(cfg, "num_heads"):
         return 0.0
     weights = 0
-    names = {n for n, _ in module.named_parameters()}
-    for n, p in module.named_parameters():
-        if p.dim() < 2 or n in ("pos_embed", "type_embed"):
+    if shapes is None:
+        shapes = {n: tuple(p.shape) for n, p in module.named_parameters()}
+    for n, shape in shapes.items():
+        numel = math.prod(shape)
+        if len(shape) < 2 or n in ("pos_embed", "type_embed"):
             continue
         if n == "embed":
-            weights += p.numel() if "unembed" not in names else 0
+            weights += numel if "unembed" not in shapes else 0
         elif ".experts." in n:
-            weights += p.numel() * cfg.moe.top_k // cfg.moe.num_experts
+            weights += numel * cfg.moe.top_k // cfg.moe.num_experts
         else:
-            weights += p.numel()
+            weights += numel
     w = cfg.sliding_window
     if not cfg.causal:
         pairs = seq * seq
@@ -194,27 +219,28 @@ def check_ported(config: Config) -> None:
         raise _later("the hybrid engine", "item 7")
     if config.flops_profiler.enabled:
         raise _later("the flops profiler", "item 7 (profiling/)")
-    tp = config.mesh.tensor
-    if tp not in ("auto", -1, None) and int(tp) > 1:
-        raise _tensor_training(int(tp))
-    sp = config.mesh.seq
-    if sp not in ("auto", -1, None) and int(sp) > 1:
-        z = config.zero_optimization
-        if (z.offload_optimizer.device, z.offload_param.device) != \
-                ("none", "none"):
-            raise _seq_later(int(sp), "ZeRO-Offload and ZeRO-Infinity")
+    z = config.zero_optimization
+    for axis, size in _split_axes(config).items():
+        # offload_param with a tensor or seq axis keeps the JAX engine's
+        # ValueError (_check_offload); ZeRO-Offload alone comes later
+        if z.offload_optimizer.device != "none" \
+                and z.offload_param.device == "none":
+            raise _axis_later(axis, size, "ZeRO-Offload")
 
 
-def _tensor_training(tp: int) -> NotImplementedError:
-    return _later(f"mesh axes {{'tensor': {tp}}}: tensor parallelism in "
-                  f"training (the model's Megatron layers, tp_overlap_scope, "
-                  f"ring_row_matmul's caller; the serving engine takes "
-                  f"tensor > 1)", "item 6b part 2")
+def _split_axes(config: Config) -> dict[str, int]:
+    """The fixed sizes above 1 of the mesh's ``tensor`` and ``seq`` axes."""
+    out = {}
+    for axis in ("tensor", "seq"):
+        v = getattr(config.mesh, axis)
+        if v not in ("auto", -1, None) and int(v) > 1:
+            out[axis] = int(v)
+    return out
 
 
-def _seq_later(sp: int, feature: str) -> NotImplementedError:
-    return _later(f"mesh axes {{'seq': {sp}}}: {feature} at seq > 1",
-                  "item 6b part 2")
+def _axis_later(axis: str, size: int, feature: str) -> NotImplementedError:
+    return _later(f"mesh axes {{'{axis}': {size}}}: {feature} at {axis} > 1",
+                  "item 6b part 3")
 
 
 class DeepSpeedEngine:
@@ -230,6 +256,8 @@ class DeepSpeedEngine:
         if model is None:
             raise ValueError("need a model (a torch.nn.Module)")
         check_ported(config)
+        for axis, size in _split_axes(config).items():
+            self._check_split(axis, size, model, loss_fn)
         self.config = config
         self.device = get_device(device)
         self.zero_stage = config.zero_optimization.stage
@@ -248,8 +276,6 @@ class DeepSpeedEngine:
             self._check_backend()
         self.topology = topology if topology is not None \
             else MeshTopology(config.mesh)
-        if self.topology.size("tensor") > 1:
-            raise _tensor_training(self.topology.size("tensor"))
         comm.set_topology(self.topology)
         self.dp_world_size = self.topology.dp_world_size
         self.dp_rank = self.topology.dp_rank
@@ -261,8 +287,20 @@ class DeepSpeedEngine:
         self.batch_world_size = self.dp_world_size * self.sp_size
         self.batch_group = self.topology.group(BATCH_AXES) \
             if self.sp_size > 1 else self.dp_group
-        if self.sp_size > 1:
-            self._check_seq(model, loss_fn, offload)
+        # tensor parallelism: the model's Megatron layers over the tensor
+        # group; its ranks take the same rows and positions
+        self.tp_size = self.topology.size("tensor")
+        self.tp_rank = self.topology.rank_in("tensor")
+        for axis, size in (("seq", self.sp_size), ("tensor", self.tp_size)):
+            if size > 1:
+                self._check_split(axis, size, model, loss_fn)
+                if offload is not None:
+                    raise _axis_later(axis, size, "ZeRO-Offload")
+        # ring collective matmuls in the row-parallel projections (the JAX
+        # engine's _tp_overlap: tensor > 1 and no pipeline)
+        self._tp_overlap = bool(config.tensor_parallel.overlap
+                                and self.tp_size > 1
+                                and self.topology.size("pipe") == 1)
         config.resolve_batch_terms(self.dp_world_size)
         if config.comms_logger.enabled:
             c = config.comms_logger
@@ -398,19 +436,19 @@ class DeepSpeedEngine:
             f"a CUDA engine needs the NCCL backend (or gloo with every rank "
             f"on one card); the process group is {backend}")
 
-    def _check_seq(self, model, loss_fn, offload) -> None:
-        """What a seq axis above 1 does not take yet (ROADMAP item 6b part
-        2)."""
-        sp = self.sp_size
+    @staticmethod
+    def _check_split(axis: str, size: int, model, loss_fn) -> None:
+        """What a tensor or seq axis above 1 does not take yet (ROADMAP
+        item 6b part 3): a MoE model, and a custom loss_fn not marked as
+        taking the axis's scope."""
         if getattr(getattr(model, "config", None), "moe", None) is not None:
-            raise _seq_later(sp, "a MoE model")
-        if offload is not None:
-            raise _seq_later(sp, "ZeRO-Offload and ZeRO-Infinity")
-        if loss_fn is not None and not getattr(loss_fn, "sequence_parallel",
-                                               False):
-            raise _seq_later(sp, "a custom loss_fn that does not take the "
-                                 "sequence-parallel scope (mark it "
-                                 "`sequence_parallel = True`)")
+            raise _axis_later(axis, size, "a MoE model")
+        mark = {"seq": "sequence_parallel", "tensor": "tensor_parallel"}[axis]
+        if loss_fn is not None and not getattr(loss_fn, mark, False):
+            raise _axis_later(axis, size,
+                              f"a custom loss_fn that does not take the "
+                              f"{mark.replace('_', '-')} scope (mark it "
+                              f"`{mark} = True`)")
 
     def _check_offload(self, config: Config, loss_fn) -> str | None:
         """Validate ``offload_optimizer`` / ``offload_param`` with the JAX
@@ -466,9 +504,13 @@ class DeepSpeedEngine:
         if self._param_stream is not None:
             self._init_stream_state(params)
             return
+        if self.tp_size > 1:
+            self._shard_model(params)
+            params = None
         model = self.module.to(self.device)
         self._names = [n for n, _ in model.named_parameters()]
         self._params = [p for _, p in model.named_parameters()]
+        self._init_tp_layout()
         for p in self._params:
             p.data = p.data.float()
         if params is not None:
@@ -477,6 +519,10 @@ class DeepSpeedEngine:
             load_jax_params(model, params)
         for p in self._params:
             p.requires_grad_(True)
+        for i in self._tp_sum:
+            # registered before ZeRO's hooks, so it runs first
+            self._params[i].register_post_accumulate_grad_hook(
+                self._sum_over_tensor)
         self.scaler = fp16_mod.init_scaler(self.config.fp16) \
             if self.fp16_enabled else None
         self.global_step = 0        # steps taken, applied or skipped
@@ -497,7 +543,11 @@ class DeepSpeedEngine:
                 plan, self._params,
                 self.compute_dtype if self.mixed_precision else torch.float32,
                 self.optimizer, self.dp_group, self.device, modules,
-                host_opt=self._host_opt)
+                host_opt=self._host_opt,
+                tensor=None if self.tp_size == 1 else (
+                    self.topology.group("tensor"),
+                    [s is not None and "tensor" in s
+                     for s in self._tp_specs]))
             self._master = None
             self.opt_state = None
             log_dist(plan.describe())
@@ -513,10 +563,69 @@ class DeepSpeedEngine:
             self.opt_state: OptState = self.optimizer.init(
                 [m.detach() for m in self._master])
 
+    def _shard_model(self, params: dict | None) -> None:
+        """Replace the model's parameters by this tensor rank's slices
+        (``planner.tensor_spec``: heads, FFN columns and vocab rows over
+        ``tensor``; a dim that does not divide stays whole), in fp32 on
+        the device: ``params`` (a JAX-layout tree) sliced leaf by leaf, a
+        model on the meta device drawn again a block at a time from its
+        seed, a materialized model sliced once
+        (``inference.weights.load_tp_params``). A rank never holds the
+        whole model unless it was given one."""
+        from ..inference.weights import (flatten_tree, load_tp_params,
+                                         params_from_jax)
+
+        tree = None if params is None else params_from_jax(
+            params, dtype=torch.float32, device="cpu")
+        local, self._tp_plan = load_tp_params(
+            self.module, tree, self.topology, dtype=torch.float32,
+            device=self.device)
+        del tree
+        names = {n for n, _ in self.module.named_parameters()}
+        flat = flatten_tree(local)
+        if set(flat) != names:
+            raise ValueError(f"tensor-parallel slices {sorted(flat)} do "
+                             f"not match the model's {sorted(names)}")
+        for name, t in flat.items():
+            *path, leaf = name.split(".")
+            mod = self.module.get_submodule(".".join(path))
+            mod._parameters[leaf] = torch.nn.Parameter(t, requires_grad=False)
+
+    def _init_tp_layout(self) -> None:
+        """Each parameter's tensor spec (None without a tensor axis), its
+        logical (whole) shape, and the replicated parameters whose
+        gradients are summed over ``tensor``: the K/V projections kept
+        whole beside sharded query heads, which each rank uses only for
+        its own heads."""
+        self._global_shapes = [tuple(p.shape) for p in self._params]
+        self._tp_specs: list = [None] * len(self._params)
+        self._tp_sum: list[int] = []
+        if self.tp_size == 1:
+            return
+        specs = {".".join(path): spec
+                 for path, (spec, _) in self._tp_plan.items()}
+        for i, (name, p) in enumerate(zip(self._names, self._params)):
+            spec = self._tp_specs[i] = specs[name]
+            if "tensor" in spec:
+                shape = list(p.shape)
+                shape[spec.index("tensor")] *= self.tp_size
+                self._global_shapes[i] = tuple(shape)
+            *path, leaf = name.split(".")
+            if path and path[-1] == "attn" and leaf in ("wk", "wv", "bk",
+                                                        "bv") \
+                    and "tensor" not in spec \
+                    and "tensor" in specs[".".join(path + ["wq"])]:
+                self._tp_sum.append(i)
+
+    def _sum_over_tensor(self, p: torch.Tensor) -> None:
+        torch.distributed.all_reduce(p.grad,
+                                     group=self.topology.group("tensor"))
+
     def _init_stream_state(self, params: dict | None) -> None:
         model = self.module
         self._names = [n for n, _ in model.named_parameters()]
         self._params = [p for _, p in model.named_parameters()]
+        self._init_tp_layout()
         with torch.no_grad():
             for p in self._params:
                 p.data = p.data.float().cpu()
@@ -615,12 +724,20 @@ class DeepSpeedEngine:
     @contextlib.contextmanager
     def _dp_scope(self, rows: bool = True):
         """The step's scopes: the data-parallel one when the rows split
-        over the ranks, the sequence-parallel one at seq > 1."""
+        over the ranks, the sequence-parallel one at seq > 1, the
+        tensor-parallel one at tensor > 1, and ``tp_overlap_scope`` under
+        ``tensor_parallel.overlap`` (the JAX ``_loss_with_rules``)."""
+        from ..parallel.tensor import tp_overlap_scope
+
         with comm.data_parallel_scope(
                 *((self.dp_group, self.dp_world_size, self.dp_rank) if rows
                   else (None, 1, 0))), \
                 comm.sequence_parallel_scope("seq", self.sp_size,
-                                             self.sp_rank):
+                                             self.sp_rank), \
+                comm.tensor_parallel_scope("tensor", self.tp_size,
+                                           self.tp_rank), \
+                (tp_overlap_scope(self.topology) if self._tp_overlap
+                 else contextlib.nullcontext()):
             yield
 
     def _train_loss(self, batch: dict) -> torch.Tensor:
@@ -708,10 +825,32 @@ class DeepSpeedEngine:
         return grads
 
     def _global_norm(self, grads) -> torch.Tensor:
+        """The norm of the whole model's gradient: at tensor > 1 a sharded
+        parameter's squares are summed over the tensor ranks and a
+        replicated one's counted once."""
         if self._zero is not None:
             return torch.sqrt(self._zero.grad_sq_norm())
-        return torch.sqrt(torch.stack(
-            [torch.sum(torch.square(g.float())) for g in grads]).sum())
+        sq = [torch.sum(torch.square(g.float())) for g in grads]
+        if self.tp_size == 1:
+            return torch.sqrt(torch.stack(sq).sum())
+        sharded = torch.stack([q for q, spec in zip(sq, self._tp_specs)
+                               if "tensor" in spec] or [sq[0] * 0]).sum()
+        rep = torch.stack([q for q, spec in zip(sq, self._tp_specs)
+                           if "tensor" not in spec] or [sq[0] * 0]).sum()
+        torch.distributed.all_reduce(sharded,
+                                     group=self.topology.group("tensor"))
+        return torch.sqrt(sharded + rep)
+
+    def _tp_lamb_reduce(self, w_sq: torch.Tensor, u_sq: torch.Tensor):
+        """LAMB's per-tensor squared norms at stage 0 and tensor > 1: a
+        sharded parameter's summed over the tensor ranks."""
+        sharded = torch.tensor(["tensor" in s for s in self._tp_specs],
+                               device=w_sq.device)
+        both = torch.stack([w_sq, u_sq], dim=1) * sharded[:, None]
+        torch.distributed.all_reduce(both,
+                                     group=self.topology.group("tensor"))
+        return (torch.where(sharded, both[:, 0], w_sq),
+                torch.where(sharded, both[:, 1], u_sq))
 
     def _apply_grads(self, grads, loss_finite: torch.Tensor | None = None
                      ) -> bool:
@@ -732,13 +871,23 @@ class DeepSpeedEngine:
                 else fp16_mod.grads_finite(grads)
             if loss_finite is not None:
                 flag = flag & loss_finite.to(flag.device)
+            if self.tp_size > 1:
+                # one decision across the tensor ranks' slices
+                ok = flag.to(torch.int32)
+                torch.distributed.all_reduce(
+                    ok, op=torch.distributed.ReduceOp.MIN,
+                    group=self.topology.group("tensor"))
+                flag = ok.bool()
             finite = bool(flag)
         if finite:
             if self._zero is not None:
                 self._zero.update(lr)
             else:
+                extra = {} if self.optimizer.elementwise \
+                    or self.tp_size == 1 else {
+                        "sq_norm_reduce": self._tp_lamb_reduce}
                 self.opt_state = self.optimizer.update(
-                    grads, self.opt_state, self._master, lr=lr)
+                    grads, self.opt_state, self._master, lr=lr, **extra)
                 if self.mixed_precision:
                     with torch.no_grad():
                         for p, m in zip(self._params, self._master):
@@ -961,16 +1110,27 @@ class DeepSpeedEngine:
             out.append(segs[s][off:off + n].view(shape))
         return out
 
+    def _whole(self, i: int, t: torch.Tensor) -> torch.Tensor:
+        """Parameter ``i``'s logical tensor from this rank's slice ``t``:
+        gathered over ``tensor`` where the parameter is sharded (a
+        collective the tensor ranks join)."""
+        spec = self._tp_specs[i]
+        if spec is None or "tensor" not in spec:
+            return t
+        return comm.all_gather(t.contiguous(), "tensor",
+                               axis=spec.index("tensor"))
+
     @property
     def master(self) -> dict:
-        """The fp32 master as the JAX-layout nested dict (the parameters
-        themselves in fp32 training); at stages 1-3 gathered from every
-        rank."""
+        """The fp32 master as the JAX-layout nested dict of logical
+        tensors (the parameters themselves in fp32 training); at stages
+        1-3 gathered from every rank, at tensor > 1 the slices joined."""
         out: dict = {}
         with self._host_state():
             full = self._full_master()
             if self._param_stream is not None:
                 full = [m.clone() for m in full]
+        full = [self._whole(i, m.detach()) for i, m in enumerate(full)]
         for name, m in zip(self._names, full):
             node = out
             *path, leaf = name.split(".")
@@ -992,7 +1152,8 @@ class DeepSpeedEngine:
         return self.scaler.scale if self.scaler is not None else 1.0
 
     def num_parameters(self) -> int:
-        return sum(p.numel() for p in self._params)
+        """The whole model's count (a tensor rank holds slices of it)."""
+        return sum(math.prod(s) for s in self._global_shapes)
 
     def close(self) -> None:
         """Drop the engine's state so its device memory can be freed."""
@@ -1097,7 +1258,9 @@ class DeepSpeedEngine:
                 reg.gauge("train_tokens_per_s").set(tokens / dt)
         tracker = self._mfu_tracker
         if tracker is not None and self._step_flops is None and tokens:
-            self._step_flops = model_step_flops(self.module, rows, seq)
+            self._step_flops = model_step_flops(
+                self.module, rows, seq,
+                dict(zip(self._names, self._global_shapes)))
             if self._step_flops:
                 tracker.flops_per_step = self._step_flops
         if tracker is not None and dt and synced:

@@ -70,12 +70,18 @@ class ZeroRuntime:
     """The partitioned state of one engine (see the module docstring).
     ``params`` are the model's parameters in the plan's order, holding
     their fp32 values; on return their ``.data`` are views of the compute
-    buffers, in ``dtype``."""
+    buffers, in ``dtype``. ``tensor`` = (the tensor group, whether each
+    parameter is sharded over it) at tensor > 1: each tensor rank
+    partitions its own slices over ``group``, and the gradient norm and
+    LAMB's per-tensor norms sum a sharded parameter's squares over the
+    tensor ranks (a replicated one counted once)."""
 
     def __init__(self, plan: ZeroPlan, params: list[torch.nn.Parameter],
                  dtype: torch.dtype, optimizer: Optimizer, group,
                  device: torch.device, modules: dict[int, torch.nn.Module]
-                 | None = None, host_opt=None):
+                 | None = None, host_opt=None, tensor=None):
+        self.tensor_group, self.sharded = tensor if tensor is not None \
+            else (None, None)
         self.plan, self.params, self.dtype = plan, params, dtype
         self.optimizer, self.group, self.device = optimizer, group, device
         self.world, self.rank = plan.world, plan.rank
@@ -326,6 +332,11 @@ class ZeroRuntime:
             tot = torch.zeros(n, 2, dtype=torch.float32, device=self.device)
             tot.index_add_(0, owners, torch.stack([w_sq, u_sq], dim=1))
             dist.all_reduce(tot, group=self.group)
+            if self.tensor_group is not None:
+                sharded = torch.tensor(self.sharded, device=self.device)
+                both = tot * sharded[:, None]
+                dist.all_reduce(both, group=self.tensor_group)
+                tot = torch.where(sharded[:, None], both, tot)
             return tot[owners, 0], tot[owners, 1]
 
         return reduce
@@ -389,10 +400,24 @@ class ZeroRuntime:
     # ------------------------------------------------------------------
     # reductions over the group
     def grad_sq_norm(self) -> torch.Tensor:
-        sq = torch.stack([torch.sum(torch.square(g))
-                          for g in self._segments(self.grad)]).sum()
+        if self.tensor_group is None:
+            sq = torch.stack([torch.sum(torch.square(g))
+                              for g in self._segments(self.grad)]).sum()
+            dist.all_reduce(sq, group=self.group)
+            return sq
+        # (sharded, replicated) squares of the partition, piece by piece
+        parts = [[], []]
+        for i in range(len(self.params)):
+            for _, ln, po in self.plan.pieces(i):
+                parts[not self.sharded[i]].append(
+                    torch.sum(torch.square(self.grad[po:po + ln])))
+        zero = torch.zeros((), device=self.device)
+        sq = torch.stack([torch.stack(p).sum() if p else zero
+                          for p in parts])
         dist.all_reduce(sq, group=self.group)
-        return sq
+        sharded = sq[0].clone()
+        dist.all_reduce(sharded, group=self.tensor_group)
+        return sharded + sq[1]
 
     def grads_finite(self) -> torch.Tensor:
         ok = torch.stack([torch.isfinite(g).all()

@@ -2002,17 +2002,18 @@ def _seq_rank_train(stage, steps):
     return _seq_train({"seq": 2}, stage, steps)
 
 
-def _seq_train(mesh, stage, steps):
+def _seq_train(mesh, stage, steps, dtype_name="float32"):
     import deepspeed_tpu_torch as dst
     from deepspeed_tpu_torch.models import build_model
     from deepspeed_tpu_torch.ops import flash_attention as fa
 
     torch.backends.cuda.matmul.allow_tf32 = False
+    dtype = getattr(torch, dtype_name)
     model = build_model("tiny-llama", hidden_size=256, device="cuda",
-                        dtype=torch.float32, seed=5)
+                        dtype=dtype, param_dtype=torch.float32, seed=5)
     e, *_ = dst.initialize(model=model, device="cuda", config={
         "train_micro_batch_size_per_gpu": 2, "gradient_accumulation_steps": 1,
-        "bf16": {"enabled": False}, "mesh": mesh,
+        "bf16": {"enabled": dtype == torch.bfloat16}, "mesh": mesh,
         "zero_optimization": {"stage": stage,
                               "stage3_param_persistence_threshold": 1000},
         "optimizer": {"type": "AdamW", "params": {"lr": 1e-3, "eps": 1e-5}}})
@@ -2052,4 +2053,30 @@ def test_seq_2_training_on_gloo_ranks_matches_one_rank(dev, stage, tmp_path):
         np.testing.assert_allclose(losses, want, rtol=1e-5)
         assert max(np.abs(a - b).max()
                    for a, b in zip(flat(m), flat(master))) <= 1e-5
+        assert (fwd, bwd, plain) == (2 * 3, 2 * 3, 0)
+
+
+def _tensor_rank_train(steps):
+    """A tensor-2 rank's bf16 tiny-llama training on the card over gloo:
+    its losses, master and K4 launches (at its 2 of the 4 heads)."""
+    return _seq_train({"tensor": 2}, 0, steps, "bfloat16")
+
+
+def test_tensor_2_training_on_gloo_ranks_matches_one_rank(dev, tmp_path):
+    """Two gloo ranks sharing the card train at {"tensor": 2} in bf16 with
+    an fp32 master (each rank its heads, FFN columns and vocab rows; the
+    Megatron all-reduces over gloo): losses within 2e-3 relative of one
+    rank at tensor 1 on the card (products over half the contraction may
+    round a bf16 ulp apart), the ranks' losses equal, K4 launched on each
+    rank at its own heads."""
+    import numpy as np
+
+    from deepspeed_tpu_torch.comm.spawn import RankPool
+
+    want, _, _ = _seq_train({"data": 1}, 0, 3, "bfloat16")
+    with RankPool(2, str(tmp_path)) as pool:
+        got = pool.run(_tensor_rank_train, 3)
+    for losses, _, (fwd, bwd, plain) in got:
+        np.testing.assert_allclose(losses, want, rtol=2e-3)
+        assert losses == got[0][0]
         assert (fwd, bwd, plain) == (2 * 3, 2 * 3, 0)

@@ -340,7 +340,8 @@ def test_what_the_slice_leaves_out_refuses(pools):
 def test_refusals_without_ranks():
     """One process: tp_overlap=True needs a ring (the JAX engine's
     ValueError), a serving replica refuses tensor parallelism (item 6a),
-    and the training engine still refuses a tensor axis (item 6b)."""
+    and the training engine still refuses a MoE model at tensor > 1 (item
+    6b part 3; dense models train there)."""
     from deepspeed_tpu_torch import initialize
     from deepspeed_tpu_torch.inference import InferenceEngineV2
     from deepspeed_tpu_torch.models import build_model
@@ -354,7 +355,8 @@ def test_refusals_without_ranks():
     with pytest.raises(NotImplementedError, match="item 6a"):
         EngineBackend({"model": "tiny-llama", "device": "cpu",
                        "engine": {"tensor_parallel": 2}})
-    with pytest.raises(NotImplementedError, match="item 6b"):
-        initialize(model=model, config={"train_batch_size": 2,
-                                        "mesh": {"tensor": 2}},
+    with pytest.raises(NotImplementedError, match="item 6b part 3"):
+        initialize(model=build_model("tiny-mixtral", device="cpu",
+                                     dtype=torch.float32),
+                   config={"train_batch_size": 2, "mesh": {"tensor": 2}},
                    device="cpu")

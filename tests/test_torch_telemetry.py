@@ -514,11 +514,68 @@ def test_prometheus_monitor_backend_exposes_write_counters(global_telem):
     assert "monitor_last_step 11.0" in text
 
 
-# Left out of this copy, with the JAX file's TP satellite:
-# test_tp_counter_base_rebase_never_negative and
-# test_overlap_breakdown_with_mixed_ring_blocking_totals read the tensor-
-# parallel overlap counters and the device-trace collective breakdown,
-# which come with the port of parallel/tensor.py (ROADMAP queue 1, item 6).
+# --------------------------------------------------------------------------
+# engine_v2 tp-counter rebase (test_overlap_breakdown_with_mixed_ring_
+# blocking_totals waits for profiling/trace.py, ROADMAP queue 1, item 7)
+# --------------------------------------------------------------------------
+
+def _fake_tp_engine():
+    from deepspeed_tpu_torch.inference.engine_v2 import InferenceEngineV2
+    from deepspeed_tpu_torch.parallel.tensor import overlap_counters
+
+    eng = types.SimpleNamespace(
+        stats={k: 0 for k in ("tp_ring_matmuls", "tp_ring_steps",
+                              "tp_bytes_permuted", "tp_fallbacks")},
+        _tp_counter_base=overlap_counters.snapshot())
+    eng._refresh_tp_stats = \
+        InferenceEngineV2._refresh_tp_stats.__get__(eng)
+    return eng
+
+
+def test_tp_counter_base_rebase_never_negative():
+    """Two engines share the process-wide overlap_counters; stats deltas
+    must accumulate per engine and NEVER go negative — even when someone
+    resets the global counters (bench zeroing) between refreshes."""
+    from deepspeed_tpu_torch.parallel.tensor import overlap_counters
+
+    try:
+        overlap_counters.reset()
+        e1, e2 = _fake_tp_engine(), _fake_tp_engine()
+        overlap_counters.ring(steps=3, bytes_permuted=300)
+        e1._refresh_tp_stats()
+        e2._refresh_tp_stats()
+        # shared-counter semantics: both engines see the union of new work
+        assert e1.stats["tp_ring_steps"] == 3 == e2.stats["tp_ring_steps"]
+        overlap_counters.ring(steps=1, bytes_permuted=100)
+        e1._refresh_tp_stats()
+        assert e1.stats["tp_ring_steps"] == 4       # only the delta added
+        assert e1.stats["tp_bytes_permuted"] == 400
+        # a process-wide reset drops the snapshot BELOW e1's base: the
+        # refresh must rebase to zero, not emit a negative delta
+        overlap_counters.reset()
+        e1._refresh_tp_stats()
+        assert all(v >= 0 for v in e1.stats.values())
+        assert e1.stats["tp_ring_steps"] == 4       # unchanged, not shrunk
+        overlap_counters.ring(steps=2, bytes_permuted=64)
+        e1._refresh_tp_stats()
+        e2._refresh_tp_stats()
+        assert e1.stats["tp_ring_steps"] == 6
+        # e2 missed the reset epoch entirely: rebase swallows the pre-reset
+        # history but never subtracts
+        assert e2.stats["tp_ring_steps"] >= 3
+        assert all(v >= 0 for v in e2.stats.values())
+        # bench-style zeroing of the ENGINE stats must not be clobbered by
+        # cumulative values on the next refresh — only new work lands
+        for k in e1.stats:
+            e1.stats[k] = 0
+        e1._refresh_tp_stats()                      # no new global work
+        assert all(v == 0 for v in e1.stats.values())
+        overlap_counters.fallback()
+        e1._refresh_tp_stats()
+        assert e1.stats["tp_fallbacks"] == 1 and e1.stats["tp_ring_steps"] == 0
+    finally:
+        # other suites (test_torch_tensor_parallel) reset before reading
+        overlap_counters.reset()
 
 
 # --------------------------------------------------------------------------

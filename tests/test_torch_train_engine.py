@@ -265,7 +265,11 @@ def test_dataloader_matches_the_jax_loader():
 
 
 DEFERRED = [
-    ({"mesh": {"tensor": 2}}, "'tensor': 2.*item 6"),
+    # tensor > 1 trains dense models (tests/test_torch_train_engine_tp.py)
+    # but not yet with ZeRO-Offload
+    ({"mesh": {"tensor": 2}, "zero_optimization": {
+        "stage": 1, "offload_optimizer": {"device": "cpu"}}},
+     "'tensor': 2.*item 6"),
     ({"zero_optimization": {"zero_quantized_weights": True}}, "ZeRO\\+\\+"),
     ({"optimizer": {"type": "OneBitAdam", "params": {}}}, "1-bit"),
     ({"data_efficiency": {"enabled": True}}, "curriculum"),

@@ -285,7 +285,7 @@ def test_seq_2_kv_gather_and_alibi_match_world_1(pool2, model):
 
 def test_seq_refusals(pool2):
     """What seq > 1 does not take yet raises, naming ROADMAP item 6b part
-    2; a sequence that does not split over the axis raises ValueError."""
+    3; a sequence that does not split over the axis raises ValueError."""
     import deepspeed_tpu_torch as dst
     from deepspeed_tpu_torch.models import build_model
 
@@ -294,16 +294,17 @@ def test_seq_refusals(pool2):
     custom = pool2.run(_refusal, LLAMA, config({"seq": 2}), True)
     for msg in moe + custom:
         assert msg.startswith("NotImplementedError") and \
-            "'seq': 2" in msg and "item 6b part 2" in msg, msg
+            "'seq': 2" in msg and "item 6b part 3" in msg, msg
     assert "MoE" in moe[0] and "loss_fn" in custom[0]
     split = pool2.run(_odd_length_refusal, LLAMA, config({"seq": 2}),
                       batches())
     assert all("do not split over seq 2" in m for m in split), split
-    for over in ({"zero_optimization": {"stage": 1, "offload_optimizer":
-                                        {"device": "cpu"}}},
-                 {"mesh": {"tensor": 2}}):
-        cfg = config({"seq": 2}, **over) if "mesh" not in over \
-            else config(**over)
-        with pytest.raises(NotImplementedError, match="item 6b part 2"):
-            dst.initialize(model=build_model("tiny-llama", device="cpu"),
+    # ZeRO-Offload at seq 2; a MoE model at tensor 2 (tensor > 1 trains
+    # dense models: tests/test_torch_train_engine_tp.py)
+    for name, cfg in (("tiny-llama", config({"seq": 2}, **{
+            "zero_optimization": {"stage": 1, "offload_optimizer":
+                                  {"device": "cpu"}}})),
+                      ("tiny-mixtral", config({"tensor": 2}))):
+        with pytest.raises(NotImplementedError, match="item 6b part 3"):
+            dst.initialize(model=build_model(name, device="cpu"),
                            config=cfg, device="cpu")
